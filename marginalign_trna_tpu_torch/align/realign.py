@@ -1,0 +1,321 @@
+"""Pair-HMM realignment of a chained SAM file, batched on one device.
+
+Port of marginalign_trna_tpu/align/realign.py (behavioural equivalent of
+the reference realignment stage, src/margin/marginAlignLib.py:265-370):
+optionally chain, then realign every record's aligned read region against
+its reference span with the banded pair-HMM posterior (ops/fb_cuda.py) and
+the AMAP decode (ops/mea.py), and splice the realigned cigar back between
+the original clips.  Jobs are cut at guide anchors, bucketed by size, and
+each bucket runs as one batch on the device.
+"""
+from __future__ import annotations
+
+import os
+import tempfile
+from dataclasses import dataclass
+from typing import List, Sequence, Tuple
+
+import numpy as np
+
+from marginalign_trna_tpu.align.chain import chain_sam_file
+from marginalign_trna_tpu.io.fasta import get_fasta_dictionary
+from marginalign_trna_tpu.io.sam import SamFile, SamRecord
+from marginalign_trna_tpu.models.hmm import PairHmm
+from marginalign_trna_tpu.utils.seq import encode
+
+from ..ops.band import pack_banded_batch, path_from_cigar
+from ..ops.fb import device_batch, tables_from_hmm
+from ..ops.fb_cuda import posteriors_pre
+from ..ops.mea import mea_decode
+
+# Band width = 2 * diagonalExpansion + 1 with the reference's expansion of 10
+# (src/margin/marginAlignLib.py:315).
+DEFAULT_BAND_WIDTH = 21
+
+# Reference realign-path --splitMatrixBiggerThanThis
+# (src/margin/marginAlignLib.py:316); 0 disables splitting.
+DEFAULT_SPLIT_SIZE = 3000
+
+
+@dataclass
+class RealignJob:
+    record: SamRecord
+    read_region: np.ndarray  # encoded aligned read bases
+    ref_region: np.ndarray   # encoded reference span
+    path: Tuple[np.ndarray, np.ndarray]
+
+
+def _jobs_from_sam(
+    sam: SamFile, ref_sequences, encode_fn
+) -> List[RealignJob]:
+    jobs = []
+    for rec in sam.mapped():
+        read_region = rec.query_alignment_sequence
+        ref_seq = ref_sequences[rec.rname]
+        ref_region = ref_seq[rec.reference_start : rec.reference_end]
+        aligned_ops = [(op, l) for op, l in rec.cigar if op in (0, 1, 2)]
+        if not aligned_ops or not read_region or not ref_region:
+            continue
+        pd, pi = path_from_cigar(aligned_ops)
+        jobs.append(
+            RealignJob(
+                record=rec,
+                read_region=encode_fn(read_region),
+                ref_region=encode_fn(ref_region),
+                path=(pd, pi),
+            )
+        )
+    return jobs
+
+
+def split_job_at_anchors(
+    job: RealignJob, split_size: int
+) -> List[RealignJob]:
+    """Decompose one alignment problem at guide-path anchor points so that
+    no sub-matrix side exceeds split_size; each segment realigns
+    independently, pinned through the anchor pair, and the segment results
+    concatenate in order.
+
+    Behavioural equivalent of cPecanRealign --splitMatrixBiggerThanThis=n
+    [reconstructed from the call sites: n=3000 realign
+    (src/margin/marginAlignLib.py:316), 300 EM (src/margin/marginAlign.py:41),
+    100 caller / 1 noMargin (src/margin/marginCallerLib.py:50,55)]: the
+    reference cuts large DP matrices into independent sub-problems at
+    confident anchor points of the guide alignment.  split_size <= 0
+    disables splitting (exact full-length DP)."""
+    m = len(job.read_region)
+    n = len(job.ref_region)
+    if split_size <= 0 or max(m, n) <= split_size or min(m, n) < 2:
+        return [job]
+    pd, pi = job.path
+    pj = pd - pi
+    D = m + n
+    k = -(-D // split_size)
+    if k < 2:
+        return [job]
+    # Cut points ON the guide path (anchors must be actual guide pairs):
+    # inside a match run the path is exactly diagonal, so any interior
+    # (i, j) is a guide pair; inside an indel run snap to the nearer
+    # vertex.  Cutting in d-space bounds every segment's m+n (hence both
+    # sides) by ~split_size.
+    keep = []
+    last_i, last_j = 0, 0
+    for c in range(1, k):
+        dt = int(round(c * D / k))
+        t = int(np.searchsorted(pd, dt, side="right")) - 1
+        t = min(max(t, 0), len(pd) - 2)
+        dd = int(pd[t + 1] - pd[t])
+        di = int(pi[t + 1] - pi[t])
+        if di > 0 and dd == 2 * di:
+            step = min(max((dt - int(pd[t])) // 2, 0), di)
+            ic = int(pi[t]) + step
+            jc = int(pj[t]) + step
+        elif dt - pd[t] <= pd[t + 1] - dt:
+            ic, jc = int(pi[t]), int(pj[t])
+        else:
+            ic, jc = int(pi[t + 1]), int(pj[t + 1])
+        if last_i < ic < m and last_j < jc < n:
+            keep.append((ic, jc))
+            last_i, last_j = ic, jc
+    bounds = [(0, 0)] + keep + [(m, n)]
+    if len(bounds) == 2:
+        return [job]
+
+    out = []
+    for (i0, j0), (i1, j1) in zip(bounds[:-1], bounds[1:]):
+        ms, ns = i1 - i0, j1 - j0
+        d0, d1 = i0 + j0, i1 + j1
+        sel = (pd > d0) & (pd < d1) & (pi >= i0) & (pi <= i1) \
+            & (pj >= j0) & (pj <= j1)
+        sub_d = np.concatenate([[0], pd[sel] - d0, [ms + ns]])
+        sub_i = np.concatenate([[0], pi[sel] - i0, [ms]])
+        # Keep strictly-increasing d (band_offsets interpolates vertices).
+        uniq = np.concatenate([[True], np.diff(sub_d) > 0])
+        out.append(
+            RealignJob(
+                record=job.record,
+                read_region=job.read_region[i0:i1],
+                ref_region=job.ref_region[j0:j1],
+                path=(sub_d[uniq], sub_i[uniq]),
+            )
+        )
+    return out
+
+
+def _merge_op_runs(ops: List[Tuple[int, int]]) -> List[Tuple[int, int]]:
+    """Merge adjacent same-op runs (segment concatenation seams)."""
+    out: List[Tuple[int, int]] = []
+    for op, ln in ops:
+        if out and out[-1][0] == op:
+            out[-1] = (op, out[-1][1] + ln)
+        else:
+            out.append((op, ln))
+    return out
+
+
+def split_jobs_at_anchors(
+    jobs: Sequence[RealignJob], split_size: int
+) -> Tuple[List[RealignJob], List[int], List[Tuple[int, int]]]:
+    """Explode jobs into anchor segments.  Returns (segments, origin,
+    seg_starts) where origin[s] = source job index (segments of one job
+    stay contiguous and ordered) and seg_starts[s] = (i0, j0) of the
+    segment inside its job's aligned region."""
+    segs: List[RealignJob] = []
+    origin: List[int] = []
+    starts: List[Tuple[int, int]] = []
+    for idx, job in enumerate(jobs):
+        pieces = split_job_at_anchors(job, split_size)
+        i0 = j0 = 0
+        for p in pieces:
+            segs.append(p)
+            origin.append(idx)
+            starts.append((i0, j0))
+            i0 += len(p.read_region)
+            j0 += len(p.ref_region)
+    return segs, origin, starts
+
+
+def _bucket_jobs(
+    jobs: Sequence[RealignJob], width: int, max_batch_cells: int
+) -> List[List[int]]:
+    """Group job indices into batches bounded by padded DP volume, after
+    sorting by size so padding waste stays low (the reference's analog is
+    the maxAlignmentLengthPerJob chunker, src/margin/utils.py:157-176)."""
+    order = sorted(
+        range(len(jobs)),
+        key=lambda idx: len(jobs[idx].read_region) + len(jobs[idx].ref_region),
+    )
+    buckets: List[List[int]] = []
+    cur: List[int] = []
+    cur_max_d = 0
+    for idx in order:
+        d = len(jobs[idx].read_region) + len(jobs[idx].ref_region) + 1
+        new_max = max(cur_max_d, d)
+        if cur and new_max * (len(cur) + 1) * width > max_batch_cells:
+            buckets.append(cur)
+            cur, cur_max_d = [], 0
+            new_max = d
+        cur.append(idx)
+        cur_max_d = new_max
+    if cur:
+        buckets.append(cur)
+    return buckets
+
+
+def realigned_ops_for_jobs(
+    jobs: Sequence[RealignJob],
+    hmm: PairHmm,
+    gap_gamma: float,
+    match_gamma: float,
+    device,
+    band_width: int = DEFAULT_BAND_WIDTH,
+    # Padded DP cells per device batch.
+    max_batch_cells: int = 128_000_000,
+    split_size: int = 0,
+) -> List[List[Tuple[int, int]]]:
+    """Run FB + MEA for every job on `device`; returns realigned
+    aligned-region ops.
+
+    split_size > 0 decomposes each problem at guide-path anchors
+    (split_job_at_anchors) and concatenates the per-segment cigars.  Models
+    with non-flat gap emissions raise NotImplementedError (ops/fb_cuda.py)."""
+    if split_size and split_size > 0:
+        segs, origin, _ = split_jobs_at_anchors(jobs, split_size)
+        if len(segs) != len(jobs):
+            seg_ops = realigned_ops_for_jobs(
+                segs, hmm, gap_gamma, match_gamma, device, band_width,
+                max_batch_cells, split_size=0,
+            )
+            out: List[List[Tuple[int, int]]] = [[] for _ in jobs]
+            for s_idx, j_idx in enumerate(origin):
+                out[j_idx].extend(seg_ops[s_idx])
+            return [_merge_op_runs(ops) for ops in out]
+
+    tables = tables_from_hmm(hmm, device)
+    results: List[List[Tuple[int, int]]] = [[] for _ in jobs]
+    for bucket in _bucket_jobs(jobs, band_width, max_batch_cells):
+        batch = pack_banded_batch(
+            [jobs[i].read_region for i in bucket],
+            [jobs[i].ref_region for i in bucket],
+            width=band_width,
+            paths=[jobs[i].path for i in bucket],
+            quantize=True,
+        )
+        dev = device_batch(batch, device)
+        _, post = posteriors_pre(tables, dev)
+        ops_list = mea_decode(post, batch, dev, gap_gamma, match_gamma)
+        for local_b, job_idx in enumerate(bucket):
+            results[job_idx] = ops_list[local_b]
+    return results
+
+
+def splice_realigned_cigar(
+    rec: SamRecord, new_ops: List[Tuple[int, int]]
+) -> SamRecord:
+    """Replace a record's aligned ops with realigned ones, re-adding
+    soft/hard clips, with the reference's consistency assertions
+    (realignSamFile3TargetFn, src/margin/marginAlignLib.py:320-367)."""
+    out = rec.copy()
+    ops: List[Tuple[int, int]] = []
+    if rec.cigar and rec.cigar[0][0] == 5:
+        ops.append(rec.cigar[0])
+    if rec.query_alignment_start > 0:
+        ops.append((4, rec.query_alignment_start))
+    ops.extend(new_ops)
+    if rec.query_alignment_end < len(rec.query_sequence):
+        ops.append((4, len(rec.query_sequence) - rec.query_alignment_end))
+    if len(rec.cigar) > 1 and rec.cigar[-1][0] == 5:
+        ops.append(rec.cigar[-1])
+
+    # Read-length consistency.
+    assert sum(l for op, l in ops if op in (0, 1, 4)) == sum(
+        l for op, l in rec.cigar if op in (0, 1, 4)
+    )
+    # Reference-span consistency.
+    assert (
+        sum(l for op, l in ops if op in (0, 2))
+        == rec.reference_end - rec.reference_start
+    )
+    out.cigar = ops
+    return out
+
+
+def realign_sam_file(
+    sam_path: str,
+    output_sam_path: str,
+    read_fastq_path: str,
+    reference_fasta_path: str,
+    hmm: PairHmm,
+    device,
+    gap_gamma: float = 0.5,
+    match_gamma: float = 0.0,
+    no_chain: bool = False,
+    band_width: int = DEFAULT_BAND_WIDTH,
+    split_size: int = DEFAULT_SPLIT_SIZE,
+) -> None:
+    """Chain (optional) + realign a SAM file end to end on `device`."""
+    work_sam = sam_path
+    tmp = None
+    if not no_chain:
+        tmp = tempfile.NamedTemporaryFile(
+            mode="w", suffix=".sam", delete=False
+        )
+        tmp.close()
+        chain_sam_file(
+            sam_path, tmp.name, read_fastq_path, reference_fasta_path
+        )
+        work_sam = tmp.name
+
+    try:
+        sam = SamFile.read(work_sam)
+        ref_sequences = get_fasta_dictionary(reference_fasta_path)
+        jobs = _jobs_from_sam(sam, ref_sequences, encode)
+        all_ops = realigned_ops_for_jobs(jobs, hmm, gap_gamma, match_gamma,
+                                         device, band_width,
+                                         split_size=split_size)
+        realigned = [splice_realigned_cigar(job.record, ops)
+                     for job, ops in zip(jobs, all_ops)]
+        SamFile(sam.header, realigned).write(output_sam_path)
+    finally:
+        if tmp is not None:
+            os.unlink(tmp.name)

@@ -1,0 +1,172 @@
+"""Build, load and launch the port's CUDA kernels.
+
+Every `csrc/*.cu` source compiles with nvcc for Hopper (sm_90a) into one
+shared library with a plain C interface, loaded with ctypes.  The build runs
+at first CUDA use, from the sources in this package only, into
+`build/torch_kernels/<hash of the sources and flags>/` at the repository
+root (listed in .gitignore), so an edited source rebuilds and an unchanged
+one loads the cached library.  Nothing here runs at import time: the CPU
+tests import every module of the port on machines with no CUDA toolkit.
+
+Each C entry point returns a cudaError_t; `launch` raises on anything but
+cudaSuccess and counts the launch, so a run can show which kernels it went
+through (`launch_counts`, `reset_launch_counts`).  `check_tensor` is the
+wrappers' argument check.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Dict, List, Optional
+
+import torch
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
+LIB_NAME = "libmarginalign_kernels.so"
+# -fmad=false: no multiply-add contraction, so the forward-backward kernels
+# round exactly like their plain versions (separate torch mul and add).
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# Kernel name -> argument types of its C entry point `<name>_launch`
+# (csrc/*.cu); every entry point returns int (a cudaError_t) and takes the
+# CUDA stream last.
+_SIGNATURES: Dict[str, List] = {
+    # xb, yb, valid, s1, s2, final_d, final_k, D1, Wp, B,
+    # match, mismatch, gap_open, gap_extend, ptr, score, final_state, stream
+    "banded_nw": [_P] * 7 + [_I] * 3 + [_F] * 4 + [_P] * 4,
+    # wdiag, wup, wleft, valid, s1, s2, final_d, final_k, D1, Wp, B,
+    # ptr, score, stream
+    "banded_mea": [_P] * 8 + [_I] * 3 + [_P] * 3,
+    # valid, em, s1, final_d, final_k, coef(host), D1, Wp, B,
+    # bm, bls, logZ, stream
+    "fb_backward": [_P] * 6 + [_I] * 3 + [_P] * 4,
+    # em, valid, s1, bm, bls, logZ, coef(host), D1, Wp, B, post, stream
+    "fb_forward": [_P] * 7 + [_I] * 3 + [_P] * 2,
+}
+
+launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}
+
+_lib: Optional[ctypes.CDLL] = None
+_build_log: str = ""
+
+
+def reset_launch_counts() -> None:
+    for name in launch_counts:
+        launch_counts[name] = 0
+
+
+def _sources() -> List[str]:
+    return sorted(
+        os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+        if f.endswith((".cu", ".cuh"))
+    )
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    path = cand if cand and os.path.exists(cand) else shutil.which("nvcc")
+    if not path:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build from source at first "
+            "use and need the CUDA toolkit (set CUDA_HOME)"
+        )
+    return path
+
+
+def _build_dir(nvcc: str) -> str:
+    h = hashlib.sha256()
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as fh:
+            h.update(fh.read())
+    h.update(" ".join([nvcc] + NVCC_FLAGS).encode())
+    return os.path.join(BUILD_ROOT, h.hexdigest()[:16])
+
+
+def build() -> str:
+    """Compile csrc/*.cu unless the library for these sources exists;
+    returns its path.  Raises with nvcc's output if compilation fails."""
+    global _build_log
+    nvcc = _nvcc()
+    out_dir = _build_dir(nvcc)
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    cu = [s for s in _sources() if s.endswith(".cu")]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+    os.close(fd)
+    try:
+        proc = subprocess.run(
+            [nvcc] + NVCC_FLAGS + ["-o", tmp] + cu,
+            capture_output=True, text=True,
+        )
+        _build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (exit %d):\n%s" % (proc.returncode, _build_log)
+            )
+        os.replace(tmp, lib_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return lib_path
+
+
+def build_log() -> str:
+    """nvcc's output (register and shared-memory use per kernel) from the
+    build this process ran, or "" when it loaded a cached library."""
+    return _build_log
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(build())
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name + "_launch")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.marginalign_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.marginalign_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check_tensor(t: torch.Tensor, dtype, shape, device) -> None:
+    """Raise unless t is a contiguous `dtype` tensor of `shape` on
+    `device`: what a kernel's entry point assumes of its pointers."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError("expected %s%s, got %s%s"
+                         % (dtype, tuple(shape), t.dtype, tuple(t.shape)))
+    if t.device != device or not t.is_contiguous():
+        raise ValueError("expected a contiguous tensor on %s" % device)
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Launch kernel `name` on `device` (made current for the call) and its
+    current stream, which is appended to `args`; raise if the entry point
+    reports a CUDA error."""
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name + "_launch")(*args, stream)
+    if err != 0:
+        msg = lib.marginalign_cuda_error_string(err).decode()
+        raise RuntimeError("%s failed: CUDA error %d (%s)" % (name, err, msg))
+    launch_counts[name] += 1

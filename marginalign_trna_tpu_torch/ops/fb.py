@@ -1,0 +1,97 @@
+"""Pair-HMM model tables and banded device batches.
+
+The band geometry (prefix coordinates, [D1, Wp, B] streams) is the JAX
+package's, packed on the host by ops/band.py; this module
+moves a packed batch and the model tables onto an explicit torch device.
+State layout and model semantics are in models/hmm.py.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from marginalign_trna_tpu.models.hmm import PairHmm
+
+from .band import BandedBatch
+
+
+class FbTables(nn.Module):
+    """Model tables as buffers (float32):
+    T [5, 5] transitions (from, to), Ematch [5, 5] match emissions over codes
+    (ref, read), Egap [5, 5] per-state single-base gap emissions, pi [5]
+    start distribution.  Move with `.to(device)`."""
+
+    def __init__(self, T, Ematch, Egap, pi, device=None):
+        super().__init__()
+        for name, val in (("T", T), ("Ematch", Ematch), ("Egap", Egap),
+                          ("pi", pi)):
+            self.register_buffer(
+                name, torch.tensor(np.asarray(val, np.float32),
+                                   device=device)
+            )
+
+
+def tables_from_hmm(hmm: PairHmm, device=None) -> FbTables:
+    return FbTables(
+        T=hmm.transitions,
+        Ematch=hmm.match_emissions_5x5(),
+        Egap=hmm.gap_emissions_5(),
+        pi=np.full(5, 0.2),
+        device=device,
+    )
+
+
+def tables_from_file(path: str, device=None) -> FbTables:
+    """Tables of a model file (the format of models/hmm.py)."""
+    return tables_from_hmm(PairHmm.load(path), device)
+
+
+def tables_from_jax(np_tables, device=None) -> FbTables:
+    """The port's tables from the JAX package's FbTables (any object with
+    T/Ematch/Egap/pi array fields, e.g. after `jax.device_get`), so both
+    packages compute with identical float32 values."""
+    return FbTables(
+        T=np_tables.T, Ematch=np_tables.Ematch, Egap=np_tables.Egap,
+        pi=np_tables.pi, device=device,
+    )
+
+
+class DeviceBatch(NamedTuple):
+    """BandedBatch streams as tensors on one device (see ops/band.py):
+    xb, yb int8 [D1, Wp, B]; valid bool [D1, Wp, B]; s1, s2 int32 [D1, B];
+    final_d, final_k int32 [B]."""
+
+    xb: torch.Tensor
+    yb: torch.Tensor
+    valid: torch.Tensor
+    s1: torch.Tensor
+    s2: torch.Tensor
+    final_d: torch.Tensor
+    final_k: torch.Tensor
+
+
+def shift(a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """out[k] = a[k + t] per lane for t in {-1, 0, 1}; a is [..., Wp, B], t
+    is [B].  Circular, like the kernels: wrapped rows land in guard rows,
+    which `valid` masks."""
+    up = torch.roll(a, -1, dims=-2)    # out[k] = a[k + 1]
+    down = torch.roll(a, 1, dims=-2)   # out[k] = a[k - 1]
+    return torch.where(t == 1, up, torch.where(t == -1, down, a))
+
+
+def device_batch(batch: BandedBatch, device) -> DeviceBatch:
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return DeviceBatch(
+        xb=up(batch.xb, np.int8),
+        yb=up(batch.yb, np.int8),
+        valid=up(batch.valid, np.bool_),
+        s1=up(batch.s1, np.int32),
+        s2=up(batch.s2, np.int32),
+        final_d=up(batch.final_d, np.int32),
+        final_k=up(batch.final_k, np.int32),
+    )

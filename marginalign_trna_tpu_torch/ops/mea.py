@@ -1,0 +1,141 @@
+"""Maximum-expected-accuracy (AMAP) realignment decode.
+
+Port of marginalign_trna_tpu/ops/mea.py on its non-fused path.  Objective
+over a monotone alignment path:
+    sum_{matched (i,j)} p(i,j) + gapGamma * sum_{skipped read i} (1 - r_i)
+                              + gapGamma * sum_{skipped ref j} (1 - c_j)
+where p is the posterior match probability (ops/fb_cuda.py) and r_i / c_j
+its row and column sums.  Pairs with p < matchGamma are disallowed.  The
+gap weights are plain torch on the posterior's device; the DP is the
+banded_mea kernel (or its plain version on the CPU); the cigar comes from
+the native host traceback of the uint8 pointer band.
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from marginalign_trna_tpu import native as _native
+
+from .band import BandedBatch
+from .dispatch import use_kernel
+from .fb import DeviceBatch
+from .wavefront_cuda import NEG, banded_mea_cuda, banded_mea_plain
+
+
+class MeaResult(NamedTuple):
+    pointers: torch.Tensor  # [D1, Wp, B] uint8 (0=diag, 1=left/ref, 2=up/read)
+    score: torch.Tensor     # [B]
+
+
+def mea_weights(
+    post: torch.Tensor, valid: torch.Tensor, lo: torch.Tensor,
+    gap_gamma: float, max_m: int, max_n: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-cell gap weights (wup, wleft) [D1, Wp, B] from banded posteriors.
+    wup[d,k,b] applies to the move that skips read symbol i-1, wleft to the
+    move skipping ref symbol j-1; both are gapGamma * (1 - posterior mass of
+    that row / column), clipped to [0, gapGamma].  lo is the [D1, B] band
+    offset stream; max_m / max_n bound the read / ref lengths."""
+    D1, Wp, B = post.shape
+    dev = post.device
+    d = torch.arange(D1, device=dev, dtype=torch.int64)[:, None]
+    lo64 = lo.to(torch.int64)
+    rows = torch.zeros((max(max_m, 1), B), dtype=post.dtype, device=dev)
+    cols = torch.zeros((max(max_n, 1), B), dtype=post.dtype, device=dev)
+    # Band row by band row: i = lo + k, j = d - i; each row scatters one
+    # [D1, B] slab into the per-position sums.
+    for k in range(Wp):
+        i = lo64 + k
+        j = d - i
+        ok = valid[:, k, :] & (i >= 1) & (j >= 1)
+        w = torch.where(ok, post[:, k, :], 0.0)
+        rows.scatter_add_(0, (i - 1).clamp(0, rows.shape[0] - 1), w)
+        cols.scatter_add_(0, (j - 1).clamp(0, cols.shape[0] - 1), w)
+    g_read = gap_gamma * torch.clamp(1.0 - rows, 0.0, 1.0)
+    g_ref = gap_gamma * torch.clamp(1.0 - cols, 0.0, 1.0)
+    wup = torch.zeros_like(post)
+    wleft = torch.zeros_like(post)
+    for k in range(Wp):
+        i = lo64 + k
+        j = d - i
+        vk = valid[:, k, :]
+        gu = g_read.gather(0, (i - 1).clamp(0, g_read.shape[0] - 1))
+        gl = g_ref.gather(0, (j - 1).clamp(0, g_ref.shape[0] - 1))
+        wup[:, k, :] = torch.where(vk & (i >= 1), gu, 0.0)
+        wleft[:, k, :] = torch.where(vk & (j >= 1), gl, 0.0)
+    return wup, wleft
+
+
+def banded_mea(wdiag, wup, wleft, valid, s1, s2, final_d,
+               final_k) -> MeaResult:
+    """The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors."""
+    fn = banded_mea_cuda if use_kernel(wdiag) else banded_mea_plain
+    return MeaResult(*fn(wdiag, wup, wleft, valid, s1, s2, final_d, final_k))
+
+
+def mea_decode(
+    post: torch.Tensor,
+    batch: BandedBatch,
+    dev: DeviceBatch,
+    gap_gamma: float = 0.5,
+    match_gamma: float = 0.0,
+) -> List[List[Tuple[int, int]]]:
+    """Realigned ops [(op, len)] (0=M, 1=I, 2=D spanning the full (m, n)
+    region) for every lane of the batch.  post is the [D1, Wp, B] posterior
+    match band on dev's device; batch is the host packing of dev."""
+    B = post.shape[2]
+    lo = torch.from_numpy(np.ascontiguousarray(batch.lo)).to(post.device)
+    wup, wleft = mea_weights(post, dev.valid, lo, gap_gamma,
+                             int(batch.m.max()), int(batch.n.max()))
+    wdiag = torch.where((post >= match_gamma) & (post > 0), post, NEG)
+    res = banded_mea(wdiag, wup, wleft, dev.valid, dev.s1, dev.s2,
+                     dev.final_d, dev.final_k)
+    pointers = np.ascontiguousarray(res.pointers.cpu().numpy())
+    return [_traceback_one(pointers, batch, b) for b in range(B)]
+
+
+def _traceback_one(
+    pointers: np.ndarray, batch: BandedBatch, b: int
+) -> List[Tuple[int, int]]:
+    m, n = int(batch.m[b]), int(batch.n[b])
+    lo = batch.lo[:, b]
+    nat = _native.mea_traceback(pointers, lo, b, m, n)
+    if nat is not None:
+        return nat
+    i, j = m, n
+    ops_rev: List[int] = []
+    while not (i == 0 and j == 0):
+        if i == 0:
+            ops_rev.append(2)
+            j -= 1
+            continue
+        if j == 0:
+            ops_rev.append(1)
+            i -= 1
+            continue
+        d = i + j
+        k = i - int(lo[d])
+        p = int(pointers[d, k, b])
+        if p == 0:
+            ops_rev.append(0)
+            i -= 1
+            j -= 1
+        elif p == 1:
+            ops_rev.append(2)
+            j -= 1
+        else:
+            ops_rev.append(1)
+            i -= 1
+        assert i >= 0 and j >= 0
+    ops_rev.reverse()
+    out: List[Tuple[int, int]] = []
+    for op in ops_rev:
+        if out and out[-1][0] == op:
+            out[-1] = (op, out[-1][1] + 1)
+        else:
+            out.append((op, 1))
+    return out

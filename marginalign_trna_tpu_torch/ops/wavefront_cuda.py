@@ -1,0 +1,160 @@
+"""Max-plus banded wavefronts (guide Viterbi and MEA decode): the CUDA
+kernels (csrc/nw.cu, csrc/mea.cu) and their plain PyTorch versions.
+
+Port of marginalign_trna_tpu/ops/wavefront_pallas.py `banded_nw_pallas` and
+`banded_mea_pallas`.  Max-plus scores need no rescaling, so both versions
+only shift, add and compare; with the same order of operations (circular
+row shifts, first-max-wins ties) they agree bit for bit.
+
+Pointer encodings (read by the native host tracebacks):
+  NW:  uint8  ptrM (2 bits) | ptrIx << 2 | ptrIy << 3
+  MEA: uint8  0 = diag, 1 = left (ref skip), 2 = up (read skip)
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from . import _build
+from ._build import check_tensor
+from .fb import shift
+
+NEG = -1e30
+
+
+def _max_argmax3(v0, v1, v2) -> Tuple[torch.Tensor, torch.Tensor]:
+    m01 = torch.maximum(v0, v1)
+    p01 = (v1 > v0).to(torch.uint8)
+    p = torch.where(v2 > m01, torch.full_like(p01, 2), p01)
+    return torch.maximum(m01, v2), p
+
+
+def _terminal(vals, final_d, final_k, d, term):
+    """Keep each lane's (max(value, NEG)) at band row final_k on its
+    terminal diagonal final_d."""
+    lanes = torch.arange(final_k.shape[0], device=final_k.device)
+    at = torch.stack([v[final_k.long(), lanes] for v in vals])
+    at = torch.clamp(at, min=NEG)
+    return torch.where((final_d == d)[None, :], at, term)
+
+
+# ------------------------------------------------------------------------ NW
+
+
+def banded_nw_plain(params, xb, yb, valid, s1, s2, final_d, final_k):
+    """Plain version of the banded_nw kernel: (pointers uint8 [D1, Wp, B],
+    score [B], final_state int32 [B]).  params = (match, mismatch,
+    gap_open, gap_extend)."""
+    match, mismatch, gap_open, gap_extend = (float(p) for p in params)
+    D1, Wp, B = xb.shape
+    dev = xb.device
+    neg = torch.full((Wp, B), NEG, dtype=torch.float32, device=dev)
+    m1 = neg.clone()
+    m1[0] = 0.0
+    x1, y1 = neg, neg
+    best1, arg1 = _max_argmax3(m1, x1, y1)              # generation d - 1
+    best2, arg2 = neg, torch.zeros_like(arg1)           # generation d - 2
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    ptr[0] = 0
+    term = _terminal((m1, x1, y1), final_d, final_k, 0,
+                     torch.full((3, B), NEG, device=dev))
+    for d in range(1, D1):
+        x, y, v = xb[d], yb[d], valid[d]
+        t1, t2 = s1[d], s2[d]
+        sub = torch.where(
+            (x == y) & (x < 4), match,
+            torch.where((x >= 4) | (y >= 4), 0.0, mismatch),
+        ).to(torch.float32)
+        mv = shift(best2, t2 - 1) + sub
+        mp = shift(arg2, t2 - 1)
+        io = shift(m1, t1) + gap_open
+        ie = shift(x1, t1) + gap_extend
+        vo = shift(m1, t1 - 1) + gap_open
+        ve = shift(y1, t1 - 1) + gap_extend
+        nm = torch.where(v, mv, NEG)
+        nx = torch.where(v, torch.maximum(io, ie), NEG)
+        ny = torch.where(v, torch.maximum(vo, ve), NEG)
+        ptr[d] = (mp | ((ie > io).to(torch.uint8) << 2)
+                  | ((ve > vo).to(torch.uint8) << 3))
+        term = _terminal((nm, nx, ny), final_d, final_k, d, term)
+        best2, arg2 = best1, arg1
+        best1, arg1 = _max_argmax3(nm, nx, ny)
+        m1, x1, y1 = nm, nx, ny
+    best, st = _max_argmax3(term[0], term[1], term[2])
+    return ptr, best, st.to(torch.int32)
+
+
+def banded_nw_cuda(params, xb, yb, valid, s1, s2, final_d, final_k):
+    """The banded_nw kernel (csrc/nw.cu); same outputs as the plain
+    version."""
+    D1, Wp, B = xb.shape
+    dev = xb.device
+    for t, dt in ((xb, torch.int8), (yb, torch.int8), (valid, torch.bool)):
+        check_tensor(t, dt, (D1, Wp, B), dev)
+    check_tensor(s1, torch.int32, (D1, B), dev)
+    check_tensor(s2, torch.int32, (D1, B), dev)
+    check_tensor(final_d, torch.int32, (B,), dev)
+    check_tensor(final_k, torch.int32, (B,), dev)
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    state = torch.empty((B,), dtype=torch.int32, device=dev)
+    match, mismatch, gap_open, gap_extend = (float(p) for p in params)
+    _build.launch(
+        "banded_nw", dev, xb.data_ptr(), yb.data_ptr(), valid.data_ptr(),
+        s1.data_ptr(), s2.data_ptr(), final_d.data_ptr(), final_k.data_ptr(),
+        D1, Wp, B, match, mismatch, gap_open, gap_extend,
+        ptr.data_ptr(), score.data_ptr(), state.data_ptr(),
+    )
+    return ptr, score, state
+
+
+# ----------------------------------------------------------------------- MEA
+
+
+def banded_mea_plain(wdiag, wup, wleft, valid, s1, s2, final_d, final_k):
+    """Plain version of the banded_mea kernel: (pointers uint8 [D1, Wp, B],
+    score [B])."""
+    D1, Wp, B = wdiag.shape
+    dev = wdiag.device
+    a2 = torch.full((Wp, B), NEG, dtype=torch.float32, device=dev)
+    a1 = a2.clone()
+    a1[0] = 0.0
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    ptr[0] = 0
+    term = _terminal((a1,), final_d, final_k, 0,
+                     torch.full((1, B), NEG, device=dev))
+    for d in range(1, D1):
+        t1, t2 = s1[d], s2[d]
+        diag = shift(a2, t2 - 1) + wdiag[d]
+        left = shift(a1, t1) + wleft[d]
+        up = shift(a1, t1 - 1) + wup[d]
+        a, p = _max_argmax3(diag, left, up)
+        a = torch.where(valid[d], a, NEG)
+        ptr[d] = p
+        term = _terminal((a,), final_d, final_k, d, term)
+        a2, a1 = a1, a
+    return ptr, term[0]
+
+
+def banded_mea_cuda(wdiag, wup, wleft, valid, s1, s2, final_d, final_k):
+    """The banded_mea kernel (csrc/mea.cu); same outputs as the plain
+    version."""
+    D1, Wp, B = wdiag.shape
+    dev = wdiag.device
+    for t in (wdiag, wup, wleft):
+        check_tensor(t, torch.float32, (D1, Wp, B), dev)
+    check_tensor(valid, torch.bool, (D1, Wp, B), dev)
+    check_tensor(s1, torch.int32, (D1, B), dev)
+    check_tensor(s2, torch.int32, (D1, B), dev)
+    check_tensor(final_d, torch.int32, (B,), dev)
+    check_tensor(final_k, torch.int32, (B,), dev)
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    _build.launch(
+        "banded_mea", dev, wdiag.data_ptr(), wup.data_ptr(),
+        wleft.data_ptr(), valid.data_ptr(), s1.data_ptr(), s2.data_ptr(),
+        final_d.data_ptr(), final_k.data_ptr(), D1, Wp, B, ptr.data_ptr(),
+        score.data_ptr(),
+    )
+    return ptr, score

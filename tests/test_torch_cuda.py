@@ -1,0 +1,92 @@
+"""The port's CUDA kernels vs their plain PyTorch versions, on the card.
+
+Marked `cuda`: these skip on a machine without a CUDA device.  On the card:
+    python -m pytest tests/test_torch_cuda.py -q
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from marginalign_trna_tpu.models.hmm import PairHmm
+from marginalign_trna_tpu.ops.band import pack_banded_batch, path_from_cigar
+from marginalign_trna_tpu_torch.ops import _build, fb_cuda, wavefront_cuda
+from marginalign_trna_tpu_torch.ops.fb import device_batch, tables_from_hmm
+from marginalign_trna_tpu_torch.ops.mea import NEG, mea_weights
+
+pytestmark = pytest.mark.cuda
+
+MODEL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                     "marginalign_trna_tpu", "models", "last_hmm_20.txt")
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _batch(width, seed=0, n=6):
+    rng = np.random.default_rng(seed)
+    reads, refs, paths = [], [], []
+    for b in range(n):
+        ref = rng.integers(0, 4, size=int(rng.integers(20, 120)))
+        cut = len(ref) // 2
+        read = np.concatenate([ref[:cut], ref[cut + 3:]]).astype(np.int8)
+        read[rng.random(len(read)) < 0.1] = int(rng.integers(0, 5))
+        reads.append(read)
+        refs.append(ref.astype(np.int8))
+        paths.append(path_from_cigar([(0, cut), (2, 3),
+                                      (0, len(ref) - cut - 3)]))
+    return pack_banded_batch(reads, refs, width=width, paths=paths,
+                             pad_batch_to=40)
+
+
+@pytest.mark.parametrize("width", [9, 40])
+def test_nw_kernel_matches_plain(cuda, width):
+    dev = device_batch(_batch(width), cuda)
+    args = ((1.0, -2.0, -3.0, -1.0), dev.xb, dev.yb, dev.valid, dev.s1,
+            dev.s2, dev.final_d, dev.final_k)
+    before = _build.launch_counts["banded_nw"]
+    got = wavefront_cuda.banded_nw_cuda(*args)
+    ref = wavefront_cuda.banded_nw_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["banded_nw"] == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+def test_fb_kernels_match_plain(cuda):
+    tables = tables_from_hmm(PairHmm.load(MODEL), cuda)
+    dev = device_batch(_batch(21, seed=1), cuda)
+    coef, em = fb_cuda.fb_inputs(tables, dev)
+    args = (coef, em, dev.valid, dev.s1, dev.final_d, dev.final_k)
+    bm, bls, logZ = fb_cuda.fb_backward_cuda(*args)
+    rbm, rbls, rlogZ = fb_cuda.fb_backward_plain(*args)
+    assert torch.allclose(logZ, rlogZ, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(bls, rbls, rtol=1e-4, atol=1e-4)
+    fargs = (coef, em, dev.valid, dev.s1, rbm, rbls, rlogZ)
+    post = fb_cuda.fb_forward_cuda(*fargs)
+    rpost = fb_cuda.fb_forward_plain(*fargs)
+    assert (post - rpost).abs().max().item() <= 2e-4
+    _, full = fb_cuda.posteriors_pre(tables, dev)
+    assert (full - rpost).abs().max().item() <= 2e-4
+
+
+def test_mea_kernel_matches_plain(cuda):
+    batch = _batch(21, seed=2)
+    dev = device_batch(batch, cuda)
+    tables = tables_from_hmm(PairHmm.load(MODEL), cuda)
+    _, post = fb_cuda.posteriors_pre(tables, dev)
+    lo = torch.from_numpy(batch.lo).to(cuda)
+    wup, wleft = mea_weights(post, dev.valid, lo, 0.5, int(batch.m.max()),
+                             int(batch.n.max()))
+    wdiag = torch.where(post > 0, post, NEG)
+    args = (wdiag, wup, wleft, dev.valid, dev.s1, dev.s2, dev.final_d,
+            dev.final_k)
+    ptr, score = wavefront_cuda.banded_mea_cuda(*args)
+    rptr, rscore = wavefront_cuda.banded_mea_plain(*args)
+    assert torch.equal(ptr, rptr)
+    assert torch.allclose(score, rscore, rtol=0, atol=1e-4)

@@ -1,0 +1,77 @@
+"""marginAlign end to end: the PyTorch port on the CPU (plain versions of
+its kernels) vs the JAX package on a synthetic two-reference corpus."""
+import numpy as np
+import pytest
+
+from marginalign_trna_tpu import pipeline as jpipeline
+from marginalign_trna_tpu.io.sam import SamFile
+from marginalign_trna_tpu_torch import cli
+from marginalign_trna_tpu_torch import pipeline as tpipeline
+
+
+def _write_corpus(tmpdir, n_reads=12, seed=3):
+    """Two references; reads of 300-600 bp with 10% substitutions, 5%
+    deletions and 5% insertions, every third one reverse-complemented."""
+    rng = np.random.default_rng(seed)
+    bases = np.array(list("ACGT"))
+    refs = [rng.integers(0, 4, size=900), rng.integers(0, 4, size=800)]
+    fa, fq = tmpdir / "ref.fa", tmpdir / "reads.fq"
+    fa.write_text("".join(">ref%d\n%s\n" % (i, "".join(bases[r]))
+                          for i, r in enumerate(refs)))
+    lines = []
+    for idx in range(n_reads):
+        ref = refs[idx % 2]
+        length = int(rng.integers(300, 600))
+        start = int(rng.integers(0, len(ref) - length))
+        read = ref[start:start + length].copy()
+        subs = rng.random(len(read)) < 0.10
+        read[subs] = rng.integers(0, 4, size=int(subs.sum()))
+        read = read[rng.random(len(read)) >= 0.05]
+        ins = np.flatnonzero(rng.random(len(read)) < 0.05)
+        read = np.insert(read, ins + 1, rng.integers(0, 4, size=len(ins)))
+        if idx % 3 == 1:
+            read = (3 - read)[::-1]
+        seq = "".join(bases[read])
+        lines.append("@r%d\n%s\n+\n%s\n" % (idx, seq, "I" * len(seq)))
+    fq.write_text("".join(lines))
+    return str(fq), str(fa)
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("corpus")
+    fq, fa = _write_corpus(tmp)
+    guide, full = str(tmp / "jax_guide.sam"), str(tmp / "jax_full.sam")
+    jpipeline.align(fq, fa, guide, jpipeline.AlignOptions(no_realign=True))
+    jpipeline.align(fq, fa, full)
+    return tmp, fq, fa, guide, full
+
+
+def test_guide_sam_identical_to_jax(corpus):
+    tmp, fq, fa, jax_guide, _ = corpus
+    out = str(tmp / "port_guide.sam")
+    stages = tpipeline.align(fq, fa, out,
+                             tpipeline.AlignOptions(no_realign=True),
+                             device="cpu")
+    assert set(stages) == {"guide_s", "chain_s"}
+    with open(out) as a, open(jax_guide) as b:
+        got, ref = a.read(), b.read()
+    assert got == ref
+    assert sum(1 for ln in got.splitlines() if not ln.startswith("@")) >= 10
+
+
+def test_cli_full_run_matches_jax(corpus):
+    tmp, fq, fa, _, jax_full = corpus
+    out = str(tmp / "port_full.sam")
+    assert cli.margin_align_main([fq, fa, out, "--device", "cpu"]) == 0
+    got = SamFile.read(out).records
+    ref = SamFile.read(jax_full).records
+    assert [(r.qname, r.flag, r.rname, r.pos) for r in got] == \
+        [(r.qname, r.flag, r.rname, r.pos) for r in ref]
+    assert {r.flag for r in got} == {0, 16}
+    assert {r.rname for r in got} == {"ref0", "ref1"}
+    differ = [g.qname for g, r in zip(got, ref) if g.cigar != r.cigar]
+    # A posterior that differs in the last float digits can flip an MEA
+    # tie, so one realigned cigar may differ; report which.
+    print("realigned cigars differing from the JAX package:", differ)
+    assert len(differ) <= 1, differ
