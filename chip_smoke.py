@@ -7,19 +7,29 @@ CUDA card.  Run from the repository root:
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a.
   2. tiny     each kernel against its plain PyTorch version on the card at a
-              tiny shape, so a broken kernel fails before the long run.
+              tiny shape, so a broken kernel fails before the long runs.
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
               pipeline.align on a synthetic 1024-read x 3.5 kb corpus with
-              two references and both strands; every kernel must launch,
-              and the reads must land where they were simulated from.  The
-              shape of every launch is logged and the inputs of each
-              kernel's largest launch are kept (one device copy each).
-  4. kernels  each kernel against its plain version on the inputs of its
-              largest main-path launch, with kernel and plain times.
+              two references and both strands; every marginAlign kernel
+              must launch, and the reads must land where they were
+              simulated from.  The shape of every launch is logged and the
+              inputs of each kernel's largest launch are kept (one device
+              copy each).
+  4. kernels  each marginAlign kernel against its plain version on the
+              inputs of its largest main-path launch, with times and bounds.
   5. parity   a 32-read subset through the same entry on device="cpu"
               (plain versions) and "cuda" (kernels): guide records
               identical, >= 95% of realigned cigars identical.
-  6. card     name and power limit from nvidia-smi.
+  6. caller   marginCaller (compact streams -> backward -> fused expectation
+              forward -> scatter) through call.caller.margin_caller on the
+              main phase's SAM against a copy of the reference with an SNV
+              planted every 150 bases; every caller kernel must launch, and
+              recall and precision on the planted SNVs must reach 95%.
+  7. kernels  each caller kernel against its plain version on the inputs of
+              its largest caller launch, with times and bounds.
+  8. parity   the caller on the SAM's first 32 records on "cpu" and "cuda":
+              identical call sets, expectations within 1e-3.
+  9. card     name and power limit from nvidia-smi.
 The line before the last is the kernel report (JSON); the last line is the
 result (JSON).  Corpus and weights come from numpy seeds; nothing is read
 from outside the repository.
@@ -40,20 +50,54 @@ N_READS = 1024
 READ_LEN = 3500
 PARITY_READS = 32
 NW_PARAMS = (1.0, -2.0, -3.0, -1.0)
-# Kernel name -> (source, TPU kernel it replaces, wrapper in ops/).
+# Planted SNVs of the caller phase: every SNV_STEP bases from SNV_FIRST to
+# SNV_LAST on each reference.
+SNV_FIRST, SNV_LAST, SNV_STEP = 100, 3400, 150
+# Kernel name -> (source, TPU kernel it replaces, wrapper in ops/, path:
+# "align" = marginAlign's main path, "call" = marginCaller's).
 KERNELS = {
     "banded_nw": ("marginalign_trna_tpu_torch/csrc/nw.cu",
                   "marginalign_trna_tpu/ops/wavefront_pallas.py:77",
-                  "wavefront_cuda.banded_nw_cuda"),
+                  "wavefront_cuda.banded_nw_cuda", "align"),
     "fb_backward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
                     "marginalign_trna_tpu/ops/fb_pallas.py:823",
-                    "fb_cuda.fb_backward_cuda"),
+                    "fb_cuda.fb_backward_cuda", "align"),
     "fb_forward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
                    "marginalign_trna_tpu/ops/fb_pallas.py:971",
-                   "fb_cuda.fb_forward_cuda"),
+                   "fb_cuda.fb_forward_cuda", "align"),
     "banded_mea": ("marginalign_trna_tpu_torch/csrc/mea.cu",
                    "marginalign_trna_tpu/ops/wavefront_pallas.py:375",
-                   "wavefront_cuda.banded_mea_cuda"),
+                   "wavefront_cuda.banded_mea_cuda", "align"),
+    "expand_streams": ("marginalign_trna_tpu_torch/csrc/expand.cu",
+                       "marginalign_trna_tpu/ops/fb_pallas.py:3375",
+                       "fb_circ_cuda.expand_streams_cuda", "call"),
+    "sv_backward": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                    "marginalign_trna_tpu/ops/fb_pallas.py:2269",
+                    "fb_circ_cuda.sv_backward_cuda", "call"),
+    "cx_forward": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                   "marginalign_trna_tpu/ops/fb_pallas.py:2772",
+                   "fb_circ_cuda.cx_forward_cuda", "call"),
+    "scatter_lanesum": ("marginalign_trna_tpu_torch/csrc/scatter.cu",
+                        "marginalign_trna_tpu/ops/bucket_scatter.py:180",
+                        "bucket_scatter.scatter_lanesum_cuda", "call"),
+}
+ALIGN_KERNELS = [k for k, v in KERNELS.items() if v[3] == "align"]
+CALLER_KERNELS = [k for k, v in KERNELS.items() if v[3] == "call"]
+
+# The least time the card could take: the bytes a kernel must move (each
+# input read once, each output written once) at the H100 SXM's 3.35 TB/s,
+# or its operations at the 67 TFLOP/s of float32 outside the tensor cores,
+# whichever is larger.  Operations per band cell (per targeted (row, lane)
+# for the scatter, which reads values only where a target is), counted
+# from each kernel's arithmetic on the branch this run takes (the shipped
+# model's gap-chain form for sv/cx): a multiply, add, max, compare or
+# select is one.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_PER_CELL = {
+    "banded_nw": 14, "fb_backward": 56, "fb_forward": 52, "banded_mea": 10,
+    "expand_streams": 16, "sv_backward": 23, "cx_forward": 28,
+    "scatter_lanesum": 4,
 }
 
 
@@ -68,6 +112,23 @@ def check(cond, msg):
 
 def log(*args):
     print(*args, flush=True)
+
+
+def nbytes(*objs):
+    """Bytes of every tensor among objs."""
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in objs
+               if torch.is_tensor(t))
+
+
+def bound(name, cells, moved):
+    """{"bound_ms", "bound_by"} of kernel `name` over `cells` band cells
+    (target cells for the scatter) that must move `moved` bytes."""
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = OPS_PER_CELL[name] * cells / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def time_ms(fn, reps):
@@ -184,6 +245,8 @@ def compare_nw(args, reps):
         "all_cells_equal": bool(torch.equal(ptr, rptr)),
         "ms": time_ms(lambda: wf.banded_nw_cuda(*args), reps),
         "plain_ms": time_ms(lambda: wf.banded_nw_plain(*args), 1),
+        "library_ms": None,
+        **bound("banded_nw", ptr.numel(), nbytes(*args, ptr, score, state)),
     }
 
 
@@ -216,10 +279,14 @@ def compare_fb(bargs, fargs, reps):
     return (
         {"max_abs_err": lerr,
          "ms": time_ms(lambda: fb_cuda.fb_backward_cuda(*bargs), reps),
-         "plain_ms": time_ms(lambda: fb_cuda.fb_backward_plain(*bargs), 1)},
+         "plain_ms": time_ms(lambda: fb_cuda.fb_backward_plain(*bargs), 1),
+         "library_ms": None,
+         **bound("fb_backward", bm.numel(), nbytes(*bargs, bm, bls, logZ))},
         {"max_abs_err": perr, "chained_max_abs_err": ferr,
          "ms": time_ms(lambda: fb_cuda.fb_forward_cuda(*fargs), reps),
-         "plain_ms": time_ms(lambda: fb_cuda.fb_forward_plain(*fargs), 1)},
+         "plain_ms": time_ms(lambda: fb_cuda.fb_forward_plain(*fargs), 1),
+         "library_ms": None,
+         **bound("fb_forward", post.numel(), nbytes(*fargs, post))},
     )
 
 
@@ -240,6 +307,8 @@ def compare_mea(args, reps):
         "all_cells_equal": bool(torch.equal(ptr, rptr)),
         "ms": time_ms(lambda: wf.banded_mea_cuda(*args), reps),
         "plain_ms": time_ms(lambda: wf.banded_mea_plain(*args), 1),
+        "library_ms": None,
+        **bound("banded_mea", ptr.numel(), nbytes(*args, ptr, score)),
     }
 
 
@@ -254,6 +323,168 @@ def compare_kernels(tag, inputs, reps):
     for name, res in report.items():
         log("kernels[%s] %-11s %s" % (tag, name, json.dumps(res)))
     return report
+
+
+def compare_expand(args, reps):
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+
+    es, yb, fr = fc.expand_streams_cuda(*args)
+    res, ryb, rfr = fc.expand_streams_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(es, res), "E es differs")
+    check(torch.equal(fr, rfr), "E fr differs")
+    valid = res >= 0
+    check(torch.equal(yb[valid], ryb[valid]), "E yb differs on valid cells")
+    return {
+        "max_abs_err": (es - res).abs().max().item(),
+        "ms": time_ms(lambda: fc.expand_streams_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: fc.expand_streams_plain(*args), 1),
+        "library_ms": None,
+        **bound("expand_streams", es.numel(), nbytes(*args, es, yb, fr)),
+    }
+
+
+def compare_sv(args, reps):
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+
+    bm, bls, logZ = fc.sv_backward_cuda(*args)
+    rbm, rbls, rlogZ = fc.sv_backward_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.isfinite(logZ).all().item(), "S logZ not finite")
+    check(torch.allclose(logZ, rlogZ, rtol=1e-4, atol=1e-4),
+          "S logZ differs (rtol/atol 1e-4)")
+    check(torch.allclose(bm, rbm, rtol=2e-4, atol=1e-30),
+          "S bm differs (rtol 2e-4)")
+    check(torch.allclose(bls, rbls, rtol=2e-4, atol=1e-6),
+          "S bls differs (rtol 2e-4)")
+    return {
+        "max_abs_err": (logZ - rlogZ).abs().max().item(),
+        "bm_max_abs_err": (bm - rbm).abs().max().item(),
+        "ms": time_ms(lambda: fc.sv_backward_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: fc.sv_backward_plain(*args), 1),
+        "library_ms": None,
+        **bound("sv_backward", bm.numel(), nbytes(*args, bm, bls, logZ)),
+    }
+
+
+def compare_cx(args, reps):
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+
+    fl, tails = fc.cx_forward_cuda(*args)
+    rfl, rtails = fc.cx_forward_plain(*args)
+    torch.cuda.synchronize()
+    err = max((fl - rfl).abs().max().item(),
+              (tails - rtails).abs().max().item())
+    check(err <= 2e-4, "C flushes/tails differ by %g (atol 2e-4)" % err)
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fc.cx_forward_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: fc.cx_forward_plain(*args), 1),
+        "library_ms": None,
+        **bound("cx_forward", args[2].numel(), nbytes(*args, fl, tails)),
+    }
+
+
+def compare_scatter(args, reps):
+    """X against its plain version (sums in another order: rtol 1e-5),
+    and the one PyTorch call that computes the same function,
+    index_add_ over the (row, lane) targets, timed beside it.  X must read
+    every target and the C values of the cells that hold one, and write
+    the [rg, C] output."""
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import bucket_scatter as bs
+
+    vals, jm, rg = args
+    out = bs.scatter_lanesum_cuda(*args)
+    ref = bs.scatter_lanesum_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-4),
+          "X differs from its plain version (rtol 1e-5)")
+    C = vals.shape[0]
+    hit = (jm >= 0) & (jm < rg)
+    n_hit = int(hit.sum().item())
+    tgt = torch.where(hit, jm, rg).long().reshape(-1)
+    src = vals.reshape(C, -1).t().contiguous()
+    lib_out = torch.zeros((rg + 1, C), dtype=torch.float32,
+                          device=vals.device)
+    lib_out.index_add_(0, tgt, src)
+    check(torch.allclose(lib_out[:rg], ref, rtol=1e-5, atol=1e-4),
+          "index_add_ disagrees with the plain version")
+    return {
+        "max_abs_err": (out - ref).abs().max().item(),
+        "ms": time_ms(lambda: bs.scatter_lanesum_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: bs.scatter_lanesum_plain(*args), 1),
+        "library_ms": time_ms(lambda: lib_out.index_add_(0, tgt, src), reps),
+        "target_cells": n_hit, "cells": jm.numel(),
+        **bound("scatter_lanesum", n_hit,
+                nbytes(jm, out) + n_hit * C * vals.element_size()),
+    }
+
+
+def compare_caller_kernels(tag, inputs, reps):
+    """Every caller kernel against its plain version on `inputs` (kernel
+    name -> wrapper arguments)."""
+    report = {
+        "expand_streams": compare_expand(inputs["expand_streams"], reps),
+        "sv_backward": compare_sv(inputs["sv_backward"], reps),
+        "cx_forward": compare_cx(inputs["cx_forward"], reps),
+        "scatter_lanesum": compare_scatter(inputs["scatter_lanesum"], reps),
+    }
+    for name, res in report.items():
+        log("kernels[%s] %-15s %s" % (tag, name, json.dumps(res)))
+    return report
+
+
+def tiny_caller_inputs(device):
+    """Caller kernel inputs at a tiny shape: 40 noisy pairs of 20-150
+    bases at width 21 (shipped model), each kernel fed by the plain
+    versions of the kernels before it."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+    from marginalign_trna_tpu_torch.ops.band import pack_compact_batch
+    from marginalign_trna_tpu_torch.ops.expectations import (
+        concat_flush_tails, fused_flush_jmaps,
+    )
+    from marginalign_trna_tpu_torch.ops.fb import tables_from_file
+    from marginalign_trna_tpu_torch.ops.fb_circ import (
+        circ_coefficients, compact_device_batch,
+    )
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    rng = np.random.default_rng(13)
+    refs = [rng.integers(0, 4, size=int(rng.integers(20, 150)))
+            .astype(np.int8) for _ in range(40)]
+    reads = [noisy(rng, r) for r in refs]
+    comp = pack_compact_batch(reads, refs, width=21, quantize=True)
+    dev = compact_device_batch(comp, device)
+    tables = tables_from_file(DEFAULT_MODEL, device)
+    coef, chain = circ_coefficients(tables)
+    ematch = tables.Ematch.cpu().numpy().reshape(-1)
+    eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21,
+             comp.wp, comp.num_steps)
+    es, yb, fr = fc.expand_streams_plain(*eargs)
+    bm, bls, logZ = fc.sv_backward_plain(coef, chain, es, dev.fink,
+                                         dev.final_d)
+    fl, tails = fc.cx_forward_plain(coef, chain, es, yb, fr, bm, bls, logZ)
+    off = torch.arange(comp.batch, device=device) * 100
+    jmap, jtail = fused_flush_jmaps(dev.lo, off, dev.n, 21, comp.wp,
+                                    comp.num_steps)
+    vals, jm = concat_flush_tails(fl, tails, jmap, jtail)
+    return {
+        "expand_streams": eargs,
+        "sv_backward": (coef, chain, es, dev.fink, dev.final_d),
+        "cx_forward": (coef, chain, es, yb, fr, bm, bls, logZ),
+        "scatter_lanesum": (vals, jm, 100 * comp.batch + 512),
+    }
 
 
 def tiny_inputs(device):
@@ -298,32 +529,46 @@ def tiny_inputs(device):
     }
 
 
+def launch_shape(name, args):
+    """The band a kernel call walks: [D1 or d1k, Wp, B] ([C, D, B] for the
+    scatter's values)."""
+    import torch
+
+    if name == "expand_streams":
+        return [args[8], args[7], args[3].shape[1]]
+    return list(next(a for a in args
+                     if torch.is_tensor(a) and a.dim() == 3).shape)
+
+
 @contextlib.contextmanager
-def recording_launches():
-    """Inside the block every port module's reference to a kernel wrapper
-    goes through a recorder: it logs the [D1, Wp, B] of each call and keeps
-    a device copy of the inputs of the largest call per kernel.  Yields
-    (shapes {name: [[D1, Wp, B], ...]}, largest {name: inputs})."""
+def recording_launches(names):
+    """Inside the block every port module's reference to the wrapper of a
+    kernel in `names` goes through a recorder: it logs the [D1, Wp, B] of
+    each call and keeps a device copy of the inputs of the largest call per
+    kernel.  Yields (shapes {name: [[D1, Wp, B], ...]},
+    largest {name: inputs})."""
     import importlib
 
+    import numpy as np
     import torch
 
     from marginalign_trna_tpu_torch import pipeline  # noqa: F401 (the path)
+    from marginalign_trna_tpu_torch.call import caller  # noqa: F401
 
     originals = {}
-    for name, (_, _, wrapper) in KERNELS.items():
-        module, fn = wrapper.split(".")
+    for name in names:
+        module, fn = KERNELS[name][2].split(".")
         originals[name] = getattr(importlib.import_module(
             "marginalign_trna_tpu_torch.ops." + module), fn)
-    shapes = {name: [] for name in KERNELS}
+    shapes = {name: [] for name in names}
     largest, sizes = {}, {}
 
     def recorder(name, fn):
         def call(*args):
-            band = next(a for a in args if torch.is_tensor(a) and a.dim() == 3)
-            shapes[name].append(list(band.shape))
-            if band.numel() > sizes.get(name, -1):
-                sizes[name] = band.numel()
+            shape = launch_shape(name, args)
+            shapes[name].append(shape)
+            if int(np.prod(shape)) > sizes.get(name, -1):
+                sizes[name] = int(np.prod(shape))
                 largest[name] = tuple(a.clone() if torch.is_tensor(a) else a
                                       for a in args)
             return fn(*args)
@@ -354,7 +599,7 @@ def phase_main(tmpdir):
 
     fq, fa, truth = write_corpus(tmpdir, N_READS, READ_LEN)
     out = os.path.join(tmpdir, "out.sam")
-    with recording_launches() as (shapes, largest):
+    with recording_launches(ALIGN_KERNELS) as (shapes, largest):
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         stages = pipeline.align(fq, fa, out, device="cuda")
@@ -366,7 +611,7 @@ def phase_main(tmpdir):
     log("main: stages %s" % json.dumps(stages))
     log("main: launches %s" % json.dumps(launches))
     log("main: launch shapes [D1, Wp, B] %s" % json.dumps(shapes))
-    for name in KERNELS:
+    for name in ALIGN_KERNELS:
         check(launches[name] > 0, "kernel %s never launched on the main "
               "path" % name)
         check(len(shapes[name]) == launches[name], "kernel %s: %d wrapper "
@@ -384,7 +629,7 @@ def phase_main(tmpdir):
     log("main: %d of %d records on their true reference, strand and "
         "position" % (placed, len(recs)))
     check(placed >= 0.95 * len(recs), "too few reads placed correctly")
-    return fq, fa, launches, largest, {
+    return fq, fa, out, launches, largest, {
         "reads_out": len(recs), "total_s": total,
         "reads_per_s": len(recs) / total, **stages}
 
@@ -392,9 +637,8 @@ def phase_main(tmpdir):
 def phase_main_kernels(largest):
     """Kernel vs plain on the inputs of each kernel's largest main-path
     launch."""
-    shapes = {name: list(next(a for a in largest[name]
-                              if hasattr(a, "dim") and a.dim() == 3).shape)
-              for name in KERNELS}
+    shapes = {name: launch_shape(name, largest[name])
+              for name in ALIGN_KERNELS}
     log("kernels[main] inputs of the largest main-path launch %s"
         % json.dumps(shapes))
     return compare_kernels("main", largest, 5)
@@ -430,6 +674,131 @@ def phase_parity(tmpdir, fq, fa):
             "cigars": len(fc)}
 
 
+def write_mutated_reference(tmpdir, fa, seed=17):
+    """A copy of `fa` with one substitution every SNV_STEP bases from
+    SNV_FIRST to SNV_LAST on every reference.  Returns (path, planted
+    {(name, 1-based pos, true base)}): reads come from the unmutated
+    sequence, so the true base is the expected alt."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    with open(fa) as fh:
+        text = fh.read().split(">")[1:]
+    out = os.path.join(tmpdir, "ref_mutated.fa")
+    planted = set()
+    with open(out, "w") as fh:
+        for entry in text:
+            name, seq = entry.split("\n", 1)
+            seq = list(seq.replace("\n", ""))
+            for p in range(SNV_FIRST, SNV_LAST + 1, SNV_STEP):
+                alt = "ACGT"[("ACGT".index(seq[p]) + int(rng.integers(1, 4)))
+                             % 4]
+                planted.add((name, p + 1, seq[p]))
+                seq[p] = alt
+            fh.write(">%s\n%s\n" % (name, "".join(seq)))
+    return out, planted
+
+
+def phase_caller(tmpdir, fa, sam):
+    import torch
+
+    from marginalign_trna_tpu_torch.call import caller
+    from marginalign_trna_tpu_torch.io.vcf import vcf_read
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    mut_fa, planted = write_mutated_reference(tmpdir, fa)
+    vcf = os.path.join(tmpdir, "calls.vcf")
+    hmm = PairHmm.load(DEFAULT_MODEL)
+    n_records = len(sam_records(sam))
+    with recording_launches(CALLER_KERNELS) as (shapes, largest):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        calls = caller.margin_caller(sam, mut_fa, vcf, hmm, hmm,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    found = vcf_read(vcf)
+    hit = len(found & planted)
+    recall = hit / len(planted)
+    precision = hit / max(len(found), 1)
+    log("caller: %d records in, %d calls, %.3f s, %.2f reads/s"
+        % (n_records, len(calls), total, n_records / total))
+    log("caller: launches %s" % json.dumps(launches))
+    log("caller: launch shapes [d1k, Wp, B] ([C, D, B] for the scatter) %s"
+        % json.dumps(shapes))
+    log("caller: %d planted SNVs, %d called at their position with the "
+        "true base; recall %.4f, precision %.4f"
+        % (len(planted), hit, recall, precision))
+    for name in CALLER_KERNELS:
+        check(launches[name] > 0, "kernel %s never launched on the caller "
+              "path" % name)
+        check(len(shapes[name]) == launches[name], "kernel %s: %d wrapper "
+              "calls, %d launches" % (name, len(shapes[name]),
+                                      launches[name]))
+    for name in ALIGN_KERNELS:
+        check(launches[name] == 0, "kernel %s launched on the caller path"
+              % name)
+    check(recall >= 0.95, "caller recall %.4f < 0.95" % recall)
+    check(precision >= 0.95, "caller precision %.4f < 0.95" % precision)
+    return mut_fa, launches, largest, {
+        "records_in": n_records, "calls": len(calls), "total_s": total,
+        "reads_per_s": n_records / total, "planted": len(planted),
+        "recall": recall, "precision": precision}
+
+
+def phase_caller_kernels(largest):
+    """Caller kernel vs plain on the inputs of each kernel's largest
+    caller launch."""
+    shapes = {name: launch_shape(name, largest[name])
+              for name in CALLER_KERNELS}
+    log("kernels[caller] inputs of the largest caller launch %s"
+        % json.dumps(shapes))
+    return compare_caller_kernels("caller", largest, 5)
+
+
+def phase_caller_parity(tmpdir, fa, sam):
+    """The caller on the SAM's first PARITY_READS records on the CPU
+    (plain versions) and on the card (kernels)."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch.call import caller
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    sub = SamFile.read(sam)
+    sub.records = sub.records[:PARITY_READS]
+    path = os.path.join(tmpdir, "caller_subset.sam")
+    sub.write(path)
+    refs = get_fasta_dictionary(fa)
+    hmm = PairHmm.load(DEFAULT_MODEL)
+    exp, calls = {}, {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        exp[dev] = caller.accumulate_expectations(
+            SamFile.read(path), refs, hmm, caller.CallerOptions(),
+            device=dev)
+        calls[dev] = {c[:3] for c in caller.call_variants(
+            exp[dev], refs, hmm, caller.DEFAULT_THRESHOLD)}
+        log("caller parity: device %s %.3f s" % (dev,
+                                                 time.perf_counter() - t0))
+    err = max(float(np.abs(exp["cpu"][k] - exp["cuda"][k]).max())
+              for k in refs)
+    log("caller parity: %d records; calls cpu %d, cuda %d; expectations "
+        "max abs difference %g" % (len(sub.records), len(calls["cpu"]),
+                                   len(calls["cuda"]), err))
+    check(calls["cpu"] == calls["cuda"], "call sets differ between cpu "
+          "and cuda")
+    check(err <= 1e-3, "expectations differ by %g between cpu and cuda"
+          % err)
+    return {"records": len(sub.records), "calls": len(calls["cuda"]),
+            "expectations_max_abs_err": err}
+
+
 def card_identity():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -463,26 +832,37 @@ def main() -> int:
             if "Used" in line or "Function properties" in line:
                 log("build: " + line.strip())
 
-        compare_kernels("tiny", tiny_inputs(torch.device("cuda")), 3)
+        cuda = torch.device("cuda")
+        compare_kernels("tiny", tiny_inputs(cuda), 3)
+        compare_caller_kernels("tiny", tiny_caller_inputs(cuda), 3)
         with tempfile.TemporaryDirectory() as tmpdir:
-            fq, fa, launches, largest, main_res = phase_main(tmpdir)
+            fq, fa, sam, launches, largest, main_res = phase_main(tmpdir)
             kernels = phase_main_kernels(largest)
             del largest
             parity = phase_parity(tmpdir, fq, fa)
+            mut_fa, call_launches, largest, caller_res = phase_caller(
+                tmpdir, fa, sam)
+            kernels.update(phase_caller_kernels(largest))
+            del largest
+            caller_parity = phase_caller_parity(tmpdir, mut_fa, sam)
         card = card_identity()
     except SmokeFailure as exc:
         print("chip_smoke: FAIL: %s" % exc, file=sys.stderr)
         return 1
 
+    launches.update({k: call_launches[k] for k in CALLER_KERNELS})
     log("main-path: %s" % json.dumps(main_res))
     log("parity: %s" % json.dumps(parity))
+    log("caller-path: %s" % json.dumps(caller_res))
+    log("caller-parity: %s" % json.dumps(caller_parity))
     log(card)
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name],
-         "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"]}
-        for name, (src, rep, _) in KERNELS.items()
+         **{k: kernels[name][k] for k in keys}}
+        for name, (src, rep, _, _) in KERNELS.items()
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

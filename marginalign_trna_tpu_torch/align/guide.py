@@ -29,14 +29,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from marginalign_trna_tpu import native as _native
-from marginalign_trna_tpu.io.fasta import get_fasta_dictionary
-from marginalign_trna_tpu.io.fastq import fastq_read
-from marginalign_trna_tpu.io.sam import SamFile, SamRecord, make_header
-from marginalign_trna_tpu.utils.seq import (
+from .. import native as _native
+from ..io.fasta import get_fasta_dictionary
+from ..io.fastq import fastq_read
+from ..io.sam import SamFile, SamRecord, make_header
+from ..utils.seq import (
     encode, revcomp_codes, reverse_complement,
 )
-
 from ..ops.band import pack_banded_batch
 from ..ops.fb import device_batch
 from ..ops.nw import NwParams, banded_nw, traceback

@@ -17,16 +17,15 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from marginalign_trna_tpu.align.chain import chain_sam_file
-from marginalign_trna_tpu.io.fasta import get_fasta_dictionary
-from marginalign_trna_tpu.io.sam import SamFile, SamRecord
-from marginalign_trna_tpu.models.hmm import PairHmm
-from marginalign_trna_tpu.utils.seq import encode
-
+from ..io.fasta import get_fasta_dictionary
+from ..io.sam import SamFile, SamRecord
+from ..models.hmm import PairHmm
 from ..ops.band import pack_banded_batch, path_from_cigar
 from ..ops.fb import device_batch, tables_from_hmm
 from ..ops.fb_cuda import posteriors_pre
 from ..ops.mea import mea_decode
+from ..utils.seq import encode
+from .chain import chain_sam_file
 
 # Band width = 2 * diagonalExpansion + 1 with the reference's expansion of 10
 # (src/margin/marginAlignLib.py:315).

@@ -2,10 +2,12 @@
 
     python -m marginalign_trna_tpu_torch marginAlign reads.fq ref.fa out.sam \
         [--device cuda|cpu]
+    python -m marginalign_trna_tpu_torch marginCaller in.sam ref.fa out.vcf \
+        [--device cuda|cpu]
 
-marginAlign keeps the JAX package's flag surface (marginalign_trna_tpu/
-cli.py, itself mirroring the reference's src/margin/marginAlign.py:16-54)
-and adds --device.  The default device is cuda; without a CUDA device the
+Both commands keep the JAX package's flag surface (marginalign_trna_tpu/
+cli.py, itself mirroring the reference's src/margin/marginAlign.py:16-54
+and marginCaller.py) and add --device.  The default device is cuda; without a CUDA device the
 command fails, and the CPU (the plain PyTorch versions of the kernels) runs
 only with --device cpu.  jobTree options are accepted and ignored.
 """
@@ -27,8 +29,7 @@ def _add_ignored_jobtree_options(parser: argparse.ArgumentParser) -> None:
 
 
 def margin_align_main(argv=None) -> int:
-    from marginalign_trna_tpu.models.hmm import PairHmm
-
+    from .models.hmm import PairHmm
     from .pipeline import AlignOptions, align
 
     p = argparse.ArgumentParser(
@@ -105,7 +106,50 @@ def margin_align_main(argv=None) -> int:
     return 0
 
 
-COMMANDS = {"marginAlign": margin_align_main}
+def margin_caller_main(argv=None) -> int:
+    from .call.caller import CallerOptions, margin_caller
+    from .models.hmm import PairHmm
+
+    p = argparse.ArgumentParser(
+        prog="marginCaller",
+        description="Call SNVs from a SAM + reference, emitting VCF "
+        "(PyTorch + CUDA port).",
+    )
+    p.add_argument("inputSamFile")
+    p.add_argument("referenceFastaFile")
+    p.add_argument("outputVcfFile")
+    p.add_argument("--device", default="cuda",
+                   help="torch device: cuda (default; the CUDA kernels) or "
+                        "cpu (their plain PyTorch versions)")
+    p.add_argument("--noMargin", action="store_true",
+                   help="Use the input alignment directly instead of "
+                   "marginalising over alignments")
+    p.add_argument("--alignmentModel", default=DEFAULT_MODEL)
+    p.add_argument("--errorModel", default=DEFAULT_MODEL)
+    p.add_argument("--threshold", type=float, default=0.3)
+    p.add_argument("--maxAlignmentLengthPerJob", type=int, default=7_000_000,
+                   help="Accepted for compatibility; batching is automatic")
+    p.add_argument("--splitMatrixBiggerThanThis", type=int, default=100,
+                   help="Split DP problems at guide anchors so no side "
+                        "exceeds this (reference caller default 100; "
+                        "0 = exact full-length DP)")
+    _add_ignored_jobtree_options(p)
+    args = p.parse_args(argv)
+
+    margin_caller(
+        args.inputSamFile, args.referenceFastaFile, args.outputVcfFile,
+        alignment_model=PairHmm.load(args.alignmentModel),
+        error_model=PairHmm.load(args.errorModel),
+        options=CallerOptions(threshold=args.threshold,
+                              no_margin=args.noMargin,
+                              split_size=args.splitMatrixBiggerThanThis),
+        device=args.device,
+    )
+    return 0
+
+
+COMMANDS = {"marginAlign": margin_align_main,
+            "marginCaller": margin_caller_main}
 
 
 def main(argv=None) -> int:

@@ -38,6 +38,27 @@ __device__ __forceinline__ float max_argmax3(float v0, float v1, float v2,
   return fmaxf(m01, v2);
 }
 
+// Per-lane maximum over the five states and all Wp rows of a frontier held
+// as v[r][state] for rows k = ty + r * TY (the forward-backward rescale).
+// shR is a [Wp][L] scratch plane; one barrier.
+template <int RPT>
+__device__ __forceinline__ float band_max(float (&v)[RPT][5], float* shR,
+                                          int Wp, int L, int lane, int ty,
+                                          int TY) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int k = ty + r * TY;
+    if (k >= Wp) continue;
+    const float m = fmaxf(fmaxf(fmaxf(v[r][0], v[r][1]),
+                                fmaxf(v[r][2], v[r][3])), v[r][4]);
+    shR[k * L + lane] = m;
+  }
+  __syncthreads();
+  float m = shR[lane];
+  for (int j = 1; j < Wp; ++j) m = fmaxf(m, shR[j * L + lane]);
+  return m;
+}
+
 inline int rows_per_thread(int Wp) { return (Wp + 31) / 32; }
 
 inline dim3 block_shape(int Wp) {

@@ -40,24 +40,6 @@ struct FbCoef {
 };
 
 template <int RPT>
-__device__ __forceinline__ float band_max(float (&v)[RPT][5], float* shR,
-                                          int Wp, int L, int lane, int ty,
-                                          int TY) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int k = ty + r * TY;
-    if (k >= Wp) continue;
-    const float m = fmaxf(fmaxf(fmaxf(v[r][0], v[r][1]),
-                                fmaxf(v[r][2], v[r][3])), v[r][4]);
-    shR[k * L + lane] = m;
-  }
-  __syncthreads();
-  float m = shR[lane];
-  for (int j = 1; j < Wp; ++j) m = fmaxf(m, shR[j * L + lane]);
-  return m;
-}
-
-template <int RPT>
 __global__ void __launch_bounds__(1024)
     fb_backward_kernel(const uint8_t* __restrict__ valid,
                        const float* __restrict__ em,
@@ -116,7 +98,7 @@ __global__ void __launch_bounds__(1024)
     sh2 = sh1;
     sh1 = live ? s1[(size_t)d * B + b] : 0;
     if (d % 8 == 0) {
-      const float m = band_max<RPT>(nb, shR, Wp, L, lane, ty, TY);
+      const float m = mk::band_max<RPT>(nb, shR, Wp, L, lane, ty, TY);
       const float c = m > 0.f ? m : 1.f;
       const float inv = 1.f / c;
 #pragma unroll
@@ -242,7 +224,7 @@ __global__ void __launch_bounds__(1024)
       f[r][4] = shG[gin + 3 * plane + ky] * v;
     }
     if (d % 8 == 7) {
-      const float m = band_max<RPT>(f, shR, Wp, L, lane, ty, TY);
+      const float m = mk::band_max<RPT>(f, shR, Wp, L, lane, ty, TY);
       const float c = m > 0.f ? m : 1.f;
       const float inv = 1.f / c;
 #pragma unroll

@@ -1,7 +1,8 @@
 """Build, load and launch the port's CUDA kernels.
 
-Every `csrc/*.cu` source compiles with nvcc for Hopper (sm_90a) into one
-shared library with a plain C interface, loaded with ctypes.  The build runs
+Every `csrc/*.cu` source compiles with nvcc for Hopper (sm_90a), one
+process per source in parallel, and links into one shared library with a
+plain C interface, loaded with ctypes.  The build runs
 at first CUDA use, from the sources in this package only, into
 `build/torch_kernels/<hash of the sources and flags>/` at the repository
 root (listed in .gitignore), so an edited source rebuilds and an unchanged
@@ -33,7 +34,7 @@ LIB_NAME = "libmarginalign_kernels.so"
 # round exactly like their plain versions (separate torch mul and add).
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _P = ctypes.c_void_p
@@ -54,6 +55,16 @@ _SIGNATURES: Dict[str, List] = {
     "fb_backward": [_P] * 6 + [_I] * 3 + [_P] * 4,
     # em, valid, s1, bm, bls, logZ, coef(host), D1, Wp, B, post, stream
     "fb_forward": [_P] * 7 + [_I] * 3 + [_P] * 2,
+    # reads, refs, lo, m, n, ematch(host), Mp, Np, D1, d1k, Wp, B, width,
+    # es, yb, fr, stream
+    "expand_streams": [_P] * 6 + [_I] * 7 + [_P] * 4,
+    # es, fink, find, coef(host), chain, d1k, Wp, B, bm, bls, logZ, stream
+    "sv_backward": [_P] * 4 + [_I] * 4 + [_P] * 4,
+    # es, yb, fr, bm, bls, logZ, coef(host), chain, d1k, Wp, B, fl, tails,
+    # stream
+    "cx_forward": [_P] * 7 + [_I] * 4 + [_P] * 3,
+    # vals, jm, C, D, B, rg, out, stream
+    "scatter_lanesum": [_P] * 2 + [_I] * 4 + [_P] * 2,
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}
@@ -99,7 +110,8 @@ def _build_dir(nvcc: str) -> str:
 
 def build() -> str:
     """Compile csrc/*.cu unless the library for these sources exists;
-    returns its path.  Raises with nvcc's output if compilation fails."""
+    returns its path.  One nvcc per source, all started together, then one
+    link.  Raises with nvcc's output if compilation fails."""
     global _build_log
     nvcc = _nvcc()
     out_dir = _build_dir(nvcc)
@@ -107,23 +119,32 @@ def build() -> str:
     if os.path.exists(lib_path):
         return lib_path
     os.makedirs(out_dir, exist_ok=True)
-    cu = [s for s in _sources() if s.endswith(".cu")]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
+    work = tempfile.mkdtemp(dir=out_dir)
     try:
-        proc = subprocess.run(
-            [nvcc] + NVCC_FLAGS + ["-o", tmp] + cu,
-            capture_output=True, text=True,
-        )
-        _build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (exit %d):\n%s" % (proc.returncode, _build_log)
-            )
+        cu = [s for s in _sources() if s.endswith(".cu")]
+        objs = [os.path.join(work, os.path.basename(s) + ".o") for s in cu]
+        procs = [
+            subprocess.Popen([nvcc] + NVCC_FLAGS + ["-c", "-o", o, s],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for s, o in zip(cu, objs)
+        ]
+        outs = [(p.communicate()[0], p.returncode) for p in procs]
+        tmp = os.path.join(work, LIB_NAME)
+        if all(rc == 0 for _, rc in outs):
+            link = subprocess.run(
+                [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                 "-o", tmp] + objs,
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            outs.append((link.stdout, link.returncode))
+        _build_log = "".join(out for out, _ in outs)
+        bad = [rc for _, rc in outs if rc != 0]
+        if bad:
+            raise RuntimeError("nvcc failed (exit %d):\n%s"
+                               % (bad[0], _build_log))
         os.replace(tmp, lib_path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(work, ignore_errors=True)
     return lib_path
 
 

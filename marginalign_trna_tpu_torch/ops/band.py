@@ -1,14 +1,418 @@
-"""Host band packing, shared with the JAX package.
+"""Band geometry and host-side packing for the banded pair DP.
 
-The [D1, Wp, B] band geometry and its host packers are numpy code in
-marginalign_trna_tpu/ops/band.py, free of jax at import and reused
-unchanged; this module names them inside the port, so callers of the port
-import the port only.
+A copy of the host packers of marginalign_trna_tpu/ops/band.py (numpy
+only), so the port runs without the JAX package; behaviour is unchanged.
+
+The DP grid is in *prefix coordinates*: cell (i, j) means "i read symbols and
+j ref symbols emitted", i in [0, m], j in [0, n].  Anti-diagonal d = i + j runs
+from 0 to m+n.  For each d the band is a fixed-width window of W consecutive
+i-values [lo(d), lo(d)+W); lo is monotone non-decreasing with increments in
+{0, 1}, so band motion between diagonals is a per-lane shift by 0 or 1 row.
+
+Packing: a batch of reads becomes dense [D+1, Wp, B] arrays with the band
+window (Wp = W + guard rows) in the middle dimension and reads in the lane
+dimension (BandedBatch), or only the band offsets and the packed sequences,
+from which the band streams are derived on the device (CompactBandedBatch).
 """
-from marginalign_trna_tpu.ops.band import (  # noqa: F401
-    BandedBatch,
-    band_offsets,
-    pack_banded_batch,
-    padded_band_width,
-    path_from_cigar,
-)
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+
+GUARD = 2  # minimum guard rows so rolls wrap into masked cells
+
+
+def padded_band_width(width: int) -> int:
+    """Band + guard rows, rounded up to a sublane multiple (8) for TPU
+    tiling; the extra rows are permanently invalid."""
+    return -(-(width + GUARD) // 8) * 8
+
+
+def path_from_cigar(
+    ops: Sequence[Tuple[int, int]],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Prefix-coordinate path (d_t, i_t) of an alignment cigar.
+
+    ops are (op, length) with 0=M, 1=I (read-only), 2=D (ref-only), relative
+    to the aligned region (no clips).  Returns strictly-increasing d values
+    and the corresponding i values, starting at (0, 0).
+    """
+    if not len(ops):
+        return np.zeros(1, np.int64), np.zeros(1, np.int64)
+    # Fully vectorised over runs AND bases (a per-run Python loop still
+    # cost ~1.4ms/record at realign corpus sizes, e2e profile round 5):
+    # each M run emits one (d, i) entry per base, I/D runs one entry at
+    # the run end; within-run offsets come from one arange minus the
+    # repeated exclusive run starts.
+    arr = np.asarray(ops, dtype=np.int64).reshape(-1, 2)
+    opv, ln = arr[:, 0], arr[:, 1]
+    if opv.size and (opv.min() < 0 or opv.max() > 2):
+        raise ValueError(
+            "Unexpected op %d in aligned cigar" % int(
+                opv[(opv < 0) | (opv > 2)][0])
+        )
+    i_end = np.cumsum(np.where(opv != 2, ln, 0))
+    j_end = np.cumsum(np.where(opv != 1, ln, 0))
+    i0 = i_end - np.where(opv != 2, ln, 0)
+    j0 = j_end - np.where(opv != 1, ln, 0)
+    counts = np.where(opv == 0, ln, 1)
+    starts = np.cumsum(counts) - counts
+    rep = np.repeat(np.arange(len(opv)), counts)
+    t = np.arange(int(counts.sum()), dtype=np.int64) - starts[rep] + 1
+    is_m = opv[rep] == 0
+    d = np.where(is_m, i0[rep] + j0[rep] + 2 * t, i_end[rep] + j_end[rep])
+    iv = np.where(is_m, i0[rep] + t, i_end[rep])
+    z = np.zeros(1, np.int64)
+    return np.concatenate([z, d]), np.concatenate([z, iv])
+
+
+def band_offsets(
+    m: int,
+    n: int,
+    width: int,
+    path_d: Optional[np.ndarray] = None,
+    path_i: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """lo(d) for d in [0, m+n]: the band's first i-index per anti-diagonal.
+
+    If no guide path is given, the band follows the main diagonal (global
+    alignment of similar-length sequences).  Guarantees lo(0)=0, monotone
+    increments in {0, 1}, and that the band contains (0,0) and (m,n).
+    """
+    D = m + n
+    dr = np.arange(D + 1, dtype=np.float64)
+    if path_d is None:
+        center = dr * (m / max(1, D))
+    else:
+        center = np.interp(dr, path_d.astype(np.float64), path_i.astype(np.float64))
+    lo = np.floor(center).astype(np.int64) - width // 2
+    hi_cap = max(0, m + 1 - width)
+    lo = np.clip(lo, 0, hi_cap)
+    # floor() of a <=1-slope monotone function keeps increments in {0,1}.
+    steps = np.diff(lo)
+    assert np.all((steps >= 0) & (steps <= 1)), "band offsets must step by 0/1"
+    return lo
+
+
+@dataclass
+class BandedBatch:
+    """A device-ready batch of banded read/ref pairs.
+
+    Shapes: D1 = max(m+n)+1 over the batch, Wp = width + GUARD, B = batch.
+      xb      [D1, Wp, B] int8   ref code at cell (d, k)   (x index j-1)
+      yb      [D1, Wp, B] int8   read code at cell (d, k)  (y index i-1)
+      valid   [D1, Wp, B] bool   cell inside grid and band
+      s1      [D1, B]     int32  lo(d) - lo(d-1)   (0 for padded steps)
+      s2      [D1, B]     int32  lo(d) - lo(d-2)
+      lo      [D1, B]     int32  band offsets (for unpacking results)
+      final_d [B]         int32  d of terminal cell (m, n)
+      final_k [B]         int32  band index of terminal cell
+      m, n    [B]         int32  sequence lengths
+    """
+
+    xb: np.ndarray
+    yb: np.ndarray
+    valid: np.ndarray
+    s1: np.ndarray
+    s2: np.ndarray
+    lo: np.ndarray
+    final_d: np.ndarray
+    final_k: np.ndarray
+    m: np.ndarray
+    n: np.ndarray
+    width: int
+
+    @property
+    def num_steps(self) -> int:
+        return self.xb.shape[0]
+
+    @property
+    def batch(self) -> int:
+        return self.xb.shape[2]
+
+    @property
+    def wp(self) -> int:
+        return self.xb.shape[1]
+
+    def dp_cells(self) -> int:
+        """Number of in-band DP cells (for throughput accounting)."""
+        return int(self.valid.sum())
+
+
+def pack_banded_batch(
+    reads: Sequence[np.ndarray],
+    refs: Sequence[np.ndarray],
+    width: int,
+    paths: Optional[Sequence[Optional[Tuple[np.ndarray, np.ndarray]]]] = None,
+    pad_batch_to: Optional[int] = None,
+    pad_steps_to: Optional[int] = None,
+    quantize: bool = False,
+) -> BandedBatch:
+    """Pack encoded read/ref code arrays into a BandedBatch.
+
+    reads[b], refs[b]: int8 code arrays (A=0..T=3, N=4).  paths[b] is an
+    optional (path_d, path_i) guide path in prefix coordinates.  With
+    quantize=True, the step count rounds up a geometric ladder (powers of
+    two from 128 to 1024, multiples of 1024 beyond) and the lane count to
+    a power of two, so repeated calls reuse compiled kernels while
+    short-read (tRNA-scale) batches stop paying ~5x step padding.
+    """
+    B0 = len(reads)
+    assert len(refs) == B0
+    ms = np.array([len(r) for r in reads], dtype=np.int64)
+    ns = np.array([len(r) for r in refs], dtype=np.int64)
+    D1 = int((ms + ns).max()) + 1
+    if pad_steps_to is not None:
+        assert pad_steps_to >= D1
+        D1 = pad_steps_to
+    elif quantize:
+        if D1 <= 1024:
+            D1 = max(128, 1 << (D1 - 1).bit_length())
+        else:
+            D1 = -(-D1 // 1024) * 1024
+    B = pad_batch_to if pad_batch_to is not None else B0
+    if pad_batch_to is None and quantize:
+        B = 1 << max(3, (B0 - 1).bit_length())
+    assert B >= B0
+    Wp = padded_band_width(width)
+
+    xb = np.zeros((D1, Wp, B), dtype=np.int8)
+    yb = np.zeros((D1, Wp, B), dtype=np.int8)
+    valid = np.zeros((D1, Wp, B), dtype=bool)
+    s1 = np.zeros((D1, B), dtype=np.int32)
+    s2 = np.zeros((D1, B), dtype=np.int32)
+    lo_all = np.zeros((D1, B), dtype=np.int32)
+    final_d = np.zeros(B, dtype=np.int32)
+    final_k = np.zeros(B, dtype=np.int32)
+    m_arr = np.zeros(B, dtype=np.int32)
+    n_arr = np.zeros(B, dtype=np.int32)
+
+    ks = np.arange(Wp, dtype=np.int64)[None, :]  # [1, Wp]
+    from .. import native as _native
+
+    use_native = _native.available() and B == xb.shape[2]
+
+    for b in range(B0):
+        m, n = int(ms[b]), int(ns[b])
+        D = m + n
+        if paths is not None and paths[b] is not None:
+            pd, pi = paths[b]
+            lo = band_offsets(m, n, width, pd, pi)
+        else:
+            lo = band_offsets(m, n, width)
+
+        if use_native and _native.pack_band_lane(
+            reads[b], refs[b], lo, width, xb, yb, valid, b
+        ):
+            pass
+        else:
+            dcol = np.arange(D + 1, dtype=np.int64)[:, None]  # [D+1, 1]
+            i_idx = lo[:, None] + ks  # [D+1, Wp]
+            j_idx = dcol - i_idx
+            ok = (
+                (ks < width)
+                & (i_idx >= 0)
+                & (i_idx <= m)
+                & (i_idx <= dcol)
+                & (j_idx >= 0)
+                & (j_idx <= n)
+            )
+            # Emission symbol indices (invalid cells are masked anyway).
+            y_sym = np.clip(i_idx - 1, 0, max(0, m - 1))
+            x_sym = np.clip(j_idx - 1, 0, max(0, n - 1))
+            yb[: D + 1, :, b] = reads[b][y_sym] if m > 0 else 4
+            xb[: D + 1, :, b] = refs[b][x_sym] if n > 0 else 4
+            valid[: D + 1, :, b] = ok
+        lo_all[: D + 1, b] = lo
+        lo_all[D + 1 :, b] = lo[-1]
+        s1[1 : D + 1, b] = np.diff(lo)
+        s2[2 : D + 1, b] = lo[2:] - lo[:-2]
+        final_d[b] = D
+        final_k[b] = m - lo[-1]
+        m_arr[b] = m
+        n_arr[b] = n
+
+    return BandedBatch(
+        xb=xb, yb=yb, valid=valid, s1=s1, s2=s2, lo=lo_all,
+        final_d=final_d, final_k=final_k, m=m_arr, n=n_arr, width=width,
+    )
+
+
+def circ_flush_rows(batch: BandedBatch, pad_to: int) -> np.ndarray:
+    """fr [pad_to, B] int32: per-diagonal flush row for the fused
+    ref-position accumulators (fb_pallas cx/mw kernels); -1 = no flush.
+
+    A reference position j leaves the band window at the first diagonal d
+    with gu(d) = d - lo(d) = j + width; gu steps exactly when lo does NOT,
+    and the completed position then sits at circular row
+    (lo(d) + width) mod Wp of the rolled accumulator frame (see
+    fb_pallas._make_fwd_kernel_circ_cx).  Beyond the packed steps, lo is
+    edge-replicated so gu keeps stepping and the window keeps draining."""
+    D1, B = batch.lo.shape
+    lo = batch.lo.astype(np.int64)
+    if pad_to > D1:
+        lo = np.concatenate(
+            [lo, np.repeat(lo[-1:, :], pad_to - D1, axis=0)], axis=0
+        )
+    stepped = np.zeros((pad_to, B), dtype=bool)
+    stepped[1:] = lo[1:] == lo[:-1]  # gu steps iff lo does not
+    fr = np.where(stepped, (lo + batch.width) % batch.wp, -1)
+    return fr.astype(np.int32)
+
+
+def circ_row_flush_rows(batch: BandedBatch, pad_to: int) -> np.ndarray:
+    """frr [pad_to, B] int32: per-diagonal flush row for the fused
+    READ-position accumulators (row sums; fb_pallas mw kernel); -1 = no
+    flush.  Read position i leaves the band at the first diagonal d with
+    lo(d) = i + 1; its accumulator row is its fixed circular row
+    i mod Wp = (lo(d) - 1) mod Wp."""
+    D1, B = batch.lo.shape
+    lo = batch.lo.astype(np.int64)
+    if pad_to > D1:
+        lo = np.concatenate(
+            [lo, np.repeat(lo[-1:, :], pad_to - D1, axis=0)], axis=0
+        )
+    stepped = np.zeros((pad_to, B), dtype=bool)
+    stepped[1:] = lo[1:] != lo[:-1]
+    frr = np.where(stepped, (lo - 1) % batch.wp, -1)
+    return frr.astype(np.int32)
+
+
+def circ_lo_mod_rows(batch: BandedBatch, pad_to: int) -> np.ndarray:
+    """lom [pad_to, B] int32 = lo(d) mod Wp (edge-replicated past the
+    packed steps): the per-diagonal rotation the fused mw forward applies
+    to emit its posterior band in band-relative layout
+    (rel[k] = circ[(lo + k) mod Wp])."""
+    D1, B = batch.lo.shape
+    lo = batch.lo.astype(np.int64)
+    if pad_to > D1:
+        lo = np.concatenate(
+            [lo, np.repeat(lo[-1:, :], pad_to - D1, axis=0)], axis=0
+        )
+    return (lo % batch.wp).astype(np.int32)
+
+
+@dataclass
+class CompactBandedBatch:
+    """Band geometry + packed sequences; no [D1, Wp, B] arrays.
+
+    Duck-type compatible with BandedBatch for every consumer that reads
+    only lo/m/n/final_d/final_k/width (the fused serving, assembly, MEA
+    and traceback paths)."""
+
+    lo: np.ndarray        # [D1, B] int32, edge-replicated past each lane
+    m: np.ndarray         # [B] int32
+    n: np.ndarray         # [B] int32
+    final_d: np.ndarray   # [B] int32
+    final_k: np.ndarray   # [B] int32
+    width: int
+    reads_p: np.ndarray   # [Mp, B] int8 packed read codes
+    refs_p: np.ndarray    # [Np, B] int8 packed ref codes
+    x_init: np.ndarray    # [Wp, B] int8 d=0 circular ref-code window
+    y_init: np.ndarray    # [Wp, B] int8 d=0 circular read-code window
+
+    @property
+    def num_steps(self) -> int:
+        return self.lo.shape[0]
+
+    @property
+    def batch(self) -> int:
+        return self.lo.shape[1]
+
+    @property
+    def wp(self) -> int:
+        return padded_band_width(self.width)
+
+    def dp_cells(self) -> int:
+        """In-band cell count, computed analytically from the offsets
+        (matches BandedBatch.dp_cells = valid.sum())."""
+        lo = self.lo.astype(np.int64)
+        D1, B = lo.shape
+        d = np.arange(D1, dtype=np.int64)[:, None]
+        m = self.m.astype(np.int64)[None, :]
+        n = self.n.astype(np.int64)[None, :]
+        low = np.maximum(lo, d - n)
+        high = np.minimum(np.minimum(lo + self.width - 1, m), d)
+        cnt = np.clip(high - low + 1, 0, None)
+        cnt = np.where((m + n) > 0, cnt, 0)
+        return int(cnt.sum())
+
+
+def pack_compact_batch(
+    reads: Sequence[np.ndarray],
+    refs: Sequence[np.ndarray],
+    width: int,
+    paths: Optional[Sequence[Optional[Tuple[np.ndarray, np.ndarray]]]] = None,
+    pad_batch_to: Optional[int] = None,
+    pad_steps_to: Optional[int] = None,
+    quantize: bool = False,
+) -> CompactBandedBatch:
+    """pack_banded_batch's geometry without the band-shaped arrays.
+
+    Same quantization ladder; packed sequence buffers round up to 512
+    rows so repeated buckets reuse compiled executables."""
+    B0 = len(reads)
+    assert len(refs) == B0
+    ms = np.array([len(r) for r in reads], dtype=np.int64)
+    ns = np.array([len(r) for r in refs], dtype=np.int64)
+    D1 = int((ms + ns).max()) + 1 if B0 else 1
+    if pad_steps_to is not None:
+        assert pad_steps_to >= D1
+        D1 = pad_steps_to
+    elif quantize:
+        if D1 <= 1024:
+            D1 = max(128, 1 << (D1 - 1).bit_length())
+        else:
+            D1 = -(-D1 // 1024) * 1024
+    B = pad_batch_to if pad_batch_to is not None else B0
+    if pad_batch_to is None and quantize:
+        B = 1 << max(3, (B0 - 1).bit_length())
+    assert B >= B0
+    Wp = padded_band_width(width)
+    Mp = -(-(int(ms.max(initial=0)) + Wp + 1) // 512) * 512
+    Np = -(-(int(ns.max(initial=0)) + Wp + 1) // 512) * 512
+
+    lo_all = np.zeros((D1, B), dtype=np.int32)
+    final_d = np.zeros(B, dtype=np.int32)
+    final_k = np.zeros(B, dtype=np.int32)
+    m_arr = np.zeros(B, dtype=np.int32)
+    n_arr = np.zeros(B, dtype=np.int32)
+    reads_p = np.zeros((Mp, B), dtype=np.int8)
+    refs_p = np.zeros((Np, B), dtype=np.int8)
+    y_init = np.zeros((Wp, B), dtype=np.int8)
+    x_init = np.zeros((Wp, B), dtype=np.int8)
+    rows = np.arange(Wp, dtype=np.int64)
+
+    for b in range(B0):
+        m, n = int(ms[b]), int(ns[b])
+        D = m + n
+        if paths is not None and paths[b] is not None:
+            pd, pi = paths[b]
+            lo = band_offsets(m, n, width, pd, pi)
+        else:
+            lo = band_offsets(m, n, width)
+        lo_all[: D + 1, b] = lo
+        lo_all[D + 1 :, b] = lo[-1]
+        final_d[b] = D
+        final_k[b] = m - lo[-1]
+        m_arr[b] = m
+        n_arr[b] = n
+        reads_p[:m, b] = reads[b]
+        refs_p[:n, b] = refs[b]
+        # d=0 circular windows: row r holds i = r (lo(0) = 0), so the
+        # read window is reads[clip(r-1, 0, m-1)] and the ref window is
+        # refs[clip(j-1, .)] = refs[0] everywhere (j = -r <= 0) — the
+        # same clip conventions pack_banded_batch uses (band.py:222-225).
+        if m > 0:
+            y_init[:, b] = reads[b][np.clip(rows - 1, 0, m - 1)]
+        if n > 0:
+            x_init[:, b] = refs[b][0]
+
+    return CompactBandedBatch(
+        lo=lo_all, m=m_arr, n=n_arr, final_d=final_d, final_k=final_k,
+        width=width, reads_p=reads_p, refs_p=refs_p,
+        x_init=x_init, y_init=y_init,
+    )
+

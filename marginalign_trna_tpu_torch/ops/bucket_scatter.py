@@ -1,0 +1,57 @@
+"""Lane-summed scatter of the caller's flushed expectation stream: the CUDA
+kernel X (csrc/scatter.cu) and its plain PyTorch version.
+
+Port of marginalign_trna_tpu/ops/bucket_scatter.py `bucket_scatter_lanesum`:
+out[v, c] = sum over (d, b) with jm[d, b] == v of vals[c, d, b].  The TPU
+kernel places values by residue masks in aligned groups of 128 rows,
+because per-lane gathers and scatters scalarise there, and keeps its
+[rg, C] output resident in VMEM (the JAX package drops to a chunked kernel
+above 65536 positions for that reason).  On the card one thread per
+(row, lane) adds its C values into out[jm, :] with atomics: no group
+structure and no cap on rg.  Atomics add in no fixed order, so the kernel
+agrees with the plain version to float32 rounding of the sums, not bit for
+bit.
+
+`monotone_gather_plain` is the function of the TPU kernel `monotone_gather`,
+which the port performs as direct loads inside the expand_streams kernel
+(ops/fb_circ_cuda.py).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from ._build import check_tensor
+
+
+def scatter_lanesum_plain(vals: torch.Tensor, jm: torch.Tensor,
+                          rg: int) -> torch.Tensor:
+    """Plain version of the scatter_lanesum kernel: [rg, C] float32 from
+    vals [C, D, B] float32 and targets jm [D, B] int32 (-1, and anything
+    outside [0, rg), adds nowhere)."""
+    C = vals.shape[0]
+    tgt = torch.where((jm >= 0) & (jm < rg), jm, rg).long().reshape(-1)
+    out = vals.new_zeros((rg + 1, C))
+    out.scatter_add_(0, tgt[:, None].expand(-1, C), vals.reshape(C, -1).t())
+    return out[:rg]
+
+
+def scatter_lanesum_cuda(vals: torch.Tensor, jm: torch.Tensor,
+                         rg: int) -> torch.Tensor:
+    """The scatter_lanesum kernel (csrc/scatter.cu); the plain version's
+    function, summed in another order."""
+    C, D, B = vals.shape
+    dev = vals.device
+    check_tensor(vals, torch.float32, (C, D, B), dev)
+    check_tensor(jm, torch.int32, (D, B), dev)
+    out = torch.zeros((rg, C), dtype=torch.float32, device=dev)
+    _build.launch("scatter_lanesum", dev, vals.data_ptr(), jm.data_ptr(),
+                  C, D, B, rg, out.data_ptr())
+    return out
+
+
+def monotone_gather_plain(src: torch.Tensor, idx: torch.Tensor
+                          ) -> torch.Tensor:
+    """out[u, b] = src[idx[u, b], b]: the function of the TPU kernel
+    marginalign_trna_tpu/ops/bucket_scatter.py `monotone_gather`."""
+    return src.gather(0, idx.long())

@@ -1,0 +1,95 @@
+"""Assembly of marginCaller's expected base counts from the fused pass.
+
+Port of the fused-kernel assembly of marginalign_trna_tpu/ops/
+expectations.py (`fused_flush_jmaps_device`, `band_expectations_cx` on its
+scatter path).  The cx_forward pass (ops/fb_circ.py) flushes each completed
+reference position's four totals at one diagonal and leaves the last
+window's positions in its accumulator tails; every such value has one
+global target position, derived here from the band offsets, and the
+scatter_lanesum kernel (ops/bucket_scatter.py) adds them over lanes into a
+dense [rg, 4] tensor.  The JAX package pads the flush rows to its TPU
+kernel's 128-row groups before the tails; the card's scatter has no row
+groups, so here the tails follow the flush rows directly.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .band import CompactBandedBatch
+from .bucket_scatter import scatter_lanesum_cuda, scatter_lanesum_plain
+from .dispatch import use_kernel
+from .fb import FbTables
+from .fb_circ import (
+    STEP_BLOCK, CompactCircBatch, posteriors_expectations_compact,
+)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def fused_flush_jmaps(lo: torch.Tensor, off: torch.Tensor, n: torch.Tensor,
+                      width: int, Wp: int, d1k: int):
+    """(jmap [d1k, B], jtail [Wp, B]) int32 global target positions of the
+    flushed stream and of the tail rows (-1 = none).  Reference position j
+    (1-based, local to the lane) completes at the first diagonal where
+    gu = d - lo(d) reaches j + width, which is a diagonal where lo does not
+    step; positions the last window still holds sit at tail row
+    (d1k - 1 - j) mod Wp."""
+    lo = lo.long()
+    D1, B = lo.shape
+    if d1k > D1:
+        lo = torch.cat([lo, lo[-1:].expand(d1k - D1, B)], dim=0)
+    off = off.long()[None, :]
+    n = n.long()[None, :]
+    d = torch.arange(d1k, device=lo.device)[:, None]
+    gu = d - lo
+    stepped = torch.cat([torch.zeros_like(lo[:1], dtype=torch.bool),
+                         lo[1:] == lo[:-1]], dim=0)
+    j = gu - width
+    jmap = torch.where(stepped & (j >= 1) & (j <= n), off + j - 1, -1)
+    gu_end = gu[-1:]
+    lo_t = torch.clamp(gu_end - width + 1, min=1)
+    hi_t = torch.minimum(n, gu_end)
+    r = torch.arange(Wp, device=lo.device)[:, None]
+    j_r = lo_t + torch.remainder(d1k - 1 - r - lo_t, Wp)
+    jtail = torch.where((j_r >= lo_t) & (j_r <= hi_t), off + j_r - 1, -1)
+    return jmap.to(torch.int32), jtail.to(torch.int32)
+
+
+def concat_flush_tails(fl: torch.Tensor, tails: torch.Tensor,
+                       jmap: torch.Tensor, jtail: torch.Tensor):
+    """(vals [C, d1k + Wp, B], jm [d1k + Wp, B]): the flushed values
+    fl [C, d1k, B] then the tails [C, Wp, B], beside their targets."""
+    return torch.cat([fl, tails], dim=1), torch.cat([jmap, jtail], dim=0)
+
+
+def scatter_lanesum(vals: torch.Tensor, jm: torch.Tensor,
+                    rg: int) -> torch.Tensor:
+    """[rg, C] lane sums: the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if use_kernel(vals):
+        return scatter_lanesum_cuda(vals, jm, rg)
+    return scatter_lanesum_plain(vals, jm, rg)
+
+
+def band_expectations_cx(
+    tables: FbTables,
+    batch: CompactBandedBatch,
+    comp: CompactCircBatch,
+    ref_offsets: np.ndarray,
+    total_ref_len: int,
+) -> np.ndarray:
+    """[total_ref_len, 4] expected base counts of one bucket.
+    ref_offsets[b] is the global start of lane b's reference window; padded
+    lanes (n = 0) add nothing."""
+    rg = _round_up(max(total_ref_len, 1), 512)
+    d1k = _round_up(batch.num_steps, STEP_BLOCK)
+    _, fl, tails = posteriors_expectations_compact(tables, comp, batch.width)
+    off = torch.from_numpy(np.asarray(ref_offsets, np.int64)).to(
+        comp.lo.device)
+    jmap, jtail = fused_flush_jmaps(comp.lo, off, comp.n, batch.width,
+                                    batch.wp, d1k)
+    vals, jm = concat_flush_tails(fl, tails, jmap, jtail)
+    return scatter_lanesum(vals, jm, rg).cpu().numpy()[:total_ref_len]

@@ -13,8 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from marginalign_trna_tpu.models.hmm import PairHmm
-
+from ..models.hmm import PairHmm
 from .band import BandedBatch
 
 

@@ -58,6 +58,23 @@ def _flat_gap_consts(st) -> Optional[Tuple[float, float, float, float]]:
     return tuple(consts)
 
 
+def require_flat_gaps(st) -> Tuple[float, float, float, float]:
+    """The flat gap emissions of static tables `st`; raises
+    NotImplementedError for a model whose gap rows are not flat, which
+    needs the generic forward-backward kernels (ROADMAP B15,
+    marginalign_trna_tpu/ops/fb_pallas.py _run_forward/_run_backward), not
+    ported yet."""
+    gc = _flat_gap_consts(st)
+    if gc is None:
+        raise NotImplementedError(
+            "models with non-flat gap emissions need the generic "
+            "forward-backward kernels (ROADMAP B15: "
+            "marginalign_trna_tpu/ops/fb_pallas.py "
+            "_run_forward/_run_backward), which are not ported yet"
+        )
+    return gc
+
+
 def has_flat_gap_emissions(tables: FbTables) -> bool:
     """True when every gap state's emission row is flat: the premise of the
     flat-gap kernels, which fold gap emissions into the transition
@@ -255,13 +272,7 @@ def fb_inputs(tables: FbTables, dev: DeviceBatch):
     """(coef, premasked match emission band) for the kernels; raises for
     models the flat-gap kernels cannot run."""
     st = static_tables(tables)
-    gc = _flat_gap_consts(st)
-    if gc is None:
-        raise NotImplementedError(
-            "models with non-flat gap emissions need the generic "
-            "forward-backward kernels (marginalign_trna_tpu/ops/fb_pallas.py "
-            "_run_forward/_run_backward), which are not ported yet"
-        )
+    gc = require_flat_gaps(st)
     check_uniform_pi(tables)
     ematch = _precompute_ematch(tables, dev.xb, dev.yb) * dev.valid
     return _coefficients(st, gc), ematch

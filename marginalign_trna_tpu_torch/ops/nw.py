@@ -13,8 +13,7 @@ from typing import List, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from marginalign_trna_tpu import native as _native
-
+from .. import native as _native
 from .band import BandedBatch
 from .dispatch import use_kernel
 from .fb import DeviceBatch

@@ -19,15 +19,13 @@ from typing import Dict, Optional
 
 import torch
 
-from marginalign_trna_tpu.align.chain import chain_sam_file
-from marginalign_trna_tpu.models.hmm import PairHmm
-
+from .align.chain import chain_sam_file
 from .align.guide import GuideConfig, map_reads
 from .align.realign import realign_sam_file
+from .models.hmm import PairHmm
 
 DEFAULT_MODEL = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "marginalign_trna_tpu", "models", "last_hmm_20.txt",
+    os.path.dirname(os.path.abspath(__file__)), "models", "last_hmm_20.txt"
 )
 
 

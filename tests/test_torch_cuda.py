@@ -1,7 +1,9 @@
 """The port's CUDA kernels vs their plain PyTorch versions, on the card.
 
-Marked `cuda`: these skip on a machine without a CUDA device.  On the card:
-    python -m pytest tests/test_torch_cuda.py -q
+Marked `cuda`: these skip on a machine without a CUDA device.  This file
+imports only the port, so it runs where the JAX package cannot.  On the
+card:
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
 """
 import os
 
@@ -9,16 +11,27 @@ import numpy as np
 import pytest
 import torch
 
-from marginalign_trna_tpu.models.hmm import PairHmm
-from marginalign_trna_tpu.ops.band import pack_banded_batch, path_from_cigar
-from marginalign_trna_tpu_torch.ops import _build, fb_cuda, wavefront_cuda
+from marginalign_trna_tpu_torch.models.hmm import PairHmm
+from marginalign_trna_tpu_torch.ops import (
+    _build, bucket_scatter, fb_circ_cuda, fb_cuda, wavefront_cuda,
+)
+from marginalign_trna_tpu_torch.ops.band import (
+    pack_banded_batch, pack_compact_batch, path_from_cigar,
+)
+from marginalign_trna_tpu_torch.ops.expectations import (
+    concat_flush_tails, fused_flush_jmaps,
+)
 from marginalign_trna_tpu_torch.ops.fb import device_batch, tables_from_hmm
+from marginalign_trna_tpu_torch.ops.fb_circ import (
+    circ_coefficients, compact_device_batch,
+)
 from marginalign_trna_tpu_torch.ops.mea import NEG, mea_weights
 
 pytestmark = pytest.mark.cuda
 
 MODEL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
-                     "marginalign_trna_tpu", "models", "last_hmm_20.txt")
+                     "marginalign_trna_tpu_torch", "models",
+                     "last_hmm_20.txt")
 
 
 @pytest.fixture(scope="module")
@@ -90,3 +103,52 @@ def test_mea_kernel_matches_plain(cuda):
     rptr, rscore = wavefront_cuda.banded_mea_plain(*args)
     assert torch.equal(ptr, rptr)
     assert torch.allclose(score, rscore, rtol=0, atol=1e-4)
+
+
+def _compact(cuda, seed=3, n=40):
+    rng = np.random.default_rng(seed)
+    reads = [rng.integers(0, 4, int(rng.integers(20, 150))).astype(np.int8)
+             for _ in range(n)]
+    refs = [r[: max(1, len(r) - 4)].copy() for r in reads]
+    comp = pack_compact_batch(reads, refs, width=21, quantize=True)
+    return comp, compact_device_batch(comp, cuda)
+
+
+def test_caller_kernels_match_plain(cuda):
+    """E, S, C and X at a tiny shape, each on the plain version's inputs."""
+    tables = tables_from_hmm(PairHmm.load(MODEL), cuda)
+    coef, chain = circ_coefficients(tables)
+    ematch = tables.Ematch.cpu().numpy().reshape(-1)
+    comp, dev = _compact(cuda)
+    Wp, d1k = comp.wp, comp.num_steps
+    eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, Wp, d1k)
+    names = ("expand_streams", "sv_backward", "cx_forward",
+             "scatter_lanesum")
+    before = {k: _build.launch_counts[k] for k in names}
+    es, yb, fr = fb_circ_cuda.expand_streams_cuda(*eargs)
+    res, ryb, rfr = fb_circ_cuda.expand_streams_plain(*eargs)
+    assert torch.equal(es, res) and torch.equal(fr, rfr)
+    assert torch.equal(yb[res >= 0], ryb[res >= 0])
+
+    sargs = (coef, chain, res, dev.fink, dev.final_d)
+    bm, bls, logZ = fb_circ_cuda.sv_backward_cuda(*sargs)
+    rbm, rbls, rlogZ = fb_circ_cuda.sv_backward_plain(*sargs)
+    assert torch.allclose(logZ, rlogZ, rtol=1e-4, atol=1e-4)
+    assert torch.allclose(bm, rbm, rtol=2e-4, atol=1e-30)
+    assert torch.allclose(bls, rbls, rtol=2e-4, atol=1e-6)
+
+    cargs = (coef, chain, res, ryb, rfr, rbm, rbls, rlogZ)
+    fl, tails = fb_circ_cuda.cx_forward_cuda(*cargs)
+    rfl, rtails = fb_circ_cuda.cx_forward_plain(*cargs)
+    assert (fl - rfl).abs().max().item() <= 2e-4
+    assert (tails - rtails).abs().max().item() <= 2e-4
+
+    off = torch.arange(comp.batch, device=cuda) * 40
+    jmap, jtail = fused_flush_jmaps(dev.lo, off, dev.n, 21, Wp, d1k)
+    vals, jm = concat_flush_tails(rfl, rtails, jmap, jtail)
+    rg = 40 * comp.batch + 512
+    out = bucket_scatter.scatter_lanesum_cuda(vals, jm, rg)
+    ref = bucket_scatter.scatter_lanesum_plain(vals, jm, rg)
+    assert torch.allclose(out, ref, rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts[k] == before[k] + 1 for k in names)
