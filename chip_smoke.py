@@ -6,27 +6,37 @@ CUDA card.  Run from the repository root:
 
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a.
-  2. tiny     each kernel against its plain PyTorch version on the card at a
-              tiny shape, so a broken kernel fails before the long runs.
+  2. tiny     each of the twelve kernels against its plain PyTorch version
+              on the card at a tiny shape, so a broken kernel fails before
+              the long runs.
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
               pipeline.align on a synthetic 1024-read x 3.5 kb corpus with
-              two references and both strands; every marginAlign kernel
-              must launch, and the reads must land where they were
-              simulated from.  The shape of every launch is logged and the
-              inputs of each kernel's largest launch are kept (one device
-              copy each).
-  4. kernels  each marginAlign kernel against its plain version on the
-              inputs of its largest main-path launch, with times and bounds.
-  5. parity   a 32-read subset through the same entry on device="cpu"
+              two references and both strands, on its default path: the
+              guide through R and K1, realignment through E, S, M, L and D.
+              Every one of those kernels must launch, no other kernel and
+              no host band packer (pack_banded_batch) may run, and the reads
+              must land where they were simulated from.  The shape of every
+              launch is logged and the inputs of each kernel's largest
+              launch are kept (one device copy each).
+  4. kernels  each of those kernels against its plain version on the inputs
+              of its largest main-path launch, with times and bounds.
+  5. rel      the REL realign path (fused=False: host band arrays, K2, K3,
+              K4) on the chained records of the corpus's first 256 reads;
+              only K2, K3 and K4 may launch; >= 90% of its cigars must equal
+              the main phase's and every other one must be an MEA near-tie
+              of it (objective within 1e-5 under the fused weights).  Then
+              K2, K3 and K4 against their plain versions on their largest
+              REL launch.
+  6. parity   a 32-read subset through the same entry on device="cpu"
               (plain versions) and "cuda" (kernels): guide records
               identical, >= 95% of realigned cigars identical.
-  6. caller   marginCaller (compact streams -> backward -> fused expectation
+  7. caller   marginCaller (compact streams -> backward -> fused expectation
               forward -> scatter) through call.caller.margin_caller on the
               main phase's SAM against a copy of the reference with an SNV
-              planted every 150 bases; every caller kernel must launch, and
+              planted every 150 bases; only E, S, C and X may launch, and
               recall and precision on the planted SNVs must reach 95%.
-  7. kernels  each caller kernel against its plain version on the inputs of
-              its largest caller launch, with times and bounds.
+              Then those kernels against their plain versions on their
+              largest caller launch.
   8. parity   the caller on the SAM's first 32 records on "cpu" and "cuda":
               identical call sets, expectations within 1e-3.
   9. card     name and power limit from nvidia-smi.
@@ -53,51 +63,68 @@ NW_PARAMS = (1.0, -2.0, -3.0, -1.0)
 # Planted SNVs of the caller phase: every SNV_STEP bases from SNV_FIRST to
 # SNV_LAST on each reference.
 SNV_FIRST, SNV_LAST, SNV_STEP = 100, 3400, 150
-# Kernel name -> (source, TPU kernel it replaces, wrapper in ops/, path:
-# "align" = marginAlign's main path, "call" = marginCaller's).
+# Kernel name -> (source, TPU kernel it replaces, wrapper in ops/, paths it
+# runs on: "align" = marginAlign's main (default, fused) path, "rel" = its
+# REL realign path, "call" = marginCaller's).
 KERNELS = {
     "banded_nw": ("marginalign_trna_tpu_torch/csrc/nw.cu",
                   "marginalign_trna_tpu/ops/wavefront_pallas.py:77",
-                  "wavefront_cuda.banded_nw_cuda", "align"),
-    "fb_backward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
-                    "marginalign_trna_tpu/ops/fb_pallas.py:823",
-                    "fb_cuda.fb_backward_cuda", "align"),
-    "fb_forward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
-                   "marginalign_trna_tpu/ops/fb_pallas.py:971",
-                   "fb_cuda.fb_forward_cuda", "align"),
-    "banded_mea": ("marginalign_trna_tpu_torch/csrc/mea.cu",
-                   "marginalign_trna_tpu/ops/wavefront_pallas.py:375",
-                   "wavefront_cuda.banded_mea_cuda", "align"),
+                  "wavefront_cuda.banded_nw_cuda", ("align",)),
+    "expand_rel": ("marginalign_trna_tpu_torch/csrc/expand.cu",
+                   "marginalign_trna_tpu/ops/fb_pallas.py:3584",
+                   "fb_circ_cuda.expand_rel_cuda", ("align",)),
     "expand_streams": ("marginalign_trna_tpu_torch/csrc/expand.cu",
                        "marginalign_trna_tpu/ops/fb_pallas.py:3375",
-                       "fb_circ_cuda.expand_streams_cuda", "call"),
+                       "fb_circ_cuda.expand_streams_cuda", ("align", "call")),
     "sv_backward": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
                     "marginalign_trna_tpu/ops/fb_pallas.py:2269",
-                    "fb_circ_cuda.sv_backward_cuda", "call"),
+                    "fb_circ_cuda.sv_backward_cuda", ("align", "call")),
+    "mw_forward": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                   "marginalign_trna_tpu/ops/fb_pallas.py:3047",
+                   "fb_circ_cuda.mw_forward_cuda", ("align",)),
+    "scatter_lanes": ("marginalign_trna_tpu_torch/csrc/scatter.cu",
+                      "marginalign_trna_tpu/ops/bucket_scatter.py:57",
+                      "bucket_scatter.scatter_lanes_cuda", ("align",)),
+    "mea_dl": ("marginalign_trna_tpu_torch/csrc/mea.cu",
+               "marginalign_trna_tpu/ops/wavefront_pallas.py:475",
+               "wavefront_cuda.mea_dl_cuda", ("align",)),
+    "fb_backward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
+                    "marginalign_trna_tpu/ops/fb_pallas.py:823",
+                    "fb_cuda.fb_backward_cuda", ("rel",)),
+    "fb_forward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
+                   "marginalign_trna_tpu/ops/fb_pallas.py:971",
+                   "fb_cuda.fb_forward_cuda", ("rel",)),
+    "banded_mea": ("marginalign_trna_tpu_torch/csrc/mea.cu",
+                   "marginalign_trna_tpu/ops/wavefront_pallas.py:375",
+                   "wavefront_cuda.banded_mea_cuda", ("rel",)),
     "cx_forward": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
                    "marginalign_trna_tpu/ops/fb_pallas.py:2772",
-                   "fb_circ_cuda.cx_forward_cuda", "call"),
+                   "fb_circ_cuda.cx_forward_cuda", ("call",)),
     "scatter_lanesum": ("marginalign_trna_tpu_torch/csrc/scatter.cu",
                         "marginalign_trna_tpu/ops/bucket_scatter.py:180",
-                        "bucket_scatter.scatter_lanesum_cuda", "call"),
+                        "bucket_scatter.scatter_lanesum_cuda", ("call",)),
 }
-ALIGN_KERNELS = [k for k, v in KERNELS.items() if v[3] == "align"]
-CALLER_KERNELS = [k for k, v in KERNELS.items() if v[3] == "call"]
+ALIGN_KERNELS = [k for k, v in KERNELS.items() if "align" in v[3]]
+REL_KERNELS = [k for k, v in KERNELS.items() if "rel" in v[3]]
+CALLER_KERNELS = [k for k, v in KERNELS.items() if "call" in v[3]]
+# Records of the main phase's corpus that the REL phase realigns.
+REL_RECORDS = 256
 
 # The least time the card could take: the bytes a kernel must move (each
 # input read once, each output written once) at the H100 SXM's 3.35 TB/s,
 # or its operations at the 67 TFLOP/s of float32 outside the tensor cores,
 # whichever is larger.  Operations per band cell (per targeted (row, lane)
-# for the scatter, which reads values only where a target is), counted
+# for the scatters, which read values only where a target is), counted
 # from each kernel's arithmetic on the branch this run takes (the shipped
-# model's gap-chain form for sv/cx): a multiply, add, max, compare or
+# model's gap-chain form for sv/cx/mw): a multiply, add, max, compare or
 # select is one.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_CELL = {
     "banded_nw": 14, "fb_backward": 56, "fb_forward": 52, "banded_mea": 10,
     "expand_streams": 16, "sv_backward": 23, "cx_forward": 28,
-    "scatter_lanesum": 4,
+    "scatter_lanesum": 4, "expand_rel": 14, "mw_forward": 32,
+    "scatter_lanes": 4, "mea_dl": 36,
 }
 
 
@@ -312,19 +339,6 @@ def compare_mea(args, reps):
     }
 
 
-def compare_kernels(tag, inputs, reps):
-    """Every kernel against its plain version on `inputs` (kernel name ->
-    wrapper arguments; fb_forward may be None)."""
-    nw = compare_nw(inputs["banded_nw"], reps)
-    fbb, fbf = compare_fb(inputs["fb_backward"], inputs["fb_forward"], reps)
-    mea = compare_mea(inputs["banded_mea"], reps)
-    report = {"banded_nw": nw, "fb_backward": fbb, "fb_forward": fbf,
-              "banded_mea": mea}
-    for name, res in report.items():
-        log("kernels[%s] %-11s %s" % (tag, name, json.dumps(res)))
-    return report
-
-
 def compare_expand(args, reps):
     import torch
 
@@ -335,8 +349,11 @@ def compare_expand(args, reps):
     torch.cuda.synchronize()
     check(torch.equal(es, res), "E es differs")
     check(torch.equal(fr, rfr), "E fr differs")
-    valid = res >= 0
-    check(torch.equal(yb[valid], ryb[valid]), "E yb differs on valid cells")
+    check((yb is None) == (ryb is None), "E yb asked for in one version")
+    if yb is not None:
+        valid = res >= 0
+        check(torch.equal(yb[valid], ryb[valid]),
+              "E yb differs on valid cells")
     return {
         "max_abs_err": (es - res).abs().max().item(),
         "ms": time_ms(lambda: fc.expand_streams_cuda(*args), reps),
@@ -428,17 +445,130 @@ def compare_scatter(args, reps):
     }
 
 
-def compare_caller_kernels(tag, inputs, reps):
-    """Every caller kernel against its plain version on `inputs` (kernel
-    name -> wrapper arguments)."""
-    report = {
-        "expand_streams": compare_expand(inputs["expand_streams"], reps),
-        "sv_backward": compare_sv(inputs["sv_backward"], reps),
-        "cx_forward": compare_cx(inputs["cx_forward"], reps),
-        "scatter_lanesum": compare_scatter(inputs["scatter_lanesum"], reps),
+def compare_expand_rel(args, reps):
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+
+    xb, yb = fc.expand_rel_cuda(*args)
+    rxb, ryb = fc.expand_rel_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.equal(xb, rxb) and torch.equal(yb, ryb),
+          "R code bands differ")
+    return {
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: fc.expand_rel_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: fc.expand_rel_plain(*args), 1),
+        "library_ms": None,
+        **bound("expand_rel", xb.numel(), nbytes(*args, xb, yb)),
     }
-    for name, res in report.items():
-        log("kernels[%s] %-15s %s" % (tag, name, json.dumps(res)))
+
+
+def compare_mw(args, reps):
+    """M against its plain version: the posterior band within 2e-4, the
+    flushed sums and tails within 2e-3 (the FB tolerances)."""
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+
+    got = fc.mw_forward_cuda(*args)
+    ref = fc.mw_forward_plain(*args)
+    torch.cuda.synchronize()
+    perr = (got[0] - ref[0]).abs().max().item()
+    serr = max((g - r).abs().max().item() for g, r in zip(got[1:], ref[1:]))
+    check(perr <= 2e-4, "M posterior differs by %g (atol 2e-4)" % perr)
+    check(serr <= 2e-3, "M sums differ by %g (atol 2e-3)" % serr)
+    return {
+        "max_abs_err": perr, "sums_max_abs_err": serr,
+        "ms": time_ms(lambda: fc.mw_forward_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: fc.mw_forward_plain(*args), 1),
+        "library_ms": None,
+        **bound("mw_forward", got[0].numel(), nbytes(*args, *got)),
+    }
+
+
+def compare_scatter_lanes(args, reps):
+    """L against its plain version (rtol 1e-5), and the one PyTorch call
+    that computes the same function, scatter_add_ over the targets, timed
+    beside it.  L must read every target and the value of each targeted
+    cell, and write the [rg, B] output."""
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import bucket_scatter as bs
+
+    vals, jm, rg = args
+    out = bs.scatter_lanes_cuda(*args)
+    ref = bs.scatter_lanes_plain(*args)
+    torch.cuda.synchronize()
+    check(torch.allclose(out, ref, rtol=1e-5, atol=1e-6),
+          "L differs from its plain version (rtol 1e-5)")
+    hit = (jm >= 0) & (jm < rg)
+    n_hit = int(hit.sum().item())
+    tgt = torch.where(hit, jm, rg).long()
+    lib_out = vals.new_zeros((rg + 1, vals.shape[1]))
+    lib_out.scatter_add_(0, tgt, vals)
+    check(torch.allclose(lib_out[:rg], ref, rtol=1e-5, atol=1e-6),
+          "scatter_add_ disagrees with the plain version")
+    return {
+        "max_abs_err": (out - ref).abs().max().item(),
+        "ms": time_ms(lambda: bs.scatter_lanes_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: bs.scatter_lanes_plain(*args), 1),
+        "library_ms": time_ms(lambda: lib_out.scatter_add_(0, tgt, vals),
+                              reps),
+        "target_cells": n_hit, "cells": jm.numel(),
+        **bound("scatter_lanes", n_hit,
+                nbytes(jm, out) + n_hit * vals.element_size()),
+    }
+
+
+def compare_mea_dl(args, reps):
+    """D against its plain version: pointers equal on every valid cell,
+    scores within 1e-4."""
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import wavefront_cuda as wf
+    from marginalign_trna_tpu_torch.ops.band import band_masks
+
+    post, lo, m, n, width = args[:5]
+    ptr, score = wf.mea_dl_cuda(*args)
+    rptr, rscore = wf.mea_dl_plain(*args)
+    torch.cuda.synchronize()
+    ok = band_masks(lo, m, n, width, post.shape[1])[0]
+    check(torch.equal(ptr[ok], rptr[ok]), "D pointers differ on valid cells")
+    err = (score - rscore).abs().max().item()
+    check(err <= 1e-4, "D score differs by %g (atol 1e-4)" % err)
+    return {
+        "max_abs_err": err,
+        "all_cells_equal": bool(torch.equal(ptr, rptr)),
+        "ms": time_ms(lambda: wf.mea_dl_cuda(*args), reps),
+        "plain_ms": time_ms(lambda: wf.mea_dl_plain(*args), 1),
+        "library_ms": None,
+        **bound("mea_dl", ptr.numel(), nbytes(*args, ptr, score)),
+    }
+
+
+COMPARE = {
+    "banded_nw": compare_nw, "banded_mea": compare_mea,
+    "expand_streams": compare_expand, "sv_backward": compare_sv,
+    "cx_forward": compare_cx, "scatter_lanesum": compare_scatter,
+    "expand_rel": compare_expand_rel, "mw_forward": compare_mw,
+    "scatter_lanes": compare_scatter_lanes, "mea_dl": compare_mea_dl,
+}
+
+
+def compare_kernels(tag, names, inputs, reps):
+    """Each kernel of `names` against its plain version on `inputs`
+    (kernel name -> wrapper arguments; fb_forward's may be None: the plain
+    backward's outputs then feed it).  Returns {name: report}."""
+    report = {}
+    for name in names:
+        if name == "fb_backward":
+            report["fb_backward"], report["fb_forward"] = compare_fb(
+                inputs["fb_backward"], inputs.get("fb_forward"), reps)
+        elif name != "fb_forward":
+            report[name] = COMPARE[name](inputs[name], reps)
+    for name in names:
+        log("kernels[%s] %-15s %s" % (tag, name, json.dumps(report[name])))
     return report
 
 
@@ -529,15 +659,89 @@ def tiny_inputs(device):
     }
 
 
+def tiny_default_inputs(device):
+    """Inputs of R, M, L and D at a tiny shape: 40 noisy pairs of 20-150
+    bases at width 21 (shipped model), each kernel fed by the plain
+    versions of the kernels before it."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+    from marginalign_trna_tpu_torch.ops.band import (
+        circ_mw_streams, pack_compact_batch,
+    )
+    from marginalign_trna_tpu_torch.ops.expectations import (
+        concat_flush_tails, fused_row_jmaps,
+    )
+    from marginalign_trna_tpu_torch.ops.fb import tables_from_file
+    from marginalign_trna_tpu_torch.ops.fb_circ import (
+        circ_coefficients, compact_device_batch,
+    )
+    from marginalign_trna_tpu_torch.ops.mea import rowcol_sums_from_flushed
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    rng = np.random.default_rng(14)
+    refs = [rng.integers(0, 4, size=int(rng.integers(20, 150)))
+            .astype(np.int8) for _ in range(40)]
+    reads = [noisy(rng, r) for r in refs]
+    comp = pack_compact_batch(reads, refs, width=21, quantize=True)
+    dev = compact_device_batch(comp, device)
+    Wp, D1 = comp.wp, comp.num_steps
+    tables = tables_from_file(DEFAULT_MODEL, device)
+    coef, chain = circ_coefficients(tables)
+    ematch = tables.Ematch.cpu().numpy().reshape(-1)
+    es, _, _ = fc.expand_streams_plain(ematch, dev.reads, dev.refs, dev.lo,
+                                       dev.m, dev.n, 21, Wp, D1, False)
+    fr, frr, lom = circ_mw_streams(dev.lo, 21, Wp, D1)
+    bm, bls, logZ = fc.sv_backward_plain(coef, chain, es, dev.fink,
+                                         dev.final_d)
+    margs = (coef, chain, es, fr, frr, lom, bm, bls, logZ)
+    post, flc, flr, tc, tr = fc.mw_forward_plain(*margs)
+    jmap, jtail = fused_row_jmaps(dev.lo, dev.m, Wp, D1)
+    vals, jm = concat_flush_tails(flr, tr, jmap, jtail)
+    accr, accc = rowcol_sums_from_flushed(comp, dev, flc, flr, tc, tr)
+    return {
+        "expand_rel": (dev.reads, dev.refs, dev.lo, dev.m, dev.n, Wp, D1),
+        "mw_forward": margs,
+        "scatter_lanes": (vals, jm, accr.shape[0]),
+        "mea_dl": (post, dev.lo, dev.m, dev.n, 21, dev.final_d, dev.final_k,
+                   accr, accc, 0.5, 0.0),
+    }
+
+
 def launch_shape(name, args):
-    """The band a kernel call walks: [D1 or d1k, Wp, B] ([C, D, B] for the
-    scatter's values)."""
+    """The band a kernel call walks: [D1 or d1k, Wp, B] ([C, D, B] or
+    [D, B] for the scatters' values)."""
     import torch
 
     if name == "expand_streams":
         return [args[8], args[7], args[3].shape[1]]
+    if name == "expand_rel":
+        return [args[6], args[5], args[2].shape[1]]
+    if name == "scatter_lanes":
+        return list(args[0].shape)
     return list(next(a for a in args
                      if torch.is_tensor(a) and a.dim() == 3).shape)
+
+
+@contextlib.contextmanager
+def replaced_everywhere(replacements):
+    """Inside the block every port module's reference to a function in
+    `replacements` ({function: replacement}) is the replacement."""
+    by_id = {id(fn): new for fn, new in replacements.items()}
+    patched = []
+    for modname, mod in list(sys.modules.items()):
+        if modname.split(".")[0] != "marginalign_trna_tpu_torch":
+            continue
+        for attr, val in list(vars(mod).items()):
+            if id(val) in by_id:
+                patched.append((mod, attr, val))
+                setattr(mod, attr, by_id[id(val)])
+    try:
+        yield
+    finally:
+        for mod, attr, val in patched:
+            setattr(mod, attr, val)
 
 
 @contextlib.contextmanager
@@ -545,8 +749,9 @@ def recording_launches(names):
     """Inside the block every port module's reference to the wrapper of a
     kernel in `names` goes through a recorder: it logs the [D1, Wp, B] of
     each call and keeps a device copy of the inputs of the largest call per
-    kernel.  Yields (shapes {name: [[D1, Wp, B], ...]},
-    largest {name: inputs})."""
+    kernel.  Calls of the host band packer (ops/band.py
+    `pack_banded_batch`) are counted.  Yields (shapes {name: [[D1, Wp, B],
+    ...]}, largest {name: inputs}, host {"pack_banded_batch": calls})."""
     import importlib
 
     import numpy as np
@@ -554,14 +759,11 @@ def recording_launches(names):
 
     from marginalign_trna_tpu_torch import pipeline  # noqa: F401 (the path)
     from marginalign_trna_tpu_torch.call import caller  # noqa: F401
+    from marginalign_trna_tpu_torch.ops import band
 
-    originals = {}
-    for name in names:
-        module, fn = KERNELS[name][2].split(".")
-        originals[name] = getattr(importlib.import_module(
-            "marginalign_trna_tpu_torch.ops." + module), fn)
     shapes = {name: [] for name in names}
     largest, sizes = {}, {}
+    host = {"pack_banded_batch": 0}
 
     def recorder(name, fn):
         def call(*args):
@@ -574,20 +776,35 @@ def recording_launches(names):
             return fn(*args)
         return call
 
-    patched = []
-    for modname, mod in list(sys.modules.items()):
-        if modname.split(".")[0] != "marginalign_trna_tpu_torch":
-            continue
-        for attr, val in list(vars(mod).items()):
-            for name, fn in originals.items():
-                if val is fn:
-                    patched.append((mod, attr, val))
-                    setattr(mod, attr, recorder(name, fn))
-    try:
-        yield shapes, largest
-    finally:
-        for mod, attr, val in patched:
-            setattr(mod, attr, val)
+    def counted(fn):
+        def call(*args, **kwargs):
+            host["pack_banded_batch"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    replacements = {band.pack_banded_batch: counted(band.pack_banded_batch)}
+    for name in names:
+        module, fn = KERNELS[name][2].split(".")
+        wrapper = getattr(importlib.import_module(
+            "marginalign_trna_tpu_torch.ops." + module), fn)
+        replacements[wrapper] = recorder(name, wrapper)
+    with replaced_everywhere(replacements):
+        yield shapes, largest, host
+
+
+def check_launches(path, names, launches, shapes):
+    """Every kernel of `names` launched on `path`, once per wrapper call;
+    no other kernel launched."""
+    for name in KERNELS:
+        if name in names:
+            check(launches[name] > 0, "kernel %s never launched on the %s "
+                  "path" % (name, path))
+            check(len(shapes[name]) == launches[name], "kernel %s: %d "
+                  "wrapper calls, %d launches" % (name, len(shapes[name]),
+                                                  launches[name]))
+        else:
+            check(launches[name] == 0, "kernel %s launched on the %s path"
+                  % (name, path))
 
 
 # ------------------------------------------------------------------ phases
@@ -599,7 +816,7 @@ def phase_main(tmpdir):
 
     fq, fa, truth = write_corpus(tmpdir, N_READS, READ_LEN)
     out = os.path.join(tmpdir, "out.sam")
-    with recording_launches(ALIGN_KERNELS) as (shapes, largest):
+    with recording_launches(ALIGN_KERNELS) as (shapes, largest, host):
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         stages = pipeline.align(fq, fa, out, device="cuda")
@@ -611,12 +828,10 @@ def phase_main(tmpdir):
     log("main: stages %s" % json.dumps(stages))
     log("main: launches %s" % json.dumps(launches))
     log("main: launch shapes [D1, Wp, B] %s" % json.dumps(shapes))
-    for name in ALIGN_KERNELS:
-        check(launches[name] > 0, "kernel %s never launched on the main "
-              "path" % name)
-        check(len(shapes[name]) == launches[name], "kernel %s: %d wrapper "
-              "calls, %d launches" % (name, len(shapes[name]),
-                                      launches[name]))
+    log("main: host band packer calls %s" % json.dumps(host))
+    check_launches("main", ALIGN_KERNELS, launches, shapes)
+    check(host["pack_banded_batch"] == 0,
+          "the host band packer ran on the main path")
     check(len(recs) >= 0.95 * N_READS, "only %d of %d reads aligned"
           % (len(recs), N_READS))
     placed = 0
@@ -634,14 +849,137 @@ def phase_main(tmpdir):
         "reads_per_s": len(recs) / total, **stages}
 
 
-def phase_main_kernels(largest):
-    """Kernel vs plain on the inputs of each kernel's largest main-path
-    launch."""
-    shapes = {name: launch_shape(name, largest[name])
-              for name in ALIGN_KERNELS}
-    log("kernels[main] inputs of the largest main-path launch %s"
-        % json.dumps(shapes))
-    return compare_kernels("main", largest, 5)
+def phase_kernels(tag, names, largest):
+    """Kernel vs plain on the inputs of each kernel's largest launch on a
+    path."""
+    shapes = {name: launch_shape(name, largest[name]) for name in names}
+    log("kernels[%s] inputs of the largest launch %s"
+        % (tag, json.dumps(shapes)))
+    return compare_kernels(tag, names, largest, 5)
+
+
+def mea_objective(ops, post, lo, g_read, g_ref, b):
+    """The MEA objective of one segment's ops [(op, len)] under one lane's
+    weights: posterior of every matched cell, gap weight of every skipped
+    read (g_read) or reference (g_ref) position; float64 on the host."""
+    i = j = 0
+    total = 0.0
+    for op, ln in ops:
+        for _ in range(ln):
+            if op == 0:
+                i, j = i + 1, j + 1
+                total += float(post[i + j, i - lo[i + j, b], b])
+            elif op == 1:
+                i += 1
+                total += float(g_read[i - 1, b])
+            else:
+                j += 1
+                total += float(g_ref[j - 1, b])
+    return total
+
+
+def phase_rel(tmpdir, fq, fa, main_sam):
+    """The REL realign path (fused=False: host band arrays, K2, K3, weight
+    bands, K4) on the chained records of the corpus's first REL_RECORDS
+    reads, cut into the main path's anchor segments.  Its cigars against
+    the main phase's (fused path): every record placed identically, >= 90%
+    of cigars equal, and every segment that differs an MEA near-tie: its
+    REL ops score within 1e-5 (relative) of the fused ops under the fused
+    path's own weights (posterior band and gap weights, captured from a
+    fused run of the same segments)."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import realign
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build, mea
+    from marginalign_trna_tpu_torch.ops.wavefront_cuda import _gap_weights
+    from marginalign_trna_tpu_torch.utils.seq import encode
+
+    sub = os.path.join(tmpdir, "rel_subset.fq")
+    subset_fastq(fq, sub, REL_RECORDS)
+    chained = os.path.join(tmpdir, "rel_chained.sam")
+    pipeline.align(sub, fa, chained, pipeline.AlignOptions(no_realign=True),
+                   device="cuda")
+    jobs = realign._jobs_from_sam(SamFile.read(chained),
+                                  get_fasta_dictionary(fa), encode)
+    segs, origin, _ = realign.split_jobs_at_anchors(
+        jobs, realign.DEFAULT_SPLIT_SIZE)
+    hmm = PairHmm.load(pipeline.DEFAULT_MODEL)
+    args = (segs, hmm, 0.5, 0.0, "cuda")
+    with recording_launches(REL_KERNELS) as (shapes, largest, host):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        rel_ops = realign.realigned_ops_for_jobs(*args, fused=False)
+        total = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    log("rel: %d records (%d segments) realigned with fused=False in %.3f s;"
+        " launches %s; launch shapes %s; host band packer calls %d"
+        % (len(jobs), len(segs), total, json.dumps(launches),
+           json.dumps(shapes), host["pack_banded_batch"]))
+    check_launches("REL", REL_KERNELS, launches, shapes)
+
+    # The fused path on the same segments, its MEA inputs kept per lane.
+    weights = []
+    decode = mea.mea_decode_fused
+
+    def keep(post, comp, dev, accr, accc, gap_gamma, match_gamma):
+        weights.append((post.cpu().numpy(), comp.lo.astype(np.int64),
+                        _gap_weights(accr, gap_gamma).cpu().numpy(),
+                        _gap_weights(accc, gap_gamma).cpu().numpy()))
+        return decode(post, comp, dev, accr, accc, gap_gamma, match_gamma)
+
+    with replaced_everywhere({decode: keep}):
+        fused_ops = realign.realigned_ops_for_jobs(*args, fused=True)
+    lane_of = {}
+    for w, bucket in zip(weights, realign._bucket_jobs(
+            segs, realign.DEFAULT_BAND_WIDTH, 128_000_000)):
+        for b, s_idx in enumerate(bucket):
+            lane_of[s_idx] = (w, b)
+
+    def cigar(ops_of, k):
+        ops = [op for s_idx in range(len(segs)) if origin[s_idx] == k
+               for op in ops_of[s_idx]]
+        return realign.splice_realigned_cigar(
+            jobs[k].record, realign._merge_op_runs(ops)).cigar
+
+    main = {r.qname: r for r in sam_records(main_sam)}
+    same = ties = 0
+    worst = 0.0
+    for k, job in enumerate(jobs):
+        want = main[job.record.qname]
+        check((job.record.flag, job.record.rname, job.record.pos + 1)
+              == (want.flag, want.rname, want.pos),
+              "REL record %s placed differently" % job.record.qname)
+        fused = cigar(fused_ops, k)
+        check("".join("%d%s" % (ln, "MIDNSHP=X"[op]) for op, ln in fused)
+              == "".join("%d%s" % (ln, op) for op, ln in want.cigar),
+              "fused rerun of %s differs from the main phase"
+              % job.record.qname)
+        if cigar(rel_ops, k) == fused:
+            same += 1
+            continue
+        for s_idx in range(len(segs)):
+            if origin[s_idx] != k or rel_ops[s_idx] == fused_ops[s_idx]:
+                continue
+            (post, lo, g_read, g_ref), b = lane_of[s_idx]
+            f = mea_objective(fused_ops[s_idx], post, lo, g_read, g_ref, b)
+            r = mea_objective(rel_ops[s_idx], post, lo, g_read, g_ref, b)
+            worst = max(worst, abs(f - r) / max(abs(f), 1.0))
+        ties += 1
+    log("rel: %d of %d cigars equal to the main phase's (fused path); the "
+        "other %d are MEA near-ties, worst objective difference %.3g "
+        "(relative)" % (same, len(jobs), ties, worst))
+    check(same >= 0.90 * len(jobs), "REL and fused cigars agree on fewer "
+          "than 90%")
+    check(worst <= 1e-5, "a REL cigar scores %.3g (relative) off the fused "
+          "one under the fused weights" % worst)
+    return launches, largest, {"records": len(jobs), "segments": len(segs),
+                               "total_s": total, "cigars_equal": same,
+                               "near_ties": ties,
+                               "worst_tie_relative": worst}
 
 
 def phase_parity(tmpdir, fq, fa):
@@ -712,7 +1050,7 @@ def phase_caller(tmpdir, fa, sam):
     vcf = os.path.join(tmpdir, "calls.vcf")
     hmm = PairHmm.load(DEFAULT_MODEL)
     n_records = len(sam_records(sam))
-    with recording_launches(CALLER_KERNELS) as (shapes, largest):
+    with recording_launches(CALLER_KERNELS) as (shapes, largest, _):
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         calls = caller.margin_caller(sam, mut_fa, vcf, hmm, hmm,
@@ -732,31 +1070,13 @@ def phase_caller(tmpdir, fa, sam):
     log("caller: %d planted SNVs, %d called at their position with the "
         "true base; recall %.4f, precision %.4f"
         % (len(planted), hit, recall, precision))
-    for name in CALLER_KERNELS:
-        check(launches[name] > 0, "kernel %s never launched on the caller "
-              "path" % name)
-        check(len(shapes[name]) == launches[name], "kernel %s: %d wrapper "
-              "calls, %d launches" % (name, len(shapes[name]),
-                                      launches[name]))
-    for name in ALIGN_KERNELS:
-        check(launches[name] == 0, "kernel %s launched on the caller path"
-              % name)
+    check_launches("caller", CALLER_KERNELS, launches, shapes)
     check(recall >= 0.95, "caller recall %.4f < 0.95" % recall)
     check(precision >= 0.95, "caller precision %.4f < 0.95" % precision)
     return mut_fa, launches, largest, {
         "records_in": n_records, "calls": len(calls), "total_s": total,
         "reads_per_s": n_records / total, "planted": len(planted),
         "recall": recall, "precision": precision}
-
-
-def phase_caller_kernels(largest):
-    """Caller kernel vs plain on the inputs of each kernel's largest
-    caller launch."""
-    shapes = {name: launch_shape(name, largest[name])
-              for name in CALLER_KERNELS}
-    log("kernels[caller] inputs of the largest caller launch %s"
-        % json.dumps(shapes))
-    return compare_caller_kernels("caller", largest, 5)
 
 
 def phase_caller_parity(tmpdir, fa, sam):
@@ -833,16 +1153,20 @@ def main() -> int:
                 log("build: " + line.strip())
 
         cuda = torch.device("cuda")
-        compare_kernels("tiny", tiny_inputs(cuda), 3)
-        compare_caller_kernels("tiny", tiny_caller_inputs(cuda), 3)
+        compare_kernels("tiny", list(KERNELS), {
+            **tiny_inputs(cuda), **tiny_caller_inputs(cuda),
+            **tiny_default_inputs(cuda)}, 3)
         with tempfile.TemporaryDirectory() as tmpdir:
             fq, fa, sam, launches, largest, main_res = phase_main(tmpdir)
-            kernels = phase_main_kernels(largest)
+            kernels = phase_kernels("main", ALIGN_KERNELS, largest)
+            del largest
+            rel_launches, largest, rel_res = phase_rel(tmpdir, fq, fa, sam)
+            kernels.update(phase_kernels("rel", REL_KERNELS, largest))
             del largest
             parity = phase_parity(tmpdir, fq, fa)
             mut_fa, call_launches, largest, caller_res = phase_caller(
                 tmpdir, fa, sam)
-            kernels.update(phase_caller_kernels(largest))
+            on_caller = phase_kernels("caller", CALLER_KERNELS, largest)
             del largest
             caller_parity = phase_caller_parity(tmpdir, mut_fa, sam)
         card = card_identity()
@@ -850,20 +1174,29 @@ def main() -> int:
         print("chip_smoke: FAIL: %s" % exc, file=sys.stderr)
         return 1
 
-    launches.update({k: call_launches[k] for k in CALLER_KERNELS})
     log("main-path: %s" % json.dumps(main_res))
+    log("rel-path: %s" % json.dumps(rel_res))
     log("parity: %s" % json.dumps(parity))
     log("caller-path: %s" % json.dumps(caller_res))
     log("caller-parity: %s" % json.dumps(caller_parity))
     log(card)
+    # A kernel's launches and measurements come from the first path it runs
+    # on (E and S: marginAlign's main path); E's and S's caller-path
+    # measurements ride along under "caller".
+    by_path = {"align": launches, "rel": rel_launches, "call": call_launches}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         **{k: kernels[name][k] for k in keys}}
-        for name, (src, rep, _, _) in KERNELS.items()
-    ]}))
+    lines = []
+    for name, (src, rep, _, paths) in KERNELS.items():
+        res = kernels.get(name, on_caller.get(name))
+        line = {"name": name, "route": "cuda", "source": src,
+                "replaces": rep, "launches": by_path[paths[0]][name],
+                **{k: res[k] for k in keys},
+                "launches_by_path": {p: by_path[p][name] for p in paths}}
+        if name in kernels and name in on_caller:
+            line["caller"] = {k: on_caller[name][k] for k in keys}
+        lines.append(line)
+    print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

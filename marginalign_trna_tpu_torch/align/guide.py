@@ -8,7 +8,11 @@ src/margin/mappers/{last,bwa,minimap2}.py):
   1. host: exact k-mer index of the references;
   2. host: seed hits per read and strand, colinear chaining;
   3. device: banded affine Viterbi (ops/nw.py) of each read against its
-     chain corridor, all reads in one batch;
+     chain corridor, candidates sorted by size into buckets: the host packs
+     only sequences and band offsets (`pack_compact_batch`), the code bands
+     expand on the device (ops/fb_circ.py `expand_rel_codes`) and the masks
+     derive from the offsets (ops/band.py `band_masks`) -- the JAX
+     package's compact device path (its align/guide.py:478-620);
   4. host: traceback -> SAM records (primary alignment per read).
 
 Mapper presets (GuideConfig.preset) are host configuration only:
@@ -36,9 +40,17 @@ from ..io.sam import SamFile, SamRecord, make_header
 from ..utils.seq import (
     encode, revcomp_codes, reverse_complement,
 )
-from ..ops.band import pack_banded_batch
-from ..ops.fb import device_batch
+from ..ops.band import band_masks, pack_compact_batch, padded_band_width
+from ..ops.fb import DeviceBatch
+from ..ops.fb_circ import compact_device_batch, expand_rel_codes
 from ..ops.nw import NwParams, banded_nw, traceback
+
+# Band cells (steps x Wp x lanes, before the step and lane ladders pad
+# them) per guide bucket: the int8 code, mask and pointer bands take 4 B
+# per cell on the device.  The TPU's cap of 2048 lanes per bucket was a VMEM
+# limit and is not carried over; the 1024 x 3.5 kb corpus of chip_smoke.py
+# is one bucket.
+GUIDE_MAX_CELLS = 1 << 30
 
 
 @dataclass
@@ -400,8 +412,8 @@ def _best_candidate(
 def align_candidates(
     candidates: List[_Candidate], index: KmerIndex, cfg: GuideConfig, device
 ) -> List[SamRecord]:
-    """Banded Viterbi over all candidates in one batch on `device` -> SAM
-    records."""
+    """Banded Viterbi over the candidates in size-sorted buckets on
+    `device` -> SAM records."""
     if not candidates:
         return []
     reads, windows, paths = [], [], []
@@ -424,17 +436,41 @@ def align_candidates(
         pi.append(m)
         paths.append((np.asarray(pd), np.asarray(pi)))
 
-    # Ladder quantization (steps + lanes), as in the JAX package, so batch
-    # shapes repeat across calls.
-    batch = pack_banded_batch(reads, windows, width=cfg.band_width,
-                              paths=paths, quantize=True)
-    res = banded_nw(cfg.nw, device_batch(batch, device))
-    pointers = np.ascontiguousarray(res.pointers.cpu().numpy())
-    final_states = res.final_state.cpu().numpy()
+    # One device, so one bucket unless the band cells outgrow
+    # GUIDE_MAX_CELLS; sorted by size so padding waste stays low.
+    Wp = padded_band_width(cfg.band_width)
+    order = sorted(range(len(candidates)),
+                   key=lambda i: len(reads[i]) + len(windows[i]))
+    buckets: List[List[int]] = [[]]
+    for i in order:
+        steps = len(reads[i]) + len(windows[i]) + 1
+        if buckets[-1] and steps * Wp * (len(buckets[-1]) + 1) \
+                > GUIDE_MAX_CELLS:
+            buckets.append([])
+        buckets[-1].append(i)
+
+    ops_by_cand: List[List[Tuple[int, int]]] = [[] for _ in candidates]
+    for bidx in buckets:
+        comp = pack_compact_batch(
+            [reads[i] for i in bidx], [windows[i] for i in bidx],
+            width=cfg.band_width, paths=[paths[i] for i in bidx],
+            quantize=True,
+        )
+        cdev = compact_device_batch(comp, device)
+        xb, yb = expand_rel_codes(cdev, Wp, comp.num_steps)
+        valid, s1, s2 = band_masks(cdev.lo, cdev.m, cdev.n, cfg.band_width,
+                                   Wp)
+        res = banded_nw(cfg.nw, DeviceBatch(
+            xb=xb, yb=yb, valid=valid, s1=s1, s2=s2, final_d=cdev.final_d,
+            final_k=cdev.final_k))
+        pointers = np.ascontiguousarray(res.pointers.cpu().numpy())
+        final_states = res.final_state.cpu().numpy()
+        for local_b, i in enumerate(bidx):
+            ops_by_cand[i] = traceback(pointers, comp, local_b,
+                                       int(final_states[local_b]))
 
     records = []
-    for b, c in enumerate(candidates):
-        ops = traceback(pointers, batch, b, int(final_states[b]))
+    for c, ops in zip(candidates, ops_by_cand):
         rec = _ops_to_record(c, ops, index)
         if rec is not None:
             records.append(rec)

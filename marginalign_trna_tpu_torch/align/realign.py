@@ -3,10 +3,21 @@
 Port of marginalign_trna_tpu/align/realign.py (behavioural equivalent of
 the reference realignment stage, src/margin/marginAlignLib.py:265-370):
 optionally chain, then realign every record's aligned read region against
-its reference span with the banded pair-HMM posterior (ops/fb_cuda.py) and
-the AMAP decode (ops/mea.py), and splice the realigned cigar back between
-the original clips.  Jobs are cut at guide anchors, bucketed by size, and
-each bucket runs as one batch on the device.
+its reference span with the banded pair-HMM posterior and the AMAP decode
+(ops/mea.py), and splice the realigned cigar back between the original
+clips.  Jobs are cut at guide anchors, bucketed by size, and each bucket
+runs as one batch on the device, by one of two paths:
+
+  fused (default; the JAX package's accelerator default, its compact +
+    fused realign route): the host packs only sequences and band offsets;
+    the streams expand on the device, the backward runs from them and the
+    forward writes the posterior band together with its row and column
+    sums (ops/fb_circ.py `posteriors_weights_compact`), which the MEA
+    decode reads directly (ops/mea.py `mea_decode_fused`);
+  REL (fused=False; the JAX package with MARGINALIGN_REALIGN_FUSED=off
+    MARGINALIGN_LAYOUT=rel): the host packs [D1, Wp, B] band arrays, the
+    forward-backward writes the posterior band (ops/fb_cuda.py) and the gap
+    weights are built as bands (ops/mea.py `mea_decode`).
 """
 from __future__ import annotations
 
@@ -20,10 +31,11 @@ import numpy as np
 from ..io.fasta import get_fasta_dictionary
 from ..io.sam import SamFile, SamRecord
 from ..models.hmm import PairHmm
-from ..ops.band import pack_banded_batch, path_from_cigar
-from ..ops.fb import device_batch, tables_from_hmm
+from ..ops.band import pack_banded_batch, pack_compact_batch, path_from_cigar
+from ..ops.fb import FbTables, device_batch, tables_from_hmm
+from ..ops.fb_circ import compact_device_batch, posteriors_weights_compact
 from ..ops.fb_cuda import posteriors_pre
-from ..ops.mea import mea_decode
+from ..ops.mea import mea_decode, mea_decode_fused, rowcol_sums_from_flushed
 from ..utils.seq import encode
 from .chain import chain_sam_file
 
@@ -201,6 +213,37 @@ def _bucket_jobs(
     return buckets
 
 
+def _realign_bucket_fused(jobs: Sequence[RealignJob], tables: FbTables,
+                          gap_gamma: float, match_gamma: float, device,
+                          band_width: int) -> List[List[Tuple[int, int]]]:
+    """Fused path of one bucket: compact batch -> E + S + M -> row / column
+    sums (L) -> MEA (D) -> host traceback."""
+    comp = pack_compact_batch(
+        [j.read_region for j in jobs], [j.ref_region for j in jobs],
+        width=band_width, paths=[j.path for j in jobs], quantize=True,
+    )
+    dev = compact_device_batch(comp, device)
+    _, post, flc, flr, tc, tr = posteriors_weights_compact(tables, dev,
+                                                           band_width)
+    accr, accc = rowcol_sums_from_flushed(comp, dev, flc, flr, tc, tr)
+    return mea_decode_fused(post, comp, dev, accr, accc, gap_gamma,
+                            match_gamma)
+
+
+def _realign_bucket_rel(jobs: Sequence[RealignJob], tables: FbTables,
+                        gap_gamma: float, match_gamma: float, device,
+                        band_width: int) -> List[List[Tuple[int, int]]]:
+    """REL path of one bucket: host band arrays -> forward-backward
+    (K2, K3) -> weight bands -> MEA (K4) -> host traceback."""
+    batch = pack_banded_batch(
+        [j.read_region for j in jobs], [j.ref_region for j in jobs],
+        width=band_width, paths=[j.path for j in jobs], quantize=True,
+    )
+    dev = device_batch(batch, device)
+    _, post = posteriors_pre(tables, dev)
+    return mea_decode(post, batch, dev, gap_gamma, match_gamma)
+
+
 def realigned_ops_for_jobs(
     jobs: Sequence[RealignJob],
     hmm: PairHmm,
@@ -211,19 +254,21 @@ def realigned_ops_for_jobs(
     # Padded DP cells per device batch.
     max_batch_cells: int = 128_000_000,
     split_size: int = 0,
+    fused: bool = True,
 ) -> List[List[Tuple[int, int]]]:
     """Run FB + MEA for every job on `device`; returns realigned
     aligned-region ops.
 
     split_size > 0 decomposes each problem at guide-path anchors
-    (split_job_at_anchors) and concatenates the per-segment cigars.  Models
-    with non-flat gap emissions raise NotImplementedError (ops/fb_cuda.py)."""
+    (split_job_at_anchors) and concatenates the per-segment cigars.
+    fused=False takes the REL path (module docstring).  Models with
+    non-flat gap emissions raise NotImplementedError (ops/fb_cuda.py)."""
     if split_size and split_size > 0:
         segs, origin, _ = split_jobs_at_anchors(jobs, split_size)
         if len(segs) != len(jobs):
             seg_ops = realigned_ops_for_jobs(
                 segs, hmm, gap_gamma, match_gamma, device, band_width,
-                max_batch_cells, split_size=0,
+                max_batch_cells, split_size=0, fused=fused,
             )
             out: List[List[Tuple[int, int]]] = [[] for _ in jobs]
             for s_idx, j_idx in enumerate(origin):
@@ -231,18 +276,11 @@ def realigned_ops_for_jobs(
             return [_merge_op_runs(ops) for ops in out]
 
     tables = tables_from_hmm(hmm, device)
+    run_bucket = _realign_bucket_fused if fused else _realign_bucket_rel
     results: List[List[Tuple[int, int]]] = [[] for _ in jobs]
     for bucket in _bucket_jobs(jobs, band_width, max_batch_cells):
-        batch = pack_banded_batch(
-            [jobs[i].read_region for i in bucket],
-            [jobs[i].ref_region for i in bucket],
-            width=band_width,
-            paths=[jobs[i].path for i in bucket],
-            quantize=True,
-        )
-        dev = device_batch(batch, device)
-        _, post = posteriors_pre(tables, dev)
-        ops_list = mea_decode(post, batch, dev, gap_gamma, match_gamma)
+        ops_list = run_bucket([jobs[i] for i in bucket], tables, gap_gamma,
+                              match_gamma, device, band_width)
         for local_b, job_idx in enumerate(bucket):
             results[job_idx] = ops_list[local_b]
     return results
@@ -291,8 +329,10 @@ def realign_sam_file(
     no_chain: bool = False,
     band_width: int = DEFAULT_BAND_WIDTH,
     split_size: int = DEFAULT_SPLIT_SIZE,
+    fused: bool = True,
 ) -> None:
-    """Chain (optional) + realign a SAM file end to end on `device`."""
+    """Chain (optional) + realign a SAM file end to end on `device`
+    (fused=False: the REL path, module docstring)."""
     work_sam = sam_path
     tmp = None
     if not no_chain:
@@ -311,7 +351,7 @@ def realign_sam_file(
         jobs = _jobs_from_sam(sam, ref_sequences, encode)
         all_ops = realigned_ops_for_jobs(jobs, hmm, gap_gamma, match_gamma,
                                          device, band_width,
-                                         split_size=split_size)
+                                         split_size=split_size, fused=fused)
         realigned = [splice_realigned_cigar(job.record, ops)
                      for job, ops in zip(jobs, all_ops)]
         SamFile(sam.header, realigned).write(output_sam_path)

@@ -2,32 +2,108 @@
 // diagonal (posterior match weight), left (ref-skip) and up (read-skip)
 // moves, with pointers 0 = diag, 1 = left, 2 = up.
 //
-// Replaces the TPU kernel marginalign_trna_tpu/ops/wavefront_pallas.py
-// `_mea_kernel` (launched by `banded_mea_pallas`).  Same arithmetic: no
-// normalisation, circular row shifts, first-max-wins ties in the order
-// diag, left, up, and the terminal score read at (final_d, final_k) as
-// max(value, NEG).
+// One wavefront, two weight sources:
+//   banded_mea (K4) <- marginalign_trna_tpu/ops/wavefront_pallas.py
+//                      `_mea_kernel` (`banded_mea_pallas`): the weights come
+//                      materialised as three [D1, Wp, B] bands, with the
+//                      valid band and the s1/s2 shift streams.
+//   mea_dl (D)      <- `_mea_kernel_dl` (`_mea_dl_jit`): the weights come
+//                      from the raw posterior band and the per-position
+//                      posterior row / column sums accr [rgm, B] /
+//                      accc [rgn, B]:
+//                        wdiag = post if post >= matchGamma and post > 0,
+//                                else NEG
+//                        wup   = i >= 1 ? gapGamma * clip(1 - accr[i-1]) : 0
+//                        wleft = j >= 1 ? gapGamma * clip(1 - accc[j-1]) : 0
+//                      (i = lo(d) + k, j = d - i; indices clipped to the
+//                      sums' rows), and valid, s1, s2 from lo, m, n, width.
+// The TPU kernel of D carries the band windows of gap weights in VMEM and
+// shifts one entering value in per diagonal (a delay line seeded at d = 0),
+// because per-lane gathers scalarise there.  On the card each weight is a
+// direct load of accr / accc at the cell's own read / ref position; the
+// window the delay line holds is exactly that closed form on every cell
+// with i >= 0 and j >= 0 (rows i = 0 and j <= 0 hold 0), and the DP reads
+// weights only where valid.
+// Same arithmetic as the TPU kernels: no normalisation, circular row
+// shifts, first-max-wins ties in the order diag, left, up, and the terminal
+// score read at (final_d, final_k) as max(value, NEG).
 //
-// What bounds it on an H100: it streams 13 B per cell (three f32 weight
-// bands and the valid byte in, one pointer byte out) against ~6 adds and
-// compares, so at full occupancy it would be bound by device memory; at
-// the main path's batch sizes the chain of D1 dependent diagonals, one
-// block barrier each, bounds it first.  The design keeps the score
-// frontier (three generations, d mod 3) in shared memory and fetches the
-// next diagonal's weights while the current one computes.
+// What bounds them on an H100: K4 streams 13 B per cell (three f32 weight
+// bands and the valid byte in, one pointer byte out), D 5 B (the posterior
+// and the pointer; the sums are [len, B], re-read from cache) against ~6
+// adds and compares (D ~15 with its masks), so at full occupancy they would
+// be bound by device memory; at the main path's batch sizes the chain of D1
+// dependent diagonals, one block barrier each, bounds them first.  The
+// design keeps the score frontier (three generations, d mod 3) in shared
+// memory and fetches the next diagonal's weights while the current one
+// computes.
 #include "common.cuh"
 
 namespace {
 
 using mk::NEG;
 
-template <int RPT>
+// K4's weights: materialised bands.
+struct BandWeights {
+  const float* __restrict__ wdiag;
+  const float* __restrict__ wup;
+  const float* __restrict__ wleft;
+  const uint8_t* __restrict__ valid;
+  const int32_t* __restrict__ s1;
+  const int32_t* __restrict__ s2;
+  int Wp, B;
+
+  __device__ void steps(int d, int b, int& t1, int& t2) const {
+    t1 = s1[(size_t)d * B + b];
+    t2 = s2[(size_t)d * B + b];
+  }
+  __device__ void cell(int d, int k, int b, float& wd, float& wu, float& wl,
+                       uint8_t& v) const {
+    const size_t c = mk::cell(d, k, b, Wp, B);
+    wd = wdiag[c];
+    wu = wup[c];
+    wl = wleft[c];
+    v = valid[c];
+  }
+};
+
+// D's weights: the posterior band and the per-position sums.
+struct PosteriorWeights {
+  const float* __restrict__ post;
+  const int32_t* __restrict__ lo;
+  const int32_t* __restrict__ m;
+  const int32_t* __restrict__ n;
+  const float* __restrict__ accr;
+  const float* __restrict__ accc;
+  int Wp, B, width, rgm, rgn;
+  float gap_gamma, match_gamma;
+
+  __device__ float gap(float sum) const {
+    return gap_gamma * fminf(fmaxf(1.f - sum, 0.f), 1.f);
+  }
+  // d >= 1 (the wavefront never fetches d = 0).
+  __device__ void steps(int d, int b, int& t1, int& t2) const {
+    const int l0 = lo[(size_t)d * B + b];
+    t1 = l0 - lo[(size_t)(d - 1) * B + b];
+    t2 = d >= 2 ? l0 - lo[(size_t)(d - 2) * B + b] : 0;
+  }
+  __device__ void cell(int d, int k, int b, float& wd, float& wu, float& wl,
+                       uint8_t& v) const {
+    const int i = lo[(size_t)d * B + b] + k;
+    const int j = d - i;
+    const int mb = m[b], nb = n[b];
+    v = k < width && i >= 0 && i <= mb && i <= d && j >= 0 && j <= nb &&
+        mb + nb > 0;
+    const float p = post[mk::cell(d, k, b, Wp, B)];
+    wd = p >= match_gamma && p > 0.f ? p : NEG;
+    wu = i >= 1 ? gap(accr[(size_t)min(i - 1, rgm - 1) * B + b]) : 0.f;
+    wl = j >= 1 ? gap(accc[(size_t)min(j - 1, rgn - 1) * B + b]) : 0.f;
+  }
+};
+
+template <int RPT, class W>
 __global__ void __launch_bounds__(1024)
-    mea_kernel(const float* __restrict__ wdiag, const float* __restrict__ wup,
-               const float* __restrict__ wleft,
-               const uint8_t* __restrict__ valid,
-               const int32_t* __restrict__ s1, const int32_t* __restrict__ s2,
-               const int32_t* __restrict__ final_d,
+    mea_kernel(W w, const int32_t* __restrict__ final_d,
                const int32_t* __restrict__ final_k, int D1, int Wp, int B,
                uint8_t* __restrict__ ptr, float* __restrict__ score) {
   extern __shared__ float shA[];  // [3][Wp][L] score generations by d mod 3
@@ -61,14 +137,11 @@ __global__ void __launch_bounds__(1024)
     for (int r = 0; r < RPT; ++r) {
       const int k = ty + r * TY;
       fd_w[r] = 0.f; fu_w[r] = 0.f; fl_w[r] = 0.f; fv[r] = 0;
-      if (live && k < Wp) {
-        const size_t c = mk::cell(d, k, b, Wp, B);
-        fd_w[r] = wdiag[c]; fu_w[r] = wup[c]; fl_w[r] = wleft[c];
-        fv[r] = valid[c];
-      }
+      if (live && k < Wp) w.cell(d, k, b, fd_w[r], fu_w[r], fl_w[r], fv[r]);
     }
-    f1 = live ? s1[(size_t)d * B + b] : 0;
-    f2 = live ? s2[(size_t)d * B + b] : 0;
+    f1 = 0;
+    f2 = 0;
+    if (live) w.steps(d, b, f1, f2);
   };
   if (D1 > 1) fetch(1);
   __syncthreads();
@@ -114,24 +187,37 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <int RPT>
-cudaError_t run(const float* wdiag, const float* wup, const float* wleft,
-                const uint8_t* valid, const int32_t* s1, const int32_t* s2,
-                const int32_t* final_d, const int32_t* final_k, int D1,
-                int Wp, int B, uint8_t* ptr, float* score,
+template <int RPT, class W>
+cudaError_t run(const W& w, const int32_t* final_d, const int32_t* final_k,
+                int D1, int Wp, int B, uint8_t* ptr, float* score,
                 cudaStream_t stream) {
   const size_t smem = (size_t)3 * Wp * mk::LANES * sizeof(float);
-  cudaError_t err = mk::allow_smem((const void*)mea_kernel<RPT>, smem);
+  cudaError_t err = mk::allow_smem((const void*)mea_kernel<RPT, W>, smem);
   if (err != cudaSuccess) return err;
-  mea_kernel<RPT><<<mk::grid_shape(B), mk::block_shape(Wp), smem, stream>>>(
-      wdiag, wup, wleft, valid, s1, s2, final_d, final_k, D1, Wp, B, ptr,
-      score);
+  mea_kernel<RPT, W><<<mk::grid_shape(B), mk::block_shape(Wp), smem,
+                       stream>>>(w, final_d, final_k, D1, Wp, B, ptr, score);
   return cudaGetLastError();
+}
+
+template <class W>
+int dispatch(const W& w, const int32_t* final_d, const int32_t* final_k,
+             int D1, int Wp, int B, uint8_t* ptr, float* score,
+             void* stream) {
+  if (D1 < 1 || B < 1) return cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (mk::rows_per_thread(Wp)) {
+    case 1: return run<1>(w, final_d, final_k, D1, Wp, B, ptr, score, s);
+    case 2: return run<2>(w, final_d, final_k, D1, Wp, B, ptr, score, s);
+    case 3: return run<3>(w, final_d, final_k, D1, Wp, B, ptr, score, s);
+    case 4: return run<4>(w, final_d, final_k, D1, Wp, B, ptr, score, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes).  Returns a cudaError_t code.
+// Plain C entry points (loaded with ctypes); device pointers.  Each returns
+// a cudaError_t code.
 extern "C" int banded_mea_launch(const float* wdiag, const float* wup,
                                  const float* wleft, const uint8_t* valid,
                                  const int32_t* s1, const int32_t* s2,
@@ -139,13 +225,19 @@ extern "C" int banded_mea_launch(const float* wdiag, const float* wup,
                                  const int32_t* final_k, int D1, int Wp,
                                  int B, uint8_t* ptr, float* score,
                                  void* stream) {
-  if (D1 < 1 || B < 1) return cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (mk::rows_per_thread(Wp)) {
-    case 1: return run<1>(wdiag, wup, wleft, valid, s1, s2, final_d, final_k, D1, Wp, B, ptr, score, s);
-    case 2: return run<2>(wdiag, wup, wleft, valid, s1, s2, final_d, final_k, D1, Wp, B, ptr, score, s);
-    case 3: return run<3>(wdiag, wup, wleft, valid, s1, s2, final_d, final_k, D1, Wp, B, ptr, score, s);
-    case 4: return run<4>(wdiag, wup, wleft, valid, s1, s2, final_d, final_k, D1, Wp, B, ptr, score, s);
-    default: return cudaErrorInvalidValue;
-  }
+  const BandWeights w{wdiag, wup, wleft, valid, s1, s2, Wp, B};
+  return dispatch(w, final_d, final_k, D1, Wp, B, ptr, score, stream);
+}
+
+extern "C" int mea_dl_launch(const float* post, const int32_t* lo,
+                             const int32_t* m, const int32_t* n,
+                             const float* accr, const float* accc,
+                             const int32_t* final_d, const int32_t* final_k,
+                             int D1, int Wp, int B, int width, int rgm,
+                             int rgn, float gap_gamma, float match_gamma,
+                             uint8_t* ptr, float* score, void* stream) {
+  if (rgm < 1 || rgn < 1) return cudaErrorInvalidValue;
+  const PosteriorWeights w{post, lo, m, n, accr, accc, Wp, B, width, rgm,
+                           rgn, gap_gamma, match_gamma};
+  return dispatch(w, final_d, final_k, D1, Wp, B, ptr, score, stream);
 }

@@ -65,6 +65,16 @@ _SIGNATURES: Dict[str, List] = {
     "cx_forward": [_P] * 7 + [_I] * 4 + [_P] * 3,
     # vals, jm, C, D, B, rg, out, stream
     "scatter_lanesum": [_P] * 2 + [_I] * 4 + [_P] * 2,
+    # reads, refs, lo, m, n, Mp, Np, D1, d1k, Wp, B, xb, yb, stream
+    "expand_rel": [_P] * 5 + [_I] * 6 + [_P] * 3,
+    # es, fr, frr, lom, bm, bls, logZ, coef(host), chain, d1k, Wp, B,
+    # post, flc, flr, tc, tr, stream
+    "mw_forward": [_P] * 8 + [_I] * 4 + [_P] * 6,
+    # vals, jm, D, B, rg, out, stream
+    "scatter_lanes": [_P] * 2 + [_I] * 3 + [_P] * 2,
+    # post, lo, m, n, accr, accc, final_d, final_k, D1, Wp, B, width, rgm,
+    # rgn, gap_gamma, match_gamma, ptr, score, stream
+    "mea_dl": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P] * 3,
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}

@@ -2,6 +2,9 @@
 
 A copy of the host packers of marginalign_trna_tpu/ops/band.py (numpy
 only), so the port runs without the JAX package; behaviour is unchanged.
+`band_masks` and `circ_mw_streams` are the torch counterparts of that
+module's device helpers: closed forms of the band offsets, evaluated on
+whatever device the offsets live on.
 
 The DP grid is in *prefix coordinates*: cell (i, j) means "i read symbols and
 j ref symbols emitted", i in [0, m], j in [0, n].  Anti-diagonal d = i + j runs
@@ -20,6 +23,7 @@ from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 GUARD = 2  # minimum guard rows so rolls wrap into masked cells
 
@@ -240,58 +244,52 @@ def pack_banded_batch(
     )
 
 
-def circ_flush_rows(batch: BandedBatch, pad_to: int) -> np.ndarray:
-    """fr [pad_to, B] int32: per-diagonal flush row for the fused
-    ref-position accumulators (fb_pallas cx/mw kernels); -1 = no flush.
-
-    A reference position j leaves the band window at the first diagonal d
-    with gu(d) = d - lo(d) = j + width; gu steps exactly when lo does NOT,
-    and the completed position then sits at circular row
-    (lo(d) + width) mod Wp of the rolled accumulator frame (see
-    fb_pallas._make_fwd_kernel_circ_cx).  Beyond the packed steps, lo is
-    edge-replicated so gu keeps stepping and the window keeps draining."""
-    D1, B = batch.lo.shape
-    lo = batch.lo.astype(np.int64)
-    if pad_to > D1:
-        lo = np.concatenate(
-            [lo, np.repeat(lo[-1:, :], pad_to - D1, axis=0)], axis=0
-        )
-    stepped = np.zeros((pad_to, B), dtype=bool)
-    stepped[1:] = lo[1:] == lo[:-1]  # gu steps iff lo does not
-    fr = np.where(stepped, (lo + batch.width) % batch.wp, -1)
-    return fr.astype(np.int32)
-
-
-def circ_row_flush_rows(batch: BandedBatch, pad_to: int) -> np.ndarray:
-    """frr [pad_to, B] int32: per-diagonal flush row for the fused
-    READ-position accumulators (row sums; fb_pallas mw kernel); -1 = no
-    flush.  Read position i leaves the band at the first diagonal d with
-    lo(d) = i + 1; its accumulator row is its fixed circular row
-    i mod Wp = (lo(d) - 1) mod Wp."""
-    D1, B = batch.lo.shape
-    lo = batch.lo.astype(np.int64)
-    if pad_to > D1:
-        lo = np.concatenate(
-            [lo, np.repeat(lo[-1:, :], pad_to - D1, axis=0)], axis=0
-        )
-    stepped = np.zeros((pad_to, B), dtype=bool)
-    stepped[1:] = lo[1:] != lo[:-1]
-    frr = np.where(stepped, (lo - 1) % batch.wp, -1)
-    return frr.astype(np.int32)
+def band_masks(lo: torch.Tensor, m: torch.Tensor, n: torch.Tensor,
+               width: int, Wp: int):
+    """(valid [D1, Wp, B] bool, s1 [D1, B] int32, s2 [D1, B] int32) from
+    the [D1, B] band offsets and the lengths m, n [B]: the closed forms
+    pack_banded_batch evaluates on the host, on lo's device
+    (marginalign_trna_tpu/ops/band.py `band_masks_device`).  Padded lanes
+    (m = n = 0) are invalid everywhere."""
+    lo = lo.int()
+    D1, B = lo.shape
+    d = torch.arange(D1, dtype=torch.int32, device=lo.device)[:, None, None]
+    k = torch.arange(Wp, dtype=torch.int32, device=lo.device)[None, :, None]
+    i = lo[:, None, :] + k
+    j = d - i
+    m3 = m.int()[None, None, :]
+    n3 = n.int()[None, None, :]
+    valid = ((k < width) & (i >= 0) & (i <= m3) & (i <= d) & (j >= 0)
+             & (j <= n3) & (m3 + n3 > 0))
+    s1 = torch.zeros_like(lo)
+    s2 = torch.zeros_like(lo)
+    s1[1:] = lo[1:] - lo[:-1]
+    s2[2:] = lo[2:] - lo[:-2]
+    return valid, s1, s2
 
 
-def circ_lo_mod_rows(batch: BandedBatch, pad_to: int) -> np.ndarray:
-    """lom [pad_to, B] int32 = lo(d) mod Wp (edge-replicated past the
-    packed steps): the per-diagonal rotation the fused mw forward applies
-    to emit its posterior band in band-relative layout
-    (rel[k] = circ[(lo + k) mod Wp])."""
-    D1, B = batch.lo.shape
-    lo = batch.lo.astype(np.int64)
-    if pad_to > D1:
-        lo = np.concatenate(
-            [lo, np.repeat(lo[-1:, :], pad_to - D1, axis=0)], axis=0
-        )
-    return (lo % batch.wp).astype(np.int32)
+def circ_mw_streams(lo: torch.Tensor, width: int, Wp: int, d1k: int):
+    """(fr, frr, lom) [d1k, B] int32 from the [D1, B] band offsets
+    (edge-replicated to d1k), on lo's device
+    (marginalign_trna_tpu/ops/band.py `circ_mw_streams_device` and its
+    host twins circ_flush_rows, circ_row_flush_rows, circ_lo_mod_rows):
+      fr   the circular row of the reference position j that completes at
+           diagonal d, i.e. where gu = d - lo first reaches j + width, which
+           is where lo does not step: (lo + width) mod Wp, else -1;
+      frr  the circular row of the read position that leaves the band
+           where lo steps: (lo - 1) mod Wp, else -1;
+      lom  lo mod Wp, the rotation from circular to band-relative rows."""
+    lo = lo.int()
+    D1, B = lo.shape
+    if d1k > D1:
+        lo = torch.cat([lo, lo[-1:].expand(d1k - D1, B)], dim=0)
+    moved = torch.zeros_like(lo, dtype=torch.bool)
+    moved[1:] = lo[1:] != lo[:-1]
+    still = ~moved
+    still[0] = False
+    fr = torch.where(still, (lo + width) % Wp, -1)
+    frr = torch.where(moved, (lo - 1) % Wp, -1)
+    return fr.int(), frr.int(), (lo % Wp).int()
 
 
 @dataclass

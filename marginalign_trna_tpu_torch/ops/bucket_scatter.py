@@ -1,7 +1,8 @@
-"""Lane-summed scatter of the caller's flushed expectation stream: the CUDA
-kernel X (csrc/scatter.cu) and its plain PyTorch version.
+"""Scatters of the fused passes' flushed streams: the CUDA kernels X and L
+(csrc/scatter.cu) and their plain PyTorch versions.
 
-Port of marginalign_trna_tpu/ops/bucket_scatter.py `bucket_scatter_lanesum`:
+X is the port of marginalign_trna_tpu/ops/bucket_scatter.py
+`bucket_scatter_lanesum`, the caller's lane-summed scatter:
 out[v, c] = sum over (d, b) with jm[d, b] == v of vals[c, d, b].  The TPU
 kernel places values by residue masks in aligned groups of 128 rows,
 because per-lane gathers and scatters scalarise there, and keeps its
@@ -11,6 +12,14 @@ above 65536 positions for that reason).  On the card one thread per
 structure and no cap on rg.  Atomics add in no fixed order, so the kernel
 agrees with the plain version to float32 rounding of the sums, not bit for
 bit.
+
+L is the port of that module's `bucket_scatter` (called through
+`bucket_scatter_chunked`), the per-lane scatter of the MEA's row and column
+posterior sums: out[v, b] = sum over d with jm[d, b] == v of vals[d, b],
+one channel.  The TPU kernel pads rows to 128-row residue groups and chunks
+its [rg, B] output through VMEM; on the card one thread per lane walks its
+rows in order and owns its output column, so L needs no atomics, no groups
+and no chunks, and sums in the plain version's order.
 
 `monotone_gather_plain` is the function of the TPU kernel `monotone_gather`,
 which the port performs as direct loads inside the expand_streams kernel
@@ -47,6 +56,32 @@ def scatter_lanesum_cuda(vals: torch.Tensor, jm: torch.Tensor,
     out = torch.zeros((rg, C), dtype=torch.float32, device=dev)
     _build.launch("scatter_lanesum", dev, vals.data_ptr(), jm.data_ptr(),
                   C, D, B, rg, out.data_ptr())
+    return out
+
+
+def scatter_lanes_plain(vals: torch.Tensor, jm: torch.Tensor,
+                        rg: int) -> torch.Tensor:
+    """Plain version of the scatter_lanes kernel: [rg, B] float32 from
+    vals [D, B] float32 and targets jm [D, B] int32 (-1, and anything
+    outside [0, rg), adds nowhere)."""
+    B = vals.shape[1]
+    tgt = torch.where((jm >= 0) & (jm < rg), jm, rg).long()
+    out = vals.new_zeros((rg + 1, B))
+    out.scatter_add_(0, tgt, vals)
+    return out[:rg]
+
+
+def scatter_lanes_cuda(vals: torch.Tensor, jm: torch.Tensor,
+                       rg: int) -> torch.Tensor:
+    """The scatter_lanes kernel (csrc/scatter.cu); same outputs as the
+    plain version."""
+    D, B = vals.shape
+    dev = vals.device
+    check_tensor(vals, torch.float32, (D, B), dev)
+    check_tensor(jm, torch.int32, (D, B), dev)
+    out = torch.zeros((rg, B), dtype=torch.float32, device=dev)
+    _build.launch("scatter_lanes", dev, vals.data_ptr(), jm.data_ptr(), D, B,
+                  rg, out.data_ptr())
     return out
 
 

@@ -1,14 +1,18 @@
-"""Assembly of marginCaller's expected base counts from the fused pass.
+"""Assembly of per-position sums from the fused passes' flushed streams.
 
 Port of the fused-kernel assembly of marginalign_trna_tpu/ops/
-expectations.py (`fused_flush_jmaps_device`, `band_expectations_cx` on its
-scatter path).  The cx_forward pass (ops/fb_circ.py) flushes each completed
-reference position's four totals at one diagonal and leaves the last
-window's positions in its accumulator tails; every such value has one
-global target position, derived here from the band offsets, and the
-scatter_lanesum kernel (ops/bucket_scatter.py) adds them over lanes into a
-dense [rg, 4] tensor.  The JAX package pads the flush rows to its TPU
-kernel's 128-row groups before the tails; the card's scatter has no row
+expectations.py (`fused_flush_jmaps_device`, `fused_row_jmaps_device`,
+`band_expectations_cx` on its scatter path).  The cx_forward pass
+(ops/fb_circ.py) flushes each completed reference position's four totals
+at one diagonal and leaves the last window's positions in its accumulator
+tails; every such value has one global target position, derived here from
+the band offsets, and the scatter_lanesum kernel (ops/bucket_scatter.py)
+adds them over lanes into a dense [rg, 4] tensor.  The mw_forward pass
+flushes column and row posterior sums the same way; their targets are
+local positions (`fused_flush_jmaps` at offset 0, `fused_row_jmaps`), kept
+per lane by the scatter_lanes kernel (ops/mea.py
+`rowcol_sums_from_flushed`).  The JAX package pads the flush rows to its TPU
+kernels' 128-row groups before the tails; the card's scatters have no row
 groups, so here the tails follow the flush rows directly.
 """
 from __future__ import annotations
@@ -17,7 +21,10 @@ import numpy as np
 import torch
 
 from .band import CompactBandedBatch
-from .bucket_scatter import scatter_lanesum_cuda, scatter_lanesum_plain
+from .bucket_scatter import (
+    scatter_lanes_cuda, scatter_lanes_plain, scatter_lanesum_cuda,
+    scatter_lanesum_plain,
+)
 from .dispatch import use_kernel
 from .fb import FbTables
 from .fb_circ import (
@@ -58,11 +65,34 @@ def fused_flush_jmaps(lo: torch.Tensor, off: torch.Tensor, n: torch.Tensor,
     return jmap.to(torch.int32), jtail.to(torch.int32)
 
 
+def fused_row_jmaps(lo: torch.Tensor, m: torch.Tensor, Wp: int, d1k: int):
+    """(jmap [d1k, B], jtail [Wp, B]) int32 local read-position targets
+    (0-based, i - 1) of the mw pass's row flush stream and row tails
+    (-1 = none).  Read position i leaves the band at the first diagonal
+    where lo(d) = i + 1, a diagonal where lo steps; the positions the last
+    window still holds, [max(1, lo_end), m], sit at their circular row
+    i mod Wp."""
+    lo = lo.long()
+    D1, B = lo.shape
+    if d1k > D1:
+        lo = torch.cat([lo, lo[-1:].expand(d1k - D1, B)], dim=0)
+    m = m.long()[None, :]
+    stepped = torch.cat([torch.zeros_like(lo[:1], dtype=torch.bool),
+                         lo[1:] != lo[:-1]], dim=0)
+    i = lo - 1
+    jmap = torch.where(stepped & (i >= 1) & (i <= m), i - 1, -1)
+    s = torch.clamp(lo[-1:], min=1)
+    r = torch.arange(Wp, device=lo.device)[:, None]
+    i_r = s + torch.remainder(r - s, Wp)
+    jtail = torch.where((i_r >= s) & (i_r <= m), i_r - 1, -1)
+    return jmap.to(torch.int32), jtail.to(torch.int32)
+
+
 def concat_flush_tails(fl: torch.Tensor, tails: torch.Tensor,
                        jmap: torch.Tensor, jtail: torch.Tensor):
-    """(vals [C, d1k + Wp, B], jm [d1k + Wp, B]): the flushed values
-    fl [C, d1k, B] then the tails [C, Wp, B], beside their targets."""
-    return torch.cat([fl, tails], dim=1), torch.cat([jmap, jtail], dim=0)
+    """(vals [..., d1k + Wp, B], jm [d1k + Wp, B]): the flushed values
+    fl [..., d1k, B] then the tails [..., Wp, B], beside their targets."""
+    return torch.cat([fl, tails], dim=-2), torch.cat([jmap, jtail], dim=0)
 
 
 def scatter_lanesum(vals: torch.Tensor, jm: torch.Tensor,
@@ -72,6 +102,15 @@ def scatter_lanesum(vals: torch.Tensor, jm: torch.Tensor,
     if use_kernel(vals):
         return scatter_lanesum_cuda(vals, jm, rg)
     return scatter_lanesum_plain(vals, jm, rg)
+
+
+def scatter_lanes(vals: torch.Tensor, jm: torch.Tensor,
+                  rg: int) -> torch.Tensor:
+    """[rg, B] per-lane sums: the kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if use_kernel(vals):
+        return scatter_lanes_cuda(vals, jm, rg)
+    return scatter_lanes_plain(vals, jm, rg)
 
 
 def band_expectations_cx(

@@ -1,14 +1,22 @@
-"""marginCaller's fused expectation pass over compact batches.
+"""The pair-HMM passes over compact batches.
 
-Port of the caller half of marginalign_trna_tpu/ops/fb_pallas.py's compact
-serving (`CompactCircBatch`, `compact_device_batch`,
-`posteriors_expectations_pallas_compact`): the host uploads only packed
-sequences and band offsets (ops/band.py `pack_compact_batch`); the band
-streams expand on the device (E), the scaled backward runs from them (S),
-and the forward accumulates per-reference-position expected base counts
-without writing a posterior band (C).  The kernels and their plain versions
-are in ops/fb_circ_cuda.py; CUDA tensors go through the kernels, CPU
-tensors through the plain versions.
+Port of marginalign_trna_tpu/ops/fb_pallas.py's compact serving
+(`CompactCircBatch`, `compact_device_batch`, `expand_rel_codes`,
+`posteriors_expectations_pallas_compact`,
+`posteriors_weights_pallas_compact`): the host uploads only packed
+sequences and band offsets (ops/band.py `pack_compact_batch`) and every
+band-shaped stream derives on the device.
+
+  guide      the band-relative code bands of the Viterbi (R);
+  caller     the band streams (E), the scaled backward from them (S) and a
+             forward that accumulates per-reference-position expected base
+             counts without writing a posterior band (C);
+  realign    E (no read-code stream), S, and a forward that writes the
+             band-relative posterior band and the row / column posterior
+             sums of the MEA gap weights (M).
+
+The kernels and their plain versions are in ops/fb_circ_cuda.py; CUDA
+tensors go through the kernels, CPU tensors through the plain versions.
 
 The model reaches the kernels as one coefficient vector in one of two
 forms: the gap-chain form (`_gap_chain_consts`, every shipped model) or the
@@ -23,7 +31,7 @@ import numpy as np
 import torch
 
 from . import fb_circ_cuda as K
-from .band import CompactBandedBatch, padded_band_width
+from .band import CompactBandedBatch, circ_mw_streams, padded_band_width
 from .dispatch import use_kernel
 from .fb import FbTables
 from .fb_cuda import check_uniform_pi, require_flat_gaps, static_tables
@@ -106,6 +114,7 @@ class CompactCircBatch(NamedTuple):
     m: torch.Tensor        # [B] int32
     n: torch.Tensor        # [B] int32
     final_d: torch.Tensor  # [B] int32
+    final_k: torch.Tensor  # [B] int32 terminal band-relative row
     fink: torch.Tensor     # [B] int32 terminal circular row (m mod Wp)
 
 
@@ -118,8 +127,22 @@ def compact_device_batch(cb: CompactBandedBatch, device) -> CompactCircBatch:
         reads=up(cb.reads_p), refs=up(cb.refs_p),
         lo=up(cb.lo.astype(np.int32)), m=up(cb.m.astype(np.int32)),
         n=up(cb.n.astype(np.int32)), final_d=up(cb.final_d.astype(np.int32)),
+        final_k=up(cb.final_k.astype(np.int32)),
         fink=up((cb.m.astype(np.int64) % cb.wp).astype(np.int32)),
     )
+
+
+def _steps(comp: CompactCircBatch) -> int:
+    """d1k: the diagonals rounded up to the TPU kernels' step block."""
+    return -(-comp.lo.shape[0] // STEP_BLOCK) * STEP_BLOCK
+
+
+def expand_rel_codes(comp: CompactCircBatch, Wp: int, steps: int):
+    """(xb, yb) [steps, Wp, B] int8 band-relative code bands of the guide
+    Viterbi, expanded from the compact batch on its device (R); equal to
+    pack_banded_batch's xb / yb at every in-band cell."""
+    fn = K.expand_rel_cuda if use_kernel(comp.lo) else K.expand_rel_plain
+    return fn(comp.reads, comp.refs, comp.lo, comp.m, comp.n, Wp, steps)
 
 
 def posteriors_expectations_compact(tables: FbTables, comp: CompactCircBatch,
@@ -132,7 +155,7 @@ def posteriors_expectations_compact(tables: FbTables, comp: CompactCircBatch,
     coef, chain = circ_coefficients(tables)
     ematch = tables.Ematch.detach().cpu().numpy().reshape(-1)
     Wp = padded_band_width(width)
-    d1k = -(-comp.lo.shape[0] // STEP_BLOCK) * STEP_BLOCK
+    d1k = _steps(comp)
     if use_kernel(comp.lo):
         expand, backward, forward = (K.expand_streams_cuda,
                                      K.sv_backward_cuda, K.cx_forward_cuda)
@@ -144,3 +167,29 @@ def posteriors_expectations_compact(tables: FbTables, comp: CompactCircBatch,
     bm, bls, logZ = backward(coef, chain, es, comp.fink, comp.final_d)
     fl, tails = forward(coef, chain, es, yb, fr, bm, bls, logZ)
     return logZ, fl, tails
+
+
+def posteriors_weights_compact(tables: FbTables, comp: CompactCircBatch,
+                               width: int):
+    """(logZ [B], post [D1, Wp, B], flc / flr [d1k, B], tc / tr [Wp, B])
+    of the fused realign pass: the posterior band in the band-relative
+    layout and the flushed column / row posterior sums with their tails
+    (assemble with ops/mea.py `rowcol_sums_from_flushed`)."""
+    coef, chain = circ_coefficients(tables)
+    ematch = tables.Ematch.detach().cpu().numpy().reshape(-1)
+    Wp = padded_band_width(width)
+    D1 = comp.lo.shape[0]
+    d1k = _steps(comp)
+    if use_kernel(comp.lo):
+        expand, backward, forward = (K.expand_streams_cuda,
+                                     K.sv_backward_cuda, K.mw_forward_cuda)
+    else:
+        expand, backward, forward = (K.expand_streams_plain,
+                                     K.sv_backward_plain, K.mw_forward_plain)
+    es, _, _ = expand(ematch, comp.reads, comp.refs, comp.lo, comp.m,
+                      comp.n, width, Wp, d1k, False)    # no yb stream
+    fr, frr, lom = circ_mw_streams(comp.lo, width, Wp, d1k)
+    bm, bls, logZ = backward(coef, chain, es, comp.fink, comp.final_d)
+    post, flc, flr, tc, tr = forward(coef, chain, es, fr, frr, lom, bm, bls,
+                                     logZ)
+    return logZ, post[:D1], flc, flr, tc, tr

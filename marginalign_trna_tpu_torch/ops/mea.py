@@ -1,14 +1,21 @@
 """Maximum-expected-accuracy (AMAP) realignment decode.
 
-Port of marginalign_trna_tpu/ops/mea.py on its non-fused path.  Objective
-over a monotone alignment path:
+Port of marginalign_trna_tpu/ops/mea.py.  Objective over a monotone
+alignment path:
     sum_{matched (i,j)} p(i,j) + gapGamma * sum_{skipped read i} (1 - r_i)
                               + gapGamma * sum_{skipped ref j} (1 - c_j)
-where p is the posterior match probability (ops/fb_cuda.py) and r_i / c_j
-its row and column sums.  Pairs with p < matchGamma are disallowed.  The
-gap weights are plain torch on the posterior's device; the DP is the
-banded_mea kernel (or its plain version on the CPU); the cigar comes from
-the native host traceback of the uint8 pointer band.
+where p is the posterior match probability and r_i / c_j its row and
+column sums.  Pairs with p < matchGamma are disallowed.  Two paths:
+
+  fused (`mea_decode_fused`, the default): r and c come from the mw pass's
+    flushed sums (`rowcol_sums_from_flushed`, the scatter_lanes kernel) and
+    the mea_dl kernel derives every weight from the posterior band and the
+    sums itself;
+  REL (`mea_decode`): the gap weights are plain torch bands over the
+    posterior (`mea_weights`) and the DP is the banded_mea kernel.
+
+The plain versions run for CPU tensors.  The cigar comes from the native
+host traceback of the uint8 pointer band.
 """
 from __future__ import annotations
 
@@ -18,10 +25,17 @@ import numpy as np
 import torch
 
 from .. import native as _native
-from .band import BandedBatch
+from .band import BandedBatch, CompactBandedBatch
 from .dispatch import use_kernel
+from .expectations import (
+    _round_up, concat_flush_tails, fused_flush_jmaps, fused_row_jmaps,
+    scatter_lanes,
+)
 from .fb import DeviceBatch
-from .wavefront_cuda import NEG, banded_mea_cuda, banded_mea_plain
+from .fb_circ import CompactCircBatch
+from .wavefront_cuda import (
+    NEG, banded_mea_cuda, banded_mea_plain, mea_dl_cuda, mea_dl_plain,
+)
 
 
 class MeaResult(NamedTuple):
@@ -95,6 +109,46 @@ def mea_decode(
                      dev.final_d, dev.final_k)
     pointers = np.ascontiguousarray(res.pointers.cpu().numpy())
     return [_traceback_one(pointers, batch, b) for b in range(B)]
+
+
+def rowcol_sums_from_flushed(
+    comp: CompactBandedBatch, dev: CompactCircBatch, flc: torch.Tensor,
+    flr: torch.Tensor, tc: torch.Tensor, tr: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(accr [rgm, B], accc [rgn, B]) per-position posterior row and column
+    sums of every lane from the mw pass's flush streams and tails (ops/
+    fb_circ.py `posteriors_weights_compact`), rgm / rgn the longest read /
+    reference rounded up to 256 (marginalign_trna_tpu/ops/mea.py
+    `rowcol_sums_from_flushed`, scatter branch)."""
+    d1k, B = flc.shape
+    rgm = _round_up(max(int(comp.m.max()), 1), 256)
+    rgn = _round_up(max(int(comp.n.max()), 1), 256)
+    zero = torch.zeros(B, dtype=torch.int32, device=flc.device)
+    jmap, jtail = fused_flush_jmaps(dev.lo, zero, dev.n, comp.width,
+                                    comp.wp, d1k)
+    accc = scatter_lanes(*concat_flush_tails(flc, tc, jmap, jtail), rgn)
+    jmap, jtail = fused_row_jmaps(dev.lo, dev.m, comp.wp, d1k)
+    accr = scatter_lanes(*concat_flush_tails(flr, tr, jmap, jtail), rgm)
+    return accr, accc
+
+
+def mea_decode_fused(
+    post: torch.Tensor,
+    comp: CompactBandedBatch,
+    dev: CompactCircBatch,
+    accr: torch.Tensor,
+    accc: torch.Tensor,
+    gap_gamma: float = 0.5,
+    match_gamma: float = 0.0,
+) -> List[List[Tuple[int, int]]]:
+    """Realigned ops of every lane from the band-relative posterior band
+    [D1, Wp, B] and the per-position sums (`rowcol_sums_from_flushed`),
+    through the mea_dl kernel (its plain version for CPU tensors)."""
+    fn = mea_dl_cuda if use_kernel(post) else mea_dl_plain
+    ptr, _ = fn(post, dev.lo, dev.m, dev.n, comp.width, dev.final_d,
+                dev.final_k, accr, accc, gap_gamma, match_gamma)
+    pointers = np.ascontiguousarray(ptr.cpu().numpy())
+    return [_traceback_one(pointers, comp, b) for b in range(post.shape[2])]
 
 
 def _traceback_one(

@@ -1,10 +1,12 @@
 """Max-plus banded wavefronts (guide Viterbi and MEA decode): the CUDA
 kernels (csrc/nw.cu, csrc/mea.cu) and their plain PyTorch versions.
 
-Port of marginalign_trna_tpu/ops/wavefront_pallas.py `banded_nw_pallas` and
-`banded_mea_pallas`.  Max-plus scores need no rescaling, so both versions
-only shift, add and compare; with the same order of operations (circular
-row shifts, first-max-wins ties) they agree bit for bit.
+Port of marginalign_trna_tpu/ops/wavefront_pallas.py `banded_nw_pallas`
+(K1), `banded_mea_pallas` (K4, weights given as bands) and `_mea_dl_jit`
+(D, weights derived from the posterior band and the per-position row and
+column posterior sums).  Max-plus scores need no rescaling, so both
+versions only shift, add and compare; with the same order of operations
+(circular row shifts, first-max-wins ties) they agree bit for bit.
 
 Pointer encodings (read by the native host tracebacks):
   NW:  uint8  ptrM (2 bits) | ptrIx << 2 | ptrIy << 3
@@ -18,6 +20,7 @@ import torch
 
 from . import _build
 from ._build import check_tensor
+from .band import band_masks
 from .fb import shift
 
 NEG = -1e30
@@ -156,5 +159,59 @@ def banded_mea_cuda(wdiag, wup, wleft, valid, s1, s2, final_d, final_k):
         wleft.data_ptr(), valid.data_ptr(), s1.data_ptr(), s2.data_ptr(),
         final_d.data_ptr(), final_k.data_ptr(), D1, Wp, B, ptr.data_ptr(),
         score.data_ptr(),
+    )
+    return ptr, score
+
+
+def _gap_weights(sums: torch.Tensor, gap_gamma: float) -> torch.Tensor:
+    """gapGamma * clip(1 - posterior mass of a position, 0, 1)."""
+    return gap_gamma * torch.clamp(1.0 - sums, 0.0, 1.0)
+
+
+def mea_dl_plain(post, lo, m, n, width: int, final_d, final_k, accr, accc,
+                 gap_gamma: float, match_gamma: float):
+    """Plain version of the mea_dl kernel: (pointers uint8 [D1, Wp, B],
+    score [B]) of the MEA decode with weights derived from the posterior
+    band post [D1, Wp, B] (band-relative) and the per-position sums
+    accr [rgm, B] (read) / accc [rgn, B] (ref): wdiag = post where
+    post >= match_gamma and post > 0, else NEG; wup = gap weight of read
+    position i - 1 (0 at i = 0); wleft = gap weight of ref position j - 1
+    (0 at j <= 0).  valid, s1 and s2 come from lo, m, n (ops/band.py
+    `band_masks`); the DP is banded_mea_plain's."""
+    D1, Wp, B = post.shape
+    valid, s1, s2 = band_masks(lo, m, n, width, Wp)
+    i = lo.long()[:, None, :] + torch.arange(Wp, device=post.device)[:, None]
+    j = torch.arange(D1, device=post.device)[:, None, None] - i
+
+    def gap_band(sums, pos):
+        g = _gap_weights(sums, gap_gamma)
+        at = g.gather(0, (pos - 1).clamp(0, g.shape[0] - 1).reshape(-1, B))
+        return torch.where(pos >= 1, at.reshape(D1, Wp, B), 0.0)
+
+    wdiag = torch.where((post >= match_gamma) & (post > 0), post, NEG)
+    return banded_mea_plain(wdiag, gap_band(accr, i), gap_band(accc, j),
+                            valid, s1, s2, final_d, final_k)
+
+
+def mea_dl_cuda(post, lo, m, n, width: int, final_d, final_k, accr, accc,
+                gap_gamma: float, match_gamma: float):
+    """The mea_dl kernel (csrc/mea.cu); same outputs as the plain
+    version."""
+    D1, Wp, B = post.shape
+    dev = post.device
+    rgm, rgn = accr.shape[0], accc.shape[0]
+    check_tensor(post, torch.float32, (D1, Wp, B), dev)
+    check_tensor(lo, torch.int32, (D1, B), dev)
+    for t in (m, n, final_d, final_k):
+        check_tensor(t, torch.int32, (B,), dev)
+    check_tensor(accr, torch.float32, (rgm, B), dev)
+    check_tensor(accc, torch.float32, (rgn, B), dev)
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    score = torch.empty((B,), dtype=torch.float32, device=dev)
+    _build.launch(
+        "mea_dl", dev, post.data_ptr(), lo.data_ptr(), m.data_ptr(),
+        n.data_ptr(), accr.data_ptr(), accc.data_ptr(), final_d.data_ptr(),
+        final_k.data_ptr(), D1, Wp, B, width, rgm, rgn, float(gap_gamma),
+        float(match_gamma), ptr.data_ptr(), score.data_ptr(),
     )
     return ptr, score

@@ -16,10 +16,11 @@ from marginalign_trna_tpu_torch.ops import (
     _build, bucket_scatter, fb_circ_cuda, fb_cuda, wavefront_cuda,
 )
 from marginalign_trna_tpu_torch.ops.band import (
-    pack_banded_batch, pack_compact_batch, path_from_cigar,
+    band_masks, circ_mw_streams, pack_banded_batch, pack_compact_batch,
+    path_from_cigar,
 )
 from marginalign_trna_tpu_torch.ops.expectations import (
-    concat_flush_tails, fused_flush_jmaps,
+    concat_flush_tails, fused_flush_jmaps, fused_row_jmaps,
 )
 from marginalign_trna_tpu_torch.ops.fb import device_batch, tables_from_hmm
 from marginalign_trna_tpu_torch.ops.fb_circ import (
@@ -152,3 +153,73 @@ def test_caller_kernels_match_plain(cuda):
     assert torch.allclose(out, ref, rtol=1e-5, atol=1e-6)
     torch.cuda.synchronize()
     assert all(_build.launch_counts[k] == before[k] + 1 for k in names)
+
+
+def test_default_path_kernels_match_plain(cuda):
+    """R, M, L and D at a tiny shape, each on the plain version's inputs:
+    R's code bands equal, M within the FB tolerances, L rtol 1e-5, D's
+    pointers equal on every valid cell."""
+    tables = tables_from_hmm(PairHmm.load(MODEL), cuda)
+    coef, chain = circ_coefficients(tables)
+    ematch = tables.Ematch.cpu().numpy().reshape(-1)
+    comp, dev = _compact(cuda, seed=4)
+    Wp, D1 = comp.wp, comp.num_steps
+    names = ("expand_rel", "mw_forward", "scatter_lanes", "mea_dl")
+    before = {k: _build.launch_counts[k] for k in names}
+    rargs = (dev.reads, dev.refs, dev.lo, dev.m, dev.n, Wp, D1)
+    for got, ref in zip(fb_circ_cuda.expand_rel_cuda(*rargs),
+                        fb_circ_cuda.expand_rel_plain(*rargs)):
+        assert torch.equal(got, ref)
+
+    es, _, _ = fb_circ_cuda.expand_streams_plain(
+        ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, Wp, D1,
+        want_yb=False)
+    fr, frr, lom = circ_mw_streams(dev.lo, 21, Wp, D1)
+    bm, bls, logZ = fb_circ_cuda.sv_backward_plain(coef, chain, es,
+                                                   dev.fink, dev.final_d)
+    margs = (coef, chain, es, fr, frr, lom, bm, bls, logZ)
+    got = fb_circ_cuda.mw_forward_cuda(*margs)
+    ref = fb_circ_cuda.mw_forward_plain(*margs)
+    assert (got[0] - ref[0]).abs().max().item() <= 2e-4
+    for g, r in zip(got[1:], ref[1:]):
+        assert (g - r).abs().max().item() <= 2e-3
+    post, flc, flr, tc, tr = ref
+
+    zero = torch.zeros(comp.batch, dtype=torch.int32, device=cuda)
+    sums = []
+    for fl, tail, (jmap, jtail), rg in (
+            (flc, tc, fused_flush_jmaps(dev.lo, zero, dev.n, 21, Wp, D1),
+             256),
+            (flr, tr, fused_row_jmaps(dev.lo, dev.m, Wp, D1), 256)):
+        vals, jm = concat_flush_tails(fl, tail, jmap, jtail)
+        out = bucket_scatter.scatter_lanes_cuda(vals, jm, rg)
+        sums.append(bucket_scatter.scatter_lanes_plain(vals, jm, rg))
+        assert torch.allclose(out, sums[-1], rtol=1e-5, atol=1e-6)
+
+    accc, accr = sums
+    dargs = (post, dev.lo, dev.m, dev.n, 21, dev.final_d, dev.final_k,
+             accr, accc, 0.5, 0.0)
+    ptr, score = wavefront_cuda.mea_dl_cuda(*dargs)
+    rptr, rscore = wavefront_cuda.mea_dl_plain(*dargs)
+    torch.cuda.synchronize()
+    valid = band_masks(dev.lo, dev.m, dev.n, 21, Wp)[0]
+    assert torch.equal(ptr[valid], rptr[valid])
+    assert torch.allclose(score, rscore, rtol=1e-5, atol=1e-4)
+    assert (_build.launch_counts["scatter_lanes"]
+            == before["scatter_lanes"] + 2)
+    assert all(_build.launch_counts[k] == before[k] + 1
+               for k in ("expand_rel", "mw_forward", "mea_dl"))
+
+
+def test_scatter_lanes_any_targets(cuda):
+    """L on targets that repeat out of order and fall outside [0, rg):
+    the plain version's sums (rtol 1e-5)."""
+    rng = np.random.default_rng(9)
+    D, B, rg = 300, 70, 64
+    jm = rng.integers(-3, rg + 3, size=(D, B)).astype(np.int32)
+    jm[: D // 2] = np.sort(jm[: D // 2], axis=0)   # increasing runs first
+    vals = torch.from_numpy(rng.random((D, B)).astype(np.float32)).to(cuda)
+    jm = torch.from_numpy(jm).to(cuda)
+    out = bucket_scatter.scatter_lanes_cuda(vals, jm, rg)
+    ref = bucket_scatter.scatter_lanes_plain(vals, jm, rg)
+    assert torch.allclose(out, ref, rtol=1e-5, atol=1e-6)

@@ -113,9 +113,9 @@ def test_monotone_gather_plain_matches_pallas(case):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_band_packer_copies_match_jax(seed):
-    """The port's copies of the host band packers equal the JAX package's:
-    the full band streams and the circular flush-row streams (the expand
-    kernel's fr equals circ_flush_rows of the full pack)."""
+    """The port's copies of the host band packers equal the JAX package's
+    full band streams; the port's flush-row streams (circ_mw_streams, and
+    the expand kernel's fr) equal the JAX package's host constructors."""
     reads, refs, paths = _inputs(seed)
     full_t = tband.pack_banded_batch(reads, refs, width=WIDTH, paths=paths,
                                      quantize=True)
@@ -125,12 +125,14 @@ def test_band_packer_copies_match_jax(seed):
                   "final_k", "m", "n"):
         assert np.array_equal(getattr(full_t, field), getattr(full_j, field))
     d1k = -(-full_t.num_steps // 8) * 8 + 8
-    for fn in ("circ_flush_rows", "circ_row_flush_rows", "circ_lo_mod_rows"):
-        assert np.array_equal(getattr(tband, fn)(full_t, d1k),
-                              getattr(jband, fn)(full_j, d1k))
+    streams = tband.circ_mw_streams(torch.from_numpy(full_t.lo), WIDTH,
+                                    full_t.wp, d1k)
+    for fn, got in zip(("circ_flush_rows", "circ_row_flush_rows",
+                        "circ_lo_mod_rows"), streams):
+        assert np.array_equal(got.numpy(), getattr(jband, fn)(full_j, d1k))
     dev = compact_device_batch(tband.pack_compact_batch(
         reads, refs, width=WIDTH, paths=paths, quantize=True), "cpu")
     _, _, fr = expand_streams_plain(np.zeros(25, np.float32), dev.reads,
                                     dev.refs, dev.lo, dev.m, dev.n, WIDTH,
                                     full_t.wp, d1k)
-    assert np.array_equal(fr.numpy(), tband.circ_flush_rows(full_t, d1k))
+    assert np.array_equal(fr.numpy(), jband.circ_flush_rows(full_j, d1k))

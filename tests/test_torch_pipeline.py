@@ -1,5 +1,7 @@
 """marginAlign end to end: the PyTorch port on the CPU (plain versions of
-its kernels) vs the JAX package on a synthetic two-reference corpus."""
+its kernels: the guide through R and K1, realignment on the fused path
+through E, S, M, L and D) vs the JAX package on a synthetic two-reference
+corpus, and the port's REL realign path vs its fused one."""
 import numpy as np
 import pytest
 
@@ -7,6 +9,8 @@ from marginalign_trna_tpu import pipeline as jpipeline
 from marginalign_trna_tpu.io.sam import SamFile
 from marginalign_trna_tpu_torch import cli
 from marginalign_trna_tpu_torch import pipeline as tpipeline
+from marginalign_trna_tpu_torch.align.realign import realign_sam_file
+from marginalign_trna_tpu_torch.models.hmm import PairHmm
 
 
 def _write_corpus(tmpdir, n_reads=12, seed=3):
@@ -75,3 +79,47 @@ def test_cli_full_run_matches_jax(corpus):
     # tie, so one realigned cigar may differ; report which.
     print("realigned cigars differing from the JAX package:", differ)
     assert len(differ) <= 1, differ
+
+
+def test_rel_path_places_records_like_fused(corpus):
+    """realign_sam_file with fused=False (REL: host band arrays, K2, K3,
+    weight bands, K4) and the default fused path on the same chained SAM:
+    every record placed identically, cigars equal but for at most one MEA
+    tie flip."""
+    tmp, fq, fa, _, _ = corpus
+    chained = str(tmp / "port_chained.sam")
+    tpipeline.align(fq, fa, chained,
+                    tpipeline.AlignOptions(no_realign=True), device="cpu")
+    hmm = PairHmm.load(tpipeline.DEFAULT_MODEL)
+    out = {}
+    for fused in (True, False):
+        path = str(tmp / ("port_fused_%s.sam" % fused))
+        realign_sam_file(chained, path, fq, fa, hmm, "cpu", no_chain=True,
+                         fused=fused)
+        out[fused] = SamFile.read(path).records
+    fused_recs, rel_recs = out[True], out[False]
+    assert len(fused_recs) == len(rel_recs) >= 10
+    assert [(r.qname, r.flag, r.rname, r.pos) for r in fused_recs] == \
+        [(r.qname, r.flag, r.rname, r.pos) for r in rel_recs]
+    differ = [a.qname for a, b in zip(fused_recs, rel_recs)
+              if a.cigar != b.cigar]
+    print("cigars differing between the fused and REL paths:", differ)
+    assert len(differ) <= 1, differ
+
+
+def test_default_path_packs_no_band_arrays(corpus, monkeypatch):
+    """marginAlign's default path (the guide through R and K1, the fused
+    realign) never builds band arrays on the host: pack_banded_batch,
+    which only the REL path calls, refuses to run."""
+    from marginalign_trna_tpu_torch.align import realign
+    from marginalign_trna_tpu_torch.ops import band
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("pack_banded_batch ran on the default path")
+
+    for mod in (band, realign):
+        monkeypatch.setattr(mod, "pack_banded_batch", refuse)
+    tmp, fq, fa, _, _ = corpus
+    out = str(tmp / "port_no_band_arrays.sam")
+    tpipeline.align(fq, fa, out, device="cpu")
+    assert len(SamFile.read(out).records) >= 10
