@@ -6,7 +6,7 @@ CUDA card.  Run from the repository root:
 
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a.
-  2. tiny     each of the twelve kernels against its plain PyTorch version
+  2. tiny     each of the sixteen kernels against its plain PyTorch version
               on the card at a tiny shape, so a broken kernel fails before
               the long runs.
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
@@ -39,7 +39,29 @@ Phases (any failure exits non-zero without the final result line):
               largest caller launch.
   8. parity   the caller on the SAM's first 32 records on "cpu" and "cuda":
               identical call sets, expectations within 1e-3.
-  9. card     name and power limit from nvidia-smi.
+  9. em       marginAlign --em (pipeline.align with em=True: guide -> chain
+              -> Baum-Welch EM -> realign with the trained model) on the
+              corpus's first 256 reads at the default EmOptions but 5
+              iterations: full width (band 21, 3 lockstep trials, anchor
+              split 300, 88 M cells per E-step batch), depth cut to 256
+              reads and 5 iterations.  Only the counts pair that the policy
+              (ops/fb_counts.py use_ckpt) picks for each batch, R, K1, E,
+              S, M, L and D may launch; every trial's log-likelihood must
+              not fall (within 1e-5 relative), the trained models must be
+              stochastic and >= 95% of the reads placed.  Then all four
+              counts kernels against their plain versions on the largest
+              E-step batch (the other pair forced through the policy's
+              keyword), timed again with one trial (a serial EM trial),
+              and S and M on their largest launch with the trained
+              model, which runs their generic 5x5 branch.
+ 10. parity   EM (3 iterations, trial 0 from the shipped model) + realign
+              of the first 32 reads on "cpu" and "cuda": trained
+              parameters within 1e-4, likelihood histories within rtol
+              1e-5, guide records identical, placements identical; with
+              the card's trained model on both devices >= 90% of cigars
+              identical; with that model and with each device's own, every
+              cigar that differs an MEA near-tie (1e-5).
+ 11. card     name and power limit from nvidia-smi.
 The line before the last is the kernel report (JSON); the last line is the
 result (JSON).  Corpus and weights come from numpy seeds; nothing is read
 from outside the repository.
@@ -65,7 +87,8 @@ NW_PARAMS = (1.0, -2.0, -3.0, -1.0)
 SNV_FIRST, SNV_LAST, SNV_STEP = 100, 3400, 150
 # Kernel name -> (source, TPU kernel it replaces, wrapper in ops/, paths it
 # runs on: "align" = marginAlign's main (default, fused) path, "rel" = its
-# REL realign path, "call" = marginCaller's).
+# REL realign path, "call" = marginCaller's, "em" = marginAlign --em, which
+# also runs the "align" kernels).
 KERNELS = {
     "banded_nw": ("marginalign_trna_tpu_torch/csrc/nw.cu",
                   "marginalign_trna_tpu/ops/wavefront_pallas.py:77",
@@ -103,12 +126,34 @@ KERNELS = {
     "scatter_lanesum": ("marginalign_trna_tpu_torch/csrc/scatter.cu",
                         "marginalign_trna_tpu/ops/bucket_scatter.py:180",
                         "bucket_scatter.scatter_lanesum_cuda", ("call",)),
+    # The counts kernels replace each TPU kernel body in its serial and its
+    # lockstep-trials pallas_call (a trials grid axis of 1 or Ntr).
+    "counts_fwd_all": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                       "marginalign_trna_tpu/ops/fb_pallas_counts.py:42",
+                       "fb_counts_cuda.counts_fwd_all_cuda", ("em",)),
+    "counts_bwd": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                   "marginalign_trna_tpu/ops/fb_pallas_counts.py:155",
+                   "fb_counts_cuda.counts_bwd_cuda", ("em",)),
+    "counts_fwd_ckpt": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                        "marginalign_trna_tpu/ops/fb_pallas_counts.py:1245",
+                        "fb_counts_cuda.counts_fwd_ckpt_cuda", ("em",)),
+    "counts_bwd_ckpt": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                        "marginalign_trna_tpu/ops/fb_pallas_counts.py:1358",
+                        "fb_counts_cuda.counts_bwd_ckpt_cuda", ("em",)),
 }
 ALIGN_KERNELS = [k for k, v in KERNELS.items() if "align" in v[3]]
 REL_KERNELS = [k for k, v in KERNELS.items() if "rel" in v[3]]
 CALLER_KERNELS = [k for k, v in KERNELS.items() if "call" in v[3]]
+COUNTS_KERNELS = [k for k, v in KERNELS.items() if "em" in v[3]]
+COUNTS_PAIRS = {"stored": ("counts_fwd_all", "counts_bwd"),
+                "ckpt": ("counts_fwd_ckpt", "counts_bwd_ckpt")}
 # Records of the main phase's corpus that the REL phase realigns.
 REL_RECORDS = 256
+# The EM phase: reads of the corpus it trains on and realigns, iterations;
+# the EM parity phase's iterations (on PARITY_READS reads).
+EM_READS = 256
+EM_ITERATIONS = 5
+EM_PARITY_ITERATIONS = 3
 
 # The least time the card could take: the bytes a kernel must move (each
 # input read once, each output written once) at the H100 SXM's 3.35 TB/s,
@@ -116,8 +161,16 @@ REL_RECORDS = 256
 # whichever is larger.  Operations per band cell (per targeted (row, lane)
 # for the scatters, which read values only where a target is), counted
 # from each kernel's arithmetic on the branch this run takes (the shipped
-# model's gap-chain form for sv/cx/mw): a multiply, add, max, compare or
-# select is one.
+# model's gap-chain form for sv/cx/mw on the main path): a multiply, add,
+# max, compare or select on the data is one.  The counts kernels count per
+# cell and trial what the counts need, not how the kernels bin them: the
+# forward's emission lookups (17), cell (10), rescale (1.25) and five
+# mixes (45); the backward's cell (58), rescale, posterior (2), transition
+# partials (55), gap-by-code partials (12: gamma of each of the four gap
+# states and one add into its code's bin) and published e * b (22); the
+# checkpoint backward adds the match-by-code partials (3: gamma and one
+# add into bin x * 5 + y) and the recomputed forward (73) and drops the
+# posterior.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_CELL = {
@@ -125,6 +178,8 @@ OPS_PER_CELL = {
     "expand_streams": 16, "sv_backward": 23, "cx_forward": 28,
     "scatter_lanesum": 4, "expand_rel": 14, "mw_forward": 32,
     "scatter_lanes": 4, "mea_dl": 36,
+    "counts_fwd_all": 73, "counts_bwd": 151, "counts_fwd_ckpt": 73,
+    "counts_bwd_ckpt": 225,
 }
 
 
@@ -547,6 +602,97 @@ def compare_mea_dl(args, reps):
     }
 
 
+def counts_rel_err(pairs):
+    """Largest relative difference of lane-summed count partials (kernel
+    vs plain), each against max(|plain|, 1e-6)."""
+    err = 0.0
+    for got, ref in pairs:
+        g, r = got.sum(-1), ref.sum(-1)
+        err = max(err, ((g - r).abs() / r.abs().clamp(min=1e-6)).max()
+                  .item())
+    return err
+
+
+def max_abs_err(pairs):
+    """Largest absolute difference over pairs of (kernel, plain) outputs."""
+    return max((g - r).abs().max().item() for g, r in pairs)
+
+
+def compare_counts(base, reps):
+    """The four counts kernels against their plain versions on one E-step
+    batch, base = (T, Em, Eg, xb, yb, valid, s1, fink, find): each forward
+    on base, each backward on its plain forward's outputs.  f_all, lsf, the
+    terminal sums, the checkpoints and the posterior band must be
+    bit-equal; the lane-summed count partials within rtol 1e-5 (the kernels
+    sum each thread's rows and diagonals first, then the row threads)."""
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_counts
+    from marginalign_trna_tpu_torch.ops import fb_counts_cuda as K
+
+    tabs, streams, find = base[:3], base[3:8], base[8]
+    cells = tabs[0].shape[0] * streams[0].numel()
+    fargs = (*tabs, *streams)
+    report = {}
+
+    def timed(name, cuda_fn, plain_fn, args, err, outs):
+        report[name] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: cuda_fn(*args), reps),
+            "plain_ms": time_ms(lambda: plain_fn(*args), 1),
+            "library_ms": None,
+            **bound(name, cells, nbytes(*args, *outs))}
+
+    ref = K.counts_fwd_all_plain(*fargs)
+    for what, g, r in zip(("f_all", "lsf", "term"),
+                          K.counts_fwd_all_cuda(*fargs), ref):
+        check(torch.equal(g, r), "counts_fwd_all: %s differs from the "
+              "plain version" % what)
+    f_all, lsf, term = ref
+    logZ = fb_counts.logz_from_terminal(lsf, term, find)
+    check(torch.isfinite(logZ).all().item(), "counts logZ not finite")
+    timed("counts_fwd_all", K.counts_fwd_all_cuda, K.counts_fwd_all_plain,
+          fargs, 0.0, ref)
+    del ref
+
+    bargs = (*tabs, f_all, lsf, *streams, find, logZ)
+    post, tcp, egp = K.counts_bwd_cuda(*bargs)
+    rpost, rtcp, regp = K.counts_bwd_plain(*bargs)
+    check(torch.equal(post, rpost), "counts_bwd: posterior band differs "
+          "from the plain version")
+    err = counts_rel_err(((tcp, rtcp), (egp, regp)))
+    check(err <= 1e-5, "counts_bwd: counts differ by %g (rtol 1e-5)" % err)
+    timed("counts_bwd", K.counts_bwd_cuda, K.counts_bwd_plain, bargs,
+          max_abs_err(((tcp, rtcp), (egp, regp))), (post, tcp, egp))
+    report["counts_bwd"]["counts_max_rel_err"] = err
+    del bargs, f_all, post, rpost
+
+    ref = K.counts_fwd_ckpt_plain(*fargs)
+    for what, g, r in zip(("ckpt", "cs", "lsf", "term"),
+                          K.counts_fwd_ckpt_cuda(*fargs), ref):
+        check(torch.equal(g, r), "counts_fwd_ckpt: %s differs from the "
+              "plain version" % what)
+    check(torch.equal(ref[2], lsf) and torch.equal(ref[3], term),
+          "the two counts forwards disagree on lsf or term")
+    timed("counts_fwd_ckpt", K.counts_fwd_ckpt_cuda, K.counts_fwd_ckpt_plain,
+          fargs, 0.0, ref)
+
+    cargs = (*tabs, ref[0], ref[1], *streams, find, logZ)
+    got = K.counts_bwd_ckpt_cuda(*cargs)
+    want = K.counts_bwd_ckpt_plain(*cargs)
+    err = counts_rel_err(zip(got, want))
+    check(err <= 1e-5, "counts_bwd_ckpt: counts differ by %g (rtol 1e-5)"
+          % err)
+    # Both pairs count the same transitions and gap emissions.
+    pair_err = counts_rel_err(((want[0], rtcp), (want[1], regp)))
+    check(pair_err <= 1e-4, "the counts pairs disagree by %g" % pair_err)
+    timed("counts_bwd_ckpt", K.counts_bwd_ckpt_cuda, K.counts_bwd_ckpt_plain,
+          cargs, max_abs_err(zip(got, want)), got)
+    report["counts_bwd_ckpt"]["counts_max_rel_err"] = err
+    report["counts_bwd_ckpt"]["pairs_rel_err"] = pair_err
+    return report
+
+
 COMPARE = {
     "banded_nw": compare_nw, "banded_mea": compare_mea,
     "expand_streams": compare_expand, "sv_backward": compare_sv,
@@ -559,13 +705,16 @@ COMPARE = {
 def compare_kernels(tag, names, inputs, reps):
     """Each kernel of `names` against its plain version on `inputs`
     (kernel name -> wrapper arguments; fb_forward's may be None: the plain
-    backward's outputs then feed it).  Returns {name: report}."""
+    backward's outputs then feed it; the counts kernels share
+    inputs["counts"], compare_counts' base).  Returns {name: report}."""
     report = {}
+    if any(name in COUNTS_KERNELS for name in names):
+        report.update(compare_counts(inputs["counts"], reps))
     for name in names:
         if name == "fb_backward":
             report["fb_backward"], report["fb_forward"] = compare_fb(
                 inputs["fb_backward"], inputs.get("fb_forward"), reps)
-        elif name != "fb_forward":
+        elif name not in ("fb_forward", *COUNTS_KERNELS):
             report[name] = COMPARE[name](inputs[name], reps)
     for name in names:
         log("kernels[%s] %-15s %s" % (tag, name, json.dumps(report[name])))
@@ -709,9 +858,44 @@ def tiny_default_inputs(device):
     }
 
 
+def tiny_counts_inputs(device):
+    """The counts kernels' base inputs at a tiny shape: 40 noisy pairs of
+    20-150 bases at width 21, three random EM starts (non-flat gaps)."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import fb_counts
+    from marginalign_trna_tpu_torch.ops.band import pack_banded_batch
+    from marginalign_trna_tpu_torch.ops.fb import device_batch, tables_stacked
+
+    rng = np.random.default_rng(15)
+    refs = [rng.integers(0, 4, size=int(rng.integers(20, 150)))
+            .astype(np.int8) for _ in range(40)]
+    reads = [noisy(rng, r) for r in refs]
+    dev = device_batch(pack_banded_batch(reads, refs, width=21,
+                                         quantize=True), device)
+    hmms = [PairHmm.random(seed=30 + t) for t in range(3)]
+    for h in hmms:
+        h.apply_model_type_constraints()
+    tables = tables_stacked(hmms, device)
+    return {"counts": (tables.T, tables.Ematch, tables.Egap,
+                       *fb_counts.kernel_inputs(dev))}
+
+
+def counts_base(largest):
+    """compare_counts' base from the recorded largest launches of the
+    counts pair a path ran: the forward's arguments and the backward's
+    find."""
+    for fwd, bwd in COUNTS_PAIRS.values():
+        if fwd in largest:
+            return largest[fwd] + (largest[bwd][10],)
+    raise SmokeFailure("no counts kernel launched")
+
+
 def launch_shape(name, args):
     """The band a kernel call walks: [D1 or d1k, Wp, B] ([C, D, B] or
-    [D, B] for the scatters' values)."""
+    [D, B] for the scatters' values, [Ntr, d1k, Wp, B] for the counts
+    kernels)."""
     import torch
 
     if name == "expand_streams":
@@ -720,6 +904,10 @@ def launch_shape(name, args):
         return [args[6], args[5], args[2].shape[1]]
     if name == "scatter_lanes":
         return list(args[0].shape)
+    if name in COUNTS_KERNELS:    # [Ntr, d1k, Wp, B]
+        return [args[0].shape[0]] + list(next(
+            a for a in args[3:] if torch.is_tensor(a) and a.dim() == 3
+            and a.dtype == torch.int8).shape)
     return list(next(a for a in args
                      if torch.is_tensor(a) and a.dim() == 3).shape)
 
@@ -844,7 +1032,7 @@ def phase_main(tmpdir):
     log("main: %d of %d records on their true reference, strand and "
         "position" % (placed, len(recs)))
     check(placed >= 0.95 * len(recs), "too few reads placed correctly")
-    return fq, fa, out, launches, largest, {
+    return fq, fa, truth, out, launches, largest, {
         "reads_out": len(recs), "total_s": total,
         "reads_per_s": len(recs) / total, **stages}
 
@@ -878,6 +1066,62 @@ def mea_objective(ops, post, lo, g_read, g_ref, b):
     return total
 
 
+def fused_ops_with_weights(segs, hmm, device):
+    """realigned_ops_for_jobs on the fused path, with each segment's MEA
+    inputs kept: (ops per segment, {segment: ((posterior band, lo, read gap
+    weights, ref gap weights) of its bucket, its lane)})."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch.align import realign
+    from marginalign_trna_tpu_torch.ops import mea
+    from marginalign_trna_tpu_torch.ops.wavefront_cuda import _gap_weights
+
+    weights = []
+    decode = mea.mea_decode_fused
+
+    def keep(post, comp, dev, accr, accc, gap_gamma, match_gamma):
+        weights.append((post.cpu().numpy(), comp.lo.astype(np.int64),
+                        _gap_weights(accr, gap_gamma).cpu().numpy(),
+                        _gap_weights(accc, gap_gamma).cpu().numpy()))
+        return decode(post, comp, dev, accr, accc, gap_gamma, match_gamma)
+
+    with replaced_everywhere({decode: keep}):
+        ops = realign.realigned_ops_for_jobs(segs, hmm, 0.5, 0.0, device,
+                                             fused=True)
+    lane_of = {}
+    for w, bucket in zip(weights, realign._bucket_jobs(
+            segs, realign.DEFAULT_BAND_WIDTH, 128_000_000)):
+        for b, s_idx in enumerate(bucket):
+            lane_of[s_idx] = (w, b)
+    return ops, lane_of
+
+
+def record_cigar(job, origin, ops_of, k):
+    """Job k's realigned cigar from its segments' ops (origin: the job of
+    each segment)."""
+    from marginalign_trna_tpu_torch.align import realign
+
+    ops = [op for s_idx, j in enumerate(origin) if j == k
+           for op in ops_of[s_idx]]
+    return realign.splice_realigned_cigar(
+        job.record, realign._merge_op_runs(ops)).cigar
+
+
+def tie_gap(k, origin, ops, other_ops, lane_of):
+    """Largest relative MEA-objective difference between two decodes of
+    record k's segments that differ, scored under the weights kept with
+    `ops` (fused_ops_with_weights)."""
+    worst = 0.0
+    for s_idx, job in enumerate(origin):
+        if job != k or ops[s_idx] == other_ops[s_idx]:
+            continue
+        (post, lo, g_read, g_ref), b = lane_of[s_idx]
+        f = mea_objective(ops[s_idx], post, lo, g_read, g_ref, b)
+        r = mea_objective(other_ops[s_idx], post, lo, g_read, g_ref, b)
+        worst = max(worst, abs(f - r) / max(abs(f), 1.0))
+    return worst
+
+
 def phase_rel(tmpdir, fq, fa, main_sam):
     """The REL realign path (fused=False: host band arrays, K2, K3, weight
     bands, K4) on the chained records of the corpus's first REL_RECORDS
@@ -887,15 +1131,12 @@ def phase_rel(tmpdir, fq, fa, main_sam):
     REL ops score within 1e-5 (relative) of the fused ops under the fused
     path's own weights (posterior band and gap weights, captured from a
     fused run of the same segments)."""
-    import numpy as np
-
     from marginalign_trna_tpu_torch import pipeline
     from marginalign_trna_tpu_torch.align import realign
     from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
     from marginalign_trna_tpu_torch.io.sam import SamFile
     from marginalign_trna_tpu_torch.models.hmm import PairHmm
-    from marginalign_trna_tpu_torch.ops import _build, mea
-    from marginalign_trna_tpu_torch.ops.wavefront_cuda import _gap_weights
+    from marginalign_trna_tpu_torch.ops import _build
     from marginalign_trna_tpu_torch.utils.seq import encode
 
     sub = os.path.join(tmpdir, "rel_subset.fq")
@@ -922,28 +1163,10 @@ def phase_rel(tmpdir, fq, fa, main_sam):
     check_launches("REL", REL_KERNELS, launches, shapes)
 
     # The fused path on the same segments, its MEA inputs kept per lane.
-    weights = []
-    decode = mea.mea_decode_fused
-
-    def keep(post, comp, dev, accr, accc, gap_gamma, match_gamma):
-        weights.append((post.cpu().numpy(), comp.lo.astype(np.int64),
-                        _gap_weights(accr, gap_gamma).cpu().numpy(),
-                        _gap_weights(accc, gap_gamma).cpu().numpy()))
-        return decode(post, comp, dev, accr, accc, gap_gamma, match_gamma)
-
-    with replaced_everywhere({decode: keep}):
-        fused_ops = realign.realigned_ops_for_jobs(*args, fused=True)
-    lane_of = {}
-    for w, bucket in zip(weights, realign._bucket_jobs(
-            segs, realign.DEFAULT_BAND_WIDTH, 128_000_000)):
-        for b, s_idx in enumerate(bucket):
-            lane_of[s_idx] = (w, b)
+    fused_ops, lane_of = fused_ops_with_weights(segs, hmm, "cuda")
 
     def cigar(ops_of, k):
-        ops = [op for s_idx in range(len(segs)) if origin[s_idx] == k
-               for op in ops_of[s_idx]]
-        return realign.splice_realigned_cigar(
-            jobs[k].record, realign._merge_op_runs(ops)).cigar
+        return record_cigar(jobs[k], origin, ops_of, k)
 
     main = {r.qname: r for r in sam_records(main_sam)}
     same = ties = 0
@@ -961,13 +1184,7 @@ def phase_rel(tmpdir, fq, fa, main_sam):
         if cigar(rel_ops, k) == fused:
             same += 1
             continue
-        for s_idx in range(len(segs)):
-            if origin[s_idx] != k or rel_ops[s_idx] == fused_ops[s_idx]:
-                continue
-            (post, lo, g_read, g_ref), b = lane_of[s_idx]
-            f = mea_objective(fused_ops[s_idx], post, lo, g_read, g_ref, b)
-            r = mea_objective(rel_ops[s_idx], post, lo, g_read, g_ref, b)
-            worst = max(worst, abs(f - r) / max(abs(f), 1.0))
+        worst = max(worst, tie_gap(k, origin, fused_ops, rel_ops, lane_of))
         ties += 1
     log("rel: %d of %d cigars equal to the main phase's (fused path); the "
         "other %d are MEA near-ties, worst objective difference %.3g "
@@ -1119,6 +1336,309 @@ def phase_caller_parity(tmpdir, fa, sam):
             "expectations_max_abs_err": err}
 
 
+@contextlib.contextmanager
+def em_recording():
+    """Inside the block every lockstep E-step's per-trial log-likelihoods
+    are kept (align/em.py `expectation_step_trials`) and the host-side
+    E-step batch preparation (`prepare_em_batches`: band packing and
+    upload) is timed.  Yields {"histories": [[Ntr] per E-step],
+    "prepare_s": [seconds per call]}."""
+    from marginalign_trna_tpu_torch.align import em
+
+    rec = {"histories": [], "prepare_s": []}
+    step, prepare = em.expectation_step_trials, em.prepare_em_batches
+
+    def recorded_step(*args, **kwargs):
+        out = step(*args, **kwargs)
+        rec["histories"].append([float(v) for v in out[3]])
+        return out
+
+    def timed_prepare(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = prepare(*args, **kwargs)
+        for _, dev, _ in out:
+            if dev.xb.is_cuda:
+                import torch
+
+                torch.cuda.synchronize(dev.xb.device)
+        rec["prepare_s"].append(time.perf_counter() - t0)
+        return out
+
+    with replaced_everywhere({step: recorded_step, prepare: timed_prepare}):
+        yield rec
+
+
+def check_em_counts_policy(path, shapes, launches):
+    """The counts pair of every E-step batch is the one ops/fb_counts.py
+    use_ckpt picks for its shape; returns the kernels that must launch."""
+    from marginalign_trna_tpu_torch.ops.fb_counts import use_ckpt
+
+    want = set()
+    for pair, (fwd, bwd) in COUNTS_PAIRS.items():
+        check(launches[fwd] == launches[bwd], "%s: %d %s launches, %d %s"
+              % (path, launches[fwd], fwd, launches[bwd], bwd))
+        for shape in shapes[fwd]:
+            check(use_ckpt(shape[1:], shape[0]) == (pair == "ckpt"),
+                  "%s: the %s pair ran a batch %s that the policy gives "
+                  "the other pair" % (path, pair, shape))
+        if launches[fwd]:
+            want.update((fwd, bwd))
+    check(want, "%s: no counts kernel launched" % path)
+    return sorted(want)
+
+
+def check_histories(path, histories):
+    """Every trial's log-likelihood is non-decreasing over the E-steps
+    (within 1e-5 relative)."""
+    h = [list(col) for col in zip(*histories)]
+    for t, hist in enumerate(h):
+        for a, b in zip(hist, hist[1:]):
+            check(b >= a - 1e-5 * abs(a), "%s: trial %d log-likelihood fell "
+                  "from %.6f to %.6f" % (path, t, a, b))
+    return h
+
+
+def phase_em(tmpdir, fq, fa, truth):
+    """marginAlign --em on the corpus's first EM_READS reads, on the card."""
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import em
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+
+    sub = os.path.join(tmpdir, "em_subset.fq")
+    subset_fastq(fq, sub, EM_READS)
+    out = os.path.join(tmpdir, "em.sam")
+    model = os.path.join(tmpdir, "em.hmm")
+    opts = pipeline.AlignOptions(
+        em=True, output_model_path=model,
+        em_options=em.EmOptions(iterations=EM_ITERATIONS,
+                                output_trial_hmms_path=model))
+    with recording_launches(ALIGN_KERNELS + COUNTS_KERNELS) as (
+            shapes, largest, host), em_recording() as rec:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        stages = pipeline.align(sub, fa, out, opts, device="cuda")
+        total = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    recs = sam_records(out)
+    log("em: %d reads in, %d records out, %.3f s, %.2f reads/s"
+        % (EM_READS, len(recs), total, len(recs) / total))
+    log("em: stages %s; E-step batch preparation (host packing + upload) "
+        "%s s" % (json.dumps(stages), json.dumps(rec["prepare_s"])))
+    log("em: launches %s" % json.dumps(launches))
+    log("em: launch shapes %s" % json.dumps(shapes))
+    log("em: host band packer calls %s" % json.dumps(host))
+    pair = check_em_counts_policy("em", shapes, launches)
+    check_launches("em", ALIGN_KERNELS + pair, launches, shapes)
+    histories = check_histories("em", rec["histories"])
+    log("em: log-likelihood per E-step and trial %s"
+        % json.dumps(rec["histories"]))
+    trained = PairHmm.load(model)            # load() checks the rows
+    for t in range(len(histories)):
+        PairHmm.load("%s.trial%d" % (model, t))
+    for name in ("sv_backward", "mw_forward"):
+        check(largest[name][1] is False, "%s ran its gap-chain branch with "
+              "the trained model" % name)
+    check(len(recs) >= 0.95 * EM_READS, "only %d of %d reads aligned"
+          % (len(recs), EM_READS))
+    placed = sum(
+        r.rname == truth[r.qname][0] and bool(r.flag & 16) == truth[r.qname][1]
+        and abs(r.pos - 1 - truth[r.qname][2]) <= 64 for r in recs)
+    log("em: %d of %d records on their true reference, strand and position; "
+        "trained model likelihood %.4f" % (placed, len(recs),
+                                           trained.likelihood))
+    check(placed >= 0.95 * EM_READS, "too few reads placed correctly")
+    return launches, largest, {
+        "reads_out": len(recs), "total_s": total,
+        "reads_per_s": len(recs) / total, **stages,
+        "prepare_em_batches_s": sum(rec["prepare_s"]),
+        "counts_pair": pair, "counts_shapes": shapes[pair[0]],
+        "likelihood_histories": histories, "placed": placed}
+
+
+def phase_em_kernels(largest):
+    """The four counts kernels on the EM phase's largest E-step batch, then
+    again with its first trial's model alone (a serial trial, rows 24 and
+    28 of the kernel table: a trials axis of 1), each held against its
+    plain version; and S and M on their largest launch with the trained
+    model (generic branch)."""
+    names = ["sv_backward", "mw_forward"] + COUNTS_KERNELS
+    inputs = {"counts": counts_base(largest),
+              "sv_backward": largest["sv_backward"],
+              "mw_forward": largest["mw_forward"]}
+    log("kernels[em] inputs: counts base [Ntr, d1k, Wp, B] %s, S %s, M %s"
+        % ([inputs["counts"][0].shape[0]] + list(inputs["counts"][3].shape),
+           launch_shape("sv_backward", largest["sv_backward"]),
+           launch_shape("mw_forward", largest["mw_forward"])))
+    report = compare_kernels("em", names, inputs, 3)
+    base = inputs["counts"]
+    one = compare_counts(
+        (*(t[:1].contiguous() for t in base[:3]), *base[3:]), 3)
+    for name, serial in one.items():
+        log("kernels[em, one trial] %-15s %s" % (name, json.dumps(serial)))
+        report[name]["one_trial"] = serial
+    return report
+
+
+def phase_em_parity(tmpdir, fq, fa):
+    """EM + realign of the first PARITY_READS reads on the CPU (plain
+    versions) and on the card (kernels); the card's run is the "em_parity"
+    path (launch counts reset before it).  Trial 0 starts from the shipped
+    model (--useDefaultModelAsStart), so the best trial after
+    EM_PARITY_ITERATIONS is a usable aligner.  Trained parameters,
+    likelihood histories, guide records and placements are checked.  The
+    cigars differ now and then: the two trained models differ by float32
+    summation order (~1e-7), and the card's float32 log and exp differ
+    from the CPU's in the last bit now and then; either moves gaps between
+    placements of equal score in exact arithmetic (shifts inside
+    homopolymer runs), which the MEA decode settles by rounding.  So the
+    cigars are held as in the REL phase: realigned on both devices with
+    the card's model, >= 90% identical, and, with the card's model and
+    with each device's own, every cigar that differs an MEA near-tie
+    (within 1e-5 relative under the card's weights)."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import em, realign
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+    from marginalign_trna_tpu_torch.utils.seq import encode
+
+    sub = os.path.join(tmpdir, "em_parity.fq")
+    subset_fastq(fq, sub, PARITY_READS)
+    out, launches = {}, None
+    for dev in ("cpu", "cuda"):
+        guide = os.path.join(tmpdir, "em_guide_%s.sam" % dev)
+        full = os.path.join(tmpdir, "em_full_%s.sam" % dev)
+        model = os.path.join(tmpdir, "em_%s.hmm" % dev)
+        pipeline.align(sub, fa, guide,
+                       pipeline.AlignOptions(no_realign=True, no_chain=True),
+                       device=dev)
+        opts = pipeline.AlignOptions(
+            em=True, output_model_path=model,
+            em_options=em.EmOptions(iterations=EM_PARITY_ITERATIONS,
+                                    use_default_model_as_start=True,
+                                    output_trial_hmms_path=model))
+        with recording_launches(COUNTS_KERNELS) as (shapes, _, _), \
+                em_recording() as rec:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            stages = pipeline.align(sub, fa, full, opts, device=dev)
+            total = time.perf_counter() - t0
+            if dev == "cuda":
+                launches = dict(_build.launch_counts)
+                pair = check_em_counts_policy("em_parity", shapes, launches)
+        models = [PairHmm.load(model)] + [
+            PairHmm.load("%s.trial%d" % (model, t))
+            for t in range(len(rec["histories"][0]))]
+        out[dev] = (sam_records(guide), sam_records(full), models,
+                    np.array(rec["histories"]))
+        log("em parity: device %s %.3f s, stages %s" % (dev, total,
+                                                        json.dumps(stages)))
+    (gc, fc, mc, hc), (gg, fg, mg, hg) = out["cpu"], out["cuda"]
+    check([r.line for r in gc] == [r.line for r in gg],
+          "guide records differ between cpu and cuda")
+    perr = max(max(np.abs(a.transitions - b.transitions).max(),
+                   np.abs(a.emissions - b.emissions).max())
+               for a, b in zip(mc, mg))
+    herr = float((np.abs(hc - hg) / np.abs(hc)).max())
+    check(perr <= 1e-4, "trained parameters differ by %g" % perr)
+    check(herr <= 1e-5, "likelihood histories differ by %g (relative)"
+          % herr)
+    check([(r.qname, r.flag, r.rname, r.pos) for r in fc]
+          == [(r.qname, r.flag, r.rname, r.pos) for r in fg],
+          "EM-realigned records differ in placement between cpu and cuda")
+    # The realignments again, segment by segment: the card with its model
+    # (MEA weights kept), the CPU with the card's model ("one") and with its
+    # own ("own", what each device's run wrote).
+    chained = os.path.join(tmpdir, "em_parity_chained.sam")
+    pipeline.align(sub, fa, chained, pipeline.AlignOptions(no_realign=True),
+                   device="cuda")
+    jobs = realign._jobs_from_sam(SamFile.read(chained),
+                                  get_fasta_dictionary(fa), encode)
+    segs, origin, _ = realign.split_jobs_at_anchors(
+        jobs, realign.DEFAULT_SPLIT_SIZE)
+    card_ops, lane_of = fused_ops_with_weights(segs, mg[0], "cuda")
+    cpu_ops = {
+        model: realign.realigned_ops_for_jobs(segs, hmm, 0.5, 0.0, "cpu")
+        for model, hmm in (("one", mg[0]), ("own", mc[0]))}
+    wrote = {dev: {r.qname: "".join("%d%s" % (ln, op) for op, ln in r.cigar)
+                   for r in recs} for dev, recs in (("cpu", fc),
+                                                    ("cuda", fg))}
+
+    def cigar(ops_of, k):
+        return "".join("%d%s" % (ln, "MIDNSHP=X"[op])
+                       for op, ln in record_cigar(jobs[k], origin, ops_of, k))
+
+    res = {"guide_records": len(gc), "params_max_abs_err": perr,
+           "history_max_rel_err": herr, "cigars": len(jobs),
+           "counts_pair": pair}
+    for model, ops in cpu_ops.items():
+        same, worst = 0, 0.0
+        for k in range(len(jobs)):
+            if cigar(card_ops, k) == cigar(ops, k):
+                same += 1
+            else:
+                worst = max(worst, tie_gap(k, origin, card_ops, ops, lane_of))
+        res[model] = {"cigars_identical": same, "near_ties": len(jobs) - same,
+                      "worst_tie_relative": worst}
+    # The decodes redone here are the ones each device's run wrote.
+    res["redone_as_written"] = {
+        "cuda": sum(cigar(card_ops, k) == wrote["cuda"].get(j.record.qname)
+                    for k, j in enumerate(jobs)),
+        "cpu": sum(cigar(cpu_ops["own"], k) == wrote["cpu"].get(
+            j.record.qname) for k, j in enumerate(jobs))}
+    log("em parity: counts pair on the card %s; trained parameters max abs "
+        "difference %g; likelihood histories max relative difference %g; "
+        "realigned cigars identical, cpu against cuda, with the card's model "
+        "%d of %d, with each device's own %d of %d; the others are MEA "
+        "near-ties, worst objective difference under the card's weights "
+        "%.3g / %.3g (relative); redone decodes as written %s"
+        % (pair, perr, herr, res["one"]["cigars_identical"], len(jobs),
+           res["own"]["cigars_identical"], len(jobs),
+           res["one"]["worst_tie_relative"],
+           res["own"]["worst_tie_relative"],
+           json.dumps(res["redone_as_written"])))
+    check(res["one"]["cigars_identical"] >= 0.90 * len(jobs),
+          "fewer than 90% of cigars identical with one model")
+    for model in cpu_ops:
+        check(res[model]["worst_tie_relative"] <= 1e-5,
+              "a cigar differing between cpu and cuda (%s model) scores %.3g "
+              "(relative) off under the card's weights"
+              % (model, res[model]["worst_tie_relative"]))
+    return launches, res
+
+
+def ptxas_spills(build_log):
+    """{function: (spill store bytes, spill load bytes)} from ptxas -v."""
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn] = (int(m.group(1)), int(m.group(2)))
+            fn = None
+    return out
+
+
+def check_no_counts_spills(build_log):
+    """The counts kernels (csrc/fb_counts.cu) keep their count partials in
+    registers: ptxas must report none of their variants spilling."""
+    spills = {fn: s for fn, s in ptxas_spills(build_log).items()
+              if "counts_" in fn}
+    check(spills, "build: no ptxas report for the counts kernels")
+    bad = {fn: s for fn, s in spills.items() if any(s)}
+    check(not bad, "build: counts kernels spill (stores, loads in bytes): %s"
+          % json.dumps(bad))
+    log("build: %d counts kernel variants, no spills" % len(spills))
+
+
 def card_identity():
     proc = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1148,16 +1668,20 @@ def main() -> int:
         t0 = time.perf_counter()
         _build.load()
         log("build: %.2f s" % (time.perf_counter() - t0))
-        for line in _build.build_log().splitlines():
-            if "Used" in line or "Function properties" in line:
+        build_log = _build.build_log()
+        for line in build_log.splitlines():
+            if ("Used" in line or "Function properties" in line
+                    or "spill" in line):
                 log("build: " + line.strip())
+        check_no_counts_spills(build_log)
 
         cuda = torch.device("cuda")
         compare_kernels("tiny", list(KERNELS), {
             **tiny_inputs(cuda), **tiny_caller_inputs(cuda),
-            **tiny_default_inputs(cuda)}, 3)
+            **tiny_default_inputs(cuda), **tiny_counts_inputs(cuda)}, 3)
         with tempfile.TemporaryDirectory() as tmpdir:
-            fq, fa, sam, launches, largest, main_res = phase_main(tmpdir)
+            fq, fa, truth, sam, launches, largest, main_res = phase_main(
+                tmpdir)
             kernels = phase_kernels("main", ALIGN_KERNELS, largest)
             del largest
             rel_launches, largest, rel_res = phase_rel(tmpdir, fq, fa, sam)
@@ -1169,6 +1693,18 @@ def main() -> int:
             on_caller = phase_kernels("caller", CALLER_KERNELS, largest)
             del largest
             caller_parity = phase_caller_parity(tmpdir, mut_fa, sam)
+            em_launches, largest, em_res = phase_em(tmpdir, fq, fa, truth)
+            on_em = phase_em_kernels(largest)
+            del largest
+            em_parity_launches, em_parity = phase_em_parity(tmpdir, fq, fa)
+        # The policy gives the 256-read E-step batch to the checkpoint
+        # pair and the 32-read one to the stored pair: both pairs ran.
+        for name in COUNTS_PAIRS["ckpt"]:
+            check(em_launches[name] > 0, "%s never launched on the EM path"
+                  % name)
+        for name in COUNTS_PAIRS["stored"]:
+            check(em_parity_launches[name] > 0, "%s never launched on the "
+                  "EM parity run" % name)
         card = card_identity()
     except SmokeFailure as exc:
         print("chip_smoke: FAIL: %s" % exc, file=sys.stderr)
@@ -1179,22 +1715,34 @@ def main() -> int:
     log("parity: %s" % json.dumps(parity))
     log("caller-path: %s" % json.dumps(caller_res))
     log("caller-parity: %s" % json.dumps(caller_parity))
+    log("em-path: %s" % json.dumps(em_res))
+    log("em-parity: %s" % json.dumps(em_parity))
     log(card)
     # A kernel's launches and measurements come from the first path it runs
-    # on (E and S: marginAlign's main path); E's and S's caller-path
-    # measurements ride along under "caller".
-    by_path = {"align": launches, "rel": rel_launches, "call": call_launches}
+    # on (E and S: marginAlign's main path; the checkpoint counts pair: the
+    # EM phase; the stored pair: the card's EM parity run, where the policy
+    # picks it); measurements on later paths ride along under their path
+    # ("caller", "em"), and launches_by_path lists every path that ran it.
+    by_path = {"align": launches, "rel": rel_launches, "call": call_launches,
+               "em": em_launches, "em_parity": em_parity_launches}
+    first = {name: "em_parity" if name in COUNTS_PAIRS["stored"] else
+             KERNELS[name][3][0] for name in KERNELS}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     lines = []
-    for name, (src, rep, _, paths) in KERNELS.items():
-        res = kernels.get(name, on_caller.get(name))
+    for name, (src, rep, _, _) in KERNELS.items():
+        reports = [("align", kernels), ("caller", on_caller), ("em", on_em)]
+        res = next(r[name] for _, r in reports if name in r)
         line = {"name": name, "route": "cuda", "source": src,
-                "replaces": rep, "launches": by_path[paths[0]][name],
+                "replaces": rep, "launches": by_path[first[name]][name],
                 **{k: res[k] for k in keys},
-                "launches_by_path": {p: by_path[p][name] for p in paths}}
-        if name in kernels and name in on_caller:
-            line["caller"] = {k: on_caller[name][k] for k in keys}
+                "launches_by_path": {p: n[name] for p, n in by_path.items()
+                                     if n[name]}}
+        for tag, r in reports:
+            if name in r and r[name] is not res:
+                line[tag] = {k: r[name][k] for k in keys}
+        if "one_trial" in res:
+            line["one_trial"] = res["one_trial"]
         lines.append(line)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

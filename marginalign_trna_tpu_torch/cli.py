@@ -1,7 +1,7 @@
 """Command-line entry point of the PyTorch port.
 
     python -m marginalign_trna_tpu_torch marginAlign reads.fq ref.fa out.sam \
-        [--device cuda|cpu]
+        [--em [--outputModel m.hmm] [EM options]] [--device cuda|cpu]
     python -m marginalign_trna_tpu_torch marginCaller in.sam ref.fa out.vcf \
         [--device cuda|cpu]
 
@@ -29,6 +29,7 @@ def _add_ignored_jobtree_options(parser: argparse.ArgumentParser) -> None:
 
 
 def margin_align_main(argv=None) -> int:
+    from .align.em import EmOptions
     from .models.hmm import PairHmm
     from .pipeline import AlignOptions, align
 
@@ -44,7 +45,7 @@ def margin_align_main(argv=None) -> int:
                    help="torch device: cuda (default; the CUDA kernels) or "
                         "cpu (their plain PyTorch versions)")
     p.add_argument("--em", action="store_true",
-                   help="Run expectation maximisation (EM; not ported yet)")
+                   help="Run expectation maximisation (EM)")
     p.add_argument("--bwa", action="store_true",
                    help="Use the BWA-style seed preset instead of LAST-style")
     p.add_argument("--minimap2", action="store_true",
@@ -61,26 +62,38 @@ def margin_align_main(argv=None) -> int:
                    help="Input HMM model file")
     p.add_argument("--outputModel", default=None,
                    help="Where to write the EM-trained model")
-    # EM options (cPecanEm.Options surface, marginAlign.py:38-53): accepted
-    # so command lines stay valid; --em itself is refused below.
+    # EM options (cPecanEm.Options surface, marginAlign.py:38-53).
     p.add_argument("--modelType", default="fiveStateAsymmetric",
                    choices=["fiveState", "fiveStateAsymmetric", "threeState",
-                            "threeStateAsymmetric"])
+                            "threeStateAsymmetric"],
+                   help="HMM model family for EM training")
     p.add_argument("--trials", type=int, default=3)
     p.add_argument("--iterations", type=int, default=100)
     p.add_argument("--noRandomStart", action="store_true")
     p.add_argument("--maxAlignmentLengthToSample", type=int,
                    default=50_000_000)
-    p.add_argument("--emCheckpoint", default=None)
-    p.add_argument("--outputTrialHmms", action="store_true", default=True)
+    p.add_argument("--emCheckpoint", default=None,
+                   help="Checkpoint file for EM training (resume-capable)")
+    # The reference defaults outputTrialHmms ON (marginAlign.py:43).
+    p.add_argument("--outputTrialHmms", action="store_true", default=True,
+                   help="Write each EM trial's model to <outputModel>.trialN "
+                        "(default on, like the reference)")
     p.add_argument("--noOutputTrialHmms", dest="outputTrialHmms",
-                   action="store_false")
-    p.add_argument("--useDefaultModelAsStart", action="store_true")
-    p.add_argument("--updateTheBand", action="store_true")
-    p.add_argument("--tieEmissions", action="store_true")
+                   action="store_false",
+                   help="Don't write per-trial EM models")
+    p.add_argument("--useDefaultModelAsStart", action="store_true",
+                   help="Start EM trial 0 from the input model instead of "
+                        "a random start")
+    p.add_argument("--updateTheBand", action="store_true",
+                   help="Re-derive the EM band each iteration (not ported "
+                        "yet: refused)")
+    p.add_argument("--tieEmissions", action="store_true",
+                   help="Tie short/long gap-state emissions during EM")
     p.add_argument("--setJukesCantorStartingEmissions", type=float,
-                   default=None, metavar="RATE")
-    p.add_argument("--outputXMLModelFile", default=None)
+                   default=None, metavar="RATE",
+                   help="Start EM emissions from a Jukes-Cantor matrix")
+    p.add_argument("--outputXMLModelFile", default=None,
+                   help="Also write the trained model as XML")
     p.add_argument("--maxAlignmentLengthPerJob", type=int, default=700_000,
                    help="Accepted for compatibility; batching is automatic")
     p.add_argument("--splitMatrixBiggerThanThis", type=int, default=3000,
@@ -91,6 +104,20 @@ def margin_align_main(argv=None) -> int:
     args = p.parse_args(argv)
 
     preset = "bwa" if args.bwa else ("minimap2" if args.minimap2 else "last")
+    em_options = EmOptions(
+        model_type=args.modelType,
+        trials=args.trials,
+        iterations=args.iterations,
+        random_start=not args.noRandomStart,
+        max_alignment_length_to_sample=args.maxAlignmentLengthToSample,
+        tie_emissions=args.tieEmissions,
+        output_trial_hmms_path=(
+            args.outputModel if args.outputTrialHmms else None
+        ),
+        jukes_cantor_start=args.setJukesCantorStartingEmissions,
+        use_default_model_as_start=args.useDefaultModelAsStart,
+        update_band_every=1 if args.updateTheBand else 0,
+    )
     options = AlignOptions(
         no_chain=args.noChain,
         no_realign=args.noRealign,
@@ -100,6 +127,11 @@ def margin_align_main(argv=None) -> int:
         mapper_preset=preset,
         input_model=None if args.noRealign else PairHmm.load(args.inputModel),
         split_size=args.splitMatrixBiggerThanThis,
+        output_model_path=args.outputModel,
+        output_xml_model_path=args.outputXMLModelFile,
+        em_options=em_options,
+        em_checkpoint_path=args.emCheckpoint,
+        em_log_fn=lambda line: print(line, file=sys.stderr),
     )
     align(args.inputFastqFile, args.referenceFastaFile, args.outputSamFile,
           options, device=args.device)

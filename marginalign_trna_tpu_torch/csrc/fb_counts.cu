@@ -1,0 +1,691 @@
+// Baum-Welch expected counts (the EM E-step) over banded 5-state pair-HMM
+// batches, for models given as run-time tables with generic (not
+// necessarily flat) gap emissions, one model per EM trial.
+//
+// Replaces the TPU kernels of marginalign_trna_tpu/ops/fb_pallas_counts.py
+// (single-problem lanes; a serial trial is Ntr = 1):
+//   counts_fwd_all   <- `_fwd_all_impl` (`_counts_pallas_jit` :360 and
+//                       `_counts_pallas_trials_jit` :924): the scaled forward
+//                       storing all five states of every diagonal (f_all),
+//                       the cumulative log-scale lsf and the terminal sum;
+//   counts_bwd       <- `_bwd_counts_impl` (:397, :974): the scaled backward
+//                       writing the posterior match band and accumulating per
+//                       lane the 25 transition and 20 gap-by-code partials;
+//   counts_fwd_ckpt  <- `_fwd_ckpt_impl` (`_counts_ckpt_jit` :1659,
+//                       `_counts_ckpt_trials_jit` :1796): the same forward,
+//                       storing only each 8-diagonal block's last two
+//                       frontiers and scale state;
+//   counts_bwd_ckpt  <- `_bwd_counts_ckpt_impl` (:1704, :1844): per block,
+//                       the forward recomputed from the previous block's
+//                       checkpoint into shared memory, then the backward of
+//                       counts_bwd with 25 match partials and no posterior.
+//
+// Layout: as the other wavefront kernels (common.cuh), one block owns L
+// consecutive lanes (threadIdx.x) and all Wp band rows (8 row threads of
+// RPT rows each) of one trial (blockIdx.y): the TPU's sequential trials
+// grid axis runs side by side here.  The block walks the diagonals itself;
+// a frontier crosses shared memory once per diagonal, mixed before the row
+// shift, with one barrier per diagonal (two on a rescale).  The TPU
+// backward's scratch delay lines of emissions and s1 are gone: each thread
+// computes the emissions of its own cell and publishes e * b, and s1 is
+// read at d directly.  The model (T, Ematch, Egap of the block's trial)
+// sits in shared memory.
+//
+// Arithmetic: the plain versions' (ops/fb_counts_cuda.py) operation for
+// operation, built without multiply-add contraction (-fmad=false), so
+// f_all, lsf, the terminal sums, the checkpoints and the posterior band
+// round identically.  The count partials are summed per thread over its
+// rows and diagonals in registers and over the row threads once at the
+// end; that order differs from the plain versions' (rows first, then
+// diagonals), so the counts agree to float32 summation error.
+//
+// What bounds them on an H100: counts_fwd_all writes 20 B per cell and
+// counts_bwd reads 20 B and writes 4 B, so a full card would be memory
+// bound; counts_fwd_ckpt writes ~5 B per cell; counts_bwd_ckpt does a
+// forward again, the backward and ~100 count operations per cell and is
+// operation bound.  At the EM batches (8192 lanes, 3 trials: 768 blocks of
+// 32 lanes) the chain of dependent diagonals, a barrier each, bounds them
+// first.  The 120 KB of recomputed frontiers of counts_bwd_ckpt live in
+// dynamic shared memory (195 KB a block at Wp 24: one block per SM); the
+// count accumulators (45, or 70 with the match counts) live in registers,
+// which is why a block has 256 threads.
+#include "common.cuh"
+
+namespace {
+
+constexpr int NS = 5;
+constexpr int ROW_THREADS = 8;   // threadIdx.y extent at most: Wp <= 8 * RPT
+constexpr int MAX_THREADS = 256;
+constexpr int TAB = 80;          // T, Ematch, Egap (75 floats), padded
+constexpr int K = 8;             // diagonals per rescale period / block
+
+struct Dims {
+  int L, TY, lane, ty, b, t, Wp, B, plane;
+  bool live;
+};
+
+__device__ __forceinline__ Dims dims(int Wp, int B) {
+  Dims g;
+  g.L = blockDim.x;
+  g.TY = blockDim.y;
+  g.lane = threadIdx.x;
+  g.ty = threadIdx.y;
+  g.b = blockIdx.x * g.L + g.lane;
+  g.t = blockIdx.y;
+  g.Wp = Wp;
+  g.B = B;
+  g.plane = Wp * g.L;
+  g.live = g.b < B;
+  return g;
+}
+
+// tab[0:25] = T, tab[25:50] = Ematch, tab[50:75] = Egap of trial t.
+__device__ __forceinline__ void load_tables(float* tab, const float* T,
+                                            const float* Em, const float* Eg,
+                                            const Dims& g) {
+  for (int i = g.ty * g.L + g.lane; i < 75; i += g.TY * g.L) {
+    const float* src = i < 25 ? T : (i < 50 ? Em : Eg);
+    tab[i] = src[g.t * 25 + i % 25];
+  }
+}
+
+// Ematch[x][y] / Egap[s][c]; 0 for a code outside 0..4 (the TPU kernels'
+// one-hot sums).
+__device__ __forceinline__ float e_match(const float* tab, int x, int y) {
+  return (x >= 0 && x < 5 && y >= 0 && y < 5) ? tab[25 + x * 5 + y] : 0.f;
+}
+__device__ __forceinline__ float e_gap(const float* tab, int s, int c) {
+  return (c >= 0 && c < 5) ? tab[50 + s * 5 + c] : 0.f;
+}
+
+// Per-lane rescale of a frontier by its band max (all threads of the block
+// must call it); returns the factor c, the frontier is multiplied by 1 / c.
+template <int RPT>
+__device__ __forceinline__ float rescale(float (&v)[RPT][5], float* shR,
+                                         const Dims& g) {
+  const float m = mk::band_max<RPT>(v, shR, g.Wp, g.L, g.lane, g.ty, g.TY);
+  const float c = m > 0.f ? m : 1.f;
+  const float inv = 1.f / c;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) v[r][s] *= inv;
+  return c;
+}
+
+// Mixes of the forward frontier f at diagonal d: sum_s f[s] * T[s][t], the
+// match target (t = 0) into fM[(d + 2) % 3] for diagonal d + 2 and, with
+// GAPS, the gap targets into fG[(d + 1) & 1] for diagonal d + 1.
+template <int RPT, bool GAPS>
+__device__ __forceinline__ void publish_mixes(const float (&f)[RPT][5],
+                                              const float* tab, float* fG,
+                                              float* fM, int d,
+                                              const Dims& g) {
+  const int gout = ((d + 1) & 1) * 4 * g.plane;
+  const int mout = ((d + 2) % 3) * g.plane;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int k = g.ty + r * g.TY;
+    if (k >= g.Wp) continue;
+    const int i = k * g.L + g.lane;
+#pragma unroll
+    for (int t = 0; t < (GAPS ? NS : 1); ++t) {
+      float acc = f[r][0] * tab[t];
+#pragma unroll
+      for (int s = 1; s < NS; ++s) acc = acc + f[r][s] * tab[s * 5 + t];
+      if (t == 0)
+        fM[mout + i] = acc;
+      else
+        fG[gout + (t - 1) * g.plane + i] = acc;
+    }
+  }
+}
+
+// One forward diagonal d >= 1: f becomes the unscaled frontier of d (with
+// KEEP_PREV, fp the frontier of d - 1).  t1 = s1[d], t2 = s1[d] + s1[d-1];
+// cprev divides the match mix on the diagonal after a rescale.
+template <int RPT, bool KEEP_PREV>
+__device__ __forceinline__ void fwd_cells(
+    float (&f)[RPT][5], float (&fp)[RPT][5], const float* tab,
+    const float* fG, const float* fM, const int8_t* __restrict__ xb,
+    const int8_t* __restrict__ yb, const uint8_t* __restrict__ valid, int d,
+    int t1, int t2, float cprev, const Dims& g) {
+  const int gin = (d & 1) * 4 * g.plane, min_ = (d % 3) * g.plane;
+  const bool divide = d % K == 0;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int k = g.ty + r * g.TY;
+    if (k >= g.Wp) continue;
+    int x = 0, y = 0;
+    float v = 0.f;
+    if (g.live) {
+      const size_t c = mk::cell(d, k, g.b, g.Wp, g.B);
+      x = xb[c];
+      y = yb[c];
+      v = (float)valid[c];
+    }
+    float mm = fM[min_ + mk::wrap(k + t2 - 1, g.Wp) * g.L + g.lane];
+    if (divide) mm = mm / cprev;
+    const int kx = gin + mk::wrap(k + t1, g.Wp) * g.L + g.lane;
+    const int ky = gin + mk::wrap(k + t1 - 1, g.Wp) * g.L + g.lane;
+    if (KEEP_PREV) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) fp[r][s] = f[r][s];
+    }
+    f[r][0] = (e_match(tab, x, y) * mm) * v;
+    f[r][1] = (e_gap(tab, 1, x) * fG[kx]) * v;
+    f[r][2] = (e_gap(tab, 2, y) * fG[g.plane + ky]) * v;
+    f[r][3] = (e_gap(tab, 3, x) * fG[2 * g.plane + kx]) * v;
+    f[r][4] = (e_gap(tab, 4, y) * fG[3 * g.plane + ky]) * v;
+  }
+}
+
+// The uniform start distribution (1/5 at row 0) as the frontier of d = 0.
+template <int RPT>
+__device__ __forceinline__ void start_frontier(float (&f)[RPT][5],
+                                               const Dims& g) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int k = g.ty + r * g.TY;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) f[r][s] = k == 0 ? 0.2f : 0.f;
+  }
+}
+
+__device__ __forceinline__ float sum5(const float (&v)[5]) {
+  return (((v[0] + v[1]) + v[2]) + v[3]) + v[4];
+}
+
+template <int RPT, bool CKPT>
+__global__ void __launch_bounds__(MAX_THREADS)
+    counts_fwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
+                      const float* __restrict__ Eg,
+                      const int8_t* __restrict__ xb,
+                      const int8_t* __restrict__ yb,
+                      const uint8_t* __restrict__ valid,
+                      const int32_t* __restrict__ s1,
+                      const int32_t* __restrict__ fink, int d1k, int Wp,
+                      int B, float* __restrict__ band,
+                      float* __restrict__ cs, float* __restrict__ lsf,
+                      float* __restrict__ term) {
+  extern __shared__ float smem[];
+  const Dims g = dims(Wp, B);
+  float* fG = smem;                // [2][4][Wp][L] gap-target mixes of d-1
+  float* fM = fG + 8 * g.plane;    // [3][Wp][L] match mixes of d-2
+  float* shR = fM + 3 * g.plane;   // [Wp][L] row maxima
+  float* tab = shR + g.plane;      // the trial's model
+  for (int i = g.ty * g.L + g.lane; i < 11 * g.plane; i += g.TY * g.L)
+    smem[i] = 0.f;
+  load_tables(tab, T, Em, Eg, g);
+  const int fk = g.live ? fink[g.b] : -1;
+  const size_t t0 = (size_t)g.t * d1k;  // the trial's first diagonal
+  const int G = d1k / K;
+
+  float f[RPT][5], fp[RPT][5];
+  start_frontier<RPT>(f, g);
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+#pragma unroll
+    for (int s = 0; s < NS; ++s) fp[r][s] = 0.f;
+  __syncthreads();
+  // d = 0 is pure initialisation.
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int k = g.ty + r * g.TY;
+    if (k >= Wp || !g.live) continue;
+    if constexpr (!CKPT) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        band[((t0 * NS + s) * Wp + k) * B + g.b] = f[r][s];
+    }
+    if (k == fk) term[t0 * B + g.b] = sum5(f[r]);
+  }
+  if (g.live && g.ty == 0) lsf[t0 * B + g.b] = 0.f;
+  publish_mixes<RPT, true>(f, tab, fG, fM, 0, g);
+  float ls = 0.f, cprev = 1.f;
+  int sprev = g.live ? s1[g.b] : 0;
+  __syncthreads();
+
+  for (int d = 1; d < d1k; ++d) {
+    const int t1 = g.live ? s1[(size_t)d * B + g.b] : 0;
+    const int t2 = t1 + sprev;
+    sprev = t1;
+    fwd_cells<RPT, CKPT>(f, fp, tab, fG, fM, xb, yb, valid, d, t1, t2,
+                         cprev, g);
+    float tv = 0.f;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      if (g.ty + r * g.TY == fk) tv = sum5(f[r]);
+    if (d % K == K - 1) {
+      const float c = rescale<RPT>(f, shR, g);
+      tv = tv * (1.f / c);
+      ls += logf(c);
+      cprev = c;
+    }
+    if (g.live) {
+      const size_t tdb = (t0 + d) * B + g.b;
+      if (g.ty == 0) lsf[tdb] = ls;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int k = g.ty + r * g.TY;
+        if (k >= Wp) continue;
+        if (k == fk) term[tdb] = tv;
+        if constexpr (!CKPT) {
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            band[(((t0 + d) * NS + s) * Wp + k) * B + g.b] = f[r][s];
+        } else if (d % K == K - 1) {
+          const size_t blk = (size_t)g.t * G + d / K;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            band[((blk * 2 * NS + s) * Wp + k) * B + g.b] = f[r][s];
+            band[((blk * 2 * NS + NS + s) * Wp + k) * B + g.b] = fp[r][s];
+          }
+        }
+      }
+      if (CKPT && d % K == K - 1 && g.ty == 0) {
+        const size_t blk = (size_t)g.t * G + d / K;
+        cs[(blk * 4 + 0) * B + g.b] = ls;
+        cs[(blk * 4 + 1) * B + g.b] = cprev;
+        cs[(blk * 4 + 2) * B + g.b] = (float)sprev;
+        cs[(blk * 4 + 3) * B + g.b] = 0.f;
+      }
+    }
+    publish_mixes<RPT, true>(f, tab, fG, fM, d, g);
+    __syncthreads();
+  }
+}
+
+// Per-thread count partials -> per-lane sums over the row threads (in
+// row-thread order), written to out[t][j][b].
+template <int N>
+__device__ __forceinline__ void reduce_rows(const float (&acc)[N], float* shR,
+                                            float* __restrict__ out,
+                                            const Dims& g) {
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    __syncthreads();
+    shR[g.ty * g.L + g.lane] = acc[j];
+    __syncthreads();
+    if (g.ty == 0 && g.live) {
+      float s = shR[g.lane];
+      for (int i = 1; i < g.TY; ++i) s += shR[i * g.L + g.lane];
+      out[((size_t)g.t * N + j) * g.B + g.b] = s;
+    }
+  }
+}
+
+template <int RPT, bool CKPT>
+__global__ void __launch_bounds__(MAX_THREADS)
+    counts_bwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
+                      const float* __restrict__ Eg,
+                      const float* __restrict__ band,
+                      const float* __restrict__ lsf_cs,
+                      const int8_t* __restrict__ xb,
+                      const int8_t* __restrict__ yb,
+                      const uint8_t* __restrict__ valid,
+                      const int32_t* __restrict__ s1,
+                      const int32_t* __restrict__ fink,
+                      const int32_t* __restrict__ find,
+                      const float* __restrict__ logZ, int d1k, int Wp, int B,
+                      float* __restrict__ post, float* __restrict__ tcp,
+                      float* __restrict__ egp, float* __restrict__ mcp) {
+  extern __shared__ float smem[];
+  const Dims g = dims(Wp, B);
+  const int plane = g.plane;
+  float* shG = smem;               // [2][4][Wp][L] e_s * b_s of d+1
+  float* shP = shG + 8 * plane;    // [3][Wp][L] e_M * b_M of d+2
+  float* shR = shP + 3 * plane;    // [Wp][L] row maxima, reductions
+  float* tab = shR + plane;        // the trial's model
+  // Recompute buffers (CKPT only): forward mixes, the block's frontiers
+  // [8][5][Wp][L] and their log-scales [8][L].
+  float* fG = tab + TAB;
+  float* fM = fG + 8 * plane;
+  float* fs = fM + 3 * plane;
+  float* lsb = fs + K * NS * plane;
+  for (int i = g.ty * g.L + g.lane; i < 11 * plane; i += g.TY * g.L)
+    smem[i] = 0.f;
+  load_tables(tab, T, Em, Eg, g);
+  const int fk = g.live ? fink[g.b] : -1;
+  const int fd = g.live ? find[g.b] : -1;
+  const float lz = g.live ? logZ[(size_t)g.t * B + g.b] : 0.f;
+  const int G = d1k / K;
+  float bls = 0.f, cprev = 1.f;
+  int sh1 = 0, sh2 = 0;  // s1 at d+1 and d+2
+  float tca[25], ega[20], mca[CKPT ? 25 : 1];
+#pragma unroll
+  for (int j = 0; j < 25; ++j) tca[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < 20; ++j) ega[j] = 0.f;
+#pragma unroll
+  for (int j = 0; j < (CKPT ? 25 : 1); ++j) mca[j] = 0.f;
+  __syncthreads();
+
+  for (int blk = G - 1; blk >= 0; --blk) {
+    if constexpr (CKPT) {
+      // Recompute this block's forward from the previous block's
+      // checkpoint (block 0: from the start distribution at d = 0).
+      float f[RPT][5], fp[RPT][5];
+      float lsF, cprevF;
+      int sprev, kb0;
+      if (blk == 0) {
+        start_frontier<RPT>(f, g);
+        lsF = 0.f;
+        cprevF = 1.f;
+        sprev = g.live ? s1[g.b] : 0;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int k = g.ty + r * g.TY;
+          if (k >= Wp) continue;
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            fs[(s * Wp + k) * g.L + g.lane] = f[r][s];
+          fM[plane + k * g.L + g.lane] = 0.f;  // d = 1 has no d-2 term
+        }
+        if (g.ty == 0) lsb[g.lane] = 0.f;
+        publish_mixes<RPT, true>(f, tab, fG, fM, 0, g);
+        kb0 = 1;
+      } else {
+        const size_t ck = (size_t)g.t * G + blk - 1;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int k = g.ty + r * g.TY;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            const bool ok = g.live && k < Wp;
+            f[r][s] = ok ? band[((ck * 2 * NS + s) * Wp + k) * B + g.b] : 0.f;
+            fp[r][s] =
+                ok ? band[((ck * 2 * NS + NS + s) * Wp + k) * B + g.b] : 0.f;
+          }
+        }
+        lsF = g.live ? lsf_cs[(ck * 4 + 0) * B + g.b] : 0.f;
+        cprevF = g.live ? lsf_cs[(ck * 4 + 1) * B + g.b] : 1.f;
+        sprev = g.live ? (int)lsf_cs[(ck * 4 + 2) * B + g.b] : 0;
+        publish_mixes<RPT, false>(fp, tab, fG, fM, blk * K - 2, g);
+        publish_mixes<RPT, true>(f, tab, fG, fM, blk * K - 1, g);
+        kb0 = 0;
+      }
+      __syncthreads();
+      for (int kb = kb0; kb < K; ++kb) {
+        const int d = blk * K + kb;
+        const int t1 = g.live ? s1[(size_t)d * B + g.b] : 0;
+        const int t2 = t1 + sprev;
+        sprev = t1;
+        fwd_cells<RPT, false>(f, fp, tab, fG, fM, xb, yb, valid, d, t1, t2,
+                              cprevF, g);
+        if (kb == K - 1) {
+          const float c = rescale<RPT>(f, shR, g);
+          lsF += logf(c);
+          cprevF = c;
+        }
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          const int k = g.ty + r * g.TY;
+          if (k >= Wp) continue;
+#pragma unroll
+          for (int s = 0; s < NS; ++s)
+            fs[((kb * NS + s) * Wp + k) * g.L + g.lane] = f[r][s];
+        }
+        if (g.ty == 0) lsb[kb * g.L + g.lane] = lsF;
+        publish_mixes<RPT, true>(f, tab, fG, fM, d, g);
+        __syncthreads();
+      }
+    }
+
+    for (int kb = K - 1; kb >= 0; --kb) {
+      const int d = blk * K + kb;
+      const int s1n = sh1, s2n = sh1 + sh2;
+      const int gin = ((d + 1) & 1) * 4 * plane, gout = (d & 1) * 4 * plane;
+      const int pin = ((d + 2) % 3) * plane, pout = (d % 3) * plane;
+      const bool divide = d % K == K - 1;
+      float nb[RPT][5], q[RPT][5];
+      int xs[RPT], ys[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int k = g.ty + r * g.TY;
+        xs[r] = ys[r] = 0;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) nb[r][s] = q[r][s] = 0.f;
+        if (k >= Wp) continue;
+        float v = 0.f;
+        if (g.live) {
+          const size_t c = mk::cell(d, k, g.b, Wp, B);
+          xs[r] = xb[c];
+          ys[r] = yb[c];
+          v = (float)valid[c];
+        }
+        const int kx = gin + mk::wrap(k - s1n, Wp) * g.L + g.lane;
+        const int ky = gin + mk::wrap(k + 1 - s1n, Wp) * g.L + g.lane;
+        q[r][0] = shP[pin + mk::wrap(k + 1 - s2n, Wp) * g.L + g.lane];
+        if (divide) q[r][0] = q[r][0] / cprev;
+        q[r][1] = shG[kx];
+        q[r][2] = shG[plane + ky];
+        q[r][3] = shG[2 * plane + kx];
+        q[r][4] = shG[3 * plane + ky];
+        const float inj = (d == fd && k == fk) ? 1.f : 0.f;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          float acc = q[r][0] * tab[s * 5];
+#pragma unroll
+          for (int u = 1; u < NS; ++u) acc = acc + q[r][u] * tab[s * 5 + u];
+          nb[r][s] = (acc + inj) * v;
+        }
+      }
+      sh2 = sh1;
+      sh1 = g.live ? s1[(size_t)d * B + g.b] : 0;
+      float lsd;
+      if constexpr (CKPT)
+        lsd = lsb[kb * g.L + g.lane];
+      else
+        lsd = g.live ? lsf_cs[((size_t)g.t * d1k + d) * B + g.b] : 0.f;
+      float alpha0, alpha1;
+      if (d % K == 0) {
+        const float c = rescale<RPT>(nb, shR, g);
+        const float inv = 1.f / c;
+        bls += logf(c);
+        cprev = c;
+        alpha0 = expf(lsd + bls - lz);
+        alpha1 = alpha0 * inv;
+      } else {
+        alpha0 = expf(lsd + bls - lz);
+        alpha1 = alpha0;
+      }
+      const float a0n = alpha0 * (d == 0 ? 0.f : 1.f);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int k = g.ty + r * g.TY;
+        if (k >= Wp) continue;
+        const int x = xs[r], y = ys[r];
+        float fv[5];
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          if constexpr (CKPT)
+            fv[s] = fs[((kb * NS + s) * Wp + k) * g.L + g.lane];
+          else
+            fv[s] = g.live
+                        ? band[((((size_t)g.t * d1k + d) * NS + s) * Wp + k) *
+                                   B + g.b]
+                        : 0.f;
+        }
+        if constexpr (!CKPT) {
+          if (g.live)
+            post[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b] =
+                (fv[0] * nb[r][0]) * alpha0;
+        }
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const float fa = fv[s] * alpha1;
+#pragma unroll
+          for (int u = 0; u < NS; ++u) tca[s * 5 + u] += fa * q[r][u];
+        }
+#pragma unroll
+        for (int s = 1; s < NS; ++s) {
+          const float gam = (fv[s] * nb[r][s]) * a0n;
+          const int code = (s & 1) ? x : y;  // states 1, 3 emit the ref base
+#pragma unroll
+          for (int c = 0; c < 5; ++c)
+            ega[(s - 1) * 5 + c] += code == c ? gam : 0.f;
+        }
+        if constexpr (CKPT) {
+          const float gm = (fv[0] * nb[r][0]) * a0n;
+#pragma unroll
+          for (int a = 0; a < 5; ++a)
+#pragma unroll
+            for (int c = 0; c < 5; ++c)
+              mca[a * 5 + c] += (x == a && y == c) ? gm : 0.f;
+        }
+        const int i = k * g.L + g.lane;
+        shP[pout + i] = e_match(tab, x, y) * nb[r][0];
+        shG[gout + i] = e_gap(tab, 1, x) * nb[r][1];
+        shG[gout + plane + i] = e_gap(tab, 2, y) * nb[r][2];
+        shG[gout + 2 * plane + i] = e_gap(tab, 3, x) * nb[r][3];
+        shG[gout + 3 * plane + i] = e_gap(tab, 4, y) * nb[r][4];
+      }
+      __syncthreads();
+    }
+  }
+  reduce_rows<25>(tca, shR, tcp, g);
+  reduce_rows<20>(ega, shR, egp, g);
+  if constexpr (CKPT) reduce_rows<25>(mca, shR, mcp, g);
+}
+
+// Floats of dynamic shared memory.
+size_t fwd_smem(int Wp, int L) { return (size_t)12 * Wp * L + TAB; }
+size_t bwd_smem(int Wp, int L, bool ckpt) {
+  return ckpt ? (size_t)(12 + 11 + K * NS) * Wp * L + TAB + K * L
+              : (size_t)12 * Wp * L + TAB;
+}
+
+// Lanes per block: 32, halved while the shared memory would not fit.
+template <typename F>
+int lanes_for(F floats) {
+  int L = mk::LANES;
+  while (L > 1 && floats(L) * sizeof(float) > 232448) L /= 2;
+  return L;
+}
+
+template <int RPT, bool CKPT>
+cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
+                    const int8_t* xb, const int8_t* yb, const uint8_t* valid,
+                    const int32_t* s1, const int32_t* fink, int ntr, int d1k,
+                    int Wp, int B, float* band, float* cs, float* lsf,
+                    float* term, cudaStream_t stream) {
+  const int L = lanes_for([&](int l) { return fwd_smem(Wp, l); });
+  const size_t bytes = fwd_smem(Wp, L) * sizeof(float);
+  cudaError_t err =
+      mk::allow_smem((const void*)counts_fwd_kernel<RPT, CKPT>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
+  counts_fwd_kernel<RPT, CKPT><<<grid, block, bytes, stream>>>(
+      T, Em, Eg, xb, yb, valid, s1, fink, d1k, Wp, B, band, cs, lsf, term);
+  return cudaGetLastError();
+}
+
+template <int RPT, bool CKPT>
+cudaError_t run_bwd(const float* T, const float* Em, const float* Eg,
+                    const float* band, const float* lsf_cs, const int8_t* xb,
+                    const int8_t* yb, const uint8_t* valid, const int32_t* s1,
+                    const int32_t* fink, const int32_t* find,
+                    const float* logZ, int ntr, int d1k, int Wp, int B,
+                    float* post, float* tcp, float* egp, float* mcp,
+                    cudaStream_t stream) {
+  const int L = lanes_for([&](int l) { return bwd_smem(Wp, l, CKPT); });
+  const size_t bytes = bwd_smem(Wp, L, CKPT) * sizeof(float);
+  cudaError_t err =
+      mk::allow_smem((const void*)counts_bwd_kernel<RPT, CKPT>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
+  counts_bwd_kernel<RPT, CKPT><<<grid, block, bytes, stream>>>(
+      T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, d1k, Wp,
+      B, post, tcp, egp, mcp);
+  return cudaGetLastError();
+}
+
+// Band rows per thread: Wp / 8 rounded up, at least 2 (a thread of one
+// row spilled its 70 count accumulators to local memory).
+int rows_per_thread(int Wp) {
+  const int rpt = (Wp + ROW_THREADS - 1) / ROW_THREADS;
+  return rpt < 2 ? 2 : rpt;
+}
+
+bool bad_shape(int ntr, int d1k, int Wp, int B) {
+  return ntr < 1 || B < 1 || d1k < K || d1k % K != 0 || Wp < 1 ||
+         Wp > ROW_THREADS * 4;
+}
+
+template <bool CKPT>
+int fwd_launch(const float* T, const float* Em, const float* Eg,
+               const int8_t* xb, const int8_t* yb, const uint8_t* valid,
+               const int32_t* s1, const int32_t* fink, int ntr, int d1k,
+               int Wp, int B, float* band, float* cs, float* lsf,
+               float* term, void* stream) {
+  if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (rows_per_thread(Wp)) {
+    case 2: return run_fwd<2, CKPT>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    case 3: return run_fwd<3, CKPT>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    default: return run_fwd<4, CKPT>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+  }
+}
+
+template <bool CKPT>
+int bwd_launch(const float* T, const float* Em, const float* Eg,
+               const float* band, const float* lsf_cs, const int8_t* xb,
+               const int8_t* yb, const uint8_t* valid, const int32_t* s1,
+               const int32_t* fink, const int32_t* find, const float* logZ,
+               int ntr, int d1k, int Wp, int B, float* post, float* tcp,
+               float* egp, float* mcp, void* stream) {
+  if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (rows_per_thread(Wp)) {
+    case 2: return run_bwd<2, CKPT>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+    case 3: return run_bwd<3, CKPT>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+    default: return run_bwd<4, CKPT>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+  }
+}
+
+}  // namespace
+
+// Plain C entry points (loaded with ctypes); every pointer is a device
+// pointer.  T, Em, Eg are [ntr, 5, 5]; the streams [d1k, Wp, B] and s1
+// [d1k, B] are shared by the trials; outputs carry the trials axis first.
+// `cs` is unused (may be 0) by counts_fwd_all, `post` by counts_bwd_ckpt
+// and `mcp` by counts_bwd.  Each returns a cudaError_t code.
+extern "C" int counts_fwd_all_launch(
+    const float* T, const float* Em, const float* Eg, const int8_t* xb,
+    const int8_t* yb, const uint8_t* valid, const int32_t* s1,
+    const int32_t* fink, int ntr, int d1k, int Wp, int B, float* f_all,
+    float* cs, float* lsf, float* term, void* stream) {
+  return fwd_launch<false>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp,
+                           B, f_all, cs, lsf, term, stream);
+}
+
+extern "C" int counts_fwd_ckpt_launch(
+    const float* T, const float* Em, const float* Eg, const int8_t* xb,
+    const int8_t* yb, const uint8_t* valid, const int32_t* s1,
+    const int32_t* fink, int ntr, int d1k, int Wp, int B, float* ckpt,
+    float* cs, float* lsf, float* term, void* stream) {
+  return fwd_launch<true>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp,
+                          B, ckpt, cs, lsf, term, stream);
+}
+
+extern "C" int counts_bwd_launch(
+    const float* T, const float* Em, const float* Eg, const float* f_all,
+    const float* lsf, const int8_t* xb, const int8_t* yb,
+    const uint8_t* valid, const int32_t* s1, const int32_t* fink,
+    const int32_t* find, const float* logZ, int ntr, int d1k, int Wp, int B,
+    float* post, float* tcp, float* egp, float* mcp, void* stream) {
+  return bwd_launch<false>(T, Em, Eg, f_all, lsf, xb, yb, valid, s1, fink,
+                           find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp,
+                           stream);
+}
+
+extern "C" int counts_bwd_ckpt_launch(
+    const float* T, const float* Em, const float* Eg, const float* ckpt,
+    const float* cs, const int8_t* xb, const int8_t* yb,
+    const uint8_t* valid, const int32_t* s1, const int32_t* fink,
+    const int32_t* find, const float* logZ, int ntr, int d1k, int Wp, int B,
+    float* post, float* tcp, float* egp, float* mcp, void* stream) {
+  return bwd_launch<true>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink, find,
+                          logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, stream);
+}

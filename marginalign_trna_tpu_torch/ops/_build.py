@@ -30,6 +30,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build", "torch_kernels")
 LIB_NAME = "libmarginalign_kernels.so"
+LOG_NAME = "build.log"
 # -fmad=false: no multiply-add contraction, so the forward-backward kernels
 # round exactly like their plain versions (separate torch mul and add).
 NVCC_FLAGS = [
@@ -75,12 +76,19 @@ _SIGNATURES: Dict[str, List] = {
     # post, lo, m, n, accr, accc, final_d, final_k, D1, Wp, B, width, rgm,
     # rgn, gap_gamma, match_gamma, ptr, score, stream
     "mea_dl": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P] * 3,
+    # T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf,
+    # term, stream
+    "counts_fwd_all": [_P] * 8 + [_I] * 4 + [_P] * 5,
+    "counts_fwd_ckpt": [_P] * 8 + [_I] * 4 + [_P] * 5,
+    # T, Em, Eg, band, lsf or cs, xb, yb, valid, s1, fink, find, logZ, ntr,
+    # d1k, Wp, B, post, tcp, egp, mcp, stream
+    "counts_bwd": [_P] * 12 + [_I] * 4 + [_P] * 5,
+    "counts_bwd_ckpt": [_P] * 12 + [_I] * 4 + [_P] * 5,
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 
 _lib: Optional[ctypes.CDLL] = None
-_build_log: str = ""
 
 
 def reset_launch_counts() -> None:
@@ -121,8 +129,8 @@ def _build_dir(nvcc: str) -> str:
 def build() -> str:
     """Compile csrc/*.cu unless the library for these sources exists;
     returns its path.  One nvcc per source, all started together, then one
-    link.  Raises with nvcc's output if compilation fails."""
-    global _build_log
+    link.  nvcc's output is kept beside the library (`build_log`).  Raises
+    with it if compilation fails."""
     nvcc = _nvcc()
     out_dir = _build_dir(nvcc)
     lib_path = os.path.join(out_dir, LIB_NAME)
@@ -147,11 +155,12 @@ def build() -> str:
                  "-o", tmp] + objs,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             outs.append((link.stdout, link.returncode))
-        _build_log = "".join(out for out, _ in outs)
+        text = "".join(out for out, _ in outs)
         bad = [rc for _, rc in outs if rc != 0]
         if bad:
-            raise RuntimeError("nvcc failed (exit %d):\n%s"
-                               % (bad[0], _build_log))
+            raise RuntimeError("nvcc failed (exit %d):\n%s" % (bad[0], text))
+        with open(os.path.join(out_dir, LOG_NAME), "w") as fh:
+            fh.write(text)
         os.replace(tmp, lib_path)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -159,9 +168,14 @@ def build() -> str:
 
 
 def build_log() -> str:
-    """nvcc's output (register and shared-memory use per kernel) from the
-    build this process ran, or "" when it loaded a cached library."""
-    return _build_log
+    """nvcc's output (ptxas -v: registers, spills and shared memory per
+    kernel) from the build of the library that `load` uses, cached or not;
+    "" if there is none."""
+    path = os.path.join(_build_dir(_nvcc()), LOG_NAME)
+    if not os.path.exists(path):
+        return ""
+    with open(path) as fh:
+        return fh.read()
 
 
 def load() -> ctypes.CDLL:

@@ -7,7 +7,7 @@ State layout and model semantics are in models/hmm.py.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -48,10 +48,26 @@ def tables_from_file(path: str, device=None) -> FbTables:
     return tables_from_hmm(PairHmm.load(path), device)
 
 
+def tables_stacked(hmms: Sequence[PairHmm], device=None) -> FbTables:
+    """Tables of several models with a leading [Ntr] trials axis on every
+    buffer (T, Ematch, Egap [Ntr, 5, 5], pi [Ntr, 5]): the lockstep EM
+    trials' tables (marginalign_trna_tpu/align/em.py
+    `make_tables_stacked`)."""
+    return FbTables(
+        T=np.stack([h.transitions for h in hmms]),
+        Ematch=np.stack([h.match_emissions_5x5() for h in hmms]),
+        Egap=np.stack([h.gap_emissions_5() for h in hmms]),
+        pi=np.full((len(hmms), 5), 0.2),
+        device=device,
+    )
+
+
 def tables_from_jax(np_tables, device=None) -> FbTables:
     """The port's tables from the JAX package's FbTables (any object with
     T/Ematch/Egap/pi array fields, e.g. after `jax.device_get`), so both
-    packages compute with identical float32 values."""
+    packages compute with identical float32 values.  Stacked trials tables
+    ([Ntr, 5, 5] leaves, the JAX package's `make_tables_stacked`) carry
+    over the same way."""
     return FbTables(
         T=np_tables.T, Ematch=np_tables.Ematch, Egap=np_tables.Egap,
         pi=np_tables.pi, device=device,

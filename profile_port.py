@@ -7,11 +7,13 @@ repository root:
 It writes chip_smoke.py's corpus (1024 reads x 3.5 kb, two references,
 both strands) and profiles marginAlign on it (pipeline.align, the default
 path), then plants chip_smoke's SNVs in a copy of the reference and
-profiles marginCaller on the aligned SAM.  Each command runs three times:
+profiles marginCaller on the aligned SAM, then marginAlign --em on the
+corpus's first 256 reads (chip_smoke's EM phase: default EmOptions but 5
+iterations).  Each command runs three times:
 unprofiled, under cProfile (host functions of the port by cumulative
 seconds, and the host band packers' share of the wall) and under
 torch.profiler (the card's busy time: kernels, copies, memsets).  The last
-line is a JSON summary.  Nothing is checked here; chip_smoke.py holds both
+line is a JSON summary.  Nothing is checked here; chip_smoke.py holds the
 commands to their references.
 """
 import cProfile
@@ -84,6 +86,7 @@ def main() -> int:
         print("profile_port: needs a CUDA card", file=sys.stderr)
         return 2
     from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import em
     from marginalign_trna_tpu_torch.call import caller
     from marginalign_trna_tpu_torch.models.hmm import PairHmm
 
@@ -100,6 +103,13 @@ def main() -> int:
         res["marginCaller"] = profile(
             "caller", lambda: caller.margin_caller(sam, mut_fa, vcf, hmm, hmm,
                                                    device="cuda"))
+        sub = os.path.join(tmpdir, "em_subset.fq")
+        chip_smoke.subset_fastq(fq, sub, chip_smoke.EM_READS)
+        em_sam = os.path.join(tmpdir, "em.sam")
+        opts = pipeline.AlignOptions(em=True, em_options=em.EmOptions(
+            iterations=chip_smoke.EM_ITERATIONS))
+        res["marginAlign --em"] = profile(
+            "em", lambda: pipeline.align(sub, fa, em_sam, opts, device="cuda"))
     log(chip_smoke.card_identity())
     print(json.dumps(res))
     return 0

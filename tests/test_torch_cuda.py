@@ -13,7 +13,8 @@ import torch
 
 from marginalign_trna_tpu_torch.models.hmm import PairHmm
 from marginalign_trna_tpu_torch.ops import (
-    _build, bucket_scatter, fb_circ_cuda, fb_cuda, wavefront_cuda,
+    _build, bucket_scatter, fb_circ_cuda, fb_counts, fb_counts_cuda,
+    fb_cuda, wavefront_cuda,
 )
 from marginalign_trna_tpu_torch.ops.band import (
     band_masks, circ_mw_streams, pack_banded_batch, pack_compact_batch,
@@ -22,7 +23,9 @@ from marginalign_trna_tpu_torch.ops.band import (
 from marginalign_trna_tpu_torch.ops.expectations import (
     concat_flush_tails, fused_flush_jmaps, fused_row_jmaps,
 )
-from marginalign_trna_tpu_torch.ops.fb import device_batch, tables_from_hmm
+from marginalign_trna_tpu_torch.ops.fb import (
+    device_batch, tables_from_hmm, tables_stacked,
+)
 from marginalign_trna_tpu_torch.ops.fb_circ import (
     circ_coefficients, compact_device_batch,
 )
@@ -223,3 +226,74 @@ def test_scatter_lanes_any_targets(cuda):
     out = bucket_scatter.scatter_lanes_cuda(vals, jm, rg)
     ref = bucket_scatter.scatter_lanes_plain(vals, jm, rg)
     assert torch.allclose(out, ref, rtol=1e-5, atol=1e-6)
+
+
+def _em_models(ntr):
+    """ntr random EM starts under fiveStateAsymmetric constraints (every
+    transition, non-flat gap emissions)."""
+    out = []
+    for t in range(ntr):
+        hmm = PairHmm.random(seed=20 + t)
+        hmm.apply_model_type_constraints()
+        out.append(hmm)
+    return out
+
+
+@pytest.mark.parametrize("ntr", [1, 3])
+def test_counts_kernels_match_plain(cuda, ntr):
+    """The four counts kernels on the plain versions' inputs: f_all, lsf,
+    the terminal sums, the checkpoints and the posterior band bit-equal;
+    the lane-summed count partials within rtol 1e-5 (the kernels sum each
+    thread's rows and diagonals first, then the row threads)."""
+    K = fb_counts_cuda
+    tables = tables_stacked(_em_models(ntr), cuda)
+    tabs = (tables.T, tables.Ematch, tables.Egap)
+    dev = device_batch(_batch(21, seed=5), cuda)
+    xb, yb, valid, s1, fk, fd = fb_counts.kernel_inputs(dev)
+    streams = (xb, yb, valid, s1, fk)
+    names = ("counts_fwd_all", "counts_bwd", "counts_fwd_ckpt",
+             "counts_bwd_ckpt")
+    before = {k: _build.launch_counts[k] for k in names}
+
+    got = K.counts_fwd_all_cuda(*tabs, *streams)
+    f_all, lsf, term = K.counts_fwd_all_plain(*tabs, *streams)
+    for g, r in zip(got, (f_all, lsf, term)):
+        assert torch.equal(g, r)
+    logZ = fb_counts.logz_from_terminal(lsf, term, fd)
+    assert torch.isfinite(logZ).all()
+    bargs = (*tabs, f_all, lsf, *streams, fd, logZ)
+    post, tcp, egp = K.counts_bwd_cuda(*bargs)
+    rpost, rtcp, regp = K.counts_bwd_plain(*bargs)
+    assert torch.equal(post, rpost)
+    for g, r in ((tcp, rtcp), (egp, regp)):
+        assert torch.allclose(g.sum(-1), r.sum(-1), rtol=1e-5, atol=1e-6)
+
+    got = K.counts_fwd_ckpt_cuda(*tabs, *streams)
+    ref = K.counts_fwd_ckpt_plain(*tabs, *streams)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert torch.equal(ref[2], lsf) and torch.equal(ref[3], term)
+    cargs = (*tabs, ref[0], ref[1], *streams, fd, logZ)
+    for g, r in zip(K.counts_bwd_ckpt_cuda(*cargs),
+                    K.counts_bwd_ckpt_plain(*cargs)):
+        assert torch.allclose(g.sum(-1), r.sum(-1), rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts[k] == before[k] + 1 for k in names)
+
+
+@pytest.mark.parametrize("kernel", ["stored", "ckpt"])
+def test_serial_counts_on_card_match_cpu(cuda, kernel):
+    """One model's counts (a serial EM trial: [5, 5] tables, trials axis 1)
+    through the kernels equal the plain versions' on the CPU: logZ within
+    1e-4, counts within rtol 1e-5."""
+    hmm = _em_models(1)[0]
+    batch = _batch(21, seed=6)
+    got = fb_counts.counts(tables_from_hmm(hmm, cuda),
+                           device_batch(batch, cuda), kernel=kernel)
+    want = fb_counts.counts(tables_from_hmm(hmm), device_batch(batch, "cpu"),
+                            kernel=kernel)
+    assert torch.allclose(got.logZ.cpu(), want.logZ, rtol=1e-4, atol=1e-4)
+    for g, w in ((got.trans_counts, want.trans_counts),
+                 (got.emit_gap, want.emit_gap)):
+        assert torch.allclose(g.cpu(), w, rtol=1e-5, atol=1e-5)
+    assert (got.posteriors is None) == (kernel == "ckpt")

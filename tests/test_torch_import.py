@@ -1,10 +1,11 @@
 """The PyTorch port imports nothing of JAX or of the JAX package, even after
-running both of its commands, and its CLI never drops to the CPU on its
-own."""
+running both of its commands (marginAlign with and without --em), and its
+CLI never drops to the CPU on its own."""
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +15,8 @@ PORT_MODULES = [
     "marginalign_trna_tpu_torch.__main__",
     "marginalign_trna_tpu_torch.align",
     "marginalign_trna_tpu_torch.align.chain",
+    "marginalign_trna_tpu_torch.align.checkpoint",
+    "marginalign_trna_tpu_torch.align.em",
     "marginalign_trna_tpu_torch.align.guide",
     "marginalign_trna_tpu_torch.align.realign",
     "marginalign_trna_tpu_torch.call",
@@ -36,6 +39,8 @@ PORT_MODULES = [
     "marginalign_trna_tpu_torch.ops.fb",
     "marginalign_trna_tpu_torch.ops.fb_circ",
     "marginalign_trna_tpu_torch.ops.fb_circ_cuda",
+    "marginalign_trna_tpu_torch.ops.fb_counts",
+    "marginalign_trna_tpu_torch.ops.fb_counts_cuda",
     "marginalign_trna_tpu_torch.ops.fb_cuda",
     "marginalign_trna_tpu_torch.ops.mea",
     "marginalign_trna_tpu_torch.ops.nw",
@@ -84,6 +89,11 @@ sam, vcf = os.path.join(tmp, "out.sam"), os.path.join(tmp, "out.vcf")
 assert cli.main(["marginAlign", fq, fa, sam, "--device", "cpu"]) == 0
 assert cli.main(["marginCaller", sam, fa, vcf, "--device", "cpu"]) == 0
 assert os.path.getsize(vcf) > 0
+model = os.path.join(tmp, "em.hmm")
+assert cli.main(["marginAlign", fq, fa, os.path.join(tmp, "em.sam"), "--em",
+                 "--iterations", "2", "--trials", "2", "--outputModel",
+                 model, "--device", "cpu"]) == 0
+assert all(os.path.exists(model + s) for s in ("", ".trial0", ".trial1"))
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "marginalign_trna_tpu"))
 print(bad)
@@ -92,9 +102,9 @@ assert not bad, bad
 
 
 def test_importing_the_port_loads_no_jax(tmp_path):
-    """Import every port module, run marginAlign and then marginCaller on
-    the CPU on a tiny corpus, in a fresh interpreter: no jax*, no
-    marginalign_trna_tpu module may be loaded."""
+    """Import every port module, run marginAlign, marginCaller and
+    marginAlign --em on the CPU on a tiny corpus, in a fresh interpreter:
+    no jax*, no marginalign_trna_tpu module may be loaded."""
     code = _RUN_BOTH_COMMANDS % (PORT_MODULES,)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
@@ -118,12 +128,56 @@ def test_cli_default_device_refuses_without_cuda(tmp_path):
     assert not (tmp_path / "o.sam").exists()
 
 
+def _tiny_corpus(tmp_path):
+    rng = np.random.default_rng(4)
+    ref = rng.integers(0, 4, 240)
+    fa = tmp_path / "ref.fa"
+    fa.write_text(">ref\n%s\n" % "".join("ACGT"[c] for c in ref))
+    lines = []
+    for k in range(4):
+        read = ref[5 + k:200 + k].copy()
+        read[rng.random(len(read)) < 0.05] = 2
+        s = "".join("ACGT"[c] for c in read)
+        lines.append("@r%d\n%s\n+\n%s\n" % (k, s, "I" * len(s)))
+    fq = tmp_path / "r.fq"
+    fq.write_text("".join(lines))
+    return str(fq), str(fa)
+
+
+def test_cli_em_runs_on_cpu(tmp_path):
+    """marginAlign --em trains (two lockstep trials, two iterations), writes
+    the model, its trial models and the XML dump, and realigns with it."""
+    from marginalign_trna_tpu_torch import cli
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+
+    fq, fa = _tiny_corpus(tmp_path)
+    model = str(tmp_path / "m.hmm")
+    out = tmp_path / "o.sam"
+    assert cli.margin_align_main([
+        fq, fa, str(out), "--em", "--iterations", "2", "--trials", "2",
+        "--outputModel", model, "--outputXMLModelFile",
+        str(tmp_path / "m.xml"), "--device", "cpu"]) == 0
+    trained = PairHmm.load(model)          # checks the rows are stochastic
+    assert np.allclose(trained.emissions[1:], 1.0 / 16)   # normalised
+    assert trained.likelihood < 0
+    for t in (0, 1):
+        PairHmm.load(model + ".trial%d" % t)
+    assert (tmp_path / "m.xml").stat().st_size > 0
+    records = [ln for ln in out.read_text().splitlines()
+               if not ln.startswith("@")]
+    assert len(records) == 4
+
+
 def test_cli_refuses_em_and_unknown_commands(tmp_path):
+    """What --em cannot do yet is refused (--updateTheBand waits for the
+    generic forward-backward kernels, ROADMAP B15); unknown commands exit
+    with 2."""
     from marginalign_trna_tpu_torch import cli
 
-    with pytest.raises(NotImplementedError, match="EM"):
-        cli.margin_align_main(["r.fq", "ref.fa", "o.sam", "--em",
-                               "--device", "cpu"])
+    fq, fa = _tiny_corpus(tmp_path)
+    with pytest.raises(NotImplementedError, match="B15"):
+        cli.margin_align_main([fq, fa, str(tmp_path / "o.sam"), "--em",
+                               "--updateTheBand", "--device", "cpu"])
     # marginCaller is a command now: without its arguments argparse exits 2.
     with pytest.raises(SystemExit) as exc:
         cli.main(["marginCaller"])
