@@ -6,7 +6,7 @@ CUDA card.  Run from the repository root:
 
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a.
-  2. tiny     each of the sixteen kernels against its plain PyTorch version
+  2. tiny     each of the eighteen kernels against its plain PyTorch version
               on the card at a tiny shape, so a broken kernel fails before
               the long runs.
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
@@ -61,7 +61,30 @@ Phases (any failure exits non-zero without the final result line):
               the card's trained model on both devices >= 90% of cigars
               identical; with that model and with each device's own, every
               cigar that differs an MEA near-tie (1e-5).
- 11. card     name and power limit from nvidia-smi.
+ 11. generic  marginAlign --inputModel <trial 0 of the card's EM parity
+              run, un-normalised: gap emissions not flat> on the REL phase's
+              reads: the guide through R and K1, realignment on the REL
+              path through the generic pair (fb_generic_fwd,
+              fb_generic_bwd) and K4, and only those; every record placed
+              as in the main phase.  Then the generic pair against its
+              plain versions on its largest launch (bit-equal), and
+              marginCaller --alignmentModel <trial 0> on that SAM (only the
+              generic pair launches; recall and precision printed), and
+              the pair against its plain versions on its largest caller
+              launch (bit-equal).
+ 12. parity   both on PARITY_READS reads on "cpu" and "cuda": >= 90% of
+              cigars identical and every other one an MEA near-tie (1e-5);
+              identical call sets, expectations within 1e-3.
+ 13. band     marginAlign --em --updateTheBand on BAND_READS reads
+              (BAND_ITERATIONS iterations, 3 lockstep trials): the policy's
+              counts pair, the generic pair once per band update, K4 and
+              the main path's kernels; reads placed; the generic pair
+              against its plain versions on its largest launch there
+              (bit-equal).  Then EM with band
+              updates on BAND_PARITY_READS reads on "cpu" and "cuda":
+              trained parameters within 1e-3, differing segment paths
+              counted.
+ 14. card     name and power limit from nvidia-smi.
 The line before the last is the kernel report (JSON); the last line is the
 result (JSON).  Corpus and weights come from numpy seeds; nothing is read
 from outside the repository.
@@ -140,11 +163,25 @@ KERNELS = {
     "counts_bwd_ckpt": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
                         "marginalign_trna_tpu/ops/fb_pallas_counts.py:1358",
                         "fb_counts_cuda.counts_bwd_ckpt_cuda", ("em",)),
+    # The generic pair replaces the body that both variants of each TPU
+    # kernel run (tables as arrays or baked in); its paths: "generic" =
+    # marginAlign --inputModel with a non-flat model, "call_generic" =
+    # marginCaller --alignmentModel with one, "em_band" = marginAlign --em
+    # --updateTheBand.
+    "fb_generic_fwd": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                       "marginalign_trna_tpu/ops/fb_pallas.py:330",
+                       "fb_generic_cuda.fb_generic_fwd_cuda",
+                       ("generic", "call_generic", "em_band")),
+    "fb_generic_bwd": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                       "marginalign_trna_tpu/ops/fb_pallas.py:550",
+                       "fb_generic_cuda.fb_generic_bwd_cuda",
+                       ("generic", "call_generic", "em_band")),
 }
 ALIGN_KERNELS = [k for k, v in KERNELS.items() if "align" in v[3]]
 REL_KERNELS = [k for k, v in KERNELS.items() if "rel" in v[3]]
 CALLER_KERNELS = [k for k, v in KERNELS.items() if "call" in v[3]]
 COUNTS_KERNELS = [k for k, v in KERNELS.items() if "em" in v[3]]
+GENERIC_KERNELS = [k for k, v in KERNELS.items() if "generic" in v[3]]
 COUNTS_PAIRS = {"stored": ("counts_fwd_all", "counts_bwd"),
                 "ckpt": ("counts_fwd_ckpt", "counts_bwd_ckpt")}
 # Records of the main phase's corpus that the REL phase realigns.
@@ -154,6 +191,11 @@ REL_RECORDS = 256
 EM_READS = 256
 EM_ITERATIONS = 5
 EM_PARITY_ITERATIONS = 3
+# The updateTheBand phase: reads, iterations (3 lockstep trials); the reads
+# of its CPU / card parity.
+BAND_READS = 64
+BAND_ITERATIONS = 3
+BAND_PARITY_READS = 16
 
 # The least time the card could take: the bytes a kernel must move (each
 # input read once, each output written once) at the H100 SXM's 3.35 TB/s,
@@ -170,7 +212,8 @@ EM_PARITY_ITERATIONS = 3
 # states and one add into its code's bin) and published e * b (22); the
 # checkpoint backward adds the match-by-code partials (3: gamma and one
 # add into bin x * 5 + y) and the recomputed forward (73) and drops the
-# posterior.
+# posterior.  The generic pair runs the same forward (73) and the backward
+# without its partials (cell 58, rescale 2, posterior 2, e * b 22).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_CELL = {
@@ -179,7 +222,7 @@ OPS_PER_CELL = {
     "scatter_lanesum": 4, "expand_rel": 14, "mw_forward": 32,
     "scatter_lanes": 4, "mea_dl": 36,
     "counts_fwd_all": 73, "counts_bwd": 151, "counts_fwd_ckpt": 73,
-    "counts_bwd_ckpt": 225,
+    "counts_bwd_ckpt": 225, "fb_generic_fwd": 73, "fb_generic_bwd": 84,
 }
 
 
@@ -693,6 +736,48 @@ def compare_counts(base, reps):
     return report
 
 
+def compare_generic(base, reps):
+    """The generic pair against its plain versions on one batch, base =
+    (T, Em, Eg, xb, yb, valid, s1, fink, find): the forward on base, the
+    backward on the plain forward's outputs.  F_match, lsf, the terminal
+    sums and the posterior band must be bit-equal."""
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_counts
+    from marginalign_trna_tpu_torch.ops import fb_generic_cuda as G
+
+    tabs, streams, find = base[:3], base[3:8], base[8]
+    cells = streams[0].numel()
+    fargs = (*tabs, *streams)
+    ref = G.fb_generic_fwd_plain(*fargs)
+    for what, g, r in zip(("F_match", "lsf", "term"),
+                          G.fb_generic_fwd_cuda(*fargs), ref):
+        check(torch.equal(g, r), "fb_generic_fwd: %s differs from the plain "
+              "version" % what)
+    fm, lsf, term = ref
+    logZ = fb_counts.logz_from_terminal(lsf[None], term[None], find)[0]
+    check(torch.isfinite(logZ).all().item(), "generic logZ not finite")
+    report = {"fb_generic_fwd": {
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: G.fb_generic_fwd_cuda(*fargs), reps),
+        "plain_ms": time_ms(lambda: G.fb_generic_fwd_plain(*fargs), 1),
+        "library_ms": None,
+        **bound("fb_generic_fwd", cells, nbytes(*fargs, *ref))}}
+    del ref
+    bargs = (*tabs, fm, lsf, *streams, find, logZ)
+    post = G.fb_generic_bwd_cuda(*bargs)
+    rpost = G.fb_generic_bwd_plain(*bargs)
+    check(torch.equal(post, rpost), "fb_generic_bwd: posterior band differs "
+          "from the plain version")
+    report["fb_generic_bwd"] = {
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: G.fb_generic_bwd_cuda(*bargs), reps),
+        "plain_ms": time_ms(lambda: G.fb_generic_bwd_plain(*bargs), 1),
+        "library_ms": None,
+        **bound("fb_generic_bwd", cells, nbytes(*bargs, post))}
+    return report
+
+
 COMPARE = {
     "banded_nw": compare_nw, "banded_mea": compare_mea,
     "expand_streams": compare_expand, "sv_backward": compare_sv,
@@ -706,15 +791,18 @@ def compare_kernels(tag, names, inputs, reps):
     """Each kernel of `names` against its plain version on `inputs`
     (kernel name -> wrapper arguments; fb_forward's may be None: the plain
     backward's outputs then feed it; the counts kernels share
-    inputs["counts"], compare_counts' base).  Returns {name: report}."""
+    inputs["counts"], compare_counts' base, the generic pair
+    inputs["generic"], compare_generic's).  Returns {name: report}."""
     report = {}
     if any(name in COUNTS_KERNELS for name in names):
         report.update(compare_counts(inputs["counts"], reps))
+    if any(name in GENERIC_KERNELS for name in names):
+        report.update(compare_generic(inputs["generic"], reps))
     for name in names:
         if name == "fb_backward":
             report["fb_backward"], report["fb_forward"] = compare_fb(
                 inputs["fb_backward"], inputs.get("fb_forward"), reps)
-        elif name not in ("fb_forward", *COUNTS_KERNELS):
+        elif name not in ("fb_forward", *COUNTS_KERNELS, *GENERIC_KERNELS):
             report[name] = COMPARE[name](inputs[name], reps)
     for name in names:
         log("kernels[%s] %-15s %s" % (tag, name, json.dumps(report[name])))
@@ -882,6 +970,38 @@ def tiny_counts_inputs(device):
                        *fb_counts.kernel_inputs(dev))}
 
 
+def tiny_generic_inputs(device):
+    """The generic pair's base inputs at a tiny shape: 40 noisy pairs of
+    20-150 bases at width 21, the shipped model with one gap row perturbed
+    (not flat)."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import fb_counts
+    from marginalign_trna_tpu_torch.ops.band import pack_banded_batch
+    from marginalign_trna_tpu_torch.ops.fb import device_batch, tables_from_hmm
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    rng = np.random.default_rng(16)
+    refs = [rng.integers(0, 4, size=int(rng.integers(20, 150)))
+            .astype(np.int8) for _ in range(40)]
+    reads = [noisy(rng, r) for r in refs]
+    dev = device_batch(pack_banded_batch(reads, refs, width=21,
+                                         quantize=True), device)
+    hmm = PairHmm.load(DEFAULT_MODEL)
+    hmm.emissions[1, :4] *= 1.5
+    hmm.emissions[1] /= hmm.emissions[1].sum()
+    tables = tables_from_hmm(hmm, device)
+    return {"generic": (tables.T, tables.Ematch, tables.Egap,
+                        *fb_counts.kernel_inputs(dev))}
+
+
+def generic_base(largest):
+    """compare_generic's base from the recorded largest launches of the
+    generic pair: the forward's arguments and the backward's find."""
+    return largest["fb_generic_fwd"] + (largest["fb_generic_bwd"][10],)
+
+
 def counts_base(largest):
     """compare_counts' base from the recorded largest launches of the
     counts pair a path ran: the forward's arguments and the backward's
@@ -938,8 +1058,9 @@ def recording_launches(names):
     kernel in `names` goes through a recorder: it logs the [D1, Wp, B] of
     each call and keeps a device copy of the inputs of the largest call per
     kernel.  Calls of the host band packer (ops/band.py
-    `pack_banded_batch`) are counted.  Yields (shapes {name: [[D1, Wp, B],
-    ...]}, largest {name: inputs}, host {"pack_banded_batch": calls})."""
+    `pack_banded_batch`) are counted and timed.  Yields (shapes {name:
+    [[D1, Wp, B], ...]}, largest {name: inputs}, host {"pack_banded_batch":
+    calls, "pack_banded_batch_s": seconds})."""
     import importlib
 
     import numpy as np
@@ -951,7 +1072,7 @@ def recording_launches(names):
 
     shapes = {name: [] for name in names}
     largest, sizes = {}, {}
-    host = {"pack_banded_batch": 0}
+    host = {"pack_banded_batch": 0, "pack_banded_batch_s": 0.0}
 
     def recorder(name, fn):
         def call(*args):
@@ -967,7 +1088,10 @@ def recording_launches(names):
     def counted(fn):
         def call(*args, **kwargs):
             host["pack_banded_batch"] += 1
-            return fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            host["pack_banded_batch_s"] += time.perf_counter() - t0
+            return out
         return call
 
     replacements = {band.pack_banded_batch: counted(band.pack_banded_batch)}
@@ -1066,10 +1190,31 @@ def mea_objective(ops, post, lo, g_read, g_ref, b):
     return total
 
 
-def fused_ops_with_weights(segs, hmm, device):
-    """realigned_ops_for_jobs on the fused path, with each segment's MEA
-    inputs kept: (ops per segment, {segment: ((posterior band, lo, read gap
-    weights, ref gap weights) of its bucket, its lane)})."""
+def rel_gap_weights(post, batch, gap_gamma):
+    """(read gap weights [max m, B], ref gap weights [max n, B]) of a REL
+    decode (ops/mea.py `mea_weights`): gap_gamma * (1 - the posterior mass
+    of the read's row or the reference's column), clipped to [0, 1] before
+    the product; float64 on the host from the posterior band."""
+    import numpy as np
+
+    D1, Wp, B = post.shape
+    i = batch.lo.astype(np.int64)[:, None, :] + np.arange(Wp)[None, :, None]
+    j = np.arange(D1)[:, None, None] - i
+    ok = batch.valid & (i >= 1) & (j >= 1)
+    lane = np.broadcast_to(np.arange(B), post.shape)
+    out = []
+    for pos, size in ((i, int(batch.m.max())), (j, int(batch.n.max()))):
+        mass = np.bincount(((pos - 1) * B + lane)[ok], post[ok],
+                           minlength=size * B).reshape(size, B)
+        out.append(gap_gamma * np.clip(1.0 - mass, 0.0, 1.0))
+    return tuple(out)
+
+
+def ops_with_weights(segs, hmm, device):
+    """realigned_ops_for_jobs on the path the model takes (the fused path;
+    the REL path for a model whose gap emissions are not flat), with each
+    segment's MEA inputs kept: (ops per segment, {segment: ((posterior band,
+    lo, read gap weights, ref gap weights) of its bucket, its lane)})."""
     import numpy as np
 
     from marginalign_trna_tpu_torch.align import realign
@@ -1077,15 +1222,21 @@ def fused_ops_with_weights(segs, hmm, device):
     from marginalign_trna_tpu_torch.ops.wavefront_cuda import _gap_weights
 
     weights = []
-    decode = mea.mea_decode_fused
+    fused, rel = mea.mea_decode_fused, mea.mea_decode
 
-    def keep(post, comp, dev, accr, accc, gap_gamma, match_gamma):
+    def keep_fused(post, comp, dev, accr, accc, gap_gamma, match_gamma):
         weights.append((post.cpu().numpy(), comp.lo.astype(np.int64),
                         _gap_weights(accr, gap_gamma).cpu().numpy(),
                         _gap_weights(accc, gap_gamma).cpu().numpy()))
-        return decode(post, comp, dev, accr, accc, gap_gamma, match_gamma)
+        return fused(post, comp, dev, accr, accc, gap_gamma, match_gamma)
 
-    with replaced_everywhere({decode: keep}):
+    def keep_rel(post, batch, dev, gap_gamma, match_gamma):
+        p = post.cpu().numpy()
+        weights.append((p, batch.lo.astype(np.int64),
+                        *rel_gap_weights(p, batch, gap_gamma)))
+        return rel(post, batch, dev, gap_gamma, match_gamma)
+
+    with replaced_everywhere({fused: keep_fused, rel: keep_rel}):
         ops = realign.realigned_ops_for_jobs(segs, hmm, 0.5, 0.0, device,
                                              fused=True)
     lane_of = {}
@@ -1110,7 +1261,7 @@ def record_cigar(job, origin, ops_of, k):
 def tie_gap(k, origin, ops, other_ops, lane_of):
     """Largest relative MEA-objective difference between two decodes of
     record k's segments that differ, scored under the weights kept with
-    `ops` (fused_ops_with_weights)."""
+    `ops` (ops_with_weights)."""
     worst = 0.0
     for s_idx, job in enumerate(origin):
         if job != k or ops[s_idx] == other_ops[s_idx]:
@@ -1163,7 +1314,7 @@ def phase_rel(tmpdir, fq, fa, main_sam):
     check_launches("REL", REL_KERNELS, launches, shapes)
 
     # The fused path on the same segments, its MEA inputs kept per lane.
-    fused_ops, lane_of = fused_ops_with_weights(segs, hmm, "cuda")
+    fused_ops, lane_of = ops_with_weights(segs, hmm, "cuda")
 
     def cigar(ops_of, k):
         return record_cigar(jobs[k], origin, ops_of, k)
@@ -1339,14 +1490,18 @@ def phase_caller_parity(tmpdir, fa, sam):
 @contextlib.contextmanager
 def em_recording():
     """Inside the block every lockstep E-step's per-trial log-likelihoods
-    are kept (align/em.py `expectation_step_trials`) and the host-side
-    E-step batch preparation (`prepare_em_batches`: band packing and
-    upload) is timed.  Yields {"histories": [[Ntr] per E-step],
-    "prepare_s": [seconds per call]}."""
+    are kept (align/em.py `expectation_step_trials`), the host-side E-step
+    batch preparation (`prepare_em_batches`: band packing and upload) is
+    timed, and every band update (`_update_band_jobs`) is logged with the
+    generic-pair launches it made and the segment paths it returned.
+    Yields {"histories": [[Ntr] per E-step], "prepare_s": [seconds per
+    call], "band_updates": [{"generic_launches", "s", "paths"}]}."""
     from marginalign_trna_tpu_torch.align import em
+    from marginalign_trna_tpu_torch.ops import _build
 
-    rec = {"histories": [], "prepare_s": []}
+    rec = {"histories": [], "prepare_s": [], "band_updates": []}
     step, prepare = em.expectation_step_trials, em.prepare_em_batches
+    update = em._update_band_jobs
 
     def recorded_step(*args, **kwargs):
         out = step(*args, **kwargs)
@@ -1364,7 +1519,18 @@ def em_recording():
         rec["prepare_s"].append(time.perf_counter() - t0)
         return out
 
-    with replaced_everywhere({step: recorded_step, prepare: timed_prepare}):
+    def recorded_update(*args, **kwargs):
+        before = _build.launch_counts["fb_generic_fwd"]
+        t0 = time.perf_counter()
+        out = update(*args, **kwargs)
+        rec["band_updates"].append({
+            "generic_launches": _build.launch_counts["fb_generic_fwd"]
+            - before, "s": time.perf_counter() - t0,
+            "paths": [j.path for j in out]})
+        return out
+
+    with replaced_everywhere({step: recorded_step, prepare: timed_prepare,
+                              update: recorded_update}):
         yield rec
 
 
@@ -1560,7 +1726,7 @@ def phase_em_parity(tmpdir, fq, fa):
                                   get_fasta_dictionary(fa), encode)
     segs, origin, _ = realign.split_jobs_at_anchors(
         jobs, realign.DEFAULT_SPLIT_SIZE)
-    card_ops, lane_of = fused_ops_with_weights(segs, mg[0], "cuda")
+    card_ops, lane_of = ops_with_weights(segs, mg[0], "cuda")
     cpu_ops = {
         model: realign.realigned_ops_for_jobs(segs, hmm, 0.5, 0.0, "cpu")
         for model, hmm in (("one", mg[0]), ("own", mc[0]))}
@@ -1611,6 +1777,286 @@ def phase_em_parity(tmpdir, fq, fa):
     return launches, res
 
 
+def phase_generic_kernels(path, base):
+    """The generic pair against its plain versions (bit-equal) on a copy of
+    the inputs of its largest launch on `path`, with times and bounds."""
+    log("kernels[%s] inputs of the largest launch [d1k, Wp, B] %s"
+        % (path, list(base[3].shape)))
+    return compare_kernels(path, GENERIC_KERNELS, {"generic": base}, 5)
+
+
+def placement(recs):
+    """{qname: (flag, reference, 1-based position)} of SAM records."""
+    return {r.qname: (r.flag, r.rname, r.pos) for r in recs}
+
+
+def phase_generic(tmpdir, fq, fa, main_sam, trial_model):
+    """marginAlign --inputModel <trial 0 of the card's EM parity run>
+    (un-normalised: its gap emissions are not flat) on the corpus's first
+    REL_RECORDS reads: the guide through R and K1, then realignment on the
+    REL path (host band arrays, the generic pair, weight bands, K4).  Only
+    those kernels may launch, and every record is placed as in the main
+    phase.  The EM phase's own trial 0 (5 iterations from a random start)
+    is no usable aligner yet: it aligns with gaps everywhere, so its MEA
+    decodes are exact ties that each device's rounding breaks its own
+    way."""
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+    from marginalign_trna_tpu_torch.ops.fb import tables_from_hmm
+    from marginalign_trna_tpu_torch.ops.fb_cuda import has_flat_gap_emissions
+
+    hmm = PairHmm.load(trial_model)
+    check(not has_flat_gap_emissions(tables_from_hmm(hmm)),
+          "the trial 0 model has flat gap emissions")
+    sub = os.path.join(tmpdir, "generic_subset.fq")
+    subset_fastq(fq, sub, REL_RECORDS)
+    out = os.path.join(tmpdir, "generic.sam")
+    names = ["banded_nw", "expand_rel", "banded_mea"] + GENERIC_KERNELS
+    with recording_launches(names) as (shapes, largest, host):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        stages = pipeline.align(sub, fa, out,
+                                pipeline.AlignOptions(input_model=hmm),
+                                device="cuda")
+        total = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    recs = sam_records(out)
+    log("generic: %d reads in, %d records out, %.3f s; stages %s; host "
+        "band packer %d calls, %.3f s (%.1f%% of the wall)"
+        % (REL_RECORDS, len(recs), total, json.dumps(stages),
+           host["pack_banded_batch"], host["pack_banded_batch_s"],
+           100 * host["pack_banded_batch_s"] / total))
+    log("generic: launches %s" % json.dumps(launches))
+    log("generic: launch shapes %s" % json.dumps(shapes))
+    check_launches("generic", names, launches, shapes)
+    check(len(recs) == REL_RECORDS, "generic: %d of %d reads aligned"
+          % (len(recs), REL_RECORDS))
+    main = placement(sam_records(main_sam))
+    moved = [q for q, p in placement(recs).items() if main[q] != p]
+    check(not moved, "generic: records placed otherwise than in the main "
+          "phase: %s" % moved[:5])
+    return out, launches, largest, {
+        "records": len(recs), "total_s": total, **stages,
+        "pack_banded_batch_s": host["pack_banded_batch_s"],
+        "pack_banded_batch_share": host["pack_banded_batch_s"] / total}
+
+
+def phase_generic_caller(tmpdir, fa, sam, trial_model):
+    """marginCaller --alignmentModel <trial 0> on the generic phase's SAM
+    against the caller phase's mutated reference: band arrays, the generic
+    pair and band_expectations; only the generic pair may launch.  Recall
+    and precision on the planted SNVs are printed, not checked (the model
+    is a trial's, not the trained one).  Returns (mutated reference,
+    launches, the generic pair's largest-launch inputs, results)."""
+    import torch
+
+    from marginalign_trna_tpu_torch.call import caller
+    from marginalign_trna_tpu_torch.io.vcf import vcf_read
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    mut_fa, planted = write_mutated_reference(tmpdir, fa)
+    vcf = os.path.join(tmpdir, "generic_calls.vcf")
+    hmm, error = PairHmm.load(trial_model), PairHmm.load(DEFAULT_MODEL)
+    with recording_launches(GENERIC_KERNELS) as (shapes, largest, host):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        calls = caller.margin_caller(sam, mut_fa, vcf, hmm, error,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    found = vcf_read(vcf)
+    hit = len(found & planted)
+    res = {"records_in": len(sam_records(sam)), "calls": len(calls),
+           "total_s": total, "recall": hit / len(planted),
+           "precision": hit / max(len(found), 1),
+           "pack_banded_batch_s": host["pack_banded_batch_s"]}
+    log("caller generic: %s; launches %s; launch shapes %s"
+        % (json.dumps(res), json.dumps(launches), json.dumps(shapes)))
+    check_launches("caller_generic", GENERIC_KERNELS, launches, shapes)
+    return mut_fa, launches, generic_base(largest), res
+
+
+def phase_generic_parity(tmpdir, fq, fa, sam, mut_fa, trial_model):
+    """The generic realignment and caller on PARITY_READS reads / records,
+    on the CPU (plain versions) and on the card (kernels): realigned
+    segment by segment, >= 90% of cigars identical and every other one an
+    MEA near-tie (within 1e-5 relative under the card's weights); the
+    caller's call sets identical, expectations within 1e-3."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import realign
+    from marginalign_trna_tpu_torch.call import caller
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+    from marginalign_trna_tpu_torch.utils.seq import encode
+
+    hmm = PairHmm.load(trial_model)
+    sub = os.path.join(tmpdir, "generic_parity.fq")
+    subset_fastq(fq, sub, PARITY_READS)
+    chained = os.path.join(tmpdir, "generic_parity_chained.sam")
+    pipeline.align(sub, fa, chained, pipeline.AlignOptions(no_realign=True),
+                   device="cuda")
+    jobs = realign._jobs_from_sam(SamFile.read(chained),
+                                  get_fasta_dictionary(fa), encode)
+    segs, origin, _ = realign.split_jobs_at_anchors(
+        jobs, realign.DEFAULT_SPLIT_SIZE)
+    t0 = time.perf_counter()
+    card_ops, lane_of = ops_with_weights(segs, hmm, "cuda")
+    t1 = time.perf_counter()
+    cpu_ops = realign.realigned_ops_for_jobs(segs, hmm, 0.5, 0.0, "cpu")
+    t2 = time.perf_counter()
+    same, worst = 0, 0.0
+    for k, job in enumerate(jobs):
+        if (record_cigar(job, origin, card_ops, k)
+                == record_cigar(job, origin, cpu_ops, k)):
+            same += 1
+        else:
+            worst = max(worst, tie_gap(k, origin, card_ops, cpu_ops,
+                                       lane_of))
+
+    sub_sam = SamFile.read(sam)
+    sub_sam.records = sub_sam.records[:PARITY_READS]
+    path = os.path.join(tmpdir, "generic_caller_subset.sam")
+    sub_sam.write(path)
+    refs = get_fasta_dictionary(mut_fa)
+    error = PairHmm.load(DEFAULT_MODEL)
+    exp, calls = {}, {}
+    for dev in ("cpu", "cuda"):
+        exp[dev] = caller.accumulate_expectations(
+            SamFile.read(path), refs, hmm, caller.CallerOptions(),
+            device=dev)
+        calls[dev] = {c[:3] for c in caller.call_variants(
+            exp[dev], refs, error, caller.DEFAULT_THRESHOLD)}
+    err = max(float(np.abs(exp["cpu"][k] - exp["cuda"][k]).max())
+              for k in refs)
+    res = {"records": len(jobs), "segments": len(segs),
+           "cigars_identical": same, "near_ties": len(jobs) - same,
+           "worst_tie_relative": worst, "realign_cuda_s": t1 - t0,
+           "realign_cpu_s": t2 - t1, "caller_records": len(sub_sam.records),
+           "calls": len(calls["cuda"]), "expectations_max_abs_err": err}
+    log("generic parity: %s" % json.dumps(res))
+    check(same >= 0.90 * len(jobs), "generic: fewer than 90% of cigars "
+          "identical between cpu and cuda")
+    check(worst <= 1e-5, "generic: a cigar differing between cpu and cuda "
+          "scores %.3g (relative) off under the card's weights" % worst)
+    check(calls["cpu"] == calls["cuda"], "generic: call sets differ between "
+          "cpu and cuda")
+    check(err <= 1e-3, "generic: expectations differ by %g between cpu and "
+          "cuda" % err)
+    return res
+
+
+def phase_band(tmpdir, fq, fa, truth):
+    """marginAlign --em --updateTheBand on the corpus's first BAND_READS
+    reads (BAND_ITERATIONS iterations, 3 lockstep trials): after every
+    iteration the best trial's model realigns the training segments on the
+    REL path (the generic pair, K4) and the E-step batches are re-packed.
+    Only the policy's counts pair, the generic pair, K4 and the main path's
+    kernels may launch; every band update launches the generic pair; the
+    reads are placed.  Likelihoods are not held to rise: a band change
+    moves them (marginalign_trna_tpu/align/em.py:475-478).  Returns
+    (launches, the generic pair's largest-launch inputs, results)."""
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import em
+    from marginalign_trna_tpu_torch.ops import _build
+
+    sub = os.path.join(tmpdir, "band_subset.fq")
+    subset_fastq(fq, sub, BAND_READS)
+    out = os.path.join(tmpdir, "band.sam")
+    opts = pipeline.AlignOptions(em=True, em_options=em.EmOptions(
+        iterations=BAND_ITERATIONS, update_band_every=1))
+    names = ALIGN_KERNELS + COUNTS_KERNELS + GENERIC_KERNELS + ["banded_mea"]
+    with recording_launches(names) as (shapes, largest, host), \
+            em_recording() as rec:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        stages = pipeline.align(sub, fa, out, opts, device="cuda")
+        total = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    recs = sam_records(out)
+    updates = [u["generic_launches"] for u in rec["band_updates"]]
+    res = {"reads_out": len(recs), "total_s": total, **stages,
+           "band_updates": len(updates),
+           "generic_launches_per_update": updates,
+           "band_update_s": [u["s"] for u in rec["band_updates"]],
+           "prepare_em_batches_s": rec["prepare_s"],
+           "pack_banded_batch_s": host["pack_banded_batch_s"],
+           "likelihood_histories": rec["histories"]}
+    log("em band: %s" % json.dumps(res))
+    log("em band: launches %s; launch shapes %s"
+        % (json.dumps(launches), json.dumps(shapes)))
+    pair = check_em_counts_policy("em_band", shapes, launches)
+    check_launches("em_band", ALIGN_KERNELS + pair + GENERIC_KERNELS
+                   + ["banded_mea"], launches, shapes)
+    check(updates and all(n >= 1 for n in updates),
+          "em band: a band update without the generic pair")
+    check(sum(updates) == launches["fb_generic_fwd"],
+          "em band: generic launches outside the band updates")
+    placed = sum(
+        r.rname == truth[r.qname][0] and bool(r.flag & 16) == truth[r.qname][1]
+        and abs(r.pos - 1 - truth[r.qname][2]) <= 64 for r in recs)
+    res["placed"] = placed
+    check(placed == BAND_READS, "em band: %d of %d reads placed"
+          % (placed, BAND_READS))
+    return launches, generic_base(largest), res
+
+
+def phase_band_parity(tmpdir, fq, fa):
+    """EM with update_band_every=1 (3 iterations, trial 0 from the shipped
+    model so that the band follows a usable aligner) on the chained records
+    of the first BAND_PARITY_READS reads, on the CPU and on the card: the
+    trained parameters within 1e-3; the segment paths of the last band
+    update that differ between the devices are counted."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import em, realign
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.utils.seq import encode
+
+    sub = os.path.join(tmpdir, "band_parity.fq")
+    subset_fastq(fq, sub, BAND_PARITY_READS)
+    chained = os.path.join(tmpdir, "band_parity_chained.sam")
+    pipeline.align(sub, fa, chained, pipeline.AlignOptions(no_realign=True),
+                   device="cuda")
+    jobs = realign._jobs_from_sam(SamFile.read(chained),
+                                  get_fasta_dictionary(fa), encode)
+    opts = em.EmOptions(iterations=BAND_ITERATIONS, update_band_every=1,
+                        use_default_model_as_start=True)
+    shipped = PairHmm.load(pipeline.DEFAULT_MODEL)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        with em_recording() as rec:
+            t0 = time.perf_counter()
+            best = em.train_em(jobs, opts, input_hmm=shipped, device=dev)
+            wall = time.perf_counter() - t0
+        out[dev] = (best, rec["band_updates"][-1]["paths"],
+                    np.array(rec["histories"]), wall)
+    (bc, pc, hc, wc), (bg, pg, hg, wg) = out["cpu"], out["cuda"]
+    perr = max(np.abs(bc.hmm.transitions - bg.hmm.transitions).max(),
+               np.abs(bc.hmm.emissions - bg.hmm.emissions).max())
+    differ = sum(not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]))
+                 for a, b in zip(pc, pg))
+    res = {"segments": len(pg), "paths_differing": differ,
+           "params_max_abs_err": float(perr),
+           "history_max_rel_err": float((np.abs(hc - hg) / np.abs(hc)).max()),
+           "cpu_s": wc, "cuda_s": wg}
+    log("em band parity: %s" % json.dumps(res))
+    check(len(pc) == len(pg), "em band parity: segment counts differ")
+    check(perr <= 1e-3, "em band parity: trained parameters differ by %g"
+          % perr)
+    return res
+
+
 def ptxas_spills(build_log):
     """{function: (spill store bytes, spill load bytes)} from ptxas -v."""
     out, fn = {}, None
@@ -1628,15 +2074,27 @@ def ptxas_spills(build_log):
 
 
 def check_no_counts_spills(build_log):
-    """The counts kernels (csrc/fb_counts.cu) keep their count partials in
-    registers: ptxas must report none of their variants spilling."""
+    """The counts kernels (csrc/fb_counts.cu, the two counts modes of its
+    templates) keep their count partials in registers: ptxas must report
+    none of their variants spilling.  The generic pair's variants (the
+    templates' MODE_GENERIC, whose value the source states) hold no
+    partials; their spills are logged."""
+    with open(os.path.join(ROOT, KERNELS["fb_generic_fwd"][0])) as f:
+        mode = re.search(r"MODE_GENERIC = (\d+)", f.read())
+    check(mode, "build: fb_counts.cu states no MODE_GENERIC")
+    # Template arguments <RPT, MODE> mangle as ILi<RPT>ELi<MODE>E.
+    variant = re.compile(r"kernelILi\d+ELi%sE" % mode.group(1))
     spills = {fn: s for fn, s in ptxas_spills(build_log).items()
               if "counts_" in fn}
     check(spills, "build: no ptxas report for the counts kernels")
-    bad = {fn: s for fn, s in spills.items() if any(s)}
+    generic = {fn: s for fn, s in spills.items() if variant.search(fn)}
+    bad = {fn: s for fn, s in spills.items() if any(s) and fn not in generic}
     check(not bad, "build: counts kernels spill (stores, loads in bytes): %s"
           % json.dumps(bad))
-    log("build: %d counts kernel variants, no spills" % len(spills))
+    log("build: %d counts kernel variants, no spills; %d generic pair "
+        "variants, spills (stores, loads in bytes): %s"
+        % (len(spills) - len(generic), len(generic),
+           json.dumps({fn: s for fn, s in generic.items() if any(s)})))
 
 
 def card_identity():
@@ -1678,7 +2136,8 @@ def main() -> int:
         cuda = torch.device("cuda")
         compare_kernels("tiny", list(KERNELS), {
             **tiny_inputs(cuda), **tiny_caller_inputs(cuda),
-            **tiny_default_inputs(cuda), **tiny_counts_inputs(cuda)}, 3)
+            **tiny_default_inputs(cuda), **tiny_counts_inputs(cuda),
+            **tiny_generic_inputs(cuda)}, 3)
         with tempfile.TemporaryDirectory() as tmpdir:
             fq, fa, truth, sam, launches, largest, main_res = phase_main(
                 tmpdir)
@@ -1697,6 +2156,24 @@ def main() -> int:
             on_em = phase_em_kernels(largest)
             del largest
             em_parity_launches, em_parity = phase_em_parity(tmpdir, fq, fa)
+            # The card's EM parity run wrote it (--outputModel): trial 0,
+            # started from the shipped model, un-normalised.
+            trial_model = os.path.join(tmpdir, "em_cuda.hmm.trial0")
+            generic_sam, generic_launches, largest, generic_res = (
+                phase_generic(tmpdir, fq, fa, sam, trial_model))
+            on_generic = phase_generic_kernels("generic",
+                                               generic_base(largest))
+            del largest
+            gmut_fa, call_generic_launches, base, call_generic_res = (
+                phase_generic_caller(tmpdir, fa, generic_sam, trial_model))
+            on_call_generic = phase_generic_kernels("call_generic", base)
+            del base
+            generic_parity = phase_generic_parity(
+                tmpdir, fq, fa, generic_sam, gmut_fa, trial_model)
+            band_launches, base, band_res = phase_band(tmpdir, fq, fa, truth)
+            on_em_band = phase_generic_kernels("em_band", base)
+            del base
+            band_parity = phase_band_parity(tmpdir, fq, fa)
         # The policy gives the 256-read E-step batch to the checkpoint
         # pair and the 32-read one to the stored pair: both pairs ran.
         for name in COUNTS_PAIRS["ckpt"]:
@@ -1717,21 +2194,33 @@ def main() -> int:
     log("caller-parity: %s" % json.dumps(caller_parity))
     log("em-path: %s" % json.dumps(em_res))
     log("em-parity: %s" % json.dumps(em_parity))
+    log("generic-path: %s" % json.dumps(generic_res))
+    log("caller-generic: %s" % json.dumps(call_generic_res))
+    log("generic-parity: %s" % json.dumps(generic_parity))
+    log("em-band: %s" % json.dumps(band_res))
+    log("em-band-parity: %s" % json.dumps(band_parity))
     log(card)
     # A kernel's launches and measurements come from the first path it runs
     # on (E and S: marginAlign's main path; the checkpoint counts pair: the
     # EM phase; the stored pair: the card's EM parity run, where the policy
-    # picks it); measurements on later paths ride along under their path
-    # ("caller", "em"), and launches_by_path lists every path that ran it.
+    # picks it; the generic pair: marginAlign with the trial model);
+    # measurements on later paths ride along under their path ("caller",
+    # "em", "call_generic", "em_band"), and launches_by_path lists every
+    # path that ran it.
     by_path = {"align": launches, "rel": rel_launches, "call": call_launches,
-               "em": em_launches, "em_parity": em_parity_launches}
+               "em": em_launches, "em_parity": em_parity_launches,
+               "generic": generic_launches,
+               "call_generic": call_generic_launches,
+               "em_band": band_launches}
     first = {name: "em_parity" if name in COUNTS_PAIRS["stored"] else
              KERNELS[name][3][0] for name in KERNELS}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     lines = []
     for name, (src, rep, _, _) in KERNELS.items():
-        reports = [("align", kernels), ("caller", on_caller), ("em", on_em)]
+        reports = [("align", kernels), ("caller", on_caller), ("em", on_em),
+                   ("generic", on_generic), ("call_generic", on_call_generic),
+                   ("em_band", on_em_band)]
         res = next(r[name] for _, r in reports if name in r)
         line = {"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": by_path[first[name]][name],

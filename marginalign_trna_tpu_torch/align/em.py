@@ -14,11 +14,13 @@ trial's counts.  Training state checkpoints after every iteration
 Reference defaults mirrored from src/margin/marginAlign.py:38-53:
 trials=3, iterations=100, randomStart=True, maxAlignmentLengthToSample=50M.
 
-Not ported yet, each refused with NotImplementedError: re-deriving the band
-during training (update_band_every > 0, --updateTheBand) realigns with a
-mid-training model whose gap emissions are not flat, which needs the
-generic forward-backward kernels (ROADMAP B15); multi-problem lanes (B20);
-training sharded over several processes (slice 5).
+With update_band_every > 0 (--updateTheBand) the band is re-derived during
+training by MEA-realigning the training pairs with the mid-training model,
+whose gap emissions are not flat: the realignment takes the REL path and
+the generic forward-backward pair (align/realign.py).
+
+Not ported yet, each refused with NotImplementedError: multi-problem lanes
+(ROADMAP B20); training sharded over several processes.
 """
 from __future__ import annotations
 
@@ -29,10 +31,12 @@ import numpy as np
 import torch
 
 from ..models.hmm import GAP_X_STATES, MODEL_TYPES, PairHmm
-from ..ops.band import pack_banded_batch
+from ..ops.band import pack_banded_batch, path_from_cigar
 from ..ops.fb import device_batch, tables_from_hmm, tables_stacked
 from ..ops.fb_counts import fb_counts, fb_counts_trials
-from .realign import DEFAULT_BAND_WIDTH, RealignJob, _bucket_jobs
+from .realign import (
+    DEFAULT_BAND_WIDTH, RealignJob, _bucket_jobs, realigned_ops_for_jobs,
+)
 
 
 @dataclass
@@ -71,7 +75,7 @@ class EmOptions:
     # batch for every trial) instead of the reference's serial trials.
     lockstep: bool = True
     # Re-derive the EM band every k iterations (cPecanEm updateTheBand);
-    # 0 = off, the default.  Not ported yet (ROADMAP B15).
+    # 0 = off, the default.
     update_band_every: int = 0
 
 
@@ -264,6 +268,27 @@ def _init_trial_hmm(
     return hmm
 
 
+def _update_band_jobs(jobs: List[RealignJob], hmm: PairHmm,
+                      options: EmOptions, device) -> List[RealignJob]:
+    """Re-derive each training pair's band path by MEA-realigning it with
+    the current model on `device` (EmOptions.update_band_every; gap gamma
+    0.5, match gamma 0, no anchor split: marginalign_trna_tpu/align/em.py
+    `_update_band_jobs`)."""
+    ops_list = realigned_ops_for_jobs(jobs, hmm, 0.5, 0.0, device,
+                                      options.band_width, split_size=0)
+    out = []
+    for job, ops in zip(jobs, ops_list):
+        aligned = [(op, ln) for op, ln in ops if op in (0, 1, 2)]
+        if not aligned:
+            out.append(job)
+            continue
+        out.append(RealignJob(
+            record=job.record, read_region=job.read_region,
+            ref_region=job.ref_region, path=path_from_cigar(aligned),
+        ))
+    return out
+
+
 def _train_em_lockstep(
     batches: List[Tuple[str, object, int]],
     options: EmOptions,
@@ -271,11 +296,16 @@ def _train_em_lockstep(
     psum_fn,
     log_fn,
     checkpoint_path: Optional[str],
+    jobs: List[RealignJob],
+    device,
 ) -> EmTrialResult:
     """All trials advance together: per iteration, one launch per kernel
     and E-step batch computes every trial's counts.  Trial trajectories are
-    the serial path's (same seeds, same per-trial arithmetic).  Converged
-    trials freeze (their parameters stop updating) until all are done."""
+    the serial path's (same seeds, same per-trial arithmetic) except under
+    update_band_every: lockstep trials share one band, re-derived from the
+    current best trial's model, where serial trials keep their own (the JAX
+    package's documented deviation).  Converged trials freeze (their
+    parameters stop updating) until all are done."""
     from .checkpoint import EmLockstepCheckpoint
 
     ntr = options.trials
@@ -288,6 +318,15 @@ def _train_em_lockstep(
         frozen = list(ck.frozen)
         start_iter = ck.iteration
         lls = np.array([h[-1] if h else -np.inf for h in histories])
+        if (options.update_band_every and start_iter > 0
+                and not all(frozen)):
+            # The band is not checkpointed: re-derive it from the restored
+            # best model, so that a resumed run matches an uninterrupted
+            # one (exactly when update_band_every == 1).
+            jobs = _update_band_jobs(jobs, hmms[int(np.argmax(lls))],
+                                     options, device)
+            batches = prepare_em_batches(jobs, options.band_width,
+                                         options.max_batch_cells, device)
     else:
         hmms = [_init_trial_hmm(options, input_hmm, t) for t in range(ntr)]
         histories = [[] for _ in range(ntr)]
@@ -325,6 +364,16 @@ def _train_em_lockstep(
                 histories=histories,
                 frozen=frozen,
             ).save(checkpoint_path)
+        if (options.update_band_every
+                and (it + 1) % options.update_band_every == 0
+                and not all(frozen)):
+            # The band follows the best trial's model; every trial's
+            # likelihood is over the new band from the next iteration on
+            # (a discontinuity the reference's updateTheBand shares).
+            jobs = _update_band_jobs(jobs, hmms[int(np.argmax(lls))],
+                                     options, device)
+            batches = prepare_em_batches(jobs, options.band_width,
+                                         options.max_batch_cells, device)
 
     best_t = int(np.argmax(lls))
     results = []
@@ -341,15 +390,7 @@ def _train_em_lockstep(
     return results[best_t]
 
 
-def _refuse_unported(options: EmOptions) -> None:
-    if options.update_band_every:
-        raise NotImplementedError(
-            "update_band_every > 0 (--updateTheBand) realigns the training "
-            "pairs with a mid-training model whose gap emissions are not "
-            "flat, which needs the generic forward-backward kernels "
-            "(ROADMAP B15: marginalign_trna_tpu/ops/fb_pallas.py "
-            "_run_forward/_run_backward), not ported yet"
-        )
+def _refuse_unported() -> None:
     dist = torch.distributed
     if (dist.is_available() and dist.is_initialized()
             and dist.get_world_size() > 1):
@@ -375,7 +416,7 @@ def train_em(
     equivalent; see align/checkpoint.py)."""
     from .checkpoint import EmCheckpoint, is_lockstep_checkpoint
 
-    _refuse_unported(options)
+    _refuse_unported()
     jobs = sample_jobs(jobs, options.max_alignment_length_to_sample,
                        options.seed)
 
@@ -400,6 +441,7 @@ def train_em(
     if options.lockstep and options.trials > 1 and not serial_resume:
         return _train_em_lockstep(
             batches, options, input_hmm, psum_fn, log_fn, checkpoint_path,
+            jobs, device,
         )
 
     ckpt = EmCheckpoint.try_load(checkpoint_path)
@@ -425,8 +467,12 @@ def train_em(
             history = []
             start_iter = 0
             ll = -np.inf
+        # Each serial trial starts from the original guide band; its band
+        # updates (update_band_every) stay its own.
+        trial_jobs, trial_batches = jobs, batches
         for it in range(start_iter, options.iterations):
-            tc, em, eg, new_ll = expectation_step(batches, hmm, psum_fn)
+            tc, em, eg, new_ll = expectation_step(trial_batches, hmm,
+                                                  psum_fn)
             hmm = _m_step(hmm, tc, em, eg, options.train_emissions)
             hmm.apply_model_type_constraints()
             if options.tie_emissions:
@@ -452,6 +498,13 @@ def train_em(
                 ll = new_ll
                 break
             ll = new_ll
+            if (options.update_band_every
+                    and (it + 1) % options.update_band_every == 0):
+                trial_jobs = _update_band_jobs(trial_jobs, hmm, options,
+                                               device)
+                trial_batches = prepare_em_batches(
+                    trial_jobs, options.band_width, options.max_batch_cells,
+                    device)
         hmm.likelihood = ll
         if options.output_trial_hmms_path:
             hmm.write("%s.trial%d" % (options.output_trial_hmms_path, trial))

@@ -16,8 +16,15 @@ runs as one batch on the device, by one of two paths:
     decode reads directly (ops/mea.py `mea_decode_fused`);
   REL (fused=False; the JAX package with MARGINALIGN_REALIGN_FUSED=off
     MARGINALIGN_LAYOUT=rel): the host packs [D1, Wp, B] band arrays, the
-    forward-backward writes the posterior band (ops/fb_cuda.py) and the gap
-    weights are built as bands (ops/mea.py `mea_decode`).
+    forward-backward writes the posterior band (ops/fb_cuda.py
+    `posteriors_specialised`) and the gap weights are built as bands
+    (ops/mea.py `mea_decode`).
+
+A model whose gap emissions are not flat (an EM model mid-training, an
+un-normalised trial model) takes the REL path whatever `fused` says, as in
+the JAX package: the fused path's kernels fold flat gap emissions into their
+coefficients, the REL path runs such a model through the generic
+forward-backward pair (ops/fb_generic_cuda.py).
 """
 from __future__ import annotations
 
@@ -34,7 +41,7 @@ from ..models.hmm import PairHmm
 from ..ops.band import pack_banded_batch, pack_compact_batch, path_from_cigar
 from ..ops.fb import FbTables, device_batch, tables_from_hmm
 from ..ops.fb_circ import compact_device_batch, posteriors_weights_compact
-from ..ops.fb_cuda import posteriors_pre
+from ..ops.fb_cuda import has_flat_gap_emissions, posteriors_specialised
 from ..ops.mea import mea_decode, mea_decode_fused, rowcol_sums_from_flushed
 from ..utils.seq import encode
 from .chain import chain_sam_file
@@ -233,14 +240,15 @@ def _realign_bucket_fused(jobs: Sequence[RealignJob], tables: FbTables,
 def _realign_bucket_rel(jobs: Sequence[RealignJob], tables: FbTables,
                         gap_gamma: float, match_gamma: float, device,
                         band_width: int) -> List[List[Tuple[int, int]]]:
-    """REL path of one bucket: host band arrays -> forward-backward
-    (K2, K3) -> weight bands -> MEA (K4) -> host traceback."""
+    """REL path of one bucket: host band arrays -> forward-backward (K2
+    and K3, or the generic pair for a model whose gap emissions are not
+    flat) -> weight bands -> MEA (K4) -> host traceback."""
     batch = pack_banded_batch(
         [j.read_region for j in jobs], [j.ref_region for j in jobs],
         width=band_width, paths=[j.path for j in jobs], quantize=True,
     )
     dev = device_batch(batch, device)
-    _, post = posteriors_pre(tables, dev)
+    _, post = posteriors_specialised(tables, dev)
     return mea_decode(post, batch, dev, gap_gamma, match_gamma)
 
 
@@ -261,8 +269,8 @@ def realigned_ops_for_jobs(
 
     split_size > 0 decomposes each problem at guide-path anchors
     (split_job_at_anchors) and concatenates the per-segment cigars.
-    fused=False takes the REL path (module docstring).  Models with
-    non-flat gap emissions raise NotImplementedError (ops/fb_cuda.py)."""
+    fused=False takes the REL path, as does a model whose gap emissions
+    are not flat (module docstring)."""
     if split_size and split_size > 0:
         segs, origin, _ = split_jobs_at_anchors(jobs, split_size)
         if len(segs) != len(jobs):
@@ -276,6 +284,8 @@ def realigned_ops_for_jobs(
             return [_merge_op_runs(ops) for ops in out]
 
     tables = tables_from_hmm(hmm, device)
+    # marginalign_trna_tpu/align/realign.py:265-267, 328, 358-363.
+    fused = fused and has_flat_gap_emissions(tables)
     run_bucket = _realign_bucket_fused if fused else _realign_bucket_rel
     results: List[List[Tuple[int, int]]] = [[] for _ in jobs]
     for bucket in _bucket_jobs(jobs, band_width, max_batch_cells):

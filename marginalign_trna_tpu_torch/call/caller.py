@@ -13,6 +13,12 @@ offsets (ops/band.py `pack_compact_batch`); on the device the band streams
 expand, the backward and the expectation-accumulating forward run, and the
 flushed totals scatter into one dense [positions, 4] tensor over all
 references (ops/expectations.py).  Only that tensor comes back.
+
+A model whose gap emissions are not flat (an un-normalised EM model) cannot
+run those kernels; as in the JAX package, its buckets are packed as band
+arrays (`pack_banded_batch`), run through the generic forward-backward pair
+(ops/fb_generic_cuda.py) and summed per position from the posterior band
+(ops/expectations.py `band_expectations`).
 """
 from __future__ import annotations
 
@@ -26,10 +32,12 @@ from ..io.fasta import get_fasta_dictionary
 from ..io.sam import SamFile
 from ..io.vcf import vcf_read, vcf_write
 from ..models.hmm import PairHmm
-from ..ops.band import pack_compact_batch
-from ..ops.expectations import band_expectations_cx
-from ..ops.fb import tables_from_hmm
+from ..ops.band import pack_banded_batch, pack_compact_batch
+from ..ops.expectations import band_expectations, band_expectations_cx
+from ..ops.fb import device_batch, tables_from_hmm
 from ..ops.fb_circ import compact_device_batch
+from ..ops.fb_cuda import has_flat_gap_emissions
+from ..ops.fb_generic_cuda import posteriors_generic
 from ..pipeline import resolve_device
 from ..utils.seq import BASES, encode
 
@@ -86,7 +94,7 @@ def accumulate_expectations(
 ) -> Dict[str, np.ndarray]:
     """-> {ref_name: [ref_len, 4] expected base counts}.  The posterior
     pass runs on `device` (the kernels on "cuda", their plain versions on
-    "cpu"); models with non-flat gap emissions raise NotImplementedError."""
+    "cpu")."""
     expectations = {
         name: np.zeros((len(seq), 4)) for name, seq in ref_sequences.items()
     }
@@ -103,6 +111,8 @@ def accumulate_expectations(
         jobs, _, seg_starts = split_jobs_at_anchors(jobs, options.split_size)
         job_ref_off = [st[1] for st in seg_starts]
     tables = tables_from_hmm(alignment_hmm, dev)
+    # marginalign_trna_tpu/call/caller.py:173-177, 223-244.
+    flat_gaps = has_flat_gap_emissions(tables)
 
     # Global coordinate space: all references concatenated, so one dense
     # [total, 4] scatter covers every lane whatever reference it aligns to.
@@ -114,7 +124,8 @@ def accumulate_expectations(
     exp_global = np.zeros((total, 4))
     for bucket in _bucket_jobs(jobs, options.band_width,
                                options.max_batch_cells):
-        batch = pack_compact_batch(
+        pack = pack_compact_batch if flat_gaps else pack_banded_batch
+        batch = pack(
             [jobs[i].read_region for i in bucket],
             [jobs[i].ref_region for i in bucket],
             width=options.band_width,
@@ -126,8 +137,15 @@ def accumulate_expectations(
             rec = jobs[job_idx].record
             offsets[local_b] = (global_off[rec.rname] + rec.reference_start
                                 + job_ref_off[job_idx])
-        exp_global += band_expectations_cx(
-            tables, batch, compact_device_batch(batch, dev), offsets, total)
+        if flat_gaps:
+            exp_global += band_expectations_cx(
+                tables, batch, compact_device_batch(batch, dev), offsets,
+                total)
+        else:
+            bdev = device_batch(batch, dev)
+            _, post = posteriors_generic(tables, bdev)
+            exp_global += band_expectations(post, batch, bdev, offsets,
+                                            total, len(bucket))
     for name, seq in ref_sequences.items():
         off = global_off[name]
         expectations[name] += exp_global[off : off + len(seq)]

@@ -85,8 +85,9 @@ def margin_align_main(argv=None) -> int:
                    help="Start EM trial 0 from the input model instead of "
                         "a random start")
     p.add_argument("--updateTheBand", action="store_true",
-                   help="Re-derive the EM band each iteration (not ported "
-                        "yet: refused)")
+                   help="Re-derive the EM band after each iteration by "
+                        "realigning the training pairs with the current "
+                        "model")
     p.add_argument("--tieEmissions", action="store_true",
                    help="Tie short/long gap-state emissions during EM")
     p.add_argument("--setJukesCantorStartingEmissions", type=float,

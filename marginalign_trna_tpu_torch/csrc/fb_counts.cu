@@ -20,6 +20,21 @@
 //                       checkpoint into shared memory, then the backward of
 //                       counts_bwd with 25 match partials and no posterior.
 //
+// and, as a third instance of the same two kernel templates (MODE_GENERIC,
+// one model), the generic forward-backward of marginalign_trna_tpu/ops/
+// fb_pallas.py for models whose gap emissions are not flat:
+//   fb_generic_fwd   <- `_fwd_body` (`_run_forward` :480, pallas_calls :519
+//                       dynamic tables and :526 baked tables): the same
+//                       forward, storing only the scaled match plane F_match,
+//                       lsf and the terminal sums;
+//   fb_generic_bwd   <- `_bwd_body` (`_run_backward` :693, pallas_calls :747
+//                       and :753): the same backward, writing the posterior
+//                       match band F_match * b_M * exp(lsf + bls - logZ) and
+//                       counting nothing.
+// Run-time tables cover both TPU variants: the baked variant only skips
+// terms that are statically zero and folds a flat gap row into a scalar,
+// which rounds exactly like the lookup and the sum in the same order.
+//
 // Layout: as the other wavefront kernels (common.cuh), one block owns L
 // consecutive lanes (threadIdx.x) and all Wp band rows (8 row threads of
 // RPT rows each) of one trial (blockIdx.y): the TPU's sequential trials
@@ -43,7 +58,9 @@
 // counts_bwd reads 20 B and writes 4 B, so a full card would be memory
 // bound; counts_fwd_ckpt writes ~5 B per cell; counts_bwd_ckpt does a
 // forward again, the backward and ~100 count operations per cell and is
-// operation bound.  At the EM batches (8192 lanes, 3 trials: 768 blocks of
+// operation bound.  The generic pair moves 7 B per cell forward (codes in,
+// F_match out) and 11 B backward (F_match and codes in, posterior out).
+// At the EM batches (8192 lanes, 3 trials: 768 blocks of
 // 32 lanes) the chain of dependent diagonals, a barrier each, bounds them
 // first.  The 120 KB of recomputed frontiers of counts_bwd_ckpt live in
 // dynamic shared memory (195 KB a block at Wp 24: one block per SM); the
@@ -58,6 +75,11 @@ constexpr int ROW_THREADS = 8;   // threadIdx.y extent at most: Wp <= 8 * RPT
 constexpr int MAX_THREADS = 256;
 constexpr int TAB = 80;          // T, Ematch, Egap (75 floats), padded
 constexpr int K = 8;             // diagonals per rescale period / block
+
+// Kernel variants: the stored counts pair (all five planes of f), the
+// checkpoint counts pair, and the generic forward-backward pair (the match
+// plane of f, the posterior band, no counts).
+enum Mode { MODE_STORED = 0, MODE_CKPT = 1, MODE_GENERIC = 2 };
 
 struct Dims {
   int L, TY, lane, ty, b, t, Wp, B, plane;
@@ -196,7 +218,10 @@ __device__ __forceinline__ float sum5(const float (&v)[5]) {
   return (((v[0] + v[1]) + v[2]) + v[3]) + v[4];
 }
 
-template <int RPT, bool CKPT>
+// band: f_all [ntr][d1k][5][Wp][B] (MODE_STORED), the checkpoints
+// [ntr][G][10][Wp][B] (MODE_CKPT) or F_match [ntr][d1k][Wp][B]
+// (MODE_GENERIC).
+template <int RPT, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS)
     counts_fwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
                       const float* __restrict__ Eg,
@@ -208,6 +233,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       int B, float* __restrict__ band,
                       float* __restrict__ cs, float* __restrict__ lsf,
                       float* __restrict__ term) {
+  constexpr bool CKPT = MODE == MODE_CKPT;
   extern __shared__ float smem[];
   const Dims g = dims(Wp, B);
   float* fG = smem;                // [2][4][Wp][L] gap-target mixes of d-1
@@ -233,10 +259,12 @@ __global__ void __launch_bounds__(MAX_THREADS)
   for (int r = 0; r < RPT; ++r) {
     const int k = g.ty + r * g.TY;
     if (k >= Wp || !g.live) continue;
-    if constexpr (!CKPT) {
+    if constexpr (MODE == MODE_STORED) {
 #pragma unroll
       for (int s = 0; s < NS; ++s)
         band[((t0 * NS + s) * Wp + k) * B + g.b] = f[r][s];
+    } else if constexpr (MODE == MODE_GENERIC) {
+      band[(t0 * Wp + k) * B + g.b] = f[r][0];
     }
     if (k == fk) term[t0 * B + g.b] = sum5(f[r]);
   }
@@ -270,10 +298,12 @@ __global__ void __launch_bounds__(MAX_THREADS)
         const int k = g.ty + r * g.TY;
         if (k >= Wp) continue;
         if (k == fk) term[tdb] = tv;
-        if constexpr (!CKPT) {
+        if constexpr (MODE == MODE_STORED) {
 #pragma unroll
           for (int s = 0; s < NS; ++s)
             band[(((t0 + d) * NS + s) * Wp + k) * B + g.b] = f[r][s];
+        } else if constexpr (MODE == MODE_GENERIC) {
+          band[((t0 + d) * Wp + k) * B + g.b] = f[r][0];
         } else if (d % K == K - 1) {
           const size_t blk = (size_t)g.t * G + d / K;
 #pragma unroll
@@ -315,7 +345,10 @@ __device__ __forceinline__ void reduce_rows(const float (&acc)[N], float* shR,
   }
 }
 
-template <int RPT, bool CKPT>
+// band: the forward's f_all, checkpoints or F_match (counts_fwd_kernel);
+// post is written by MODE_STORED and MODE_GENERIC, the count partials by
+// the two counts modes.
+template <int RPT, int MODE>
 __global__ void __launch_bounds__(MAX_THREADS)
     counts_bwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
                       const float* __restrict__ Eg,
@@ -330,6 +363,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       const float* __restrict__ logZ, int d1k, int Wp, int B,
                       float* __restrict__ post, float* __restrict__ tcp,
                       float* __restrict__ egp, float* __restrict__ mcp) {
+  constexpr bool CKPT = MODE == MODE_CKPT;
+  constexpr bool COUNTS = MODE != MODE_GENERIC;
   extern __shared__ float smem[];
   const Dims g = dims(Wp, B);
   const int plane = g.plane;
@@ -352,11 +387,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const int G = d1k / K;
   float bls = 0.f, cprev = 1.f;
   int sh1 = 0, sh2 = 0;  // s1 at d+1 and d+2
-  float tca[25], ega[20], mca[CKPT ? 25 : 1];
+  float tca[COUNTS ? 25 : 1], ega[COUNTS ? 20 : 1], mca[CKPT ? 25 : 1];
 #pragma unroll
-  for (int j = 0; j < 25; ++j) tca[j] = 0.f;
+  for (int j = 0; j < (COUNTS ? 25 : 1); ++j) tca[j] = 0.f;
 #pragma unroll
-  for (int j = 0; j < 20; ++j) ega[j] = 0.f;
+  for (int j = 0; j < (COUNTS ? 20 : 1); ++j) ega[j] = 0.f;
 #pragma unroll
   for (int j = 0; j < (CKPT ? 25 : 1); ++j) mca[j] = 0.f;
   __syncthreads();
@@ -501,10 +536,14 @@ __global__ void __launch_bounds__(MAX_THREADS)
         for (int s = 0; s < NS; ++s) {
           if constexpr (CKPT)
             fv[s] = fs[((kb * NS + s) * Wp + k) * g.L + g.lane];
-          else
+          else if constexpr (MODE == MODE_STORED)
             fv[s] = g.live
                         ? band[((((size_t)g.t * d1k + d) * NS + s) * Wp + k) *
                                    B + g.b]
+                        : 0.f;
+          else
+            fv[s] = g.live && s == 0
+                        ? band[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b]
                         : 0.f;
         }
         if constexpr (!CKPT) {
@@ -512,19 +551,21 @@ __global__ void __launch_bounds__(MAX_THREADS)
             post[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b] =
                 (fv[0] * nb[r][0]) * alpha0;
         }
+        if constexpr (COUNTS) {
 #pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const float fa = fv[s] * alpha1;
+          for (int s = 0; s < NS; ++s) {
+            const float fa = fv[s] * alpha1;
 #pragma unroll
-          for (int u = 0; u < NS; ++u) tca[s * 5 + u] += fa * q[r][u];
-        }
+            for (int u = 0; u < NS; ++u) tca[s * 5 + u] += fa * q[r][u];
+          }
 #pragma unroll
-        for (int s = 1; s < NS; ++s) {
-          const float gam = (fv[s] * nb[r][s]) * a0n;
-          const int code = (s & 1) ? x : y;  // states 1, 3 emit the ref base
+          for (int s = 1; s < NS; ++s) {
+            const float gam = (fv[s] * nb[r][s]) * a0n;
+            const int code = (s & 1) ? x : y;  // states 1, 3: the ref base
 #pragma unroll
-          for (int c = 0; c < 5; ++c)
-            ega[(s - 1) * 5 + c] += code == c ? gam : 0.f;
+            for (int c = 0; c < 5; ++c)
+              ega[(s - 1) * 5 + c] += code == c ? gam : 0.f;
+          }
         }
         if constexpr (CKPT) {
           const float gm = (fv[0] * nb[r][0]) * a0n;
@@ -544,8 +585,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
       __syncthreads();
     }
   }
-  reduce_rows<25>(tca, shR, tcp, g);
-  reduce_rows<20>(ega, shR, egp, g);
+  if constexpr (COUNTS) {
+    reduce_rows<25>(tca, shR, tcp, g);
+    reduce_rows<20>(ega, shR, egp, g);
+  }
   if constexpr (CKPT) reduce_rows<25>(mca, shR, mcp, g);
 }
 
@@ -564,7 +607,7 @@ int lanes_for(F floats) {
   return L;
 }
 
-template <int RPT, bool CKPT>
+template <int RPT, int MODE>
 cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
                     const int8_t* xb, const int8_t* yb, const uint8_t* valid,
                     const int32_t* s1, const int32_t* fink, int ntr, int d1k,
@@ -573,15 +616,15 @@ cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
   const int L = lanes_for([&](int l) { return fwd_smem(Wp, l); });
   const size_t bytes = fwd_smem(Wp, L) * sizeof(float);
   cudaError_t err =
-      mk::allow_smem((const void*)counts_fwd_kernel<RPT, CKPT>, bytes);
+      mk::allow_smem((const void*)counts_fwd_kernel<RPT, MODE>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
-  counts_fwd_kernel<RPT, CKPT><<<grid, block, bytes, stream>>>(
+  counts_fwd_kernel<RPT, MODE><<<grid, block, bytes, stream>>>(
       T, Em, Eg, xb, yb, valid, s1, fink, d1k, Wp, B, band, cs, lsf, term);
   return cudaGetLastError();
 }
 
-template <int RPT, bool CKPT>
+template <int RPT, int MODE>
 cudaError_t run_bwd(const float* T, const float* Em, const float* Eg,
                     const float* band, const float* lsf_cs, const int8_t* xb,
                     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
@@ -589,13 +632,14 @@ cudaError_t run_bwd(const float* T, const float* Em, const float* Eg,
                     const float* logZ, int ntr, int d1k, int Wp, int B,
                     float* post, float* tcp, float* egp, float* mcp,
                     cudaStream_t stream) {
+  constexpr bool CKPT = MODE == MODE_CKPT;
   const int L = lanes_for([&](int l) { return bwd_smem(Wp, l, CKPT); });
   const size_t bytes = bwd_smem(Wp, L, CKPT) * sizeof(float);
   cudaError_t err =
-      mk::allow_smem((const void*)counts_bwd_kernel<RPT, CKPT>, bytes);
+      mk::allow_smem((const void*)counts_bwd_kernel<RPT, MODE>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
-  counts_bwd_kernel<RPT, CKPT><<<grid, block, bytes, stream>>>(
+  counts_bwd_kernel<RPT, MODE><<<grid, block, bytes, stream>>>(
       T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, d1k, Wp,
       B, post, tcp, egp, mcp);
   return cudaGetLastError();
@@ -613,7 +657,7 @@ bool bad_shape(int ntr, int d1k, int Wp, int B) {
          Wp > ROW_THREADS * 4;
 }
 
-template <bool CKPT>
+template <int MODE>
 int fwd_launch(const float* T, const float* Em, const float* Eg,
                const int8_t* xb, const int8_t* yb, const uint8_t* valid,
                const int32_t* s1, const int32_t* fink, int ntr, int d1k,
@@ -622,13 +666,13 @@ int fwd_launch(const float* T, const float* Em, const float* Eg,
   if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (rows_per_thread(Wp)) {
-    case 2: return run_fwd<2, CKPT>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
-    case 3: return run_fwd<3, CKPT>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
-    default: return run_fwd<4, CKPT>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    case 2: return run_fwd<2, MODE>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    case 3: return run_fwd<3, MODE>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    default: return run_fwd<4, MODE>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
   }
 }
 
-template <bool CKPT>
+template <int MODE>
 int bwd_launch(const float* T, const float* Em, const float* Eg,
                const float* band, const float* lsf_cs, const int8_t* xb,
                const int8_t* yb, const uint8_t* valid, const int32_t* s1,
@@ -638,9 +682,9 @@ int bwd_launch(const float* T, const float* Em, const float* Eg,
   if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (rows_per_thread(Wp)) {
-    case 2: return run_bwd<2, CKPT>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
-    case 3: return run_bwd<3, CKPT>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
-    default: return run_bwd<4, CKPT>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+    case 2: return run_bwd<2, MODE>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+    case 3: return run_bwd<3, MODE>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+    default: return run_bwd<4, MODE>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
   }
 }
 
@@ -656,8 +700,8 @@ extern "C" int counts_fwd_all_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int ntr, int d1k, int Wp, int B, float* f_all,
     float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<false>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp,
-                           B, f_all, cs, lsf, term, stream);
+  return fwd_launch<MODE_STORED>(T, Em, Eg, xb, yb, valid, s1, fink, ntr,
+                                 d1k, Wp, B, f_all, cs, lsf, term, stream);
 }
 
 extern "C" int counts_fwd_ckpt_launch(
@@ -665,8 +709,8 @@ extern "C" int counts_fwd_ckpt_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int ntr, int d1k, int Wp, int B, float* ckpt,
     float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<true>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp,
-                          B, ckpt, cs, lsf, term, stream);
+  return fwd_launch<MODE_CKPT>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k,
+                               Wp, B, ckpt, cs, lsf, term, stream);
 }
 
 extern "C" int counts_bwd_launch(
@@ -675,9 +719,9 @@ extern "C" int counts_bwd_launch(
     const uint8_t* valid, const int32_t* s1, const int32_t* fink,
     const int32_t* find, const float* logZ, int ntr, int d1k, int Wp, int B,
     float* post, float* tcp, float* egp, float* mcp, void* stream) {
-  return bwd_launch<false>(T, Em, Eg, f_all, lsf, xb, yb, valid, s1, fink,
-                           find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp,
-                           stream);
+  return bwd_launch<MODE_STORED>(T, Em, Eg, f_all, lsf, xb, yb, valid, s1,
+                                 fink, find, logZ, ntr, d1k, Wp, B, post, tcp,
+                                 egp, mcp, stream);
 }
 
 extern "C" int counts_bwd_ckpt_launch(
@@ -686,6 +730,31 @@ extern "C" int counts_bwd_ckpt_launch(
     const uint8_t* valid, const int32_t* s1, const int32_t* fink,
     const int32_t* find, const float* logZ, int ntr, int d1k, int Wp, int B,
     float* post, float* tcp, float* egp, float* mcp, void* stream) {
-  return bwd_launch<true>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink, find,
-                          logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, stream);
+  return bwd_launch<MODE_CKPT>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,
+                               find, logZ, ntr, d1k, Wp, B, post, tcp, egp,
+                               mcp, stream);
+}
+
+// The generic forward-backward pair of one model (T, Em, Eg [5, 5]):
+// fb_generic_fwd writes F_match [d1k, Wp, B], lsf and term [d1k, B];
+// fb_generic_bwd reads F_match, lsf and logZ [B] and writes the posterior
+// band [d1k, Wp, B].
+extern "C" int fb_generic_fwd_launch(
+    const float* T, const float* Em, const float* Eg, const int8_t* xb,
+    const int8_t* yb, const uint8_t* valid, const int32_t* s1,
+    const int32_t* fink, int d1k, int Wp, int B, float* fmatch, float* lsf,
+    float* term, void* stream) {
+  return fwd_launch<MODE_GENERIC>(T, Em, Eg, xb, yb, valid, s1, fink, 1, d1k,
+                                  Wp, B, fmatch, nullptr, lsf, term, stream);
+}
+
+extern "C" int fb_generic_bwd_launch(
+    const float* T, const float* Em, const float* Eg, const float* fmatch,
+    const float* lsf, const int8_t* xb, const int8_t* yb,
+    const uint8_t* valid, const int32_t* s1, const int32_t* fink,
+    const int32_t* find, const float* logZ, int d1k, int Wp, int B,
+    float* post, void* stream) {
+  return bwd_launch<MODE_GENERIC>(T, Em, Eg, fmatch, lsf, xb, yb, valid, s1,
+                                  fink, find, logZ, 1, d1k, Wp, B, post,
+                                  nullptr, nullptr, nullptr, stream);
 }

@@ -84,6 +84,12 @@ _SIGNATURES: Dict[str, List] = {
     # d1k, Wp, B, post, tcp, egp, mcp, stream
     "counts_bwd": [_P] * 12 + [_I] * 4 + [_P] * 5,
     "counts_bwd_ckpt": [_P] * 12 + [_I] * 4 + [_P] * 5,
+    # T, Em, Eg, xb, yb, valid, s1, fink, d1k, Wp, B, fmatch, lsf, term,
+    # stream
+    "fb_generic_fwd": [_P] * 8 + [_I] * 3 + [_P] * 4,
+    # T, Em, Eg, fmatch, lsf, xb, yb, valid, s1, fink, find, logZ, d1k, Wp,
+    # B, post, stream
+    "fb_generic_bwd": [_P] * 12 + [_I] * 3 + [_P] * 2,
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}

@@ -14,19 +14,24 @@ per lane by the scatter_lanes kernel (ops/mea.py
 `rowcol_sums_from_flushed`).  The JAX package pads the flush rows to its TPU
 kernels' 128-row groups before the tails; the card's scatters have no row
 groups, so here the tails follow the flush rows directly.
+
+A model whose gap emissions are not flat cannot run the fused passes; its
+posterior band (ops/fb_generic_cuda.py) is summed per reference position by
+`band_expectations`, plain torch ops on the band's device (the JAX package's
+XLA `_expectations_device`).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .band import CompactBandedBatch
+from .band import BandedBatch, CompactBandedBatch
 from .bucket_scatter import (
     scatter_lanes_cuda, scatter_lanes_plain, scatter_lanesum_cuda,
     scatter_lanesum_plain,
 )
 from .dispatch import use_kernel
-from .fb import FbTables
+from .fb import DeviceBatch, FbTables
 from .fb_circ import (
     STEP_BLOCK, CompactCircBatch, posteriors_expectations_compact,
 )
@@ -132,3 +137,63 @@ def band_expectations_cx(
                                     batch.wp, d1k)
     vals, jm = concat_flush_tails(fl, tails, jmap, jtail)
     return scatter_lanesum(vals, jm, rg).cpu().numpy()[:total_ref_len]
+
+
+def run_boundaries(lo: torch.Tensor, width: int) -> torch.Tensor:
+    """E1[v, b] = #{d : gl(d, b) <= v} for v in [0, D1 + width], int64, on
+    lo's device: gl(d, b) = d - lo(d, b) is lane b's local reference
+    position after the cells of diagonal d, non-decreasing in d (the JAX
+    package's `run_boundaries` in lane-local coordinates)."""
+    D1, B = lo.shape
+    gl = torch.arange(D1, device=lo.device)[None, :] - lo.long().T
+    vs = torch.arange(D1 + width + 1, device=lo.device).expand(B, -1)
+    return torch.searchsorted(gl.contiguous(), vs.contiguous(),
+                              right=True).T
+
+
+def band_expectations(post: torch.Tensor, batch: BandedBatch,
+                      dev: DeviceBatch, ref_offsets: np.ndarray,
+                      total_ref_len: int, n_real: int) -> np.ndarray:
+    """[total_ref_len, 4] expected base counts of one posterior band
+    [D1, Wp, B] on dev's device (marginalign_trna_tpu/ops/expectations.py
+    `band_expectations`).  Cell (d, k) of lane b targets local reference
+    position gl(d, b) - k - 1 = j - 1, so for a fixed band row every
+    position collects a contiguous run of diagonals: per read base code, a
+    cumulative sum along the diagonals and, per band row, its differences
+    at the run boundaries (`run_boundaries`), summed over rows.  Each
+    lane's D1 local sums are then added at ref_offsets[b] + j - 1, so
+    memory grows with the band, not with total_ref_len x lanes.  Lanes
+    >= n_real are padding.  Cells with i = 0 or j = 0 are boundary cells
+    and emit nothing."""
+    D1, Wp, _ = post.shape
+    device = post.device
+    post = post[:, :, :n_real]
+    lo = torch.from_numpy(np.ascontiguousarray(batch.lo[:, :n_real])).to(
+        device)
+    e1 = run_boundaries(lo, batch.width)
+    d = torch.arange(D1, device=device, dtype=lo.dtype)[:, None, None]
+    i = lo[:, None, :] + torch.arange(Wp, device=device,
+                                      dtype=lo.dtype)[None, :, None]
+    ok = dev.valid[:, :, :n_real] & (i >= 1) & (d - i >= 1)
+    del i
+    yb = dev.yb[:, :, :n_real]
+    zero = post.new_zeros(())
+    local = post.new_zeros((D1, n_real, 4))
+    for c in range(4):
+        wc = torch.where(ok & (yb == c), post, zero)
+        sp = torch.cat([post.new_zeros((1, Wp, n_real)),
+                        torch.cumsum(wc, dim=0)])
+        del wc
+        acc = post.new_zeros((D1, n_real))
+        for k in range(batch.width):
+            gk = torch.gather(sp[:, k, :], 0, e1[k:k + D1 + 1])
+            acc = acc + (gk[1:] - gk[:-1])
+        local[:, :, c] = acc
+        del sp
+    off = torch.from_numpy(np.asarray(ref_offsets[:n_real], np.int64)).to(
+        device)
+    target = off[None, :] + torch.arange(D1, device=device)[:, None]
+    keep = target < total_ref_len
+    out = post.new_zeros((max(total_ref_len, 1), 4))
+    out.index_add_(0, target[keep], local[keep])
+    return out.cpu().numpy()[:total_ref_len]

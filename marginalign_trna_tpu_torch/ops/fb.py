@@ -74,6 +74,18 @@ def tables_from_jax(np_tables, device=None) -> FbTables:
     )
 
 
+def check_uniform_pi(tables: FbTables) -> None:
+    """The kernels bake the uniform start distribution (1/5) into their
+    start injection and logZ; a model file carries no start distribution, so
+    pi is uniform everywhere today.  Fail loudly on anything else."""
+    pi = tables.pi.detach().cpu().numpy()
+    if not np.allclose(pi, 1.0 / pi.shape[-1], atol=1e-6):
+        raise NotImplementedError(
+            "the forward-backward kernels assume a uniform start "
+            "distribution (got pi=%s)" % pi.tolist()
+        )
+
+
 class DeviceBatch(NamedTuple):
     """BandedBatch streams as tensors on one device (see ops/band.py):
     xb, yb int8 [D1, Wp, B]; valid bool [D1, Wp, B]; s1, s2 int32 [D1, B];

@@ -33,8 +33,8 @@ import torch
 from . import fb_circ_cuda as K
 from .band import CompactBandedBatch, circ_mw_streams, padded_band_width
 from .dispatch import use_kernel
-from .fb import FbTables
-from .fb_cuda import check_uniform_pi, require_flat_gaps, static_tables
+from .fb import FbTables, check_uniform_pi
+from .fb_cuda import require_flat_gaps, static_tables
 
 STEP_BLOCK = 8  # the TPU kernels' diagonals per grid step; d1k rounds to it
 

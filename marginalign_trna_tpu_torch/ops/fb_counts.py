@@ -26,8 +26,7 @@ import torch
 
 from . import fb_counts_cuda as K
 from .dispatch import use_kernel
-from .fb import DeviceBatch, FbTables
-from .fb_cuda import check_uniform_pi
+from .fb import DeviceBatch, FbTables, check_uniform_pi
 
 # The stored pair's bands (f_all and the posterior band) must fit this many
 # MiB, else the checkpoint pair runs (the JAX package's

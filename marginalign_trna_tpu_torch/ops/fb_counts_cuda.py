@@ -154,7 +154,11 @@ class _Forward:
         return new, inv
 
 
-def _forward(T, Em, Eg, xb, yb, valid, s1, fink, ckpt: bool):
+def _forward(T, Em, Eg, xb, yb, valid, s1, fink, store: str):
+    """The forward over the band, storing (the kernels' modes) "all": the
+    five states of every diagonal (f_all), "ckpt": the checkpoints of every
+    8-diagonal block, or "match": the match state of every diagonal
+    (F_match, the generic forward); with lsf and term."""
     d1k, Wp, B = xb.shape
     ntr = T.shape[0]
     fw = _Forward(T, Em, Eg, Wp, B)
@@ -162,41 +166,51 @@ def _forward(T, Em, Eg, xb, yb, valid, s1, fink, ckpt: bool):
     sel = (rows == fink[None, :]).float()
     lsf = T.new_empty((ntr, d1k, B))
     term = T.new_empty((ntr, d1k, B))
-    if ckpt:
+    if store == "ckpt":
         G = d1k // STEP_BLOCK
         ck = T.new_empty((ntr, G, 2 * _NSTATE, Wp, B))
         cs = T.new_zeros((ntr, G, 4, B))
+    elif store == "all":
+        band = T.new_empty((ntr, d1k, _NSTATE, Wp, B))
     else:
-        f_all = T.new_empty((ntr, d1k, _NSTATE, Wp, B))
+        band = T.new_empty((ntr, d1k, Wp, B))
+
+    def keep(d):
+        if store == "all":
+            band[:, d] = torch.stack(fw.f1, dim=1)
+        elif store == "match":
+            band[:, d] = fw.f1[0]
+
     # d = 0 is pure initialisation: the start distribution at row 0.
     fw.sprev = s1[0]
     lsf[:, 0] = fw.ls
     term[:, 0] = (_sum5(fw.f1) * sel).sum(dim=-2)
-    if not ckpt:
-        f_all[:, 0] = torch.stack(fw.f1, dim=1)
+    keep(0)
     for d in range(1, d1k):
         new, inv = fw.step(d, xb, yb, valid, s1)
         t = (_sum5(new) * sel).sum(dim=-2)
         term[:, d] = t if inv is None else t * inv
         lsf[:, d] = fw.ls
-        if not ckpt:
-            f_all[:, d] = torch.stack(fw.f1, dim=1)
-        elif d % STEP_BLOCK == STEP_BLOCK - 1:
+        keep(d)
+        if store == "ckpt" and d % STEP_BLOCK == STEP_BLOCK - 1:
             g = d // STEP_BLOCK
             ck[:, g] = torch.stack(fw.f1 + fw.f2, dim=1)
             cs[:, g, 0] = fw.ls
             cs[:, g, 1] = fw.cprev
             cs[:, g, 2] = fw.sprev.float()
-    if ckpt:
+    if store == "ckpt":
         return ck, cs, lsf, term
-    return f_all, lsf, term
+    return band, lsf, term
 
 
 class _Backward:
     """The counts backward's state and per-lane partials, one diagonal at
-    a time (descending d)."""
+    a time (descending d).  counts=False keeps no partials (the generic
+    forward-backward's backward, ops/fb_generic_cuda.py): `step` then needs
+    only the match plane of the forward frontier."""
 
-    def __init__(self, T, Em, Eg, logZ, Wp, B, match: bool):
+    def __init__(self, T, Em, Eg, logZ, Wp, B, match: bool,
+                 counts: bool = True):
         self.T, self.Em, self.Eg = _cols(T), Em, Eg
         ntr = T.shape[0]
         zero = T.new_zeros((ntr, Wp, B))
@@ -207,14 +221,15 @@ class _Backward:
         self.sh1 = self.sh2 = torch.zeros(B, dtype=torch.int32,
                                           device=T.device)  # s1 at d+1, d+2
         self.logZ = logZ
-        self.tca = T.new_zeros((ntr, N_TRANS, B))
-        self.ega = T.new_zeros((ntr, N_GAP, B))
+        self.tca = T.new_zeros((ntr, N_TRANS, B)) if counts else None
+        self.ega = T.new_zeros((ntr, N_GAP, B)) if counts else None
         self.mca = T.new_zeros((ntr, N_MATCH, B)) if match else None
         self.codes = torch.arange(5, device=T.device)[:, None, None]
 
     def step(self, d, f_d, lsf_d, xb, yb, valid, s1, fink, find):
-        """Diagonal d from the forward frontier f_d ([Ntr, 5, Wp, B], at
-        log-scale lsf_d [Ntr, B]); returns the posterior match band of d."""
+        """Diagonal d from the forward frontier f_d ([Ntr, 5, Wp, B], or
+        [Ntr, 1, Wp, B] without counts, at log-scale lsf_d [Ntr, B]);
+        returns the posterior match band of d."""
         Wp = f_d.shape[-2]
         s1n, s2n = self.sh1, self.sh1 + self.sh2
         q = [shift(self.p2, 1 - s2n),
@@ -246,8 +261,16 @@ class _Backward:
         else:
             alpha0 = torch.exp(lsf_d + self.bls - self.logZ)
             alpha1 = alpha0
-        a0, a1 = alpha0[:, None, :], alpha1[:, None, :]
+        a0 = alpha0[:, None, :]
         post = f_d[:, 0] * new[0] * a0
+        if self.tca is not None:
+            self._count(d, f_d, new, q, alpha1, a0, x, y)
+        self.p2, self.p1 = self.p1, em * new[0]
+        self.g1 = [eg[s - 1] * new[s] for s in range(1, _NSTATE)]
+        return post
+
+    def _count(self, d, f_d, new, q, alpha1, a0, x, y):
+        """Add diagonal d's count partials."""
         # Transition partials: sum over rows of (F_hat[s] * alpha1) * q[u].
         fs = f_d * alpha1[:, None, None, :]
         qs = torch.stack(q, dim=1)
@@ -267,9 +290,6 @@ class _Backward:
             for a in range(5):
                 self.mca[:, 5 * a:5 * a + 5] += (
                     (gm * hx[a])[:, None] * hy).sum(dim=-2)
-        self.p2, self.p1 = self.p1, em * new[0]
-        self.g1 = [eg[s - 1] * new[s] for s in range(1, _NSTATE)]
-        return post
 
 
 # ------------------------------------------------------------ plain versions
@@ -278,7 +298,7 @@ class _Backward:
 def counts_fwd_all_plain(T, Em, Eg, xb, yb, valid, s1, fink):
     """Plain version of the counts_fwd_all kernel: (f_all
     [Ntr, d1k, 5, Wp, B], lsf [Ntr, d1k, B], term [Ntr, d1k, B])."""
-    return _forward(T, Em, Eg, xb, yb, valid, s1, fink, ckpt=False)
+    return _forward(T, Em, Eg, xb, yb, valid, s1, fink, "all")
 
 
 def counts_bwd_plain(T, Em, Eg, f_all, lsf, xb, yb, valid, s1, fink, find,
@@ -299,7 +319,7 @@ def counts_fwd_ckpt_plain(T, Em, Eg, xb, yb, valid, s1, fink):
     [Ntr, G, 10, Wp, B] = f[d] and f[d-1] at the last diagonal d of each
     8-diagonal block, cs [Ntr, G, 4, B] = ls, cprev, s1 there and 0,
     lsf [Ntr, d1k, B], term [Ntr, d1k, B])."""
-    return _forward(T, Em, Eg, xb, yb, valid, s1, fink, ckpt=True)
+    return _forward(T, Em, Eg, xb, yb, valid, s1, fink, "ckpt")
 
 
 def counts_bwd_ckpt_plain(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,

@@ -18,6 +18,10 @@ Scaling is the TPU kernels': rescale by the band max every 8 diagonals
 (backward at d % 8 == 0, forward at d % 8 == 7), factor 1 for a step with no
 mass, and the d-2 term divided by the previous factor on the diagonal after
 a rescale.  The plain versions follow the kernels' arithmetic step for step.
+
+Models whose gap emissions are not flat run through the generic pair
+(ops/fb_generic_cuda.py); `posteriors_specialised` picks the pair by model,
+as the JAX package's `posteriors_pallas_specialised` does.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 from . import _build
 from ._build import check_tensor
 from .dispatch import use_kernel
-from .fb import DeviceBatch, FbTables, shift
+from .fb import DeviceBatch, FbTables, check_uniform_pi, shift
+from .fb_generic_cuda import posteriors_generic
 
 _NSTATE = 5
 _RESCALE_PERIOD = 8
@@ -59,18 +64,17 @@ def _flat_gap_consts(st) -> Optional[Tuple[float, float, float, float]]:
 
 
 def require_flat_gaps(st) -> Tuple[float, float, float, float]:
-    """The flat gap emissions of static tables `st`; raises
-    NotImplementedError for a model whose gap rows are not flat, which
-    needs the generic forward-backward kernels (ROADMAP B15,
-    marginalign_trna_tpu/ops/fb_pallas.py _run_forward/_run_backward), not
-    ported yet."""
+    """The flat gap emissions of static tables `st`, which the flat-gap
+    kernels fold into their coefficients; raises ValueError for a model
+    whose gap rows are not flat (the generic pair runs those:
+    `posteriors_specialised` routes by model)."""
     gc = _flat_gap_consts(st)
     if gc is None:
-        raise NotImplementedError(
-            "models with non-flat gap emissions need the generic "
-            "forward-backward kernels (ROADMAP B15: "
-            "marginalign_trna_tpu/ops/fb_pallas.py "
-            "_run_forward/_run_backward), which are not ported yet"
+        raise ValueError(
+            "the flat-gap forward-backward kernels take only models whose "
+            "gap emissions are flat; run this model through the generic "
+            "pair (ops/fb_generic_cuda.py posteriors_generic, or "
+            "ops/fb_cuda.py posteriors_specialised, which routes by model)"
         )
     return gc
 
@@ -81,18 +85,6 @@ def has_flat_gap_emissions(tables: FbTables) -> bool:
     coefficients.  EM-trained models mid-training are generically
     non-flat."""
     return _flat_gap_consts(static_tables(tables)) is not None
-
-
-def check_uniform_pi(tables: FbTables) -> None:
-    """The kernels bake the uniform start distribution (1/5) into their
-    start injection and logZ; a model file carries no start distribution, so
-    pi is uniform everywhere today.  Fail loudly on anything else."""
-    pi = tables.pi.detach().cpu().numpy()
-    if not np.allclose(pi, 1.0 / pi.shape[-1], atol=1e-6):
-        raise NotImplementedError(
-            "the forward-backward kernels assume a uniform start "
-            "distribution (got pi=%s)" % pi.tolist()
-        )
 
 
 def _coefficients(st, gc) -> np.ndarray:
@@ -270,7 +262,7 @@ def fb_forward_cuda(coef: np.ndarray, ematch, valid, s1, bm, bls, logZ):
 
 def fb_inputs(tables: FbTables, dev: DeviceBatch):
     """(coef, premasked match emission band) for the kernels; raises for
-    models the flat-gap kernels cannot run."""
+    models whose gap emissions are not flat (`require_flat_gaps`)."""
     st = static_tables(tables)
     gc = require_flat_gaps(st)
     check_uniform_pi(tables)
@@ -296,3 +288,14 @@ def posteriors_pre(tables: FbTables, dev: DeviceBatch):
 def posteriors_pre_plain(tables: FbTables, dev: DeviceBatch):
     """posteriors_pre through the plain versions on any device."""
     return _posteriors(tables, dev, fb_backward_plain, fb_forward_plain)
+
+
+def posteriors_specialised(tables: FbTables, dev: DeviceBatch):
+    """(logZ [B], posterior match band [D1, Wp, B]) of any model, routed as
+    marginalign_trna_tpu/ops/fb_pallas.py `posteriors_pallas_specialised`
+    routes it: flat gap emissions through the flat-gap pair
+    (`posteriors_pre`), any other model through the generic pair
+    (ops/fb_generic_cuda.py `posteriors_generic`)."""
+    if has_flat_gap_emissions(tables):
+        return posteriors_pre(tables, dev)
+    return posteriors_generic(tables, dev)

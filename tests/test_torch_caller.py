@@ -150,14 +150,30 @@ def test_caller_cli_refuses_without_cuda(corpus, tmp_path):
 
 
 def test_non_flat_gap_model_raises_naming_b15(corpus):
-    """The caller's kernels fold flat gap emissions into the transitions;
-    a model whose gap rows are not flat needs the generic kernels of
-    ROADMAP B15, and says so."""
+    """Named for the refusal it once checked; a model whose gap rows are
+    not flat now runs: its buckets are packed as band arrays, run through
+    the generic forward-backward pair (rows 8-9) and summed per position
+    from the posterior band, as the JAX package routes such a model.  Here
+    the JAX side takes its XLA engine (the CPU default); tests/
+    test_torch_generic_paths.py holds the same path against its Pallas
+    route.  Expectations within 2e-3, identical call sets."""
     sam_path, fa, _ = corpus
     hmm = PairHmm.load(DEFAULT_MODEL)
     hmm.emissions[1] = np.random.default_rng(0).random(
         hmm.emissions[1].shape)
-    with pytest.raises(NotImplementedError, match="B15"):
-        tcaller.accumulate_expectations(
-            SamFile.read(sam_path), get_fasta_dictionary(fa), hmm,
-            tcaller.CallerOptions(), device="cpu")
+    want = jcaller.accumulate_expectations(
+        JSamFile.read(sam_path), jfasta(fa),
+        JPairHmm(hmm.transitions, hmm.emissions), jcaller.CallerOptions())
+    refs = get_fasta_dictionary(fa)
+    got = tcaller.accumulate_expectations(
+        SamFile.read(sam_path), refs, hmm, tcaller.CallerOptions(),
+        device="cpu")
+    assert list(got) == list(want)
+    err = max(np.abs(got[k] - want[k]).max() for k in got)
+    print("non-flat model: max abs difference of the expectations: %g" % err)
+    assert err <= 2e-3
+    assert all(got[k].sum() > 0 for k in got)
+    error = PairHmm.load(DEFAULT_MODEL)
+    calls = [{c[:3] for c in caller.call_variants(exp, refs, error, 0.3)}
+             for caller, exp in ((tcaller, got), (jcaller, want))]
+    assert calls[0] == calls[1]

@@ -297,3 +297,40 @@ def test_serial_counts_on_card_match_cpu(cuda, kernel):
                  (got.emit_gap, want.emit_gap)):
         assert torch.allclose(g.cpu(), w, rtol=1e-5, atol=1e-5)
     assert (got.posteriors is None) == (kernel == "ckpt")
+
+
+def test_generic_kernels_match_plain(cuda):
+    """fb_generic_fwd and fb_generic_bwd on a model whose gap emissions are
+    not flat, each on the plain versions' inputs: F_match, lsf, the terminal
+    sums and the posterior band bit-equal; posteriors_generic on the card
+    within the FB tolerances of the CPU's."""
+    from marginalign_trna_tpu_torch.ops import fb_generic_cuda as G
+
+    hmm = PairHmm.load(MODEL)
+    hmm.emissions[1, :4] *= 1.5
+    hmm.emissions[1] /= hmm.emissions[1].sum()
+    tables = tables_from_hmm(hmm, cuda)
+    assert not fb_cuda.has_flat_gap_emissions(tables)
+    tabs = (tables.T, tables.Ematch, tables.Egap)
+    batch = _batch(21, seed=7)
+    dev = device_batch(batch, cuda)
+    xb, yb, valid, s1, fk, fd = fb_counts.kernel_inputs(dev)
+    streams = (xb, yb, valid, s1, fk)
+    names = ("fb_generic_fwd", "fb_generic_bwd")
+    before = {k: _build.launch_counts[k] for k in names}
+    ref = G.fb_generic_fwd_plain(*tabs, *streams)
+    for g, r in zip(G.fb_generic_fwd_cuda(*tabs, *streams), ref):
+        assert torch.equal(g, r)
+    fm, lsf, term = ref
+    logZ = fb_counts.logz_from_terminal(lsf[None], term[None], fd)[0]
+    assert torch.isfinite(logZ).all()
+    bargs = (*tabs, fm, lsf, *streams, fd, logZ)
+    assert torch.equal(G.fb_generic_bwd_cuda(*bargs),
+                       G.fb_generic_bwd_plain(*bargs))
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts[k] == before[k] + 1 for k in names)
+    got = G.posteriors_generic(tables, dev)
+    want = G.posteriors_generic(tables_from_hmm(hmm),
+                                device_batch(batch, "cpu"))
+    assert torch.allclose(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
+    assert (got[1].cpu() - want[1]).abs().max().item() <= 2e-4

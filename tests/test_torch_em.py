@@ -3,7 +3,8 @@ versions) vs the JAX package's `train_em` on the CPU (its XLA engine), on
 synthetic jobs made from a numpy seed: likelihood histories within rtol
 1e-4 and trained parameters within atol 1e-3, lockstep and serial trials,
 with and without anchor splitting; resume from a checkpoint; the kernel
-policy; the refusals of what is not ported.  About 20 s on one CPU core."""
+policy; band re-derivation runs; the refusal of what is not ported.
+About 20 s on one CPU core."""
 import os
 
 import jax
@@ -153,9 +154,14 @@ def test_resume_matches_uninterrupted(tmp_path, trials):
 
 
 def test_unported_options_refused():
+    """Re-deriving the band (update_band_every=1, --updateTheBand) trains;
+    multi-problem lanes (ROADMAP B20) are refused."""
     jobs = _jobs(4, RealignJob, SamRecord, n=2, length=60)
-    with pytest.raises(NotImplementedError, match="B15"):
-        em.train_em(jobs, em.EmOptions(update_band_every=1), device="cpu")
+    res = em.train_em(jobs, em.EmOptions(update_band_every=1, iterations=2,
+                                         trials=2, tolerance=0.0,
+                                         split_size=0), device="cpu")
+    assert len(res.likelihood_history) == 2
+    assert np.isfinite(res.likelihood_history).all()
     with pytest.raises(NotImplementedError, match="B20"):
         em.prepare_em_batches(jobs, device="cpu", multi=True)
 

@@ -17,6 +17,7 @@ from marginalign_trna_tpu_torch.ops import fb_cuda
 from marginalign_trna_tpu_torch.ops.fb import (
     device_batch, tables_from_hmm, tables_from_jax,
 )
+from marginalign_trna_tpu_torch.ops.fb_generic_cuda import posteriors_generic
 
 MODEL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                      "marginalign_trna_tpu", "models", "last_hmm_20.txt")
@@ -105,11 +106,19 @@ def test_posteriors_pre_dispatch_on_cpu_is_the_plain_version(case):
 
 
 def test_non_flat_gap_model_is_refused(case):
+    """posteriors_pre is the flat-gap pair's entry (K2/K3) and refuses a
+    model whose gap rows are not flat; posteriors_specialised routes that
+    model to the generic pair and returns what posteriors_generic does."""
     hmm = case[0].copy()
     hmm.emissions[1, :4] *= 1.5
     hmm.emissions[1] /= hmm.emissions[1].sum()
     tables = tables_from_hmm(hmm)
+    dev = device_batch(case[1], "cpu")
     assert fb_cuda.has_flat_gap_emissions(tables_from_hmm(case[0]))
     assert not fb_cuda.has_flat_gap_emissions(tables)
-    with pytest.raises(NotImplementedError, match="_run_forward"):
-        fb_cuda.posteriors_pre(tables, device_batch(case[1], "cpu"))
+    with pytest.raises(ValueError, match="generic pair"):
+        fb_cuda.posteriors_pre(tables, dev)
+    logZ, post = fb_cuda.posteriors_specialised(tables, dev)
+    want_logZ, want_post = posteriors_generic(tables, dev)
+    assert torch.equal(logZ, want_logZ) and torch.equal(post, want_post)
+    assert post.shape == case[5].shape

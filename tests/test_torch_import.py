@@ -42,6 +42,7 @@ PORT_MODULES = [
     "marginalign_trna_tpu_torch.ops.fb_counts",
     "marginalign_trna_tpu_torch.ops.fb_counts_cuda",
     "marginalign_trna_tpu_torch.ops.fb_cuda",
+    "marginalign_trna_tpu_torch.ops.fb_generic_cuda",
     "marginalign_trna_tpu_torch.ops.mea",
     "marginalign_trna_tpu_torch.ops.nw",
     "marginalign_trna_tpu_torch.ops.wavefront_cuda",
@@ -168,16 +169,35 @@ def test_cli_em_runs_on_cpu(tmp_path):
     assert len(records) == 4
 
 
+_RUN_UPDATE_THE_BAND = """
+import sys
+from marginalign_trna_tpu_torch import cli
+fq, fa, out = sys.argv[1:4]
+assert cli.main(["marginAlign", fq, fa, out, "--em", "--updateTheBand",
+                 "--iterations", "2", "--trials", "2", "--device", "cpu"]) == 0
+print(sorted(k for k in sys.modules
+             if k.split(".")[0] in ("jax", "jaxlib", "marginalign_trna_tpu")))
+"""
+
+
 def test_cli_refuses_em_and_unknown_commands(tmp_path):
-    """What --em cannot do yet is refused (--updateTheBand waits for the
-    generic forward-backward kernels, ROADMAP B15); unknown commands exit
-    with 2."""
+    """marginAlign --em --updateTheBand trains on the tiny corpus (the band
+    re-derived through the generic forward-backward pair, ROADMAP B15) and
+    realigns every read, in a fresh interpreter that loads no jax* module;
+    unknown commands exit with 2."""
     from marginalign_trna_tpu_torch import cli
 
     fq, fa = _tiny_corpus(tmp_path)
-    with pytest.raises(NotImplementedError, match="B15"):
-        cli.margin_align_main([fq, fa, str(tmp_path / "o.sam"), "--em",
-                               "--updateTheBand", "--device", "cpu"])
+    out = tmp_path / "o.sam"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "-c", _RUN_UPDATE_THE_BAND, fq, fa, str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "[]"
+    records = [ln for ln in out.read_text().splitlines()
+               if not ln.startswith("@")]
+    assert len(records) == 4
     # marginCaller is a command now: without its arguments argparse exits 2.
     with pytest.raises(SystemExit) as exc:
         cli.main(["marginCaller"])
