@@ -6,9 +6,13 @@ CUDA card.  Run from the repository root:
 
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a.
-  2. tiny     each of the eighteen kernels against its plain PyTorch version
-              on the card at a tiny shape, so a broken kernel fails before
-              the long runs.
+  2. tiny     each of the twenty-six kernels against its plain PyTorch
+              version on the card at a tiny shape, so a broken kernel fails
+              before the long runs; the eight serving kernels
+              bit-equal, with a gap-chain model and again with a flat-gap
+              model whose gap states 1 and 2 exchange mass (their generic
+              5x5 branch), and at WIDE_BANDS (Wp 64 and 128, where the
+              checkpoint posterior pass replays in device memory).
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
               pipeline.align on a synthetic 1024-read x 3.5 kb corpus with
               two references and both strands, on its default path: the
@@ -27,19 +31,37 @@ Phases (any failure exits non-zero without the final result line):
               of it (objective within 1e-5 under the fused weights).  Then
               K2, K3 and K4 against their plain versions on their largest
               REL launch.
-  6. parity   a 32-read subset through the same entry on device="cpu"
+  6. serve    the unfused circular serving route in each of its five
+              modes (sv, em, lean, emw, ckpt), after the REL phase:
+              realign.realign_sam_file(..., serve=mode) on the REL phase's
+              chained records (only the mode's serving kernels and K4
+              launch; every record placed as in the REL phase; >= 90% of
+              cigars equal to the REL phase's and every other one an MEA
+              near-tie of it, within 1e-5 under the fused weights), then
+              call.caller.margin_caller(..., serve=mode) on the main SAM's
+              records of those reads against the caller phase's mutated
+              reference (only the mode's serving kernels launch; the call
+              set identical to the fused caller's on the same records,
+              expectations within 1e-3).  Then each serving kernel
+              bit-equal to its plain version on the inputs of its largest
+              launch over the modes' realign runs and again over their
+              caller runs, with times and bounds, and CPU/card parity on
+              PARITY_READS reads for SERVE_PARITY_MODES (cigars >= 90%
+              identical, every other one an MEA near-tie; identical call
+              sets, expectations within 1e-3).
+  7. parity   a 32-read subset through the same entry on device="cpu"
               (plain versions) and "cuda" (kernels): guide records
               identical, >= 95% of realigned cigars identical.
-  7. caller   marginCaller (compact streams -> backward -> fused expectation
+  8. caller   marginCaller (compact streams -> backward -> fused expectation
               forward -> scatter) through call.caller.margin_caller on the
               main phase's SAM against a copy of the reference with an SNV
               planted every 150 bases; only E, S, C and X may launch, and
               recall and precision on the planted SNVs must reach 95%.
               Then those kernels against their plain versions on their
               largest caller launch.
-  8. parity   the caller on the SAM's first 32 records on "cpu" and "cuda":
+  9. parity   the caller on the SAM's first 32 records on "cpu" and "cuda":
               identical call sets, expectations within 1e-3.
-  9. em       marginAlign --em (pipeline.align with em=True: guide -> chain
+ 10. em       marginAlign --em (pipeline.align with em=True: guide -> chain
               -> Baum-Welch EM -> realign with the trained model) on the
               corpus's first 256 reads at the default EmOptions but 5
               iterations: full width (band 21, 3 lockstep trials, anchor
@@ -54,14 +76,14 @@ Phases (any failure exits non-zero without the final result line):
               keyword), timed again with one trial (a serial EM trial),
               and S and M on their largest launch with the trained
               model, which runs their generic 5x5 branch.
- 10. parity   EM (3 iterations, trial 0 from the shipped model) + realign
+ 11. parity   EM (3 iterations, trial 0 from the shipped model) + realign
               of the first 32 reads on "cpu" and "cuda": trained
               parameters within 1e-4, likelihood histories within rtol
               1e-5, guide records identical, placements identical; with
               the card's trained model on both devices >= 90% of cigars
               identical; with that model and with each device's own, every
               cigar that differs an MEA near-tie (1e-5).
- 11. generic  marginAlign --inputModel <trial 0 of the card's EM parity
+ 12. generic  marginAlign --inputModel <trial 0 of the card's EM parity
               run, un-normalised: gap emissions not flat> on the REL phase's
               reads: the guide through R and K1, realignment on the REL
               path through the generic pair (fb_generic_fwd,
@@ -72,10 +94,10 @@ Phases (any failure exits non-zero without the final result line):
               generic pair launches; recall and precision printed), and
               the pair against its plain versions on its largest caller
               launch (bit-equal).
- 12. parity   both on PARITY_READS reads on "cpu" and "cuda": >= 90% of
+ 13. parity   both on PARITY_READS reads on "cpu" and "cuda": >= 90% of
               cigars identical and every other one an MEA near-tie (1e-5);
               identical call sets, expectations within 1e-3.
- 13. band     marginAlign --em --updateTheBand on BAND_READS reads
+ 14. band     marginAlign --em --updateTheBand on BAND_READS reads
               (BAND_ITERATIONS iterations, 3 lockstep trials): the policy's
               counts pair, the generic pair once per band update, K4 and
               the main path's kernels; reads placed; the generic pair
@@ -84,9 +106,10 @@ Phases (any failure exits non-zero without the final result line):
               updates on BAND_PARITY_READS reads on "cpu" and "cuda":
               trained parameters within 1e-3, differing segment paths
               counted.
- 14. card     name and power limit from nvidia-smi.
-The line before the last is the kernel report (JSON); the last line is the
-result (JSON).  Corpus and weights come from numpy seeds; nothing is read
+ 15. card     name and power limit from nvidia-smi.
+Each phase logs "time: <phase> done at <seconds>".  Plain versions are
+timed after a warm-up call, as the kernels are.  The line before the last
+is the kernel report (JSON); the last line is the result (JSON).  Corpus and weights come from numpy seeds; nothing is read
 from outside the repository.
 """
 import contextlib
@@ -176,12 +199,56 @@ KERNELS = {
                        "marginalign_trna_tpu/ops/fb_pallas.py:550",
                        "fb_generic_cuda.fb_generic_bwd_cuda",
                        ("generic", "call_generic", "em_band")),
+    # The unfused circular serving route (realign and caller with
+    # serve=<mode>); S (sv_backward) serves mode "sv" too.
+    "circ_backward_emv": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                          "marginalign_trna_tpu/ops/fb_pallas.py:1625",
+                          "fb_circ_cuda.circ_backward_emv_cuda", ("serve",)),
+    "circ_post_emv": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                      "marginalign_trna_tpu/ops/fb_pallas.py:1749",
+                      "fb_circ_cuda.circ_post_emv_cuda", ("serve",)),
+    "circ_backward_codes": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                            "marginalign_trna_tpu/ops/fb_pallas.py:1868",
+                            "fb_circ_cuda.circ_backward_codes_cuda",
+                            ("serve",)),
+    "circ_post_codes": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                        "marginalign_trna_tpu/ops/fb_pallas.py:1999",
+                        "fb_circ_cuda.circ_post_codes_cuda", ("serve",)),
+    "circ_post_es": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                     "marginalign_trna_tpu/ops/fb_pallas.py:2390",
+                     "fb_circ_cuda.circ_post_es_cuda", ("serve",)),
+    "circ_backward_codes_es": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                               "marginalign_trna_tpu/ops/fb_pallas.py:2503",
+                               "fb_circ_cuda.circ_backward_codes_es_cuda",
+                               ("serve",)),
+    "circ_ckpt_backward": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                           "marginalign_trna_tpu/ops/fb_pallas.py:3721",
+                           "fb_circ_cuda.circ_ckpt_backward_cuda",
+                           ("serve",)),
+    "circ_ckpt_post": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+                       "marginalign_trna_tpu/ops/fb_pallas.py:3856",
+                       "fb_circ_cuda.circ_ckpt_post_cuda", ("serve",)),
 }
 ALIGN_KERNELS = [k for k, v in KERNELS.items() if "align" in v[3]]
 REL_KERNELS = [k for k, v in KERNELS.items() if "rel" in v[3]]
 CALLER_KERNELS = [k for k, v in KERNELS.items() if "call" in v[3]]
 COUNTS_KERNELS = [k for k, v in KERNELS.items() if "em" in v[3]]
 GENERIC_KERNELS = [k for k, v in KERNELS.items() if "generic" in v[3]]
+SERVE_NEW = [k for k, v in KERNELS.items() if "serve" in v[3]]
+# The kernels of each serving mode (ops/fb_circ.py posteriors_circ).
+SERVE_KERNELS = {
+    "sv": ["sv_backward", "circ_post_es"],
+    "em": ["circ_backward_emv", "circ_post_emv"],
+    "lean": ["circ_backward_codes", "circ_post_codes"],
+    "emw": ["circ_backward_codes_es", "circ_post_es"],
+    "ckpt": ["circ_ckpt_backward", "circ_ckpt_post"],
+}
+# The serving modes held to CPU/card parity.
+SERVE_PARITY_MODES = ("sv", "ckpt")
+# Band widths beyond the shipped 21 at which the tiny check runs the
+# serving kernels: Wp 64 and 128 (two and four rows per thread), where the
+# checkpoint posterior pass replays in device memory.
+WIDE_BANDS = (61, 126)
 COUNTS_PAIRS = {"stored": ("counts_fwd_all", "counts_bwd"),
                 "ckpt": ("counts_fwd_ckpt", "counts_bwd_ckpt")}
 # Records of the main phase's corpus that the REL phase realigns.
@@ -213,7 +280,13 @@ BAND_PARITY_READS = 16
 # checkpoint backward adds the match-by-code partials (3: gamma and one
 # add into bin x * 5 + y) and the recomputed forward (73) and drops the
 # posterior.  The generic pair runs the same forward (73) and the backward
-# without its partials (cell 58, rescale 2, posterior 2, e * b 22).
+# without its partials (cell 58, rescale 2, posterior 2, e * b 22).  The
+# serving kernels: S's 23 with the emission decode of their source (emv
+# 22: one compare; codes 25: a compare, the table index and the mask; 27
+# writing es), the posterior forward (C's recursion without the
+# accumulators: 25; emv 24, codes 27), the checkpoint backward as codes
+# (25) and the checkpoint posterior pass a codes backward and a codes
+# forward (52).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_CELL = {
@@ -223,6 +296,9 @@ OPS_PER_CELL = {
     "scatter_lanes": 4, "mea_dl": 36,
     "counts_fwd_all": 73, "counts_bwd": 151, "counts_fwd_ckpt": 73,
     "counts_bwd_ckpt": 225, "fb_generic_fwd": 73, "fb_generic_bwd": 84,
+    "circ_backward_emv": 22, "circ_backward_codes": 25,
+    "circ_backward_codes_es": 27, "circ_post_es": 25, "circ_post_emv": 24,
+    "circ_post_codes": 27, "circ_ckpt_backward": 25, "circ_ckpt_post": 52,
 }
 
 
@@ -256,12 +332,13 @@ def bound(name, cells, moved):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_ms(fn, reps):
-    """Mean milliseconds per call on the card (CUDA events, after one
-    warm-up call)."""
+def time_ms(fn, reps, warm=True):
+    """Mean milliseconds per call on the card (CUDA events), after one
+    warm-up call unless the caller has just made one (warm=False)."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -778,6 +855,33 @@ def compare_generic(base, reps):
     return report
 
 
+def compare_exact(name, args, reps):
+    """A serving kernel against its plain version on `args`: every output
+    bit-equal; both timed as time_ms times them, the comparison call being
+    the plain version's warm-up."""
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+
+    kernel = getattr(fc, name + "_cuda")
+    plain = getattr(fc, name + "_plain")
+    got = kernel(*args)
+    want = plain(*args)
+    plain_ms = time_ms(lambda: plain(*args), 1, warm=False)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    for i, (g, w) in enumerate(zip(got, want)):
+        check(torch.equal(g, w), "%s: output %d differs from the plain "
+              "version by %g" % (name, i, (g - w).abs().max().item()))
+    check(all(torch.isfinite(g).all().item() for g in got),
+          "%s: output not finite" % name)
+    d1k, Wp, B = launch_shape(name, args)
+    return {"max_abs_err": err, "ms": time_ms(lambda: kernel(*args), reps),
+            "plain_ms": plain_ms, "library_ms": None,
+            **bound(name, d1k * Wp * B, nbytes(*args, *got))}
+
+
 COMPARE = {
     "banded_nw": compare_nw, "banded_mea": compare_mea,
     "expand_streams": compare_expand, "sv_backward": compare_sv,
@@ -802,6 +906,8 @@ def compare_kernels(tag, names, inputs, reps):
         if name == "fb_backward":
             report["fb_backward"], report["fb_forward"] = compare_fb(
                 inputs["fb_backward"], inputs.get("fb_forward"), reps)
+        elif name in SERVE_NEW:
+            report[name] = compare_exact(name, inputs[name], reps)
         elif name not in ("fb_forward", *COUNTS_KERNELS, *GENERIC_KERNELS):
             report[name] = COMPARE[name](inputs[name], reps)
     for name in names:
@@ -994,6 +1100,63 @@ def tiny_generic_inputs(device):
     tables = tables_from_hmm(hmm, device)
     return {"generic": (tables.T, tables.Ematch, tables.Egap,
                         *fb_counts.kernel_inputs(dev))}
+
+
+def tiny_serve_inputs(device, chain_model=True, width=21):
+    """The serving kernels' inputs (and S's) at a tiny shape: 40 noisy
+    pairs of 20-150 bases at `width` (21: Wp 24) in the circular layout,
+    the shipped model or (chain_model=False) its flat-gap variant whose gap
+    states 1 and 2 exchange 0.05 (the kernels' generic 5x5 branch); the
+    forwards and the checkpoint posterior pass fed by the plain
+    backwards."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
+    from marginalign_trna_tpu_torch.ops.band import pack_banded_batch
+    from marginalign_trna_tpu_torch.ops.fb import (
+        FbTables, circ_device_batch, device_batch, tables_from_file,
+    )
+    from marginalign_trna_tpu_torch.ops.fb_circ import (
+        circ_coefficients, emission_stream,
+    )
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    rng = np.random.default_rng(18)
+    refs = [rng.integers(0, 4, size=int(rng.integers(20, 150)))
+            .astype(np.int8) for _ in range(40)]
+    reads = [noisy(rng, r) for r in refs]
+    batch = pack_banded_batch(reads, refs, width=width, quantize=True)
+    cdev = circ_device_batch(batch, device_batch(batch, device))
+    tables = tables_from_file(DEFAULT_MODEL)
+    if not chain_model:
+        T = tables.T.numpy().copy()
+        T[1, 2] = T[2, 1] = 0.05
+        T /= T.sum(axis=1, keepdims=True)
+        tables = FbTables(T, tables.Ematch.numpy(), tables.Egap.numpy(),
+                          tables.pi.numpy())
+    coef, chain = circ_coefficients(tables)
+    check(chain == chain_model, "tiny serve: unexpected model branch")
+    table = tables.Ematch.numpy().reshape(-1)
+    xb, yb, fink, find = cdev.xb, cdev.yb, cdev.fink, cdev.final_d
+    valid = cdev.valid.view(torch.int8)
+    es = emission_stream(table, xb, yb, cdev.valid, True)
+    em = emission_stream(table, xb, yb, cdev.valid, False)
+    back = fc.sv_backward_plain(coef, chain, es, fink, find)
+    codes = (coef, chain, table, xb, yb, valid)
+    kb = fc.ckpt_block(xb.shape[1])
+    ck = fc.circ_ckpt_backward_plain(*codes, fink, find, kb)
+    return {
+        "sv_backward": (coef, chain, es, fink, find),
+        "circ_backward_emv": (coef, chain, em, valid, fink, find),
+        "circ_backward_codes": (*codes, fink, find),
+        "circ_backward_codes_es": (*codes, fink, find),
+        "circ_post_es": (coef, chain, es, *back),
+        "circ_post_emv": (coef, chain, em, valid, *back),
+        "circ_post_codes": (*codes, *back),
+        "circ_ckpt_backward": (*codes, fink, find, kb),
+        "circ_ckpt_post": (*codes, fink, find, *ck, kb),
+    }
 
 
 def generic_base(largest):
@@ -1210,11 +1373,12 @@ def rel_gap_weights(post, batch, gap_gamma):
     return tuple(out)
 
 
-def ops_with_weights(segs, hmm, device):
-    """realigned_ops_for_jobs on the path the model takes (the fused path;
-    the REL path for a model whose gap emissions are not flat), with each
-    segment's MEA inputs kept: (ops per segment, {segment: ((posterior band,
-    lo, read gap weights, ref gap weights) of its bucket, its lane)})."""
+def ops_with_weights(segs, hmm, device, serve=None):
+    """realigned_ops_for_jobs on the path the model takes (the fused path,
+    or the circular serving route in mode `serve`; the REL path for a model
+    whose gap emissions are not flat), with each segment's MEA inputs kept:
+    (ops per segment, {segment: ((posterior band, lo, read gap weights, ref
+    gap weights) of its bucket, its lane)})."""
     import numpy as np
 
     from marginalign_trna_tpu_torch.align import realign
@@ -1238,7 +1402,7 @@ def ops_with_weights(segs, hmm, device):
 
     with replaced_everywhere({fused: keep_fused, rel: keep_rel}):
         ops = realign.realigned_ops_for_jobs(segs, hmm, 0.5, 0.0, device,
-                                             fused=True)
+                                             fused=True, serve=serve)
     lane_of = {}
     for w, bucket in zip(weights, realign._bucket_jobs(
             segs, realign.DEFAULT_BAND_WIDTH, 128_000_000)):
@@ -1344,10 +1508,12 @@ def phase_rel(tmpdir, fq, fa, main_sam):
           "than 90%")
     check(worst <= 1e-5, "a REL cigar scores %.3g (relative) off the fused "
           "one under the fused weights" % worst)
+    state = {"chained": chained, "jobs": jobs, "segs": segs,
+             "origin": origin, "rel_ops": rel_ops, "lane_of": lane_of}
     return launches, largest, {"records": len(jobs), "segments": len(segs),
                                "total_s": total, "cigars_equal": same,
                                "near_ties": ties,
-                               "worst_tie_relative": worst}
+                               "worst_tie_relative": worst}, state
 
 
 def phase_parity(tmpdir, fq, fa):
@@ -2057,6 +2223,238 @@ def phase_band_parity(tmpdir, fq, fa):
     return res
 
 
+def largest_of(largest, more):
+    """Merge the recorded largest launches `more` into `largest`."""
+    import numpy as np
+
+    for name, args in more.items():
+        if name not in largest or (
+                np.prod(launch_shape(name, args))
+                > np.prod(launch_shape(name, largest[name]))):
+            largest[name] = args
+
+
+def phase_serve(tmpdir, fa, main_sam, rel):
+    """The unfused circular serving route (serve=<mode>) in each mode of
+    SERVE_KERNELS, after the REL phase (`rel`: its chained SAM, jobs,
+    segments, segment ops and the fused weights).  Per mode:
+    realign_sam_file(..., serve=mode) on the REL phase's chained records
+    (only the mode's serving kernels and K4 may launch; every record placed
+    as in the REL phase; >= 90% of cigars equal to the REL phase's and
+    every other one an MEA near-tie of it within 1e-5 under the fused
+    weights), then margin_caller(..., serve=mode) on the main SAM's records
+    of those reads against the caller phase's mutated reference (only the
+    mode's serving kernels; the fused caller's call set, expectations
+    within 1e-3).  Returns ({path: launches}, the serving kernels' largest
+    launch inputs over the modes' realign runs and over their caller runs
+    ({"serve_realign": {name: inputs}, "serve_call": ...}), results)."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch.align import realign
+    from marginalign_trna_tpu_torch.call import caller
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    hmm = PairHmm.load(DEFAULT_MODEL)
+    jobs, origin = rel["jobs"], rel["origin"]
+    sam = SamFile.read(main_sam)
+    names = {j.record.qname for j in jobs}
+    sam.records = [r for r in sam.records if r.qname in names]
+    call_sam = os.path.join(tmpdir, "serve_caller.sam")
+    sam.write(call_sam)
+    mut_fa, _ = write_mutated_reference(tmpdir, fa)
+    refs = get_fasta_dictionary(mut_fa)
+    t0 = time.perf_counter()
+    fused_exp = caller.accumulate_expectations(
+        SamFile.read(call_sam), refs, hmm, caller.CallerOptions(),
+        device="cuda")
+    fused_calls = {c[:3] for c in caller.call_variants(
+        fused_exp, refs, hmm, caller.DEFAULT_THRESHOLD)}
+    res = {"records": len(jobs), "caller_records": len(sam.records),
+           "fused_caller_s": time.perf_counter() - t0,
+           "fused_calls": len(fused_calls)}
+    by_path, largest = {}, {"serve_realign": {}, "serve_call": {}}
+    ops_fn, exp_fn = (realign.realigned_ops_for_jobs,
+                      caller.accumulate_expectations)
+    for mode, kernels in SERVE_KERNELS.items():
+        seg_ops, exps = [], []
+
+        def keep_ops(jobs_, *args, **kwargs):
+            # The call on the anchor segments (the inner one if any job
+            # was split) returns the segments' ops.
+            out = ops_fn(jobs_, *args, **kwargs)
+            if len(jobs_) == len(rel["segs"]):
+                seg_ops.append(out)
+            return out
+
+        def keep_exp(*args, **kwargs):
+            exps.append(exp_fn(*args, **kwargs))
+            return exps[-1]
+
+        out = os.path.join(tmpdir, "serve_%s.sam" % mode)
+        vcf = os.path.join(tmpdir, "serve_%s.vcf" % mode)
+        runs = {}
+        for path, run in (
+                ("serve_realign_" + mode, lambda: realign.realign_sam_file(
+                    rel["chained"], out, None, fa, hmm, "cuda",
+                    no_chain=True, serve=mode)),
+                ("serve_call_" + mode, lambda: caller.margin_caller(
+                    call_sam, mut_fa, vcf, hmm, hmm, device="cuda",
+                    serve=mode))):
+            with recording_launches(list(KERNELS)) as (shapes, rec, host), \
+                    replaced_everywhere({ops_fn: keep_ops,
+                                         exp_fn: keep_exp}):
+                _build.reset_launch_counts()
+                t0 = time.perf_counter()
+                value = run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                by_path[path] = dict(_build.launch_counts)
+            allowed = kernels + (["banded_mea"] if "realign" in path else [])
+            log("%s: %.3f s; launches %s; launch shapes %s; host band "
+                "packer %d calls, %.3f s"
+                % (path, wall, json.dumps({k: n for k, n in
+                                           by_path[path].items() if n}),
+                   json.dumps({k: v for k, v in shapes.items() if v}),
+                   host["pack_banded_batch"], host["pack_banded_batch_s"]))
+            check_launches(path, allowed, by_path[path], shapes)
+            largest_of(largest[path.rsplit("_", 1)[0]],
+                       {k: v for k, v in rec.items() if k in SERVE_NEW})
+            runs[path] = (value, wall, host["pack_banded_batch_s"])
+
+        check(seg_ops, "serve %s: the segments differ from the REL phase's"
+              % mode)
+        ops = seg_ops[-1]
+        recs = sam_records(out)
+        want = placement(sam_records(rel["chained"]))
+        check(len(recs) == len(jobs), "serve %s: %d records out of %d"
+              % (mode, len(recs), len(jobs)))
+        moved = [q for q, p in placement(recs).items() if want[q] != p]
+        check(not moved, "serve %s: records placed otherwise than in the REL "
+              "phase: %s" % (mode, moved[:5]))
+        same, worst = 0, 0.0
+        for k, job in enumerate(jobs):
+            if (record_cigar(job, origin, ops, k)
+                    == record_cigar(job, origin, rel["rel_ops"], k)):
+                same += 1
+            else:
+                worst = max(worst, tie_gap(k, origin, ops, rel["rel_ops"],
+                                           rel["lane_of"]))
+        calls = {c[:3] for c in runs["serve_call_" + mode][0]}
+        err = max(float(np.abs(exps[0][k] - fused_exp[k]).max())
+                  for k in refs)
+        res[mode] = {
+            "realign_s": runs["serve_realign_" + mode][1],
+            "realign_pack_banded_batch_s": runs["serve_realign_" + mode][2],
+            "cigars_equal_rel": same, "near_ties": len(jobs) - same,
+            "worst_tie_relative": worst,
+            "caller_s": runs["serve_call_" + mode][1],
+            "caller_pack_banded_batch_s": runs["serve_call_" + mode][2],
+            "calls": len(calls), "calls_equal_fused": calls == fused_calls,
+            "expectations_max_abs_err": err}
+        log("serve %s: %s" % (mode, json.dumps(res[mode])))
+        check(same >= 0.90 * len(jobs), "serve %s: fewer than 90%% of cigars "
+              "equal to the REL phase's" % mode)
+        check(worst <= 1e-5, "serve %s: a cigar scores %.3g (relative) off "
+              "the REL phase's under the fused weights" % (mode, worst))
+        check(calls == fused_calls, "serve %s: call set differs from the "
+              "fused caller's" % mode)
+        check(err <= 1e-3, "serve %s: expectations differ by %g from the "
+              "fused caller's" % (mode, err))
+    return by_path, largest, res
+
+
+def phase_serve_parity(tmpdir, fq, fa, main_sam):
+    """The serving route on PARITY_READS reads / records for each mode of
+    SERVE_PARITY_MODES, on the CPU (plain versions) and on the card
+    (kernels): realigned segment by segment, >= 90% of cigars identical and
+    every other one an MEA near-tie (within 1e-5 relative under the card's
+    weights); the caller's call sets identical, expectations within 1e-3."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import realign
+    from marginalign_trna_tpu_torch.call import caller
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.utils.seq import encode
+
+    hmm = PairHmm.load(pipeline.DEFAULT_MODEL)
+    sub = os.path.join(tmpdir, "serve_parity.fq")
+    subset_fastq(fq, sub, PARITY_READS)
+    chained = os.path.join(tmpdir, "serve_parity_chained.sam")
+    pipeline.align(sub, fa, chained, pipeline.AlignOptions(no_realign=True),
+                   device="cuda")
+    jobs = realign._jobs_from_sam(SamFile.read(chained),
+                                  get_fasta_dictionary(fa), encode)
+    segs, origin, _ = realign.split_jobs_at_anchors(
+        jobs, realign.DEFAULT_SPLIT_SIZE)
+    sam = SamFile.read(main_sam)
+    sam.records = sam.records[:PARITY_READS]
+    path = os.path.join(tmpdir, "serve_caller_subset.sam")
+    sam.write(path)
+    mut_fa, _ = write_mutated_reference(tmpdir, fa)
+    refs = get_fasta_dictionary(mut_fa)
+    res = {}
+    for mode in SERVE_PARITY_MODES:
+        t0 = time.perf_counter()
+        card_ops, lane_of = ops_with_weights(segs, hmm, "cuda", serve=mode)
+        t1 = time.perf_counter()
+        cpu_ops = realign.realigned_ops_for_jobs(segs, hmm, 0.5, 0.0, "cpu",
+                                                 serve=mode)
+        t2 = time.perf_counter()
+        same, worst = 0, 0.0
+        for k, job in enumerate(jobs):
+            if (record_cigar(job, origin, card_ops, k)
+                    == record_cigar(job, origin, cpu_ops, k)):
+                same += 1
+            else:
+                worst = max(worst, tie_gap(k, origin, card_ops, cpu_ops,
+                                           lane_of))
+        exp, calls = {}, {}
+        for dev in ("cpu", "cuda"):
+            exp[dev] = caller.accumulate_expectations(
+                SamFile.read(path), refs, hmm, caller.CallerOptions(),
+                device=dev, serve=mode)
+            calls[dev] = {c[:3] for c in caller.call_variants(
+                exp[dev], refs, hmm, caller.DEFAULT_THRESHOLD)}
+        err = max(float(np.abs(exp["cpu"][k] - exp["cuda"][k]).max())
+                  for k in refs)
+        res[mode] = {"records": len(jobs), "segments": len(segs),
+                     "cigars_identical": same, "near_ties": len(jobs) - same,
+                     "worst_tie_relative": worst, "realign_cuda_s": t1 - t0,
+                     "realign_cpu_s": t2 - t1,
+                     "caller_records": len(sam.records),
+                     "calls": len(calls["cuda"]),
+                     "expectations_max_abs_err": err}
+        log("serve parity %s: %s" % (mode, json.dumps(res[mode])))
+        check(same >= 0.90 * len(jobs), "serve parity %s: fewer than 90%% of "
+              "cigars identical between cpu and cuda" % mode)
+        check(worst <= 1e-5, "serve parity %s: a cigar differing between cpu "
+              "and cuda scores %.3g (relative) off under the card's weights"
+              % (mode, worst))
+        check(calls["cpu"] == calls["cuda"], "serve parity %s: call sets "
+              "differ between cpu and cuda" % mode)
+        check(err <= 1e-3, "serve parity %s: expectations differ by %g "
+              "between cpu and cuda" % (mode, err))
+    return res
+
+
+def phase_clock():
+    """A function that logs the seconds since its creation after a named
+    phase."""
+    t0 = time.perf_counter()
+
+    def elapsed(phase):
+        log("time: %s done at %.1f s" % (phase, time.perf_counter() - t0))
+    return elapsed
+
+
 def ptxas_spills(build_log):
     """{function: (spill store bytes, spill load bytes)} from ptxas -v."""
     out, fn = {}, None
@@ -2124,6 +2522,7 @@ def main() -> int:
 
     try:
         t0 = time.perf_counter()
+        elapsed = phase_clock()
         _build.load()
         log("build: %.2f s" % (time.perf_counter() - t0))
         build_log = _build.build_log()
@@ -2132,30 +2531,53 @@ def main() -> int:
                     or "spill" in line):
                 log("build: " + line.strip())
         check_no_counts_spills(build_log)
+        elapsed("build")
 
         cuda = torch.device("cuda")
         compare_kernels("tiny", list(KERNELS), {
-            **tiny_inputs(cuda), **tiny_caller_inputs(cuda),
-            **tiny_default_inputs(cuda), **tiny_counts_inputs(cuda),
-            **tiny_generic_inputs(cuda)}, 3)
+            **tiny_serve_inputs(cuda), **tiny_inputs(cuda),
+            **tiny_caller_inputs(cuda), **tiny_default_inputs(cuda),
+            **tiny_counts_inputs(cuda), **tiny_generic_inputs(cuda)}, 3)
+        compare_kernels("tiny_non_chain", ["sv_backward"] + SERVE_NEW,
+                        tiny_serve_inputs(cuda, chain_model=False), 3)
+        for width in WIDE_BANDS:
+            compare_kernels("tiny_width_%d" % width, SERVE_NEW,
+                            tiny_serve_inputs(cuda, width=width), 3)
+        elapsed("tiny")
         with tempfile.TemporaryDirectory() as tmpdir:
             fq, fa, truth, sam, launches, largest, main_res = phase_main(
                 tmpdir)
             kernels = phase_kernels("main", ALIGN_KERNELS, largest)
+            elapsed("main")
             del largest
-            rel_launches, largest, rel_res = phase_rel(tmpdir, fq, fa, sam)
+            rel_launches, largest, rel_res, rel_state = phase_rel(
+                tmpdir, fq, fa, sam)
             kernels.update(phase_kernels("rel", REL_KERNELS, largest))
+            elapsed("rel")
             del largest
+            serve_launches, largest, serve_res = phase_serve(tmpdir, fa, sam,
+                                                             rel_state)
+            del rel_state
+            on_serve = {path: phase_kernels(path, SERVE_NEW, largest[path])
+                        for path in ("serve_realign", "serve_call")}
+            elapsed("serve")
+            del largest
+            serve_parity = phase_serve_parity(tmpdir, fq, fa, sam)
+            elapsed("serve parity")
             parity = phase_parity(tmpdir, fq, fa)
+            elapsed("parity")
             mut_fa, call_launches, largest, caller_res = phase_caller(
                 tmpdir, fa, sam)
             on_caller = phase_kernels("caller", CALLER_KERNELS, largest)
             del largest
             caller_parity = phase_caller_parity(tmpdir, mut_fa, sam)
+            elapsed("caller")
             em_launches, largest, em_res = phase_em(tmpdir, fq, fa, truth)
             on_em = phase_em_kernels(largest)
+            elapsed("em")
             del largest
             em_parity_launches, em_parity = phase_em_parity(tmpdir, fq, fa)
+            elapsed("em parity")
             # The card's EM parity run wrote it (--outputModel): trial 0,
             # started from the shipped model, un-normalised.
             trial_model = os.path.join(tmpdir, "em_cuda.hmm.trial0")
@@ -2167,13 +2589,17 @@ def main() -> int:
             gmut_fa, call_generic_launches, base, call_generic_res = (
                 phase_generic_caller(tmpdir, fa, generic_sam, trial_model))
             on_call_generic = phase_generic_kernels("call_generic", base)
+            elapsed("generic")
             del base
             generic_parity = phase_generic_parity(
                 tmpdir, fq, fa, generic_sam, gmut_fa, trial_model)
+            elapsed("generic parity")
             band_launches, base, band_res = phase_band(tmpdir, fq, fa, truth)
             on_em_band = phase_generic_kernels("em_band", base)
+            elapsed("band")
             del base
             band_parity = phase_band_parity(tmpdir, fq, fa)
+            elapsed("band parity")
         # The policy gives the 256-read E-step batch to the checkpoint
         # pair and the 32-read one to the stored pair: both pairs ran.
         for name in COUNTS_PAIRS["ckpt"]:
@@ -2189,6 +2615,8 @@ def main() -> int:
 
     log("main-path: %s" % json.dumps(main_res))
     log("rel-path: %s" % json.dumps(rel_res))
+    log("serve-paths: %s" % json.dumps(serve_res))
+    log("serve-parity: %s" % json.dumps(serve_parity))
     log("parity: %s" % json.dumps(parity))
     log("caller-path: %s" % json.dumps(caller_res))
     log("caller-parity: %s" % json.dumps(caller_parity))
@@ -2203,24 +2631,30 @@ def main() -> int:
     # A kernel's launches and measurements come from the first path it runs
     # on (E and S: marginAlign's main path; the checkpoint counts pair: the
     # EM phase; the stored pair: the card's EM parity run, where the policy
-    # picks it; the generic pair: marginAlign with the trial model);
+    # picks it; the generic pair: marginAlign with the trial model; the
+    # serving kernels: the realign run of the first mode that uses them,
+    # measured on their largest launch over the modes' realign runs);
     # measurements on later paths ride along under their path ("caller",
-    # "em", "call_generic", "em_band"), and launches_by_path lists every
-    # path that ran it.
+    # "em", "call_generic", "em_band", "serve_call": the serving kernels'
+    # largest launch over the modes' caller runs), and launches_by_path
+    # lists every path that ran it.
     by_path = {"align": launches, "rel": rel_launches, "call": call_launches,
                "em": em_launches, "em_parity": em_parity_launches,
                "generic": generic_launches,
                "call_generic": call_generic_launches,
-               "em_band": band_launches}
+               "em_band": band_launches, **serve_launches}
     first = {name: "em_parity" if name in COUNTS_PAIRS["stored"] else
              KERNELS[name][3][0] for name in KERNELS}
+    for name in SERVE_NEW:
+        first[name] = "serve_realign_" + next(
+            mode for mode, names in SERVE_KERNELS.items() if name in names)
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     lines = []
     for name, (src, rep, _, _) in KERNELS.items():
         reports = [("align", kernels), ("caller", on_caller), ("em", on_em),
                    ("generic", on_generic), ("call_generic", on_call_generic),
-                   ("em_band", on_em_band)]
+                   ("em_band", on_em_band), *on_serve.items()]
         res = next(r[name] for _, r in reports if name in r)
         line = {"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": by_path[first[name]][name],

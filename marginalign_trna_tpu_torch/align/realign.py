@@ -6,7 +6,7 @@ optionally chain, then realign every record's aligned read region against
 its reference span with the banded pair-HMM posterior and the AMAP decode
 (ops/mea.py), and splice the realigned cigar back between the original
 clips.  Jobs are cut at guide anchors, bucketed by size, and each bucket
-runs as one batch on the device, by one of two paths:
+runs as one batch on the device, by one of three paths:
 
   fused (default; the JAX package's accelerator default, its compact +
     fused realign route): the host packs only sequences and band offsets;
@@ -18,20 +18,28 @@ runs as one batch on the device, by one of two paths:
     MARGINALIGN_LAYOUT=rel): the host packs [D1, Wp, B] band arrays, the
     forward-backward writes the posterior band (ops/fb_cuda.py
     `posteriors_specialised`) and the gap weights are built as bands
-    (ops/mea.py `mea_decode`).
+    (ops/mea.py `mea_decode`);
+  circular serving (serve=<mode>, one of ops/fb_circ.py SERVE_MODES; the
+    JAX package with MARGINALIGN_LAYOUT=circ MARGINALIGN_REALIGN_FUSED=off
+    MARGINALIGN_CIRC_SERVE=<mode>): the REL path with another
+    forward-backward: the uploaded band arrays rotate into the circular
+    layout on the device, the kernels of that mode write the circular
+    posterior band, which rotates back for the MEA decode
+    (ops/fb_circ.py `posteriors_serve`).
 
 A model whose gap emissions are not flat (an EM model mid-training, an
-un-normalised trial model) takes the REL path whatever `fused` says, as in
-the JAX package: the fused path's kernels fold flat gap emissions into their
-coefficients, the REL path runs such a model through the generic
-forward-backward pair (ops/fb_generic_cuda.py).
+un-normalised trial model) takes the REL path whatever `fused` or `serve`
+say, as in the JAX package: the fused and circular kernels fold flat gap
+emissions into their coefficients, the REL path runs such a model through
+the generic forward-backward pair (ops/fb_generic_cuda.py).
 """
 from __future__ import annotations
 
 import os
 import tempfile
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from functools import partial
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -40,7 +48,10 @@ from ..io.sam import SamFile, SamRecord
 from ..models.hmm import PairHmm
 from ..ops.band import pack_banded_batch, pack_compact_batch, path_from_cigar
 from ..ops.fb import FbTables, device_batch, tables_from_hmm
-from ..ops.fb_circ import compact_device_batch, posteriors_weights_compact
+from ..ops.fb_circ import (
+    check_serve, compact_device_batch, posteriors_serve,
+    posteriors_weights_compact,
+)
 from ..ops.fb_cuda import has_flat_gap_emissions, posteriors_specialised
 from ..ops.mea import mea_decode, mea_decode_fused, rowcol_sums_from_flushed
 from ..utils.seq import encode
@@ -239,16 +250,21 @@ def _realign_bucket_fused(jobs: Sequence[RealignJob], tables: FbTables,
 
 def _realign_bucket_rel(jobs: Sequence[RealignJob], tables: FbTables,
                         gap_gamma: float, match_gamma: float, device,
-                        band_width: int) -> List[List[Tuple[int, int]]]:
+                        band_width: int, serve: Optional[str] = None
+                        ) -> List[List[Tuple[int, int]]]:
     """REL path of one bucket: host band arrays -> forward-backward (K2
-    and K3, or the generic pair for a model whose gap emissions are not
-    flat) -> weight bands -> MEA (K4) -> host traceback."""
+    and K3, the generic pair for a model whose gap emissions are not flat,
+    or with `serve` the circular serving kernels of that mode) -> weight
+    bands -> MEA (K4) -> host traceback."""
     batch = pack_banded_batch(
         [j.read_region for j in jobs], [j.ref_region for j in jobs],
         width=band_width, paths=[j.path for j in jobs], quantize=True,
     )
     dev = device_batch(batch, device)
-    _, post = posteriors_specialised(tables, dev)
+    if serve is None:
+        _, post = posteriors_specialised(tables, dev)
+    else:
+        _, post = posteriors_serve(tables, batch, dev, serve)
     return mea_decode(post, batch, dev, gap_gamma, match_gamma)
 
 
@@ -263,20 +279,24 @@ def realigned_ops_for_jobs(
     max_batch_cells: int = 128_000_000,
     split_size: int = 0,
     fused: bool = True,
+    serve: Optional[str] = None,
 ) -> List[List[Tuple[int, int]]]:
     """Run FB + MEA for every job on `device`; returns realigned
     aligned-region ops.
 
     split_size > 0 decomposes each problem at guide-path anchors
     (split_job_at_anchors) and concatenates the per-segment cigars.
-    fused=False takes the REL path, as does a model whose gap emissions
-    are not flat (module docstring)."""
+    fused=False takes the REL path; serve=<mode> the circular serving
+    route in that mode, whatever `fused` says; a model whose gap emissions
+    are not flat the REL path (module docstring).  An unknown serve mode
+    raises ValueError."""
+    check_serve(serve)
     if split_size and split_size > 0:
         segs, origin, _ = split_jobs_at_anchors(jobs, split_size)
         if len(segs) != len(jobs):
             seg_ops = realigned_ops_for_jobs(
                 segs, hmm, gap_gamma, match_gamma, device, band_width,
-                max_batch_cells, split_size=0, fused=fused,
+                max_batch_cells, split_size=0, fused=fused, serve=serve,
             )
             out: List[List[Tuple[int, int]]] = [[] for _ in jobs]
             for s_idx, j_idx in enumerate(origin):
@@ -284,9 +304,13 @@ def realigned_ops_for_jobs(
             return [_merge_op_runs(ops) for ops in out]
 
     tables = tables_from_hmm(hmm, device)
-    # marginalign_trna_tpu/align/realign.py:265-267, 328, 358-363.
-    fused = fused and has_flat_gap_emissions(tables)
-    run_bucket = _realign_bucket_fused if fused else _realign_bucket_rel
+    # marginalign_trna_tpu/align/realign.py:265-267, 328, 358-395.
+    if not has_flat_gap_emissions(tables):
+        run_bucket = _realign_bucket_rel
+    elif serve is not None:
+        run_bucket = partial(_realign_bucket_rel, serve=serve)
+    else:
+        run_bucket = _realign_bucket_fused if fused else _realign_bucket_rel
     results: List[List[Tuple[int, int]]] = [[] for _ in jobs]
     for bucket in _bucket_jobs(jobs, band_width, max_batch_cells):
         ops_list = run_bucket([jobs[i] for i in bucket], tables, gap_gamma,
@@ -340,9 +364,12 @@ def realign_sam_file(
     band_width: int = DEFAULT_BAND_WIDTH,
     split_size: int = DEFAULT_SPLIT_SIZE,
     fused: bool = True,
+    serve: Optional[str] = None,
 ) -> None:
     """Chain (optional) + realign a SAM file end to end on `device`
-    (fused=False: the REL path, module docstring)."""
+    (fused=False: the REL path; serve=<mode>: circular serving in that
+    mode; module docstring)."""
+    check_serve(serve)
     work_sam = sam_path
     tmp = None
     if not no_chain:
@@ -361,7 +388,8 @@ def realign_sam_file(
         jobs = _jobs_from_sam(sam, ref_sequences, encode)
         all_ops = realigned_ops_for_jobs(jobs, hmm, gap_gamma, match_gamma,
                                          device, band_width,
-                                         split_size=split_size, fused=fused)
+                                         split_size=split_size, fused=fused,
+                                         serve=serve)
         realigned = [splice_realigned_cigar(job.record, ops)
                      for job, ops in zip(jobs, all_ops)]
         SamFile(sam.header, realigned).write(output_sam_path)

@@ -14,11 +14,19 @@ expand, the backward and the expectation-accumulating forward run, and the
 flushed totals scatter into one dense [positions, 4] tensor over all
 references (ops/expectations.py).  Only that tensor comes back.
 
+With serve=<mode> (one of ops/fb_circ.py SERVE_MODES; the JAX package
+with MARGINALIGN_LAYOUT=circ MARGINALIGN_CALLER_FUSED=off
+MARGINALIGN_CIRC_SERVE=<mode>) the buckets take the unfused circular
+route instead: band arrays packed on the host and uploaded, the
+forward-backward of that mode in the circular layout (ops/fb_circ.py
+`posteriors_serve`) and the posterior band summed per position
+(ops/expectations.py `band_expectations`).
+
 A model whose gap emissions are not flat (an un-normalised EM model) cannot
 run those kernels; as in the JAX package, its buckets are packed as band
 arrays (`pack_banded_batch`), run through the generic forward-backward pair
 (ops/fb_generic_cuda.py) and summed per position from the posterior band
-(ops/expectations.py `band_expectations`).
+(`band_expectations`), whatever `serve` says.
 """
 from __future__ import annotations
 
@@ -35,7 +43,7 @@ from ..models.hmm import PairHmm
 from ..ops.band import pack_banded_batch, pack_compact_batch
 from ..ops.expectations import band_expectations, band_expectations_cx
 from ..ops.fb import device_batch, tables_from_hmm
-from ..ops.fb_circ import compact_device_batch
+from ..ops.fb_circ import check_serve, compact_device_batch, posteriors_serve
 from ..ops.fb_cuda import has_flat_gap_emissions
 from ..ops.fb_generic_cuda import posteriors_generic
 from ..pipeline import resolve_device
@@ -91,10 +99,13 @@ def accumulate_expectations(
     alignment_hmm: Optional[PairHmm],
     options: CallerOptions,
     device="cuda",
+    serve: Optional[str] = None,
 ) -> Dict[str, np.ndarray]:
     """-> {ref_name: [ref_len, 4] expected base counts}.  The posterior
     pass runs on `device` (the kernels on "cuda", their plain versions on
-    "cpu")."""
+    "cpu"); serve=<mode> takes the unfused circular route in that mode
+    (module docstring), an unknown mode raises ValueError."""
+    check_serve(serve)
     expectations = {
         name: np.zeros((len(seq), 4)) for name, seq in ref_sequences.items()
     }
@@ -113,6 +124,7 @@ def accumulate_expectations(
     tables = tables_from_hmm(alignment_hmm, dev)
     # marginalign_trna_tpu/call/caller.py:173-177, 223-244.
     flat_gaps = has_flat_gap_emissions(tables)
+    compact = flat_gaps and serve is None
 
     # Global coordinate space: all references concatenated, so one dense
     # [total, 4] scatter covers every lane whatever reference it aligns to.
@@ -124,7 +136,7 @@ def accumulate_expectations(
     exp_global = np.zeros((total, 4))
     for bucket in _bucket_jobs(jobs, options.band_width,
                                options.max_batch_cells):
-        pack = pack_compact_batch if flat_gaps else pack_banded_batch
+        pack = pack_compact_batch if compact else pack_banded_batch
         batch = pack(
             [jobs[i].read_region for i in bucket],
             [jobs[i].ref_region for i in bucket],
@@ -137,13 +149,16 @@ def accumulate_expectations(
             rec = jobs[job_idx].record
             offsets[local_b] = (global_off[rec.rname] + rec.reference_start
                                 + job_ref_off[job_idx])
-        if flat_gaps:
+        if compact:
             exp_global += band_expectations_cx(
                 tables, batch, compact_device_batch(batch, dev), offsets,
                 total)
         else:
             bdev = device_batch(batch, dev)
-            _, post = posteriors_generic(tables, bdev)
+            if flat_gaps:
+                _, post = posteriors_serve(tables, batch, bdev, serve)
+            else:
+                _, post = posteriors_generic(tables, bdev)
             exp_global += band_expectations(post, batch, bdev, offsets,
                                             total, len(bucket))
     for name, seq in ref_sequences.items():
@@ -203,15 +218,18 @@ def margin_caller(
     error_model: PairHmm,
     options: Optional[CallerOptions] = None,
     device="cuda",
+    serve: Optional[str] = None,
 ) -> List[Tuple[str, int, str, float]]:
     """Full marginCaller pipeline on `device` (reference:
     marginCallerTargetFn + variantCallSamFileTargetFn,
-    marginCallerLib.py:15-222)."""
+    marginCallerLib.py:15-222); serve=<mode>: the unfused circular route
+    (`accumulate_expectations`)."""
+    check_serve(serve)
     options = options or CallerOptions()
     sam = SamFile.read(sam_path)
     ref_sequences = get_fasta_dictionary(reference_fasta_path)
     expectations = accumulate_expectations(
-        sam, ref_sequences, alignment_model, options, device
+        sam, ref_sequences, alignment_model, options, device, serve
     )
     calls = call_variants(
         expectations, ref_sequences, error_model, options.threshold

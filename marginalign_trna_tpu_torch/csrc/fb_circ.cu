@@ -1,8 +1,7 @@
-// The fused forward-backward in the circular band layout: the scaled
-// backward (sv_backward), the caller's forward that accumulates expected
-// base counts per reference position without writing a posterior band
-// (cx_forward) and the realigner's forward that writes the posterior band
-// and the MEA's per-position row and column sums (mw_forward).
+// The flat-gap forward-backward in the circular band layout: one scaled
+// backward and one scaled forward recursion, each generic over where the
+// match emissions come from (the emission source) and the forward over
+// what leaves the kernel (the sink).
 //
 // Replaces the TPU kernels of marginalign_trna_tpu/ops/fb_pallas.py:
 //   sv_backward  <- `_sv_backward_call` (`_make_bwd_kernel_circ_sv`): from
@@ -10,6 +9,16 @@
 //                   emission = max(es, 0)) the match-state backward band bm,
 //                   the cumulative log-scale bls per diagonal and
 //                   logZ = log(max(0.2 * zrow, 1e-30)) + bls[0].
+//   circ_backward_emv      <- `_make_bwd_kernel_circ_first` ("em" mode):
+//                   the same backward from a premasked f32 emission stream
+//                   em and the int8 valid stream.
+//   circ_backward_codes    <- `_make_bwd_kernel_circ_lean` ("lean", and
+//                   the lean part of "ckpt"): from the int8 code streams xb,
+//                   yb and valid, the match emission looked up in the 5x5
+//                   table Ematch[x][y] in-kernel.
+//   circ_backward_codes_es <- `_make_bwd_kernel_circ_emw` ("emw"): as
+//                   codes, and it also writes the signed stream
+//                   es = e * valid - (1 - valid) for the forward.
 //   cx_forward   <- `_cx_from_es` (`_make_fwd_kernel_circ_cx`): the scaled
 //                   forward; post = f_M * b_M * exp(ls + bls - logZ) (the
 //                   origin cell excluded) adds into one of four per-position
@@ -27,8 +36,26 @@
 //                   a row accumulator that stays put (a read position keeps
 //                   its circular row) and flushes at frr (flc, flr, tails
 //                   tc, tr).
-// cx_forward and mw_forward run one forward recursion (`circ_forward`) and
-// differ only in what leaves the kernel (the `Sink`).
+//   circ_post_es / _emv / _codes <- `_make_fwd_kernel_circ_post_sv`
+//                   ("sv", "emw"), `_make_fwd_kernel_circ_post` ("em"),
+//                   `_make_fwd_kernel_circ_post_lean` ("lean"): the same
+//                   forward; post leaves as the circular band (the origin
+//                   cell kept, as the TPU kernels keep it).
+//   circ_ckpt_backward <- `_make_bwd_kernel_circ_ckpt` ("ckpt"): the codes
+//                   backward that stores no band: once per block of KB
+//                   diagonals it writes the state entering the block (the
+//                   e_M * b_M rows of the two diagonals above it, the gap
+//                   states of the one above, bls and the last factor), and
+//                   logZ.
+//   circ_ckpt_post <- `_make_fwd_kernel_circ_ckpt`: per block, ascending,
+//                   it restores the block's checkpoint, replays the block's
+//                   backward into shared memory (bm and bls of KB
+//                   diagonals), then runs the forward over the block and
+//                   writes the circular posterior band.  The replay runs
+//                   the backward's code on the backward's state, so it is
+//                   bit-identical to a stored band.
+// All forwards run one recursion (`CircForward`) and all backwards one
+// (`CircBackward`).
 // In the circular layout row r holds read prefix index i = r (mod Wp), so
 // every band motion is an unconditional roll by one row: the match move
 // reads row k - 1 of generation d - 2 (forward) or k + 1 of d + 2
@@ -39,20 +66,27 @@
 // the generic 5x5 mix.  Scaling as the TPU kernels: rescale by the band max
 // at d % 8 == 0 (backward) and d % 8 == 7 (forward), factor 1 for a step
 // with no mass, the d-2 term divided by the previous factor on the step
-// after a rescale.  Built with -fmad=false and with the plain versions'
+// after a rescale.  The schedule depends on d alone, so a kernel that stops
+// at the last diagonal computes what the TPU kernels compute over their
+// zero-padded steps.  Built with -fmad=false and with the plain versions'
 // order of operations, so they round as the plain versions do.
 //
-// What bounds them on an H100: per cell the backward reads 4 B and writes
-// 4 B, the forward reads 13 B, against ~25 flops; a full card would be
-// memory bound, but at the caller's shapes the chain of d1k dependent
-// diagonals (a block barrier each, two on rescale steps) bounds them first.
-// One block owns 32 lanes x all Wp rows, keeps both frontier generations and
-// the accumulators in shared memory; rolling accumulators sit at physical
-// row (k - d) mod Wp, so their roll moves no data.  cx never stores a
-// posterior.  mw writes 4 B per cell more: it stages each diagonal's
-// circular rows in shared memory (two planes by d parity) and stores the
-// band-relative rows of the diagonal before once the barrier that ends a
-// diagonal has passed, so its stores coalesce.
+// What bounds them on an H100: per cell the backward reads 1-5 B and
+// writes 4 B, the forward reads 9-13 B and writes 0-4 B, against ~25 flops;
+// a full card would be memory bound, but at the main path's shapes the
+// chain of d1k dependent diagonals (a block barrier each, two on rescale
+// steps) bounds them first.  One block owns 32 lanes x all Wp rows, keeps
+// both frontier generations and the accumulators in shared memory; rolling
+// accumulators sit at physical row (k - d) mod Wp, so their roll moves no
+// data.  cx never stores a posterior.  mw writes 4 B per cell more: it
+// stages each diagonal's circular rows in shared memory (two planes by d
+// parity) and stores the band-relative rows of the diagonal before once the
+// barrier that ends a diagonal has passed, so its stores coalesce.  The
+// checkpoint pair moves 24 / KB B per cell between its kernels instead of
+// the 8 B of a stored band and its re-read; its replay doubles the
+// posterior pass's recursion and needs (24 + KB) planes of shared memory
+// (KB = 32 at Wp 24: 176 KB; KB = 8 up to Wp 56), or, for wider bands,
+// the forward's 12 planes and the replay in device memory.
 #include "common.cuh"
 
 namespace {
@@ -70,45 +104,152 @@ struct CircCoef {
 };
 static_assert(sizeof(CircCoef) == 54 * sizeof(float), "coefficient layout");
 
-template <int RPT>
-__global__ void __launch_bounds__(1024)
-    sv_backward_kernel(const float* __restrict__ es,
-                       const int32_t* __restrict__ fink,
-                       const int32_t* __restrict__ find, CircCoef K,
-                       int chain, int d1k, int Wp, int B,
-                       float* __restrict__ bm, float* __restrict__ bls_out,
-                       float* __restrict__ logZ) {
-  extern __shared__ float smem[];
-  const int L = blockDim.x, TY = blockDim.y;
-  const int lane = threadIdx.x, ty = threadIdx.y;
-  const int b = blockIdx.x * L + lane;
-  const bool live = b < B;
-  const int plane = Wp * L;
-  float* shG = smem;             // [2][4][Wp][L] gap states of d+1 (parity)
-  float* shP = shG + 8 * plane;  // [3][Wp][L] e_M * b_M of d+2 (d mod 3)
-  float* shR = shP + 3 * plane;  // [Wp][L] row maxima for the rescale
-  for (int i = ty * L + lane; i < 12 * plane; i += TY * L) smem[i] = 0.f;
+// The 25 match emissions Ematch[ref code][read code], by value.
+struct EmitTable {
+  float e[25];
+};
 
-  const int fd = live ? find[b] : -1;
-  const int fk = live ? fink[b] : -1;
+// Thread coordinates every recursion and sink needs.
+struct Lanes {
+  int L, TY, lane, ty, b, plane, Wp, B, d1k;
+  bool live;
+  __device__ Lanes(int Wp_, int B_, int d1k_)
+      : L(blockDim.x), TY(blockDim.y), lane(threadIdx.x), ty(threadIdx.y),
+        b(blockIdx.x * blockDim.x + threadIdx.x), plane(Wp_ * blockDim.x),
+        Wp(Wp_), B(B_), d1k(d1k_), live(b < B_) {}
+  // Physical row of logical row k of a rolling accumulator at diagonal d.
+  __device__ int rolled(int k, int d) const {
+    const int rot = d % Wp;
+    return (k - rot < 0 ? k - rot + Wp : k - rot) * L + lane;
+  }
+};
+
+// Zeroes n floats of shared memory with every thread of the block.
+__device__ __forceinline__ void zero_smem(float* p, int n) {
+  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < n;
+       i += blockDim.x * blockDim.y)
+    p[i] = 0.f;
+}
+
+// Floats of the checkpoint posterior pass's replay per block of LANES
+// lanes: the backward's 12 planes, bm [KB][Wp][LANES], bls [KB][LANES].
+__host__ __device__ __forceinline__ size_t replay_floats(int Wp, int KB) {
+  return ((size_t)(12 + KB) * Wp + KB) * mk::LANES;
+}
+
+// -------------------------------------------------------- emission sources
+// load(): the match emission e (0 on an invalid cell) and the validity v
+// (1 or 0) of cell (d, k) of lane t.b; dead lanes read as invalid.
+
+// The signed stream: v = es >= 0, e = max(es, 0).
+struct EsSrc {
+  const float* __restrict__ es;
+  __device__ void bind(const float*) {}
+  __device__ void load(const Lanes& t, int d, int k, float& e,
+                       float& v) const {
+    const float x = t.live ? es[mk::cell(d, k, t.b, t.Wp, t.B)] : -1.f;
+    v = x >= 0.f ? 1.f : 0.f;
+    e = fmaxf(x, 0.f);
+  }
+};
+
+// A premasked emission stream and the int8 valid stream.
+struct EmvSrc {
+  const float* __restrict__ em;
+  const int8_t* __restrict__ valid;
+  __device__ void bind(const float*) {}
+  __device__ void load(const Lanes& t, int d, int k, float& e,
+                       float& v) const {
+    if (!t.live) {
+      e = 0.f;
+      v = 0.f;
+      return;
+    }
+    const size_t c = mk::cell(d, k, t.b, t.Wp, t.B);
+    v = valid[c] ? 1.f : 0.f;
+    e = em[c];
+  }
+};
+
+// The int8 code streams: e = Ematch[x][y] * v from the table in shared
+// memory (0 for a code outside 0..4); with WRITE_ES the signed stream
+// es = e - (1 - v) leaves for the forward.
+template <bool WRITE_ES>
+struct CodesSrc {
+  const int8_t* __restrict__ xb;
+  const int8_t* __restrict__ yb;
+  const int8_t* __restrict__ valid;
+  float* __restrict__ es_out;
+  const float* table;
+  __device__ void bind(const float* shE) { table = shE; }
+  __device__ void load(const Lanes& t, int d, int k, float& e,
+                       float& v) const {
+    if (!t.live) {
+      e = 0.f;
+      v = 0.f;
+      return;
+    }
+    const size_t c = mk::cell(d, k, t.b, t.Wp, t.B);
+    v = valid[c] ? 1.f : 0.f;
+    const int x = xb[c], y = yb[c];
+    const float em = (unsigned)x < 5u && (unsigned)y < 5u ? table[x * 5 + y]
+                                                         : 0.f;
+    e = em * v;
+    if (WRITE_ES) es_out[c] = e - (1.f - v);
+  }
+};
+
+// Copies the emission table into shared memory (thread 0; the caller's
+// next barrier publishes it).
+__device__ __forceinline__ void load_table(const EmitTable& tab, float* shE) {
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+#pragma unroll
+    for (int i = 0; i < 25; ++i) shE[i] = tab.e[i];
+  }
+}
+
+// ---------------------------------------------------------------- backward
+
+// The scaled backward for rows k = ty + r * TY of 32 lanes.  step(d)
+// computes generation d of the five states from the e_M * b_M rows of d+2
+// and the gap states of d+1 in shared memory, rescales at d % 8 == 0 and
+// publishes generation d; nb[r][0] is then b_M of (d, k) and bls the
+// cumulative log-scale.  The caller ends every step with a barrier.
+// Shared memory: 12 planes of [Wp][L], zeroed by the caller.
+template <int RPT, class Src>
+struct CircBackward {
+  const Lanes& t;
+  const Src& src;
+  const CircCoef& K;
+  int chain, fd, fk;
+  float* shG;  // [2][4][Wp][L] gap states of d+1 (by parity)
+  float* shP;  // [3][Wp][L] e_M * b_M of d+2 (by d mod 3)
+  float* shR;  // [Wp][L] row maxima for the rescale
   float bls = 0.f, cprev = 1.f;
   float nb[RPT][5];
-  float e[RPT];
-  __syncthreads();
 
-  for (int d = d1k - 1; d >= 0; --d) {
+  __device__ CircBackward(const Lanes& t_, const Src& src_,
+                          const CircCoef& K_, int chain_,
+                          const int32_t* __restrict__ fink,
+                          const int32_t* __restrict__ find, float* smem)
+      : t(t_), src(src_), K(K_), chain(chain_),
+        fd(t_.live ? find[t_.b] : -1), fk(t_.live ? fink[t_.b] : -1),
+        shG(smem), shP(smem + 8 * t_.plane), shR(smem + 11 * t_.plane) {}
+
+  __device__ void step(int d) {
+    const int plane = t.plane, L = t.L, lane = t.lane;
     const int gin = ((d + 1) & 1) * 4 * plane, gout = (d & 1) * 4 * plane;
     const int pin = ((d + 2) % 3) * plane, pout = (d % 3) * plane;
     const bool divide = d % 8 == 7;
+    float e[RPT];
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
-      if (k >= Wp) continue;
-      const float esv = live ? es[mk::cell(d, k, b, Wp, B)] : -1.f;
-      const float v = esv >= 0.f ? 1.f : 0.f;
-      e[r] = fmaxf(esv, 0.f);
+      const int k = t.ty + r * t.TY;
+      if (k >= t.Wp) continue;
+      float v;
+      src.load(t, d, k, e[r], v);
       const int here = k * L + lane;
-      const int up = mk::wrap(k + 1, Wp) * L + lane;
+      const int up = mk::wrap(k + 1, t.Wp) * L + lane;
       float q[5];
       q[0] = shP[pin + up];
       if (divide) q[0] = q[0] / cprev;
@@ -139,7 +280,8 @@ __global__ void __launch_bounds__(1024)
       }
     }
     if (d % 8 == 0) {
-      const float m = mk::band_max<RPT>(nb, shR, Wp, L, lane, ty, TY);
+      const float m =
+          mk::band_max<RPT>(nb, shR, t.Wp, L, lane, t.ty, t.TY);
       const float c = m > 0.f ? m : 1.f;
       const float inv = 1.f / c;
 #pragma unroll
@@ -151,19 +293,18 @@ __global__ void __launch_bounds__(1024)
     }
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
-      if (k >= Wp) continue;
+      const int k = t.ty + r * t.TY;
+      if (k >= t.Wp) continue;
       const int i = k * L + lane;
-      if (live) bm[mk::cell(d, k, b, Wp, B)] = nb[r][0];
       shP[pout + i] = e[r] * nb[r][0];
 #pragma unroll
       for (int g = 0; g < 4; ++g) shG[gout + g * plane + i] = nb[r][g + 1];
     }
-    if (live && ty == 0) bls_out[(size_t)d * B + b] = bls;
-    __syncthreads();
   }
-  // Row 0 of d = 0 is r = 0 of the ty = 0 threads.
-  if (live && ty == 0) {
+
+  // logZ from generation 0 (row 0 is r = 0 of the ty = 0 threads).
+  __device__ void write_logz(float* __restrict__ logZ) const {
+    if (!t.live || t.ty != 0) return;
     float zr;
     if (chain) {
       zr = nb[0][0];
@@ -172,48 +313,124 @@ __global__ void __launch_bounds__(1024)
     } else {
       zr = (((nb[0][0] + nb[0][1]) + nb[0][2]) + nb[0][3]) + nb[0][4];
     }
-    logZ[b] = logf(fmaxf(0.2f * zr, 1e-30f)) + bls;
+    logZ[t.b] = logf(fmaxf(0.2f * zr, 1e-30f)) + bls;
   }
-}
 
-// The scaled forward of the circular layout for rows k = ty + r * TY of 32
-// lanes: generation d of the five states from the mixes generations d - 1
-// and d - 2 published to shared memory, rescaled at d % 8 == 7, and
+  // Checkpoint g: the state entering diagonal d (the e_M * b_M rows of d+1
+  // and d+2, the gap states of d+1) as ck[g] [6][Wp][B] and (bls, cprev)
+  // as cs[g] [2][B].  Each thread moves its own rows.
+  __device__ void save(float* __restrict__ ck, float* __restrict__ cs, int g,
+                       int d) const {
+    if (!t.live) return;
+    const float* p1 = shP + ((d + 1) % 3) * t.plane;
+    const float* p2 = shP + ((d + 2) % 3) * t.plane;
+    const float* g1 = shG + ((d + 1) & 1) * 4 * t.plane;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = t.ty + r * t.TY;
+      if (k >= t.Wp) continue;
+      const int i = k * t.L + t.lane;
+      ck[mk::cell(g * 6 + 0, k, t.b, t.Wp, t.B)] = p1[i];
+      ck[mk::cell(g * 6 + 1, k, t.b, t.Wp, t.B)] = p2[i];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        ck[mk::cell(g * 6 + 2 + s, k, t.b, t.Wp, t.B)] = g1[s * t.plane + i];
+    }
+    if (t.ty == 0) {
+      cs[(size_t)(g * 2) * t.B + t.b] = bls;
+      cs[(size_t)(g * 2 + 1) * t.B + t.b] = cprev;
+    }
+  }
+
+  // The inverse of save; the caller's barrier publishes the rows.
+  __device__ void restore(const float* __restrict__ ck,
+                          const float* __restrict__ cs, int g, int d) {
+    if (!t.live) return;
+    float* p1 = shP + ((d + 1) % 3) * t.plane;
+    float* p2 = shP + ((d + 2) % 3) * t.plane;
+    float* g1 = shG + ((d + 1) & 1) * 4 * t.plane;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = t.ty + r * t.TY;
+      if (k >= t.Wp) continue;
+      const int i = k * t.L + t.lane;
+      p1[i] = ck[mk::cell(g * 6 + 0, k, t.b, t.Wp, t.B)];
+      p2[i] = ck[mk::cell(g * 6 + 1, k, t.b, t.Wp, t.B)];
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        g1[s * t.plane + i] = ck[mk::cell(g * 6 + 2 + s, k, t.b, t.Wp, t.B)];
+    }
+    bls = cs[(size_t)(g * 2) * t.B + t.b];
+    cprev = cs[(size_t)(g * 2 + 1) * t.B + t.b];
+  }
+};
+
+// ----------------------------------------------------------------- forward
+
+// b_M and bls of the backward from device memory.
+struct GlobalBack {
+  const float* __restrict__ bm;
+  const float* __restrict__ bls;
+  __device__ float bm_at(const Lanes& t, int d, int k) const {
+    return bm[mk::cell(d, k, t.b, t.Wp, t.B)];
+  }
+  __device__ float bls_at(const Lanes& t, int d) const {
+    return bls[(size_t)d * t.B + t.b];
+  }
+};
+
+// b_M and bls of diagonals d0 .. d0 + KB - 1 replayed into shared memory:
+// bm [KB][Wp][L], bls [KB][L].
+struct SharedBack {
+  const float* bm;
+  const float* bls;
+  int d0;
+  __device__ float bm_at(const Lanes& t, int d, int k) const {
+    return bm[(d - d0) * t.plane + k * t.L + t.lane];
+  }
+  __device__ float bls_at(const Lanes& t, int d) const {
+    return bls[(d - d0) * t.L + t.lane];
+  }
+};
+
+// The scaled forward for rows k = ty + r * TY of 32 lanes: run(d0, d1)
+// computes generations d0 .. d1 - 1 (generation 0 is the start
+// distribution at row 0) from the mixes generations d - 1 and d - 2
+// published to shared memory, rescaled at d % 8 == 7, and
 // post = f_M * b_M * exp(ls + bls - logZ) per row (the origin cell NOT
-// excluded), handed to sink.step(d, post) for d = 0 .. d1k - 1, then
-// sink.finish().  Shared memory: 12 planes of [Wp][L] here, Sink::PLANES
-// after them for the sink, all zeroed on entry.
-template <int RPT, class Sink>
-__device__ __forceinline__ void circ_forward(
-    const float* __restrict__ es, const float* __restrict__ bm,
-    const float* __restrict__ bls, const float* __restrict__ logZ,
-    const CircCoef& K, int chain, int d1k, int Wp, int B, float* smem,
-    Sink& sink) {
-  const int L = blockDim.x, TY = blockDim.y;
-  const int lane = threadIdx.x, ty = threadIdx.y;
-  const int b = blockIdx.x * L + lane;
-  const bool live = b < B;
-  const int plane = Wp * L;
-  float* shG = smem;             // [2][4][Wp][L] gap-target mixes of d-1
-  float* shM = shG + 8 * plane;  // [3][Wp][L] match mix of d-2 (d mod 3)
-  float* shR = shM + 3 * plane;  // [Wp][L] row maxima for the rescale
-  for (int i = ty * L + lane; i < (12 + Sink::PLANES) * plane; i += TY * L)
-    smem[i] = 0.f;
-  const float lz = live ? logZ[b] : 0.f;
-
+// excluded), handed to sink.step(d, post).  The state carries over between
+// calls.  Shared memory: 12 planes of [Wp][L], zeroed (and published by a
+// barrier) by the caller.
+template <int RPT, class Src>
+struct CircForward {
+  const Lanes& t;
+  const Src& src;
+  const CircCoef& K;
+  int chain;
+  float* shG;  // [2][4][Wp][L] gap-target mixes of d-1
+  float* shM;  // [3][Wp][L] match mix of d-2 (d mod 3)
+  float* shR;  // [Wp][L] row maxima for the rescale
+  float lz, ls = 0.f, cprev = 1.f;
   float f[RPT][5];
-  float post[RPT];
+
+  __device__ CircForward(const Lanes& t_, const Src& src_, const CircCoef& K_,
+                         int chain_, const float* __restrict__ logZ,
+                         float* smem)
+      : t(t_), src(src_), K(K_), chain(chain_), shG(smem),
+        shM(smem + 8 * t_.plane), shR(smem + 11 * t_.plane),
+        lz(t_.live ? logZ[t_.b] : 0.f) {}
 
   // Writes the mixes generation d contributes: gap targets at d+1 and the
   // match target at d+2.
-  auto publish = [&](int d) {
+  __device__ void publish(int d) {
+    const int plane = t.plane;
     const int gout = ((d + 1) & 1) * 4 * plane;
     const int mout = ((d + 2) % 3) * plane;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
-      if (k >= Wp) continue;
-      const int i = k * L + lane;
+      const int k = t.ty + r * t.TY;
+      if (k >= t.Wp) continue;
+      const int i = k * t.L + t.lane;
       float mm;
       if (chain) {
         mm = K.t00 * f[r][0];
@@ -226,53 +443,45 @@ __device__ __forceinline__ void circ_forward(
       }
       shM[mout + i] = mm;
 #pragma unroll
-      for (int t = 1; t < 5; ++t) {
+      for (int u = 1; u < 5; ++u) {
         float g;
         if (chain) {
-          g = f[r][0] + K.c[t - 1] * f[r][t];
+          g = f[r][0] + K.c[u - 1] * f[r][u];
         } else {
-          g = f[r][0] * K.a[t];
+          g = f[r][0] * K.a[u];
 #pragma unroll
-          for (int s = 1; s < 5; ++s) g = g + f[r][s] * K.a[s * 5 + t];
+          for (int s = 1; s < 5; ++s) g = g + f[r][s] * K.a[s * 5 + u];
         }
-        shG[gout + (t - 1) * plane + i] = g;
+        shG[gout + (u - 1) * plane + i] = g;
       }
     }
-  };
+  }
 
-  // d = 0: the start distribution at row 0.
-  {
-    const float alpha0 = live ? expf(0.f + bls[b] - lz) : 0.f;
+  // Generation 0: the start distribution at row 0.
+  __device__ void start() {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
+      const int k = t.ty + r * t.TY;
       f[r][0] = k == 0 ? 0.2f : 0.f;
 #pragma unroll
       for (int s = 1; s < 5; ++s)
         f[r][s] = k == 0 ? (chain ? K.pi[s - 1] : 0.2f) : 0.f;
-      post[r] = 0.f;
-      if (k >= Wp || !live) continue;
-      post[r] = f[r][0] * bm[mk::cell(0, k, b, Wp, B)] * alpha0;
     }
   }
-  __syncthreads();
-  sink.step(0, post);
-  publish(0);
-  float ls = 0.f, cprev = 1.f;
-  __syncthreads();
 
-  for (int d = 1; d < d1k; ++d) {
+  // Generation d >= 1.
+  __device__ void advance(int d) {
+    const int plane = t.plane;
     const int gin = (d & 1) * 4 * plane, min_ = (d % 3) * plane;
     const bool divide = d % 8 == 0;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
-      if (k >= Wp) continue;
-      const float esv = live ? es[mk::cell(d, k, b, Wp, B)] : -1.f;
-      const float v = esv >= 0.f ? 1.f : 0.f;
-      const float e = fmaxf(esv, 0.f);
-      const int here = k * L + lane;
-      const int down = mk::wrap(k - 1, Wp) * L + lane;
+      const int k = t.ty + r * t.TY;
+      if (k >= t.Wp) continue;
+      float e, v;
+      src.load(t, d, k, e, v);
+      const int here = k * t.L + t.lane;
+      const int down = mk::wrap(k - 1, t.Wp) * t.L + t.lane;
       float mm = shM[min_ + down];
       if (divide) mm = mm / cprev;
       f[r][0] = e * mm;
@@ -282,7 +491,8 @@ __device__ __forceinline__ void circ_forward(
       f[r][4] = shG[gin + 3 * plane + down] * v;
     }
     if (d % 8 == 7) {
-      const float m = mk::band_max<RPT>(f, shR, Wp, L, lane, ty, TY);
+      const float m =
+          mk::band_max<RPT>(f, shR, t.Wp, t.L, t.lane, t.ty, t.TY);
       const float c = m > 0.f ? m : 1.f;
       const float inv = 1.f / c;
 #pragma unroll
@@ -292,34 +502,49 @@ __device__ __forceinline__ void circ_forward(
       ls += logf(c);
       cprev = c;
     }
-    const float alpha = live ? expf(ls + bls[(size_t)d * B + b] - lz) : 0.f;
+  }
+
+  template <class Back, class Sink>
+  __device__ void run(int d0, int d1, const Back& back, Sink& sink) {
+    for (int d = d0; d < d1; ++d) {
+      if (d == 0)
+        start();
+      else
+        advance(d);
+      const float alpha = t.live ? expf(ls + back.bls_at(t, d) - lz) : 0.f;
+      float post[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int k = t.ty + r * t.TY;
+        post[r] = 0.f;
+        if (k >= t.Wp || !t.live) continue;
+        post[r] = f[r][0] * back.bm_at(t, d, k) * alpha;
+      }
+      sink.step(d, post);
+      publish(d);
+      __syncthreads();
+    }
+  }
+};
+
+// ------------------------------------------------------------------- sinks
+
+// The circular posterior band.
+template <int RPT>
+struct PostSink {
+  static constexpr int PLANES = 0;
+  const Lanes& t;
+  float* __restrict__ post;
+
+  __device__ void step(int d, const float (&p)[RPT]) {
+    if (!t.live) return;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
-      post[r] = 0.f;
-      if (k >= Wp || !live) continue;
-      post[r] = f[r][0] * bm[mk::cell(d, k, b, Wp, B)] * alpha;
+      const int k = t.ty + r * t.TY;
+      if (k < t.Wp) post[mk::cell(d, k, t.b, t.Wp, t.B)] = p[r];
     }
-    sink.step(d, post);
-    publish(d);
-    __syncthreads();
   }
-  sink.finish();
-}
-
-// Thread coordinates every sink needs.
-struct Lanes {
-  int L, TY, lane, ty, b, plane, Wp, B, d1k;
-  bool live;
-  __device__ Lanes(int Wp_, int B_, int d1k_)
-      : L(blockDim.x), TY(blockDim.y), lane(threadIdx.x), ty(threadIdx.y),
-        b(blockIdx.x * blockDim.x + threadIdx.x), plane(Wp_ * blockDim.x),
-        Wp(Wp_), B(B_), d1k(d1k_), live(b < B_) {}
-  // Physical row of logical row k of a rolling accumulator at diagonal d.
-  __device__ int rolled(int k, int d) const {
-    const int rot = d % Wp;
-    return (k - rot < 0 ? k - rot + Wp : k - rot) * L + lane;
-  }
+  __device__ void finish() {}
 };
 
 // cx: four rolling accumulators by read code; the completing row fr[d]
@@ -327,7 +552,7 @@ struct Lanes {
 template <int RPT>
 struct CxSink {
   static constexpr int PLANES = 4;
-  Lanes t;
+  const Lanes& t;
   const int8_t* __restrict__ yb;
   const int32_t* __restrict__ fr;
   float* __restrict__ fl;
@@ -379,7 +604,7 @@ struct CxSink {
 template <int RPT>
 struct MwSink {
   static constexpr int PLANES = 4;
-  Lanes t;
+  const Lanes& t;
   const int32_t* __restrict__ fr;
   const int32_t* __restrict__ frr;
   const int32_t* __restrict__ lom;
@@ -449,6 +674,53 @@ struct MwSink {
   }
 };
 
+// ----------------------------------------------------------------- kernels
+
+// S and its other emission sources: bm, bls, logZ.
+template <int RPT, class Src>
+__global__ void __launch_bounds__(1024)
+    circ_backward_kernel(Src src, EmitTable tab,
+                         const int32_t* __restrict__ fink,
+                         const int32_t* __restrict__ find, CircCoef K,
+                         int chain, int d1k, int Wp, int B,
+                         float* __restrict__ bm, float* __restrict__ bls_out,
+                         float* __restrict__ logZ) {
+  extern __shared__ float smem[];
+  __shared__ float shE[25];
+  const Lanes t(Wp, B, d1k);
+  load_table(tab, shE);
+  Src s = src;
+  s.bind(shE);
+  zero_smem(smem, 12 * t.plane);
+  CircBackward<RPT, Src> bw(t, s, K, chain, fink, find, smem);
+  __syncthreads();
+  for (int d = d1k - 1; d >= 0; --d) {
+    bw.step(d);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = t.ty + r * t.TY;
+      if (k < Wp && t.live) bm[mk::cell(d, k, t.b, Wp, B)] = bw.nb[r][0];
+    }
+    if (t.live && t.ty == 0) bls_out[(size_t)d * B + t.b] = bw.bls;
+    __syncthreads();
+  }
+  bw.write_logz(logZ);
+}
+
+// The forward with a sink: cx, mw and the circular posterior band.
+template <int RPT, class Src, class Sink>
+__device__ __forceinline__ void forward_all(const Lanes& t, const Src& src,
+                                            const CircCoef& K, int chain,
+                                            const float* bm, const float* bls,
+                                            const float* logZ, float* smem,
+                                            Sink& sink) {
+  zero_smem(smem, (12 + Sink::PLANES) * t.plane);
+  CircForward<RPT, Src> fw(t, src, K, chain, logZ, smem);
+  __syncthreads();
+  fw.run(0, t.d1k, GlobalBack{bm, bls}, sink);
+  sink.finish();
+}
+
 template <int RPT>
 __global__ void __launch_bounds__(1024)
     cx_forward_kernel(const float* __restrict__ es,
@@ -461,8 +733,9 @@ __global__ void __launch_bounds__(1024)
                       float* __restrict__ tails) {
   extern __shared__ float smem[];
   const Lanes t(Wp, B, d1k);
+  const EsSrc src{es};
   CxSink<RPT> sink{t, yb, fr, fl, tails, smem + 12 * t.plane};
-  circ_forward<RPT>(es, bm, bls, logZ, K, chain, d1k, Wp, B, smem, sink);
+  forward_all<RPT>(t, src, K, chain, bm, bls, logZ, smem, sink);
 }
 
 template <int RPT>
@@ -479,59 +752,146 @@ __global__ void __launch_bounds__(1024)
                       float* __restrict__ tc, float* __restrict__ tr) {
   extern __shared__ float smem[];
   const Lanes t(Wp, B, d1k);
+  const EsSrc src{es};
   float* own = smem + 12 * t.plane;
   MwSink<RPT> sink{t, fr, frr, lom, post, flc, flr, tc, tr,
                    own, own + t.plane, own + 2 * t.plane};
-  circ_forward<RPT>(es, bm, bls, logZ, K, chain, d1k, Wp, B, smem, sink);
+  forward_all<RPT>(t, src, K, chain, bm, bls, logZ, smem, sink);
 }
 
-size_t sv_smem(int Wp) { return (size_t)12 * Wp * mk::LANES * sizeof(float); }
-// The forward's 12 planes and the sink's 4 (both sinks use 4).
+template <int RPT, class Src>
+__global__ void __launch_bounds__(1024)
+    circ_post_kernel(Src src, EmitTable tab, const float* __restrict__ bm,
+                     const float* __restrict__ bls,
+                     const float* __restrict__ logZ, CircCoef K, int chain,
+                     int d1k, int Wp, int B, float* __restrict__ post) {
+  extern __shared__ float smem[];
+  __shared__ float shE[25];
+  const Lanes t(Wp, B, d1k);
+  load_table(tab, shE);
+  Src s = src;
+  s.bind(shE);
+  PostSink<RPT> sink{t, post};
+  forward_all<RPT>(t, s, K, chain, bm, bls, logZ, smem, sink);
+}
+
+// The checkpoint backward: blocks of KB diagonals from the top; the state
+// entering each block leaves as its checkpoint, then logZ.
+template <int RPT>
+__global__ void __launch_bounds__(1024)
+    circ_ckpt_backward_kernel(CodesSrc<false> src, EmitTable tab,
+                              const int32_t* __restrict__ fink,
+                              const int32_t* __restrict__ find, CircCoef K,
+                              int chain, int d1k, int Wp, int B, int KB,
+                              float* __restrict__ ck, float* __restrict__ cs,
+                              float* __restrict__ logZ) {
+  extern __shared__ float smem[];
+  __shared__ float shE[25];
+  const Lanes t(Wp, B, d1k);
+  load_table(tab, shE);
+  CodesSrc<false> s = src;
+  s.bind(shE);
+  zero_smem(smem, 12 * t.plane);
+  CircBackward<RPT, CodesSrc<false>> bw(t, s, K, chain, fink, find, smem);
+  __syncthreads();
+  for (int g = (d1k - 1) / KB; g >= 0; --g) {
+    const int top = min(g * KB + KB, d1k) - 1;
+    bw.save(ck, cs, g, top);
+    for (int d = top; d >= g * KB; --d) {
+      bw.step(d);
+      __syncthreads();
+    }
+  }
+  bw.write_logz(logZ);
+}
+
+// The checkpoint posterior pass: per block, ascending, the backward
+// replayed from its checkpoint, then the forward.  Shared memory: the
+// forward's 12 planes, then the replay's: the backward's 12 planes, bm
+// [KB][Wp][L] and bls [KB][L].  Where the replay does not fit (Wp > 56 at
+// KB = 8), `scratch` holds it instead, a slice of `replay_floats(Wp, KB)`
+// per block in device memory (the block's barriers order it as they order
+// shared memory); else scratch is null.
+template <int RPT>
+__global__ void __launch_bounds__(1024)
+    circ_ckpt_post_kernel(CodesSrc<false> src, EmitTable tab,
+                          const int32_t* __restrict__ fink,
+                          const int32_t* __restrict__ find,
+                          const float* __restrict__ ck,
+                          const float* __restrict__ cs,
+                          const float* __restrict__ logZ, CircCoef K,
+                          int chain, int d1k, int Wp, int B, int KB,
+                          float* scratch, float* __restrict__ post) {
+  extern __shared__ float smem[];
+  __shared__ float shE[25];
+  const Lanes t(Wp, B, d1k);
+  load_table(tab, shE);
+  CodesSrc<false> s = src;
+  s.bind(shE);
+  float* fsm = smem;
+  float* bsm = scratch ? scratch + blockIdx.x * replay_floats(Wp, KB)
+                       : smem + 12 * t.plane;
+  float* bmS = bsm + 12 * t.plane;
+  float* blsS = bmS + KB * t.plane;
+  zero_smem(fsm, 12 * t.plane);
+  zero_smem(bsm, 12 * t.plane);
+  CircBackward<RPT, CodesSrc<false>> bw(t, s, K, chain, fink, find, bsm);
+  CircForward<RPT, CodesSrc<false>> fw(t, s, K, chain, logZ, fsm);
+  PostSink<RPT> sink{t, post};
+  __syncthreads();
+  for (int g = 0; g * KB < d1k; ++g) {
+    const int lo = g * KB, top = min(lo + KB, d1k) - 1;
+    bw.restore(ck, cs, g, top);
+    __syncthreads();
+    for (int d = top; d >= lo; --d) {
+      bw.step(d);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int k = t.ty + r * t.TY;
+        if (k < Wp) bmS[(d - lo) * t.plane + k * t.L + t.lane] = bw.nb[r][0];
+      }
+      if (t.ty == 0) blsS[(d - lo) * t.L + t.lane] = bw.bls;
+      __syncthreads();
+    }
+    fw.run(lo, top + 1, SharedBack{bmS, blsS, lo}, sink);
+  }
+}
+
+// ---------------------------------------------------------------- launches
+
+size_t bwd_smem(int Wp) { return (size_t)12 * Wp * mk::LANES * sizeof(float); }
+// The forward's 12 planes and the sink's 4 (cx and mw use 4).
 size_t fwd_smem(int Wp) { return (size_t)16 * Wp * mk::LANES * sizeof(float); }
+// The posterior forwards' sink keeps nothing.
+size_t post_smem(int Wp) { return bwd_smem(Wp); }
+size_t ckpt_post_smem(int Wp, int KB, bool spilled) {
+  return bwd_smem(Wp) + (spilled ? 0 : replay_floats(Wp, KB) * sizeof(float));
+}
 
-template <int RPT>
-cudaError_t run_sv(const float* es, const int32_t* fink, const int32_t* find,
-                   const CircCoef& K, int chain, int d1k, int Wp, int B,
-                   float* bm, float* bls, float* logZ, cudaStream_t stream) {
-  cudaError_t err =
-      mk::allow_smem((const void*)sv_backward_kernel<RPT>, sv_smem(Wp));
+// Launches kernel with `smem` bytes of dynamic shared memory, opted in
+// whatever the size: the kernels that look emissions up keep the table in
+// 100 B of static shared memory, which with 48 KB of dynamic memory already
+// passes the default limit.
+template <class... P, class... A>
+cudaError_t run(void (*kernel)(P...), size_t smem, int Wp, int B,
+                cudaStream_t stream, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
-  sv_backward_kernel<RPT>
-      <<<mk::grid_shape(B), mk::block_shape(Wp), sv_smem(Wp), stream>>>(
-          es, fink, find, K, chain, d1k, Wp, B, bm, bls, logZ);
+  kernel<<<mk::grid_shape(B), mk::block_shape(Wp), smem, stream>>>(args...);
   return cudaGetLastError();
 }
 
-
-template <int RPT>
-cudaError_t run_cx(const float* es, const int8_t* yb, const int32_t* fr,
-                   const float* bm, const float* bls, const float* logZ,
-                   const CircCoef& K, int chain, int d1k, int Wp, int B,
-                   float* fl, float* tails, cudaStream_t stream) {
-  cudaError_t err =
-      mk::allow_smem((const void*)cx_forward_kernel<RPT>, fwd_smem(Wp));
-  if (err != cudaSuccess) return err;
-  cx_forward_kernel<RPT>
-      <<<mk::grid_shape(B), mk::block_shape(Wp), fwd_smem(Wp), stream>>>(
-          es, yb, fr, bm, bls, logZ, K, chain, d1k, Wp, B, fl, tails);
-  return cudaGetLastError();
-}
-
-template <int RPT>
-cudaError_t run_mw(const float* es, const int32_t* fr, const int32_t* frr,
-                   const int32_t* lom, const float* bm, const float* bls,
-                   const float* logZ, const CircCoef& K, int chain, int d1k,
-                   int Wp, int B, float* post, float* flc, float* flr,
-                   float* tc, float* tr, cudaStream_t stream) {
-  cudaError_t err =
-      mk::allow_smem((const void*)mw_forward_kernel<RPT>, fwd_smem(Wp));
-  if (err != cudaSuccess) return err;
-  mw_forward_kernel<RPT>
-      <<<mk::grid_shape(B), mk::block_shape(Wp), fwd_smem(Wp), stream>>>(
-          es, fr, frr, lom, bm, bls, logZ, K, chain, d1k, Wp, B, post, flc,
-          flr, tc, tr);
-  return cudaGetLastError();
-}
+// Instantiates KERNEL_EXPR (which names R) for the rows per thread Wp needs.
+#define BY_RPT(Wp, ...)                         \
+  switch (mk::rows_per_thread(Wp)) {            \
+    case 1: { constexpr int R = 1; return __VA_ARGS__; } \
+    case 2: { constexpr int R = 2; return __VA_ARGS__; } \
+    case 3: { constexpr int R = 3; return __VA_ARGS__; } \
+    case 4: { constexpr int R = 4; return __VA_ARGS__; } \
+    default: return cudaErrorInvalidValue;      \
+  }
 
 CircCoef load_coef(const float* coef) {
   CircCoef K;
@@ -540,26 +900,85 @@ CircCoef load_coef(const float* coef) {
   return K;
 }
 
+EmitTable load_table_host(const float* table) {
+  EmitTable T{};
+  if (table)
+    for (int i = 0; i < 25; ++i) T.e[i] = table[i];
+  return T;
+}
+
+bool bad_shape(int d1k, int Wp, int B) {
+  return d1k < 1 || B < 1 || Wp < 1 || mk::rows_per_thread(Wp) > mk::MAX_RPT;
+}
+
+template <class Src>
+cudaError_t run_backward(const Src& src, const float* table,
+                         const int32_t* fink, const int32_t* find,
+                         const float* coef, int chain, int d1k, int Wp, int B,
+                         float* bm, float* bls, float* logZ, void* stream) {
+  if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
+  const CircCoef K = load_coef(coef);
+  const EmitTable T = load_table_host(table);
+  const cudaStream_t s = (cudaStream_t)stream;
+  BY_RPT(Wp, run(circ_backward_kernel<R, Src>, bwd_smem(Wp), Wp, B, s, src,
+                 T, fink, find, K, chain, d1k, Wp, B, bm, bls, logZ))
+}
+
+template <class Src>
+cudaError_t run_post(const Src& src, const float* table, const float* bm,
+                     const float* bls, const float* logZ, const float* coef,
+                     int chain, int d1k, int Wp, int B, float* post,
+                     void* stream) {
+  if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
+  const CircCoef K = load_coef(coef);
+  const EmitTable T = load_table_host(table);
+  const cudaStream_t s = (cudaStream_t)stream;
+  BY_RPT(Wp, run(circ_post_kernel<R, Src>, post_smem(Wp), Wp, B, s, src, T,
+                 bm, bls, logZ, K, chain, d1k, Wp, B, post))
+}
+
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  `coef` is a HOST pointer to
-// the 54 floats of `CircCoef`; device pointers for everything else.  Each
+// the 54 floats of `CircCoef`, `table` a HOST pointer to the 25 match
+// emissions Ematch[ref][read]; device pointers for everything else.  Each
 // returns a cudaError_t code.
 extern "C" int sv_backward_launch(const float* es, const int32_t* fink,
                                   const int32_t* find, const float* coef,
                                   int chain, int d1k, int Wp, int B,
                                   float* bm, float* bls, float* logZ,
                                   void* stream) {
-  if (d1k < 1 || B < 1) return cudaErrorInvalidValue;
-  const CircCoef K = load_coef(coef);
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (mk::rows_per_thread(Wp)) {
-    case 1: return run_sv<1>(es, fink, find, K, chain, d1k, Wp, B, bm, bls, logZ, s);
-    case 2: return run_sv<2>(es, fink, find, K, chain, d1k, Wp, B, bm, bls, logZ, s);
-    case 3: return run_sv<3>(es, fink, find, K, chain, d1k, Wp, B, bm, bls, logZ, s);
-    case 4: return run_sv<4>(es, fink, find, K, chain, d1k, Wp, B, bm, bls, logZ, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return run_backward(EsSrc{es}, nullptr, fink, find, coef, chain, d1k, Wp,
+                      B, bm, bls, logZ, stream);
+}
+
+extern "C" int circ_backward_emv_launch(const float* em, const int8_t* valid,
+                                        const int32_t* fink,
+                                        const int32_t* find,
+                                        const float* coef, int chain, int d1k,
+                                        int Wp, int B, float* bm, float* bls,
+                                        float* logZ, void* stream) {
+  return run_backward(EmvSrc{em, valid}, nullptr, fink, find, coef, chain,
+                      d1k, Wp, B, bm, bls, logZ, stream);
+}
+
+extern "C" int circ_backward_codes_launch(
+    const int8_t* xb, const int8_t* yb, const int8_t* valid,
+    const float* table, const int32_t* fink, const int32_t* find,
+    const float* coef, int chain, int d1k, int Wp, int B, float* bm,
+    float* bls, float* logZ, void* stream) {
+  return run_backward(CodesSrc<false>{xb, yb, valid, nullptr, nullptr}, table,
+                      fink, find, coef, chain, d1k, Wp, B, bm, bls, logZ,
+                      stream);
+}
+
+extern "C" int circ_backward_codes_es_launch(
+    const int8_t* xb, const int8_t* yb, const int8_t* valid,
+    const float* table, const int32_t* fink, const int32_t* find,
+    const float* coef, int chain, int d1k, int Wp, int B, float* bm,
+    float* bls, float* logZ, float* es, void* stream) {
+  return run_backward(CodesSrc<true>{xb, yb, valid, es, nullptr}, table, fink,
+                      find, coef, chain, d1k, Wp, B, bm, bls, logZ, stream);
 }
 
 extern "C" int cx_forward_launch(const float* es, const int8_t* yb,
@@ -568,16 +987,11 @@ extern "C" int cx_forward_launch(const float* es, const int8_t* yb,
                                  const float* coef, int chain, int d1k,
                                  int Wp, int B, float* fl, float* tails,
                                  void* stream) {
-  if (d1k < 1 || B < 1) return cudaErrorInvalidValue;
+  if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
   const CircCoef K = load_coef(coef);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (mk::rows_per_thread(Wp)) {
-    case 1: return run_cx<1>(es, yb, fr, bm, bls, logZ, K, chain, d1k, Wp, B, fl, tails, s);
-    case 2: return run_cx<2>(es, yb, fr, bm, bls, logZ, K, chain, d1k, Wp, B, fl, tails, s);
-    case 3: return run_cx<3>(es, yb, fr, bm, bls, logZ, K, chain, d1k, Wp, B, fl, tails, s);
-    case 4: return run_cx<4>(es, yb, fr, bm, bls, logZ, K, chain, d1k, Wp, B, fl, tails, s);
-    default: return cudaErrorInvalidValue;
-  }
+  BY_RPT(Wp, run(cx_forward_kernel<R>, fwd_smem(Wp), Wp, B, s, es, yb, fr,
+                 bm, bls, logZ, K, chain, d1k, Wp, B, fl, tails))
 }
 
 extern "C" int mw_forward_launch(const float* es, const int32_t* fr,
@@ -587,14 +1001,70 @@ extern "C" int mw_forward_launch(const float* es, const int32_t* fr,
                                  int chain, int d1k, int Wp, int B,
                                  float* post, float* flc, float* flr,
                                  float* tc, float* tr, void* stream) {
-  if (d1k < 1 || B < 1) return cudaErrorInvalidValue;
+  if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
   const CircCoef K = load_coef(coef);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (mk::rows_per_thread(Wp)) {
-    case 1: return run_mw<1>(es, fr, frr, lom, bm, bls, logZ, K, chain, d1k, Wp, B, post, flc, flr, tc, tr, s);
-    case 2: return run_mw<2>(es, fr, frr, lom, bm, bls, logZ, K, chain, d1k, Wp, B, post, flc, flr, tc, tr, s);
-    case 3: return run_mw<3>(es, fr, frr, lom, bm, bls, logZ, K, chain, d1k, Wp, B, post, flc, flr, tc, tr, s);
-    case 4: return run_mw<4>(es, fr, frr, lom, bm, bls, logZ, K, chain, d1k, Wp, B, post, flc, flr, tc, tr, s);
-    default: return cudaErrorInvalidValue;
-  }
+  BY_RPT(Wp, run(mw_forward_kernel<R>, fwd_smem(Wp), Wp, B, s, es, fr, frr,
+                 lom, bm, bls, logZ, K, chain, d1k, Wp, B, post, flc, flr,
+                 tc, tr))
+}
+
+extern "C" int circ_post_es_launch(const float* es, const float* bm,
+                                   const float* bls, const float* logZ,
+                                   const float* coef, int chain, int d1k,
+                                   int Wp, int B, float* post, void* stream) {
+  return run_post(EsSrc{es}, nullptr, bm, bls, logZ, coef, chain, d1k, Wp, B,
+                  post, stream);
+}
+
+extern "C" int circ_post_emv_launch(const float* em, const int8_t* valid,
+                                    const float* bm, const float* bls,
+                                    const float* logZ, const float* coef,
+                                    int chain, int d1k, int Wp, int B,
+                                    float* post, void* stream) {
+  return run_post(EmvSrc{em, valid}, nullptr, bm, bls, logZ, coef, chain,
+                  d1k, Wp, B, post, stream);
+}
+
+extern "C" int circ_post_codes_launch(const int8_t* xb, const int8_t* yb,
+                                      const int8_t* valid, const float* table,
+                                      const float* bm, const float* bls,
+                                      const float* logZ, const float* coef,
+                                      int chain, int d1k, int Wp, int B,
+                                      float* post, void* stream) {
+  return run_post(CodesSrc<false>{xb, yb, valid, nullptr, nullptr}, table, bm,
+                  bls, logZ, coef, chain, d1k, Wp, B, post, stream);
+}
+
+extern "C" int circ_ckpt_backward_launch(
+    const int8_t* xb, const int8_t* yb, const int8_t* valid,
+    const float* table, const int32_t* fink, const int32_t* find,
+    const float* coef, int chain, int d1k, int Wp, int B, int KB, float* ck,
+    float* cs, float* logZ, void* stream) {
+  if (bad_shape(d1k, Wp, B) || KB < 1) return cudaErrorInvalidValue;
+  const CircCoef K = load_coef(coef);
+  const EmitTable T = load_table_host(table);
+  const CodesSrc<false> src{xb, yb, valid, nullptr, nullptr};
+  const cudaStream_t s = (cudaStream_t)stream;
+  BY_RPT(Wp, run(circ_ckpt_backward_kernel<R>, bwd_smem(Wp), Wp, B, s, src,
+                 T, fink, find, K, chain, d1k, Wp, B, KB, ck, cs, logZ))
+}
+
+// scratch: null, or replay_floats(Wp, KB) floats of device memory per block
+// of 32 lanes for a replay that does not fit shared memory.
+extern "C" int circ_ckpt_post_launch(
+    const int8_t* xb, const int8_t* yb, const int8_t* valid,
+    const float* table, const int32_t* fink, const int32_t* find,
+    const float* ck, const float* cs, const float* logZ, const float* coef,
+    int chain, int d1k, int Wp, int B, int KB, float* scratch, float* post,
+    void* stream) {
+  if (bad_shape(d1k, Wp, B) || KB < 1) return cudaErrorInvalidValue;
+  const CircCoef K = load_coef(coef);
+  const EmitTable T = load_table_host(table);
+  const CodesSrc<false> src{xb, yb, valid, nullptr, nullptr};
+  const cudaStream_t s = (cudaStream_t)stream;
+  BY_RPT(Wp, run(circ_ckpt_post_kernel<R>,
+                 ckpt_post_smem(Wp, KB, scratch != nullptr), Wp, B, s, src, T,
+                 fink, find, ck, cs, logZ, K, chain, d1k, Wp, B, KB, scratch,
+                 post))
 }

@@ -90,6 +90,26 @@ _SIGNATURES: Dict[str, List] = {
     # T, Em, Eg, fmatch, lsf, xb, yb, valid, s1, fink, find, logZ, d1k, Wp,
     # B, post, stream
     "fb_generic_bwd": [_P] * 12 + [_I] * 3 + [_P] * 2,
+    # em, valid, fink, find, coef(host), chain, d1k, Wp, B, bm, bls, logZ,
+    # stream
+    "circ_backward_emv": [_P] * 5 + [_I] * 4 + [_P] * 4,
+    # xb, yb, valid, table(host), fink, find, coef(host), chain, d1k, Wp,
+    # B, bm, bls, logZ, stream (+ es before the stream for the _es variant)
+    "circ_backward_codes": [_P] * 7 + [_I] * 4 + [_P] * 4,
+    "circ_backward_codes_es": [_P] * 7 + [_I] * 4 + [_P] * 5,
+    # es, bm, bls, logZ, coef(host), chain, d1k, Wp, B, post, stream
+    "circ_post_es": [_P] * 5 + [_I] * 4 + [_P] * 2,
+    # em, valid, bm, bls, logZ, coef(host), chain, d1k, Wp, B, post, stream
+    "circ_post_emv": [_P] * 6 + [_I] * 4 + [_P] * 2,
+    # xb, yb, valid, table(host), bm, bls, logZ, coef(host), chain, d1k,
+    # Wp, B, post, stream
+    "circ_post_codes": [_P] * 8 + [_I] * 4 + [_P] * 2,
+    # xb, yb, valid, table(host), fink, find, coef(host), chain, d1k, Wp,
+    # B, KB, ck, cs, logZ, stream
+    "circ_ckpt_backward": [_P] * 7 + [_I] * 5 + [_P] * 4,
+    # xb, yb, valid, table(host), fink, find, ck, cs, logZ, coef(host),
+    # chain, d1k, Wp, B, KB, scratch (or null), post, stream
+    "circ_ckpt_post": [_P] * 10 + [_I] * 5 + [_P] * 3,
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}

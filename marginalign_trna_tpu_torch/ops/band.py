@@ -292,6 +292,80 @@ def circ_mw_streams(lo: torch.Tensor, width: int, Wp: int, d1k: int):
     return fr.int(), frr.int(), (lo % Wp).int()
 
 
+def circular_streams(batch: BandedBatch):
+    """(xb, yb, valid, fink) in the circular layout
+    (marginalign_trna_tpu/ops/band.py `circular_streams`): row r of
+    diagonal d holds the cell whose read prefix index is i = r (mod Wp),
+    i.e. circ[d, r] = rel[d, (r - lo(d)) mod Wp], so the band moves between
+    diagonals by an unconditional roll.  fink[b] = m[b] mod Wp is the
+    terminal cell's (fixed) circular row.  Chunked along d to bound the
+    index scratch.  The host form of what ops/fb.py `circ_device_batch`
+    does on the device (`rel_to_circ_device`)."""
+    D1, Wp, B = batch.xb.shape
+    xb_c = np.empty_like(batch.xb)
+    yb_c = np.empty_like(batch.yb)
+    valid_c = np.empty_like(batch.valid)
+    rows = np.arange(Wp, dtype=np.int32)[None, :, None]
+    CH = 512
+    for d0 in range(0, D1, CH):
+        sl = slice(d0, min(d0 + CH, D1))
+        lo = batch.lo[sl][:, None, :].astype(np.int32)
+        idx = (rows - lo) % Wp  # rel row k feeding circ row r
+        xb_c[sl] = np.take_along_axis(batch.xb[sl], idx, axis=1)
+        yb_c[sl] = np.take_along_axis(batch.yb[sl], idx, axis=1)
+        valid_c[sl] = np.take_along_axis(batch.valid[sl], idx, axis=1)
+    fink = (batch.m % Wp).astype(np.int32)
+    return xb_c, yb_c, valid_c, fink
+
+
+def circ_to_rel(values_c: np.ndarray, batch: BandedBatch) -> np.ndarray:
+    """A circular-layout [D1, Wp, B] per-cell array (e.g. the posterior
+    band) in the band-relative layout: rel[d, k] = circ[d, (lo(d) + k) mod
+    Wp] (marginalign_trna_tpu/ops/band.py `circ_to_rel`)."""
+    D1, Wp, B = values_c.shape
+    out = np.empty_like(values_c)
+    rows = np.arange(Wp, dtype=np.int32)[None, :, None]
+    CH = 512
+    for d0 in range(0, D1, CH):
+        sl = slice(d0, min(d0 + CH, D1))
+        lo = batch.lo[sl][:, None, :].astype(np.int32)
+        idx = (rows + lo) % Wp
+        out[sl] = np.take_along_axis(values_c[sl], idx, axis=1)
+    return out
+
+
+# Cells per gather of the device rotations: bounds their int64 index
+# scratch (8 B a cell) to 128 MB whatever the band.
+_ROTATE_CELLS = 1 << 24
+
+
+def _rotate_rows_device(values: torch.Tensor, lo: torch.Tensor, sign: int):
+    """out[d, k] = values[d, (k + sign * lo(d)) mod Wp] per lane: a
+    torch.gather along the rows per block of diagonals."""
+    D1, Wp, B = values.shape
+    out = torch.empty_like(values)
+    rows = torch.arange(Wp, device=values.device)[None, :, None]
+    step = max(1, _ROTATE_CELLS // (Wp * B))
+    for d0 in range(0, D1, step):
+        d1 = min(d0 + step, D1)
+        idx = (rows + sign * lo[d0:d1, None, :].long()) % Wp
+        out[d0:d1] = values[d0:d1].gather(1, idx)
+    return out
+
+
+def circ_to_rel_device(values_c: torch.Tensor, lo: torch.Tensor):
+    """circ_to_rel on values_c's device (marginalign_trna_tpu/ops/band.py
+    `circ_to_rel_device`); lo [D1, B] int on the same device."""
+    return _rotate_rows_device(values_c, lo, 1)
+
+
+def rel_to_circ_device(values: torch.Tensor, lo: torch.Tensor):
+    """The inverse of circ_to_rel_device: a band-relative [D1, Wp, B]
+    array in the circular layout, circ[d, r] = rel[d, (r - lo(d)) mod Wp],
+    as circular_streams rotates the code and valid streams on the host."""
+    return _rotate_rows_device(values, lo, -1)
+
+
 @dataclass
 class CompactBandedBatch:
     """Band geometry + packed sequences; no [D1, Wp, B] arrays.

@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..models.hmm import PairHmm
-from .band import BandedBatch
+from .band import BandedBatch, rel_to_circ_device
 
 
 class FbTables(nn.Module):
@@ -121,4 +121,32 @@ def device_batch(batch: BandedBatch, device) -> DeviceBatch:
         s2=up(batch.s2, np.int32),
         final_d=up(batch.final_d, np.int32),
         final_k=up(batch.final_k, np.int32),
+    )
+
+
+class CircDeviceBatch(NamedTuple):
+    """A BandedBatch's code and valid streams in the circular layout
+    (marginalign_trna_tpu/ops/fb.py `CircDeviceBatch`) as tensors on one
+    device: xb, yb int8 [D1, Wp, B]; valid bool [D1, Wp, B]; final_d [B]
+    int32; fink [B] int32, the terminal cell's circular row m mod Wp; lo
+    [D1, B] int32, the band offsets that rotate between the layouts."""
+
+    xb: torch.Tensor
+    yb: torch.Tensor
+    valid: torch.Tensor
+    final_d: torch.Tensor
+    fink: torch.Tensor
+    lo: torch.Tensor
+
+
+def circ_device_batch(batch: BandedBatch, dev: DeviceBatch) -> CircDeviceBatch:
+    """The circular streams of `batch` (ops/band.py `circular_streams`),
+    rotated on the device from dev = device_batch(batch, device)."""
+    lo = torch.from_numpy(np.ascontiguousarray(batch.lo, np.int32)).to(
+        dev.xb.device)
+    fink = torch.from_numpy((batch.m % batch.xb.shape[1]).astype(np.int32))
+    return CircDeviceBatch(
+        xb=rel_to_circ_device(dev.xb, lo), yb=rel_to_circ_device(dev.yb, lo),
+        valid=rel_to_circ_device(dev.valid, lo), final_d=dev.final_d,
+        fink=fink.to(dev.xb.device), lo=lo,
     )

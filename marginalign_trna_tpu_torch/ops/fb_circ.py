@@ -18,6 +18,27 @@ band-shaped stream derives on the device.
 The kernels and their plain versions are in ops/fb_circ_cuda.py; CUDA
 tensors go through the kernels, CPU tensors through the plain versions.
 
+Beside them, the unfused circular serving route
+(marginalign_trna_tpu/ops/fb_pallas.py `posteriors_pallas_circ`), which
+the host-packed band arrays take once uploaded and rotated into the
+circular layout on the device (ops/fb.py `circ_device_batch`):
+`posteriors_circ` gives logZ and the circular posterior band in one of
+five modes, the stream diets of the TPU kernels, all computing the same
+posteriors (`posteriors_serve` rotates the band back to the band-relative
+layout for the MEA decode and the caller's sums):
+
+  sv    the emission pass (`emission_stream`, plain torch) writes the
+        signed stream es; S, then circ_post_es;
+  em    the emission pass writes the premasked emission stream em;
+        circ_backward_emv, then circ_post_emv (both read em and valid);
+  lean  both kernels look emissions up from the code streams:
+        circ_backward_codes, then circ_post_codes;
+  emw   circ_backward_codes also writes es (circ_backward_codes_es), then
+        circ_post_es;
+  ckpt  lean without a stored backward band: circ_ckpt_backward writes a
+        frontier checkpoint per block of diagonals, circ_ckpt_post replays
+        each block's backward from it before its forward.
+
 The model reaches the kernels as one coefficient vector in one of two
 forms: the gap-chain form (`_gap_chain_consts`, every shipped model) or the
 generic 5x5 mix.  Only flat-gap models run here (ops/fb_cuda.py
@@ -31,9 +52,15 @@ import numpy as np
 import torch
 
 from . import fb_circ_cuda as K
-from .band import CompactBandedBatch, circ_mw_streams, padded_band_width
+from .band import (
+    BandedBatch, CompactBandedBatch, circ_mw_streams, circ_to_rel_device,
+    padded_band_width,
+)
 from .dispatch import use_kernel
-from .fb import FbTables, check_uniform_pi
+from .fb import (
+    CircDeviceBatch, DeviceBatch, FbTables, check_uniform_pi,
+    circ_device_batch,
+)
 from .fb_cuda import require_flat_gaps, static_tables
 
 STEP_BLOCK = 8  # the TPU kernels' diagonals per grid step; d1k rounds to it
@@ -193,3 +220,82 @@ def posteriors_weights_compact(tables: FbTables, comp: CompactCircBatch,
     post, flc, flr, tc, tr = forward(coef, chain, es, fr, frr, lom, bm, bls,
                                      logZ)
     return logZ, post[:D1], flc, flr, tc, tr
+
+
+# The unfused serving route's modes (marginalign_trna_tpu/ops/fb_pallas.py
+# `posteriors_pallas_circ`, MARGINALIGN_CIRC_SERVE there).
+SERVE_MODES = ("sv", "em", "lean", "emw", "ckpt")
+
+
+def check_serve(serve: Optional[str]) -> None:
+    """Raise ValueError unless `serve` is None or one of SERVE_MODES."""
+    if serve is not None and serve not in SERVE_MODES:
+        raise ValueError("serve must be None or one of %s, got %r"
+                         % (", ".join(SERVE_MODES), serve))
+
+
+def emission_stream(table, xb: torch.Tensor, yb: torch.Tensor,
+                    valid: torch.Tensor, signed: bool) -> torch.Tensor:
+    """The emission pass of modes "sv" and "em" (fb_pallas.py
+    `_precompute_ematch` and its masking), plain torch ops on the streams'
+    device: e = Ematch[xb, yb] * valid, or with `signed`
+    es = e - (1 - valid), whose sign carries the validity."""
+    em = K.lookup_emissions(K.emission_table(table, xb.device), xb, yb)
+    vf = valid.float()
+    return em * vf - (1.0 - vf) if signed else em * vf
+
+
+def posteriors_circ(tables: FbTables, cdev: CircDeviceBatch,
+                    mode: str = "sv"):
+    """(logZ [B], posterior band [D1, Wp, B] in the circular layout) of a
+    flat-gap model over circular streams, in serving mode `mode`
+    (SERVE_MODES; module docstring): the kernels for CUDA tensors, their
+    plain versions for CPU tensors.  Raises ValueError for an unknown mode
+    or a model whose gap emissions are not flat."""
+    check_serve(mode)
+    coef, chain = circ_coefficients(tables)
+    table = tables.Ematch.detach().cpu().numpy().reshape(-1)
+    suffix = "_cuda" if use_kernel(cdev.xb) else "_plain"
+
+    def kernel(name):
+        return getattr(K, name + suffix)
+
+    xb, yb, fink, find = cdev.xb, cdev.yb, cdev.fink, cdev.final_d
+    valid = cdev.valid.view(torch.int8)
+    if mode == "sv":
+        es = emission_stream(table, xb, yb, cdev.valid, True)
+        bm, bls, logZ = kernel("sv_backward")(coef, chain, es, fink, find)
+        post = kernel("circ_post_es")(coef, chain, es, bm, bls, logZ)
+    elif mode == "em":
+        em = emission_stream(table, xb, yb, cdev.valid, False)
+        bm, bls, logZ = kernel("circ_backward_emv")(coef, chain, em, valid,
+                                                    fink, find)
+        post = kernel("circ_post_emv")(coef, chain, em, valid, bm, bls, logZ)
+    elif mode == "lean":
+        bm, bls, logZ = kernel("circ_backward_codes")(
+            coef, chain, table, xb, yb, valid, fink, find)
+        post = kernel("circ_post_codes")(coef, chain, table, xb, yb, valid,
+                                         bm, bls, logZ)
+    elif mode == "emw":
+        bm, bls, logZ, es = kernel("circ_backward_codes_es")(
+            coef, chain, table, xb, yb, valid, fink, find)
+        post = kernel("circ_post_es")(coef, chain, es, bm, bls, logZ)
+    else:
+        kb = K.ckpt_block(xb.shape[1])
+        ck, cs, logZ = kernel("circ_ckpt_backward")(
+            coef, chain, table, xb, yb, valid, fink, find, kb)
+        post = kernel("circ_ckpt_post")(coef, chain, table, xb, yb, valid,
+                                        fink, find, ck, cs, logZ, kb)
+    return logZ, post
+
+
+def posteriors_serve(tables: FbTables, batch: BandedBatch, dev: DeviceBatch,
+                     mode: str):
+    """(logZ [B], posterior band [D1, Wp, B] in the band-relative layout)
+    of the serving route in mode `mode` over `batch`, uploaded as
+    dev = ops/fb.py device_batch(batch, device): the streams rotated into
+    the circular layout, `posteriors_circ`, the band rotated back, all on
+    dev's device."""
+    cdev = circ_device_batch(batch, dev)
+    logZ, post = posteriors_circ(tables, cdev, mode)
+    return logZ, circ_to_rel_device(post, cdev.lo)

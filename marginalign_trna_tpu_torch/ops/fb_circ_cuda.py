@@ -211,37 +211,83 @@ def expand_rel_cuda(reads, refs, lo, m, n, Wp: int, d1k: int):
     return xb, yb
 
 
+# ------------------------------------------------------ emission sources
+
+
+def emission_table(table: Sequence[float], dev) -> torch.Tensor:
+    """The 25 match emissions Ematch[ref][read] as a float32 tensor."""
+    return torch.tensor(np.asarray(table, np.float32), device=dev)
+
+
+def lookup_emissions(table: torch.Tensor, xb, yb) -> torch.Tensor:
+    """Ematch[x][y] per cell from the [25] emission table (0 for a code
+    outside 0..4), as the kernels look it up."""
+    x = xb.long()
+    y = yb.long()
+    ok = (x >= 0) & (x < 5) & (y >= 0) & (y < 5)
+    return torch.where(ok, table[(x * 5 + y).clamp(0, 24)],
+                       torch.zeros_like(table[:1]))
+
+
+def _es_source(es):
+    """Per diagonal (e, valid) of the signed stream: valid = es >= 0,
+    e = max(es, 0)."""
+    return lambda d: (es[d].clamp(min=0.0), (es[d] >= 0).float())
+
+
+def _emv_source(em, valid):
+    """(e, valid) of a premasked emission stream and the int8 valid
+    stream."""
+    return lambda d: (em[d], (valid[d] != 0).float())
+
+
+def _codes_source(table: Sequence[float], xb, yb, valid):
+    """(e, valid) from the int8 code streams: e = Ematch[x][y] * valid."""
+    tab = emission_table(table, xb.device)
+
+    def load(d):
+        v = (valid[d] != 0).float()
+        return lookup_emissions(tab, xb[d], yb[d]) * v, v
+    return load
+
+
 # ------------------------------------------------------------ S: backward
 
 
-def sv_backward_plain(coef: np.ndarray, chain: bool, es, fink, find):
-    """Plain version of the sv_backward kernel: (bm [d1k, Wp, B],
-    bls [d1k, B], logZ [B]) from es [d1k, Wp, B], the terminal row fink and
-    diagonal find [B]."""
-    d1k, Wp, B = es.shape
-    dev = es.device
-    c = _floats(coef)
-    A = [[c[COEF_A + 5 * s + u] for u in range(5)] for s in range(5)]
-    kidx = torch.arange(Wp, device=dev)[:, None]
-    zero = torch.zeros((Wp, B), dtype=torch.float32, device=dev)
-    b1 = [zero] * 5          # states at d+1
-    b2 = [zero] * 5          # states at d+2
-    e1 = e2 = zero           # match emissions at d+1, d+2
-    bls = torch.zeros(B, dtype=torch.float32, device=dev)
-    cprev = torch.ones(B, dtype=torch.float32, device=dev)
-    bm = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
-    bls_out = torch.empty((d1k, B), dtype=torch.float32, device=dev)
-    fink = fink.long()[None, :]
-    for d in range(d1k - 1, -1, -1):
-        esd = es[d]
-        valid = (esd >= 0).float()
-        q0 = _roll_up(e2 * b2[0])
+class _CircBackward:
+    """The scaled backward of the circular layout, one diagonal per
+    `step(d)` (d descending), as the kernels' `CircBackward` runs it.
+    State: p1 / p2 the e_M * b_M rows of d+1 / d+2, g the gap states 1..4
+    of d+1, the cumulative log-scale bls and the last rescale factor."""
+
+    def __init__(self, coef: np.ndarray, chain: bool, load, fink, find,
+                 Wp: int, B: int, dev):
+        self.c = _floats(coef)
+        self.chain = chain
+        self.load = load
+        self.A = [[self.c[COEF_A + 5 * s + u] for u in range(5)]
+                  for s in range(5)]
+        self.kidx = torch.arange(Wp, device=dev)[:, None]
+        self.fink = fink.long()[None, :]
+        self.find = find
+        zero = torch.zeros((Wp, B), dtype=torch.float32, device=dev)
+        self.p1 = self.p2 = zero
+        self.g = [zero] * 4
+        self.new = None
+        self.bls = torch.zeros(B, dtype=torch.float32, device=dev)
+        self.cprev = torch.ones(B, dtype=torch.float32, device=dev)
+
+    def step(self, d: int) -> torch.Tensor:
+        """Generation d; returns b_M of diagonal d."""
+        c, A = self.c, self.A
+        e, valid = self.load(d)
+        q0 = _roll_up(self.p2)
         if d % _RESCALE_PERIOD == _RESCALE_PERIOD - 1:
-            q0 = q0 / cprev
-        q = [q0, b1[1], _roll_up(b1[2]), b1[3], _roll_up(b1[4])]
-        e2, e1 = e1, esd.clamp(min=0.0)
-        mask = (kidx == fink) & (find == d)[None, :]
-        if chain:
+            q0 = q0 / self.cprev
+        g = self.g
+        q = [q0, g[0], _roll_up(g[1]), g[2], _roll_up(g[3])]
+        mask = (self.kidx == self.fink) & (self.find == d)[None, :]
+        if self.chain:
             acc0 = c[COEF_T00] * q[0]
             for s in range(1, 5):
                 acc0 = acc0 + c[COEF_M0 + s - 1] * q[s]
@@ -261,20 +307,56 @@ def sv_backward_plain(coef: np.ndarray, chain: bool, es, fink, find):
             bmax = torch.stack(new).amax(dim=(0, 1))
             cf = torch.where(bmax > 0, bmax, torch.ones_like(bmax))
             inv = 1.0 / cf
-            bls = bls + torch.log(cf)
-            cprev = cf
+            self.bls = self.bls + torch.log(cf)
+            self.cprev = cf
             new = [x * inv for x in new]
-        bm[d] = new[0]
-        bls_out[d] = bls
-        b2, b1 = b1, new
-    if chain:
-        zr = b1[0][0]
-        for s in range(1, 5):
-            zr = zr + c[COEF_TZ + s - 1] * b1[s][0]
-    else:
-        zr = (((b1[0][0] + b1[1][0]) + b1[2][0]) + b1[3][0]) + b1[4][0]
-    logZ = torch.log(torch.clamp(0.2 * zr, min=_TINY)) + bls
-    return bm, bls_out, logZ
+        self.new = new
+        self.p2, self.p1 = self.p1, e * new[0]
+        self.g = new[1:]
+        return new[0]
+
+    def logz(self) -> torch.Tensor:
+        """logZ [B] from generation 0 (row 0 holds the origin cell)."""
+        c, b1 = self.c, self.new
+        if self.chain:
+            zr = b1[0][0]
+            for s in range(1, 5):
+                zr = zr + c[COEF_TZ + s - 1] * b1[s][0]
+        else:
+            zr = (((b1[0][0] + b1[1][0]) + b1[2][0]) + b1[3][0]) + b1[4][0]
+        return torch.log(torch.clamp(0.2 * zr, min=_TINY)) + self.bls
+
+    def checkpoint(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The state entering the next step: ([6, Wp, B] = p1, p2, g,
+        [2, B] = bls, cprev)."""
+        return (torch.stack([self.p1, self.p2, *self.g]),
+                torch.stack([self.bls, self.cprev]))
+
+    def restore(self, ck: torch.Tensor, cs: torch.Tensor) -> None:
+        self.p1, self.p2 = ck[0], ck[1]
+        self.g = [ck[2 + s] for s in range(4)]
+        self.bls, self.cprev = cs[0], cs[1]
+
+
+def _backward(coef: np.ndarray, chain: bool, load, fink, find, shape):
+    """(bm [d1k, Wp, B], bls [d1k, B], logZ [B]) of the backward over
+    the diagonals of `shape` with emission source `load`."""
+    d1k, Wp, B = shape
+    dev = fink.device
+    bw = _CircBackward(coef, chain, load, fink, find, Wp, B, dev)
+    bm = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
+    bls = torch.empty((d1k, B), dtype=torch.float32, device=dev)
+    for d in range(d1k - 1, -1, -1):
+        bm[d] = bw.step(d)
+        bls[d] = bw.bls
+    return bm, bls, bw.logz()
+
+
+def sv_backward_plain(coef: np.ndarray, chain: bool, es, fink, find):
+    """Plain version of the sv_backward kernel: (bm [d1k, Wp, B],
+    bls [d1k, B], logZ [B]) from es [d1k, Wp, B], the terminal row fink and
+    diagonal find [B]."""
+    return _backward(coef, chain, _es_source(es), fink, find, es.shape)
 
 
 def sv_backward_cuda(coef: np.ndarray, chain: bool, es, fink, find):
@@ -300,47 +382,57 @@ def sv_backward_cuda(coef: np.ndarray, chain: bool, es, fink, find):
 # ------------------------------------------------------------- C: forward
 
 
-def _forward_generations(coef: np.ndarray, chain: bool, es, bm, bls, logZ):
-    """The scaled forward shared by C and M: yields (d, post [Wp, B]) for
-    every diagonal, post = f_M * b_M * exp(ls + bls - logZ) in the circular
-    layout.  At d = 0 the frontier is the start distribution (row 0 holds
-    the origin cell; post there is NOT zeroed here)."""
-    d1k, Wp, B = es.shape
-    dev = es.device
-    c = _floats(coef)
-    A = [[c[COEF_A + 5 * s + u] for u in range(5)] for s in range(5)]
-    row0 = torch.arange(Wp, device=dev)[:, None] == 0
-    zero = torch.zeros((Wp, B), dtype=torch.float32, device=dev)
-    pi = [0.2] + [c[COEF_PI + s] if chain else 0.2 for s in range(4)]
-    f1 = [torch.where(row0, p, zero) for p in pi]   # the start distribution
-    f2 = [zero] * 5
-    ls = torch.zeros(B, dtype=torch.float32, device=dev)
-    cprev = torch.ones(B, dtype=torch.float32, device=dev)
+class _CircForward:
+    """The scaled forward of the circular layout, one diagonal per
+    `step(d, bm_d, bls_d)` (d ascending from 0), as the kernels'
+    `CircForward` runs it; returns post = f_M * b_M * exp(ls + bls - logZ)
+    [Wp, B] in the circular layout.  At d = 0 the frontier is the start
+    distribution (row 0 holds the origin cell; post there is NOT zeroed
+    here)."""
 
-    def mix(vals, t):
+    def __init__(self, coef: np.ndarray, chain: bool, load, logZ, Wp: int):
+        B = logZ.shape[0]
+        dev = logZ.device
+        self.c = _floats(coef)
+        self.chain = chain
+        self.load = load
+        self.logZ = logZ
+        self.A = [[self.c[COEF_A + 5 * s + u] for u in range(5)]
+                  for s in range(5)]
+        row0 = torch.arange(Wp, device=dev)[:, None] == 0
+        zero = torch.zeros((Wp, B), dtype=torch.float32, device=dev)
+        pi = [0.2] + [self.c[COEF_PI + s] if chain else 0.2
+                      for s in range(4)]
+        self.start = [torch.where(row0, p, zero) for p in pi]
+        self.f1 = self.start
+        self.f2 = [zero] * 5
+        self.ls = torch.zeros(B, dtype=torch.float32, device=dev)
+        self.cprev = torch.ones(B, dtype=torch.float32, device=dev)
+
+    def _mix(self, vals, t):
+        A = self.A
         out = vals[0] * A[0][t]
         for s in range(1, 5):
             out = out + vals[s] * A[s][t]
         return out
 
-    for d in range(d1k):
+    def step(self, d: int, bm_d, bls_d) -> torch.Tensor:
+        c, f1, f2 = self.c, self.f1, self.f2
         if d == 0:
-            cur = f1            # generation 0 is the start distribution
+            cur = self.start    # generation 0 is the start distribution
         else:
-            esd = es[d]
-            e = esd.clamp(min=0.0)
-            valid = (esd >= 0).float()
-            if chain:
+            e, valid = self.load(d)
+            if self.chain:
                 mix_m = c[COEF_T00] * f2[0]
                 for s in range(1, 5):
                     mix_m = mix_m + c[COEF_MC + s - 1] * f2[s]
                 mix_g = [f1[0] + c[COEF_C + t - 1] * f1[t]
                          for t in range(1, 5)]
             else:
-                mix_m = mix(f2, 0)
-                mix_g = [mix(f1, t) for t in range(1, 5)]
+                mix_m = self._mix(f2, 0)
+                mix_g = [self._mix(f1, t) for t in range(1, 5)]
             if d % _RESCALE_PERIOD == 0:
-                mix_m = mix_m / cprev
+                mix_m = mix_m / self.cprev
             cur = [e * _roll_down(mix_m), mix_g[0] * valid,
                    _roll_down(mix_g[1]) * valid, mix_g[2] * valid,
                    _roll_down(mix_g[3]) * valid]
@@ -349,12 +441,20 @@ def _forward_generations(coef: np.ndarray, chain: bool, es, bm, bls, logZ):
                 cf = torch.where(fmax > 0, fmax, torch.ones_like(fmax))
                 inv = 1.0 / cf
                 cur = [x * inv for x in cur]
-                ls = ls + torch.log(cf)
-                cprev = cf
-            f2 = f1
-        f1 = cur
-        alpha = torch.exp(ls + bls[d] - logZ)
-        yield d, cur[0] * bm[d] * alpha
+                self.ls = self.ls + torch.log(cf)
+                self.cprev = cf
+            self.f2 = f1
+        self.f1 = cur
+        alpha = torch.exp(self.ls + bls_d - self.logZ)
+        return cur[0] * bm_d * alpha
+
+
+def _forward_generations(coef: np.ndarray, chain: bool, es, bm, bls, logZ):
+    """The scaled forward shared by C and M: yields (d, post [Wp, B]) for
+    every diagonal (`_CircForward` from the signed stream es)."""
+    fw = _CircForward(coef, chain, _es_source(es), logZ, es.shape[1])
+    for d in range(es.shape[0]):
+        yield d, fw.step(d, bm[d], bls[d])
 
 
 def _emitted(d: int, post: torch.Tensor) -> torch.Tensor:
@@ -469,3 +569,315 @@ def mw_forward_cuda(coef: np.ndarray, chain: bool, es, fr, frr, lom, bm,
         flc.data_ptr(), flr.data_ptr(), tc.data_ptr(), tr.data_ptr(),
     )
     return post, flc, flr, tc, tr
+
+
+# ------------------------------------- the serving modes' kernels (B16)
+#
+# The unfused serving route's backwards and posterior forwards, each for
+# one emission source: es (the signed stream), emv (a premasked emission
+# stream em and the int8 valid stream), codes (the int8 code streams xb,
+# yb and valid with the 25 match emissions `table` = Ematch[ref][read]).
+# Every band is [d1k, Wp, B] in the circular layout; post is the circular
+# posterior band, the origin cell kept.
+
+
+def _table_arg(table: Sequence[float]) -> np.ndarray:
+    t = np.ascontiguousarray(table, np.float32)
+    if t.shape != (25,):
+        raise ValueError("expected 25 match emissions, got %s" % (t.shape,))
+    return t
+
+
+def _check_codes(xb, yb, valid):
+    d1k, Wp, B = xb.shape
+    for t in (xb, yb, valid):
+        check_tensor(t, torch.int8, (d1k, Wp, B), xb.device)
+    return d1k, Wp, B, xb.device
+
+
+def _check_ends(fink, find, B, dev):
+    check_tensor(fink, torch.int32, (B,), dev)
+    check_tensor(find, torch.int32, (B,), dev)
+
+
+def _backward_outputs(d1k, Wp, B, dev):
+    return (torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev),
+            torch.empty((d1k, B), dtype=torch.float32, device=dev),
+            torch.empty((B,), dtype=torch.float32, device=dev))
+
+
+def _check_back(bm, bls, logZ, d1k, Wp, B, dev):
+    check_tensor(bm, torch.float32, (d1k, Wp, B), dev)
+    check_tensor(bls, torch.float32, (d1k, B), dev)
+    check_tensor(logZ, torch.float32, (B,), dev)
+
+
+def circ_backward_emv_plain(coef: np.ndarray, chain: bool, em, valid, fink,
+                            find):
+    """Plain version of the circ_backward_emv kernel: (bm, bls, logZ) as
+    sv_backward's, from em [d1k, Wp, B] f32 (premasked) and valid int8."""
+    return _backward(coef, chain, _emv_source(em, valid), fink, find,
+                     em.shape)
+
+
+def circ_backward_emv_cuda(coef: np.ndarray, chain: bool, em, valid, fink,
+                           find):
+    """The circ_backward_emv kernel (csrc/fb_circ.cu)."""
+    d1k, Wp, B = em.shape
+    dev = em.device
+    check_tensor(em, torch.float32, (d1k, Wp, B), dev)
+    check_tensor(valid, torch.int8, (d1k, Wp, B), dev)
+    _check_ends(fink, find, B, dev)
+    bm, bls, logZ = _backward_outputs(d1k, Wp, B, dev)
+    _build.launch(
+        "circ_backward_emv", dev, em.data_ptr(), valid.data_ptr(),
+        fink.data_ptr(), find.data_ptr(), _coef(coef).ctypes.data,
+        int(chain), d1k, Wp, B, bm.data_ptr(), bls.data_ptr(),
+        logZ.data_ptr(),
+    )
+    return bm, bls, logZ
+
+
+def circ_backward_codes_plain(coef: np.ndarray, chain: bool, table, xb, yb,
+                              valid, fink, find):
+    """Plain version of the circ_backward_codes kernel: (bm, bls, logZ)
+    from the int8 code streams."""
+    return _backward(coef, chain, _codes_source(table, xb, yb, valid), fink,
+                     find, xb.shape)
+
+
+def circ_backward_codes_cuda(coef: np.ndarray, chain: bool, table, xb, yb,
+                             valid, fink, find):
+    """The circ_backward_codes kernel (csrc/fb_circ.cu)."""
+    d1k, Wp, B, dev = _check_codes(xb, yb, valid)
+    _check_ends(fink, find, B, dev)
+    bm, bls, logZ = _backward_outputs(d1k, Wp, B, dev)
+    _build.launch(
+        "circ_backward_codes", dev, xb.data_ptr(), yb.data_ptr(),
+        valid.data_ptr(), _table_arg(table).ctypes.data, fink.data_ptr(),
+        find.data_ptr(), _coef(coef).ctypes.data, int(chain), d1k, Wp, B,
+        bm.data_ptr(), bls.data_ptr(), logZ.data_ptr(),
+    )
+    return bm, bls, logZ
+
+
+def circ_backward_codes_es_plain(coef: np.ndarray, chain: bool, table, xb,
+                                 yb, valid, fink, find):
+    """Plain version of the circ_backward_codes_es kernel: (bm, bls, logZ,
+    es) where es [d1k, Wp, B] = e * valid - (1 - valid) is the signed
+    stream of the emissions the backward computed."""
+    load = _codes_source(table, xb, yb, valid)
+    es = torch.empty(xb.shape, dtype=torch.float32, device=xb.device)
+
+    def writing(d):
+        e, v = load(d)
+        es[d] = e - (1.0 - v)
+        return e, v
+    bm, bls, logZ = _backward(coef, chain, writing, fink, find, xb.shape)
+    return bm, bls, logZ, es
+
+
+def circ_backward_codes_es_cuda(coef: np.ndarray, chain: bool, table, xb,
+                                yb, valid, fink, find):
+    """The circ_backward_codes_es kernel (csrc/fb_circ.cu)."""
+    d1k, Wp, B, dev = _check_codes(xb, yb, valid)
+    _check_ends(fink, find, B, dev)
+    bm, bls, logZ = _backward_outputs(d1k, Wp, B, dev)
+    es = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
+    _build.launch(
+        "circ_backward_codes_es", dev, xb.data_ptr(), yb.data_ptr(),
+        valid.data_ptr(), _table_arg(table).ctypes.data, fink.data_ptr(),
+        find.data_ptr(), _coef(coef).ctypes.data, int(chain), d1k, Wp, B,
+        bm.data_ptr(), bls.data_ptr(), logZ.data_ptr(), es.data_ptr(),
+    )
+    return bm, bls, logZ, es
+
+
+def _post(coef: np.ndarray, chain: bool, load, bm, bls, logZ):
+    """The circular posterior band of the forward over (bm, bls, logZ)."""
+    d1k, Wp, _ = bm.shape
+    fw = _CircForward(coef, chain, load, logZ, Wp)
+    post = torch.empty_like(bm)
+    for d in range(d1k):
+        post[d] = fw.step(d, bm[d], bls[d])
+    return post
+
+
+def circ_post_es_plain(coef: np.ndarray, chain: bool, es, bm, bls, logZ):
+    """Plain version of the circ_post_es kernel: the circular posterior
+    band [d1k, Wp, B] from the signed stream es."""
+    return _post(coef, chain, _es_source(es), bm, bls, logZ)
+
+
+def circ_post_es_cuda(coef: np.ndarray, chain: bool, es, bm, bls, logZ):
+    """The circ_post_es kernel (csrc/fb_circ.cu)."""
+    d1k, Wp, B = es.shape
+    dev = es.device
+    check_tensor(es, torch.float32, (d1k, Wp, B), dev)
+    _check_back(bm, bls, logZ, d1k, Wp, B, dev)
+    post = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
+    _build.launch(
+        "circ_post_es", dev, es.data_ptr(), bm.data_ptr(), bls.data_ptr(),
+        logZ.data_ptr(), _coef(coef).ctypes.data, int(chain), d1k, Wp, B,
+        post.data_ptr(),
+    )
+    return post
+
+
+def circ_post_emv_plain(coef: np.ndarray, chain: bool, em, valid, bm, bls,
+                        logZ):
+    """Plain version of the circ_post_emv kernel."""
+    return _post(coef, chain, _emv_source(em, valid), bm, bls, logZ)
+
+
+def circ_post_emv_cuda(coef: np.ndarray, chain: bool, em, valid, bm, bls,
+                       logZ):
+    """The circ_post_emv kernel (csrc/fb_circ.cu)."""
+    d1k, Wp, B = em.shape
+    dev = em.device
+    check_tensor(em, torch.float32, (d1k, Wp, B), dev)
+    check_tensor(valid, torch.int8, (d1k, Wp, B), dev)
+    _check_back(bm, bls, logZ, d1k, Wp, B, dev)
+    post = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
+    _build.launch(
+        "circ_post_emv", dev, em.data_ptr(), valid.data_ptr(), bm.data_ptr(),
+        bls.data_ptr(), logZ.data_ptr(), _coef(coef).ctypes.data,
+        int(chain), d1k, Wp, B, post.data_ptr(),
+    )
+    return post
+
+
+def circ_post_codes_plain(coef: np.ndarray, chain: bool, table, xb, yb,
+                          valid, bm, bls, logZ):
+    """Plain version of the circ_post_codes kernel."""
+    return _post(coef, chain, _codes_source(table, xb, yb, valid), bm, bls,
+                 logZ)
+
+
+def circ_post_codes_cuda(coef: np.ndarray, chain: bool, table, xb, yb,
+                         valid, bm, bls, logZ):
+    """The circ_post_codes kernel (csrc/fb_circ.cu)."""
+    d1k, Wp, B, dev = _check_codes(xb, yb, valid)
+    _check_back(bm, bls, logZ, d1k, Wp, B, dev)
+    post = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
+    _build.launch(
+        "circ_post_codes", dev, xb.data_ptr(), yb.data_ptr(),
+        valid.data_ptr(), _table_arg(table).ctypes.data, bm.data_ptr(),
+        bls.data_ptr(), logZ.data_ptr(), _coef(coef).ctypes.data,
+        int(chain), d1k, Wp, B, post.data_ptr(),
+    )
+    return post
+
+
+# Shared memory a block may use on an H100, and the floats of the
+# checkpoint posterior pass's replay per block of 32 lanes
+# (csrc/fb_circ.cu `replay_floats`: the backward's 12 planes of [Wp][32],
+# bm [KB][Wp][32], bls [KB][32]) beside the forward's 12 planes.
+_SMEM_BYTES = 232448
+_LANES = 32
+
+
+def _replay_floats(Wp: int, kb: int) -> int:
+    return ((12 + kb) * Wp + kb) * _LANES
+
+
+def _replay_fits(Wp: int, kb: int) -> bool:
+    return (12 * Wp * _LANES + _replay_floats(Wp, kb)) * 4 <= _SMEM_BYTES
+
+
+def ckpt_block(Wp: int) -> int:
+    """KB, the diagonals per checkpoint: 32 (the TPU kernels'
+    `_CKPT_BLOCK`) where the checkpoint posterior pass's replay fits the
+    card's shared memory, else 16 or 8 (the rescale period divides each,
+    so the schedule is unchanged); 32 again where not even 8 fit (Wp > 56),
+    and the replay then runs in device memory."""
+    for kb in (32, 16, 8):
+        if _replay_fits(Wp, kb):
+            return kb
+    return 32
+
+
+def circ_ckpt_backward_plain(coef: np.ndarray, chain: bool, table, xb, yb,
+                             valid, fink, find, kb: int):
+    """Plain version of the circ_ckpt_backward kernel: (ck [G, 6, Wp, B],
+    cs [G, 2, B], logZ [B]), G = ceil(d1k / kb).  ck[g] and cs[g] are the
+    state entering block g (diagonals g*kb .. g*kb + kb - 1) from above:
+    the e_M * b_M rows of the two diagonals above it, the gap states 1..4
+    of the one above, then bls and the last rescale factor."""
+    d1k, Wp, B = xb.shape
+    dev = xb.device
+    G = -(-d1k // kb)
+    bw = _CircBackward(coef, chain, _codes_source(table, xb, yb, valid),
+                       fink, find, Wp, B, dev)
+    ck = torch.empty((G, 6, Wp, B), dtype=torch.float32, device=dev)
+    cs = torch.empty((G, 2, B), dtype=torch.float32, device=dev)
+    for g in range(G - 1, -1, -1):
+        ck[g], cs[g] = bw.checkpoint()
+        for d in range(min(g * kb + kb, d1k) - 1, g * kb - 1, -1):
+            bw.step(d)
+    return ck, cs, bw.logz()
+
+
+def circ_ckpt_backward_cuda(coef: np.ndarray, chain: bool, table, xb, yb,
+                            valid, fink, find, kb: int):
+    """The circ_ckpt_backward kernel (csrc/fb_circ.cu)."""
+    d1k, Wp, B, dev = _check_codes(xb, yb, valid)
+    _check_ends(fink, find, B, dev)
+    G = -(-d1k // kb)
+    ck = torch.empty((G, 6, Wp, B), dtype=torch.float32, device=dev)
+    cs = torch.empty((G, 2, B), dtype=torch.float32, device=dev)
+    logZ = torch.empty((B,), dtype=torch.float32, device=dev)
+    _build.launch(
+        "circ_ckpt_backward", dev, xb.data_ptr(), yb.data_ptr(),
+        valid.data_ptr(), _table_arg(table).ctypes.data, fink.data_ptr(),
+        find.data_ptr(), _coef(coef).ctypes.data, int(chain), d1k, Wp, B,
+        kb, ck.data_ptr(), cs.data_ptr(), logZ.data_ptr(),
+    )
+    return ck, cs, logZ
+
+
+def circ_ckpt_post_plain(coef: np.ndarray, chain: bool, table, xb, yb, valid,
+                         fink, find, ck, cs, logZ, kb: int):
+    """Plain version of the circ_ckpt_post kernel: the circular posterior
+    band [d1k, Wp, B]; per block, ascending, the backward replayed from its
+    checkpoint, then the forward over the block."""
+    d1k, Wp, B = xb.shape
+    dev = xb.device
+    load = _codes_source(table, xb, yb, valid)
+    bw = _CircBackward(coef, chain, load, fink, find, Wp, B, dev)
+    fw = _CircForward(coef, chain, load, logZ, Wp)
+    post = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
+    for g in range(ck.shape[0]):
+        lo, hi = g * kb, min(g * kb + kb, d1k)
+        bw.restore(ck[g], cs[g])
+        back = {}
+        for d in range(hi - 1, lo - 1, -1):
+            back[d] = (bw.step(d), bw.bls)
+        for d in range(lo, hi):
+            post[d] = fw.step(d, *back[d])
+    return post
+
+
+def circ_ckpt_post_cuda(coef: np.ndarray, chain: bool, table, xb, yb, valid,
+                        fink, find, ck, cs, logZ, kb: int):
+    """The circ_ckpt_post kernel (csrc/fb_circ.cu); its replay runs in a
+    scratch tensor on the device where it does not fit shared memory."""
+    d1k, Wp, B, dev = _check_codes(xb, yb, valid)
+    _check_ends(fink, find, B, dev)
+    G = -(-d1k // kb)
+    check_tensor(ck, torch.float32, (G, 6, Wp, B), dev)
+    check_tensor(cs, torch.float32, (G, 2, B), dev)
+    check_tensor(logZ, torch.float32, (B,), dev)
+    post = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
+    scratch = None
+    if not _replay_fits(Wp, kb):
+        scratch = torch.empty(-(-B // _LANES) * _replay_floats(Wp, kb),
+                              dtype=torch.float32, device=dev)
+    _build.launch(
+        "circ_ckpt_post", dev, xb.data_ptr(), yb.data_ptr(),
+        valid.data_ptr(), _table_arg(table).ctypes.data, fink.data_ptr(),
+        find.data_ptr(), ck.data_ptr(), cs.data_ptr(), logZ.data_ptr(),
+        _coef(coef).ctypes.data, int(chain), d1k, Wp, B, kb,
+        None if scratch is None else scratch.data_ptr(), post.data_ptr(),
+    )
+    return post

@@ -18,7 +18,7 @@ from marginalign_trna_tpu_torch.ops import (
 )
 from marginalign_trna_tpu_torch.ops.band import (
     band_masks, circ_mw_streams, pack_banded_batch, pack_compact_batch,
-    path_from_cigar,
+    padded_band_width, path_from_cigar,
 )
 from marginalign_trna_tpu_torch.ops.expectations import (
     concat_flush_tails, fused_flush_jmaps, fused_row_jmaps,
@@ -334,3 +334,82 @@ def test_generic_kernels_match_plain(cuda):
                                 device_batch(batch, "cpu"))
     assert torch.allclose(got[0].cpu(), want[0], rtol=1e-4, atol=1e-4)
     assert (got[1].cpu() - want[1]).abs().max().item() <= 2e-4
+
+
+def _serve_kernels_match_plain(cuda, tables, batch):
+    """Each serving kernel on the plain versions' inputs for `batch`:
+    every output bit-equal, one launch each; and posteriors_circ on the
+    card in every mode within the FB tolerances of the CPU's."""
+    from marginalign_trna_tpu_torch.ops.fb import circ_device_batch
+    from marginalign_trna_tpu_torch.ops.fb_circ import (
+        SERVE_MODES, emission_stream, posteriors_circ,
+    )
+
+    coef, chain = circ_coefficients(tables)
+    table = tables.Ematch.numpy().reshape(-1)
+    cdev = circ_device_batch(batch, device_batch(batch, cuda))
+    xb, yb, fink, find = cdev.xb, cdev.yb, cdev.fink, cdev.final_d
+    valid = cdev.valid.view(torch.int8)
+    es = emission_stream(table, xb, yb, cdev.valid, True)
+    em = emission_stream(table, xb, yb, cdev.valid, False)
+    back = fb_circ_cuda.sv_backward_plain(coef, chain, es, fink, find)
+    codes = (coef, chain, table, xb, yb, valid)
+    kb = fb_circ_cuda.ckpt_block(xb.shape[1])
+    ck = fb_circ_cuda.circ_ckpt_backward_plain(*codes, fink, find, kb)
+    cases = {
+        "circ_backward_emv": (coef, chain, em, valid, fink, find),
+        "circ_backward_codes": (*codes, fink, find),
+        "circ_backward_codes_es": (*codes, fink, find),
+        "circ_post_es": (coef, chain, es, *back),
+        "circ_post_emv": (coef, chain, em, valid, *back),
+        "circ_post_codes": (*codes, *back),
+        "circ_ckpt_backward": (*codes, fink, find, kb),
+        "circ_ckpt_post": (*codes, fink, find, *ck, kb),
+    }
+    for name, args in cases.items():
+        before = _build.launch_counts[name]
+        got = getattr(fb_circ_cuda, name + "_cuda")(*args)
+        want = getattr(fb_circ_cuda, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+        assert _build.launch_counts[name] == before + 1
+    cpu = circ_device_batch(batch, device_batch(batch, "cpu"))
+    for mode in SERVE_MODES:
+        logZ, post = posteriors_circ(tables, cdev, mode)
+        rlogZ, rpost = posteriors_circ(tables, cpu, mode)
+        assert torch.allclose(logZ.cpu(), rlogZ, rtol=1e-4, atol=1e-4)
+        assert (post.cpu() - rpost).abs().max().item() <= 2e-4
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+def test_serve_kernels_match_plain(cuda, chain_model):
+    """The serving kernels (csrc/fb_circ.cu: circ_backward_emv / _codes /
+    _codes_es, circ_post_es / _emv / _codes, circ_ckpt_backward,
+    circ_ckpt_post) on the shipped model and on its flat-gap variant whose
+    gap states 1 and 2 exchange mass (the generic branch) at width 21 (Wp
+    24, the checkpoint pass's replay in shared memory)."""
+    from marginalign_trna_tpu_torch.ops.fb import FbTables
+
+    tables = tables_from_hmm(PairHmm.load(MODEL))
+    if not chain_model:
+        T = tables.T.numpy().copy()
+        T[1, 2] = T[2, 1] = 0.05
+        T /= T.sum(axis=1, keepdims=True)
+        tables = FbTables(T, tables.Ematch.numpy(), tables.Egap.numpy(),
+                          tables.pi.numpy())
+    assert circ_coefficients(tables)[1] == chain_model
+    _serve_kernels_match_plain(cuda, tables, _batch(21, seed=8))
+
+
+@pytest.mark.parametrize("width", [61, 126])
+def test_serve_kernels_wide_bands(cuda, width):
+    """The serving kernels at Wp 64 and 128 (two and four rows per
+    thread), where the checkpoint posterior pass replays in device
+    memory."""
+    Wp = padded_band_width(width)
+    assert fb_circ_cuda.ckpt_block(Wp) == 32
+    assert not fb_circ_cuda._replay_fits(Wp, 32)
+    _serve_kernels_match_plain(cuda, tables_from_hmm(PairHmm.load(MODEL)),
+                               _batch(width, seed=8))
