@@ -6,13 +6,15 @@ CUDA card.  Run from the repository root:
 
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a.
-  2. tiny     each of the twenty-six kernels against its plain PyTorch
+  2. tiny     each of the thirty kernels against its plain PyTorch
               version on the card at a tiny shape, so a broken kernel fails
               before the long runs; the eight serving kernels
               bit-equal, with a gap-chain model and again with a flat-gap
               model whose gap states 1 and 2 exchange mass (their generic
               5x5 branch), and at WIDE_BANDS (Wp 64 and 128, where the
-              checkpoint posterior pass replays in device memory).
+              checkpoint posterior pass replays in device memory); the four
+              multi-lane kernels bit-equal on packed lanes, the FB pair on
+              both model branches, nw_multi at Wp 24 and 48.
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
               pipeline.align on a synthetic 1024-read x 3.5 kb corpus with
               two references and both strands, on its default path: the
@@ -106,16 +108,39 @@ Phases (any failure exits non-zero without the final result line):
               updates on BAND_PARITY_READS reads on "cpu" and "cuda":
               trained parameters within 1e-3, differing segment paths
               counted.
- 15. card     name and power limit from nvidia-smi.
+ 15. multi    multi-problem lanes (multi=True) on a synthetic direct-tRNA
+              corpus: TRNA_READS reads of 60-150 nt from TRNA_REFS
+              references of 70-90 nt (~12% substitutions, short indels,
+              both strands).  marginAlign through pipeline.align(...,
+              multi=True): only nw_multi, fb_multi_forward,
+              fb_multi_backward and mea_multi may launch; >= 80% of reads
+              mapped, >= 95% of records on their simulated reference and
+              strand.  The same corpus through the default single-lane
+              path: guide records identical, >= MULTI_MIN_EQUAL of
+              realigned cigars equal and every other one an MEA near-tie
+              (1e-5 relative under the multi run's posteriors); reads/s,
+              stage seconds, host packing seconds and the share of padded
+              cells that are valid for both.  marginCaller with
+              multi=True on the main phase's SAM against the caller
+              phase's mutated reference (split 100: every segment in
+              multi lanes): only the FB multi pair launches; the fused
+              caller's call set, expectations within 3e-4 of each
+              position's coverage.  The four kernels bit-equal to their
+              plain versions on their largest launch, with times and
+              bounds, and CPU/card parity of both entries on PARITY_READS
+              reads / records.
+ 16. card     name and power limit from nvidia-smi.
 Each phase logs "time: <phase> done at <seconds>".  Plain versions are
 timed after a warm-up call, as the kernels are.  The line before the last
 is the kernel report (JSON); the last line is the result (JSON).  Corpus and weights come from numpy seeds; nothing is read
 from outside the repository.
 """
 import contextlib
+import importlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -228,6 +253,22 @@ KERNELS = {
     "circ_ckpt_post": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
                        "marginalign_trna_tpu/ops/fb_pallas.py:3856",
                        "fb_circ_cuda.circ_ckpt_post_cuda", ("serve",)),
+    # Multi-problem lanes: "multi" = marginAlign with multi=True,
+    # "call_multi" = marginCaller with multi=True.
+    "nw_multi": ("marginalign_trna_tpu_torch/csrc/nw.cu",
+                 "marginalign_trna_tpu/ops/wavefront_pallas.py:225",
+                 "wavefront_cuda.nw_multi_cuda", ("multi",)),
+    "fb_multi_forward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
+                         "marginalign_trna_tpu/ops/fb_pallas.py:1243",
+                         "fb_multi_cuda.fb_multi_forward_cuda",
+                         ("multi", "call_multi")),
+    "fb_multi_backward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
+                          "marginalign_trna_tpu/ops/fb_pallas.py:1389",
+                          "fb_multi_cuda.fb_multi_backward_cuda",
+                          ("multi", "call_multi")),
+    "mea_multi": ("marginalign_trna_tpu_torch/csrc/mea.cu",
+                  "marginalign_trna_tpu/ops/wavefront_pallas.py:668",
+                  "wavefront_cuda.mea_multi_cuda", ("multi",)),
 }
 ALIGN_KERNELS = [k for k, v in KERNELS.items() if "align" in v[3]]
 REL_KERNELS = [k for k, v in KERNELS.items() if "rel" in v[3]]
@@ -235,6 +276,8 @@ CALLER_KERNELS = [k for k, v in KERNELS.items() if "call" in v[3]]
 COUNTS_KERNELS = [k for k, v in KERNELS.items() if "em" in v[3]]
 GENERIC_KERNELS = [k for k, v in KERNELS.items() if "generic" in v[3]]
 SERVE_NEW = [k for k, v in KERNELS.items() if "serve" in v[3]]
+MULTI_KERNELS = [k for k, v in KERNELS.items() if "multi" in v[3]]
+CALL_MULTI_KERNELS = [k for k, v in KERNELS.items() if "call_multi" in v[3]]
 # The kernels of each serving mode (ops/fb_circ.py posteriors_circ).
 SERVE_KERNELS = {
     "sv": ["sv_backward", "circ_post_es"],
@@ -263,6 +306,17 @@ EM_PARITY_ITERATIONS = 3
 BAND_READS = 64
 BAND_ITERATIONS = 3
 BAND_PARITY_READS = 16
+# The multi phase's synthetic direct-tRNA corpus: reads, references.
+TRNA_READS = 16384
+TRNA_REFS = 48
+# The least share of the tRNA records whose cigars must agree between two
+# realignments (multi against single lanes, CPU against card); every other
+# one must be an MEA near-tie.  The corpus's unaligned stretches (inserted
+# bases, fragment ends) have gap weights of exactly gap_gamma, so ~12% of
+# its records hold exact MEA ties (objectives equal to 1e-15) that float
+# noise in the posteriors breaks either way (a CPU rehearsal of 3000 reads:
+# 88.1% equal, every other record a tie within 3.5e-16).
+MULTI_MIN_EQUAL = 0.80
 
 # The least time the card could take: the bytes a kernel must move (each
 # input read once, each output written once) at the H100 SXM's 3.35 TB/s,
@@ -286,7 +340,12 @@ BAND_PARITY_READS = 16
 # writing es), the posterior forward (C's recursion without the
 # accumulators: 25; emv 24, codes 27), the checkpoint backward as codes
 # (25) and the checkpoint posterior pass a codes backward and a codes
-# forward (52).
+# forward (52).  The multi-lane kernels on the shipped model's gap-chain
+# branch: nw_multi K1's 14 and the seed select (16), mea_multi K4's 10 and
+# the seed select (11), fb_multi_forward the emission and shift products,
+# the seed selects, the rescale and the gap-chain mixes it publishes (28),
+# fb_multi_backward the gap-chain cell, injection selects, valid mask,
+# rescale, posterior and e * b (31).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_CELL = {
@@ -299,6 +358,8 @@ OPS_PER_CELL = {
     "circ_backward_emv": 22, "circ_backward_codes": 25,
     "circ_backward_codes_es": 27, "circ_post_es": 25, "circ_post_emv": 24,
     "circ_post_codes": 27, "circ_ckpt_backward": 25, "circ_ckpt_post": 52,
+    "nw_multi": 16, "mea_multi": 11, "fb_multi_forward": 28,
+    "fb_multi_backward": 31,
 }
 
 
@@ -856,15 +917,15 @@ def compare_generic(base, reps):
 
 
 def compare_exact(name, args, reps):
-    """A serving kernel against its plain version on `args`: every output
-    bit-equal; both timed as time_ms times them, the comparison call being
-    the plain version's warm-up."""
+    """A serving or multi-lane kernel against its plain version on `args`:
+    every output bit-equal; both timed as time_ms times them, the
+    comparison call being the plain version's warm-up."""
     import torch
 
-    from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
-
-    kernel = getattr(fc, name + "_cuda")
-    plain = getattr(fc, name + "_plain")
+    module = importlib.import_module(
+        "marginalign_trna_tpu_torch.ops." + KERNELS[name][2].split(".")[0])
+    kernel = getattr(module, name + "_cuda")
+    plain = getattr(module, name + "_plain")
     got = kernel(*args)
     want = plain(*args)
     plain_ms = time_ms(lambda: plain(*args), 1, warm=False)
@@ -906,7 +967,7 @@ def compare_kernels(tag, names, inputs, reps):
         if name == "fb_backward":
             report["fb_backward"], report["fb_forward"] = compare_fb(
                 inputs["fb_backward"], inputs.get("fb_forward"), reps)
-        elif name in SERVE_NEW:
+        elif name in SERVE_NEW or name in MULTI_KERNELS:
             report[name] = compare_exact(name, inputs[name], reps)
         elif name not in ("fb_forward", *COUNTS_KERNELS, *GENERIC_KERNELS):
             report[name] = COMPARE[name](inputs[name], reps)
@@ -1156,6 +1217,61 @@ def tiny_serve_inputs(device, chain_model=True, width=21):
         "circ_post_codes": (*codes, *back),
         "circ_ckpt_backward": (*codes, fink, find, kb),
         "circ_ckpt_post": (*codes, fink, find, *ck, kb),
+    }
+
+
+def tiny_multi_inputs(device, chain_model=True, width=21):
+    """The multi-lane kernels' inputs at a tiny shape: 60 noisy pairs of
+    20-120 bases packed several per lane (pad_steps_to 256) at `width`
+    (21: Wp 24; 40: Wp 48), the shipped model or (chain_model=False) its
+    flat-gap variant whose gap states 1 and 2 exchange 0.05; the backward
+    fed by the plain forward, the MEA by the plain posteriors."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_multi_cuda as fm
+    from marginalign_trna_tpu_torch.ops.band import pack_multi_banded_batch
+    from marginalign_trna_tpu_torch.ops.fb import (
+        FbTables, multi_device_batch, tables_from_file,
+    )
+    from marginalign_trna_tpu_torch.ops.fb_circ import circ_coefficients
+    from marginalign_trna_tpu_torch.ops.mea import NEG
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    rng = np.random.default_rng(19)
+    refs = [rng.integers(0, 4, size=int(rng.integers(20, 120)))
+            .astype(np.int8) for _ in range(60)]
+    reads = [noisy(rng, r) for r in refs]
+    mb = pack_multi_banded_batch(reads, refs, width=width, pad_steps_to=256)
+    check(len({p.lane for p in mb.problems}) < len(refs),
+          "tiny multi: no lane holds two problems")
+    md = multi_device_batch(mb, device)
+    tables = tables_from_file(DEFAULT_MODEL)
+    if not chain_model:
+        T = tables.T.numpy().copy()
+        T[1, 2] = T[2, 1] = 0.05
+        T /= T.sum(axis=1, keepdims=True)
+        tables = FbTables(T, tables.Ematch.numpy(), tables.Egap.numpy(),
+                          tables.pi.numpy())
+    coef, chain = circ_coefficients(tables)
+    check(chain == chain_model, "tiny multi: unexpected model branch")
+    em = tables.Ematch.to(device)[md.xb.long(), md.yb.long()] * md.valid
+    fargs = (coef, chain, em, md.valid, md.s1, md.start, md.fink)
+    fmatch, lsf, term = fm.fb_multi_forward_plain(*fargs)
+    L = (torch.log(term.clamp(min=1e-30)) + lsf).gather(
+        0, md.step_final.long())
+    bargs = (coef, chain, fmatch, lsf, L, em, md.valid, md.s1, md.fink,
+             md.find)
+    post = fm.fb_multi_backward_plain(*bargs)
+    gap = 0.5 * (1.0 - post).clamp(0.0, 1.0)
+    return {
+        "nw_multi": (NW_PARAMS, md.xb, md.yb, md.valid, md.s1, md.s2,
+                     md.start, md.fink, md.find),
+        "fb_multi_forward": fargs,
+        "fb_multi_backward": bargs,
+        "mea_multi": (torch.where(post > 0, post, NEG), gap,
+                      gap.flip(1).contiguous(), md.valid, md.s1, md.s2,
+                      md.start, md.fink, md.find),
     }
 
 
@@ -2445,6 +2561,385 @@ def phase_serve_parity(tmpdir, fq, fa, main_sam):
     return res
 
 
+def write_trna_corpus(tmpdir, n_reads, n_refs, seed=23):
+    """A synthetic direct-tRNA corpus in the shape of benchmarks/trna.py:
+    n_refs references of 70-90 nt; each read (60-150 nt) a fragment of its
+    reference when shorter than it, else the whole reference with the
+    surplus inserted at one place, with ~12% substitutions and up to two
+    1-2 base indels, every other one reverse-complemented.  Returns
+    (fastq, fasta, truth {name: (ref, reverse)})."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    bases = np.array(list("ACGT"))
+    refs = [rng.integers(0, 4, int(rng.integers(70, 91)))
+            for _ in range(n_refs)]
+    fa = os.path.join(tmpdir, "trna.fa")
+    with open(fa, "w") as fh:
+        for i, r in enumerate(refs):
+            fh.write(">tRNA%d\n%s\n" % (i, "".join(bases[r])))
+    fq = os.path.join(tmpdir, "trna.fq")
+    truth = {}
+    with open(fq, "w") as fh:
+        for k in range(n_reads):
+            ri = int(rng.integers(0, n_refs))
+            ref = refs[ri]
+            length = int(rng.integers(60, 151))
+            if length <= len(ref):
+                start = int(rng.integers(0, len(ref) - length + 1))
+                y = ref[start:start + length].copy()
+            else:
+                pos = int(rng.integers(0, len(ref)))
+                y = np.concatenate([ref[:pos],
+                                    rng.integers(0, 4, length - len(ref)),
+                                    ref[pos:]])
+            subs = rng.random(len(y)) < 0.12
+            y[subs] = (y[subs] + rng.integers(1, 4, int(subs.sum()))) % 4
+            for _ in range(int(rng.integers(0, 3))):
+                at = int(rng.integers(5, len(y) - 5))
+                n = int(rng.integers(1, 3))
+                y = (np.delete(y, range(at, at + n)) if rng.random() < 0.5
+                     else np.insert(y, at, rng.integers(0, 4, n)))
+            reverse = k % 2 == 1
+            if reverse:
+                y = (3 - y)[::-1]
+            seq = "".join(bases[y])
+            fh.write("@t%d\n%s\n+\n%s\n" % (k, seq, "I" * len(seq)))
+            truth["t%d" % k] = ("tRNA%d" % ri, reverse)
+    return fq, fa, truth
+
+
+def aligned_ops(cigar):
+    """The M / I / D runs of a SamLine cigar as [(op, len)]."""
+    code = {"M": 0, "I": 1, "D": 2}
+    return [(code[op], ln) for op, ln in cigar if op in code]
+
+
+def dense_objective(ops, post, gap_gamma=0.5):
+    """The MEA objective of aligned ops over one problem's dense posterior
+    [m, n] (ops/band.py `unpack_problem`): the posterior of every matched
+    pair, gap_gamma * clip(1 - row / column mass) of every skipped read /
+    reference position; float64 on the host."""
+    import numpy as np
+
+    g_read = gap_gamma * np.clip(1.0 - post.sum(axis=1, dtype=np.float64),
+                                 0.0, 1.0)
+    g_ref = gap_gamma * np.clip(1.0 - post.sum(axis=0, dtype=np.float64),
+                                0.0, 1.0)
+    i = j = 0
+    total = 0.0
+    for op, ln in ops:
+        for _ in range(ln):
+            if op == 0:
+                total += float(post[i, j])
+                i, j = i + 1, j + 1
+            elif op == 1:
+                total += float(g_read[i])
+                i += 1
+            else:
+                total += float(g_ref[j])
+                j += 1
+    return total
+
+
+def multi_tie_gaps(recs, other, mb, post):
+    """(equal, [relative objective gap of each record whose cigar differs])
+    between two realignments of the same records in the same order, scored
+    under the posterior band `post` (host) of the multi-lane batch `mb`
+    that realigned `recs` (record k is its problem k)."""
+    from marginalign_trna_tpu_torch.ops.band import unpack_problem
+
+    check([(r.qname, r.flag, r.rname, r.pos) for r in recs]
+          == [(r.qname, r.flag, r.rname, r.pos) for r in other],
+          "multi: records placed differently by the two runs")
+    check(len(mb.problems) == len(recs), "multi: %d problems for %d records"
+          % (len(mb.problems), len(recs)))
+    same, gaps = 0, []
+    for k, (a, b) in enumerate(zip(recs, other)):
+        if a.cigar == b.cigar:
+            same += 1
+            continue
+        dense = unpack_problem(post, mb, k)
+        f = dense_objective(aligned_ops(a.cigar), dense)
+        r = dense_objective(aligned_ops(b.cigar), dense)
+        gaps.append(abs(f - r) / max(abs(f), 1.0))
+    return same, gaps
+
+
+@contextlib.contextmanager
+def multi_recording(guide_copy=None):
+    """Inside the block the guide's SAM is copied to `guide_copy` (if
+    given) when it is written (align/guide.py `map_reads`), and every
+    multi-lane batch (ops/band.py `pack_multi_banded_batch`, with the host
+    seconds spent packing it) and the posterior band of every
+    `posteriors_multi` call are kept.  Yields {"packs": [...], "pack_s":
+    seconds, "posts": [...]}."""
+    from marginalign_trna_tpu_torch.align import guide
+    from marginalign_trna_tpu_torch.ops import band, fb_multi_cuda
+
+    kept = {"packs": [], "pack_s": 0.0, "posts": []}
+    map_reads, pack = guide.map_reads, band.pack_multi_banded_batch
+    posteriors = fb_multi_cuda.posteriors_multi
+
+    def keep_guide(fq, fa, out, *args, **kwargs):
+        map_reads(fq, fa, out, *args, **kwargs)
+        if guide_copy:
+            shutil.copy(out, guide_copy)
+
+    def keep_pack(*args, **kwargs):
+        t0 = time.perf_counter()
+        kept["packs"].append(pack(*args, **kwargs))
+        kept["pack_s"] += time.perf_counter() - t0
+        return kept["packs"][-1]
+
+    def keep_post(tables, mdev):
+        logZ, post = posteriors(tables, mdev)
+        kept["posts"].append(post)
+        return logZ, post
+
+    with replaced_everywhere({map_reads: keep_guide, pack: keep_pack,
+                              posteriors: keep_post}):
+        yield kept
+
+
+def padded_cells(shapes, name):
+    """Band cells over every recorded launch of kernel `name`."""
+    import numpy as np
+
+    return int(sum(np.prod(s) for s in shapes[name]))
+
+
+def phase_multi(tmpdir):
+    """marginAlign on the synthetic tRNA corpus with multi=True (only the
+    four multi-lane kernels), then on the default single-lane path; guide
+    records identical, placements on the simulated reference and strand,
+    cigars equal or MEA near-ties under the multi run's posteriors.
+    Returns (launches, largest launch inputs, results)."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.ops import _build
+
+    fq, fa, truth = write_trna_corpus(tmpdir, TRNA_READS, TRNA_REFS)
+    runs = {}
+    for tag, multi in (("multi", True), ("single", False)):
+        out = os.path.join(tmpdir, "trna_%s.sam" % tag)
+        guide_sam = os.path.join(tmpdir, "trna_%s_guide.sam" % tag)
+        with recording_launches(list(KERNELS)) as (shapes, largest, host), \
+                multi_recording(guide_sam) as kept:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            stages = pipeline.align(fq, fa, out, device="cuda", multi=multi)
+            torch.cuda.synchronize()
+            total = time.perf_counter() - t0
+            launches = dict(_build.launch_counts)
+        recs = sam_records(out)
+        log("multi[%s]: %d reads in, %d records out, %.3f s, %.2f reads/s; "
+            "stages %s; launches %s; launch shapes %s"
+            % (tag, TRNA_READS, len(recs), total, len(recs) / total,
+               json.dumps(stages),
+               json.dumps({k: n for k, n in launches.items() if n}),
+               json.dumps({k: v for k, v in shapes.items() if v})))
+        runs[tag] = {"recs": recs, "guide": sam_records(guide_sam),
+                     "stages": stages, "total": total, "launches": launches,
+                     "shapes": shapes, "largest": largest, "kept": kept}
+    m, single = runs["multi"], runs["single"]
+    check_launches("multi", MULTI_KERNELS, m["launches"], m["shapes"])
+    check_launches("single-lane tRNA", ALIGN_KERNELS, single["launches"],
+                   single["shapes"])
+    check(len(m["kept"]["packs"]) == 2 and len(m["kept"]["posts"]) == 1,
+          "multi: expected one guide and one realign batch")
+    guide_mb, realign_mb = m["kept"]["packs"]
+
+    recs = m["recs"]
+    placed = sum((r.rname, bool(r.flag & 16)) == truth[r.qname]
+                 for r in recs)
+    log("multi: %d of %d reads mapped; %d of those on their simulated "
+        "reference and strand" % (len(recs), TRNA_READS, placed))
+    check(len(recs) >= 0.80 * TRNA_READS, "multi: only %d of %d reads mapped"
+          % (len(recs), TRNA_READS))
+    check(placed >= 0.95 * len(recs), "multi: fewer than 95% of records on "
+          "their simulated reference and strand")
+    check([r.line for r in m["guide"]] == [r.line for r in single["guide"]],
+          "multi: guide records differ from the single-lane path's")
+    post = m["kept"]["posts"][0].cpu().numpy()
+    same, gaps = multi_tie_gaps(recs, single["recs"], realign_mb, post)
+    worst = max(gaps, default=0.0)
+    log("multi: %d of %d realigned cigars equal to the single-lane path's; "
+        "the other %d are MEA near-ties, worst objective difference %.3g "
+        "(relative, under the multi run's posteriors)"
+        % (same, len(recs), len(gaps), worst))
+    check(same >= MULTI_MIN_EQUAL * len(recs), "multi: fewer than %d%% of "
+          "cigars equal to the single-lane path's" % (100 * MULTI_MIN_EQUAL))
+    check(worst <= 1e-5, "multi: a cigar scores %.3g (relative) off the "
+          "single-lane path's" % worst)
+
+    valid = {"guide": int(guide_mb.valid.sum()),
+             "realign": int(realign_mb.valid.sum())}
+    cells = {
+        "multi": {"guide": padded_cells(m["shapes"], "nw_multi"),
+                  "realign": padded_cells(m["shapes"], "fb_multi_forward")},
+        "single": {"guide": padded_cells(single["shapes"], "banded_nw"),
+                   "realign": padded_cells(single["shapes"],
+                                           "sv_backward")},
+    }
+    res = {"reads_in": TRNA_READS, "references": TRNA_REFS,
+           "records_out": len(recs), "placed": placed,
+           "cigars_equal_single": same, "near_ties": len(gaps),
+           "worst_tie_relative": worst, "valid_cells": valid}
+    for tag, run in runs.items():
+        res[tag] = {"total_s": run["total"],
+                    "reads_per_s": len(run["recs"]) / run["total"],
+                    **run["stages"],
+                    "pack_multi_banded_batch_s": run["kept"]["pack_s"],
+                    "padded_cells": cells[tag],
+                    "valid_share": {k: valid[k] / max(cells[tag][k], 1)
+                                    for k in valid}}
+    log("multi: %s" % json.dumps(res))
+    return m["launches"], m["largest"], res
+
+
+def phase_call_multi(tmpdir, sam, mut_fa):
+    """marginCaller with multi=True on the main phase's SAM against the
+    caller phase's mutated reference (split 100): only the FB multi pair
+    launches; the fused caller's call set on the same records, and every
+    position's expectations within 3e-4 of its coverage (the fused
+    caller's expected count over the four bases) of the fused caller's.
+    The multi-lane posteriors carry the float32 noise of their lane-long
+    log-scale sums (the JAX package's arithmetic), which adds up with
+    coverage: the JAX package holds its multi-lane posteriors within 3e-4
+    of its single-lane ones (tests/test_multi.py), and each read adds at
+    most its posterior to a position's expectations.  A CPU run of 256
+    600-base reads (coverage up to 131) put them 1.5e-3 apart, 3.9e-5 of
+    the coverage.  Returns (launches, largest launch inputs, results)."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch.call import caller
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+    from marginalign_trna_tpu_torch.pipeline import DEFAULT_MODEL
+
+    hmm = PairHmm.load(DEFAULT_MODEL)
+    refs = get_fasta_dictionary(mut_fa)
+    exps = []
+    acc = caller.accumulate_expectations
+
+    def keep_exp(*args, **kwargs):
+        exps.append(acc(*args, **kwargs))
+        return exps[-1]
+
+    vcf = os.path.join(tmpdir, "calls_multi.vcf")
+    with recording_launches(list(KERNELS)) as (shapes, largest, host), \
+            replaced_everywhere({acc: keep_exp}), multi_recording() as kept:
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        calls = caller.margin_caller(sam, mut_fa, vcf, hmm, hmm,
+                                     device="cuda", multi=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    log("call_multi: %.3f s; launches %s; launch shapes %s"
+        % (total, json.dumps({k: n for k, n in launches.items() if n}),
+           json.dumps({k: v for k, v in shapes.items() if v})))
+    check_launches("call_multi", CALL_MULTI_KERNELS, launches, shapes)
+    t0 = time.perf_counter()
+    fused = caller.accumulate_expectations(
+        SamFile.read(sam), refs, hmm, caller.CallerOptions(), device="cuda")
+    fused_s = time.perf_counter() - t0
+    fused_calls = {c[:3] for c in caller.call_variants(
+        fused, refs, hmm, caller.DEFAULT_THRESHOLD)}
+    got = {c[:3] for c in calls}
+    err = max(float(np.abs(exps[0][k] - fused[k]).max()) for k in refs)
+    rel = max(float((np.abs(exps[0][k] - fused[k]) / np.maximum(
+        fused[k].sum(axis=1, keepdims=True), 1.0)).max()) for k in refs)
+    res = {"records": len(sam_records(sam)), "total_s": total,
+           "pack_multi_banded_batch_s": kept["pack_s"],
+           "problems": len(kept["packs"][0].problems),
+           "fused_expectations_s": fused_s, "calls": len(got),
+           "calls_equal_fused": got == fused_calls,
+           "expectations_max_abs_err": err,
+           "expectations_max_err_per_coverage": rel,
+           "max_coverage": max(float(fused[k].sum(axis=1).max())
+                               for k in refs)}
+    log("call_multi: %s" % json.dumps(res))
+    check(got == fused_calls, "call_multi: call set differs from the fused "
+          "caller's")
+    check(rel <= 3e-4, "call_multi: expectations differ by %g of the "
+          "coverage from the fused caller's" % rel)
+    return launches, largest, res
+
+
+def phase_multi_parity(tmpdir, sam, mut_fa):
+    """multi=True on PARITY_READS tRNA reads (pipeline.align) and on the
+    main SAM's first PARITY_READS records (margin_caller, split 100) on the
+    CPU (plain versions) and on the card (kernels): guide records and
+    placements identical, >= MULTI_MIN_EQUAL of cigars identical and every
+    other one an MEA near-tie (1e-5 relative under the card's posteriors);
+    identical call sets, expectations within 1e-3."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.call import caller
+    from marginalign_trna_tpu_torch.io.fasta import get_fasta_dictionary
+    from marginalign_trna_tpu_torch.io.sam import SamFile
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+
+    sub = os.path.join(tmpdir, "trna_parity.fq")
+    subset_fastq(os.path.join(tmpdir, "trna.fq"), sub, PARITY_READS)
+    fa = os.path.join(tmpdir, "trna.fa")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        out = os.path.join(tmpdir, "trna_parity_%s.sam" % dev)
+        guide_sam = os.path.join(tmpdir, "trna_parity_%s_guide.sam" % dev)
+        t0 = time.perf_counter()
+        with multi_recording(guide_sam) as kept:
+            pipeline.align(sub, fa, out, device=dev, multi=True)
+        runs[dev] = (sam_records(guide_sam), sam_records(out), kept,
+                     time.perf_counter() - t0)
+    (gc, rc, _, tc), (gg, rg, kept, tg) = runs["cpu"], runs["cuda"]
+    check([r.line for r in gc] == [r.line for r in gg],
+          "multi parity: guide records differ between cpu and cuda")
+    same, gaps = multi_tie_gaps(rg, rc, kept["packs"][1],
+                                kept["posts"][0].cpu().numpy())
+    worst = max(gaps, default=0.0)
+    path = os.path.join(tmpdir, "call_multi_subset.sam")
+    sub_sam = SamFile.read(sam)
+    sub_sam.records = sub_sam.records[:PARITY_READS]
+    sub_sam.write(path)
+    refs = get_fasta_dictionary(mut_fa)
+    hmm = PairHmm.load(pipeline.DEFAULT_MODEL)
+    exp, calls = {}, {}
+    for dev in ("cpu", "cuda"):
+        exp[dev] = caller.accumulate_expectations(
+            SamFile.read(path), refs, hmm, caller.CallerOptions(),
+            device=dev, multi=True)
+        calls[dev] = {c[:3] for c in caller.call_variants(
+            exp[dev], refs, hmm, caller.DEFAULT_THRESHOLD)}
+    err = max(float(np.abs(exp["cpu"][k] - exp["cuda"][k]).max())
+              for k in refs)
+    res = {"reads": PARITY_READS, "guide_records": len(gg),
+           "cigars_identical": same, "near_ties": len(gaps),
+           "worst_tie_relative": worst, "align_cpu_s": tc,
+           "align_cuda_s": tg, "caller_records": len(sub_sam.records),
+           "calls": len(calls["cuda"]), "expectations_max_abs_err": err}
+    log("multi parity: %s" % json.dumps(res))
+    check(same >= MULTI_MIN_EQUAL * len(rg), "multi parity: fewer than %d%% "
+          "of cigars identical between cpu and cuda"
+          % (100 * MULTI_MIN_EQUAL))
+    check(worst <= 1e-5, "multi parity: a cigar differing between cpu and "
+          "cuda scores %.3g (relative) off under the card's posteriors"
+          % worst)
+    check(calls["cpu"] == calls["cuda"], "multi parity: call sets differ "
+          "between cpu and cuda")
+    check(err <= 1e-3, "multi parity: expectations differ by %g between cpu "
+          "and cuda" % err)
+    return res
+
+
 def phase_clock():
     """A function that logs the seconds since its creation after a named
     phase."""
@@ -2537,12 +3032,18 @@ def main() -> int:
         compare_kernels("tiny", list(KERNELS), {
             **tiny_serve_inputs(cuda), **tiny_inputs(cuda),
             **tiny_caller_inputs(cuda), **tiny_default_inputs(cuda),
-            **tiny_counts_inputs(cuda), **tiny_generic_inputs(cuda)}, 3)
+            **tiny_counts_inputs(cuda), **tiny_generic_inputs(cuda),
+            **tiny_multi_inputs(cuda)}, 3)
         compare_kernels("tiny_non_chain", ["sv_backward"] + SERVE_NEW,
                         tiny_serve_inputs(cuda, chain_model=False), 3)
         for width in WIDE_BANDS:
             compare_kernels("tiny_width_%d" % width, SERVE_NEW,
                             tiny_serve_inputs(cuda, width=width), 3)
+        compare_kernels("tiny_multi_non_chain",
+                        ["fb_multi_forward", "fb_multi_backward"],
+                        tiny_multi_inputs(cuda, chain_model=False), 3)
+        compare_kernels("tiny_multi_width_40", ["nw_multi"],
+                        tiny_multi_inputs(cuda, width=40), 3)
         elapsed("tiny")
         with tempfile.TemporaryDirectory() as tmpdir:
             fq, fa, truth, sam, launches, largest, main_res = phase_main(
@@ -2600,6 +3101,17 @@ def main() -> int:
             del base
             band_parity = phase_band_parity(tmpdir, fq, fa)
             elapsed("band parity")
+            multi_launches, largest, multi_res = phase_multi(tmpdir)
+            elapsed("multi")
+            call_multi_launches, more, call_multi_res = phase_call_multi(
+                tmpdir, sam, mut_fa)
+            largest_of(largest, more)
+            del more
+            on_multi = phase_kernels("multi", MULTI_KERNELS, largest)
+            del largest
+            elapsed("call multi")
+            multi_parity = phase_multi_parity(tmpdir, sam, mut_fa)
+            elapsed("multi parity")
         # The policy gives the 256-read E-step batch to the checkpoint
         # pair and the 32-read one to the stored pair: both pairs ran.
         for name in COUNTS_PAIRS["ckpt"]:
@@ -2627,13 +3139,18 @@ def main() -> int:
     log("generic-parity: %s" % json.dumps(generic_parity))
     log("em-band: %s" % json.dumps(band_res))
     log("em-band-parity: %s" % json.dumps(band_parity))
+    log("multi-path: %s" % json.dumps(multi_res))
+    log("caller-multi: %s" % json.dumps(call_multi_res))
+    log("multi-parity: %s" % json.dumps(multi_parity))
     log(card)
     # A kernel's launches and measurements come from the first path it runs
     # on (E and S: marginAlign's main path; the checkpoint counts pair: the
     # EM phase; the stored pair: the card's EM parity run, where the policy
     # picks it; the generic pair: marginAlign with the trial model; the
     # serving kernels: the realign run of the first mode that uses them,
-    # measured on their largest launch over the modes' realign runs);
+    # measured on their largest launch over the modes' realign runs; the
+    # multi-lane kernels: marginAlign with multi=True, measured on their
+    # largest launch over it and marginCaller with multi=True);
     # measurements on later paths ride along under their path ("caller",
     # "em", "call_generic", "em_band", "serve_call": the serving kernels'
     # largest launch over the modes' caller runs), and launches_by_path
@@ -2642,7 +3159,8 @@ def main() -> int:
                "em": em_launches, "em_parity": em_parity_launches,
                "generic": generic_launches,
                "call_generic": call_generic_launches,
-               "em_band": band_launches, **serve_launches}
+               "em_band": band_launches, **serve_launches,
+               "multi": multi_launches, "call_multi": call_multi_launches}
     first = {name: "em_parity" if name in COUNTS_PAIRS["stored"] else
              KERNELS[name][3][0] for name in KERNELS}
     for name in SERVE_NEW:
@@ -2654,7 +3172,8 @@ def main() -> int:
     for name, (src, rep, _, _) in KERNELS.items():
         reports = [("align", kernels), ("caller", on_caller), ("em", on_em),
                    ("generic", on_generic), ("call_generic", on_call_generic),
-                   ("em_band", on_em_band), *on_serve.items()]
+                   ("em_band", on_em_band), *on_serve.items(),
+                   ("multi", on_multi)]
         res = next(r[name] for _, r in reports if name in r)
         line = {"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": by_path[first[name]][name],

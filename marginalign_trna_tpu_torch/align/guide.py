@@ -12,7 +12,11 @@ src/margin/mappers/{last,bwa,minimap2}.py):
      only sequences and band offsets (`pack_compact_batch`), the code bands
      expand on the device (ops/fb_circ.py `expand_rel_codes`) and the masks
      derive from the offsets (ops/band.py `band_masks`) -- the JAX
-     package's compact device path (its align/guide.py:478-620);
+     package's compact device path (its align/guide.py:478-620).  With
+     multi=True (the JAX package's MARGINALIGN_MULTI=on, its
+     align/guide.py:404-470) every candidate goes into one batch of
+     multi-problem lanes instead (ops/band.py `pack_multi_banded_batch`,
+     ops/nw.py `banded_nw_multi`);
   4. host: traceback -> SAM records (primary alignment per read).
 
 Mapper presets (GuideConfig.preset) are host configuration only:
@@ -40,10 +44,15 @@ from ..io.sam import SamFile, SamRecord, make_header
 from ..utils.seq import (
     encode, revcomp_codes, reverse_complement,
 )
-from ..ops.band import band_masks, pack_compact_batch, padded_band_width
-from ..ops.fb import DeviceBatch
+from ..ops.band import (
+    band_masks, pack_compact_batch, pack_multi_banded_batch,
+    padded_band_width,
+)
+from ..ops.fb import DeviceBatch, multi_device_batch
 from ..ops.fb_circ import compact_device_batch, expand_rel_codes
-from ..ops.nw import NwParams, banded_nw, traceback
+from ..ops.nw import (
+    NwParams, banded_nw, banded_nw_multi, traceback, traceback_multi,
+)
 
 # Band cells (steps x Wp x lanes, before the step and lane ladders pad
 # them) per guide bucket: the int8 code, mask and pointer bands take 4 B
@@ -341,9 +350,11 @@ def map_reads(
     output_sam_path: str,
     cfg: Optional[GuideConfig],
     device,
+    multi: bool = False,
 ) -> None:
     """Map all reads, emitting a guide SAM (primary alignment per read),
-    with the Viterbi batch on `device`.
+    with the Viterbi batch on `device` (multi=True: in multi-problem lanes,
+    `align_candidates`).
 
     This is the 'mapper.run()' stage of the reference pipeline
     (e.g. Last.run, src/margin/mappers/last.py:6-26), including its
@@ -361,7 +372,7 @@ def map_reads(
         if cand is not None:
             candidates.append(cand)
 
-    records = align_candidates(candidates, index, cfg, device)
+    records = align_candidates(candidates, index, cfg, device, multi)
     SamFile(header, records).write(output_sam_path)
 
 
@@ -410,10 +421,13 @@ def _best_candidate(
 
 
 def align_candidates(
-    candidates: List[_Candidate], index: KmerIndex, cfg: GuideConfig, device
+    candidates: List[_Candidate], index: KmerIndex, cfg: GuideConfig, device,
+    multi: bool = False,
 ) -> List[SamRecord]:
     """Banded Viterbi over the candidates in size-sorted buckets on
-    `device` -> SAM records."""
+    `device` -> SAM records; multi=True packs every candidate into one
+    batch of multi-problem lanes instead (marginalign_trna_tpu/align/
+    guide.py:407-470, whatever the candidates' sizes)."""
     if not candidates:
         return []
     reads, windows, paths = [], [], []
@@ -435,6 +449,16 @@ def align_candidates(
         pd.append(m + n)
         pi.append(m)
         paths.append((np.asarray(pd), np.asarray(pi)))
+
+    if multi:
+        mb = pack_multi_banded_batch(reads, windows, width=cfg.band_width,
+                                     paths=paths)
+        res = banded_nw_multi(cfg.nw, multi_device_batch(mb, device))
+        pointers = np.ascontiguousarray(res.pointers.cpu().numpy())
+        final_states = res.final_state.cpu().numpy()
+        ops_by_cand = [traceback_multi(pointers, mb, p, int(final_states[p]))
+                       for p in range(len(candidates))]
+        return _records(candidates, ops_by_cand, index)
 
     # One device, so one bucket unless the band cells outgrow
     # GUIDE_MAX_CELLS; sorted by size so padding waste stays low.
@@ -468,7 +492,12 @@ def align_candidates(
         for local_b, i in enumerate(bidx):
             ops_by_cand[i] = traceback(pointers, comp, local_b,
                                        int(final_states[local_b]))
+    return _records(candidates, ops_by_cand, index)
 
+
+def _records(candidates: List[_Candidate],
+             ops_by_cand: List[List[Tuple[int, int]]],
+             index: KmerIndex) -> List[SamRecord]:
     records = []
     for c, ops in zip(candidates, ops_by_cand):
         rec = _ops_to_record(c, ops, index)

@@ -32,6 +32,15 @@ un-normalised trial model) takes the REL path whatever `fused` or `serve`
 say, as in the JAX package: the fused and circular kernels fold flat gap
 emissions into their coefficients, the REL path runs such a model through
 the generic forward-backward pair (ops/fb_generic_cuda.py).
+
+With multi=True (the JAX package's MARGINALIGN_MULTI=on, its
+align/realign.py:203-293), checked before `fused` and `serve`: when every
+job (after anchor splitting) spans at most MULTI_MAX_PROBLEM_STEPS
+diagonals and the model's gap emissions are flat (`use_multi_lanes`), all
+jobs go into one batch of multi-problem lanes (ops/band.py
+`pack_multi_banded_batch`): the forward-backward of ops/fb_multi_cuda.py
+`posteriors_multi`, then ops/mea.py `mea_decode_multi`.  Otherwise the
+call takes the route it takes without `multi`.
 """
 from __future__ import annotations
 
@@ -46,14 +55,22 @@ import numpy as np
 from ..io.fasta import get_fasta_dictionary
 from ..io.sam import SamFile, SamRecord
 from ..models.hmm import PairHmm
-from ..ops.band import pack_banded_batch, pack_compact_batch, path_from_cigar
-from ..ops.fb import FbTables, device_batch, tables_from_hmm
+from ..ops.band import (
+    pack_banded_batch, pack_compact_batch, pack_multi_banded_batch,
+    path_from_cigar,
+)
+from ..ops.fb import (
+    FbTables, device_batch, multi_device_batch, tables_from_hmm,
+)
 from ..ops.fb_circ import (
     check_serve, compact_device_batch, posteriors_serve,
     posteriors_weights_compact,
 )
 from ..ops.fb_cuda import has_flat_gap_emissions, posteriors_specialised
-from ..ops.mea import mea_decode, mea_decode_fused, rowcol_sums_from_flushed
+from ..ops.fb_multi_cuda import posteriors_multi
+from ..ops.mea import (
+    mea_decode, mea_decode_fused, mea_decode_multi, rowcol_sums_from_flushed,
+)
 from ..utils.seq import encode
 from .chain import chain_sam_file
 
@@ -64,6 +81,10 @@ DEFAULT_BAND_WIDTH = 21
 # Reference realign-path --splitMatrixBiggerThanThis
 # (src/margin/marginAlignLib.py:316); 0 disables splitting.
 DEFAULT_SPLIT_SIZE = 3000
+
+# multi=True packs problems several per lane when every job fits this many
+# diagonals (marginalign_trna_tpu/align/realign.py MULTI_MAX_PROBLEM_STEPS).
+MULTI_MAX_PROBLEM_STEPS = 512
 
 
 @dataclass
@@ -231,6 +252,34 @@ def _bucket_jobs(
     return buckets
 
 
+def use_multi_lanes(jobs: Sequence[RealignJob], tables: FbTables) -> bool:
+    """The JAX package's multi-lane policy under MARGINALIGN_MULTI=on
+    (its align/realign.py `_use_multi_packing`): every job spans at most
+    MULTI_MAX_PROBLEM_STEPS diagonals and the model's gap emissions are
+    flat.  A size and model policy; realign and the caller ask it only when
+    called with multi=True."""
+    if not jobs:
+        return False
+    if max(len(j.read_region) + len(j.ref_region) + 1
+           for j in jobs) > MULTI_MAX_PROBLEM_STEPS:
+        return False
+    return has_flat_gap_emissions(tables)
+
+
+def _realign_multi(jobs: Sequence[RealignJob], tables: FbTables,
+                   gap_gamma: float, match_gamma: float, device,
+                   band_width: int) -> List[List[Tuple[int, int]]]:
+    """Multi-lane path: every job in one multi-problem batch -> FB pair ->
+    MEA over the lanes -> host tracebacks."""
+    mb = pack_multi_banded_batch(
+        [j.read_region for j in jobs], [j.ref_region for j in jobs],
+        width=band_width, paths=[j.path for j in jobs],
+    )
+    mdev = multi_device_batch(mb, device)
+    _, post = posteriors_multi(tables, mdev)
+    return mea_decode_multi(post, mb, mdev, gap_gamma, match_gamma)
+
+
 def _realign_bucket_fused(jobs: Sequence[RealignJob], tables: FbTables,
                           gap_gamma: float, match_gamma: float, device,
                           band_width: int) -> List[List[Tuple[int, int]]]:
@@ -280,12 +329,14 @@ def realigned_ops_for_jobs(
     split_size: int = 0,
     fused: bool = True,
     serve: Optional[str] = None,
+    multi: bool = False,
 ) -> List[List[Tuple[int, int]]]:
     """Run FB + MEA for every job on `device`; returns realigned
     aligned-region ops.
 
     split_size > 0 decomposes each problem at guide-path anchors
     (split_job_at_anchors) and concatenates the per-segment cigars.
+    multi=True takes multi-problem lanes where `use_multi_lanes` allows;
     fused=False takes the REL path; serve=<mode> the circular serving
     route in that mode, whatever `fused` says; a model whose gap emissions
     are not flat the REL path (module docstring).  An unknown serve mode
@@ -297,6 +348,7 @@ def realigned_ops_for_jobs(
             seg_ops = realigned_ops_for_jobs(
                 segs, hmm, gap_gamma, match_gamma, device, band_width,
                 max_batch_cells, split_size=0, fused=fused, serve=serve,
+                multi=multi,
             )
             out: List[List[Tuple[int, int]]] = [[] for _ in jobs]
             for s_idx, j_idx in enumerate(origin):
@@ -304,6 +356,9 @@ def realigned_ops_for_jobs(
             return [_merge_op_runs(ops) for ops in out]
 
     tables = tables_from_hmm(hmm, device)
+    if multi and use_multi_lanes(jobs, tables):
+        return _realign_multi(jobs, tables, gap_gamma, match_gamma, device,
+                              band_width)
     # marginalign_trna_tpu/align/realign.py:265-267, 328, 358-395.
     if not has_flat_gap_emissions(tables):
         run_bucket = _realign_bucket_rel
@@ -365,10 +420,12 @@ def realign_sam_file(
     split_size: int = DEFAULT_SPLIT_SIZE,
     fused: bool = True,
     serve: Optional[str] = None,
+    multi: bool = False,
 ) -> None:
     """Chain (optional) + realign a SAM file end to end on `device`
     (fused=False: the REL path; serve=<mode>: circular serving in that
-    mode; module docstring)."""
+    mode; multi=True: multi-problem lanes where allowed; module
+    docstring)."""
     check_serve(serve)
     work_sam = sam_path
     tmp = None
@@ -389,7 +446,7 @@ def realign_sam_file(
         all_ops = realigned_ops_for_jobs(jobs, hmm, gap_gamma, match_gamma,
                                          device, band_width,
                                          split_size=split_size, fused=fused,
-                                         serve=serve)
+                                         serve=serve, multi=multi)
         realigned = [splice_realigned_cigar(job.record, ops)
                      for job, ops in zip(jobs, all_ops)]
         SamFile(sam.header, realigned).write(output_sam_path)

@@ -22,6 +22,14 @@ forward-backward of that mode in the circular layout (ops/fb_circ.py
 `posteriors_serve`) and the posterior band summed per position
 (ops/expectations.py `band_expectations`).
 
+With multi=True (the JAX package's MARGINALIGN_MULTI=on, its
+call/caller.py:104-134), checked before `serve`: when the anchor-split
+jobs all fit align/realign.py `use_multi_lanes`, they go into one batch of
+multi-problem lanes (ops/band.py `pack_multi_banded_batch`), the
+forward-backward of ops/fb_multi_cuda.py `posteriors_multi`, and the
+posterior band summed per position over each lane's virtual reference
+space (ops/expectations.py `multi_band_expectations`).
+
 A model whose gap emissions are not flat (an un-normalised EM model) cannot
 run those kernels; as in the JAX package, its buckets are packed as band
 arrays (`pack_banded_batch`), run through the generic forward-backward pair
@@ -35,17 +43,24 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..align.realign import _bucket_jobs, _jobs_from_sam, split_jobs_at_anchors
+from ..align.realign import (
+    _bucket_jobs, _jobs_from_sam, split_jobs_at_anchors, use_multi_lanes,
+)
 from ..io.fasta import get_fasta_dictionary
 from ..io.sam import SamFile
 from ..io.vcf import vcf_read, vcf_write
 from ..models.hmm import PairHmm
-from ..ops.band import pack_banded_batch, pack_compact_batch
-from ..ops.expectations import band_expectations, band_expectations_cx
-from ..ops.fb import device_batch, tables_from_hmm
+from ..ops.band import (
+    pack_banded_batch, pack_compact_batch, pack_multi_banded_batch,
+)
+from ..ops.expectations import (
+    band_expectations, band_expectations_cx, multi_band_expectations,
+)
+from ..ops.fb import device_batch, multi_device_batch, tables_from_hmm
 from ..ops.fb_circ import check_serve, compact_device_batch, posteriors_serve
 from ..ops.fb_cuda import has_flat_gap_emissions
 from ..ops.fb_generic_cuda import posteriors_generic
+from ..ops.fb_multi_cuda import posteriors_multi
 from ..pipeline import resolve_device
 from ..utils.seq import BASES, encode
 
@@ -93,6 +108,20 @@ def _no_margin_expectations(sam: SamFile,
         np.add.at(exp, (r[keep], c[keep]), 1.0)
 
 
+def _multi_expectations(jobs, starts: np.ndarray, tables, dev,
+                        band_width: int, exp_global: np.ndarray) -> None:
+    """Every job in one batch of multi-problem lanes: the multi
+    forward-backward pair, then the posterior band summed per position into
+    exp_global [total, 4] (job p's reference window starts at starts[p])."""
+    mb = pack_multi_banded_batch(
+        [j.read_region for j in jobs], [j.ref_region for j in jobs],
+        width=band_width, paths=[j.path for j in jobs],
+    )
+    mdev = multi_device_batch(mb, dev)
+    _, post = posteriors_multi(tables, mdev)
+    multi_band_expectations(post, mb, mdev, starts, exp_global)
+
+
 def accumulate_expectations(
     sam: SamFile,
     ref_sequences: Dict[str, str],
@@ -100,11 +129,13 @@ def accumulate_expectations(
     options: CallerOptions,
     device="cuda",
     serve: Optional[str] = None,
+    multi: bool = False,
 ) -> Dict[str, np.ndarray]:
     """-> {ref_name: [ref_len, 4] expected base counts}.  The posterior
     pass runs on `device` (the kernels on "cuda", their plain versions on
-    "cpu"); serve=<mode> takes the unfused circular route in that mode
-    (module docstring), an unknown mode raises ValueError."""
+    "cpu"); multi=True takes multi-problem lanes where align/realign.py
+    `use_multi_lanes` allows; serve=<mode> takes the unfused circular route
+    in that mode (module docstring), an unknown mode raises ValueError."""
     check_serve(serve)
     expectations = {
         name: np.zeros((len(seq), 4)) for name, seq in ref_sequences.items()
@@ -134,33 +165,41 @@ def accumulate_expectations(
         global_off[name] = total
         total += len(seq)
     exp_global = np.zeros((total, 4))
-    for bucket in _bucket_jobs(jobs, options.band_width,
-                               options.max_batch_cells):
-        pack = pack_compact_batch if compact else pack_banded_batch
-        batch = pack(
-            [jobs[i].read_region for i in bucket],
-            [jobs[i].ref_region for i in bucket],
-            width=options.band_width,
-            paths=[jobs[i].path for i in bucket],
-            quantize=True,
-        )
-        offsets = np.zeros(batch.batch, dtype=np.int64)
-        for local_b, job_idx in enumerate(bucket):
-            rec = jobs[job_idx].record
-            offsets[local_b] = (global_off[rec.rname] + rec.reference_start
-                                + job_ref_off[job_idx])
-        if compact:
-            exp_global += band_expectations_cx(
-                tables, batch, compact_device_batch(batch, dev), offsets,
-                total)
-        else:
-            bdev = device_batch(batch, dev)
-            if flat_gaps:
-                _, post = posteriors_serve(tables, batch, bdev, serve)
+    if multi and use_multi_lanes(jobs, tables):
+        starts = np.array(
+            [global_off[j.record.rname] + j.record.reference_start
+             + job_ref_off[idx] for idx, j in enumerate(jobs)],
+            dtype=np.int64)
+        _multi_expectations(jobs, starts, tables, dev, options.band_width,
+                            exp_global)
+    else:
+        for bucket in _bucket_jobs(jobs, options.band_width,
+                                   options.max_batch_cells):
+            pack = pack_compact_batch if compact else pack_banded_batch
+            batch = pack(
+                [jobs[i].read_region for i in bucket],
+                [jobs[i].ref_region for i in bucket],
+                width=options.band_width,
+                paths=[jobs[i].path for i in bucket],
+                quantize=True,
+            )
+            offsets = np.zeros(batch.batch, dtype=np.int64)
+            for local_b, job_idx in enumerate(bucket):
+                rec = jobs[job_idx].record
+                offsets[local_b] = (global_off[rec.rname] + rec.reference_start
+                                    + job_ref_off[job_idx])
+            if compact:
+                exp_global += band_expectations_cx(
+                    tables, batch, compact_device_batch(batch, dev), offsets,
+                    total)
             else:
-                _, post = posteriors_generic(tables, bdev)
-            exp_global += band_expectations(post, batch, bdev, offsets,
-                                            total, len(bucket))
+                bdev = device_batch(batch, dev)
+                if flat_gaps:
+                    _, post = posteriors_serve(tables, batch, bdev, serve)
+                else:
+                    _, post = posteriors_generic(tables, bdev)
+                exp_global += band_expectations(post, batch, bdev, offsets,
+                                                total, len(bucket))
     for name, seq in ref_sequences.items():
         off = global_off[name]
         expectations[name] += exp_global[off : off + len(seq)]
@@ -219,17 +258,19 @@ def margin_caller(
     options: Optional[CallerOptions] = None,
     device="cuda",
     serve: Optional[str] = None,
+    multi: bool = False,
 ) -> List[Tuple[str, int, str, float]]:
     """Full marginCaller pipeline on `device` (reference:
     marginCallerTargetFn + variantCallSamFileTargetFn,
-    marginCallerLib.py:15-222); serve=<mode>: the unfused circular route
+    marginCallerLib.py:15-222); serve=<mode>: the unfused circular route,
+    multi=True: multi-problem lanes where allowed
     (`accumulate_expectations`)."""
     check_serve(serve)
     options = options or CallerOptions()
     sam = SamFile.read(sam_path)
     ref_sequences = get_fasta_dictionary(reference_fasta_path)
     expectations = accumulate_expectations(
-        sam, ref_sequences, alignment_model, options, device, serve
+        sam, ref_sequences, alignment_model, options, device, serve, multi
     )
     calls = call_variants(
         expectations, ref_sequences, error_model, options.threshold

@@ -68,6 +68,34 @@ inline dim3 block_shape(int Wp) {
 
 inline dim3 grid_shape(int B) { return dim3((B + LANES - 1) / LANES); }
 
+// A flat-gap model's coefficients in both of its forms, as the host builds
+// them (ops/fb_circ.py `circ_coefficients`; offsets COEF_* in
+// ops/fb_circ_cuda.py): the generic 5x5 mix, and the gap-chain form every
+// cPecan model family takes (gap states exchange mass only with the match
+// state and are carried scaled, f'[t] = f[t] / k[t]).
+struct FlatGapCoef {
+  float a[25];  // generic branch: a[s * 5 + u] = T[s][u] * g_u
+  float t00;    // gap-chain branch: T[0][0]
+  float m0[4];  // backward match-row coefficients of the gap states
+  float cb[4];  // backward gap self coefficients
+  float r[4];   // backward terminal injection of the gap states
+  float tz[4];  // T[s][0], the gap states' share of the start mass
+  float pi[4];  // forward start values of the scaled gap states
+  float mc[4];  // forward match-mix coefficients of the gap states
+  float c[4];   // forward gap self coefficients
+  float k[4];   // the scale k[t] = g_t T[0][t] of the scaled gap states
+};
+static_assert(sizeof(FlatGapCoef) == 58 * sizeof(float), "coefficient layout");
+
+// The coefficients from a HOST pointer to their 58 floats.
+inline FlatGapCoef load_flat_coef(const float* coef) {
+  FlatGapCoef K;
+  float* dst = reinterpret_cast<float*>(&K);
+  for (int i = 0; i < (int)(sizeof(FlatGapCoef) / sizeof(float)); ++i)
+    dst[i] = coef[i];
+  return K;
+}
+
 // Opt in to more than the default 48 KB of dynamic shared memory.
 inline cudaError_t allow_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;

@@ -91,18 +91,8 @@
 
 namespace {
 
-struct CircCoef {
-  float a[25];  // generic branch: a[s * 5 + u] = T[s][u] * g_u
-  float t00;    // gap-chain branch: T[0][0]
-  float m0[4];  // backward match-row coefficients of the gap states
-  float cb[4];  // backward gap self coefficients
-  float r[4];   // backward terminal injection of the gap states
-  float tz[4];  // T[s][0], the gap states' share of the start mass
-  float pi[4];  // forward start values of the scaled gap states
-  float mc[4];  // forward match-mix coefficients of the gap states
-  float c[4];   // forward gap self coefficients
-};
-static_assert(sizeof(CircCoef) == 54 * sizeof(float), "coefficient layout");
+// The model's coefficients (common.cuh).
+using CircCoef = mk::FlatGapCoef;
 
 // The 25 match emissions Ematch[ref code][read code], by value.
 struct EmitTable {
@@ -893,12 +883,7 @@ cudaError_t run(void (*kernel)(P...), size_t smem, int Wp, int B,
     default: return cudaErrorInvalidValue;      \
   }
 
-CircCoef load_coef(const float* coef) {
-  CircCoef K;
-  float* dst = reinterpret_cast<float*>(&K);
-  for (int i = 0; i < 54; ++i) dst[i] = coef[i];
-  return K;
-}
+CircCoef load_coef(const float* coef) { return mk::load_flat_coef(coef); }
 
 EmitTable load_table_host(const float* table) {
   EmitTable T{};
@@ -940,7 +925,7 @@ cudaError_t run_post(const Src& src, const float* table, const float* bm,
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  `coef` is a HOST pointer to
-// the 54 floats of `CircCoef`, `table` a HOST pointer to the 25 match
+// the 58 floats of `CircCoef`, `table` a HOST pointer to the 25 match
 // emissions Ematch[ref][read]; device pointers for everything else.  Each
 // returns a cudaError_t code.
 extern "C" int sv_backward_launch(const float* es, const int32_t* fink,

@@ -2,11 +2,20 @@
 // diagonal (posterior match weight), left (ref-skip) and up (read-skip)
 // moves, with pointers 0 = diag, 1 = left, 2 = up.
 //
-// One wavefront, two weight sources:
+// One wavefront, two weight sources and two lane layouts:
 //   banded_mea (K4) <- marginalign_trna_tpu/ops/wavefront_pallas.py
 //                      `_mea_kernel` (`banded_mea_pallas`): the weights come
 //                      materialised as three [D1, Wp, B] bands, with the
 //                      valid band and the s1/s2 shift streams.
+//   mea_multi       <- `_mea_kernel_multi` (`banded_mea_pallas_multi`): the
+//                      same weights over lanes holding several problems
+//                      (ops/band.py `pack_multi_banded_batch`): the score
+//                      frontier starts at NEG, the SPACER empty diagonals
+//                      push it back to NEG, row 0 is seeded with 0 (pointer
+//                      0) where `start` marks a problem's local d = 0, and
+//                      on a diagonal `find` marks terminal the score at row
+//                      `fink` leaves as max(value, NEG) in term [D1, B],
+//                      NEG on every other diagonal.
 //   mea_dl (D)      <- `_mea_kernel_dl` (`_mea_dl_jit`): the weights come
 //                      from the raw posterior band and the per-position
 //                      posterior row / column sums accr [rgm, B] /
@@ -101,25 +110,42 @@ struct PosteriorWeights {
   }
 };
 
-template <int RPT, class W>
+// The per-diagonal streams of multi-problem lanes (mea_multi): start
+// [D1, B] int8, fink / find [D1, B] int32 (-1 off terminal diagonals), and
+// the terminal scores term [D1, B] it writes.
+struct MultiSteps {
+  const int8_t* __restrict__ start;
+  const int32_t* __restrict__ fink;
+  const int32_t* __restrict__ find;
+  float* __restrict__ term;
+};
+
+template <int RPT, class W, bool MULTI>
 __global__ void __launch_bounds__(1024)
     mea_kernel(W w, const int32_t* __restrict__ final_d,
-               const int32_t* __restrict__ final_k, int D1, int Wp, int B,
-               uint8_t* __restrict__ ptr, float* __restrict__ score) {
+               const int32_t* __restrict__ final_k, MultiSteps ms, int D1,
+               int Wp, int B, uint8_t* __restrict__ ptr,
+               float* __restrict__ score) {
   extern __shared__ float shA[];  // [3][Wp][L] score generations by d mod 3
   const int L = blockDim.x, TY = blockDim.y;
   const int lane = threadIdx.x, ty = threadIdx.y;
   const int b = blockIdx.x * L + lane;
   const bool live = b < B;
   const int plane = Wp * L;
-  const int fd = live ? final_d[b] : -1;
-  const int fk = live ? final_k[b] : -1;
+  const int fd = live && !MULTI ? final_d[b] : -1;
+  const int fk = live && !MULTI ? final_k[b] : -1;
 
+  // Single problem: d = 0 is pure initialisation (0 at row 0), slot 2
+  // holds d = -1.  Multi: every slot holds NEG and the loop starts at 0.
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int k = ty + r * TY;
     if (k >= Wp) continue;
     const int i = k * L + lane;
+    if (MULTI) {
+      for (int g = 0; g < 3; ++g) shA[g * plane + i] = NEG;
+      continue;
+    }
     const float a0 = k == 0 ? 0.f : NEG;
     shA[i] = a0;               // d = 0
     shA[2 * plane + i] = NEG;  // d = -1
@@ -131,7 +157,7 @@ __global__ void __launch_bounds__(1024)
 
   float fd_w[RPT], fu_w[RPT], fl_w[RPT];
   uint8_t fv[RPT];
-  int f1 = 0, f2 = 0;
+  int f1 = 0, f2 = 0, fst = 0, ffk = -1, ffd = -1;
   auto fetch = [&](int d) {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
@@ -142,11 +168,17 @@ __global__ void __launch_bounds__(1024)
     f1 = 0;
     f2 = 0;
     if (live) w.steps(d, b, f1, f2);
+    if (MULTI && live) {
+      fst = ms.start[(size_t)d * B + b];
+      ffk = ms.fink[(size_t)d * B + b];
+      ffd = ms.find[(size_t)d * B + b];
+    }
   };
-  if (D1 > 1) fetch(1);
+  const int dfirst = MULTI ? 0 : 1;
+  if (D1 > dfirst) fetch(dfirst);
   __syncthreads();
 
-  for (int d = 1; d < D1; ++d) {
+  for (int d = dfirst; d < D1; ++d) {
     float cd[RPT], cu[RPT], cl[RPT];
     uint8_t cv[RPT];
 #pragma unroll
@@ -154,6 +186,8 @@ __global__ void __launch_bounds__(1024)
       cd[r] = fd_w[r]; cu[r] = fu_w[r]; cl[r] = fl_w[r]; cv[r] = fv[r];
     }
     const int t1 = f1, t2 = f2;
+    const bool seeds = MULTI && fst != 0;
+    const int tk = MULTI && ffd >= 0 ? ffk : -1;  // terminal row, or -1
     if (d + 1 < D1) fetch(d + 1);
 
     const int old = ((d + 1) % 3) * plane;  // d - 2
@@ -172,6 +206,10 @@ __global__ void __launch_bounds__(1024)
       const float v = mk::max_argmax3(diag, left, up, a);
       na[r] = cv[r] ? v : NEG;
       np[r] = (uint8_t)a;
+      if (seeds && k == 0) {
+        na[r] = 0.f;
+        np[r] = 0;
+      }
     }
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
@@ -181,35 +219,41 @@ __global__ void __launch_bounds__(1024)
       if (live) {
         ptr[mk::cell(d, k, b, Wp, B)] = np[r];
         if (d == fd && k == fk) score[b] = fmaxf(na[r], NEG);
+        if (MULTI && k == tk) ms.term[(size_t)d * B + b] = fmaxf(na[r], NEG);
       }
     }
+    if (MULTI && live && ty == 0 && (tk < 0 || tk >= Wp))
+      ms.term[(size_t)d * B + b] = NEG;
     __syncthreads();
   }
 }
 
-template <int RPT, class W>
+template <int RPT, bool MULTI, class W>
 cudaError_t run(const W& w, const int32_t* final_d, const int32_t* final_k,
-                int D1, int Wp, int B, uint8_t* ptr, float* score,
-                cudaStream_t stream) {
+                const MultiSteps& ms, int D1, int Wp, int B, uint8_t* ptr,
+                float* score, cudaStream_t stream) {
   const size_t smem = (size_t)3 * Wp * mk::LANES * sizeof(float);
-  cudaError_t err = mk::allow_smem((const void*)mea_kernel<RPT, W>, smem);
+  cudaError_t err =
+      mk::allow_smem((const void*)mea_kernel<RPT, W, MULTI>, smem);
   if (err != cudaSuccess) return err;
-  mea_kernel<RPT, W><<<mk::grid_shape(B), mk::block_shape(Wp), smem,
-                       stream>>>(w, final_d, final_k, D1, Wp, B, ptr, score);
+  mea_kernel<RPT, W, MULTI><<<mk::grid_shape(B), mk::block_shape(Wp), smem,
+                              stream>>>(w, final_d, final_k, ms, D1, Wp, B,
+                                        ptr, score);
   return cudaGetLastError();
 }
 
-template <class W>
+template <bool MULTI = false, class W>
 int dispatch(const W& w, const int32_t* final_d, const int32_t* final_k,
-             int D1, int Wp, int B, uint8_t* ptr, float* score,
-             void* stream) {
+             int D1, int Wp, int B, uint8_t* ptr, float* score, void* stream,
+             const MultiSteps& ms = MultiSteps{nullptr, nullptr, nullptr,
+                                               nullptr}) {
   if (D1 < 1 || B < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (mk::rows_per_thread(Wp)) {
-    case 1: return run<1>(w, final_d, final_k, D1, Wp, B, ptr, score, s);
-    case 2: return run<2>(w, final_d, final_k, D1, Wp, B, ptr, score, s);
-    case 3: return run<3>(w, final_d, final_k, D1, Wp, B, ptr, score, s);
-    case 4: return run<4>(w, final_d, final_k, D1, Wp, B, ptr, score, s);
+    case 1: return run<1, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
+    case 2: return run<2, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
+    case 3: return run<3, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
+    case 4: return run<4, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -240,4 +284,16 @@ extern "C" int mea_dl_launch(const float* post, const int32_t* lo,
   const PosteriorWeights w{post, lo, m, n, accr, accc, Wp, B, width, rgm,
                            rgn, gap_gamma, match_gamma};
   return dispatch(w, final_d, final_k, D1, Wp, B, ptr, score, stream);
+}
+
+extern "C" int mea_multi_launch(const float* wdiag, const float* wup,
+                                const float* wleft, const uint8_t* valid,
+                                const int32_t* s1, const int32_t* s2,
+                                const int8_t* start, const int32_t* fink,
+                                const int32_t* find, int D1, int Wp, int B,
+                                uint8_t* ptr, float* term, void* stream) {
+  const BandWeights w{wdiag, wup, wleft, valid, s1, s2, Wp, B};
+  const MultiSteps ms{start, fink, find, term};
+  return dispatch<true>(w, nullptr, nullptr, D1, Wp, B, ptr, nullptr, stream,
+                        ms);
 }

@@ -110,6 +110,18 @@ _SIGNATURES: Dict[str, List] = {
     # xb, yb, valid, table(host), fink, find, ck, cs, logZ, coef(host),
     # chain, d1k, Wp, B, KB, scratch (or null), post, stream
     "circ_ckpt_post": [_P] * 10 + [_I] * 5 + [_P] * 3,
+    # Multi-problem lanes.  xb, yb, valid, s1, s2, start, fink, find, D1,
+    # Wp, B, match, mismatch, gap_open, gap_extend, ptr, term, stream
+    "nw_multi": [_P] * 8 + [_I] * 3 + [_F] * 4 + [_P] * 3,
+    # wdiag, wup, wleft, valid, s1, s2, start, fink, find, D1, Wp, B, ptr,
+    # term, stream
+    "mea_multi": [_P] * 9 + [_I] * 3 + [_P] * 3,
+    # em, valid, s1, start, fink, coef(host), chain, D1, Wp, B, fm, lsf,
+    # term, stream
+    "fb_multi_forward": [_P] * 6 + [_I] * 4 + [_P] * 4,
+    # fm, lsf, L, em, valid, s1, fink, find, coef(host), chain, D1, Wp, B,
+    # post, stream
+    "fb_multi_backward": [_P] * 9 + [_I] * 4 + [_P] * 2,
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}

@@ -14,13 +14,15 @@ i-values [lo(d), lo(d)+W); lo is monotone non-decreasing with increments in
 
 Packing: a batch of reads becomes dense [D+1, Wp, B] arrays with the band
 window (Wp = W + guard rows) in the middle dimension and reads in the lane
-dimension (BandedBatch), or only the band offsets and the packed sequences,
-from which the band streams are derived on the device (CompactBandedBatch).
+dimension (BandedBatch), several short problems per lane separated by
+SPACER empty diagonals (MultiBandedBatch, `pack_multi_banded_batch`), or
+only the band offsets and the packed sequences, from which the band streams
+are derived on the device (CompactBandedBatch).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -242,6 +244,186 @@ def pack_banded_batch(
         xb=xb, yb=yb, valid=valid, s1=s1, s2=s2, lo=lo_all,
         final_d=final_d, final_k=final_k, m=m_arr, n=n_arr, width=width,
     )
+
+
+SPACER = 2  # zero-valid diagonals between packed problems: enough to clear
+# both DP frontier generations (d-1 and d-2) before the next start injection
+
+
+@dataclass
+class PackedProblem:
+    """Where one read/ref pair lives inside a MultiBandedBatch."""
+
+    lane: int
+    d0: int        # global step of the problem's local d = 0
+    final_d: int   # global step of its terminal cell (m, n)
+    final_k: int   # band row of the terminal cell
+    m: int
+    n: int
+
+
+@dataclass
+class MultiBandedBatch(BandedBatch):
+    """Several problems per lane, separated by SPACER invalid diagonals.
+
+    Short-read workloads (tRNA: D ~ 200) waste most of a quantized
+    [D1, Wp, B] batch on step padding; packing ~D1/D problems per lane
+    recovers that utilisation with the same kernels.  The per-step streams
+    gain in-stream semantics:
+      start [D1, B] int8   1 at each problem's local d=0 (forward inits by
+                           injecting the start distribution there)
+      find  [D1, B] int32  d at each problem's terminal step, else -1 (the
+                           backward injects/reset-scales there)
+      fink  [D1, B] int32  terminal band row at terminal steps, else -1
+    BandedBatch.final_d/final_k are per-problem arrays here ([P] not [B]).
+    """
+
+    start: np.ndarray = None
+    find: np.ndarray = None
+    fink_steps: np.ndarray = None
+    problems: List[PackedProblem] = None
+    # Per-problem step->problem-final map for the device L stream:
+    step_final: np.ndarray = None  # [D1, B] int32: final_d of owning
+    # problem for every in-problem step (self otherwise)
+    dloc: np.ndarray = None  # [D1, B] int32: local diagonal d - d0 of the
+    # owning problem (0 at spacers/padding), for local (i, j) coordinates
+
+
+def pack_multi_banded_batch(
+    reads: Sequence[np.ndarray],
+    refs: Sequence[np.ndarray],
+    width: int,
+    paths: Optional[Sequence[Optional[Tuple[np.ndarray, np.ndarray]]]] = None,
+    pad_steps_to: int = 1024,
+    pad_batch_to: Optional[int] = None,
+) -> MultiBandedBatch:
+    """Pack problems several-per-lane into [D1, Wp, B] streams.
+
+    Greedy first-fit by descending size; D1 = pad_steps_to (problems longer
+    than that get a lane of their own with D1 raised to fit them)."""
+    P = len(reads)
+    assert len(refs) == P
+    sizes = [len(reads[p]) + len(refs[p]) + 1 for p in range(P)]
+    order = sorted(range(P), key=lambda p: -sizes[p])
+    D1 = max(pad_steps_to, max(sizes) if sizes else 1)
+
+    # Best-fit decreasing into lanes of capacity D1 (+SPACER: the trailing
+    # spacer is free).  A sorted (remaining, lane) list with bisect keeps
+    # this O(P log B) — the earlier first-fit scan was O(P x B), which is
+    # minutes of host time at the tens of thousands of problems produced
+    # by anchor splitting.
+    import bisect
+
+    cap = D1 + SPACER
+    free: List[Tuple[int, int]] = []  # (remaining, lane_idx), sorted
+    assign: List[List[int]] = []
+    for p in order:
+        need = sizes[p] + SPACER
+        k = bisect.bisect_left(free, (need, -1))
+        if k < len(free):
+            rem, li = free.pop(k)
+            assign[li].append(p)
+            rem -= need
+            if rem > 0:
+                bisect.insort(free, (rem, li))
+        else:
+            li = len(assign)
+            assign.append([p])
+            rem = cap - need
+            if rem > 0:
+                bisect.insort(free, (rem, li))
+    B0 = len(assign)
+    B = pad_batch_to if pad_batch_to is not None else (
+        1 << max(3, (B0 - 1).bit_length())
+    )
+    assert B >= B0
+    Wp = padded_band_width(width)
+
+    xb = np.zeros((D1, Wp, B), dtype=np.int8)
+    yb = np.zeros((D1, Wp, B), dtype=np.int8)
+    valid = np.zeros((D1, Wp, B), dtype=bool)
+    s1 = np.zeros((D1, B), dtype=np.int32)
+    s2 = np.zeros((D1, B), dtype=np.int32)
+    lo_all = np.zeros((D1, B), dtype=np.int32)
+    start = np.zeros((D1, B), dtype=np.int8)
+    find = np.full((D1, B), -1, dtype=np.int32)
+    fink_steps = np.full((D1, B), -1, dtype=np.int32)
+    step_final = np.zeros((D1, B), dtype=np.int32)
+    dloc = np.zeros((D1, B), dtype=np.int32)
+
+    ks = np.arange(Wp, dtype=np.int64)[None, :]
+    problems: List[Optional[PackedProblem]] = [None] * P
+    for li, plist in enumerate(assign):
+        cursor = 0
+        for p in plist:
+            m, n = len(reads[p]), len(refs[p])
+            D = m + n
+            if paths is not None and paths[p] is not None:
+                pd, pi = paths[p]
+                lo = band_offsets(m, n, width, pd, pi)
+            else:
+                lo = band_offsets(m, n, width)
+            d0 = cursor
+            sl = slice(d0, d0 + D + 1)
+            dcol = np.arange(D + 1, dtype=np.int64)[:, None]
+            i_idx = lo[:, None] + ks
+            j_idx = dcol - i_idx
+            ok = (
+                (ks < width)
+                & (i_idx >= 0) & (i_idx <= m) & (i_idx <= dcol)
+                & (j_idx >= 0) & (j_idx <= n)
+            )
+            y_sym = np.clip(i_idx - 1, 0, max(0, m - 1))
+            x_sym = np.clip(j_idx - 1, 0, max(0, n - 1))
+            yb[sl, :, li] = reads[p][y_sym] if m > 0 else 4
+            xb[sl, :, li] = refs[p][x_sym] if n > 0 else 4
+            valid[sl, :, li] = ok
+            lo_all[sl, li] = lo
+            s1[d0 + 1 : d0 + D + 1, li] = np.diff(lo)
+            s2[d0 + 2 : d0 + D + 1, li] = lo[2:] - lo[:-2]
+            start[d0, li] = 1
+            find[d0 + D, li] = d0 + D
+            fink_steps[d0 + D, li] = m - lo[-1]
+            step_final[sl, li] = d0 + D
+            dloc[sl, li] = np.arange(D + 1, dtype=np.int32)
+            problems[p] = PackedProblem(
+                lane=li, d0=d0, final_d=d0 + D, final_k=int(m - lo[-1]),
+                m=m, n=n,
+            )
+            cursor = d0 + D + 1 + SPACER
+
+    probs = [pr for pr in problems if pr is not None]
+    assert len(probs) == P
+    return MultiBandedBatch(
+        xb=xb, yb=yb, valid=valid, s1=s1, s2=s2, lo=lo_all,
+        final_d=np.array([problems[p].final_d for p in range(P)], np.int32),
+        final_k=np.array([problems[p].final_k for p in range(P)], np.int32),
+        m=np.array([problems[p].m for p in range(P)], np.int32),
+        n=np.array([problems[p].n for p in range(P)], np.int32),
+        width=width,
+        start=start, find=find, fink_steps=fink_steps,
+        problems=[problems[p] for p in range(P)],
+        step_final=step_final, dloc=dloc,
+    )
+
+
+def unpack_problem(
+    values: np.ndarray, mb: MultiBandedBatch, p: int, fill: float = 0.0
+) -> np.ndarray:
+    """Dense [m, n] pair matrix for problem p of a MultiBandedBatch."""
+    pr = mb.problems[p]
+    m, n = pr.m, pr.n
+    vals = values[:, :, pr.lane] if values.ndim == 3 else values
+    out = np.full((m, n), fill, dtype=vals.dtype)
+    ks = np.arange(mb.wp)
+    for dl in range(1, m + n + 1):
+        d = pr.d0 + dl
+        lo = int(mb.lo[d, pr.lane])
+        i = lo + ks
+        j = dl - i
+        ok = mb.valid[d, :, pr.lane] & (i >= 1) & (j >= 1) & (i <= m) & (j <= n)
+        out[i[ok] - 1, j[ok] - 1] = vals[d, ok]
+    return out
 
 
 def band_masks(lo: torch.Tensor, m: torch.Tensor, n: torch.Tensor,

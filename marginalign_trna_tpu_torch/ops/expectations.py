@@ -19,19 +19,29 @@ A model whose gap emissions are not flat cannot run the fused passes; its
 posterior band (ops/fb_generic_cuda.py) is summed per reference position by
 `band_expectations`, plain torch ops on the band's device (the JAX package's
 XLA `_expectations_device`).
+
+Multi-problem lanes (ops/band.py `pack_multi_banded_batch`) give every
+packed problem a disjoint window of a per-lane virtual position space
+(`_lane_virtual_offsets`); `expectations_multi` sums the posterior band
+into it on the device as the JAX package's XLA
+`_expectations_multi_device` does (a banded monotone segment sum: cumulative
+sums along the diagonals, gathered at the boundaries of each position), one
+read code at a time so memory stays at one cumulative band, and
+`multi_band_expectations` adds each problem's window into the global
+per-position counts on the host.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .band import BandedBatch, CompactBandedBatch
+from .band import BandedBatch, CompactBandedBatch, MultiBandedBatch
 from .bucket_scatter import (
     scatter_lanes_cuda, scatter_lanes_plain, scatter_lanesum_cuda,
     scatter_lanesum_plain,
 )
 from .dispatch import use_kernel
-from .fb import DeviceBatch, FbTables
+from .fb import DeviceBatch, FbTables, MultiDeviceBatch
 from .fb_circ import (
     STEP_BLOCK, CompactCircBatch, posteriors_expectations_compact,
 )
@@ -197,3 +207,134 @@ def band_expectations(post: torch.Tensor, batch: BandedBatch,
     out = post.new_zeros((max(total_ref_len, 1), 4))
     out.index_add_(0, target[keep], local[keep])
     return out.cpu().numpy()[:total_ref_len]
+
+
+# ----------------------- multi-problem lanes (short-read packing) ---------
+
+
+def _lane_virtual_offsets(mb: MultiBandedBatch, per_problem_size):
+    """Assign each packed problem a disjoint window in a per-lane virtual
+    space, in lane (d0) order.  per_problem_size(p) -> window size needed
+    (plus the band-width slack the held gu value can reach)."""
+    by_lane = {}
+    for p, pr in enumerate(mb.problems):
+        by_lane.setdefault(pr.lane, []).append(p)
+    voff = np.zeros(len(mb.problems), dtype=np.int64)
+    vmax = 1
+    for lane, plist in by_lane.items():
+        plist.sort(key=lambda q: mb.problems[q].d0)
+        cur = 0
+        for p in plist:
+            voff[p] = cur
+            cur += per_problem_size(p) + mb.width + 1
+        vmax = max(vmax, cur)
+    return voff, vmax
+
+
+def _multi_gu(mb: MultiBandedBatch, voff, coord: str) -> np.ndarray:
+    """Monotone per-lane virtual-position stream gu [D1, B]:
+    coord='ref':  voff_p + dloc - lo   (position j at band row -k-1 shift)
+    coord='read': voff_p + lo          (position i at band row +k shift)
+    Values hold across spacers (voff spacing keeps them monotone)."""
+    D1, B = mb.lo.shape
+    gu = np.zeros((D1, B), dtype=np.int64)
+    by_lane = {}
+    for p, pr in enumerate(mb.problems):
+        by_lane.setdefault(pr.lane, []).append(p)
+    for lane, plist in by_lane.items():
+        plist.sort(key=lambda q: mb.problems[q].d0)
+        prev_end = 0
+        held = 0
+        for p in plist:
+            pr = mb.problems[p]
+            sl = slice(pr.d0, pr.final_d + 1)
+            lo = mb.lo[sl, lane].astype(np.int64)
+            if coord == "ref":
+                seg = voff[p] + mb.dloc[sl, lane].astype(np.int64) - lo
+            else:
+                seg = voff[p] + lo
+            gu[prev_end : pr.d0, lane] = held
+            gu[sl, lane] = seg
+            held = seg[-1]
+            prev_end = pr.final_d + 1
+        gu[prev_end:, lane] = held
+    return gu
+
+
+def _multi_boundaries(gu: np.ndarray, tmin: int, tmax: int) -> np.ndarray:
+    """E1[t - tmin, b] = #{d : gu(d, b) <= t} for t in [tmin, tmax], int32."""
+    D1, B = gu.shape
+    e1 = np.zeros((tmax - tmin + 1, B), dtype=np.int32)
+    ts = np.arange(tmin, tmax + 1, dtype=np.int64)
+    for b in range(B):
+        e1[:, b] = np.searchsorted(gu[:, b], ts, side="right")
+    return e1
+
+
+def banded_segment_sums(w: torch.Tensor, e1: torch.Tensor, first: int,
+                        width: int, rg: int, stride: int) -> torch.Tensor:
+    """[rg, B] sums of the band w [D1, Wp, B] per virtual position: the
+    cumulative sums of each band row along the diagonals, differenced at
+    the boundaries e1 [*, B] (`_multi_boundaries`), band row kk reading
+    rows first + stride * kk .. + rg of e1 (marginalign_trna_tpu/ops/
+    expectations.py and mea.py, the loops over kk of
+    `_expectations_multi_device` and `_mea_weights_multi_jit`)."""
+    D1, Wp, B = w.shape
+    sp = torch.cat([w.new_zeros((1, Wp, B)), torch.cumsum(w, dim=0)])
+    acc = w.new_zeros((rg, B))
+    e1 = e1.long()
+    for kk in range(width):
+        lo = first + stride * kk
+        g = sp[:, kk, :].gather(0, e1[lo : lo + rg + 1])
+        acc = acc + (g[1:] - g[:-1])
+    return acc
+
+
+def _multi_ok(mdev: MultiDeviceBatch):
+    """(i, j, valid cells with i >= 1 and j >= 1) of every band cell in the
+    problems' local coordinates."""
+    Wp = mdev.valid.shape[1]
+    k = torch.arange(Wp, dtype=torch.int32, device=mdev.lo.device)
+    i = mdev.lo[:, None, :] + k[None, :, None]
+    j = mdev.dloc[:, None, :] - i
+    return i, j, mdev.valid & (i >= 1) & (j >= 1)
+
+
+def expectations_multi(post: torch.Tensor, mdev: MultiDeviceBatch,
+                       e1: torch.Tensor, width: int, rg: int
+                       ) -> torch.Tensor:
+    """[4, rg, B] per-lane expected base counts over the per-lane virtual
+    reference spaces (marginalign_trna_tpu/ops/expectations.py
+    `_expectations_multi_device`), plain torch on post's device, one read
+    code at a time."""
+    _, _, ok = _multi_ok(mdev)
+    out = []
+    for code in range(4):
+        wc = torch.where(ok & (mdev.yb == code), post, 0.0)
+        out.append(banded_segment_sums(wc, e1, 0, width, rg, 1))
+    return torch.stack(out)
+
+
+def multi_band_expectations(
+    post: torch.Tensor,
+    mb: MultiBandedBatch,
+    mdev: MultiDeviceBatch,
+    prob_ref_starts: np.ndarray,
+    exp_global: np.ndarray,
+) -> None:
+    """Accumulate expected base counts from a multi-problem posterior band
+    (on mdev's device) into exp_global [total_ref_len, 4] (in place).
+
+    prob_ref_starts[p] = global position of problem p's reference window."""
+    voff, vmax = _lane_virtual_offsets(
+        mb, lambda p: mb.problems[p].n
+    )
+    rg = _round_up(max(int(vmax), 1), 256)
+    gu = _multi_gu(mb, voff, "ref")
+    e1 = torch.from_numpy(_multi_boundaries(gu, 0, rg + mb.width)).to(
+        post.device)
+    out = expectations_multi(post, mdev, e1, mb.width, rg).cpu().numpy()
+    for p, pr in enumerate(mb.problems):
+        g0 = int(prob_ref_starts[p])
+        exp_global[g0 : g0 + pr.n, :] += out[:, voff[p] : voff[p] + pr.n,
+                                             pr.lane].T

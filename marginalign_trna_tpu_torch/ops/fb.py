@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..models.hmm import PairHmm
-from .band import BandedBatch, rel_to_circ_device
+from .band import BandedBatch, MultiBandedBatch, rel_to_circ_device
 
 
 class FbTables(nn.Module):
@@ -149,4 +149,45 @@ def circ_device_batch(batch: BandedBatch, dev: DeviceBatch) -> CircDeviceBatch:
         xb=rel_to_circ_device(dev.xb, lo), yb=rel_to_circ_device(dev.yb, lo),
         valid=rel_to_circ_device(dev.valid, lo), final_d=dev.final_d,
         fink=fink.to(dev.xb.device), lo=lo,
+    )
+
+
+class MultiDeviceBatch(NamedTuple):
+    """A MultiBandedBatch's streams (ops/band.py) as tensors on one device
+    (marginalign_trna_tpu/ops/fb_pallas.py `MultiDeviceBatch`), with the
+    band offsets and local diagonals the MEA weights and the caller's sums
+    read: xb, yb int8 [D1, Wp, B]; valid bool [D1, Wp, B]; s1, s2, find,
+    fink, step_final, lo, dloc int32 [D1, B]; start int8 [D1, B]; per
+    problem p_final_d, p_lane, p_d0 int32 [P]."""
+
+    xb: torch.Tensor
+    yb: torch.Tensor
+    valid: torch.Tensor
+    s1: torch.Tensor
+    s2: torch.Tensor
+    start: torch.Tensor
+    find: torch.Tensor
+    fink: torch.Tensor
+    step_final: torch.Tensor
+    lo: torch.Tensor
+    dloc: torch.Tensor
+    p_final_d: torch.Tensor
+    p_lane: torch.Tensor
+    p_d0: torch.Tensor
+
+
+def multi_device_batch(mb: MultiBandedBatch, device) -> MultiDeviceBatch:
+    """Upload a MultiBandedBatch (fb_pallas.py `multi_device_batch`)."""
+    def up(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+
+    return MultiDeviceBatch(
+        xb=up(mb.xb, np.int8), yb=up(mb.yb, np.int8),
+        valid=up(mb.valid, np.bool_), s1=up(mb.s1, np.int32),
+        s2=up(mb.s2, np.int32), start=up(mb.start, np.int8),
+        find=up(mb.find, np.int32), fink=up(mb.fink_steps, np.int32),
+        step_final=up(mb.step_final, np.int32), lo=up(mb.lo, np.int32),
+        dloc=up(mb.dloc, np.int32), p_final_d=up(mb.final_d, np.int32),
+        p_lane=up([p.lane for p in mb.problems], np.int32),
+        p_d0=up([p.d0 for p in mb.problems], np.int32),
     )

@@ -107,7 +107,8 @@ def _gap_chain_consts(st, gc) -> Optional[_GapChain]:
 
 
 def circ_coefficients(tables: FbTables) -> Tuple[np.ndarray, bool]:
-    """(coef float32 [N_COEF], chain) for the S and C kernels.  Products
+    """(coef float32 [N_COEF], chain) for the flat-gap kernels of the
+    circular layout and of multi-problem lanes.  Products
     are taken in float64 and rounded once to float32, as the TPU kernels
     bake them.  Raises for models whose gap emissions are not flat."""
     st = static_tables(tables)
@@ -129,6 +130,7 @@ def circ_coefficients(tables: FbTables) -> Tuple[np.ndarray, bool]:
         coef[K.COEF_PI:K.COEF_PI + 4] = [0.2 / k for k in ch.k]
         coef[K.COEF_MC:K.COEF_MC + 4] = ch.mcoef
         coef[K.COEF_C:K.COEF_C + 4] = ch.c
+        coef[K.COEF_K:K.COEF_K + 4] = ch.k
     return coef.astype(np.float32), ch is not None
 
 

@@ -60,7 +60,7 @@ from ._build import check_tensor
 _RESCALE_PERIOD = 8
 _TINY = 1e-30
 
-# Offsets into the coefficient vector (csrc/fb_circ.cu `CircCoef`).
+# Offsets into the coefficient vector (csrc/common.cuh `FlatGapCoef`).
 COEF_A = 0       # [25] generic branch: A[s][u] = T[s][u] * g_u
 COEF_T00 = 25    # gap-chain branch: T[0][0]
 COEF_M0 = 26     # [4] backward match-row coefficients of the gap states
@@ -70,7 +70,9 @@ COEF_TZ = 38     # [4] T[s][0]: gap states' share of the start mass (logZ)
 COEF_PI = 42     # [4] forward start values of the scaled gap states
 COEF_MC = 46     # [4] forward match-mix coefficients of the gap states
 COEF_C = 50      # [4] forward gap self coefficients
-N_COEF = 54
+COEF_K = 54      # [4] scale k[t] of the scaled gap states (multi lanes'
+                 # terminal sums, ops/fb_multi_cuda.py)
+N_COEF = 58
 
 
 def _roll_up(a: torch.Tensor) -> torch.Tensor:

@@ -12,7 +12,10 @@ column sums.  Pairs with p < matchGamma are disallowed.  Two paths:
     the mea_dl kernel derives every weight from the posterior band and the
     sums itself;
   REL (`mea_decode`): the gap weights are plain torch bands over the
-    posterior (`mea_weights`) and the DP is the banded_mea kernel.
+    posterior (`mea_weights`) and the DP is the banded_mea kernel;
+  multi-problem lanes (`mea_decode_multi`): the gap weights are plain
+    torch bands over each lane's virtual position spaces
+    (`mea_weights_multi`) and the DP is the mea_multi kernel.
 
 The plain versions run for CPU tensors.  The cigar comes from the native
 host traceback of the uint8 pointer band.
@@ -25,16 +28,18 @@ import numpy as np
 import torch
 
 from .. import native as _native
-from .band import BandedBatch, CompactBandedBatch
+from .band import BandedBatch, CompactBandedBatch, MultiBandedBatch
 from .dispatch import use_kernel
 from .expectations import (
-    _round_up, concat_flush_tails, fused_flush_jmaps, fused_row_jmaps,
-    scatter_lanes,
+    _lane_virtual_offsets, _multi_boundaries, _multi_gu, _multi_ok,
+    _round_up, banded_segment_sums, concat_flush_tails, fused_flush_jmaps,
+    fused_row_jmaps, scatter_lanes,
 )
-from .fb import DeviceBatch
+from .fb import DeviceBatch, MultiDeviceBatch
 from .fb_circ import CompactCircBatch
 from .wavefront_cuda import (
     NEG, banded_mea_cuda, banded_mea_plain, mea_dl_cuda, mea_dl_plain,
+    mea_multi_cuda, mea_multi_plain,
 )
 
 
@@ -154,8 +159,13 @@ def mea_decode_fused(
 def _traceback_one(
     pointers: np.ndarray, batch: BandedBatch, b: int
 ) -> List[Tuple[int, int]]:
-    m, n = int(batch.m[b]), int(batch.n[b])
-    lo = batch.lo[:, b]
+    return _traceback_arrays(pointers, batch.lo[:, b], b, int(batch.m[b]),
+                             int(batch.n[b]))
+
+
+def _traceback_arrays(
+    pointers: np.ndarray, lo: np.ndarray, b: int, m: int, n: int
+) -> List[Tuple[int, int]]:
     nat = _native.mea_traceback(pointers, lo, b, m, n)
     if nat is not None:
         return nat
@@ -192,3 +202,99 @@ def _traceback_one(
         else:
             out.append((op, 1))
     return out
+
+
+# ------------------------ multi-problem lanes (short-read packing) --------
+
+
+def mea_weights_multi(post: torch.Tensor, mdev: MultiDeviceBatch, e1r, e1c,
+                      ibase, jbase, gap_gamma: float, width: int, rgm: int,
+                      rgn: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(wup, wleft) [D1, Wp, B] over multi-problem lanes: per-lane virtual
+    read / ref position spaces (each problem owns a disjoint window), the
+    banded segment sums of the posterior gathered back per cell
+    (marginalign_trna_tpu/ops/mea.py `_mea_weights_multi_jit`), plain
+    torch on post's device.  e1r / e1c are the read / ref boundaries
+    (expectations.py `_multi_boundaries`), ibase / jbase [D1, B] each
+    cell's virtual read / ref position at band row 0, less one."""
+    D1, Wp, B = post.shape
+    i, j, ok = _multi_ok(mdev)
+    w = torch.where(ok, post, 0.0)
+    accr = banded_segment_sums(w, e1r, width, width, rgm, -1)
+    accc = banded_segment_sums(w, e1c, 0, width, rgn, 1)
+    g_read = gap_gamma * torch.clamp(1.0 - accr, 0.0, 1.0)
+    g_ref = gap_gamma * torch.clamp(1.0 - accc, 0.0, 1.0)
+    k = torch.arange(Wp, dtype=torch.int64, device=post.device)[:, None]
+    iu = (ibase.long()[:, None, :] + k).clamp(0, rgm - 1)
+    ju = (jbase.long()[:, None, :] - k).clamp(0, rgn - 1)
+    wup = torch.where(mdev.valid & (i >= 1),
+                      g_read.gather(0, iu.reshape(D1 * Wp, B))
+                      .reshape(D1, Wp, B), 0.0)
+    wleft = torch.where(mdev.valid & (j >= 1),
+                        g_ref.gather(0, ju.reshape(D1 * Wp, B))
+                        .reshape(D1, Wp, B), 0.0)
+    return wup, wleft
+
+
+def banded_mea_multi(wdiag, wup, wleft, mdev: MultiDeviceBatch) -> MeaResult:
+    """Pointers and per-problem scores [P] of the MEA decode over
+    multi-problem lanes (marginalign_trna_tpu/ops/wavefront_pallas.py
+    `banded_mea_pallas_multi`): the mea_multi kernel for CUDA tensors, its
+    plain version for CPU tensors."""
+    fn = mea_multi_cuda if use_kernel(wdiag) else mea_multi_plain
+    ptr, term = fn(wdiag, wup, wleft, mdev.valid, mdev.s1, mdev.s2,
+                   mdev.start, mdev.fink, mdev.find)
+    return MeaResult(ptr, term[mdev.p_final_d.long(), mdev.p_lane.long()])
+
+
+def _traceback_problem(pointers: np.ndarray, mb: MultiBandedBatch,
+                       p: int) -> List[Tuple[int, int]]:
+    """MEA traceback of problem p: its step range and lane slice out to an
+    ordinary single-problem view."""
+    pr = mb.problems[p]
+    ptr = np.ascontiguousarray(
+        pointers[pr.d0 : pr.final_d + 1, :, pr.lane : pr.lane + 1]
+    )
+    lo = np.ascontiguousarray(mb.lo[pr.d0 : pr.final_d + 1, pr.lane])
+    return _traceback_arrays(ptr, lo, 0, pr.m, pr.n)
+
+
+def mea_decode_multi(
+    post: torch.Tensor,
+    mb: MultiBandedBatch,
+    mdev: MultiDeviceBatch,
+    gap_gamma: float = 0.5,
+    match_gamma: float = 0.0,
+) -> List[List[Tuple[int, int]]]:
+    """Realigned ops of every problem of a multi-problem batch
+    (marginalign_trna_tpu/ops/mea.py `mea_decode_multi`); post is the
+    posterior band on mdev's device, which the weights and the DP stay on;
+    only the pointers come to the host."""
+    voffr, vmaxr = _lane_virtual_offsets(mb, lambda p: mb.problems[p].m)
+    voffc, vmaxc = _lane_virtual_offsets(mb, lambda p: mb.problems[p].n)
+    rgm = _round_up(max(int(vmaxr), 1), 256)
+    rgn = _round_up(max(int(vmaxc), 1), 256)
+    e1r = _multi_boundaries(_multi_gu(mb, voffr, "read"), -mb.width, rgm)
+    e1c = _multi_boundaries(_multi_gu(mb, voffc, "ref"), 0, rgn + mb.width)
+
+    D1, B = mb.lo.shape
+    ibase = np.zeros((D1, B), dtype=np.int32)
+    jbase = np.zeros((D1, B), dtype=np.int32)
+    for p, pr in enumerate(mb.problems):
+        sl = slice(pr.d0, pr.final_d + 1)
+        lo = mb.lo[sl, pr.lane].astype(np.int64)
+        ibase[sl, pr.lane] = voffr[p] + lo - 1
+        jbase[sl, pr.lane] = (
+            voffc[p] + mb.dloc[sl, pr.lane].astype(np.int64) - lo - 1
+        )
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(post.device)
+
+    wup, wleft = mea_weights_multi(post, mdev, up(e1r), up(e1c), up(ibase),
+                                   up(jbase), gap_gamma, mb.width, rgm, rgn)
+    wdiag = torch.where((post >= match_gamma) & (post > 0), post, NEG)
+    res = banded_mea_multi(wdiag, wup, wleft, mdev)
+    pointers = np.ascontiguousarray(res.pointers.cpu().numpy())
+    return [_traceback_problem(pointers, mb, p)
+            for p in range(len(mb.problems))]

@@ -3,8 +3,10 @@
 Port of marginalign_trna_tpu/ops/nw.py: after host-side k-mer seeding and
 chaining picks a corridor, a banded 3-state (match / ref-gap / read-gap)
 max-plus wavefront aligns every read against its reference window in one
-batch.  Pointers come back to the host as a [D1, Wp, B] uint8 band and the
-cigar is recovered by the native host traceback (native/margin_native.cpp).
+batch, one read per lane (`banded_nw`) or several short ones per lane
+(`banded_nw_multi`, ops/band.py `pack_multi_banded_batch`).  Pointers
+come back to the host as a [D1, Wp, B] uint8 band and the cigar is
+recovered by the native host traceback (native/margin_native.cpp).
 """
 from __future__ import annotations
 
@@ -14,10 +16,13 @@ import numpy as np
 import torch
 
 from .. import native as _native
-from .band import BandedBatch
+from .band import BandedBatch, MultiBandedBatch
 from .dispatch import use_kernel
-from .fb import DeviceBatch
-from .wavefront_cuda import banded_nw_cuda, banded_nw_plain
+from .fb import DeviceBatch, MultiDeviceBatch
+from .wavefront_cuda import (
+    _max_argmax3, banded_nw_cuda, banded_nw_plain, nw_multi_cuda,
+    nw_multi_plain,
+)
 
 # State indices.
 S_M, S_IX, S_IY = 0, 1, 2  # match, gap-in-read (ref advances), gap-in-ref
@@ -32,8 +37,8 @@ class NwParams(NamedTuple):
 
 class NwResult(NamedTuple):
     pointers: torch.Tensor     # [D1, Wp, B] uint8 (ptrM | ptrIx<<2 | ptrIy<<3)
-    score: torch.Tensor        # [B] best score at (m, n)
-    final_state: torch.Tensor  # [B] int32 argmax state at (m, n)
+    score: torch.Tensor        # [B] ([P] over multi lanes) score at (m, n)
+    final_state: torch.Tensor  # [B] ([P]) int32 argmax state at (m, n)
 
 
 def banded_nw(params: NwParams, batch: DeviceBatch) -> NwResult:
@@ -42,6 +47,34 @@ def banded_nw(params: NwParams, batch: DeviceBatch) -> NwResult:
     fn = banded_nw_cuda if use_kernel(batch.xb) else banded_nw_plain
     return NwResult(*fn(params, batch.xb, batch.yb, batch.valid, batch.s1,
                         batch.s2, batch.final_d, batch.final_k))
+
+
+def banded_nw_multi(params: NwParams, mdev: MultiDeviceBatch) -> NwResult:
+    """Guide Viterbi over multi-problem lanes
+    (marginalign_trna_tpu/ops/wavefront_pallas.py `banded_nw_pallas_multi`):
+    the pointer band and each problem's score and final state [P], the
+    first of the M / X / Y terminal scores that is largest.  The nw_multi
+    kernel for CUDA tensors, its plain version for CPU tensors."""
+    fn = nw_multi_cuda if use_kernel(mdev.xb) else nw_multi_plain
+    ptr, term = fn(params, mdev.xb, mdev.yb, mdev.valid, mdev.s1, mdev.s2,
+                   mdev.start, mdev.fink, mdev.find)
+    t = term[:, mdev.p_final_d.long(), mdev.p_lane.long()]    # [3, P]
+    score, state = _max_argmax3(t[0], t[1], t[2])
+    return NwResult(ptr, score, state.to(torch.int32))
+
+
+def traceback_multi(
+    pointers: np.ndarray, mb: MultiBandedBatch, p: int,
+    final_state: int = S_M,
+) -> List[Tuple[int, int]]:
+    """Traceback for problem p of a multi-problem batch: the problem's step
+    range and lane slice out to an ordinary single-problem view."""
+    pr = mb.problems[p]
+    ptr = np.ascontiguousarray(
+        pointers[pr.d0 : pr.final_d + 1, :, pr.lane : pr.lane + 1]
+    )
+    lo = np.ascontiguousarray(mb.lo[pr.d0 : pr.final_d + 1, pr.lane])
+    return _traceback_arrays(ptr, lo, 0, pr.m, pr.n, final_state)
 
 
 def traceback(

@@ -2,9 +2,14 @@
 kernels (csrc/nw.cu, csrc/mea.cu) and their plain PyTorch versions.
 
 Port of marginalign_trna_tpu/ops/wavefront_pallas.py `banded_nw_pallas`
-(K1), `banded_mea_pallas` (K4, weights given as bands) and `_mea_dl_jit`
+(K1), `banded_mea_pallas` (K4, weights given as bands), `_mea_dl_jit`
 (D, weights derived from the posterior band and the per-position row and
-column posterior sums).  Max-plus scores need no rescaling, so both
+column posterior sums), and over lanes that hold several problems
+(ops/band.py `pack_multi_banded_batch`) `banded_nw_pallas_multi`
+(nw_multi) and `banded_mea_pallas_multi` (mea_multi): their frontiers start
+at NEG, each problem's first diagonal seeds row 0, and the score at each
+problem's terminal cell leaves on its terminal diagonal (term, NEG
+elsewhere).  Max-plus scores need no rescaling, so both
 versions only shift, add and compare; with the same order of operations
 (circular row shifts, first-max-wins ties) they agree bit for bit.
 
@@ -112,6 +117,83 @@ def banded_nw_cuda(params, xb, yb, valid, s1, s2, final_d, final_k):
     return ptr, score, state
 
 
+def _multi_terminal(vals, fink, find):
+    """[len(vals), B]: each value at row fink where find marks a terminal
+    diagonal, as max(value, NEG); NEG elsewhere."""
+    Wp = vals[0].shape[0]
+    fk = fink.long()
+    at = torch.stack([v.gather(0, fk.clamp(0, Wp - 1)[None, :])[0]
+                      for v in vals])
+    hit = (find >= 0) & (fk >= 0) & (fk < Wp)
+    return torch.where(hit[None, :], torch.clamp(at, min=NEG), NEG)
+
+
+def nw_multi_plain(params, xb, yb, valid, s1, s2, start, fink, find):
+    """Plain version of the nw_multi kernel: (pointers uint8 [D1, Wp, B],
+    term [3, D1, B], the M / X / Y scores at each terminal cell on its
+    terminal diagonal, NEG elsewhere).  params = (match, mismatch,
+    gap_open, gap_extend)."""
+    match, mismatch, gap_open, gap_extend = (float(p) for p in params)
+    D1, Wp, B = xb.shape
+    dev = xb.device
+    neg = torch.full((Wp, B), NEG, dtype=torch.float32, device=dev)
+    m1 = x1 = y1 = neg                                  # generation d - 1
+    best1, arg1 = neg, torch.zeros((Wp, B), dtype=torch.uint8, device=dev)
+    best2, arg2 = best1, arg1                           # generation d - 2
+    row0 = torch.arange(Wp, device=dev)[:, None] == 0
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    term = torch.empty((3, D1, B), dtype=torch.float32, device=dev)
+    for d in range(D1):
+        x, y, v = xb[d], yb[d], valid[d]
+        t1, t2 = s1[d], s2[d]
+        sub = torch.where(
+            (x == y) & (x < 4), match,
+            torch.where((x >= 4) | (y >= 4), 0.0, mismatch),
+        ).to(torch.float32)
+        mv = shift(best2, t2 - 1) + sub
+        mp = shift(arg2, t2 - 1)
+        io = shift(m1, t1) + gap_open
+        ie = shift(x1, t1) + gap_extend
+        vo = shift(m1, t1 - 1) + gap_open
+        ve = shift(y1, t1 - 1) + gap_extend
+        seed = row0 & (start[d] != 0)[None, :]
+        nm = torch.where(seed, 0.0, torch.where(v, mv, NEG))
+        nx = torch.where(seed, NEG, torch.where(v, torch.maximum(io, ie),
+                                                NEG))
+        ny = torch.where(seed, NEG, torch.where(v, torch.maximum(vo, ve),
+                                                NEG))
+        p = (mp | ((ie > io).to(torch.uint8) << 2)
+             | ((ve > vo).to(torch.uint8) << 3))
+        ptr[d] = torch.where(seed, 0, p).to(torch.uint8)
+        term[:, d] = _multi_terminal((nm, nx, ny), fink[d], find[d])
+        best2, arg2 = best1, arg1
+        best1, arg1 = _max_argmax3(nm, nx, ny)
+        m1, x1, y1 = nm, nx, ny
+    return ptr, term
+
+
+def nw_multi_cuda(params, xb, yb, valid, s1, s2, start, fink, find):
+    """The nw_multi kernel (csrc/nw.cu); same outputs as the plain
+    version."""
+    D1, Wp, B = xb.shape
+    dev = xb.device
+    for t, dt in ((xb, torch.int8), (yb, torch.int8), (valid, torch.bool)):
+        check_tensor(t, dt, (D1, Wp, B), dev)
+    for t in (s1, s2, fink, find):
+        check_tensor(t, torch.int32, (D1, B), dev)
+    check_tensor(start, torch.int8, (D1, B), dev)
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    term = torch.empty((3, D1, B), dtype=torch.float32, device=dev)
+    match, mismatch, gap_open, gap_extend = (float(p) for p in params)
+    _build.launch(
+        "nw_multi", dev, xb.data_ptr(), yb.data_ptr(), valid.data_ptr(),
+        s1.data_ptr(), s2.data_ptr(), start.data_ptr(), fink.data_ptr(),
+        find.data_ptr(), D1, Wp, B, match, mismatch, gap_open, gap_extend,
+        ptr.data_ptr(), term.data_ptr(),
+    )
+    return ptr, term
+
+
 # ----------------------------------------------------------------------- MEA
 
 
@@ -161,6 +243,52 @@ def banded_mea_cuda(wdiag, wup, wleft, valid, s1, s2, final_d, final_k):
         score.data_ptr(),
     )
     return ptr, score
+
+
+def mea_multi_plain(wdiag, wup, wleft, valid, s1, s2, start, fink, find):
+    """Plain version of the mea_multi kernel: (pointers uint8 [D1, Wp, B],
+    term [D1, B], the score at each terminal cell on its terminal diagonal,
+    NEG elsewhere)."""
+    D1, Wp, B = wdiag.shape
+    dev = wdiag.device
+    a1 = a2 = torch.full((Wp, B), NEG, dtype=torch.float32, device=dev)
+    row0 = torch.arange(Wp, device=dev)[:, None] == 0
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    term = torch.empty((D1, B), dtype=torch.float32, device=dev)
+    for d in range(D1):
+        t1, t2 = s1[d], s2[d]
+        diag = shift(a2, t2 - 1) + wdiag[d]
+        left = shift(a1, t1) + wleft[d]
+        up = shift(a1, t1 - 1) + wup[d]
+        a, p = _max_argmax3(diag, left, up)
+        seed = row0 & (start[d] != 0)[None, :]
+        a = torch.where(seed, 0.0, torch.where(valid[d], a, NEG))
+        ptr[d] = torch.where(seed, 0, p).to(torch.uint8)
+        term[d] = _multi_terminal((a,), fink[d], find[d])[0]
+        a2, a1 = a1, a
+    return ptr, term
+
+
+def mea_multi_cuda(wdiag, wup, wleft, valid, s1, s2, start, fink, find):
+    """The mea_multi kernel (csrc/mea.cu); same outputs as the plain
+    version."""
+    D1, Wp, B = wdiag.shape
+    dev = wdiag.device
+    for t in (wdiag, wup, wleft):
+        check_tensor(t, torch.float32, (D1, Wp, B), dev)
+    check_tensor(valid, torch.bool, (D1, Wp, B), dev)
+    for t in (s1, s2, fink, find):
+        check_tensor(t, torch.int32, (D1, B), dev)
+    check_tensor(start, torch.int8, (D1, B), dev)
+    ptr = torch.empty((D1, Wp, B), dtype=torch.uint8, device=dev)
+    term = torch.empty((D1, B), dtype=torch.float32, device=dev)
+    _build.launch(
+        "mea_multi", dev, wdiag.data_ptr(), wup.data_ptr(), wleft.data_ptr(),
+        valid.data_ptr(), s1.data_ptr(), s2.data_ptr(), start.data_ptr(),
+        fink.data_ptr(), find.data_ptr(), D1, Wp, B, ptr.data_ptr(),
+        term.data_ptr(),
+    )
+    return ptr, term
 
 
 def _gap_weights(sums: torch.Tensor, gap_gamma: float) -> torch.Tensor:

@@ -12,6 +12,11 @@ With em=True the model is first trained by Baum-Welch EM on the chained
 guide alignments (align/em.py), normalised, and the realignment runs with
 it (the reference's marginAlign --em, src/margin/marginAlignLib.py:279-297).
 
+With multi=True the guide and the realignment run in multi-problem lanes,
+several short problems per lane (the JAX package's MARGINALIGN_MULTI=on;
+align/guide.py and align/realign.py); EM over multi lanes is not ported
+yet, so em=True with multi=True raises NotImplementedError.
+
 The device is explicit.  "cuda" runs the CUDA kernels and fails if no CUDA
 device is present; the plain PyTorch versions run only when "cpu" is asked
 for.
@@ -83,11 +88,18 @@ def align(
     output_sam_path: str,
     options: Optional[AlignOptions] = None,
     device="cuda",
+    multi: bool = False,
 ) -> Dict[str, float]:
     """marginAlign: guide mapping, chaining, [EM training,] realignment ->
     SAM.  Returns the wall seconds of each stage (guide_s, chain_s, em_s,
-    realign_s)."""
+    realign_s).  multi=True: the guide and the realignment in multi-problem
+    lanes (module docstring)."""
     options = options or AlignOptions()
+    if options.em and multi:
+        raise NotImplementedError(
+            "marginAlign --em over multi-problem lanes (the E-step counts "
+            "kernels of multi lanes, ROADMAP B20) is not ported yet; run EM "
+            "without multi=True")
     dev = resolve_device(device)
     cfg = GuideConfig.preset(options.mapper_preset)
     stages: Dict[str, float] = {}
@@ -106,7 +118,7 @@ def align(
         last_stage_out = output_sam_path if (
             options.no_realign and options.no_chain) else guide_sam
         timed("guide_s", map_reads, read_fastq_path, reference_fasta_path,
-              last_stage_out, cfg, dev)
+              last_stage_out, cfg, dev, multi)
         if not options.no_chain:
             timed("chain_s", chain_sam_file, guide_sam,
                   output_sam_path if options.no_realign else chained_sam,
@@ -122,7 +134,7 @@ def align(
               output_sam_path, read_fastq_path, reference_fasta_path, hmm,
               dev, gap_gamma=options.gap_gamma,
               match_gamma=options.match_gamma, no_chain=True,
-              split_size=options.split_size)
+              split_size=options.split_size, multi=multi)
     return stages
 
 

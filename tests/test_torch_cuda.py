@@ -14,17 +14,17 @@ import torch
 from marginalign_trna_tpu_torch.models.hmm import PairHmm
 from marginalign_trna_tpu_torch.ops import (
     _build, bucket_scatter, fb_circ_cuda, fb_counts, fb_counts_cuda,
-    fb_cuda, wavefront_cuda,
+    fb_cuda, fb_multi_cuda, wavefront_cuda,
 )
 from marginalign_trna_tpu_torch.ops.band import (
     band_masks, circ_mw_streams, pack_banded_batch, pack_compact_batch,
-    padded_band_width, path_from_cigar,
+    pack_multi_banded_batch, padded_band_width, path_from_cigar,
 )
 from marginalign_trna_tpu_torch.ops.expectations import (
     concat_flush_tails, fused_flush_jmaps, fused_row_jmaps,
 )
 from marginalign_trna_tpu_torch.ops.fb import (
-    device_batch, tables_from_hmm, tables_stacked,
+    device_batch, multi_device_batch, tables_from_hmm, tables_stacked,
 )
 from marginalign_trna_tpu_torch.ops.fb_circ import (
     circ_coefficients, compact_device_batch,
@@ -413,3 +413,76 @@ def test_serve_kernels_wide_bands(cuda, width):
     assert not fb_circ_cuda._replay_fits(Wp, 32)
     _serve_kernels_match_plain(cuda, tables_from_hmm(PairHmm.load(MODEL)),
                                _batch(width, seed=8))
+
+
+def _multi(cuda, width, seed=7, n=30):
+    """A multi-problem batch of n noisy pairs of 20-90 bases (lanes
+    shared), on the card."""
+    rng = np.random.default_rng(seed)
+    refs = [rng.integers(0, 4, int(rng.integers(20, 90))).astype(np.int8)
+            for _ in range(n)]
+    reads = []
+    for r in refs:
+        read = np.delete(r, [len(r) // 2]).copy()
+        read[rng.random(len(read)) < 0.1] = int(rng.integers(0, 4))
+        reads.append(read)
+    mb = pack_multi_banded_batch(reads, refs, width=width, pad_steps_to=256)
+    assert len({p.lane for p in mb.problems}) < n
+    return mb, multi_device_batch(mb, cuda)
+
+
+@pytest.mark.parametrize("width", [9, 40])
+def test_nw_multi_kernel_matches_plain(cuda, width):
+    _, mdev = _multi(cuda, width)
+    args = ((1.0, -2.0, -3.0, -1.0), mdev.xb, mdev.yb, mdev.valid, mdev.s1,
+            mdev.s2, mdev.start, mdev.fink, mdev.find)
+    before = _build.launch_counts["nw_multi"]
+    got = wavefront_cuda.nw_multi_cuda(*args)
+    ref = wavefront_cuda.nw_multi_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["nw_multi"] == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+def test_fb_multi_kernels_match_plain(cuda, chain_model):
+    """Both model branches: the shipped gap-chain model and a flat-gap
+    model whose gap states 1 and 2 exchange mass; bit-equal."""
+    hmm = PairHmm.load(MODEL)
+    if not chain_model:
+        T = np.asarray(hmm.transitions, np.float64).copy()
+        T[1, 2] = T[2, 1] = 0.05
+        hmm.transitions = T / T.sum(axis=1, keepdims=True)
+    tables = tables_from_hmm(hmm, cuda)
+    coef, chain = circ_coefficients(tables)
+    assert chain == chain_model
+    _, mdev = _multi(cuda, 21)
+    em = tables.Ematch[mdev.xb.long(), mdev.yb.long()] * mdev.valid
+    fargs = (coef, chain, em, mdev.valid, mdev.s1, mdev.start, mdev.fink)
+    got = fb_multi_cuda.fb_multi_forward_cuda(*fargs)
+    ref = fb_multi_cuda.fb_multi_forward_plain(*fargs)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    fm, lsf, term = ref
+    L = (torch.log(term.clamp(min=1e-30)) + lsf).gather(
+        0, mdev.step_final.long())
+    bargs = (coef, chain, fm, lsf, L, em, mdev.valid, mdev.s1, mdev.fink,
+             mdev.find)
+    post = fb_multi_cuda.fb_multi_backward_cuda(*bargs)
+    assert torch.equal(post, fb_multi_cuda.fb_multi_backward_plain(*bargs))
+    assert torch.isfinite(post).all()
+
+
+def test_mea_multi_kernel_matches_plain(cuda):
+    mb, mdev = _multi(cuda, 21, seed=8)
+    tables = tables_from_hmm(PairHmm.load(MODEL), cuda)
+    _, post = fb_multi_cuda.posteriors_multi(tables, mdev)
+    wdiag = torch.where(post > 0, post, NEG)
+    gap = 0.5 * (1.0 - post).clamp(0.0, 1.0)
+    args = (wdiag, gap, gap.flip(1).contiguous(), mdev.valid, mdev.s1,
+            mdev.s2, mdev.start, mdev.fink, mdev.find)
+    got = wavefront_cuda.mea_multi_cuda(*args)
+    ref = wavefront_cuda.mea_multi_plain(*args)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)

@@ -43,6 +43,7 @@ PORT_MODULES = [
     "marginalign_trna_tpu_torch.ops.fb_counts_cuda",
     "marginalign_trna_tpu_torch.ops.fb_cuda",
     "marginalign_trna_tpu_torch.ops.fb_generic_cuda",
+    "marginalign_trna_tpu_torch.ops.fb_multi_cuda",
     "marginalign_trna_tpu_torch.ops.mea",
     "marginalign_trna_tpu_torch.ops.nw",
     "marginalign_trna_tpu_torch.ops.wavefront_cuda",
