@@ -6,7 +6,7 @@ CUDA card.  Run from the repository root:
 
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a.
-  2. tiny     each of the thirty kernels against its plain PyTorch
+  2. tiny     each of the thirty-four kernels against its plain PyTorch
               version on the card at a tiny shape, so a broken kernel fails
               before the long runs; the eight serving kernels
               bit-equal, with a gap-chain model and again with a flat-gap
@@ -14,7 +14,9 @@ Phases (any failure exits non-zero without the final result line):
               5x5 branch), and at WIDE_BANDS (Wp 64 and 128, where the
               checkpoint posterior pass replays in device memory); the four
               multi-lane kernels bit-equal on packed lanes, the FB pair on
-              both model branches, nw_multi at Wp 24 and 48.
+              both model branches, nw_multi at Wp 24 and 48; the four
+              multi-lane counts kernels at Wp 24 on lanes of three or more
+              problems, with three trials and with one.
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
               pipeline.align on a synthetic 1024-read x 3.5 kb corpus with
               two references and both strands, on its default path: the
@@ -121,7 +123,8 @@ Phases (any failure exits non-zero without the final result line):
               (1e-5 relative under the multi run's posteriors); reads/s,
               stage seconds, host packing seconds and the share of padded
               cells that are valid for both.  marginCaller with
-              multi=True on the main phase's SAM against the caller
+              multi=True on the main phase's SAM's first
+              CALL_MULTI_RECORDS records against the caller
               phase's mutated reference (split 100: every segment in
               multi lanes): only the FB multi pair launches; the fused
               caller's call set, expectations within 3e-4 of each
@@ -129,7 +132,30 @@ Phases (any failure exits non-zero without the final result line):
               plain versions on their largest launch, with times and
               bounds, and CPU/card parity of both entries on PARITY_READS
               reads / records.
- 16. card     name and power limit from nvidia-smi.
+ 16. em_multi marginAlign --em with multi=True (pipeline.align: guide,
+              chain, Baum-Welch EM whose E-step packs the training pairs
+              several per lane, realign, all in multi-problem lanes) on
+              the multi phase's tRNA corpus at the default EmOptions but
+              EM_ITERATIONS iterations (band 21, 3 lockstep trials, split
+              300, 88 M cells per batch): only nw_multi, the multi counts
+              pair that use_ckpt picks for each batch, fb_multi_forward,
+              fb_multi_backward and mea_multi may launch, never
+              pack_banded_batch; likelihoods non-decreasing, trained
+              models load, >= 95% of records on their simulated reference
+              and strand.  EM on the same chained jobs in single-problem
+              lanes: final per-trial log-likelihoods within 1e-5
+              relative, parameters within 1e-3; em_s, train_em,
+              prepare_em_batches and E-step seconds of both.  The four
+              multi counts kernels against their plain versions on the
+              largest E-step batch (the other pair forced), with three
+              trials and one, with times and bounds; then CPU/card parity
+              of pipeline.align(em=True, multi=True) on PARITY_READS tRNA
+              reads (3 iterations, trial 0 from the shipped model; the
+              card takes the stored pair): parameters within 1e-4,
+              histories rtol 1e-5, guide records identical, >=
+              MULTI_MIN_EQUAL of cigars identical and the rest MEA
+              near-ties.
+ 17. card     name and power limit from nvidia-smi.
 Each phase logs "time: <phase> done at <seconds>".  Plain versions are
 timed after a warm-up call, as the kernels are.  The line before the last
 is the kernel report (JSON); the last line is the result (JSON).  Corpus and weights come from numpy seeds; nothing is read
@@ -269,6 +295,25 @@ KERNELS = {
     "mea_multi": ("marginalign_trna_tpu_torch/csrc/mea.cu",
                   "marginalign_trna_tpu/ops/wavefront_pallas.py:668",
                   "wavefront_cuda.mea_multi_cuda", ("multi",)),
+    # The counts pairs over multi-problem lanes: "em_multi" = marginAlign
+    # --em with multi=True (each replaces its TPU body's serial and
+    # lockstep-trials pallas_call, as the single-lane counts kernels do).
+    "counts_multi_fwd_all": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                             "marginalign_trna_tpu/ops/fb_pallas_counts.py:475",
+                             "fb_counts_cuda.counts_multi_fwd_all_cuda",
+                             ("em_multi",)),
+    "counts_multi_bwd": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                         "marginalign_trna_tpu/ops/fb_pallas_counts.py:572",
+                         "fb_counts_cuda.counts_multi_bwd_cuda",
+                         ("em_multi",)),
+    "counts_multi_fwd_ckpt": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                              "marginalign_trna_tpu/ops/fb_pallas_counts.py:1898",
+                              "fb_counts_cuda.counts_multi_fwd_ckpt_cuda",
+                              ("em_multi",)),
+    "counts_multi_bwd_ckpt": ("marginalign_trna_tpu_torch/csrc/fb_counts.cu",
+                              "marginalign_trna_tpu/ops/fb_pallas_counts.py:1996",
+                              "fb_counts_cuda.counts_multi_bwd_ckpt_cuda",
+                              ("em_multi",)),
 }
 ALIGN_KERNELS = [k for k, v in KERNELS.items() if "align" in v[3]]
 REL_KERNELS = [k for k, v in KERNELS.items() if "rel" in v[3]]
@@ -278,6 +323,7 @@ GENERIC_KERNELS = [k for k, v in KERNELS.items() if "generic" in v[3]]
 SERVE_NEW = [k for k, v in KERNELS.items() if "serve" in v[3]]
 MULTI_KERNELS = [k for k, v in KERNELS.items() if "multi" in v[3]]
 CALL_MULTI_KERNELS = [k for k, v in KERNELS.items() if "call_multi" in v[3]]
+EM_MULTI_KERNELS = [k for k, v in KERNELS.items() if "em_multi" in v[3]]
 # The kernels of each serving mode (ops/fb_circ.py posteriors_circ).
 SERVE_KERNELS = {
     "sv": ["sv_backward", "circ_post_es"],
@@ -294,6 +340,9 @@ SERVE_PARITY_MODES = ("sv", "ckpt")
 WIDE_BANDS = (61, 126)
 COUNTS_PAIRS = {"stored": ("counts_fwd_all", "counts_bwd"),
                 "ckpt": ("counts_fwd_ckpt", "counts_bwd_ckpt")}
+COUNTS_MULTI_PAIRS = {"stored": ("counts_multi_fwd_all", "counts_multi_bwd"),
+                      "ckpt": ("counts_multi_fwd_ckpt",
+                               "counts_multi_bwd_ckpt")}
 # Records of the main phase's corpus that the REL phase realigns.
 REL_RECORDS = 256
 # The EM phase: reads of the corpus it trains on and realigns, iterations;
@@ -302,13 +351,17 @@ EM_READS = 256
 EM_ITERATIONS = 5
 EM_PARITY_ITERATIONS = 3
 # The updateTheBand phase: reads, iterations (3 lockstep trials); the reads
-# of its CPU / card parity.
+# of its CPU / card parity (8 since the em_multi phase: 16 took 36 s, most
+# of it the CPU run).
 BAND_READS = 64
 BAND_ITERATIONS = 3
-BAND_PARITY_READS = 16
-# The multi phase's synthetic direct-tRNA corpus: reads, references.
+BAND_PARITY_READS = 8
+# The multi phase's synthetic direct-tRNA corpus: reads, references; the
+# main SAM's records that marginCaller with multi=True calls on (512 since
+# the em_multi phase: all 1024 took 51 s).
 TRNA_READS = 16384
 TRNA_REFS = 48
+CALL_MULTI_RECORDS = 512
 # The least share of the tRNA records whose cigars must agree between two
 # realignments (multi against single lanes, CPU against card); every other
 # one must be an MEA near-tie.  The corpus's unaligned stretches (inserted
@@ -345,7 +398,12 @@ MULTI_MIN_EQUAL = 0.80
 # the seed select (11), fb_multi_forward the emission and shift products,
 # the seed selects, the rescale and the gap-chain mixes it publishes (28),
 # fb_multi_backward the gap-chain cell, injection selects, valid mask,
-# rescale, posterior and e * b (31).
+# rescale, posterior and e * b (31).  The multi-lane counts kernels do the
+# single-lane ones' work plus, in each forward, the start injection (a
+# select and five adds: 79 = 73 + 6), which the checkpoint backward's
+# recomputed forward does too (231 = 225 + 6); the backwards' terminal
+# injection, scale restart and start mask are per lane and diagonal, not
+# per cell (151).
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_CELL = {
@@ -359,7 +417,9 @@ OPS_PER_CELL = {
     "circ_backward_codes_es": 27, "circ_post_es": 25, "circ_post_emv": 24,
     "circ_post_codes": 27, "circ_ckpt_backward": 25, "circ_ckpt_post": 52,
     "nw_multi": 16, "mea_multi": 11, "fb_multi_forward": 28,
-    "fb_multi_backward": 31,
+    "fb_multi_backward": 31, "counts_multi_fwd_all": 79,
+    "counts_multi_bwd": 151, "counts_multi_fwd_ckpt": 79,
+    "counts_multi_bwd_ckpt": 231,
 }
 
 
@@ -817,10 +877,11 @@ def compare_counts(base, reps):
     report = {}
 
     def timed(name, cuda_fn, plain_fn, args, err, outs):
+        # The comparison's plain call was the plain version's warm-up.
         report[name] = {
             "max_abs_err": err,
             "ms": time_ms(lambda: cuda_fn(*args), reps),
-            "plain_ms": time_ms(lambda: plain_fn(*args), 1),
+            "plain_ms": time_ms(lambda: plain_fn(*args), 1, warm=False),
             "library_ms": None,
             **bound(name, cells, nbytes(*args, *outs))}
 
@@ -871,6 +932,85 @@ def compare_counts(base, reps):
           cargs, max_abs_err(zip(got, want)), got)
     report["counts_bwd_ckpt"]["counts_max_rel_err"] = err
     report["counts_bwd_ckpt"]["pairs_rel_err"] = pair_err
+    return report
+
+
+def compare_counts_multi(base, reps):
+    """The four multi-lane counts kernels against their plain versions on
+    one E-step batch, base = (T, Em, Eg, xb, yb, valid, s1, start, fink,
+    find, L): each forward on base, each backward on its plain forward's
+    outputs and L (the per-diagonal log-likelihood, ops/fb.py
+    `multi_logz`, of the kernels' own run: the forwards are bit-equal).
+    f_all, lsf, the terminal sums, the checkpoints and the posterior band
+    must be bit-equal; the lane-summed count partials within rtol 1e-5;
+    the two pairs' transition and gap counts within 1e-4 of each other."""
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import fb_counts_cuda as K
+
+    tabs, streams, find, L = base[:3], base[3:9], base[9], base[10]
+    cells = tabs[0].shape[0] * streams[0].numel()
+    fargs = (*tabs, *streams)
+    report = {}
+
+    def timed(name, cuda_fn, plain_fn, args, err, outs):
+        # The comparison's plain call was the plain version's warm-up.
+        report[name] = {
+            "max_abs_err": err,
+            "ms": time_ms(lambda: cuda_fn(*args), reps),
+            "plain_ms": time_ms(lambda: plain_fn(*args), 1, warm=False),
+            "library_ms": None,
+            **bound(name, cells, nbytes(*args, *outs))}
+
+    ref = K.counts_multi_fwd_all_plain(*fargs)
+    for what, g, r in zip(("f_all", "lsf", "term"),
+                          K.counts_multi_fwd_all_cuda(*fargs), ref):
+        check(torch.equal(g, r), "counts_multi_fwd_all: %s differs from the "
+              "plain version" % what)
+    f_all, lsf, term = ref
+    check(torch.isfinite(L).all().item(), "multi counts L not finite")
+    timed("counts_multi_fwd_all", K.counts_multi_fwd_all_cuda,
+          K.counts_multi_fwd_all_plain, fargs, 0.0, ref)
+    del ref
+
+    bargs = (*tabs, f_all, lsf, *streams, find, L)
+    post, tcp, egp = K.counts_multi_bwd_cuda(*bargs)
+    rpost, rtcp, regp = K.counts_multi_bwd_plain(*bargs)
+    check(torch.equal(post, rpost), "counts_multi_bwd: posterior band "
+          "differs from the plain version")
+    err = counts_rel_err(((tcp, rtcp), (egp, regp)))
+    check(err <= 1e-5, "counts_multi_bwd: counts differ by %g (rtol 1e-5)"
+          % err)
+    timed("counts_multi_bwd", K.counts_multi_bwd_cuda,
+          K.counts_multi_bwd_plain, bargs,
+          max_abs_err(((tcp, rtcp), (egp, regp))), (post, tcp, egp))
+    report["counts_multi_bwd"]["counts_max_rel_err"] = err
+    del bargs, f_all, post, rpost
+
+    ref = K.counts_multi_fwd_ckpt_plain(*fargs)
+    for what, g, r in zip(("ckpt", "cs", "lsf", "term"),
+                          K.counts_multi_fwd_ckpt_cuda(*fargs), ref):
+        check(torch.equal(g, r), "counts_multi_fwd_ckpt: %s differs from "
+              "the plain version" % what)
+    check(torch.equal(ref[2], lsf) and torch.equal(ref[3], term),
+          "the two multi counts forwards disagree on lsf or term")
+    timed("counts_multi_fwd_ckpt", K.counts_multi_fwd_ckpt_cuda,
+          K.counts_multi_fwd_ckpt_plain, fargs, 0.0, ref)
+
+    cargs = (*tabs, ref[0], ref[1], *streams, find, L)
+    got = K.counts_multi_bwd_ckpt_cuda(*cargs)
+    want = K.counts_multi_bwd_ckpt_plain(*cargs)
+    err = counts_rel_err(zip(got, want))
+    check(err <= 1e-5, "counts_multi_bwd_ckpt: counts differ by %g (rtol "
+          "1e-5)" % err)
+    pair_err = counts_rel_err(((want[0], rtcp), (want[1], regp)))
+    check(pair_err <= 1e-4, "the multi counts pairs disagree by %g"
+          % pair_err)
+    timed("counts_multi_bwd_ckpt", K.counts_multi_bwd_ckpt_cuda,
+          K.counts_multi_bwd_ckpt_plain, cargs, max_abs_err(zip(got, want)),
+          got)
+    report["counts_multi_bwd_ckpt"]["counts_max_rel_err"] = err
+    report["counts_multi_bwd_ckpt"]["pairs_rel_err"] = pair_err
     return report
 
 
@@ -956,11 +1096,14 @@ def compare_kernels(tag, names, inputs, reps):
     """Each kernel of `names` against its plain version on `inputs`
     (kernel name -> wrapper arguments; fb_forward's may be None: the plain
     backward's outputs then feed it; the counts kernels share
-    inputs["counts"], compare_counts' base, the generic pair
+    inputs["counts"], compare_counts' base, the multi-lane counts kernels
+    inputs["counts_multi"], compare_counts_multi's, the generic pair
     inputs["generic"], compare_generic's).  Returns {name: report}."""
     report = {}
     if any(name in COUNTS_KERNELS for name in names):
         report.update(compare_counts(inputs["counts"], reps))
+    if any(name in EM_MULTI_KERNELS for name in names):
+        report.update(compare_counts_multi(inputs["counts_multi"], reps))
     if any(name in GENERIC_KERNELS for name in names):
         report.update(compare_generic(inputs["generic"], reps))
     for name in names:
@@ -969,7 +1112,8 @@ def compare_kernels(tag, names, inputs, reps):
                 inputs["fb_backward"], inputs.get("fb_forward"), reps)
         elif name in SERVE_NEW or name in MULTI_KERNELS:
             report[name] = compare_exact(name, inputs[name], reps)
-        elif name not in ("fb_forward", *COUNTS_KERNELS, *GENERIC_KERNELS):
+        elif name not in ("fb_forward", *COUNTS_KERNELS, *GENERIC_KERNELS,
+                          *EM_MULTI_KERNELS):
             report[name] = COMPARE[name](inputs[name], reps)
     for name in names:
         log("kernels[%s] %-15s %s" % (tag, name, json.dumps(report[name])))
@@ -1137,6 +1281,40 @@ def tiny_counts_inputs(device):
                        *fb_counts.kernel_inputs(dev))}
 
 
+def tiny_counts_multi_inputs(device, ntr=3):
+    """The multi-lane counts kernels' base inputs at a tiny shape: 60 noisy
+    pairs of 20-120 bases packed several per lane (pad_steps_to 256; a lane
+    holds three or more) at width 21 (Wp 24), `ntr` random EM starts
+    (non-flat gaps); L from the plain forward."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import fb_counts
+    from marginalign_trna_tpu_torch.ops import fb_counts_cuda as K
+    from marginalign_trna_tpu_torch.ops.band import pack_multi_banded_batch
+    from marginalign_trna_tpu_torch.ops.fb import (
+        multi_device_batch, multi_logz, tables_stacked,
+    )
+
+    rng = np.random.default_rng(20)
+    refs = [rng.integers(0, 4, size=int(rng.integers(20, 120)))
+            .astype(np.int8) for _ in range(60)]
+    reads = [noisy(rng, r) for r in refs]
+    mb = pack_multi_banded_batch(reads, refs, width=21, pad_steps_to=256)
+    check(max(np.bincount([p.lane for p in mb.problems])) >= 3,
+          "tiny counts multi: no lane holds three problems")
+    md = multi_device_batch(mb, device)
+    hmms = [PairHmm.random(seed=40 + t) for t in range(ntr)]
+    for h in hmms:
+        h.apply_model_type_constraints()
+    tables = tables_stacked(hmms, device)
+    *streams, fk, fd = fb_counts.multi_kernel_inputs(md)
+    tabs = (tables.T, tables.Ematch, tables.Egap)
+    _, lsf, term = K.counts_multi_fwd_all_plain(*tabs, *streams, fk)
+    L, _ = multi_logz(lsf, term, md)
+    return {"counts_multi": (*tabs, *streams, fk, fd, L)}
+
+
 def tiny_generic_inputs(device):
     """The generic pair's base inputs at a tiny shape: 40 noisy pairs of
     20-150 bases at width 21, the shipped model with one gap row perturbed
@@ -1291,6 +1469,16 @@ def counts_base(largest):
     raise SmokeFailure("no counts kernel launched")
 
 
+def counts_multi_base(largest):
+    """compare_counts_multi's base from the recorded largest launches of the
+    multi counts pair a path ran: the forward's arguments and the
+    backward's find and L."""
+    for fwd, bwd in COUNTS_MULTI_PAIRS.values():
+        if fwd in largest:
+            return largest[fwd] + (largest[bwd][11], largest[bwd][12])
+    raise SmokeFailure("no multi counts kernel launched")
+
+
 def launch_shape(name, args):
     """The band a kernel call walks: [D1 or d1k, Wp, B] ([C, D, B] or
     [D, B] for the scatters' values, [Ntr, d1k, Wp, B] for the counts
@@ -1303,7 +1491,7 @@ def launch_shape(name, args):
         return [args[6], args[5], args[2].shape[1]]
     if name == "scatter_lanes":
         return list(args[0].shape)
-    if name in COUNTS_KERNELS:    # [Ntr, d1k, Wp, B]
+    if name in COUNTS_KERNELS or name in EM_MULTI_KERNELS:  # [Ntr, d1k, Wp, B]
         return [args[0].shape[0]] + list(next(
             a for a in args[3:] if torch.is_tensor(a) and a.dim() == 3
             and a.dtype == torch.int8).shape)
@@ -1776,17 +1964,22 @@ def em_recording():
     batch preparation (`prepare_em_batches`: band packing and upload) is
     timed, and every band update (`_update_band_jobs`) is logged with the
     generic-pair launches it made and the segment paths it returned.
-    Yields {"histories": [[Ntr] per E-step], "prepare_s": [seconds per
-    call], "band_updates": [{"generic_launches", "s", "paths"}]}."""
+    Yields {"histories": [[Ntr] per E-step], "estep_s": [seconds per
+    E-step: launches, wait, pull], "prepare_s": [seconds per call],
+    "kinds": [[batch kinds] per call], "band_updates": [{"generic_launches",
+    "s", "paths"}]}."""
     from marginalign_trna_tpu_torch.align import em
     from marginalign_trna_tpu_torch.ops import _build
 
-    rec = {"histories": [], "prepare_s": [], "band_updates": []}
+    rec = {"histories": [], "estep_s": [], "prepare_s": [], "kinds": [],
+           "band_updates": []}
     step, prepare = em.expectation_step_trials, em.prepare_em_batches
     update = em._update_band_jobs
 
     def recorded_step(*args, **kwargs):
+        t0 = time.perf_counter()
         out = step(*args, **kwargs)
+        rec["estep_s"].append(time.perf_counter() - t0)
         rec["histories"].append([float(v) for v in out[3]])
         return out
 
@@ -1799,6 +1992,7 @@ def em_recording():
 
                 torch.cuda.synchronize(dev.xb.device)
         rec["prepare_s"].append(time.perf_counter() - t0)
+        rec["kinds"].append([kind for kind, _, _ in out])
         return out
 
     def recorded_update(*args, **kwargs):
@@ -1816,13 +2010,14 @@ def em_recording():
         yield rec
 
 
-def check_em_counts_policy(path, shapes, launches):
-    """The counts pair of every E-step batch is the one ops/fb_counts.py
-    use_ckpt picks for its shape; returns the kernels that must launch."""
+def check_em_counts_policy(path, shapes, launches, pairs=COUNTS_PAIRS):
+    """The counts pair (of `pairs`: the single-lane or the multi-lane
+    kernels) of every E-step batch is the one ops/fb_counts.py use_ckpt
+    picks for its shape; returns the kernels that must launch."""
     from marginalign_trna_tpu_torch.ops.fb_counts import use_ckpt
 
     want = set()
-    for pair, (fwd, bwd) in COUNTS_PAIRS.items():
+    for pair, (fwd, bwd) in pairs.items():
         check(launches[fwd] == launches[bwd], "%s: %d %s launches, %d %s"
               % (path, launches[fwd], fwd, launches[bwd], bwd))
         for shape in shapes[fwd]:
@@ -2801,8 +2996,9 @@ def phase_multi(tmpdir):
 
 
 def phase_call_multi(tmpdir, sam, mut_fa):
-    """marginCaller with multi=True on the main phase's SAM against the
-    caller phase's mutated reference (split 100): only the FB multi pair
+    """marginCaller with multi=True on the main phase's SAM's first
+    CALL_MULTI_RECORDS records against the caller phase's mutated
+    reference (split 100): only the FB multi pair
     launches; the fused caller's call set on the same records, and every
     position's expectations within 3e-4 of its coverage (the fused
     caller's expected count over the four bases) of the fused caller's.
@@ -2825,6 +3021,10 @@ def phase_call_multi(tmpdir, sam, mut_fa):
 
     hmm = PairHmm.load(DEFAULT_MODEL)
     refs = get_fasta_dictionary(mut_fa)
+    sub_sam = SamFile.read(sam)
+    sub_sam.records = sub_sam.records[:CALL_MULTI_RECORDS]
+    sam = os.path.join(tmpdir, "call_multi_records.sam")
+    sub_sam.write(sam)
     exps = []
     acc = caller.accumulate_expectations
 
@@ -2940,6 +3140,220 @@ def phase_multi_parity(tmpdir, sam, mut_fa):
     return res
 
 
+def phase_em_multi(tmpdir):
+    """marginAlign --em with multi=True on the multi phase's tRNA corpus at
+    full width (band 21, 3 lockstep trials, split 300, 88 M cells per
+    batch), depth cut to TRNA_READS reads and EM_ITERATIONS iterations:
+    only nw_multi, the multi counts pair use_ckpt picks for each E-step
+    batch, the FB multi pair and mea_multi may launch, and the host band
+    packer never runs; every trial's log-likelihood non-decreasing, the
+    trained models load, records on their simulated reference and strand.
+    Then EM on the same chained jobs in single-problem lanes (multi=False,
+    no second guide run): final per-trial log-likelihoods within 1e-5
+    relative, trained parameters within 1e-3.  Returns (launches, largest
+    launch inputs, results)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import em
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+
+    fq, fa, truth = write_trna_corpus(tmpdir, TRNA_READS, TRNA_REFS)
+    out = os.path.join(tmpdir, "trna_em_multi.sam")
+    model = os.path.join(tmpdir, "trna_em_multi.hmm")
+    opts = pipeline.AlignOptions(
+        em=True, output_model_path=model,
+        em_options=em.EmOptions(iterations=EM_ITERATIONS,
+                                output_trial_hmms_path=model))
+    train, kept = em.train_em, {}
+
+    def keep_training(jobs, options, *args, **kwargs):
+        kept.update(jobs=jobs, options=options,
+                    input_hmm=kwargs.get("input_hmm"))
+        t0 = time.perf_counter()
+        best = train(jobs, options, *args, **kwargs)
+        kept["train_s"] = time.perf_counter() - t0
+        return best
+
+    with recording_launches(list(KERNELS)) as (shapes, largest, host), \
+            em_recording() as rec, \
+            replaced_everywhere({train: keep_training}):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        stages = pipeline.align(fq, fa, out, opts, device="cuda", multi=True)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        launches = dict(_build.launch_counts)
+    recs = sam_records(out)
+    log("em_multi: %d reads in, %d records out, %.3f s, %.2f reads/s; "
+        "stages %s; launches %s; launch shapes %s; host band packer %s; "
+        "E-step batch kinds %s"
+        % (TRNA_READS, len(recs), total, len(recs) / total,
+           json.dumps(stages),
+           json.dumps({k: n for k, n in launches.items() if n}),
+           json.dumps({k: v for k, v in shapes.items() if v}),
+           json.dumps(host), json.dumps(rec["kinds"])))
+    pair = check_em_counts_policy("em_multi", shapes, launches,
+                                  COUNTS_MULTI_PAIRS)
+    check_launches("em_multi", ["nw_multi", *pair, "fb_multi_forward",
+                                "fb_multi_backward", "mea_multi"],
+                   launches, shapes)
+    check(host["pack_banded_batch"] == 0,
+          "em_multi: the host band packer ran")
+    check(all(k == ["multi"] * len(k) for k in rec["kinds"]),
+          "em_multi: an E-step batch is not of multi-problem lanes")
+    histories = check_histories("em_multi", rec["histories"])
+    PairHmm.load(model)                       # load() checks the rows
+    for t in range(len(histories)):
+        PairHmm.load("%s.trial%d" % (model, t))
+    placed = sum((r.rname, bool(r.flag & 16)) == truth[r.qname]
+                 for r in recs)
+    log("em_multi: %d of %d records on their simulated reference and strand"
+        % (placed, len(recs)))
+    check(placed >= 0.95 * len(recs), "em_multi: fewer than 95% of records "
+          "on their simulated reference and strand")
+
+    # The same training in single-problem lanes.
+    single = os.path.join(tmpdir, "trna_em_single.hmm")
+    sopts = dataclasses.replace(kept["options"],
+                                output_trial_hmms_path=single)
+    with em_recording() as srec:
+        t0 = time.perf_counter()
+        em.train_em(kept["jobs"], sopts, input_hmm=kept["input_hmm"],
+                    device="cuda", multi=False)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t0
+    shist = check_histories("em_single", srec["histories"])
+    ll_err = max(abs(m[-1] - s[-1]) / abs(s[-1])
+                 for m, s in zip(histories, shist))
+    perr = 0.0
+    for t in range(len(histories)):
+        a = PairHmm.load("%s.trial%d" % (model, t))
+        b = PairHmm.load("%s.trial%d" % (single, t))
+        perr = max(perr, np.abs(a.transitions - b.transitions).max(),
+                   np.abs(a.emissions - b.emissions).max())
+    res = {"reads_in": TRNA_READS, "records_out": len(recs),
+           "placed": placed, "total_s": total,
+           "reads_per_s": len(recs) / total, **stages,
+           "counts_pair": pair, "counts_shapes": shapes[pair[0]],
+           "jobs": len(kept["jobs"]),
+           "likelihood_histories": histories,
+           "multi": {"train_em_s": kept["train_s"],
+                     "prepare_em_batches_s": sum(rec["prepare_s"]),
+                     "estep_s": rec["estep_s"]},
+           "single": {"train_em_s": single_s,
+                      "prepare_em_batches_s": sum(srec["prepare_s"]),
+                      "estep_s": srec["estep_s"],
+                      "likelihood_histories": shist},
+           "final_ll_max_rel_err": ll_err, "params_max_abs_err": perr}
+    log("em_multi: %s" % json.dumps(res))
+    check(ll_err <= 1e-5, "em_multi: final log-likelihoods differ from the "
+          "single-lane EM's by %g (relative)" % ll_err)
+    check(perr <= 1e-3, "em_multi: trained parameters differ from the "
+          "single-lane EM's by %g" % perr)
+    return launches, largest, res
+
+
+def phase_em_multi_kernels(largest):
+    """The four multi-lane counts kernels on the em_multi phase's largest
+    E-step batch (the other pair forced), then again with its first
+    trial's model alone (a serial trial, rows 25 and 30: a trials axis of
+    1), each held against its plain version."""
+    base = counts_multi_base(largest)
+    log("kernels[em_multi] inputs: counts base [Ntr, d1k, Wp, B] %s"
+        % ([base[0].shape[0]] + list(base[3].shape)))
+    report = compare_kernels("em_multi", EM_MULTI_KERNELS,
+                             {"counts_multi": base}, 3)
+    one = compare_counts_multi(
+        (*(t[:1].contiguous() for t in base[:3]), *base[3:10],
+         base[10][:1].contiguous()), 3)
+    for name, serial in one.items():
+        log("kernels[em_multi, one trial] %-15s %s"
+            % (name, json.dumps(serial)))
+        report[name]["one_trial"] = serial
+    return report
+
+
+def phase_em_multi_parity(tmpdir):
+    """pipeline.align(em=True, multi=True) on the multi parity phase's
+    PARITY_READS tRNA reads, EM_PARITY_ITERATIONS iterations, trial 0 from
+    the shipped model, on the CPU (plain versions) and on the card
+    (kernels; the "em_multi_parity" path, where the policy gives the small
+    batch the stored pair): trained parameters within 1e-4, histories
+    within rtol 1e-5, guide records identical, >= MULTI_MIN_EQUAL of
+    cigars identical and every other one an MEA near-tie (1e-5 relative
+    under the card's posteriors).  Returns (launches, results)."""
+    import numpy as np
+
+    from marginalign_trna_tpu_torch import pipeline
+    from marginalign_trna_tpu_torch.align import em
+    from marginalign_trna_tpu_torch.models.hmm import PairHmm
+    from marginalign_trna_tpu_torch.ops import _build
+
+    sub = os.path.join(tmpdir, "trna_parity.fq")
+    fa = os.path.join(tmpdir, "trna.fa")
+    runs, launches, pair = {}, None, None
+    for dev in ("cpu", "cuda"):
+        out = os.path.join(tmpdir, "trna_em_parity_%s.sam" % dev)
+        guide_sam = os.path.join(tmpdir, "trna_em_parity_%s_guide.sam" % dev)
+        model = os.path.join(tmpdir, "trna_em_%s.hmm" % dev)
+        opts = pipeline.AlignOptions(
+            em=True, output_model_path=model,
+            em_options=em.EmOptions(iterations=EM_PARITY_ITERATIONS,
+                                    use_default_model_as_start=True,
+                                    output_trial_hmms_path=model))
+        with recording_launches(EM_MULTI_KERNELS) as (shapes, _, _), \
+                em_recording() as rec, multi_recording(guide_sam) as kept:
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            pipeline.align(sub, fa, out, opts, device=dev, multi=True)
+            total = time.perf_counter() - t0
+            if dev == "cuda":
+                launches = dict(_build.launch_counts)
+                pair = check_em_counts_policy("em_multi_parity", shapes,
+                                              launches, COUNTS_MULTI_PAIRS)
+        models = [PairHmm.load(model)] + [
+            PairHmm.load("%s.trial%d" % (model, t))
+            for t in range(len(rec["histories"][0]))]
+        runs[dev] = (sam_records(guide_sam), sam_records(out), models,
+                     np.array(rec["histories"]), kept, total)
+    (gc, rc, mc, hc, _, tc), (gg, rg, mg, hg, kept, tg) = (runs["cpu"],
+                                                           runs["cuda"])
+    check([r.line for r in gc] == [r.line for r in gg],
+          "em_multi parity: guide records differ between cpu and cuda")
+    perr = max(max(np.abs(a.transitions - b.transitions).max(),
+                   np.abs(a.emissions - b.emissions).max())
+               for a, b in zip(mc, mg))
+    herr = float((np.abs(hc - hg) / np.abs(hc)).max())
+    check(len(kept["posts"]) == 1, "em_multi parity: expected one multi-lane "
+          "realignment on the card")
+    same, gaps = multi_tie_gaps(rg, rc, kept["packs"][-1],
+                                kept["posts"][0].cpu().numpy())
+    worst = max(gaps, default=0.0)
+    res = {"reads": PARITY_READS, "counts_pair": pair,
+           "params_max_abs_err": perr, "history_max_rel_err": herr,
+           "guide_records": len(gg), "cigars_identical": same,
+           "near_ties": len(gaps), "worst_tie_relative": worst,
+           "cpu_s": tc, "cuda_s": tg}
+    log("em_multi parity: %s" % json.dumps(res))
+    check(pair == sorted(COUNTS_MULTI_PAIRS["stored"]), "em_multi parity: "
+          "the card's run took %s, not the stored pair" % pair)
+    check(perr <= 1e-4, "em_multi parity: trained parameters differ by %g"
+          % perr)
+    check(herr <= 1e-5, "em_multi parity: likelihood histories differ by "
+          "%g (relative)" % herr)
+    check(same >= MULTI_MIN_EQUAL * len(rg), "em_multi parity: fewer than "
+          "%d%% of cigars identical" % (100 * MULTI_MIN_EQUAL))
+    check(worst <= 1e-5, "em_multi parity: a cigar differing between cpu "
+          "and cuda scores %.3g (relative) off under the card's posteriors"
+          % worst)
+    return launches, res
+
+
 def phase_clock():
     """A function that logs the seconds since its creation after a named
     phase."""
@@ -3033,7 +3447,9 @@ def main() -> int:
             **tiny_serve_inputs(cuda), **tiny_inputs(cuda),
             **tiny_caller_inputs(cuda), **tiny_default_inputs(cuda),
             **tiny_counts_inputs(cuda), **tiny_generic_inputs(cuda),
-            **tiny_multi_inputs(cuda)}, 3)
+            **tiny_multi_inputs(cuda), **tiny_counts_multi_inputs(cuda)}, 3)
+        compare_kernels("tiny_em_multi_one_trial", EM_MULTI_KERNELS,
+                        tiny_counts_multi_inputs(cuda, ntr=1), 3)
         compare_kernels("tiny_non_chain", ["sv_backward"] + SERVE_NEW,
                         tiny_serve_inputs(cuda, chain_model=False), 3)
         for width in WIDE_BANDS:
@@ -3112,6 +3528,13 @@ def main() -> int:
             elapsed("call multi")
             multi_parity = phase_multi_parity(tmpdir, sam, mut_fa)
             elapsed("multi parity")
+            em_multi_launches, largest, em_multi_res = phase_em_multi(tmpdir)
+            on_em_multi = phase_em_multi_kernels(largest)
+            del largest
+            elapsed("em multi")
+            em_multi_parity_launches, em_multi_parity = (
+                phase_em_multi_parity(tmpdir))
+            elapsed("em multi parity")
         # The policy gives the 256-read E-step batch to the checkpoint
         # pair and the 32-read one to the stored pair: both pairs ran.
         for name in COUNTS_PAIRS["ckpt"]:
@@ -3120,6 +3543,11 @@ def main() -> int:
         for name in COUNTS_PAIRS["stored"]:
             check(em_parity_launches[name] > 0, "%s never launched on the "
                   "EM parity run" % name)
+        # The multi-lane pairs: each launches on one of the two em_multi
+        # runs (the policy's pick for their batches).
+        for name in EM_MULTI_KERNELS:
+            check(em_multi_launches[name] + em_multi_parity_launches[name]
+                  > 0, "%s never launched on an em_multi path" % name)
         card = card_identity()
     except SmokeFailure as exc:
         print("chip_smoke: FAIL: %s" % exc, file=sys.stderr)
@@ -3142,6 +3570,8 @@ def main() -> int:
     log("multi-path: %s" % json.dumps(multi_res))
     log("caller-multi: %s" % json.dumps(call_multi_res))
     log("multi-parity: %s" % json.dumps(multi_parity))
+    log("em-multi-path: %s" % json.dumps(em_multi_res))
+    log("em-multi-parity: %s" % json.dumps(em_multi_parity))
     log(card)
     # A kernel's launches and measurements come from the first path it runs
     # on (E and S: marginAlign's main path; the checkpoint counts pair: the
@@ -3150,7 +3580,9 @@ def main() -> int:
     # serving kernels: the realign run of the first mode that uses them,
     # measured on their largest launch over the modes' realign runs; the
     # multi-lane kernels: marginAlign with multi=True, measured on their
-    # largest launch over it and marginCaller with multi=True);
+    # largest launch over it and marginCaller with multi=True; the
+    # multi-lane counts pairs: the em_multi run where the policy picks
+    # them, else the card's em_multi parity run);
     # measurements on later paths ride along under their path ("caller",
     # "em", "call_generic", "em_band", "serve_call": the serving kernels'
     # largest launch over the modes' caller runs), and launches_by_path
@@ -3160,9 +3592,14 @@ def main() -> int:
                "generic": generic_launches,
                "call_generic": call_generic_launches,
                "em_band": band_launches, **serve_launches,
-               "multi": multi_launches, "call_multi": call_multi_launches}
+               "multi": multi_launches, "call_multi": call_multi_launches,
+               "em_multi": em_multi_launches,
+               "em_multi_parity": em_multi_parity_launches}
     first = {name: "em_parity" if name in COUNTS_PAIRS["stored"] else
              KERNELS[name][3][0] for name in KERNELS}
+    for name in EM_MULTI_KERNELS:
+        if not em_multi_launches[name]:
+            first[name] = "em_multi_parity"
     for name in SERVE_NEW:
         first[name] = "serve_realign_" + next(
             mode for mode, names in SERVE_KERNELS.items() if name in names)
@@ -3173,7 +3610,7 @@ def main() -> int:
         reports = [("align", kernels), ("caller", on_caller), ("em", on_em),
                    ("generic", on_generic), ("call_generic", on_call_generic),
                    ("em_band", on_em_band), *on_serve.items(),
-                   ("multi", on_multi)]
+                   ("multi", on_multi), ("em_multi", on_em_multi)]
         res = next(r[name] for _, r in reports if name in r)
         line = {"name": name, "route": "cuda", "source": src,
                 "replaces": rep, "launches": by_path[first[name]][name],

@@ -19,8 +19,14 @@ training by MEA-realigning the training pairs with the mid-training model,
 whose gap emissions are not flat: the realignment takes the REL path and
 the generic forward-backward pair (align/realign.py).
 
-Not ported yet, each refused with NotImplementedError: multi-problem lanes
-(ROADMAP B20); training sharded over several processes.
+With multi=True (the JAX package's MARGINALIGN_MULTI=on) the E-step packs
+the training pairs several per lane (ops/band.py `pack_multi_banded_batch`,
+lanes of 1024 diagonals) and runs the multi-lane counts kernels
+(ops/fb_counts.py `fb_counts_multi(_trials)`); band updates realign in
+multi-problem lanes where align/realign.py's policy allows.
+
+Not ported yet, refused with NotImplementedError: training sharded over
+several processes.
 """
 from __future__ import annotations
 
@@ -31,9 +37,15 @@ import numpy as np
 import torch
 
 from ..models.hmm import GAP_X_STATES, MODEL_TYPES, PairHmm
-from ..ops.band import pack_banded_batch, path_from_cigar
-from ..ops.fb import device_batch, tables_from_hmm, tables_stacked
-from ..ops.fb_counts import fb_counts, fb_counts_trials
+from ..ops.band import (
+    pack_banded_batch, pack_multi_banded_batch, path_from_cigar,
+)
+from ..ops.fb import (
+    device_batch, multi_device_batch, tables_from_hmm, tables_stacked,
+)
+from ..ops.fb_counts import (
+    fb_counts, fb_counts_multi, fb_counts_multi_trials, fb_counts_trials,
+)
 from .realign import (
     DEFAULT_BAND_WIDTH, RealignJob, _bucket_jobs, realigned_ops_for_jobs,
 )
@@ -132,15 +144,36 @@ def prepare_em_batches(
     """Pack jobs into E-step batches on `device` ONCE per training run (the
     band geometry does not change between iterations): host band arrays
     (ops/band.py `pack_banded_batch`, size-sorted buckets) uploaded as
-    ("single", DeviceBatch, n_real).  multi=True (multi-problem lanes, the
-    JAX package's MARGINALIGN_MULTI=on) is not ported yet."""
-    if multi:
-        raise NotImplementedError(
-            "multi-problem EM lanes need the multi-problem counts kernels "
-            "(ROADMAP B20: marginalign_trna_tpu/ops/fb_pallas_counts.py "
-            "_counts_pallas_multi_jit and kin), which are not ported yet"
-        )
+    ("single", DeviceBatch, n_real), or with multi=True (the JAX package's
+    MARGINALIGN_MULTI=on) the jobs in order, in chunks of at most
+    max_batch_cells / (1024 * band_width) lanes of 1024 diagonals, each
+    packed several per lane (`pack_multi_banded_batch`) and uploaded as
+    ("multi", MultiDeviceBatch, P) (marginalign_trna_tpu/align/em.py
+    :159-185)."""
     out: List[Tuple[str, object, int]] = []
+    if multi:
+        d1 = 1024
+        max_lanes = max(1, max_batch_cells // (d1 * band_width))
+        chunks: List[List[RealignJob]] = []
+        chunk: List[RealignJob] = []
+        steps = 0
+        for j in jobs:
+            need = len(j.read_region) + len(j.ref_region) + 3
+            if chunk and -(-(steps + need) // d1) > max_lanes:
+                chunks.append(chunk)
+                chunk, steps = [], 0
+            chunk.append(j)
+            steps += need
+        if chunk:
+            chunks.append(chunk)
+        for chunk in chunks:
+            mb = pack_multi_banded_batch(
+                [j.read_region for j in chunk], [j.ref_region for j in chunk],
+                width=band_width, paths=[j.path for j in chunk],
+                pad_steps_to=d1,
+            )
+            out.append(("multi", multi_device_batch(mb, device), len(chunk)))
+        return out
     for bucket in _bucket_jobs(jobs, band_width, max_batch_cells):
         batch = pack_banded_batch(
             [jobs[i].read_region for i in bucket],
@@ -153,11 +186,14 @@ def prepare_em_batches(
     return out
 
 
-def _counts_pipelined(batches, call):
-    """Queue every batch's expected-counts launches (call(DeviceBatch))
-    without waiting, then synchronise once and pull the small results in
-    order: yields (numpy arrays tuple, n_real) per batch."""
-    pending = [(call(dev), n_real) for _, dev, n_real in batches]
+def _counts_pipelined(batches, call_for_kind):
+    """Queue every batch's expected-counts launches
+    (call_for_kind[kind](batch), kind "single" or "multi") without waiting,
+    then synchronise once and pull the small results in order: yields
+    (numpy arrays tuple, n_real) per batch (n_real: lanes, or problems of a
+    multi batch, whose logZ is per problem)."""
+    pending = [(call_for_kind[kind](dev), n_real)
+               for kind, dev, n_real in batches]
     for dev in {dev.xb.device for _, dev, _ in batches if dev.xb.is_cuda}:
         torch.cuda.synchronize(dev)
     for res, n_real in pending:
@@ -182,8 +218,10 @@ def expectation_step(
     em = np.zeros((5, 5))
     eg = np.zeros((5, 5))
     total_ll = 0.0
-    for (logZ, tc_b, em_b, eg_b), n_real in _counts_pipelined(
-            batches, lambda d: fb_counts(tables, d)):
+    calls = {"single": lambda d: fb_counts(tables, d),
+             "multi": lambda d: fb_counts_multi(tables, d)}
+    for (logZ, tc_b, em_b, eg_b), n_real in _counts_pipelined(batches,
+                                                              calls):
         total_ll += float(np.sum(logZ[:n_real]))
         tc += tc_b.astype(np.float64)
         em += em_b.astype(np.float64)
@@ -207,8 +245,10 @@ def expectation_step_trials(
     em = np.zeros((ntr, 5, 5))
     eg = np.zeros((ntr, 5, 5))
     total_ll = np.zeros(ntr)
-    for (logZ, tc_b, em_b, eg_b), n_real in _counts_pipelined(
-            batches, lambda d: fb_counts_trials(tables, d)):
+    calls = {"single": lambda d: fb_counts_trials(tables, d),
+             "multi": lambda d: fb_counts_multi_trials(tables, d)}
+    for (logZ, tc_b, em_b, eg_b), n_real in _counts_pipelined(batches,
+                                                              calls):
         total_ll += logZ[:, :n_real].sum(axis=1)
         tc += tc_b.astype(np.float64)
         em += em_b.astype(np.float64)
@@ -269,13 +309,17 @@ def _init_trial_hmm(
 
 
 def _update_band_jobs(jobs: List[RealignJob], hmm: PairHmm,
-                      options: EmOptions, device) -> List[RealignJob]:
+                      options: EmOptions, device,
+                      multi: bool) -> List[RealignJob]:
     """Re-derive each training pair's band path by MEA-realigning it with
     the current model on `device` (EmOptions.update_band_every; gap gamma
     0.5, match gamma 0, no anchor split: marginalign_trna_tpu/align/em.py
-    `_update_band_jobs`)."""
+    `_update_band_jobs`), in multi-problem lanes with multi=True where
+    align/realign.py's policy allows (a mid-training model, whose gap
+    emissions are not flat, takes the REL path)."""
     ops_list = realigned_ops_for_jobs(jobs, hmm, 0.5, 0.0, device,
-                                      options.band_width, split_size=0)
+                                      options.band_width, split_size=0,
+                                      multi=multi)
     out = []
     for job, ops in zip(jobs, ops_list):
         aligned = [(op, ln) for op, ln in ops if op in (0, 1, 2)]
@@ -298,6 +342,7 @@ def _train_em_lockstep(
     checkpoint_path: Optional[str],
     jobs: List[RealignJob],
     device,
+    multi: bool,
 ) -> EmTrialResult:
     """All trials advance together: per iteration, one launch per kernel
     and E-step batch computes every trial's counts.  Trial trajectories are
@@ -324,9 +369,10 @@ def _train_em_lockstep(
             # best model, so that a resumed run matches an uninterrupted
             # one (exactly when update_band_every == 1).
             jobs = _update_band_jobs(jobs, hmms[int(np.argmax(lls))],
-                                     options, device)
+                                     options, device, multi)
             batches = prepare_em_batches(jobs, options.band_width,
-                                         options.max_batch_cells, device)
+                                         options.max_batch_cells, device,
+                                         multi)
     else:
         hmms = [_init_trial_hmm(options, input_hmm, t) for t in range(ntr)]
         histories = [[] for _ in range(ntr)]
@@ -371,9 +417,10 @@ def _train_em_lockstep(
             # likelihood is over the new band from the next iteration on
             # (a discontinuity the reference's updateTheBand shares).
             jobs = _update_band_jobs(jobs, hmms[int(np.argmax(lls))],
-                                     options, device)
+                                     options, device, multi)
             batches = prepare_em_batches(jobs, options.band_width,
-                                         options.max_batch_cells, device)
+                                         options.max_batch_cells, device,
+                                         multi)
 
     best_t = int(np.argmax(lls))
     results = []
@@ -408,12 +455,14 @@ def train_em(
     log_fn=None,
     checkpoint_path: Optional[str] = None,
     device="cuda",
+    multi: bool = False,
 ) -> EmTrialResult:
     """Run the full multi-trial EM on `device` and return the best trial.
 
     With checkpoint_path, state is saved after every iteration and training
     resumes mid-trial from an existing checkpoint file (the jobTree-resume
-    equivalent; see align/checkpoint.py)."""
+    equivalent; see align/checkpoint.py).  multi=True: E-step batches of
+    multi-problem lanes (module docstring), after every band update too."""
     from .checkpoint import EmCheckpoint, is_lockstep_checkpoint
 
     _refuse_unported()
@@ -430,7 +479,7 @@ def train_em(
 
         jobs, _, _ = split_jobs_at_anchors(jobs, options.split_size)
     batches = prepare_em_batches(jobs, options.band_width,
-                                 options.max_batch_cells, device)
+                                 options.max_batch_cells, device, multi)
 
     # Lockstep trials unless resuming an old serial-format checkpoint.
     serial_resume = (
@@ -441,7 +490,7 @@ def train_em(
     if options.lockstep and options.trials > 1 and not serial_resume:
         return _train_em_lockstep(
             batches, options, input_hmm, psum_fn, log_fn, checkpoint_path,
-            jobs, device,
+            jobs, device, multi,
         )
 
     ckpt = EmCheckpoint.try_load(checkpoint_path)
@@ -501,10 +550,10 @@ def train_em(
             if (options.update_band_every
                     and (it + 1) % options.update_band_every == 0):
                 trial_jobs = _update_band_jobs(trial_jobs, hmm, options,
-                                               device)
+                                               device, multi)
                 trial_batches = prepare_em_batches(
                     trial_jobs, options.band_width, options.max_batch_cells,
-                    device)
+                    device, multi)
         hmm.likelihood = ll
         if options.output_trial_hmms_path:
             hmm.write("%s.trial%d" % (options.output_trial_hmms_path, trial))

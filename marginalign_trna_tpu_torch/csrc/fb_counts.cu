@@ -20,6 +20,25 @@
 //                       checkpoint into shared memory, then the backward of
 //                       counts_bwd with 25 match partials and no posterior.
 //
+// The same four over multi-problem lanes (template flag MULTI: several
+// problems per lane, SPACER empty diagonals apart, a serial trial Ntr = 1):
+//   counts_multi_fwd_all   <- `_fwd_all_multi_impl` (pallas_calls
+//                             `_counts_pallas_multi_jit` :763 and
+//                             `_counts_pallas_multi_trials_jit` :1091): the
+//                             start distribution enters at row 0 of each
+//                             problem's first diagonal, the terminal sum
+//                             reads the per-diagonal terminal row;
+//   counts_multi_bwd       <- `_bwd_counts_multi_impl` (:806, :1148): the
+//                             backward injects at every terminal cell and
+//                             restarts its log-scale there, normalises by the
+//                             owning problem's L, and counts no emission at a
+//                             problem's first diagonal;
+//   counts_multi_fwd_ckpt  <- `_fwd_ckpt_multi_impl` (`_counts_ckpt_multi_jit`
+//                             :2257, `_counts_ckpt_multi_trials_jit` :2390);
+//   counts_multi_bwd_ckpt  <- `_bwd_counts_ckpt_multi_impl` (:2308, :2449):
+//                             block 0 recomputes from the zero frontier, and
+//                             every block re-seeds the starts inside it.
+//
 // and, as a third instance of the same two kernel templates (MODE_GENERIC,
 // one model), the generic forward-backward of marginalign_trna_tpu/ops/
 // fb_pallas.py for models whose gap emissions are not flat:
@@ -163,15 +182,17 @@ __device__ __forceinline__ void publish_mixes(const float (&f)[RPT][5],
   }
 }
 
-// One forward diagonal d >= 1: f becomes the unscaled frontier of d (with
-// KEEP_PREV, fp the frontier of d - 1).  t1 = s1[d], t2 = s1[d] + s1[d-1];
-// cprev divides the match mix on the diagonal after a rescale.
-template <int RPT, bool KEEP_PREV>
+// One forward diagonal d (d >= 1 on single-problem lanes): f becomes the
+// unscaled frontier of d (with KEEP_PREV, fp the frontier of d - 1).
+// t1 = s1[d], t2 = s1[d] + s1[d-1]; cprev divides the match mix on the
+// diagonal after a rescale.  MULTI: a problem starts at d when `seed`, and
+// the start distribution (1/5 in every state) is added at its row 0.
+template <int RPT, bool KEEP_PREV, bool MULTI = false>
 __device__ __forceinline__ void fwd_cells(
     float (&f)[RPT][5], float (&fp)[RPT][5], const float* tab,
     const float* fG, const float* fM, const int8_t* __restrict__ xb,
     const int8_t* __restrict__ yb, const uint8_t* __restrict__ valid, int d,
-    int t1, int t2, float cprev, const Dims& g) {
+    int t1, int t2, float cprev, bool seed, const Dims& g) {
   const int gin = (d & 1) * 4 * g.plane, min_ = (d % 3) * g.plane;
   const bool divide = d % K == 0;
 #pragma unroll
@@ -199,6 +220,11 @@ __device__ __forceinline__ void fwd_cells(
     f[r][2] = (e_gap(tab, 2, y) * fG[g.plane + ky]) * v;
     f[r][3] = (e_gap(tab, 3, x) * fG[2 * g.plane + kx]) * v;
     f[r][4] = (e_gap(tab, 4, y) * fG[3 * g.plane + ky]) * v;
+    if constexpr (MULTI) {
+      const float inj = (seed && k == 0) ? 0.2f : 0.f;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) f[r][s] = f[r][s] + inj;
+    }
   }
 }
 
@@ -220,8 +246,10 @@ __device__ __forceinline__ float sum5(const float (&v)[5]) {
 
 // band: f_all [ntr][d1k][5][Wp][B] (MODE_STORED), the checkpoints
 // [ntr][G][10][Wp][B] (MODE_CKPT) or F_match [ntr][d1k][Wp][B]
-// (MODE_GENERIC).
-template <int RPT, int MODE>
+// (MODE_GENERIC).  fink is [B] (the lane's terminal row), or with MULTI
+// [d1k][B] (the terminal row of the problem ending at d, else -1); start
+// [d1k][B] (MULTI only) marks each problem's first diagonal.
+template <int RPT, int MODE, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS)
     counts_fwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
                       const float* __restrict__ Eg,
@@ -229,6 +257,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       const int8_t* __restrict__ yb,
                       const uint8_t* __restrict__ valid,
                       const int32_t* __restrict__ s1,
+                      const int8_t* __restrict__ start,
                       const int32_t* __restrict__ fink, int d1k, int Wp,
                       int B, float* __restrict__ band,
                       float* __restrict__ cs, float* __restrict__ lsf,
@@ -243,43 +272,55 @@ __global__ void __launch_bounds__(MAX_THREADS)
   for (int i = g.ty * g.L + g.lane; i < 11 * g.plane; i += g.TY * g.L)
     smem[i] = 0.f;
   load_tables(tab, T, Em, Eg, g);
-  const int fk = g.live ? fink[g.b] : -1;
+  int fk = g.live && !MULTI ? fink[g.b] : -1;
   const size_t t0 = (size_t)g.t * d1k;  // the trial's first diagonal
   const int G = d1k / K;
 
   float f[RPT][5], fp[RPT][5];
-  start_frontier<RPT>(f, g);
 #pragma unroll
   for (int r = 0; r < RPT; ++r)
 #pragma unroll
-    for (int s = 0; s < NS; ++s) fp[r][s] = 0.f;
-  __syncthreads();
-  // d = 0 is pure initialisation.
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int k = g.ty + r * g.TY;
-    if (k >= Wp || !g.live) continue;
-    if constexpr (MODE == MODE_STORED) {
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        band[((t0 * NS + s) * Wp + k) * B + g.b] = f[r][s];
-    } else if constexpr (MODE == MODE_GENERIC) {
-      band[(t0 * Wp + k) * B + g.b] = f[r][0];
-    }
-    if (k == fk) term[t0 * B + g.b] = sum5(f[r]);
-  }
-  if (g.live && g.ty == 0) lsf[t0 * B + g.b] = 0.f;
-  publish_mixes<RPT, true>(f, tab, fG, fM, 0, g);
+    for (int s = 0; s < NS; ++s) fp[r][s] = f[r][s] = 0.f;
   float ls = 0.f, cprev = 1.f;
-  int sprev = g.live ? s1[g.b] : 0;
+  int sprev = 0, d0 = 0;
+  if constexpr (!MULTI) {
+    start_frontier<RPT>(f, g);
+    __syncthreads();
+    // d = 0 is pure initialisation.
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = g.ty + r * g.TY;
+      if (k >= Wp || !g.live) continue;
+      if constexpr (MODE == MODE_STORED) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          band[((t0 * NS + s) * Wp + k) * B + g.b] = f[r][s];
+      } else if constexpr (MODE == MODE_GENERIC) {
+        band[(t0 * Wp + k) * B + g.b] = f[r][0];
+      }
+      if (k == fk) term[t0 * B + g.b] = sum5(f[r]);
+    }
+    if (g.live && g.ty == 0) lsf[t0 * B + g.b] = 0.f;
+    publish_mixes<RPT, true>(f, tab, fG, fM, 0, g);
+    sprev = g.live ? s1[g.b] : 0;
+    d0 = 1;
+  }
+  // MULTI: every diagonal, d = 0 included, runs the recursion from the
+  // zero frontier; the start distribution enters at each problem's first
+  // diagonal (the spacers before it leave the frontier zero).
   __syncthreads();
 
-  for (int d = 1; d < d1k; ++d) {
+  for (int d = d0; d < d1k; ++d) {
     const int t1 = g.live ? s1[(size_t)d * B + g.b] : 0;
     const int t2 = t1 + sprev;
     sprev = t1;
-    fwd_cells<RPT, CKPT>(f, fp, tab, fG, fM, xb, yb, valid, d, t1, t2,
-                         cprev, g);
+    bool seed = false;
+    if constexpr (MULTI) {
+      fk = g.live ? fink[(size_t)d * B + g.b] : -1;
+      seed = g.live && start[(size_t)d * B + g.b] != 0;
+    }
+    fwd_cells<RPT, CKPT, MULTI>(f, fp, tab, fG, fM, xb, yb, valid, d, t1,
+                                t2, cprev, seed, g);
     float tv = 0.f;
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
@@ -347,8 +388,13 @@ __device__ __forceinline__ void reduce_rows(const float (&acc)[N], float* shR,
 
 // band: the forward's f_all, checkpoints or F_match (counts_fwd_kernel);
 // post is written by MODE_STORED and MODE_GENERIC, the count partials by
-// the two counts modes.
-template <int RPT, int MODE>
+// the two counts modes.  Single-problem lanes: fink, find [B] and logZ
+// [ntr][B].  MULTI: fink, find [d1k][B] (a problem's terminal row and
+// diagonal at its terminal diagonal, else -1), logZ the per-diagonal
+// log-likelihood L [ntr][d1k][B] of the problem owning the diagonal, and
+// start [d1k][B]: the backward injects at every terminal cell and restarts
+// its log-scale there, and each problem's first diagonal emits nothing.
+template <int RPT, int MODE, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS)
     counts_bwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
                       const float* __restrict__ Eg,
@@ -358,6 +404,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       const int8_t* __restrict__ yb,
                       const uint8_t* __restrict__ valid,
                       const int32_t* __restrict__ s1,
+                      const int8_t* __restrict__ start,
                       const int32_t* __restrict__ fink,
                       const int32_t* __restrict__ find,
                       const float* __restrict__ logZ, int d1k, int Wp, int B,
@@ -381,9 +428,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
   for (int i = g.ty * g.L + g.lane; i < 11 * plane; i += g.TY * g.L)
     smem[i] = 0.f;
   load_tables(tab, T, Em, Eg, g);
-  const int fk = g.live ? fink[g.b] : -1;
-  const int fd = g.live ? find[g.b] : -1;
-  const float lz = g.live ? logZ[(size_t)g.t * B + g.b] : 0.f;
+  const int fk = g.live && !MULTI ? fink[g.b] : -1;
+  const int fd = g.live && !MULTI ? find[g.b] : -1;
+  const float lz0 = g.live && !MULTI ? logZ[(size_t)g.t * B + g.b] : 0.f;
   const int G = d1k / K;
   float bls = 0.f, cprev = 1.f;
   int sh1 = 0, sh2 = 0;  // s1 at d+1 and d+2
@@ -403,7 +450,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
       float f[RPT][5], fp[RPT][5];
       float lsF, cprevF;
       int sprev, kb0;
-      if (blk == 0) {
+      if (blk == 0 && !MULTI) {
         start_frontier<RPT>(f, g);
         lsF = 0.f;
         cprevF = 1.f;
@@ -421,21 +468,24 @@ __global__ void __launch_bounds__(MAX_THREADS)
         publish_mixes<RPT, true>(f, tab, fG, fM, 0, g);
         kb0 = 1;
       } else {
-        const size_t ck = (size_t)g.t * G + blk - 1;
+        // The previous block's checkpoint; MULTI's block 0 starts from the
+        // zero frontier and seeds its problems' starts as the forward did.
+        const bool have = g.live && blk > 0;
+        const size_t ck = (size_t)g.t * G + (blk > 0 ? blk - 1 : 0);
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
           const int k = g.ty + r * g.TY;
 #pragma unroll
           for (int s = 0; s < NS; ++s) {
-            const bool ok = g.live && k < Wp;
+            const bool ok = have && k < Wp;
             f[r][s] = ok ? band[((ck * 2 * NS + s) * Wp + k) * B + g.b] : 0.f;
             fp[r][s] =
                 ok ? band[((ck * 2 * NS + NS + s) * Wp + k) * B + g.b] : 0.f;
           }
         }
-        lsF = g.live ? lsf_cs[(ck * 4 + 0) * B + g.b] : 0.f;
-        cprevF = g.live ? lsf_cs[(ck * 4 + 1) * B + g.b] : 1.f;
-        sprev = g.live ? (int)lsf_cs[(ck * 4 + 2) * B + g.b] : 0;
+        lsF = have ? lsf_cs[(ck * 4 + 0) * B + g.b] : 0.f;
+        cprevF = have ? lsf_cs[(ck * 4 + 1) * B + g.b] : 1.f;
+        sprev = have ? (int)lsf_cs[(ck * 4 + 2) * B + g.b] : 0;
         publish_mixes<RPT, false>(fp, tab, fG, fM, blk * K - 2, g);
         publish_mixes<RPT, true>(f, tab, fG, fM, blk * K - 1, g);
         kb0 = 0;
@@ -446,8 +496,10 @@ __global__ void __launch_bounds__(MAX_THREADS)
         const int t1 = g.live ? s1[(size_t)d * B + g.b] : 0;
         const int t2 = t1 + sprev;
         sprev = t1;
-        fwd_cells<RPT, false>(f, fp, tab, fG, fM, xb, yb, valid, d, t1, t2,
-                              cprevF, g);
+        const bool seed =
+            MULTI && g.live && start[(size_t)d * B + g.b] != 0;
+        fwd_cells<RPT, false, MULTI>(f, fp, tab, fG, fM, xb, yb, valid, d,
+                                     t1, t2, cprevF, seed, g);
         if (kb == K - 1) {
           const float c = rescale<RPT>(f, shR, g);
           lsF += logf(c);
@@ -473,6 +525,13 @@ __global__ void __launch_bounds__(MAX_THREADS)
       const int gin = ((d + 1) & 1) * 4 * plane, gout = (d & 1) * 4 * plane;
       const int pin = ((d + 2) % 3) * plane, pout = (d % 3) * plane;
       const bool divide = d % K == K - 1;
+      // MULTI: the row of the terminal cell on d if a problem ends there,
+      // else -1 (single-problem lanes: the lane's terminal cell (fd, fk)).
+      int inj_row = -1;
+      if constexpr (MULTI) {
+        const size_t at = (size_t)d * B + g.b;
+        inj_row = g.live && find[at] == d ? fink[at] : -1;
+      }
       float nb[RPT][5], q[RPT][5];
       int xs[RPT], ys[RPT];
 #pragma unroll
@@ -497,7 +556,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
         q[r][2] = shG[plane + ky];
         q[r][3] = shG[2 * plane + kx];
         q[r][4] = shG[3 * plane + ky];
-        const float inj = (d == fd && k == fk) ? 1.f : 0.f;
+        float inj;
+        if constexpr (MULTI)
+          inj = k == inj_row ? 1.f : 0.f;
+        else
+          inj = (d == fd && k == fk) ? 1.f : 0.f;
 #pragma unroll
         for (int s = 0; s < NS; ++s) {
           float acc = q[r][0] * tab[s * 5];
@@ -508,7 +571,12 @@ __global__ void __launch_bounds__(MAX_THREADS)
       }
       sh2 = sh1;
       sh1 = g.live ? s1[(size_t)d * B + g.b] : 0;
-      float lsd;
+      // A problem's backward restarts its log-scale at its terminal cell
+      // (a terminal row is >= 0).
+      if (MULTI && inj_row >= 0) bls = 0.f;
+      float lsd, lz = lz0;
+      if constexpr (MULTI)
+        lz = g.live ? logZ[((size_t)g.t * d1k + d) * B + g.b] : 0.f;
       if constexpr (CKPT)
         lsd = lsb[kb * g.L + g.lane];
       else
@@ -525,7 +593,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
         alpha0 = expf(lsd + bls - lz);
         alpha1 = alpha0;
       }
-      const float a0n = alpha0 * (d == 0 ? 0.f : 1.f);
+      bool bound = d == 0;  // no emission at a problem's first diagonal
+      if constexpr (MULTI) bound = g.live && start[(size_t)d * B + g.b] != 0;
+      const float a0n = alpha0 * (bound ? 0.f : 1.f);
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
         const int k = g.ty + r * g.TY;
@@ -607,41 +677,43 @@ int lanes_for(F floats) {
   return L;
 }
 
-template <int RPT, int MODE>
+template <int RPT, int MODE, bool MULTI>
 cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
                     const int8_t* xb, const int8_t* yb, const uint8_t* valid,
-                    const int32_t* s1, const int32_t* fink, int ntr, int d1k,
-                    int Wp, int B, float* band, float* cs, float* lsf,
-                    float* term, cudaStream_t stream) {
+                    const int32_t* s1, const int8_t* start,
+                    const int32_t* fink, int ntr, int d1k, int Wp, int B,
+                    float* band, float* cs, float* lsf, float* term,
+                    cudaStream_t stream) {
   const int L = lanes_for([&](int l) { return fwd_smem(Wp, l); });
   const size_t bytes = fwd_smem(Wp, L) * sizeof(float);
-  cudaError_t err =
-      mk::allow_smem((const void*)counts_fwd_kernel<RPT, MODE>, bytes);
+  cudaError_t err = mk::allow_smem(
+      (const void*)counts_fwd_kernel<RPT, MODE, MULTI>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
-  counts_fwd_kernel<RPT, MODE><<<grid, block, bytes, stream>>>(
-      T, Em, Eg, xb, yb, valid, s1, fink, d1k, Wp, B, band, cs, lsf, term);
+  counts_fwd_kernel<RPT, MODE, MULTI><<<grid, block, bytes, stream>>>(
+      T, Em, Eg, xb, yb, valid, s1, start, fink, d1k, Wp, B, band, cs, lsf,
+      term);
   return cudaGetLastError();
 }
 
-template <int RPT, int MODE>
+template <int RPT, int MODE, bool MULTI>
 cudaError_t run_bwd(const float* T, const float* Em, const float* Eg,
                     const float* band, const float* lsf_cs, const int8_t* xb,
                     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
-                    const int32_t* fink, const int32_t* find,
-                    const float* logZ, int ntr, int d1k, int Wp, int B,
-                    float* post, float* tcp, float* egp, float* mcp,
-                    cudaStream_t stream) {
+                    const int8_t* start, const int32_t* fink,
+                    const int32_t* find, const float* logZ, int ntr, int d1k,
+                    int Wp, int B, float* post, float* tcp, float* egp,
+                    float* mcp, cudaStream_t stream) {
   constexpr bool CKPT = MODE == MODE_CKPT;
   const int L = lanes_for([&](int l) { return bwd_smem(Wp, l, CKPT); });
   const size_t bytes = bwd_smem(Wp, L, CKPT) * sizeof(float);
-  cudaError_t err =
-      mk::allow_smem((const void*)counts_bwd_kernel<RPT, MODE>, bytes);
+  cudaError_t err = mk::allow_smem(
+      (const void*)counts_bwd_kernel<RPT, MODE, MULTI>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
-  counts_bwd_kernel<RPT, MODE><<<grid, block, bytes, stream>>>(
-      T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, d1k, Wp,
-      B, post, tcp, egp, mcp);
+  counts_bwd_kernel<RPT, MODE, MULTI><<<grid, block, bytes, stream>>>(
+      T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ,
+      d1k, Wp, B, post, tcp, egp, mcp);
   return cudaGetLastError();
 }
 
@@ -657,34 +729,35 @@ bool bad_shape(int ntr, int d1k, int Wp, int B) {
          Wp > ROW_THREADS * 4;
 }
 
-template <int MODE>
+template <int MODE, bool MULTI = false>
 int fwd_launch(const float* T, const float* Em, const float* Eg,
                const int8_t* xb, const int8_t* yb, const uint8_t* valid,
-               const int32_t* s1, const int32_t* fink, int ntr, int d1k,
-               int Wp, int B, float* band, float* cs, float* lsf,
-               float* term, void* stream) {
+               const int32_t* s1, const int8_t* start, const int32_t* fink,
+               int ntr, int d1k, int Wp, int B, float* band, float* cs,
+               float* lsf, float* term, void* stream) {
   if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (rows_per_thread(Wp)) {
-    case 2: return run_fwd<2, MODE>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
-    case 3: return run_fwd<3, MODE>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
-    default: return run_fwd<4, MODE>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    case 2: return run_fwd<2, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    case 3: return run_fwd<3, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    default: return run_fwd<4, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
   }
 }
 
-template <int MODE>
+template <int MODE, bool MULTI = false>
 int bwd_launch(const float* T, const float* Em, const float* Eg,
                const float* band, const float* lsf_cs, const int8_t* xb,
                const int8_t* yb, const uint8_t* valid, const int32_t* s1,
-               const int32_t* fink, const int32_t* find, const float* logZ,
-               int ntr, int d1k, int Wp, int B, float* post, float* tcp,
-               float* egp, float* mcp, void* stream) {
+               const int8_t* start, const int32_t* fink, const int32_t* find,
+               const float* logZ, int ntr, int d1k, int Wp, int B,
+               float* post, float* tcp, float* egp, float* mcp,
+               void* stream) {
   if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (rows_per_thread(Wp)) {
-    case 2: return run_bwd<2, MODE>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
-    case 3: return run_bwd<3, MODE>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
-    default: return run_bwd<4, MODE>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+    case 2: return run_bwd<2, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+    case 3: return run_bwd<3, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+    default: return run_bwd<4, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
   }
 }
 
@@ -700,8 +773,9 @@ extern "C" int counts_fwd_all_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int ntr, int d1k, int Wp, int B, float* f_all,
     float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<MODE_STORED>(T, Em, Eg, xb, yb, valid, s1, fink, ntr,
-                                 d1k, Wp, B, f_all, cs, lsf, term, stream);
+  return fwd_launch<MODE_STORED>(T, Em, Eg, xb, yb, valid, s1, nullptr,
+                                 fink, ntr, d1k, Wp, B, f_all, cs, lsf, term,
+                                 stream);
 }
 
 extern "C" int counts_fwd_ckpt_launch(
@@ -709,8 +783,8 @@ extern "C" int counts_fwd_ckpt_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int ntr, int d1k, int Wp, int B, float* ckpt,
     float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<MODE_CKPT>(T, Em, Eg, xb, yb, valid, s1, fink, ntr, d1k,
-                               Wp, B, ckpt, cs, lsf, term, stream);
+  return fwd_launch<MODE_CKPT>(T, Em, Eg, xb, yb, valid, s1, nullptr, fink,
+                               ntr, d1k, Wp, B, ckpt, cs, lsf, term, stream);
 }
 
 extern "C" int counts_bwd_launch(
@@ -720,8 +794,8 @@ extern "C" int counts_bwd_launch(
     const int32_t* find, const float* logZ, int ntr, int d1k, int Wp, int B,
     float* post, float* tcp, float* egp, float* mcp, void* stream) {
   return bwd_launch<MODE_STORED>(T, Em, Eg, f_all, lsf, xb, yb, valid, s1,
-                                 fink, find, logZ, ntr, d1k, Wp, B, post, tcp,
-                                 egp, mcp, stream);
+                                 nullptr, fink, find, logZ, ntr, d1k, Wp, B,
+                                 post, tcp, egp, mcp, stream);
 }
 
 extern "C" int counts_bwd_ckpt_launch(
@@ -730,9 +804,9 @@ extern "C" int counts_bwd_ckpt_launch(
     const uint8_t* valid, const int32_t* s1, const int32_t* fink,
     const int32_t* find, const float* logZ, int ntr, int d1k, int Wp, int B,
     float* post, float* tcp, float* egp, float* mcp, void* stream) {
-  return bwd_launch<MODE_CKPT>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,
-                               find, logZ, ntr, d1k, Wp, B, post, tcp, egp,
-                               mcp, stream);
+  return bwd_launch<MODE_CKPT>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1,
+                               nullptr, fink, find, logZ, ntr, d1k, Wp, B,
+                               post, tcp, egp, mcp, stream);
 }
 
 // The generic forward-backward pair of one model (T, Em, Eg [5, 5]):
@@ -744,8 +818,9 @@ extern "C" int fb_generic_fwd_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int d1k, int Wp, int B, float* fmatch, float* lsf,
     float* term, void* stream) {
-  return fwd_launch<MODE_GENERIC>(T, Em, Eg, xb, yb, valid, s1, fink, 1, d1k,
-                                  Wp, B, fmatch, nullptr, lsf, term, stream);
+  return fwd_launch<MODE_GENERIC>(T, Em, Eg, xb, yb, valid, s1, nullptr,
+                                  fink, 1, d1k, Wp, B, fmatch, nullptr, lsf,
+                                  term, stream);
 }
 
 extern "C" int fb_generic_bwd_launch(
@@ -755,6 +830,55 @@ extern "C" int fb_generic_bwd_launch(
     const int32_t* find, const float* logZ, int d1k, int Wp, int B,
     float* post, void* stream) {
   return bwd_launch<MODE_GENERIC>(T, Em, Eg, fmatch, lsf, xb, yb, valid, s1,
-                                  fink, find, logZ, 1, d1k, Wp, B, post,
-                                  nullptr, nullptr, nullptr, stream);
+                                  nullptr, fink, find, logZ, 1, d1k, Wp, B,
+                                  post, nullptr, nullptr, nullptr, stream);
+}
+
+// The counts pairs over multi-problem lanes (several problems per lane,
+// SPACER empty diagonals apart): the streams as above plus start int8
+// [d1k, B]; fink and find are per diagonal [d1k, B] (-1 off each problem's
+// terminal diagonal) and the backwards take L [ntr, d1k, B], the
+// log-likelihood of the problem that owns each diagonal, in place of logZ.
+extern "C" int counts_multi_fwd_all_launch(
+    const float* T, const float* Em, const float* Eg, const int8_t* xb,
+    const int8_t* yb, const uint8_t* valid, const int32_t* s1,
+    const int8_t* start, const int32_t* fink, int ntr, int d1k, int Wp,
+    int B, float* f_all, float* cs, float* lsf, float* term, void* stream) {
+  return fwd_launch<MODE_STORED, true>(T, Em, Eg, xb, yb, valid, s1, start,
+                                       fink, ntr, d1k, Wp, B, f_all, cs, lsf,
+                                       term, stream);
+}
+
+extern "C" int counts_multi_fwd_ckpt_launch(
+    const float* T, const float* Em, const float* Eg, const int8_t* xb,
+    const int8_t* yb, const uint8_t* valid, const int32_t* s1,
+    const int8_t* start, const int32_t* fink, int ntr, int d1k, int Wp,
+    int B, float* ckpt, float* cs, float* lsf, float* term, void* stream) {
+  return fwd_launch<MODE_CKPT, true>(T, Em, Eg, xb, yb, valid, s1, start,
+                                     fink, ntr, d1k, Wp, B, ckpt, cs, lsf,
+                                     term, stream);
+}
+
+extern "C" int counts_multi_bwd_launch(
+    const float* T, const float* Em, const float* Eg, const float* f_all,
+    const float* lsf, const int8_t* xb, const int8_t* yb,
+    const uint8_t* valid, const int32_t* s1, const int8_t* start,
+    const int32_t* fink, const int32_t* find, const float* L, int ntr,
+    int d1k, int Wp, int B, float* post, float* tcp, float* egp, float* mcp,
+    void* stream) {
+  return bwd_launch<MODE_STORED, true>(T, Em, Eg, f_all, lsf, xb, yb, valid,
+                                       s1, start, fink, find, L, ntr, d1k, Wp,
+                                       B, post, tcp, egp, mcp, stream);
+}
+
+extern "C" int counts_multi_bwd_ckpt_launch(
+    const float* T, const float* Em, const float* Eg, const float* ckpt,
+    const float* cs, const int8_t* xb, const int8_t* yb,
+    const uint8_t* valid, const int32_t* s1, const int8_t* start,
+    const int32_t* fink, const int32_t* find, const float* L, int ntr,
+    int d1k, int Wp, int B, float* post, float* tcp, float* egp, float* mcp,
+    void* stream) {
+  return bwd_launch<MODE_CKPT, true>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1,
+                                     start, fink, find, L, ntr, d1k, Wp, B,
+                                     post, tcp, egp, mcp, stream);
 }

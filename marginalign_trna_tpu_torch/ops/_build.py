@@ -122,6 +122,14 @@ _SIGNATURES: Dict[str, List] = {
     # fm, lsf, L, em, valid, s1, fink, find, coef(host), chain, D1, Wp, B,
     # post, stream
     "fb_multi_backward": [_P] * 9 + [_I] * 4 + [_P] * 2,
+    # T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, cs,
+    # lsf, term, stream
+    "counts_multi_fwd_all": [_P] * 9 + [_I] * 4 + [_P] * 5,
+    "counts_multi_fwd_ckpt": [_P] * 9 + [_I] * 4 + [_P] * 5,
+    # T, Em, Eg, band, lsf or cs, xb, yb, valid, s1, start, fink, find, L,
+    # ntr, d1k, Wp, B, post, tcp, egp, mcp, stream
+    "counts_multi_bwd": [_P] * 13 + [_I] * 4 + [_P] * 5,
+    "counts_multi_bwd_ckpt": [_P] * 13 + [_I] * 4 + [_P] * 5,
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}

@@ -176,6 +176,28 @@ class MultiDeviceBatch(NamedTuple):
     p_d0: torch.Tensor
 
 
+def multi_logz(lsf: torch.Tensor, term: torch.Tensor,
+               mdev: MultiDeviceBatch):
+    """(L, logZ) of a multi-problem forward from its log-scales and
+    terminal sums [..., D1, B] (any leading axes, e.g. trials; D1 may be
+    padded past the batch's): logterm = log(term) + lsf, L [..., D1, B]
+    logterm at the terminal diagonal of the problem owning each diagonal
+    (the `step_final` gather; padded diagonals read diagonal 0), and each
+    problem's logZ [..., P] = logterm at its terminal diagonal less the
+    lane's log-scale just before its first diagonal (the JAX package's
+    arithmetic, marginalign_trna_tpu/ops/fb_pallas_counts.py :784-791)."""
+    logterm = torch.log(torch.clamp(term, min=1e-30)) + lsf
+    sf = mdev.step_final.long()
+    pad = lsf.shape[-2] - sf.shape[0]
+    if pad:
+        sf = torch.cat([sf, sf.new_zeros((pad, sf.shape[1]))])
+    L = logterm.gather(-2, sf.expand(logterm.shape))
+    lane = mdev.p_lane.long()
+    d0 = mdev.p_d0.long()
+    base = torch.where(d0 > 0, lsf[..., (d0 - 1).clamp(min=0), lane], 0.0)
+    return L, logterm[..., mdev.p_final_d.long(), lane] - base
+
+
 def multi_device_batch(mb: MultiBandedBatch, device) -> MultiDeviceBatch:
     """Upload a MultiBandedBatch (fb_pallas.py `multi_device_batch`)."""
     def up(a, dtype):

@@ -21,11 +21,23 @@ Port of marginalign_trna_tpu/ops/fb_pallas_counts.py, single-problem lanes:
                       25 match-emission partials folded in (no posterior
                       band).
 
+and the same four over multi-problem lanes (several problems per lane,
+SPACER empty diagonals apart: ops/band.py `pack_multi_banded_batch`):
+
+  counts_multi_fwd_all, counts_multi_bwd      <- `_fwd_all_multi_impl`,
+      `_bwd_counts_multi_impl` (rows 25 and 27);
+  counts_multi_fwd_ckpt, counts_multi_bwd_ckpt <- `_fwd_ckpt_multi_impl`,
+      `_bwd_counts_ckpt_multi_impl` (row 30).
+
 Every function takes the model as stacked tables T, Ematch, Egap
 [Ntr, 5, 5] (one per EM trial; Ntr = 1 for a serial trial) and the band
 streams padded to d1k, a multiple of 8 diagonals: xb, yb int8, valid bool
-[d1k, Wp, B], s1 int32 [d1k, B], fink, find int32 [B].  The trials share
-the streams.  Outputs carry the trials axis first.
+[d1k, Wp, B], s1 int32 [d1k, B], fink, find int32 [B].  The multi-lane
+functions take fink and find per diagonal, int32 [d1k, B] (-1 off each
+problem's terminal diagonal), and start int8 [d1k, B]; their backwards take
+L [Ntr, d1k, B] (the log-likelihood of the problem owning each diagonal)
+where the single-lane ones take logZ [Ntr, B].  The trials share the
+streams.  Outputs carry the trials axis first.
 
 The arithmetic is the TPU kernels' with the model as run-time tables:
 generic emissions Ematch[x][y] and Egap[s][code] (gap rows need not be flat:
@@ -33,7 +45,12 @@ mid-training models are not), the 8-diagonal rescale (forward at
 d % 8 == 7, backward at d % 8 == 0, factor 1 for a step with no mass), the
 d-2 term divided by the previous factor on the diagonal after a rescale,
 the uniform start distribution at row 0 of d = 0, the terminal injection at
-(find, fink), and no emission counted at the d = 0 boundary cell.  The
+(find, fink), and no emission counted at the d = 0 boundary cell.  Over
+multi-problem lanes every diagonal runs the recursion from a zero frontier,
+the start distribution is added in all five states at row 0 of each
+problem's first diagonal, the backward injects at every terminal cell and
+restarts its log-scale there, and a problem's first diagonal counts no
+emission.  The
 plain versions follow it step for step; only the count partials sum in
 another order in the kernels (per thread over the diagonals, then over the
 band rows once), so they agree with the plain versions to float32
@@ -105,28 +122,37 @@ def _sum5(vals):
 
 class _Forward:
     """The counts forward's state, one diagonal at a time: frontiers f1
-    (d-1) and f2 (d-2), log-scale ls, last factor cprev, previous s1."""
+    (d-1) and f2 (d-2), log-scale ls, last factor cprev, previous s1.
+    Single-problem lanes start from the start distribution at d = 0;
+    multi-problem lanes (multi=True) from the zero frontier before d = 0,
+    their previous s1 0."""
 
-    def __init__(self, T, Em, Eg, Wp, B):
+    def __init__(self, T, Em, Eg, Wp, B, multi: bool = False):
         self.T, self.Em, self.Eg = _cols(T), Em, Eg
         ntr = T.shape[0]
         self.zero = T.new_zeros((ntr, Wp, B))
         init = self.zero.clone()
-        init[:, 0] = 0.2
+        if not multi:
+            init[:, 0] = 0.2
         self.f1 = [init] * _NSTATE
         self.f2 = [self.zero] * _NSTATE
         self.ls = T.new_zeros((ntr, B))
         self.cprev = T.new_ones((ntr, B))
-        self.sprev = None
+        self.sprev = (torch.zeros(B, dtype=torch.int32, device=T.device)
+                      if multi else None)
+        self.rows = torch.arange(Wp, device=T.device)[:, None]
 
     def restart(self, f1, f2, ls, cprev, sprev):
         self.f1, self.f2 = f1, f2
         self.ls, self.cprev, self.sprev = ls, cprev, sprev
 
-    def step(self, d, xb, yb, valid, s1):
-        """Advance to diagonal d >= 1; returns the unscaled new frontier's
-        five states and the rescale factor's inverse (None off the
-        rescale diagonals).  self.f1 is then the (scaled) frontier at d."""
+    def step(self, d, xb, yb, valid, s1, start=None):
+        """Advance to diagonal d (d >= 1 on single-problem lanes); returns
+        the unscaled new frontier's five states and the rescale factor's
+        inverse (None off the rescale diagonals).  self.f1 is then the
+        (scaled) frontier at d.  With the start stream (multi-problem
+        lanes) the start distribution is added at row 0 of every lane
+        where a problem starts at d."""
         t1 = s1[d]
         t2 = t1 + self.sprev
         self.sprev = t1
@@ -141,6 +167,10 @@ class _Forward:
                eg[1] * shift(mix_g[1], t1 - 1) * v,
                eg[2] * shift(mix_g[2], t1) * v,
                eg[3] * shift(mix_g[3], t1 - 1) * v]
+        if start is not None:
+            seed = (self.rows == 0) & (start[d] != 0)[None, :]
+            inj = torch.where(seed, 0.2, 0.0)
+            new = [x + inj for x in new]
         inv = None
         scaled = new
         if d % _RESCALE_PERIOD == _RESCALE_PERIOD - 1:
@@ -154,16 +184,22 @@ class _Forward:
         return new, inv
 
 
-def _forward(T, Em, Eg, xb, yb, valid, s1, fink, store: str):
+def _forward(T, Em, Eg, xb, yb, valid, s1, fink, store: str, start=None):
     """The forward over the band, storing (the kernels' modes) "all": the
     five states of every diagonal (f_all), "ckpt": the checkpoints of every
     8-diagonal block, or "match": the match state of every diagonal
-    (F_match, the generic forward); with lsf and term."""
+    (F_match, the generic forward); with lsf and term.  With the start
+    stream the band holds multi-problem lanes, and fink is per diagonal."""
     d1k, Wp, B = xb.shape
     ntr = T.shape[0]
-    fw = _Forward(T, Em, Eg, Wp, B)
+    multi = start is not None
+    fw = _Forward(T, Em, Eg, Wp, B, multi)
     rows = torch.arange(Wp, device=xb.device)[:, None]
-    sel = (rows == fink[None, :]).float()
+
+    def sel(d):
+        """1 at the row of the terminal cell on diagonal d, else 0."""
+        return (rows == (fink[d] if multi else fink)[None, :]).float()
+
     lsf = T.new_empty((ntr, d1k, B))
     term = T.new_empty((ntr, d1k, B))
     if store == "ckpt":
@@ -181,14 +217,17 @@ def _forward(T, Em, Eg, xb, yb, valid, s1, fink, store: str):
         elif store == "match":
             band[:, d] = fw.f1[0]
 
-    # d = 0 is pure initialisation: the start distribution at row 0.
-    fw.sprev = s1[0]
-    lsf[:, 0] = fw.ls
-    term[:, 0] = (_sum5(fw.f1) * sel).sum(dim=-2)
-    keep(0)
-    for d in range(1, d1k):
-        new, inv = fw.step(d, xb, yb, valid, s1)
-        t = (_sum5(new) * sel).sum(dim=-2)
+    first = 0
+    if not multi:
+        # d = 0 is pure initialisation: the start distribution at row 0.
+        fw.sprev = s1[0]
+        lsf[:, 0] = fw.ls
+        term[:, 0] = (_sum5(fw.f1) * sel(0)).sum(dim=-2)
+        keep(0)
+        first = 1
+    for d in range(first, d1k):
+        new, inv = fw.step(d, xb, yb, valid, s1, start)
+        t = (_sum5(new) * sel(d)).sum(dim=-2)
         term[:, d] = t if inv is None else t * inv
         lsf[:, d] = fw.ls
         keep(d)
@@ -207,10 +246,12 @@ class _Backward:
     """The counts backward's state and per-lane partials, one diagonal at
     a time (descending d).  counts=False keeps no partials (the generic
     forward-backward's backward, ops/fb_generic_cuda.py): `step` then needs
-    only the match plane of the forward frontier."""
+    only the match plane of the forward frontier.  With the start stream
+    (multi-problem lanes) logZ is the per-diagonal L [Ntr, d1k, B] and
+    fink, find are per diagonal."""
 
     def __init__(self, T, Em, Eg, logZ, Wp, B, match: bool,
-                 counts: bool = True):
+                 counts: bool = True, start=None):
         self.T, self.Em, self.Eg = _cols(T), Em, Eg
         ntr = T.shape[0]
         zero = T.new_zeros((ntr, Wp, B))
@@ -221,6 +262,7 @@ class _Backward:
         self.sh1 = self.sh2 = torch.zeros(B, dtype=torch.int32,
                                           device=T.device)  # s1 at d+1, d+2
         self.logZ = logZ
+        self.start = start
         self.tca = T.new_zeros((ntr, N_TRANS, B)) if counts else None
         self.ega = T.new_zeros((ntr, N_GAP, B)) if counts else None
         self.mca = T.new_zeros((ntr, N_MATCH, B)) if match else None
@@ -241,7 +283,14 @@ class _Backward:
         em, eg = _emissions(self.Em, self.Eg, x, y)
         self.sh2, self.sh1 = self.sh1, s1[d]
         kr = torch.arange(Wp, device=f_d.device)[:, None]
-        inj = ((kr == fink[None, :]) & (find == d)[None, :]).float()
+        if self.start is None:
+            at_term, lz = find == d, self.logZ
+            inj = ((kr == fink[None, :]) & at_term[None, :]).float()
+        else:
+            at_term, lz = find[d] == d, self.logZ[:, d]
+            inj = ((kr == fink[d][None, :]) & at_term[None, :]).float()
+            # Each problem's backward restarts at its terminal cell.
+            self.bls = torch.where(at_term, 0.0, self.bls)
         v = valid[d].float()
         new = []
         for s in range(_NSTATE):
@@ -256,10 +305,10 @@ class _Backward:
             self.bls = self.bls + torch.log(c)
             self.cprev = c
             new = [b * inv[:, None, :] for b in new]
-            alpha0 = torch.exp(lsf_d + self.bls - self.logZ)
+            alpha0 = torch.exp(lsf_d + self.bls - lz)
             alpha1 = alpha0 * inv
         else:
-            alpha0 = torch.exp(lsf_d + self.bls - self.logZ)
+            alpha0 = torch.exp(lsf_d + self.bls - lz)
             alpha1 = alpha0
         a0 = alpha0[:, None, :]
         post = f_d[:, 0] * new[0] * a0
@@ -276,9 +325,13 @@ class _Backward:
         qs = torch.stack(q, dim=1)
         self.tca += (fs[:, :, None] * qs[:, None]).sum(dim=-2).reshape(
             fs.shape[0], N_TRANS, -1)
-        # Gap (and match) occupancy by code; the d = 0 boundary cell holds
-        # the start distribution and emits nothing.
-        a0n = a0 * (0.0 if d == 0 else 1.0)
+        # Gap (and match) occupancy by code; the d = 0 boundary cell (each
+        # problem's first diagonal) holds the start distribution and emits
+        # nothing.
+        if self.start is None:
+            a0n = a0 * (0.0 if d == 0 else 1.0)
+        else:
+            a0n = a0 * (self.start[d] == 0).float()
         gam = torch.stack([f_d[:, s] * new[s] for s in range(1, _NSTATE)],
                           dim=1) * a0n[:, None]
         hx = (x.long()[None] == self.codes).float()    # [5, Wp, B]
@@ -327,12 +380,23 @@ def counts_bwd_ckpt_plain(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,
     """Plain version of the counts_bwd_ckpt kernel: (tcp [Ntr, 25, B],
     egp [Ntr, 20, B], mcp [Ntr, 25, B]).  Each block's forward restarts
     from the previous block's checkpoint (block 0 from the start state)."""
+    return _bwd_ckpt(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink, find,
+                     logZ)
+
+
+def _bwd_ckpt(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink, find, logZ,
+              start=None):
+    """The checkpoint backward, single-problem lanes or (with the start
+    stream) multi-problem lanes."""
     d1k, Wp, B = xb.shape
-    bw = _Backward(T, Em, Eg, logZ, Wp, B, match=True)
+    multi = start is not None
+    bw = _Backward(T, Em, Eg, logZ, Wp, B, match=True, start=start)
     for g in range(d1k // STEP_BLOCK - 1, -1, -1):
-        fw = _Forward(T, Em, Eg, Wp, B)
+        fw = _Forward(T, Em, Eg, Wp, B, multi)
         base = g * STEP_BLOCK
-        if g == 0:
+        if g == 0 and multi:
+            fs, lsb = [], []
+        elif g == 0:
             fw.sprev = s1[0]
             fs, lsb = [torch.stack(fw.f1, dim=1)], [fw.ls]
         else:
@@ -343,7 +407,7 @@ def counts_bwd_ckpt_plain(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,
                        cs[:, g - 1, 2].to(s1.dtype)[0])
             fs, lsb = [], []
         for d in range(base + len(fs), base + STEP_BLOCK):
-            fw.step(d, xb, yb, valid, s1)
+            fw.step(d, xb, yb, valid, s1, start)
             fs.append(torch.stack(fw.f1, dim=1))
             lsb.append(fw.ls)
         for kb in range(STEP_BLOCK - 1, -1, -1):
@@ -352,10 +416,48 @@ def counts_bwd_ckpt_plain(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,
     return bw.tca, bw.ega, bw.mca
 
 
+def counts_multi_fwd_all_plain(T, Em, Eg, xb, yb, valid, s1, start, fink):
+    """Plain version of the counts_multi_fwd_all kernel: (f_all
+    [Ntr, d1k, 5, Wp, B], lsf [Ntr, d1k, B], term [Ntr, d1k, B], 0 off
+    terminal diagonals) over multi-problem lanes."""
+    return _forward(T, Em, Eg, xb, yb, valid, s1, fink, "all", start)
+
+
+def counts_multi_bwd_plain(T, Em, Eg, f_all, lsf, xb, yb, valid, s1, start,
+                           fink, find, L):
+    """Plain version of the counts_multi_bwd kernel: (post
+    [Ntr, d1k, Wp, B], each problem normalised by its L, tcp [Ntr, 25, B],
+    egp [Ntr, 20, B])."""
+    d1k, Wp, B = xb.shape
+    bw = _Backward(T, Em, Eg, L, Wp, B, match=False, start=start)
+    post = T.new_empty((T.shape[0], d1k, Wp, B))
+    for d in range(d1k - 1, -1, -1):
+        post[:, d] = bw.step(d, f_all[:, d], lsf[:, d], xb, yb, valid, s1,
+                             fink, find)
+    return post, bw.tca, bw.ega
+
+
+def counts_multi_fwd_ckpt_plain(T, Em, Eg, xb, yb, valid, s1, start, fink):
+    """Plain version of the counts_multi_fwd_ckpt kernel: (ckpt
+    [Ntr, G, 10, Wp, B], cs [Ntr, G, 4, B], lsf, term [Ntr, d1k, B]) over
+    multi-problem lanes (counts_fwd_ckpt_plain's checkpoints)."""
+    return _forward(T, Em, Eg, xb, yb, valid, s1, fink, "ckpt", start)
+
+
+def counts_multi_bwd_ckpt_plain(T, Em, Eg, ckpt, cs, xb, yb, valid, s1,
+                                start, fink, find, L):
+    """Plain version of the counts_multi_bwd_ckpt kernel: (tcp, egp, mcp)
+    as counts_bwd_ckpt_plain's.  Block 0's forward restarts from the zero
+    frontier, and each block's recompute seeds the problems that start in
+    it."""
+    return _bwd_ckpt(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink, find, L,
+                     start)
+
+
 # ------------------------------------------------------------------ kernels
 
 
-def _check_common(T, Em, Eg, xb, yb, valid, s1, fink):
+def _check_common(T, Em, Eg, xb, yb, valid, s1, fink, start=None):
     d1k, Wp, B = xb.shape
     dev = xb.device
     ntr = T.shape[0]
@@ -365,7 +467,11 @@ def _check_common(T, Em, Eg, xb, yb, valid, s1, fink):
     check_tensor(yb, torch.int8, (d1k, Wp, B), dev)
     check_tensor(valid, torch.bool, (d1k, Wp, B), dev)
     check_tensor(s1, torch.int32, (d1k, B), dev)
-    check_tensor(fink, torch.int32, (B,), dev)
+    if start is None:
+        check_tensor(fink, torch.int32, (B,), dev)
+    else:
+        check_tensor(start, torch.int8, (d1k, B), dev)
+        check_tensor(fink, torch.int32, (d1k, B), dev)
     if d1k % STEP_BLOCK or Wp > MAX_WP:
         raise ValueError("the counts kernels take d1k a multiple of %d and "
                          "Wp <= %d (got d1k=%d, Wp=%d)"
@@ -373,8 +479,9 @@ def _check_common(T, Em, Eg, xb, yb, valid, s1, fink):
     return ntr, d1k, Wp, B, dev
 
 
-def _fwd_cuda(ckpt: bool, T, Em, Eg, xb, yb, valid, s1, fink):
-    ntr, d1k, Wp, B, dev = _check_common(T, Em, Eg, xb, yb, valid, s1, fink)
+def _fwd_cuda(ckpt: bool, T, Em, Eg, xb, yb, valid, s1, fink, start=None):
+    ntr, d1k, Wp, B, dev = _check_common(T, Em, Eg, xb, yb, valid, s1, fink,
+                                         start)
     G = d1k // STEP_BLOCK
     f32 = dict(dtype=torch.float32, device=dev)
     if ckpt:
@@ -385,11 +492,14 @@ def _fwd_cuda(ckpt: bool, T, Em, Eg, xb, yb, valid, s1, fink):
         cs = None
     lsf = torch.empty((ntr, d1k, B), **f32)
     term = torch.zeros((ntr, d1k, B), **f32)
+    name = "counts_fwd_ckpt" if ckpt else "counts_fwd_all"
+    streams = [xb.data_ptr(), yb.data_ptr(), valid.data_ptr(), s1.data_ptr()]
+    if start is not None:
+        name = name.replace("counts_", "counts_multi_")
+        streams.append(start.data_ptr())
     _build.launch(
-        "counts_fwd_ckpt" if ckpt else "counts_fwd_all", dev,
-        T.data_ptr(), Em.data_ptr(), Eg.data_ptr(), xb.data_ptr(),
-        yb.data_ptr(), valid.data_ptr(), s1.data_ptr(), fink.data_ptr(),
-        ntr, d1k, Wp, B, band.data_ptr(),
+        name, dev, T.data_ptr(), Em.data_ptr(), Eg.data_ptr(), *streams,
+        fink.data_ptr(), ntr, d1k, Wp, B, band.data_ptr(),
         0 if cs is None else cs.data_ptr(), lsf.data_ptr(), term.data_ptr(),
     )
     return (band, cs, lsf, term) if ckpt else (band, lsf, term)
@@ -408,11 +518,16 @@ def counts_fwd_ckpt_cuda(T, Em, Eg, xb, yb, valid, s1, fink):
 
 
 def _bwd_cuda(ckpt: bool, T, Em, Eg, band, lsf_or_cs, xb, yb, valid, s1,
-              fink, find, logZ) -> Tuple[torch.Tensor, ...]:
-    ntr, d1k, Wp, B, dev = _check_common(T, Em, Eg, xb, yb, valid, s1, fink)
+              fink, find, logZ, start=None) -> Tuple[torch.Tensor, ...]:
+    ntr, d1k, Wp, B, dev = _check_common(T, Em, Eg, xb, yb, valid, s1, fink,
+                                         start)
     G = d1k // STEP_BLOCK
-    check_tensor(find, torch.int32, (B,), dev)
-    check_tensor(logZ, torch.float32, (ntr, B), dev)
+    if start is None:
+        check_tensor(find, torch.int32, (B,), dev)
+        check_tensor(logZ, torch.float32, (ntr, B), dev)
+    else:
+        check_tensor(find, torch.int32, (d1k, B), dev)
+        check_tensor(logZ, torch.float32, (ntr, d1k, B), dev)
     f32 = dict(dtype=torch.float32, device=dev)
     if ckpt:
         check_tensor(band, torch.float32, (ntr, G, 2 * _NSTATE, Wp, B), dev)
@@ -425,12 +540,15 @@ def _bwd_cuda(ckpt: bool, T, Em, Eg, band, lsf_or_cs, xb, yb, valid, s1,
     tcp = torch.empty((ntr, N_TRANS, B), **f32)
     egp = torch.empty((ntr, N_GAP, B), **f32)
     mcp = torch.empty((ntr, N_MATCH, B), **f32) if ckpt else None
+    name = "counts_bwd_ckpt" if ckpt else "counts_bwd"
+    streams = [xb.data_ptr(), yb.data_ptr(), valid.data_ptr(), s1.data_ptr()]
+    if start is not None:
+        name = name.replace("counts_", "counts_multi_")
+        streams.append(start.data_ptr())
     _build.launch(
-        "counts_bwd_ckpt" if ckpt else "counts_bwd", dev,
-        T.data_ptr(), Em.data_ptr(), Eg.data_ptr(), band.data_ptr(),
-        lsf_or_cs.data_ptr(), xb.data_ptr(), yb.data_ptr(),
-        valid.data_ptr(), s1.data_ptr(), fink.data_ptr(), find.data_ptr(),
-        logZ.data_ptr(), ntr, d1k, Wp, B,
+        name, dev, T.data_ptr(), Em.data_ptr(), Eg.data_ptr(),
+        band.data_ptr(), lsf_or_cs.data_ptr(), *streams, fink.data_ptr(),
+        find.data_ptr(), logZ.data_ptr(), ntr, d1k, Wp, B,
         0 if post is None else post.data_ptr(), tcp.data_ptr(),
         egp.data_ptr(), 0 if mcp is None else mcp.data_ptr(),
     )
@@ -451,3 +569,31 @@ def counts_bwd_ckpt_cuda(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink, find,
     counts_bwd_ckpt_plain."""
     return _bwd_cuda(True, T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,
                      find, logZ)
+
+
+def counts_multi_fwd_all_cuda(T, Em, Eg, xb, yb, valid, s1, start, fink):
+    """The counts_multi_fwd_all kernel (csrc/fb_counts.cu); outputs of
+    counts_multi_fwd_all_plain."""
+    return _fwd_cuda(False, T, Em, Eg, xb, yb, valid, s1, fink, start)
+
+
+def counts_multi_bwd_cuda(T, Em, Eg, f_all, lsf, xb, yb, valid, s1, start,
+                          fink, find, L):
+    """The counts_multi_bwd kernel (csrc/fb_counts.cu); outputs of
+    counts_multi_bwd_plain."""
+    return _bwd_cuda(False, T, Em, Eg, f_all, lsf, xb, yb, valid, s1, fink,
+                     find, L, start)
+
+
+def counts_multi_fwd_ckpt_cuda(T, Em, Eg, xb, yb, valid, s1, start, fink):
+    """The counts_multi_fwd_ckpt kernel (csrc/fb_counts.cu); outputs of
+    counts_multi_fwd_ckpt_plain."""
+    return _fwd_cuda(True, T, Em, Eg, xb, yb, valid, s1, fink, start)
+
+
+def counts_multi_bwd_ckpt_cuda(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, start,
+                               fink, find, L):
+    """The counts_multi_bwd_ckpt kernel (csrc/fb_counts.cu); outputs of
+    counts_multi_bwd_ckpt_plain."""
+    return _bwd_cuda(True, T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,
+                     find, L, start)

@@ -13,7 +13,8 @@ diagonals apart (ops/band.py `pack_multi_banded_batch`):
      the start distribution at row 0 of every problem's first diagonal,
      and writes the scaled match plane fm, the cumulative log-scale lsf
      and the per-diagonal terminal sum term (0 off terminal diagonals);
-  3. on the device in plain torch: logterm = log(term) + lsf, the per-step
+  3. on the device in plain torch (ops/fb.py `multi_logz`, shared with
+     the E-step counts): logterm = log(term) + lsf, the per-step
      L = logterm at the owning problem's terminal diagonal (the
      `step_final` gather), and each problem's
      logZ = logterm[final_d] - lsf[d0 - 1], the lane's log-scale just
@@ -43,7 +44,7 @@ import torch
 from . import _build
 from ._build import check_tensor
 from .dispatch import use_kernel
-from .fb import FbTables, MultiDeviceBatch, shift
+from .fb import FbTables, MultiDeviceBatch, multi_logz, shift
 from .fb_circ import circ_coefficients
 from .fb_circ_cuda import (
     COEF_A, COEF_C, COEF_CB, COEF_K, COEF_M0, COEF_MC, COEF_PI, COEF_R,
@@ -52,7 +53,6 @@ from .fb_circ_cuda import (
 from .fb_cuda import _precompute_ematch
 
 _RESCALE_PERIOD = 8
-_TINY = 1e-30
 
 
 def _mixes(c, chain: bool, f):
@@ -254,12 +254,7 @@ def _posteriors_multi(tables: FbTables, mdev: MultiDeviceBatch, forward,
     ematch = _precompute_ematch(tables, mdev.xb, mdev.yb) * mdev.valid
     fm, lsf, term = forward(coef, chain, ematch, mdev.valid, mdev.s1,
                             mdev.start, mdev.fink)
-    logterm = torch.log(torch.clamp(term, min=_TINY)) + lsf
-    L = logterm.gather(0, mdev.step_final.long())
-    lane = mdev.p_lane.long()
-    d0 = mdev.p_d0.long()
-    base = torch.where(d0 > 0, lsf[(d0 - 1).clamp(min=0), lane], 0.0)
-    logZ = logterm[mdev.p_final_d.long(), lane] - base
+    L, logZ = multi_logz(lsf, term, mdev)
     post = backward(coef, chain, fm, lsf, L, ematch, mdev.valid, mdev.s1,
                     mdev.fink, mdev.find)
     return logZ, post

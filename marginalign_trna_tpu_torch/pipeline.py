@@ -12,10 +12,9 @@ With em=True the model is first trained by Baum-Welch EM on the chained
 guide alignments (align/em.py), normalised, and the realignment runs with
 it (the reference's marginAlign --em, src/margin/marginAlignLib.py:279-297).
 
-With multi=True the guide and the realignment run in multi-problem lanes,
-several short problems per lane (the JAX package's MARGINALIGN_MULTI=on;
-align/guide.py and align/realign.py); EM over multi lanes is not ported
-yet, so em=True with multi=True raises NotImplementedError.
+With multi=True the guide, the EM E-step and the realignment run in
+multi-problem lanes, several short problems per lane (the JAX package's
+MARGINALIGN_MULTI=on; align/guide.py, align/em.py and align/realign.py).
 
 The device is explicit.  "cuda" runs the CUDA kernels and fails if no CUDA
 device is present; the plain PyTorch versions run only when "cpu" is asked
@@ -92,14 +91,9 @@ def align(
 ) -> Dict[str, float]:
     """marginAlign: guide mapping, chaining, [EM training,] realignment ->
     SAM.  Returns the wall seconds of each stage (guide_s, chain_s, em_s,
-    realign_s).  multi=True: the guide and the realignment in multi-problem
-    lanes (module docstring)."""
+    realign_s).  multi=True: the guide, the EM E-step and the
+    realignment in multi-problem lanes (module docstring)."""
     options = options or AlignOptions()
-    if options.em and multi:
-        raise NotImplementedError(
-            "marginAlign --em over multi-problem lanes (the E-step counts "
-            "kernels of multi lanes, ROADMAP B20) is not ported yet; run EM "
-            "without multi=True")
     dev = resolve_device(device)
     cfg = GuideConfig.preset(options.mapper_preset)
     stages: Dict[str, float] = {}
@@ -129,7 +123,7 @@ def align(
         hmm = options.input_model or PairHmm.load(DEFAULT_MODEL)
         if options.em:
             hmm = timed("em_s", _train, work_sam, reference_fasta_path, hmm,
-                        options, dev)
+                        options, dev, multi)
         timed("realign_s", realign_sam_file, work_sam,
               output_sam_path, read_fastq_path, reference_fasta_path, hmm,
               dev, gap_gamma=options.gap_gamma,
@@ -139,16 +133,18 @@ def align(
 
 
 def _train(sam_path: str, reference_fasta_path: str, hmm: PairHmm,
-           options: AlignOptions, dev: torch.device) -> PairHmm:
-    """EM on the records of `sam_path`, starting from `hmm` where the
-    options say so; returns the best trial's model, normalised for
-    realignment (flat indel emissions, GC 0.5), written where the options
-    say."""
+           options: AlignOptions, dev: torch.device,
+           multi: bool) -> PairHmm:
+    """EM on the records of `sam_path` (E-step in multi-problem lanes with
+    multi=True), starting from `hmm` where the options say so; returns the
+    best trial's model, normalised for realignment (flat indel emissions,
+    GC 0.5), written where the options say."""
     jobs = _jobs_from_sam(SamFile.read(sam_path),
                           get_fasta_dictionary(reference_fasta_path), encode)
     best = train_em(jobs, options.em_options, input_hmm=hmm,
                     log_fn=options.em_log_fn,
-                    checkpoint_path=options.em_checkpoint_path, device=dev)
+                    checkpoint_path=options.em_checkpoint_path, device=dev,
+                    multi=multi)
     trained = normalise_trained_hmm(best.hmm)
     trained.likelihood = best.likelihood
     if options.output_model_path:

@@ -24,7 +24,8 @@ from marginalign_trna_tpu_torch.ops.expectations import (
     concat_flush_tails, fused_flush_jmaps, fused_row_jmaps,
 )
 from marginalign_trna_tpu_torch.ops.fb import (
-    device_batch, multi_device_batch, tables_from_hmm, tables_stacked,
+    device_batch, multi_device_batch, multi_logz, tables_from_hmm,
+    tables_stacked,
 )
 from marginalign_trna_tpu_torch.ops.fb_circ import (
     circ_coefficients, compact_device_batch,
@@ -486,3 +487,65 @@ def test_mea_multi_kernel_matches_plain(cuda):
     ref = wavefront_cuda.mea_multi_plain(*args)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("ntr", [1, 3])
+def test_counts_multi_kernels_match_plain(cuda, ntr):
+    """The four multi-lane counts kernels on the plain versions' inputs, on
+    lanes of three or more problems at width 21 (Wp 24): f_all, lsf, the
+    terminal sums, the checkpoints and the posterior band bit-equal; the
+    lane-summed count partials within rtol 1e-5."""
+    K = fb_counts_cuda
+    tables = tables_stacked(_em_models(ntr), cuda)
+    tabs = (tables.T, tables.Ematch, tables.Egap)
+    mb, mdev = _multi(cuda, 21, seed=9, n=40)
+    assert max(np.bincount([p.lane for p in mb.problems])) >= 3
+    *streams, fk, fd = fb_counts.multi_kernel_inputs(mdev)
+    streams = (*streams, fk)
+    names = ("counts_multi_fwd_all", "counts_multi_bwd",
+             "counts_multi_fwd_ckpt", "counts_multi_bwd_ckpt")
+    before = {k: _build.launch_counts[k] for k in names}
+
+    got = K.counts_multi_fwd_all_cuda(*tabs, *streams)
+    f_all, lsf, term = K.counts_multi_fwd_all_plain(*tabs, *streams)
+    for g, r in zip(got, (f_all, lsf, term)):
+        assert torch.equal(g, r)
+    L, logZ = multi_logz(lsf, term, mdev)
+    assert torch.isfinite(logZ).all() and logZ.shape == (ntr, len(mb.problems))
+    bargs = (*tabs, f_all, lsf, *streams, fd, L)
+    post, tcp, egp = K.counts_multi_bwd_cuda(*bargs)
+    rpost, rtcp, regp = K.counts_multi_bwd_plain(*bargs)
+    assert torch.equal(post, rpost)
+    for g, r in ((tcp, rtcp), (egp, regp)):
+        assert torch.allclose(g.sum(-1), r.sum(-1), rtol=1e-5, atol=1e-6)
+
+    got = K.counts_multi_fwd_ckpt_cuda(*tabs, *streams)
+    ref = K.counts_multi_fwd_ckpt_plain(*tabs, *streams)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    assert torch.equal(ref[2], lsf) and torch.equal(ref[3], term)
+    cargs = (*tabs, ref[0], ref[1], *streams, fd, L)
+    for g, r in zip(K.counts_multi_bwd_ckpt_cuda(*cargs),
+                    K.counts_multi_bwd_ckpt_plain(*cargs)):
+        assert torch.allclose(g.sum(-1), r.sum(-1), rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts[k] == before[k] + 1 for k in names)
+
+
+@pytest.mark.parametrize("kernel", ["stored", "ckpt"])
+def test_serial_counts_multi_on_card_match_cpu(cuda, kernel):
+    """One model's counts over multi-problem lanes (a serial trial) through
+    the kernels equal the plain versions' on the CPU: per-problem logZ
+    within 1e-4, counts within rtol 1e-5."""
+    hmm = _em_models(1)[0]
+    mb, mdev = _multi(cuda, 21, seed=10)
+    got = fb_counts.counts_multi(tables_from_hmm(hmm, cuda), mdev,
+                                 kernel=kernel)
+    want = fb_counts.counts_multi(tables_from_hmm(hmm),
+                                  multi_device_batch(mb, "cpu"),
+                                  kernel=kernel)
+    assert torch.allclose(got.logZ.cpu(), want.logZ, rtol=1e-4, atol=1e-4)
+    for g, w in ((got.trans_counts, want.trans_counts),
+                 (got.emit_gap, want.emit_gap)):
+        assert torch.allclose(g.cpu(), w, rtol=1e-5, atol=1e-5)
+    assert (got.posteriors is None) == (kernel == "ckpt")

@@ -155,15 +155,18 @@ def test_resume_matches_uninterrupted(tmp_path, trials):
 
 def test_unported_options_refused():
     """Re-deriving the band (update_band_every=1, --updateTheBand) trains;
-    multi-problem lanes (ROADMAP B20) are refused."""
+    multi-problem lanes (multi=True), once refused, now pack the jobs into
+    E-step batches of multi-problem lanes, every job a problem of them."""
     jobs = _jobs(4, RealignJob, SamRecord, n=2, length=60)
     res = em.train_em(jobs, em.EmOptions(update_band_every=1, iterations=2,
                                          trials=2, tolerance=0.0,
                                          split_size=0), device="cpu")
     assert len(res.likelihood_history) == 2
     assert np.isfinite(res.likelihood_history).all()
-    with pytest.raises(NotImplementedError, match="B20"):
-        em.prepare_em_batches(jobs, device="cpu", multi=True)
+    batches = em.prepare_em_batches(jobs, device="cpu", multi=True)
+    assert [kind for kind, _, _ in batches] == ["multi"]
+    assert sum(n for _, _, n in batches) == len(jobs)
+    assert batches[0][1].p_lane.numel() == len(jobs)
 
 
 def test_kernel_policy_matches_jax(monkeypatch):
@@ -171,8 +174,12 @@ def test_kernel_policy_matches_jax(monkeypatch):
     (5 + 1) float32 bands per padded cell and trial fit the budget."""
     from marginalign_trna_tpu.ops.fb_pallas_counts import _use_ckpt
 
+    # The last four are multi-problem lane shapes (lanes of 1024 diagonals,
+    # D1 raised to fit a longer problem, the lane count a power of two).
     shapes = [((1024, 24, 4096), 3), ((1024, 24, 4096), 1),
-              ((1021, 24, 2048), 3), ((128, 24, 64), 1)]
+              ((1021, 24, 2048), 3), ((128, 24, 64), 1),
+              ((1024, 24, 2048), 3), ((1024, 24, 8192), 1),
+              ((1131, 24, 4096), 3), ((1024, 16, 16), 2)]
     for shape, ntr in shapes:
         assert use_ckpt(shape, ntr) == _use_ckpt(shape, ntr)
     assert use_ckpt((1024, 24, 4096), 3)            # the default 3-trial run

@@ -1,6 +1,7 @@
 """The PyTorch port imports nothing of JAX or of the JAX package, even after
-running both of its commands (marginAlign with and without --em), and its
-CLI never drops to the CPU on its own."""
+running both of its commands (marginAlign with and without --em, and --em
+over multi-problem lanes), and its CLI never drops to the CPU on its
+own."""
 import os
 import subprocess
 import sys
@@ -96,6 +97,11 @@ assert cli.main(["marginAlign", fq, fa, os.path.join(tmp, "em.sam"), "--em",
                  "--iterations", "2", "--trials", "2", "--outputModel",
                  model, "--device", "cpu"]) == 0
 assert all(os.path.exists(model + s) for s in ("", ".trial0", ".trial1"))
+from marginalign_trna_tpu_torch import pipeline
+from marginalign_trna_tpu_torch.align.em import EmOptions
+pipeline.align(fq, fa, os.path.join(tmp, "em_multi.sam"),
+               pipeline.AlignOptions(em=True, em_options=EmOptions(
+                   iterations=1, trials=2)), device="cpu", multi=True)
 bad = sorted(k for k in sys.modules
              if k.split(".")[0] in ("jax", "jaxlib", "marginalign_trna_tpu"))
 print(bad)
@@ -104,9 +110,10 @@ assert not bad, bad
 
 
 def test_importing_the_port_loads_no_jax(tmp_path):
-    """Import every port module, run marginAlign, marginCaller and
-    marginAlign --em on the CPU on a tiny corpus, in a fresh interpreter:
-    no jax*, no marginalign_trna_tpu module may be loaded."""
+    """Import every port module, run marginAlign, marginCaller,
+    marginAlign --em and --em over multi-problem lanes (pipeline.align with
+    multi=True) on the CPU on a tiny corpus, in a fresh interpreter: no
+    jax*, no marginalign_trna_tpu module may be loaded."""
     code = _RUN_BOTH_COMMANDS % (PORT_MODULES,)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],

@@ -6,7 +6,8 @@ synthetic direct-tRNA corpus: the guide (`map_reads`), the realignment
 (`realign_sam_file`) and marginCaller (`accumulate_expectations` /
 `margin_caller`); and the routing policy: the guide always takes multi
 lanes, realignment and the caller only for flat-gap models whose jobs all
-fit MULTI_MAX_PROBLEM_STEPS, and marginAlign --em refuses multi lanes."""
+fit MULTI_MAX_PROBLEM_STEPS.  marginAlign --em over multi lanes is tested in
+tests/test_torch_em_multi_paths.py."""
 import os
 
 import numpy as np
@@ -20,7 +21,6 @@ from marginalign_trna_tpu.io.sam import SamFile as JSamFile
 from marginalign_trna_tpu.models.hmm import PairHmm as JPairHmm
 from marginalign_trna_tpu.ops import band as jband
 from marginalign_trna_tpu.ops import fb_pallas as fp
-from marginalign_trna_tpu_torch import pipeline
 from marginalign_trna_tpu_torch.align import guide as tguide
 from marginalign_trna_tpu_torch.align import realign as trealign
 from marginalign_trna_tpu_torch.call import caller as tcaller
@@ -357,14 +357,3 @@ def test_guide_multi_always_packs(monkeypatch, tmp_path):
     tguide.map_reads(str(fq), str(fa), str(out), None, "cpu", multi=True)
     assert multi and not single
     assert len(_records(str(out))) == 1
-
-
-def test_em_with_multi_raises_naming_b20(tmp_path):
-    """marginAlign --em over multi lanes is not ported: pipeline.align
-    refuses before any stage runs."""
-    opts = pipeline.AlignOptions(em=True)
-    with pytest.raises(NotImplementedError, match="B20"):
-        pipeline.align(str(tmp_path / "missing.fq"), str(tmp_path / "no.fa"),
-                       str(tmp_path / "o.sam"), opts, device="cpu",
-                       multi=True)
-    assert not (tmp_path / "o.sam").exists()
