@@ -784,7 +784,8 @@ def compare_mw(args, reps):
 
 
 def compare_scatter_lanes(args, reps):
-    """L against its plain version (rtol 1e-5), and the one PyTorch call
+    """L against its plain version (rtol 1e-5), two launches bit-identical
+    (no atomics, a fixed order of additions), and the one PyTorch call
     that computes the same function, scatter_add_ over the targets, timed
     beside it.  L must read every target and the value of each targeted
     cell, and write the [rg, B] output."""
@@ -794,10 +795,13 @@ def compare_scatter_lanes(args, reps):
 
     vals, jm, rg = args
     out = bs.scatter_lanes_cuda(*args)
+    again = bs.scatter_lanes_cuda(*args)
     ref = bs.scatter_lanes_plain(*args)
     torch.cuda.synchronize()
     check(torch.allclose(out, ref, rtol=1e-5, atol=1e-6),
           "L differs from its plain version (rtol 1e-5)")
+    check(torch.equal(out, again), "two launches of L differ")
+    del again
     hit = (jm >= 0) & (jm < rg)
     n_hit = int(hit.sum().item())
     tgt = torch.where(hit, jm, rg).long()
@@ -932,6 +936,8 @@ def compare_counts(base, reps):
           cargs, max_abs_err(zip(got, want)), got)
     report["counts_bwd_ckpt"]["counts_max_rel_err"] = err
     report["counts_bwd_ckpt"]["pairs_rel_err"] = pair_err
+    report["counts_bwd_ckpt"]["resources"] = K.ckpt_backward_resources(
+        tabs[0].device, streams[0].shape[1])
     return report
 
 
@@ -1011,6 +1017,9 @@ def compare_counts_multi(base, reps):
           got)
     report["counts_multi_bwd_ckpt"]["counts_max_rel_err"] = err
     report["counts_multi_bwd_ckpt"]["pairs_rel_err"] = pair_err
+    report["counts_multi_bwd_ckpt"]["resources"] = (
+        K.ckpt_backward_resources(tabs[0].device, streams[0].shape[1],
+                                  multi=True))
     return report
 
 
@@ -3620,8 +3629,9 @@ def main() -> int:
         for tag, r in reports:
             if name in r and r[name] is not res:
                 line[tag] = {k: r[name][k] for k in keys}
-        if "one_trial" in res:
-            line["one_trial"] = res["one_trial"]
+        for extra in ("one_trial", "resources"):
+            if extra in res:
+                line[extra] = res[extra]
         lines.append(line)
     print(json.dumps({"kernels": lines}))
     print(json.dumps({"ok": True, "device": {

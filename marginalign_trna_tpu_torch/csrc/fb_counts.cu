@@ -54,37 +54,46 @@
 // terms that are statically zero and folds a flat gap row into a scalar,
 // which rounds exactly like the lookup and the sum in the same order.
 //
-// Layout: as the other wavefront kernels (common.cuh), one block owns L
-// consecutive lanes (threadIdx.x) and all Wp band rows (8 row threads of
-// RPT rows each) of one trial (blockIdx.y): the TPU's sequential trials
-// grid axis runs side by side here.  The block walks the diagonals itself;
-// a frontier crosses shared memory once per diagonal, mixed before the row
+// Layout of the forwards, the stored backward and the generic backward: as
+// the other wavefront kernels (common.cuh), one block owns L consecutive
+// lanes (threadIdx.x) and all Wp band rows (8 row threads of RPT rows
+// each) of one trial (blockIdx.y): the TPU's sequential trials grid axis
+// runs side by side here.  The block walks the diagonals itself; a
+// frontier crosses shared memory once per diagonal, mixed before the row
 // shift, with one barrier per diagonal (two on a rescale).  The TPU
 // backward's scratch delay lines of emissions and s1 are gone: each thread
 // computes the emissions of its own cell and publishes e * b, and s1 is
 // read at d directly.  The model (T, Ematch, Egap of the block's trial)
 // sits in shared memory.
 //
+// The checkpoint backward (counts_bwd_ckpt, counts_multi_bwd_ckpt) has a
+// layout of its own, see counts_bwd_ckpt_kernel: one warp per lane, one
+// band row per thread, the row shifts as warp shuffles.  Every kernel
+// takes its recursions from mix_to, fwd_recur and bwd_recur.
+//
 // Arithmetic: the plain versions' (ops/fb_counts_cuda.py) operation for
 // operation, built without multiply-add contraction (-fmad=false), so
 // f_all, lsf, the terminal sums, the checkpoints and the posterior band
 // round identically.  The count partials are summed per thread over its
-// rows and diagonals in registers and over the row threads once at the
-// end; that order differs from the plain versions' (rows first, then
-// diagonals), so the counts agree to float32 summation error.
+// rows and diagonals and over the rows once at the end; that order
+// differs from the plain versions' (rows first, then diagonals), and the
+// checkpoint backward adds its transition partials with fused
+// multiply-adds, so the counts agree to float32 summation error.
 //
 // What bounds them on an H100: counts_fwd_all writes 20 B per cell and
 // counts_bwd reads 20 B and writes 4 B, so a full card would be memory
 // bound; counts_fwd_ckpt writes ~5 B per cell; counts_bwd_ckpt does a
-// forward again, the backward and ~100 count operations per cell and is
-// operation bound.  The generic pair moves 7 B per cell forward (codes in,
-// F_match out) and 11 B backward (F_match and codes in, posterior out).
-// At the EM batches (8192 lanes, 3 trials: 768 blocks of
-// 32 lanes) the chain of dependent diagonals, a barrier each, bounds them
-// first.  The 120 KB of recomputed frontiers of counts_bwd_ckpt live in
-// dynamic shared memory (195 KB a block at Wp 24: one block per SM); the
-// count accumulators (45, or 70 with the match counts) live in registers,
-// which is why a block has 256 threads.
+// forward again, the backward and the counts (~225 operations per cell)
+// and is operation bound.  The generic pair moves 7 B per cell forward
+// (codes in, F_match out) and 11 B backward (F_match and codes in,
+// posterior out).  At the EM batches (8192 lanes, 3 trials) the chain of
+// dependent diagonals bounds the template kernels first: a barrier each,
+// and 8 warps per SM.  counts_bwd_ckpt_kernel keeps each diagonal inside a
+// warp (no barrier), bins the emission counts by code, and sizes a block
+// at 128 threads: ptxas gives it 127 registers (128 with MULTI), no
+// spills and no stack, with 45,472 B of shared memory a block at Wp 24
+// (four blocks, 16 warps, per SM; three at Wp 32).  There the recomputed
+// forward takes ~40% of its time and 8 of a warp's 32 rows idle.
 #include "common.cuh"
 
 namespace {
@@ -139,6 +148,39 @@ __device__ __forceinline__ float e_gap(const float* tab, int s, int c) {
   return (c >= 0 && c < 5) ? tab[50 + s * 5 + c] : 0.f;
 }
 
+// The recursions, one source for every kernel of this file: the mix
+// sum_s f[s] * T[s][t] of a forward frontier, a forward cell from its
+// emissions e and shifted mixes m, and a backward cell from the shifted
+// e * b values q (tab: T first, in shared memory or registers).
+template <typename Tab>
+__device__ __forceinline__ float mix_to(const float (&f)[5], const Tab& tab,
+                                        int t) {
+  float acc = f[0] * tab[t];
+#pragma unroll
+  for (int s = 1; s < NS; ++s) acc = acc + f[s] * tab[s * 5 + t];
+  return acc;
+}
+
+__device__ __forceinline__ void fwd_recur(const float (&e)[5],
+                                          const float (&m)[5], float v,
+                                          float (&f)[5]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) f[s] = (e[s] * m[s]) * v;
+}
+
+template <typename Tab>
+__device__ __forceinline__ void bwd_recur(const float (&q)[5], const Tab& tab,
+                                          float inj, float v,
+                                          float (&nb)[5]) {
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    float acc = q[0] * tab[s * 5];
+#pragma unroll
+    for (int u = 1; u < NS; ++u) acc = acc + q[u] * tab[s * 5 + u];
+    nb[s] = (acc + inj) * v;
+  }
+}
+
 // Per-lane rescale of a frontier by its band max (all threads of the block
 // must call it); returns the factor c, the frontier is multiplied by 1 / c.
 template <int RPT>
@@ -171,9 +213,7 @@ __device__ __forceinline__ void publish_mixes(const float (&f)[RPT][5],
     const int i = k * g.L + g.lane;
 #pragma unroll
     for (int t = 0; t < (GAPS ? NS : 1); ++t) {
-      float acc = f[r][0] * tab[t];
-#pragma unroll
-      for (int s = 1; s < NS; ++s) acc = acc + f[r][s] * tab[s * 5 + t];
+      const float acc = mix_to(f[r], tab, t);
       if (t == 0)
         fM[mout + i] = acc;
       else
@@ -215,11 +255,12 @@ __device__ __forceinline__ void fwd_cells(
 #pragma unroll
       for (int s = 0; s < NS; ++s) fp[r][s] = f[r][s];
     }
-    f[r][0] = (e_match(tab, x, y) * mm) * v;
-    f[r][1] = (e_gap(tab, 1, x) * fG[kx]) * v;
-    f[r][2] = (e_gap(tab, 2, y) * fG[g.plane + ky]) * v;
-    f[r][3] = (e_gap(tab, 3, x) * fG[2 * g.plane + kx]) * v;
-    f[r][4] = (e_gap(tab, 4, y) * fG[3 * g.plane + ky]) * v;
+    const float e[5] = {e_match(tab, x, y), e_gap(tab, 1, x),
+                        e_gap(tab, 2, y), e_gap(tab, 3, x),
+                        e_gap(tab, 4, y)};
+    const float m[5] = {mm, fG[kx], fG[g.plane + ky], fG[2 * g.plane + kx],
+                        fG[3 * g.plane + ky]};
+    fwd_recur(e, m, v, f[r]);
     if constexpr (MULTI) {
       const float inj = (seed && k == 0) ? 0.2f : 0.f;
 #pragma unroll
@@ -386,20 +427,20 @@ __device__ __forceinline__ void reduce_rows(const float (&acc)[N], float* shR,
   }
 }
 
-// band: the forward's f_all, checkpoints or F_match (counts_fwd_kernel);
-// post is written by MODE_STORED and MODE_GENERIC, the count partials by
-// the two counts modes.  Single-problem lanes: fink, find [B] and logZ
-// [ntr][B].  MULTI: fink, find [d1k][B] (a problem's terminal row and
-// diagonal at its terminal diagonal, else -1), logZ the per-diagonal
-// log-likelihood L [ntr][d1k][B] of the problem owning the diagonal, and
-// start [d1k][B]: the backward injects at every terminal cell and restarts
-// its log-scale there, and each problem's first diagonal emits nothing.
+// band: the stored forward's f_all (MODE_STORED) or F_match (MODE_GENERIC)
+// (counts_fwd_kernel); post is written by both, the count partials by
+// MODE_STORED.  Single-problem lanes: fink, find [B] and logZ [ntr][B].
+// MULTI: fink, find [d1k][B] (a problem's terminal row and diagonal at its
+// terminal diagonal, else -1), logZ the per-diagonal log-likelihood L
+// [ntr][d1k][B] of the problem owning the diagonal, and start [d1k][B]: the
+// backward injects at every terminal cell and restarts its log-scale there,
+// and each problem's first diagonal emits nothing.
 template <int RPT, int MODE, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS)
     counts_bwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
                       const float* __restrict__ Eg,
                       const float* __restrict__ band,
-                      const float* __restrict__ lsf_cs,
+                      const float* __restrict__ lsf,
                       const int8_t* __restrict__ xb,
                       const int8_t* __restrict__ yb,
                       const uint8_t* __restrict__ valid,
@@ -409,9 +450,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       const int32_t* __restrict__ find,
                       const float* __restrict__ logZ, int d1k, int Wp, int B,
                       float* __restrict__ post, float* __restrict__ tcp,
-                      float* __restrict__ egp, float* __restrict__ mcp) {
-  constexpr bool CKPT = MODE == MODE_CKPT;
-  constexpr bool COUNTS = MODE != MODE_GENERIC;
+                      float* __restrict__ egp) {
+  constexpr bool COUNTS = MODE == MODE_STORED;
   extern __shared__ float smem[];
   const Dims g = dims(Wp, B);
   const int plane = g.plane;
@@ -419,172 +459,565 @@ __global__ void __launch_bounds__(MAX_THREADS)
   float* shP = shG + 8 * plane;    // [3][Wp][L] e_M * b_M of d+2
   float* shR = shP + 3 * plane;    // [Wp][L] row maxima, reductions
   float* tab = shR + plane;        // the trial's model
-  // Recompute buffers (CKPT only): forward mixes, the block's frontiers
-  // [8][5][Wp][L] and their log-scales [8][L].
-  float* fG = tab + TAB;
-  float* fM = fG + 8 * plane;
-  float* fs = fM + 3 * plane;
-  float* lsb = fs + K * NS * plane;
   for (int i = g.ty * g.L + g.lane; i < 11 * plane; i += g.TY * g.L)
     smem[i] = 0.f;
   load_tables(tab, T, Em, Eg, g);
   const int fk = g.live && !MULTI ? fink[g.b] : -1;
   const int fd = g.live && !MULTI ? find[g.b] : -1;
   const float lz0 = g.live && !MULTI ? logZ[(size_t)g.t * B + g.b] : 0.f;
-  const int G = d1k / K;
   float bls = 0.f, cprev = 1.f;
   int sh1 = 0, sh2 = 0;  // s1 at d+1 and d+2
-  float tca[COUNTS ? 25 : 1], ega[COUNTS ? 20 : 1], mca[CKPT ? 25 : 1];
+  float tca[COUNTS ? 25 : 1], ega[COUNTS ? 20 : 1];
 #pragma unroll
   for (int j = 0; j < (COUNTS ? 25 : 1); ++j) tca[j] = 0.f;
 #pragma unroll
   for (int j = 0; j < (COUNTS ? 20 : 1); ++j) ega[j] = 0.f;
-#pragma unroll
-  for (int j = 0; j < (CKPT ? 25 : 1); ++j) mca[j] = 0.f;
   __syncthreads();
 
-  for (int blk = G - 1; blk >= 0; --blk) {
-    if constexpr (CKPT) {
-      // Recompute this block's forward from the previous block's
-      // checkpoint (block 0: from the start distribution at d = 0).
-      float f[RPT][5], fp[RPT][5];
-      float lsF, cprevF;
-      int sprev, kb0;
-      if (blk == 0 && !MULTI) {
-        start_frontier<RPT>(f, g);
-        lsF = 0.f;
-        cprevF = 1.f;
-        sprev = g.live ? s1[g.b] : 0;
+  for (int d = d1k - 1; d >= 0; --d) {
+    const int s1n = sh1, s2n = sh1 + sh2;
+    const int gin = ((d + 1) & 1) * 4 * plane, gout = (d & 1) * 4 * plane;
+    const int pin = ((d + 2) % 3) * plane, pout = (d % 3) * plane;
+    const bool divide = d % K == K - 1;
+    // MULTI: the row of the terminal cell on d if a problem ends there,
+    // else -1 (single-problem lanes: the lane's terminal cell (fd, fk)).
+    int inj_row = -1;
+    if constexpr (MULTI) {
+      const size_t at = (size_t)d * B + g.b;
+      inj_row = g.live && find[at] == d ? fink[at] : -1;
+    }
+    float nb[RPT][5], q[RPT][5];
+    int xs[RPT], ys[RPT];
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const int k = g.ty + r * g.TY;
-          if (k >= Wp) continue;
+    for (int r = 0; r < RPT; ++r) {
+      const int k = g.ty + r * g.TY;
+      xs[r] = ys[r] = 0;
 #pragma unroll
-          for (int s = 0; s < NS; ++s)
-            fs[(s * Wp + k) * g.L + g.lane] = f[r][s];
-          fM[plane + k * g.L + g.lane] = 0.f;  // d = 1 has no d-2 term
+      for (int s = 0; s < NS; ++s) nb[r][s] = q[r][s] = 0.f;
+      if (k >= Wp) continue;
+      float v = 0.f;
+      if (g.live) {
+        const size_t c = mk::cell(d, k, g.b, Wp, B);
+        xs[r] = xb[c];
+        ys[r] = yb[c];
+        v = (float)valid[c];
+      }
+      const int kx = gin + mk::wrap(k - s1n, Wp) * g.L + g.lane;
+      const int ky = gin + mk::wrap(k + 1 - s1n, Wp) * g.L + g.lane;
+      q[r][0] = shP[pin + mk::wrap(k + 1 - s2n, Wp) * g.L + g.lane];
+      if (divide) q[r][0] = q[r][0] / cprev;
+      q[r][1] = shG[kx];
+      q[r][2] = shG[plane + ky];
+      q[r][3] = shG[2 * plane + kx];
+      q[r][4] = shG[3 * plane + ky];
+      float inj;
+      if constexpr (MULTI)
+        inj = k == inj_row ? 1.f : 0.f;
+      else
+        inj = (d == fd && k == fk) ? 1.f : 0.f;
+      bwd_recur(q[r], tab, inj, v, nb[r]);
+    }
+    sh2 = sh1;
+    sh1 = g.live ? s1[(size_t)d * B + g.b] : 0;
+    // A problem's backward restarts its log-scale at its terminal cell
+    // (a terminal row is >= 0).
+    if (MULTI && inj_row >= 0) bls = 0.f;
+    float lz = lz0;
+    if constexpr (MULTI)
+      lz = g.live ? logZ[((size_t)g.t * d1k + d) * B + g.b] : 0.f;
+    const float lsd = g.live ? lsf[((size_t)g.t * d1k + d) * B + g.b] : 0.f;
+    float alpha0, alpha1;
+    if (d % K == 0) {
+      const float c = rescale<RPT>(nb, shR, g);
+      const float inv = 1.f / c;
+      bls += logf(c);
+      cprev = c;
+      alpha0 = expf(lsd + bls - lz);
+      alpha1 = alpha0 * inv;
+    } else {
+      alpha0 = expf(lsd + bls - lz);
+      alpha1 = alpha0;
+    }
+    bool bound = d == 0;  // no emission at a problem's first diagonal
+    if constexpr (MULTI) bound = g.live && start[(size_t)d * B + g.b] != 0;
+    const float a0n = alpha0 * (bound ? 0.f : 1.f);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = g.ty + r * g.TY;
+      if (k >= Wp) continue;
+      const int x = xs[r], y = ys[r];
+      float fv[5];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        if constexpr (MODE == MODE_STORED)
+          fv[s] = g.live
+                      ? band[((((size_t)g.t * d1k + d) * NS + s) * Wp + k) *
+                                 B + g.b]
+                      : 0.f;
+        else
+          fv[s] = g.live && s == 0
+                      ? band[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b]
+                      : 0.f;
+      }
+      if (g.live)
+        post[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b] =
+            (fv[0] * nb[r][0]) * alpha0;
+      if constexpr (COUNTS) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          const float fa = fv[s] * alpha1;
+#pragma unroll
+          for (int u = 0; u < NS; ++u) tca[s * 5 + u] += fa * q[r][u];
         }
-        if (g.ty == 0) lsb[g.lane] = 0.f;
-        publish_mixes<RPT, true>(f, tab, fG, fM, 0, g);
-        kb0 = 1;
-      } else {
-        // The previous block's checkpoint; MULTI's block 0 starts from the
-        // zero frontier and seeds its problems' starts as the forward did.
-        const bool have = g.live && blk > 0;
-        const size_t ck = (size_t)g.t * G + (blk > 0 ? blk - 1 : 0);
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const int k = g.ty + r * g.TY;
+        for (int s = 1; s < NS; ++s) {
+          const float gam = (fv[s] * nb[r][s]) * a0n;
+          const int code = (s & 1) ? x : y;  // states 1, 3: the ref base
 #pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            const bool ok = have && k < Wp;
-            f[r][s] = ok ? band[((ck * 2 * NS + s) * Wp + k) * B + g.b] : 0.f;
-            fp[r][s] =
-                ok ? band[((ck * 2 * NS + NS + s) * Wp + k) * B + g.b] : 0.f;
-          }
+          for (int c = 0; c < 5; ++c)
+            ega[(s - 1) * 5 + c] += code == c ? gam : 0.f;
         }
-        lsF = have ? lsf_cs[(ck * 4 + 0) * B + g.b] : 0.f;
-        cprevF = have ? lsf_cs[(ck * 4 + 1) * B + g.b] : 1.f;
-        sprev = have ? (int)lsf_cs[(ck * 4 + 2) * B + g.b] : 0;
-        publish_mixes<RPT, false>(fp, tab, fG, fM, blk * K - 2, g);
-        publish_mixes<RPT, true>(f, tab, fG, fM, blk * K - 1, g);
-        kb0 = 0;
+      }
+      const int i = k * g.L + g.lane;
+      shP[pout + i] = e_match(tab, x, y) * nb[r][0];
+      shG[gout + i] = e_gap(tab, 1, x) * nb[r][1];
+      shG[gout + plane + i] = e_gap(tab, 2, y) * nb[r][2];
+      shG[gout + 2 * plane + i] = e_gap(tab, 3, x) * nb[r][3];
+      shG[gout + 3 * plane + i] = e_gap(tab, 4, y) * nb[r][4];
+    }
+    __syncthreads();
+  }
+  if constexpr (COUNTS) {
+    reduce_rows<25>(tca, shR, tcp, g);
+    reduce_rows<20>(ega, shR, egp, g);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The checkpoint backward (counts_bwd_ckpt, counts_multi_bwd_ckpt).  One
+// warp per lane, one band row per thread (Wp <= 32), CK_WARPS lanes per
+// block: the recursions cross rows with warp shuffles, so a diagonal needs
+// no block barrier, and each thread keeps its row's delay lines (the
+// forward's mixes of d-1 and d-2, the backward's e * b of d+1 and d+2) and
+// the 25 transition partials in registers.  Loads of [d, k, b] coalesce
+// only across lanes, so the block stages the codes of its lanes, the
+// per-diagonal streams and the checkpoint of the next 8-diagonal block
+// through shared memory with cp.async while it computes the current one,
+// then unpacks them (codes packed with the valid bit and the count bins):
+// two barriers per 8 diagonals.  The recomputed frontiers sit in shared
+// memory, one row per thread; the gap and match emission counts go to bins
+// owned per thread and indexed by code (no one-hot selects), the
+// transition partials accumulate with fused multiply-adds.
+constexpr int CK_WARPS = 4;            // lanes per block: 4 consecutive
+constexpr int CK_THREADS = 32 * CK_WARPS;
+constexpr int N_EGB = 24;              // gap bins: code * 4 + state - 1
+constexpr int N_MCB = 26;              // match bins: x * 5 + y, 25 = none
+constexpr int N_LANE = 5;              // per-lane streams: s1, start, fink,
+                                       // find, L
+constexpr uint32_t CK_NO_CELL = 5u | (5u << 8) | (25u << 24);
+constexpr unsigned FULL = 0xffffffffu;
+
+// Shared memory of one block, sized by Wp.  The stage holds the next
+// 8-diagonal block as it arrives (cp.async): the code streams as words of
+// the block's 4 lanes, the per-lane streams and the checkpoint.  It is
+// unpacked into `cell` (x | y << 8 | valid << 16 | match bin << 24) and
+// the per-lane arrays before the block is computed, while the stage
+// fills with the block after it.
+struct CkptSmem {
+  float* tab;         // T (25), em6[x * 6 + y], eg6[(s - 1) * 6 + c]
+  int* lane;          // [N_LANE][K][CK_WARPS] of the block being computed
+  uint32_t* cell;     // [K][CK_WARPS][Wp]
+  uint32_t* st_code;  // [3][K][Wp] stage: xb, yb, valid words
+  int* st_lane;       // [N_LANE][K][CK_WARPS] stage
+  float* st_ck;       // [2 * NS][Wp][CK_WARPS] stage: checkpoint
+  float* st_cs;       // [4][CK_WARPS] stage: ls, cprev, s1 (and 0)
+  float* fs;          // [K][NS][CK_WARPS][Wp] recomputed frontiers
+  float* egb;         // [N_EGB][CK_WARPS][Wp]
+  float* mcb;         // [N_MCB][CK_WARPS][Wp]
+};
+
+__host__ __device__ inline size_t ckpt_smem_floats(int Wp) {
+  return 88 + 2 * N_LANE * K * CK_WARPS + K * CK_WARPS * Wp + 3 * K * Wp +
+         2 * NS * Wp * CK_WARPS + 4 * CK_WARPS +
+         (size_t)(K * NS + N_EGB + N_MCB) * CK_WARPS * Wp;
+}
+
+__device__ inline CkptSmem ckpt_smem(float* base, int Wp) {
+  CkptSmem m;
+  m.tab = base;
+  m.lane = reinterpret_cast<int*>(base + 88);
+  m.st_lane = m.lane + N_LANE * K * CK_WARPS;
+  m.st_cs = reinterpret_cast<float*>(m.st_lane + N_LANE * K * CK_WARPS);
+  m.st_ck = m.st_cs + 4 * CK_WARPS;
+  m.cell = reinterpret_cast<uint32_t*>(m.st_ck + 2 * NS * Wp * CK_WARPS);
+  m.st_code = m.cell + K * CK_WARPS * Wp;
+  m.fs = reinterpret_cast<float*>(m.st_code + 3 * K * Wp);
+  m.egb = m.fs + K * NS * CK_WARPS * Wp;
+  m.mcb = m.egb + N_EGB * CK_WARPS * Wp;
+  return m;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Starts the copy of 8-diagonal block blk of the block's lanes b0..b0+3
+// into the stage: asynchronous when a block's 4 lanes are 4 aligned words
+// of every stream (vec: B % 4 == 0), else plain loads and stores.
+template <bool MULTI>
+__device__ __forceinline__ void stage_block(
+    const CkptSmem& S, bool vec, int blk, int b0, int t, int tid, int Wp,
+    int B, int d1k, int G, const int8_t* __restrict__ xb,
+    const int8_t* __restrict__ yb, const uint8_t* __restrict__ valid,
+    const int32_t* __restrict__ s1, const int8_t* __restrict__ start,
+    const int32_t* __restrict__ fink, const int32_t* __restrict__ find,
+    const float* __restrict__ logZ, const float* __restrict__ ckpt,
+    const float* __restrict__ cs) {
+  const int ck = t * G + blk - 1;  // the previous block's checkpoint
+  if (vec) {
+    for (int i = tid; i < 3 * K * Wp; i += CK_THREADS) {
+      const int q = i / (K * Wp), r = i % (K * Wp);  // r = kb * Wp + k
+      const int8_t* src = q == 0 ? xb
+                          : q == 1 ? yb
+                                   : reinterpret_cast<const int8_t*>(valid);
+      cp_async4(S.st_code + i,
+                src + ((size_t)blk * K * Wp + r) * B + b0);
+    }
+    for (int i = tid; i < N_LANE * K; i += CK_THREADS) {
+      const int q = i / K, kb = i % K;
+      const size_t at = (size_t)(blk * K + kb) * B + b0;
+      int* dst = S.st_lane + (q * K + kb) * CK_WARPS;
+      if (q == 0) cp_async16(dst, s1 + at);
+      if (MULTI && q == 1) cp_async4(dst, start + at);
+      if (MULTI && q == 2) cp_async16(dst, fink + at);
+      if (MULTI && q == 3) cp_async16(dst, find + at);
+      if (MULTI && q == 4)
+        cp_async16(dst, logZ + (size_t)t * d1k * B + at);
+    }
+    if (blk > 0) {
+      for (int i = tid; i < 2 * NS * Wp; i += CK_THREADS)
+        cp_async16(S.st_ck + i * CK_WARPS,
+                   ckpt + ((size_t)ck * 2 * NS * Wp + i) * B + b0);
+      if (tid < 4) cp_async16(S.st_cs + tid * CK_WARPS,
+                              cs + ((size_t)ck * 4 + tid) * B + b0);
+    }
+    cp_async_commit();
+    return;
+  }
+  uint8_t* code = reinterpret_cast<uint8_t*>(S.st_code);
+  for (int i = tid; i < 3 * K * Wp * CK_WARPS; i += CK_THREADS) {
+    const int w = i % CK_WARPS, j = i / CK_WARPS;
+    const int q = j / (K * Wp), r = j % (K * Wp);
+    const int8_t* src = q == 0 ? xb
+                        : q == 1 ? yb
+                                 : reinterpret_cast<const int8_t*>(valid);
+    code[i] = b0 + w < B ? src[((size_t)blk * K * Wp + r) * B + b0 + w] : 0;
+  }
+  for (int i = tid; i < N_LANE * K * CK_WARPS; i += CK_THREADS) {
+    const int w = i % CK_WARPS, kb = (i / CK_WARPS) % K;
+    const int q = i / (K * CK_WARPS);
+    const bool in = b0 + w < B;
+    const size_t at = (size_t)(blk * K + kb) * B + b0 + w;
+    int val = 0;
+    if (q == 0) val = in ? s1[at] : 0;
+    if (MULTI && q == 1) {  // the int8 start flags, packed as in a word
+      reinterpret_cast<int8_t*>(S.st_lane + (K + kb) * CK_WARPS)[w] =
+          in ? start[at] : 0;
+      continue;
+    }
+    if (MULTI && q == 2) val = in ? fink[at] : -1;
+    if (MULTI && q == 3) val = in ? find[at] : -1;
+    if (MULTI && q == 4) {
+      reinterpret_cast<float*>(S.st_lane)[i] =
+          in ? logZ[(size_t)t * d1k * B + at] : 0.f;
+      continue;
+    }
+    S.st_lane[i] = val;
+  }
+  if (blk > 0) {
+    for (int i = tid; i < 2 * NS * Wp * CK_WARPS; i += CK_THREADS) {
+      const int w = i % CK_WARPS;
+      S.st_ck[i] = b0 + w < B
+                       ? ckpt[((size_t)ck * 2 * NS * Wp + i / CK_WARPS) * B +
+                              b0 + w]
+                       : 0.f;
+    }
+    if (tid < 4 * CK_WARPS)
+      S.st_cs[tid] = b0 + tid % CK_WARPS < B
+                         ? cs[((size_t)ck * 4 + tid / CK_WARPS) * B + b0 +
+                              tid % CK_WARPS]
+                         : 0.f;
+  }
+}
+
+// Per-lane maximum of a row's five states over the warp's band rows.
+__device__ __forceinline__ float warp_band_max(const float (&v)[5], bool row) {
+  float m = row ? fmaxf(fmaxf(fmaxf(v[0], v[1]), fmaxf(v[2], v[3])), v[4])
+                : 0.f;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(FULL, m, o));
+  return m;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(FULL, v, o);
+  return v;
+}
+
+template <bool MULTI>
+__global__ void __launch_bounds__(CK_THREADS)
+    counts_bwd_ckpt_kernel(const float* __restrict__ T,
+                           const float* __restrict__ Em,
+                           const float* __restrict__ Eg,
+                           const float* __restrict__ ckpt,
+                           const float* __restrict__ cs,
+                           const int8_t* __restrict__ xb,
+                           const int8_t* __restrict__ yb,
+                           const uint8_t* __restrict__ valid,
+                           const int32_t* __restrict__ s1,
+                           const int8_t* __restrict__ start,
+                           const int32_t* __restrict__ fink,
+                           const int32_t* __restrict__ find,
+                           const float* __restrict__ logZ, int d1k, int Wp,
+                           int B, float* __restrict__ tcp,
+                           float* __restrict__ egp, float* __restrict__ mcp) {
+  extern __shared__ __align__(16) float ck_raw[];
+  const CkptSmem S = ckpt_smem(ck_raw, Wp);
+  const int tid = threadIdx.x;
+  const int k = tid & 31;            // band row
+  const int w = tid >> 5;            // the warp's lane in the block
+  const int b0 = blockIdx.x * CK_WARPS;
+  const int b = b0 + w;
+  const int t = blockIdx.y;
+  const bool live = b < B;           // warp-uniform
+  const bool row = k < Wp;
+  const int G = d1k / K;
+  // The stage copies a block's 4 lanes as one word of each byte stream and
+  // 16 bytes of each word stream.
+  static_assert(CK_WARPS == 4, "the stage packs 4 lanes per word");
+  uintptr_t a4 = (uintptr_t)xb | (uintptr_t)yb | (uintptr_t)valid;
+  uintptr_t a16 = (uintptr_t)s1 | (uintptr_t)ckpt | (uintptr_t)cs;
+  if (MULTI) {
+    a4 |= (uintptr_t)start;
+    a16 |= (uintptr_t)fink | (uintptr_t)find | (uintptr_t)logZ;
+  }
+  const bool vec = B % CK_WARPS == 0 && a4 % 4 == 0 && a16 % 16 == 0;
+  const float* em6 = S.tab + 25;
+  const float* eg6 = S.tab + 61;
+  // Band row k of the warp's lane in a [..][CK_WARPS][Wp] array.
+  const int own = w * Wp + k;
+  const int plane = CK_WARPS * Wp;
+  for (int i = tid; i < 85; i += CK_THREADS) {
+    float val;
+    if (i < 25) {
+      val = T[t * 25 + i];
+    } else if (i < 61) {
+      const int x = (i - 25) / 6, y = (i - 25) % 6;
+      val = x < 5 && y < 5 ? Em[t * 25 + x * 5 + y] : 0.f;
+    } else {
+      const int s = (i - 61) / 6 + 1, c = (i - 61) % 6;
+      val = c < 5 ? Eg[t * 25 + s * 5 + c] : 0.f;
+    }
+    S.tab[i] = val;
+  }
+  if (row) {
+#pragma unroll
+    for (int j = 0; j < N_EGB; ++j) S.egb[j * plane + own] = 0.f;
+#pragma unroll
+    for (int j = 0; j < N_MCB; ++j) S.mcb[j * plane + own] = 0.f;
+  }
+  __syncthreads();
+  float Tr[25];
+#pragma unroll
+  for (int i = 0; i < 25; ++i) Tr[i] = S.tab[i];
+  const int fk = live && !MULTI ? fink[b] : -1;
+  const int fd = live && !MULTI ? find[b] : -1;
+  const float lz0 = live && !MULTI ? logZ[(size_t)t * B + b] : 0.f;
+  float bls = 0.f, cprev = 1.f;
+  int sh1 = 0, sh2 = 0;                   // s1 at d+1 and d+2
+  float p1 = 0.f, p2 = 0.f;               // e_M * b_M of d+1, d+2
+  float g1[4] = {0.f, 0.f, 0.f, 0.f};     // e_s * b_s of d+1
+  float tca[25];
+#pragma unroll
+  for (int j = 0; j < 25; ++j) tca[j] = 0.f;
+  const int* s1b = S.lane;                // [K][CK_WARPS] per stream
+  const int* startb = S.lane + K * CK_WARPS;
+  const int* finkb = S.lane + 2 * K * CK_WARPS;
+  const int* findb = S.lane + 3 * K * CK_WARPS;
+  const float* lzb = reinterpret_cast<const float*>(S.lane) + 4 * K * CK_WARPS;
+
+  // Iteration blk unpacks the stage (block blk), starts the copy of block
+  // blk - 1 into it and computes block blk; iteration G only starts the
+  // first copy.
+  for (int blk = G; blk >= 0; --blk) {
+    float f[5], fp[5];
+    float lsF = 0.f, cprevF = 1.f;
+    int sprev = 0;
+    if (blk < G) {
+      // The stage holds block blk once this thread's copies land and every
+      // warp is past the last block's compute.
+      cp_async_wait();
+      __syncthreads();
+      const uint8_t* code = reinterpret_cast<const uint8_t*>(S.st_code);
+      for (int i = tid; i < K * Wp * CK_WARPS; i += CK_THREADS) {
+        const int ww = i % CK_WARPS, r = i / CK_WARPS;  // r = kb * Wp + kk
+        const int x = (int8_t)code[i];
+        const int y = (int8_t)code[K * Wp * CK_WARPS + i];
+        const uint32_t v = code[2 * K * Wp * CK_WARPS + i];
+        const uint32_t xi = x >= 0 && x < 5 ? x : 5;
+        const uint32_t yi = y >= 0 && y < 5 ? y : 5;
+        const uint32_t mb = xi < 5 && yi < 5 ? xi * 5 + yi : 25;
+        S.cell[((r / Wp) * CK_WARPS + ww) * Wp + r % Wp] =
+            b0 + ww < B ? xi | (yi << 8) | (v << 16) | (mb << 24)
+                        : CK_NO_CELL;
+      }
+      for (int i = tid; i < N_LANE * K * CK_WARPS; i += CK_THREADS) {
+        if (MULTI && i / (K * CK_WARPS) == 1)
+          S.lane[i] = reinterpret_cast<const int8_t*>(
+              S.st_lane + (i / CK_WARPS) * CK_WARPS)[i % CK_WARPS];
+        else
+          S.lane[i] = S.st_lane[i];
+      }
+      // The previous block's checkpoint (blocks > 0).
+      const bool have = live && blk > 0;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const bool ok = have && row;
+        f[s] = ok ? S.st_ck[(s * Wp + k) * CK_WARPS + w] : 0.f;
+        fp[s] = ok ? S.st_ck[((NS + s) * Wp + k) * CK_WARPS + w] : 0.f;
+      }
+      if (have) {
+        lsF = S.st_cs[w];
+        cprevF = S.st_cs[CK_WARPS + w];
+        sprev = (int)S.st_cs[2 * CK_WARPS + w];
       }
       __syncthreads();
-      for (int kb = kb0; kb < K; ++kb) {
-        const int d = blk * K + kb;
-        const int t1 = g.live ? s1[(size_t)d * B + g.b] : 0;
-        const int t2 = t1 + sprev;
-        sprev = t1;
-        const bool seed =
-            MULTI && g.live && start[(size_t)d * B + g.b] != 0;
-        fwd_cells<RPT, false, MULTI>(f, fp, tab, fG, fM, xb, yb, valid, d,
-                                     t1, t2, cprevF, seed, g);
-        if (kb == K - 1) {
-          const float c = rescale<RPT>(f, shR, g);
-          lsF += logf(c);
-          cprevF = c;
-        }
+    }
+    if (blk > 0)
+      stage_block<MULTI>(S, vec, blk - 1, b0, t, tid, Wp, B, d1k, G, xb, yb,
+                         valid, s1, start, fink, find, logZ, ckpt, cs);
+    if (blk == G || !live) continue;
+
+    // Recompute the block's forward: block 0 of single-problem lanes from
+    // the start distribution at d = 0, MULTI's block 0 from the zero
+    // frontier (its problems' starts seeded as the forward did), the
+    // others from the previous block's checkpoint.
+    float mM1, mM2, mG[4];
+    int kb0 = 0;
+    if (blk == 0 && !MULTI) {
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          const int k = g.ty + r * g.TY;
-          if (k >= Wp) continue;
+      for (int s = 0; s < NS; ++s) f[s] = k == 0 ? 0.2f : 0.f;
+      sprev = s1b[w];
+      mM2 = 0.f;  // d = 1 has no d-2 term
+      if (row) {
 #pragma unroll
-          for (int s = 0; s < NS; ++s)
-            fs[((kb * NS + s) * Wp + k) * g.L + g.lane] = f[r][s];
-        }
-        if (g.ty == 0) lsb[kb * g.L + g.lane] = lsF;
-        publish_mixes<RPT, true>(f, tab, fG, fM, d, g);
-        __syncthreads();
+        for (int s = 0; s < NS; ++s) S.fs[s * plane + own] = f[s];
       }
+      kb0 = 1;
+    } else {
+      mM2 = mix_to(fp, Tr, 0);
+    }
+    mM1 = mix_to(f, Tr, 0);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) mG[u] = mix_to(f, Tr, u + 1);
+    const float lsA = lsF;  // the log-scale of diagonals kb < K - 1
+    for (int kb = kb0; kb < K; ++kb) {
+      const int t1 = s1b[kb * CK_WARPS + w];
+      const int t2 = t1 + sprev;
+      sprev = t1;
+      const uint32_t word = row ? S.cell[kb * plane + own] : CK_NO_CELL;
+      const int xi = word & 0xff, yi = (word >> 8) & 0xff;
+      const float v = (float)((word >> 16) & 0xff);
+      const float e[5] = {em6[xi * 6 + yi], eg6[xi], eg6[6 + yi],
+                          eg6[12 + xi], eg6[18 + yi]};
+      const int ra = mk::wrap(k + t2 - 1, Wp);
+      const int rb = mk::wrap(k + t1, Wp), rc = mk::wrap(k + t1 - 1, Wp);
+      float m[5];
+      m[0] = __shfl_sync(FULL, mM2, ra);
+      if (kb == 0) m[0] = m[0] / cprevF;
+      m[1] = __shfl_sync(FULL, mG[0], rb);
+      m[2] = __shfl_sync(FULL, mG[1], rc);
+      m[3] = __shfl_sync(FULL, mG[2], rb);
+      m[4] = __shfl_sync(FULL, mG[3], rc);
+      fwd_recur(e, m, v, f);
+      if constexpr (MULTI) {
+        const float inj =
+            (startb[kb * CK_WARPS + w] != 0 && k == 0) ? 0.2f : 0.f;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) f[s] = f[s] + inj;
+      }
+      if (kb == K - 1) {
+        const float mx = warp_band_max(f, row);
+        const float c = mx > 0.f ? mx : 1.f;
+        const float inv = 1.f / c;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) f[s] *= inv;
+        lsF += logf(c);
+        cprevF = c;
+      }
+      if (row) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s)
+          S.fs[(kb * NS + s) * plane + own] = f[s];
+      }
+      mM2 = mM1;
+      mM1 = mix_to(f, Tr, 0);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) mG[u] = mix_to(f, Tr, u + 1);
     }
 
+    // The backward over the block, with the counts.
     for (int kb = K - 1; kb >= 0; --kb) {
       const int d = blk * K + kb;
       const int s1n = sh1, s2n = sh1 + sh2;
-      const int gin = ((d + 1) & 1) * 4 * plane, gout = (d & 1) * 4 * plane;
-      const int pin = ((d + 2) % 3) * plane, pout = (d % 3) * plane;
-      const bool divide = d % K == K - 1;
-      // MULTI: the row of the terminal cell on d if a problem ends there,
-      // else -1 (single-problem lanes: the lane's terminal cell (fd, fk)).
+      const uint32_t word = row ? S.cell[kb * plane + own] : CK_NO_CELL;
+      const int xi = word & 0xff, yi = (word >> 8) & 0xff;
+      const float v = (float)((word >> 16) & 0xff);
+      const int ra = mk::wrap(k + 1 - s2n, Wp);
+      const int rb = mk::wrap(k - s1n, Wp), rc = mk::wrap(k + 1 - s1n, Wp);
+      float q[5], nb[5];
+      q[0] = __shfl_sync(FULL, p2, ra);
+      if (kb == K - 1) q[0] = q[0] / cprev;
+      q[1] = __shfl_sync(FULL, g1[0], rb);
+      q[2] = __shfl_sync(FULL, g1[1], rc);
+      q[3] = __shfl_sync(FULL, g1[2], rb);
+      q[4] = __shfl_sync(FULL, g1[3], rc);
+      float inj;
       int inj_row = -1;
       if constexpr (MULTI) {
-        const size_t at = (size_t)d * B + g.b;
-        inj_row = g.live && find[at] == d ? fink[at] : -1;
+        inj_row = findb[kb * CK_WARPS + w] == d ? finkb[kb * CK_WARPS + w]
+                                                : -1;
+        inj = k == inj_row ? 1.f : 0.f;
+      } else {
+        inj = (d == fd && k == fk) ? 1.f : 0.f;
       }
-      float nb[RPT][5], q[RPT][5];
-      int xs[RPT], ys[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int k = g.ty + r * g.TY;
-        xs[r] = ys[r] = 0;
-#pragma unroll
-        for (int s = 0; s < NS; ++s) nb[r][s] = q[r][s] = 0.f;
-        if (k >= Wp) continue;
-        float v = 0.f;
-        if (g.live) {
-          const size_t c = mk::cell(d, k, g.b, Wp, B);
-          xs[r] = xb[c];
-          ys[r] = yb[c];
-          v = (float)valid[c];
-        }
-        const int kx = gin + mk::wrap(k - s1n, Wp) * g.L + g.lane;
-        const int ky = gin + mk::wrap(k + 1 - s1n, Wp) * g.L + g.lane;
-        q[r][0] = shP[pin + mk::wrap(k + 1 - s2n, Wp) * g.L + g.lane];
-        if (divide) q[r][0] = q[r][0] / cprev;
-        q[r][1] = shG[kx];
-        q[r][2] = shG[plane + ky];
-        q[r][3] = shG[2 * plane + kx];
-        q[r][4] = shG[3 * plane + ky];
-        float inj;
-        if constexpr (MULTI)
-          inj = k == inj_row ? 1.f : 0.f;
-        else
-          inj = (d == fd && k == fk) ? 1.f : 0.f;
-#pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          float acc = q[r][0] * tab[s * 5];
-#pragma unroll
-          for (int u = 1; u < NS; ++u) acc = acc + q[r][u] * tab[s * 5 + u];
-          nb[r][s] = (acc + inj) * v;
-        }
-      }
+      bwd_recur(q, Tr, inj, v, nb);
       sh2 = sh1;
-      sh1 = g.live ? s1[(size_t)d * B + g.b] : 0;
-      // A problem's backward restarts its log-scale at its terminal cell
-      // (a terminal row is >= 0).
+      sh1 = s1b[kb * CK_WARPS + w];
       if (MULTI && inj_row >= 0) bls = 0.f;
-      float lsd, lz = lz0;
-      if constexpr (MULTI)
-        lz = g.live ? logZ[((size_t)g.t * d1k + d) * B + g.b] : 0.f;
-      if constexpr (CKPT)
-        lsd = lsb[kb * g.L + g.lane];
-      else
-        lsd = g.live ? lsf_cs[((size_t)g.t * d1k + d) * B + g.b] : 0.f;
+      const float lz = MULTI ? lzb[kb * CK_WARPS + w] : lz0;
+      const float lsd = kb == K - 1 ? lsF : lsA;
       float alpha0, alpha1;
-      if (d % K == 0) {
-        const float c = rescale<RPT>(nb, shR, g);
+      if (kb == 0) {
+        const float mx = warp_band_max(nb, row);
+        const float c = mx > 0.f ? mx : 1.f;
         const float inv = 1.f / c;
+#pragma unroll
+        for (int s = 0; s < NS; ++s) nb[s] *= inv;
         bls += logf(c);
         cprev = c;
         alpha0 = expf(lsd + bls - lz);
@@ -593,81 +1026,66 @@ __global__ void __launch_bounds__(MAX_THREADS)
         alpha0 = expf(lsd + bls - lz);
         alpha1 = alpha0;
       }
-      bool bound = d == 0;  // no emission at a problem's first diagonal
-      if constexpr (MULTI) bound = g.live && start[(size_t)d * B + g.b] != 0;
+      // No emission at a problem's first diagonal.
+      const bool bound = MULTI ? startb[kb * CK_WARPS + w] != 0 : d == 0;
       const float a0n = alpha0 * (bound ? 0.f : 1.f);
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int k = g.ty + r * g.TY;
-        if (k >= Wp) continue;
-        const int x = xs[r], y = ys[r];
+      if (row) {
         float fv[5];
 #pragma unroll
+        for (int s = 0; s < NS; ++s) fv[s] = S.fs[(kb * NS + s) * plane + own];
+#pragma unroll
         for (int s = 0; s < NS; ++s) {
-          if constexpr (CKPT)
-            fv[s] = fs[((kb * NS + s) * Wp + k) * g.L + g.lane];
-          else if constexpr (MODE == MODE_STORED)
-            fv[s] = g.live
-                        ? band[((((size_t)g.t * d1k + d) * NS + s) * Wp + k) *
-                                   B + g.b]
-                        : 0.f;
-          else
-            fv[s] = g.live && s == 0
-                        ? band[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b]
-                        : 0.f;
+          const float fa = fv[s] * alpha1;
+#pragma unroll
+          for (int u = 0; u < NS; ++u)
+            tca[s * 5 + u] = __fmaf_rn(fa, q[u], tca[s * 5 + u]);
         }
-        if constexpr (!CKPT) {
-          if (g.live)
-            post[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b] =
-                (fv[0] * nb[r][0]) * alpha0;
+#pragma unroll
+        for (int s = 1; s < NS; ++s) {
+          const int code = (s & 1) ? xi : yi;  // states 1, 3: the ref base
+          S.egb[(code * 4 + s - 1) * plane + own] += (fv[s] * nb[s]) * a0n;
         }
-        if constexpr (COUNTS) {
-#pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            const float fa = fv[s] * alpha1;
-#pragma unroll
-            for (int u = 0; u < NS; ++u) tca[s * 5 + u] += fa * q[r][u];
-          }
-#pragma unroll
-          for (int s = 1; s < NS; ++s) {
-            const float gam = (fv[s] * nb[r][s]) * a0n;
-            const int code = (s & 1) ? x : y;  // states 1, 3: the ref base
-#pragma unroll
-            for (int c = 0; c < 5; ++c)
-              ega[(s - 1) * 5 + c] += code == c ? gam : 0.f;
-          }
-        }
-        if constexpr (CKPT) {
-          const float gm = (fv[0] * nb[r][0]) * a0n;
-#pragma unroll
-          for (int a = 0; a < 5; ++a)
-#pragma unroll
-            for (int c = 0; c < 5; ++c)
-              mca[a * 5 + c] += (x == a && y == c) ? gm : 0.f;
-        }
-        const int i = k * g.L + g.lane;
-        shP[pout + i] = e_match(tab, x, y) * nb[r][0];
-        shG[gout + i] = e_gap(tab, 1, x) * nb[r][1];
-        shG[gout + plane + i] = e_gap(tab, 2, y) * nb[r][2];
-        shG[gout + 2 * plane + i] = e_gap(tab, 3, x) * nb[r][3];
-        shG[gout + 3 * plane + i] = e_gap(tab, 4, y) * nb[r][4];
+        S.mcb[(word >> 24) * plane + own] += (fv[0] * nb[0]) * a0n;
       }
-      __syncthreads();
+      p2 = p1;
+      p1 = em6[xi * 6 + yi] * nb[0];
+      g1[0] = eg6[xi] * nb[1];
+      g1[1] = eg6[6 + yi] * nb[2];
+      g1[2] = eg6[12 + xi] * nb[3];
+      g1[3] = eg6[18 + yi] * nb[4];
     }
   }
-  if constexpr (COUNTS) {
-    reduce_rows<25>(tca, shR, tcp, g);
-    reduce_rows<20>(ega, shR, egp, g);
+
+  // Per-lane sums over the warp's rows (a fixed tree).  The transition
+  // partials go through the frontier buffer, free now, so that tca is
+  // only ever indexed statically and stays in registers.
+  if (!live) return;
+  if (row) {
+#pragma unroll
+    for (int j = 0; j < 25; ++j) S.fs[j * plane + own] = tca[j];
   }
-  if constexpr (CKPT) reduce_rows<25>(mca, shR, mcp, g);
+  __syncwarp();
+#pragma unroll 1
+  for (int j = 0; j < 25; ++j) {
+    const float s = warp_sum(row ? S.fs[j * plane + own] : 0.f);
+    if (k == 0) tcp[((size_t)t * 25 + j) * B + b] = s;
+  }
+#pragma unroll 1
+  for (int j = 0; j < 20; ++j) {  // j = (state - 1) * 5 + code
+    const float s = warp_sum(
+        row ? S.egb[((j % 5) * 4 + j / 5) * plane + own] : 0.f);
+    if (k == 0) egp[((size_t)t * 20 + j) * B + b] = s;
+  }
+#pragma unroll 1
+  for (int j = 0; j < 25; ++j) {
+    const float s = warp_sum(row ? S.mcb[j * plane + own] : 0.f);
+    if (k == 0) mcp[((size_t)t * 25 + j) * B + b] = s;
+  }
 }
 
-// Floats of dynamic shared memory.
-size_t fwd_smem(int Wp, int L) { return (size_t)12 * Wp * L + TAB; }
-size_t bwd_smem(int Wp, int L, bool ckpt) {
-  return ckpt ? (size_t)(12 + 11 + K * NS) * Wp * L + TAB + K * L
-              : (size_t)12 * Wp * L + TAB;
-}
+// Floats of dynamic shared memory of the wavefront template kernels: the
+// frontier's mixes or e * b values, the row maxima and the tables.
+size_t wave_smem(int Wp, int L) { return (size_t)12 * Wp * L + TAB; }
 
 // Lanes per block: 32, halved while the shared memory would not fit.
 template <typename F>
@@ -684,8 +1102,8 @@ cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
                     const int32_t* fink, int ntr, int d1k, int Wp, int B,
                     float* band, float* cs, float* lsf, float* term,
                     cudaStream_t stream) {
-  const int L = lanes_for([&](int l) { return fwd_smem(Wp, l); });
-  const size_t bytes = fwd_smem(Wp, L) * sizeof(float);
+  const int L = lanes_for([&](int l) { return wave_smem(Wp, l); });
+  const size_t bytes = wave_smem(Wp, L) * sizeof(float);
   cudaError_t err = mk::allow_smem(
       (const void*)counts_fwd_kernel<RPT, MODE, MULTI>, bytes);
   if (err != cudaSuccess) return err;
@@ -703,17 +1121,36 @@ cudaError_t run_bwd(const float* T, const float* Em, const float* Eg,
                     const int8_t* start, const int32_t* fink,
                     const int32_t* find, const float* logZ, int ntr, int d1k,
                     int Wp, int B, float* post, float* tcp, float* egp,
-                    float* mcp, cudaStream_t stream) {
-  constexpr bool CKPT = MODE == MODE_CKPT;
-  const int L = lanes_for([&](int l) { return bwd_smem(Wp, l, CKPT); });
-  const size_t bytes = bwd_smem(Wp, L, CKPT) * sizeof(float);
+                    cudaStream_t stream) {
+  const int L = lanes_for([&](int l) { return wave_smem(Wp, l); });
+  const size_t bytes = wave_smem(Wp, L) * sizeof(float);
   cudaError_t err = mk::allow_smem(
       (const void*)counts_bwd_kernel<RPT, MODE, MULTI>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
   counts_bwd_kernel<RPT, MODE, MULTI><<<grid, block, bytes, stream>>>(
       T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ,
-      d1k, Wp, B, post, tcp, egp, mcp);
+      d1k, Wp, B, post, tcp, egp);
+  return cudaGetLastError();
+}
+
+template <bool MULTI>
+cudaError_t run_bwd_ckpt(const float* T, const float* Em, const float* Eg,
+                         const float* ckpt, const float* cs, const int8_t* xb,
+                         const int8_t* yb, const uint8_t* valid,
+                         const int32_t* s1, const int8_t* start,
+                         const int32_t* fink, const int32_t* find,
+                         const float* logZ, int ntr, int d1k, int Wp, int B,
+                         float* tcp, float* egp, float* mcp,
+                         cudaStream_t stream) {
+  const size_t bytes = ckpt_smem_floats(Wp) * sizeof(float);
+  cudaError_t err = mk::allow_smem(
+      (const void*)counts_bwd_ckpt_kernel<MULTI>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + CK_WARPS - 1) / CK_WARPS, ntr);
+  counts_bwd_ckpt_kernel<MULTI><<<grid, CK_THREADS, bytes, stream>>>(
+      T, Em, Eg, ckpt, cs, xb, yb, valid, s1, start, fink, find, logZ, d1k,
+      Wp, B, tcp, egp, mcp);
   return cudaGetLastError();
 }
 
@@ -754,10 +1191,14 @@ int bwd_launch(const float* T, const float* Em, const float* Eg,
                void* stream) {
   if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (rows_per_thread(Wp)) {
-    case 2: return run_bwd<2, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
-    case 3: return run_bwd<3, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
-    default: return run_bwd<4, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, mcp, s);
+  if constexpr (MODE == MODE_CKPT) {
+    return run_bwd_ckpt<MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, tcp, egp, mcp, s);
+  } else {
+    switch (rows_per_thread(Wp)) {
+      case 2: return run_bwd<2, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
+      case 3: return run_bwd<3, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
+      default: return run_bwd<4, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
+    }
   }
 }
 
@@ -881,4 +1322,30 @@ extern "C" int counts_multi_bwd_ckpt_launch(
   return bwd_launch<MODE_CKPT, true>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1,
                                      start, fink, find, L, ntr, d1k, Wp, B,
                                      post, tcp, egp, mcp, stream);
+}
+
+// What the checkpoint backward's launches at band width Wp get on this
+// device: out[0] its registers per thread, out[1] shared memory per block
+// (bytes), out[2] blocks resident per SM, out[3] threads per block, out[4]
+// local memory per thread (bytes, spills).  multi picks
+// counts_multi_bwd_ckpt.
+extern "C" int counts_bwd_ckpt_info(int multi, int Wp, int* out) {
+  const void* fn = multi ? (const void*)counts_bwd_ckpt_kernel<true>
+                         : (const void*)counts_bwd_ckpt_kernel<false>;
+  const size_t bytes = ckpt_smem_floats(Wp) * sizeof(float);
+  cudaError_t err = mk::allow_smem(fn, bytes);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, fn);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
+                                                      CK_THREADS, bytes);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)(bytes + a.sharedSizeBytes);
+  out[2] = blocks;
+  out[3] = CK_THREADS;
+  out[4] = (int)a.localSizeBytes;
+  return cudaSuccess;
 }

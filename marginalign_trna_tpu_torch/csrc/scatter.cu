@@ -23,18 +23,39 @@
 //   out[v, b] = sum over d with jm[d, b] == v of vals[d, b].
 // Replaces marginalign_trna_tpu/ops/bucket_scatter.py `bucket_scatter`
 // (via `bucket_scatter_chunked`), which places values through residue masks
-// in 128-row groups and chunks its [rg, B] output to fit VMEM.  Here one
-// thread per lane walks the rows in order and owns its output column: no
-// atomics, no groups, no chunks, and the sums are deterministic.  A lane's
-// targets run in increasing order within the flushed rows and within the
-// tail rows, so the thread sums a run of equal targets in a register and
-// adds it to the output once (out is zeroed by the caller); the sums are
-// the plain version's, in its order.  Bound by bytes: 8 B read per row and
-// lane, the output written; the loads coalesce across lanes, the output
-// stores do not (each lane writes its own row).  With one thread per lane
-// a bucket has few threads, so the loop is latency-bound: the thread keeps
-// BATCH rows of loads in flight, and stores a run without reading the
-// output back wherever the targets still increase.
+// in 128-row groups and chunks its [rg, B] output to fit VMEM.
+//
+// What bounds it on an H100: bytes (8 B read per row and lane, the output
+// written once; the caller's zeroing writes it once more), provided each
+// lane's rows spread over many threads: one thread per lane leaves 128
+// warps on 132 SMs at B = 4096, bound by load latency.  The design:
+//   - a block owns L_LANES = 4 lanes and walks the rows in tiles of
+//     L_CHUNKS chunks of L_CH rows; a thread holds one chunk of one lane
+//     in registers and sums its runs of equal targets, branch-free.  The
+//     loads are 4 bytes a thread (a warp reads 8 rows of 16 bytes): small
+//     blocks of 64 registers a thread put eight on an SM, so the 1024
+//     blocks of B = 4096 run in one wave, which beat 16-byte loads over
+//     4 lanes a thread (fewer, larger blocks, a second wave);
+//   - a lane's targets increase within its flushed rows (each position
+//     flushes once) and the last Wp tail rows go back.  A warp walks each
+//     lane's chunks in parallel (a thread per chunk, ballots and a
+//     shuffle scan): chunks whose targets never decrease and continue the
+//     order form a segment, and the runs that cross chunk edges sum in a
+//     segmented scan; each chunk then adds its own runs, inner and
+//     boundary, which no other chunk of the segment holds.  Where the
+//     order breaks a new segment starts, added after the earlier ones
+//     (phases, one barrier apart); a chunk whose targets decrease is a
+//     segment of its own and adds its runs in row order;
+//   - the adds go to a window of L_WIN output rows in shared memory, which
+//     is written out as coalesced rows (L_LANES lanes each) once every
+//     lane has passed them; a target outside the window adds straight to
+//     the output.
+// No atomics, and every sum in a fixed order, so launches are
+// bit-identical; the sums are the plain version's up to the order of
+// float32 additions.  ptxas: 64 registers (24 B of spill stores), 5,216 B
+// of static shared memory and the 16 KB window a block.
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
@@ -55,51 +76,274 @@ __global__ void scatter_lanesum_kernel(const float* __restrict__ vals,
   }
 }
 
-// Adds a run's sum into out[cur]: a plain store while the run's target lies
-// above every target the lane has written (the output is zeroed, so
-// 0 + acc == acc exactly), a read-modify-write where targets go back (the
-// tail rows after the flushed ones).
-__device__ __forceinline__ void flush_run(float* out, int cur, float acc,
-                                          int& hi, int B, int b) {
-  float* dst = out + (size_t)cur * B + b;
-  if (cur > hi) {
-    *dst = acc;
-    hi = cur;
-  } else {
-    *dst += acc;
+constexpr int L_LANES = 4;    // lanes per block
+constexpr int L_CHUNKS = 32;  // row chunks per tile (threadIdx.y)
+constexpr int L_CH = 8;       // rows per chunk, held in registers
+constexpr int L_WIN = 1024;   // output rows staged per block (power of 2)
+
+// A chunk's runs of one lane: count, whether its targets never decrease,
+// the first and the last run's target and sum.
+struct Runs {
+  int n;
+  bool mono;
+  int ft, lt;
+  float fs, ls;
+};
+
+// Branch-free: the threads of a warp hold different target patterns, so
+// every step is a select, not a branch.
+__device__ __forceinline__ Runs chunk_runs(const int (&v)[L_CH],
+                                           const float (&x)[L_CH], int rg) {
+  Runs r{0, true, -1, -1, 0.f, 0.f};
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < L_CH; ++u) {
+    const int t = v[u];
+    const bool in = t >= 0 && t < rg;
+    const bool same = in && r.n > 0 && t == r.lt;
+    const bool fresh = in && !same;
+    r.mono = r.mono && !(fresh && r.n > 0 && t < r.lt);
+    r.fs = fresh && r.n == 1 ? acc : r.fs;
+    r.ft = in && r.n == 0 ? t : r.ft;
+    acc = same ? acc + x[u] : (fresh ? x[u] : acc);
+    r.lt = fresh ? t : r.lt;
+    r.n += fresh ? 1 : 0;
+  }
+  r.fs = r.n == 1 ? acc : r.fs;
+  r.ls = acc;
+  return r;
+}
+
+// The output window: rows [F, F + L_WIN) of the block's L_LANES lanes,
+// win[(t % L_WIN) * L_LANES + l]; a target outside it adds straight into
+// the (zeroed) output, and one past it raises `ahead`: its row must then
+// be flushed with an add, not a store.
+__device__ __noinline__ void add_outside(float* out, size_t at, float s,
+                                        int* ahead, bool past) {
+  out[at] += s;
+  if (past) *ahead = 1;
+}
+
+struct Window {
+  float* win;
+  int* ahead;
+  int F;
+  float* out;
+  int B, lane0;
+  __device__ __forceinline__ void add(int t, int l, float s) const {
+    if (t >= F && t < F + L_WIN)
+      win[(t & (L_WIN - 1)) * L_LANES + l] += s;
+    else
+      add_outside(out, (size_t)t * B + lane0 + l, s, ahead, t >= F);
+  }
+};
+
+// Adds a chunk's runs of lane l: with `all` every run in row order, else
+// only the runs strictly inside the chunk (the run tracking branch-free,
+// as in chunk_runs).
+__device__ __forceinline__ void add_runs(const int (&v)[L_CH],
+                                         const float (&x)[L_CH], int rg,
+                                         bool all, const Window& w, int l) {
+  int r = -1, cur = -1;
+  float acc = 0.f;
+#pragma unroll
+  for (int u = 0; u < L_CH; ++u) {
+    const int t = v[u];
+    const bool in = t >= 0 && t < rg;
+    const bool same = in && r >= 0 && t == cur;
+    const bool fresh = in && !same;
+    if (fresh && r >= 0 && (all || r >= 1)) w.add(cur, l, acc);
+    acc = same ? acc + x[u] : (fresh ? x[u] : acc);
+    cur = fresh ? t : cur;
+    r += fresh ? 1 : 0;
+  }
+  if (all && r >= 0) w.add(cur, l, acc);
+}
+
+// Window rows [F, F1) into the output (coalesced: L_LANES lanes per row),
+// then zeroed.  Rows no target reached ahead of the window hold only what
+// the window holds, so they are stored without reading the output.
+__device__ __forceinline__ void flush_window(const Window& w, int F1,
+                                             bool add, int tid,
+                                             int nthreads) {
+  for (int i = tid; i < (F1 - w.F) * L_LANES; i += nthreads) {
+    const int t = w.F + i / L_LANES, l = i % L_LANES;
+    float* slot = w.win + (t & (L_WIN - 1)) * L_LANES + l;
+    float* dst = w.out + (size_t)t * w.B + w.lane0 + l;
+    if (w.lane0 + l < w.B) *dst = add ? *dst + *slot : *slot;
+    *slot = 0.f;
   }
 }
 
-__global__ void scatter_lanes_kernel(const float* __restrict__ vals,
-                                     const int32_t* __restrict__ jm, int D,
-                                     int B, int rg, float* __restrict__ out) {
-  constexpr int BATCH = 8;  // rows whose loads are in flight together
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int cur = -1, hi = -1;
-  float acc = 0.f;
-  for (int d0 = 0; d0 < D; d0 += BATCH) {
-    int v[BATCH];
-    float x[BATCH];
+// blockDim = (L_LANES, L_CHUNKS); one block per L_LANES lanes, eight
+// blocks per SM, so that a grid of B / L_LANES blocks fills the card in
+// one wave at the path's B = 4096; dynamic shared memory: the window,
+// L_WIN * L_LANES floats.
+__global__ void __launch_bounds__(L_LANES * L_CHUNKS, 8)
+    scatter_lanes_kernel(const float* __restrict__ vals,
+                         const int32_t* __restrict__ jm, int D, int B,
+                         int rg, float* __restrict__ out) {
+  constexpr unsigned FULL = 0xffffffffu;
+  static_assert(L_CHUNKS == 32 && L_LANES * L_CHUNKS / 32 == L_LANES,
+                "a warp walks one lane's chunks");
+  extern __shared__ float s_win[];
+  __shared__ int s_ft[L_CHUNKS][L_LANES], s_lt[L_CHUNKS][L_LANES];
+  __shared__ float s_fs[L_CHUNKS][L_LANES], s_ls[L_CHUNKS][L_LANES];
+  __shared__ int s_n[L_CHUNKS][L_LANES];     // run count, -1: decreasing
+  __shared__ int s_ph[L_CHUNKS][L_LANES];    // the chunk's phase
+  // A chunk's boundary runs to add (target, -1: none, and sum): its first
+  // run where it closes inside the chunk, its last where the next chunk
+  // does not continue it; both with the sums of the runs they continue.
+  __shared__ int s_e1t[L_CHUNKS][L_LANES], s_e2t[L_CHUNKS][L_LANES];
+  __shared__ float s_e1s[L_CHUNKS][L_LANES], s_e2s[L_CHUNKS][L_LANES];
+  __shared__ int s_e0t[L_LANES];             // the run pending from the
+  __shared__ float s_e0s[L_LANES];           // last tile, if it closes
+  // Per lane: the last target of its segment (INT_MAX after a chunk whose
+  // targets decrease), its pending (last, unfinished) run's target (-1:
+  // none) and sum.
+  __shared__ int s_clt[L_LANES], s_pend[L_LANES];
+  __shared__ float s_cps[L_LANES];
+  __shared__ int s_nph, s_ahead;
+  const int c = threadIdx.y;
+  const int l = threadIdx.x;                 // the thread's lane
+  const int nthreads = L_LANES * L_CHUNKS;
+  const int tid = c * L_LANES + l;
+  const int lane0 = blockIdx.x * L_LANES;
+  const bool live = lane0 + l < B;
+  const int wl = tid >> 5, wc = tid & 31;    // walking: lane, chunk
+  for (int i = tid; i < L_WIN * L_LANES; i += nthreads) s_win[i] = 0.f;
+  if (tid < L_LANES) {
+    s_clt[tid] = s_pend[tid] = -1;
+    s_cps[tid] = 0.f;
+  }
+  if (tid == 0) s_ahead = 0;
+  Window w{s_win, &s_ahead, 0, out, B, lane0};
+
+  for (int r0 = 0; r0 < D; r0 += L_CHUNKS * L_CH) {
+    int v[L_CH];
+    float x[L_CH];
 #pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      const size_t idx = (size_t)(d0 + u) * B + b;
-      v[u] = d0 + u < D ? jm[idx] : -1;
-      x[u] = d0 + u < D ? vals[idx] : 0.f;
+    for (int u = 0; u < L_CH; ++u) {
+      const int row = r0 + c * L_CH + u;
+      const size_t at = (size_t)row * B + lane0 + l;
+      const bool in = live && row < D;
+      v[u] = in ? jm[at] : -1;
+      x[u] = in ? vals[at] : 0.f;
     }
+    const Runs rs = chunk_runs(v, x, rg);
+    s_n[c][l] = rs.mono ? rs.n : -1;
+    s_ft[c][l] = rs.ft;
+    s_lt[c][l] = rs.lt;
+    s_fs[c][l] = rs.fs;
+    s_ls[c][l] = rs.ls;
+    if (tid == 0) s_nph = 1;
+    __syncthreads();
+
+    // Walk the tile's chunks, a warp per lane, a thread per chunk.  A
+    // chunk continues its lane's segment when its targets never decrease
+    // and start at or above the last target before it; every other
+    // nonempty chunk begins a new segment (phase).  Runs that cross chunks
+    // sum through a segmented scan of the chunks' last-run sums.
+    {
+      const int c_lt = s_clt[wl], c_pt = s_pend[wl];
+      const float c_ps = s_cps[wl];
+      const int n = s_n[wc][wl], ft = s_ft[wc][wl], lt = s_lt[wc][wl];
+      const float fs = s_fs[wc][wl], ls = s_ls[wc][wl];
+      const bool ne = n != 0, mono = n > 0;
+      const unsigned nem = __ballot_sync(FULL, ne);
+      const unsigned upto = (2u << wc) - 1;        // chunks 0..wc
+      const unsigned below = nem & (upto >> 1);
+      const int pidx = below ? 31 - __clz(below) : -1;
+      const int lt_eff = mono ? lt : INT_MAX;
+      const int plt_sh = __shfl_sync(FULL, lt_eff, pidx < 0 ? 0 : pidx);
+      const int plt = pidx < 0 ? c_lt : plt_sh;
+      const bool brk = ne && !(mono && ft >= plt);
+      const bool join = ne && !brk && ft == plt;
+      const unsigned bm = __ballot_sync(FULL, brk);
+      // The chunk's last-run sum, continuing the previous chunks' while
+      // each is one run joined to the one before.
+      float val = ne ? ls : 0.f;
+      int flag = ne && !(join && n == 1) ? 1 : 0;
 #pragma unroll
-    for (int u = 0; u < BATCH; ++u) {
-      if (v[u] < 0 || v[u] >= rg) continue;
-      if (v[u] == cur) {
-        acc += x[u];
-        continue;
+      for (int o = 1; o < 32; o <<= 1) {
+        const float vu = __shfl_up_sync(FULL, val, o);
+        const int fu = __shfl_up_sync(FULL, flag, o);
+        if (wc >= o) {
+          if (!flag) val = vu + val;
+          flag |= fu;
+        }
       }
-      if (cur >= 0) flush_run(out, cur, acc, hi, B, b);
-      cur = v[u];
-      acc = x[u];
+      const float out_c = flag ? val : c_ps + val;
+      const float pin_sh = __shfl_sync(FULL, out_c, pidx < 0 ? 0 : pidx);
+      const float pin = pidx < 0 ? c_ps : pin_sh;
+      const unsigned above = nem & ~upto;
+      const int nidx = above ? __ffs(above) - 1 : -1;
+      const int jn = __shfl_sync(FULL, join ? 1 : 0, nidx < 0 ? 0 : nidx);
+      const int c0 = nem ? __ffs(nem) - 1 : 0;
+      const int j0 = __shfl_sync(FULL, join ? 1 : 0, c0);
+      const int cl = nem ? 31 - __clz(nem) : 0;
+      const int lt_cl = __shfl_sync(FULL, lt_eff, cl);
+      const float out_cl = __shfl_sync(FULL, out_c, cl);
+      s_ph[wc][wl] = __popc(bm & upto);
+      s_e1t[wc][wl] = mono && n >= 2 ? ft : -1;
+      s_e1s[wc][wl] = join ? pin + fs : fs;
+      s_e2t[wc][wl] = mono && nidx >= 0 && !jn ? lt : -1;
+      s_e2s[wc][wl] = out_c;
+      __syncwarp();
+      if (wc == 0) {
+        s_e0t[wl] = nem && !j0 ? c_pt : -1;
+        s_e0s[wl] = c_ps;
+        if (nem) {
+          s_clt[wl] = lt_cl;
+          s_pend[wl] = lt_cl == INT_MAX ? -1 : lt_cl;
+          s_cps[wl] = out_cl;
+        }
+        if (bm) atomicMax(&s_nph, __popc(bm) + 1);
+      }
+    }
+    __syncthreads();
+
+    const int nph = s_nph;
+    for (int p = 0; p < nph; ++p) {
+      if (live) {
+        if (p == 0 && c == 0 && s_e0t[l] >= 0) w.add(s_e0t[l], l, s_e0s[l]);
+        const int n = s_n[c][l];
+        if (n != 0 && s_ph[c][l] == p) {
+          // A chunk in order adds its inner runs and its closed boundary
+          // runs; one whose targets decrease adds all its runs in row
+          // order.
+          if (n < 0 || n > 2) add_runs(v, x, rg, n < 0, w, l);
+          if (n > 0 && s_e1t[c][l] >= 0) w.add(s_e1t[c][l], l, s_e1s[c][l]);
+          if (n > 0 && s_e2t[c][l] >= 0) w.add(s_e2t[c][l], l, s_e2s[c][l]);
+        }
+      }
+      if (p + 1 < nph) __syncthreads();
+    }
+    __syncthreads();
+    // Rows below every lane's pending run are complete: write them out.
+    // The window follows the leading lanes, so that the next tile's
+    // targets (at most one per row on a flush stream) fit in it; a lane
+    // left behind (one that has finished) adds what it still holds below
+    // the window straight to the output.
+    int lo = INT_MAX, hi = -1;
+    for (int l = 0; l < L_LANES; ++l) {
+      if (s_pend[l] < 0) continue;
+      lo = min(lo, s_pend[l]);
+      hi = max(hi, s_pend[l]);
+    }
+    int F1 = max(lo, hi + L_CHUNKS * L_CH - L_WIN);
+    F1 = min(F1, min(w.F + L_WIN, rg));
+    if (hi >= 0 && F1 > w.F) {
+      flush_window(w, F1, s_ahead != 0, tid, nthreads);
+      w.F = F1;
     }
   }
-  if (cur >= 0) flush_run(out, cur, acc, hi, B, b);
+  __syncthreads();  // the last tile's flush is done with the window
+  if (tid < L_LANES && lane0 + tid < B && s_pend[tid] >= 0)
+    w.add(s_pend[tid], tid, s_cps[tid]);
+  __syncthreads();
+  flush_window(w, w.F + L_WIN < rg ? w.F + L_WIN : rg, s_ahead != 0, tid,
+               nthreads);
 }
 
 }  // namespace
@@ -123,8 +367,9 @@ extern "C" int scatter_lanes_launch(const float* vals, const int32_t* jm,
                                     int D, int B, int rg, float* out,
                                     void* stream) {
   if (D < 1 || B < 1 || rg < 1) return cudaErrorInvalidValue;
-  // One warp per block, so the few lanes of a bucket spread over the SMs.
-  scatter_lanes_kernel<<<(B + 31) / 32, 32, 0, (cudaStream_t)stream>>>(
-      vals, jm, D, B, rg, out);
+  const size_t win = (size_t)L_WIN * L_LANES * sizeof(float);
+  scatter_lanes_kernel<<<(B + L_LANES - 1) / L_LANES, dim3(L_LANES, L_CHUNKS),
+                         win, (cudaStream_t)stream>>>(vals, jm, D, B, rg,
+                                                      out);
   return cudaGetLastError();
 }

@@ -132,6 +132,14 @@ _SIGNATURES: Dict[str, List] = {
     "counts_multi_bwd_ckpt": [_P] * 13 + [_I] * 4 + [_P] * 5,
 }
 
+# Entry points that launch nothing: name -> argument types; each returns
+# a cudaError_t.
+_QUERIES: Dict[str, List] = {
+    # multi, Wp, out[5]: registers, shared bytes per block, blocks per SM,
+    # threads per block, local bytes (csrc/fb_counts.cu)
+    "counts_bwd_ckpt_info": [_I, _I, _P],
+}
+
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -233,6 +241,10 @@ def load() -> ctypes.CDLL:
             fn = getattr(lib, name + "_launch")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        for name, argtypes in _QUERIES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.marginalign_cuda_error_string.argtypes = [ctypes.c_int]
         lib.marginalign_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -247,6 +259,17 @@ def check_tensor(t: torch.Tensor, dtype, shape, device) -> None:
                          % (dtype, tuple(shape), t.dtype, tuple(t.shape)))
     if t.device != device or not t.is_contiguous():
         raise ValueError("expected a contiguous tensor on %s" % device)
+
+
+def query(name: str, device: torch.device, *args) -> None:
+    """Call entry point `name` of `_QUERIES` with `device` current; raise
+    if it reports a CUDA error."""
+    lib = load()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args)
+    if err != 0:
+        msg = lib.marginalign_cuda_error_string(err).decode()
+        raise RuntimeError("%s failed: CUDA error %d (%s)" % (name, err, msg))
 
 
 def launch(name: str, device: torch.device, *args) -> None:

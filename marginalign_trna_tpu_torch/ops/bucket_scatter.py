@@ -17,9 +17,15 @@ L is the port of that module's `bucket_scatter` (called through
 `bucket_scatter_chunked`), the per-lane scatter of the MEA's row and column
 posterior sums: out[v, b] = sum over d with jm[d, b] == v of vals[d, b],
 one channel.  The TPU kernel pads rows to 128-row residue groups and chunks
-its [rg, B] output through VMEM; on the card one thread per lane walks its
-rows in order and owns its output column, so L needs no atomics, no groups
-and no chunks, and sums in the plain version's order.
+its [rg, B] output through VMEM; on the card a block owns 16 lanes and
+spreads each lane's rows over 32 row chunks: a chunk sums its runs of
+equal targets in registers, a warp per lane walks the chunks in parallel
+(runs that cross chunk edges sum in a segmented scan), and where the
+targets go back (the tail rows) later adds follow earlier ones a barrier
+apart; the adds collect in a shared-memory window of output rows written
+out as coalesced rows.  No atomics and a fixed order of additions, so two
+launches give identical outputs, within float32 rounding of the plain
+version's.
 
 `monotone_gather_plain` is the function of the TPU kernel `monotone_gather`,
 which the port performs as direct loads inside the expand_streams kernel
@@ -73,8 +79,8 @@ def scatter_lanes_plain(vals: torch.Tensor, jm: torch.Tensor,
 
 def scatter_lanes_cuda(vals: torch.Tensor, jm: torch.Tensor,
                        rg: int) -> torch.Tensor:
-    """The scatter_lanes kernel (csrc/scatter.cu); same outputs as the
-    plain version."""
+    """The scatter_lanes kernel (csrc/scatter.cu); the plain version's
+    outputs, summed in another fixed order (launches are bit-identical)."""
     D, B = vals.shape
     dev = vals.device
     check_tensor(vals, torch.float32, (D, B), dev)

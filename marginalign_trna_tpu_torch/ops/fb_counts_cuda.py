@@ -59,7 +59,8 @@ band round identically.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import ctypes
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -569,6 +570,19 @@ def counts_bwd_ckpt_cuda(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink, find,
     counts_bwd_ckpt_plain."""
     return _bwd_cuda(True, T, Em, Eg, ckpt, cs, xb, yb, valid, s1, fink,
                      find, logZ)
+
+
+def ckpt_backward_resources(device: torch.device, wp: int,
+                            multi: bool = False) -> Dict[str, int]:
+    """What a launch of counts_bwd_ckpt (multi: counts_multi_bwd_ckpt) at
+    band width `wp` gets on `device`: registers per thread, shared memory
+    per block (bytes), blocks resident per SM, threads per block and local
+    memory per thread (bytes; spills)."""
+    out = (ctypes.c_int * 5)()
+    _build.query("counts_bwd_ckpt_info", device, int(multi), wp,
+                 ctypes.addressof(out))
+    return dict(zip(("registers", "smem_per_block", "blocks_per_sm",
+                     "threads_per_block", "local_bytes"), out))
 
 
 def counts_multi_fwd_all_cuda(T, Em, Eg, xb, yb, valid, s1, start, fink):

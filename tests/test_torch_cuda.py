@@ -229,6 +229,69 @@ def test_scatter_lanes_any_targets(cuda):
     assert torch.allclose(out, ref, rtol=1e-5, atol=1e-6)
 
 
+def _lane_patterns(rng, D, B):
+    """Target streams L's chunked design must get right, one per lane
+    group: runs of 1-17 equal targets straddling the 8-row chunks and
+    256-row tiles, a lane of -1 only, one target over every row, distinct
+    increasing targets with 24 tail rows (fewer for short D) that go back
+    (in every other such lane jumping 1100 targets ahead halfway, past
+    the kernel's 1024-row output window), random pads."""
+    jm = np.full((D, B), -1, np.int32)
+    tail = min(24, D // 2)
+    n = D - tail
+    for b in range(B):
+        kind = b % 4
+        if kind == 0:
+            jm[:, b] = np.arange(D) // (1 + b % 17)
+        elif kind == 1:
+            jm[:, b] = -1 if b % 8 == 1 else 77
+        else:
+            jm[:n, b] = np.arange(n) // (kind - 1) + b
+            if b % 8 == 3:
+                jm[n // 2:n, b] += 1100
+            jm[n:, b] = jm[n - 1, b] - (np.arange(tail) + 7 * b) % tail
+    jm[(rng.random((D, B)) < 0.05) & (jm >= 0)] = -1
+    return jm
+
+
+@pytest.mark.parametrize("D,B", [(603, 37), (603, 36), (3096, 64), (8, 5)])
+def test_scatter_lanes_edge_targets(cuda, D, B):
+    """L on the target streams of `_lane_patterns` (D a multiple of neither
+    the 8-row chunk nor the 256-row tile; B not a multiple of 32, with and
+    without 16-byte loads): the plain version's sums (rtol 1e-5), and two
+    launches bit-identical."""
+    rng = np.random.default_rng(D + B)
+    jm = torch.from_numpy(_lane_patterns(rng, D, B)).to(cuda)
+    vals = torch.from_numpy(rng.random((D, B)).astype(np.float32)).to(cuda)
+    rg = 2048
+    before = _build.launch_counts["scatter_lanes"]
+    out = bucket_scatter.scatter_lanes_cuda(vals, jm, rg)
+    again = bucket_scatter.scatter_lanes_cuda(vals, jm, rg)
+    ref = bucket_scatter.scatter_lanes_plain(vals, jm, rg)
+    torch.cuda.synchronize()
+    assert torch.allclose(out, ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(out, again)
+    assert _build.launch_counts["scatter_lanes"] == before + 2
+
+
+def test_scatter_lanes_random_targets_past_window(cuda):
+    """L on random targets over an output far taller than the kernel's
+    1024-row window (rows that share a window slot, targets ahead of and
+    behind it): the plain version's sums (rtol 1e-5), launches
+    bit-identical."""
+    rng = np.random.default_rng(11)
+    D, B, rg = 505, 36, 5000
+    jm = torch.from_numpy(
+        rng.integers(-2, rg + 2, size=(D, B)).astype(np.int32)).to(cuda)
+    vals = torch.from_numpy(rng.random((D, B)).astype(np.float32)).to(cuda)
+    out = bucket_scatter.scatter_lanes_cuda(vals, jm, rg)
+    again = bucket_scatter.scatter_lanes_cuda(vals, jm, rg)
+    ref = bucket_scatter.scatter_lanes_plain(vals, jm, rg)
+    torch.cuda.synchronize()
+    assert torch.allclose(out, ref, rtol=1e-5, atol=1e-6)
+    assert torch.equal(out, again)
+
+
 def _em_models(ntr):
     """ntr random EM starts under fiveStateAsymmetric constraints (every
     transition, non-flat gap emissions)."""
@@ -280,6 +343,66 @@ def test_counts_kernels_match_plain(cuda, ntr):
         assert torch.allclose(g.sum(-1), r.sum(-1), rtol=1e-5, atol=1e-6)
     torch.cuda.synchronize()
     assert all(_build.launch_counts[k] == before[k] + 1 for k in names)
+
+
+def _narrow(streams, wp):
+    """The first wp band rows of (xb, yb, valid, s1, fink): a band of wp
+    rows, which the kernels take whatever the packer's padding."""
+    xb, yb, valid, s1, fk = streams
+    assert int(fk.max()) < wp
+    return tuple(a[:, :wp].contiguous() for a in (xb, yb, valid)) + (s1, fk)
+
+
+@pytest.mark.parametrize("ntr", [1, 3])
+@pytest.mark.parametrize("wp", [9, 24, 32])
+def test_counts_ckpt_backward_band_widths(cuda, ntr, wp):
+    """counts_bwd_ckpt and counts_multi_bwd_ckpt (one band row per thread
+    of a warp: Wp 9 leaves 23 rows idle, Wp 32 none) on their plain
+    forwards' checkpoints: the lane-summed counts within rtol 1e-5 of the
+    plain versions, and each launch counted."""
+    K = fb_counts_cuda
+    tables = tables_stacked(_em_models(ntr), cuda)
+    tabs = (tables.T, tables.Ematch, tables.Egap)
+    width = {9: 7, 24: 21, 32: 29}[wp]
+    dev = device_batch(_batch(width, seed=5), cuda)
+    xb, yb, valid, s1, fk, fd = fb_counts.kernel_inputs(dev)
+    streams = _narrow((xb, yb, valid, s1, fk), wp)
+    ref = K.counts_fwd_ckpt_plain(*tabs, *streams)
+    logZ = fb_counts.logz_from_terminal(ref[2], ref[3], fd)
+    cargs = (*tabs, ref[0], ref[1], *streams, fd, logZ)
+    before = _build.launch_counts["counts_bwd_ckpt"]
+    for g, r in zip(K.counts_bwd_ckpt_cuda(*cargs),
+                    K.counts_bwd_ckpt_plain(*cargs)):
+        assert torch.allclose(g.sum(-1), r.sum(-1), rtol=1e-5, atol=1e-6)
+    assert _build.launch_counts["counts_bwd_ckpt"] == before + 1
+
+    mb, mdev = _multi(cuda, width, seed=9, n=40)
+    *mstreams, mfk, mfd = fb_counts.multi_kernel_inputs(mdev)
+    xb, yb, valid, s1, start = mstreams
+    assert int(mfk.max()) < wp
+    mstreams = tuple(a[:, :wp].contiguous() for a in (xb, yb, valid)) + (
+        s1, start, mfk)
+    ref = K.counts_multi_fwd_ckpt_plain(*tabs, *mstreams)
+    L, _ = multi_logz(ref[2], ref[3], mdev)
+    cargs = (*tabs, ref[0], ref[1], *mstreams, mfd, L)
+    before = _build.launch_counts["counts_multi_bwd_ckpt"]
+    for g, r in zip(K.counts_multi_bwd_ckpt_cuda(*cargs),
+                    K.counts_multi_bwd_ckpt_plain(*cargs)):
+        assert torch.allclose(g.sum(-1), r.sum(-1), rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["counts_multi_bwd_ckpt"] == before + 1
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("wp", [9, 24, 32])
+def test_ckpt_backward_resources(cuda, multi, wp):
+    """The checkpoint backward builds without spills and fits at least one
+    block per SM at every band width; its registers, shared memory and
+    residency are what the smoke reports."""
+    res = fb_counts_cuda.ckpt_backward_resources(cuda, wp, multi)
+    assert res["local_bytes"] == 0
+    assert res["registers"] > 0 and res["blocks_per_sm"] >= 1
+    assert res["threads_per_block"] % 32 == 0
 
 
 @pytest.mark.parametrize("kernel", ["stored", "ckpt"])

@@ -30,10 +30,11 @@ def interpret(jitted, *args):
     return jitted.lower(*args).compile(compiler_options=FAST_COMPILE)(*args)
 
 
-def em_batch(seed=6):
-    """Width-21 band (Wp 24): a 7-base deletion and a 5-base insertion along
-    their guide paths (the band moves), an unguided noisy pair, two short
-    ragged pairs, and padding lanes; D1 = 130 is not a multiple of 8."""
+def em_batch(seed=6, width=21):
+    """Width-21 band (Wp 24) unless `width` says otherwise: a 7-base
+    deletion and a 5-base insertion along their guide paths (the band
+    moves), an unguided noisy pair, two short ragged pairs, and padding
+    lanes; D1 = 130 is not a multiple of 8."""
     rng = np.random.default_rng(seed)
     x = rng.integers(0, 4, size=68).astype(np.int8)
     y = np.concatenate([x[:30], x[37:]])
@@ -50,7 +51,7 @@ def em_batch(seed=6):
     reads[2][rng.random(40) < 0.1] = 4
     paths = [path_from_cigar([(0, 30), (2, 7), (0, 31)]),
              path_from_cigar([(0, 20), (1, 5), (0, 30)]), None, None, None]
-    batch = pack_banded_batch(reads, refs, width=21, paths=paths,
+    batch = pack_banded_batch(reads, refs, width=width, paths=paths,
                               pad_batch_to=8)
     assert batch.xb.shape[0] % 8 != 0
     return batch
@@ -120,3 +121,19 @@ def test_counts_ckpt_matches_pallas(case):
                            kernel="ckpt")
     err = compare(got, want, batch, want.emit_match)
     print("row 28 max abs err", err)
+
+
+@pytest.mark.parametrize("width,wp", [(9, 16), (29, 32)])
+def test_counts_ckpt_matches_pallas_band_widths(width, wp):
+    """Row 28 at the narrowest and the widest band the counts kernels take
+    (Wp 16 and Wp 32, the checkpoint backward's warp of band rows half and
+    wholly used): `_counts_ckpt_jit` vs counts(kernel="ckpt")."""
+    batch = em_batch(width=width)
+    assert batch.xb.shape[1] == wp
+    jtables = make_tables(em_model())
+    tables = tables_from_jax(jax.device_get(jtables))
+    want = interpret(jc._counts_ckpt_jit, jtables, jax_device_batch(batch))
+    got = fb_counts.counts(tables, device_batch(batch, "cpu"),
+                           kernel="ckpt")
+    err = compare(got, want, batch, want.emit_match)
+    print("row 28 width %d max abs err %s" % (width, err))

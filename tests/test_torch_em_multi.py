@@ -178,6 +178,25 @@ def test_counts_multi_trials_matches_pallas(cases, monkeypatch, kernel):
     print("trials %s: max abs err %s" % (kernel, err))
 
 
+def test_counts_multi_ckpt_matches_pallas_widest_band():
+    """Row 30, a serial trial at width 29 (Wp 32, every band row of the
+    checkpoint backward's warp used): counts_multi(kernel="ckpt") against
+    `_counts_ckpt_multi_jit`."""
+    reads, refs, paths = _problems(29)
+    kw = dict(width=29, paths=paths, pad_steps_to=96)
+    jmb = jband.pack_multi_banded_batch(reads, refs, **kw)
+    tmb = tband.pack_multi_banded_batch(reads, refs, **kw)
+    assert tmb.xb.shape[1] == 32
+    jtables = make_tables(em_model())
+    jmdev = fp.multi_device_batch(jmb)
+    mdev = multi_device_batch(tmb, "cpu")
+    want = interpret(jc._counts_ckpt_multi_jit, jtables, jmdev)
+    got = fb_counts.counts_multi(tables_from_jax(jax.device_get(jtables)),
+                                 mdev, kernel="ckpt")
+    err = _compare(got, want, mdev, jmdev)
+    print("width 29 ckpt: max abs err %s" % err)
+
+
 def _counts_arrays(res, mdev):
     return {"trans": res.trans_counts.numpy(), "gap": res.emit_gap.numpy(),
             "match": _port_match(res, mdev).numpy()}

@@ -131,26 +131,79 @@ def test_rowcol_sums_match_jax(fused):
     assert accr[:, 0].sum() > 0.5 * comp_t.m[0]
 
 
-def test_scatter_lanes_plain_matches_pallas():
-    """L's plain version vs bucket_scatter_chunked (one channel) on flush
-    streams whose targets run up within the flushed rows and again within
-    the tail rows, with -1 pads and a target past rg: rtol 1e-5."""
-    rng = np.random.default_rng(3)
-    D, Wp, B, rg = 200, 24, 8, 512
+def _flush_tail(rng):
+    """Targets that run up within the flushed rows and again within the
+    tail rows, with -1 pads and a target past rg (the original case)."""
+    D, Wp, B = 200, 24, 8
     jm = np.full((D + Wp, B), -1, np.int32)
     for b in range(B):
         flushed = np.sort(rng.choice(D, size=150, replace=False))
         jm[flushed, b] = np.arange(150) + b
         jm[D + rng.permutation(Wp)[:20], b] = 150 + b + np.arange(20)
-    jm[3, 0] = rg + 7                       # outside [0, rg): adds nowhere
-    vals = rng.random((D + Wp, B)).astype(np.float32)
+    jm[3, 0] = 512 + 7                      # outside [0, rg): adds nowhere
+    return jm
+
+
+def _run_lengths(rng, D=603, B=37):
+    """Runs of 1-17 equal targets per lane, so runs straddle the kernel's
+    8-row chunks and 256-row tiles; D is a multiple of neither."""
+    jm = np.full((D, B), -1, np.int32)
+    for b in range(B):
+        jm[:, b] = np.arange(D) // (1 + b % 17)
+    jm[rng.random((D, B)) < 0.1] = -1
+    return jm
+
+
+def _edge_lanes(rng, D=603, B=37):
+    """A lane of -1 only, a lane with one target over every row, a lane
+    whose single run ends on a chunk edge, and lanes of increasing
+    targets; B is not a multiple of 4 (the kernel's scalar loads)."""
+    jm = np.tile((np.arange(D) // 3)[:, None], (1, B)).astype(np.int32)
+    jm[:, 0] = -1
+    jm[:, 1] = 77
+    jm[:, 2] = np.where(np.arange(D) < 256, 5, -1)
+    return jm
+
+
+def _tail_back(rng, D=603, B=37, Wp=24):
+    """Distinct increasing targets in the flushed rows, then Wp tail rows
+    that go back over the last flushed targets in circular order."""
+    jm = np.full((D, B), -1, np.int32)
+    n = D - Wp
+    for b in range(B):
+        jm[:n, b] = np.arange(n) // 2 + b
+        last = jm[n - 1, b]
+        jm[n:, b] = last - (np.arange(Wp) + 7 * b) % Wp
+    return jm
+
+
+def _vector_lanes(rng):
+    """The run-length case at B = 36: a multiple of 4 (the kernel's 16-byte
+    loads) but not of the 16 lanes of a block."""
+    return _run_lengths(rng, B=36)
+
+
+@pytest.mark.parametrize("make", [_flush_tail, _run_lengths, _edge_lanes,
+                                  _tail_back, _vector_lanes],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_scatter_lanes_plain_matches_pallas(make):
+    """L's plain version vs bucket_scatter_chunked (one channel, interpret
+    mode) on the target streams L's chunked design must get right:
+    runs straddling row chunks, D not a multiple of a chunk, a lane of -1,
+    one target over every row, tail rows that go back, B not a multiple
+    of 32: rtol 1e-5, and every targeted value counted once."""
+    rng = np.random.default_rng(3)
+    rg = 512
+    jm = make(rng)
+    Dt, B = jm.shape
+    vals = rng.random((Dt, B)).astype(np.float32)
     got = scatter_lanes_plain(torch.from_numpy(vals), torch.from_numpy(jm),
                               rg)
-    Dg = -(-(D + Wp) // 128) * 128
+    Dg = -(-Dt // 128) * 128
     vp = np.zeros((1, Dg, B), np.float32)
-    vp[0, : D + Wp] = vals
+    vp[0, :Dt] = vals
     jp = np.full((Dg, B), -1, np.int32)
-    jp[: D + Wp] = np.where(jm < rg, jm, -1)
+    jp[:Dt] = np.where(jm < rg, jm, -1)
     want = np.asarray(bucket_scatter_chunked(jnp.asarray(vp),
                                              jnp.asarray(jp), rg))[0]
     assert got.shape == want.shape == (rg, B)
