@@ -27,7 +27,9 @@ Phases (any failure exits non-zero without the final result line):
               launch is logged and the inputs of each kernel's largest
               launch are kept (one device copy each).
   4. kernels  each of those kernels against its plain version on the inputs
-              of its largest main-path launch, with times and bounds.
+              of its largest main-path launch, with times and bounds (E
+              and M bit-equal, with their resources: registers, shared
+              memory a block, blocks an SM, M's lanes a block).
   5. rel      the REL realign path (fused=False: host band arrays, K2, K3,
               K4) on the chained records of the corpus's first 256 reads;
               only K2, K3 and K4 may launch; >= 90% of its cigars must equal
@@ -656,6 +658,7 @@ def compare_expand(args, reps):
         "plain_ms": time_ms(lambda: fc.expand_streams_plain(*args), 1),
         "library_ms": None,
         **bound("expand_streams", es.numel(), nbytes(*args, es, yb, fr)),
+        "resources": fc.expand_streams_resources(es.device, es.shape[1]),
     }
 
 
@@ -761,8 +764,9 @@ def compare_expand_rel(args, reps):
 
 
 def compare_mw(args, reps):
-    """M against its plain version: the posterior band within 2e-4, the
-    flushed sums and tails within 2e-3 (the FB tolerances)."""
+    """M against its plain version: post, flc, flr, tc and tr bit-equal (M
+    keeps the plain version's order of operations, built -fmad=false);
+    with the block size M takes for this launch and its resources."""
     import torch
 
     from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
@@ -772,14 +776,17 @@ def compare_mw(args, reps):
     torch.cuda.synchronize()
     perr = (got[0] - ref[0]).abs().max().item()
     serr = max((g - r).abs().max().item() for g, r in zip(got[1:], ref[1:]))
-    check(perr <= 2e-4, "M posterior differs by %g (atol 2e-4)" % perr)
-    check(serr <= 2e-3, "M sums differ by %g (atol 2e-3)" % serr)
+    for name, g, r in zip(("post", "flc", "flr", "tc", "tr"), got, ref):
+        check(torch.equal(g, r), "M %s differs from the plain version by %g"
+              % (name, (g - r).abs().max().item()))
+    _, wp, B = args[2].shape
     return {
         "max_abs_err": perr, "sums_max_abs_err": serr,
         "ms": time_ms(lambda: fc.mw_forward_cuda(*args), reps),
         "plain_ms": time_ms(lambda: fc.mw_forward_plain(*args), 1),
         "library_ms": None,
         **bound("mw_forward", got[0].numel(), nbytes(*args, *got)),
+        "resources": fc.mw_forward_resources(args[2].device, wp, B),
     }
 
 
@@ -3628,7 +3635,8 @@ def main() -> int:
                                      if n[name]}}
         for tag, r in reports:
             if name in r and r[name] is not res:
-                line[tag] = {k: r[name][k] for k in keys}
+                line[tag] = {k: r[name][k] for k in keys + ("resources",)
+                             if k in r[name]}
         for extra in ("one_trial", "resources"):
             if extra in res:
                 line[extra] = res[extra]

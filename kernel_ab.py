@@ -2,22 +2,47 @@
 the port, on the same inputs, in one process on one CUDA card.
 
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
-    python3 kernel_ab.py build/parent
+    python3 kernel_ab.py build/parent [group ...]
+
+Groups (fused and counts when none is named):
+  fused  M (mw_forward) and E (expand_streams), and the kernels beside
+         them that must not move.  M on a realign bucket [3072, 24, 4096]
+         with the shipped model (gap-chain branch), on [3072, 24, 1024]
+         with a flat-gap model whose gap states 1 and 2 exchange mass (the
+         generic branch, as --em's trained model runs it) and on the
+         bucket's pairs at Wp 48, 96 and 128 (gap-chain branch; where the
+         other checkout's M refuses a shape, its error); E on that bucket
+         without yb and on a caller batch [128, 24, 65536] with yb; their
+         resources (`*_resources`), bounds and the largest difference
+         from the plain version and from the other checkout (0 expected).
+         Must not move (bit-equal to the other checkout): C cx_forward on
+         the caller batch, circ_post_es on [3072, 24, 1024], S
+         sv_backward on the bucket, R expand_rel on a guide batch
+         [7168, 48, 1024].  Then the fused realign posteriors of the
+         bucket (ops/fb_circ.py `posteriors_weights_compact`: E + S + M
+         and the flush streams, a sync) on the host clock.
+  probe  variants of this checkout's M and E (PROBES: source edits of
+         csrc/, in copies under build/probe/), timed beside the kernel
+         they vary: M with one part of its work removed (outputs wrong by
+         design) or with 4, 8, 16 or 32 lanes a block, on the bucket
+         (gap-chain branch) and on M's generic row; E with every code
+         read from device memory (no windows) on the bucket and the
+         caller batch.  Named on the command line only: its edits follow
+         the sources' text.
+  counts scatter_lanes (L) on a realign row-flush stream
+         [3096, 4096]; the checkpoint backwards on the EM batch
+         [3, 512, 24, 8192] and the em_multi batch [3, 1024, 24, 4096]
+         (and its first trial); the instances that must not move:
+         counts_bwd, counts_multi_bwd and fb_generic_bwd; the E-step
+         (`counts_trials` / `counts_multi_trials` with the checkpoint
+         pair, host clock).
 
 The other checkout's package is imported under another name and builds its
-own kernels beside its sources.  Every kernel runs on one set of inputs made
-from a seed, at the shape of its largest launch in chip_smoke.py:
-scatter_lanes (L) on a realign row-flush stream [3096, 4096]; the
-checkpoint backwards on the EM batch [3, 512, 24, 8192] and the em_multi
-batch [3, 1024, 24, 4096] (and its first trial); and the instances that
-must not move: counts_bwd, counts_multi_bwd and fb_generic_bwd.  A time is
-the CUDA-event mean over REPS launches after a warm-up, taken in the order
-other, this, this, other; the two checkouts' outputs are held against each
-other (bit-equal where the function and its order of additions did not
-change, lane-summed counts within rtol 1e-5 where they did).  The E-step
-rows time one `counts_trials` / `counts_multi_trials` call with the
-checkpoint pair (both kernels, the lane sums, a sync) on the host clock.
-Prints one JSON line per kernel group as it goes, then the whole report.
+own kernels beside its sources.  A time is the CUDA-event mean over REPS
+launches after a warm-up (host rows: the host clock over EM_REPS calls),
+taken in the order other, this, this, other.  Prints one JSON line per
+kernel group as it goes, then the whole report with the card's name and
+power limit.
 """
 from __future__ import annotations
 
@@ -31,6 +56,8 @@ import time
 
 import numpy as np
 
+from chip_smoke import bound
+
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "marginalign_trna_tpu_torch"
 REPS = 20
@@ -42,8 +69,15 @@ FLUSH = (3072, 24, 4096)
 EM_LANES, EM_STEPS = 8192, 512
 MULTI_PROBLEMS, MULTI_LANES = 14300, 4096
 GENERIC_LANES, GENERIC_STEPS = 1024, 3072
-HBM_BYTES_PER_S = 3.35e12
-F32_OPS_PER_S = 67e12
+# The fused group's batches: the realign bucket (diagonals, lanes; M's
+# generic row takes its first M_GENERIC_LANES lanes), the caller batch
+# (CALLER_UNIQUE pairs repeated to CALLER_LANES lanes), the guide batch.
+BUCKET_STEPS, BUCKET_LANES = 3072, 4096
+M_GENERIC_LANES = 1024
+CALLER_STEPS, CALLER_LANES, CALLER_UNIQUE = 128, 65536, 4096
+GUIDE_STEPS, GUIDE_LANES = 7168, 1024
+# M's wider bands: band width -> Wp.
+M_WIDE = {45: 48, 93: 96, 126: 128}
 
 
 def load_port(root, alias):
@@ -174,14 +208,348 @@ def generic_batch(band, seed=4):
                                   pad_steps_to=GENERIC_STEPS)
 
 
+def noisy_fast(rng, ref, sub=0.1, indel=0.03):
+    """ref with `sub` substitutions and about `indel` deletions and
+    insertions each (noisy's rates), vectorised for kilobase batches."""
+    read = ref.copy()
+    hit = rng.random(len(ref)) < sub
+    read[hit] = rng.integers(0, 4, int(hit.sum()))
+    read = read[rng.random(len(read)) >= indel]
+    at = np.flatnonzero(rng.random(len(read)) < indel)
+    return np.insert(read, at, rng.integers(0, 4, len(at))).astype(np.int8)
+
+
+def pairs(rng, lanes, steps, slack):
+    """`lanes` noisy pairs with m + n + 1 <= steps: references of
+    steps / 2 - slack to steps / 2 - slack / 4 bases."""
+    reads, refs = [], []
+    while len(reads) < lanes:
+        ref = rng.integers(0, 4, int(rng.integers(
+            steps // 2 - slack, steps // 2 - slack // 4))).astype(np.int8)
+        read = noisy_fast(rng, ref)
+        if len(read) + len(ref) + 1 <= steps:
+            reads.append(read)
+            refs.append(ref)
+    return reads, refs
+
+
+def compact(port, reads, refs, width, steps, cuda, repeat=1):
+    """The compact batch of the pairs on the card, its lanes repeated
+    `repeat` times."""
+    comp = sub(port, "ops.band").pack_compact_batch(
+        reads, refs, width=width, pad_steps_to=steps)
+    dev = sub(port, "ops.fb_circ").compact_device_batch(comp, cuda)
+    if repeat > 1:
+        dev = type(dev)(*(t.repeat(1, repeat) if t.dim() == 2
+                          else t.repeat(repeat) for t in dev))
+    return dev
+
+
+def generic_tables(fb, path):
+    """The model at `path` with gap states 1 and 2 exchanging mass: flat
+    gap emissions, the generic 5x5 branch of the circular kernels."""
+    t = fb.tables_from_file(path)
+    T = t.T.numpy().copy()
+    T[1, 2] = T[2, 1] = 0.05
+    T /= T.sum(axis=1, keepdims=True)
+    return fb.FbTables(T, t.Ematch.numpy(), t.Egap.numpy(), t.pi.numpy())
+
+
+def nbytes(*objs):
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in objs
+               if torch.is_tensor(t))
+
+
+def outputs(out):
+    return out if isinstance(out, tuple) else (out,)
+
+
+def max_diff(got, want):
+    return max((g.double() - w.double()).abs().max().item()
+               for g, w in zip(got, want) if g is not None)
+
+
+def all_equal(got, want):
+    import torch
+
+    return all(torch.equal(g, w) for g, w in zip(got, want) if g is not None)
+
+
+def ab_mw(fc, ofc, args, cuda):
+    """M of both checkouts against the plain version, timed; where the
+    other checkout's M refuses the shape, its error and this M's time."""
+    got = fc.mw_forward_cuda(*args)
+    plain = fc.mw_forward_plain(*args)
+    d1k, wp, B = args[2].shape
+    row = {"shape": [d1k, wp, B], "chain": bool(args[1]),
+           "max_abs_err_plain": max_diff(got, plain),
+           "bit_equal_plain": all_equal(got, plain),
+           **bound("mw_forward", d1k * wp * B, nbytes(*args, *got)),
+           "resources": fc.mw_forward_resources(cuda, wp, B)}
+    del plain
+    try:
+        ref = ofc.mw_forward_cuda(*args)
+    except RuntimeError as exc:
+        return {**row, "other_error": str(exc),
+                "ms": time_ms(lambda: fc.mw_forward_cuda(*args))}
+    return {**row, "max_abs_err_other": max_diff(got, ref),
+            "bit_equal_other": all_equal(got, ref),
+            **ab(lambda: fc.mw_forward_cuda(*args),
+                 lambda: ofc.mw_forward_cuda(*args))}
+
+
+def ab_expand(fc, ofc, args, cuda):
+    """E of both checkouts against the plain version (es and fr, yb on
+    valid cells), timed."""
+    got = fc.expand_streams_cuda(*args)
+    plain = fc.expand_streams_plain(*args)
+    ref = ofc.expand_streams_cuda(*args)
+    valid = plain[0] >= 0
+
+    def on_valid(out):
+        return (out[0], out[2]) + ((out[1][valid],) if args[9] else ())
+
+    d1k, wp, B = args[8], args[7], args[3].shape[1]
+    return {
+        "shape": [d1k, wp, B], "yb": args[9],
+        "max_abs_err_plain": max_diff(on_valid(got), on_valid(plain)),
+        "max_abs_err_other": max_diff(on_valid(got), on_valid(ref)),
+        "equal_plain": all_equal(on_valid(got), on_valid(plain)),
+        "equal_other": all_equal(on_valid(got), on_valid(ref)),
+        **ab(lambda: fc.expand_streams_cuda(*args),
+             lambda: ofc.expand_streams_cuda(*args)),
+        **bound("expand_streams", d1k * wp * B, nbytes(*args, *got)),
+        "resources": fc.expand_streams_resources(cuda, wp)}
+
+
+def unmoved(this_fn, other_fn, args):
+    """A kernel that must not move: bit-equal to the other checkout's,
+    timed."""
+    got = outputs(this_fn(*args))
+    return {"shape": list(got[0].shape),
+            "bit_equal_other": all_equal(got, outputs(other_fn(*args))),
+            **ab(lambda: this_fn(*args), lambda: other_fn(*args))}
+
+
+def wall_ab(this_fn, other_fn):
+    """Host milliseconds of one call ending in a sync of each checkout
+    (other, this, this, other; EM_REPS calls each after a warm-up)."""
+    import torch
+
+    def wall(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(EM_REPS):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / EM_REPS
+
+    o1, t1, t2, o2 = wall(other_fn), wall(this_fn), wall(this_fn), \
+        wall(other_fn)
+    return {"ms": (t1 + t2) / 2, "other_ms": (o1 + o2) / 2,
+            "ms_runs": [t1, t2], "other_ms_runs": [o1, o2]}
+
+
+def run_fused(this, other, cuda, report):
+    """Fills `report` with the fused group's rows."""
+    import torch
+
+    fc, ofc = (sub(p, "ops.fb_circ_cuda") for p in (this, other))
+    fcirc, ofcirc = (sub(p, "ops.fb_circ") for p in (this, other))
+    fb = sub(this, "ops.fb")
+    band = sub(this, "ops.band")
+    model = os.path.join(ROOT, PKG, "models", "last_hmm_20.txt")
+    tables = fb.tables_from_file(model, cuda)
+    coef, chain = fcirc.circ_coefficients(tables)
+    ematch = tables.Ematch.cpu().numpy().reshape(-1)
+    rng = np.random.default_rng(5)
+    wp = band.padded_band_width(21)
+
+    def show(*names):
+        print(json.dumps({n: report[n] for n in names}), flush=True)
+
+    # The realign bucket: E, S, M; circ_post_es and M's generic branch on
+    # its first lanes; the fused posteriors on the host clock.
+    bucket = pairs(rng, BUCKET_LANES, BUCKET_STEPS, 240)
+    dev = compact(this, *bucket, 21, BUCKET_STEPS, cuda)
+    eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, wp,
+             BUCKET_STEPS, False)
+    report["expand_streams"] = ab_expand(fc, ofc, eargs, cuda)
+    show("expand_streams")
+    es = fc.expand_streams_cuda(*eargs)[0]
+    fr, frr, lom = band.circ_mw_streams(dev.lo, 21, wp, BUCKET_STEPS)
+    sargs = (coef, chain, es, dev.fink, dev.final_d)
+    report["sv_backward"] = unmoved(fc.sv_backward_cuda,
+                                    ofc.sv_backward_cuda, sargs)
+    bm, bls, logZ = fc.sv_backward_cuda(*sargs)
+    report["mw_forward"] = ab_mw(
+        fc, ofc, (coef, chain, es, fr, frr, lom, bm, bls, logZ), cuda)
+    show("sv_backward", "mw_forward")
+
+    def cut(t):
+        return t[..., :M_GENERIC_LANES].contiguous()
+
+    report["circ_post_es"] = unmoved(
+        fc.circ_post_es_cuda, ofc.circ_post_es_cuda,
+        tuple(cut(t) if torch.is_tensor(t) else t
+              for t in (coef, chain, es, bm, bls, logZ)))
+    del bm, bls, logZ
+    gcoef, gchain = fcirc.circ_coefficients(generic_tables(fb, model))
+    gback = fc.sv_backward_cuda(gcoef, gchain, cut(es), cut(dev.fink),
+                                cut(dev.final_d))
+    report["mw_forward_generic"] = ab_mw(
+        fc, ofc, (gcoef, gchain, cut(es), cut(fr), cut(frr), cut(lom),
+                  *gback), cuda)
+    del es, fr, frr, lom, gback
+    show("circ_post_es", "mw_forward_generic")
+    report["realign_bucket"] = {
+        "shape": [BUCKET_STEPS, wp, BUCKET_LANES],
+        **wall_ab(lambda: fcirc.posteriors_weights_compact(tables, dev, 21),
+                  lambda: ofcirc.posteriors_weights_compact(tables, dev,
+                                                            21))}
+    show("realign_bucket")
+    del dev
+    torch.cuda.empty_cache()
+
+    # The caller batch: E with yb, then C.
+    cdev = compact(this, *pairs(rng, CALLER_UNIQUE, CALLER_STEPS, 16), 21,
+                   CALLER_STEPS, cuda, repeat=CALLER_LANES // CALLER_UNIQUE)
+    ceargs = (ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n, 21,
+              wp, CALLER_STEPS, True)
+    report["expand_streams_caller"] = ab_expand(fc, ofc, ceargs, cuda)
+    es, yb, fl = fc.expand_streams_cuda(*ceargs)
+    back = fc.sv_backward_cuda(coef, chain, es, cdev.fink, cdev.final_d)
+    report["cx_forward"] = unmoved(fc.cx_forward_cuda, ofc.cx_forward_cuda,
+                                   (coef, chain, es, yb, fl, *back))
+    del cdev, es, yb, fl, back
+    show("expand_streams_caller", "cx_forward")
+
+    # The guide batch: R.
+    gdev = compact(this, *pairs(rng, GUIDE_LANES, GUIDE_STEPS, 200), 40,
+                   GUIDE_STEPS, cuda)
+    report["expand_rel"] = unmoved(
+        fc.expand_rel_cuda, ofc.expand_rel_cuda,
+        (gdev.reads, gdev.refs, gdev.lo, gdev.m, gdev.n,
+         band.padded_band_width(40), GUIDE_STEPS))
+    show("expand_rel")
+
+    # M at wider bands, the bucket's pairs packed at each width (last: a
+    # launch the other checkout refuses leaves its last-error state set).
+    for width, wwp in M_WIDE.items():
+        wdev = compact(this, *bucket, width, BUCKET_STEPS, cuda)
+        wes = fc.expand_streams_cuda(ematch, wdev.reads, wdev.refs, wdev.lo,
+                                     wdev.m, wdev.n, width, wwp,
+                                     BUCKET_STEPS, False)[0]
+        name = "mw_forward_wp%d" % wwp
+        report[name] = ab_mw(
+            fc, ofc, (coef, chain, wes,
+                      *band.circ_mw_streams(wdev.lo, width, wwp,
+                                            BUCKET_STEPS),
+                      *fc.sv_backward_cuda(coef, chain, wes, wdev.fink,
+                                           wdev.final_d)), cuda)
+        del wdev, wes
+        torch.cuda.empty_cache()
+        show(name)
+
+
+def probe_port(name, source, edits):
+    """A copy of this checkout's port under build/probe/<name> with
+    csrc/<source> edited, its kernels built, imported as probe_<name>."""
+    import shutil
+
+    root = os.path.join(ROOT, "build", "probe", name)
+    shutil.rmtree(root, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, PKG), os.path.join(root, PKG),
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(root, PKG, "csrc", source)
+    with open(path) as fh:
+        src = fh.read()
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError("probe %s: edit anchor not found once" % name)
+        src = src.replace(old, new)
+    with open(path, "w") as fh:
+        fh.write(src)
+    port = load_port(root, "probe_" + name)
+    sub(port, "ops._build").load()
+    return port
+
+
+def run_probe(this, other, cuda, report):
+    """Fills `report["probe"]` with the time of this checkout's M on the
+    bucket (gap-chain branch) and on M's generic row, and of its E on the
+    bucket and the caller batch, beside each PROBES variant of that kernel
+    timed in turn (this, the variants, this again); and whether each
+    variant's outputs equal this checkout's."""
+    import torch
+
+    fc = sub(this, "ops.fb_circ_cuda")
+    fcirc = sub(this, "ops.fb_circ")
+    fb = sub(this, "ops.fb")
+    band = sub(this, "ops.band")
+    model = os.path.join(ROOT, PKG, "models", "last_hmm_20.txt")
+    tables = fb.tables_from_file(model, cuda)
+    coef, chain = fcirc.circ_coefficients(tables)
+    ematch = tables.Ematch.cpu().numpy().reshape(-1)
+    wp = band.padded_band_width(21)
+    rng = np.random.default_rng(5)
+    dev = compact(this, *pairs(rng, BUCKET_LANES, BUCKET_STEPS, 240), 21,
+                  BUCKET_STEPS, cuda)
+    eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, wp,
+             BUCKET_STEPS, False)
+    es = fc.expand_streams_cuda(*eargs)[0]
+    fr, frr, lom = band.circ_mw_streams(dev.lo, 21, wp, BUCKET_STEPS)
+    cdev = compact(this, *pairs(rng, CALLER_UNIQUE, CALLER_STEPS, 16), 21,
+                   CALLER_STEPS, cuda, repeat=CALLER_LANES // CALLER_UNIQUE)
+
+    def cut(t):
+        return t[..., :M_GENERIC_LANES].contiguous()
+
+    gcoef, gchain = fcirc.circ_coefficients(generic_tables(fb, model))
+    cases = {"mw_forward": {
+        "chain": (coef, chain, es, fr, frr, lom, *fc.sv_backward_cuda(
+            coef, chain, es, dev.fink, dev.final_d)),
+        "generic": (gcoef, gchain, cut(es), cut(fr), cut(frr), cut(lom),
+                    *fc.sv_backward_cuda(gcoef, gchain, cut(es),
+                                         cut(dev.fink), cut(dev.final_d)))},
+        "expand_streams": {
+        "bucket": eargs,
+        "caller": (ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n,
+                   21, wp, CALLER_STEPS, True)}}
+    variants = {name: (kernel, sub(probe_port(name, source, edits),
+                                   "ops.fb_circ_cuda"))
+                for name, (kernel, source, edits) in PROBES.items()}
+    rows = {}
+    for kernel, kcases in cases.items():
+        for case, args in kcases.items():
+            fn = getattr(fc, kernel + "_cuda")
+            want = outputs(fn(*args))
+            row = {"kernel": kernel, "shape": list(want[0].shape),
+                   "this_ms_runs": [time_ms(lambda: fn(*args))]}
+            for name, (vkernel, vc) in variants.items():
+                if vkernel != kernel:
+                    continue
+                vfn = getattr(vc, kernel + "_cuda")
+                row[name] = {"ms": time_ms(lambda: vfn(*args)),
+                             "equal_this": all_equal(outputs(vfn(*args)),
+                                                     want)}
+                print(json.dumps({"probe": {case: {name: row[name]}}}),
+                      flush=True)
+            row["this_ms_runs"].append(time_ms(lambda: fn(*args)))
+            rows[case] = row
+            del want
+            torch.cuda.empty_cache()
+    report["probe"] = rows
+    print(json.dumps({"probe": rows}), flush=True)
+
+
 def counts_rel(got, want):
     return max(((g.sum(-1) - w.sum(-1)).abs()
                 / w.sum(-1).abs().clamp(min=1e-6)).max().item()
                for g, w in zip(got, want))
-
-
-def bound_ms(ops, moved):
-    return 1e3 * max(ops / F32_OPS_PER_S, moved / HBM_BYTES_PER_S)
 
 
 def card():
@@ -191,10 +559,60 @@ def card():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
 
 
+GROUPS = ("fused", "probe", "counts")
+DEFAULT_GROUPS = ("fused", "counts")
+# The probe group's variants: name -> (the kernel it varies, its source
+# under csrc/, edits (old, new) of that source).
+_LANES_AT = "  *lanes = wide ? 16 : 8;"
+_LANES_CASE = "    case 8: return mw_kernel_rpt<8>(Wp);"
+
+
+def _lanes(n):
+    """M with n lanes a block whatever B (n of 8 or 16 need no instance)."""
+    edits = [(_LANES_AT, "  *lanes = %d;" % n)]
+    if n not in (8, 16):
+        edits.append((_LANES_CASE, "    case %d: return mw_kernel_rpt<%d>"
+                      "(Wp);\n%s" % (n, n, _LANES_CASE)))
+    return ("mw_forward", "fb_circ.cu", edits)
+
+
+_M_PARTS = {
+    # No posterior: no bm, alpha, band-relative row or accumulators.
+    "no_sink": [("    sink(d, rec, post, post_rel, flc, flr);\n", "")],
+    # No device memory after the first two tiles: later tiles compute on
+    # the stage buffers as they are, and no output leaves.
+    "no_global": [("  if (b < B) {", "  if (b < B && d0 < 2 * MW_KT) {"),
+                  ("  if (b >= B) return;", "  return;")],
+    # No block barrier per tile after the first two (each thread still
+    # waits for its own copies).
+    "no_barrier": [("    mk::cp_async_wait();\n    __syncthreads();\n",
+                    "    mk::cp_async_wait();\n    if (t < 2) __syncthreads();"
+                    "\n")],
+    # No shuffles for the rolls (one row a thread).
+    "no_roll": [("    out[0] = __shfl_sync(mk::FULL, v[0], kk == 0 ? Wp - 1 : "
+                 "kk - 1);", "    out[0] = v[0];")],
+    # No expf for the posterior's scale.
+    "no_expf": [("    const float a = expf(ls + rec[kk & 7].bls - lz);",
+                 "    const float a = lz;"),
+                ("        alpha = expf(ls + rec.bls - lz);",
+                 "        alpha = lz;")],
+}
+PROBES = {
+    **{name: ("mw_forward", "fb_circ.cu", edits)
+       for name, edits in _M_PARTS.items()},
+    **{"lanes_%d" % n: _lanes(n) for n in (4, 8, 16, 32)},
+    # E with every code read from device memory (no windows).
+    "direct": ("expand_streams", "expand.cu",
+               [("  const int wmax = e_streams_window(Wp);",
+                 "  const int wmax = 0;")]),
+}
+
+
 def main(argv):
     import torch
 
-    if len(argv) != 2:
+    groups = argv[2:] or list(DEFAULT_GROUPS)
+    if len(argv) < 2 or any(g not in GROUPS for g in groups):
         print(__doc__, file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -208,14 +626,15 @@ def main(argv):
         sub(port, "ops._build").load()
     report = {"card": card(), "build_s": time.perf_counter() - t0,
               "other": os.path.abspath(argv[1]), "reps": REPS}
-    run(this, other, torch.device("cuda"), report)
+    for group in groups:
+        RUNS[group](this, other, torch.device("cuda"), report)
+        torch.cuda.empty_cache()
     print(json.dumps(report), flush=True)
     return 0
 
 
-def run(this, other, cuda, report):
-    """Fills `report` with the A/B rows of the two port packages on device
-    `cuda`."""
+def run_counts(this, other, cuda, report):
+    """Fills `report` with the counts group's rows."""
     import torch
 
     tc, oc = (sub(p, "ops.fb_counts_cuda") for p in (this, other))
@@ -242,8 +661,8 @@ def run(this, other, cuda, report):
         **ab(lambda: tb.scatter_lanes_cuda(*args),
              lambda: ob.scatter_lanes_cuda(*args)),
         "library_ms": time_ms(lambda: lib_out.scatter_add_(0, tgt, vals)),
-        "bound_ms": bound_ms(4 * hit, jm.numel() * 4 + rg * vals.shape[1]
-                             * 4 + hit * 4)}
+        **bound("scatter_lanes", hit, jm.numel() * 4 + rg * vals.shape[1]
+                * 4 + hit * 4)}
     del args, vals, jm, got, ref, plain, tgt, lib_out
     print(json.dumps({"scatter_lanes": report["scatter_lanes"]}), flush=True)
 
@@ -268,9 +687,7 @@ def run(this, other, cuda, report):
             *cargs)),
         **ab(lambda: tc.counts_bwd_ckpt_cuda(*cargs),
              lambda: oc.counts_bwd_ckpt_cuda(*cargs)),
-        "bound_ms": bound_ms(225 * cells, sum(
-            t.numel() * t.element_size() for t in (*cargs, *got)
-            if torch.is_tensor(t))),
+        **bound("counts_bwd_ckpt", cells, nbytes(*cargs, *got)),
         "resources": tc.ckpt_backward_resources(cuda, xb.shape[1])}
     one = (*(t[:1].contiguous() for t in tabs), ck[:1].contiguous(),
            cs[:1].contiguous(), *streams, fd, logZ[:1].contiguous())
@@ -315,9 +732,8 @@ def run(this, other, cuda, report):
             got, oc.counts_multi_bwd_ckpt_cuda(*cargs)),
         **ab(lambda: tc.counts_multi_bwd_ckpt_cuda(*cargs),
              lambda: oc.counts_multi_bwd_ckpt_cuda(*cargs)),
-        "bound_ms": bound_ms(231 * 3 * mstreams[0].numel(), sum(
-            t.numel() * t.element_size() for t in (*cargs, *got)
-            if torch.is_tensor(t))),
+        **bound("counts_multi_bwd_ckpt", 3 * mstreams[0].numel(),
+                nbytes(*cargs, *got)),
         "resources": tc.ckpt_backward_resources(
             cuda, mstreams[0].shape[1], multi=True)}
     one = (*(t[:1].contiguous() for t in tabs), ck[:1].contiguous(),
@@ -387,6 +803,8 @@ def estep(this_fn, other_fn):
             "other_iterations_5_s": 5 * o, "iterations_100_s": 100 * s,
             "other_iterations_100_s": 100 * o}
 
+
+RUNS = {"fused": run_fused, "probe": run_probe, "counts": run_counts}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

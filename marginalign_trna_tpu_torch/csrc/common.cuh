@@ -96,11 +96,57 @@ inline FlatGapCoef load_flat_coef(const float* coef) {
   return K;
 }
 
+// Asynchronous copies from global into shared memory (cp.async): 4 bytes
+// through L1, 16 bytes around it; a thread's copies since its last commit
+// form one group, and wait() waits for all of its groups.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+constexpr unsigned FULL = 0xffffffffu;  // every thread of a warp
+
 // Opt in to more than the default 48 KB of dynamic shared memory.
 inline cudaError_t allow_smem(const void* fn, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+// What launches of `kernel` with `threads` threads and `smem` bytes of
+// dynamic shared memory get on this device: out[0] registers per thread,
+// out[1] shared memory per block (bytes), out[2] blocks resident per SM,
+// out[3] threads per block, out[4] local memory per thread (bytes,
+// spills).
+inline cudaError_t kernel_info(const void* kernel, size_t smem, int threads,
+                               int* out) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  cudaFuncAttributes a;
+  err = cudaFuncGetAttributes(&a, kernel);
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel,
+                                                      threads, smem);
+  if (err != cudaSuccess) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)(smem + a.sharedSizeBytes);
+  out[2] = blocks;
+  out[3] = threads;
+  out[4] = (int)a.localSizeBytes;
+  return cudaSuccess;
 }
 
 }  // namespace mk

@@ -54,8 +54,9 @@
 //                   writes the circular posterior band.  The replay runs
 //                   the backward's code on the backward's state, so it is
 //                   bit-identical to a stored band.
-// All forwards run one recursion (`CircForward`) and all backwards one
-// (`CircBackward`).
+// The forwards but mw run one recursion (`CircForward`), mw the same
+// arithmetic in a kernel of its own (warp per lane; "M: mw_forward"
+// below), and all backwards one (`CircBackward`).
 // In the circular layout row r holds read prefix index i = r (mod Wp), so
 // every band motion is an unconditional roll by one row: the match move
 // reads row k - 1 of generation d - 2 (forward) or k + 1 of d + 2
@@ -78,11 +79,8 @@
 // steps) bounds them first.  One block owns 32 lanes x all Wp rows, keeps
 // both frontier generations and the accumulators in shared memory; rolling
 // accumulators sit at physical row (k - d) mod Wp, so their roll moves no
-// data.  cx never stores a posterior.  mw writes 4 B per cell more: it
-// stages each diagonal's circular rows in shared memory (two planes by d
-// parity) and stores the band-relative rows of the diagonal before once the
-// barrier that ends a diagonal has passed, so its stores coalesce.  The
-// checkpoint pair moves 24 / KB B per cell between its kernels instead of
+// data.  cx never stores a posterior.  The checkpoint pair moves 24 / KB B
+// per cell between its kernels instead of
 // the 8 B of a stored band and its re-read; its replay doubles the
 // posterior pass's recursion and needs (24 + KB) planes of shared memory
 // (KB = 32 at Wp 24: 176 KB; KB = 8 up to Wp 56), or, for wider bands,
@@ -589,81 +587,6 @@ struct CxSink {
   }
 };
 
-// mw: the posterior band, band-relative, plus the column sums (rolling,
-// flushed at fr) and row sums (row-stable, flushed at frr) of post.
-template <int RPT>
-struct MwSink {
-  static constexpr int PLANES = 4;
-  const Lanes& t;
-  const int32_t* __restrict__ fr;
-  const int32_t* __restrict__ frr;
-  const int32_t* __restrict__ lom;
-  float* __restrict__ post_out;
-  float* __restrict__ flc;
-  float* __restrict__ flr;
-  float* __restrict__ tc;
-  float* __restrict__ tr;
-  float* shC;  // [Wp][L] column accumulator, row (k - d) mod Wp
-  float* shW;  // [Wp][L] row accumulator, row k
-  float* shP;  // [2][Wp][L] circular posterior rows of d by d parity
-
-  // Band-relative rows of diagonal dd from its staged circular rows (all
-  // threads' rows are complete once the barrier ending dd has passed).
-  __device__ void write_rel(int dd) const {
-    if (!t.live) return;
-    const int rot = lom[(size_t)dd * t.B + t.b];
-    const float* src = shP + (dd & 1) * t.plane;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      const int c = k + rot < t.Wp ? k + rot : k + rot - t.Wp;
-      post_out[mk::cell(dd, k, t.b, t.Wp, t.B)] = src[c * t.L + t.lane];
-    }
-  }
-
-  __device__ void step(int d, const float (&post)[RPT]) {
-    if (d > 0) write_rel(d - 1);
-    const int frd = t.live ? fr[(size_t)d * t.B + t.b] : -1;
-    const int frrd = t.live ? frr[(size_t)d * t.B + t.b] : -1;
-    float* stage = shP + (d & 1) * t.plane;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      const int here = k * t.L + t.lane;
-      stage[here] = post[r];
-      // The origin cell holds the start distribution and emits nothing.
-      const float pm = d == 0 && k == 0 ? 0.f : post[r];
-      const int p = t.rolled(k, d);
-      const float rolled = shC[p];
-      const bool cflush = k == frd;
-      if (cflush && t.live) flc[(size_t)d * t.B + t.b] = rolled;
-      shC[p] = (cflush ? 0.f : rolled) + pm;
-      const float row = shW[here];
-      const bool rflush = k == frrd;
-      if (rflush && t.live) flr[(size_t)d * t.B + t.b] = row;
-      shW[here] = (rflush ? 0.f : row) + pm;
-    }
-    if (t.live && t.ty == 0) {
-      if (frd < 0 || frd >= t.Wp) flc[(size_t)d * t.B + t.b] = 0.f;
-      if (frrd < 0 || frrd >= t.Wp) flr[(size_t)d * t.B + t.b] = 0.f;
-    }
-  }
-
-  __device__ void finish() {
-    write_rel(t.d1k - 1);
-    if (!t.live) return;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      tc[(size_t)k * t.B + t.b] = shC[t.rolled(k, t.d1k - 1)];
-      tr[(size_t)k * t.B + t.b] = shW[k * t.L + t.lane];
-    }
-  }
-};
-
 // ----------------------------------------------------------------- kernels
 
 // S and its other emission sources: bm, bls, logZ.
@@ -725,27 +648,6 @@ __global__ void __launch_bounds__(1024)
   const Lanes t(Wp, B, d1k);
   const EsSrc src{es};
   CxSink<RPT> sink{t, yb, fr, fl, tails, smem + 12 * t.plane};
-  forward_all<RPT>(t, src, K, chain, bm, bls, logZ, smem, sink);
-}
-
-template <int RPT>
-__global__ void __launch_bounds__(1024)
-    mw_forward_kernel(const float* __restrict__ es,
-                      const int32_t* __restrict__ fr,
-                      const int32_t* __restrict__ frr,
-                      const int32_t* __restrict__ lom,
-                      const float* __restrict__ bm,
-                      const float* __restrict__ bls,
-                      const float* __restrict__ logZ, CircCoef K, int chain,
-                      int d1k, int Wp, int B, float* __restrict__ post,
-                      float* __restrict__ flc, float* __restrict__ flr,
-                      float* __restrict__ tc, float* __restrict__ tr) {
-  extern __shared__ float smem[];
-  const Lanes t(Wp, B, d1k);
-  const EsSrc src{es};
-  float* own = smem + 12 * t.plane;
-  MwSink<RPT> sink{t, fr, frr, lom, post, flc, flr, tc, tr,
-                   own, own + t.plane, own + 2 * t.plane};
   forward_all<RPT>(t, src, K, chain, bm, bls, logZ, smem, sink);
 }
 
@@ -847,10 +749,379 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
+// ------------------------------------------------------------ M: mw_forward
+//
+// M runs the forward of CircForward in a layout of its own: one warp per
+// lane, band row k = kk + 32 r on thread kk (RPT rows a thread, Wp <= 128),
+// LPB lanes a block.  Every roll between rows is a warp shuffle and the
+// rescale's band max a warp reduction, so a diagonal needs no block
+// barrier; the frontier, the published mixes (the match mix of d-1 and
+// d-2 and the gap mixes of d-1, those read one row down already rolled)
+// and both accumulators stay in registers.  The inputs and outputs are
+// [d][k][b] or [d][b], lanes fastest, so one warp's own accesses would be
+// strided: the block stages the next MW_KT diagonals of its lanes (es, bm,
+// bls, fr, frr, lom) into shared memory with cp.async while it computes
+// the current ones, and collects each tile's band-relative posterior rows,
+// flc and flr in shared memory, written out as lane-contiguous segments
+// once the next tile's barrier has passed: one barrier per MW_KT
+// diagonals.  Arithmetic in CircForward's order (-fmad=false), so it
+// equals the plain version bit for bit.
+//
+// What bounds it on an H100 (kernel_ab.py's probe: variants with one part
+// removed): instruction issue.  At [3072, 24, 4096], 2.85 ms against a
+// 1.17 ms byte bound, ~28% of the time goes to the copies in and out, ~22%
+// to the posterior and its sums, the recursion takes the rest; barriers,
+// shuffles and expf take under 10% each.  Blocks of fewer than 8 lanes move
+// half sectors (16 B) and run 2.7x slower; 16 lanes lead at 4096 lanes
+// (two blocks, 32 warps an SM), 8 at 1024 lanes, where one warp's chain of
+// dependent diagonals bounds it (1.39 ms).
+constexpr int MW_KT = 8;  // diagonals a tile; d % 8 is the tile's kb
+
+// A lane's values at one diagonal, staged as one 16-byte record.
+struct __align__(16) MwLaneRec {
+  float bls;
+  int fr, frr, lom;
+};
+
+// One stage buffer (the inputs of a tile) or output tile, by lane w of the
+// block: the records rec [LPB][MW_KT], the rows es, bm (stage) or the
+// band-relative posterior rows post (output) [LPB][mw_stride(Wp)], row
+// kb * Wp + k at diagonal kb of the tile, and flc, flr [LPB][MW_KT].  A
+// lane's rows are contiguous, so a warp reads a diagonal's rows without
+// bank conflicts; the stride is odd, so the copies, which move LPB lanes
+// of one row at a time, hit LPB banks.
+struct MwIn {
+  MwLaneRec* rec;
+  float* es;
+  float* bm;
+};
+struct MwOut {
+  float* post;
+  float* flc;
+  float* flr;
+};
+
+__host__ __device__ inline int mw_stride(int Wp) { return MW_KT * Wp + 1; }
+__host__ __device__ inline size_t mw_in_floats(int Wp, int lpb) {
+  return (size_t)lpb * (4 * MW_KT + 2 * mw_stride(Wp));
+}
+__host__ __device__ inline size_t mw_out_floats(int Wp, int lpb) {
+  return (size_t)lpb * (mw_stride(Wp) + 2 * MW_KT);
+}
+// Two stage buffers and two output tiles: 8 lpb (24 Wp + 51) bytes.
+inline size_t mw_smem(int Wp, int lpb) {
+  return 2 * (mw_in_floats(Wp, lpb) + mw_out_floats(Wp, lpb)) *
+         sizeof(float);
+}
+
+// The buffers at p (stage buffers 16-byte aligned: mw_in_floats is a
+// multiple of 4).
+__device__ inline MwIn mw_in(float* p, int Wp, int lpb) {
+  float* es = p + 4 * MW_KT * lpb;
+  return MwIn{reinterpret_cast<MwLaneRec*>(p), es, es + lpb * mw_stride(Wp)};
+}
+__device__ inline MwOut mw_out(float* p, int Wp, int lpb) {
+  float* fl = p + lpb * mw_stride(Wp);
+  return MwOut{p, fl, fl + lpb * MW_KT};
+}
+
+// Starts the copy of the tile of diagonals d0 .. d0 + MW_KT - 1 of the
+// block's lanes b0 .. b0 + LPB - 1 into stage buffer S (one group): thread
+// tid copies lane tid % LPB of rows tid / LPB + 32 i, so a warp moves 32 /
+// LPB rows of LPB consecutive lanes a step.
+template <int LPB>
+__device__ __forceinline__ void mw_stage(
+    const MwIn& S, int d0, int d1k, int b0, int Wp, int B,
+    const float* __restrict__ es, const float* __restrict__ bm,
+    const float* __restrict__ bls, const int32_t* __restrict__ fr,
+    const int32_t* __restrict__ frr, const int32_t* __restrict__ lom) {
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b < B) {
+    const int n = min(MW_KT, d1k - d0);
+    const size_t g = (size_t)d0 * Wp * B + b;
+    float* es_s = S.es + w * mw_stride(Wp);
+    float* bm_s = S.bm + w * mw_stride(Wp);
+    for (int r = threadIdx.x / LPB; r < n * Wp; r += 32) {
+      const size_t o = g + (size_t)r * B;
+      mk::cp_async4(es_s + r, es + o);
+      mk::cp_async4(bm_s + r, bm + o);
+    }
+    const int kb = threadIdx.x / LPB;
+    if (kb < n) {
+      const size_t o = (size_t)(d0 + kb) * B + b;
+      MwLaneRec& rec = S.rec[w * MW_KT + kb];
+      mk::cp_async4(&rec.bls, bls + o);
+      mk::cp_async4(&rec.fr, fr + o);
+      mk::cp_async4(&rec.frr, frr + o);
+      mk::cp_async4(&rec.lom, lom + o);
+    }
+  }
+  mk::cp_async_commit();
+}
+
+// Writes output tile O (diagonals d0 ..) of the block's lanes, in
+// mw_stage's order.
+template <int LPB>
+__device__ __forceinline__ void mw_flush(const MwOut& O, int d0, int d1k,
+                                         int b0, int Wp, int B,
+                                         float* __restrict__ post,
+                                         float* __restrict__ flc,
+                                         float* __restrict__ flr) {
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b >= B) return;
+  const int n = min(MW_KT, d1k - d0);
+  const size_t g = (size_t)d0 * Wp * B + b;
+  const float* post_s = O.post + w * mw_stride(Wp);
+  for (int r = threadIdx.x / LPB; r < n * Wp; r += 32)
+    post[g + (size_t)r * B] = post_s[r];
+  const int kb = threadIdx.x / LPB;
+  if (kb < n) {
+    flc[(size_t)(d0 + kb) * B + b] = O.flc[w * MW_KT + kb];
+    flr[(size_t)(d0 + kb) * B + b] = O.flr[w * MW_KT + kb];
+  }
+}
+
+// out[r] = v at row k - 1 (row Wp - 1 for row 0) of the thread's rows
+// k = kk + 32 r: the band's roll down by one row.
+template <int RPT>
+__device__ __forceinline__ void roll_down(const float (&v)[RPT],
+                                          float (&out)[RPT], int kk,
+                                          int Wp) {
+  if constexpr (RPT == 1) {
+    out[0] = __shfl_sync(mk::FULL, v[0], kk == 0 ? Wp - 1 : kk - 1);
+  } else {
+    float up[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      up[r] = __shfl_sync(mk::FULL, v[r], (kk + 31) & 31);
+    const float wrap = __shfl_sync(mk::FULL, v[RPT - 1], (Wp - 1) & 31);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      out[r] = kk > 0 ? up[r] : (r > 0 ? up[r - 1] : wrap);
+  }
+}
+
+// The forward of one lane, its rows k = kk + 32 r.
+template <int RPT, int LPB>
+struct MwWarp {
+  const CircCoef& K;
+  int chain, Wp, kk;
+  float lz, ls = 0.f, cprev = 1.f;
+  float f[RPT][5];
+  float mm1[RPT], mm2[RPT];  // match mixes of d-1, d-2, rolled down
+  float g1[RPT], g2[RPT], g3[RPT], g4[RPT];  // gap mixes of d-1 (2, 4 rolled)
+  float accc[RPT], accr[RPT];  // column (rolling) and row accumulators
+
+  __device__ MwWarp(const CircCoef& K_, int chain_, int Wp_, float lz_)
+      : K(K_), chain(chain_), Wp(Wp_), kk(threadIdx.x & 31), lz(lz_) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      mm1[r] = mm2[r] = g1[r] = g2[r] = g3[r] = g4[r] = 0.f;
+      accc[r] = accr[r] = 0.f;
+    }
+  }
+
+  __device__ int row(int r) const { return kk + 32 * r; }
+
+  // Diagonals d0 .. d0 + n - 1 (a tile) of lane w of the block from stage
+  // buffer S into output tile O.  The posterior's scale
+  // alpha = exp(ls + bls - logZ) of the tile's diagonals but the last is
+  // computed up front, thread kb for diagonal kb (ls moves only at the
+  // rescale of the last), and shuffled out.
+  __device__ void tile(const MwIn& S, const MwOut& O, int w, int d0, int n) {
+    const MwLaneRec* rec = S.rec + w * MW_KT;
+    const float a = expf(ls + rec[kk & 7].bls - lz);
+    const float* es = S.es + w * mw_stride(Wp) + kk;
+    const float* bm = S.bm + w * mw_stride(Wp) + kk;
+    float* post = O.post + w * mw_stride(Wp);
+    for (int kb = 0; kb < n; ++kb)
+      step(d0 + kb, kb, es + kb * Wp, bm + kb * Wp, rec[kb],
+           __shfl_sync(mk::FULL, a, kb), post + kb * Wp,
+           O.flc + w * MW_KT + kb, O.flr + w * MW_KT + kb);
+  }
+
+  // Generation d (tile row kb): es, bm at the thread's first row, rec the
+  // lane's record, post_rel the lane's band-relative output row.
+  __device__ void step(int d, int kb, const float* es, const float* bm,
+                       const MwLaneRec rec, float alpha, float* post_rel,
+                       float* flc, float* flr) {
+    float post[RPT];
+    if (d == 0) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const bool origin = row(r) == 0;
+        f[r][0] = origin ? 0.2f : 0.f;
+#pragma unroll
+        for (int s = 1; s < 5; ++s)
+          f[r][s] = origin ? (chain ? K.pi[s - 1] : 0.2f) : 0.f;
+      }
+    } else {
+      const bool divide = kb == 0;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const float x = row(r) < Wp ? es[32 * r] : -1.f;
+        const float v = x >= 0.f ? 1.f : 0.f;
+        const float e = fmaxf(x, 0.f);
+        float mm = mm2[r];
+        if (divide) mm = mm / cprev;
+        f[r][0] = e * mm;
+        f[r][1] = g1[r] * v;
+        f[r][2] = g2[r] * v;
+        f[r][3] = g3[r] * v;
+        f[r][4] = g4[r] * v;
+      }
+      if (kb == 7) {
+        float m = 0.f;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+          if (row(r) < Wp)
+            m = fmaxf(m, fmaxf(fmaxf(fmaxf(f[r][0], f[r][1]),
+                                     fmaxf(f[r][2], f[r][3])), f[r][4]));
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(mk::FULL, m, o));
+        const float c = m > 0.f ? m : 1.f;
+        const float inv = 1.f / c;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+#pragma unroll
+          for (int s = 0; s < 5; ++s) f[r][s] = f[r][s] * inv;
+        ls += logf(c);
+        cprev = c;
+        alpha = expf(ls + rec.bls - lz);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      post[r] = row(r) < Wp ? f[r][0] * bm[32 * r] * alpha : 0.f;
+    sink(d, rec, post, post_rel, flc, flr);
+    publish();
+  }
+
+  // The band-relative row, the column and row sums of post.
+  __device__ void sink(int d, const MwLaneRec rec, const float (&post)[RPT],
+                       float* post_rel, float* flc, float* flr) {
+    float rolled[RPT];
+    roll_down<RPT>(accc, rolled, kk, Wp);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = row(r);
+      if (k >= Wp) continue;
+      const int rel = k - rec.lom < 0 ? k - rec.lom + Wp : k - rec.lom;
+      post_rel[rel] = post[r];
+      // The origin cell holds the start distribution and emits nothing.
+      const float pm = d == 0 && k == 0 ? 0.f : post[r];
+      const bool cflush = k == rec.fr;
+      if (cflush) *flc = rolled[r];
+      accc[r] = (cflush ? 0.f : rolled[r]) + pm;
+      const bool rflush = k == rec.frr;
+      if (rflush) *flr = accr[r];
+      accr[r] = (rflush ? 0.f : accr[r]) + pm;
+    }
+    if (kk == 0) {
+      if (rec.fr < 0 || rec.fr >= Wp) *flc = 0.f;
+      if (rec.frr < 0 || rec.frr >= Wp) *flr = 0.f;
+    }
+  }
+
+  // The mixes generation d contributes: the match target at d+2 and the
+  // gap targets at d+1, those read one row down rolled now.
+  __device__ void publish() {
+    float mm[RPT], ga[RPT], gb[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      float g[4];
+      if (chain) {
+        mm[r] = K.t00 * f[r][0];
+#pragma unroll
+        for (int s = 1; s < 5; ++s) mm[r] = mm[r] + K.mc[s - 1] * f[r][s];
+#pragma unroll
+        for (int u = 1; u < 5; ++u) g[u - 1] = f[r][0] + K.c[u - 1] * f[r][u];
+      } else {
+        mm[r] = f[r][0] * K.a[0];
+#pragma unroll
+        for (int s = 1; s < 5; ++s) mm[r] = mm[r] + f[r][s] * K.a[s * 5];
+#pragma unroll
+        for (int u = 1; u < 5; ++u) {
+          g[u - 1] = f[r][0] * K.a[u];
+#pragma unroll
+          for (int s = 1; s < 5; ++s)
+            g[u - 1] = g[u - 1] + f[r][s] * K.a[s * 5 + u];
+        }
+      }
+      g1[r] = g[0];
+      ga[r] = g[1];
+      g3[r] = g[2];
+      gb[r] = g[3];
+      mm2[r] = mm1[r];
+    }
+    roll_down<RPT>(mm, mm1, kk, Wp);
+    roll_down<RPT>(ga, g2, kk, Wp);
+    roll_down<RPT>(gb, g4, kk, Wp);
+  }
+
+  __device__ void tails(float* __restrict__ tc, float* __restrict__ tr,
+                        int b, int B) const {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = row(r);
+      if (k >= Wp) continue;
+      tc[(size_t)k * B + b] = accc[r];
+      tr[(size_t)k * B + b] = accr[r];
+    }
+  }
+};
+
+template <int RPT, int LPB>
+__global__ void __launch_bounds__(32 * LPB)
+    mw_forward_kernel(const float* __restrict__ es,
+                      const int32_t* __restrict__ fr,
+                      const int32_t* __restrict__ frr,
+                      const int32_t* __restrict__ lom,
+                      const float* __restrict__ bm,
+                      const float* __restrict__ bls,
+                      const float* __restrict__ logZ, CircCoef K, int chain,
+                      int d1k, int Wp, int B, float* __restrict__ post,
+                      float* __restrict__ flc, float* __restrict__ flr,
+                      float* __restrict__ tc, float* __restrict__ tr) {
+  extern __shared__ __align__(16) float mw_raw[];
+  const int nin = (int)mw_in_floats(Wp, LPB);
+  const int nout = (int)mw_out_floats(Wp, LPB);
+  // Stage buffer and output tile of tile t (by parity).
+  auto in = [&](int t) { return mw_in(mw_raw + (t & 1) * nin, Wp, LPB); };
+  auto out = [&](int t) {
+    return mw_out(mw_raw + 2 * nin + (t & 1) * nout, Wp, LPB);
+  };
+  const int w = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * LPB, b = b0 + w;
+  const bool live = b < B;  // warp-uniform
+  MwWarp<RPT, LPB> lane(K, chain, Wp, live ? logZ[b] : 0.f);
+  const int tiles = (d1k + MW_KT - 1) / MW_KT;
+  mw_stage<LPB>(in(0), 0, d1k, b0, Wp, B, es, bm, bls, fr, frr, lom);
+  for (int t = 0; t < tiles; ++t) {
+    // Tile t has landed (this thread's copies, then everyone's), every
+    // warp is past tile t - 1, whose outputs leave now.
+    mk::cp_async_wait();
+    __syncthreads();
+    if (t > 0)
+      mw_flush<LPB>(out(t - 1), (t - 1) * MW_KT, d1k, b0, Wp, B, post, flc,
+                    flr);
+    if (t + 1 < tiles)
+      mw_stage<LPB>(in(t + 1), (t + 1) * MW_KT, d1k, b0, Wp, B, es, bm, bls,
+                    fr, frr, lom);
+    if (live)
+      lane.tile(in(t), out(t), w, t * MW_KT, min(MW_KT, d1k - t * MW_KT));
+  }
+  __syncthreads();
+  mw_flush<LPB>(out(tiles - 1), (tiles - 1) * MW_KT, d1k, b0, Wp, B, post,
+                flc, flr);
+  if (live) lane.tails(tc, tr, b, B);
+}
+
 // ---------------------------------------------------------------- launches
 
 size_t bwd_smem(int Wp) { return (size_t)12 * Wp * mk::LANES * sizeof(float); }
-// The forward's 12 planes and the sink's 4 (cx and mw use 4).
+// The forward's 12 planes and cx's 4 accumulator planes.
 size_t fwd_smem(int Wp) { return (size_t)16 * Wp * mk::LANES * sizeof(float); }
 // The posterior forwards' sink keeps nothing.
 size_t post_smem(int Wp) { return bwd_smem(Wp); }
@@ -894,6 +1165,56 @@ EmitTable load_table_host(const float* table) {
 
 bool bad_shape(int d1k, int Wp, int B) {
   return d1k < 1 || B < 1 || Wp < 1 || mk::rows_per_thread(Wp) > mk::MAX_RPT;
+}
+
+// The lanes a block M takes for B lanes at band width Wp on the current
+// device: 16 where that block fits shared memory and every SM still gets
+// a block (B >= 16 x SMs), else 8.  Fewer than 8 lanes move half sectors
+// and more than 16 ran slower (kernel_ab.py's probe group, PERF.md).
+cudaError_t mw_lanes(int Wp, int B, int* lanes) {
+  int dev = 0, sms = 0, smem = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const bool wide = mw_smem(Wp, 16) <= (size_t)smem && B >= 16 * sms;
+  if (!wide && mw_smem(Wp, 8) > (size_t)smem) return cudaErrorInvalidValue;
+  *lanes = wide ? 16 : 8;
+  return cudaSuccess;
+}
+
+template <int LPB>
+const void* mw_kernel_rpt(int Wp) {
+  switch (mk::rows_per_thread(Wp)) {
+    case 1: return (const void*)mw_forward_kernel<1, LPB>;
+    case 2: return (const void*)mw_forward_kernel<2, LPB>;
+    case 3: return (const void*)mw_forward_kernel<3, LPB>;
+    case 4: return (const void*)mw_forward_kernel<4, LPB>;
+  }
+  return nullptr;
+}
+
+// M's kernel for band width Wp and `lanes` lanes a block.
+const void* mw_kernel(int Wp, int lanes) {
+  switch (lanes) {
+    case 8: return mw_kernel_rpt<8>(Wp);
+    case 16: return mw_kernel_rpt<16>(Wp);
+  }
+  return nullptr;
+}
+
+// The kernel, lanes a block and shared memory of M's launch at (Wp, B),
+// its shared memory opted in.
+cudaError_t mw_setup(int Wp, int B, const void** kernel, int* lanes,
+                     size_t* smem) {
+  cudaError_t err = mw_lanes(Wp, B, lanes);
+  if (err != cudaSuccess) return err;
+  *kernel = mw_kernel(Wp, *lanes);
+  *smem = mw_smem(Wp, *lanes);
+  return *kernel ? mk::allow_smem(*kernel, *smem) : cudaErrorInvalidValue;
 }
 
 template <class Src>
@@ -987,11 +1308,29 @@ extern "C" int mw_forward_launch(const float* es, const int32_t* fr,
                                  float* post, float* flc, float* flr,
                                  float* tc, float* tr, void* stream) {
   if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
-  const CircCoef K = load_coef(coef);
-  const cudaStream_t s = (cudaStream_t)stream;
-  BY_RPT(Wp, run(mw_forward_kernel<R>, fwd_smem(Wp), Wp, B, s, es, fr, frr,
-                 lom, bm, bls, logZ, K, chain, d1k, Wp, B, post, flc, flr,
-                 tc, tr))
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = mw_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  CircCoef K = load_coef(coef);
+  void* args[] = {&es,  &fr,    &frr, &lom, &bm, &bls,  &logZ, &K,  &chain,
+                  &d1k, &Wp,    &B,   &post, &flc, &flr, &tc,  &tr};
+  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes),
+                          dim3(32 * lanes), args, smem,
+                          (cudaStream_t)stream);
+}
+
+// What M's launch at band width Wp over B lanes gets on this device
+// (mk::kernel_info's out[5]; its lanes a block are out[3] / 32).
+extern "C" int mw_forward_info(int Wp, int B, int* out) {
+  if (bad_shape(1, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = mw_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }
 
 extern "C" int circ_post_es_launch(const float* es, const float* bm,

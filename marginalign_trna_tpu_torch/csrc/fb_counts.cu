@@ -615,7 +615,7 @@ constexpr int N_MCB = 26;              // match bins: x * 5 + y, 25 = none
 constexpr int N_LANE = 5;              // per-lane streams: s1, start, fink,
                                        // find, L
 constexpr uint32_t CK_NO_CELL = 5u | (5u << 8) | (25u << 24);
-constexpr unsigned FULL = 0xffffffffu;
+using mk::FULL;
 
 // Shared memory of one block, sized by Wp.  The stage holds the next
 // 8-diagonal block as it arrives (cp.async): the code streams as words of
@@ -657,22 +657,10 @@ __device__ inline CkptSmem ckpt_smem(float* base, int Wp) {
   return m;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+using mk::cp_async16;
+using mk::cp_async4;
+using mk::cp_async_commit;
+using mk::cp_async_wait;
 
 // Starts the copy of 8-diagonal block blk of the block's lanes b0..b0+3
 // into the stage: asynchronous when a block's 4 lanes are 4 aligned words
@@ -1325,27 +1313,10 @@ extern "C" int counts_multi_bwd_ckpt_launch(
 }
 
 // What the checkpoint backward's launches at band width Wp get on this
-// device: out[0] its registers per thread, out[1] shared memory per block
-// (bytes), out[2] blocks resident per SM, out[3] threads per block, out[4]
-// local memory per thread (bytes, spills).  multi picks
-// counts_multi_bwd_ckpt.
+// device (mk::kernel_info's out[5]); multi picks counts_multi_bwd_ckpt.
 extern "C" int counts_bwd_ckpt_info(int multi, int Wp, int* out) {
   const void* fn = multi ? (const void*)counts_bwd_ckpt_kernel<true>
                          : (const void*)counts_bwd_ckpt_kernel<false>;
-  const size_t bytes = ckpt_smem_floats(Wp) * sizeof(float);
-  cudaError_t err = mk::allow_smem(fn, bytes);
-  if (err != cudaSuccess) return err;
-  cudaFuncAttributes a;
-  err = cudaFuncGetAttributes(&a, fn);
-  if (err != cudaSuccess) return err;
-  int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn,
-                                                      CK_THREADS, bytes);
-  if (err != cudaSuccess) return err;
-  out[0] = a.numRegs;
-  out[1] = (int)(bytes + a.sharedSizeBytes);
-  out[2] = blocks;
-  out[3] = CK_THREADS;
-  out[4] = (int)a.localSizeBytes;
-  return cudaSuccess;
+  return mk::kernel_info(fn, ckpt_smem_floats(Wp) * sizeof(float),
+                         CK_THREADS, out);
 }

@@ -136,8 +136,11 @@ _SIGNATURES: Dict[str, List] = {
 # a cudaError_t.
 _QUERIES: Dict[str, List] = {
     # multi, Wp, out[5]: registers, shared bytes per block, blocks per SM,
-    # threads per block, local bytes (csrc/fb_counts.cu)
+    # threads per block, local bytes (csrc/fb_counts.cu; `resources`)
     "counts_bwd_ckpt_info": [_I, _I, _P],
+    # Wp, B, out[5] (csrc/fb_circ.cu); Wp, out[5] (csrc/expand.cu)
+    "mw_forward_info": [_I, _I, _P],
+    "expand_streams_info": [_I, _P],
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}
@@ -270,6 +273,17 @@ def query(name: str, device: torch.device, *args) -> None:
     if err != 0:
         msg = lib.marginalign_cuda_error_string(err).decode()
         raise RuntimeError("%s failed: CUDA error %d (%s)" % (name, err, msg))
+
+
+def resources(name: str, device: torch.device, *args) -> Dict[str, int]:
+    """What a kernel's launches get on `device`, from the `_QUERIES` entry
+    point `name` (csrc/common.cuh `kernel_info`): registers per thread,
+    shared memory per block (bytes), blocks resident per SM, threads per
+    block and local memory per thread (bytes; spills)."""
+    out = (ctypes.c_int * 5)()
+    query(name, device, *args, ctypes.addressof(out))
+    return dict(zip(("registers", "smem_per_block", "blocks_per_sm",
+                     "threads_per_block", "local_bytes"), out))
 
 
 def launch(name: str, device: torch.device, *args) -> None:

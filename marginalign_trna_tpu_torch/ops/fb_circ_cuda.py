@@ -35,8 +35,9 @@ an unconditional roll by one row (no per-lane shift streams).
                         posterior column sums (rolling, flushed at fr) and
                         row sums (row-stable, flushed at frr) the MEA gap
                         weights need: flc, flr [d1k, B], tails tc, tr [Wp, B].
-C and M share the forward recursion (`_forward_generations` here, the
-`circ_forward` template in csrc/fb_circ.cu).
+C and M share the forward recursion (`_forward_generations` here); on the
+card C runs it as csrc/fb_circ.cu's `CircForward` template, M as a kernel
+of its own (one warp per lane, 8 or 16 lanes a block).
 
 The model comes in at run time as one coefficient vector (`COEF_*` offsets,
 built by ops/fb_circ.py `circ_coefficients`) with two branches: the
@@ -49,7 +50,7 @@ with -fmad=false).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -172,6 +173,15 @@ def expand_streams_cuda(ematch: Sequence[float], reads, refs, lo, m, n,
         es.data_ptr(), yb.data_ptr() if want_yb else None, fr.data_ptr(),
     )
     return es, yb, fr
+
+
+def expand_streams_resources(device: torch.device,
+                             wp: int) -> Dict[str, int]:
+    """What a launch of expand_streams at band width `wp` gets on `device`:
+    registers per thread, shared memory per block (bytes), blocks resident
+    per SM, threads per block and local memory per thread (bytes;
+    spills)."""
+    return _build.resources("expand_streams_info", device, wp)
 
 
 # ------------------------------------------------- R: band-relative codes
@@ -571,6 +581,16 @@ def mw_forward_cuda(coef: np.ndarray, chain: bool, es, fr, frr, lom, bm,
         flc.data_ptr(), flr.data_ptr(), tc.data_ptr(), tr.data_ptr(),
     )
     return post, flc, flr, tc, tr
+
+
+def mw_forward_resources(device: torch.device, wp: int,
+                         B: int) -> Dict[str, int]:
+    """What a launch of mw_forward over B lanes at band width `wp` gets on
+    `device`: the keys of expand_streams_resources and the lanes a block,
+    which csrc/fb_circ.cu `mw_lanes` chooses from B, the SM count and the
+    shared memory a block may take."""
+    res = _build.resources("mw_forward_info", device, wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
 # ------------------------------------- the serving modes' kernels (B16)

@@ -59,7 +59,6 @@ band round identically.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Tuple
 
 import torch
@@ -578,11 +577,7 @@ def ckpt_backward_resources(device: torch.device, wp: int,
     band width `wp` gets on `device`: registers per thread, shared memory
     per block (bytes), blocks resident per SM, threads per block and local
     memory per thread (bytes; spills)."""
-    out = (ctypes.c_int * 5)()
-    _build.query("counts_bwd_ckpt_info", device, int(multi), wp,
-                 ctypes.addressof(out))
-    return dict(zip(("registers", "smem_per_block", "blocks_per_sm",
-                     "threads_per_block", "local_bytes"), out))
+    return _build.resources("counts_bwd_ckpt_info", device, int(multi), wp)
 
 
 def counts_multi_fwd_all_cuda(T, Em, Eg, xb, yb, valid, s1, start, fink):

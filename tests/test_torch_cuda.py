@@ -215,6 +215,161 @@ def test_default_path_kernels_match_plain(cuda):
                for k in ("expand_rel", "mw_forward", "mea_dl"))
 
 
+def _flat_gap_tables(chain_model):
+    """The shipped model's tables (CPU), or (chain_model False) its
+    flat-gap variant whose gap states 1 and 2 exchange mass: the generic
+    5x5 branch of the circular kernels."""
+    from marginalign_trna_tpu_torch.ops.fb import FbTables
+
+    tables = tables_from_hmm(PairHmm.load(MODEL))
+    if not chain_model:
+        T = tables.T.numpy().copy()
+        T[1, 2] = T[2, 1] = 0.05
+        T /= T.sum(axis=1, keepdims=True)
+        tables = FbTables(T, tables.Ematch.numpy(), tables.Egap.numpy(),
+                          tables.pi.numpy())
+    assert circ_coefficients(tables)[1] == chain_model
+    return tables
+
+
+def _ragged_compact(cuda, width, seed, n=37, pad=43, lo_len=(20, 150),
+                    hi_len=(200, 320)):
+    """n noisy pairs at `width`, a few of them long enough that the band
+    wraps its rows more than once, packed to `pad` lanes (the lanes past n
+    have m + n = 0; 43 is a multiple of neither 4 nor 8 nor 128)."""
+    rng = np.random.default_rng(seed)
+    reads, refs = [], []
+    for b in range(n):
+        lo_, hi_ = hi_len if b % 6 == 0 else lo_len
+        ref = rng.integers(0, 4, int(rng.integers(lo_, hi_))).astype(np.int8)
+        read = ref.copy()
+        read[rng.random(len(read)) < 0.1] = int(rng.integers(0, 4))
+        reads.append(read[: len(read) - int(rng.integers(0, 6))])
+        refs.append(ref)
+    comp = pack_compact_batch(reads, refs, width=width, pad_batch_to=pad)
+    return comp, compact_device_batch(comp, cuda)
+
+
+def _wide_lanes(cuda):
+    """A lane count past 16 x the SM count, and a multiple of neither 8 nor
+    16: M takes 16-lane blocks there wherever they fit."""
+    return 16 * torch.cuda.get_device_properties(
+        cuda).multi_processor_count + 5
+
+
+def _widen(dev, B):
+    """The compact batch `dev` with its lanes repeated to B lanes."""
+    k = -(-B // dev.m.shape[-1])
+    return type(dev)(*(
+        (t.repeat(1, k) if t.dim() == 2 else t.repeat(k))[..., :B]
+        .contiguous() for t in dev))
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+@pytest.mark.parametrize("width", [21, 45, 93, 126])
+def test_mw_forward_matches_plain(cuda, width, chain_model):
+    """M (warp per lane) bit-equal to its plain version at Wp 24, 48, 96
+    and 128 (one to four rows a thread), on both model branches, with both
+    block sizes it takes: 43 lanes (8 a block) and past 16 x the SM count
+    (16 a block where they fit, at Wp 24 and 48), dead lanes in the last
+    block, lanes with m + n = 0, d1k past D1 and not a multiple of the
+    staged tile, and the column and row flushes forced to rows 0 and Wp - 1
+    on some diagonals."""
+    tables = _flat_gap_tables(chain_model)
+    coef, chain = circ_coefficients(tables)
+    ematch = tables.Ematch.numpy().reshape(-1)
+    comp, narrow = _ragged_compact(cuda, width, seed=width)
+    Wp = comp.wp
+    d1k = comp.num_steps + 3
+    assert Wp == {21: 24, 45: 48, 93: 96, 126: 128}[width]
+    assert d1k % 8 != 0 and d1k > comp.num_steps
+    lanes = []
+    for dev in (narrow, _widen(narrow, _wide_lanes(cuda))):
+        es, _, _ = fb_circ_cuda.expand_streams_plain(
+            ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, width, Wp,
+            d1k, want_yb=False)
+        fr, frr, lom = circ_mw_streams(dev.lo, width, Wp, d1k)
+        d = torch.arange(d1k, device=cuda)
+        fr = torch.where((d % 7 == 3)[:, None], 0, fr).int()
+        fr = torch.where((d % 7 == 5)[:, None], Wp - 1, fr).int()
+        frr = torch.where((d % 5 == 2)[:, None], 0, frr).int()
+        frr = torch.where((d % 5 == 4)[:, None], Wp - 1, frr).int()
+        bm, bls, logZ = fb_circ_cuda.sv_backward_plain(coef, chain, es,
+                                                       dev.fink, dev.final_d)
+        margs = (coef, chain, es, fr.contiguous(), frr.contiguous(), lom,
+                 bm, bls, logZ)
+        want = fb_circ_cuda.mw_forward_plain(*margs)
+        assert want[1].abs().max().item() > 0
+        assert want[2].abs().max().item() > 0
+        before = _build.launch_counts["mw_forward"]
+        got = fb_circ_cuda.mw_forward_cuda(*margs)
+        torch.cuda.synchronize()
+        B = es.shape[2]
+        lanes.append(fb_circ_cuda.mw_forward_resources(
+            cuda, Wp, B)["lanes_per_block"])
+        for name, g, w in zip(("post", "flc", "flr", "tc", "tr"), got, want):
+            assert torch.equal(g, w), (B, name, (g - w).abs().max().item())
+        assert _build.launch_counts["mw_forward"] == before + 1
+    assert lanes == [8, 16 if Wp <= 72 else 8]
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_mw_forward_resources(cuda, wp):
+    """M takes 8 lanes a block over few lanes and 16 past 16 x the SM
+    count where 16 fit (Wp <= 72), with at least one block an SM, no
+    spills and no stack; at Wp 24 it keeps 32 or more warps resident an
+    SM."""
+    for B, lanes in ((43, 8), (_wide_lanes(cuda), 16 if wp <= 72 else 8)):
+        res = fb_circ_cuda.mw_forward_resources(cuda, wp, B)
+        assert res["lanes_per_block"] == lanes, res
+        assert res["threads_per_block"] == 32 * lanes
+        assert res["local_bytes"] == 0, res
+        assert res["blocks_per_sm"] >= 1, res
+        if wp == 24:
+            assert res["blocks_per_sm"] * lanes >= 32, res
+
+
+@pytest.mark.parametrize("want_yb", [False, True])
+@pytest.mark.parametrize("wp_extra", [0, -1, 3])
+def test_expand_streams_matches_plain(cuda, wp_extra, want_yb):
+    """E exactly equal to its plain version (es, fr; yb on valid cells)
+    with d1k past D1 (lo edge-replicated), lanes with m + n = 0, 43 lanes
+    (a multiple of no block size), odd and even Wp, bands that wrap their
+    rows more than once, with and without yb, its codes gathered through
+    the shared-memory windows; and on offsets that jump, whose tiles span
+    more than a window (those lanes read device memory)."""
+    tables = tables_from_hmm(PairHmm.load(MODEL))
+    ematch = tables.Ematch.numpy().reshape(-1)
+    comp, dev = _ragged_compact(cuda, 21, seed=5)
+    Wp = comp.wp + wp_extra
+    d1k = comp.num_steps + 37
+    jumped = dev.lo.clone()
+    jumped[comp.num_steps // 2:, ::3] += 40
+    for lo in (dev.lo, jumped.contiguous()):
+        args = (ematch, dev.reads, dev.refs, lo, dev.m, dev.n, 21, Wp, d1k,
+                want_yb)
+        res, ryb, rfr = fb_circ_cuda.expand_streams_plain(*args)
+        valid = res >= 0
+        assert valid.any() and (~valid).any()
+        before = _build.launch_counts["expand_streams"]
+        es, yb, fr = fb_circ_cuda.expand_streams_cuda(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(es, res) and torch.equal(fr, rfr)
+        assert (yb is None) == (not want_yb)
+        if want_yb:
+            assert torch.equal(yb[valid], ryb[valid])
+        assert _build.launch_counts["expand_streams"] == before + 1
+
+
+def test_expand_streams_resources(cuda):
+    """E builds without spills; at Wp 24 a 128-lane block's windows take
+    14.5 KB, so eight blocks fit an SM."""
+    res = fb_circ_cuda.expand_streams_resources(cuda, 24)
+    assert res["local_bytes"] == 0, res
+    assert res["threads_per_block"] == 128
+    assert res["blocks_per_sm"] >= 8, res
+
+
 def test_scatter_lanes_any_targets(cuda):
     """L on targets that repeat out of order and fall outside [0, rg):
     the plain version's sums (rtol 1e-5)."""
@@ -514,17 +669,8 @@ def test_serve_kernels_match_plain(cuda, chain_model):
     circ_ckpt_post) on the shipped model and on its flat-gap variant whose
     gap states 1 and 2 exchange mass (the generic branch) at width 21 (Wp
     24, the checkpoint pass's replay in shared memory)."""
-    from marginalign_trna_tpu_torch.ops.fb import FbTables
-
-    tables = tables_from_hmm(PairHmm.load(MODEL))
-    if not chain_model:
-        T = tables.T.numpy().copy()
-        T[1, 2] = T[2, 1] = 0.05
-        T /= T.sum(axis=1, keepdims=True)
-        tables = FbTables(T, tables.Ematch.numpy(), tables.Egap.numpy(),
-                          tables.pi.numpy())
-    assert circ_coefficients(tables)[1] == chain_model
-    _serve_kernels_match_plain(cuda, tables, _batch(21, seed=8))
+    _serve_kernels_match_plain(cuda, _flat_gap_tables(chain_model),
+                               _batch(21, seed=8))
 
 
 @pytest.mark.parametrize("width", [61, 126])
