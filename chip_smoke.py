@@ -27,9 +27,10 @@ Phases (any failure exits non-zero without the final result line):
               launch is logged and the inputs of each kernel's largest
               launch are kept (one device copy each).
   4. kernels  each of those kernels against its plain version on the inputs
-              of its largest main-path launch, with times and bounds (E
-              and M bit-equal, with their resources: registers, shared
-              memory a block, blocks an SM, M's lanes a block).
+              of its largest main-path launch, with times and bounds (E,
+              M, K1 and D bit-equal, with their resources: registers,
+              shared memory a block, blocks an SM, spills, lanes a block
+              of the warp-per-lane kernels M, K1 and D).
   5. rel      the REL realign path (fused=False: host band arrays, K2, K3,
               K4) on the chained records of the corpus's first 256 reads;
               only K2, K3 and K4 may launch; >= 90% of its cigars must equal
@@ -565,6 +566,7 @@ def compare_nw(args, reps):
     check(torch.equal(state, rstate), "NW final_state differs")
     err = (score - rscore).abs().max().item()
     check(err == 0.0, "NW score differs by %g" % err)
+    _, wp, B = ptr.shape
     return {
         "max_abs_err": err,
         "all_cells_equal": bool(torch.equal(ptr, rptr)),
@@ -572,6 +574,7 @@ def compare_nw(args, reps):
         "plain_ms": time_ms(lambda: wf.banded_nw_plain(*args), 1),
         "library_ms": None,
         **bound("banded_nw", ptr.numel(), nbytes(*args, ptr, score, state)),
+        "resources": wf.warp_lane_resources("banded_nw", ptr.device, wp, B),
     }
 
 
@@ -830,7 +833,8 @@ def compare_scatter_lanes(args, reps):
 
 def compare_mea_dl(args, reps):
     """D against its plain version: pointers equal on every valid cell,
-    scores within 1e-4."""
+    scores equal (D keeps the plain version's arithmetic); with the block
+    size D takes for this launch and its resources."""
     import torch
 
     from marginalign_trna_tpu_torch.ops import wavefront_cuda as wf
@@ -843,7 +847,8 @@ def compare_mea_dl(args, reps):
     ok = band_masks(lo, m, n, width, post.shape[1])[0]
     check(torch.equal(ptr[ok], rptr[ok]), "D pointers differ on valid cells")
     err = (score - rscore).abs().max().item()
-    check(err <= 1e-4, "D score differs by %g (atol 1e-4)" % err)
+    check(torch.equal(score, rscore), "D score differs by %g" % err)
+    _, wp, B = ptr.shape
     return {
         "max_abs_err": err,
         "all_cells_equal": bool(torch.equal(ptr, rptr)),
@@ -851,6 +856,7 @@ def compare_mea_dl(args, reps):
         "plain_ms": time_ms(lambda: wf.mea_dl_plain(*args), 1),
         "library_ms": None,
         **bound("mea_dl", ptr.numel(), nbytes(*args, ptr, score)),
+        "resources": wf.warp_lane_resources("mea_dl", ptr.device, wp, B),
     }
 
 

@@ -4,7 +4,21 @@ the port, on the same inputs, in one process on one CUDA card.
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 kernel_ab.py build/parent [group ...]
 
-Groups (fused and counts when none is named):
+Groups (fused, wavefront and counts when none is named):
+  wavefront
+         K1 (banded_nw) on the guide batch [7168, 48, 1024] and at Wp 24,
+         96 and 128 (the guide's pairs packed at widths 21, 93, 126), D
+         (mea_dl) on the realign bucket [3072, 24, 4096] and at Wp 48, 96
+         and 128 (the bucket's pairs at widths 45, 93, 126), each on the
+         outputs of R or of the fused realign pass (E, S, M, L) for the
+         fused group's seeded pairs; their resources (registers, shared
+         memory a block, blocks an SM, spills, lanes a block), bounds, and
+         the largest difference from the plain version and from the other
+         checkout on valid cells, with whether every cell is equal (0 and
+         yes expected).  Must not move (bit-equal to the other checkout,
+         both timed): K4 banded_mea on the bucket's closed-form weight
+         bands, nw_multi on a multi batch at width 40 [1024, 48, 4096],
+         mea_multi on random weights over the width-21 multi batch.
   fused  M (mw_forward) and E (expand_streams), and the kernels beside
          them that must not move.  M on a realign bucket [3072, 24, 4096]
          with the shipped model (gap-chain branch), on [3072, 24, 1024]
@@ -21,14 +35,17 @@ Groups (fused and counts when none is named):
          [7168, 48, 1024].  Then the fused realign posteriors of the
          bucket (ops/fb_circ.py `posteriors_weights_compact`: E + S + M
          and the flush streams, a sync) on the host clock.
-  probe  variants of this checkout's M and E (PROBES: source edits of
-         csrc/, in copies under build/probe/), timed beside the kernel
-         they vary: M with one part of its work removed (outputs wrong by
-         design) or with 4, 8, 16 or 32 lanes a block, on the bucket
-         (gap-chain branch) and on M's generic row; E with every code
-         read from device memory (no windows) on the bucket and the
-         caller batch.  Named on the command line only: its edits follow
-         the sources' text.
+  probe  variants of this checkout's M, E, K1 and D (PROBES: source
+         edits of csrc/, in copies under build/probe/), timed beside the
+         kernel they vary: M with one part of its work removed (outputs
+         wrong by design) or with 4, 8, 16 or 32 lanes a block, on the
+         bucket (gap-chain branch) and on M's generic row; E with every
+         code read from device memory (no windows) on the bucket and the
+         caller batch; K1 with 4, 8 or 16 lanes a block on the guide
+         batch; D with every gap weight loaded from the sums at each
+         diagonal (no delay line) on the bucket.  probe_wavefront: the K1
+         and D variants only.  Named on the command line only: their
+         edits follow the sources' text.
   counts scatter_lanes (L) on a realign row-flush stream
          [3096, 4096]; the checkpoint backwards on the EM batch
          [3, 512, 24, 8192] and the em_multi batch [3, 1024, 24, 4096]
@@ -181,14 +198,15 @@ def em_batch(band, seed=2):
                                   pad_steps_to=EM_STEPS)
 
 
-def multi_batch(band, seed=3):
+def multi_batch(band, seed=3, width=21):
     """tRNA-scale problems (references of 70-90 bases, 12% substitutions)
-    packed several per 1024-diagonal lane, width 21, to 4096 lanes."""
+    packed several per 1024-diagonal lane, at band width `width`, to 4096
+    lanes."""
     rng = np.random.default_rng(seed)
     refs = [rng.integers(0, 4, int(rng.integers(70, 91))).astype(np.int8)
             for _ in range(MULTI_PROBLEMS)]
     reads = [noisy(rng, r, sub=0.12) for r in refs]
-    return band.pack_multi_banded_batch(reads, refs, width=21,
+    return band.pack_multi_banded_batch(reads, refs, width=width,
                                         pad_steps_to=1024,
                                         pad_batch_to=MULTI_LANES)
 
@@ -231,6 +249,16 @@ def pairs(rng, lanes, steps, slack):
             reads.append(read)
             refs.append(ref)
     return reads, refs
+
+
+def fused_pairs():
+    """The fused and wavefront groups' pairs, drawn in this order from one
+    seeded generator: the realign bucket's, the caller batch's (unique
+    pairs) and the guide batch's."""
+    rng = np.random.default_rng(5)
+    return (pairs(rng, BUCKET_LANES, BUCKET_STEPS, 240),
+            pairs(rng, CALLER_UNIQUE, CALLER_STEPS, 16),
+            pairs(rng, GUIDE_LANES, GUIDE_STEPS, 200))
 
 
 def compact(port, reads, refs, width, steps, cuda, repeat=1):
@@ -365,15 +393,14 @@ def run_fused(this, other, cuda, report):
     tables = fb.tables_from_file(model, cuda)
     coef, chain = fcirc.circ_coefficients(tables)
     ematch = tables.Ematch.cpu().numpy().reshape(-1)
-    rng = np.random.default_rng(5)
     wp = band.padded_band_width(21)
+    bucket, caller, guide = fused_pairs()
 
     def show(*names):
         print(json.dumps({n: report[n] for n in names}), flush=True)
 
     # The realign bucket: E, S, M; circ_post_es and M's generic branch on
     # its first lanes; the fused posteriors on the host clock.
-    bucket = pairs(rng, BUCKET_LANES, BUCKET_STEPS, 240)
     dev = compact(this, *bucket, 21, BUCKET_STEPS, cuda)
     eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, wp,
              BUCKET_STEPS, False)
@@ -415,8 +442,8 @@ def run_fused(this, other, cuda, report):
     torch.cuda.empty_cache()
 
     # The caller batch: E with yb, then C.
-    cdev = compact(this, *pairs(rng, CALLER_UNIQUE, CALLER_STEPS, 16), 21,
-                   CALLER_STEPS, cuda, repeat=CALLER_LANES // CALLER_UNIQUE)
+    cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
+                   repeat=CALLER_LANES // CALLER_UNIQUE)
     ceargs = (ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n, 21,
               wp, CALLER_STEPS, True)
     report["expand_streams_caller"] = ab_expand(fc, ofc, ceargs, cuda)
@@ -428,8 +455,7 @@ def run_fused(this, other, cuda, report):
     show("expand_streams_caller", "cx_forward")
 
     # The guide batch: R.
-    gdev = compact(this, *pairs(rng, GUIDE_LANES, GUIDE_STEPS, 200), 40,
-                   GUIDE_STEPS, cuda)
+    gdev = compact(this, *guide, 40, GUIDE_STEPS, cuda)
     report["expand_rel"] = unmoved(
         fc.expand_rel_cuda, ofc.expand_rel_cuda,
         (gdev.reads, gdev.refs, gdev.lo, gdev.m, gdev.n,
@@ -455,6 +481,127 @@ def run_fused(this, other, cuda, report):
         show(name)
 
 
+def guide_nw_args(port, guide, width, cuda):
+    """K1's inputs for the guide pairs at band width `width`, built as
+    align/guide.py builds them: R's code bands, band_masks' valid band and
+    shifts, the shipped scores."""
+    fc, band = sub(port, "ops.fb_circ_cuda"), sub(port, "ops.band")
+    wp = band.padded_band_width(width)
+    gdev = compact(port, *guide, width, GUIDE_STEPS, cuda)
+    xb, yb = fc.expand_rel_cuda(gdev.reads, gdev.refs, gdev.lo, gdev.m,
+                                gdev.n, wp, GUIDE_STEPS)
+    valid, s1, s2 = band.band_masks(gdev.lo, gdev.m, gdev.n, width, wp)
+    return (tuple(sub(port, "ops.nw").NwParams()), xb, yb, valid, s1, s2,
+            gdev.final_d, gdev.final_k)
+
+
+def bucket_dl_args(port, bucket, width, cuda):
+    """D's inputs for the realign bucket's pairs at band width `width`, as
+    the fused realign path builds them: the posterior band and the row and
+    column sums of E, S, M and L (ops/fb_circ.py
+    `posteriors_weights_compact`, ops/mea.py `rowcol_sums_from_flushed`)
+    with the shipped model; the CLI's gapGamma 0.5 and matchGamma 0."""
+    band, fcirc = sub(port, "ops.band"), sub(port, "ops.fb_circ")
+    fb, mea = sub(port, "ops.fb"), sub(port, "ops.mea")
+    tables = fb.tables_from_file(
+        os.path.join(ROOT, PKG, "models", "last_hmm_20.txt"), cuda)
+    comp = band.pack_compact_batch(*bucket, width=width,
+                                   pad_steps_to=BUCKET_STEPS)
+    dev = fcirc.compact_device_batch(comp, cuda)
+    _, post, flc, flr, tc, tr = fcirc.posteriors_weights_compact(
+        tables, dev, width)
+    accr, accc = mea.rowcol_sums_from_flushed(comp, dev, flc, flr, tc, tr)
+    return (post, dev.lo, dev.m, dev.n, width, dev.final_d, dev.final_k,
+            accr, accc, 0.5, 0.0)
+
+
+def ab_wave(wf, owf, name, args, valid, cuda):
+    """K1 or D (`name`) of both checkouts against the plain version:
+    largest differences on valid cells, whether every cell is equal,
+    timed, with bound and resources."""
+    kernel, other = getattr(wf, name + "_cuda"), getattr(owf, name + "_cuda")
+    got = kernel(*args)
+    plain = getattr(wf, name + "_plain")(*args)
+    ref = other(*args)
+
+    def on_valid(out):
+        return (out[0][valid],) + tuple(out[1:])
+
+    D1, wp, B = got[0].shape
+    return {
+        "shape": [D1, wp, B],
+        "max_abs_err_plain": max_diff(on_valid(got), on_valid(plain)),
+        "max_abs_err_other": max_diff(on_valid(got), on_valid(ref)),
+        "all_cells_equal_plain": all_equal(got, plain),
+        "all_cells_equal_other": all_equal(got, ref),
+        **ab(lambda: kernel(*args), lambda: other(*args)),
+        **bound(name, got[0].numel(), nbytes(*args, *got)),
+        "resources": wf.warp_lane_resources(name, cuda, wp, B)}
+
+
+def run_wavefront(this, other, cuda, report):
+    """Fills `report` with the wavefront group's rows."""
+    import torch
+
+    wf, owf = (sub(p, "ops.wavefront_cuda") for p in (this, other))
+    band, fb = sub(this, "ops.band"), sub(this, "ops.fb")
+    bucket, _, guide = fused_pairs()
+
+    def show(name):
+        print(json.dumps({name: report[name]}), flush=True)
+
+    # K1 on the guide batch (width 40, Wp 48), then at Wp 24, 96 and 128.
+    for width in (40, 21, 93, 126):
+        args = guide_nw_args(this, guide, width, cuda)
+        name = "banded_nw" if width == 40 else \
+            "banded_nw_wp%d" % band.padded_band_width(width)
+        report[name] = ab_wave(wf, owf, "banded_nw", args, args[3], cuda)
+        show(name)
+        del args
+        torch.cuda.empty_cache()
+
+    # D on the realign bucket (width 21, Wp 24), then at Wp 48, 96 and 128;
+    # K4 on the bucket's closed-form weight bands.
+    for width in (21, *M_WIDE):
+        wp = band.padded_band_width(width)
+        args = bucket_dl_args(this, bucket, width, cuda)
+        post, lo, m, n = args[:4]
+        valid, s1, s2 = band.band_masks(lo, m, n, width, wp)
+        name = "mea_dl" if width == 21 else "mea_dl_wp%d" % wp
+        report[name] = ab_wave(wf, owf, "mea_dl", args, valid, cuda)
+        show(name)
+        if width == 21:
+            wdiag = torch.where(post > 0, post, wf.NEG)
+            report["banded_mea"] = unmoved(
+                wf.banded_mea_cuda, owf.banded_mea_cuda,
+                (wdiag, *wf.mea_dl_gap_bands(lo, args[7], args[8], 0.5, wp),
+                 valid, s1, s2, args[5], args[6]))
+            show("banded_mea")
+            del wdiag
+        del args, post, lo, m, n, valid, s1, s2
+        torch.cuda.empty_cache()
+
+    # The multi-problem lanes' kernels: nw_multi at the guide's width,
+    # mea_multi on random weights at the realign width.
+    params = tuple(sub(this, "ops.nw").NwParams())
+    mdev = fb.multi_device_batch(multi_batch(band, width=40), cuda)
+    report["nw_multi"] = unmoved(
+        wf.nw_multi_cuda, owf.nw_multi_cuda,
+        (params, mdev.xb, mdev.yb, mdev.valid, mdev.s1, mdev.s2, mdev.start,
+         mdev.fink, mdev.find))
+    show("nw_multi")
+    mdev = fb.multi_device_batch(multi_batch(band), cuda)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    shape = tuple(mdev.xb.shape)
+    weights = [torch.rand(shape, device=cuda, generator=gen) * scale
+               for scale in (1.0, 0.5, 0.5)]
+    report["mea_multi"] = unmoved(
+        wf.mea_multi_cuda, owf.mea_multi_cuda,
+        (*weights, mdev.valid, mdev.s1, mdev.s2, mdev.start, mdev.fink,
+         mdev.find))
+    show("mea_multi")
+
+
 def probe_port(name, source, edits):
     """A copy of this checkout's port under build/probe/<name> with
     csrc/<source> edited, its kernels built, imported as probe_<name>."""
@@ -478,14 +625,11 @@ def probe_port(name, source, edits):
     return port
 
 
-def run_probe(this, other, cuda, report):
-    """Fills `report["probe"]` with the time of this checkout's M on the
-    bucket (gap-chain branch) and on M's generic row, and of its E on the
-    bucket and the caller batch, beside each PROBES variant of that kernel
-    timed in turn (this, the variants, this again); and whether each
-    variant's outputs equal this checkout's."""
-    import torch
-
+def probe_cases(this, cuda, kernels):
+    """{kernel: {case: wrapper arguments}} for the probe group's kernels
+    of `kernels`: M on the bucket (gap-chain branch) and on M's generic
+    row, E on the bucket and the caller batch, K1 on the guide batch, D on
+    the bucket."""
     fc = sub(this, "ops.fb_circ_cuda")
     fcirc = sub(this, "ops.fb_circ")
     fb = sub(this, "ops.fb")
@@ -495,37 +639,58 @@ def run_probe(this, other, cuda, report):
     coef, chain = fcirc.circ_coefficients(tables)
     ematch = tables.Ematch.cpu().numpy().reshape(-1)
     wp = band.padded_band_width(21)
-    rng = np.random.default_rng(5)
-    dev = compact(this, *pairs(rng, BUCKET_LANES, BUCKET_STEPS, 240), 21,
-                  BUCKET_STEPS, cuda)
+    bucket, caller, guide = fused_pairs()
+    cases = {}
+    if "banded_nw" in kernels:
+        cases["banded_nw"] = {"guide": guide_nw_args(this, guide, 40, cuda)}
+    if "mea_dl" in kernels:
+        cases["mea_dl"] = {"bucket": bucket_dl_args(this, bucket, 21, cuda)}
+    if "mw_forward" not in kernels and "expand_streams" not in kernels:
+        return cases
+    dev = compact(this, *bucket, 21, BUCKET_STEPS, cuda)
     eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, wp,
              BUCKET_STEPS, False)
     es = fc.expand_streams_cuda(*eargs)[0]
     fr, frr, lom = band.circ_mw_streams(dev.lo, 21, wp, BUCKET_STEPS)
-    cdev = compact(this, *pairs(rng, CALLER_UNIQUE, CALLER_STEPS, 16), 21,
-                   CALLER_STEPS, cuda, repeat=CALLER_LANES // CALLER_UNIQUE)
+    cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
+                   repeat=CALLER_LANES // CALLER_UNIQUE)
 
     def cut(t):
         return t[..., :M_GENERIC_LANES].contiguous()
 
     gcoef, gchain = fcirc.circ_coefficients(generic_tables(fb, model))
-    cases = {"mw_forward": {
+    cases["mw_forward"] = {
         "chain": (coef, chain, es, fr, frr, lom, *fc.sv_backward_cuda(
             coef, chain, es, dev.fink, dev.final_d)),
         "generic": (gcoef, gchain, cut(es), cut(fr), cut(frr), cut(lom),
                     *fc.sv_backward_cuda(gcoef, gchain, cut(es),
-                                         cut(dev.fink), cut(dev.final_d)))},
-        "expand_streams": {
+                                         cut(dev.fink), cut(dev.final_d)))}
+    cases["expand_streams"] = {
         "bucket": eargs,
         "caller": (ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n,
-                   21, wp, CALLER_STEPS, True)}}
+                   21, wp, CALLER_STEPS, True)}
+    return {k: v for k, v in cases.items() if k in kernels}
+
+
+def run_probe(this, other, cuda, report, kernels=None):
+    """Fills `report["probe"]` with the time of this checkout's kernels of
+    `kernels` (every kernel PROBES varies when None) on their probe cases
+    (`probe_cases`), beside each PROBES variant of that kernel timed in
+    turn (this, the variants, this again); and whether each variant's
+    outputs equal this checkout's."""
+    import torch
+
+    kernels = kernels or tuple(dict.fromkeys(k for k, _, _ in
+                                             PROBES.values()))
+    cases = probe_cases(this, cuda, kernels)
     variants = {name: (kernel, sub(probe_port(name, source, edits),
-                                   "ops.fb_circ_cuda"))
-                for name, (kernel, source, edits) in PROBES.items()}
+                                   KERNEL_MODULES[kernel]))
+                for name, (kernel, source, edits) in PROBES.items()
+                if kernel in kernels}
     rows = {}
     for kernel, kcases in cases.items():
         for case, args in kcases.items():
-            fn = getattr(fc, kernel + "_cuda")
+            fn = getattr(sub(this, KERNEL_MODULES[kernel]), kernel + "_cuda")
             want = outputs(fn(*args))
             row = {"kernel": kernel, "shape": list(want[0].shape),
                    "this_ms_runs": [time_ms(lambda: fn(*args))]}
@@ -559,8 +724,13 @@ def card():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
 
 
-GROUPS = ("fused", "probe", "counts")
-DEFAULT_GROUPS = ("fused", "counts")
+GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "counts")
+DEFAULT_GROUPS = ("fused", "wavefront", "counts")
+# The module of the port that holds each probed kernel's wrapper.
+KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
+                  "expand_streams": "ops.fb_circ_cuda",
+                  "banded_nw": "ops.wavefront_cuda",
+                  "mea_dl": "ops.wavefront_cuda"}
 # The probe group's variants: name -> (the kernel it varies, its source
 # under csrc/, edits (old, new) of that source).
 _LANES_AT = "  *lanes = wide ? 16 : 8;"
@@ -588,6 +758,7 @@ _M_PARTS = {
     "no_barrier": [("    mk::cp_async_wait();\n    __syncthreads();\n",
                     "    mk::cp_async_wait();\n    if (t < 2) __syncthreads();"
                     "\n")],
+
     # No shuffles for the rolls (one row a thread).
     "no_roll": [("    out[0] = __shfl_sync(mk::FULL, v[0], kk == 0 ? Wp - 1 : "
                  "kk - 1);", "    out[0] = v[0];")],
@@ -597,6 +768,54 @@ _M_PARTS = {
                 ("        alpha = expf(ls + rec.bls - lz);",
                  "        alpha = lz;")],
 }
+# K1 and D: probe tag -> (kernel, source, its pipeline depth constant and
+# the depth it ships with).
+_WAVE = {"nw": ("banded_nw", "nw.cu", "NW_STAGES", 2,
+                "    if (t < tiles)\n      nw_stage<LPB>", None),
+         "dl": ("mea_dl", "mea.cu", "DL_STAGES", 2,
+                "    if (t < tiles) {\n      dl_stage_post<LPB>",
+                "    if (regular) {")}
+
+
+def _wave_parts(source, stages, default, staging, unrolled):
+    """K1's or D's variants, {part: (source, edits)}: other pipeline depths
+    (tiles in shared memory), D with every tile through the rolled loop,
+    and with one part removed (outputs wrong by design): no device memory
+    after the first tiles (later tiles compute on the stage buffers as they
+    are, no pointers leave), no block barrier after the first two tiles, no
+    row shuffles (csrc/common.cuh `WarpRows::roll` leaves rows in place, so
+    K1 and D of that copy both change)."""
+    depth = "constexpr int %s = %d;" % (stages, default)
+    rolled = {"rolled": (source, [(unrolled, "    if (false) {")])} \
+        if unrolled else {}
+    return {
+        **rolled,
+        **{"stages_%d" % n: (source, [
+            (depth, "constexpr int %s = %d;" % (stages, n))])
+           for n in (2, 3, 4, 6) if n != default},
+        "no_global": (source, [
+            (staging, staging.replace("t < tiles",
+                                      "t < min(tiles, %s)" % stages)),
+            ("    if (t > 0) flush(t - 1);\n    stage(t + %s - 1);" % stages,
+             "    if (t > 0 && t < 3) flush(t - 1);\n    stage(t + %s - 1);"
+             % stages)]),
+        "no_barrier": (source, [
+            ("    mk::cp_async_wait_but<%s - 2>();\n    __syncthreads();"
+             % stages,
+             "    mk::cp_async_wait_but<%s - 2>();\n    if (t < 2) "
+             "__syncthreads();" % stages)]),
+        "no_shift": ("common.cuh", [
+            ("  __device__ void roll(const T (&v)[RPT], T (&out)[RPT], int t) "
+             "const {\n",
+             "  __device__ void roll(const T (&v)[RPT], T (&out)[RPT], int t) "
+             "const {\n    for (int r = 0; r < RPT; ++r) out[r] = v[r];\n"
+             "    if (RPT > 0) return;\n")]),
+    }
+
+
+_NW_LANES_CASE = "    case 8: *kernel = nw_kernel_rpt<8>(Wp); break;"
+_NW_LANES_AT = ("      mk::warp_lanes(B, [Wp](int l) { return nw_smem(Wp, l); "
+                "}, lanes);")
 PROBES = {
     **{name: ("mw_forward", "fb_circ.cu", edits)
        for name, edits in _M_PARTS.items()},
@@ -605,6 +824,20 @@ PROBES = {
     "direct": ("expand_streams", "expand.cu",
                [("  const int wmax = e_streams_window(Wp);",
                  "  const int wmax = 0;")]),
+    # K1 with n lanes a block whatever B (4 with an instance of its own).
+    **{"nw_lanes_%d" % n: ("banded_nw", "nw.cu", [
+        (_NW_LANES_AT, "      (*lanes = %d, cudaSuccess);" % n)] + ([
+        (_NW_LANES_CASE, "    case 4: *kernel = nw_kernel_rpt<4>(Wp); "
+         "break;\n" + _NW_LANES_CASE)] if n == 4 else []))
+       for n in (4, 8, 16)},
+    # D with both gap-weight windows loaded from the sums at every
+    # diagonal (2 Wp scattered loads a lane-diagonal), no delay line.
+    "dl_direct": ("mea_dl", "mea.cu",
+                  [("    if (!REGULAR && ((d == 1) | ((t1 != 0) & (t1 != 1)))) "
+                    "seed(d, l0);", "    seed(d, l0);")]),
+    **{"%s_%s" % (tag, part): (kernel, where, edits)
+       for tag, (kernel, source, *depth) in _WAVE.items()
+       for part, (where, edits) in _wave_parts(source, *depth).items()},
 }
 
 
@@ -804,7 +1037,10 @@ def estep(this_fn, other_fn):
             "other_iterations_100_s": 100 * o}
 
 
-RUNS = {"fused": run_fused, "probe": run_probe, "counts": run_counts}
+RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
+        "probe_wavefront": lambda *a: run_probe(
+            *a, kernels=("banded_nw", "mea_dl")),
+        "counts": run_counts}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

@@ -1,16 +1,24 @@
 // Shared layout helpers for the banded anti-diagonal wavefront kernels.
 //
 // Every band array is C-contiguous [D1, Wp, B]: anti-diagonal d, band row k,
-// lane (read) b, exactly the JAX package's layout.  A block owns LANES
-// consecutive lanes (threadIdx.x, so loads of [d, k, b:b+LANES] coalesce)
-// and all Wp band rows of them (threadIdx.y, RPT rows per thread when Wp
-// exceeds 32).  The anti-diagonal loop runs inside the block; the band's
-// 0/+-1 row shifts between diagonals go through shared memory with one
-// barrier per diagonal.
+// lane (read) b, exactly the JAX package's layout.  Two layouts of a block:
+//   block per 32 lanes: a block owns LANES consecutive lanes (threadIdx.x,
+//     so loads of [d, k, b:b+LANES] coalesce) and all Wp band rows of them
+//     (threadIdx.y, RPT rows per thread when Wp exceeds 32); the band's
+//     0/+-1 row shifts between diagonals go through shared memory with one
+//     barrier per diagonal;
+//   warp per lane (M, K1, D): the lane's band rows on the threads of its
+//     warp, RPT rows a thread (row k = kk + 32 r on thread kk in M,
+//     k = RPT kk + r in K1 and D, `WarpRows`), so a row shift is a warp
+//     shuffle and a diagonal needs no block barrier; the block stages a
+//     tile of diagonals of its lanes in shared memory (cp.async) and
+//     writes its outputs from there, one barrier per tile.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
 
 namespace mk {
 
@@ -115,8 +123,147 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Waits until at most N of this thread's newest groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait_but() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 constexpr unsigned FULL = 0xffffffffu;  // every thread of a warp
+
+// ------------------------------------------------ warp per lane: rows
+
+// The band rows of a warp-per-lane kernel with RPT consecutive rows a
+// thread (K1, D): row k = RPT kk + r on thread kk, so a one-row move of
+// the band stays in the thread's registers but for one edge row, which a
+// single shuffle brings from the neighbouring thread.  The band wraps
+// circularly at Wp: row Wp - 1 moves up to row 0 and row 0 down to row
+// Wp - 1, through the same shuffle (source lanes chosen once).
+template <int RPT>
+struct WarpRows {
+  int kk;      // this thread's lane in the warp
+  int up_src;  // the lane whose first row follows this thread's last
+  int dn_src;  // the lane whose row precedes this thread's first
+  int top;     // this thread's last band row r (row Wp - 1's on the
+               // thread holding it): the next lane's first row (row 0)
+               // follows it, and it is the row this thread sends down
+
+  __device__ explicit WarpRows(int Wp) : kk(threadIdx.x & 31) {
+    const int last = (Wp - 1) / RPT, rlast = (Wp - 1) % RPT;
+    up_src = kk == last ? 0 : (kk + 1) & 31;
+    dn_src = kk == 0 ? last : kk - 1;
+    top = kk == last ? rlast : RPT - 1;
+  }
+
+  __device__ int row(int r) const { return RPT * kk + r; }
+
+  // out[r] = v at row k + t for t in {-1, 0, 1}, the same on every thread
+  // of the warp; branch-free (a branch on a stream's value would cost the
+  // warp a convergence barrier per move).
+  template <class T>
+  __device__ void roll(const T (&v)[RPT], T (&out)[RPT], int t) const {
+    T down = v[RPT - 1];
+#pragma unroll
+    for (int r = 0; r < RPT - 1; ++r) down = top == r ? v[r] : down;
+    const T edge = __shfl_sync(FULL, t > 0 ? v[0] : down,
+                               t > 0 ? up_src : (t < 0 ? dn_src : kk));
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const T up = (r == top) | (r == RPT - 1) ? edge
+                                               : v[r + 1 < RPT ? r + 1 : r];
+      const T dn = r == 0 ? edge : v[r > 0 ? r - 1 : r];
+      out[r] = t > 0 ? up : (t < 0 ? dn : v[r]);
+    }
+  }
+};
+
+// The one-row moves of a wavefront's reads of generation d - 1 (the plain
+// versions' ops/fb.py `shift(a, t)`: row k + t for t = +-1, in place for
+// any other t).  The left / Ix read takes shift s1 and the up / Iy read
+// s1 - 1, so for every s1 at most one of the two moves, by `by` rows:
+// `left` (s1 = +-1) or `up` (s1 = 0 or 2).  (Conditions on the diagonal
+// loops' paths use & and | on bools: nvcc turns a short-circuit && / ||
+// there into branches.)
+struct GapMove {
+  bool left, up;
+  int by;
+  __device__ explicit GapMove(int s1)
+      : left((s1 == 1) | (s1 == -1)), up((s1 == 0) | (s1 == 2)),
+        by(left ? s1 : (up ? s1 - 1 : 0)) {}
+};
+
+// The move of the diag / match read of generation d - 2, shift s2 - 1.
+__device__ __forceinline__ int diag_move(int s2) {
+  return (s2 == 0) | (s2 == 2) ? s2 - 1 : 0;
+}
+
+// ----------------------------------------- warp per lane: byte tiles
+//
+// A tile of a [D1, Wp, B] byte array (K1's codes and valid band, K1's and
+// D's pointers) in shared memory keeps the block's LPB lanes fastest: row
+// q = kb * Wp + k at bytes [q * byte_stride(LPB), + LPB), so one 4-byte copy
+// moves four lanes of a row.  The stride is an odd number of words, so a
+// warp reading one row a thread of its own lane touches 32 banks (two
+// rows a thread: two-way conflicts).  `vec` says that B
+// and the array's address are multiples of 4: rows then move as words
+// (cp.async in, plain stores out), else byte by byte through registers.
+
+__host__ __device__ constexpr int byte_stride(int lpb) {
+  return 4 * ((lpb / 4) | 1);
+}
+
+// Starts copying rows r0 .. r0 + nrows - 1 of the [rows, B] byte array src,
+// lanes b0 .. b0 + LPB - 1, into the tile at dst (the caller commits).
+template <int LPB>
+__device__ __forceinline__ void stage_bytes(uint8_t* dst, const void* src,
+                                            size_t r0, int nrows, int b0,
+                                            int B, bool vec) {
+  constexpr int S = byte_stride(LPB), W = LPB / 4;
+  const uint8_t* s = static_cast<const uint8_t*>(src) + r0 * B + b0;
+  if (vec) {
+    for (int q = threadIdx.x; q < nrows * W; q += 32 * LPB) {
+      const int row = q / W, c = 4 * (q - row * W);
+      if (b0 + c < B) cp_async4(dst + row * S + c, s + (size_t)row * B + c);
+    }
+  } else {
+    for (int q = threadIdx.x; q < nrows * LPB; q += 32 * LPB) {
+      const int row = q / LPB, w = q - row * LPB;
+      if (b0 + w < B) dst[row * S + w] = s[(size_t)row * B + w];
+    }
+  }
+}
+
+// Writes the tile at src to rows r0 .. r0 + nrows - 1 of dst, as
+// stage_bytes reads them.
+template <int LPB>
+__device__ __forceinline__ void flush_bytes(uint8_t* dst, const uint8_t* src,
+                                            size_t r0, int nrows, int b0,
+                                            int B, bool vec) {
+  constexpr int S = byte_stride(LPB), W = LPB / 4;
+  uint8_t* d = dst + r0 * B + b0;
+  if (vec) {
+    for (int q = threadIdx.x; q < nrows * W; q += 32 * LPB) {
+      const int row = q / W, c = 4 * (q - row * W);
+      if (b0 + c < B)
+        *reinterpret_cast<uint32_t*>(d + (size_t)row * B + c) =
+            *reinterpret_cast<const uint32_t*>(src + row * S + c);
+    }
+  } else {
+    for (int q = threadIdx.x; q < nrows * LPB; q += 32 * LPB) {
+      const int row = q / LPB, w = q - row * LPB;
+      if (b0 + w < B) d[(size_t)row * B + w] = src[row * S + w];
+    }
+  }
+}
+
+// True where every pointer is 4-byte aligned and B a multiple of 4: the
+// byte tiles' `vec`.
+inline bool words_aligned(int B, std::initializer_list<const void*> ptrs) {
+  if (B % 4) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 4) return false;
+  return true;
+}
 
 // Opt in to more than the default 48 KB of dynamic shared memory.
 inline cudaError_t allow_smem(const void* fn, size_t bytes) {
@@ -146,6 +293,28 @@ inline cudaError_t kernel_info(const void* kernel, size_t smem, int threads,
   out[2] = blocks;
   out[3] = threads;
   out[4] = (int)a.localSizeBytes;
+  return cudaSuccess;
+}
+
+// The lanes a block (16 or 8) of K1's and D's warp-per-lane kernels over B
+// lanes on the current device: 16 where that block fits shared memory
+// (smem(lanes) bytes) and every SM still gets one (B >= 16 x SMs), else 8,
+// as M takes them (csrc/fb_circ.cu `mw_lanes`).  A block copies LPB lanes
+// of a row at a time, and K1 at 4 lanes (4-byte pieces) ran slower than
+// at 8 even where 8 leave SMs idle (kernel_ab.py's probe group).
+template <class Smem>
+inline cudaError_t warp_lanes(int B, Smem smem, int* lanes) {
+  int dev = 0, sms = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  const bool wide = smem(16) <= (size_t)cap && B >= 16 * sms;
+  if (!wide && smem(8) > (size_t)cap) return cudaErrorInvalidValue;
+  *lanes = wide ? 16 : 8;
   return cudaSuccess;
 }
 

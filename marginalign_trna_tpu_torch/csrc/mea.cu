@@ -2,7 +2,7 @@
 // diagonal (posterior match weight), left (ref-skip) and up (read-skip)
 // moves, with pointers 0 = diag, 1 = left, 2 = up.
 //
-// One wavefront, two weight sources and two lane layouts:
+// One recursion, two weight sources and two lane layouts:
 //   banded_mea (K4) <- marginalign_trna_tpu/ops/wavefront_pallas.py
 //                      `_mea_kernel` (`banded_mea_pallas`): the weights come
 //                      materialised as three [D1, Wp, B] bands, with the
@@ -25,34 +25,49 @@
 //                        wup   = i >= 1 ? gapGamma * clip(1 - accr[i-1]) : 0
 //                        wleft = j >= 1 ? gapGamma * clip(1 - accc[j-1]) : 0
 //                      (i = lo(d) + k, j = d - i; indices clipped to the
-//                      sums' rows), and valid, s1, s2 from lo, m, n, width.
-// The TPU kernel of D carries the band windows of gap weights in VMEM and
-// shifts one entering value in per diagonal (a delay line seeded at d = 0),
-// because per-lane gathers scalarise there.  On the card each weight is a
-// direct load of accr / accc at the cell's own read / ref position; the
-// window the delay line holds is exactly that closed form on every cell
-// with i >= 0 and j >= 0 (rows i = 0 and j <= 0 hold 0), and the DP reads
-// weights only where valid.
+//                      sums' last rows), and valid, s1, s2 from lo, m, n,
+//                      width.
 // Same arithmetic as the TPU kernels: no normalisation, circular row
 // shifts, first-max-wins ties in the order diag, left, up, and the terminal
 // score read at (final_d, final_k) as max(value, NEG).
 //
 // What bounds them on an H100: K4 streams 13 B per cell (three f32 weight
 // bands and the valid byte in, one pointer byte out), D 5 B (the posterior
-// and the pointer; the sums are [len, B], re-read from cache) against ~6
-// adds and compares (D ~15 with its masks), so at full occupancy they would
-// be bound by device memory; at the main path's batch sizes the chain of D1
-// dependent diagonals, one block barrier each, bounds them first.  The
-// design keeps the score frontier (three generations, d mod 3) in shared
-// memory and fetches the next diagonal's weights while the current one
-// computes.
+// and the pointer) against ~6 adds and compares (D ~15 with its masks), so
+// at full occupancy they would be bound by device memory; before that, the
+// chain of D1 dependent diagonals and how many chains run at once.
+//   K4 and mea_multi run a block per 32 lanes (common.cuh): the score
+//     frontier (three generations, d mod 3) in shared memory, one barrier a
+//     diagonal, the next diagonal's weights fetched while the current one
+//     computes.
+//   D runs one warp per lane (common.cuh), as the TPU kernel's delay line
+//     asks: both score generations and the two band windows of gap weights
+//     stay in registers.  Where the band's lower edge steps (s1 = 1) the up
+//     window rolls up one row and the closed-form weight of read row
+//     lo(d) + Wp - 1 enters at the top; where it does not (s1 = 0) the left
+//     window rolls down and that of ref column d - lo(d) enters at row 0;
+//     every other row keeps its position's weight, so the window holds the
+//     closed form on every row (rows i = 0 and j <= 0 and the clips
+//     included), seeded from it at d = 1 (and wherever lo moves by other
+//     than 0 or 1).  That is two scattered loads of the sums a
+//     lane-diagonal, copied with the tile's posterior, instead of 2 Wp.  A
+//     block of 8 or 16 lanes stages 8 diagonals of the posterior, the
+//     entering sums and lo by cp.async while it computes the previous 8,
+//     its pointers leaving through shared memory: one barrier per 8
+//     diagonals.  On an H100 at [3072, 24, 4096] that took 2.26 ms against
+//     a 0.48 ms byte bound (kernel_ab.py): the warps' serial chains of
+//     instructions a diagonal (without the row shuffles 33% faster,
+//     without device memory 17%); loading every gap weight from the sums
+//     instead of the delay line took 1.8x as long.
 #include "common.cuh"
 
 namespace {
 
 using mk::NEG;
 
-// K4's weights: materialised bands.
+// ------------------------------------------ K4, mea_multi: block per lanes
+
+// The weights as materialised bands.
 struct BandWeights {
   const float* __restrict__ wdiag;
   const float* __restrict__ wup;
@@ -76,40 +91,6 @@ struct BandWeights {
   }
 };
 
-// D's weights: the posterior band and the per-position sums.
-struct PosteriorWeights {
-  const float* __restrict__ post;
-  const int32_t* __restrict__ lo;
-  const int32_t* __restrict__ m;
-  const int32_t* __restrict__ n;
-  const float* __restrict__ accr;
-  const float* __restrict__ accc;
-  int Wp, B, width, rgm, rgn;
-  float gap_gamma, match_gamma;
-
-  __device__ float gap(float sum) const {
-    return gap_gamma * fminf(fmaxf(1.f - sum, 0.f), 1.f);
-  }
-  // d >= 1 (the wavefront never fetches d = 0).
-  __device__ void steps(int d, int b, int& t1, int& t2) const {
-    const int l0 = lo[(size_t)d * B + b];
-    t1 = l0 - lo[(size_t)(d - 1) * B + b];
-    t2 = d >= 2 ? l0 - lo[(size_t)(d - 2) * B + b] : 0;
-  }
-  __device__ void cell(int d, int k, int b, float& wd, float& wu, float& wl,
-                       uint8_t& v) const {
-    const int i = lo[(size_t)d * B + b] + k;
-    const int j = d - i;
-    const int mb = m[b], nb = n[b];
-    v = k < width && i >= 0 && i <= mb && i <= d && j >= 0 && j <= nb &&
-        mb + nb > 0;
-    const float p = post[mk::cell(d, k, b, Wp, B)];
-    wd = p >= match_gamma && p > 0.f ? p : NEG;
-    wu = i >= 1 ? gap(accr[(size_t)min(i - 1, rgm - 1) * B + b]) : 0.f;
-    wl = j >= 1 ? gap(accc[(size_t)min(j - 1, rgn - 1) * B + b]) : 0.f;
-  }
-};
-
 // The per-diagonal streams of multi-problem lanes (mea_multi): start
 // [D1, B] int8, fink / find [D1, B] int32 (-1 off terminal diagonals), and
 // the terminal scores term [D1, B] it writes.
@@ -120,9 +101,9 @@ struct MultiSteps {
   float* __restrict__ term;
 };
 
-template <int RPT, class W, bool MULTI>
+template <int RPT, bool MULTI>
 __global__ void __launch_bounds__(1024)
-    mea_kernel(W w, const int32_t* __restrict__ final_d,
+    mea_kernel(BandWeights w, const int32_t* __restrict__ final_d,
                const int32_t* __restrict__ final_k, MultiSteps ms, int D1,
                int Wp, int B, uint8_t* __restrict__ ptr,
                float* __restrict__ score) {
@@ -228,25 +209,23 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <int RPT, bool MULTI, class W>
-cudaError_t run(const W& w, const int32_t* final_d, const int32_t* final_k,
-                const MultiSteps& ms, int D1, int Wp, int B, uint8_t* ptr,
-                float* score, cudaStream_t stream) {
+template <int RPT, bool MULTI>
+cudaError_t run(const BandWeights& w, const int32_t* final_d,
+                const int32_t* final_k, const MultiSteps& ms, int D1, int Wp,
+                int B, uint8_t* ptr, float* score, cudaStream_t stream) {
   const size_t smem = (size_t)3 * Wp * mk::LANES * sizeof(float);
-  cudaError_t err =
-      mk::allow_smem((const void*)mea_kernel<RPT, W, MULTI>, smem);
+  cudaError_t err = mk::allow_smem((const void*)mea_kernel<RPT, MULTI>, smem);
   if (err != cudaSuccess) return err;
-  mea_kernel<RPT, W, MULTI><<<mk::grid_shape(B), mk::block_shape(Wp), smem,
-                              stream>>>(w, final_d, final_k, ms, D1, Wp, B,
-                                        ptr, score);
+  mea_kernel<RPT, MULTI><<<mk::grid_shape(B), mk::block_shape(Wp), smem,
+                           stream>>>(w, final_d, final_k, ms, D1, Wp, B, ptr,
+                                     score);
   return cudaGetLastError();
 }
 
-template <bool MULTI = false, class W>
-int dispatch(const W& w, const int32_t* final_d, const int32_t* final_k,
-             int D1, int Wp, int B, uint8_t* ptr, float* score, void* stream,
-             const MultiSteps& ms = MultiSteps{nullptr, nullptr, nullptr,
-                                               nullptr}) {
+template <bool MULTI>
+int dispatch(const BandWeights& w, const int32_t* final_d,
+             const int32_t* final_k, const MultiSteps& ms, int D1, int Wp,
+             int B, uint8_t* ptr, float* score, void* stream) {
   if (D1 < 1 || B < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (mk::rows_per_thread(Wp)) {
@@ -256,6 +235,375 @@ int dispatch(const W& w, const int32_t* final_d, const int32_t* final_k,
     case 4: return run<4, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ------------------------------------------------------ D: warp per lane
+
+constexpr int DL_KT = 8;      // diagonals a tile
+constexpr int DL_STAGES = 2;  // tiles in shared memory: 1 computed, 1 in flight
+
+// The posterior sums and what the gap weights take from them.
+struct DlSums {
+  const float* __restrict__ accr;  // [rgm, B], read positions
+  const float* __restrict__ accc;  // [rgn, B], ref positions
+  int B, rgm, rgn;
+  float gap_gamma;
+
+  __device__ float gap(float sum) const {
+    return gap_gamma * fminf(fmaxf(1.f - sum, 0.f), 1.f);
+  }
+  // The sums behind wup at read row i (i >= 1) and wleft at ref column j
+  // (j >= 1), clipped to the last rows.
+  __device__ const float* row_sum(int i, int b) const {
+    return accr + (size_t)min(i - 1, rgm - 1) * B + b;
+  }
+  __device__ const float* col_sum(int j, int b) const {
+    return accc + (size_t)min(j - 1, rgn - 1) * B + b;
+  }
+  __device__ float wup(int i, int b) const {
+    return i >= 1 ? gap(*row_sum(i, b)) : 0.f;
+  }
+  __device__ float wleft(int j, int b) const {
+    return j >= 1 ? gap(*col_sum(j, b)) : 0.f;
+  }
+};
+
+// Shared memory of a block, a ring of DL_STAGES tiles: posterior tiles
+// [LPB][dl_stride(Wp)] (lane w's row k of tile diagonal kb at w * stride +
+// kb * Wp + k: a warp reads its lane's rows without bank conflicts), the
+// sums entering at each diagonal [LPB][DL_KT][2] (read row lo(d) + Wp - 1,
+// ref column d - lo(d)); lo tiles [DL_LO][LPB][DL_KT], staged DL_STAGES - 1
+// tiles ahead of the posterior because the entering sums' addresses come
+// from lo; and two pointer tiles (mk::byte_stride's layout).
+constexpr int DL_LO = 2 * DL_STAGES - 1;
+__host__ __device__ inline int dl_stride(int Wp) { return DL_KT * Wp + 1; }
+__host__ __device__ inline size_t dl_post_floats(int Wp, int lpb) {
+  return (size_t)lpb * dl_stride(Wp);
+}
+__host__ __device__ inline size_t dl_plane(int Wp, int lpb) {
+  return (size_t)DL_KT * Wp * mk::byte_stride(lpb);
+}
+inline size_t dl_smem(int Wp, int lpb) {
+  return (DL_STAGES * (dl_post_floats(Wp, lpb) + 2 * lpb * DL_KT) +
+          DL_LO * lpb * DL_KT) * sizeof(float) +
+         2 * dl_plane(Wp, lpb);
+}
+
+// Starts the copy of the posterior rows of diagonals d0 .. d0 + n - 1 of
+// the block's lanes into dst: thread tid copies lane tid % LPB of rows
+// tid / LPB + 32 i, so a warp moves 32 / LPB rows of LPB lanes a step.
+template <int LPB>
+__device__ __forceinline__ void dl_stage_post(float* dst,
+                                              const float* __restrict__ post,
+                                              int d0, int n, int b0, int Wp,
+                                              int B) {
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b >= B) return;
+  const size_t g = (size_t)d0 * Wp * B + b;
+  float* s = dst + w * dl_stride(Wp);
+  for (int r = threadIdx.x / LPB; r < n * Wp; r += 32)
+    mk::cp_async4(s + r, post + g + (size_t)r * B);
+}
+
+// Starts the copy of lo at diagonals d0 .. d0 + n - 1 into dst [LPB][DL_KT].
+template <int LPB>
+__device__ __forceinline__ void dl_stage_lo(int32_t* dst,
+                                            const int32_t* __restrict__ lo,
+                                            int d0, int n, int b0, int B) {
+  const int w = threadIdx.x % LPB, kb = threadIdx.x / LPB;
+  if (kb < n && b0 + w < B)
+    mk::cp_async4(dst + w * DL_KT + kb, lo + (size_t)(d0 + kb) * B + b0 + w);
+}
+
+// Starts the copy of the sums entering at diagonals d0 .. d0 + n - 1 (lo at
+// them in los, landed) into dst [LPB][DL_KT][2]; a position that does not
+// exist (i < 1 or j < 1) copies nothing.
+template <int LPB>
+__device__ __forceinline__ void dl_stage_entering(float* dst,
+                                                  const int32_t* los, int d0,
+                                                  int n, int b0, int Wp,
+                                                  const DlSums& S) {
+  const int w = threadIdx.x % LPB, kb = threadIdx.x / LPB, b = b0 + w;
+  if (kb >= n || b >= S.B) return;
+  const int l = los[w * DL_KT + kb];
+  const int i = l + Wp - 1, j = d0 + kb - l;
+  float* e = dst + 2 * (w * DL_KT + kb);
+  if (i >= 1) mk::cp_async4(e, S.row_sum(i, b));
+  if (j >= 1) mk::cp_async4(e + 1, S.col_sum(j, b));
+}
+
+// The decode of one lane (rows as mk::WarpRows).  Each diagonal's inputs
+// are read from the stage buffers one diagonal ahead, and at one row a
+// thread (Wp <= 32) tiles whose band edge moves by 0 or 1 row a diagonal
+// run unrolled with no branch, so that a warp's chain of dependent
+// diagonals holds only the shuffles and the arithmetic (wider bands
+// spilled registers unrolled and take the rolled loop).
+template <int RPT, int LPB>
+struct DlWarp {
+  static constexpr int SB = mk::byte_stride(LPB);
+  // One diagonal's inputs (rows past the band read row Wp - 1: their
+  // results are never read).
+  struct In {
+    float p[RPT];
+    int l0;
+  };
+  DlSums S;
+  mk::WarpRows<RPT> rows;
+  int Wp, kk, b, width, mb, nb, fd, fk;
+  float mg;
+  int lo1 = 0, lo2 = 0;    // lo at d - 1, d - 2
+  float a1[RPT], a2[RPT];  // scores of d - 1, d - 2
+  float wu[RPT], wl[RPT];  // the gap-weight windows at d - 1
+  float tscore = NEG;      // the score at the terminal
+  bool hit = false;        // whether this thread holds it
+
+  __device__ DlWarp(const DlSums& S_, int Wp_, int b_, int width_, int mb_,
+                    int nb_, int fd_, int fk_, float mg_)
+      : S(S_), rows(Wp_), Wp(Wp_), kk(threadIdx.x & 31), b(b_),
+        width(width_), mb(mb_), nb(nb_), fd(fd_), fk(fk_), mg(mg_) {}
+
+  __device__ int row(int r) const { return rows.row(r); }
+
+  __device__ In load(const float* post, const int32_t* los, int kb) const {
+    In a;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      a.p[r] = post[kb * Wp + min(row(r), Wp - 1)];
+    a.l0 = los[kb];
+    return a;
+  }
+
+  // Diagonals d0 .. d0 + n - 1 of lane w: posterior rows from post (lane
+  // w's row of the tile), lo from los, the entering sums from ent (lane
+  // w's), pointers into the tile out.
+  __device__ void tile(const float* post, const int32_t* los,
+                       const float* ent, uint8_t* out, int w, int d0, int n) {
+    // Thread kk holds the weights entering at tile diagonal kk, and checks
+    // that lo moves by 0 or 1 there.
+    int t1 = 0;
+    float erw = 0.f, ecw = 0.f;
+    if (kk < n) {
+      const int l = los[kk];
+      erw = l + Wp - 1 >= 1 ? S.gap(ent[2 * kk]) : 0.f;
+      ecw = d0 + kk - l >= 1 ? S.gap(ent[2 * kk + 1]) : 0.f;
+      t1 = l - (kk == 0 ? lo1 : los[kk - 1]);
+    }
+    const bool regular = (RPT == 1) & (d0 > 0) & (n == DL_KT) &
+                         __all_sync(mk::FULL, (t1 == 0) | (t1 == 1));
+    int kb = 0;
+    if (d0 == 0) {
+      // d = 0 is pure initialisation: 0 at row 0; d - 1 holds NEG.
+      float na[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        na[r] = row(r) == 0 ? 0.f : NEG;
+        a2[r] = NEG;
+        if (row(r) < Wp) out[row(r) * SB + w] = 0;
+      }
+      publish(0, na, los[0]);
+      kb = 1;
+    }
+    In cur = load(post, los, kb);
+    if (regular) {
+#pragma unroll
+      for (int q = 0; q < DL_KT; ++q) {
+        const In next = load(post, los, q + 1 < DL_KT ? q + 1 : q);
+        step<true>(d0 + q, q, cur, erw, ecw, out + q * Wp * SB + w);
+        cur = next;
+      }
+    } else {
+      for (; kb < n; ++kb) {
+        const In next = load(post, los, kb + 1 < n ? kb + 1 : kb);
+        step<false>(d0 + kb, kb, cur, erw, ecw, out + kb * Wp * SB + w);
+        cur = next;
+      }
+    }
+  }
+
+  // The windows at diagonal d from the closed form.
+  __device__ void seed(int d, int l0) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int i = l0 + row(r);
+      wu[r] = S.wup(i, b);
+      wl[r] = S.wleft(d - i, b);
+    }
+  }
+
+  // Generation d >= 1 (tile row kb) from its inputs a and the entering
+  // weights of this thread's tile diagonal (erw, ecw); pointers at row k
+  // go to ptr[k * SB].  REGULAR: lo moved by 0 or 1 from d - 1 and d > 1.
+  template <bool REGULAR>
+  __device__ void step(int d, int kb, const In& a, float erw, float ecw,
+                       uint8_t* ptr) {
+    const int l0 = a.l0;
+    const int t1 = l0 - lo1, t2 = d >= 2 ? l0 - lo2 : 0;
+    // The delay line: where lo steps the up window moves up a row and
+    // read row lo(d) + Wp - 1 enters at the top, else the left window
+    // moves down and ref column d - lo(d) enters at row 0 (the entering
+    // weight shuffled from the thread that holds it).  Seeded from the
+    // closed form at d = 1 and where lo moves by other than 0 or 1.
+    const bool steps = t1 == 1;
+    float wm[RPT], wr[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) wm[r] = steps ? wu[r] : wl[r];
+    rows.roll(wm, wr, steps ? 1 : -1);
+    const float e = __shfl_sync(mk::FULL, steps ? erw : ecw, kb);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const float moved = row(r) == (steps ? Wp - 1 : 0) ? e : wr[r];
+      wu[r] = steps ? moved : wu[r];
+      wl[r] = steps ? wl[r] : moved;
+    }
+    if (!REGULAR && ((d == 1) | ((t1 != 0) & (t1 != 1)))) seed(d, l0);
+    // Diag from d - 2 at row shift s2 - 1, left (ref skip) from d - 1 at
+    // shift s1, up (read skip) at shift s1 - 1: at most one of the two
+    // moves, so d - 1 rolls once.
+    const mk::GapMove g(t1);
+    float ar[RPT], dg[RPT], na[RPT];
+    rows.roll(a1, ar, g.by);
+    rows.roll(a2, dg, mk::diag_move(t2));
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = row(r);
+      const float p = a.p[r];
+      const float wd = (p >= mg) & (p > 0.f) ? p : NEG;
+      const int i = l0 + k, j = d - i;
+      const bool v = (k < width) & (i >= 0) & (i <= mb) & (i <= d) &
+                     (j >= 0) & (j <= nb) & (mb + nb > 0);
+      const float diag = dg[r] + wd;
+      const float left = (g.left ? ar[r] : a1[r]) + wl[r];
+      const float up = (g.up ? ar[r] : a1[r]) + wu[r];
+      int am;
+      const float val = mk::max_argmax3(diag, left, up, am);
+      na[r] = v ? val : NEG;
+      if (k < Wp) ptr[k * SB] = (uint8_t)am;
+      a2[r] = a1[r];
+    }
+    publish(d, na, l0);
+  }
+
+  // Generation d becomes d - 1; the score at the lane's terminal is kept.
+  __device__ void publish(int d, const float (&na)[RPT], int l0) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      a1[r] = na[r];
+      const bool at = (d == fd) & (row(r) == fk) & (fk < Wp);
+      tscore = at ? na[r] : tscore;
+      hit = hit | at;
+    }
+    lo2 = lo1;
+    lo1 = l0;
+  }
+
+  // The lane's score, from the thread that kept it.
+  __device__ void finish(float* score) const {
+    if (hit) *score = fmaxf(tscore, NEG);
+  }
+};
+
+template <int RPT, int LPB>
+__global__ void __launch_bounds__(32 * LPB)
+    mea_dl_kernel(const float* __restrict__ post,
+                  const int32_t* __restrict__ lo,
+                  const int32_t* __restrict__ m,
+                  const int32_t* __restrict__ n, DlSums sums,
+                  const int32_t* __restrict__ final_d,
+                  const int32_t* __restrict__ final_k, int D1, int Wp,
+                  int width, float match_gamma, int vec,
+                  uint8_t* __restrict__ ptr, float* __restrict__ score) {
+  extern __shared__ __align__(16) float dl_raw[];
+  const int B = sums.B;
+  const size_t np = dl_post_floats(Wp, LPB);
+  float* ent_s = dl_raw + DL_STAGES * np;
+  int32_t* lo_s = reinterpret_cast<int32_t*>(ent_s + DL_STAGES * 2 * LPB *
+                                                         DL_KT);
+  uint8_t* out_s = reinterpret_cast<uint8_t*>(lo_s + DL_LO * LPB * DL_KT);
+  const int tiles = (D1 + DL_KT - 1) / DL_KT;
+  // Tile t's posterior and entering sums (t mod DL_STAGES), lo (t mod
+  // DL_LO) and pointers (by parity).
+  auto post_t = [&](int t) { return dl_raw + (t % DL_STAGES) * np; };
+  auto ent_t = [&](int t) {
+    return ent_s + (t % DL_STAGES) * 2 * LPB * DL_KT;
+  };
+  auto lo_t = [&](int t) { return lo_s + (t % DL_LO) * LPB * DL_KT; };
+  auto out_t = [&](int t) { return out_s + (t & 1) * dl_plane(Wp, LPB); };
+  auto count = [&](int t) { return min(DL_KT, D1 - t * DL_KT); };
+  const int w = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * LPB, b = b0 + w;
+  const bool live = b < B;  // warp-uniform
+  auto stage_lo = [&](int t) {
+    if (t < tiles)
+      dl_stage_lo<LPB>(lo_t(t), lo, t * DL_KT, count(t), b0, B);
+  };
+  // One group a tile (tile t's posterior and entering sums, whose lo has
+  // landed, and tile t + DL_STAGES - 1's lo), empty past the last, so that
+  // wait_but counts tiles.
+  auto stage = [&](int t) {
+    if (t < tiles) {
+      dl_stage_post<LPB>(post_t(t), post, t * DL_KT, count(t), b0, Wp, B);
+      dl_stage_entering<LPB>(ent_t(t), lo_t(t), t * DL_KT, count(t), b0, Wp,
+                             sums);
+    }
+    stage_lo(t + DL_STAGES - 1);
+    mk::cp_async_commit();
+  };
+  auto flush = [&](int t) {
+    mk::flush_bytes<LPB>(ptr, out_t(t), (size_t)t * DL_KT * Wp,
+                         count(t) * Wp, b0, B, vec);
+  };
+  DlWarp<RPT, LPB> lane(sums, Wp, b, width, live ? m[b] : 0,
+                        live ? n[b] : 0, live ? final_d[b] : -1,
+                        live ? final_k[b] : -1, match_gamma);
+  for (int t = 0; t < DL_STAGES - 1; ++t) stage_lo(t);
+  mk::cp_async_commit();
+  mk::cp_async_wait();
+  __syncthreads();
+  for (int t = 0; t < DL_STAGES - 1; ++t) stage(t);
+  for (int t = 0; t < tiles; ++t) {
+    // Tile t's posterior, entering sums and lo and tile t + DL_STAGES - 1's
+    // lo have landed; every warp is past tile t - 1, whose pointers leave
+    // now and whose buffers take tile t + DL_STAGES - 1.
+    mk::cp_async_wait_but<DL_STAGES - 2>();
+    __syncthreads();
+    if (t > 0) flush(t - 1);
+    stage(t + DL_STAGES - 1);
+    if (live)
+      lane.tile(post_t(t) + w * dl_stride(Wp), lo_t(t) + w * DL_KT,
+                ent_t(t) + 2 * w * DL_KT, out_t(t), w, t * DL_KT, count(t));
+  }
+  __syncthreads();
+  flush(tiles - 1);
+  if (live) lane.finish(score + b);
+}
+
+template <int LPB>
+const void* dl_kernel_rpt(int Wp) {
+  switch (mk::rows_per_thread(Wp)) {
+    case 1: return (const void*)mea_dl_kernel<1, LPB>;
+    case 2: return (const void*)mea_dl_kernel<2, LPB>;
+    case 3: return (const void*)mea_dl_kernel<3, LPB>;
+    case 4: return (const void*)mea_dl_kernel<4, LPB>;
+  }
+  return nullptr;
+}
+
+// The kernel, lanes a block (mk::warp_lanes) and shared memory of D's
+// launch at (Wp, B), its shared memory opted in.
+cudaError_t dl_setup(int Wp, int B, const void** kernel, int* lanes,
+                     size_t* smem) {
+  if (Wp < 1 || mk::rows_per_thread(Wp) > mk::MAX_RPT)
+    return cudaErrorInvalidValue;
+  cudaError_t err =
+      mk::warp_lanes(B, [Wp](int l) { return dl_smem(Wp, l); }, lanes);
+  if (err != cudaSuccess) return err;
+  switch (*lanes) {
+    case 8: *kernel = dl_kernel_rpt<8>(Wp); break;
+    case 16: *kernel = dl_kernel_rpt<16>(Wp); break;
+    default: return cudaErrorInvalidValue;
+  }
+  *smem = dl_smem(Wp, *lanes);
+  return mk::allow_smem(*kernel, *smem);
 }
 
 }  // namespace
@@ -270,7 +618,9 @@ extern "C" int banded_mea_launch(const float* wdiag, const float* wup,
                                  int B, uint8_t* ptr, float* score,
                                  void* stream) {
   const BandWeights w{wdiag, wup, wleft, valid, s1, s2, Wp, B};
-  return dispatch(w, final_d, final_k, D1, Wp, B, ptr, score, stream);
+  const MultiSteps none{nullptr, nullptr, nullptr, nullptr};
+  return dispatch<false>(w, final_d, final_k, none, D1, Wp, B, ptr, score,
+                         stream);
 }
 
 extern "C" int mea_dl_launch(const float* post, const int32_t* lo,
@@ -280,10 +630,32 @@ extern "C" int mea_dl_launch(const float* post, const int32_t* lo,
                              int D1, int Wp, int B, int width, int rgm,
                              int rgn, float gap_gamma, float match_gamma,
                              uint8_t* ptr, float* score, void* stream) {
-  if (rgm < 1 || rgn < 1) return cudaErrorInvalidValue;
-  const PosteriorWeights w{post, lo, m, n, accr, accc, Wp, B, width, rgm,
-                           rgn, gap_gamma, match_gamma};
-  return dispatch(w, final_d, final_k, D1, Wp, B, ptr, score, stream);
+  if (D1 < 1 || B < 1 || rgm < 1 || rgn < 1) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = dl_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  DlSums sums{accr, accc, B, rgm, rgn, gap_gamma};
+  int vec = mk::words_aligned(B, {ptr});
+  void* args[] = {&post, &lo,  &m,     &n,           &sums,
+                  &final_d, &final_k, &D1, &Wp, &width, &match_gamma,
+                  &vec,  &ptr, &score};
+  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes),
+                          dim3(32 * lanes), args, smem,
+                          (cudaStream_t)stream);
+}
+
+// What D's launch at band width Wp over B lanes gets on this device
+// (mk::kernel_info's out[5]; its lanes a block are out[3] / 32).
+extern "C" int mea_dl_info(int Wp, int B, int* out) {
+  if (B < 1) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = dl_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }
 
 extern "C" int mea_multi_launch(const float* wdiag, const float* wup,
@@ -294,6 +666,6 @@ extern "C" int mea_multi_launch(const float* wdiag, const float* wup,
                                 uint8_t* ptr, float* term, void* stream) {
   const BandWeights w{wdiag, wup, wleft, valid, s1, s2, Wp, B};
   const MultiSteps ms{start, fink, find, term};
-  return dispatch<true>(w, nullptr, nullptr, D1, Wp, B, ptr, nullptr, stream,
-                        ms);
+  return dispatch<true>(w, nullptr, nullptr, ms, D1, Wp, B, ptr, nullptr,
+                        stream);
 }

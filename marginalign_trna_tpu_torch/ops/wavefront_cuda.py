@@ -19,7 +19,7 @@ Pointer encodings (read by the native host tracebacks):
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -115,6 +115,18 @@ def banded_nw_cuda(params, xb, yb, valid, s1, s2, final_d, final_k):
         ptr.data_ptr(), score.data_ptr(), state.data_ptr(),
     )
     return ptr, score, state
+
+
+def warp_lane_resources(name: str, device: torch.device, wp: int,
+                        B: int) -> Dict[str, int]:
+    """What a launch of the warp-per-lane kernel `name` (banded_nw or
+    mea_dl) over B lanes at band width `wp` gets on `device`: registers per
+    thread, shared memory per block, blocks per SM, threads per block,
+    local memory per thread (spills) and the lanes a block, which
+    csrc/common.cuh `warp_lanes` chooses from B, the SM count and the
+    shared memory a block may take."""
+    res = _build.resources(name + "_info", device, wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
 def _multi_terminal(vals, fink, find):
@@ -306,19 +318,30 @@ def mea_dl_plain(post, lo, m, n, width: int, final_d, final_k, accr, accc,
     position i - 1 (0 at i = 0); wleft = gap weight of ref position j - 1
     (0 at j <= 0).  valid, s1 and s2 come from lo, m, n (ops/band.py
     `band_masks`); the DP is banded_mea_plain's."""
-    D1, Wp, B = post.shape
+    Wp = post.shape[1]
     valid, s1, s2 = band_masks(lo, m, n, width, Wp)
-    i = lo.long()[:, None, :] + torch.arange(Wp, device=post.device)[:, None]
-    j = torch.arange(D1, device=post.device)[:, None, None] - i
+    wdiag = torch.where((post >= match_gamma) & (post > 0), post, NEG)
+    return banded_mea_plain(wdiag, *mea_dl_gap_bands(lo, accr, accc,
+                                                     gap_gamma, Wp),
+                            valid, s1, s2, final_d, final_k)
+
+
+def mea_dl_gap_bands(lo, accr, accc, gap_gamma: float, Wp: int):
+    """(wup, wleft) [D1, Wp, B]: the gap weights of every band cell, the
+    closed form that the mea_dl kernel's delay line holds: wup = gap weight
+    of read position i - 1 (0 at i < 1), wleft = that of ref position j - 1
+    (0 at j < 1), positions clipped to the sums' last rows (i = lo(d) + k,
+    j = d - i)."""
+    D1, B = lo.shape
+    i = lo.long()[:, None, :] + torch.arange(Wp, device=lo.device)[:, None]
+    j = torch.arange(D1, device=lo.device)[:, None, None] - i
 
     def gap_band(sums, pos):
         g = _gap_weights(sums, gap_gamma)
         at = g.gather(0, (pos - 1).clamp(0, g.shape[0] - 1).reshape(-1, B))
         return torch.where(pos >= 1, at.reshape(D1, Wp, B), 0.0)
 
-    wdiag = torch.where((post >= match_gamma) & (post > 0), post, NEG)
-    return banded_mea_plain(wdiag, gap_band(accr, i), gap_band(accc, j),
-                            valid, s1, s2, final_d, final_k)
+    return gap_band(accr, i), gap_band(accc, j)
 
 
 def mea_dl_cuda(post, lo, m, n, width: int, final_d, final_k, accr, accc,

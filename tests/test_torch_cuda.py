@@ -818,3 +818,134 @@ def test_serial_counts_multi_on_card_match_cpu(cuda, kernel):
                  (got.emit_gap, want.emit_gap)):
         assert torch.allclose(g.cpu(), w, rtol=1e-5, atol=1e-5)
     assert (got.posteriors is None) == (kernel == "ckpt")
+
+
+# ------------------------------------------ K1 and D: one warp per lane
+
+
+def _t(cuda, a):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+
+
+def _lanes_at(cuda, lanes, aligned):
+    """A lane count at which K1 and D take `lanes` lanes a block
+    (csrc/common.cuh `warp_lanes`: 16 from 16 x the SM count on, else 8),
+    a multiple of 4 (rows copied as words) or not (byte by byte) but of no
+    block size."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    return (16 * sms if lanes == 16 else 5 * lanes) + (4 if aligned else 5)
+
+
+def _random_nw(cuda, D1, wp, B, seed):
+    """K1's inputs at random: codes 0-4, 80% valid cells, shifts s1 in
+    {-1, 0, 1, 2} and s2 in {-1, ..., 3} (every branch of the row shifts;
+    the plain version leaves rows in place for shifts other than +-1),
+    terminals on any diagonal (every fifth at d = 0) and any band row."""
+    rng = np.random.default_rng(seed)
+    final_d = rng.integers(0, D1, B).astype(np.int32)
+    final_d[::5] = 0
+    return ((1.0, -2.0, -3.0, -1.0),
+            _t(cuda, rng.integers(0, 5, (D1, wp, B)).astype(np.int8)),
+            _t(cuda, rng.integers(0, 5, (D1, wp, B)).astype(np.int8)),
+            _t(cuda, rng.random((D1, wp, B)) < 0.8),
+            _t(cuda, rng.choice([-1, 0, 1, 2], p=[.05, .45, .45, .05],
+                                size=(D1, B)).astype(np.int32)),
+            _t(cuda, rng.integers(-1, 4, (D1, B)).astype(np.int32)),
+            _t(cuda, final_d),
+            _t(cuda, rng.integers(0, wp, B).astype(np.int32)))
+
+
+def _random_dl(cuda, D1, wp, B, seed):
+    """D's inputs at random: a band whose lower edge lo steps by 0 or 1 and
+    now and then by -1 or 2 (where the kernel seeds its windows again),
+    posteriors in [0, 1) with 20% zeros, every seventh lane with m = 0 and
+    another with n = 0, sums in [0, 1.3) (the gap weight's clip) with half
+    as many rows as the band reaches (the rgm - 1 / rgn - 1 clip),
+    terminals on any diagonal (every fifth at d = 0) and any band row."""
+    rng = np.random.default_rng(seed)
+    width = wp - 3
+    step = rng.choice([-1, 0, 1, 2], p=[.03, .47, .47, .03], size=(D1, B))
+    step[0] = 0
+    lo = np.cumsum(step, axis=0) - rng.integers(0, width, B)[None, :]
+    m = rng.integers(0, D1, B).astype(np.int32)
+    n = rng.integers(0, D1, B).astype(np.int32)
+    m[1::7] = 0
+    n[2::7] = 0
+    post = rng.random((D1, wp, B)).astype(np.float32)
+    post[rng.random(post.shape) < 0.2] = 0
+    rgm, rgn = max(1, int(m.max()) // 2), max(1, int(n.max()) // 2)
+    final_d = rng.integers(0, D1, B).astype(np.int32)
+    final_d[::5] = 0
+    return (_t(cuda, post), _t(cuda, lo.astype(np.int32)), _t(cuda, m),
+            _t(cuda, n), width, _t(cuda, final_d),
+            _t(cuda, rng.integers(0, wp, B).astype(np.int32)),
+            _t(cuda, (rng.random((rgm, B)) * 1.3).astype(np.float32)),
+            _t(cuda, (rng.random((rgn, B)) * 1.3).astype(np.float32)),
+            0.5, 0.05)
+
+
+WARP_KERNELS = {
+    "banded_nw": (_random_nw, wavefront_cuda.banded_nw_cuda,
+                  wavefront_cuda.banded_nw_plain),
+    "mea_dl": (_random_dl, wavefront_cuda.mea_dl_cuda,
+               wavefront_cuda.mea_dl_plain),
+}
+
+
+def _warp_kernel_equal(cuda, name, D1, wp, B, seed):
+    make, kernel, plain = WARP_KERNELS[name]
+    args = make(cuda, D1, wp, B, seed)
+    before = _build.launch_counts[name]
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g, w), (name, D1, wp, B, i)
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1000])
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+@pytest.mark.parametrize("name", ["banded_nw", "mea_dl"])
+def test_warp_kernels_random_inputs(cuda, name, wp, B):
+    """K1 and D bit-equal to their plain versions on every cell (pointers,
+    scores, K1's final states) at every rows-a-thread count, over lane
+    counts that are no multiple of the lanes a block, 67 diagonals (a
+    partial last tile)."""
+    _warp_kernel_equal(cuda, name, 67, wp, B, seed=wp + B)
+
+
+@pytest.mark.parametrize("D1", [1, 2])
+@pytest.mark.parametrize("name", ["banded_nw", "mea_dl"])
+def test_warp_kernels_short_bands(cuda, name, D1):
+    """K1 and D over one or two diagonals (terminals at d = 0 and 1)."""
+    for wp in (24, 48):
+        _warp_kernel_equal(cuda, name, D1, wp, 33, seed=D1)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [8, 16])
+@pytest.mark.parametrize("name", ["banded_nw", "mea_dl"])
+def test_warp_kernels_lanes_a_block(cuda, name, lanes, aligned):
+    """K1 and D at each block size they take, their rows copied as words
+    (lanes a multiple of 4) and byte by byte, bit-equal to plain."""
+    B = _lanes_at(cuda, lanes, aligned)
+    res = wavefront_cuda.warp_lane_resources(name, cuda, 48, B)
+    assert res["lanes_per_block"] == lanes, res
+    _warp_kernel_equal(cuda, name, 40, 48, B, seed=lanes)
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+@pytest.mark.parametrize("name", ["banded_nw", "mea_dl"])
+def test_warp_kernels_resources(cuda, name, wp):
+    """K1 and D serve every Wp <= 128 at 8 lanes a block and over many
+    lanes at 16, with at least one block an SM; no spills and no stack at
+    Wp 24 and 48."""
+    for lanes in (8, 16):
+        res = wavefront_cuda.warp_lane_resources(
+            name, cuda, wp, _lanes_at(cuda, lanes, True))
+        assert res["lanes_per_block"] == lanes, res
+        assert res["threads_per_block"] == 32 * lanes
+        assert res["blocks_per_sm"] >= 1, res
+        if wp <= 48:
+            assert res["local_bytes"] == 0, res
