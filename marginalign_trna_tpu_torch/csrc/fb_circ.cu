@@ -1118,6 +1118,249 @@ __global__ void __launch_bounds__(32 * LPB)
   if (live) lane.tails(tc, tr, b, B);
 }
 
+// ----------------------------------------------------------- S: sv_backward
+//
+// S runs the backward of CircBackward from the signed stream in a layout of
+// its own, as M runs the forward: one warp per lane, RPT consecutive band
+// rows a thread (mk::WarpRows, row k = RPT kk + r), LPB lanes a block
+// (mk::warp_lanes).  The match term reads row k + 1 of generation d + 2
+// and gap states 2 and 4 row k + 1 of d + 1, so generation d's e_M * b_M
+// and its gap states 2 and 4 roll up one row when they are published (one
+// shuffle each) and a diagonal needs no block barrier; the rescale's band
+// max at d % 8 == 0 is a warp reduction.  The block stages tiles of SV_KT
+// descending diagonals of es with cp.async, one tile ahead (tiles start at
+// multiples of SV_KT, so d % 8 is the tile row and the top tile is partial
+// when d1k % 8 != 0), and collects each tile's bm rows and bls in shared
+// memory, written out as lane-contiguous segments once the next tile's
+// barrier has passed: one barrier per SV_KT diagonals.  Arithmetic in
+// CircBackward's order (-fmad=false), so it equals the plain version bit
+// for bit.
+constexpr int SV_KT = 8;  // diagonals a tile
+
+// A stage buffer holds the es rows of a tile [LPB][sv_stride(Wp)] (lane
+// w's row k of tile row kb at w * stride + kb * Wp + k), an output tile
+// the bm rows in the same layout, then bls [LPB][SV_KT].
+__host__ __device__ inline int sv_stride(int Wp) { return SV_KT * Wp + 1; }
+__host__ __device__ inline int sv_in_floats(int Wp, int lpb) {
+  return lpb * sv_stride(Wp);
+}
+__host__ __device__ inline int sv_out_floats(int Wp, int lpb) {
+  return lpb * (sv_stride(Wp) + SV_KT);
+}
+// Two stage buffers and two output tiles: 8 lpb (16 Wp + 10) bytes.
+inline size_t sv_smem(int Wp, int lpb) {
+  return 2 * (size_t)(sv_in_floats(Wp, lpb) + sv_out_floats(Wp, lpb)) *
+         sizeof(float);
+}
+
+// Starts the copy of the es rows of diagonals d0 .. d0 + n - 1 of the
+// block's lanes into stage buffer S (one group), as mw_stage copies.
+template <int LPB>
+__device__ __forceinline__ void sv_stage(float* S, int d0, int n, int b0,
+                                         int Wp, int B,
+                                         const float* __restrict__ es) {
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b < B) {
+    const size_t g = (size_t)d0 * Wp * B + b;
+    float* s = S + w * sv_stride(Wp);
+    for (int r = threadIdx.x / LPB; r < n * Wp; r += 32)
+      mk::cp_async4(s + r, es + g + (size_t)r * B);
+  }
+  mk::cp_async_commit();
+}
+
+// Writes output tile O (diagonals d0 .. d0 + n - 1) in sv_stage's order.
+template <int LPB>
+__device__ __forceinline__ void sv_flush(const float* O, int d0, int n,
+                                         int b0, int Wp, int B,
+                                         float* __restrict__ bm,
+                                         float* __restrict__ bls) {
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b >= B) return;
+  const size_t g = (size_t)d0 * Wp * B + b;
+  const float* s = O + w * sv_stride(Wp);
+  for (int r = threadIdx.x / LPB; r < n * Wp; r += 32)
+    bm[g + (size_t)r * B] = s[r];
+  const int kb = threadIdx.x / LPB;
+  if (kb < n)
+    bls[(size_t)(d0 + kb) * B + b] =
+        O[LPB * sv_stride(Wp) + w * SV_KT + kb];
+}
+
+// The backward of one lane, its rows as mk::WarpRows.
+template <int RPT>
+struct SvWarp {
+  const CircCoef& K;
+  mk::WarpRows<RPT> rows;
+  int chain, Wp, fd, fk;
+  float bls = 0.f, cprev = 1.f;
+  float nb[RPT][5];
+  float p1[RPT], p2[RPT];  // e_M * b_M of d+1, d+2, rolled up
+  float g1[RPT], g2[RPT], g3[RPT], g4[RPT];  // gap states of d+1 (2, 4
+                                             // rolled up)
+
+  __device__ SvWarp(const CircCoef& K_, int chain_, int Wp_, int fd_,
+                    int fk_)
+      : K(K_), rows(Wp_), chain(chain_), Wp(Wp_), fd(fd_), fk(fk_) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      p1[r] = p2[r] = g1[r] = g2[r] = g3[r] = g4[r] = 0.f;
+#pragma unroll
+      for (int s = 0; s < 5; ++s) nb[r][s] = 0.f;
+    }
+  }
+
+  __device__ int row(int r) const { return rows.row(r); }
+
+  // Diagonals d0 + n - 1 down to d0 (a tile) of one lane: its es rows at
+  // es, its bm rows to bm and bls to bls_out (tile row kb at kb * Wp, kb).
+  __device__ void tile(const float* es, float* bm, float* bls_out, int d0,
+                       int n) {
+    for (int kb = n - 1; kb >= 0; --kb)
+      step(d0 + kb, kb, es + kb * Wp, bm + kb * Wp, bls_out + kb);
+  }
+
+  // Generation d (tile row kb = d % 8), as CircBackward::step.
+  __device__ void step(int d, int kb, const float* es, float* bm,
+                       float* bls_out) {
+    const bool divide = kb == SV_KT - 1;
+    float e[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = row(r);
+      const float x = k < Wp ? es[min(k, Wp - 1)] : -1.f;
+      const float v = x >= 0.f ? 1.f : 0.f;
+      e[r] = fmaxf(x, 0.f);
+      float q[5];
+      q[0] = p2[r];
+      if (divide) q[0] = q[0] / cprev;
+      q[1] = g1[r];
+      q[2] = g2[r];
+      q[3] = g3[r];
+      q[4] = g4[r];
+      const bool inj = (d == fd) & (k == fk);
+      if (chain) {
+        float acc0 = K.t00 * q[0];
+#pragma unroll
+        for (int s = 1; s < 5; ++s) acc0 = acc0 + K.m0[s - 1] * q[s];
+        nb[r][0] = (inj ? 1.f : acc0) * v;
+#pragma unroll
+        for (int s = 1; s < 5; ++s) {
+          const float accs = q[0] + K.cb[s - 1] * q[s];
+          nb[r][s] = (inj ? K.r[s - 1] : accs) * v;
+        }
+      } else {
+        const float injv = inj ? 1.f : 0.f;
+#pragma unroll
+        for (int s = 0; s < 5; ++s) {
+          float acc = q[0] * K.a[s * 5];
+#pragma unroll
+          for (int u = 1; u < 5; ++u) acc = acc + q[u] * K.a[s * 5 + u];
+          nb[r][s] = (acc + injv) * v;
+        }
+      }
+    }
+    if (kb == 0) {
+      float m = 0.f;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        if (row(r) < Wp)
+          m = fmaxf(m, fmaxf(fmaxf(fmaxf(nb[r][0], nb[r][1]),
+                                   fmaxf(nb[r][2], nb[r][3])), nb[r][4]));
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(mk::FULL, m, o));
+      const float c = m > 0.f ? m : 1.f;
+      const float inv = 1.f / c;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+#pragma unroll
+        for (int s = 0; s < 5; ++s) nb[r][s] = nb[r][s] * inv;
+      bls += logf(c);
+      cprev = c;
+    }
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      if (row(r) < Wp) bm[row(r)] = nb[r][0];
+    if (rows.kk == 0) *bls_out = bls;
+    publish(e);
+  }
+
+  // Generation d becomes d + 1 for the next step: e_M * b_M and gap
+  // states 2 and 4 rolled up one row.
+  __device__ void publish(const float (&e)[RPT]) {
+    float p[RPT], ga[RPT], gb[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      p[r] = e[r] * nb[r][0];
+      g1[r] = nb[r][1];
+      ga[r] = nb[r][2];
+      g3[r] = nb[r][3];
+      gb[r] = nb[r][4];
+      p2[r] = p1[r];
+    }
+    rows.roll(p, p1, 1);
+    rows.roll(ga, g2, 1);
+    rows.roll(gb, g4, 1);
+  }
+
+  // logZ from generation 0 (row 0 is r = 0 of thread 0).
+  __device__ void write_logz(float* __restrict__ logZ) const {
+    if (rows.kk != 0) return;
+    float zr;
+    if (chain) {
+      zr = nb[0][0];
+#pragma unroll
+      for (int s = 1; s < 5; ++s) zr = zr + K.tz[s - 1] * nb[0][s];
+    } else {
+      zr = (((nb[0][0] + nb[0][1]) + nb[0][2]) + nb[0][3]) + nb[0][4];
+    }
+    *logZ = logf(fmaxf(0.2f * zr, 1e-30f)) + bls;
+  }
+};
+
+template <int RPT, int LPB>
+__global__ void __launch_bounds__(32 * LPB)
+    sv_backward_kernel(const float* __restrict__ es,
+                       const int32_t* __restrict__ fink,
+                       const int32_t* __restrict__ find, CircCoef K,
+                       int chain, int d1k, int Wp, int B,
+                       float* __restrict__ bm, float* __restrict__ bls,
+                       float* __restrict__ logZ) {
+  extern __shared__ __align__(16) float sv_raw[];
+  const int nin = sv_in_floats(Wp, LPB), nout = sv_out_floats(Wp, LPB);
+  // Stage buffer and output tile of the u-th tile from the top (by
+  // parity), its first diagonal and its count.
+  auto in = [&](int u) { return sv_raw + (u & 1) * nin; };
+  auto out = [&](int u) { return sv_raw + 2 * nin + (u & 1) * nout; };
+  const int tiles = (d1k + SV_KT - 1) / SV_KT;
+  auto first = [&](int u) { return (tiles - 1 - u) * SV_KT; };
+  auto count = [&](int u) { return min(SV_KT, d1k - first(u)); };
+  const int w = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * LPB, b = b0 + w;
+  const bool live = b < B;  // warp-uniform
+  SvWarp<RPT> lane(K, chain, Wp, live ? find[b] : -1, live ? fink[b] : -1);
+  sv_stage<LPB>(in(0), first(0), count(0), b0, Wp, B, es);
+  for (int u = 0; u < tiles; ++u) {
+    // Tile u has landed (this thread's copies, then everyone's), every
+    // warp is past tile u - 1, whose outputs leave now.
+    mk::cp_async_wait();
+    __syncthreads();
+    if (u > 0)
+      sv_flush<LPB>(out(u - 1), first(u - 1), count(u - 1), b0, Wp, B, bm,
+                    bls);
+    if (u + 1 < tiles)
+      sv_stage<LPB>(in(u + 1), first(u + 1), count(u + 1), b0, Wp, B, es);
+    if (live)
+      lane.tile(in(u) + w * sv_stride(Wp), out(u) + w * sv_stride(Wp),
+                out(u) + LPB * sv_stride(Wp) + w * SV_KT, first(u),
+                count(u));
+  }
+  __syncthreads();
+  sv_flush<LPB>(out(tiles - 1), 0, count(tiles - 1), b0, Wp, B, bm, bls);
+  if (live) lane.write_logz(logZ + b);
+}
+
 // ---------------------------------------------------------------- launches
 
 size_t bwd_smem(int Wp) { return (size_t)12 * Wp * mk::LANES * sizeof(float); }
@@ -1217,6 +1460,33 @@ cudaError_t mw_setup(int Wp, int B, const void** kernel, int* lanes,
   return *kernel ? mk::allow_smem(*kernel, *smem) : cudaErrorInvalidValue;
 }
 
+template <int LPB>
+const void* sv_kernel_rpt(int Wp) {
+  switch (mk::rows_per_thread(Wp)) {
+    case 1: return (const void*)sv_backward_kernel<1, LPB>;
+    case 2: return (const void*)sv_backward_kernel<2, LPB>;
+    case 3: return (const void*)sv_backward_kernel<3, LPB>;
+    case 4: return (const void*)sv_backward_kernel<4, LPB>;
+  }
+  return nullptr;
+}
+
+// The kernel, lanes a block (mk::warp_lanes) and shared memory of S's
+// launch at (Wp, B), its shared memory opted in.
+cudaError_t sv_setup(int Wp, int B, const void** kernel, int* lanes,
+                     size_t* smem) {
+  cudaError_t err =
+      mk::warp_lanes(B, [Wp](int l) { return sv_smem(Wp, l); }, lanes);
+  if (err != cudaSuccess) return err;
+  switch (*lanes) {
+    case 8: *kernel = sv_kernel_rpt<8>(Wp); break;
+    case 16: *kernel = sv_kernel_rpt<16>(Wp); break;
+    default: return cudaErrorInvalidValue;
+  }
+  *smem = sv_smem(Wp, *lanes);
+  return *kernel ? mk::allow_smem(*kernel, *smem) : cudaErrorInvalidValue;
+}
+
 template <class Src>
 cudaError_t run_backward(const Src& src, const float* table,
                          const int32_t* fink, const int32_t* find,
@@ -1254,8 +1524,30 @@ extern "C" int sv_backward_launch(const float* es, const int32_t* fink,
                                   int chain, int d1k, int Wp, int B,
                                   float* bm, float* bls, float* logZ,
                                   void* stream) {
-  return run_backward(EsSrc{es}, nullptr, fink, find, coef, chain, d1k, Wp,
-                      B, bm, bls, logZ, stream);
+  if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = sv_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  CircCoef K = load_coef(coef);
+  void* args[] = {&es, &fink, &find, &K,  &chain, &d1k,
+                  &Wp, &B,    &bm,   &bls, &logZ};
+  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes),
+                          dim3(32 * lanes), args, smem,
+                          (cudaStream_t)stream);
+}
+
+// What S's launch at band width Wp over B lanes gets on this device
+// (mk::kernel_info's out[5]; its lanes a block are out[3] / 32).
+extern "C" int sv_backward_info(int Wp, int B, int* out) {
+  if (bad_shape(1, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = sv_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }
 
 extern "C" int circ_backward_emv_launch(const float* em, const int8_t* valid,

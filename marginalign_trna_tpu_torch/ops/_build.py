@@ -141,9 +141,11 @@ _QUERIES: Dict[str, List] = {
     # Wp, B, out[5] (csrc/fb_circ.cu, csrc/nw.cu, csrc/mea.cu); Wp, out[5]
     # (csrc/expand.cu)
     "mw_forward_info": [_I, _I, _P],
+    "sv_backward_info": [_I, _I, _P],
     "banded_nw_info": [_I, _I, _P],
     "mea_dl_info": [_I, _I, _P],
     "expand_streams_info": [_I, _P],
+    "expand_rel_info": [_I, _P],
 }
 
 launch_counts: Dict[str, int] = {name: 0 for name in _SIGNATURES}

@@ -37,7 +37,11 @@ an unconditional roll by one row (no per-lane shift streams).
                         weights need: flc, flr [d1k, B], tails tc, tr [Wp, B].
 C and M share the forward recursion (`_forward_generations` here); on the
 card C runs it as csrc/fb_circ.cu's `CircForward` template, M as a kernel
-of its own (one warp per lane, 8 or 16 lanes a block).
+of its own (one warp per lane, 8 or 16 lanes a block).  S runs the
+backward of `_CircBackward` as a kernel of its own in the same layout as
+M; the serving modes' backwards keep csrc/fb_circ.cu's `CircBackward`
+template (block per 32 lanes).  R and E take a thread per lane (E) or
+per four lanes (R) and a tile of diagonals.
 
 The model comes in at run time as one coefficient vector (`COEF_*` offsets,
 built by ops/fb_circ.py `circ_coefficients`) with two branches: the
@@ -223,6 +227,12 @@ def expand_rel_cuda(reads, refs, lo, m, n, Wp: int, d1k: int):
     return xb, yb
 
 
+def expand_rel_resources(device: torch.device, wp: int) -> Dict[str, int]:
+    """What a launch of expand_rel at band width `wp` gets on `device`: the
+    keys of expand_streams_resources."""
+    return _build.resources("expand_rel_info", device, wp)
+
+
 # ------------------------------------------------------ emission sources
 
 
@@ -389,6 +399,15 @@ def sv_backward_cuda(coef: np.ndarray, chain: bool, es, fink, find):
         bm.data_ptr(), bls.data_ptr(), logZ.data_ptr(),
     )
     return bm, bls, logZ
+
+
+def sv_backward_resources(device: torch.device, wp: int,
+                          B: int) -> Dict[str, int]:
+    """What a launch of sv_backward over B lanes at band width `wp` gets on
+    `device`: the keys of mw_forward_resources, the lanes a block chosen
+    by csrc/common.cuh `warp_lanes`."""
+    res = _build.resources("sv_backward_info", device, wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
 # ------------------------------------------------------------- C: forward

@@ -949,3 +949,120 @@ def test_warp_kernels_resources(cuda, name, wp):
         assert res["blocks_per_sm"] >= 1, res
         if wp <= 48:
             assert res["local_bytes"] == 0, res
+
+
+# ------------------------------------------ S: one warp per lane; R: tiles
+
+
+def _random_sv(cuda, d1k, wp, B, chain_model, seed):
+    """S's inputs at random: es with 25% invalid cells (-1) and emissions
+    in [0, 0.6) elsewhere, terminal rows on any band row and terminal
+    diagonals at 0, at d1k - 1, on a tile edge (8, the first diagonal of
+    the second tile) and anywhere."""
+    rng = np.random.default_rng(seed)
+    es = (rng.random((d1k, wp, B)) * 0.6).astype(np.float32)
+    es[rng.random(es.shape) < 0.25] = -1.0
+    find = rng.integers(0, d1k, B).astype(np.int32)
+    find[::4] = 0
+    find[1::4] = d1k - 1
+    find[2::4] = min(8, d1k - 1)
+    coef, chain = circ_coefficients(_flat_gap_tables(chain_model))
+    return (coef, chain, _t(cuda, es),
+            _t(cuda, rng.integers(0, wp, B).astype(np.int32)),
+            _t(cuda, find))
+
+
+def _sv_equal(cuda, d1k, wp, B, chain_model, seed):
+    args = _random_sv(cuda, d1k, wp, B, chain_model, seed)
+    before = _build.launch_counts["sv_backward"]
+    got = fb_circ_cuda.sv_backward_cuda(*args)
+    want = fb_circ_cuda.sv_backward_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["sv_backward"] == before + 1
+    for name, g, w in zip(("bm", "bls", "logZ"), got, want):
+        assert torch.equal(g, w), (name, d1k, wp, B, chain_model)
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+@pytest.mark.parametrize("B", [1, 31, 33, 1000])
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_sv_backward_random_inputs(cuda, wp, B, chain_model):
+    """S bit-equal to its plain version (bm, bls, logZ) at every
+    rows-a-thread count, over lane counts that are no multiple of the
+    lanes a block, both branches, 67 diagonals (a partial top tile)."""
+    _sv_equal(cuda, 67, wp, B, chain_model, seed=wp + B)
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+@pytest.mark.parametrize("d1k", [1, 2, 8, 16])
+def test_sv_backward_short_bands(cuda, d1k, chain_model):
+    """S over one or two diagonals and over whole tiles."""
+    for wp in (24, 48):
+        _sv_equal(cuda, d1k, wp, 33, chain_model, seed=d1k)
+
+
+@pytest.mark.parametrize("lanes", [8, 16])
+def test_sv_backward_lanes_a_block(cuda, lanes):
+    """S at each block size it takes (common.cuh `warp_lanes`)."""
+    B = _lanes_at(cuda, lanes, aligned=False)
+    res = fb_circ_cuda.sv_backward_resources(cuda, 24, B)
+    assert res["lanes_per_block"] == lanes, res
+    _sv_equal(cuda, 40, 24, B, True, seed=lanes)
+
+
+def _random_rel(cuda, d1k, wp, B, seed):
+    """R's inputs, guide-like: lo steps by 0 or 1 on most diagonals and
+    jumps by 2 to 40 (or back by 1) now and then, so that some tiles span
+    more than a window and read device memory; D1 < d1k (lo
+    edge-replicated past D1); every seventh lane with m = 0, another with
+    n = 0; codes 0-4."""
+    rng = np.random.default_rng(seed)
+    D1 = max(1, d1k - 11)
+    step = rng.choice([0, 1, 2, 40, -1], p=[.48, .48, .02, .01, .01],
+                      size=(D1, B))
+    step[0] = 0
+    lo = np.cumsum(step, axis=0) - rng.integers(0, wp, B)[None, :]
+    Mp, Np = d1k + 50, d1k + 50
+    m = rng.integers(0, Mp + 1, B).astype(np.int32)
+    n = rng.integers(0, Np + 1, B).astype(np.int32)
+    m[1::7] = 0
+    n[2::7] = 0
+    return (_t(cuda, rng.integers(0, 5, (Mp, B)).astype(np.int8)),
+            _t(cuda, rng.integers(0, 5, (Np, B)).astype(np.int8)),
+            _t(cuda, lo.astype(np.int32)), _t(cuda, m), _t(cuda, n), wp,
+            d1k)
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1000])
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_expand_rel_random_inputs(cuda, wp, B):
+    """R bit-equal to its plain version on every cell, windows and direct
+    loads, packed rows (B % 4 == 0) and byte stores, a partial last
+    tile."""
+    args = _random_rel(cuda, 150, wp, B, seed=wp + B)
+    before = _build.launch_counts["expand_rel"]
+    got = fb_circ_cuda.expand_rel_cuda(*args)
+    want = fb_circ_cuda.expand_rel_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["expand_rel"] == before + 1
+    for name, g, w in zip(("xb", "yb"), got, want):
+        assert torch.equal(g, w), (name, wp, B)
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_sv_expand_rel_resources(cuda, wp):
+    """S at 8 and 16 lanes a block and R serve every Wp <= 128 with at
+    least one block an SM; no spills at Wp 24 and 48 (S), 48 (R)."""
+    for lanes in (8, 16):
+        res = fb_circ_cuda.sv_backward_resources(
+            cuda, wp, _lanes_at(cuda, lanes, True))
+        if lanes == 16 and res["lanes_per_block"] == 8:
+            continue    # 16 lanes do not fit shared memory at this Wp
+        assert res["lanes_per_block"] == lanes, res
+        assert res["blocks_per_sm"] >= 1, res
+        if wp <= 48:
+            assert res["local_bytes"] == 0, res
+    res = fb_circ_cuda.expand_rel_resources(cuda, wp)
+    assert res["blocks_per_sm"] >= 1, res
+    if wp == 48:
+        assert res["local_bytes"] == 0, res
