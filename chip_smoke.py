@@ -27,10 +27,10 @@ Phases (any failure exits non-zero without the final result line):
               launch is logged and the inputs of each kernel's largest
               launch are kept (one device copy each).
   4. kernels  each of those kernels against its plain version on the inputs
-              of its largest main-path launch, with times and bounds (E,
-              M, K1 and D bit-equal, with their resources: registers,
-              shared memory a block, blocks an SM, spills, lanes a block
-              of the warp-per-lane kernels M, K1 and D).
+              of its largest main-path launch, with times and bounds (R,
+              E, S, M, K1 and D bit-equal, with their resources:
+              registers, shared memory a block, blocks an SM, spills, lanes
+              a block of the warp-per-lane kernels S, M, K1 and D).
   5. rel      the REL realign path (fused=False: host band arrays, K2, K3,
               K4) on the chained records of the corpus's first 256 reads;
               only K2, K3 and K4 may launch; >= 90% of its cigars must equal
@@ -666,6 +666,9 @@ def compare_expand(args, reps):
 
 
 def compare_sv(args, reps):
+    """S against its plain version: bm, bls and logZ bit-equal (S keeps
+    the plain version's order of operations, built -fmad=false); with the
+    block size S takes for this launch and its resources."""
     import torch
 
     from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
@@ -674,12 +677,11 @@ def compare_sv(args, reps):
     rbm, rbls, rlogZ = fc.sv_backward_plain(*args)
     torch.cuda.synchronize()
     check(torch.isfinite(logZ).all().item(), "S logZ not finite")
-    check(torch.allclose(logZ, rlogZ, rtol=1e-4, atol=1e-4),
-          "S logZ differs (rtol/atol 1e-4)")
-    check(torch.allclose(bm, rbm, rtol=2e-4, atol=1e-30),
-          "S bm differs (rtol 2e-4)")
-    check(torch.allclose(bls, rbls, rtol=2e-4, atol=1e-6),
-          "S bls differs (rtol 2e-4)")
+    for name, g, r in (("bm", bm, rbm), ("bls", bls, rbls),
+                       ("logZ", logZ, rlogZ)):
+        check(torch.equal(g, r), "S %s differs from the plain version by %g"
+              % (name, (g - r).abs().max().item()))
+    _, wp, B = bm.shape
     return {
         "max_abs_err": (logZ - rlogZ).abs().max().item(),
         "bm_max_abs_err": (bm - rbm).abs().max().item(),
@@ -687,6 +689,7 @@ def compare_sv(args, reps):
         "plain_ms": time_ms(lambda: fc.sv_backward_plain(*args), 1),
         "library_ms": None,
         **bound("sv_backward", bm.numel(), nbytes(*args, bm, bls, logZ)),
+        "resources": fc.sv_backward_resources(bm.device, wp, B),
     }
 
 
@@ -763,6 +766,7 @@ def compare_expand_rel(args, reps):
         "plain_ms": time_ms(lambda: fc.expand_rel_plain(*args), 1),
         "library_ms": None,
         **bound("expand_rel", xb.numel(), nbytes(*args, xb, yb)),
+        "resources": fc.expand_rel_resources(xb.device, xb.shape[1]),
     }
 
 

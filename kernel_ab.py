@@ -19,33 +19,42 @@ Groups (fused, wavefront and counts when none is named):
          both timed): K4 banded_mea on the bucket's closed-form weight
          bands, nw_multi on a multi batch at width 40 [1024, 48, 4096],
          mea_multi on random weights over the width-21 multi batch.
-  fused  M (mw_forward) and E (expand_streams), and the kernels beside
-         them that must not move.  M on a realign bucket [3072, 24, 4096]
-         with the shipped model (gap-chain branch), on [3072, 24, 1024]
-         with a flat-gap model whose gap states 1 and 2 exchange mass (the
-         generic branch, as --em's trained model runs it) and on the
-         bucket's pairs at Wp 48, 96 and 128 (gap-chain branch; where the
-         other checkout's M refuses a shape, its error); E on that bucket
-         without yb and on a caller batch [128, 24, 65536] with yb; their
-         resources (`*_resources`), bounds and the largest difference
-         from the plain version and from the other checkout (0 expected).
-         Must not move (bit-equal to the other checkout): C cx_forward on
-         the caller batch, circ_post_es on [3072, 24, 1024], S
-         sv_backward on the bucket, R expand_rel on a guide batch
-         [7168, 48, 1024].  Then the fused realign posteriors of the
-         bucket (ops/fb_circ.py `posteriors_weights_compact`: E + S + M
-         and the flush streams, a sync) on the host clock.
-  probe  variants of this checkout's M, E, K1 and D (PROBES: source
-         edits of csrc/, in copies under build/probe/), timed beside the
-         kernel they vary: M with one part of its work removed (outputs
-         wrong by design) or with 4, 8, 16 or 32 lanes a block, on the
-         bucket (gap-chain branch) and on M's generic row; E with every
-         code read from device memory (no windows) on the bucket and the
-         caller batch; K1 with 4, 8 or 16 lanes a block on the guide
-         batch; D with every gap weight loaded from the sums at each
-         diagonal (no delay line) on the bucket.  probe_wavefront: the K1
-         and D variants only.  Named on the command line only: their
-         edits follow the sources' text.
+  fused  S (sv_backward), R (expand_rel), M (mw_forward) and E
+         (expand_streams), and the kernels beside them that must not move.
+         S and M on a realign bucket [3072, 24, 4096] with the shipped
+         model (gap-chain branch), on [3072, 24, 1024] with a flat-gap
+         model whose gap states 1 and 2 exchange mass (the generic branch,
+         as --em's trained model runs it) and on the bucket's pairs at Wp
+         48, 96 and 128 (gap-chain branch; where the other checkout's
+         kernel refuses a shape, its error); S on a caller batch [128, 24,
+         65536]; R on a guide batch [7168, 48, 1024] and on the guide's
+         pairs at Wp 24, 96 and 128 (widths 21, 93, 126); E on the bucket
+         without yb and on the caller batch with yb; their resources
+         (`*_resources`), bounds and the largest difference from the plain
+         version and from the other checkout on every cell (0 expected).
+         Must not move (bit-equal to the other checkout, both timed): C
+         cx_forward on the caller batch; circ_post_es, circ_backward_emv,
+         circ_backward_codes, circ_backward_codes_es and
+         circ_ckpt_backward on the bucket's first 1024 lanes; K1
+         banded_nw on R's code bands of the guide batch.  Then the fused
+         realign posteriors of the bucket (ops/fb_circ.py
+         `posteriors_weights_compact`: E + S + M and the flush streams, a
+         sync) on the host clock.
+  probe  variants of this checkout's S, R, M, E, K1 and D (PROBES:
+         source edits of csrc/, in copies under build/probe/), timed
+         beside the kernel they vary: S with 8 or 16 lanes a block or its
+         tiles copied without cp.async, on the bucket, the caller batch
+         and the generic row; R with byte stores or every code read from
+         device memory (no windows) on the guide batch; M with one part of
+         its work removed (outputs wrong by design) or with 4, 8, 16 or 32
+         lanes a block, on the bucket (gap-chain branch) and on M's
+         generic row; E with every code read from device memory (no
+         windows) on the bucket and the caller batch; K1 with 4, 8 or 16
+         lanes a block on the guide batch; D with every gap weight loaded
+         from the sums at each diagonal (no delay line) on the bucket.
+         probe_fused: the S and R variants only; probe_wavefront: the K1
+         and D variants only.  Named on the command line only: their edits
+         follow the sources' text.
   counts scatter_lanes (L) on a realign row-flush stream
          [3096, 4096]; the checkpoint backwards on the EM batch
          [3, 512, 24, 8192] and the em_multi batch [3, 1024, 24, 4096]
@@ -305,27 +314,40 @@ def all_equal(got, want):
     return all(torch.equal(g, w) for g, w in zip(got, want) if g is not None)
 
 
-def ab_mw(fc, ofc, args, cuda):
-    """M of both checkouts against the plain version, timed; where the
-    other checkout's M refuses the shape, its error and this M's time."""
-    got = fc.mw_forward_cuda(*args)
-    plain = fc.mw_forward_plain(*args)
-    d1k, wp, B = args[2].shape
-    row = {"shape": [d1k, wp, B], "chain": bool(args[1]),
-           "max_abs_err_plain": max_diff(got, plain),
+def kernel_resources(fc, name, cuda, shape):
+    """What this checkout's launch of S, M or R at `shape` [d1k, Wp, B]
+    gets on the card (`*_resources`)."""
+    _, wp, B = shape
+    if name == "expand_rel":
+        return fc.expand_rel_resources(cuda, wp)
+    return getattr(fc, name + "_resources")(cuda, wp, B)
+
+
+def ab_exact(fc, ofc, name, args, cuda):
+    """S, M or R (`name`) of both checkouts against the plain version on
+    every cell, timed, with bound and resources; where the other
+    checkout's kernel refuses the shape, its error and this kernel's
+    time."""
+    kernel = getattr(fc, name + "_cuda")
+    got = outputs(kernel(*args))
+    plain = outputs(getattr(fc, name + "_plain")(*args))
+    shape = list(got[0].shape)
+    row = {"shape": shape, "max_abs_err_plain": max_diff(got, plain),
            "bit_equal_plain": all_equal(got, plain),
-           **bound("mw_forward", d1k * wp * B, nbytes(*args, *got)),
-           "resources": fc.mw_forward_resources(cuda, wp, B)}
+           **bound(name, got[0].numel(), nbytes(*args, *got)),
+           "resources": kernel_resources(fc, name, cuda, shape)}
+    if name != "expand_rel":
+        row["chain"] = bool(args[1])
     del plain
+    other = getattr(ofc, name + "_cuda")
     try:
-        ref = ofc.mw_forward_cuda(*args)
+        ref = outputs(other(*args))
     except RuntimeError as exc:
         return {**row, "other_error": str(exc),
-                "ms": time_ms(lambda: fc.mw_forward_cuda(*args))}
+                "ms": time_ms(lambda: kernel(*args))}
     return {**row, "max_abs_err_other": max_diff(got, ref),
             "bit_equal_other": all_equal(got, ref),
-            **ab(lambda: fc.mw_forward_cuda(*args),
-                 lambda: ofc.mw_forward_cuda(*args))}
+            **ab(lambda: kernel(*args), lambda: other(*args))}
 
 
 def ab_expand(fc, ofc, args, cuda):
@@ -381,12 +403,34 @@ def wall_ab(this_fn, other_fn):
             "ms_runs": [t1, t2], "other_ms_runs": [o1, o2]}
 
 
+def serve_backward_args(this, pairs, table, coef, chain, cuda):
+    """The serve backwards' arguments on the circular code streams of
+    `pairs` (host band packer, `circ_device_batch`): emv, codes (also
+    codes_es) and ckpt."""
+    import torch
+
+    band, fb = sub(this, "ops.band"), sub(this, "ops.fb")
+    fc, fcirc = sub(this, "ops.fb_circ_cuda"), sub(this, "ops.fb_circ")
+    batch = band.pack_banded_batch(*pairs, width=21, pad_steps_to=BUCKET_STEPS)
+    cdev = fb.circ_device_batch(batch, fb.device_batch(batch, cuda))
+    valid = cdev.valid.view(torch.int8)
+    em = fcirc.emission_stream(table, cdev.xb, cdev.yb, cdev.valid, False)
+    codes = (coef, chain, table, cdev.xb, cdev.yb, valid, cdev.fink,
+             cdev.final_d)
+    return {"circ_backward_emv": (coef, chain, em, valid, cdev.fink,
+                                  cdev.final_d),
+            "circ_backward_codes": codes, "circ_backward_codes_es": codes,
+            "circ_ckpt_backward": codes + (fc.ckpt_block(
+                cdev.xb.shape[1]),)}
+
+
 def run_fused(this, other, cuda, report):
     """Fills `report` with the fused group's rows."""
     import torch
 
     fc, ofc = (sub(p, "ops.fb_circ_cuda") for p in (this, other))
     fcirc, ofcirc = (sub(p, "ops.fb_circ") for p in (this, other))
+    wf, owf = (sub(p, "ops.wavefront_cuda") for p in (this, other))
     fb = sub(this, "ops.fb")
     band = sub(this, "ops.band")
     model = os.path.join(ROOT, PKG, "models", "last_hmm_20.txt")
@@ -399,8 +443,8 @@ def run_fused(this, other, cuda, report):
     def show(*names):
         print(json.dumps({n: report[n] for n in names}), flush=True)
 
-    # The realign bucket: E, S, M; circ_post_es and M's generic branch on
-    # its first lanes; the fused posteriors on the host clock.
+    # The realign bucket: E, S, M; circ_post_es and S's and M's generic
+    # branch on its first lanes; the fused posteriors on the host clock.
     dev = compact(this, *bucket, 21, BUCKET_STEPS, cuda)
     eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, wp,
              BUCKET_STEPS, False)
@@ -409,11 +453,11 @@ def run_fused(this, other, cuda, report):
     es = fc.expand_streams_cuda(*eargs)[0]
     fr, frr, lom = band.circ_mw_streams(dev.lo, 21, wp, BUCKET_STEPS)
     sargs = (coef, chain, es, dev.fink, dev.final_d)
-    report["sv_backward"] = unmoved(fc.sv_backward_cuda,
-                                    ofc.sv_backward_cuda, sargs)
+    report["sv_backward"] = ab_exact(fc, ofc, "sv_backward", sargs, cuda)
     bm, bls, logZ = fc.sv_backward_cuda(*sargs)
-    report["mw_forward"] = ab_mw(
-        fc, ofc, (coef, chain, es, fr, frr, lom, bm, bls, logZ), cuda)
+    report["mw_forward"] = ab_exact(
+        fc, ofc, "mw_forward", (coef, chain, es, fr, frr, lom, bm, bls,
+                                logZ), cuda)
     show("sv_backward", "mw_forward")
 
     def cut(t):
@@ -425,13 +469,15 @@ def run_fused(this, other, cuda, report):
               for t in (coef, chain, es, bm, bls, logZ)))
     del bm, bls, logZ
     gcoef, gchain = fcirc.circ_coefficients(generic_tables(fb, model))
-    gback = fc.sv_backward_cuda(gcoef, gchain, cut(es), cut(dev.fink),
-                                cut(dev.final_d))
-    report["mw_forward_generic"] = ab_mw(
-        fc, ofc, (gcoef, gchain, cut(es), cut(fr), cut(frr), cut(lom),
-                  *gback), cuda)
+    gargs = (gcoef, gchain, cut(es), cut(dev.fink), cut(dev.final_d))
+    report["sv_backward_generic"] = ab_exact(fc, ofc, "sv_backward", gargs,
+                                             cuda)
+    gback = fc.sv_backward_cuda(*gargs)
+    report["mw_forward_generic"] = ab_exact(
+        fc, ofc, "mw_forward", (gcoef, gchain, cut(es), cut(fr), cut(frr),
+                                cut(lom), *gback), cuda)
     del es, fr, frr, lom, gback
-    show("circ_post_es", "mw_forward_generic")
+    show("circ_post_es", "sv_backward_generic", "mw_forward_generic")
     report["realign_bucket"] = {
         "shape": [BUCKET_STEPS, wp, BUCKET_LANES],
         **wall_ab(lambda: fcirc.posteriors_weights_compact(tables, dev, 21),
@@ -441,44 +487,69 @@ def run_fused(this, other, cuda, report):
     del dev
     torch.cuda.empty_cache()
 
-    # The caller batch: E with yb, then C.
+    # The serve and checkpoint backwards on the bucket's first lanes.
+    for name, args in serve_backward_args(
+            this, [p[:M_GENERIC_LANES] for p in bucket], ematch, coef,
+            chain, cuda).items():
+        report[name] = unmoved(getattr(fc, name + "_cuda"),
+                               getattr(ofc, name + "_cuda"), args)
+        show(name)
+        del args
+    torch.cuda.empty_cache()
+
+    # The caller batch: E with yb, S, then C.
     cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
                    repeat=CALLER_LANES // CALLER_UNIQUE)
     ceargs = (ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n, 21,
               wp, CALLER_STEPS, True)
     report["expand_streams_caller"] = ab_expand(fc, ofc, ceargs, cuda)
     es, yb, fl = fc.expand_streams_cuda(*ceargs)
-    back = fc.sv_backward_cuda(coef, chain, es, cdev.fink, cdev.final_d)
+    csargs = (coef, chain, es, cdev.fink, cdev.final_d)
+    report["sv_backward_caller"] = ab_exact(fc, ofc, "sv_backward", csargs,
+                                            cuda)
+    back = fc.sv_backward_cuda(*csargs)
     report["cx_forward"] = unmoved(fc.cx_forward_cuda, ofc.cx_forward_cuda,
                                    (coef, chain, es, yb, fl, *back))
     del cdev, es, yb, fl, back
-    show("expand_streams_caller", "cx_forward")
+    show("expand_streams_caller", "sv_backward_caller", "cx_forward")
 
-    # The guide batch: R.
-    gdev = compact(this, *guide, 40, GUIDE_STEPS, cuda)
-    report["expand_rel"] = unmoved(
-        fc.expand_rel_cuda, ofc.expand_rel_cuda,
-        (gdev.reads, gdev.refs, gdev.lo, gdev.m, gdev.n,
-         band.padded_band_width(40), GUIDE_STEPS))
-    show("expand_rel")
+    # The guide batch: R at width 40 (Wp 48) and K1 on its outputs, then R
+    # on the guide's pairs packed at widths 21, 93 and 126.
+    for width in (40, 21, 93, 126):
+        gdev = compact(this, *guide, width, GUIDE_STEPS, cuda)
+        gwp = band.padded_band_width(width)
+        name = "expand_rel" if width == 40 else "expand_rel_wp%d" % gwp
+        report[name] = ab_exact(
+            fc, ofc, "expand_rel", (gdev.reads, gdev.refs, gdev.lo, gdev.m,
+                                    gdev.n, gwp, GUIDE_STEPS), cuda)
+        show(name)
+        del gdev
+        torch.cuda.empty_cache()
+    report["banded_nw"] = unmoved(wf.banded_nw_cuda, owf.banded_nw_cuda,
+                                  guide_nw_args(this, guide, 40, cuda))
+    show("banded_nw")
+    torch.cuda.empty_cache()
 
-    # M at wider bands, the bucket's pairs packed at each width (last: a
-    # launch the other checkout refuses leaves its last-error state set).
+    # S and M at wider bands, the bucket's pairs packed at each width
+    # (last: a launch the other checkout refuses leaves its last-error
+    # state set).
     for width, wwp in M_WIDE.items():
         wdev = compact(this, *bucket, width, BUCKET_STEPS, cuda)
         wes = fc.expand_streams_cuda(ematch, wdev.reads, wdev.refs, wdev.lo,
                                      wdev.m, wdev.n, width, wwp,
                                      BUCKET_STEPS, False)[0]
+        wsargs = (coef, chain, wes, wdev.fink, wdev.final_d)
+        report["sv_backward_wp%d" % wwp] = ab_exact(fc, ofc, "sv_backward",
+                                                    wsargs, cuda)
         name = "mw_forward_wp%d" % wwp
-        report[name] = ab_mw(
-            fc, ofc, (coef, chain, wes,
-                      *band.circ_mw_streams(wdev.lo, width, wwp,
-                                            BUCKET_STEPS),
-                      *fc.sv_backward_cuda(coef, chain, wes, wdev.fink,
-                                           wdev.final_d)), cuda)
+        report[name] = ab_exact(
+            fc, ofc, "mw_forward", (coef, chain, wes,
+                                    *band.circ_mw_streams(wdev.lo, width,
+                                                          wwp, BUCKET_STEPS),
+                                    *fc.sv_backward_cuda(*wsargs)), cuda)
         del wdev, wes
         torch.cuda.empty_cache()
-        show(name)
+        show("sv_backward_wp%d" % wwp, name)
 
 
 def guide_nw_args(port, guide, width, cuda):
@@ -645,7 +716,13 @@ def probe_cases(this, cuda, kernels):
         cases["banded_nw"] = {"guide": guide_nw_args(this, guide, 40, cuda)}
     if "mea_dl" in kernels:
         cases["mea_dl"] = {"bucket": bucket_dl_args(this, bucket, 21, cuda)}
-    if "mw_forward" not in kernels and "expand_streams" not in kernels:
+    if "expand_rel" in kernels:
+        gdev = compact(this, *guide, 40, GUIDE_STEPS, cuda)
+        cases["expand_rel"] = {"guide": (gdev.reads, gdev.refs, gdev.lo,
+                                         gdev.m, gdev.n,
+                                         band.padded_band_width(40),
+                                         GUIDE_STEPS)}
+    if not {"mw_forward", "expand_streams", "sv_backward"} & set(kernels):
         return cases
     dev = compact(this, *bucket, 21, BUCKET_STEPS, cuda)
     eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, wp,
@@ -665,6 +742,13 @@ def probe_cases(this, cuda, kernels):
         "generic": (gcoef, gchain, cut(es), cut(fr), cut(frr), cut(lom),
                     *fc.sv_backward_cuda(gcoef, gchain, cut(es),
                                          cut(dev.fink), cut(dev.final_d)))}
+    cases["sv_backward"] = {
+        "bucket": (coef, chain, es, dev.fink, dev.final_d),
+        "caller": (coef, chain, fc.expand_streams_cuda(
+            ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n, 21, wp,
+            CALLER_STEPS, False)[0], cdev.fink, cdev.final_d),
+        "generic": (gcoef, gchain, cut(es), cut(dev.fink),
+                    cut(dev.final_d))}
     cases["expand_streams"] = {
         "bucket": eargs,
         "caller": (ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n,
@@ -724,11 +808,14 @@ def card():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else ""
 
 
-GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "counts")
+GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
+          "counts")
 DEFAULT_GROUPS = ("fused", "wavefront", "counts")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "expand_streams": "ops.fb_circ_cuda",
+                  "sv_backward": "ops.fb_circ_cuda",
+                  "expand_rel": "ops.fb_circ_cuda",
                   "banded_nw": "ops.wavefront_cuda",
                   "mea_dl": "ops.wavefront_cuda"}
 # The probe group's variants: name -> (the kernel it varies, its source
@@ -838,6 +925,62 @@ PROBES = {
     **{"%s_%s" % (tag, part): (kernel, where, edits)
        for tag, (kernel, source, *depth) in _WAVE.items()
        for part, (where, edits) in _wave_parts(source, *depth).items()},
+    # S with n lanes a block whatever B, with tiles of 8 or 16 diagonals
+    # whatever Wp, and with its es tiles copied by plain loads and stores
+    # (no cp.async: each tile's copy stalls the thread until its loads
+    # land).
+    **{"sv_lanes_%d" % n: ("sv_backward", "fb_circ.cu", [
+        ("      mk::warp_lanes(B, [Wp](int l) { return sv_smem(Wp, l); }, "
+         "lanes);", "      (*lanes = %d, cudaSuccess);" % n)])
+       for n in (8, 16)},
+    **{"sv_kt%d" % n: ("sv_backward", "fb_circ.cu", [
+        ("{ return rpt == 1 ? 16 : 8; }", "{ return %d; }" % n)])
+       for n in (8, 16)},
+    "sv_sync_stage": ("sv_backward", "fb_circ.cu", [
+        ("      mk::cp_async4(s + r, es + g + (size_t)r * B);",
+         "      s[r] = es[g + (size_t)r * B];")]),
+    # S with one part removed (outputs wrong by design): no device memory
+    # after the first tiles (later tiles compute on the stage buffers as
+    # they are, no output leaves), no block barrier after the first two
+    # tiles, no shuffles for the rolls.
+    "sv_no_global": ("sv_backward", "fb_circ.cu", [
+        ("    if (u > 0)\n      sv_flush<LPB, KT>(",
+         "    if (u > 0 && u < 3)\n      sv_flush<LPB, KT>("),
+        ("    if (u + 1 < tiles)\n      sv_stage<LPB, KT>(",
+         "    if (u + 1 < tiles && u < 2)\n      sv_stage<LPB, KT>(")]),
+    "sv_no_barrier": ("sv_backward", "fb_circ.cu", [
+        ("    __syncthreads();      // then everyone's: tile u has landed",
+         "    if (u < 2) __syncthreads();")]),
+    "sv_no_roll": ("sv_backward", "fb_circ.cu", [
+        ("    rows.roll(p, p1, 1);\n    rows.roll(ga, g2, 1);\n"
+         "    rows.roll(gb, g4, 1);",
+         "    for (int r = 0; r < RPT; ++r) {\n      p1[r] = p[r];\n"
+         "      g2[r] = ga[r];\n      g4[r] = gb[r];\n    }")]),
+    # R with byte stores (no transpose), and with every code read from
+    # device memory (no windows).
+    "rel_bytes": ("expand_rel", "expand.cu", [
+        ("constexpr bool R_PACK = true;", "constexpr bool R_PACK = false;")]),
+    # R with other tiles and blocks.
+    **{"rel_tile%d" % n: ("expand_rel", "expand.cu", [
+        ("constexpr int R_TILE = 32;", "constexpr int R_TILE = %d;" % n)])
+       for n in (16, 64)},
+    **{"rel_threads%d" % n: ("expand_rel", "expand.cu", [
+        ("constexpr int R_THREADS = 64;",
+         "constexpr int R_THREADS = %d;" % n)]) for n in (32, 128)},
+    "rel_direct": ("expand_rel", "expand.cu", [
+        ("  const int nw = rel_window_words(Wp);", "  const int nw = 0;")]),
+    # R with one part removed (outputs wrong by design): no window staged
+    # (the rows read whatever shared memory holds), almost no store (the
+    # rows are computed, a store only where a data-dependent test holds).
+    "rel_no_stage": ("expand_rel", "expand.cu", [
+        ("  if (win) {\n#pragma unroll\n    for (int q = 0; q < R_GROUP; ++q)"
+         " {\n      rel_stage(",
+         "  if (false) {\n#pragma unroll\n    for (int q = 0; q < R_GROUP; "
+         "++q) {\n      rel_stage(")]),
+    "rel_no_store": ("expand_rel", "expand.cu", [
+        ("                  const uint32_t (&X)[4]) {\n",
+         "                  const uint32_t (&X)[4]) {\n"
+         "    if ((Y[0] ^ X[1]) != 0x5a5a5a5au) return;\n")]),
 }
 
 
@@ -1040,6 +1183,8 @@ def estep(this_fn, other_fn):
 RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_wavefront": lambda *a: run_probe(
             *a, kernels=("banded_nw", "mea_dl")),
+        "probe_fused": lambda *a: run_probe(
+            *a, kernels=("sv_backward", "expand_rel")),
         "counts": run_counts}
 
 if __name__ == "__main__":

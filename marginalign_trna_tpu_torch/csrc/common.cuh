@@ -7,12 +7,14 @@
 //     (threadIdx.y, RPT rows per thread when Wp exceeds 32); the band's
 //     0/+-1 row shifts between diagonals go through shared memory with one
 //     barrier per diagonal;
-//   warp per lane (M, K1, D): the lane's band rows on the threads of its
-//     warp, RPT rows a thread (row k = kk + 32 r on thread kk in M,
-//     k = RPT kk + r in K1 and D, `WarpRows`), so a row shift is a warp
+//   warp per lane (S, M, K1, D): the lane's band rows on the threads of
+//     its warp, RPT rows a thread (row k = kk + 32 r on thread kk in M,
+//     k = RPT kk + r in S, K1 and D, `WarpRows`), so a row shift is a warp
 //     shuffle and a diagonal needs no block barrier; the block stages a
 //     tile of diagonals of its lanes in shared memory (cp.async) and
 //     writes its outputs from there, one barrier per tile.
+// The code expansions E and R take neither: a thread owns one lane (E) or
+// four (R) and a tile of diagonals (csrc/expand.cu).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -296,12 +298,13 @@ inline cudaError_t kernel_info(const void* kernel, size_t smem, int threads,
   return cudaSuccess;
 }
 
-// The lanes a block (16 or 8) of K1's and D's warp-per-lane kernels over B
-// lanes on the current device: 16 where that block fits shared memory
-// (smem(lanes) bytes) and every SM still gets one (B >= 16 x SMs), else 8,
-// as M takes them (csrc/fb_circ.cu `mw_lanes`).  A block copies LPB lanes
-// of a row at a time, and K1 at 4 lanes (4-byte pieces) ran slower than
-// at 8 even where 8 leave SMs idle (kernel_ab.py's probe group).
+// The lanes a block (16 or 8) of S's, K1's and D's warp-per-lane kernels
+// over B lanes on the current device: 16 where that block fits shared
+// memory (smem(lanes) bytes) and every SM still gets one (B >= 16 x SMs),
+// else 8, as M takes them (csrc/fb_circ.cu `mw_lanes`).  A block copies
+// LPB lanes of a row at a time, and K1 at 4 lanes (4-byte pieces) ran
+// slower than at 8 even where 8 leave SMs idle (kernel_ab.py's probe
+// group).
 template <class Smem>
 inline cudaError_t warp_lanes(int B, Smem smem, int* lanes) {
   int dev = 0, sms = 0, cap = 0;

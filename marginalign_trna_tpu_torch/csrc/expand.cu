@@ -39,13 +39,21 @@
 //
 // R replaces fb_pallas.py `expand_rel_codes` (`_make_expand_rel_kernel`),
 // whose delay line shifts a read window up when lo steps and a ref window
-// down when it does not, fed by `monotone_gather`.  Here one thread per
-// (d, row k, lane) in closed form: i = lo(d) + k, j = d - i,
+// down when it does not, fed by `monotone_gather`.  Its closed form: row k
+// of diagonal d holds i = lo(d) + k, j = d - i,
 //   xb = refs[clip(j - 1)],  yb = reads[clip(i - 1)],
 // which equals the host packer's xb / yb at every in-band cell (the guide
-// Viterbi reads codes only there).  2 B written per cell; it keeps E's
-// first design (per-cell divisions and lane-scattered gathers), which
-// bounds it as it bounded E.
+// Viterbi reads codes only there) and the plain version on every cell.
+//
+// What bounds R on an H100: the 2 B a cell it writes.  The first design
+// (one thread per cell, three 64-bit divisions a cell, lane-scattered
+// gathers) took 2.04 ms at [7168, 48, 1024], 9.2x its 0.221 ms byte
+// bound.  This design (section "R" below) takes 0.39 ms there (1.8x):
+// without its stores it takes 0.15 ms (kernel_ab.py's probe group), so
+// its 704 MB leave at ~1.8 TB/s.  Its code windows beat direct loads
+// 1.6x, and one 32-bit store of four lanes a row beats four byte stores
+// 1.3-1.5x; tiles of 16 or 64 diagonals and blocks of 32 or 128 threads
+// move it by under 7%.
 #include <climits>
 
 #include "common.cuh"

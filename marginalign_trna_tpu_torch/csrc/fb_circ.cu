@@ -54,9 +54,10 @@
 //                   writes the circular posterior band.  The replay runs
 //                   the backward's code on the backward's state, so it is
 //                   bit-identical to a stored band.
-// The forwards but mw run one recursion (`CircForward`), mw the same
-// arithmetic in a kernel of its own (warp per lane; "M: mw_forward"
-// below), and all backwards one (`CircBackward`).
+// The forwards but mw run one recursion (`CircForward`) and the backwards
+// but sv_backward another (`CircBackward`); mw and sv_backward run the same
+// arithmetic in kernels of their own (warp per lane; "M: mw_forward" and
+// "S: sv_backward" below).
 // In the circular layout row r holds read prefix index i = r (mod Wp), so
 // every band motion is an unconditional roll by one row: the match move
 // reads row k - 1 of generation d - 2 (forward) or k + 1 of d + 2
@@ -72,19 +73,20 @@
 // zero-padded steps.  Built with -fmad=false and with the plain versions'
 // order of operations, so they round as the plain versions do.
 //
-// What bounds them on an H100: per cell the backward reads 1-5 B and
-// writes 4 B, the forward reads 9-13 B and writes 0-4 B, against ~25 flops;
-// a full card would be memory bound, but at the main path's shapes the
-// chain of d1k dependent diagonals (a block barrier each, two on rescale
-// steps) bounds them first.  One block owns 32 lanes x all Wp rows, keeps
-// both frontier generations and the accumulators in shared memory; rolling
+// What bounds the two templates' kernels (C, circ_post_*, the serving and
+// checkpoint backwards) on an H100: per cell a backward reads 1-5 B and
+// writes 4 B, a forward reads 9-13 B and writes 0-4 B, against ~25 flops;
+// a full card would be memory bound, but at the paths' shapes the chain of
+// d1k dependent diagonals (a block barrier each, two on rescale steps)
+// bounds them first.  One block owns 32 lanes x all Wp rows and keeps both
+// frontier generations and the accumulators in shared memory; rolling
 // accumulators sit at physical row (k - d) mod Wp, so their roll moves no
 // data.  cx never stores a posterior.  The checkpoint pair moves 24 / KB B
-// per cell between its kernels instead of
-// the 8 B of a stored band and its re-read; its replay doubles the
-// posterior pass's recursion and needs (24 + KB) planes of shared memory
-// (KB = 32 at Wp 24: 176 KB; KB = 8 up to Wp 56), or, for wider bands,
-// the forward's 12 planes and the replay in device memory.
+// per cell between its kernels instead of the 8 B of a stored band and its
+// re-read; its replay doubles the posterior pass's recursion and needs
+// (24 + KB) planes of shared memory (KB = 32 at Wp 24: 176 KB; KB = 8 up
+// to Wp 56), or, for wider bands, the forward's 12 planes and the replay
+// in device memory.  S and M: their sections below.
 #include "common.cuh"
 
 namespace {
@@ -589,7 +591,8 @@ struct CxSink {
 
 // ----------------------------------------------------------------- kernels
 
-// S and its other emission sources: bm, bls, logZ.
+// The serving backwards (emission sources emv, codes, codes_es): bm, bls,
+// logZ.
 template <int RPT, class Src>
 __global__ void __launch_bounds__(1024)
     circ_backward_kernel(Src src, EmitTable tab,
@@ -1127,72 +1130,93 @@ __global__ void __launch_bounds__(32 * LPB)
 // and gap states 2 and 4 row k + 1 of d + 1, so generation d's e_M * b_M
 // and its gap states 2 and 4 roll up one row when they are published (one
 // shuffle each) and a diagonal needs no block barrier; the rescale's band
-// max at d % 8 == 0 is a warp reduction.  The block stages tiles of SV_KT
-// descending diagonals of es with cp.async, one tile ahead (tiles start at
-// multiples of SV_KT, so d % 8 is the tile row and the top tile is partial
-// when d1k % 8 != 0), and collects each tile's bm rows and bls in shared
-// memory, written out as lane-contiguous segments once the next tile's
-// barrier has passed: one barrier per SV_KT diagonals.  Arithmetic in
-// CircBackward's order (-fmad=false), so it equals the plain version bit
-// for bit.
-constexpr int SV_KT = 8;  // diagonals a tile
+// max at d % 8 == 0 is a warp reduction.  The block stages tiles of KT
+// descending diagonals of es with cp.async, one tile ahead, into a ring of
+// SV_RING buffers; a thread overwrites each es value it has read with its
+// b_M, so the tile leaves from the same buffer, as lane-contiguous
+// segments, once the next tile's barrier has passed: one barrier per KT
+// diagonals.  Tiles start at multiples of KT, so d % 8 is fixed by the
+// tile row (a whole tile runs unrolled, its rescale and division steps
+// known at compile time), and the top tile is partial when d1k is no
+// multiple of KT.  Arithmetic in CircBackward's order (-fmad=false), so it
+// equals the plain version bit for bit.
+//
+// What bounds it on an H100 (kernel_ab.py's probe group, [3072, 24, 4096]:
+// 1.51 ms against a 0.74 ms byte bound): instruction issue along each
+// warp's chain of dependent diagonals.  A gap-chain step is ~56
+// instructions (3 of them shuffles), with 8 of the warp's 32 threads past
+// the band at Wp 24; without device memory after the first tiles it takes
+// 1.24 ms, without the row shuffles 1.47, without the block barrier 1.45.
+// Copying the tiles without cp.async costs 11%, 8 lanes a block instead of
+// 16 7%, and 8-diagonal tiles 7% at Wp 24.
+constexpr int SV_RING = 3;  // tile buffers: computed, leaving, arriving
 
-// A stage buffer holds the es rows of a tile [LPB][sv_stride(Wp)] (lane
-// w's row k of tile row kb at w * stride + kb * Wp + k), an output tile
-// the bm rows in the same layout, then bls [LPB][SV_KT].
-__host__ __device__ inline int sv_stride(int Wp) { return SV_KT * Wp + 1; }
-__host__ __device__ inline int sv_in_floats(int Wp, int lpb) {
-  return lpb * sv_stride(Wp);
+// KT, the diagonals a tile at rpt band rows a thread: 16 at one row (every
+// path's Wp 24), 8 for wider bands, where a ring of 16-diagonal tiles
+// leaves room for one block an SM (kernel_ab.py's probe group).
+__host__ __device__ constexpr int sv_kt(int rpt) { return rpt == 1 ? 16 : 8; }
+static_assert(sv_kt(1) % 8 == 0 && sv_kt(2) % 8 == 0,
+              "tiles hold whole rescale periods");
+
+// A buffer holds a tile's es rows, then its bm rows, [LPB][sv_stride]
+// (lane w's row k of tile row kb at w * stride + kb * Wp + k; the last
+// float of a lane's rows is read by the threads past the band), then bls
+// [LPB][KT].
+__host__ __device__ inline int sv_stride(int Wp, int kt) {
+  return kt * Wp + 1;
 }
-__host__ __device__ inline int sv_out_floats(int Wp, int lpb) {
-  return lpb * (sv_stride(Wp) + SV_KT);
+__host__ __device__ inline int sv_buf_floats(int Wp, int lpb, int kt) {
+  return lpb * (sv_stride(Wp, kt) + kt);
 }
-// Two stage buffers and two output tiles: 8 lpb (16 Wp + 10) bytes.
+// The ring: 12 lpb (KT (Wp + 1) + 1) bytes.
 inline size_t sv_smem(int Wp, int lpb) {
-  return 2 * (size_t)(sv_in_floats(Wp, lpb) + sv_out_floats(Wp, lpb)) *
-         sizeof(float);
+  const int kt = sv_kt(mk::rows_per_thread(Wp));
+  return (size_t)SV_RING * sv_buf_floats(Wp, lpb, kt) * sizeof(float);
 }
 
 // Starts the copy of the es rows of diagonals d0 .. d0 + n - 1 of the
-// block's lanes into stage buffer S (one group), as mw_stage copies.
-template <int LPB>
+// block's lanes into buffer S (one group), as mw_stage copies.
+template <int LPB, int KT>
 __device__ __forceinline__ void sv_stage(float* S, int d0, int n, int b0,
                                          int Wp, int B,
                                          const float* __restrict__ es) {
-  const int w = threadIdx.x % LPB, b = b0 + w;
-  if (b < B) {
-    const size_t g = (size_t)d0 * Wp * B + b;
-    float* s = S + w * sv_stride(Wp);
+  const int w = threadIdx.x % LPB;
+  if (b0 + w < B) {
+    const size_t g = (size_t)d0 * Wp * B + b0 + w;
+    float* s = S + w * sv_stride(Wp, KT);
     for (int r = threadIdx.x / LPB; r < n * Wp; r += 32)
       mk::cp_async4(s + r, es + g + (size_t)r * B);
   }
   mk::cp_async_commit();
 }
 
-// Writes output tile O (diagonals d0 .. d0 + n - 1) in sv_stage's order.
-template <int LPB>
+// Writes the bm rows and bls of buffer O (diagonals d0 .. d0 + n - 1) in
+// sv_stage's order.
+template <int LPB, int KT>
 __device__ __forceinline__ void sv_flush(const float* O, int d0, int n,
                                          int b0, int Wp, int B,
                                          float* __restrict__ bm,
                                          float* __restrict__ bls) {
-  const int w = threadIdx.x % LPB, b = b0 + w;
-  if (b >= B) return;
-  const size_t g = (size_t)d0 * Wp * B + b;
-  const float* s = O + w * sv_stride(Wp);
+  const int w = threadIdx.x % LPB;
+  if (b0 + w >= B) return;
+  const size_t g = (size_t)d0 * Wp * B + b0 + w;
+  const float* s = O + w * sv_stride(Wp, KT);
   for (int r = threadIdx.x / LPB; r < n * Wp; r += 32)
     bm[g + (size_t)r * B] = s[r];
   const int kb = threadIdx.x / LPB;
   if (kb < n)
-    bls[(size_t)(d0 + kb) * B + b] =
-        O[LPB * sv_stride(Wp) + w * SV_KT + kb];
+    bls[(size_t)(d0 + kb) * B + b0 + w] =
+        O[LPB * sv_stride(Wp, KT) + w * KT + kb];
 }
 
 // The backward of one lane, its rows as mk::WarpRows.
 template <int RPT>
 struct SvWarp {
+  static constexpr int KT = sv_kt(RPT);
   const CircCoef& K;
   mk::WarpRows<RPT> rows;
-  int chain, Wp, fd, fk;
+  int chain, Wp, fd;
+  bool at_fk[RPT];  // row k is the terminal row
   float bls = 0.f, cprev = 1.f;
   float nb[RPT][5];
   float p1[RPT], p2[RPT];  // e_M * b_M of d+1, d+2, rolled up
@@ -1200,35 +1224,41 @@ struct SvWarp {
                                              // rolled up)
 
   __device__ SvWarp(const CircCoef& K_, int chain_, int Wp_, int fd_,
-                    int fk_)
-      : K(K_), rows(Wp_), chain(chain_), Wp(Wp_), fd(fd_), fk(fk_) {
+                    int fk)
+      : K(K_), rows(Wp_), chain(chain_), Wp(Wp_), fd(fd_) {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
+      at_fk[r] = row(r) == fk;
       p1[r] = p2[r] = g1[r] = g2[r] = g3[r] = g4[r] = 0.f;
-#pragma unroll
-      for (int s = 0; s < 5; ++s) nb[r][s] = 0.f;
     }
   }
 
   __device__ int row(int r) const { return rows.row(r); }
 
-  // Diagonals d0 + n - 1 down to d0 (a tile) of one lane: its es rows at
-  // es, its bm rows to bm and bls to bls_out (tile row kb at kb * Wp, kb).
-  __device__ void tile(const float* es, float* bm, float* bls_out, int d0,
-                       int n) {
-    for (int kb = n - 1; kb >= 0; --kb)
-      step(d0 + kb, kb, es + kb * Wp, bm + kb * Wp, bls_out + kb);
+  // Diagonals d0 + n - 1 down to d0 (a tile) of one lane: its rows at
+  // lane (es in, bm out), bls to bls_out.
+  __device__ void tile(float* lane, float* bls_out, int d0, int n) {
+    if (n == KT) {
+#pragma unroll
+      for (int kb = KT - 1; kb >= 0; --kb)
+        step(d0 + kb, kb, lane, bls_out);
+    } else {
+      for (int kb = n - 1; kb >= 0; --kb) step(d0 + kb, kb, lane, bls_out);
+    }
   }
 
-  // Generation d (tile row kb = d % 8), as CircBackward::step.
-  __device__ void step(int d, int kb, const float* es, float* bm,
-                       float* bls_out) {
-    const bool divide = kb == SV_KT - 1;
+  // Generation d (tile row kb, d % 8 == kb % 8), as CircBackward::step.
+  __device__ void step(int d, int kb, float* lane, float* bls_out) {
+    const bool divide = (kb & 7) == 7;
+    const bool at_fd = d == fd;
     float e[RPT];
+    int off[RPT];  // the row's es value, then its b_M
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int k = row(r);
-      const float x = k < Wp ? es[min(k, Wp - 1)] : -1.f;
+      const bool in = k < Wp;
+      off[r] = in ? kb * Wp + k : KT * Wp;
+      const float x = in ? lane[off[r]] : -1.f;
       const float v = x >= 0.f ? 1.f : 0.f;
       e[r] = fmaxf(x, 0.f);
       float q[5];
@@ -1238,7 +1268,7 @@ struct SvWarp {
       q[2] = g2[r];
       q[3] = g3[r];
       q[4] = g4[r];
-      const bool inj = (d == fd) & (k == fk);
+      const bool inj = at_fd & at_fk[r];
       if (chain) {
         float acc0 = K.t00 * q[0];
 #pragma unroll
@@ -1260,7 +1290,7 @@ struct SvWarp {
         }
       }
     }
-    if (kb == 0) {
+    if ((kb & 7) == 0) {
       float m = 0.f;
 #pragma unroll
       for (int r = 0; r < RPT; ++r)
@@ -1281,8 +1311,8 @@ struct SvWarp {
     }
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
-      if (row(r) < Wp) bm[row(r)] = nb[r][0];
-    if (rows.kk == 0) *bls_out = bls;
+      if (row(r) < Wp) lane[off[r]] = nb[r][0];
+    if (rows.kk == 0) bls_out[kb] = bls;
     publish(e);
   }
 
@@ -1319,8 +1349,10 @@ struct SvWarp {
   }
 };
 
+// At most 64 registers a thread, so that two blocks of 16 lanes (four of
+// 8) fit an SM's registers.
 template <int RPT, int LPB>
-__global__ void __launch_bounds__(32 * LPB)
+__global__ void __launch_bounds__(32 * LPB, 32 / LPB)
     sv_backward_kernel(const float* __restrict__ es,
                        const int32_t* __restrict__ fink,
                        const int32_t* __restrict__ find, CircCoef K,
@@ -1328,36 +1360,38 @@ __global__ void __launch_bounds__(32 * LPB)
                        float* __restrict__ bm, float* __restrict__ bls,
                        float* __restrict__ logZ) {
   extern __shared__ __align__(16) float sv_raw[];
-  const int nin = sv_in_floats(Wp, LPB), nout = sv_out_floats(Wp, LPB);
-  // Stage buffer and output tile of the u-th tile from the top (by
-  // parity), its first diagonal and its count.
-  auto in = [&](int u) { return sv_raw + (u & 1) * nin; };
-  auto out = [&](int u) { return sv_raw + 2 * nin + (u & 1) * nout; };
-  const int tiles = (d1k + SV_KT - 1) / SV_KT;
-  auto first = [&](int u) { return (tiles - 1 - u) * SV_KT; };
-  auto count = [&](int u) { return min(SV_KT, d1k - first(u)); };
+  constexpr int KT = sv_kt(RPT);
+  const int nbuf = sv_buf_floats(Wp, LPB, KT);
+  // The buffer of the u-th tile from the top, its first diagonal and its
+  // count.
+  auto buf = [&](int u) { return sv_raw + (u % SV_RING) * nbuf; };
+  const int tiles = (d1k + KT - 1) / KT;
+  auto first = [&](int u) { return (tiles - 1 - u) * KT; };
+  auto count = [&](int u) { return min(KT, d1k - first(u)); };
   const int w = threadIdx.x >> 5;
   const int b0 = blockIdx.x * LPB, b = b0 + w;
   const bool live = b < B;  // warp-uniform
   SvWarp<RPT> lane(K, chain, Wp, live ? find[b] : -1, live ? fink[b] : -1);
-  sv_stage<LPB>(in(0), first(0), count(0), b0, Wp, B, es);
+  sv_stage<LPB, KT>(buf(0), first(0), count(0), b0, Wp, B, es);
   for (int u = 0; u < tiles; ++u) {
-    // Tile u has landed (this thread's copies, then everyone's), every
-    // warp is past tile u - 1, whose outputs leave now.
-    mk::cp_async_wait();
-    __syncthreads();
+    // Every warp is past tile u - 1, which leaves now; tile u + 1 arrives
+    // in the buffer tile u - 2 left from.
+    mk::cp_async_wait();  // this thread's copies of tile u,
+    __syncthreads();      // then everyone's: tile u has landed
     if (u > 0)
-      sv_flush<LPB>(out(u - 1), first(u - 1), count(u - 1), b0, Wp, B, bm,
-                    bls);
+      sv_flush<LPB, KT>(buf(u - 1), first(u - 1), count(u - 1), b0, Wp, B,
+                        bm, bls);
     if (u + 1 < tiles)
-      sv_stage<LPB>(in(u + 1), first(u + 1), count(u + 1), b0, Wp, B, es);
+      sv_stage<LPB, KT>(buf(u + 1), first(u + 1), count(u + 1), b0, Wp, B,
+                        es);
     if (live)
-      lane.tile(in(u) + w * sv_stride(Wp), out(u) + w * sv_stride(Wp),
-                out(u) + LPB * sv_stride(Wp) + w * SV_KT, first(u),
+      lane.tile(buf(u) + w * sv_stride(Wp, KT),
+                buf(u) + LPB * sv_stride(Wp, KT) + w * KT, first(u),
                 count(u));
   }
   __syncthreads();
-  sv_flush<LPB>(out(tiles - 1), 0, count(tiles - 1), b0, Wp, B, bm, bls);
+  sv_flush<LPB, KT>(buf(tiles - 1), 0, count(tiles - 1), b0, Wp, B, bm,
+                    bls);
   if (live) lane.write_logz(logZ + b);
 }
 

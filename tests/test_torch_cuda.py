@@ -957,15 +957,16 @@ def test_warp_kernels_resources(cuda, name, wp):
 def _random_sv(cuda, d1k, wp, B, chain_model, seed):
     """S's inputs at random: es with 25% invalid cells (-1) and emissions
     in [0, 0.6) elsewhere, terminal rows on any band row and terminal
-    diagonals at 0, at d1k - 1, on a tile edge (8, the first diagonal of
-    the second tile) and anywhere."""
+    diagonals at 0, at d1k - 1, on a rescale edge (8), on a tile edge
+    (16, the first diagonal of the second tile) and anywhere."""
     rng = np.random.default_rng(seed)
     es = (rng.random((d1k, wp, B)) * 0.6).astype(np.float32)
     es[rng.random(es.shape) < 0.25] = -1.0
     find = rng.integers(0, d1k, B).astype(np.int32)
-    find[::4] = 0
-    find[1::4] = d1k - 1
-    find[2::4] = min(8, d1k - 1)
+    find[::5] = 0
+    find[1::5] = d1k - 1
+    find[2::5] = min(8, d1k - 1)
+    find[3::5] = min(16, d1k - 1)
     coef, chain = circ_coefficients(_flat_gap_tables(chain_model))
     return (coef, chain, _t(cuda, es),
             _t(cuda, rng.integers(0, wp, B).astype(np.int32)),
@@ -994,9 +995,10 @@ def test_sv_backward_random_inputs(cuda, wp, B, chain_model):
 
 
 @pytest.mark.parametrize("chain_model", [True, False])
-@pytest.mark.parametrize("d1k", [1, 2, 8, 16])
+@pytest.mark.parametrize("d1k", [1, 2, 8, 16, 17])
 def test_sv_backward_short_bands(cuda, d1k, chain_model):
-    """S over one or two diagonals and over whole tiles."""
+    """S over one or two diagonals, part of a tile, a whole tile and a
+    tile and one diagonal."""
     for wp in (24, 48):
         _sv_equal(cuda, d1k, wp, 33, chain_model, seed=d1k)
 

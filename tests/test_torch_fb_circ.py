@@ -2,7 +2,9 @@
 cx_forward CUDA kernels) vs the JAX package's Pallas kernels
 `_sv_backward_call` and `_cx_from_es` (interpret mode), fed the same es /
 yb / fr streams, for the gap-chain branch (the shipped model) and the
-generic 5x5 branch (a flat-gap model whose gap states exchange mass)."""
+generic 5x5 branch (a flat-gap model whose gap states exchange mass), at
+band widths 21 and 45 (Wp 24 and 48: one and two band rows a thread in
+the warp-per-lane kernels)."""
 import os
 
 import jax
@@ -25,10 +27,7 @@ from marginalign_trna_tpu_torch.ops.fb_circ import circ_coefficients
 MODEL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                      "marginalign_trna_tpu_torch", "models",
                      "last_hmm_20.txt")
-WIDTH = 21
-
-
-def _batch(rng):
+def _batch(rng, width):
     """A 10-base deletion and a 9-base insertion along their guide paths,
     an unguided random pair, a 5 x 8 pair and padded lanes."""
     x = rng.integers(0, 4, size=80).astype(np.int8)
@@ -43,7 +42,7 @@ def _batch(rng):
             rng.integers(0, 4, 8).astype(np.int8)]
     paths = [jband.path_from_cigar([(0, 40), (2, 10), (0, 30)]), None,
              jband.path_from_cigar([(0, 20), (1, 9), (0, 13)]), None]
-    return jband.pack_compact_batch(reads, refs, width=WIDTH, paths=paths,
+    return jband.pack_compact_batch(reads, refs, width=width, paths=paths,
                                     quantize=True)
 
 
@@ -62,14 +61,16 @@ def _tables(chain: bool):
     return tables, st, gc
 
 
-@pytest.fixture(scope="module", params=[True, False], ids=["chain", "mix"])
+@pytest.fixture(scope="module",
+                params=[(True, 21), (False, 21), (True, 45), (False, 45)],
+                ids=["chain", "mix", "chain-wp48", "mix-wp48"])
 def case(request):
-    chain = request.param
+    chain, width = request.param
     jtables, st, gc = _tables(chain)
-    comp = _batch(np.random.default_rng(8))
+    comp = _batch(np.random.default_rng(8), width)
     d1k = -(-comp.num_steps // 8) * 8
     cdev = compact_device_batch(comp)
-    es, yb, fr, _, _ = _expand_streams(st, cdev, WIDTH, d1k, want_yb=True)
+    es, yb, fr, _, _ = _expand_streams(st, cdev, width, d1k, want_yb=True)
     fink = cdev.fink.astype(jnp.int32)[None, :]
     find = cdev.final_d.astype(jnp.int32)[None, :]
     tables = tables_from_jax(jax.device_get(jtables))
