@@ -65,7 +65,8 @@ Phases (any failure exits non-zero without the final result line):
               planted every 150 bases; only E, S, C and X may launch, and
               recall and precision on the planted SNVs must reach 95%.
               Then those kernels against their plain versions on their
-              largest caller launch.
+              largest caller launch (S and C bit-equal, with their
+              resources).
   9. parity   the caller on the SAM's first 32 records on "cpu" and "cuda":
               identical call sets, expectations within 1e-3.
  10. em       marginAlign --em (pipeline.align with em=True: guide -> chain
@@ -82,7 +83,8 @@ Phases (any failure exits non-zero without the final result line):
               E-step batch (the other pair forced through the policy's
               keyword), timed again with one trial (a serial EM trial),
               and S and M on their largest launch with the trained
-              model, which runs their generic 5x5 branch.
+              model, which runs their generic 5x5 branch; the checkpoint
+              forward and backward with their resources.
  11. parity   EM (3 iterations, trial 0 from the shipped model) + realign
               of the first 32 reads on "cpu" and "cuda": trained
               parameters within 1e-4, likelihood histories within rtol
@@ -694,6 +696,8 @@ def compare_sv(args, reps):
 
 
 def compare_cx(args, reps):
+    """C against its plain version: fl and tails bit-equal, with the
+    block size C takes for this launch and its resources."""
     import torch
 
     from marginalign_trna_tpu_torch.ops import fb_circ_cuda as fc
@@ -703,13 +707,17 @@ def compare_cx(args, reps):
     torch.cuda.synchronize()
     err = max((fl - rfl).abs().max().item(),
               (tails - rtails).abs().max().item())
-    check(err <= 2e-4, "C flushes/tails differ by %g (atol 2e-4)" % err)
+    for name, g, r in (("fl", fl, rfl), ("tails", tails, rtails)):
+        check(torch.equal(g, r), "C %s differs from the plain version by %g"
+              % (name, (g - r).abs().max().item()))
+    _, wp, B = args[2].shape
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: fc.cx_forward_cuda(*args), reps),
         "plain_ms": time_ms(lambda: fc.cx_forward_plain(*args), 1),
         "library_ms": None,
         **bound("cx_forward", args[2].numel(), nbytes(*args, fl, tails)),
+        "resources": fc.cx_forward_resources(args[2].device, wp, B),
     }
 
 
@@ -939,6 +947,9 @@ def compare_counts(base, reps):
           "the two counts forwards disagree on lsf or term")
     timed("counts_fwd_ckpt", K.counts_fwd_ckpt_cuda, K.counts_fwd_ckpt_plain,
           fargs, 0.0, ref)
+    report["counts_fwd_ckpt"]["resources"] = K.ckpt_forward_resources(
+        tabs[0].device, streams[0].shape[1], streams[0].shape[2],
+        tabs[0].shape[0])
 
     cargs = (*tabs, ref[0], ref[1], *streams, find, logZ)
     got = K.counts_bwd_ckpt_cuda(*cargs)
@@ -1019,6 +1030,9 @@ def compare_counts_multi(base, reps):
           "the two multi counts forwards disagree on lsf or term")
     timed("counts_multi_fwd_ckpt", K.counts_multi_fwd_ckpt_cuda,
           K.counts_multi_fwd_ckpt_plain, fargs, 0.0, ref)
+    report["counts_multi_fwd_ckpt"]["resources"] = K.ckpt_forward_resources(
+        tabs[0].device, streams[0].shape[1], streams[0].shape[2],
+        tabs[0].shape[0], multi=True)
 
     cargs = (*tabs, ref[0], ref[1], *streams, find, L)
     got = K.counts_multi_bwd_ckpt_cuda(*cargs)

@@ -19,8 +19,9 @@ Groups (fused, wavefront and counts when none is named):
          both timed): K4 banded_mea on the bucket's closed-form weight
          bands, nw_multi on a multi batch at width 40 [1024, 48, 4096],
          mea_multi on random weights over the width-21 multi batch.
-  fused  S (sv_backward), R (expand_rel), M (mw_forward) and E
-         (expand_streams), and the kernels beside them that must not move.
+  fused  S (sv_backward), R (expand_rel), M (mw_forward), E
+         (expand_streams) and C (cx_forward), and the kernels beside them
+         that must not move.
          S and M on a realign bucket [3072, 24, 4096] with the shipped
          model (gap-chain branch), on [3072, 24, 1024] with a flat-gap
          model whose gap states 1 and 2 exchange mass (the generic branch,
@@ -32,14 +33,19 @@ Groups (fused, wavefront and counts when none is named):
          without yb and on the caller batch with yb; their resources
          (`*_resources`), bounds and the largest difference from the plain
          version and from the other checkout on every cell (0 expected).
-         Must not move (bit-equal to the other checkout, both timed): C
-         cx_forward on the caller batch; circ_post_es, circ_backward_emv,
+         Must not move (bit-equal to the other checkout, both timed):
+         circ_post_es, circ_backward_emv,
          circ_backward_codes, circ_backward_codes_es and
          circ_ckpt_backward on the bucket's first 1024 lanes; K1
          banded_nw on R's code bands of the guide batch.  Then the fused
          realign posteriors of the bucket (ops/fb_circ.py
          `posteriors_weights_compact`: E + S + M and the flush streams, a
-         sync) on the host clock.
+         sync) on the host clock.  C (cx_forward) is timed as S and M
+         are: on the caller batch with the shipped model and with the
+         generic model (both coefficient forms), and on the caller's
+         pairs packed at widths 45, 93 and 126 (Wp 48, 96, 128; the
+         other checkout's C may refuse Wp 128), bit-equal to plain and
+         to the other checkout on fl and tails.
   probe  variants of this checkout's S, R, M, E, K1 and D (PROBES:
          source edits of csrc/, in copies under build/probe/), timed
          beside the kernel they vary: S with 8 or 16 lanes a block or its
@@ -53,15 +59,31 @@ Groups (fused, wavefront and counts when none is named):
          lanes a block on the guide batch; D with every gap weight loaded
          from the sums at each diagonal (no delay line) on the bucket.
          probe_fused: the S and R variants only; probe_wavefront: the K1
-         and D variants only.  Named on the command line only: their edits
-         follow the sources' text.
+         and D variants only; probe_counts: the checkpoint forward with
+         8 or 16 lanes a block, with one block staging its lanes' tile
+         once for all three trials (8 lanes x 3 trials a block), with at
+         most 64 registers (it spills) or 80 (at 8 lanes), with its tile
+         loop rolled, with its code tiles copied without cp.async, and
+         with one part removed (no device memory after the first tiles,
+         no block barrier), on the EM batch, the em_multi batch and its
+         first trial; probe_cx: C with 8 or 16 lanes a block, tiles of 16
+         diagonals, at most 64 registers, es and bm copied without
+         cp.async, and with one part removed (no sink, no device memory
+         after the first tiles, no block barrier), on the caller batch.
+         Named on the command line only: their edits follow the sources'
+         text.
   counts scatter_lanes (L) on a realign row-flush stream
-         [3096, 4096]; the checkpoint backwards on the EM batch
-         [3, 512, 24, 8192] and the em_multi batch [3, 1024, 24, 4096]
-         (and its first trial); the instances that must not move:
-         counts_bwd, counts_multi_bwd and fb_generic_bwd; the E-step
-         (`counts_trials` / `counts_multi_trials` with the checkpoint
-         pair, host clock).
+         [3096, 4096]; the checkpoint forwards on the EM batch
+         [3, 512, 24, 8192], on its pairs packed at widths 5, 13 and 29
+         (Wp 8, 16, 32), on the em_multi batch [3, 1024, 24, 4096] and
+         its first trial, bit-equal to plain and to the other checkout on
+         ckpt, cs, lsf and term, with bounds and resources; the
+         checkpoint backwards on the EM batch and the em_multi batch (and
+         its first trial), their counts bit-equal to the other
+         checkout's; the instances that must not move: counts_fwd_all,
+         counts_multi_fwd_all, counts_bwd, counts_multi_bwd,
+         fb_generic_fwd and fb_generic_bwd; the E-step (`counts_trials` /
+         `counts_multi_trials` with the checkpoint pair, host clock).
 
 The other checkout's package is imported under another name and builds its
 own kernels beside its sources.  A time is the CUDA-event mean over REPS
@@ -191,8 +213,9 @@ def flush_stream(port, dev, seed=1):
     return vals.contiguous(), jm.contiguous(), rg
 
 
-def em_batch(band, seed=2):
-    """EM_LANES noisy pairs of up to 250 bases, width 21 (Wp 24)."""
+def em_batch(band, seed=2, width=21):
+    """EM_LANES noisy pairs of up to 250 bases, width 21 (Wp 24) unless
+    `width` says otherwise."""
     rng = np.random.default_rng(seed)
     reads, refs = [], []
     hi = min(251, EM_STEPS // 2 - 5)
@@ -203,7 +226,7 @@ def em_batch(band, seed=2):
         if len(read) + len(ref) + 1 <= EM_STEPS:
             reads.append(read)
             refs.append(ref)
-    return band.pack_banded_batch(reads, refs, width=21,
+    return band.pack_banded_batch(reads, refs, width=width,
                                   pad_steps_to=EM_STEPS)
 
 
@@ -315,7 +338,7 @@ def all_equal(got, want):
 
 
 def kernel_resources(fc, name, cuda, shape):
-    """What this checkout's launch of S, M or R at `shape` [d1k, Wp, B]
+    """What this checkout's launch of S, M, R or C at `shape` [d1k, Wp, B]
     gets on the card (`*_resources`)."""
     _, wp, B = shape
     if name == "expand_rel":
@@ -324,17 +347,19 @@ def kernel_resources(fc, name, cuda, shape):
 
 
 def ab_exact(fc, ofc, name, args, cuda):
-    """S, M or R (`name`) of both checkouts against the plain version on
+    """S, M, R or C (`name`) of both checkouts against the plain version on
     every cell, timed, with bound and resources; where the other
     checkout's kernel refuses the shape, its error and this kernel's
     time."""
     kernel = getattr(fc, name + "_cuda")
     got = outputs(kernel(*args))
     plain = outputs(getattr(fc, name + "_plain")(*args))
-    shape = list(got[0].shape)
+    # C's outputs are per diagonal and position; its band is es's.
+    band = args[2] if name == "cx_forward" else got[0]
+    shape = list(band.shape)
     row = {"shape": shape, "max_abs_err_plain": max_diff(got, plain),
            "bit_equal_plain": all_equal(got, plain),
-           **bound(name, got[0].numel(), nbytes(*args, *got)),
+           **bound(name, band.numel(), nbytes(*args, *got)),
            "resources": kernel_resources(fc, name, cuda, shape)}
     if name != "expand_rel":
         row["chain"] = bool(args[1])
@@ -508,10 +533,15 @@ def run_fused(this, other, cuda, report):
     report["sv_backward_caller"] = ab_exact(fc, ofc, "sv_backward", csargs,
                                             cuda)
     back = fc.sv_backward_cuda(*csargs)
-    report["cx_forward"] = unmoved(fc.cx_forward_cuda, ofc.cx_forward_cuda,
-                                   (coef, chain, es, yb, fl, *back))
-    del cdev, es, yb, fl, back
-    show("expand_streams_caller", "sv_backward_caller", "cx_forward")
+    report["cx_forward"] = ab_exact(fc, ofc, "cx_forward",
+                                    (coef, chain, es, yb, fl, *back), cuda)
+    del back
+    gback = fc.sv_backward_cuda(gcoef, gchain, es, cdev.fink, cdev.final_d)
+    report["cx_forward_generic"] = ab_exact(
+        fc, ofc, "cx_forward", (gcoef, gchain, es, yb, fl, *gback), cuda)
+    del cdev, es, yb, fl, gback
+    show("expand_streams_caller", "sv_backward_caller", "cx_forward",
+         "cx_forward_generic")
 
     # The guide batch: R at width 40 (Wp 48) and K1 on its outputs, then R
     # on the guide's pairs packed at widths 21, 93 and 126.
@@ -530,9 +560,25 @@ def run_fused(this, other, cuda, report):
     show("banded_nw")
     torch.cuda.empty_cache()
 
-    # S and M at wider bands, the bucket's pairs packed at each width
-    # (last: a launch the other checkout refuses leaves its last-error
-    # state set).
+    # C at wider bands, the caller's pairs packed at each width, then S and
+    # M, the bucket's pairs packed at each width (last: a launch the other
+    # checkout refuses leaves its last-error state set, and the block
+    # kernels of that checkout report it at their next launch; its C at
+    # Wp 128 and M at Wp 128 refuse, and S and M report their own launch).
+    for width, wwp in M_WIDE.items():
+        cdev = compact(this, *caller, width, CALLER_STEPS, cuda,
+                       repeat=CALLER_LANES // CALLER_UNIQUE)
+        wes, wyb, wfl = fc.expand_streams_cuda(
+            ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n, width,
+            wwp, CALLER_STEPS, True)
+        name = "cx_forward_wp%d" % wwp
+        report[name] = ab_exact(
+            fc, ofc, "cx_forward",
+            (coef, chain, wes, wyb, wfl, *fc.sv_backward_cuda(
+                coef, chain, wes, cdev.fink, cdev.final_d)), cuda)
+        del cdev, wes, wyb, wfl
+        torch.cuda.empty_cache()
+        show(name)
     for width, wwp in M_WIDE.items():
         wdev = compact(this, *bucket, width, BUCKET_STEPS, cuda)
         wes = fc.expand_streams_cuda(ematch, wdev.reads, wdev.refs, wdev.lo,
@@ -550,6 +596,7 @@ def run_fused(this, other, cuda, report):
         del wdev, wes
         torch.cuda.empty_cache()
         show("sv_backward_wp%d" % wwp, name)
+
 
 
 def guide_nw_args(port, guide, width, cuda):
@@ -700,7 +747,8 @@ def probe_cases(this, cuda, kernels):
     """{kernel: {case: wrapper arguments}} for the probe group's kernels
     of `kernels`: M on the bucket (gap-chain branch) and on M's generic
     row, E on the bucket and the caller batch, K1 on the guide batch, D on
-    the bucket."""
+    the bucket, C on the caller batch, the checkpoint forwards on the EM
+    batch and on the em_multi batch (and its first trial)."""
     fc = sub(this, "ops.fb_circ_cuda")
     fcirc = sub(this, "ops.fb_circ")
     fb = sub(this, "ops.fb")
@@ -722,8 +770,31 @@ def probe_cases(this, cuda, kernels):
                                          gdev.m, gdev.n,
                                          band.padded_band_width(40),
                                          GUIDE_STEPS)}
+    if {"counts_fwd_ckpt", "counts_multi_fwd_ckpt"} & set(kernels):
+        P, fbc = sub(this, "models.hmm"), sub(this, "ops.fb_counts")
+        tables = fb.tables_stacked(models(P, 3), cuda)
+        tabs = (tables.T, tables.Ematch, tables.Egap)
+        *streams, _ = fbc.kernel_inputs(fb.device_batch(em_batch(band),
+                                                        cuda))
+        cases["counts_fwd_ckpt"] = {"em": (*tabs, *streams)}
+        *mstreams, _ = fbc.multi_kernel_inputs(fb.multi_device_batch(
+            multi_batch(band), cuda))
+        cases["counts_multi_fwd_ckpt"] = {
+            "em_multi": (*tabs, *mstreams),
+            "em_multi_one_trial": (*(t[:1].contiguous() for t in tabs),
+                                   *mstreams)}
+    if "cx_forward" in kernels:
+        cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
+                       repeat=CALLER_LANES // CALLER_UNIQUE)
+        es, yb, fl = fc.expand_streams_cuda(
+            ematch, cdev.reads, cdev.refs, cdev.lo, cdev.m, cdev.n, 21, wp,
+            CALLER_STEPS, True)
+        cases["cx_forward"] = {"caller": (coef, chain, es, yb, fl,
+                                          *fc.sv_backward_cuda(
+                                              coef, chain, es, cdev.fink,
+                                              cdev.final_d))}
     if not {"mw_forward", "expand_streams", "sv_backward"} & set(kernels):
-        return cases
+        return {k: v for k, v in cases.items() if k in kernels}
     dev = compact(this, *bucket, 21, BUCKET_STEPS, cuda)
     eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, wp,
              BUCKET_STEPS, False)
@@ -756,6 +827,11 @@ def probe_cases(this, cuda, kernels):
     return {k: v for k, v in cases.items() if k in kernels}
 
 
+def probed(kernel):
+    """The kernels a PROBES variant varies: its kernel or tuple of them."""
+    return kernel if isinstance(kernel, tuple) else (kernel,)
+
+
 def run_probe(this, other, cuda, report, kernels=None):
     """Fills `report["probe"]` with the time of this checkout's kernels of
     `kernels` (every kernel PROBES varies when None) on their probe cases
@@ -764,13 +840,12 @@ def run_probe(this, other, cuda, report, kernels=None):
     outputs equal this checkout's."""
     import torch
 
-    kernels = kernels or tuple(dict.fromkeys(k for k, _, _ in
-                                             PROBES.values()))
+    kernels = kernels or tuple(dict.fromkeys(
+        k for v, _, _ in PROBES.values() for k in probed(v)))
     cases = probe_cases(this, cuda, kernels)
-    variants = {name: (kernel, sub(probe_port(name, source, edits),
-                                   KERNEL_MODULES[kernel]))
+    variants = {name: (probed(kernel), probe_port(name, source, edits))
                 for name, (kernel, source, edits) in PROBES.items()
-                if kernel in kernels}
+                if set(probed(kernel)) & set(kernels)}
     rows = {}
     for kernel, kcases in cases.items():
         for case, args in kcases.items():
@@ -778,10 +853,11 @@ def run_probe(this, other, cuda, report, kernels=None):
             want = outputs(fn(*args))
             row = {"kernel": kernel, "shape": list(want[0].shape),
                    "this_ms_runs": [time_ms(lambda: fn(*args))]}
-            for name, (vkernel, vc) in variants.items():
-                if vkernel != kernel:
+            for name, (vkernels, vport) in variants.items():
+                if kernel not in vkernels:
                     continue
-                vfn = getattr(vc, kernel + "_cuda")
+                vfn = getattr(sub(vport, KERNEL_MODULES[kernel]),
+                              kernel + "_cuda")
                 row[name] = {"ms": time_ms(lambda: vfn(*args)),
                              "equal_this": all_equal(outputs(vfn(*args)),
                                                      want)}
@@ -793,6 +869,27 @@ def run_probe(this, other, cuda, report, kernels=None):
             torch.cuda.empty_cache()
     report["probe"] = rows
     print(json.dumps({"probe": rows}), flush=True)
+
+
+def ab_ckpt_fwd(tc, oc, name, args, cuda):
+    """The checkpoint forward `name` (counts_fwd_ckpt or
+    counts_multi_fwd_ckpt) of both checkouts against the plain version on
+    every output (ckpt, cs, lsf, term), timed, with bound and resources."""
+    kernel, other = (getattr(m, name + "_cuda") for m in (tc, oc))
+    got = kernel(*args)
+    plain = getattr(tc, name + "_plain")(*args)
+    ref = other(*args)
+    ntr = args[0].shape[0]
+    d1k, wp, B = args[3].shape
+    return {"shape": [ntr, d1k, wp, B],
+            "max_abs_err_plain": max_diff(got, plain),
+            "bit_equal_plain": all_equal(got, plain),
+            "max_abs_err_other": max_diff(got, ref),
+            "bit_equal_other": all_equal(got, ref),
+            **ab(lambda: kernel(*args), lambda: other(*args)),
+            **bound(name, ntr * d1k * wp * B, nbytes(*args, *got)),
+            "resources": tc.ckpt_forward_resources(
+                cuda, wp, B, ntr, multi="multi" in name)}
 
 
 def counts_rel(got, want):
@@ -809,17 +906,21 @@ def card():
 
 
 GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
-          "counts")
+          "probe_counts", "probe_cx", "counts")
 DEFAULT_GROUPS = ("fused", "wavefront", "counts")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
+                  "cx_forward": "ops.fb_circ_cuda",
+                  "counts_fwd_ckpt": "ops.fb_counts_cuda",
+                  "counts_multi_fwd_ckpt": "ops.fb_counts_cuda",
                   "expand_streams": "ops.fb_circ_cuda",
                   "sv_backward": "ops.fb_circ_cuda",
                   "expand_rel": "ops.fb_circ_cuda",
                   "banded_nw": "ops.wavefront_cuda",
                   "mea_dl": "ops.wavefront_cuda"}
-# The probe group's variants: name -> (the kernel it varies, its source
-# under csrc/, edits (old, new) of that source).
+# The probe group's variants: name -> (the kernel it varies, or a tuple of
+# the kernels it varies, its source under csrc/, edits (old, new) of that
+# source).
 _LANES_AT = "  *lanes = wide ? 16 : 8;"
 _LANES_CASE = "    case 8: return mw_kernel_rpt<8>(Wp);"
 
@@ -850,10 +951,10 @@ _M_PARTS = {
     "no_roll": [("    out[0] = __shfl_sync(mk::FULL, v[0], kk == 0 ? Wp - 1 : "
                  "kk - 1);", "    out[0] = v[0];")],
     # No expf for the posterior's scale.
-    "no_expf": [("    const float a = expf(ls + rec[kk & 7].bls - lz);",
-                 "    const float a = lz;"),
-                ("        alpha = expf(ls + rec.bls - lz);",
-                 "        alpha = lz;")],
+    "no_expf": [("    const float a = expf(fw.ls + rec[kk & 7].bls - fw.lz);",
+                 "    const float a = fw.lz;"),
+                ("    if (fw.cells(d, kb, es)) alpha = expf(fw.ls + rec.bls - "
+                 "fw.lz);", "    if (fw.cells(d, kb, es)) alpha = fw.lz;")],
 }
 # K1 and D: probe tag -> (kernel, source, its pipeline depth constant and
 # the depth it ships with).
@@ -984,6 +1085,146 @@ PROBES = {
 }
 
 
+# The checkpoint forward (counts_fwd_ckpt, counts_multi_fwd_ckpt): with 8
+# or 16 lanes a block whatever B and Ntr, with one block staging its lanes'
+# tile once for all three trials of a batch (8 lanes x 3 trials a block,
+# against one trial a block), with its code tiles copied by plain loads and
+# stores (no cp.async: csrc/common.cuh `stage_bytes`, which K1 and D of
+# that copy share), and with one part removed (outputs wrong by design):
+# no device memory after the first tiles (later tiles compute on the stage
+# buffers as they are, no output leaves), no block barrier after the first
+# two tiles.
+_CF = ("counts_fwd_ckpt", "counts_multi_fwd_ckpt")
+
+
+def _cf_cap(n):
+    """The checkpoint forward with at least n / LPB blocks an SM: a
+    register cap."""
+    return ("__global__ void __launch_bounds__(32 * LPB)\n"
+            "    counts_fwd_ckpt_kernel(",
+            "__global__ void __launch_bounds__(32 * LPB, %d / LPB)\n"
+            "    counts_fwd_ckpt_kernel(" % n)
+
+
+_CF_ROLLED = ("#pragma unroll\n    for (int kb = 0; kb < K; ++kb) {\n"
+              "      const int t1 = word_of(",
+              "#pragma unroll 1\n    for (int kb = 0; kb < K; ++kb) {\n"
+              "      const int t1 = word_of(")
+_CF_LANES_AT = ("  cudaError_t err = mk::warp_lanes(\n"
+                "      B * ntr, [Wp](int l) { return cf_smem(Wp, l); }, "
+                "lanes);")
+# Three trials a block at 8 lanes where the launch has three trials (else
+# one trial at 16 lanes): the block's warps in groups of LPB, one a trial,
+# each with its own tables and output tiles; the first group stages the
+# tiles all three read.
+_CF_TRIALS = [
+    ("__global__ void __launch_bounds__(32 * LPB)\n"
+     "    counts_fwd_ckpt_kernel(",
+     "__global__ void __launch_bounds__((LPB == 8 ? 96 : 32) * LPB)\n"
+     "    counts_fwd_ckpt_kernel("),
+    ("  float* tab = cf_raw;  // [CF_NTAB]\n"
+     "  uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + CF_NTAB);\n"
+     "  const size_t nin = cf_in_bytes(Wp, LPB), nout = cf_out_bytes(Wp, "
+     "LPB);",
+     "  const int tl = threadIdx.x / (32 * LPB);\n"
+     "  const int ntb = blockDim.x / (32 * LPB);\n"
+     "  float* tab = cf_raw + tl * CF_NTAB;\n"
+     "  uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + 3 * CF_NTAB);\n"
+     "  const size_t nin = cf_in_bytes(Wp, LPB),\n"
+     "               nout = 3 * cf_out_bytes(Wp, LPB);"),
+    ("  const int tid = threadIdx.x, w = tid >> 5;\n"
+     "  const int b0 = blockIdx.x * LPB, b = b0 + w, t = blockIdx.y;",
+     "  const int tid = threadIdx.x % (32 * LPB), w = tid >> 5;\n"
+     "  const int b0 = blockIdx.x * LPB, b = b0 + w,\n"
+     "            t = blockIdx.y * ntb + tl;"),
+    ("  cf_stage<MULTI, LPB>(in(0), 0,",
+     "  if (tl == 0) cf_stage<MULTI, LPB>(in(0), 0,"),
+    ("    if (g > 0)\n      cf_flush<LPB>(out(g - 1), g - 1,",
+     "    if (g > 0)\n"
+     "      cf_flush<LPB>(out(g - 1) + tl * LPB * cf_rec(Wp), g - 1,"),
+    ("    if (g + 1 < G)\n      cf_stage<MULTI, LPB>(",
+     "    if (g + 1 < G && tl == 0)\n      cf_stage<MULTI, LPB>("),
+    ("lane.tile(in(g), out(g) + w * cf_rec(Wp), g, w);",
+     "lane.tile(in(g), out(g) + (tl * LPB + w) * cf_rec(Wp), g, w);"),
+    ("  cf_flush<LPB>(out(G - 1), G - 1,",
+     "  cf_flush<LPB>(out(G - 1) + tl * LPB * cf_rec(Wp), G - 1,"),
+    ("  const int i0 = threadIdx.x / LPB;  // 0 .. 31",
+     "  const int i0 = threadIdx.x % (32 * LPB) / LPB;"),
+    ("  return CF_NTAB * sizeof(float) +\n"
+     "         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb));",
+     "  return 3 * CF_NTAB * sizeof(float) +\n"
+     "         2 * (cf_in_bytes(Wp, lpb) + 3 * cf_out_bytes(Wp, lpb));"),
+    (_CF_LANES_AT,
+     "  cudaError_t err = (*lanes = ntr == 3 ? 8 : 16, cudaSuccess);"),
+    ("dim3((B + lanes - 1) / lanes, ntr),\n"
+     "                          dim3(32 * lanes),",
+     "dim3((B + lanes - 1) / lanes, ntr == 3 ? 1 : ntr),\n"
+     "                          dim3(32 * lanes * (ntr == 3 ? 3 : 1)),"),
+]
+PROBES.update({
+    **{"cf_lanes_%d" % n: (_CF, "fb_counts.cu", [
+        (_CF_LANES_AT, "  cudaError_t err = (*lanes = %d, cudaSuccess);" % n)])
+       for n in (8, 16)},
+    "cf_trials": (_CF, "fb_counts.cu", _CF_TRIALS),
+    "cf_sync_stage": (_CF, "common.cuh", [
+        ("      if (b0 + c < B) cp_async4(dst + row * S + c, s + (size_t)row "
+         "* B + c);",
+         "      if (b0 + c < B) *reinterpret_cast<uint32_t*>(dst + row * S + "
+         "c) = *reinterpret_cast<const uint32_t*>(s + (size_t)row * B + c);")
+    ]),
+    "cf_no_global": (_CF, "fb_counts.cu", [
+        ("    if (g > 0)\n      cf_flush<LPB>(",
+         "    if (g > 0 && g < 3)\n      cf_flush<LPB>("),
+        ("    if (g + 1 < G)\n      cf_stage<MULTI, LPB>(",
+         "    if (g + 1 < G && g < 2)\n      cf_stage<MULTI, LPB>(")]),
+    "cf_cap64": (_CF, "fb_counts.cu", [_cf_cap(32)]),
+    # The tile's diagonals in a rolled loop, without and with the cap;
+    # 8 lanes a block with at most 80 registers (three blocks an SM).
+    "cf_rolled": (_CF, "fb_counts.cu", [_CF_ROLLED]),
+    "cf_rolled_cap64": (_CF, "fb_counts.cu", [_CF_ROLLED, _cf_cap(32)]),
+    "cf_lanes_8_cap80": (_CF, "fb_counts.cu", [
+        (_CF_LANES_AT, "  cudaError_t err = (*lanes = 8, cudaSuccess);"),
+        _cf_cap(24)]),
+    "cf_no_barrier": (_CF, "fb_counts.cu", [
+        ("    mk::cp_async_wait();\n    __syncthreads();\n    if (g > 0)",
+         "    mk::cp_async_wait();\n    if (g < 2) __syncthreads();\n"
+         "    if (g > 0)")]),
+})
+# C: with 8 or 16 lanes a block whatever B, with tiles of 16 diagonals,
+# with at most 64 registers (two blocks of 16 lanes an SM), with its es
+# and bm tiles copied by plain loads and stores (no cp.async), and with
+# one part removed (outputs wrong by design): no sink
+# (no code accumulators, no fl), no device memory after the first tiles,
+# no block barrier after the first two tiles.
+PROBES.update({
+    **{"cx_lanes_%d" % n: ("cx_forward", "fb_circ.cu", [
+        ("      mk::warp_lanes(B, [Wp](int l) { return cx_smem(Wp, l); }, "
+         "lanes);", "      (*lanes = %d, cudaSuccess);" % n)])
+       for n in (8, 16)},
+    "cx_kt16": ("cx_forward", "fb_circ.cu", [
+        ("constexpr int CX_KT = 8;", "constexpr int CX_KT = 16;")]),
+    "cx_sync_stage": ("cx_forward", "fb_circ.cu", [
+        ("      mk::cp_async4(es_s + r, es + at);\n"
+         "      mk::cp_async4(bm_s + r, bm + at);",
+         "      es_s[r] = es[at];\n      bm_s[r] = bm[at];")]),
+    "cx_no_sink": ("cx_forward", "fb_circ.cu", [
+        ("      sink(d0 + kb, rec[kb].fr, post, yb + kb * Wp * "
+         "mk::byte_stride(LPB),\n           fl + kb);\n", "")]),
+    "cx_cap64": ("cx_forward", "fb_circ.cu", [
+        ("__global__ void __launch_bounds__(32 * LPB)\n    cx_forward_kernel(",
+         "__global__ void __launch_bounds__(32 * LPB, 32 / LPB)\n"
+         "    cx_forward_kernel(")]),
+    "cx_no_global": ("cx_forward", "fb_circ.cu", [
+        ("    if (t > 0)\n      cx_flush<LPB>(",
+         "    if (t > 0 && t < 3)\n      cx_flush<LPB>("),
+        ("    if (t + 1 < tiles)\n      cx_stage<LPB>(",
+         "    if (t + 1 < tiles && t < 2)\n      cx_stage<LPB>(")]),
+    "cx_no_barrier": ("cx_forward", "fb_circ.cu", [
+        ("    __syncthreads();  // tile t in, tile t - 1 done",
+         "    if (t < 2) __syncthreads();")]),
+})
+
+
 def main(argv):
     import torch
 
@@ -1050,17 +1291,33 @@ def run_counts(this, other, cuda, report):
     dev = fb.device_batch(batch, cuda)
     xb, yb, valid, s1, fk, fd = fbc.kernel_inputs(dev)
     streams = (xb, yb, valid, s1, fk)
+    report["counts_fwd_ckpt"] = ab_ckpt_fwd(tc, oc, "counts_fwd_ckpt",
+                                            (*tabs, *streams), cuda)
+    print(json.dumps({"counts_fwd_ckpt": report["counts_fwd_ckpt"]}),
+          flush=True)
+    # The checkpoint forward on the batch's pairs packed at widths 5, 13
+    # and 29 (Wp 8, 16, 32).
+    for width in (5, 13, 29):
+        wstreams = fbc.kernel_inputs(fb.device_batch(
+            em_batch(band, width=width), cuda))[:5]
+        name = "counts_fwd_ckpt_wp%d" % wstreams[0].shape[1]
+        report[name] = ab_ckpt_fwd(tc, oc, "counts_fwd_ckpt",
+                                   (*tabs, *wstreams), cuda)
+        print(json.dumps({name: report[name]}), flush=True)
+        del wstreams
+        torch.cuda.empty_cache()
     ck, cs, lsf, term = tc.counts_fwd_ckpt_cuda(*tabs, *streams)
     logZ = fbc.logz_from_terminal(lsf, term, fd)
     cargs = (*tabs, ck, cs, *streams, fd, logZ)
     cells = 3 * xb.numel()
     got = tc.counts_bwd_ckpt_cuda(*cargs)
+    ref = oc.counts_bwd_ckpt_cuda(*cargs)
     report["counts_bwd_ckpt"] = {
         "shape": [3] + list(xb.shape),
         "counts_rel_err_plain": counts_rel(got, tc.counts_bwd_ckpt_plain(
             *cargs)),
-        "counts_rel_err_other": counts_rel(got, oc.counts_bwd_ckpt_cuda(
-            *cargs)),
+        "counts_rel_err_other": counts_rel(got, ref),
+        "bit_equal_other": all_equal(got, ref),
         **ab(lambda: tc.counts_bwd_ckpt_cuda(*cargs),
              lambda: oc.counts_bwd_ckpt_cuda(*cargs)),
         **bound("counts_bwd_ckpt", cells, nbytes(*cargs, *got)),
@@ -1070,9 +1327,13 @@ def run_counts(this, other, cuda, report):
     report["counts_bwd_ckpt"]["one_trial"] = ab(
         lambda: tc.counts_bwd_ckpt_cuda(*one),
         lambda: oc.counts_bwd_ckpt_cuda(*one))
-    del ck, cs, cargs, one, got
+    del ck, cs, cargs, one, got, ref
     print(json.dumps({"counts_bwd_ckpt": report["counts_bwd_ckpt"]}),
           flush=True)
+    report["counts_fwd_all"] = unmoved(tc.counts_fwd_all_cuda,
+                                       oc.counts_fwd_all_cuda,
+                                       (*tabs, *streams))
+    torch.cuda.empty_cache()
     f_all, lsf, term = tc.counts_fwd_all_cuda(*tabs, *streams)
     bargs = (*tabs, f_all, lsf, *streams, fd, logZ)
     got, ref = tc.counts_bwd_cuda(*bargs), oc.counts_bwd_cuda(*bargs)
@@ -1096,16 +1357,24 @@ def run_counts(this, other, cuda, report):
     mdev = fb.multi_device_batch(mb, cuda)
     *mstreams, mfk, mfd = fbc.multi_kernel_inputs(mdev)
     mstreams = (*mstreams, mfk)
+    report["counts_multi_fwd_ckpt"] = ab_ckpt_fwd(
+        tc, oc, "counts_multi_fwd_ckpt", (*tabs, *mstreams), cuda)
+    report["counts_multi_fwd_ckpt"]["one_trial"] = ab_ckpt_fwd(
+        tc, oc, "counts_multi_fwd_ckpt",
+        (*(t[:1].contiguous() for t in tabs), *mstreams), cuda)
+    print(json.dumps({"counts_multi_fwd_ckpt":
+                      report["counts_multi_fwd_ckpt"]}), flush=True)
     ck, cs, lsf, term = tc.counts_multi_fwd_ckpt_cuda(*tabs, *mstreams)
     L, _ = fb.multi_logz(lsf, term, mdev)
     cargs = (*tabs, ck, cs, *mstreams, mfd, L)
     got = tc.counts_multi_bwd_ckpt_cuda(*cargs)
+    ref = oc.counts_multi_bwd_ckpt_cuda(*cargs)
     report["counts_multi_bwd_ckpt"] = {
         "shape": [3] + list(mstreams[0].shape),
         "counts_rel_err_plain": counts_rel(
             got, tc.counts_multi_bwd_ckpt_plain(*cargs)),
-        "counts_rel_err_other": counts_rel(
-            got, oc.counts_multi_bwd_ckpt_cuda(*cargs)),
+        "counts_rel_err_other": counts_rel(got, ref),
+        "bit_equal_other": all_equal(got, ref),
         **ab(lambda: tc.counts_multi_bwd_ckpt_cuda(*cargs),
              lambda: oc.counts_multi_bwd_ckpt_cuda(*cargs)),
         **bound("counts_multi_bwd_ckpt", 3 * mstreams[0].numel(),
@@ -1117,9 +1386,13 @@ def run_counts(this, other, cuda, report):
     report["counts_multi_bwd_ckpt"]["one_trial"] = ab(
         lambda: tc.counts_multi_bwd_ckpt_cuda(*one),
         lambda: oc.counts_multi_bwd_ckpt_cuda(*one))
-    del ck, cs, cargs, one, got
+    del ck, cs, cargs, one, got, ref
     print(json.dumps({"counts_multi_bwd_ckpt":
                       report["counts_multi_bwd_ckpt"]}), flush=True)
+    report["counts_multi_fwd_all"] = unmoved(tc.counts_multi_fwd_all_cuda,
+                                             oc.counts_multi_fwd_all_cuda,
+                                             (*tabs, *mstreams))
+    torch.cuda.empty_cache()
     f_all, lsf, term = tc.counts_multi_fwd_all_cuda(*tabs, *mstreams)
     bargs = (*tabs, f_all, lsf, *mstreams, mfd, L)
     got = tc.counts_multi_bwd_cuda(*bargs)
@@ -1146,6 +1419,9 @@ def run_counts(this, other, cuda, report):
     gdev = fb.device_batch(generic_batch(band), cuda)
     xb, yb, valid, s1, fk, fd = fbc.kernel_inputs(gdev)
     gstreams = (xb, yb, valid, s1, fk)
+    report["fb_generic_fwd"] = unmoved(tg.fb_generic_fwd_cuda,
+                                       og.fb_generic_fwd_cuda,
+                                       (*gtabs, *gstreams))
     fm, lsf, term = tg.fb_generic_fwd_cuda(*gtabs, *gstreams)
     lz = fbc.logz_from_terminal(lsf[None], term[None], fd)[0]
     gargs = (*gtabs, fm, lsf, *gstreams, fd, lz)
@@ -1185,6 +1461,9 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
             *a, kernels=("banded_nw", "mea_dl")),
         "probe_fused": lambda *a: run_probe(
             *a, kernels=("sv_backward", "expand_rel")),
+        "probe_counts": lambda *a: run_probe(
+            *a, kernels=("counts_fwd_ckpt", "counts_multi_fwd_ckpt")),
+        "probe_cx": lambda *a: run_probe(*a, kernels=("cx_forward",)),
         "counts": run_counts}
 
 if __name__ == "__main__":

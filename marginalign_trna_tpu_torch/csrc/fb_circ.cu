@@ -54,10 +54,11 @@
 //                   writes the circular posterior band.  The replay runs
 //                   the backward's code on the backward's state, so it is
 //                   bit-identical to a stored band.
-// The forwards but mw run one recursion (`CircForward`) and the backwards
-// but sv_backward another (`CircBackward`); mw and sv_backward run the same
-// arithmetic in kernels of their own (warp per lane; "M: mw_forward" and
-// "S: sv_backward" below).
+// The serving and checkpoint forwards run one recursion (`CircForward`)
+// and the backwards but sv_backward another (`CircBackward`); mw and cx
+// run the forward's arithmetic in the warp-per-lane layout (`WarpForward`,
+// each with a sink of its own: "M: mw_forward" and "C: cx_forward" below)
+// and sv_backward the backward's ("S: sv_backward").
 // In the circular layout row r holds read prefix index i = r (mod Wp), so
 // every band motion is an unconditional roll by one row: the match move
 // reads row k - 1 of generation d - 2 (forward) or k + 1 of d + 2
@@ -73,20 +74,18 @@
 // zero-padded steps.  Built with -fmad=false and with the plain versions'
 // order of operations, so they round as the plain versions do.
 //
-// What bounds the two templates' kernels (C, circ_post_*, the serving and
+// What bounds the two templates' kernels (circ_post_*, the serving and
 // checkpoint backwards) on an H100: per cell a backward reads 1-5 B and
 // writes 4 B, a forward reads 9-13 B and writes 0-4 B, against ~25 flops;
 // a full card would be memory bound, but at the paths' shapes the chain of
 // d1k dependent diagonals (a block barrier each, two on rescale steps)
 // bounds them first.  One block owns 32 lanes x all Wp rows and keeps both
-// frontier generations and the accumulators in shared memory; rolling
-// accumulators sit at physical row (k - d) mod Wp, so their roll moves no
-// data.  cx never stores a posterior.  The checkpoint pair moves 24 / KB B
+// frontier generations in shared memory.  The checkpoint pair moves 24 / KB B
 // per cell between its kernels instead of the 8 B of a stored band and its
 // re-read; its replay doubles the posterior pass's recursion and needs
 // (24 + KB) planes of shared memory (KB = 32 at Wp 24: 176 KB; KB = 8 up
 // to Wp 56), or, for wider bands, the forward's 12 planes and the replay
-// in device memory.  S and M: their sections below.
+// in device memory.  S, M and C: their sections below.
 #include "common.cuh"
 
 namespace {
@@ -101,17 +100,12 @@ struct EmitTable {
 
 // Thread coordinates every recursion and sink needs.
 struct Lanes {
-  int L, TY, lane, ty, b, plane, Wp, B, d1k;
+  int L, TY, lane, ty, b, plane, Wp, B;
   bool live;
-  __device__ Lanes(int Wp_, int B_, int d1k_)
+  __device__ Lanes(int Wp_, int B_)
       : L(blockDim.x), TY(blockDim.y), lane(threadIdx.x), ty(threadIdx.y),
         b(blockIdx.x * blockDim.x + threadIdx.x), plane(Wp_ * blockDim.x),
-        Wp(Wp_), B(B_), d1k(d1k_), live(b < B_) {}
-  // Physical row of logical row k of a rolling accumulator at diagonal d.
-  __device__ int rolled(int k, int d) const {
-    const int rot = d % Wp;
-    return (k - rot < 0 ? k - rot + Wp : k - rot) * L + lane;
-  }
+        Wp(Wp_), B(B_), live(b < B_) {}
 };
 
 // Zeroes n floats of shared memory with every thread of the block.
@@ -517,12 +511,11 @@ struct CircForward {
   }
 };
 
-// ------------------------------------------------------------------- sinks
+// -------------------------------------------------------------------- sink
 
 // The circular posterior band.
 template <int RPT>
 struct PostSink {
-  static constexpr int PLANES = 0;
   const Lanes& t;
   float* __restrict__ post;
 
@@ -532,59 +525,6 @@ struct PostSink {
     for (int r = 0; r < RPT; ++r) {
       const int k = t.ty + r * t.TY;
       if (k < t.Wp) post[mk::cell(d, k, t.b, t.Wp, t.B)] = p[r];
-    }
-  }
-  __device__ void finish() {}
-};
-
-// cx: four rolling accumulators by read code; the completing row fr[d]
-// leaves into fl[c][d] before this diagonal's posteriors add in.
-template <int RPT>
-struct CxSink {
-  static constexpr int PLANES = 4;
-  const Lanes& t;
-  const int8_t* __restrict__ yb;
-  const int32_t* __restrict__ fr;
-  float* __restrict__ fl;
-  float* __restrict__ tails;
-  float* shA;  // [4][Wp][L] accumulators, row (k - d) mod Wp
-
-  __device__ void step(int d, const float (&post)[RPT]) {
-    const int frd = t.live ? fr[(size_t)d * t.B + t.b] : -1;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      const int p = t.rolled(k, d);
-      const int code =
-          t.live ? (int)yb[mk::cell(d, k, t.b, t.Wp, t.B)] : -1;
-      const bool flush = k == frd;
-      // The origin cell holds the start distribution and emits nothing.
-      const float pv = d == 0 && k == 0 ? 0.f : post[r];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float rolled = shA[c * t.plane + p];
-        if (flush && t.live) fl[((size_t)c * t.d1k + d) * t.B + t.b] = rolled;
-        shA[c * t.plane + p] = (flush ? 0.f : rolled) + (code == c ? pv : 0.f);
-      }
-    }
-    if (t.live && t.ty == 0 && (frd < 0 || frd >= t.Wp)) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        fl[((size_t)c * t.d1k + d) * t.B + t.b] = 0.f;
-    }
-  }
-
-  __device__ void finish() {
-    if (!t.live) return;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      const int p = t.rolled(k, t.d1k - 1);
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        tails[((size_t)c * t.Wp + k) * t.B + t.b] = shA[c * t.plane + p];
     }
   }
 };
@@ -603,7 +543,7 @@ __global__ void __launch_bounds__(1024)
                          float* __restrict__ logZ) {
   extern __shared__ float smem[];
   __shared__ float shE[25];
-  const Lanes t(Wp, B, d1k);
+  const Lanes t(Wp, B);
   load_table(tab, shE);
   Src s = src;
   s.bind(shE);
@@ -623,37 +563,6 @@ __global__ void __launch_bounds__(1024)
   bw.write_logz(logZ);
 }
 
-// The forward with a sink: cx, mw and the circular posterior band.
-template <int RPT, class Src, class Sink>
-__device__ __forceinline__ void forward_all(const Lanes& t, const Src& src,
-                                            const CircCoef& K, int chain,
-                                            const float* bm, const float* bls,
-                                            const float* logZ, float* smem,
-                                            Sink& sink) {
-  zero_smem(smem, (12 + Sink::PLANES) * t.plane);
-  CircForward<RPT, Src> fw(t, src, K, chain, logZ, smem);
-  __syncthreads();
-  fw.run(0, t.d1k, GlobalBack{bm, bls}, sink);
-  sink.finish();
-}
-
-template <int RPT>
-__global__ void __launch_bounds__(1024)
-    cx_forward_kernel(const float* __restrict__ es,
-                      const int8_t* __restrict__ yb,
-                      const int32_t* __restrict__ fr,
-                      const float* __restrict__ bm,
-                      const float* __restrict__ bls,
-                      const float* __restrict__ logZ, CircCoef K, int chain,
-                      int d1k, int Wp, int B, float* __restrict__ fl,
-                      float* __restrict__ tails) {
-  extern __shared__ float smem[];
-  const Lanes t(Wp, B, d1k);
-  const EsSrc src{es};
-  CxSink<RPT> sink{t, yb, fr, fl, tails, smem + 12 * t.plane};
-  forward_all<RPT>(t, src, K, chain, bm, bls, logZ, smem, sink);
-}
-
 template <int RPT, class Src>
 __global__ void __launch_bounds__(1024)
     circ_post_kernel(Src src, EmitTable tab, const float* __restrict__ bm,
@@ -662,12 +571,15 @@ __global__ void __launch_bounds__(1024)
                      int d1k, int Wp, int B, float* __restrict__ post) {
   extern __shared__ float smem[];
   __shared__ float shE[25];
-  const Lanes t(Wp, B, d1k);
+  const Lanes t(Wp, B);
   load_table(tab, shE);
   Src s = src;
   s.bind(shE);
   PostSink<RPT> sink{t, post};
-  forward_all<RPT>(t, s, K, chain, bm, bls, logZ, smem, sink);
+  zero_smem(smem, 12 * t.plane);
+  CircForward<RPT, Src> fw(t, s, K, chain, logZ, smem);
+  __syncthreads();
+  fw.run(0, d1k, GlobalBack{bm, bls}, sink);
 }
 
 // The checkpoint backward: blocks of KB diagonals from the top; the state
@@ -682,7 +594,7 @@ __global__ void __launch_bounds__(1024)
                               float* __restrict__ logZ) {
   extern __shared__ float smem[];
   __shared__ float shE[25];
-  const Lanes t(Wp, B, d1k);
+  const Lanes t(Wp, B);
   load_table(tab, shE);
   CodesSrc<false> s = src;
   s.bind(shE);
@@ -719,7 +631,7 @@ __global__ void __launch_bounds__(1024)
                           float* scratch, float* __restrict__ post) {
   extern __shared__ float smem[];
   __shared__ float shE[25];
-  const Lanes t(Wp, B, d1k);
+  const Lanes t(Wp, B);
   load_table(tab, shE);
   CodesSrc<false> s = src;
   s.bind(shE);
@@ -904,51 +816,33 @@ __device__ __forceinline__ void roll_down(const float (&v)[RPT],
   }
 }
 
-// The forward of one lane, its rows k = kk + 32 r.
-template <int RPT, int LPB>
-struct MwWarp {
+// The scaled forward of one lane in the warp-per-lane layout, its rows
+// k = kk + 32 r (M and C): the frontier and the mixes it published (the
+// match mix of d-1 and d-2, the gap mixes of d-1, those read one row down
+// already rolled) in registers.  Arithmetic in CircForward's order.
+template <int RPT>
+struct WarpForward {
   const CircCoef& K;
   int chain, Wp, kk;
   float lz, ls = 0.f, cprev = 1.f;
   float f[RPT][5];
   float mm1[RPT], mm2[RPT];  // match mixes of d-1, d-2, rolled down
   float g1[RPT], g2[RPT], g3[RPT], g4[RPT];  // gap mixes of d-1 (2, 4 rolled)
-  float accc[RPT], accr[RPT];  // column (rolling) and row accumulators
 
-  __device__ MwWarp(const CircCoef& K_, int chain_, int Wp_, float lz_)
+  __device__ WarpForward(const CircCoef& K_, int chain_, int Wp_, float lz_)
       : K(K_), chain(chain_), Wp(Wp_), kk(threadIdx.x & 31), lz(lz_) {
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) {
+    for (int r = 0; r < RPT; ++r)
       mm1[r] = mm2[r] = g1[r] = g2[r] = g3[r] = g4[r] = 0.f;
-      accc[r] = accr[r] = 0.f;
-    }
   }
 
   __device__ int row(int r) const { return kk + 32 * r; }
 
-  // Diagonals d0 .. d0 + n - 1 (a tile) of lane w of the block from stage
-  // buffer S into output tile O.  The posterior's scale
-  // alpha = exp(ls + bls - logZ) of the tile's diagonals but the last is
-  // computed up front, thread kb for diagonal kb (ls moves only at the
-  // rescale of the last), and shuffled out.
-  __device__ void tile(const MwIn& S, const MwOut& O, int w, int d0, int n) {
-    const MwLaneRec* rec = S.rec + w * MW_KT;
-    const float a = expf(ls + rec[kk & 7].bls - lz);
-    const float* es = S.es + w * mw_stride(Wp) + kk;
-    const float* bm = S.bm + w * mw_stride(Wp) + kk;
-    float* post = O.post + w * mw_stride(Wp);
-    for (int kb = 0; kb < n; ++kb)
-      step(d0 + kb, kb, es + kb * Wp, bm + kb * Wp, rec[kb],
-           __shfl_sync(mk::FULL, a, kb), post + kb * Wp,
-           O.flc + w * MW_KT + kb, O.flr + w * MW_KT + kb);
-  }
-
-  // Generation d (tile row kb): es, bm at the thread's first row, rec the
-  // lane's record, post_rel the lane's band-relative output row.
-  __device__ void step(int d, int kb, const float* es, const float* bm,
-                       const MwLaneRec rec, float alpha, float* post_rel,
-                       float* flc, float* flr) {
-    float post[RPT];
+  // Generation d at row kb of its rescale period (kb % 8 == d % 8): the
+  // start distribution at d = 0, else the cells from es at the thread's
+  // first row, the d-2 mix divided by cprev where kb % 8 == 0 and the
+  // rescale where kb % 8 == 7.  Returns whether it rescaled (ls moved).
+  __device__ bool cells(int d, int kb, const float* es) {
     if (d == 0) {
 #pragma unroll
       for (int r = 0; r < RPT; ++r) {
@@ -958,73 +852,41 @@ struct MwWarp {
         for (int s = 1; s < 5; ++s)
           f[r][s] = origin ? (chain ? K.pi[s - 1] : 0.2f) : 0.f;
       }
-    } else {
-      const bool divide = kb == 0;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float x = row(r) < Wp ? es[32 * r] : -1.f;
-        const float v = x >= 0.f ? 1.f : 0.f;
-        const float e = fmaxf(x, 0.f);
-        float mm = mm2[r];
-        if (divide) mm = mm / cprev;
-        f[r][0] = e * mm;
-        f[r][1] = g1[r] * v;
-        f[r][2] = g2[r] * v;
-        f[r][3] = g3[r] * v;
-        f[r][4] = g4[r] * v;
-      }
-      if (kb == 7) {
-        float m = 0.f;
-#pragma unroll
-        for (int r = 0; r < RPT; ++r)
-          if (row(r) < Wp)
-            m = fmaxf(m, fmaxf(fmaxf(fmaxf(f[r][0], f[r][1]),
-                                     fmaxf(f[r][2], f[r][3])), f[r][4]));
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(mk::FULL, m, o));
-        const float c = m > 0.f ? m : 1.f;
-        const float inv = 1.f / c;
-#pragma unroll
-        for (int r = 0; r < RPT; ++r)
-#pragma unroll
-          for (int s = 0; s < 5; ++s) f[r][s] = f[r][s] * inv;
-        ls += logf(c);
-        cprev = c;
-        alpha = expf(ls + rec.bls - lz);
-      }
+      return false;
     }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      post[r] = row(r) < Wp ? f[r][0] * bm[32 * r] * alpha : 0.f;
-    sink(d, rec, post, post_rel, flc, flr);
-    publish();
-  }
-
-  // The band-relative row, the column and row sums of post.
-  __device__ void sink(int d, const MwLaneRec rec, const float (&post)[RPT],
-                       float* post_rel, float* flc, float* flr) {
-    float rolled[RPT];
-    roll_down<RPT>(accc, rolled, kk, Wp);
+    const bool divide = (kb & 7) == 0;
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const int k = row(r);
-      if (k >= Wp) continue;
-      const int rel = k - rec.lom < 0 ? k - rec.lom + Wp : k - rec.lom;
-      post_rel[rel] = post[r];
-      // The origin cell holds the start distribution and emits nothing.
-      const float pm = d == 0 && k == 0 ? 0.f : post[r];
-      const bool cflush = k == rec.fr;
-      if (cflush) *flc = rolled[r];
-      accc[r] = (cflush ? 0.f : rolled[r]) + pm;
-      const bool rflush = k == rec.frr;
-      if (rflush) *flr = accr[r];
-      accr[r] = (rflush ? 0.f : accr[r]) + pm;
+      const float x = row(r) < Wp ? es[32 * r] : -1.f;
+      const float v = x >= 0.f ? 1.f : 0.f;
+      const float e = fmaxf(x, 0.f);
+      float mm = mm2[r];
+      if (divide) mm = mm / cprev;
+      f[r][0] = e * mm;
+      f[r][1] = g1[r] * v;
+      f[r][2] = g2[r] * v;
+      f[r][3] = g3[r] * v;
+      f[r][4] = g4[r] * v;
     }
-    if (kk == 0) {
-      if (rec.fr < 0 || rec.fr >= Wp) *flc = 0.f;
-      if (rec.frr < 0 || rec.frr >= Wp) *flr = 0.f;
-    }
+    if ((kb & 7) != 7) return false;
+    float m = 0.f;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      if (row(r) < Wp)
+        m = fmaxf(m, fmaxf(fmaxf(fmaxf(f[r][0], f[r][1]),
+                                 fmaxf(f[r][2], f[r][3])), f[r][4]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(mk::FULL, m, o));
+    const float c = m > 0.f ? m : 1.f;
+    const float inv = 1.f / c;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+#pragma unroll
+      for (int s = 0; s < 5; ++s) f[r][s] = f[r][s] * inv;
+    ls += logf(c);
+    cprev = c;
+    return true;
   }
 
   // The mixes generation d contributes: the match target at d+2 and the
@@ -1061,6 +923,80 @@ struct MwWarp {
     roll_down<RPT>(mm, mm1, kk, Wp);
     roll_down<RPT>(ga, g2, kk, Wp);
     roll_down<RPT>(gb, g4, kk, Wp);
+  }
+};
+
+// M's lane: the forward and M's sink (the band-relative posterior row, the
+// rolling column and the fixed row accumulator).
+template <int RPT, int LPB>
+struct MwWarp {
+  WarpForward<RPT> fw;
+  int Wp, kk;
+  float accc[RPT], accr[RPT];  // column (rolling) and row accumulators
+
+  __device__ MwWarp(const CircCoef& K_, int chain_, int Wp_, float lz_)
+      : fw(K_, chain_, Wp_, lz_), Wp(Wp_), kk(threadIdx.x & 31) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) accc[r] = accr[r] = 0.f;
+  }
+
+  __device__ int row(int r) const { return kk + 32 * r; }
+
+  // Diagonals d0 .. d0 + n - 1 (a tile) of lane w of the block from stage
+  // buffer S into output tile O.  The posterior's scale
+  // alpha = exp(ls + bls - logZ) of the tile's diagonals but the last is
+  // computed up front, thread kb for diagonal kb (ls moves only at the
+  // rescale of the last), and shuffled out.
+  __device__ void tile(const MwIn& S, const MwOut& O, int w, int d0, int n) {
+    const MwLaneRec* rec = S.rec + w * MW_KT;
+    const float a = expf(fw.ls + rec[kk & 7].bls - fw.lz);
+    const float* es = S.es + w * mw_stride(Wp) + kk;
+    const float* bm = S.bm + w * mw_stride(Wp) + kk;
+    float* post = O.post + w * mw_stride(Wp);
+    for (int kb = 0; kb < n; ++kb)
+      step(d0 + kb, kb, es + kb * Wp, bm + kb * Wp, rec[kb],
+           __shfl_sync(mk::FULL, a, kb), post + kb * Wp,
+           O.flc + w * MW_KT + kb, O.flr + w * MW_KT + kb);
+  }
+
+  // Generation d (tile row kb): es, bm at the thread's first row, rec the
+  // lane's record, post_rel the lane's band-relative output row.
+  __device__ void step(int d, int kb, const float* es, const float* bm,
+                       const MwLaneRec rec, float alpha, float* post_rel,
+                       float* flc, float* flr) {
+    float post[RPT];
+    if (fw.cells(d, kb, es)) alpha = expf(fw.ls + rec.bls - fw.lz);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      post[r] = row(r) < Wp ? fw.f[r][0] * bm[32 * r] * alpha : 0.f;
+    sink(d, rec, post, post_rel, flc, flr);
+    fw.publish();
+  }
+
+  // The band-relative row, the column and row sums of post.
+  __device__ void sink(int d, const MwLaneRec rec, const float (&post)[RPT],
+                       float* post_rel, float* flc, float* flr) {
+    float rolled[RPT];
+    roll_down<RPT>(accc, rolled, kk, Wp);
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = row(r);
+      if (k >= Wp) continue;
+      const int rel = k - rec.lom < 0 ? k - rec.lom + Wp : k - rec.lom;
+      post_rel[rel] = post[r];
+      // The origin cell holds the start distribution and emits nothing.
+      const float pm = d == 0 && k == 0 ? 0.f : post[r];
+      const bool cflush = k == rec.fr;
+      if (cflush) *flc = rolled[r];
+      accc[r] = (cflush ? 0.f : rolled[r]) + pm;
+      const bool rflush = k == rec.frr;
+      if (rflush) *flr = accr[r];
+      accr[r] = (rflush ? 0.f : accr[r]) + pm;
+    }
+    if (kk == 0) {
+      if (rec.fr < 0 || rec.fr >= Wp) *flc = 0.f;
+      if (rec.frr < 0 || rec.frr >= Wp) *flr = 0.f;
+    }
   }
 
   __device__ void tails(float* __restrict__ tc, float* __restrict__ tr,
@@ -1119,6 +1055,253 @@ __global__ void __launch_bounds__(32 * LPB)
   mw_flush<LPB>(out(tiles - 1), (tiles - 1) * MW_KT, d1k, b0, Wp, B, post,
                 flc, flr);
   if (live) lane.tails(tc, tr, b, B);
+}
+
+// ------------------------------------------------------------ C: cx_forward
+//
+// C runs M's forward (WarpForward) in M's layout with a sink of its own:
+// one warp per lane, band row k = kk + 32 r on thread kk (RPT rows a
+// thread, Wp <= 128), LPB lanes a block (mk::warp_lanes).  The four
+// accumulators by read code sit in registers, each rolled down one row per
+// diagonal by a shuffle as M rolls its column accumulator; the row fr[d]
+// of the position completing at d leaves into fl[c][d] before d's
+// posterior adds in, the origin cell adds nothing, and after the last
+// diagonal the accumulators leave as the tails.  The block stages tiles of
+// CX_KT diagonals of its lanes (es, bm, bls, fr and the read codes yb)
+// with cp.async one tile ahead, and collects each tile's fl in shared
+// memory, written out as lane-contiguous segments once the next tile's
+// barrier has passed: one barrier per tile.  No posterior band is stored.
+// Arithmetic in CircForward's order (-fmad=false), so it equals the plain
+// version bit for bit.
+//
+// What bounds it on an H100 80GB HBM3 at a 700 W power limit
+// (kernel_ab.py's probe_cx group, the caller batch [128, 24, 65536]: 2.17
+// ms against a 0.61 ms byte bound):
+// instruction issue along each warp's chain, as M.  The sink's four
+// rolls (a shuffle each) and selects a step take ~38% (1.35 ms without
+// it), device memory ~16% (1.81 ms without it after the first tiles),
+// the barrier ~4%; tiles of 16 diagonals ran 27% slower and plain copies
+// in place of cp.async 9% slower.  At Wp 96 / 128 its 111-122 registers
+// and 120-159 KB a block leave one block of 8 warps an SM.
+constexpr int CX_KT = 8;  // diagonals a tile
+static_assert(CX_KT % 8 == 0, "tiles hold whole rescale periods");
+
+// A lane's values at one diagonal, staged as one 8-byte record.
+struct __align__(8) CxLaneRec {
+  float bls;
+  int fr;
+};
+
+// A stage buffer: the records rec [LPB][CX_KT], es and bm rows
+// [LPB][cx_stride(Wp)] (a lane's rows contiguous, as M's), then the read
+// codes [CX_KT Wp][byte_stride(LPB)] lanes-fastest (mk::stage_bytes).  An
+// output tile: fl [LPB][4 CX_KT + 1], row c * CX_KT + kb of lane w at
+// w * (4 CX_KT + 1) (an odd stride).
+struct CxIn {
+  CxLaneRec* rec;
+  float* es;
+  float* bm;
+  uint8_t* yb;
+};
+
+constexpr int CX_OUT_STRIDE = 4 * CX_KT + 1;
+__host__ __device__ inline int cx_stride(int Wp) { return CX_KT * Wp + 1; }
+__host__ __device__ inline size_t cx_in_floats(int Wp, int lpb) {
+  const size_t codes = (size_t)CX_KT * Wp * mk::byte_stride(lpb) / 4;
+  return ((size_t)lpb * (2 * CX_KT + 2 * cx_stride(Wp)) + codes + 3) / 4 * 4;
+}
+__host__ __device__ inline size_t cx_out_floats(int lpb) {
+  return ((size_t)lpb * CX_OUT_STRIDE + 3) / 4 * 4;
+}
+// Two stage buffers and two output tiles.
+inline size_t cx_smem(int Wp, int lpb) {
+  return 2 * (cx_in_floats(Wp, lpb) + cx_out_floats(lpb)) * sizeof(float);
+}
+
+__device__ inline CxIn cx_in(float* p, int Wp, int lpb) {
+  float* es = p + 2 * CX_KT * lpb;
+  float* bm = es + lpb * cx_stride(Wp);
+  return CxIn{reinterpret_cast<CxLaneRec*>(p), es, bm,
+              reinterpret_cast<uint8_t*>(bm + lpb * cx_stride(Wp))};
+}
+
+// Starts the copy of the tile of diagonals d0 .. d0 + n - 1 of the block's
+// lanes b0 .. b0 + LPB - 1 into stage buffer S (one group), as mw_stage
+// copies; the codes as words of four lanes where `vec`.
+template <int LPB>
+__device__ __forceinline__ void cx_stage(
+    const CxIn& S, int d0, int n, int b0, int Wp, int B, bool vec,
+    const float* __restrict__ es, const float* __restrict__ bm,
+    const float* __restrict__ bls, const int32_t* __restrict__ fr,
+    const int8_t* __restrict__ yb) {
+  const int w = threadIdx.x % LPB;
+  if (b0 + w < B) {
+    const size_t g = (size_t)d0 * Wp * B + b0 + w;
+    float* es_s = S.es + w * cx_stride(Wp);
+    float* bm_s = S.bm + w * cx_stride(Wp);
+    for (int r = threadIdx.x / LPB; r < n * Wp; r += 32) {
+      const size_t at = g + (size_t)r * B;
+      mk::cp_async4(es_s + r, es + at);
+      mk::cp_async4(bm_s + r, bm + at);
+    }
+    const int kb = threadIdx.x / LPB;
+    if (kb < n) {
+      const size_t at = (size_t)(d0 + kb) * B + b0 + w;
+      CxLaneRec& rec = S.rec[w * CX_KT + kb];
+      mk::cp_async4(&rec.bls, bls + at);
+      mk::cp_async4(&rec.fr, fr + at);
+    }
+  }
+  mk::stage_bytes<LPB>(S.yb, yb, (size_t)d0 * Wp, n * Wp, b0, B, vec);
+  mk::cp_async_commit();
+}
+
+// Writes fl of output tile O (diagonals d0 .. d0 + n - 1).
+template <int LPB>
+__device__ __forceinline__ void cx_flush(const float* O, int d0, int n,
+                                         int d1k, int b0, int B,
+                                         float* __restrict__ fl) {
+  const int w = threadIdx.x % LPB;
+  if (b0 + w >= B) return;
+  for (int j = threadIdx.x / LPB; j < 4 * CX_KT; j += 32) {
+    const int c = j / CX_KT, kb = j % CX_KT;
+    if (kb < n)
+      fl[((size_t)c * d1k + d0 + kb) * B + b0 + w] =
+          O[w * CX_OUT_STRIDE + j];
+  }
+}
+
+// C's lane: the forward and the four code accumulators, its rows
+// k = kk + 32 r.
+template <int RPT, int LPB>
+struct CxWarp {
+  WarpForward<RPT> fw;
+  int Wp, kk;
+  float acc[4][RPT];  // by read code, rolling
+
+  __device__ CxWarp(const CircCoef& K_, int chain_, int Wp_, float lz_)
+      : fw(K_, chain_, Wp_, lz_), Wp(Wp_), kk(threadIdx.x & 31) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) acc[c][r] = 0.f;
+  }
+
+  __device__ int row(int r) const { return kk + 32 * r; }
+
+  // Diagonals d0 .. d0 + n - 1 (a tile) of lane w from stage buffer S into
+  // output tile O.  As M does, the posterior's scale of each rescale
+  // period's diagonals but its last is computed up front, thread j for
+  // the period's diagonal j, and shuffled out.
+  __device__ void tile(const CxIn& S, float* O, int w, int d0, int n) {
+    const CxLaneRec* rec = S.rec + w * CX_KT;
+    const float* es = S.es + w * cx_stride(Wp) + kk;
+    const float* bm = S.bm + w * cx_stride(Wp) + kk;
+    const uint8_t* yb = S.yb + kk * mk::byte_stride(LPB) + w;
+    float* fl = O + w * CX_OUT_STRIDE;
+    float a = 0.f;
+    for (int kb = 0; kb < n; ++kb) {
+      if ((kb & 7) == 0) a = expf(fw.ls + rec[kb + (kk & 7)].bls - fw.lz);
+      float alpha = __shfl_sync(mk::FULL, a, kb & 7);
+      if (fw.cells(d0 + kb, kb, es + kb * Wp))
+        alpha = expf(fw.ls + rec[kb].bls - fw.lz);
+      float post[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        post[r] = row(r) < Wp ? fw.f[r][0] * bm[kb * Wp + 32 * r] * alpha
+                              : 0.f;
+      sink(d0 + kb, rec[kb].fr, post, yb + kb * Wp * mk::byte_stride(LPB),
+           fl + kb);
+      fw.publish();
+    }
+  }
+
+  // The completing row leaves into fl[c * CX_KT] (0 where fr is outside
+  // the band), then post adds into its read code's accumulator; yb points
+  // at the thread's first row of the diagonal's codes.
+  __device__ void sink(int d, int fr, const float (&post)[RPT],
+                       const uint8_t* yb, float* fl) {
+    int code[RPT];
+    float pv[RPT];
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = row(r);
+      code[r] = k < Wp ? (int8_t)yb[32 * r * mk::byte_stride(LPB)] : -1;
+      // The origin cell holds the start distribution and emits nothing.
+      pv[r] = d == 0 && k == 0 ? 0.f : post[r];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float rolled[RPT];
+      roll_down<RPT>(acc[c], rolled, kk, Wp);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const int k = row(r);
+        if (k >= Wp) continue;
+        const bool flush = k == fr;
+        if (flush) fl[c * CX_KT] = rolled[r];
+        acc[c][r] = (flush ? 0.f : rolled[r]) + (code[r] == c ? pv[r] : 0.f);
+      }
+    }
+    if (kk == 0 && (fr < 0 || fr >= Wp)) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) fl[c * CX_KT] = 0.f;
+    }
+  }
+
+  __device__ void tails(float* __restrict__ tails, int b, int B) const {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = row(r);
+      if (k >= Wp) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        tails[((size_t)c * Wp + k) * B + b] = acc[c][r];
+    }
+  }
+};
+
+template <int RPT, int LPB>
+__global__ void __launch_bounds__(32 * LPB)
+    cx_forward_kernel(const float* __restrict__ es,
+                      const int8_t* __restrict__ yb,
+                      const int32_t* __restrict__ fr,
+                      const float* __restrict__ bm,
+                      const float* __restrict__ bls,
+                      const float* __restrict__ logZ, CircCoef K, int chain,
+                      int d1k, int Wp, int B, float* __restrict__ fl,
+                      float* __restrict__ tails) {
+  extern __shared__ __align__(16) float cx_raw[];
+  const int nin = (int)cx_in_floats(Wp, LPB);
+  const int nout = (int)cx_out_floats(LPB);
+  // Stage buffer and output tile of tile t (by parity).
+  auto in = [&](int t) { return cx_in(cx_raw + (t & 1) * nin, Wp, LPB); };
+  auto out = [&](int t) { return cx_raw + 2 * nin + (t & 1) * nout; };
+  const int w = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * LPB, b = b0 + w;
+  const bool live = b < B;  // warp-uniform
+  const bool vec = B % 4 == 0 && (uintptr_t)yb % 4 == 0;
+  CxWarp<RPT, LPB> lane(K, chain, Wp, live ? logZ[b] : 0.f);
+  const int tiles = (d1k + CX_KT - 1) / CX_KT;
+  auto count = [&](int t) { return min(CX_KT, d1k - t * CX_KT); };
+  cx_stage<LPB>(in(0), 0, count(0), b0, Wp, B, vec, es, bm, bls, fr, yb);
+  for (int t = 0; t < tiles; ++t) {
+    // Tile t has landed (this thread's copies, then everyone's), every
+    // warp is past tile t - 1, whose fl leaves now.
+    mk::cp_async_wait();
+    __syncthreads();  // tile t in, tile t - 1 done
+    if (t > 0)
+      cx_flush<LPB>(out(t - 1), (t - 1) * CX_KT, count(t - 1), d1k, b0, B,
+                    fl);
+    if (t + 1 < tiles)
+      cx_stage<LPB>(in(t + 1), (t + 1) * CX_KT, count(t + 1), b0, Wp, B,
+                    vec, es, bm, bls, fr, yb);
+    if (live) lane.tile(in(t), out(t), w, t * CX_KT, count(t));
+  }
+  __syncthreads();
+  cx_flush<LPB>(out(tiles - 1), (tiles - 1) * CX_KT, count(tiles - 1), d1k,
+                b0, B, fl);
+  if (live) lane.tails(tails, b, B);
 }
 
 // ----------------------------------------------------------- S: sv_backward
@@ -1398,9 +1581,7 @@ __global__ void __launch_bounds__(32 * LPB, 32 / LPB)
 // ---------------------------------------------------------------- launches
 
 size_t bwd_smem(int Wp) { return (size_t)12 * Wp * mk::LANES * sizeof(float); }
-// The forward's 12 planes and cx's 4 accumulator planes.
-size_t fwd_smem(int Wp) { return (size_t)16 * Wp * mk::LANES * sizeof(float); }
-// The posterior forwards' sink keeps nothing.
+// The posterior forwards' sink keeps nothing: the forward's 12 planes.
 size_t post_smem(int Wp) { return bwd_smem(Wp); }
 size_t ckpt_post_smem(int Wp, int KB, bool spilled) {
   return bwd_smem(Wp) + (spilled ? 0 : replay_floats(Wp, KB) * sizeof(float));
@@ -1491,6 +1672,33 @@ cudaError_t mw_setup(int Wp, int B, const void** kernel, int* lanes,
   if (err != cudaSuccess) return err;
   *kernel = mw_kernel(Wp, *lanes);
   *smem = mw_smem(Wp, *lanes);
+  return *kernel ? mk::allow_smem(*kernel, *smem) : cudaErrorInvalidValue;
+}
+
+template <int LPB>
+const void* cx_kernel_rpt(int Wp) {
+  switch (mk::rows_per_thread(Wp)) {
+    case 1: return (const void*)cx_forward_kernel<1, LPB>;
+    case 2: return (const void*)cx_forward_kernel<2, LPB>;
+    case 3: return (const void*)cx_forward_kernel<3, LPB>;
+    case 4: return (const void*)cx_forward_kernel<4, LPB>;
+  }
+  return nullptr;
+}
+
+// The kernel, lanes a block (mk::warp_lanes) and shared memory of C's
+// launch at (Wp, B), its shared memory opted in.
+cudaError_t cx_setup(int Wp, int B, const void** kernel, int* lanes,
+                     size_t* smem) {
+  cudaError_t err =
+      mk::warp_lanes(B, [Wp](int l) { return cx_smem(Wp, l); }, lanes);
+  if (err != cudaSuccess) return err;
+  switch (*lanes) {
+    case 8: *kernel = cx_kernel_rpt<8>(Wp); break;
+    case 16: *kernel = cx_kernel_rpt<16>(Wp); break;
+    default: return cudaErrorInvalidValue;
+  }
+  *smem = cx_smem(Wp, *lanes);
   return *kernel ? mk::allow_smem(*kernel, *smem) : cudaErrorInvalidValue;
 }
 
@@ -1620,10 +1828,29 @@ extern "C" int cx_forward_launch(const float* es, const int8_t* yb,
                                  int Wp, int B, float* fl, float* tails,
                                  void* stream) {
   if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
-  const CircCoef K = load_coef(coef);
-  const cudaStream_t s = (cudaStream_t)stream;
-  BY_RPT(Wp, run(cx_forward_kernel<R>, fwd_smem(Wp), Wp, B, s, es, yb, fr,
-                 bm, bls, logZ, K, chain, d1k, Wp, B, fl, tails))
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = cx_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  CircCoef K = load_coef(coef);
+  void* args[] = {&es, &yb, &fr,  &bm, &bls, &logZ, &K,    &chain,
+                  &d1k, &Wp, &B, &fl, &tails};
+  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes),
+                          dim3(32 * lanes), args, smem,
+                          (cudaStream_t)stream);
+}
+
+// What C's launch at band width Wp over B lanes gets on this device
+// (mk::kernel_info's out[5]; its lanes a block are out[3] / 32).
+extern "C" int cx_forward_info(int Wp, int B, int* out) {
+  if (bad_shape(1, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = cx_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }
 
 extern "C" int mw_forward_launch(const float* es, const int32_t* fr,

@@ -54,8 +54,8 @@
 // terms that are statically zero and folds a flat gap row into a scalar,
 // which rounds exactly like the lookup and the sum in the same order.
 //
-// Layout of the forwards, the stored backward and the generic backward: as
-// the other wavefront kernels (common.cuh), one block owns L consecutive
+// Layout of the stored and generic forwards and backwards: as the block
+// per 32 lanes kernels (common.cuh), one block owns L consecutive
 // lanes (threadIdx.x) and all Wp band rows (8 row threads of RPT rows
 // each) of one trial (blockIdx.y): the TPU's sequential trials grid axis
 // runs side by side here.  The block walks the diagonals itself; a
@@ -66,10 +66,12 @@
 // read at d directly.  The model (T, Ematch, Egap of the block's trial)
 // sits in shared memory.
 //
-// The checkpoint backward (counts_bwd_ckpt, counts_multi_bwd_ckpt) has a
-// layout of its own, see counts_bwd_ckpt_kernel: one warp per lane, one
-// band row per thread, the row shifts as warp shuffles.  Every kernel
-// takes its recursions from mix_to, fwd_recur and bwd_recur.
+// The checkpoint pair has layouts of their own, see counts_bwd_ckpt_kernel
+// and counts_fwd_ckpt_kernel: one warp per lane (and trial), one band row
+// per thread, the row shifts as warp shuffles, tiles of 8 diagonals
+// staged with cp.async.  Every kernel takes its recursions from mix_to,
+// fwd_recur and bwd_recur; the checkpoint pair's forward recursion is one
+// source (warp_fwd_cell, warp_rescale, warp_mixes).
 //
 // Arithmetic: the plain versions' (ops/fb_counts_cuda.py) operation for
 // operation, built without multiply-add contraction (-fmad=false), so
@@ -82,9 +84,9 @@
 //
 // What bounds them on an H100: counts_fwd_all writes 20 B per cell and
 // counts_bwd reads 20 B and writes 4 B, so a full card would be memory
-// bound; counts_fwd_ckpt writes ~5 B per cell; counts_bwd_ckpt does a
-// forward again, the backward and the counts (~225 operations per cell)
-// and is operation bound.  The generic pair moves 7 B per cell forward
+// bound; counts_fwd_ckpt writes ~5 B per cell and trial; counts_bwd_ckpt
+// does a forward again, the backward and the counts (~225 operations per
+// cell) and is operation bound.  The generic pair moves 7 B per cell forward
 // (codes in, F_match out) and 11 B backward (F_match and codes in,
 // posterior out).  At the EM batches (8192 lanes, 3 trials) the chain of
 // dependent diagonals bounds the template kernels first: a barrier each,
@@ -223,13 +225,13 @@ __device__ __forceinline__ void publish_mixes(const float (&f)[RPT][5],
 }
 
 // One forward diagonal d (d >= 1 on single-problem lanes): f becomes the
-// unscaled frontier of d (with KEEP_PREV, fp the frontier of d - 1).
-// t1 = s1[d], t2 = s1[d] + s1[d-1]; cprev divides the match mix on the
-// diagonal after a rescale.  MULTI: a problem starts at d when `seed`, and
-// the start distribution (1/5 in every state) is added at its row 0.
-template <int RPT, bool KEEP_PREV, bool MULTI = false>
+// unscaled frontier of d.  t1 = s1[d], t2 = s1[d] + s1[d-1]; cprev divides
+// the match mix on the diagonal after a rescale.  MULTI: a problem starts
+// at d when `seed`, and the start distribution (1/5 in every state) is
+// added at its row 0.
+template <int RPT, bool MULTI = false>
 __device__ __forceinline__ void fwd_cells(
-    float (&f)[RPT][5], float (&fp)[RPT][5], const float* tab,
+    float (&f)[RPT][5], const float* tab,
     const float* fG, const float* fM, const int8_t* __restrict__ xb,
     const int8_t* __restrict__ yb, const uint8_t* __restrict__ valid, int d,
     int t1, int t2, float cprev, bool seed, const Dims& g) {
@@ -251,10 +253,6 @@ __device__ __forceinline__ void fwd_cells(
     if (divide) mm = mm / cprev;
     const int kx = gin + mk::wrap(k + t1, g.Wp) * g.L + g.lane;
     const int ky = gin + mk::wrap(k + t1 - 1, g.Wp) * g.L + g.lane;
-    if (KEEP_PREV) {
-#pragma unroll
-      for (int s = 0; s < NS; ++s) fp[r][s] = f[r][s];
-    }
     const float e[5] = {e_match(tab, x, y), e_gap(tab, 1, x),
                         e_gap(tab, 2, y), e_gap(tab, 3, x),
                         e_gap(tab, 4, y)};
@@ -285,11 +283,12 @@ __device__ __forceinline__ float sum5(const float (&v)[5]) {
   return (((v[0] + v[1]) + v[2]) + v[3]) + v[4];
 }
 
-// band: f_all [ntr][d1k][5][Wp][B] (MODE_STORED), the checkpoints
-// [ntr][G][10][Wp][B] (MODE_CKPT) or F_match [ntr][d1k][Wp][B]
-// (MODE_GENERIC).  fink is [B] (the lane's terminal row), or with MULTI
-// [d1k][B] (the terminal row of the problem ending at d, else -1); start
-// [d1k][B] (MULTI only) marks each problem's first diagonal.
+// band: f_all [ntr][d1k][5][Wp][B] (MODE_STORED) or F_match
+// [ntr][d1k][Wp][B] (MODE_GENERIC).  fink is [B] (the lane's terminal
+// row), or with MULTI [d1k][B] (the terminal row of the problem ending at
+// d, else -1); start [d1k][B] (MULTI only) marks each problem's first
+// diagonal.  The checkpoint forward has a kernel of its own
+// (counts_fwd_ckpt_kernel).
 template <int RPT, int MODE, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS)
     counts_fwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
@@ -301,9 +300,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       const int8_t* __restrict__ start,
                       const int32_t* __restrict__ fink, int d1k, int Wp,
                       int B, float* __restrict__ band,
-                      float* __restrict__ cs, float* __restrict__ lsf,
-                      float* __restrict__ term) {
-  constexpr bool CKPT = MODE == MODE_CKPT;
+                      float* __restrict__ lsf, float* __restrict__ term) {
+  static_assert(MODE == MODE_STORED || MODE == MODE_GENERIC,
+                "the template forward stores f_all or F_match");
   extern __shared__ float smem[];
   const Dims g = dims(Wp, B);
   float* fG = smem;                // [2][4][Wp][L] gap-target mixes of d-1
@@ -315,13 +314,12 @@ __global__ void __launch_bounds__(MAX_THREADS)
   load_tables(tab, T, Em, Eg, g);
   int fk = g.live && !MULTI ? fink[g.b] : -1;
   const size_t t0 = (size_t)g.t * d1k;  // the trial's first diagonal
-  const int G = d1k / K;
 
-  float f[RPT][5], fp[RPT][5];
+  float f[RPT][5];
 #pragma unroll
   for (int r = 0; r < RPT; ++r)
 #pragma unroll
-    for (int s = 0; s < NS; ++s) fp[r][s] = f[r][s] = 0.f;
+    for (int s = 0; s < NS; ++s) f[r][s] = 0.f;
   float ls = 0.f, cprev = 1.f;
   int sprev = 0, d0 = 0;
   if constexpr (!MULTI) {
@@ -336,7 +334,7 @@ __global__ void __launch_bounds__(MAX_THREADS)
 #pragma unroll
         for (int s = 0; s < NS; ++s)
           band[((t0 * NS + s) * Wp + k) * B + g.b] = f[r][s];
-      } else if constexpr (MODE == MODE_GENERIC) {
+      } else {
         band[(t0 * Wp + k) * B + g.b] = f[r][0];
       }
       if (k == fk) term[t0 * B + g.b] = sum5(f[r]);
@@ -360,8 +358,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
       fk = g.live ? fink[(size_t)d * B + g.b] : -1;
       seed = g.live && start[(size_t)d * B + g.b] != 0;
     }
-    fwd_cells<RPT, CKPT, MULTI>(f, fp, tab, fG, fM, xb, yb, valid, d, t1,
-                                t2, cprev, seed, g);
+    fwd_cells<RPT, MULTI>(f, tab, fG, fM, xb, yb, valid, d, t1, t2, cprev,
+                          seed, g);
     float tv = 0.f;
 #pragma unroll
     for (int r = 0; r < RPT; ++r)
@@ -384,23 +382,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
 #pragma unroll
           for (int s = 0; s < NS; ++s)
             band[(((t0 + d) * NS + s) * Wp + k) * B + g.b] = f[r][s];
-        } else if constexpr (MODE == MODE_GENERIC) {
+        } else {
           band[((t0 + d) * Wp + k) * B + g.b] = f[r][0];
-        } else if (d % K == K - 1) {
-          const size_t blk = (size_t)g.t * G + d / K;
-#pragma unroll
-          for (int s = 0; s < NS; ++s) {
-            band[((blk * 2 * NS + s) * Wp + k) * B + g.b] = f[r][s];
-            band[((blk * 2 * NS + NS + s) * Wp + k) * B + g.b] = fp[r][s];
-          }
         }
-      }
-      if (CKPT && d % K == K - 1 && g.ty == 0) {
-        const size_t blk = (size_t)g.t * G + d / K;
-        cs[(blk * 4 + 0) * B + g.b] = ls;
-        cs[(blk * 4 + 1) * B + g.b] = cprev;
-        cs[(blk * 4 + 2) * B + g.b] = (float)sprev;
-        cs[(blk * 4 + 3) * B + g.b] = 0.f;
       }
     }
     publish_mixes<RPT, true>(f, tab, fG, fM, d, g);
@@ -766,6 +750,63 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The forward recursion of one lane in the warp-per-lane layout (band row
+// k on thread k): the checkpoint forward and the checkpoint backward's
+// recompute both run it, in fwd_recur's order.  A frontier publishes its
+// mixes (warp_mixes: the match mix of d-1 and d-2, mM1 and mM2, and the
+// gap mixes of d-1, mG); a cell reads them from rows k + t2 - 1 (match),
+// k + t1 (gap states 1, 3) and k + t1 - 1 (2, 4) by shuffles.
+
+// One forward diagonal: f becomes the unscaled frontier of the cell
+// (emissions e, validity v); the match mix is divided by cprev on the
+// diagonal after a rescale (`divide`); MULTI adds the start distribution
+// at row 0 where a problem starts (`seed`).
+template <bool MULTI>
+__device__ __forceinline__ void warp_fwd_cell(float (&f)[5],
+                                              const float (&e)[5], float v,
+                                              float mM2, const float (&mG)[4],
+                                              int k, int t1, int t2, int Wp,
+                                              bool divide, float cprev,
+                                              bool seed) {
+  const int ra = mk::wrap(k + t2 - 1, Wp);
+  const int rb = mk::wrap(k + t1, Wp), rc = mk::wrap(k + t1 - 1, Wp);
+  float m[5];
+  m[0] = __shfl_sync(FULL, mM2, ra);
+  if (divide) m[0] = m[0] / cprev;
+  m[1] = __shfl_sync(FULL, mG[0], rb);
+  m[2] = __shfl_sync(FULL, mG[1], rc);
+  m[3] = __shfl_sync(FULL, mG[2], rb);
+  m[4] = __shfl_sync(FULL, mG[3], rc);
+  fwd_recur(e, m, v, f);
+  if constexpr (MULTI) {
+    const float inj = (seed && k == 0) ? 0.2f : 0.f;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) f[s] = f[s] + inj;
+  }
+}
+
+// The rescale of a frontier by its band max over the warp's band rows
+// (`row`: this thread's row is in the band); returns the factor c, the
+// frontier is multiplied by 1 / c.
+__device__ __forceinline__ float warp_rescale(float (&f)[5], bool row) {
+  const float mx = warp_band_max(f, row);
+  const float c = mx > 0.f ? mx : 1.f;
+  const float inv = 1.f / c;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) f[s] *= inv;
+  return c;
+}
+
+// The mixes frontier f publishes for the next two diagonals.
+__device__ __forceinline__ void warp_mixes(const float (&f)[5],
+                                           const float (&Tr)[25], float& mM1,
+                                           float& mM2, float (&mG)[4]) {
+  mM2 = mM1;
+  mM1 = mix_to(f, Tr, 0);
+#pragma unroll
+  for (int u = 0; u < 4; ++u) mG[u] = mix_to(f, Tr, u + 1);
+}
+
 template <bool MULTI>
 __global__ void __launch_bounds__(CK_THREADS)
     counts_bwd_ckpt_kernel(const float* __restrict__ T,
@@ -932,28 +973,10 @@ __global__ void __launch_bounds__(CK_THREADS)
       const float v = (float)((word >> 16) & 0xff);
       const float e[5] = {em6[xi * 6 + yi], eg6[xi], eg6[6 + yi],
                           eg6[12 + xi], eg6[18 + yi]};
-      const int ra = mk::wrap(k + t2 - 1, Wp);
-      const int rb = mk::wrap(k + t1, Wp), rc = mk::wrap(k + t1 - 1, Wp);
-      float m[5];
-      m[0] = __shfl_sync(FULL, mM2, ra);
-      if (kb == 0) m[0] = m[0] / cprevF;
-      m[1] = __shfl_sync(FULL, mG[0], rb);
-      m[2] = __shfl_sync(FULL, mG[1], rc);
-      m[3] = __shfl_sync(FULL, mG[2], rb);
-      m[4] = __shfl_sync(FULL, mG[3], rc);
-      fwd_recur(e, m, v, f);
-      if constexpr (MULTI) {
-        const float inj =
-            (startb[kb * CK_WARPS + w] != 0 && k == 0) ? 0.2f : 0.f;
-#pragma unroll
-        for (int s = 0; s < NS; ++s) f[s] = f[s] + inj;
-      }
+      warp_fwd_cell<MULTI>(f, e, v, mM2, mG, k, t1, t2, Wp, kb == 0, cprevF,
+                           MULTI && startb[kb * CK_WARPS + w] != 0);
       if (kb == K - 1) {
-        const float mx = warp_band_max(f, row);
-        const float c = mx > 0.f ? mx : 1.f;
-        const float inv = 1.f / c;
-#pragma unroll
-        for (int s = 0; s < NS; ++s) f[s] *= inv;
+        const float c = warp_rescale(f, row);
         lsF += logf(c);
         cprevF = c;
       }
@@ -962,10 +985,7 @@ __global__ void __launch_bounds__(CK_THREADS)
         for (int s = 0; s < NS; ++s)
           S.fs[(kb * NS + s) * plane + own] = f[s];
       }
-      mM2 = mM1;
-      mM1 = mix_to(f, Tr, 0);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) mG[u] = mix_to(f, Tr, u + 1);
+      warp_mixes(f, Tr, mM1, mM2, mG);
     }
 
     // The backward over the block, with the counts.
@@ -1071,6 +1091,292 @@ __global__ void __launch_bounds__(CK_THREADS)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The checkpoint forward (counts_fwd_ckpt, counts_multi_fwd_ckpt) in the
+// checkpoint backward's layout: one warp per lane and trial, band row k on
+// thread k (Wp <= 32), the recursion of the backward's recompute
+// (warp_fwd_cell, warp_rescale, warp_mixes), so a diagonal needs no block
+// barrier.  A block holds LPB consecutive lanes of one trial (mk::
+// warp_lanes picks LPB).  It stages the codes, the valid band and the
+// per-diagonal streams of its lanes one tile of K diagonals ahead with
+// cp.async (byte planes lanes-fastest, mk::stage_bytes), and each warp
+// collects its tile's outputs (the checkpoint: the tile's last two
+// frontiers, cs, lsf and term) in a record of its own in shared memory,
+// which the block writes out as
+// lane-contiguous segments once the next tile's barrier has passed: one
+// barrier per tile.  A tile is one checkpoint block, so the division after
+// a rescale falls on its first row and the rescale on its last, and a
+// whole tile runs unrolled.  Arithmetic in the template forward's order
+// (-fmad=false, no fused multiply-add), so it equals the plain version bit
+// for bit.
+//
+// What bounds it on an H100 80GB HBM3 at a 700 W power limit
+// (kernel_ab.py's probe_counts group, the EM batch [3, 512, 24, 8192]:
+// 2.84 ms against a 0.58 ms byte bound):
+// instruction issue at ~0.65 instructions a cycle and scheduler.  A
+// diagonal is ~112 instructions a warp (the five mixes 45, the shuffle
+// sources' wraps and the emission lookups most of the rest), ~140 with
+// the copies; device memory and the copies ~22% (2.26 ms without them
+// after the first tiles), the barrier ~2%.  128 registers leave one block
+// of 16 warps an SM; 8 lanes at <= 80 registers (24 warps) ran no faster,
+// the 64-register cap spills, a rolled tile loop is 35% slower, plain
+// copies in place of cp.async 62% slower.  8 of a warp's 32 threads idle
+// at Wp 24, 24 at Wp 8, where the template's block of 4 row threads runs
+// twice as fast.
+// A trial's emissions in shared memory: Ematch as em6[x * 6 + y], then
+// the gap emissions in pairs by code, (Egap[1][c], Egap[3][c]) and
+// (Egap[2][c], Egap[4][c]), so a cell's four take two 8-byte loads; zero
+// at code 5 (outside 0..4).
+constexpr int CF_NTAB = 64;  // 36 + 12 + 12 floats, padded
+constexpr int CF_EG = 36;    // the first pair
+
+// Floats of a warp's output record: the checkpoint [2 NS][Wp], term [K],
+// lsf [K], cs [4] and one more (an odd stride: the flush reads LPB lanes'
+// records at one offset without bank conflicts).
+__host__ __device__ inline int cf_rec(int Wp) { return 2 * NS * Wp + 21; }
+// A stage buffer: the xb, yb and valid tiles [K Wp][byte_stride(LPB)], the
+// start tile [K][byte_stride(LPB)] (MULTI), then s1 and fink [LPB][K] (a
+// lane's K values as two 16-byte words).
+__host__ __device__ inline int cf_plane(int Wp, int lpb) {
+  return K * Wp * mk::byte_stride(lpb);
+}
+__host__ __device__ inline size_t cf_in_bytes(int Wp, int lpb) {
+  const size_t n = 3 * (size_t)cf_plane(Wp, lpb) +
+                   K * mk::byte_stride(lpb) + 2 * K * lpb * sizeof(int);
+  return (n + 15) / 16 * 16;
+}
+__host__ __device__ inline size_t cf_out_bytes(int Wp, int lpb) {
+  return ((size_t)lpb * cf_rec(Wp) * sizeof(float) + 15) / 16 * 16;
+}
+// The trial's tables, two stage buffers and two output tiles.
+inline size_t cf_smem(int Wp, int lpb) {
+  return CF_NTAB * sizeof(float) +
+         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb));
+}
+
+struct CfIn {
+  uint8_t* x;
+  uint8_t* y;
+  uint8_t* v;
+  uint8_t* st;
+  int* s1;
+  int* fk;
+};
+
+__device__ inline CfIn cf_in(uint8_t* p, int Wp, int lpb) {
+  const int pl = cf_plane(Wp, lpb);
+  int* words = reinterpret_cast<int*>(p + 3 * pl + K * mk::byte_stride(lpb));
+  return CfIn{p, p + pl, p + 2 * pl, p + 3 * pl, words, words + K * lpb};
+}
+
+// Starts the copy of the tile of diagonals d0 .. d0 + K - 1 of the block's
+// lanes b0 .. b0 + LPB - 1 into stage buffer S (one group).
+template <bool MULTI, int LPB>
+__device__ __forceinline__ void cf_stage(
+    const CfIn& S, int d0, int b0, int Wp, int B, bool vec,
+    const int8_t* __restrict__ xb, const int8_t* __restrict__ yb,
+    const uint8_t* __restrict__ valid, const int32_t* __restrict__ s1,
+    const int8_t* __restrict__ start, const int32_t* __restrict__ fink) {
+  const size_t r0 = (size_t)d0 * Wp;
+  mk::stage_bytes<LPB>(S.x, xb, r0, K * Wp, b0, B, vec);
+  mk::stage_bytes<LPB>(S.y, yb, r0, K * Wp, b0, B, vec);
+  mk::stage_bytes<LPB>(S.v, valid, r0, K * Wp, b0, B, vec);
+  if (MULTI) mk::stage_bytes<LPB>(S.st, start, d0, K, b0, B, vec);
+  for (int q = threadIdx.x; q < K * LPB; q += 32 * LPB) {
+    const int kb = q / LPB, w = q % LPB;
+    if (b0 + w < B) {
+      const size_t at = (size_t)(d0 + kb) * B + b0 + w;
+      mk::cp_async4(S.s1 + w * K + kb, s1 + at);
+      if (MULTI) mk::cp_async4(S.fk + w * K + kb, fink + at);
+    }
+  }
+  mk::cp_async_commit();
+}
+
+// Writes output tile O (checkpoint block g) of the block's lanes of
+// trial t: thread tid moves lane tid % LPB.
+template <int LPB>
+__device__ __forceinline__ void cf_flush(const float* O, int g, int G,
+                                         int d1k, int t, int b0, int Wp,
+                                         int B, float* __restrict__ ckpt,
+                                         float* __restrict__ cs,
+                                         float* __restrict__ lsf,
+                                         float* __restrict__ term) {
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b >= B) return;
+  const int i0 = threadIdx.x / LPB;  // 0 .. 31
+  const int nck = 2 * NS * Wp;
+  const float* o = O + w * cf_rec(Wp);
+  float* ck = ckpt + ((size_t)t * G + g) * nck * B + b;
+  for (int r = i0; r < nck; r += 32) ck[(size_t)r * B] = o[r];
+  if (i0 < K) {
+    const size_t at = ((size_t)t * d1k + g * K + i0) * B + b;
+    term[at] = o[nck + i0];
+    lsf[at] = o[nck + K + i0];
+    if (i0 < 4)
+      cs[(((size_t)t * G + g) * 4 + i0) * B + b] = o[nck + 2 * K + i0];
+  }
+}
+
+// Value i (known at compile time) of the four in v.
+__device__ __forceinline__ int word_of(const int4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// The forward of one lane and trial, band row k on thread k.
+template <bool MULTI, int LPB>
+struct CfWarp {
+  float Tr[25];
+  const float* em6;
+  const float2* eg13;  // by the reference code x: states 1, 3
+  const float2* eg24;  // by the read code y: states 2, 4
+  int k, Wp, fk;
+  bool row;
+  float f[5];
+  float mM1 = 0.f, mM2 = 0.f, mG[4] = {0.f, 0.f, 0.f, 0.f};
+  float ls = 0.f, cprev = 1.f;
+  int sprev = 0;
+
+  __device__ CfWarp(const float* __restrict__ T, const float* tab, int t,
+                    int Wp_, int fk_, bool live)
+      : em6(tab), eg13(reinterpret_cast<const float2*>(tab + CF_EG)),
+        eg24(reinterpret_cast<const float2*>(tab + CF_EG + 12)),
+        k(threadIdx.x & 31), Wp(Wp_), fk(fk_), row(k < Wp_) {
+#pragma unroll
+    for (int i = 0; i < 25; ++i) Tr[i] = live ? T[t * 25 + i] : 0.f;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) f[s] = 0.f;
+  }
+
+  // Tile g (diagonals K g .. K g + K - 1) of lane w from stage buffer S
+  // into the warp's output record o.
+  __device__ void tile(const CfIn& S, float* o, int g, int w) {
+    constexpr int BS = mk::byte_stride(LPB);
+    const int cell = (row ? k : 0) * BS + w, step = Wp * BS;
+    float* o_term = o + 2 * NS * Wp;
+    // A diagonal without its problem's terminal cell in the band keeps
+    // term 0.
+    if (k < K) o_term[k] = 0.f;
+    __syncwarp();
+    const float lsA = ls;  // the log-scale of rows kb < K - 1
+    const int4* s1w = reinterpret_cast<const int4*>(S.s1 + w * K);
+    const int4* fkw = reinterpret_cast<const int4*>(S.fk + w * K);
+    const int4 s1v[2] = {s1w[0], s1w[1]};
+    int4 fkv[2];
+    if (MULTI) fkv[0] = fkw[0], fkv[1] = fkw[1];
+#pragma unroll
+    for (int kb = 0; kb < K; ++kb) {
+      const int t1 = word_of(s1v[kb / 4], kb % 4);
+      const int x = (int8_t)S.x[cell + kb * step];
+      const int y = (int8_t)S.y[cell + kb * step];
+      const int xi = row && (unsigned)x < 5u ? x : 5;
+      const int yi = row && (unsigned)y < 5u ? y : 5;
+      const float v = row ? (float)S.v[cell + kb * step] : 0.f;
+      if (!MULTI && kb == 0 && g == 0) {
+        // d = 0 is pure initialisation: the start distribution.
+#pragma unroll
+        for (int s = 0; s < NS; ++s) f[s] = k == 0 ? 0.2f : 0.f;
+        sprev = t1;
+      } else {
+        const int t2 = t1 + sprev;
+        sprev = t1;
+        const float2 gx = eg13[xi], gy = eg24[yi];
+        const float e[5] = {em6[xi * 6 + yi], gx.x, gy.x, gx.y, gy.y};
+        if (kb == K - 1 && row) {  // the checkpoint's previous frontier
+#pragma unroll
+          for (int s = 0; s < NS; ++s) o[(NS + s) * Wp + k] = f[s];
+        }
+        warp_fwd_cell<MULTI>(f, e, v, mM2, mG, k, t1, t2, Wp, kb == 0,
+                             cprev, MULTI && S.st[kb * BS + w] != 0);
+      }
+      float tv = sum5(f);
+      if (kb == K - 1) {
+        const float c = warp_rescale(f, row);
+        tv = tv * (1.f / c);
+        ls += logf(c);
+        cprev = c;
+      }
+      const int fkd = MULTI ? word_of(fkv[kb / 4], kb % 4) : fk;
+      if (row && k == fkd) o_term[kb] = tv;
+      warp_mixes(f, Tr, mM1, mM2, mG);
+    }
+    if (row) {
+#pragma unroll
+      for (int s = 0; s < NS; ++s) o[s * Wp + k] = f[s];
+    }
+    if (k < K) o[2 * NS * Wp + K + k] = k == K - 1 ? ls : lsA;
+    if (k < 4)
+      o[2 * NS * Wp + 2 * K + k] =
+          k == 0 ? ls : (k == 1 ? cprev : (k == 2 ? (float)sprev : 0.f));
+  }
+};
+
+template <bool MULTI, int LPB>
+__global__ void __launch_bounds__(32 * LPB)
+    counts_fwd_ckpt_kernel(const float* __restrict__ T,
+                           const float* __restrict__ Em,
+                           const float* __restrict__ Eg,
+                           const int8_t* __restrict__ xb,
+                           const int8_t* __restrict__ yb,
+                           const uint8_t* __restrict__ valid,
+                           const int32_t* __restrict__ s1,
+                           const int8_t* __restrict__ start,
+                           const int32_t* __restrict__ fink, int d1k,
+                           int Wp, int B, float* __restrict__ ckpt,
+                           float* __restrict__ cs, float* __restrict__ lsf,
+                           float* __restrict__ term) {
+  extern __shared__ __align__(16) float cf_raw[];
+  float* tab = cf_raw;  // [CF_NTAB]
+  uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + CF_NTAB);
+  const size_t nin = cf_in_bytes(Wp, LPB), nout = cf_out_bytes(Wp, LPB);
+  // Stage buffer and output tile of tile g (by parity).
+  auto in = [&](int g) { return cf_in(buf + (g & 1) * nin, Wp, LPB); };
+  auto out = [&](int g) {
+    return reinterpret_cast<float*>(buf + 2 * nin + (g & 1) * nout);
+  };
+  const int tid = threadIdx.x, w = tid >> 5;
+  const int b0 = blockIdx.x * LPB, b = b0 + w, t = blockIdx.y;
+  const bool live = b < B;  // warp-uniform
+  const int G = d1k / K;
+  uintptr_t a4 = (uintptr_t)xb | (uintptr_t)yb | (uintptr_t)valid;
+  if (MULTI) a4 |= (uintptr_t)start;
+  const bool vec = B % 4 == 0 && a4 % 4 == 0;
+  for (int j = tid; j < CF_NTAB; j += 32 * LPB) {
+    float val = 0.f;
+    if (j < 36) {
+      const int x = j / 6, y = j % 6;
+      val = x < 5 && y < 5 ? Em[t * 25 + x * 5 + y] : 0.f;
+    } else if (j < CF_EG + 24) {
+      // Pair c of states (1, 3) by x, then of (2, 4) by y.
+      const int q = j - CF_EG, c = (q % 12) / 2;
+      const int s = (q < 12 ? 1 : 2) + 2 * (q % 2);
+      val = c < 5 ? Eg[t * 25 + s * 5 + c] : 0.f;
+    }
+    tab[j] = val;
+  }
+  cf_stage<MULTI, LPB>(in(0), 0, b0, Wp, B, vec, xb, yb, valid, s1, start,
+                       fink);
+  CfWarp<MULTI, LPB> lane(T, tab, t, Wp, live && !MULTI ? fink[b] : -1,
+                          live);
+  for (int g = 0; g < G; ++g) {
+    // Tile g has landed (this thread's copies, then everyone's; the first
+    // barrier also publishes the tables), every warp is past tile g - 1,
+    // whose outputs leave now.
+    mk::cp_async_wait();
+    __syncthreads();
+    if (g > 0)
+      cf_flush<LPB>(out(g - 1), g - 1, G, d1k, t, b0, Wp, B, ckpt, cs, lsf,
+                    term);
+    if (g + 1 < G)
+      cf_stage<MULTI, LPB>(in(g + 1), (g + 1) * K, b0, Wp, B, vec, xb, yb,
+                           valid, s1, start, fink);
+    if (live) lane.tile(in(g), out(g) + w * cf_rec(Wp), g, w);
+  }
+  __syncthreads();
+  cf_flush<LPB>(out(G - 1), G - 1, G, d1k, t, b0, Wp, B, ckpt, cs, lsf,
+                term);
+}
+
 // Floats of dynamic shared memory of the wavefront template kernels: the
 // frontier's mixes or e * b values, the row maxima and the tables.
 size_t wave_smem(int Wp, int L) { return (size_t)12 * Wp * L + TAB; }
@@ -1088,7 +1394,7 @@ cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
                     const int8_t* xb, const int8_t* yb, const uint8_t* valid,
                     const int32_t* s1, const int8_t* start,
                     const int32_t* fink, int ntr, int d1k, int Wp, int B,
-                    float* band, float* cs, float* lsf, float* term,
+                    float* band, float* lsf, float* term,
                     cudaStream_t stream) {
   const int L = lanes_for([&](int l) { return wave_smem(Wp, l); });
   const size_t bytes = wave_smem(Wp, L) * sizeof(float);
@@ -1097,7 +1403,7 @@ cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
   counts_fwd_kernel<RPT, MODE, MULTI><<<grid, block, bytes, stream>>>(
-      T, Em, Eg, xb, yb, valid, s1, start, fink, d1k, Wp, B, band, cs, lsf,
+      T, Em, Eg, xb, yb, valid, s1, start, fink, d1k, Wp, B, band, lsf,
       term);
   return cudaGetLastError();
 }
@@ -1158,15 +1464,49 @@ template <int MODE, bool MULTI = false>
 int fwd_launch(const float* T, const float* Em, const float* Eg,
                const int8_t* xb, const int8_t* yb, const uint8_t* valid,
                const int32_t* s1, const int8_t* start, const int32_t* fink,
-               int ntr, int d1k, int Wp, int B, float* band, float* cs,
-               float* lsf, float* term, void* stream) {
+               int ntr, int d1k, int Wp, int B, float* band, float* lsf,
+               float* term, void* stream) {
   if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (rows_per_thread(Wp)) {
-    case 2: return run_fwd<2, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
-    case 3: return run_fwd<3, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
-    default: return run_fwd<4, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, cs, lsf, term, s);
+    case 2: return run_fwd<2, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
+    case 3: return run_fwd<3, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
+    default: return run_fwd<4, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
   }
+}
+
+// The kernel, lanes a block (mk::warp_lanes over the launch's lanes and
+// trials) and shared memory of the checkpoint forward's launch, its
+// shared memory opted in.
+template <bool MULTI>
+cudaError_t cf_setup(int ntr, int Wp, int B, const void** kernel,
+                     int* lanes, size_t* smem) {
+  cudaError_t err = mk::warp_lanes(
+      B * ntr, [Wp](int l) { return cf_smem(Wp, l); }, lanes);
+  if (err != cudaSuccess) return err;
+  *kernel = *lanes == 8 ? (const void*)counts_fwd_ckpt_kernel<MULTI, 8>
+                        : (const void*)counts_fwd_ckpt_kernel<MULTI, 16>;
+  *smem = cf_smem(Wp, *lanes);
+  return mk::allow_smem(*kernel, *smem);
+}
+
+template <bool MULTI>
+int ckpt_fwd_launch(const float* T, const float* Em, const float* Eg,
+                    const int8_t* xb, const int8_t* yb, const uint8_t* valid,
+                    const int32_t* s1, const int8_t* start,
+                    const int32_t* fink, int ntr, int d1k, int Wp, int B,
+                    float* ckpt, float* cs, float* lsf, float* term,
+                    void* stream) {
+  if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = cf_setup<MULTI>(ntr, Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&T,   &Em, &Eg, &xb,   &yb, &valid, &s1,  &start,
+                  &fink, &d1k, &Wp, &B,  &ckpt, &cs, &lsf,   &term};
+  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes, ntr),
+                          dim3(32 * lanes), args, smem, (cudaStream_t)stream);
 }
 
 template <int MODE, bool MULTI = false>
@@ -1203,7 +1543,7 @@ extern "C" int counts_fwd_all_launch(
     const int32_t* fink, int ntr, int d1k, int Wp, int B, float* f_all,
     float* cs, float* lsf, float* term, void* stream) {
   return fwd_launch<MODE_STORED>(T, Em, Eg, xb, yb, valid, s1, nullptr,
-                                 fink, ntr, d1k, Wp, B, f_all, cs, lsf, term,
+                                 fink, ntr, d1k, Wp, B, f_all, lsf, term,
                                  stream);
 }
 
@@ -1212,8 +1552,8 @@ extern "C" int counts_fwd_ckpt_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int ntr, int d1k, int Wp, int B, float* ckpt,
     float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<MODE_CKPT>(T, Em, Eg, xb, yb, valid, s1, nullptr, fink,
-                               ntr, d1k, Wp, B, ckpt, cs, lsf, term, stream);
+  return ckpt_fwd_launch<false>(T, Em, Eg, xb, yb, valid, s1, nullptr, fink,
+                                ntr, d1k, Wp, B, ckpt, cs, lsf, term, stream);
 }
 
 extern "C" int counts_bwd_launch(
@@ -1248,8 +1588,8 @@ extern "C" int fb_generic_fwd_launch(
     const int32_t* fink, int d1k, int Wp, int B, float* fmatch, float* lsf,
     float* term, void* stream) {
   return fwd_launch<MODE_GENERIC>(T, Em, Eg, xb, yb, valid, s1, nullptr,
-                                  fink, 1, d1k, Wp, B, fmatch, nullptr, lsf,
-                                  term, stream);
+                                  fink, 1, d1k, Wp, B, fmatch, lsf, term,
+                                  stream);
 }
 
 extern "C" int fb_generic_bwd_launch(
@@ -1274,7 +1614,7 @@ extern "C" int counts_multi_fwd_all_launch(
     const int8_t* start, const int32_t* fink, int ntr, int d1k, int Wp,
     int B, float* f_all, float* cs, float* lsf, float* term, void* stream) {
   return fwd_launch<MODE_STORED, true>(T, Em, Eg, xb, yb, valid, s1, start,
-                                       fink, ntr, d1k, Wp, B, f_all, cs, lsf,
+                                       fink, ntr, d1k, Wp, B, f_all, lsf,
                                        term, stream);
 }
 
@@ -1283,9 +1623,8 @@ extern "C" int counts_multi_fwd_ckpt_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int8_t* start, const int32_t* fink, int ntr, int d1k, int Wp,
     int B, float* ckpt, float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<MODE_CKPT, true>(T, Em, Eg, xb, yb, valid, s1, start,
-                                     fink, ntr, d1k, Wp, B, ckpt, cs, lsf,
-                                     term, stream);
+  return ckpt_fwd_launch<true>(T, Em, Eg, xb, yb, valid, s1, start, fink,
+                               ntr, d1k, Wp, B, ckpt, cs, lsf, term, stream);
 }
 
 extern "C" int counts_multi_bwd_launch(
@@ -1319,4 +1658,19 @@ extern "C" int counts_bwd_ckpt_info(int multi, int Wp, int* out) {
                          : (const void*)counts_bwd_ckpt_kernel<false>;
   return mk::kernel_info(fn, ckpt_smem_floats(Wp) * sizeof(float),
                          CK_THREADS, out);
+}
+
+// What the checkpoint forward's launch of ntr trials over B lanes at band
+// width Wp gets on this device (mk::kernel_info's out[5]; its lanes a
+// block are out[3] / 32); multi picks counts_multi_fwd_ckpt.
+extern "C" int counts_fwd_ckpt_info(int multi, int ntr, int Wp, int B,
+                                    int* out) {
+  if (bad_shape(ntr, K, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = multi ? cf_setup<true>(ntr, Wp, B, &kernel, &lanes, &smem)
+                          : cf_setup<false>(ntr, Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }

@@ -138,9 +138,12 @@ _QUERIES: Dict[str, List] = {
     # multi, Wp, out[5]: registers, shared bytes per block, blocks per SM,
     # threads per block, local bytes (csrc/fb_counts.cu; `resources`)
     "counts_bwd_ckpt_info": [_I, _I, _P],
+    # multi, ntr, Wp, B, out[5] (csrc/fb_counts.cu)
+    "counts_fwd_ckpt_info": [_I, _I, _I, _I, _P],
     # Wp, B, out[5] (csrc/fb_circ.cu, csrc/nw.cu, csrc/mea.cu); Wp, out[5]
     # (csrc/expand.cu)
     "mw_forward_info": [_I, _I, _P],
+    "cx_forward_info": [_I, _I, _P],
     "sv_backward_info": [_I, _I, _P],
     "banded_nw_info": [_I, _I, _P],
     "mea_dl_info": [_I, _I, _P],

@@ -36,11 +36,12 @@ an unconditional roll by one row (no per-lane shift streams).
                         row sums (row-stable, flushed at frr) the MEA gap
                         weights need: flc, flr [d1k, B], tails tc, tr [Wp, B].
 C and M share the forward recursion (`_forward_generations` here); on the
-card C runs it as csrc/fb_circ.cu's `CircForward` template, M as a kernel
-of its own (one warp per lane, 8 or 16 lanes a block).  S runs the
-backward of `_CircBackward` as a kernel of its own in the same layout as
-M; the serving modes' backwards keep csrc/fb_circ.cu's `CircBackward`
-template (block per 32 lanes).  R and E take a thread per lane (E) or
+card both run it as csrc/fb_circ.cu's `WarpForward` (one warp per lane,
+8 or 16 lanes a block), each in a kernel of its own with its own sink.
+S runs the backward of `_CircBackward` as a kernel of its own in the same
+layout; the serving modes' backwards and posterior forwards keep
+csrc/fb_circ.cu's `CircBackward` and `CircForward` templates (block per
+32 lanes).  R and E take a thread per lane (E) or
 per four lanes (R) and a tile of diagonals.
 
 The model comes in at run time as one coefficient vector (`COEF_*` offsets,
@@ -541,6 +542,15 @@ def cx_forward_cuda(coef: np.ndarray, chain: bool, es, yb, fr, bm, bls,
         int(chain), d1k, Wp, B, fl.data_ptr(), tails.data_ptr(),
     )
     return fl, tails
+
+
+def cx_forward_resources(device: torch.device, wp: int,
+                         B: int) -> Dict[str, int]:
+    """What a launch of cx_forward over B lanes at band width `wp` gets on
+    `device`: the keys of mw_forward_resources, the lanes a block chosen
+    by csrc/common.cuh `warp_lanes`."""
+    res = _build.resources("cx_forward_info", device, wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
 # ------------------------------------------------------------- M: forward

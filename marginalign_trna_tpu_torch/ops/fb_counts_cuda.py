@@ -580,6 +580,19 @@ def ckpt_backward_resources(device: torch.device, wp: int,
     return _build.resources("counts_bwd_ckpt_info", device, int(multi), wp)
 
 
+def ckpt_forward_resources(device: torch.device, wp: int, B: int,
+                           ntr: int = 1, multi: bool = False
+                           ) -> Dict[str, int]:
+    """What a launch of counts_fwd_ckpt (multi: counts_multi_fwd_ckpt) of
+    `ntr` trials over B lanes at band width `wp` gets on `device`: the keys
+    of ckpt_backward_resources and the lanes a block, which csrc/common.cuh
+    `warp_lanes` chooses from B x ntr, the SM count and the shared memory
+    a block may take."""
+    res = _build.resources("counts_fwd_ckpt_info", device, int(multi), ntr,
+                           wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
+
+
 def counts_multi_fwd_all_cuda(T, Em, Eg, xb, yb, valid, s1, start, fink):
     """The counts_multi_fwd_all kernel (csrc/fb_counts.cu); outputs of
     counts_multi_fwd_all_plain."""

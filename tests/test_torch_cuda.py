@@ -1068,3 +1068,165 @@ def test_sv_expand_rel_resources(cuda, wp):
     assert res["blocks_per_sm"] >= 1, res
     if wp == 48:
         assert res["local_bytes"] == 0, res
+
+
+# ------------------------- the checkpoint forward and C: one warp per lane
+
+
+def _random_counts(cuda, d1k, wp, B, ntr, multi, seed):
+    """The checkpoint forward's inputs at random: codes -1 .. 5 (outside
+    0..4 at both ends), 80% valid cells, band shifts s1 of 0 or 1 (the
+    plain versions' rolls take -1, 0 and 1), terminal rows anywhere in the
+    band; multi-problem lanes with problems starting at d = 0 and then on
+    about one diagonal in twelve, a terminal row on about one diagonal in
+    ten (-1 elsewhere)."""
+    rng = np.random.default_rng(seed)
+    tables = tables_stacked(_em_models(ntr), cuda)
+    streams = [_t(cuda, rng.integers(-1, 6, (d1k, wp, B)).astype(np.int8)),
+               _t(cuda, rng.integers(-1, 6, (d1k, wp, B)).astype(np.int8)),
+               _t(cuda, rng.random((d1k, wp, B)) < 0.8),
+               _t(cuda, rng.integers(0, 2, (d1k, B)).astype(np.int32))]
+    if multi:
+        start = (rng.random((d1k, B)) < 1 / 12).astype(np.int8)
+        start[0] = 1
+        fink = rng.integers(0, wp, (d1k, B)).astype(np.int32)
+        fink[rng.random((d1k, B)) >= 0.1] = -1
+        streams += [_t(cuda, start), _t(cuda, fink)]
+    else:
+        streams.append(_t(cuda, rng.integers(0, wp, B).astype(np.int32)))
+    return (tables.T, tables.Ematch, tables.Egap, *streams)
+
+
+def _ckpt_fwd_equal(cuda, d1k, wp, B, ntr, multi, seed):
+    K = fb_counts_cuda
+    name = "counts_multi_fwd_ckpt" if multi else "counts_fwd_ckpt"
+    args = _random_counts(cuda, d1k, wp, B, ntr, multi, seed)
+    before = _build.launch_counts[name]
+    got = getattr(K, name + "_cuda")(*args)
+    want = getattr(K, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    for what, g, w in zip(("ckpt", "cs", "lsf", "term"), got, want):
+        assert torch.equal(g, w), (what, name, d1k, wp, B, ntr)
+
+
+@pytest.mark.parametrize("wp", [8, 16, 24, 32])
+@pytest.mark.parametrize("ntr", [1, 3])
+@pytest.mark.parametrize("multi", [False, True])
+def test_ckpt_forward_random_inputs(cuda, multi, ntr, wp):
+    """The checkpoint forward (counts_fwd_ckpt, counts_multi_fwd_ckpt)
+    bit-equal to its plain version on ckpt, cs, lsf and term, one to four
+    band rows of a warp idle, 37 lanes (no multiple of the lanes a block
+    or of 4: the codes copied byte by byte), five tiles."""
+    _ckpt_fwd_equal(cuda, 40, wp, 37, ntr, multi, seed=wp + ntr)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [8, 16])
+@pytest.mark.parametrize("multi", [False, True])
+def test_ckpt_forward_lanes_a_block(cuda, multi, lanes, aligned):
+    """The checkpoint forward at each block size it takes (common.cuh
+    `warp_lanes` over lanes x trials), its codes copied as words (lanes a
+    multiple of 4) and byte by byte, bit-equal to plain."""
+    B = _lanes_at(cuda, lanes, aligned)
+    res = fb_counts_cuda.ckpt_forward_resources(cuda, 24, B, 1, multi)
+    assert res["lanes_per_block"] == lanes, res
+    _ckpt_fwd_equal(cuda, 16, 24, B, 1, multi, seed=lanes)
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("wp", [24, 32])
+def test_ckpt_forward_resources(cuda, wp, multi):
+    """The checkpoint forward builds without spills and fits at least one
+    block per SM at 8 and 16 lanes a block."""
+    for lanes in (8, 16):
+        res = fb_counts_cuda.ckpt_forward_resources(
+            cuda, wp, _lanes_at(cuda, lanes, True), 1, multi)
+        assert res["lanes_per_block"] == lanes, res
+        assert res["local_bytes"] == 0, res
+        assert res["registers"] > 0 and res["blocks_per_sm"] >= 1, res
+
+
+def _cx_inputs(cuda, width, B, chain_model, d1k=None, seed=0):
+    """C's inputs on `_ragged_compact` pairs at `width`, their lanes
+    repeated or cut to B: es, yb and fr from E's plain version over d1k
+    diagonals (the band's plus 3, a partial last tile, when None), fr
+    forced past the band (Wp + 5, -1) and to its edge rows (0, Wp - 1) on
+    some diagonals, and S's outputs on es (its plain version: C's inputs
+    must not hang on S's kernel)."""
+    tables = _flat_gap_tables(chain_model)
+    coef, chain = circ_coefficients(tables)
+    comp, dev = _ragged_compact(cuda, width, seed=seed)
+    dev = _widen(dev, B)
+    Wp = comp.wp
+    d1k = d1k or comp.num_steps + 3
+    es, yb, fr = fb_circ_cuda.expand_streams_plain(
+        tables.Ematch.numpy().reshape(-1), dev.reads, dev.refs, dev.lo,
+        dev.m, dev.n, width, Wp, d1k, want_yb=True)
+    d = torch.arange(d1k, device=cuda)[:, None]
+    for step, at, row in ((7, 3, Wp + 5), (11, 4, -1), (13, 5, 0),
+                          (17, 6, Wp - 1)):
+        fr = torch.where(d % step == at, row, fr)
+    fr = fr.int().contiguous()
+    back = fb_circ_cuda.sv_backward_plain(coef, chain, es, dev.fink,
+                                          dev.final_d)
+    return (coef, chain, es, yb, fr, *back)
+
+
+def _cx_equal(cuda, width, B, chain_model, d1k=None, seed=0):
+    args = _cx_inputs(cuda, width, B, chain_model, d1k, seed)
+    before = _build.launch_counts["cx_forward"]
+    got = fb_circ_cuda.cx_forward_cuda(*args)
+    want = fb_circ_cuda.cx_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["cx_forward"] == before + 1
+    for name, g, w in zip(("fl", "tails"), got, want):
+        assert torch.isfinite(w).all(), (name, width, B, chain_model)
+        assert torch.equal(g, w), (name, width, B, chain_model, d1k)
+    return want
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+@pytest.mark.parametrize("B", [1, 31, 33, 1000])
+@pytest.mark.parametrize("width", [21, 45, 93, 126])
+def test_cx_forward_random_inputs(cuda, width, B, chain_model):
+    """C bit-equal to its plain version (fl, tails) at Wp 24, 48, 96 and
+    128 (one to four rows a thread), over lane counts that are no multiple
+    of the lanes a block, both model forms, flush rows past the band, a
+    partial last tile."""
+    fl, _ = _cx_equal(cuda, width, B, chain_model, seed=width + B)
+    assert fl.abs().max().item() > 0
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+@pytest.mark.parametrize("d1k", [1, 2, 8, 9])
+def test_cx_forward_short_bands(cuda, d1k, chain_model):
+    """C over one or two diagonals, a whole tile and a tile and one."""
+    for width in (21, 45):
+        _cx_equal(cuda, width, 33, chain_model, d1k, seed=d1k)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [8, 16])
+def test_cx_forward_lanes_a_block(cuda, lanes, aligned):
+    """C at each block size it takes (common.cuh `warp_lanes`), its codes
+    copied as words and byte by byte."""
+    B = _lanes_at(cuda, lanes, aligned)
+    res = fb_circ_cuda.cx_forward_resources(cuda, 24, B)
+    assert res["lanes_per_block"] == lanes, res
+    _cx_equal(cuda, 21, B, True, seed=lanes)
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_cx_forward_resources(cuda, wp):
+    """C at 8 and 16 lanes a block serves every Wp <= 128 with at least
+    one block an SM; no spills at Wp 24 and 48."""
+    for lanes in (8, 16):
+        res = fb_circ_cuda.cx_forward_resources(
+            cuda, wp, _lanes_at(cuda, lanes, True))
+        if lanes == 16 and res["lanes_per_block"] == 8:
+            continue    # 16 lanes do not fit shared memory at this Wp
+        assert res["lanes_per_block"] == lanes, res
+        assert res["blocks_per_sm"] >= 1, res
+        if wp <= 48:
+            assert res["local_bytes"] == 0, res
