@@ -243,7 +243,10 @@ KERNELS = {
                         "marginalign_trna_tpu/ops/fb_pallas_counts.py:1358",
                         "fb_counts_cuda.counts_bwd_ckpt_cuda", ("em",)),
     # The generic pair replaces the body that both variants of each TPU
-    # kernel run (tables as arrays or baked in); its paths: "generic" =
+    # kernel run (tables as arrays or baked in): one warp per lane, the
+    # forward the checkpoint forward's kernel in its MATCH mode
+    # (counts_fwd_ckpt_kernel), the backward generic_bwd_kernel; its
+    # paths: "generic" =
     # marginAlign --inputModel with a non-flat model, "call_generic" =
     # marginCaller --alignmentModel with one, "em_band" = marginAlign --em
     # --updateTheBand.
@@ -1061,11 +1064,12 @@ def compare_generic(base, reps):
     sums and the posterior band must be bit-equal."""
     import torch
 
-    from marginalign_trna_tpu_torch.ops import fb_counts
+    from marginalign_trna_tpu_torch.ops import fb_counts, fb_counts_cuda
     from marginalign_trna_tpu_torch.ops import fb_generic_cuda as G
 
     tabs, streams, find = base[:3], base[3:8], base[8]
     cells = streams[0].numel()
+    _, wp, lanes = streams[0].shape
     fargs = (*tabs, *streams)
     ref = G.fb_generic_fwd_plain(*fargs)
     for what, g, r in zip(("F_match", "lsf", "term"),
@@ -1080,6 +1084,8 @@ def compare_generic(base, reps):
         "ms": time_ms(lambda: G.fb_generic_fwd_cuda(*fargs), reps),
         "plain_ms": time_ms(lambda: G.fb_generic_fwd_plain(*fargs), 1),
         "library_ms": None,
+        "resources": fb_counts_cuda.generic_resources(streams[0].device, wp,
+                                                      lanes),
         **bound("fb_generic_fwd", cells, nbytes(*fargs, *ref))}}
     del ref
     bargs = (*tabs, fm, lsf, *streams, find, logZ)
@@ -1092,6 +1098,8 @@ def compare_generic(base, reps):
         "ms": time_ms(lambda: G.fb_generic_bwd_cuda(*bargs), reps),
         "plain_ms": time_ms(lambda: G.fb_generic_bwd_plain(*bargs), 1),
         "library_ms": None,
+        "resources": fb_counts_cuda.generic_resources(streams[0].device, wp,
+                                                      lanes, backward=True),
         **bound("fb_generic_bwd", cells, nbytes(*bargs, post))}
     return report
 
@@ -3421,27 +3429,20 @@ def ptxas_spills(build_log):
 
 
 def check_no_counts_spills(build_log):
-    """The counts kernels (csrc/fb_counts.cu, the two counts modes of its
-    templates) keep their count partials in registers: ptxas must report
-    none of their variants spilling.  The generic pair's variants (the
-    templates' MODE_GENERIC, whose value the source states) hold no
-    partials; their spills are logged."""
-    with open(os.path.join(ROOT, KERNELS["fb_generic_fwd"][0])) as f:
-        mode = re.search(r"MODE_GENERIC = (\d+)", f.read())
-    check(mode, "build: fb_counts.cu states no MODE_GENERIC")
-    # Template arguments <RPT, MODE> mangle as ILi<RPT>ELi<MODE>E.
-    variant = re.compile(r"kernelILi\d+ELi%sE" % mode.group(1))
+    """The kernels of csrc/fb_counts.cu (the counts pairs, which keep their
+    count partials in registers, and the generic pair: the checkpoint
+    forward's MATCH mode and generic_bwd_kernel) must not spill: ptxas
+    must report none of their variants spilling."""
     spills = {fn: s for fn, s in ptxas_spills(build_log).items()
-              if "counts_" in fn}
+              if "counts_" in fn or "generic_bwd" in fn}
     check(spills, "build: no ptxas report for the counts kernels")
-    generic = {fn: s for fn, s in spills.items() if variant.search(fn)}
-    bad = {fn: s for fn, s in spills.items() if any(s) and fn not in generic}
-    check(not bad, "build: counts kernels spill (stores, loads in bytes): %s"
-          % json.dumps(bad))
-    log("build: %d counts kernel variants, no spills; %d generic pair "
-        "variants, spills (stores, loads in bytes): %s"
-        % (len(spills) - len(generic), len(generic),
-           json.dumps({fn: s for fn, s in generic.items() if any(s)})))
+    check(any("generic_bwd" in fn for fn in spills),
+          "build: no ptxas report for generic_bwd_kernel")
+    bad = {fn: s for fn, s in spills.items() if any(s)}
+    check(not bad, "build: counts or generic kernels spill (stores, loads "
+          "in bytes): %s" % json.dumps(bad))
+    log("build: %d counts and generic kernel variants, no spills"
+        % len(spills))
 
 
 def card_identity():

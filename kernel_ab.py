@@ -69,9 +69,13 @@ Groups (fused, wavefront and counts when none is named):
          first trial; probe_cx: C with 8 or 16 lanes a block, tiles of 16
          diagonals, at most 64 registers, es and bm copied without
          cp.async, and with one part removed (no sink, no device memory
-         after the first tiles, no block barrier), on the caller batch.
-         Named on the command line only: their edits follow the sources'
-         text.
+         after the first tiles, no block barrier), on the caller batch;
+         probe_generic: the generic pair (both kernels in each variant)
+         with 8 or 16 lanes a block, its tiles copied without cp.async,
+         and without output tiles (each F_match and posterior value
+         stored from its row's thread), on the generic batch,
+         call_generic and em_band (the counts group's cells).  Named on
+         the command line only: their edits follow the sources' text.
   counts scatter_lanes (L) on a realign row-flush stream
          [3096, 4096]; the checkpoint forwards on the EM batch
          [3, 512, 24, 8192], on its pairs packed at widths 5, 13 and 29
@@ -80,10 +84,16 @@ Groups (fused, wavefront and counts when none is named):
          ckpt, cs, lsf and term, with bounds and resources; the
          checkpoint backwards on the EM batch and the em_multi batch (and
          its first trial), their counts bit-equal to the other
-         checkout's; the instances that must not move: counts_fwd_all,
-         counts_multi_fwd_all, counts_bwd, counts_multi_bwd,
-         fb_generic_fwd and fb_generic_bwd; the E-step (`counts_trials` /
-         `counts_multi_trials` with the checkpoint pair, host clock).
+         checkout's; the instances that must not move (`unmoved`):
+         counts_fwd_all, counts_multi_fwd_all, counts_bwd and
+         counts_multi_bwd; the E-step (`counts_trials` /
+         `counts_multi_trials` with the checkpoint pair, host clock);
+         the generic pair (fb_generic_fwd, fb_generic_bwd) with a
+         non-flat model on the batches of its paths: "generic" [3072,
+         24, 1024], "call_generic" [128, 24, 32768], "em_band" [512, 24,
+         2048] and the generic batch at widths 5, 13 and 29 (Wp 8, 16,
+         32), bit-equal to plain and to the other checkout on F_match,
+         lsf, term and the posterior band, with bounds and resources.
 
 The other checkout's package is imported under another name and builds its
 own kernels beside its sources.  A time is the CUDA-event mean over REPS
@@ -123,6 +133,9 @@ GENERIC_LANES, GENERIC_STEPS = 1024, 3072
 BUCKET_STEPS, BUCKET_LANES = 3072, 4096
 M_GENERIC_LANES = 1024
 CALLER_STEPS, CALLER_LANES, CALLER_UNIQUE = 128, 65536, 4096
+# The generic pair's caller batch: the caller batch's unique pairs
+# repeated to the lanes of the smoke's caller_generic launch.
+CALL_GENERIC_LANES = 32768
 GUIDE_STEPS, GUIDE_LANES = 7168, 1024
 # M's wider bands: band width -> Wp.
 M_WIDE = {45: 48, 93: 96, 126: 128}
@@ -243,9 +256,9 @@ def multi_batch(band, seed=3, width=21):
                                         pad_batch_to=MULTI_LANES)
 
 
-def generic_batch(band, seed=4):
-    """Kilobase pairs (m + n near GENERIC_STEPS) for the generic pair,
-    width 21."""
+def generic_batch(band, seed=4, width=21):
+    """Kilobase pairs (m + n near GENERIC_STEPS) for the generic pair, width
+    21 unless `width` says otherwise."""
     rng = np.random.default_rng(seed)
     reads, refs = [], []
     while len(reads) < GENERIC_LANES:
@@ -254,7 +267,7 @@ def generic_batch(band, seed=4):
         if len(read) + len(ref) + 1 <= GENERIC_STEPS:
             reads.append(read)
             refs.append(ref)
-    return band.pack_banded_batch(reads, refs, width=21,
+    return band.pack_banded_batch(reads, refs, width=width,
                                   pad_steps_to=GENERIC_STEPS)
 
 
@@ -722,22 +735,24 @@ def run_wavefront(this, other, cuda, report):
 
 def probe_port(name, source, edits):
     """A copy of this checkout's port under build/probe/<name> with
-    csrc/<source> edited, its kernels built, imported as probe_<name>."""
+    csrc/<source> edited, its kernels built, imported as probe_<name>.  An
+    edit (old, new) applies to `source`, an edit (file, old, new) to
+    csrc/<file>."""
     import shutil
 
     root = os.path.join(ROOT, "build", "probe", name)
     shutil.rmtree(root, ignore_errors=True)
     shutil.copytree(os.path.join(ROOT, PKG), os.path.join(root, PKG),
                     ignore=shutil.ignore_patterns("__pycache__"))
-    path = os.path.join(root, PKG, "csrc", source)
-    with open(path) as fh:
-        src = fh.read()
-    for old, new in edits:
+    for edit in edits:
+        where, old, new = edit if len(edit) == 3 else (source, *edit)
+        path = os.path.join(root, PKG, "csrc", where)
+        with open(path) as fh:
+            src = fh.read()
         if src.count(old) != 1:
             raise RuntimeError("probe %s: edit anchor not found once" % name)
-        src = src.replace(old, new)
-    with open(path, "w") as fh:
-        fh.write(src)
+        with open(path, "w") as fh:
+            fh.write(src.replace(old, new))
     port = load_port(root, "probe_" + name)
     sub(port, "ops._build").load()
     return port
@@ -783,6 +798,18 @@ def probe_cases(this, cuda, kernels):
             "em_multi": (*tabs, *mstreams),
             "em_multi_one_trial": (*(t[:1].contiguous() for t in tabs),
                                    *mstreams)}
+    if {"fb_generic_fwd", "fb_generic_bwd"} & set(kernels):
+        tg = sub(this, "ops.fb_generic_cuda")
+        fbc = sub(this, "ops.fb_counts")
+        gtabs = generic_pair_tables(this, cuda)
+        cases["fb_generic_fwd"], cases["fb_generic_bwd"] = {}, {}
+        for name, (streams, fd) in generic_cells(
+                this, cuda, ("generic", "call_generic", "em_band")).items():
+            cases["fb_generic_fwd"][name + "_fwd"] = (*gtabs, *streams)
+            fm, lsf, term = tg.fb_generic_fwd_cuda(*gtabs, *streams)
+            lz = fbc.logz_from_terminal(lsf[None], term[None], fd)[0]
+            cases["fb_generic_bwd"][name + "_bwd"] = (*gtabs, fm, lsf,
+                                                      *streams, fd, lz)
     if "cx_forward" in kernels:
         cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
                        repeat=CALLER_LANES // CALLER_UNIQUE)
@@ -892,6 +919,99 @@ def ab_ckpt_fwd(tc, oc, name, args, cuda):
                 cuda, wp, B, ntr, multi="multi" in name)}
 
 
+def generic_pair_tables(port, cuda):
+    """The shipped model with its first gap state's emissions perturbed
+    (not flat), as the generic pair takes it: (T, Ematch, Egap)."""
+    P, fb = sub(port, "models.hmm"), sub(port, "ops.fb")
+    hmm = P.PairHmm.load(os.path.join(ROOT, PKG, "models", "last_hmm_20.txt"))
+    hmm.emissions[1, :4] *= 1.5
+    hmm.emissions[1] /= hmm.emissions[1].sum()
+    t = fb.tables_from_hmm(hmm, cuda)
+    return (t.T, t.Ematch, t.Egap)
+
+
+def generic_cells(port, cuda, names=None):
+    """{cell: (the forward's streams (xb, yb, valid, s1, fink), find)} of the
+    generic pair's batches (`names` of them, all when None): "generic"
+    [3072, 24, 1024] (marginAlign --inputModel), "call_generic" [128, 24,
+    32768] (marginCaller --alignmentModel: the CALLER_UNIQUE pairs of the
+    fused group's caller batch repeated), "em_band" [512, 24, 2048] (--em
+    --updateTheBand: the EM batch's first 2048 lanes) and the generic
+    batch's pairs packed at widths 5, 13 and 29 (Wp 8, 16, 32)."""
+    import torch
+
+    band, fb = sub(port, "ops.band"), sub(port, "ops.fb")
+    fbc = sub(port, "ops.fb_counts")
+    names = names or ("generic", "call_generic", "em_band", "generic_wp8",
+                      "generic_wp16", "generic_wp32")
+
+    def kernel_streams(batch, lanes=None, repeat=1):
+        xb, yb, valid, s1, fk, fd = fbc.kernel_inputs(
+            fb.device_batch(batch, cuda))
+        out = []
+        for t in (xb, yb, valid, s1, fk, fd):
+            t = t[..., :lanes] if lanes else t
+            out.append((t.repeat(*([1] * (t.dim() - 1)), repeat)
+                        if repeat > 1 else t).contiguous())
+        return tuple(out[:5]), out[5]
+
+    cells = {}
+    for name in names:
+        if name == "call_generic":
+            _, caller, _ = fused_pairs()
+            batch = band.pack_banded_batch(*caller, width=21,
+                                           pad_steps_to=CALLER_STEPS)
+            cells[name] = kernel_streams(
+                batch, repeat=CALL_GENERIC_LANES // CALLER_UNIQUE)
+        elif name == "em_band":
+            cells[name] = kernel_streams(em_batch(band), lanes=2048)
+        else:
+            width = {"generic": 21, "generic_wp8": 5, "generic_wp16": 13,
+                     "generic_wp32": 29}[name]
+            cells[name] = kernel_streams(generic_batch(band, width=width))
+        torch.cuda.empty_cache()
+    return cells
+
+
+def ab_generic(this, og, gtabs, streams, fd, cuda):
+    """The generic pair of both checkouts on one batch: the forward on the
+    streams, the backward on the plain forward's outputs; every output
+    (F_match, lsf, term; the posterior band) against the plain version and
+    the other checkout, both kernels timed, with bounds and resources."""
+    tc, tg = sub(this, "ops.fb_counts_cuda"), sub(this, "ops.fb_generic_cuda")
+    fbc = sub(this, "ops.fb_counts")
+    fargs = (*gtabs, *streams)
+    d1k, wp, B = streams[0].shape
+    cells = streams[0].numel()
+    got = tg.fb_generic_fwd_cuda(*fargs)
+    plain = tg.fb_generic_fwd_plain(*fargs)
+    ref = og.fb_generic_fwd_cuda(*fargs)
+    row = {"shape": [d1k, wp, B], "fwd": {
+        "max_abs_err_plain": max_diff(got, plain),
+        "bit_equal_plain": all_equal(got, plain),
+        "bit_equal_other": all_equal(got, ref),
+        **ab(lambda: tg.fb_generic_fwd_cuda(*fargs),
+             lambda: og.fb_generic_fwd_cuda(*fargs)),
+        **bound("fb_generic_fwd", cells, nbytes(*fargs, *got)),
+        "resources": tc.generic_resources(cuda, wp, B)}}
+    del got, ref
+    fm, lsf, term = plain
+    lz = fbc.logz_from_terminal(lsf[None], term[None], fd)[0]
+    bargs = (*gtabs, fm, lsf, *streams, fd, lz)
+    got = tg.fb_generic_bwd_cuda(*bargs)
+    want = tg.fb_generic_bwd_plain(*bargs)
+    ref = og.fb_generic_bwd_cuda(*bargs)
+    row["bwd"] = {
+        "max_abs_err_plain": max_diff((got,), (want,)),
+        "bit_equal_plain": all_equal((got,), (want,)),
+        "bit_equal_other": all_equal((got,), (ref,)),
+        **ab(lambda: tg.fb_generic_bwd_cuda(*bargs),
+             lambda: og.fb_generic_bwd_cuda(*bargs)),
+        **bound("fb_generic_bwd", cells, nbytes(*bargs, got)),
+        "resources": tc.generic_resources(cuda, wp, B, backward=True)}
+    return row
+
+
 def counts_rel(got, want):
     return max(((g.sum(-1) - w.sum(-1)).abs()
                 / w.sum(-1).abs().clamp(min=1e-6)).max().item()
@@ -906,12 +1026,14 @@ def card():
 
 
 GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
-          "probe_counts", "probe_cx", "counts")
+          "probe_counts", "probe_cx", "probe_generic", "counts")
 DEFAULT_GROUPS = ("fused", "wavefront", "counts")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "cx_forward": "ops.fb_circ_cuda",
                   "counts_fwd_ckpt": "ops.fb_counts_cuda",
+                  "fb_generic_fwd": "ops.fb_generic_cuda",
+                  "fb_generic_bwd": "ops.fb_generic_cuda",
                   "counts_multi_fwd_ckpt": "ops.fb_counts_cuda",
                   "expand_streams": "ops.fb_circ_cuda",
                   "sv_backward": "ops.fb_circ_cuda",
@@ -1111,7 +1233,7 @@ _CF_ROLLED = ("#pragma unroll\n    for (int kb = 0; kb < K; ++kb) {\n"
               "#pragma unroll 1\n    for (int kb = 0; kb < K; ++kb) {\n"
               "      const int t1 = word_of(")
 _CF_LANES_AT = ("  cudaError_t err = mk::warp_lanes(\n"
-                "      B * ntr, [Wp](int l) { return cf_smem(Wp, l); }, "
+                "      B * ntr, [Wp](int l) { return cf_smem(Wp, l, MATCH); }, "
                 "lanes);")
 # Three trials a block at 8 lanes where the launch has three trials (else
 # one trial at 16 lanes): the block's warps in groups of LPB, one a trial,
@@ -1124,14 +1246,14 @@ _CF_TRIALS = [
      "    counts_fwd_ckpt_kernel("),
     ("  float* tab = cf_raw;  // [CF_NTAB]\n"
      "  uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + CF_NTAB);\n"
-     "  const size_t nin = cf_in_bytes(Wp, LPB), nout = cf_out_bytes(Wp, "
-     "LPB);",
+     "  const size_t nin = cf_in_bytes(Wp, LPB),\n"
+     "               nout = cf_out_bytes(Wp, LPB, MATCH);",
      "  const int tl = threadIdx.x / (32 * LPB);\n"
      "  const int ntb = blockDim.x / (32 * LPB);\n"
      "  float* tab = cf_raw + tl * CF_NTAB;\n"
      "  uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + 3 * CF_NTAB);\n"
      "  const size_t nin = cf_in_bytes(Wp, LPB),\n"
-     "               nout = 3 * cf_out_bytes(Wp, LPB);"),
+     "               nout = 3 * cf_out_bytes(Wp, LPB, MATCH);"),
     ("  const int tid = threadIdx.x, w = tid >> 5;\n"
      "  const int b0 = blockIdx.x * LPB, b = b0 + w, t = blockIdx.y;",
      "  const int tid = threadIdx.x % (32 * LPB), w = tid >> 5;\n"
@@ -1139,21 +1261,23 @@ _CF_TRIALS = [
      "            t = blockIdx.y * ntb + tl;"),
     ("  cf_stage<MULTI, LPB>(in(0), 0,",
      "  if (tl == 0) cf_stage<MULTI, LPB>(in(0), 0,"),
-    ("    if (g > 0)\n      cf_flush<LPB>(out(g - 1), g - 1,",
+    ("    if (g > 0)\n      cf_flush<LPB, MATCH>(out(g - 1), g - 1,",
      "    if (g > 0)\n"
-     "      cf_flush<LPB>(out(g - 1) + tl * LPB * cf_rec(Wp), g - 1,"),
+     "      cf_flush<LPB, MATCH>(out(g - 1) + tl * LPB * cf_rec(Wp, MATCH), "
+     "g - 1,"),
     ("    if (g + 1 < G)\n      cf_stage<MULTI, LPB>(",
      "    if (g + 1 < G && tl == 0)\n      cf_stage<MULTI, LPB>("),
-    ("lane.tile(in(g), out(g) + w * cf_rec(Wp), g, w);",
-     "lane.tile(in(g), out(g) + (tl * LPB + w) * cf_rec(Wp), g, w);"),
-    ("  cf_flush<LPB>(out(G - 1), G - 1,",
-     "  cf_flush<LPB>(out(G - 1) + tl * LPB * cf_rec(Wp), G - 1,"),
+    ("lane.tile(in(g), out(g) + w * cf_rec(Wp, MATCH), g, w);",
+     "lane.tile(in(g), out(g) + (tl * LPB + w) * cf_rec(Wp, MATCH), g, w);"),
+    ("  cf_flush<LPB, MATCH>(out(G - 1), G - 1,",
+     "  cf_flush<LPB, MATCH>(out(G - 1) + tl * LPB * cf_rec(Wp, MATCH), "
+     "G - 1,"),
     ("  const int i0 = threadIdx.x / LPB;  // 0 .. 31",
      "  const int i0 = threadIdx.x % (32 * LPB) / LPB;"),
     ("  return CF_NTAB * sizeof(float) +\n"
-     "         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb));",
+     "         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb, match));",
      "  return 3 * CF_NTAB * sizeof(float) +\n"
-     "         2 * (cf_in_bytes(Wp, lpb) + 3 * cf_out_bytes(Wp, lpb));"),
+     "         2 * (cf_in_bytes(Wp, lpb) + 3 * cf_out_bytes(Wp, lpb, match));"),
     (_CF_LANES_AT,
      "  cudaError_t err = (*lanes = ntr == 3 ? 8 : 16, cudaSuccess);"),
     ("dim3((B + lanes - 1) / lanes, ntr),\n"
@@ -1173,8 +1297,8 @@ PROBES.update({
          "c) = *reinterpret_cast<const uint32_t*>(s + (size_t)row * B + c);")
     ]),
     "cf_no_global": (_CF, "fb_counts.cu", [
-        ("    if (g > 0)\n      cf_flush<LPB>(",
-         "    if (g > 0 && g < 3)\n      cf_flush<LPB>("),
+        ("    if (g > 0)\n      cf_flush<LPB, MATCH>(",
+         "    if (g > 0 && g < 3)\n      cf_flush<LPB, MATCH>("),
         ("    if (g + 1 < G)\n      cf_stage<MULTI, LPB>(",
          "    if (g + 1 < G && g < 2)\n      cf_stage<MULTI, LPB>(")]),
     "cf_cap64": (_CF, "fb_counts.cu", [_cf_cap(32)]),
@@ -1222,6 +1346,83 @@ PROBES.update({
     "cx_no_barrier": ("cx_forward", "fb_circ.cu", [
         ("    __syncthreads();  // tile t in, tile t - 1 done",
          "    if (t < 2) __syncthreads();")]),
+})
+# The generic pair (fb_generic_fwd: the checkpoint forward's MATCH mode,
+# fb_generic_bwd: generic_bwd_kernel), both kernels in each variant: with 8
+# or 16 lanes a block whatever B, with its tiles copied by plain loads and
+# stores (no cp.async: the code bytes through csrc/common.cuh
+# `stage_bytes`, s1 and F_match), and without output tiles (each F_match
+# and posterior value stored to device memory from its row's thread; the
+# tiles' F_match and posterior rows stay in shared memory, lsf and term
+# leave as before).  Every variant's outputs equal the kernel's.
+_GB = ("fb_generic_fwd", "fb_generic_bwd")
+# The forward with at most 64 registers (two blocks of 16 lanes an SM);
+# the backward alone with at most 128 registers (two blocks of 8 lanes an
+# SM) or 64 (four of 8, two of 16), its tile's diagonals in a rolled
+# loop, and both.
+_GB_BOUNDS = ("template <int LPB>\n__global__ void __launch_bounds__(32 * "
+              "LPB)\n    generic_bwd_kernel(")
+_GB_ROLLED = ("#pragma unroll\n    for (int kb = K - 1; kb >= 0; --kb) "
+              "step(", "#pragma unroll 1\n    for (int kb = K - 1; kb >= 0; "
+              "--kb) step(")
+
+
+def _gb_cap(n):
+    return (_GB_BOUNDS, _GB_BOUNDS.replace("(32 * LPB)",
+                                           "(32 * LPB, %d / LPB)" % n))
+
+_GB_LANES_AT = "      B, [Wp](int l) { return gb_smem(Wp, l); }, lanes);"
+PROBES.update({
+    **{"gen_lanes_%d" % n: (_GB, "fb_counts.cu", [
+        (_CF_LANES_AT, "  cudaError_t err = (*lanes = %d, cudaSuccess);" % n),
+        ("  cudaError_t err = mk::warp_lanes(\n" + _GB_LANES_AT,
+         "  cudaError_t err = (*lanes = %d, cudaSuccess);" % n)])
+       for n in (8, 16)},
+    "gen_sync_stage": (_GB, "fb_counts.cu", [
+        ("common.cuh",
+         "      if (b0 + c < B) cp_async4(dst + row * S + c, s + (size_t)row "
+         "* B + c);",
+         "      if (b0 + c < B) *reinterpret_cast<uint32_t*>(dst + row * S + "
+         "c) = *reinterpret_cast<const uint32_t*>(s + (size_t)row * B + c);"),
+        ("      mk::cp_async4(S.s1 + w * K + kb, s1 + at);\n"
+         "      if (MULTI)",
+         "      S.s1[w * K + kb] = s1[at];\n      if (MULTI)"),
+        ("      mk::cp_async4(dst + r, src + (size_t)r * B);",
+         "      dst[r] = src[(size_t)r * B];"),
+        ("      mk::cp_async4(S.s1 + w * K + kb, s1 + at);\n"
+         "      mk::cp_async4(S.lsf + w * K + kb, lsf + at);",
+         "      S.s1[w * K + kb] = s1[at];\n      S.lsf[w * K + kb] = lsf[at];")]),
+    "gen_fwd_cap64": ("fb_generic_fwd", "fb_counts.cu", [_cf_cap(32)]),
+    "gen_bwd_cap128": ("fb_generic_bwd", "fb_counts.cu", [_gb_cap(16)]),
+    "gen_bwd_cap64": ("fb_generic_bwd", "fb_counts.cu", [_gb_cap(32)]),
+    "gen_bwd_rolled": ("fb_generic_bwd", "fb_counts.cu", [_GB_ROLLED]),
+    "gen_bwd_rolled_cap64": ("fb_generic_bwd", "fb_counts.cu",
+                             [_GB_ROLLED, _gb_cap(32)]),
+    "gen_no_tile": (_GB, "fb_counts.cu", [
+        ("  float ls = 0.f, cprev = 1.f;\n  int sprev = 0;\n",
+         "  float ls = 0.f, cprev = 1.f;\n  int sprev = 0;\n"
+         "  float* gout = nullptr;\n  size_t gB = 0, gb = 0;\n"),
+        ("      if (MATCH && row) o[kb * Wp + k] = f[0];",
+         "      if (MATCH && row)\n"
+         "        gout[((size_t)(g * K + kb) * Wp + k) * gB + gb] = f[0];"),
+        ("                                 live && !MULTI ? fink[b] : -1, "
+         "live);",
+         "                                 live && !MULTI ? fink[b] : -1, "
+         "live);\n  lane.gout = ckpt;\n  lane.gB = B;\n  lane.gb = b;"),
+        ("  for (int r = i0; r < nck; r += 32) ck[(size_t)r * B] = o[r];",
+         "  for (int r = i0; !MATCH && r < nck; r += 32) ck[(size_t)r * B] = "
+         "o[r];"),
+        ("  float g1[4] = {0.f, 0.f, 0.f, 0.f};  // e_s * b_s of d+1\n",
+         "  float g1[4] = {0.f, 0.f, 0.f, 0.f};  // e_s * b_s of d+1\n"
+         "  float* gout = nullptr;\n  size_t gB = 0, gb = 0;\n"),
+        ("    if (row) *fm = (*fm * nb[0]) * alpha0;",
+         "    if (row) gout[((size_t)d * Wp + k) * gB + gb] = (*fm * nb[0]) * "
+         "alpha0;"),
+        ("                   live ? logZ[b] : 0.f, live);",
+         "                   live ? logZ[b] : 0.f, live);\n"
+         "  lane.gout = post;\n  lane.gB = B;\n  lane.gb = b;"),
+        ("  float* dst = post + (size_t)d0 * Wp * B + b;",
+         "  return;\n  float* dst = post + (size_t)d0 * Wp * B + b;")]),
 })
 
 
@@ -1335,13 +1536,9 @@ def run_counts(this, other, cuda, report):
                                        (*tabs, *streams))
     torch.cuda.empty_cache()
     f_all, lsf, term = tc.counts_fwd_all_cuda(*tabs, *streams)
-    bargs = (*tabs, f_all, lsf, *streams, fd, logZ)
-    got, ref = tc.counts_bwd_cuda(*bargs), oc.counts_bwd_cuda(*bargs)
-    report["counts_bwd"] = {
-        "bit_equal_other": all(torch.equal(g, r) for g, r in zip(got, ref)),
-        **ab(lambda: tc.counts_bwd_cuda(*bargs),
-             lambda: oc.counts_bwd_cuda(*bargs))}
-    del f_all, bargs, got, ref
+    report["counts_bwd"] = unmoved(tc.counts_bwd_cuda, oc.counts_bwd_cuda,
+                                   (*tabs, f_all, lsf, *streams, fd, logZ))
+    del f_all
     # The E-step of --em on this batch (checkpoint pair, 3 trials).
     odev = sub(other, "ops.fb").device_batch(batch, cuda)
     otables = sub(other, "ops.fb").tables_stacked(hmms, cuda)
@@ -1394,14 +1591,10 @@ def run_counts(this, other, cuda, report):
                                              (*tabs, *mstreams))
     torch.cuda.empty_cache()
     f_all, lsf, term = tc.counts_multi_fwd_all_cuda(*tabs, *mstreams)
-    bargs = (*tabs, f_all, lsf, *mstreams, mfd, L)
-    got = tc.counts_multi_bwd_cuda(*bargs)
-    ref = oc.counts_multi_bwd_cuda(*bargs)
-    report["counts_multi_bwd"] = {
-        "bit_equal_other": all(torch.equal(g, r) for g, r in zip(got, ref)),
-        **ab(lambda: tc.counts_multi_bwd_cuda(*bargs),
-             lambda: oc.counts_multi_bwd_cuda(*bargs))}
-    del f_all, bargs, got, ref
+    report["counts_multi_bwd"] = unmoved(
+        tc.counts_multi_bwd_cuda, oc.counts_multi_bwd_cuda,
+        (*tabs, f_all, lsf, *mstreams, mfd, L))
+    del f_all
     omdev = sub(other, "ops.fb").multi_device_batch(mb, cuda)
     report["estep_em_multi"] = estep(
         lambda: fbc.counts_multi_trials(tables, mdev, kernel="ckpt"),
@@ -1409,28 +1602,14 @@ def run_counts(this, other, cuda, report):
     del mdev, omdev, mb
     torch.cuda.empty_cache()
 
-    # The generic backward (non-flat model, one trial).
-    tg, og = (sub(p, "ops.fb_generic_cuda") for p in (this, other))
-    hmm = P.PairHmm.load(os.path.join(ROOT, PKG, "models", "last_hmm_20.txt"))
-    hmm.emissions[1, :4] *= 1.5
-    hmm.emissions[1] /= hmm.emissions[1].sum()
-    gt = fb.tables_from_hmm(hmm, cuda)
-    gtabs = (gt.T, gt.Ematch, gt.Egap)
-    gdev = fb.device_batch(generic_batch(band), cuda)
-    xb, yb, valid, s1, fk, fd = fbc.kernel_inputs(gdev)
-    gstreams = (xb, yb, valid, s1, fk)
-    report["fb_generic_fwd"] = unmoved(tg.fb_generic_fwd_cuda,
-                                       og.fb_generic_fwd_cuda,
-                                       (*gtabs, *gstreams))
-    fm, lsf, term = tg.fb_generic_fwd_cuda(*gtabs, *gstreams)
-    lz = fbc.logz_from_terminal(lsf[None], term[None], fd)[0]
-    gargs = (*gtabs, fm, lsf, *gstreams, fd, lz)
-    report["fb_generic_bwd"] = {
-        "shape": list(xb.shape),
-        "bit_equal_other": bool(torch.equal(tg.fb_generic_bwd_cuda(*gargs),
-                                            og.fb_generic_bwd_cuda(*gargs))),
-        **ab(lambda: tg.fb_generic_bwd_cuda(*gargs),
-             lambda: og.fb_generic_bwd_cuda(*gargs))}
+    # The generic pair (non-flat model, one trial) on its paths' batches.
+    og = sub(other, "ops.fb_generic_cuda")
+    gtabs = generic_pair_tables(this, cuda)
+    for name, (streams, fd) in generic_cells(this, cuda).items():
+        report[name] = ab_generic(this, og, gtabs, streams, fd, cuda)
+        print(json.dumps({name: report[name]}), flush=True)
+        del streams, fd
+        torch.cuda.empty_cache()
 
 
 def estep(this_fn, other_fn):
@@ -1464,6 +1643,8 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_counts": lambda *a: run_probe(
             *a, kernels=("counts_fwd_ckpt", "counts_multi_fwd_ckpt")),
         "probe_cx": lambda *a: run_probe(*a, kernels=("cx_forward",)),
+        "probe_generic": lambda *a: run_probe(
+            *a, kernels=("fb_generic_fwd", "fb_generic_bwd")),
         "counts": run_counts}
 
 if __name__ == "__main__":

@@ -39,23 +39,23 @@
 //                             block 0 recomputes from the zero frontier, and
 //                             every block re-seeds the starts inside it.
 //
-// and, as a third instance of the same two kernel templates (MODE_GENERIC,
-// one model), the generic forward-backward of marginalign_trna_tpu/ops/
-// fb_pallas.py for models whose gap emissions are not flat:
+// and the generic forward-backward of marginalign_trna_tpu/ops/fb_pallas.py
+// for models whose gap emissions are not flat (one model):
 //   fb_generic_fwd   <- `_fwd_body` (`_run_forward` :480, pallas_calls :519
 //                       dynamic tables and :526 baked tables): the same
 //                       forward, storing only the scaled match plane F_match,
-//                       lsf and the terminal sums;
+//                       lsf and the terminal sums (the checkpoint forward's
+//                       kernel in its MATCH mode);
 //   fb_generic_bwd   <- `_bwd_body` (`_run_backward` :693, pallas_calls :747
 //                       and :753): the same backward, writing the posterior
 //                       match band F_match * b_M * exp(lsf + bls - logZ) and
-//                       counting nothing.
+//                       counting nothing (generic_bwd_kernel).
 // Run-time tables cover both TPU variants: the baked variant only skips
 // terms that are statically zero and folds a flat gap row into a scalar,
 // which rounds exactly like the lookup and the sum in the same order.
 //
-// Layout of the stored and generic forwards and backwards: as the block
-// per 32 lanes kernels (common.cuh), one block owns L consecutive
+// Layout of the stored pair (counts_fwd_kernel, counts_bwd_kernel): as the
+// block per 32 lanes kernels (common.cuh), one block owns L consecutive
 // lanes (threadIdx.x) and all Wp band rows (8 row threads of RPT rows
 // each) of one trial (blockIdx.y): the TPU's sequential trials grid axis
 // runs side by side here.  The block walks the diagonals itself; a
@@ -66,21 +66,24 @@
 // read at d directly.  The model (T, Ematch, Egap of the block's trial)
 // sits in shared memory.
 //
-// The checkpoint pair has layouts of their own, see counts_bwd_ckpt_kernel
-// and counts_fwd_ckpt_kernel: one warp per lane (and trial), one band row
-// per thread, the row shifts as warp shuffles, tiles of 8 diagonals
-// staged with cp.async.  Every kernel takes its recursions from mix_to,
-// fwd_recur and bwd_recur; the checkpoint pair's forward recursion is one
-// source (warp_fwd_cell, warp_rescale, warp_mixes).
+// The checkpoint pair and the generic pair take the warp per lane layout:
+// one warp per lane (and trial), band row k on thread k (Wp <= 32), the
+// row shifts as warp shuffles, tiles of 8 diagonals staged with cp.async,
+// so a diagonal needs no block barrier (counts_bwd_ckpt_kernel,
+// counts_fwd_ckpt_kernel, generic_bwd_kernel).  Every kernel takes its
+// recursions from mix_to, fwd_recur and bwd_recur; the warp-per-lane
+// forwards (the checkpoint forward, its MATCH mode and the checkpoint
+// backward's recompute) are one source (warp_fwd_cell, warp_rescale,
+// warp_mixes).
 //
 // Arithmetic: the plain versions' (ops/fb_counts_cuda.py) operation for
 // operation, built without multiply-add contraction (-fmad=false), so
-// f_all, lsf, the terminal sums, the checkpoints and the posterior band
-// round identically.  The count partials are summed per thread over its
-// rows and diagonals and over the rows once at the end; that order
-// differs from the plain versions' (rows first, then diagonals), and the
-// checkpoint backward adds its transition partials with fused
-// multiply-adds, so the counts agree to float32 summation error.
+// f_all, lsf, the terminal sums, the checkpoints, F_match and the
+// posterior band round identically.  The count partials are summed per
+// thread over its rows and diagonals and over the rows once at the end;
+// that order differs from the plain versions' (rows first, then
+// diagonals), and the checkpoint backward adds its transition partials
+// with fused multiply-adds, so the counts agree to float32 summation error.
 //
 // What bounds them on an H100: counts_fwd_all writes 20 B per cell and
 // counts_bwd reads 20 B and writes 4 B, so a full card would be memory
@@ -90,12 +93,19 @@
 // (codes in, F_match out) and 11 B backward (F_match and codes in,
 // posterior out).  At the EM batches (8192 lanes, 3 trials) the chain of
 // dependent diagonals bounds the template kernels first: a barrier each,
-// and 8 warps per SM.  counts_bwd_ckpt_kernel keeps each diagonal inside a
-// warp (no barrier), bins the emission counts by code, and sizes a block
-// at 128 threads: ptxas gives it 127 registers (128 with MULTI), no
-// spills and no stack, with 45,472 B of shared memory a block at Wp 24
-// (four blocks, 16 warps, per SM; three at Wp 32).  There the recomputed
-// forward takes ~40% of its time and 8 of a warp's 32 rows idle.
+// and 8 warps per SM.  The warp-per-lane kernels issue ~110-140
+// instructions a warp and diagonal, so where lanes are many they are
+// bound by instruction issue and where they are few by each warp's serial
+// chain of diagonals: on an H100 80GB HBM3 at 700 W (kernel_ab.py's
+// counts group) the generic pair takes 0.97 / 1.25 ms at [3072, 24, 1024]
+// (one block of 8 warps an SM, ~550 cycles a diagonal), 5.7x / 4.9x its
+// byte bounds, and 0.96 / 1.23 ms at [128, 24, 32768], 4.3x / 3.6x.
+// counts_bwd_ckpt_kernel keeps each diagonal inside a warp (no barrier),
+// bins the emission counts by code, and sizes a block at 128 threads:
+// ptxas gives it 127 registers (128 with MULTI), no spills and no stack,
+// with 45,472 B of shared memory a block at Wp 24 (four blocks, 16 warps,
+// per SM; three at Wp 32).  There the recomputed forward takes ~40% of
+// its time and 8 of a warp's 32 rows idle.
 #include "common.cuh"
 
 namespace {
@@ -106,10 +116,8 @@ constexpr int MAX_THREADS = 256;
 constexpr int TAB = 80;          // T, Ematch, Egap (75 floats), padded
 constexpr int K = 8;             // diagonals per rescale period / block
 
-// Kernel variants: the stored counts pair (all five planes of f), the
-// checkpoint counts pair, and the generic forward-backward pair (the match
-// plane of f, the posterior band, no counts).
-enum Mode { MODE_STORED = 0, MODE_CKPT = 1, MODE_GENERIC = 2 };
+// The counts pairs: stored (all five planes of f) and checkpoint.
+enum Mode { MODE_STORED = 0, MODE_CKPT = 1 };
 
 struct Dims {
   int L, TY, lane, ty, b, t, Wp, B, plane;
@@ -283,13 +291,12 @@ __device__ __forceinline__ float sum5(const float (&v)[5]) {
   return (((v[0] + v[1]) + v[2]) + v[3]) + v[4];
 }
 
-// band: f_all [ntr][d1k][5][Wp][B] (MODE_STORED) or F_match
-// [ntr][d1k][Wp][B] (MODE_GENERIC).  fink is [B] (the lane's terminal
+// band: f_all [ntr][d1k][5][Wp][B].  fink is [B] (the lane's terminal
 // row), or with MULTI [d1k][B] (the terminal row of the problem ending at
 // d, else -1); start [d1k][B] (MULTI only) marks each problem's first
-// diagonal.  The checkpoint forward has a kernel of its own
-// (counts_fwd_ckpt_kernel).
-template <int RPT, int MODE, bool MULTI>
+// diagonal.  The checkpoint forward and the generic forward have a kernel
+// of their own (counts_fwd_ckpt_kernel).
+template <int RPT, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS)
     counts_fwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
                       const float* __restrict__ Eg,
@@ -301,8 +308,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       const int32_t* __restrict__ fink, int d1k, int Wp,
                       int B, float* __restrict__ band,
                       float* __restrict__ lsf, float* __restrict__ term) {
-  static_assert(MODE == MODE_STORED || MODE == MODE_GENERIC,
-                "the template forward stores f_all or F_match");
   extern __shared__ float smem[];
   const Dims g = dims(Wp, B);
   float* fG = smem;                // [2][4][Wp][L] gap-target mixes of d-1
@@ -330,13 +335,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
     for (int r = 0; r < RPT; ++r) {
       const int k = g.ty + r * g.TY;
       if (k >= Wp || !g.live) continue;
-      if constexpr (MODE == MODE_STORED) {
 #pragma unroll
-        for (int s = 0; s < NS; ++s)
-          band[((t0 * NS + s) * Wp + k) * B + g.b] = f[r][s];
-      } else {
-        band[(t0 * Wp + k) * B + g.b] = f[r][0];
-      }
+      for (int s = 0; s < NS; ++s)
+        band[((t0 * NS + s) * Wp + k) * B + g.b] = f[r][s];
       if (k == fk) term[t0 * B + g.b] = sum5(f[r]);
     }
     if (g.live && g.ty == 0) lsf[t0 * B + g.b] = 0.f;
@@ -378,13 +379,9 @@ __global__ void __launch_bounds__(MAX_THREADS)
         const int k = g.ty + r * g.TY;
         if (k >= Wp) continue;
         if (k == fk) term[tdb] = tv;
-        if constexpr (MODE == MODE_STORED) {
 #pragma unroll
-          for (int s = 0; s < NS; ++s)
-            band[(((t0 + d) * NS + s) * Wp + k) * B + g.b] = f[r][s];
-        } else {
-          band[((t0 + d) * Wp + k) * B + g.b] = f[r][0];
-        }
+        for (int s = 0; s < NS; ++s)
+          band[(((t0 + d) * NS + s) * Wp + k) * B + g.b] = f[r][s];
       }
     }
     publish_mixes<RPT, true>(f, tab, fG, fM, d, g);
@@ -411,15 +408,15 @@ __device__ __forceinline__ void reduce_rows(const float (&acc)[N], float* shR,
   }
 }
 
-// band: the stored forward's f_all (MODE_STORED) or F_match (MODE_GENERIC)
-// (counts_fwd_kernel); post is written by both, the count partials by
-// MODE_STORED.  Single-problem lanes: fink, find [B] and logZ [ntr][B].
+// band: the stored forward's f_all (counts_fwd_kernel); post and the count
+// partials are written.  Single-problem lanes: fink, find [B] and logZ
+// [ntr][B].
 // MULTI: fink, find [d1k][B] (a problem's terminal row and diagonal at its
 // terminal diagonal, else -1), logZ the per-diagonal log-likelihood L
 // [ntr][d1k][B] of the problem owning the diagonal, and start [d1k][B]: the
 // backward injects at every terminal cell and restarts its log-scale there,
 // and each problem's first diagonal emits nothing.
-template <int RPT, int MODE, bool MULTI>
+template <int RPT, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS)
     counts_bwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
                       const float* __restrict__ Eg,
@@ -435,7 +432,6 @@ __global__ void __launch_bounds__(MAX_THREADS)
                       const float* __restrict__ logZ, int d1k, int Wp, int B,
                       float* __restrict__ post, float* __restrict__ tcp,
                       float* __restrict__ egp) {
-  constexpr bool COUNTS = MODE == MODE_STORED;
   extern __shared__ float smem[];
   const Dims g = dims(Wp, B);
   const int plane = g.plane;
@@ -451,11 +447,11 @@ __global__ void __launch_bounds__(MAX_THREADS)
   const float lz0 = g.live && !MULTI ? logZ[(size_t)g.t * B + g.b] : 0.f;
   float bls = 0.f, cprev = 1.f;
   int sh1 = 0, sh2 = 0;  // s1 at d+1 and d+2
-  float tca[COUNTS ? 25 : 1], ega[COUNTS ? 20 : 1];
+  float tca[25], ega[20];
 #pragma unroll
-  for (int j = 0; j < (COUNTS ? 25 : 1); ++j) tca[j] = 0.f;
+  for (int j = 0; j < 25; ++j) tca[j] = 0.f;
 #pragma unroll
-  for (int j = 0; j < (COUNTS ? 20 : 1); ++j) ega[j] = 0.f;
+  for (int j = 0; j < 20; ++j) ega[j] = 0.f;
   __syncthreads();
 
   for (int d = d1k - 1; d >= 0; --d) {
@@ -532,35 +528,27 @@ __global__ void __launch_bounds__(MAX_THREADS)
       const int x = xs[r], y = ys[r];
       float fv[5];
 #pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        if constexpr (MODE == MODE_STORED)
-          fv[s] = g.live
-                      ? band[((((size_t)g.t * d1k + d) * NS + s) * Wp + k) *
-                                 B + g.b]
-                      : 0.f;
-        else
-          fv[s] = g.live && s == 0
-                      ? band[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b]
-                      : 0.f;
-      }
+      for (int s = 0; s < NS; ++s)
+        fv[s] = g.live
+                    ? band[((((size_t)g.t * d1k + d) * NS + s) * Wp + k) * B +
+                           g.b]
+                    : 0.f;
       if (g.live)
         post[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b] =
             (fv[0] * nb[r][0]) * alpha0;
-      if constexpr (COUNTS) {
 #pragma unroll
-        for (int s = 0; s < NS; ++s) {
-          const float fa = fv[s] * alpha1;
+      for (int s = 0; s < NS; ++s) {
+        const float fa = fv[s] * alpha1;
 #pragma unroll
-          for (int u = 0; u < NS; ++u) tca[s * 5 + u] += fa * q[r][u];
-        }
+        for (int u = 0; u < NS; ++u) tca[s * 5 + u] += fa * q[r][u];
+      }
 #pragma unroll
-        for (int s = 1; s < NS; ++s) {
-          const float gam = (fv[s] * nb[r][s]) * a0n;
-          const int code = (s & 1) ? x : y;  // states 1, 3: the ref base
+      for (int s = 1; s < NS; ++s) {
+        const float gam = (fv[s] * nb[r][s]) * a0n;
+        const int code = (s & 1) ? x : y;  // states 1, 3: the ref base
 #pragma unroll
-          for (int c = 0; c < 5; ++c)
-            ega[(s - 1) * 5 + c] += code == c ? gam : 0.f;
-        }
+        for (int c = 0; c < 5; ++c)
+          ega[(s - 1) * 5 + c] += code == c ? gam : 0.f;
       }
       const int i = k * g.L + g.lane;
       shP[pout + i] = e_match(tab, x, y) * nb[r][0];
@@ -571,10 +559,8 @@ __global__ void __launch_bounds__(MAX_THREADS)
     }
     __syncthreads();
   }
-  if constexpr (COUNTS) {
-    reduce_rows<25>(tca, shR, tcp, g);
-    reduce_rows<20>(ega, shR, egp, g);
-  }
+  reduce_rows<25>(tca, shR, tcp, g);
+  reduce_rows<20>(ega, shR, egp, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -1108,7 +1094,12 @@ __global__ void __launch_bounds__(CK_THREADS)
 // a rescale falls on its first row and the rescale on its last, and a
 // whole tile runs unrolled.  Arithmetic in the template forward's order
 // (-fmad=false, no fused multiply-add), so it equals the plain version bit
-// for bit.
+// for bit.  MATCH makes the same kernel the generic forward
+// (fb_generic_fwd, one trial): a warp's record holds the tile's scaled
+// match plane in place of the checkpoint, and no cs leaves.  There a
+// store of F_match from each row's thread in place of the record costs
+// +22-72%, plain copies in place of cp.async +59-119% (kernel_ab.py's
+// probe_generic group).
 //
 // What bounds it on an H100 80GB HBM3 at a 700 W power limit
 // (kernel_ab.py's probe_counts group, the EM batch [3, 512, 24, 8192]:
@@ -1131,9 +1122,16 @@ constexpr int CF_NTAB = 64;  // 36 + 12 + 12 floats, padded
 constexpr int CF_EG = 36;    // the first pair
 
 // Floats of a warp's output record: the checkpoint [2 NS][Wp], term [K],
-// lsf [K], cs [4] and one more (an odd stride: the flush reads LPB lanes'
-// records at one offset without bank conflicts).
-__host__ __device__ inline int cf_rec(int Wp) { return 2 * NS * Wp + 21; }
+// lsf [K], cs [4] and one more; with MATCH (the generic forward) the tile's
+// scaled match plane F_match [K][Wp] (row kb * Wp + k), term [K], lsf [K]
+// and one more.  The stride is odd: the flush reads LPB lanes' records at
+// one offset without bank conflicts.
+__host__ __device__ inline int cf_lead(int Wp, bool match) {
+  return match ? K * Wp : 2 * NS * Wp;
+}
+__host__ __device__ inline int cf_rec(int Wp, bool match) {
+  return cf_lead(Wp, match) + (match ? 2 * K + 1 : 2 * K + 5);
+}
 // A stage buffer: the xb, yb and valid tiles [K Wp][byte_stride(LPB)], the
 // start tile [K][byte_stride(LPB)] (MULTI), then s1 and fink [LPB][K] (a
 // lane's K values as two 16-byte words).
@@ -1145,13 +1143,13 @@ __host__ __device__ inline size_t cf_in_bytes(int Wp, int lpb) {
                    K * mk::byte_stride(lpb) + 2 * K * lpb * sizeof(int);
   return (n + 15) / 16 * 16;
 }
-__host__ __device__ inline size_t cf_out_bytes(int Wp, int lpb) {
-  return ((size_t)lpb * cf_rec(Wp) * sizeof(float) + 15) / 16 * 16;
+__host__ __device__ inline size_t cf_out_bytes(int Wp, int lpb, bool match) {
+  return ((size_t)lpb * cf_rec(Wp, match) * sizeof(float) + 15) / 16 * 16;
 }
 // The trial's tables, two stage buffers and two output tiles.
-inline size_t cf_smem(int Wp, int lpb) {
+inline size_t cf_smem(int Wp, int lpb, bool match) {
   return CF_NTAB * sizeof(float) +
-         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb));
+         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb, match));
 }
 
 struct CfIn {
@@ -1194,8 +1192,10 @@ __device__ __forceinline__ void cf_stage(
 }
 
 // Writes output tile O (checkpoint block g) of the block's lanes of
-// trial t: thread tid moves lane tid % LPB.
-template <int LPB>
+// trial t: thread tid moves lane tid % LPB, so LPB threads write LPB
+// consecutive lanes of a row.  MATCH: `ckpt` is F_match [d1k][Wp][B] (one
+// trial), whose rows of tile g are the record's leading K Wp floats.
+template <int LPB, bool MATCH>
 __device__ __forceinline__ void cf_flush(const float* O, int g, int G,
                                          int d1k, int t, int b0, int Wp,
                                          int B, float* __restrict__ ckpt,
@@ -1205,15 +1205,15 @@ __device__ __forceinline__ void cf_flush(const float* O, int g, int G,
   const int w = threadIdx.x % LPB, b = b0 + w;
   if (b >= B) return;
   const int i0 = threadIdx.x / LPB;  // 0 .. 31
-  const int nck = 2 * NS * Wp;
-  const float* o = O + w * cf_rec(Wp);
+  const int nck = cf_lead(Wp, MATCH);
+  const float* o = O + w * cf_rec(Wp, MATCH);
   float* ck = ckpt + ((size_t)t * G + g) * nck * B + b;
   for (int r = i0; r < nck; r += 32) ck[(size_t)r * B] = o[r];
   if (i0 < K) {
     const size_t at = ((size_t)t * d1k + g * K + i0) * B + b;
     term[at] = o[nck + i0];
     lsf[at] = o[nck + K + i0];
-    if (i0 < 4)
+    if (!MATCH && i0 < 4)
       cs[(((size_t)t * G + g) * 4 + i0) * B + b] = o[nck + 2 * K + i0];
   }
 }
@@ -1223,8 +1223,9 @@ __device__ __forceinline__ int word_of(const int4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-// The forward of one lane and trial, band row k on thread k.
-template <bool MULTI, int LPB>
+// The forward of one lane and trial, band row k on thread k; MATCH keeps
+// the scaled match plane of every diagonal in place of the checkpoint.
+template <bool MULTI, int LPB, bool MATCH>
 struct CfWarp {
   float Tr[25];
   const float* em6;
@@ -1253,7 +1254,8 @@ struct CfWarp {
   __device__ void tile(const CfIn& S, float* o, int g, int w) {
     constexpr int BS = mk::byte_stride(LPB);
     const int cell = (row ? k : 0) * BS + w, step = Wp * BS;
-    float* o_term = o + 2 * NS * Wp;
+    const int lead = cf_lead(Wp, MATCH);
+    float* o_term = o + lead;
     // A diagonal without its problem's terminal cell in the band keeps
     // term 0.
     if (k < K) o_term[k] = 0.f;
@@ -1282,7 +1284,8 @@ struct CfWarp {
         sprev = t1;
         const float2 gx = eg13[xi], gy = eg24[yi];
         const float e[5] = {em6[xi * 6 + yi], gx.x, gy.x, gx.y, gy.y};
-        if (kb == K - 1 && row) {  // the checkpoint's previous frontier
+        if (!MATCH && kb == K - 1 && row) {  // the checkpoint's previous
+                                             // frontier
 #pragma unroll
           for (int s = 0; s < NS; ++s) o[(NS + s) * Wp + k] = f[s];
         }
@@ -1298,20 +1301,41 @@ struct CfWarp {
       }
       const int fkd = MULTI ? word_of(fkv[kb / 4], kb % 4) : fk;
       if (row && k == fkd) o_term[kb] = tv;
+      if (MATCH && row) o[kb * Wp + k] = f[0];
       warp_mixes(f, Tr, mM1, mM2, mG);
     }
-    if (row) {
+    if (!MATCH && row) {
 #pragma unroll
       for (int s = 0; s < NS; ++s) o[s * Wp + k] = f[s];
     }
-    if (k < K) o[2 * NS * Wp + K + k] = k == K - 1 ? ls : lsA;
-    if (k < 4)
-      o[2 * NS * Wp + 2 * K + k] =
+    if (k < K) o[lead + K + k] = k == K - 1 ? ls : lsA;
+    if (!MATCH && k < 4)
+      o[lead + 2 * K + k] =
           k == 0 ? ls : (k == 1 ? cprev : (k == 2 ? (float)sprev : 0.f));
   }
 };
 
-template <bool MULTI, int LPB>
+// A trial's emissions as CfWarp reads them (em6, then the gap pairs).
+__device__ __forceinline__ void cf_tables(float* tab,
+                                          const float* __restrict__ Em,
+                                          const float* __restrict__ Eg,
+                                          int t) {
+  for (int j = threadIdx.x; j < CF_NTAB; j += blockDim.x) {
+    float val = 0.f;
+    if (j < 36) {
+      const int x = j / 6, y = j % 6;
+      val = x < 5 && y < 5 ? Em[t * 25 + x * 5 + y] : 0.f;
+    } else if (j < CF_EG + 24) {
+      // Pair c of states (1, 3) by x, then of (2, 4) by y.
+      const int q = j - CF_EG, c = (q % 12) / 2;
+      const int s = (q < 12 ? 1 : 2) + 2 * (q % 2);
+      val = c < 5 ? Eg[t * 25 + s * 5 + c] : 0.f;
+    }
+    tab[j] = val;
+  }
+}
+
+template <bool MULTI, int LPB, bool MATCH>
 __global__ void __launch_bounds__(32 * LPB)
     counts_fwd_ckpt_kernel(const float* __restrict__ T,
                            const float* __restrict__ Em,
@@ -1328,7 +1352,8 @@ __global__ void __launch_bounds__(32 * LPB)
   extern __shared__ __align__(16) float cf_raw[];
   float* tab = cf_raw;  // [CF_NTAB]
   uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + CF_NTAB);
-  const size_t nin = cf_in_bytes(Wp, LPB), nout = cf_out_bytes(Wp, LPB);
+  const size_t nin = cf_in_bytes(Wp, LPB),
+               nout = cf_out_bytes(Wp, LPB, MATCH);
   // Stage buffer and output tile of tile g (by parity).
   auto in = [&](int g) { return cf_in(buf + (g & 1) * nin, Wp, LPB); };
   auto out = [&](int g) {
@@ -1341,23 +1366,11 @@ __global__ void __launch_bounds__(32 * LPB)
   uintptr_t a4 = (uintptr_t)xb | (uintptr_t)yb | (uintptr_t)valid;
   if (MULTI) a4 |= (uintptr_t)start;
   const bool vec = B % 4 == 0 && a4 % 4 == 0;
-  for (int j = tid; j < CF_NTAB; j += 32 * LPB) {
-    float val = 0.f;
-    if (j < 36) {
-      const int x = j / 6, y = j % 6;
-      val = x < 5 && y < 5 ? Em[t * 25 + x * 5 + y] : 0.f;
-    } else if (j < CF_EG + 24) {
-      // Pair c of states (1, 3) by x, then of (2, 4) by y.
-      const int q = j - CF_EG, c = (q % 12) / 2;
-      const int s = (q < 12 ? 1 : 2) + 2 * (q % 2);
-      val = c < 5 ? Eg[t * 25 + s * 5 + c] : 0.f;
-    }
-    tab[j] = val;
-  }
+  cf_tables(tab, Em, Eg, t);
   cf_stage<MULTI, LPB>(in(0), 0, b0, Wp, B, vec, xb, yb, valid, s1, start,
                        fink);
-  CfWarp<MULTI, LPB> lane(T, tab, t, Wp, live && !MULTI ? fink[b] : -1,
-                          live);
+  CfWarp<MULTI, LPB, MATCH> lane(T, tab, t, Wp,
+                                 live && !MULTI ? fink[b] : -1, live);
   for (int g = 0; g < G; ++g) {
     // Tile g has landed (this thread's copies, then everyone's; the first
     // barrier also publishes the tables), every warp is past tile g - 1,
@@ -1365,16 +1378,234 @@ __global__ void __launch_bounds__(32 * LPB)
     mk::cp_async_wait();
     __syncthreads();
     if (g > 0)
-      cf_flush<LPB>(out(g - 1), g - 1, G, d1k, t, b0, Wp, B, ckpt, cs, lsf,
-                    term);
+      cf_flush<LPB, MATCH>(out(g - 1), g - 1, G, d1k, t, b0, Wp, B, ckpt,
+                           cs, lsf, term);
     if (g + 1 < G)
       cf_stage<MULTI, LPB>(in(g + 1), (g + 1) * K, b0, Wp, B, vec, xb, yb,
                            valid, s1, start, fink);
-    if (live) lane.tile(in(g), out(g) + w * cf_rec(Wp), g, w);
+    if (live) lane.tile(in(g), out(g) + w * cf_rec(Wp, MATCH), g, w);
   }
   __syncthreads();
-  cf_flush<LPB>(out(G - 1), G - 1, G, d1k, t, b0, Wp, B, ckpt, cs, lsf,
-                term);
+  cf_flush<LPB, MATCH>(out(G - 1), G - 1, G, d1k, t, b0, Wp, B, ckpt, cs,
+                       lsf, term);
+}
+
+// ---------------------------------------------------------------------------
+// The generic backward (fb_generic_bwd) in the checkpoint pair's layout:
+// one warp per lane, band row k on thread k (Wp <= 32), the backward
+// recursion of counts_bwd_ckpt_kernel (bwd_recur, its shuffles and
+// warp_band_max) without the recompute and without counts, so a diagonal
+// needs no block barrier.  A block holds LPB consecutive lanes (mk::
+// warp_lanes).  Tiles of K descending diagonals are staged by cp.async one
+// tile ahead into a ring of GB_RING buffers (S's scheme, csrc/fb_circ.cu
+// sv_backward_kernel): the tile's F_match rows per lane, its code bytes
+// lanes-fastest (mk::stage_bytes), s1 and lsf per lane.  Each posterior
+// F_match * b_M * alpha is written over the F_match value it is made from,
+// and the tile leaves from there as lane-contiguous rows while the next
+// one is computed: one barrier per tile.  Arithmetic in the template
+// backward's order (-fmad=false), so it equals the plain version bit for
+// bit.  The unrolled tile takes 180 registers at 8 lanes a block (one
+// block an SM) and 128 at 16; capping 8 lanes at 128 (two blocks) is 17%
+// slower on the 1024-lane generic batch, a rolled tile loop 22%, tiles
+// copied without cp.async 2.4x (kernel_ab.py's probe_generic group).
+constexpr int GB_RING = 3;  // tile buffers: computed, leaving, arriving
+
+// A ring buffer: the F_match (then posterior) rows [LPB][gb_stride(Wp)]
+// (lane w's row k of tile row kb at w * stride + kb * Wp + k; an odd
+// stride, so the copies, which move LPB lanes of one row at a time, hit
+// LPB banks), s1 and lsf [LPB][K], then the xb, yb and valid tiles
+// [K Wp][byte_stride(LPB)].
+__host__ __device__ inline int gb_stride(int Wp) { return K * Wp + 1; }
+__host__ __device__ inline size_t gb_buf_bytes(int Wp, int lpb) {
+  const size_t n = (size_t)lpb * (gb_stride(Wp) + 2 * K) * sizeof(float) +
+                   3 * (size_t)cf_plane(Wp, lpb);
+  return (n + 15) / 16 * 16;
+}
+// The model's emissions and the ring.
+inline size_t gb_smem(int Wp, int lpb) {
+  return CF_NTAB * sizeof(float) + GB_RING * gb_buf_bytes(Wp, lpb);
+}
+
+struct GbBuf {
+  float* fm;
+  int* s1;
+  float* lsf;
+  uint8_t* x;
+  uint8_t* y;
+  uint8_t* v;
+};
+
+// The buffer at p (16-byte aligned).
+__device__ inline GbBuf gb_buf(uint8_t* p, int Wp, int lpb) {
+  float* fm = reinterpret_cast<float*>(p);
+  int* s1 = reinterpret_cast<int*>(fm + lpb * gb_stride(Wp));
+  float* lsf = reinterpret_cast<float*>(s1 + lpb * K);
+  uint8_t* x = reinterpret_cast<uint8_t*>(lsf + lpb * K);
+  const int pl = cf_plane(Wp, lpb);
+  return GbBuf{fm, s1, lsf, x, x + pl, x + 2 * pl};
+}
+
+// Starts the copy of the tile of diagonals d0 .. d0 + K - 1 of the block's
+// lanes b0 .. b0 + LPB - 1 into buffer S (one group): thread tid copies
+// lane tid % LPB of F_match rows tid / LPB + 32 i.
+template <int LPB>
+__device__ __forceinline__ void gb_stage(
+    const GbBuf& S, int d0, int b0, int Wp, int B, bool vec,
+    const float* __restrict__ fmatch, const float* __restrict__ lsf,
+    const int8_t* __restrict__ xb, const int8_t* __restrict__ yb,
+    const uint8_t* __restrict__ valid, const int32_t* __restrict__ s1) {
+  const size_t r0 = (size_t)d0 * Wp;
+  mk::stage_bytes<LPB>(S.x, xb, r0, K * Wp, b0, B, vec);
+  mk::stage_bytes<LPB>(S.y, yb, r0, K * Wp, b0, B, vec);
+  mk::stage_bytes<LPB>(S.v, valid, r0, K * Wp, b0, B, vec);
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b < B) {
+    const float* src = fmatch + r0 * B + b;
+    float* dst = S.fm + w * gb_stride(Wp);
+    for (int r = threadIdx.x / LPB; r < K * Wp; r += 32)
+      mk::cp_async4(dst + r, src + (size_t)r * B);
+    const int kb = threadIdx.x / LPB;
+    if (kb < K) {
+      const size_t at = (size_t)(d0 + kb) * B + b;
+      mk::cp_async4(S.s1 + w * K + kb, s1 + at);
+      mk::cp_async4(S.lsf + w * K + kb, lsf + at);
+    }
+  }
+  mk::cp_async_commit();
+}
+
+// Writes the posterior rows of buffer O (diagonals d0 ..) in gb_stage's
+// order: LPB threads write LPB consecutive lanes of a row.
+template <int LPB>
+__device__ __forceinline__ void gb_flush(const GbBuf& O, int d0, int b0,
+                                         int Wp, int B,
+                                         float* __restrict__ post) {
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b >= B) return;
+  float* dst = post + (size_t)d0 * Wp * B + b;
+  const float* src = O.fm + w * gb_stride(Wp);
+  for (int r = threadIdx.x / LPB; r < K * Wp; r += 32)
+    dst[(size_t)r * B] = src[r];
+}
+
+// The backward of one lane, band row k on thread k.
+template <int LPB>
+struct GbWarp {
+  float Tr[25];
+  const float* em6;
+  const float2* eg13;  // by the reference code x: states 1, 3
+  const float2* eg24;  // by the read code y: states 2, 4
+  int k, Wp, fk, fd;
+  bool row;
+  float lz, bls = 0.f, cprev = 1.f;
+  int sh1 = 0, sh2 = 0;                // s1 at d+1 and d+2
+  float p1 = 0.f, p2 = 0.f;            // e_M * b_M of d+1, d+2
+  float g1[4] = {0.f, 0.f, 0.f, 0.f};  // e_s * b_s of d+1
+
+  __device__ GbWarp(const float* __restrict__ T, const float* tab, int Wp_,
+                    int fk_, int fd_, float lz_, bool live)
+      : em6(tab), eg13(reinterpret_cast<const float2*>(tab + CF_EG)),
+        eg24(reinterpret_cast<const float2*>(tab + CF_EG + 12)),
+        k(threadIdx.x & 31), Wp(Wp_), fk(fk_), fd(fd_), row(k < Wp_),
+        lz(lz_) {
+#pragma unroll
+    for (int i = 0; i < 25; ++i) Tr[i] = live ? T[i] : 0.f;
+  }
+
+  // Tile g (diagonals K g + K - 1 down to K g) of lane w in buffer S: each
+  // posterior over its F_match value.
+  __device__ void tile(const GbBuf& S, int g, int w) {
+#pragma unroll
+    for (int kb = K - 1; kb >= 0; --kb) step(S, g * K + kb, kb, w);
+  }
+
+  // Diagonal d, row kb of its tile.
+  __device__ void step(const GbBuf& S, int d, int kb, int w) {
+    constexpr int BS = mk::byte_stride(LPB);
+    const int cell = (row ? k : 0) * BS + w + kb * Wp * BS;
+    const int x = (int8_t)S.x[cell], y = (int8_t)S.y[cell];
+    const int xi = row && (unsigned)x < 5u ? x : 5;
+    const int yi = row && (unsigned)y < 5u ? y : 5;
+    const float v = row ? (float)S.v[cell] : 0.f;
+    const int s1n = sh1, s2n = sh1 + sh2;
+    const int ra = mk::wrap(k + 1 - s2n, Wp);
+    const int rb = mk::wrap(k - s1n, Wp), rc = mk::wrap(k + 1 - s1n, Wp);
+    float q[5], nb[5];
+    q[0] = __shfl_sync(FULL, p2, ra);
+    if (kb == K - 1) q[0] = q[0] / cprev;
+    q[1] = __shfl_sync(FULL, g1[0], rb);
+    q[2] = __shfl_sync(FULL, g1[1], rc);
+    q[3] = __shfl_sync(FULL, g1[2], rb);
+    q[4] = __shfl_sync(FULL, g1[3], rc);
+    bwd_recur(q, Tr, (d == fd && k == fk) ? 1.f : 0.f, v, nb);
+    sh2 = sh1;
+    sh1 = S.s1[w * K + kb];
+    if (kb == 0) {
+      const float c = warp_rescale(nb, row);
+      bls += logf(c);
+      cprev = c;
+    }
+    const float alpha0 = expf(S.lsf[w * K + kb] + bls - lz);
+    float* fm = S.fm + w * gb_stride(Wp) + kb * Wp + k;
+    if (row) *fm = (*fm * nb[0]) * alpha0;
+    const float2 gx = eg13[xi], gy = eg24[yi];
+    p2 = p1;
+    p1 = em6[xi * 6 + yi] * nb[0];
+    g1[0] = gx.x * nb[1];
+    g1[1] = gy.x * nb[2];
+    g1[2] = gx.y * nb[3];
+    g1[3] = gy.y * nb[4];
+  }
+};
+
+template <int LPB>
+__global__ void __launch_bounds__(32 * LPB)
+    generic_bwd_kernel(const float* __restrict__ T,
+                       const float* __restrict__ Em,
+                       const float* __restrict__ Eg,
+                       const float* __restrict__ fmatch,
+                       const float* __restrict__ lsf,
+                       const int8_t* __restrict__ xb,
+                       const int8_t* __restrict__ yb,
+                       const uint8_t* __restrict__ valid,
+                       const int32_t* __restrict__ s1,
+                       const int32_t* __restrict__ fink,
+                       const int32_t* __restrict__ find,
+                       const float* __restrict__ logZ, int d1k, int Wp,
+                       int B, float* __restrict__ post) {
+  extern __shared__ __align__(16) float gb_raw[];
+  float* tab = gb_raw;  // [CF_NTAB]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(gb_raw + CF_NTAB);
+  const size_t nbuf = gb_buf_bytes(Wp, LPB);
+  // The buffer of the u-th tile from the top.
+  auto buf = [&](int u) {
+    return gb_buf(ring + (u % GB_RING) * nbuf, Wp, LPB);
+  };
+  const int w = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * LPB, b = b0 + w;
+  const bool live = b < B;  // warp-uniform
+  const int G = d1k / K;
+  const bool vec = B % 4 == 0 &&
+                   ((uintptr_t)xb | (uintptr_t)yb | (uintptr_t)valid) % 4 == 0;
+  cf_tables(tab, Em, Eg, 0);
+  gb_stage<LPB>(buf(0), (G - 1) * K, b0, Wp, B, vec, fmatch, lsf, xb, yb,
+                valid, s1);
+  GbWarp<LPB> lane(T, tab, Wp, live ? fink[b] : -1, live ? find[b] : -1,
+                   live ? logZ[b] : 0.f, live);
+  for (int u = 0; u < G; ++u) {
+    // Every warp is past tile u - 1, which leaves now; tile u + 1 arrives
+    // in the buffer tile u - 2 left from (the first barrier also
+    // publishes the tables).
+    mk::cp_async_wait();  // this thread's copies of tile u,
+    __syncthreads();      // then everyone's: tile u has landed
+    if (u > 0) gb_flush<LPB>(buf(u - 1), (G - u) * K, b0, Wp, B, post);
+    if (u + 1 < G)
+      gb_stage<LPB>(buf(u + 1), (G - 2 - u) * K, b0, Wp, B, vec, fmatch,
+                    lsf, xb, yb, valid, s1);
+    if (live) lane.tile(buf(u), G - 1 - u, w);
+  }
+  __syncthreads();
+  gb_flush<LPB>(buf(G - 1), 0, b0, Wp, B, post);
 }
 
 // Floats of dynamic shared memory of the wavefront template kernels: the
@@ -1389,7 +1620,7 @@ int lanes_for(F floats) {
   return L;
 }
 
-template <int RPT, int MODE, bool MULTI>
+template <int RPT, bool MULTI>
 cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
                     const int8_t* xb, const int8_t* yb, const uint8_t* valid,
                     const int32_t* s1, const int8_t* start,
@@ -1399,16 +1630,16 @@ cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
   const int L = lanes_for([&](int l) { return wave_smem(Wp, l); });
   const size_t bytes = wave_smem(Wp, L) * sizeof(float);
   cudaError_t err = mk::allow_smem(
-      (const void*)counts_fwd_kernel<RPT, MODE, MULTI>, bytes);
+      (const void*)counts_fwd_kernel<RPT, MULTI>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
-  counts_fwd_kernel<RPT, MODE, MULTI><<<grid, block, bytes, stream>>>(
+  counts_fwd_kernel<RPT, MULTI><<<grid, block, bytes, stream>>>(
       T, Em, Eg, xb, yb, valid, s1, start, fink, d1k, Wp, B, band, lsf,
       term);
   return cudaGetLastError();
 }
 
-template <int RPT, int MODE, bool MULTI>
+template <int RPT, bool MULTI>
 cudaError_t run_bwd(const float* T, const float* Em, const float* Eg,
                     const float* band, const float* lsf_cs, const int8_t* xb,
                     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
@@ -1419,10 +1650,10 @@ cudaError_t run_bwd(const float* T, const float* Em, const float* Eg,
   const int L = lanes_for([&](int l) { return wave_smem(Wp, l); });
   const size_t bytes = wave_smem(Wp, L) * sizeof(float);
   cudaError_t err = mk::allow_smem(
-      (const void*)counts_bwd_kernel<RPT, MODE, MULTI>, bytes);
+      (const void*)counts_bwd_kernel<RPT, MULTI>, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
-  counts_bwd_kernel<RPT, MODE, MULTI><<<grid, block, bytes, stream>>>(
+  counts_bwd_kernel<RPT, MULTI><<<grid, block, bytes, stream>>>(
       T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ,
       d1k, Wp, B, post, tcp, egp);
   return cudaGetLastError();
@@ -1460,7 +1691,7 @@ bool bad_shape(int ntr, int d1k, int Wp, int B) {
          Wp > ROW_THREADS * 4;
 }
 
-template <int MODE, bool MULTI = false>
+template <bool MULTI = false>
 int fwd_launch(const float* T, const float* Em, const float* Eg,
                const int8_t* xb, const int8_t* yb, const uint8_t* valid,
                const int32_t* s1, const int8_t* start, const int32_t* fink,
@@ -1469,28 +1700,42 @@ int fwd_launch(const float* T, const float* Em, const float* Eg,
   if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (rows_per_thread(Wp)) {
-    case 2: return run_fwd<2, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
-    case 3: return run_fwd<3, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
-    default: return run_fwd<4, MODE, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
+    case 2: return run_fwd<2, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
+    case 3: return run_fwd<3, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
+    default: return run_fwd<4, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
   }
 }
 
 // The kernel, lanes a block (mk::warp_lanes over the launch's lanes and
-// trials) and shared memory of the checkpoint forward's launch, its
-// shared memory opted in.
-template <bool MULTI>
+// trials) and shared memory of the checkpoint forward's launch (MATCH: the
+// generic forward's), its shared memory opted in.
+template <bool MULTI, bool MATCH>
 cudaError_t cf_setup(int ntr, int Wp, int B, const void** kernel,
                      int* lanes, size_t* smem) {
   cudaError_t err = mk::warp_lanes(
-      B * ntr, [Wp](int l) { return cf_smem(Wp, l); }, lanes);
+      B * ntr, [Wp](int l) { return cf_smem(Wp, l, MATCH); }, lanes);
   if (err != cudaSuccess) return err;
-  *kernel = *lanes == 8 ? (const void*)counts_fwd_ckpt_kernel<MULTI, 8>
-                        : (const void*)counts_fwd_ckpt_kernel<MULTI, 16>;
-  *smem = cf_smem(Wp, *lanes);
+  *kernel = *lanes == 8
+                ? (const void*)counts_fwd_ckpt_kernel<MULTI, 8, MATCH>
+                : (const void*)counts_fwd_ckpt_kernel<MULTI, 16, MATCH>;
+  *smem = cf_smem(Wp, *lanes, MATCH);
   return mk::allow_smem(*kernel, *smem);
 }
 
-template <bool MULTI>
+// The generic backward's kernel, lanes a block (mk::warp_lanes) and shared
+// memory, opted in.
+cudaError_t gb_setup(int Wp, int B, const void** kernel, int* lanes,
+                     size_t* smem) {
+  cudaError_t err = mk::warp_lanes(
+      B, [Wp](int l) { return gb_smem(Wp, l); }, lanes);
+  if (err != cudaSuccess) return err;
+  *kernel = *lanes == 8 ? (const void*)generic_bwd_kernel<8>
+                        : (const void*)generic_bwd_kernel<16>;
+  *smem = gb_smem(Wp, *lanes);
+  return mk::allow_smem(*kernel, *smem);
+}
+
+template <bool MULTI, bool MATCH = false>
 int ckpt_fwd_launch(const float* T, const float* Em, const float* Eg,
                     const int8_t* xb, const int8_t* yb, const uint8_t* valid,
                     const int32_t* s1, const int8_t* start,
@@ -1501,7 +1746,8 @@ int ckpt_fwd_launch(const float* T, const float* Em, const float* Eg,
   const void* kernel;
   int lanes;
   size_t smem;
-  cudaError_t err = cf_setup<MULTI>(ntr, Wp, B, &kernel, &lanes, &smem);
+  cudaError_t err =
+      cf_setup<MULTI, MATCH>(ntr, Wp, B, &kernel, &lanes, &smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&T,   &Em, &Eg, &xb,   &yb, &valid, &s1,  &start,
                   &fink, &d1k, &Wp, &B,  &ckpt, &cs, &lsf,   &term};
@@ -1523,9 +1769,9 @@ int bwd_launch(const float* T, const float* Em, const float* Eg,
     return run_bwd_ckpt<MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, tcp, egp, mcp, s);
   } else {
     switch (rows_per_thread(Wp)) {
-      case 2: return run_bwd<2, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
-      case 3: return run_bwd<3, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
-      default: return run_bwd<4, MODE, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
+      case 2: return run_bwd<2, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
+      case 3: return run_bwd<3, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
+      default: return run_bwd<4, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
     }
   }
 }
@@ -1542,9 +1788,8 @@ extern "C" int counts_fwd_all_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int ntr, int d1k, int Wp, int B, float* f_all,
     float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<MODE_STORED>(T, Em, Eg, xb, yb, valid, s1, nullptr,
-                                 fink, ntr, d1k, Wp, B, f_all, lsf, term,
-                                 stream);
+  return fwd_launch(T, Em, Eg, xb, yb, valid, s1, nullptr, fink, ntr, d1k,
+                    Wp, B, f_all, lsf, term, stream);
 }
 
 extern "C" int counts_fwd_ckpt_launch(
@@ -1579,17 +1824,18 @@ extern "C" int counts_bwd_ckpt_launch(
 }
 
 // The generic forward-backward pair of one model (T, Em, Eg [5, 5]):
-// fb_generic_fwd writes F_match [d1k, Wp, B], lsf and term [d1k, B];
-// fb_generic_bwd reads F_match, lsf and logZ [B] and writes the posterior
-// band [d1k, Wp, B].
+// fb_generic_fwd (counts_fwd_ckpt_kernel's MATCH mode) writes F_match
+// [d1k, Wp, B], lsf and term [d1k, B]; fb_generic_bwd (generic_bwd_kernel)
+// reads F_match, lsf and logZ [B] and writes the posterior band
+// [d1k, Wp, B].
 extern "C" int fb_generic_fwd_launch(
     const float* T, const float* Em, const float* Eg, const int8_t* xb,
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int d1k, int Wp, int B, float* fmatch, float* lsf,
     float* term, void* stream) {
-  return fwd_launch<MODE_GENERIC>(T, Em, Eg, xb, yb, valid, s1, nullptr,
-                                  fink, 1, d1k, Wp, B, fmatch, lsf, term,
-                                  stream);
+  return ckpt_fwd_launch<false, true>(T, Em, Eg, xb, yb, valid, s1, nullptr,
+                                      fink, 1, d1k, Wp, B, fmatch, nullptr,
+                                      lsf, term, stream);
 }
 
 extern "C" int fb_generic_bwd_launch(
@@ -1598,9 +1844,16 @@ extern "C" int fb_generic_bwd_launch(
     const uint8_t* valid, const int32_t* s1, const int32_t* fink,
     const int32_t* find, const float* logZ, int d1k, int Wp, int B,
     float* post, void* stream) {
-  return bwd_launch<MODE_GENERIC>(T, Em, Eg, fmatch, lsf, xb, yb, valid, s1,
-                                  nullptr, fink, find, logZ, 1, d1k, Wp, B,
-                                  post, nullptr, nullptr, nullptr, stream);
+  if (bad_shape(1, d1k, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = gb_setup(Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&T,  &Em, &Eg, &fmatch, &lsf, &xb,  &yb, &valid, &s1,
+                  &fink, &find, &logZ, &d1k, &Wp, &B, &post};
+  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes),
+                          dim3(32 * lanes), args, smem, (cudaStream_t)stream);
 }
 
 // The counts pairs over multi-problem lanes (several problems per lane,
@@ -1613,9 +1866,8 @@ extern "C" int counts_multi_fwd_all_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int8_t* start, const int32_t* fink, int ntr, int d1k, int Wp,
     int B, float* f_all, float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<MODE_STORED, true>(T, Em, Eg, xb, yb, valid, s1, start,
-                                       fink, ntr, d1k, Wp, B, f_all, lsf,
-                                       term, stream);
+  return fwd_launch<true>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr,
+                          d1k, Wp, B, f_all, lsf, term, stream);
 }
 
 extern "C" int counts_multi_fwd_ckpt_launch(
@@ -1669,8 +1921,24 @@ extern "C" int counts_fwd_ckpt_info(int multi, int ntr, int Wp, int B,
   const void* kernel;
   int lanes;
   size_t smem;
-  cudaError_t err = multi ? cf_setup<true>(ntr, Wp, B, &kernel, &lanes, &smem)
-                          : cf_setup<false>(ntr, Wp, B, &kernel, &lanes, &smem);
+  cudaError_t err =
+      multi ? cf_setup<true, false>(ntr, Wp, B, &kernel, &lanes, &smem)
+            : cf_setup<false, false>(ntr, Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(kernel, smem, 32 * lanes, out);
+}
+
+// What the generic pair's launch over B lanes at band width Wp gets on this
+// device (mk::kernel_info's out[5]; its lanes a block are out[3] / 32):
+// fb_generic_bwd when `backward`, else fb_generic_fwd.
+extern "C" int fb_generic_info(int backward, int Wp, int B, int* out) {
+  if (bad_shape(1, K, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err =
+      backward ? gb_setup(Wp, B, &kernel, &lanes, &smem)
+               : cf_setup<false, true>(1, Wp, B, &kernel, &lanes, &smem);
   if (err != cudaSuccess) return err;
   return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }

@@ -140,6 +140,8 @@ _QUERIES: Dict[str, List] = {
     "counts_bwd_ckpt_info": [_I, _I, _P],
     # multi, ntr, Wp, B, out[5] (csrc/fb_counts.cu)
     "counts_fwd_ckpt_info": [_I, _I, _I, _I, _P],
+    # backward, Wp, B, out[5] (csrc/fb_counts.cu: the generic pair)
+    "fb_generic_info": [_I, _I, _I, _P],
     # Wp, B, out[5] (csrc/fb_circ.cu, csrc/nw.cu, csrc/mea.cu); Wp, out[5]
     # (csrc/expand.cu)
     "mw_forward_info": [_I, _I, _P],

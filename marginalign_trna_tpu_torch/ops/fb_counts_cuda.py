@@ -593,6 +593,15 @@ def ckpt_forward_resources(device: torch.device, wp: int, B: int,
     return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
+def generic_resources(device: torch.device, wp: int, B: int,
+                      backward: bool = False) -> Dict[str, int]:
+    """What a launch of fb_generic_fwd (backward: fb_generic_bwd,
+    ops/fb_generic_cuda.py) over B lanes at band width `wp` gets on
+    `device`: the keys of ckpt_forward_resources."""
+    res = _build.resources("fb_generic_info", device, int(backward), wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
+
+
 def counts_multi_fwd_all_cuda(T, Em, Eg, xb, yb, valid, s1, start, fink):
     """The counts_multi_fwd_all kernel (csrc/fb_counts.cu); outputs of
     counts_multi_fwd_all_plain."""

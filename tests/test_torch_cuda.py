@@ -1230,3 +1230,128 @@ def test_cx_forward_resources(cuda, wp):
         assert res["blocks_per_sm"] >= 1, res
         if wp <= 48:
             assert res["local_bytes"] == 0, res
+
+
+# ------------------------------------------ the generic pair: one warp per lane
+
+
+def _random_generic(cuda, d1k, wp, B, seed, final_row=None):
+    """The generic pair's inputs at random: the perturbed shipped model
+    (gap emissions not flat), codes 0..4 and 2% each of -1 and 5 (outside
+    0..4 at both ends), 90% valid cells, band shifts s1 of 0 or 1, each
+    lane's terminal row anywhere in the band (`final_row` on every lane
+    when given) and its terminal diagonal one where the plain forward's
+    match state holds mass at that row (the last such on every third
+    lane), or d = 0 where the row holds none, so logZ and the posteriors
+    are finite.  Returns the tables, the
+    forward's streams and the terminal diagonals."""
+    from marginalign_trna_tpu_torch.ops import fb_generic_cuda as G
+
+    hmm = PairHmm.load(MODEL)
+    hmm.emissions[1, :4] *= 1.5
+    hmm.emissions[1] /= hmm.emissions[1].sum()
+    tables = tables_from_hmm(hmm)
+    assert not fb_cuda.has_flat_gap_emissions(tables)
+    tabs = (tables.T, tables.Ematch, tables.Egap)
+    rng = np.random.default_rng(seed)
+    codes = [-1, 0, 1, 2, 3, 4, 5]
+    p = [.02, .24, .24, .24, .24, 0., .02]
+    fink = (rng.integers(0, wp, B) if final_row is None
+            else np.full(B, final_row)).astype(np.int32)
+    streams = tuple(torch.from_numpy(a) for a in (
+        rng.choice(codes, p=p, size=(d1k, wp, B)).astype(np.int8),
+        rng.choice(codes, p=p, size=(d1k, wp, B)).astype(np.int8),
+        rng.random((d1k, wp, B)) < 0.9,
+        rng.integers(0, 2, (d1k, B)).astype(np.int32), fink))
+    fm = G.fb_generic_fwd_plain(*tabs, *streams)[0].numpy()
+    held = fm[:, fink, np.arange(B)] > 0           # [d1k, B]
+    held[0] = True   # d = 0: a zero terminal sum leaves logZ finite there
+    find = np.array([rng.choice(np.flatnonzero(held[:, b])) if b % 3
+                     else np.flatnonzero(held[:, b])[-1] for b in range(B)],
+                    np.int32)
+    return (tuple(t.to(cuda) for t in tabs),
+            tuple(t.to(cuda) for t in streams), _t(cuda, find))
+
+
+def _generic_equal(cuda, tabs, streams, find):
+    """fb_generic_fwd and fb_generic_bwd bit-equal to their plain versions
+    (F_match, lsf and term; the posterior band on the plain forward's
+    outputs), each launched once; returns the posterior band."""
+    from marginalign_trna_tpu_torch.ops import fb_generic_cuda as G
+
+    names = ("fb_generic_fwd", "fb_generic_bwd")
+    before = {k: _build.launch_counts[k] for k in names}
+    got = G.fb_generic_fwd_cuda(*tabs, *streams)
+    want = G.fb_generic_fwd_plain(*tabs, *streams)
+    shape = tuple(streams[0].shape)
+    for what, g, w in zip(("F_match", "lsf", "term"), got, want):
+        assert torch.isfinite(w).all(), (what, shape)
+        assert torch.equal(g, w), (what, shape)
+    fm, lsf, term = want
+    logZ = fb_counts.logz_from_terminal(lsf[None], term[None], find)[0]
+    bargs = (*tabs, fm, lsf, *streams, find, logZ)
+    post = G.fb_generic_bwd_cuda(*bargs)
+    rpost = G.fb_generic_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(rpost).all(), shape
+    assert torch.equal(post, rpost), shape
+    assert all(_build.launch_counts[k] == before[k] + 1 for k in names)
+    return rpost
+
+
+@pytest.mark.parametrize("B", [1, 7, 9, 33, 1027])
+@pytest.mark.parametrize("wp", [8, 16, 24, 32])
+def test_generic_pair_random_inputs(cuda, wp, B):
+    """The generic pair (the checkpoint forward's MATCH mode and
+    generic_bwd_kernel) bit-equal to its plain versions with 24 to none of
+    a warp's rows idle, over lane counts that leave a tail in an 8-lane
+    block (1027 lanes take 8 a block), five tiles."""
+    post = _generic_equal(cuda, *_random_generic(cuda, 40, wp, B,
+                                                 seed=wp + B))
+    assert post.max().item() > 0
+
+
+@pytest.mark.parametrize("wp", [8, 24, 32])
+def test_generic_pair_single_tile(cuda, wp):
+    """The generic pair over one tile of 8 diagonals (d1k = 8)."""
+    _generic_equal(cuda, *_random_generic(cuda, 8, wp, 33, seed=wp))
+
+
+@pytest.mark.parametrize("row", ["first", "last"])
+@pytest.mark.parametrize("wp", [8, 24, 32])
+def test_generic_pair_final_row(cuda, wp, row):
+    """The generic pair with every lane's terminal cell on the band's first
+    or last row (the forward's terminal sums and the backward's injection
+    at a row whose shuffles wrap)."""
+    final_row = 0 if row == "first" else wp - 1
+    _generic_equal(cuda, *_random_generic(cuda, 40, wp, 33, seed=wp,
+                                          final_row=final_row))
+
+
+@pytest.mark.parametrize("shape", ["call_generic", "em_band"])
+def test_generic_pair_path_shapes(cuda, shape):
+    """Small batches shaped like the pair's largest launches on two of its
+    paths: marginCaller's [128, 24, 32768] (16 lanes a block) at 16 x SMs
+    + 4 lanes (a 16-lane tail, codes copied as words) and --updateTheBand's
+    [512, 24, 2048] (8 lanes a block) at 45 lanes (codes copied byte by
+    byte)."""
+    d1k, lanes, aligned = {"call_generic": (128, 16, True),
+                           "em_band": (512, 8, False)}[shape]
+    B = _lanes_at(cuda, lanes, aligned)
+    for backward in (False, True):
+        res = fb_counts_cuda.generic_resources(cuda, 24, B, backward)
+        assert res["lanes_per_block"] == lanes, res
+    _generic_equal(cuda, *_random_generic(cuda, d1k, 24, B, seed=d1k))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("wp", [8, 24, 32])
+def test_generic_pair_resources(cuda, wp, backward):
+    """The generic pair builds without spills and fits at least one block
+    per SM at 8 and 16 lanes a block."""
+    for lanes in (8, 16):
+        res = fb_counts_cuda.generic_resources(
+            cuda, wp, _lanes_at(cuda, lanes, True), backward)
+        assert res["lanes_per_block"] == lanes, res
+        assert res["local_bytes"] == 0, res
+        assert res["registers"] > 0 and res["blocks_per_sm"] >= 1, res

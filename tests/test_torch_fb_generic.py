@@ -44,11 +44,11 @@ def interpret(jitted, *args):
     return jitted.lower(*args).compile(compiler_options=FAST_COMPILE)
 
 
-def _batch():
-    """Width-21 band (Wp 24): an 8-base deletion and a 6-base insertion
-    along their guide paths (the band moves), an unguided noisy pair with
-    an N, two short ragged pairs and padding lanes; D1 = 173 is not a
-    multiple of 8."""
+def _batch(width=21, lanes=8):
+    """Width-21 band (Wp 24) unless `width` says otherwise: an 8-base
+    deletion and a 6-base insertion along their guide paths (the band
+    moves), an unguided noisy pair with an N, two short ragged pairs and
+    padding lanes up to `lanes`; D1 = 173 is not a multiple of 8."""
     rng = np.random.default_rng(11)
     x = rng.integers(0, 4, size=90).astype(np.int8)
     y = np.concatenate([x[:40], x[48:]])
@@ -66,8 +66,8 @@ def _batch():
             rng.integers(0, 4, 5).astype(np.int8)]
     paths = [path_from_cigar([(0, 40), (2, 8), (0, 42)]),
              path_from_cigar([(0, 30), (1, 6), (0, 40)]), None, None, None]
-    batch = pack_banded_batch(reads, refs, width=21, paths=paths,
-                              pad_batch_to=8)
+    batch = pack_banded_batch(reads, refs, width=width, paths=paths,
+                              pad_batch_to=lanes)
     assert batch.xb.shape[0] % 8 != 0
     return batch
 
@@ -141,6 +141,25 @@ def test_generic_plain_matches_posteriors_pallas(case, model):
     jlogZ, jpost = case["posteriors_pallas"](jtables, case["jdev"])
     _compare(case["batch"], logZ, post, jlogZ, jpost,
              "posteriors_pallas, %s" % model)
+
+
+@pytest.mark.parametrize("width,lanes", [(5, 8), (29, 8), (21, 13)])
+def test_generic_plain_matches_posteriors_pallas_band_shapes(width, lanes):
+    """The dynamic-table variant on the perturbed shipped model at Wp 8
+    (width 5) and Wp 32 (width 29), the band widths the kernels take at
+    their ends, and over 13 lanes, no multiple of the kernels' 8 or 16
+    lanes a block."""
+    batch = _batch(width, lanes)
+    assert batch.xb.shape[1:] == ({5: 8, 29: 32, 21: 24}[width], lanes)
+    hmm = _perturbed_shipped()
+    jtables = make_tables(JaxHmm(hmm.transitions, hmm.emissions))
+    tables = tables_from_jax(jax.device_get(jtables))
+    logZ, post = posteriors_generic(tables, device_batch(batch, "cpu"))
+    jdev = jax_device_batch(batch)
+    jlogZ, jpost = interpret(fp._posteriors_pallas_jit, jtables, jdev)(
+        jtables, jdev)
+    _compare(batch, logZ.numpy(), post.numpy(), jlogZ, jpost,
+             "posteriors_pallas, width %d, %d lanes" % (width, lanes))
 
 
 @pytest.mark.parametrize("model", MODELS)
