@@ -83,8 +83,8 @@ Phases (any failure exits non-zero without the final result line):
               E-step batch (the other pair forced through the policy's
               keyword), timed again with one trial (a serial EM trial),
               and S and M on their largest launch with the trained
-              model, which runs their generic 5x5 branch; the checkpoint
-              forward and backward with their resources.
+              model, which runs their generic 5x5 branch; the four counts
+              kernels with their resources.
  11. parity   EM (3 iterations, trial 0 from the shipped model) + realign
               of the first 32 reads on "cpu" and "cuda": trained
               parameters within 1e-4, likelihood histories within rtol
@@ -244,7 +244,7 @@ KERNELS = {
                         "fb_counts_cuda.counts_bwd_ckpt_cuda", ("em",)),
     # The generic pair replaces the body that both variants of each TPU
     # kernel run (tables as arrays or baked in): one warp per lane, the
-    # forward the checkpoint forward's kernel in its MATCH mode
+    # forward the checkpoint forward's kernel in its CF_MATCH mode
     # (counts_fwd_ckpt_kernel), the backward generic_bwd_kernel; its
     # paths: "generic" =
     # marginAlign --inputModel with a non-flat model, "call_generic" =
@@ -928,6 +928,10 @@ def compare_counts(base, reps):
     timed("counts_fwd_all", K.counts_fwd_all_cuda, K.counts_fwd_all_plain,
           fargs, 0.0, ref)
     del ref
+    dev, ntr = tabs[0].device, tabs[0].shape[0]
+    wp, B = streams[0].shape[1], streams[0].shape[2]
+    report["counts_fwd_all"]["resources"] = K.stored_resources(dev, wp, B,
+                                                               ntr)
 
     bargs = (*tabs, f_all, lsf, *streams, find, logZ)
     post, tcp, egp = K.counts_bwd_cuda(*bargs)
@@ -939,6 +943,8 @@ def compare_counts(base, reps):
     timed("counts_bwd", K.counts_bwd_cuda, K.counts_bwd_plain, bargs,
           max_abs_err(((tcp, rtcp), (egp, regp))), (post, tcp, egp))
     report["counts_bwd"]["counts_max_rel_err"] = err
+    report["counts_bwd"]["resources"] = K.stored_resources(
+        dev, wp, B, ntr, backward=True)
     del bargs, f_all, post, rpost
 
     ref = K.counts_fwd_ckpt_plain(*fargs)
@@ -1009,6 +1015,10 @@ def compare_counts_multi(base, reps):
     timed("counts_multi_fwd_all", K.counts_multi_fwd_all_cuda,
           K.counts_multi_fwd_all_plain, fargs, 0.0, ref)
     del ref
+    dev, ntr = tabs[0].device, tabs[0].shape[0]
+    wp, B = streams[0].shape[1], streams[0].shape[2]
+    report["counts_multi_fwd_all"]["resources"] = K.stored_resources(
+        dev, wp, B, ntr, multi=True)
 
     bargs = (*tabs, f_all, lsf, *streams, find, L)
     post, tcp, egp = K.counts_multi_bwd_cuda(*bargs)
@@ -1022,6 +1032,8 @@ def compare_counts_multi(base, reps):
           K.counts_multi_bwd_plain, bargs,
           max_abs_err(((tcp, rtcp), (egp, regp))), (post, tcp, egp))
     report["counts_multi_bwd"]["counts_max_rel_err"] = err
+    report["counts_multi_bwd"]["resources"] = K.stored_resources(
+        dev, wp, B, ntr, multi=True, backward=True)
     del bargs, f_all, post, rpost
 
     ref = K.counts_multi_fwd_ckpt_plain(*fargs)
@@ -3430,14 +3442,17 @@ def ptxas_spills(build_log):
 
 def check_no_counts_spills(build_log):
     """The kernels of csrc/fb_counts.cu (the counts pairs, which keep their
-    count partials in registers, and the generic pair: the checkpoint
-    forward's MATCH mode and generic_bwd_kernel) must not spill: ptxas
+    count partials in registers: the checkpoint forward in its checkpoint
+    and all-planes modes, the checkpoint backward and
+    counts_stored_bwd_kernel; and the generic pair: the checkpoint
+    forward's match mode and generic_bwd_kernel) must not spill: ptxas
     must report none of their variants spilling."""
     spills = {fn: s for fn, s in ptxas_spills(build_log).items()
               if "counts_" in fn or "generic_bwd" in fn}
     check(spills, "build: no ptxas report for the counts kernels")
-    check(any("generic_bwd" in fn for fn in spills),
-          "build: no ptxas report for generic_bwd_kernel")
+    for name in ("generic_bwd", "counts_stored_bwd"):
+        check(any(name in fn for fn in spills),
+              "build: no ptxas report for %s_kernel" % name)
     bad = {fn: s for fn, s in spills.items() if any(s)}
     check(not bad, "build: counts or generic kernels spill (stores, loads "
           "in bytes): %s" % json.dumps(bad))

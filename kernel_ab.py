@@ -76,24 +76,34 @@ Groups (fused, wavefront and counts when none is named):
          stored from its row's thread), on the generic batch,
          call_generic and em_band (the counts group's cells).  Named on
          the command line only: their edits follow the sources' text.
-  counts scatter_lanes (L) on a realign row-flush stream
-         [3096, 4096]; the checkpoint forwards on the EM batch
-         [3, 512, 24, 8192], on its pairs packed at widths 5, 13 and 29
-         (Wp 8, 16, 32), on the em_multi batch [3, 1024, 24, 4096] and
-         its first trial, bit-equal to plain and to the other checkout on
-         ckpt, cs, lsf and term, with bounds and resources; the
-         checkpoint backwards on the EM batch and the em_multi batch (and
-         its first trial), their counts bit-equal to the other
-         checkout's; the instances that must not move (`unmoved`):
-         counts_fwd_all, counts_multi_fwd_all, counts_bwd and
-         counts_multi_bwd; the E-step (`counts_trials` /
-         `counts_multi_trials` with the checkpoint pair, host clock);
-         the generic pair (fb_generic_fwd, fb_generic_bwd) with a
-         non-flat model on the batches of its paths: "generic" [3072,
-         24, 1024], "call_generic" [128, 24, 32768], "em_band" [512, 24,
-         2048] and the generic batch at widths 5, 13 and 29 (Wp 8, 16,
-         32), bit-equal to plain and to the other checkout on F_match,
-         lsf, term and the posterior band, with bounds and resources.
+  counts scatter_lanes (L) on a realign row-flush stream [3096, 4096];
+         the stored pair (counts_fwd_all + counts_bwd, the multi instances
+         over multi lanes) on the EM batch [3, 512, 24, 8192] (the pair
+         forced), on its first trial, on its first 1024 lanes (em32: the
+         smoke's EM parity run, [3, 512, 24, 1024]) and 2048 lanes
+         (em_band: --updateTheBand's E-step), on its pairs packed at
+         widths 5, 13 and 29 (Wp 8, 16, 32), on the em_multi batch
+         [3, 1024, 24, 4096] and its first trial: each forward on the
+         batch, each backward on the plain forward's outputs, f_all, lsf,
+         term and the posterior band bit-equal to plain and to the other
+         checkout, the lane-summed count partials' relative difference
+         from both, with bounds and resources (registers, shared memory a
+         block, blocks an SM, threads a block, spills); the E-step
+         (`counts_trials` / `counts_multi_trials`, host clock) with each
+         pair; the kernels that must not move (`unmoved`: bit-equal to
+         the other checkout, timed): the checkpoint forwards and
+         backwards on the EM and em_multi batches, the generic pair
+         (fb_generic_fwd, fb_generic_bwd) with a non-flat model on the
+         "generic" [3072, 24, 1024] and "em_band" [512, 24, 2048]
+         batches.
+  probe_stored (named on the command line only): the stored pair with 8
+         or 16 lanes a block, with its tiles copied without cp.async, the
+         backward with a ring of three buffers or without its register
+         cap, the forward at 8 lanes and 128 registers (two blocks an
+         SM), and with one part removed (outputs wrong by design: no
+         flush after the first tiles; the backward without its count
+         partials), on the EM batch, the EM batch at width 29 (Wp 32) and
+         the em_multi batch.
 
 The other checkout's package is imported under another name and builds its
 own kernels beside its sources.  A time is the CUDA-event mean over REPS
@@ -810,6 +820,33 @@ def probe_cases(this, cuda, kernels):
             lz = fbc.logz_from_terminal(lsf[None], term[None], fd)[0]
             cases["fb_generic_bwd"][name + "_bwd"] = (*gtabs, fm, lsf,
                                                       *streams, fd, lz)
+    if set(_ST) & set(kernels):
+        P, fbc = sub(this, "models.hmm"), sub(this, "ops.fb_counts")
+        tc = sub(this, "ops.fb_counts_cuda")
+        tables = fb.tables_stacked(models(P, 3), cuda)
+        tabs = (tables.T, tables.Ematch, tables.Egap)
+        *streams, fd = fbc.kernel_inputs(fb.device_batch(em_batch(band),
+                                                         cuda))
+        f_all, lsf, term = tc.counts_fwd_all_cuda(*tabs, *streams)
+        cases["counts_fwd_all"] = {"em_fwd": (*tabs, *streams)}
+        cases["counts_bwd"] = {"em_bwd": (
+            *tabs, f_all, lsf, *streams, fd,
+            fbc.logz_from_terminal(lsf, term, fd))}
+        # The EM batch at width 29 (Wp 32: the backward takes 8 lanes).
+        *streams, fd = fbc.kernel_inputs(fb.device_batch(
+            em_batch(band, width=29), cuda))
+        f_all, lsf, term = tc.counts_fwd_all_cuda(*tabs, *streams)
+        cases["counts_fwd_all"]["em_wp32_fwd"] = (*tabs, *streams)
+        cases["counts_bwd"]["em_wp32_bwd"] = (
+            *tabs, f_all, lsf, *streams, fd,
+            fbc.logz_from_terminal(lsf, term, fd))
+        mdev = fb.multi_device_batch(multi_batch(band), cuda)
+        *mstreams, mfd = fbc.multi_kernel_inputs(mdev)
+        f_all, lsf, term = tc.counts_multi_fwd_all_cuda(*tabs, *mstreams)
+        cases["counts_multi_fwd_all"] = {"em_multi_fwd": (*tabs, *mstreams)}
+        cases["counts_multi_bwd"] = {"em_multi_bwd": (
+            *tabs, f_all, lsf, *mstreams, mfd,
+            fb.multi_logz(lsf, term, mdev)[0])}
     if "cx_forward" in kernels:
         cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
                        repeat=CALLER_LANES // CALLER_UNIQUE)
@@ -885,9 +922,12 @@ def run_probe(this, other, cuda, report, kernels=None):
                     continue
                 vfn = getattr(sub(vport, KERNEL_MODULES[kernel]),
                               kernel + "_cuda")
-                row[name] = {"ms": time_ms(lambda: vfn(*args)),
-                             "equal_this": all_equal(outputs(vfn(*args)),
-                                                     want)}
+                try:
+                    row[name] = {"ms": time_ms(lambda: vfn(*args)),
+                                 "equal_this": all_equal(
+                                     outputs(vfn(*args)), want)}
+                except RuntimeError as exc:  # a shape the variant refuses
+                    row[name] = {"error": str(exc)}
                 print(json.dumps({"probe": {case: {name: row[name]}}}),
                       flush=True)
             row["this_ms_runs"].append(time_ms(lambda: fn(*args)))
@@ -898,25 +938,55 @@ def run_probe(this, other, cuda, report, kernels=None):
     print(json.dumps({"probe": rows}), flush=True)
 
 
-def ab_ckpt_fwd(tc, oc, name, args, cuda):
-    """The checkpoint forward `name` (counts_fwd_ckpt or
-    counts_multi_fwd_ckpt) of both checkouts against the plain version on
-    every output (ckpt, cs, lsf, term), timed, with bound and resources."""
-    kernel, other = (getattr(m, name + "_cuda") for m in (tc, oc))
-    got = kernel(*args)
-    plain = getattr(tc, name + "_plain")(*args)
-    ref = other(*args)
-    ntr = args[0].shape[0]
-    d1k, wp, B = args[3].shape
-    return {"shape": [ntr, d1k, wp, B],
-            "max_abs_err_plain": max_diff(got, plain),
-            "bit_equal_plain": all_equal(got, plain),
-            "max_abs_err_other": max_diff(got, ref),
-            "bit_equal_other": all_equal(got, ref),
-            **ab(lambda: kernel(*args), lambda: other(*args)),
-            **bound(name, ntr * d1k * wp * B, nbytes(*args, *got)),
-            "resources": tc.ckpt_forward_resources(
-                cuda, wp, B, ntr, multi="multi" in name)}
+def ab_stored(this, other, tabs, streams, fd, norm, multi, cuda):
+    """The stored pair (counts_fwd_all + counts_bwd, or their counts_multi_
+    instances) of both checkouts on one batch: the forward on the streams,
+    the backward on the plain forward's outputs and norm(lsf, term) (logZ
+    or L); f_all, lsf, term and the posterior band against the plain
+    version and the other checkout, the lane-summed count partials' largest
+    relative difference from both, both kernels timed, with bounds and
+    resources."""
+    import torch
+
+    tc, oc = (sub(p, "ops.fb_counts_cuda") for p in (this, other))
+    fname, bname = (("counts_multi_fwd_all", "counts_multi_bwd") if multi
+                    else ("counts_fwd_all", "counts_bwd"))
+    fargs = (*tabs, *streams)
+    ntr = tabs[0].shape[0]
+    d1k, wp, B = streams[0].shape
+    cells = ntr * streams[0].numel()
+    kernel, okernel = (getattr(m, fname + "_cuda") for m in (tc, oc))
+    got = kernel(*fargs)
+    plain = getattr(tc, fname + "_plain")(*fargs)
+    ref = okernel(*fargs)
+    row = {"shape": [ntr, d1k, wp, B], "fwd": {
+        "max_abs_err_plain": max_diff(got, plain),
+        "bit_equal_plain": all_equal(got, plain),
+        "bit_equal_other": all_equal(got, ref),
+        **bound(fname, cells, nbytes(*fargs, *got)),
+        "resources": tc.stored_resources(cuda, wp, B, ntr, multi)}}
+    del got, ref
+    torch.cuda.empty_cache()
+    row["fwd"].update(ab(lambda: kernel(*fargs), lambda: okernel(*fargs)))
+    f_all, lsf, term = plain
+    bargs = (*tabs, f_all, lsf, *streams, fd, norm(lsf, term))
+    kernel, okernel = (getattr(m, bname + "_cuda") for m in (tc, oc))
+    got = kernel(*bargs)
+    want = getattr(tc, bname + "_plain")(*bargs)
+    ref = okernel(*bargs)
+    row["bwd"] = {
+        "post_max_abs_err_plain": max_diff(got[:1], want[:1]),
+        "post_bit_equal_plain": all_equal(got[:1], want[:1]),
+        "post_bit_equal_other": all_equal(got[:1], ref[:1]),
+        "counts_rel_err_plain": counts_rel(got[1:], want[1:]),
+        "counts_rel_err_other": counts_rel(got[1:], ref[1:]),
+        **bound(bname, cells, nbytes(*bargs, *got)),
+        "resources": tc.stored_resources(cuda, wp, B, ntr, multi,
+                                         backward=True)}
+    del got, want, ref
+    torch.cuda.empty_cache()
+    row["bwd"].update(ab(lambda: kernel(*bargs), lambda: okernel(*bargs)))
+    return row
 
 
 def generic_pair_tables(port, cuda):
@@ -973,45 +1043,6 @@ def generic_cells(port, cuda, names=None):
     return cells
 
 
-def ab_generic(this, og, gtabs, streams, fd, cuda):
-    """The generic pair of both checkouts on one batch: the forward on the
-    streams, the backward on the plain forward's outputs; every output
-    (F_match, lsf, term; the posterior band) against the plain version and
-    the other checkout, both kernels timed, with bounds and resources."""
-    tc, tg = sub(this, "ops.fb_counts_cuda"), sub(this, "ops.fb_generic_cuda")
-    fbc = sub(this, "ops.fb_counts")
-    fargs = (*gtabs, *streams)
-    d1k, wp, B = streams[0].shape
-    cells = streams[0].numel()
-    got = tg.fb_generic_fwd_cuda(*fargs)
-    plain = tg.fb_generic_fwd_plain(*fargs)
-    ref = og.fb_generic_fwd_cuda(*fargs)
-    row = {"shape": [d1k, wp, B], "fwd": {
-        "max_abs_err_plain": max_diff(got, plain),
-        "bit_equal_plain": all_equal(got, plain),
-        "bit_equal_other": all_equal(got, ref),
-        **ab(lambda: tg.fb_generic_fwd_cuda(*fargs),
-             lambda: og.fb_generic_fwd_cuda(*fargs)),
-        **bound("fb_generic_fwd", cells, nbytes(*fargs, *got)),
-        "resources": tc.generic_resources(cuda, wp, B)}}
-    del got, ref
-    fm, lsf, term = plain
-    lz = fbc.logz_from_terminal(lsf[None], term[None], fd)[0]
-    bargs = (*gtabs, fm, lsf, *streams, fd, lz)
-    got = tg.fb_generic_bwd_cuda(*bargs)
-    want = tg.fb_generic_bwd_plain(*bargs)
-    ref = og.fb_generic_bwd_cuda(*bargs)
-    row["bwd"] = {
-        "max_abs_err_plain": max_diff((got,), (want,)),
-        "bit_equal_plain": all_equal((got,), (want,)),
-        "bit_equal_other": all_equal((got,), (ref,)),
-        **ab(lambda: tg.fb_generic_bwd_cuda(*bargs),
-             lambda: og.fb_generic_bwd_cuda(*bargs)),
-        **bound("fb_generic_bwd", cells, nbytes(*bargs, got)),
-        "resources": tc.generic_resources(cuda, wp, B, backward=True)}
-    return row
-
-
 def counts_rel(got, want):
     return max(((g.sum(-1) - w.sum(-1)).abs()
                 / w.sum(-1).abs().clamp(min=1e-6)).max().item()
@@ -1026,7 +1057,8 @@ def card():
 
 
 GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
-          "probe_counts", "probe_cx", "probe_generic", "counts")
+          "probe_counts", "probe_cx", "probe_generic", "probe_stored",
+          "counts")
 DEFAULT_GROUPS = ("fused", "wavefront", "counts")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
@@ -1035,6 +1067,10 @@ KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "fb_generic_fwd": "ops.fb_generic_cuda",
                   "fb_generic_bwd": "ops.fb_generic_cuda",
                   "counts_multi_fwd_ckpt": "ops.fb_counts_cuda",
+                  "counts_fwd_all": "ops.fb_counts_cuda",
+                  "counts_bwd": "ops.fb_counts_cuda",
+                  "counts_multi_fwd_all": "ops.fb_counts_cuda",
+                  "counts_multi_bwd": "ops.fb_counts_cuda",
                   "expand_streams": "ops.fb_circ_cuda",
                   "sv_backward": "ops.fb_circ_cuda",
                   "expand_rel": "ops.fb_circ_cuda",
@@ -1233,7 +1269,7 @@ _CF_ROLLED = ("#pragma unroll\n    for (int kb = 0; kb < K; ++kb) {\n"
               "#pragma unroll 1\n    for (int kb = 0; kb < K; ++kb) {\n"
               "      const int t1 = word_of(")
 _CF_LANES_AT = ("  cudaError_t err = mk::warp_lanes(\n"
-                "      B * ntr, [Wp](int l) { return cf_smem(Wp, l, MATCH); }, "
+                "      B * ntr, [Wp](int l) { return cf_smem(Wp, l, OUT); }, "
                 "lanes);")
 # Three trials a block at 8 lanes where the launch has three trials (else
 # one trial at 16 lanes): the block's warps in groups of LPB, one a trial,
@@ -1247,13 +1283,13 @@ _CF_TRIALS = [
     ("  float* tab = cf_raw;  // [CF_NTAB]\n"
      "  uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + CF_NTAB);\n"
      "  const size_t nin = cf_in_bytes(Wp, LPB),\n"
-     "               nout = cf_out_bytes(Wp, LPB, MATCH);",
+     "               nout = cf_out_bytes(Wp, LPB, OUT);",
      "  const int tl = threadIdx.x / (32 * LPB);\n"
      "  const int ntb = blockDim.x / (32 * LPB);\n"
      "  float* tab = cf_raw + tl * CF_NTAB;\n"
      "  uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + 3 * CF_NTAB);\n"
      "  const size_t nin = cf_in_bytes(Wp, LPB),\n"
-     "               nout = 3 * cf_out_bytes(Wp, LPB, MATCH);"),
+     "               nout = 3 * cf_out_bytes(Wp, LPB, OUT);"),
     ("  const int tid = threadIdx.x, w = tid >> 5;\n"
      "  const int b0 = blockIdx.x * LPB, b = b0 + w, t = blockIdx.y;",
      "  const int tid = threadIdx.x % (32 * LPB), w = tid >> 5;\n"
@@ -1261,23 +1297,24 @@ _CF_TRIALS = [
      "            t = blockIdx.y * ntb + tl;"),
     ("  cf_stage<MULTI, LPB>(in(0), 0,",
      "  if (tl == 0) cf_stage<MULTI, LPB>(in(0), 0,"),
-    ("    if (g > 0)\n      cf_flush<LPB, MATCH>(out(g - 1), g - 1,",
+    ("    if (g > 0)\n      cf_flush<LPB, OUT>(out(g - 1), g - 1,",
      "    if (g > 0)\n"
-     "      cf_flush<LPB, MATCH>(out(g - 1) + tl * LPB * cf_rec(Wp, MATCH), "
+     "      cf_flush<LPB, OUT>(out(g - 1) + tl * LPB * cf_rec(Wp, OUT, LPB), "
      "g - 1,"),
     ("    if (g + 1 < G)\n      cf_stage<MULTI, LPB>(",
      "    if (g + 1 < G && tl == 0)\n      cf_stage<MULTI, LPB>("),
-    ("lane.tile(in(g), out(g) + w * cf_rec(Wp, MATCH), g, w);",
-     "lane.tile(in(g), out(g) + (tl * LPB + w) * cf_rec(Wp, MATCH), g, w);"),
-    ("  cf_flush<LPB, MATCH>(out(G - 1), G - 1,",
-     "  cf_flush<LPB, MATCH>(out(G - 1) + tl * LPB * cf_rec(Wp, MATCH), "
+    ("lane.tile(in(g), out(g) + w * cf_rec(Wp, OUT, LPB), g, w);",
+     "lane.tile(in(g), out(g) + (tl * LPB + w) * cf_rec(Wp, OUT, LPB), g, "
+     "w);"),
+    ("  cf_flush<LPB, OUT>(out(G - 1), G - 1,",
+     "  cf_flush<LPB, OUT>(out(G - 1) + tl * LPB * cf_rec(Wp, OUT, LPB), "
      "G - 1,"),
     ("  const int i0 = threadIdx.x / LPB;  // 0 .. 31",
      "  const int i0 = threadIdx.x % (32 * LPB) / LPB;"),
     ("  return CF_NTAB * sizeof(float) +\n"
-     "         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb, match));",
+     "         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb, out));",
      "  return 3 * CF_NTAB * sizeof(float) +\n"
-     "         2 * (cf_in_bytes(Wp, lpb) + 3 * cf_out_bytes(Wp, lpb, match));"),
+     "         2 * (cf_in_bytes(Wp, lpb) + 3 * cf_out_bytes(Wp, lpb, out));"),
     (_CF_LANES_AT,
      "  cudaError_t err = (*lanes = ntr == 3 ? 8 : 16, cudaSuccess);"),
     ("dim3((B + lanes - 1) / lanes, ntr),\n"
@@ -1297,8 +1334,8 @@ PROBES.update({
          "c) = *reinterpret_cast<const uint32_t*>(s + (size_t)row * B + c);")
     ]),
     "cf_no_global": (_CF, "fb_counts.cu", [
-        ("    if (g > 0)\n      cf_flush<LPB, MATCH>(",
-         "    if (g > 0 && g < 3)\n      cf_flush<LPB, MATCH>("),
+        ("    if (g > 0)\n      cf_flush<LPB, OUT>(",
+         "    if (g > 0 && g < 3)\n      cf_flush<LPB, OUT>("),
         ("    if (g + 1 < G)\n      cf_stage<MULTI, LPB>(",
          "    if (g + 1 < G && g < 2)\n      cf_stage<MULTI, LPB>(")]),
     "cf_cap64": (_CF, "fb_counts.cu", [_cf_cap(32)]),
@@ -1362,9 +1399,10 @@ _GB = ("fb_generic_fwd", "fb_generic_bwd")
 # loop, and both.
 _GB_BOUNDS = ("template <int LPB>\n__global__ void __launch_bounds__(32 * "
               "LPB)\n    generic_bwd_kernel(")
-_GB_ROLLED = ("#pragma unroll\n    for (int kb = K - 1; kb >= 0; --kb) "
-              "step(", "#pragma unroll 1\n    for (int kb = K - 1; kb >= 0; "
-              "--kb) step(")
+_GB_ROLLED = ("tile(const GbBuf& S, int g, int w) {\n#pragma unroll\n    for "
+              "(int kb = K - 1; kb >= 0; --kb) step(",
+              "tile(const GbBuf& S, int g, int w) {\n#pragma unroll 1\n    "
+              "for (int kb = K - 1; kb >= 0; --kb) step(")
 
 
 def _gb_cap(n):
@@ -1387,8 +1425,8 @@ PROBES.update({
         ("      mk::cp_async4(S.s1 + w * K + kb, s1 + at);\n"
          "      if (MULTI)",
          "      S.s1[w * K + kb] = s1[at];\n      if (MULTI)"),
-        ("      mk::cp_async4(dst + r, src + (size_t)r * B);",
-         "      dst[r] = src[(size_t)r * B];"),
+        ("r < K * Wp; r += 32)\n      mk::cp_async4(dst + r, src + (size_t)r "
+         "* B);", "r < K * Wp; r += 32)\n      dst[r] = src[(size_t)r * B];"),
         ("      mk::cp_async4(S.s1 + w * K + kb, s1 + at);\n"
          "      mk::cp_async4(S.lsf + w * K + kb, lsf + at);",
          "      S.s1[w * K + kb] = s1[at];\n      S.lsf[w * K + kb] = lsf[at];")]),
@@ -1402,19 +1440,21 @@ PROBES.update({
         ("  float ls = 0.f, cprev = 1.f;\n  int sprev = 0;\n",
          "  float ls = 0.f, cprev = 1.f;\n  int sprev = 0;\n"
          "  float* gout = nullptr;\n  size_t gB = 0, gb = 0;\n"),
-        ("      if (MATCH && row) o[kb * Wp + k] = f[0];",
-         "      if (MATCH && row)\n"
+        ("      if (OUT == CF_MATCH && row) o[kb * Wp + k] = f[0];",
+         "      if (OUT == CF_MATCH && row)\n"
          "        gout[((size_t)(g * K + kb) * Wp + k) * gB + gb] = f[0];"),
         ("                                 live && !MULTI ? fink[b] : -1, "
          "live);",
          "                                 live && !MULTI ? fink[b] : -1, "
          "live);\n  lane.gout = ckpt;\n  lane.gB = B;\n  lane.gb = b;"),
         ("  for (int r = i0; r < nck; r += 32) ck[(size_t)r * B] = o[r];",
-         "  for (int r = i0; !MATCH && r < nck; r += 32) ck[(size_t)r * B] = "
-         "o[r];"),
-        ("  float g1[4] = {0.f, 0.f, 0.f, 0.f};  // e_s * b_s of d+1\n",
+         "  for (int r = i0; OUT != CF_MATCH && r < nck; r += 32) "
+         "ck[(size_t)r * B] = o[r];"),
+        ("  float g1[4] = {0.f, 0.f, 0.f, 0.f};  // e_s * b_s of d+1\n\n"
+         "  __device__ GbWarp(",
          "  float g1[4] = {0.f, 0.f, 0.f, 0.f};  // e_s * b_s of d+1\n"
-         "  float* gout = nullptr;\n  size_t gB = 0, gb = 0;\n"),
+         "  float* gout = nullptr;\n  size_t gB = 0, gb = 0;\n\n"
+         "  __device__ GbWarp("),
         ("    if (row) *fm = (*fm * nb[0]) * alpha0;",
          "    if (row) gout[((size_t)d * Wp + k) * gB + gb] = (*fm * nb[0]) * "
          "alpha0;"),
@@ -1423,6 +1463,84 @@ PROBES.update({
          "  lane.gout = post;\n  lane.gB = B;\n  lane.gb = b;"),
         ("  float* dst = post + (size_t)d0 * Wp * B + b;",
          "  return;\n  float* dst = post + (size_t)d0 * Wp * B + b;")]),
+})
+# The stored pair (counts_fwd_all: the checkpoint forward's CF_ALL mode;
+# counts_bwd: counts_stored_bwd_kernel; and their multi instances), both
+# kernels in each variant but the backward's own: with 8 or 16 lanes a
+# block whatever B and Ntr; with its tiles copied by plain loads and stores
+# (no cp.async: the code bytes through csrc/common.cuh `stage_bytes`, s1,
+# fink, f_all, lsf, find and L); the backward alone with a ring of three
+# buffers (one barrier a tile; 16 lanes no longer fit at Wp 24, so
+# mk::warp_lanes takes 8) or without its register cap at 8 lanes (one block
+# an SM where it takes more than 128).  Every variant's outputs equal the
+# kernel's.
+_ST = ("counts_fwd_all", "counts_bwd", "counts_multi_fwd_all",
+       "counts_multi_bwd")
+_ST_BWD = ("counts_bwd", "counts_multi_bwd")
+_ST_FWD = ("counts_fwd_all", "counts_multi_fwd_all")
+_SB_LANES_AT = ("  cudaError_t err = mk::warp_lanes(\n"
+                "      B * ntr, [Wp](int l) { return sb_smem(Wp, l, MULTI); }, "
+                "lanes);")
+PROBES.update({
+    **{"st_lanes_%d" % n: (_ST, "fb_counts.cu", [
+        (_CF_LANES_AT, "  cudaError_t err = (*lanes = %d, cudaSuccess);" % n),
+        (_SB_LANES_AT, "  cudaError_t err = (*lanes = %d, cudaSuccess);" % n)])
+       for n in (8, 16)},
+    "st_sync_stage": (_ST, "fb_counts.cu", [
+        ("common.cuh",
+         "      if (b0 + c < B) cp_async4(dst + row * S + c, s + (size_t)row "
+         "* B + c);",
+         "      if (b0 + c < B) *reinterpret_cast<uint32_t*>(dst + row * S + "
+         "c) = *reinterpret_cast<const uint32_t*>(s + (size_t)row * B + c);"),
+        ("      mk::cp_async4(S.s1 + w * K + kb, s1 + at);\n"
+         "      if (MULTI) mk::cp_async4(S.fk + w * K + kb, fink + at);",
+         "      S.s1[w * K + kb] = s1[at];\n"
+         "      if (MULTI) S.fk[w * K + kb] = fink[at];"),
+        ("      mk::cp_async4(dst + r, src + (size_t)r * B);\n"
+         "    const int kb = threadIdx.x / LPB;\n    if (kb < K) {\n"
+         "      const size_t at = (size_t)(d0 + kb) * B + b, tat",
+         "      dst[r] = src[(size_t)r * B];\n"
+         "    const int kb = threadIdx.x / LPB;\n    if (kb < K) {\n"
+         "      const size_t at = (size_t)(d0 + kb) * B + b, tat"),
+        ("      mk::cp_async4(S.s1 + w * K + kb, s1 + at);\n"
+         "      mk::cp_async4(S.lsf + w * K + kb, lsf + tat);\n"
+         "      if (MULTI) {\n"
+         "        mk::cp_async4(S.fk + w * K + kb, fink + at);\n"
+         "        mk::cp_async4(S.fd + w * K + kb, find + at);\n"
+         "        mk::cp_async4(S.lz + w * K + kb, L + tat);",
+         "      S.s1[w * K + kb] = s1[at];\n"
+         "      S.lsf[w * K + kb] = lsf[tat];\n"
+         "      if (MULTI) {\n"
+         "        S.fk[w * K + kb] = fink[at];\n"
+         "        S.fd[w * K + kb] = find[at];\n"
+         "        S.lz[w * K + kb] = L[tat];")]),
+    # The forward at 8 lanes a block and at most 128 registers: two blocks
+    # an SM, so one block's flush overlaps the other's tile.
+    "st_fwd_lanes_8_cap": (_ST_FWD, "fb_counts.cu", [
+        (_CF_LANES_AT, "  cudaError_t err = (*lanes = 8, cudaSuccess);"),
+        _cf_cap(16)]),
+    "st_ring3": (_ST_BWD, "fb_counts.cu", [
+        ("constexpr int SB_RING = 2;", "constexpr int SB_RING = 3;")]),
+    "st_bwd_nocap": (_ST_BWD, "fb_counts.cu", [
+        ("__global__ void __launch_bounds__(32 * LPB, 16 / LPB)\n"
+         "    counts_stored_bwd_kernel(",
+         "__global__ void __launch_bounds__(32 * LPB)\n"
+         "    counts_stored_bwd_kernel(")]),
+    # With one part removed (outputs wrong by design): no flush of the
+    # output tiles after the first two (both kernels), no count partials
+    # (the backward).
+    "st_fwd_no_flush": (_ST_FWD, "fb_counts.cu", [
+        ("    if (g > 0)\n      cf_flush<LPB, OUT>(out(g - 1), g - 1,",
+         "    if (g > 0 && g < 3)\n"
+         "      cf_flush<LPB, OUT>(out(g - 1), g - 1,")]),
+    "st_bwd_no_flush": (_ST_BWD, "fb_counts.cu", [
+        ("    if (u > 0) sb_flush<LPB>(",
+         "    if (u > 0 && u < 3) sb_flush<LPB>(")]),
+    "st_bwd_no_counts": (_ST_BWD, "fb_counts.cu", [
+        ("          tca[s * 5 + u] = __fmaf_rn(fs, q[u], tca[s * 5 + u]);",
+         "          (void)fs;"),
+        ("        egb[(code * 4 + s - 1) * LPB * Wp] += (fv[s] * nb[s]) * a0n;",
+         "        (void)code;")]),
 })
 
 
@@ -1457,10 +1575,13 @@ def run_counts(this, other, cuda, report):
 
     tc, oc = (sub(p, "ops.fb_counts_cuda") for p in (this, other))
     tb, ob = (sub(p, "ops.bucket_scatter") for p in (this, other))
-    fbc = sub(this, "ops.fb_counts")
-    fb = sub(this, "ops.fb")
+    fbc, ofbc = (sub(p, "ops.fb_counts") for p in (this, other))
+    fb, ofb = (sub(p, "ops.fb") for p in (this, other))
     band = sub(this, "ops.band")
     P = sub(this, "models.hmm")
+
+    def show(name):
+        print(json.dumps({name: report[name]}), flush=True)
 
     # L on a realign flush stream.
     args = flush_stream(this, cuda)
@@ -1482,133 +1603,120 @@ def run_counts(this, other, cuda, report):
         **bound("scatter_lanes", hit, jm.numel() * 4 + rg * vals.shape[1]
                 * 4 + hit * 4)}
     del args, vals, jm, got, ref, plain, tgt, lib_out
-    print(json.dumps({"scatter_lanes": report["scatter_lanes"]}), flush=True)
+    show("scatter_lanes")
 
-    # The single-lane EM batch: the checkpoint backward, the stored one.
+    # The stored pair on the single-lane EM batches: the EM batch (the
+    # pair forced), one trial of it, its first 1024 lanes (the smoke's EM
+    # parity run, em32) and 2048 lanes (--updateTheBand's E-step,
+    # em_band), and its pairs packed at widths 5, 13 and 29 (Wp 8, 16, 32).
     hmms = models(P, 3)
     tables = fb.tables_stacked(hmms, cuda)
     tabs = (tables.T, tables.Ematch, tables.Egap)
+    one = tuple(t[:1].contiguous() for t in tabs)
     batch = em_batch(band)
     dev = fb.device_batch(batch, cuda)
     xb, yb, valid, s1, fk, fd = fbc.kernel_inputs(dev)
     streams = (xb, yb, valid, s1, fk)
-    report["counts_fwd_ckpt"] = ab_ckpt_fwd(tc, oc, "counts_fwd_ckpt",
-                                            (*tabs, *streams), cuda)
-    print(json.dumps({"counts_fwd_ckpt": report["counts_fwd_ckpt"]}),
-          flush=True)
-    # The checkpoint forward on the batch's pairs packed at widths 5, 13
-    # and 29 (Wp 8, 16, 32).
-    for width in (5, 13, 29):
-        wstreams = fbc.kernel_inputs(fb.device_batch(
-            em_batch(band, width=width), cuda))[:5]
-        name = "counts_fwd_ckpt_wp%d" % wstreams[0].shape[1]
-        report[name] = ab_ckpt_fwd(tc, oc, "counts_fwd_ckpt",
-                                   (*tabs, *wstreams), cuda)
-        print(json.dumps({name: report[name]}), flush=True)
-        del wstreams
+
+    def logz(fd):
+        return lambda lsf, term: fbc.logz_from_terminal(lsf, term, fd)
+
+    def lanes(n):
+        return tuple(t[..., :n].contiguous() for t in (*streams, fd))
+
+    cells = {"counts_em": (tabs, streams, fd), "counts_em_one_trial": (
+        one, streams, fd)}
+    for name, n in (("counts_em32", 1024), ("counts_em_band", 2048)):
+        *cut, cfd = lanes(n)
+        cells[name] = (tabs, tuple(cut), cfd)
+    for name, (ctabs, cstreams, cfd) in cells.items():
+        report[name] = ab_stored(this, other, ctabs, cstreams, cfd, logz(cfd),
+                                 False, cuda)
+        show(name)
         torch.cuda.empty_cache()
+    del cells
+    for width in (5, 13, 29):
+        *wstreams, wfd = fbc.kernel_inputs(fb.device_batch(
+            em_batch(band, width=width), cuda))
+        name = "counts_em_wp%d" % wstreams[0].shape[1]
+        report[name] = ab_stored(this, other, tabs, tuple(wstreams), wfd,
+                                 logz(wfd), False, cuda)
+        show(name)
+        del wstreams, wfd
+        torch.cuda.empty_cache()
+
+    # Must not move: the checkpoint pair on the EM batch.
+    report["counts_fwd_ckpt"] = unmoved(
+        tc.counts_fwd_ckpt_cuda, oc.counts_fwd_ckpt_cuda, (*tabs, *streams))
     ck, cs, lsf, term = tc.counts_fwd_ckpt_cuda(*tabs, *streams)
-    logZ = fbc.logz_from_terminal(lsf, term, fd)
-    cargs = (*tabs, ck, cs, *streams, fd, logZ)
-    cells = 3 * xb.numel()
-    got = tc.counts_bwd_ckpt_cuda(*cargs)
-    ref = oc.counts_bwd_ckpt_cuda(*cargs)
-    report["counts_bwd_ckpt"] = {
-        "shape": [3] + list(xb.shape),
-        "counts_rel_err_plain": counts_rel(got, tc.counts_bwd_ckpt_plain(
-            *cargs)),
-        "counts_rel_err_other": counts_rel(got, ref),
-        "bit_equal_other": all_equal(got, ref),
-        **ab(lambda: tc.counts_bwd_ckpt_cuda(*cargs),
-             lambda: oc.counts_bwd_ckpt_cuda(*cargs)),
-        **bound("counts_bwd_ckpt", cells, nbytes(*cargs, *got)),
-        "resources": tc.ckpt_backward_resources(cuda, xb.shape[1])}
-    one = (*(t[:1].contiguous() for t in tabs), ck[:1].contiguous(),
-           cs[:1].contiguous(), *streams, fd, logZ[:1].contiguous())
-    report["counts_bwd_ckpt"]["one_trial"] = ab(
-        lambda: tc.counts_bwd_ckpt_cuda(*one),
-        lambda: oc.counts_bwd_ckpt_cuda(*one))
-    del ck, cs, cargs, one, got, ref
-    print(json.dumps({"counts_bwd_ckpt": report["counts_bwd_ckpt"]}),
-          flush=True)
-    report["counts_fwd_all"] = unmoved(tc.counts_fwd_all_cuda,
-                                       oc.counts_fwd_all_cuda,
-                                       (*tabs, *streams))
-    torch.cuda.empty_cache()
-    f_all, lsf, term = tc.counts_fwd_all_cuda(*tabs, *streams)
-    report["counts_bwd"] = unmoved(tc.counts_bwd_cuda, oc.counts_bwd_cuda,
-                                   (*tabs, f_all, lsf, *streams, fd, logZ))
-    del f_all
-    # The E-step of --em on this batch (checkpoint pair, 3 trials).
-    odev = sub(other, "ops.fb").device_batch(batch, cuda)
-    otables = sub(other, "ops.fb").tables_stacked(hmms, cuda)
-    ofbc = sub(other, "ops.fb_counts")
-    report["estep_em"] = estep(
-        lambda: fbc.counts_trials(tables, dev, kernel="ckpt"),
-        lambda: ofbc.counts_trials(otables, odev, kernel="ckpt"))
-    del dev, odev, batch
+    report["counts_bwd_ckpt"] = unmoved(
+        tc.counts_bwd_ckpt_cuda, oc.counts_bwd_ckpt_cuda,
+        (*tabs, ck, cs, *streams, fd, fbc.logz_from_terminal(lsf, term, fd)))
+    del ck, cs
+    show("counts_fwd_ckpt")
+    show("counts_bwd_ckpt")
+    # The E-step of --em on this batch (3 trials), each pair.
+    odev = ofb.device_batch(batch, cuda)
+    otables = ofb.tables_stacked(hmms, cuda)
+    for pair in ("ckpt", "stored"):
+        name = "estep_em" + ("" if pair == "ckpt" else "_stored")
+        report[name] = estep(
+            lambda: fbc.counts_trials(tables, dev, kernel=pair),
+            lambda: ofbc.counts_trials(otables, odev, kernel=pair))
+        show(name)
+    del dev, odev, batch, streams
     torch.cuda.empty_cache()
 
-    # The multi-lane EM batch.
+    # The multi-lane EM batch and its first trial.
     mb = multi_batch(band)
     mdev = fb.multi_device_batch(mb, cuda)
     *mstreams, mfk, mfd = fbc.multi_kernel_inputs(mdev)
     mstreams = (*mstreams, mfk)
-    report["counts_multi_fwd_ckpt"] = ab_ckpt_fwd(
-        tc, oc, "counts_multi_fwd_ckpt", (*tabs, *mstreams), cuda)
-    report["counts_multi_fwd_ckpt"]["one_trial"] = ab_ckpt_fwd(
-        tc, oc, "counts_multi_fwd_ckpt",
-        (*(t[:1].contiguous() for t in tabs), *mstreams), cuda)
-    print(json.dumps({"counts_multi_fwd_ckpt":
-                      report["counts_multi_fwd_ckpt"]}), flush=True)
+
+    def mlogz(lsf, term):
+        return fb.multi_logz(lsf, term, mdev)[0]
+
+    for name, mtabs in (("counts_em_multi", tabs),
+                        ("counts_em_multi_one_trial", one)):
+        report[name] = ab_stored(this, other, mtabs, mstreams, mfd, mlogz,
+                                 True, cuda)
+        show(name)
+        torch.cuda.empty_cache()
+    report["counts_multi_fwd_ckpt"] = unmoved(
+        tc.counts_multi_fwd_ckpt_cuda, oc.counts_multi_fwd_ckpt_cuda,
+        (*tabs, *mstreams))
     ck, cs, lsf, term = tc.counts_multi_fwd_ckpt_cuda(*tabs, *mstreams)
-    L, _ = fb.multi_logz(lsf, term, mdev)
-    cargs = (*tabs, ck, cs, *mstreams, mfd, L)
-    got = tc.counts_multi_bwd_ckpt_cuda(*cargs)
-    ref = oc.counts_multi_bwd_ckpt_cuda(*cargs)
-    report["counts_multi_bwd_ckpt"] = {
-        "shape": [3] + list(mstreams[0].shape),
-        "counts_rel_err_plain": counts_rel(
-            got, tc.counts_multi_bwd_ckpt_plain(*cargs)),
-        "counts_rel_err_other": counts_rel(got, ref),
-        "bit_equal_other": all_equal(got, ref),
-        **ab(lambda: tc.counts_multi_bwd_ckpt_cuda(*cargs),
-             lambda: oc.counts_multi_bwd_ckpt_cuda(*cargs)),
-        **bound("counts_multi_bwd_ckpt", 3 * mstreams[0].numel(),
-                nbytes(*cargs, *got)),
-        "resources": tc.ckpt_backward_resources(
-            cuda, mstreams[0].shape[1], multi=True)}
-    one = (*(t[:1].contiguous() for t in tabs), ck[:1].contiguous(),
-           cs[:1].contiguous(), *mstreams, mfd, L[:1].contiguous())
-    report["counts_multi_bwd_ckpt"]["one_trial"] = ab(
-        lambda: tc.counts_multi_bwd_ckpt_cuda(*one),
-        lambda: oc.counts_multi_bwd_ckpt_cuda(*one))
-    del ck, cs, cargs, one, got, ref
-    print(json.dumps({"counts_multi_bwd_ckpt":
-                      report["counts_multi_bwd_ckpt"]}), flush=True)
-    report["counts_multi_fwd_all"] = unmoved(tc.counts_multi_fwd_all_cuda,
-                                             oc.counts_multi_fwd_all_cuda,
-                                             (*tabs, *mstreams))
-    torch.cuda.empty_cache()
-    f_all, lsf, term = tc.counts_multi_fwd_all_cuda(*tabs, *mstreams)
-    report["counts_multi_bwd"] = unmoved(
-        tc.counts_multi_bwd_cuda, oc.counts_multi_bwd_cuda,
-        (*tabs, f_all, lsf, *mstreams, mfd, L))
-    del f_all
-    omdev = sub(other, "ops.fb").multi_device_batch(mb, cuda)
-    report["estep_em_multi"] = estep(
-        lambda: fbc.counts_multi_trials(tables, mdev, kernel="ckpt"),
-        lambda: ofbc.counts_multi_trials(otables, omdev, kernel="ckpt"))
+    report["counts_multi_bwd_ckpt"] = unmoved(
+        tc.counts_multi_bwd_ckpt_cuda, oc.counts_multi_bwd_ckpt_cuda,
+        (*tabs, ck, cs, *mstreams, mfd, mlogz(lsf, term)))
+    del ck, cs
+    show("counts_multi_fwd_ckpt")
+    show("counts_multi_bwd_ckpt")
+    omdev = ofb.multi_device_batch(mb, cuda)
+    for pair in ("ckpt", "stored"):
+        name = "estep_em_multi" + ("" if pair == "ckpt" else "_stored")
+        report[name] = estep(
+            lambda: fbc.counts_multi_trials(tables, mdev, kernel=pair),
+            lambda: ofbc.counts_multi_trials(otables, omdev, kernel=pair))
+        show(name)
     del mdev, omdev, mb
     torch.cuda.empty_cache()
 
-    # The generic pair (non-flat model, one trial) on its paths' batches.
-    og = sub(other, "ops.fb_generic_cuda")
+    # Must not move: the generic pair (non-flat model, one trial) on the
+    # generic and em_band batches.
+    tg, og = (sub(p, "ops.fb_generic_cuda") for p in (this, other))
     gtabs = generic_pair_tables(this, cuda)
-    for name, (streams, fd) in generic_cells(this, cuda).items():
-        report[name] = ab_generic(this, og, gtabs, streams, fd, cuda)
-        print(json.dumps({name: report[name]}), flush=True)
-        del streams, fd
+    for name, (gstreams, gfd) in generic_cells(
+            this, cuda, ("generic", "em_band")).items():
+        fm, lsf, term = tg.fb_generic_fwd_cuda(*gtabs, *gstreams)
+        lz = fbc.logz_from_terminal(lsf[None], term[None], gfd)[0]
+        report["generic_" + name] = {
+            "fwd": unmoved(tg.fb_generic_fwd_cuda, og.fb_generic_fwd_cuda,
+                           (*gtabs, *gstreams)),
+            "bwd": unmoved(tg.fb_generic_bwd_cuda, og.fb_generic_bwd_cuda,
+                           (*gtabs, fm, lsf, *gstreams, gfd, lz))}
+        show("generic_" + name)
+        del gstreams, gfd, fm
         torch.cuda.empty_cache()
 
 
@@ -1645,6 +1753,7 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_cx": lambda *a: run_probe(*a, kernels=("cx_forward",)),
         "probe_generic": lambda *a: run_probe(
             *a, kernels=("fb_generic_fwd", "fb_generic_bwd")),
+        "probe_stored": lambda *a: run_probe(*a, kernels=_ST),
         "counts": run_counts}
 
 if __name__ == "__main__":

@@ -44,46 +44,45 @@
 //   fb_generic_fwd   <- `_fwd_body` (`_run_forward` :480, pallas_calls :519
 //                       dynamic tables and :526 baked tables): the same
 //                       forward, storing only the scaled match plane F_match,
-//                       lsf and the terminal sums (the checkpoint forward's
-//                       kernel in its MATCH mode);
+//                       lsf and the terminal sums;
 //   fb_generic_bwd   <- `_bwd_body` (`_run_backward` :693, pallas_calls :747
 //                       and :753): the same backward, writing the posterior
 //                       match band F_match * b_M * exp(lsf + bls - logZ) and
-//                       counting nothing (generic_bwd_kernel).
+//                       counting nothing.
 // Run-time tables cover both TPU variants: the baked variant only skips
 // terms that are statically zero and folds a flat gap row into a scalar,
 // which rounds exactly like the lookup and the sum in the same order.
 //
-// Layout of the stored pair (counts_fwd_kernel, counts_bwd_kernel): as the
-// block per 32 lanes kernels (common.cuh), one block owns L consecutive
-// lanes (threadIdx.x) and all Wp band rows (8 row threads of RPT rows
-// each) of one trial (blockIdx.y): the TPU's sequential trials grid axis
-// runs side by side here.  The block walks the diagonals itself; a
-// frontier crosses shared memory once per diagonal, mixed before the row
-// shift, with one barrier per diagonal (two on a rescale).  The TPU
-// backward's scratch delay lines of emissions and s1 are gone: each thread
-// computes the emissions of its own cell and publishes e * b, and s1 is
-// read at d directly.  The model (T, Ematch, Egap of the block's trial)
-// sits in shared memory.
-//
-// The checkpoint pair and the generic pair take the warp per lane layout:
-// one warp per lane (and trial), band row k on thread k (Wp <= 32), the
-// row shifts as warp shuffles, tiles of 8 diagonals staged with cp.async,
-// so a diagonal needs no block barrier (counts_bwd_ckpt_kernel,
-// counts_fwd_ckpt_kernel, generic_bwd_kernel).  Every kernel takes its
-// recursions from mix_to, fwd_recur and bwd_recur; the warp-per-lane
-// forwards (the checkpoint forward, its MATCH mode and the checkpoint
-// backward's recompute) are one source (warp_fwd_cell, warp_rescale,
-// warp_mixes).
+// Every kernel takes the warp per lane layout: one warp per lane (and
+// trial, blockIdx.y), band row k on thread k (Wp <= 32), the row shifts as
+// warp shuffles, tiles of 8 diagonals staged with cp.async, so no kernel
+// takes a block barrier per diagonal.  Four kernels serve the ten entry
+// points:
+//   counts_fwd_ckpt_kernel<MULTI, LPB, OUT>: the forward; its output mode
+//     OUT picks the checkpoints (counts_fwd_ckpt), F_match (fb_generic_fwd)
+//     or f_all (counts_fwd_all), each gathered in a per-warp record and
+//     written out as lane-contiguous rows once a tile;
+//   counts_bwd_ckpt_kernel<MULTI>: the checkpoint backward, 4 lanes a
+//     block, the recompute and the counts in shared memory;
+//   generic_bwd_kernel<LPB>: the generic backward, F_match tiles in a
+//     3-buffer ring, each posterior written over its F_match value;
+//   counts_stored_bwd_kernel<MULTI, LPB>: the stored backward, f_all tiles
+//     in a 2-buffer ring, each posterior written over its f_M value, the
+//     transition partials in registers and the gap counts in per-thread
+//     bins.
+// LPB, the lanes a block (8 or 16), is mk::warp_lanes'.  The recursions
+// are one source (mix_to, fwd_recur, bwd_recur; warp_fwd_cell,
+// warp_rescale, warp_mixes for the forwards and the checkpoint backward's
+// recompute; warp_bwd_q for the backwards).
 //
 // Arithmetic: the plain versions' (ops/fb_counts_cuda.py) operation for
 // operation, built without multiply-add contraction (-fmad=false), so
 // f_all, lsf, the terminal sums, the checkpoints, F_match and the
 // posterior band round identically.  The count partials are summed per
-// thread over its rows and diagonals and over the rows once at the end;
-// that order differs from the plain versions' (rows first, then
-// diagonals), and the checkpoint backward adds its transition partials
-// with fused multiply-adds, so the counts agree to float32 summation error.
+// thread over the diagonals and over the rows once at the end, with fused
+// multiply-adds for the transition partials; that order differs from the
+// plain versions' (rows first, then diagonals), so the counts agree to
+// float32 summation error.
 //
 // What bounds them on an H100: counts_fwd_all writes 20 B per cell and
 // counts_bwd reads 20 B and writes 4 B, so a full card would be memory
@@ -91,77 +90,34 @@
 // does a forward again, the backward and the counts (~225 operations per
 // cell) and is operation bound.  The generic pair moves 7 B per cell forward
 // (codes in, F_match out) and 11 B backward (F_match and codes in,
-// posterior out).  At the EM batches (8192 lanes, 3 trials) the chain of
-// dependent diagonals bounds the template kernels first: a barrier each,
-// and 8 warps per SM.  The warp-per-lane kernels issue ~110-140
-// instructions a warp and diagonal, so where lanes are many they are
-// bound by instruction issue and where they are few by each warp's serial
-// chain of diagonals: on an H100 80GB HBM3 at 700 W (kernel_ab.py's
-// counts group) the generic pair takes 0.97 / 1.25 ms at [3072, 24, 1024]
-// (one block of 8 warps an SM, ~550 cycles a diagonal), 5.7x / 4.9x its
-// byte bounds, and 0.96 / 1.23 ms at [128, 24, 32768], 4.3x / 3.6x.
-// counts_bwd_ckpt_kernel keeps each diagonal inside a warp (no barrier),
-// bins the emission counts by code, and sizes a block at 128 threads:
-// ptxas gives it 127 registers (128 with MULTI), no spills and no stack,
-// with 45,472 B of shared memory a block at Wp 24 (four blocks, 16 warps,
-// per SM; three at Wp 32).  There the recomputed forward takes ~40% of
-// its time and 8 of a warp's 32 rows idle.
+// posterior out).  The warp-per-lane kernels issue ~110-140 instructions a
+// warp and diagonal (the stored backward more, with its counts), so where
+// lanes are many they are bound by instruction issue and where they are
+// few by each warp's serial chain of diagonals: on an H100 80GB HBM3 at
+// 700 W (kernel_ab.py's counts group) the generic pair takes 0.97 / 1.25
+// ms at [3072, 24, 1024] (one block of 8 warps an SM, ~550 cycles a
+// diagonal), 5.7x / 4.9x its byte bounds, and 0.96 / 1.23 ms at
+// [128, 24, 32768], 4.3x / 3.6x; the stored pair 3.78 / 5.80 ms at the EM
+// batch [3, 512, 24, 8192] (one block of 16 warps an SM), 2.0x / 2.5x its
+// byte bounds, the forward's flush of f_all a quarter of its time.  counts_bwd_ckpt_kernel keeps each
+// diagonal inside a warp (no barrier), bins the emission counts by code,
+// and sizes a block at 128 threads: ptxas gives it 127 registers (128 with
+// MULTI), no spills and no stack, with 45,472 B of shared memory a block
+// at Wp 24 (four blocks, 16 warps, per SM; three at Wp 32).  There the
+// recomputed forward takes ~40% of its time and 8 of a warp's 32 rows
+// idle.
 #include "common.cuh"
 
 namespace {
 
 constexpr int NS = 5;
-constexpr int ROW_THREADS = 8;   // threadIdx.y extent at most: Wp <= 8 * RPT
-constexpr int MAX_THREADS = 256;
-constexpr int TAB = 80;          // T, Ematch, Egap (75 floats), padded
-constexpr int K = 8;             // diagonals per rescale period / block
-
-// The counts pairs: stored (all five planes of f) and checkpoint.
-enum Mode { MODE_STORED = 0, MODE_CKPT = 1 };
-
-struct Dims {
-  int L, TY, lane, ty, b, t, Wp, B, plane;
-  bool live;
-};
-
-__device__ __forceinline__ Dims dims(int Wp, int B) {
-  Dims g;
-  g.L = blockDim.x;
-  g.TY = blockDim.y;
-  g.lane = threadIdx.x;
-  g.ty = threadIdx.y;
-  g.b = blockIdx.x * g.L + g.lane;
-  g.t = blockIdx.y;
-  g.Wp = Wp;
-  g.B = B;
-  g.plane = Wp * g.L;
-  g.live = g.b < B;
-  return g;
-}
-
-// tab[0:25] = T, tab[25:50] = Ematch, tab[50:75] = Egap of trial t.
-__device__ __forceinline__ void load_tables(float* tab, const float* T,
-                                            const float* Em, const float* Eg,
-                                            const Dims& g) {
-  for (int i = g.ty * g.L + g.lane; i < 75; i += g.TY * g.L) {
-    const float* src = i < 25 ? T : (i < 50 ? Em : Eg);
-    tab[i] = src[g.t * 25 + i % 25];
-  }
-}
-
-// Ematch[x][y] / Egap[s][c]; 0 for a code outside 0..4 (the TPU kernels'
-// one-hot sums).
-__device__ __forceinline__ float e_match(const float* tab, int x, int y) {
-  return (x >= 0 && x < 5 && y >= 0 && y < 5) ? tab[25 + x * 5 + y] : 0.f;
-}
-__device__ __forceinline__ float e_gap(const float* tab, int s, int c) {
-  return (c >= 0 && c < 5) ? tab[50 + s * 5 + c] : 0.f;
-}
+constexpr int K = 8;             // diagonals per rescale period / tile
+constexpr int MAX_WP = 32;       // band rows: one a thread of a warp
 
 // The recursions, one source for every kernel of this file: the mix
 // sum_s f[s] * T[s][t] of a forward frontier, a forward cell from its
 // emissions e and shifted mixes m, and a backward cell from the shifted
-// e * b values q (tab: T first, in shared memory or registers).
+// e * b values q (tab: T, in registers).
 template <typename Tab>
 __device__ __forceinline__ float mix_to(const float (&f)[5], const Tab& tab,
                                         int t) {
@@ -191,376 +147,8 @@ __device__ __forceinline__ void bwd_recur(const float (&q)[5], const Tab& tab,
   }
 }
 
-// Per-lane rescale of a frontier by its band max (all threads of the block
-// must call it); returns the factor c, the frontier is multiplied by 1 / c.
-template <int RPT>
-__device__ __forceinline__ float rescale(float (&v)[RPT][5], float* shR,
-                                         const Dims& g) {
-  const float m = mk::band_max<RPT>(v, shR, g.Wp, g.L, g.lane, g.ty, g.TY);
-  const float c = m > 0.f ? m : 1.f;
-  const float inv = 1.f / c;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int s = 0; s < NS; ++s) v[r][s] *= inv;
-  return c;
-}
-
-// Mixes of the forward frontier f at diagonal d: sum_s f[s] * T[s][t], the
-// match target (t = 0) into fM[(d + 2) % 3] for diagonal d + 2 and, with
-// GAPS, the gap targets into fG[(d + 1) & 1] for diagonal d + 1.
-template <int RPT, bool GAPS>
-__device__ __forceinline__ void publish_mixes(const float (&f)[RPT][5],
-                                              const float* tab, float* fG,
-                                              float* fM, int d,
-                                              const Dims& g) {
-  const int gout = ((d + 1) & 1) * 4 * g.plane;
-  const int mout = ((d + 2) % 3) * g.plane;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int k = g.ty + r * g.TY;
-    if (k >= g.Wp) continue;
-    const int i = k * g.L + g.lane;
-#pragma unroll
-    for (int t = 0; t < (GAPS ? NS : 1); ++t) {
-      const float acc = mix_to(f[r], tab, t);
-      if (t == 0)
-        fM[mout + i] = acc;
-      else
-        fG[gout + (t - 1) * g.plane + i] = acc;
-    }
-  }
-}
-
-// One forward diagonal d (d >= 1 on single-problem lanes): f becomes the
-// unscaled frontier of d.  t1 = s1[d], t2 = s1[d] + s1[d-1]; cprev divides
-// the match mix on the diagonal after a rescale.  MULTI: a problem starts
-// at d when `seed`, and the start distribution (1/5 in every state) is
-// added at its row 0.
-template <int RPT, bool MULTI = false>
-__device__ __forceinline__ void fwd_cells(
-    float (&f)[RPT][5], const float* tab,
-    const float* fG, const float* fM, const int8_t* __restrict__ xb,
-    const int8_t* __restrict__ yb, const uint8_t* __restrict__ valid, int d,
-    int t1, int t2, float cprev, bool seed, const Dims& g) {
-  const int gin = (d & 1) * 4 * g.plane, min_ = (d % 3) * g.plane;
-  const bool divide = d % K == 0;
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int k = g.ty + r * g.TY;
-    if (k >= g.Wp) continue;
-    int x = 0, y = 0;
-    float v = 0.f;
-    if (g.live) {
-      const size_t c = mk::cell(d, k, g.b, g.Wp, g.B);
-      x = xb[c];
-      y = yb[c];
-      v = (float)valid[c];
-    }
-    float mm = fM[min_ + mk::wrap(k + t2 - 1, g.Wp) * g.L + g.lane];
-    if (divide) mm = mm / cprev;
-    const int kx = gin + mk::wrap(k + t1, g.Wp) * g.L + g.lane;
-    const int ky = gin + mk::wrap(k + t1 - 1, g.Wp) * g.L + g.lane;
-    const float e[5] = {e_match(tab, x, y), e_gap(tab, 1, x),
-                        e_gap(tab, 2, y), e_gap(tab, 3, x),
-                        e_gap(tab, 4, y)};
-    const float m[5] = {mm, fG[kx], fG[g.plane + ky], fG[2 * g.plane + kx],
-                        fG[3 * g.plane + ky]};
-    fwd_recur(e, m, v, f[r]);
-    if constexpr (MULTI) {
-      const float inj = (seed && k == 0) ? 0.2f : 0.f;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) f[r][s] = f[r][s] + inj;
-    }
-  }
-}
-
-// The uniform start distribution (1/5 at row 0) as the frontier of d = 0.
-template <int RPT>
-__device__ __forceinline__ void start_frontier(float (&f)[RPT][5],
-                                               const Dims& g) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int k = g.ty + r * g.TY;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) f[r][s] = k == 0 ? 0.2f : 0.f;
-  }
-}
-
 __device__ __forceinline__ float sum5(const float (&v)[5]) {
   return (((v[0] + v[1]) + v[2]) + v[3]) + v[4];
-}
-
-// band: f_all [ntr][d1k][5][Wp][B].  fink is [B] (the lane's terminal
-// row), or with MULTI [d1k][B] (the terminal row of the problem ending at
-// d, else -1); start [d1k][B] (MULTI only) marks each problem's first
-// diagonal.  The checkpoint forward and the generic forward have a kernel
-// of their own (counts_fwd_ckpt_kernel).
-template <int RPT, bool MULTI>
-__global__ void __launch_bounds__(MAX_THREADS)
-    counts_fwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
-                      const float* __restrict__ Eg,
-                      const int8_t* __restrict__ xb,
-                      const int8_t* __restrict__ yb,
-                      const uint8_t* __restrict__ valid,
-                      const int32_t* __restrict__ s1,
-                      const int8_t* __restrict__ start,
-                      const int32_t* __restrict__ fink, int d1k, int Wp,
-                      int B, float* __restrict__ band,
-                      float* __restrict__ lsf, float* __restrict__ term) {
-  extern __shared__ float smem[];
-  const Dims g = dims(Wp, B);
-  float* fG = smem;                // [2][4][Wp][L] gap-target mixes of d-1
-  float* fM = fG + 8 * g.plane;    // [3][Wp][L] match mixes of d-2
-  float* shR = fM + 3 * g.plane;   // [Wp][L] row maxima
-  float* tab = shR + g.plane;      // the trial's model
-  for (int i = g.ty * g.L + g.lane; i < 11 * g.plane; i += g.TY * g.L)
-    smem[i] = 0.f;
-  load_tables(tab, T, Em, Eg, g);
-  int fk = g.live && !MULTI ? fink[g.b] : -1;
-  const size_t t0 = (size_t)g.t * d1k;  // the trial's first diagonal
-
-  float f[RPT][5];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-#pragma unroll
-    for (int s = 0; s < NS; ++s) f[r][s] = 0.f;
-  float ls = 0.f, cprev = 1.f;
-  int sprev = 0, d0 = 0;
-  if constexpr (!MULTI) {
-    start_frontier<RPT>(f, g);
-    __syncthreads();
-    // d = 0 is pure initialisation.
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = g.ty + r * g.TY;
-      if (k >= Wp || !g.live) continue;
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        band[((t0 * NS + s) * Wp + k) * B + g.b] = f[r][s];
-      if (k == fk) term[t0 * B + g.b] = sum5(f[r]);
-    }
-    if (g.live && g.ty == 0) lsf[t0 * B + g.b] = 0.f;
-    publish_mixes<RPT, true>(f, tab, fG, fM, 0, g);
-    sprev = g.live ? s1[g.b] : 0;
-    d0 = 1;
-  }
-  // MULTI: every diagonal, d = 0 included, runs the recursion from the
-  // zero frontier; the start distribution enters at each problem's first
-  // diagonal (the spacers before it leave the frontier zero).
-  __syncthreads();
-
-  for (int d = d0; d < d1k; ++d) {
-    const int t1 = g.live ? s1[(size_t)d * B + g.b] : 0;
-    const int t2 = t1 + sprev;
-    sprev = t1;
-    bool seed = false;
-    if constexpr (MULTI) {
-      fk = g.live ? fink[(size_t)d * B + g.b] : -1;
-      seed = g.live && start[(size_t)d * B + g.b] != 0;
-    }
-    fwd_cells<RPT, MULTI>(f, tab, fG, fM, xb, yb, valid, d, t1, t2, cprev,
-                          seed, g);
-    float tv = 0.f;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      if (g.ty + r * g.TY == fk) tv = sum5(f[r]);
-    if (d % K == K - 1) {
-      const float c = rescale<RPT>(f, shR, g);
-      tv = tv * (1.f / c);
-      ls += logf(c);
-      cprev = c;
-    }
-    if (g.live) {
-      const size_t tdb = (t0 + d) * B + g.b;
-      if (g.ty == 0) lsf[tdb] = ls;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int k = g.ty + r * g.TY;
-        if (k >= Wp) continue;
-        if (k == fk) term[tdb] = tv;
-#pragma unroll
-        for (int s = 0; s < NS; ++s)
-          band[(((t0 + d) * NS + s) * Wp + k) * B + g.b] = f[r][s];
-      }
-    }
-    publish_mixes<RPT, true>(f, tab, fG, fM, d, g);
-    __syncthreads();
-  }
-}
-
-// Per-thread count partials -> per-lane sums over the row threads (in
-// row-thread order), written to out[t][j][b].
-template <int N>
-__device__ __forceinline__ void reduce_rows(const float (&acc)[N], float* shR,
-                                            float* __restrict__ out,
-                                            const Dims& g) {
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    __syncthreads();
-    shR[g.ty * g.L + g.lane] = acc[j];
-    __syncthreads();
-    if (g.ty == 0 && g.live) {
-      float s = shR[g.lane];
-      for (int i = 1; i < g.TY; ++i) s += shR[i * g.L + g.lane];
-      out[((size_t)g.t * N + j) * g.B + g.b] = s;
-    }
-  }
-}
-
-// band: the stored forward's f_all (counts_fwd_kernel); post and the count
-// partials are written.  Single-problem lanes: fink, find [B] and logZ
-// [ntr][B].
-// MULTI: fink, find [d1k][B] (a problem's terminal row and diagonal at its
-// terminal diagonal, else -1), logZ the per-diagonal log-likelihood L
-// [ntr][d1k][B] of the problem owning the diagonal, and start [d1k][B]: the
-// backward injects at every terminal cell and restarts its log-scale there,
-// and each problem's first diagonal emits nothing.
-template <int RPT, bool MULTI>
-__global__ void __launch_bounds__(MAX_THREADS)
-    counts_bwd_kernel(const float* __restrict__ T, const float* __restrict__ Em,
-                      const float* __restrict__ Eg,
-                      const float* __restrict__ band,
-                      const float* __restrict__ lsf,
-                      const int8_t* __restrict__ xb,
-                      const int8_t* __restrict__ yb,
-                      const uint8_t* __restrict__ valid,
-                      const int32_t* __restrict__ s1,
-                      const int8_t* __restrict__ start,
-                      const int32_t* __restrict__ fink,
-                      const int32_t* __restrict__ find,
-                      const float* __restrict__ logZ, int d1k, int Wp, int B,
-                      float* __restrict__ post, float* __restrict__ tcp,
-                      float* __restrict__ egp) {
-  extern __shared__ float smem[];
-  const Dims g = dims(Wp, B);
-  const int plane = g.plane;
-  float* shG = smem;               // [2][4][Wp][L] e_s * b_s of d+1
-  float* shP = shG + 8 * plane;    // [3][Wp][L] e_M * b_M of d+2
-  float* shR = shP + 3 * plane;    // [Wp][L] row maxima, reductions
-  float* tab = shR + plane;        // the trial's model
-  for (int i = g.ty * g.L + g.lane; i < 11 * plane; i += g.TY * g.L)
-    smem[i] = 0.f;
-  load_tables(tab, T, Em, Eg, g);
-  const int fk = g.live && !MULTI ? fink[g.b] : -1;
-  const int fd = g.live && !MULTI ? find[g.b] : -1;
-  const float lz0 = g.live && !MULTI ? logZ[(size_t)g.t * B + g.b] : 0.f;
-  float bls = 0.f, cprev = 1.f;
-  int sh1 = 0, sh2 = 0;  // s1 at d+1 and d+2
-  float tca[25], ega[20];
-#pragma unroll
-  for (int j = 0; j < 25; ++j) tca[j] = 0.f;
-#pragma unroll
-  for (int j = 0; j < 20; ++j) ega[j] = 0.f;
-  __syncthreads();
-
-  for (int d = d1k - 1; d >= 0; --d) {
-    const int s1n = sh1, s2n = sh1 + sh2;
-    const int gin = ((d + 1) & 1) * 4 * plane, gout = (d & 1) * 4 * plane;
-    const int pin = ((d + 2) % 3) * plane, pout = (d % 3) * plane;
-    const bool divide = d % K == K - 1;
-    // MULTI: the row of the terminal cell on d if a problem ends there,
-    // else -1 (single-problem lanes: the lane's terminal cell (fd, fk)).
-    int inj_row = -1;
-    if constexpr (MULTI) {
-      const size_t at = (size_t)d * B + g.b;
-      inj_row = g.live && find[at] == d ? fink[at] : -1;
-    }
-    float nb[RPT][5], q[RPT][5];
-    int xs[RPT], ys[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = g.ty + r * g.TY;
-      xs[r] = ys[r] = 0;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) nb[r][s] = q[r][s] = 0.f;
-      if (k >= Wp) continue;
-      float v = 0.f;
-      if (g.live) {
-        const size_t c = mk::cell(d, k, g.b, Wp, B);
-        xs[r] = xb[c];
-        ys[r] = yb[c];
-        v = (float)valid[c];
-      }
-      const int kx = gin + mk::wrap(k - s1n, Wp) * g.L + g.lane;
-      const int ky = gin + mk::wrap(k + 1 - s1n, Wp) * g.L + g.lane;
-      q[r][0] = shP[pin + mk::wrap(k + 1 - s2n, Wp) * g.L + g.lane];
-      if (divide) q[r][0] = q[r][0] / cprev;
-      q[r][1] = shG[kx];
-      q[r][2] = shG[plane + ky];
-      q[r][3] = shG[2 * plane + kx];
-      q[r][4] = shG[3 * plane + ky];
-      float inj;
-      if constexpr (MULTI)
-        inj = k == inj_row ? 1.f : 0.f;
-      else
-        inj = (d == fd && k == fk) ? 1.f : 0.f;
-      bwd_recur(q[r], tab, inj, v, nb[r]);
-    }
-    sh2 = sh1;
-    sh1 = g.live ? s1[(size_t)d * B + g.b] : 0;
-    // A problem's backward restarts its log-scale at its terminal cell
-    // (a terminal row is >= 0).
-    if (MULTI && inj_row >= 0) bls = 0.f;
-    float lz = lz0;
-    if constexpr (MULTI)
-      lz = g.live ? logZ[((size_t)g.t * d1k + d) * B + g.b] : 0.f;
-    const float lsd = g.live ? lsf[((size_t)g.t * d1k + d) * B + g.b] : 0.f;
-    float alpha0, alpha1;
-    if (d % K == 0) {
-      const float c = rescale<RPT>(nb, shR, g);
-      const float inv = 1.f / c;
-      bls += logf(c);
-      cprev = c;
-      alpha0 = expf(lsd + bls - lz);
-      alpha1 = alpha0 * inv;
-    } else {
-      alpha0 = expf(lsd + bls - lz);
-      alpha1 = alpha0;
-    }
-    bool bound = d == 0;  // no emission at a problem's first diagonal
-    if constexpr (MULTI) bound = g.live && start[(size_t)d * B + g.b] != 0;
-    const float a0n = alpha0 * (bound ? 0.f : 1.f);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = g.ty + r * g.TY;
-      if (k >= Wp) continue;
-      const int x = xs[r], y = ys[r];
-      float fv[5];
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        fv[s] = g.live
-                    ? band[((((size_t)g.t * d1k + d) * NS + s) * Wp + k) * B +
-                           g.b]
-                    : 0.f;
-      if (g.live)
-        post[(((size_t)g.t * d1k + d) * Wp + k) * B + g.b] =
-            (fv[0] * nb[r][0]) * alpha0;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        const float fa = fv[s] * alpha1;
-#pragma unroll
-        for (int u = 0; u < NS; ++u) tca[s * 5 + u] += fa * q[r][u];
-      }
-#pragma unroll
-      for (int s = 1; s < NS; ++s) {
-        const float gam = (fv[s] * nb[r][s]) * a0n;
-        const int code = (s & 1) ? x : y;  // states 1, 3: the ref base
-#pragma unroll
-        for (int c = 0; c < 5; ++c)
-          ega[(s - 1) * 5 + c] += code == c ? gam : 0.f;
-      }
-      const int i = k * g.L + g.lane;
-      shP[pout + i] = e_match(tab, x, y) * nb[r][0];
-      shG[gout + i] = e_gap(tab, 1, x) * nb[r][1];
-      shG[gout + plane + i] = e_gap(tab, 2, y) * nb[r][2];
-      shG[gout + 2 * plane + i] = e_gap(tab, 3, x) * nb[r][3];
-      shG[gout + 3 * plane + i] = e_gap(tab, 4, y) * nb[r][4];
-    }
-    __syncthreads();
-  }
-  reduce_rows<25>(tca, shR, tcp, g);
-  reduce_rows<20>(ega, shR, egp, g);
 }
 
 // ---------------------------------------------------------------------------
@@ -793,6 +381,25 @@ __device__ __forceinline__ void warp_mixes(const float (&f)[5],
   for (int u = 0; u < 4; ++u) mG[u] = mix_to(f, Tr, u + 1);
 }
 
+// The backward recursion's inputs q of band row k (thread k), by
+// shuffles: e_M * b_M of d+2 (p2) from row k + 1 - s2n, divided by cprev
+// on the diagonal before a rescale (`divide`), and e_s * b_s of d+1 (g1)
+// from rows k - s1n (states 1, 3) and k + 1 - s1n (2, 4).  Every backward
+// of this file takes them so, in bwd_recur's order.
+__device__ __forceinline__ void warp_bwd_q(float p2, const float (&g1)[4],
+                                           int k, int s1n, int s2n, int Wp,
+                                           bool divide, float cprev,
+                                           float (&q)[5]) {
+  const int ra = mk::wrap(k + 1 - s2n, Wp);
+  const int rb = mk::wrap(k - s1n, Wp), rc = mk::wrap(k + 1 - s1n, Wp);
+  q[0] = __shfl_sync(FULL, p2, ra);
+  if (divide) q[0] = q[0] / cprev;
+  q[1] = __shfl_sync(FULL, g1[0], rb);
+  q[2] = __shfl_sync(FULL, g1[1], rc);
+  q[3] = __shfl_sync(FULL, g1[2], rb);
+  q[4] = __shfl_sync(FULL, g1[3], rc);
+}
+
 template <bool MULTI>
 __global__ void __launch_bounds__(CK_THREADS)
     counts_bwd_ckpt_kernel(const float* __restrict__ T,
@@ -981,15 +588,8 @@ __global__ void __launch_bounds__(CK_THREADS)
       const uint32_t word = row ? S.cell[kb * plane + own] : CK_NO_CELL;
       const int xi = word & 0xff, yi = (word >> 8) & 0xff;
       const float v = (float)((word >> 16) & 0xff);
-      const int ra = mk::wrap(k + 1 - s2n, Wp);
-      const int rb = mk::wrap(k - s1n, Wp), rc = mk::wrap(k + 1 - s1n, Wp);
       float q[5], nb[5];
-      q[0] = __shfl_sync(FULL, p2, ra);
-      if (kb == K - 1) q[0] = q[0] / cprev;
-      q[1] = __shfl_sync(FULL, g1[0], rb);
-      q[2] = __shfl_sync(FULL, g1[1], rc);
-      q[3] = __shfl_sync(FULL, g1[2], rb);
-      q[4] = __shfl_sync(FULL, g1[3], rc);
+      warp_bwd_q(p2, g1, k, s1n, s2n, Wp, kb == K - 1, cprev, q);
       float inj;
       int inj_row = -1;
       if constexpr (MULTI) {
@@ -1094,12 +694,21 @@ __global__ void __launch_bounds__(CK_THREADS)
 // a rescale falls on its first row and the rescale on its last, and a
 // whole tile runs unrolled.  Arithmetic in the template forward's order
 // (-fmad=false, no fused multiply-add), so it equals the plain version bit
-// for bit.  MATCH makes the same kernel the generic forward
-// (fb_generic_fwd, one trial): a warp's record holds the tile's scaled
-// match plane in place of the checkpoint, and no cs leaves.  There a
-// store of F_match from each row's thread in place of the record costs
-// +22-72%, plain copies in place of cp.async +59-119% (kernel_ab.py's
-// probe_generic group).
+// for bit.  Its output mode OUT makes the same kernel the generic forward
+// (CF_MATCH: fb_generic_fwd, one trial; a warp's record holds the tile's
+// scaled match plane in place of the checkpoint, and no cs leaves) and
+// the stored forward (CF_ALL: counts_fwd_all, counts_multi_fwd_all; the
+// record holds the tile's five scaled planes, whose f_all rows are
+// contiguous, so they leave as the match plane does).  For the generic
+// forward a store of F_match from each row's thread in place of the record
+// costs +22-72%, plain copies in place of cp.async +59-119% (kernel_ab.py's
+// probe_generic group).  CF_ALL's flush of 5 K Wp rows a lane and tile
+// takes a quarter of its time on the EM batch [3, 512, 24, 8192] (3.79 ms,
+// 2.89 without it after the first tiles; at Wp 32 6.20 and 3.43): every
+// block flushes right after its barrier.  8-lane blocks, two an SM at 128
+// registers, ran slower (4.15 ms; kernel_ab.py's probe_stored group), and
+// so did the rows written a share after each diagonal of the next tile or
+// as 16-byte stores of four lanes (PERF.md).
 //
 // What bounds it on an H100 80GB HBM3 at a 700 W power limit
 // (kernel_ab.py's probe_counts group, the EM batch [3, 512, 24, 8192]:
@@ -1112,8 +721,8 @@ __global__ void __launch_bounds__(CK_THREADS)
 // of 16 warps an SM; 8 lanes at <= 80 registers (24 warps) ran no faster,
 // the 64-register cap spills, a rolled tile loop is 35% slower, plain
 // copies in place of cp.async 62% slower.  8 of a warp's 32 threads idle
-// at Wp 24, 24 at Wp 8, where the template's block of 4 row threads runs
-// twice as fast.
+// at Wp 24, 24 at Wp 8, where a block of 4 row threads per 32 lanes (one
+// barrier a diagonal) ran twice as fast.
 // A trial's emissions in shared memory: Ematch as em6[x * 6 + y], then
 // the gap emissions in pairs by code, (Egap[1][c], Egap[3][c]) and
 // (Egap[2][c], Egap[4][c]), so a cell's four take two 8-byte loads; zero
@@ -1121,16 +730,32 @@ __global__ void __launch_bounds__(CK_THREADS)
 constexpr int CF_NTAB = 64;  // 36 + 12 + 12 floats, padded
 constexpr int CF_EG = 36;    // the first pair
 
-// Floats of a warp's output record: the checkpoint [2 NS][Wp], term [K],
-// lsf [K], cs [4] and one more; with MATCH (the generic forward) the tile's
-// scaled match plane F_match [K][Wp] (row kb * Wp + k), term [K], lsf [K]
-// and one more.  The stride is odd: the flush reads LPB lanes' records at
-// one offset without bank conflicts.
-__host__ __device__ inline int cf_lead(int Wp, bool match) {
-  return match ? K * Wp : 2 * NS * Wp;
+// The checkpoint forward's outputs (its OUT): the checkpoints, the scaled
+// match plane F_match (the generic forward) or all five scaled planes
+// f_all (the stored forward).
+enum CfOut { CF_CKPT = 0, CF_MATCH = 1, CF_ALL = 2 };
+
+// Floats from `n` up, as a lane's stride in a block's shared records whose
+// rows the block copies LPB lanes at a time (32 / LPB rows a warp): lane w's
+// row r at w * stride + r hits bank (w * stride + r) % 32, all 32 of them
+// where stride % 32 == 32 / LPB.
+__host__ __device__ constexpr int lane_stride(int n, int lpb) {
+  return n + ((32 / lpb - n % 32) % 32 + 32) % 32;
 }
-__host__ __device__ inline int cf_rec(int Wp, bool match) {
-  return cf_lead(Wp, match) + (match ? 2 * K + 1 : 2 * K + 5);
+
+// Floats of a warp's output record: CF_CKPT the checkpoint [2 NS][Wp], term
+// [K], lsf [K], cs [4] and one more; CF_MATCH the tile's scaled match plane
+// F_match [K][Wp] (row kb * Wp + k), term [K], lsf [K] and one more (odd
+// strides: the flush reads LPB lanes' records at one offset without bank
+// conflicts); CF_ALL the tile's f_all rows [K][NS][Wp] (row (kb NS + s)
+// Wp + k), term [K] and lsf [K] at a lane_stride.
+__host__ __device__ inline int cf_lead(int Wp, int out) {
+  return out == CF_CKPT ? 2 * NS * Wp : (out == CF_MATCH ? 1 : NS) * K * Wp;
+}
+__host__ __device__ inline int cf_rec(int Wp, int out, int lpb) {
+  return out == CF_ALL ? lane_stride(cf_lead(Wp, out) + 2 * K, lpb)
+                       : cf_lead(Wp, out) + (out == CF_MATCH ? 2 * K + 1
+                                                             : 2 * K + 5);
 }
 // A stage buffer: the xb, yb and valid tiles [K Wp][byte_stride(LPB)], the
 // start tile [K][byte_stride(LPB)] (MULTI), then s1 and fink [LPB][K] (a
@@ -1143,13 +768,13 @@ __host__ __device__ inline size_t cf_in_bytes(int Wp, int lpb) {
                    K * mk::byte_stride(lpb) + 2 * K * lpb * sizeof(int);
   return (n + 15) / 16 * 16;
 }
-__host__ __device__ inline size_t cf_out_bytes(int Wp, int lpb, bool match) {
-  return ((size_t)lpb * cf_rec(Wp, match) * sizeof(float) + 15) / 16 * 16;
+__host__ __device__ inline size_t cf_out_bytes(int Wp, int lpb, int out) {
+  return ((size_t)lpb * cf_rec(Wp, out, lpb) * sizeof(float) + 15) / 16 * 16;
 }
 // The trial's tables, two stage buffers and two output tiles.
-inline size_t cf_smem(int Wp, int lpb, bool match) {
+inline size_t cf_smem(int Wp, int lpb, int out) {
   return CF_NTAB * sizeof(float) +
-         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb, match));
+         2 * (cf_in_bytes(Wp, lpb) + cf_out_bytes(Wp, lpb, out));
 }
 
 struct CfIn {
@@ -1193,9 +818,11 @@ __device__ __forceinline__ void cf_stage(
 
 // Writes output tile O (checkpoint block g) of the block's lanes of
 // trial t: thread tid moves lane tid % LPB, so LPB threads write LPB
-// consecutive lanes of a row.  MATCH: `ckpt` is F_match [d1k][Wp][B] (one
-// trial), whose rows of tile g are the record's leading K Wp floats.
-template <int LPB, bool MATCH>
+// consecutive lanes of a row.  CF_MATCH: `ckpt` is F_match [d1k][Wp][B]
+// (one trial), whose rows of tile g are the record's leading K Wp floats;
+// CF_ALL: `ckpt` is f_all [ntr][d1k][NS][Wp][B], whose rows of tile g are
+// the record's leading K NS Wp floats.
+template <int LPB, int OUT>
 __device__ __forceinline__ void cf_flush(const float* O, int g, int G,
                                          int d1k, int t, int b0, int Wp,
                                          int B, float* __restrict__ ckpt,
@@ -1205,15 +832,15 @@ __device__ __forceinline__ void cf_flush(const float* O, int g, int G,
   const int w = threadIdx.x % LPB, b = b0 + w;
   if (b >= B) return;
   const int i0 = threadIdx.x / LPB;  // 0 .. 31
-  const int nck = cf_lead(Wp, MATCH);
-  const float* o = O + w * cf_rec(Wp, MATCH);
+  const int nck = cf_lead(Wp, OUT);
+  const float* o = O + w * cf_rec(Wp, OUT, LPB);
   float* ck = ckpt + ((size_t)t * G + g) * nck * B + b;
   for (int r = i0; r < nck; r += 32) ck[(size_t)r * B] = o[r];
   if (i0 < K) {
     const size_t at = ((size_t)t * d1k + g * K + i0) * B + b;
     term[at] = o[nck + i0];
     lsf[at] = o[nck + K + i0];
-    if (!MATCH && i0 < 4)
+    if (OUT == CF_CKPT && i0 < 4)
       cs[(((size_t)t * G + g) * 4 + i0) * B + b] = o[nck + 2 * K + i0];
   }
 }
@@ -1223,9 +850,10 @@ __device__ __forceinline__ int word_of(const int4& v, int i) {
   return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
 }
 
-// The forward of one lane and trial, band row k on thread k; MATCH keeps
-// the scaled match plane of every diagonal in place of the checkpoint.
-template <bool MULTI, int LPB, bool MATCH>
+// The forward of one lane and trial, band row k on thread k; CF_MATCH
+// keeps the scaled match plane of every diagonal in place of the
+// checkpoint, CF_ALL all five scaled planes.
+template <bool MULTI, int LPB, int OUT>
 struct CfWarp {
   float Tr[25];
   const float* em6;
@@ -1254,7 +882,7 @@ struct CfWarp {
   __device__ void tile(const CfIn& S, float* o, int g, int w) {
     constexpr int BS = mk::byte_stride(LPB);
     const int cell = (row ? k : 0) * BS + w, step = Wp * BS;
-    const int lead = cf_lead(Wp, MATCH);
+    const int lead = cf_lead(Wp, OUT);
     float* o_term = o + lead;
     // A diagonal without its problem's terminal cell in the band keeps
     // term 0.
@@ -1284,8 +912,8 @@ struct CfWarp {
         sprev = t1;
         const float2 gx = eg13[xi], gy = eg24[yi];
         const float e[5] = {em6[xi * 6 + yi], gx.x, gy.x, gx.y, gy.y};
-        if (!MATCH && kb == K - 1 && row) {  // the checkpoint's previous
-                                             // frontier
+        if (OUT == CF_CKPT && kb == K - 1 && row) {  // the checkpoint's
+                                                     // previous frontier
 #pragma unroll
           for (int s = 0; s < NS; ++s) o[(NS + s) * Wp + k] = f[s];
         }
@@ -1301,15 +929,19 @@ struct CfWarp {
       }
       const int fkd = MULTI ? word_of(fkv[kb / 4], kb % 4) : fk;
       if (row && k == fkd) o_term[kb] = tv;
-      if (MATCH && row) o[kb * Wp + k] = f[0];
+      if (OUT == CF_MATCH && row) o[kb * Wp + k] = f[0];
+      if (OUT == CF_ALL && row) {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) o[(kb * NS + s) * Wp + k] = f[s];
+      }
       warp_mixes(f, Tr, mM1, mM2, mG);
     }
-    if (!MATCH && row) {
+    if (OUT == CF_CKPT && row) {
 #pragma unroll
       for (int s = 0; s < NS; ++s) o[s * Wp + k] = f[s];
     }
     if (k < K) o[lead + K + k] = k == K - 1 ? ls : lsA;
-    if (!MATCH && k < 4)
+    if (OUT == CF_CKPT && k < 4)
       o[lead + 2 * K + k] =
           k == 0 ? ls : (k == 1 ? cprev : (k == 2 ? (float)sprev : 0.f));
   }
@@ -1335,7 +967,7 @@ __device__ __forceinline__ void cf_tables(float* tab,
   }
 }
 
-template <bool MULTI, int LPB, bool MATCH>
+template <bool MULTI, int LPB, int OUT>
 __global__ void __launch_bounds__(32 * LPB)
     counts_fwd_ckpt_kernel(const float* __restrict__ T,
                            const float* __restrict__ Em,
@@ -1353,7 +985,7 @@ __global__ void __launch_bounds__(32 * LPB)
   float* tab = cf_raw;  // [CF_NTAB]
   uint8_t* buf = reinterpret_cast<uint8_t*>(cf_raw + CF_NTAB);
   const size_t nin = cf_in_bytes(Wp, LPB),
-               nout = cf_out_bytes(Wp, LPB, MATCH);
+               nout = cf_out_bytes(Wp, LPB, OUT);
   // Stage buffer and output tile of tile g (by parity).
   auto in = [&](int g) { return cf_in(buf + (g & 1) * nin, Wp, LPB); };
   auto out = [&](int g) {
@@ -1369,7 +1001,7 @@ __global__ void __launch_bounds__(32 * LPB)
   cf_tables(tab, Em, Eg, t);
   cf_stage<MULTI, LPB>(in(0), 0, b0, Wp, B, vec, xb, yb, valid, s1, start,
                        fink);
-  CfWarp<MULTI, LPB, MATCH> lane(T, tab, t, Wp,
+  CfWarp<MULTI, LPB, OUT> lane(T, tab, t, Wp,
                                  live && !MULTI ? fink[b] : -1, live);
   for (int g = 0; g < G; ++g) {
     // Tile g has landed (this thread's copies, then everyone's; the first
@@ -1378,16 +1010,16 @@ __global__ void __launch_bounds__(32 * LPB)
     mk::cp_async_wait();
     __syncthreads();
     if (g > 0)
-      cf_flush<LPB, MATCH>(out(g - 1), g - 1, G, d1k, t, b0, Wp, B, ckpt,
-                           cs, lsf, term);
+      cf_flush<LPB, OUT>(out(g - 1), g - 1, G, d1k, t, b0, Wp, B, ckpt, cs,
+                         lsf, term);
     if (g + 1 < G)
       cf_stage<MULTI, LPB>(in(g + 1), (g + 1) * K, b0, Wp, B, vec, xb, yb,
                            valid, s1, start, fink);
-    if (live) lane.tile(in(g), out(g) + w * cf_rec(Wp, MATCH), g, w);
+    if (live) lane.tile(in(g), out(g) + w * cf_rec(Wp, OUT, LPB), g, w);
   }
   __syncthreads();
-  cf_flush<LPB, MATCH>(out(G - 1), G - 1, G, d1k, t, b0, Wp, B, ckpt, cs,
-                       lsf, term);
+  cf_flush<LPB, OUT>(out(G - 1), G - 1, G, d1k, t, b0, Wp, B, ckpt, cs, lsf,
+                     term);
 }
 
 // ---------------------------------------------------------------------------
@@ -1528,15 +1160,8 @@ struct GbWarp {
     const int yi = row && (unsigned)y < 5u ? y : 5;
     const float v = row ? (float)S.v[cell] : 0.f;
     const int s1n = sh1, s2n = sh1 + sh2;
-    const int ra = mk::wrap(k + 1 - s2n, Wp);
-    const int rb = mk::wrap(k - s1n, Wp), rc = mk::wrap(k + 1 - s1n, Wp);
     float q[5], nb[5];
-    q[0] = __shfl_sync(FULL, p2, ra);
-    if (kb == K - 1) q[0] = q[0] / cprev;
-    q[1] = __shfl_sync(FULL, g1[0], rb);
-    q[2] = __shfl_sync(FULL, g1[1], rc);
-    q[3] = __shfl_sync(FULL, g1[2], rb);
-    q[4] = __shfl_sync(FULL, g1[3], rc);
+    warp_bwd_q(p2, g1, k, s1n, s2n, Wp, kb == K - 1, cprev, q);
     bwd_recur(q, Tr, (d == fd && k == fk) ? 1.f : 0.f, v, nb);
     sh2 = sh1;
     sh1 = S.s1[w * K + kb];
@@ -1608,117 +1233,352 @@ __global__ void __launch_bounds__(32 * LPB)
   gb_flush<LPB>(buf(G - 1), 0, b0, Wp, B, post);
 }
 
-// Floats of dynamic shared memory of the wavefront template kernels: the
-// frontier's mixes or e * b values, the row maxima and the tables.
-size_t wave_smem(int Wp, int L) { return (size_t)12 * Wp * L + TAB; }
+// ---------------------------------------------------------------------------
+// The stored backward (counts_bwd, counts_multi_bwd) in the generic
+// backward's layout: one warp per lane and trial, band row k on thread k
+// (Wp <= 32), the checkpoint backward's recursion (bwd_recur through
+// shuffles, the rescale a warp max) without its recompute, so a diagonal
+// needs no block barrier.  A block holds LPB consecutive lanes of one trial
+// (mk::warp_lanes).  Tiles of K descending diagonals are staged by cp.async
+// one tile ahead into a ring of SB_RING buffers: the tile's f_all rows
+// [K][NS][Wp] per lane, its code bytes lanes-fastest (mk::stage_bytes), s1
+// and lsf per lane, and over multi-problem lanes the start bytes and fink,
+// find and L per lane.  Each posterior f_M * b_M * alpha0 is written over
+// the f_M value it is made from, and the tile's posterior rows leave from
+// there as lane-contiguous rows before the buffer is staged again: two
+// barriers per tile.  A thread keeps its row's 25 transition partials in
+// registers (fused multiply-adds) and its 16 gap-by-code counts in bins of
+// its own in shared memory, indexed code * 4 + state - 1 (code 5, outside
+// 0..4, counts nothing); the warp sums both over its rows once at the end.
+// Arithmetic of the posterior in the plain version's order (-fmad=false),
+// so it equals it bit for bit; the partials agree to float32 summation
+// error.  A ring of 3 buffers (one barrier a tile) does not fit 16 lanes
+// beside the bins (259 KB at Wp 24); at 8 lanes, one block of 8 warps an
+// SM, it is 33% slower on the EM batch [3, 512, 24, 8192] (5.80 ms);
+// copies without cp.async +48%; the counts take ~5% and the flush ~6%
+// (kernel_ab.py's probe_stored group).  Per-warp output tiles in place of
+// the f_M slots (one barrier a tile) ran slower too (PERF.md).
+constexpr int SB_RING = 2;  // tile buffers: computed and leaving, arriving
 
-// Lanes per block: 32, halved while the shared memory would not fit.
-template <typename F>
-int lanes_for(F floats) {
-  int L = mk::LANES;
-  while (L > 1 && floats(L) * sizeof(float) > 232448) L /= 2;
-  return L;
+// A ring buffer: the f_all (then posterior) rows [LPB][sb_stride] (lane
+// w's row (kb NS + s) Wp + k at w * stride + that), s1 and lsf [LPB][K],
+// with MULTI fink, find and L [LPB][K]; then the xb, yb and valid tiles
+// [K Wp][byte_stride(LPB)] and with MULTI the start tile
+// [K][byte_stride(LPB)].
+__host__ __device__ inline int sb_stride(int Wp, int lpb) {
+  return lane_stride(K * NS * Wp, lpb);
+}
+__host__ __device__ inline size_t sb_buf_bytes(int Wp, int lpb, bool multi) {
+  const size_t n =
+      (size_t)lpb * (sb_stride(Wp, lpb) + (multi ? 5 : 2) * K) *
+          sizeof(float) +
+      3 * (size_t)cf_plane(Wp, lpb) + (multi ? K * mk::byte_stride(lpb) : 0);
+  return (n + 15) / 16 * 16;
+}
+// The trial's emissions, the gap bins [N_EGB][LPB][Wp] and the ring.
+inline size_t sb_smem(int Wp, int lpb, bool multi) {
+  return (CF_NTAB + (size_t)N_EGB * lpb * Wp) * sizeof(float) +
+         SB_RING * sb_buf_bytes(Wp, lpb, multi);
 }
 
-template <int RPT, bool MULTI>
-cudaError_t run_fwd(const float* T, const float* Em, const float* Eg,
-                    const int8_t* xb, const int8_t* yb, const uint8_t* valid,
-                    const int32_t* s1, const int8_t* start,
-                    const int32_t* fink, int ntr, int d1k, int Wp, int B,
-                    float* band, float* lsf, float* term,
-                    cudaStream_t stream) {
-  const int L = lanes_for([&](int l) { return wave_smem(Wp, l); });
-  const size_t bytes = wave_smem(Wp, L) * sizeof(float);
-  cudaError_t err = mk::allow_smem(
-      (const void*)counts_fwd_kernel<RPT, MULTI>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
-  counts_fwd_kernel<RPT, MULTI><<<grid, block, bytes, stream>>>(
-      T, Em, Eg, xb, yb, valid, s1, start, fink, d1k, Wp, B, band, lsf,
-      term);
-  return cudaGetLastError();
+struct SbBuf {
+  float* fa;
+  int* s1;
+  float* lsf;
+  int* fk;
+  int* fd;
+  float* lz;
+  uint8_t* x;
+  uint8_t* y;
+  uint8_t* v;
+  uint8_t* st;
+};
+
+// The buffer at p (16-byte aligned).
+__device__ inline SbBuf sb_buf(uint8_t* p, int Wp, int lpb, bool multi) {
+  SbBuf S;
+  const int per = multi ? lpb * K : 0;
+  S.fa = reinterpret_cast<float*>(p);
+  S.s1 = reinterpret_cast<int*>(S.fa + lpb * sb_stride(Wp, lpb));
+  S.lsf = reinterpret_cast<float*>(S.s1 + lpb * K);
+  S.fk = reinterpret_cast<int*>(S.lsf + lpb * K);
+  S.fd = S.fk + per;
+  S.lz = reinterpret_cast<float*>(S.fd + per);
+  S.x = reinterpret_cast<uint8_t*>(S.lz + per);
+  const int pl = cf_plane(Wp, lpb);
+  S.y = S.x + pl;
+  S.v = S.x + 2 * pl;
+  S.st = S.x + 3 * pl;
+  return S;
 }
 
-template <int RPT, bool MULTI>
-cudaError_t run_bwd(const float* T, const float* Em, const float* Eg,
-                    const float* band, const float* lsf_cs, const int8_t* xb,
-                    const int8_t* yb, const uint8_t* valid, const int32_t* s1,
-                    const int8_t* start, const int32_t* fink,
-                    const int32_t* find, const float* logZ, int ntr, int d1k,
-                    int Wp, int B, float* post, float* tcp, float* egp,
-                    cudaStream_t stream) {
-  const int L = lanes_for([&](int l) { return wave_smem(Wp, l); });
-  const size_t bytes = wave_smem(Wp, L) * sizeof(float);
-  cudaError_t err = mk::allow_smem(
-      (const void*)counts_bwd_kernel<RPT, MULTI>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + L - 1) / L, ntr), block(L, (Wp + RPT - 1) / RPT);
-  counts_bwd_kernel<RPT, MULTI><<<grid, block, bytes, stream>>>(
-      T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ,
-      d1k, Wp, B, post, tcp, egp);
-  return cudaGetLastError();
+// Starts the copy of the tile of diagonals d0 .. d0 + K - 1 of the block's
+// lanes b0 .. b0 + LPB - 1 of trial t into buffer S (one group): thread
+// tid copies lane tid % LPB of f_all rows tid / LPB + 32 i.
+template <bool MULTI, int LPB>
+__device__ __forceinline__ void sb_stage(
+    const SbBuf& S, int t, int d0, int d1k, int b0, int Wp, int B, bool vec,
+    const float* __restrict__ f_all, const float* __restrict__ lsf,
+    const int8_t* __restrict__ xb, const int8_t* __restrict__ yb,
+    const uint8_t* __restrict__ valid, const int32_t* __restrict__ s1,
+    const int8_t* __restrict__ start, const int32_t* __restrict__ fink,
+    const int32_t* __restrict__ find, const float* __restrict__ L) {
+  const size_t r0 = (size_t)d0 * Wp;
+  mk::stage_bytes<LPB>(S.x, xb, r0, K * Wp, b0, B, vec);
+  mk::stage_bytes<LPB>(S.y, yb, r0, K * Wp, b0, B, vec);
+  mk::stage_bytes<LPB>(S.v, valid, r0, K * Wp, b0, B, vec);
+  if (MULTI) mk::stage_bytes<LPB>(S.st, start, d0, K, b0, B, vec);
+  const int w = threadIdx.x % LPB, b = b0 + w;
+  if (b < B) {
+    const size_t td = (size_t)t * d1k + d0;  // the trial's diagonal d0
+    const float* src = f_all + td * NS * Wp * B + b;
+    float* dst = S.fa + w * sb_stride(Wp, LPB);
+    for (int r = threadIdx.x / LPB; r < K * NS * Wp; r += 32)
+      mk::cp_async4(dst + r, src + (size_t)r * B);
+    const int kb = threadIdx.x / LPB;
+    if (kb < K) {
+      const size_t at = (size_t)(d0 + kb) * B + b, tat = (td + kb) * B + b;
+      mk::cp_async4(S.s1 + w * K + kb, s1 + at);
+      mk::cp_async4(S.lsf + w * K + kb, lsf + tat);
+      if (MULTI) {
+        mk::cp_async4(S.fk + w * K + kb, fink + at);
+        mk::cp_async4(S.fd + w * K + kb, find + at);
+        mk::cp_async4(S.lz + w * K + kb, L + tat);
+      }
+    }
+  }
+  mk::cp_async_commit();
 }
 
-template <bool MULTI>
-cudaError_t run_bwd_ckpt(const float* T, const float* Em, const float* Eg,
-                         const float* ckpt, const float* cs, const int8_t* xb,
-                         const int8_t* yb, const uint8_t* valid,
-                         const int32_t* s1, const int8_t* start,
-                         const int32_t* fink, const int32_t* find,
-                         const float* logZ, int ntr, int d1k, int Wp, int B,
-                         float* tcp, float* egp, float* mcp,
-                         cudaStream_t stream) {
-  const size_t bytes = ckpt_smem_floats(Wp) * sizeof(float);
-  cudaError_t err = mk::allow_smem(
-      (const void*)counts_bwd_ckpt_kernel<MULTI>, bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((B + CK_WARPS - 1) / CK_WARPS, ntr);
-  counts_bwd_ckpt_kernel<MULTI><<<grid, CK_THREADS, bytes, stream>>>(
-      T, Em, Eg, ckpt, cs, xb, yb, valid, s1, start, fink, find, logZ, d1k,
-      Wp, B, tcp, egp, mcp);
-  return cudaGetLastError();
+// Writes the posterior rows of buffer O (diagonals d0 .. d0 + K - 1 of
+// trial t): thread tid moves row tid / LPB of lane tid % LPB on each
+// diagonal, so LPB threads write LPB consecutive lanes of a row.
+template <int LPB>
+__device__ __forceinline__ void sb_flush(const SbBuf& O, int t, int d0,
+                                         int d1k, int b0, int Wp, int B,
+                                         float* __restrict__ post) {
+  const int w = threadIdx.x % LPB, b = b0 + w, k = threadIdx.x / LPB;
+  if (b >= B || k >= Wp) return;
+  float* dst = post + (((size_t)t * d1k + d0) * Wp + k) * B + b;
+  const float* src = O.fa + w * sb_stride(Wp, LPB) + k;
+#pragma unroll
+  for (int kb = 0; kb < K; ++kb) dst[(size_t)kb * Wp * B] = src[kb * NS * Wp];
 }
 
-// Band rows per thread: Wp / 8 rounded up, at least 2 (a thread of one
-// row spilled its 70 count accumulators to local memory).
-int rows_per_thread(int Wp) {
-  const int rpt = (Wp + ROW_THREADS - 1) / ROW_THREADS;
-  return rpt < 2 ? 2 : rpt;
+// The backward of one lane and trial, band row k on thread k, with its
+// count partials.
+template <bool MULTI, int LPB>
+struct SbWarp {
+  float Tr[25];
+  const float* em6;
+  const float2* eg13;  // by the reference code x: states 1, 3
+  const float2* eg24;  // by the read code y: states 2, 4
+  float* egb;          // this row's gap bins: bin j at egb[j * LPB * Wp]
+  int k, Wp, fk, fd;
+  bool row;
+  float lz0, bls = 0.f, cprev = 1.f;
+  int sh1 = 0, sh2 = 0;                // s1 at d+1 and d+2
+  float p1 = 0.f, p2 = 0.f;            // e_M * b_M of d+1, d+2
+  float g1[4] = {0.f, 0.f, 0.f, 0.f};  // e_s * b_s of d+1
+  float tca[25];                       // transition partials, s * 5 + u
+
+  __device__ SbWarp(const float* __restrict__ T, const float* tab,
+                    float* egb_, int t, int Wp_, int fk_, int fd_,
+                    float lz_, bool live)
+      : em6(tab), eg13(reinterpret_cast<const float2*>(tab + CF_EG)),
+        eg24(reinterpret_cast<const float2*>(tab + CF_EG + 12)),
+        egb(egb_), k(threadIdx.x & 31), Wp(Wp_), fk(fk_), fd(fd_),
+        row(k < Wp_), lz0(lz_) {
+#pragma unroll
+    for (int i = 0; i < 25; ++i) Tr[i] = live ? T[t * 25 + i] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 25; ++j) tca[j] = 0.f;
+    if (row) {
+#pragma unroll
+      for (int j = 0; j < N_EGB; ++j) egb[j * LPB * Wp] = 0.f;
+    }
+  }
+
+  // Tile g (diagonals K g + K - 1 down to K g) of lane w in buffer S.
+  __device__ void tile(const SbBuf& S, int g, int w) {
+#pragma unroll
+    for (int kb = K - 1; kb >= 0; --kb) step(S, g * K + kb, kb, w);
+  }
+
+  // Diagonal d, row kb of its tile.
+  __device__ void step(const SbBuf& S, int d, int kb, int w) {
+    constexpr int BS = mk::byte_stride(LPB);
+    const int cell = (row ? k : 0) * BS + w + kb * Wp * BS;
+    const int x = (int8_t)S.x[cell], y = (int8_t)S.y[cell];
+    const int xi = row && (unsigned)x < 5u ? x : 5;
+    const int yi = row && (unsigned)y < 5u ? y : 5;
+    const float v = row ? (float)S.v[cell] : 0.f;
+    const int s1n = sh1, s2n = sh1 + sh2;
+    float q[5], nb[5];
+    warp_bwd_q(p2, g1, k, s1n, s2n, Wp, kb == K - 1, cprev, q);
+    // The row of the terminal cell on d if one is there, else -1.
+    int inj_row = d == fd ? fk : -1;
+    float lz = lz0;
+    if constexpr (MULTI) {
+      inj_row = S.fd[w * K + kb] == d ? S.fk[w * K + kb] : -1;
+      lz = S.lz[w * K + kb];
+    }
+    bwd_recur(q, Tr, k == inj_row ? 1.f : 0.f, v, nb);
+    sh2 = sh1;
+    sh1 = S.s1[w * K + kb];
+    // A problem's backward restarts its log-scale at its terminal cell.
+    if (MULTI && inj_row >= 0) bls = 0.f;
+    const float lsd = S.lsf[w * K + kb];
+    float alpha0, alpha1;
+    if (kb == 0) {
+      const float c = warp_rescale(nb, row);
+      bls += logf(c);
+      cprev = c;
+      alpha0 = expf(lsd + bls - lz);
+      alpha1 = alpha0 * (1.f / c);
+    } else {
+      alpha0 = expf(lsd + bls - lz);
+      alpha1 = alpha0;
+    }
+    // No emission at a problem's first diagonal.
+    const bool bound = MULTI ? S.st[kb * BS + w] != 0 : d == 0;
+    const float a0n = alpha0 * (bound ? 0.f : 1.f);
+    if (row) {
+      float* fa = S.fa + w * sb_stride(Wp, LPB) + kb * NS * Wp + k;
+      float fv[5];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) fv[s] = fa[s * Wp];
+      *fa = (fv[0] * nb[0]) * alpha0;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const float fs = fv[s] * alpha1;
+#pragma unroll
+        for (int u = 0; u < NS; ++u)
+          tca[s * 5 + u] = __fmaf_rn(fs, q[u], tca[s * 5 + u]);
+      }
+#pragma unroll
+      for (int s = 1; s < NS; ++s) {
+        const int code = (s & 1) ? xi : yi;  // states 1, 3: the ref base
+        egb[(code * 4 + s - 1) * LPB * Wp] += (fv[s] * nb[s]) * a0n;
+      }
+    }
+    const float2 gx = eg13[xi], gy = eg24[yi];
+    p2 = p1;
+    p1 = em6[xi * 6 + yi] * nb[0];
+    g1[0] = gx.x * nb[1];
+    g1[1] = gy.x * nb[2];
+    g1[2] = gx.y * nb[3];
+    g1[3] = gy.y * nb[4];
+  }
+
+  // The lane's partials summed over its rows (a fixed tree) into tcp [t][25]
+  // and egp [t][20] (row (state - 1) * 5 + code).
+  __device__ void finish(int t, int b, int B, float* __restrict__ tcp,
+                         float* __restrict__ egp) {
+#pragma unroll
+    for (int j = 0; j < 25; ++j) {
+      const float s = warp_sum(row ? tca[j] : 0.f);
+      if (k == 0) tcp[((size_t)t * 25 + j) * B + b] = s;
+    }
+#pragma unroll 1
+    for (int j = 0; j < 20; ++j) {
+      const float s = warp_sum(row ? egb[((j % 5) * 4 + j / 5) * LPB * Wp]
+                                   : 0.f);
+      if (k == 0) egp[((size_t)t * 20 + j) * B + b] = s;
+    }
+  }
+};
+
+// f_all [ntr][d1k][NS][Wp][B] and lsf [ntr][d1k][B] from the stored
+// forward; post [ntr][d1k][Wp][B] and the count partials are written.
+// Single-problem lanes: fink, find [B] and logZ [ntr][B].  MULTI: fink,
+// find [d1k][B] (a problem's terminal row and diagonal at its terminal
+// diagonal, else -1), logZ the per-diagonal log-likelihood L [ntr][d1k][B]
+// of the problem owning the diagonal, and start [d1k][B]: the backward
+// injects at every terminal cell and restarts its log-scale there, and
+// each problem's first diagonal emits nothing.
+template <bool MULTI, int LPB>
+__global__ void __launch_bounds__(32 * LPB, 16 / LPB)
+    counts_stored_bwd_kernel(const float* __restrict__ T,
+                             const float* __restrict__ Em,
+                             const float* __restrict__ Eg,
+                             const float* __restrict__ f_all,
+                             const float* __restrict__ lsf,
+                             const int8_t* __restrict__ xb,
+                             const int8_t* __restrict__ yb,
+                             const uint8_t* __restrict__ valid,
+                             const int32_t* __restrict__ s1,
+                             const int8_t* __restrict__ start,
+                             const int32_t* __restrict__ fink,
+                             const int32_t* __restrict__ find,
+                             const float* __restrict__ logZ, int d1k, int Wp,
+                             int B, float* __restrict__ post,
+                             float* __restrict__ tcp,
+                             float* __restrict__ egp) {
+  extern __shared__ __align__(16) float sb_raw[];
+  float* tab = sb_raw;              // [CF_NTAB]
+  float* egb = sb_raw + CF_NTAB;    // [N_EGB][LPB][Wp]
+  uint8_t* ring = reinterpret_cast<uint8_t*>(egb + N_EGB * LPB * Wp);
+  const size_t nbuf = sb_buf_bytes(Wp, LPB, MULTI);
+  // The buffer of the u-th tile from the top.
+  auto buf = [&](int u) {
+    return sb_buf(ring + (u % SB_RING) * nbuf, Wp, LPB, MULTI);
+  };
+  const int w = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * LPB, b = b0 + w, t = blockIdx.y;
+  const bool live = b < B;  // warp-uniform
+  const int G = d1k / K;
+  uintptr_t a4 = (uintptr_t)xb | (uintptr_t)yb | (uintptr_t)valid;
+  if (MULTI) a4 |= (uintptr_t)start;
+  const bool vec = B % 4 == 0 && a4 % 4 == 0;
+  auto stage = [&](int u) {
+    sb_stage<MULTI, LPB>(buf(u), t, (G - 1 - u) * K, d1k, b0, Wp, B, vec,
+                         f_all, lsf, xb, yb, valid, s1, start, fink, find,
+                         logZ);
+  };
+  cf_tables(tab, Em, Eg, t);
+  stage(0);
+  const bool one = live && !MULTI;  // the lane's terminal cell and logZ
+  SbWarp<MULTI, LPB> lane(T, tab, egb + w * Wp + (threadIdx.x & 31), t, Wp,
+                          one ? fink[b] : -1, one ? find[b] : -1,
+                          one ? logZ[(size_t)t * B + b] : 0.f, live);
+  for (int u = 0; u < G; ++u) {
+    // Every warp is past tile u - 1, which leaves now; tile u + 1 arrives
+    // in its buffer once that has left (the first barrier also publishes
+    // the tables).
+    mk::cp_async_wait();  // this thread's copies of tile u,
+    __syncthreads();      // then everyone's: tile u has landed
+    if (u > 0) sb_flush<LPB>(buf(u - 1), t, (G - u) * K, d1k, b0, Wp, B, post);
+    if (u + 1 < G) {
+      if (SB_RING == 2) __syncthreads();  // tile u - 1 has left
+      stage(u + 1);
+    }
+    if (live) lane.tile(buf(u), G - 1 - u, w);
+  }
+  __syncthreads();
+  sb_flush<LPB>(buf(G - 1), t, 0, d1k, b0, Wp, B, post);
+  if (live) lane.finish(t, b, B, tcp, egp);
 }
 
 bool bad_shape(int ntr, int d1k, int Wp, int B) {
   return ntr < 1 || B < 1 || d1k < K || d1k % K != 0 || Wp < 1 ||
-         Wp > ROW_THREADS * 4;
-}
-
-template <bool MULTI = false>
-int fwd_launch(const float* T, const float* Em, const float* Eg,
-               const int8_t* xb, const int8_t* yb, const uint8_t* valid,
-               const int32_t* s1, const int8_t* start, const int32_t* fink,
-               int ntr, int d1k, int Wp, int B, float* band, float* lsf,
-               float* term, void* stream) {
-  if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (rows_per_thread(Wp)) {
-    case 2: return run_fwd<2, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
-    case 3: return run_fwd<3, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
-    default: return run_fwd<4, MULTI>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr, d1k, Wp, B, band, lsf, term, s);
-  }
+         Wp > MAX_WP;
 }
 
 // The kernel, lanes a block (mk::warp_lanes over the launch's lanes and
-// trials) and shared memory of the checkpoint forward's launch (MATCH: the
-// generic forward's), its shared memory opted in.
-template <bool MULTI, bool MATCH>
+// trials) and shared memory of the checkpoint forward's launch in output
+// mode OUT (CF_MATCH: the generic forward's, CF_ALL: the stored
+// forward's), its shared memory opted in.
+template <bool MULTI, int OUT>
 cudaError_t cf_setup(int ntr, int Wp, int B, const void** kernel,
                      int* lanes, size_t* smem) {
   cudaError_t err = mk::warp_lanes(
-      B * ntr, [Wp](int l) { return cf_smem(Wp, l, MATCH); }, lanes);
+      B * ntr, [Wp](int l) { return cf_smem(Wp, l, OUT); }, lanes);
   if (err != cudaSuccess) return err;
   *kernel = *lanes == 8
-                ? (const void*)counts_fwd_ckpt_kernel<MULTI, 8, MATCH>
-                : (const void*)counts_fwd_ckpt_kernel<MULTI, 16, MATCH>;
-  *smem = cf_smem(Wp, *lanes, MATCH);
+                ? (const void*)counts_fwd_ckpt_kernel<MULTI, 8, OUT>
+                : (const void*)counts_fwd_ckpt_kernel<MULTI, 16, OUT>;
+  *smem = cf_smem(Wp, *lanes, OUT);
   return mk::allow_smem(*kernel, *smem);
 }
 
@@ -1735,7 +1595,23 @@ cudaError_t gb_setup(int Wp, int B, const void** kernel, int* lanes,
   return mk::allow_smem(*kernel, *smem);
 }
 
-template <bool MULTI, bool MATCH = false>
+// The stored backward's kernel, lanes a block (mk::warp_lanes over the
+// launch's lanes and trials) and shared memory, opted in.
+template <bool MULTI>
+cudaError_t sb_setup(int ntr, int Wp, int B, const void** kernel,
+                     int* lanes, size_t* smem) {
+  cudaError_t err = mk::warp_lanes(
+      B * ntr, [Wp](int l) { return sb_smem(Wp, l, MULTI); }, lanes);
+  if (err != cudaSuccess) return err;
+  *kernel = *lanes == 8 ? (const void*)counts_stored_bwd_kernel<MULTI, 8>
+                        : (const void*)counts_stored_bwd_kernel<MULTI, 16>;
+  *smem = sb_smem(Wp, *lanes, MULTI);
+  return mk::allow_smem(*kernel, *smem);
+}
+
+// The checkpoint forward in output mode OUT; `ckpt` is the checkpoints,
+// F_match or f_all, `cs` unused (may be 0) but for CF_CKPT.
+template <bool MULTI, int OUT = CF_CKPT>
 int ckpt_fwd_launch(const float* T, const float* Em, const float* Eg,
                     const int8_t* xb, const int8_t* yb, const uint8_t* valid,
                     const int32_t* s1, const int8_t* start,
@@ -1746,8 +1622,7 @@ int ckpt_fwd_launch(const float* T, const float* Em, const float* Eg,
   const void* kernel;
   int lanes;
   size_t smem;
-  cudaError_t err =
-      cf_setup<MULTI, MATCH>(ntr, Wp, B, &kernel, &lanes, &smem);
+  cudaError_t err = cf_setup<MULTI, OUT>(ntr, Wp, B, &kernel, &lanes, &smem);
   if (err != cudaSuccess) return err;
   void* args[] = {&T,   &Em, &Eg, &xb,   &yb, &valid, &s1,  &start,
                   &fink, &d1k, &Wp, &B,  &ckpt, &cs, &lsf,   &term};
@@ -1755,25 +1630,47 @@ int ckpt_fwd_launch(const float* T, const float* Em, const float* Eg,
                           dim3(32 * lanes), args, smem, (cudaStream_t)stream);
 }
 
-template <int MODE, bool MULTI = false>
-int bwd_launch(const float* T, const float* Em, const float* Eg,
-               const float* band, const float* lsf_cs, const int8_t* xb,
-               const int8_t* yb, const uint8_t* valid, const int32_t* s1,
-               const int8_t* start, const int32_t* fink, const int32_t* find,
-               const float* logZ, int ntr, int d1k, int Wp, int B,
-               float* post, float* tcp, float* egp, float* mcp,
-               void* stream) {
+template <bool MULTI>
+int stored_bwd_launch(const float* T, const float* Em, const float* Eg,
+                      const float* f_all, const float* lsf, const int8_t* xb,
+                      const int8_t* yb, const uint8_t* valid,
+                      const int32_t* s1, const int8_t* start,
+                      const int32_t* fink, const int32_t* find,
+                      const float* logZ, int ntr, int d1k, int Wp, int B,
+                      float* post, float* tcp, float* egp, void* stream) {
   if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if constexpr (MODE == MODE_CKPT) {
-    return run_bwd_ckpt<MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, tcp, egp, mcp, s);
-  } else {
-    switch (rows_per_thread(Wp)) {
-      case 2: return run_bwd<2, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
-      case 3: return run_bwd<3, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
-      default: return run_bwd<4, MULTI>(T, Em, Eg, band, lsf_cs, xb, yb, valid, s1, start, fink, find, logZ, ntr, d1k, Wp, B, post, tcp, egp, s);
-    }
-  }
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err = sb_setup<MULTI>(ntr, Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&T,    &Em,   &Eg,   &f_all, &lsf, &xb, &yb,
+                  &valid, &s1,  &start, &fink, &find, &logZ, &d1k,
+                  &Wp,   &B,    &post, &tcp,   &egp};
+  const dim3 grid((B + lanes - 1) / lanes, ntr);
+  return cudaLaunchKernel(kernel, grid, dim3(32 * lanes), args, smem,
+                          (cudaStream_t)stream);
+}
+
+template <bool MULTI>
+int ckpt_bwd_launch(const float* T, const float* Em, const float* Eg,
+                    const float* ckpt, const float* cs, const int8_t* xb,
+                    const int8_t* yb, const uint8_t* valid,
+                    const int32_t* s1, const int8_t* start,
+                    const int32_t* fink, const int32_t* find,
+                    const float* logZ, int ntr, int d1k, int Wp, int B,
+                    float* tcp, float* egp, float* mcp, void* stream) {
+  if (bad_shape(ntr, d1k, Wp, B)) return cudaErrorInvalidValue;
+  const size_t bytes = ckpt_smem_floats(Wp) * sizeof(float);
+  cudaError_t err = mk::allow_smem(
+      (const void*)counts_bwd_ckpt_kernel<MULTI>, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((B + CK_WARPS - 1) / CK_WARPS, ntr);
+  counts_bwd_ckpt_kernel<MULTI><<<grid, CK_THREADS, bytes,
+                                  (cudaStream_t)stream>>>(
+      T, Em, Eg, ckpt, cs, xb, yb, valid, s1, start, fink, find, logZ, d1k,
+      Wp, B, tcp, egp, mcp);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1783,13 +1680,16 @@ int bwd_launch(const float* T, const float* Em, const float* Eg,
 // [d1k, B] are shared by the trials; outputs carry the trials axis first.
 // `cs` is unused (may be 0) by counts_fwd_all, `post` by counts_bwd_ckpt
 // and `mcp` by counts_bwd.  Each returns a cudaError_t code.
+// counts_fwd_all is the checkpoint forward's kernel in its CF_ALL mode,
+// counts_bwd is counts_stored_bwd_kernel.
 extern "C" int counts_fwd_all_launch(
     const float* T, const float* Em, const float* Eg, const int8_t* xb,
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int ntr, int d1k, int Wp, int B, float* f_all,
     float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch(T, Em, Eg, xb, yb, valid, s1, nullptr, fink, ntr, d1k,
-                    Wp, B, f_all, lsf, term, stream);
+  return ckpt_fwd_launch<false, CF_ALL>(T, Em, Eg, xb, yb, valid, s1,
+                                        nullptr, fink, ntr, d1k, Wp, B, f_all,
+                                        nullptr, lsf, term, stream);
 }
 
 extern "C" int counts_fwd_ckpt_launch(
@@ -1807,9 +1707,9 @@ extern "C" int counts_bwd_launch(
     const uint8_t* valid, const int32_t* s1, const int32_t* fink,
     const int32_t* find, const float* logZ, int ntr, int d1k, int Wp, int B,
     float* post, float* tcp, float* egp, float* mcp, void* stream) {
-  return bwd_launch<MODE_STORED>(T, Em, Eg, f_all, lsf, xb, yb, valid, s1,
-                                 nullptr, fink, find, logZ, ntr, d1k, Wp, B,
-                                 post, tcp, egp, mcp, stream);
+  return stored_bwd_launch<false>(T, Em, Eg, f_all, lsf, xb, yb, valid, s1,
+                                  nullptr, fink, find, logZ, ntr, d1k, Wp, B,
+                                  post, tcp, egp, stream);
 }
 
 extern "C" int counts_bwd_ckpt_launch(
@@ -1818,13 +1718,13 @@ extern "C" int counts_bwd_ckpt_launch(
     const uint8_t* valid, const int32_t* s1, const int32_t* fink,
     const int32_t* find, const float* logZ, int ntr, int d1k, int Wp, int B,
     float* post, float* tcp, float* egp, float* mcp, void* stream) {
-  return bwd_launch<MODE_CKPT>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1,
-                               nullptr, fink, find, logZ, ntr, d1k, Wp, B,
-                               post, tcp, egp, mcp, stream);
+  return ckpt_bwd_launch<false>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1,
+                                nullptr, fink, find, logZ, ntr, d1k, Wp, B,
+                                tcp, egp, mcp, stream);
 }
 
 // The generic forward-backward pair of one model (T, Em, Eg [5, 5]):
-// fb_generic_fwd (counts_fwd_ckpt_kernel's MATCH mode) writes F_match
+// fb_generic_fwd (counts_fwd_ckpt_kernel's CF_MATCH mode) writes F_match
 // [d1k, Wp, B], lsf and term [d1k, B]; fb_generic_bwd (generic_bwd_kernel)
 // reads F_match, lsf and logZ [B] and writes the posterior band
 // [d1k, Wp, B].
@@ -1833,9 +1733,9 @@ extern "C" int fb_generic_fwd_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int32_t* fink, int d1k, int Wp, int B, float* fmatch, float* lsf,
     float* term, void* stream) {
-  return ckpt_fwd_launch<false, true>(T, Em, Eg, xb, yb, valid, s1, nullptr,
-                                      fink, 1, d1k, Wp, B, fmatch, nullptr,
-                                      lsf, term, stream);
+  return ckpt_fwd_launch<false, CF_MATCH>(T, Em, Eg, xb, yb, valid, s1,
+                                          nullptr, fink, 1, d1k, Wp, B,
+                                          fmatch, nullptr, lsf, term, stream);
 }
 
 extern "C" int fb_generic_bwd_launch(
@@ -1866,8 +1766,9 @@ extern "C" int counts_multi_fwd_all_launch(
     const int8_t* yb, const uint8_t* valid, const int32_t* s1,
     const int8_t* start, const int32_t* fink, int ntr, int d1k, int Wp,
     int B, float* f_all, float* cs, float* lsf, float* term, void* stream) {
-  return fwd_launch<true>(T, Em, Eg, xb, yb, valid, s1, start, fink, ntr,
-                          d1k, Wp, B, f_all, lsf, term, stream);
+  return ckpt_fwd_launch<true, CF_ALL>(T, Em, Eg, xb, yb, valid, s1, start,
+                                       fink, ntr, d1k, Wp, B, f_all, nullptr,
+                                       lsf, term, stream);
 }
 
 extern "C" int counts_multi_fwd_ckpt_launch(
@@ -1886,9 +1787,9 @@ extern "C" int counts_multi_bwd_launch(
     const int32_t* fink, const int32_t* find, const float* L, int ntr,
     int d1k, int Wp, int B, float* post, float* tcp, float* egp, float* mcp,
     void* stream) {
-  return bwd_launch<MODE_STORED, true>(T, Em, Eg, f_all, lsf, xb, yb, valid,
-                                       s1, start, fink, find, L, ntr, d1k, Wp,
-                                       B, post, tcp, egp, mcp, stream);
+  return stored_bwd_launch<true>(T, Em, Eg, f_all, lsf, xb, yb, valid, s1,
+                                 start, fink, find, L, ntr, d1k, Wp, B, post,
+                                 tcp, egp, stream);
 }
 
 extern "C" int counts_multi_bwd_ckpt_launch(
@@ -1898,9 +1799,9 @@ extern "C" int counts_multi_bwd_ckpt_launch(
     const int32_t* fink, const int32_t* find, const float* L, int ntr,
     int d1k, int Wp, int B, float* post, float* tcp, float* egp, float* mcp,
     void* stream) {
-  return bwd_launch<MODE_CKPT, true>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1,
-                                     start, fink, find, L, ntr, d1k, Wp, B,
-                                     post, tcp, egp, mcp, stream);
+  return ckpt_bwd_launch<true>(T, Em, Eg, ckpt, cs, xb, yb, valid, s1, start,
+                               fink, find, L, ntr, d1k, Wp, B, tcp, egp, mcp,
+                               stream);
 }
 
 // What the checkpoint backward's launches at band width Wp get on this
@@ -1922,8 +1823,8 @@ extern "C" int counts_fwd_ckpt_info(int multi, int ntr, int Wp, int B,
   int lanes;
   size_t smem;
   cudaError_t err =
-      multi ? cf_setup<true, false>(ntr, Wp, B, &kernel, &lanes, &smem)
-            : cf_setup<false, false>(ntr, Wp, B, &kernel, &lanes, &smem);
+      multi ? cf_setup<true, CF_CKPT>(ntr, Wp, B, &kernel, &lanes, &smem)
+            : cf_setup<false, CF_CKPT>(ntr, Wp, B, &kernel, &lanes, &smem);
   if (err != cudaSuccess) return err;
   return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }
@@ -1938,7 +1839,28 @@ extern "C" int fb_generic_info(int backward, int Wp, int B, int* out) {
   size_t smem;
   cudaError_t err =
       backward ? gb_setup(Wp, B, &kernel, &lanes, &smem)
-               : cf_setup<false, true>(1, Wp, B, &kernel, &lanes, &smem);
+               : cf_setup<false, CF_MATCH>(1, Wp, B, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(kernel, smem, 32 * lanes, out);
+}
+
+// What the stored pair's launch of ntr trials over B lanes at band width
+// Wp gets on this device (mk::kernel_info's out[5]; its lanes a block are
+// out[3] / 32): counts_bwd (multi: counts_multi_bwd) when `backward`, else
+// counts_fwd_all (counts_multi_fwd_all).
+extern "C" int counts_stored_info(int backward, int multi, int ntr, int Wp,
+                                  int B, int* out) {
+  if (bad_shape(ntr, K, Wp, B)) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err;
+  if (backward)
+    err = multi ? sb_setup<true>(ntr, Wp, B, &kernel, &lanes, &smem)
+                : sb_setup<false>(ntr, Wp, B, &kernel, &lanes, &smem);
+  else
+    err = multi ? cf_setup<true, CF_ALL>(ntr, Wp, B, &kernel, &lanes, &smem)
+                : cf_setup<false, CF_ALL>(ntr, Wp, B, &kernel, &lanes, &smem);
   if (err != cudaSuccess) return err;
   return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }

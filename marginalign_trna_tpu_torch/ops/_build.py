@@ -142,6 +142,9 @@ _QUERIES: Dict[str, List] = {
     "counts_fwd_ckpt_info": [_I, _I, _I, _I, _P],
     # backward, Wp, B, out[5] (csrc/fb_counts.cu: the generic pair)
     "fb_generic_info": [_I, _I, _I, _P],
+    # backward, multi, ntr, Wp, B, out[5] (csrc/fb_counts.cu: the stored
+    # pair)
+    "counts_stored_info": [_I, _I, _I, _I, _I, _P],
     # Wp, B, out[5] (csrc/fb_circ.cu, csrc/nw.cu, csrc/mea.cu); Wp, out[5]
     # (csrc/expand.cu)
     "mw_forward_info": [_I, _I, _P],

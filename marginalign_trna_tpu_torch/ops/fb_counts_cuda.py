@@ -73,7 +73,7 @@ STEP_BLOCK = 8
 N_TRANS = 25       # transition partials, row s * 5 + u
 N_GAP = 20         # gap partials, row (s - 1) * 5 + code
 N_MATCH = 25       # match partials, row ref_code * 5 + read_code
-MAX_WP = 32        # band rows the kernels take (8 row threads x 4 rows)
+MAX_WP = 32        # band rows the kernels take (one a thread of a warp)
 
 
 # --------------------------------------------------------------- arithmetic
@@ -599,6 +599,17 @@ def generic_resources(device: torch.device, wp: int, B: int,
     ops/fb_generic_cuda.py) over B lanes at band width `wp` gets on
     `device`: the keys of ckpt_forward_resources."""
     res = _build.resources("fb_generic_info", device, int(backward), wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
+
+
+def stored_resources(device: torch.device, wp: int, B: int, ntr: int = 1,
+                     multi: bool = False, backward: bool = False
+                     ) -> Dict[str, int]:
+    """What a launch of counts_fwd_all (backward: counts_bwd; multi: their
+    counts_multi_ instances) of `ntr` trials over B lanes at band width `wp`
+    gets on `device`: the keys of ckpt_forward_resources."""
+    res = _build.resources("counts_stored_info", device, int(backward),
+                           int(multi), ntr, wp, B)
     return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 

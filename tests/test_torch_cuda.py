@@ -1355,3 +1355,169 @@ def test_generic_pair_resources(cuda, wp, backward):
         assert res["lanes_per_block"] == lanes, res
         assert res["local_bytes"] == 0, res
         assert res["registers"] > 0 and res["blocks_per_sm"] >= 1, res
+
+
+# ------------------------------------ the stored counts pair: one warp per lane
+
+
+def _random_stored(cuda, d1k, wp, B, ntr, multi, seed, final_row=None):
+    """The stored pair's inputs, with finite logZ, L and posteriors.
+    Single-problem lanes: `_random_counts`' streams, each lane's terminal
+    cell at row `final_row` (a random row when None) on a diagonal where the
+    plain forward holds mass there (the last such on every third lane; d = 0
+    where the row holds none).  Multi-problem lanes: random noisy pairs,
+    about d1k / 20 a lane (at least one), packed at the width whose band
+    holds wp rows (narrowed to wp, as `_narrow` does), L from `multi_logz`.
+    Returns (tables, the forward's streams, find, logZ or L)."""
+    K = fb_counts_cuda
+    if multi:
+        rng = np.random.default_rng(seed)
+        width = {9: 7, 24: 21, 32: 29}[wp]
+        hi = max(3, d1k // 5)
+        refs = [rng.integers(0, 4, int(rng.integers(2, hi + 1))).astype(
+            np.int8) for _ in range(B * max(1, d1k // 20))]
+        reads = []
+        for r in refs:
+            read = np.delete(r, [len(r) // 2]).copy()
+            read[rng.random(len(read)) < 0.1] = int(rng.integers(0, 4))
+            reads.append(read)
+        mb = pack_multi_banded_batch(reads, refs, width=width,
+                                     pad_steps_to=d1k, pad_batch_to=B)
+        mdev = multi_device_batch(mb, cuda)
+        *ms, fk, fd = fb_counts.multi_kernel_inputs(mdev)
+        assert int(fk.max()) < wp
+        streams = tuple(a[:, :wp].contiguous() for a in ms[:3]) + (
+            ms[3], ms[4], fk)
+        tabs = tables_stacked(_em_models(ntr), cuda)
+        tabs = (tabs.T, tabs.Ematch, tabs.Egap)
+        _, lsf, term = K.counts_multi_fwd_all_plain(*tabs, *streams)
+        return tabs, streams, fd, multi_logz(lsf, term, mdev)[0]
+    args = _random_counts(cuda, d1k, wp, B, ntr, False, seed)
+    tabs, streams = args[:3], list(args[3:])
+    rng = np.random.default_rng(seed + 1)
+    fwd = K.counts_fwd_all_plain
+    mass = fwd(*tabs, *streams)[0].sum(dim=2)[0].cpu().numpy() > 0
+    fink = (rng.integers(0, wp, B) if final_row is None
+            else np.full(B, final_row)).astype(np.int32)
+    held = mass[:, fink, np.arange(B)]          # [d1k, B]
+    held[0] = True
+    find = np.array([rng.choice(np.flatnonzero(held[:, b])) if b % 3
+                     else np.flatnonzero(held[:, b])[-1] for b in range(B)],
+                    np.int32)
+    streams[-1] = _t(cuda, fink)
+    _, lsf, term = fwd(*tabs, *streams)
+    find = _t(cuda, find)
+    return tabs, tuple(streams), find, fb_counts.logz_from_terminal(
+        lsf, term, find)
+
+
+def _stored_equal(cuda, tabs, streams, find, norm):
+    """counts_fwd_all and counts_bwd (their counts_multi_ instances where
+    the streams hold start) bit-equal to their plain versions on f_all, lsf,
+    term and the posterior band (the backward on the plain forward's
+    outputs), the lane-summed partials within rtol 1e-5, each launched
+    once; returns the posterior band."""
+    K = fb_counts_cuda
+    multi = len(streams) == 6
+    names = (("counts_multi_fwd_all", "counts_multi_bwd") if multi
+             else ("counts_fwd_all", "counts_bwd"))
+    before = {k: _build.launch_counts[k] for k in names}
+    fwd, bwd = ((getattr(K, n + "_cuda"), getattr(K, n + "_plain"))
+                for n in names)
+    got = fwd[0](*tabs, *streams)
+    want = fwd[1](*tabs, *streams)
+    shape = (tabs[0].shape[0],) + tuple(streams[0].shape)
+    for what, g, w in zip(("f_all", "lsf", "term"), got, want):
+        assert torch.isfinite(w).all(), (what, shape)
+        assert torch.equal(g, w), (what, shape)
+    f_all, lsf, _ = want
+    bargs = (*tabs, f_all, lsf, *streams, find, norm)
+    got = bwd[0](*bargs)
+    want = bwd[1](*bargs)
+    torch.cuda.synchronize()
+    assert torch.isfinite(want[0]).all(), shape
+    assert torch.equal(got[0], want[0]), ("post", shape)
+    for what, g, w in zip(("tcp", "egp"), got[1:], want[1:]):
+        assert torch.allclose(g.sum(-1), w.sum(-1), rtol=1e-5, atol=1e-6), (
+            what, shape)
+    assert all(_build.launch_counts[k] == before[k] + 1 for k in names)
+    return want[0]
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("ntr", [1, 3])
+@pytest.mark.parametrize("wp", [9, 24, 32])
+def test_stored_pair_random_inputs(cuda, wp, ntr, multi):
+    """The stored pair (the checkpoint forward's CF_ALL mode and
+    counts_stored_bwd_kernel) bit-equal to its plain versions with 23 to
+    none of a warp's rows idle, one and three trials, single and
+    multi-problem lanes, 37 lanes (no multiple of the lanes a block or of
+    4: the codes copied byte by byte), five tiles."""
+    post = _stored_equal(cuda, *_random_stored(cuda, 40, wp, 37, ntr, multi,
+                                               seed=wp + ntr))
+    assert post.max().item() > 0
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [8, 16])
+@pytest.mark.parametrize("multi", [False, True])
+def test_stored_pair_lanes_a_block(cuda, multi, lanes, aligned):
+    """The stored pair at each block size it takes (common.cuh `warp_lanes`
+    over lanes x trials), its codes copied as words (lanes a multiple of 4)
+    and byte by byte."""
+    B = _lanes_at(cuda, lanes, aligned)
+    for backward in (False, True):
+        res = fb_counts_cuda.stored_resources(cuda, 24, B, 1, multi,
+                                              backward)
+        assert res["lanes_per_block"] == lanes, (res, backward)
+    _stored_equal(cuda, *_random_stored(cuda, 16, 24, B, 1, multi,
+                                        seed=lanes))
+
+
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("wp", [9, 24, 32])
+def test_stored_pair_single_tile(cuda, wp, multi):
+    """The stored pair over one tile of 8 diagonals (d1k = 8)."""
+    _stored_equal(cuda, *_random_stored(cuda, 8, wp, 33, 3, multi, seed=wp))
+
+
+@pytest.mark.parametrize("row", ["first", "last"])
+@pytest.mark.parametrize("wp", [9, 24, 32])
+def test_stored_pair_final_row(cuda, wp, row):
+    """The stored pair with every lane's terminal cell on the band's first
+    or last row (the forward's terminal sums and the backward's injection
+    at a row whose shuffles wrap)."""
+    final_row = 0 if row == "first" else wp - 1
+    _stored_equal(cuda, *_random_stored(cuda, 40, wp, 33, 3, False, seed=wp,
+                                        final_row=final_row))
+
+
+@pytest.mark.parametrize("shape", ["em32", "em_band"])
+def test_stored_pair_path_shapes(cuda, shape):
+    """Batches shaped like the pair's launches on two of its paths: the EM
+    parity run's [3, 512, 24, 1024] and --updateTheBand's E-step
+    [3, 512, 24, 2048] (both 16 lanes a block), as random inputs."""
+    B = {"em32": 1024, "em_band": 2048}[shape]
+    for backward in (False, True):
+        res = fb_counts_cuda.stored_resources(cuda, 24, B, 3, False,
+                                              backward)
+        assert res["lanes_per_block"] == 16, res
+    _stored_equal(cuda, *_random_stored(cuda, 512, 24, B, 3, False,
+                                        seed=B))
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("multi", [False, True])
+@pytest.mark.parametrize("wp", [9, 24, 32])
+def test_stored_pair_resources(cuda, wp, multi, backward):
+    """The stored pair builds without spills or stack and fits at least one
+    block per SM at 8 lanes a block and, where its shared memory fits, at
+    16."""
+    for lanes in (8, 16):
+        res = fb_counts_cuda.stored_resources(
+            cuda, wp, _lanes_at(cuda, lanes, True), 1, multi, backward)
+        if lanes == 16 and res["lanes_per_block"] == 8:
+            continue    # 16 lanes do not fit shared memory at this Wp
+        assert res["lanes_per_block"] == lanes, res
+        assert res["local_bytes"] == 0, res
+        assert res["registers"] > 0 and res["blocks_per_sm"] >= 1, res

@@ -107,28 +107,45 @@ def _mix(f, T, t):
     return acc
 
 
-def ckpt_forward_tiles(T, Em, Eg, xb, yb, valid, s1, fink, start=None,
-                       lpb=16):
-    """(ckpt, cs, lsf, term) of the checkpoint forward as
-    counts_fwd_ckpt_kernel computes them, block by block."""
-    multi = start is not None
-    d1k, wp, B = xb.shape
-    ntr, G, S = T.shape[0], d1k // KB, byte_stride(lpb)
-    codes = [a.numpy().astype(np.uint8) for a in (xb, yb, valid)]
-    s1n, finkn = s1.numpy(), fink.numpy()
-    startn = start.numpy() if multi else None
-    Tf = T.reshape(ntr, 25)
-    # The table: em6 [x * 6 + y], then the pairs (Egap[1][c], Egap[3][c])
-    # and (Egap[2][c], Egap[4][c]); zero at code 5.
+def lane_stride(n, lpb):
+    """csrc/fb_counts.cu `lane_stride`: the least stride >= n that is
+    32 / lpb modulo 32."""
+    return n + (32 // lpb - n % 32) % 32
+
+
+def emission_table(Em, Eg):
+    """csrc/fb_counts.cu `cf_tables` [Ntr, 60]: em6 [x * 6 + y], then the
+    pairs (Egap[1][c], Egap[3][c]) and (Egap[2][c], Egap[4][c]); zero at
+    code 5."""
+    ntr = Em.shape[0]
     em6 = torch.zeros(ntr, 6, 6, dtype=F32)
     em6[:, :5, :5] = Em
     pairs = torch.zeros(ntr, 2, 6, 2, dtype=F32)
     for q, (s_a, s_b) in enumerate(((1, 3), (2, 4))):
         pairs[:, q, :5, 0] = Eg[:, s_a]
         pairs[:, q, :5, 1] = Eg[:, s_b]
-    tab = torch.cat([em6.reshape(ntr, 36), pairs.reshape(ntr, 24)], 1)
-    rec_len = 2 * NS * wp + 21
-    ckpt = torch.zeros(ntr * G * 2 * NS * wp * B, dtype=F32)
+    return torch.cat([em6.reshape(ntr, 36), pairs.reshape(ntr, 24)], 1)
+
+
+def ckpt_forward_tiles(T, Em, Eg, xb, yb, valid, s1, fink, start=None,
+                       lpb=16, out="ckpt"):
+    """(ckpt, cs, lsf, term) of the checkpoint forward as
+    counts_fwd_ckpt_kernel computes them, block by block; with out="all"
+    (its CF_ALL mode, the stored forward counts_fwd_all) (f_all, lsf, term),
+    each warp's record holding the tile's five planes."""
+    multi = start is not None
+    store_all = out == "all"
+    d1k, wp, B = xb.shape
+    ntr, G, S = T.shape[0], d1k // KB, byte_stride(lpb)
+    codes = [a.numpy().astype(np.uint8) for a in (xb, yb, valid)]
+    s1n, finkn = s1.numpy(), fink.numpy()
+    startn = start.numpy() if multi else None
+    Tf = T.reshape(ntr, 25)
+    tab = emission_table(Em, Eg)
+    lead = KB * NS * wp if store_all else 2 * NS * wp
+    rec_len = (lane_stride(lead + 2 * KB, lpb) if store_all
+               else lead + 2 * KB + 5)
+    ckpt = torch.zeros(ntr * G * lead * B, dtype=F32)
     cs = torch.zeros(ntr * G * 4 * B, dtype=F32)
     lsf = torch.zeros(ntr * d1k * B, dtype=F32)
     term = torch.zeros(ntr * d1k * B, dtype=F32)
@@ -163,7 +180,7 @@ def ckpt_forward_tiles(T, Em, Eg, xb, yb, valid, s1, fink, start=None,
                     if multi:
                         fk_t[ww * KB + kb] = finkn[d0 + kb, b0 + ww]
             rec = torch.full((ntr, lpb, rec_len), float("nan"), dtype=F32)
-            o_term = 2 * NS * wp
+            o_term = lead
             rec[:, :, o_term:o_term + KB] = 0.0   # term defaults to 0
             lsA = ls
             cell = torch.where(row, k, 0) * S + w   # [1, lpb, 32]
@@ -191,7 +208,7 @@ def ckpt_forward_tiles(T, Em, Eg, xb, yb, valid, s1, fink, start=None,
                     e = [look(xi * 6 + yi), look(36 + 2 * xi),
                          look(48 + 2 * yi), look(37 + 2 * xi),
                          look(49 + 2 * yi)]
-                    if kb == KB - 1:
+                    if kb == KB - 1 and not store_all:
                         for s in range(NS):
                             vals = f[s]
                             rec[:, :, (NS + s) * wp:(NS + s + 1) * wp] = \
@@ -226,34 +243,44 @@ def ckpt_forward_tiles(T, Em, Eg, xb, yb, valid, s1, fink, start=None,
                 cur = rec[:, :, o_term + kb]
                 rec[:, :, o_term + kb] = torch.where(
                     hit.any(-1), (tv * hit).sum(-1), cur)
+                if store_all:
+                    for s in range(NS):
+                        at = (kb * NS + s) * wp
+                        rec[:, :, at:at + wp] = f[s][..., :wp]
                 mM2 = mM1
                 mM1 = _mix(f, Tf, 0)
                 mG = [_mix(f, Tf, u + 1) for u in range(4)]
-            for s in range(NS):
-                rec[:, :, s * wp:(s + 1) * wp] = f[s][..., :wp]
+            if not store_all:
+                for s in range(NS):
+                    rec[:, :, s * wp:(s + 1) * wp] = f[s][..., :wp]
+                rec[:, :, o_term + 2 * KB:o_term + 2 * KB + 4] = torch.cat(
+                    [ls, cprev, sprev.to(F32).expand(ntr, lpb, 1),
+                     torch.zeros(ntr, lpb, 1)], -1)
             rec[:, :, o_term + KB:o_term + 2 * KB] = torch.cat(
                 [lsA.expand(ntr, lpb, KB - 1), ls], -1)
-            rec[:, :, o_term + 2 * KB:o_term + 2 * KB + 4] = torch.cat(
-                [ls, cprev, sprev.to(F32).expand(ntr, lpb, 1),
-                 torch.zeros(ntr, lpb, 1)], -1)
             # The flush: lane w of each trial's record, row r of the
-            # checkpoint to ((t G + g) 10 Wp + r) B + b.
+            # checkpoint (f_all: of the tile) to ((t G + g) lead + r) B + b.
             for t in range(ntr):
                 for ww in range(lpb):
                     b = b0 + ww
                     if b >= B:
                         continue
                     o = rec[t, ww]
-                    r = torch.arange(2 * NS * wp)
-                    ckpt[((t * G + g) * 2 * NS * wp + r) * B + b] = o[r]
+                    r = torch.arange(lead)
+                    ckpt[((t * G + g) * lead + r) * B + b] = o[r]
                     i = torch.arange(KB)
                     at = ((t * d1k + d0 + i) * B + b)
                     term[at] = o[o_term + i]
                     lsf[at] = o[o_term + KB + i]
-                    j = torch.arange(4)
-                    cs[((t * G + g) * 4 + j) * B + b] = o[o_term + 2 * KB + j]
+                    if not store_all:
+                        j = torch.arange(4)
+                        cs[((t * G + g) * 4 + j) * B + b] = o[
+                            o_term + 2 * KB + j]
+    lsf, term = lsf.reshape(ntr, d1k, B), term.reshape(ntr, d1k, B)
+    if store_all:
+        return ckpt.reshape(ntr, d1k, NS, wp, B), lsf, term
     return (ckpt.reshape(ntr, G, 2 * NS, wp, B), cs.reshape(ntr, G, 4, B),
-            lsf.reshape(ntr, d1k, B), term.reshape(ntr, d1k, B))
+            lsf, term)
 
 
 def _stacked(hmms):
