@@ -5,7 +5,9 @@ CUDA card.  Run from the repository root:
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero without the final result line):
-  1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a.
+  1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a;
+              ptxas must report no spill in a counts or generic kernel
+              and no stack frame or spill in K4's and X's kernels.
   2. tiny     each of the thirty-four kernels against its plain PyTorch
               version on the card at a tiny shape, so a broken kernel fails
               before the long runs; the eight serving kernels
@@ -37,7 +39,7 @@ Phases (any failure exits non-zero without the final result line):
               the main phase's and every other one must be an MEA near-tie
               of it (objective within 1e-5 under the fused weights).  Then
               K2, K3 and K4 against their plain versions on their largest
-              REL launch.
+              REL launch (K4 with its resources).
   6. serve    the unfused circular serving route in each of its five
               modes (sv, em, lean, emw, ckpt), after the REL phase:
               realign.realign_sam_file(..., serve=mode) on the REL phase's
@@ -65,8 +67,8 @@ Phases (any failure exits non-zero without the final result line):
               planted every 150 bases; only E, S, C and X may launch, and
               recall and precision on the planted SNVs must reach 95%.
               Then those kernels against their plain versions on their
-              largest caller launch (S and C bit-equal, with their
-              resources).
+              largest caller launch (S and C bit-equal; S, C and X with
+              their resources).
   9. parity   the caller on the SAM's first 32 records on "cpu" and "cuda":
               identical call sets, expectations within 1e-3.
  10. em       marginAlign --em (pipeline.align with em=True: guide -> chain
@@ -161,8 +163,12 @@ Phases (any failure exits non-zero without the final result line):
               MULTI_MIN_EQUAL of cigars identical and the rest MEA
               near-ties.
  17. card     name and power limit from nvidia-smi.
-Each phase logs "time: <phase> done at <seconds>".  Plain versions are
-timed after a warm-up call, as the kernels are.  The line before the last
+Each phase logs "time: <phase> done at <seconds>" and, on a line of its
+own, "phase-seconds: <phase> <seconds>" (the seconds it took); the last
+lines repeat them all as one JSON object.  Kernels are timed after a
+warm-up call; a plain version's one timed call follows the comparison
+that has just run it on the same inputs, so it takes no warm-up of its
+own.  The line before the last
 is the kernel report (JSON); the last line is the result (JSON).  Corpus and weights come from numpy seeds; nothing is read
 from outside the repository.
 """
@@ -576,7 +582,7 @@ def compare_nw(args, reps):
         "max_abs_err": err,
         "all_cells_equal": bool(torch.equal(ptr, rptr)),
         "ms": time_ms(lambda: wf.banded_nw_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: wf.banded_nw_plain(*args), 1),
+        "plain_ms": time_ms(lambda: wf.banded_nw_plain(*args), 1, warm=False),
         "library_ms": None,
         **bound("banded_nw", ptr.numel(), nbytes(*args, ptr, score, state)),
         "resources": wf.warp_lane_resources("banded_nw", ptr.device, wp, B),
@@ -612,12 +618,14 @@ def compare_fb(bargs, fargs, reps):
     return (
         {"max_abs_err": lerr,
          "ms": time_ms(lambda: fb_cuda.fb_backward_cuda(*bargs), reps),
-         "plain_ms": time_ms(lambda: fb_cuda.fb_backward_plain(*bargs), 1),
+         "plain_ms": time_ms(lambda: fb_cuda.fb_backward_plain(*bargs), 1,
+                             warm=False),
          "library_ms": None,
          **bound("fb_backward", bm.numel(), nbytes(*bargs, bm, bls, logZ))},
         {"max_abs_err": perr, "chained_max_abs_err": ferr,
          "ms": time_ms(lambda: fb_cuda.fb_forward_cuda(*fargs), reps),
-         "plain_ms": time_ms(lambda: fb_cuda.fb_forward_plain(*fargs), 1),
+         "plain_ms": time_ms(lambda: fb_cuda.fb_forward_plain(*fargs), 1,
+                             warm=False),
          "library_ms": None,
          **bound("fb_forward", post.numel(), nbytes(*fargs, post))},
     )
@@ -639,9 +647,11 @@ def compare_mea(args, reps):
         "max_abs_err": err,
         "all_cells_equal": bool(torch.equal(ptr, rptr)),
         "ms": time_ms(lambda: wf.banded_mea_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: wf.banded_mea_plain(*args), 1),
+        "plain_ms": time_ms(lambda: wf.banded_mea_plain(*args), 1, warm=False),
         "library_ms": None,
         **bound("banded_mea", ptr.numel(), nbytes(*args, ptr, score)),
+        "resources": wf.warp_lane_resources("banded_mea", ptr.device,
+                                            ptr.shape[1], ptr.shape[2]),
     }
 
 
@@ -663,7 +673,8 @@ def compare_expand(args, reps):
     return {
         "max_abs_err": (es - res).abs().max().item(),
         "ms": time_ms(lambda: fc.expand_streams_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: fc.expand_streams_plain(*args), 1),
+        "plain_ms": time_ms(lambda: fc.expand_streams_plain(*args), 1,
+                            warm=False),
         "library_ms": None,
         **bound("expand_streams", es.numel(), nbytes(*args, es, yb, fr)),
         "resources": fc.expand_streams_resources(es.device, es.shape[1]),
@@ -691,7 +702,8 @@ def compare_sv(args, reps):
         "max_abs_err": (logZ - rlogZ).abs().max().item(),
         "bm_max_abs_err": (bm - rbm).abs().max().item(),
         "ms": time_ms(lambda: fc.sv_backward_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: fc.sv_backward_plain(*args), 1),
+        "plain_ms": time_ms(lambda: fc.sv_backward_plain(*args), 1,
+                            warm=False),
         "library_ms": None,
         **bound("sv_backward", bm.numel(), nbytes(*args, bm, bls, logZ)),
         "resources": fc.sv_backward_resources(bm.device, wp, B),
@@ -717,7 +729,7 @@ def compare_cx(args, reps):
     return {
         "max_abs_err": err,
         "ms": time_ms(lambda: fc.cx_forward_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: fc.cx_forward_plain(*args), 1),
+        "plain_ms": time_ms(lambda: fc.cx_forward_plain(*args), 1, warm=False),
         "library_ms": None,
         **bound("cx_forward", args[2].numel(), nbytes(*args, fl, tails)),
         "resources": fc.cx_forward_resources(args[2].device, wp, B),
@@ -753,11 +765,14 @@ def compare_scatter(args, reps):
     return {
         "max_abs_err": (out - ref).abs().max().item(),
         "ms": time_ms(lambda: bs.scatter_lanesum_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: bs.scatter_lanesum_plain(*args), 1),
+        "plain_ms": time_ms(lambda: bs.scatter_lanesum_plain(*args), 1,
+                            warm=False),
         "library_ms": time_ms(lambda: lib_out.index_add_(0, tgt, src), reps),
         "target_cells": n_hit, "cells": jm.numel(),
         **bound("scatter_lanesum", n_hit,
                 nbytes(jm, out) + n_hit * C * vals.element_size()),
+        "resources": bs.scatter_lanesum_resources(vals.device, C,
+                                                  vals.shape[2], rg),
     }
 
 
@@ -774,7 +789,7 @@ def compare_expand_rel(args, reps):
     return {
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: fc.expand_rel_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: fc.expand_rel_plain(*args), 1),
+        "plain_ms": time_ms(lambda: fc.expand_rel_plain(*args), 1, warm=False),
         "library_ms": None,
         **bound("expand_rel", xb.numel(), nbytes(*args, xb, yb)),
         "resources": fc.expand_rel_resources(xb.device, xb.shape[1]),
@@ -801,7 +816,7 @@ def compare_mw(args, reps):
     return {
         "max_abs_err": perr, "sums_max_abs_err": serr,
         "ms": time_ms(lambda: fc.mw_forward_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: fc.mw_forward_plain(*args), 1),
+        "plain_ms": time_ms(lambda: fc.mw_forward_plain(*args), 1, warm=False),
         "library_ms": None,
         **bound("mw_forward", got[0].numel(), nbytes(*args, *got)),
         "resources": fc.mw_forward_resources(args[2].device, wp, B),
@@ -837,7 +852,8 @@ def compare_scatter_lanes(args, reps):
     return {
         "max_abs_err": (out - ref).abs().max().item(),
         "ms": time_ms(lambda: bs.scatter_lanes_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: bs.scatter_lanes_plain(*args), 1),
+        "plain_ms": time_ms(lambda: bs.scatter_lanes_plain(*args), 1,
+                            warm=False),
         "library_ms": time_ms(lambda: lib_out.scatter_add_(0, tgt, vals),
                               reps),
         "target_cells": n_hit, "cells": jm.numel(),
@@ -868,7 +884,7 @@ def compare_mea_dl(args, reps):
         "max_abs_err": err,
         "all_cells_equal": bool(torch.equal(ptr, rptr)),
         "ms": time_ms(lambda: wf.mea_dl_cuda(*args), reps),
-        "plain_ms": time_ms(lambda: wf.mea_dl_plain(*args), 1),
+        "plain_ms": time_ms(lambda: wf.mea_dl_plain(*args), 1, warm=False),
         "library_ms": None,
         **bound("mea_dl", ptr.numel(), nbytes(*args, ptr, score)),
         "resources": wf.warp_lane_resources("mea_dl", ptr.device, wp, B),
@@ -1094,7 +1110,8 @@ def compare_generic(base, reps):
     report = {"fb_generic_fwd": {
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: G.fb_generic_fwd_cuda(*fargs), reps),
-        "plain_ms": time_ms(lambda: G.fb_generic_fwd_plain(*fargs), 1),
+        "plain_ms": time_ms(lambda: G.fb_generic_fwd_plain(*fargs), 1,
+                            warm=False),
         "library_ms": None,
         "resources": fb_counts_cuda.generic_resources(streams[0].device, wp,
                                                       lanes),
@@ -1108,7 +1125,8 @@ def compare_generic(base, reps):
     report["fb_generic_bwd"] = {
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: G.fb_generic_bwd_cuda(*bargs), reps),
-        "plain_ms": time_ms(lambda: G.fb_generic_bwd_plain(*bargs), 1),
+        "plain_ms": time_ms(lambda: G.fb_generic_bwd_plain(*bargs), 1,
+                            warm=False),
         "library_ms": None,
         "resources": fb_counts_cuda.generic_resources(streams[0].device, wp,
                                                       lanes, backward=True),
@@ -3415,12 +3433,19 @@ def phase_em_multi_parity(tmpdir):
 
 
 def phase_clock():
-    """A function that logs the seconds since its creation after a named
-    phase."""
+    """A function that logs, after a named phase, the seconds since its
+    creation and, on a line of its own, the seconds since the phase before;
+    its `seconds` attribute keeps the latter by phase."""
     t0 = time.perf_counter()
+    last = [t0]
 
     def elapsed(phase):
-        log("time: %s done at %.1f s" % (phase, time.perf_counter() - t0))
+        now = time.perf_counter()
+        elapsed.seconds[phase] = round(now - last[0], 1)
+        last[0] = now
+        log("time: %s done at %.1f s" % (phase, now - t0))
+        log("phase-seconds: %s %.1f" % (phase, elapsed.seconds[phase]))
+    elapsed.seconds = {}
     return elapsed
 
 
@@ -3438,6 +3463,48 @@ def ptxas_spills(build_log):
             out[fn] = (int(m.group(1)), int(m.group(2)))
             fn = None
     return out
+
+
+# The kernels redesigned last, by the start of their mangled names: K4's
+# mea_warp_kernel at one and two rows a thread (Wp <= 64) and X's window and
+# reduce kernels must compile with no stack frame and no spill; K4 at three
+# and four rows a thread (Wp > 64, on no path) with no spill (mk::WarpRows
+# keeps its edge row on a stack there, as in K1 and D).
+FRAMELESS = ("mea_warp_kernelILi1", "mea_warp_kernelILi2",
+             "lanesum_window_kernel", "lanesum_reduce_kernel")
+SPILL_FREE = ("mea_warp_kernel",)
+
+
+def ptxas_frames(build_log):
+    """{function: (stack frame bytes, spill store bytes, spill load
+    bytes)} from ptxas -v."""
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn] = tuple(int(g) for g in m.groups())
+            fn = None
+    return out
+
+
+def check_frameless(build_log):
+    """Every variant of the FRAMELESS kernels compiles with no stack frame
+    and no spill, every variant of the SPILL_FREE ones with no spill."""
+    frames = ptxas_frames(build_log)
+    for names, what, bad_of in ((FRAMELESS, "stack frame or spills", any),
+                                (SPILL_FREE, "spills", lambda f: any(f[1:]))):
+        for name in names:
+            mine = {fn: f for fn, f in frames.items() if name in fn}
+            check(mine, "build: no ptxas report for %s" % name)
+            bad = {fn: f for fn, f in mine.items() if bad_of(f)}
+            check(not bad, "build: %s has %s (stack, stores, loads in "
+                  "bytes): %s" % (name, what, json.dumps(bad)))
+            log("build: %d %s variants, no %s" % (len(mine), name, what))
 
 
 def check_no_counts_spills(build_log):
@@ -3496,6 +3563,7 @@ def main() -> int:
                     or "spill" in line):
                 log("build: " + line.strip())
         check_no_counts_spills(build_log)
+        check_frameless(build_log)
         elapsed("build")
 
         cuda = torch.device("cuda")
@@ -3628,6 +3696,7 @@ def main() -> int:
     log("multi-parity: %s" % json.dumps(multi_parity))
     log("em-multi-path: %s" % json.dumps(em_multi_res))
     log("em-multi-parity: %s" % json.dumps(em_multi_parity))
+    log("phase-seconds: %s" % json.dumps(elapsed.seconds))
     log(card)
     # A kernel's launches and measurements come from the first path it runs
     # on (E and S: marginAlign's main path; the checkpoint counts pair: the

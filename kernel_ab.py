@@ -4,7 +4,7 @@ the port, on the same inputs, in one process on one CUDA card.
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 kernel_ab.py build/parent [group ...]
 
-Groups (fused, wavefront and counts when none is named):
+Groups (fused, wavefront, counts and scatter when none is named):
   wavefront
          K1 (banded_nw) on the guide batch [7168, 48, 1024] and at Wp 24,
          96 and 128 (the guide's pairs packed at widths 21, 93, 126), D
@@ -15,10 +15,23 @@ Groups (fused, wavefront and counts when none is named):
          memory a block, blocks an SM, spills, lanes a block), bounds, and
          the largest difference from the plain version and from the other
          checkout on valid cells, with whether every cell is equal (0 and
-         yes expected).  Must not move (bit-equal to the other checkout,
-         both timed): K4 banded_mea on the bucket's closed-form weight
-         bands, nw_multi on a multi batch at width 40 [1024, 48, 4096],
+         yes expected).  K4 (banded_mea) the same way on the generic
+         batch [3072, 24, 1024] (the REL and generic paths' shape) and on
+         the EM batch's first 2048 lanes [512, 24, 2048] (em_band), both
+         with weights from the REL FB pair's posteriors (ops/mea.py
+         `mea_weights`), on the bucket's closed-form weight bands
+         [3072, 24, 4096] and on their first 1024 lanes at Wp 48, 96 and
+         128.  Must not move (bit-equal to the other checkout, both
+         timed): nw_multi on a multi batch at width 40 [1024, 48, 4096],
          mea_multi on random weights over the width-21 multi batch.
+  scatter
+         X (scatter_lanesum) on the caller batch's flush streams
+         [4, 152, 65536] with random values and the lanes' reference
+         offsets drawn over rg 7168 and over rg 65536: the largest
+         difference from the plain version and from the other checkout
+         (absolute and relative), whether two launches are bit-identical,
+         times, bound, resources and index_add_'s time.  Must not move: L
+         (scatter_lanes) on the counts group's flush stream.
   fused  S (sv_backward), R (expand_rel), M (mw_forward), E
          (expand_streams) and C (cx_forward), and the kernels beside them
          that must not move.
@@ -104,6 +117,15 @@ Groups (fused, wavefront and counts when none is named):
          flush after the first tiles; the backward without its count
          partials), on the EM batch, the EM batch at width 29 (Wp 32) and
          the em_multi batch.
+  probe_mea, probe_scatter (named on the command line only): K4 with 8,
+         16 or 32 lanes a block whatever B, its weight tiles by cp.async
+         (no TMA), with three or four stage buffers,
+         with one part removed (no device memory after the first tiles,
+         no decode after the first two), on the wavefront group's generic
+         and em_band cells and the generic cell's lanes repeated to 4096;
+         X with 1 or 8 cells a thread a step, with twice the lane groups,
+         with scalar atomics past its window, with one part removed (plain adds for its
+         window's atomics, no value loads), on the scatter group's cells.
 
 The other checkout's package is imported under another name and builds its
 own kernels beside its sources.  A time is the CUDA-event mean over REPS
@@ -656,8 +678,128 @@ def bucket_dl_args(port, bucket, width, cuda):
             accr, accc, 0.5, 0.0)
 
 
+def mea_cells(port, cuda, names=("banded_mea", "banded_mea_em_band")):
+    """{cell: K4's arguments} (`names` of them): "banded_mea" on the
+    generic batch [3072, 24, 1024] (the REL and generic paths' shape) and
+    "banded_mea_em_band" on the EM batch's first 2048 lanes [512, 24,
+    2048]; wdiag, wup and wleft from the REL FB pair's posteriors with the
+    shipped model (ops/mea.py `mea_weights`, gapGamma 0.5, matchGamma 0)."""
+    import torch
+
+    band, fb = sub(port, "ops.band"), sub(port, "ops.fb")
+    fbc, mea = sub(port, "ops.fb_cuda"), sub(port, "ops.mea")
+    tables = fb.tables_from_file(
+        os.path.join(ROOT, PKG, "models", "last_hmm_20.txt"), cuda)
+    cells = {}
+    for name in names:
+        if name == "banded_mea":
+            batch, lanes = generic_batch(band), slice(None)
+        else:
+            batch, lanes = em_batch(band), slice(0, 2048)
+        dev = fb.device_batch(batch, cuda)
+        _, post = fbc.posteriors_pre(tables, dev)
+        lo = torch.from_numpy(batch.lo).to(cuda)
+        wup, wleft = mea.mea_weights(post, dev.valid, lo, 0.5,
+                                     int(batch.m.max()), int(batch.n.max()))
+        cells[name] = tuple(t[..., lanes].contiguous() for t in (
+            torch.where(post > 0, post, mea.NEG), wup, wleft, dev.valid,
+            dev.s1, dev.s2, dev.final_d, dev.final_k))
+        del dev, post, lo, wup, wleft
+        torch.cuda.empty_cache()
+    return cells
+
+
+def lanesum_cells(port, cuda):
+    """{cell: X's arguments (vals, jm, rg)}: the caller batch's flush
+    streams [128 + 24, 65536] (the fused group's CALLER_UNIQUE pairs
+    repeated) with four random value planes, the lanes' reference offsets
+    drawn over rg = 7168 ("scatter_lanesum": the smoke's two 3.5 kb
+    references) and over rg = 65536 ("scatter_lanesum_rg65536": a
+    reference set of some hundred tRNA genes and more); targets as
+    ops/expectations.py `fused_flush_jmaps` gives them."""
+    import torch
+
+    ex = sub(port, "ops.expectations")
+    _, caller, _ = fused_pairs()
+    cdev = compact(port, *caller, 21, CALLER_STEPS, cuda,
+                   repeat=CALLER_LANES // CALLER_UNIQUE)
+    wp = sub(port, "ops.band").padded_band_width(21)
+    rng = np.random.default_rng(8)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    fl = torch.rand((4, CALLER_STEPS, CALLER_LANES), device=cuda,
+                    generator=gen)
+    tails = torch.rand((4, wp, CALLER_LANES), device=cuda, generator=gen)
+    n = cdev.n.long().cpu().numpy()
+    cells = {}
+    for name, rg in (("scatter_lanesum", 7168),
+                     ("scatter_lanesum_rg65536", 65536)):
+        off = torch.from_numpy(
+            (rng.random(len(n)) * (rg - n + 1)).astype(np.int64)).to(cuda)
+        jmap, jtail = ex.fused_flush_jmaps(cdev.lo, off, cdev.n, 21, wp,
+                                           CALLER_STEPS)
+        vals, jm = ex.concat_flush_tails(fl, tails, jmap, jtail)
+        cells[name] = (vals.contiguous(), jm.contiguous(), rg)
+    return cells
+
+
+def ab_lanesum(tb, ob, vals, jm, rg, cuda):
+    """X of both checkouts against the plain version (rtol 1e-5, atol 1e-4
+    as the smoke holds it) and each other, whether two launches are
+    bit-identical, timed, with bound, resources and index_add_'s time."""
+    import torch
+
+    got, again = tb.scatter_lanesum_cuda(vals, jm, rg), \
+        tb.scatter_lanesum_cuda(vals, jm, rg)
+    ref = ob.scatter_lanesum_cuda(vals, jm, rg)
+    plain = tb.scatter_lanesum_plain(vals, jm, rg)
+    C = vals.shape[0]
+    hit = (jm >= 0) & (jm < rg)
+    n_hit = int(hit.sum())
+    tgt = torch.where(hit, jm, rg).long().reshape(-1)
+    src = vals.reshape(C, -1).t().contiguous()
+    lib_out = torch.zeros((rg + 1, C), dtype=torch.float32, device=cuda)
+
+    def rel(a, b):
+        return ((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
+
+    return {
+        "shape": list(vals.shape), "rg": rg, "target_cells": n_hit,
+        "max_abs_err_plain": (got - plain).abs().max().item(),
+        "max_rel_err_plain": rel(got, plain),
+        "within_plain": bool(torch.allclose(got, plain, rtol=1e-5,
+                                            atol=1e-4)),
+        "max_abs_err_other": (got - ref).abs().max().item(),
+        "max_rel_err_other": rel(got, ref),
+        "repeat_identical": bool(torch.equal(got, again)),
+        **ab(lambda: tb.scatter_lanesum_cuda(vals, jm, rg),
+             lambda: ob.scatter_lanesum_cuda(vals, jm, rg)),
+        "library_ms": time_ms(lambda: lib_out.index_add_(0, tgt, src)),
+        **bound("scatter_lanesum", n_hit,
+                nbytes(jm, got) + n_hit * C * vals.element_size()),
+        "resources": tb.scatter_lanesum_resources(cuda, C, vals.shape[2],
+                                                  rg)}
+
+
+def run_scatter(this, other, cuda, report):
+    """Fills `report` with the scatter group's rows: X on both lanesum
+    cells; L, which must not move (bit-equal to the other checkout, timed),
+    on the counts group's flush stream."""
+    import torch
+
+    tb, ob = (sub(p, "ops.bucket_scatter") for p in (this, other))
+    for name, (vals, jm, rg) in lanesum_cells(this, cuda).items():
+        report[name] = ab_lanesum(tb, ob, vals, jm, rg, cuda)
+        print(json.dumps({name: report[name]}), flush=True)
+        del vals, jm
+        torch.cuda.empty_cache()
+    report["scatter_lanes"] = unmoved(tb.scatter_lanes_cuda,
+                                      ob.scatter_lanes_cuda,
+                                      flush_stream(this, cuda))
+    print(json.dumps({"scatter_lanes": report["scatter_lanes"]}), flush=True)
+
+
 def ab_wave(wf, owf, name, args, valid, cuda):
-    """K1 or D (`name`) of both checkouts against the plain version:
+    """K1, K4 or D (`name`) of both checkouts against the plain version:
     largest differences on valid cells, whether every cell is equal,
     timed, with bound and resources."""
     kernel, other = getattr(wf, name + "_cuda"), getattr(owf, name + "_cuda")
@@ -701,8 +843,19 @@ def run_wavefront(this, other, cuda, report):
         del args
         torch.cuda.empty_cache()
 
+    # K4 on the REL / generic path's [3072, 24, 1024] and on em_band's
+    # [512, 24, 2048] (--updateTheBand's realign of the EM batch's first
+    # 2048 lanes), weights from the FB pair's posteriors as ops/mea.py
+    # builds them.
+    for name, args in mea_cells(this, cuda).items():
+        report[name] = ab_wave(wf, owf, "banded_mea", args, args[3], cuda)
+        show(name)
+        del args
+        torch.cuda.empty_cache()
+
     # D on the realign bucket (width 21, Wp 24), then at Wp 48, 96 and 128;
-    # K4 on the bucket's closed-form weight bands.
+    # K4 on the bucket's closed-form weight bands: all 4096 lanes at Wp 24,
+    # the first 1024 lanes (the REL path's batch) at the wider bands.
     for width in (21, *M_WIDE):
         wp = band.padded_band_width(width)
         args = bucket_dl_args(this, bucket, width, cuda)
@@ -711,15 +864,18 @@ def run_wavefront(this, other, cuda, report):
         name = "mea_dl" if width == 21 else "mea_dl_wp%d" % wp
         report[name] = ab_wave(wf, owf, "mea_dl", args, valid, cuda)
         show(name)
-        if width == 21:
-            wdiag = torch.where(post > 0, post, wf.NEG)
-            report["banded_mea"] = unmoved(
-                wf.banded_mea_cuda, owf.banded_mea_cuda,
-                (wdiag, *wf.mea_dl_gap_bands(lo, args[7], args[8], 0.5, wp),
-                 valid, s1, s2, args[5], args[6]))
-            show("banded_mea")
-            del wdiag
+        lanes = slice(None) if width == 21 else slice(0, 1024)
+        kargs = tuple(t[..., lanes].contiguous() for t in (
+            torch.where(post > 0, post, wf.NEG),
+            *wf.mea_dl_gap_bands(lo, args[7], args[8], 0.5, wp), valid, s1,
+            s2, args[5], args[6]))
         del args, post, lo, m, n, valid, s1, s2
+        torch.cuda.empty_cache()
+        name = "banded_mea_bucket" if width == 21 else \
+            "banded_mea_wp%d" % wp
+        report[name] = ab_wave(wf, owf, "banded_mea", kargs, kargs[3], cuda)
+        show(name)
+        del kargs
         torch.cuda.empty_cache()
 
     # The multi-problem lanes' kernels: nw_multi at the guide's width,
@@ -847,6 +1003,14 @@ def probe_cases(this, cuda, kernels):
         cases["counts_multi_bwd"] = {"em_multi_bwd": (
             *tabs, f_all, lsf, *mstreams, mfd,
             fb.multi_logz(lsf, term, mdev)[0])}
+    if "banded_mea" in kernels:
+        cases["banded_mea"] = mea_cells(this, cuda)
+        # The generic cell's lanes repeated to the bucket's 4096.
+        cases["banded_mea"]["banded_mea_x4"] = tuple(
+            t.repeat(*([1] * (t.dim() - 1)), 4).contiguous()
+            for t in cases["banded_mea"]["banded_mea"])
+    if "scatter_lanesum" in kernels:
+        cases["scatter_lanesum"] = lanesum_cells(this, cuda)
     if "cx_forward" in kernels:
         cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
                        repeat=CALLER_LANES // CALLER_UNIQUE)
@@ -934,7 +1098,7 @@ def run_probe(this, other, cuda, report, kernels=None):
             rows[case] = row
             del want
             torch.cuda.empty_cache()
-    report["probe"] = rows
+    report.setdefault("probe", {}).update(rows)
     print(json.dumps({"probe": rows}), flush=True)
 
 
@@ -1058,8 +1222,8 @@ def card():
 
 GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
           "probe_counts", "probe_cx", "probe_generic", "probe_stored",
-          "counts")
-DEFAULT_GROUPS = ("fused", "wavefront", "counts")
+          "probe_mea", "probe_scatter", "counts", "scatter")
+DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "cx_forward": "ops.fb_circ_cuda",
@@ -1075,6 +1239,8 @@ KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "sv_backward": "ops.fb_circ_cuda",
                   "expand_rel": "ops.fb_circ_cuda",
                   "banded_nw": "ops.wavefront_cuda",
+                  "banded_mea": "ops.wavefront_cuda",
+                  "scatter_lanesum": "ops.bucket_scatter",
                   "mea_dl": "ops.wavefront_cuda"}
 # The probe group's variants: name -> (the kernel it varies, or a tuple of
 # the kernels it varies, its source under csrc/, edits (old, new) of that
@@ -1240,6 +1406,59 @@ PROBES = {
         ("                  const uint32_t (&X)[4]) {\n",
          "                  const uint32_t (&X)[4]) {\n"
          "    if ((Y[0] ^ X[1]) != 0x5a5a5a5au) return;\n")]),
+    # K4 with n lanes a block whatever B (32: one row a thread only), with
+    # three or four stage buffers.
+    **{"mea_lanes_%d" % n: ("banded_mea", "mea.cu", [
+        ("  cudaError_t err = mea_lanes(Wp, B, tma, lanes);",
+         "  cudaError_t err = (*lanes = %d, cudaSuccess);" % n)])
+       for n in (8, 16, 32)},
+    # K4 staging its weight tiles by cp.async whatever B (no TMA).
+    "mea_no_tma": ("banded_mea", "mea.cu", [
+        ("  return B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&",
+         "  return false && B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&")]),
+    **{"mea_stages_%d" % n: ("banded_mea", "mea.cu", [
+        ("constexpr int MEA_STAGES = 2;", "constexpr int MEA_STAGES = %d;" % n)])
+       for n in (3, 4)},
+    # K4 with one part removed (outputs wrong by design): no device memory
+    # after the first tiles (later tiles compute on the stage buffers as
+    # they are, no pointers leave), no decode after the first two tiles.
+    "mea_no_global": ("banded_mea", "mea.cu", [
+        ("    if (t < tiles)\n      mea_stage<LPB, KT, TMA>",
+         "    if (t < min(tiles, MEA_STAGES))\n      mea_stage<LPB, KT, TMA>"),
+        ("    if (t > 0) flush(t - 1);\n    stage(t + MEA_STAGES - 1);",
+         "    if (t > 0 && t < 3) flush(t - 1);\n    stage(t + MEA_STAGES - 1);"),
+        # (and no wait for TMA boxes that are never asked for)
+        ("    mk::cp_async_wait_but<MEA_STAGES - 2>();\n    if (TMA)\n",
+         "    mk::cp_async_wait_but<MEA_STAGES - 2>();\n"
+         "    if (TMA && t < MEA_STAGES)\n")]),
+    "mea_no_compute": ("banded_mea", "mea.cu", [
+        ("    if (live) lane.tile(in(t), out(t), w, t * KT, min(KT, D1 - t * KT));",
+         "    if (live && t < 2)\n      lane.tile(in(t), out(t), w, t * KT, "
+         "min(KT, D1 - t * KT));")]),
+    # X taking 1 or 8 cells a thread a step, with twice the lane groups
+    # (two blocks an SM's worth), with scalar atomics past the window in
+    # place of 16-byte ones.
+    **{"x_unroll_%d" % n: ("scatter_lanesum", "scatter.cu", [
+        ("constexpr int X_UNROLL = 4;", "constexpr int X_UNROLL = %d;" % n)])
+       for n in (1, 8)},
+    "x_groups_2": ("scatter_lanesum", "scatter.cu", [
+        ("((B - 1) >> p->shift) + 1 > sms)",
+         "((B - 1) >> p->shift) + 1 > 2 * sms)")]),
+    "x_scalar_past": ("scatter_lanesum", "scatter.cu", [
+        ("#if __CUDACC_VER_MAJOR__ > 12 || \\", "#if 0 && \\")]),
+    # X with one part removed (outputs wrong by design): plain adds in
+    # place of the window's compare-and-swap loops; no value loads (1
+    # added).
+    "x_no_atomic": ("scatter_lanesum", "scatter.cu", [
+        ("  if (v.x != 0.f) atomicAdd(row, v.x);\n"
+         "  if (v.y != 0.f) atomicAdd(row + 1, v.y);\n"
+         "  if (v.z != 0.f) atomicAdd(row + 2, v.z);\n"
+         "  if (v.w != 0.f) atomicAdd(row + 3, v.w);",
+         "  row[0] += v.x, row[1] += v.y, row[2] += v.z, row[3] += v.w;")]),
+    "x_no_vals": ("scatter_lanesum", "scatter.cu", [
+        ("        x[u] = hit ? make_float4(v[0], v[cells], v[2 * cells], "
+         "v[3 * cells])",
+         "        x[u] = hit ? make_float4(1.f, 1.f, 1.f, 1.f)")]),
 }
 
 
@@ -1754,7 +1973,10 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_generic": lambda *a: run_probe(
             *a, kernels=("fb_generic_fwd", "fb_generic_bwd")),
         "probe_stored": lambda *a: run_probe(*a, kernels=_ST),
-        "counts": run_counts}
+        "probe_mea": lambda *a: run_probe(*a, kernels=("banded_mea",)),
+        "probe_scatter": lambda *a: run_probe(
+            *a, kernels=("scatter_lanesum",)),
+        "counts": run_counts, "scatter": run_scatter}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

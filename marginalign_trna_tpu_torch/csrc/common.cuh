@@ -7,7 +7,7 @@
 //     (threadIdx.y, RPT rows per thread when Wp exceeds 32); the band's
 //     0/+-1 row shifts between diagonals go through shared memory with one
 //     barrier per diagonal;
-//   warp per lane (S, M, K1, D): the lane's band rows on the threads of
+//   warp per lane (S, M, K1, K4, D): the lane's band rows on the threads of
 //     its warp, RPT rows a thread (row k = kk + 32 r on thread kk in M,
 //     k = RPT kk + r in S, K1 and D, `WarpRows`), so a row shift is a warp
 //     shuffle and a diagonal needs no block barrier; the block stages a

@@ -36,8 +36,25 @@
 // and the pointer) against ~6 adds and compares (D ~15 with its masks), so
 // at full occupancy they would be bound by device memory; before that, the
 // chain of D1 dependent diagonals and how many chains run at once.
-//   K4 and mea_multi run a block per 32 lanes (common.cuh): the score
-//     frontier (three generations, d mod 3) in shared memory, one barrier a
+//   K4 runs one warp per lane (common.cuh's warp-per-lane layout,
+//     consecutive rows a thread), as K1 does: both score generations in
+//     registers, a row shift one shuffle of the edge row, no barrier on a
+//     diagonal.  A block of 8, 16 or 32 lanes (`mea_lanes`: the widest that
+//     leaves no SM idle, so the REL path's 1024 lanes spread over 128
+//     blocks of 8) stages a tile of diagonals (8, or 4 at three or four
+//     rows a thread) while it computes the previous tile, its pointers
+//     leaving through shared memory as lane rows: one barrier a tile.  The
+//     three weight bands are 12 of K4's 13 bytes a cell, and copying them
+//     with cp.async, 4 bytes a lane and row, bound it (the copies alone
+//     took 0.86 of 0.95 ms at [3072, 24, 1024] on an H100); the tensor
+//     memory accelerator brings each tile's three boxes instead (B a
+//     multiple of 4, Wp <= 64; `mea_tma`, `mea_map`), one thread asking, a
+//     barrier counting the bytes in: 0.76 ms there, 1.71 at [3072, 24,
+//     4096] (2.40 by cp.async), against 1.75 and 2.26 for the first design
+//     (a block per 32 lanes, a barrier a diagonal, 32 blocks on 132 SMs at
+//     1024 lanes).
+//   mea_multi runs a block per 32 lanes (common.cuh): the score frontier
+//     (three generations, d mod 3) in shared memory, one barrier a
 //     diagonal, the next diagonal's weights fetched while the current one
 //     computes.
 //   D runs one warp per lane (common.cuh), as the TPU kernel's delay line
@@ -59,15 +76,18 @@
 //     instructions a diagonal (without the row shuffles 33% faster,
 //     without device memory 17%); loading every gap weight from the sums
 //     instead of the delay line took 1.8x as long.
+#include <cuda.h>  // CUtensorMap (libcuda is not linked)
+#include <string.h>
+
 #include "common.cuh"
 
 namespace {
 
 using mk::NEG;
 
-// ------------------------------------------ K4, mea_multi: block per lanes
+// ------------------------------------------- mea_multi: block per lanes
 
-// The weights as materialised bands.
+// The weights as materialised bands (K4 and mea_multi).
 struct BandWeights {
   const float* __restrict__ wdiag;
   const float* __restrict__ wup;
@@ -235,6 +255,456 @@ int dispatch(const BandWeights& w, const int32_t* final_d,
     case 4: return run<4, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// ----------------------------------------------------- K4: warp per lane
+
+// Diagonals a tile: 8 at up to two rows a thread (Wp <= 64), 4 above, so
+// that the ring of weight tiles of 8 lanes still fits a block at Wp 128.
+__host__ __device__ constexpr int mea_kt_rpt(int rpt) {
+  return rpt <= 2 ? 8 : 4;
+}
+constexpr int MEA_STAGES = 2;  // input tiles: the one computed, 1 in flight
+
+// A tile's inputs in shared memory: the three weight planes (wdiag, wup,
+// wleft), the shifts s1, s2 [LPB][KT], and the valid band as a byte tile
+// (mk::byte_stride's layout).  A weight plane comes in one of two layouts:
+//   TMA (B a multiple of 4, Wp <= 64): the tensor memory accelerator copies
+//     the box [KT][Wp][LPB] of each band as it lies in device memory, lanes
+//     fastest, its 16-byte pieces swizzled by the row's low bits (the
+//     map's 32, 64 or 128-byte swizzle at LPB 8, 16, 32), so that the 32
+//     rows of one lane a warp reads fall on 8 banks (4-way conflicts, not
+//     LPB-way); a plane takes a multiple of 1024 bytes, 1024-aligned;
+//   else cp.async, 4 bytes a lane and row: [LPB][mea_stride] floats, lane
+//     w's row k of tile diagonal kb at w * stride + kb * Wp + k, the
+//     stride odd so that a warp reading its lane's rows touches 32 banks.
+struct MeaIn {
+  float* w;
+  int32_t* s1;
+  int32_t* s2;
+  uint8_t* v;
+};
+
+__host__ __device__ inline int mea_stride(int Wp, int kt) {
+  return kt * Wp + 1;
+}
+// Floats of one weight plane of a stage.
+__host__ __device__ inline size_t mea_wplane(int Wp, int kt, int lpb,
+                                             bool tma) {
+  return tma ? ((size_t)kt * Wp * lpb + 255) / 256 * 256
+             : (size_t)lpb * mea_stride(Wp, kt);
+}
+__host__ __device__ inline size_t mea_bplane(int Wp, int kt, int lpb) {
+  return (size_t)kt * Wp * mk::byte_stride(lpb);
+}
+// One stage buffer, rounded up to 1024 bytes with TMA, else to 16.
+__host__ __device__ inline size_t mea_in_bytes(int Wp, int kt, int lpb,
+                                               bool tma) {
+  const size_t a = tma ? 1024 : 16;
+  const size_t b = (3 * mea_wplane(Wp, kt, lpb, tma) + 2 * (size_t)lpb * kt) *
+                       4 + mea_bplane(Wp, kt, lpb);
+  return (b + a - 1) / a * a;
+}
+// MEA_STAGES stage buffers and two pointer tiles; with TMA 1024 bytes to
+// align the stages and the stages' barriers.
+inline size_t mea_smem(int Wp, int lpb, bool tma) {
+  const int kt = mea_kt_rpt(mk::rows_per_thread(Wp));
+  return (tma ? 1024 + 8 * MEA_STAGES : 0) +
+         MEA_STAGES * mea_in_bytes(Wp, kt, lpb, tma) +
+         2 * mea_bplane(Wp, kt, lpb);
+}
+
+__device__ inline MeaIn mea_in(uint8_t* p, int Wp, int kt, int lpb,
+                               bool tma) {
+  float* w = reinterpret_cast<float*>(p);
+  int32_t* s =
+      reinterpret_cast<int32_t*>(w + 3 * mea_wplane(Wp, kt, lpb, tma));
+  return MeaIn{w, s, s + lpb * kt,
+               reinterpret_cast<uint8_t*>(s + 2 * lpb * kt)};
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Where row q, lane w of a TMA weight plane lies (floats from its start):
+// the map's swizzle XORs the 16-byte piece with bits 7.. of the offset.
+template <int LPB>
+__device__ __forceinline__ int mea_swizzled(int q, int w) {
+  constexpr int M = LPB == 32 ? 7 : (LPB == 16 ? 3 : 1);
+  const int o = (q * LPB + w) * 4;
+  return (o ^ (((o >> 7) & M) << 4)) >> 2;
+}
+
+// The three weight bands' tensor maps for TMA (unused by cp.async).
+struct MeaMaps {
+  CUtensorMap wd, wu, wl;
+};
+
+// Starts the copy of diagonals d0 .. d0 + n - 1 of the block's lanes
+// b0 .. b0 + LPB - 1 into S (the caller commits the cp.async group).  TMA:
+// thread 0 asks for the three weight boxes, to arrive on barrier bar;
+// cp.async: thread tid copies lane tid % LPB of rows tid / LPB + 32 i of
+// each weight band, so a warp moves 32 / LPB rows of LPB lanes a step.  The
+// shifts and the valid bytes take cp.async either way.
+template <int LPB, int KT, bool TMA>
+__device__ __forceinline__ void mea_stage(const MeaIn& S, const BandWeights& w,
+                                          const MeaMaps& maps, uint64_t* bar,
+                                          int d0, int n, int b0, bool vec) {
+  const int Wp = w.Wp, B = w.B;
+  const int l = threadIdx.x % LPB, b = b0 + l;
+  const size_t plane = mea_wplane(Wp, KT, LPB, TMA);
+  if (TMA) {
+    if (threadIdx.x == 0) {
+      const unsigned bytes = 3u * KT * Wp * LPB * 4;
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile(
+          "{\n .reg .b64 st;\n"
+          " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::
+              "r"(smem_addr(bar)), "r"(bytes) : "memory");
+      const CUtensorMap* m[3] = {&maps.wd, &maps.wu, &maps.wl};
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+        asm volatile(
+            "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+            ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+            :: "r"(smem_addr(S.w + q * plane)), "l"((uint64_t)m[q]),
+               "r"(b0), "r"(0), "r"(d0), "r"(smem_addr(bar))
+            : "memory");
+    }
+  } else if (b < B) {
+    const size_t g = (size_t)d0 * Wp * B + b;
+    float* s = S.w + l * mea_stride(Wp, KT);
+    for (int r = threadIdx.x / LPB; r < n * Wp; r += 32) {
+      const size_t o = g + (size_t)r * B;
+      mk::cp_async4(s + r, w.wdiag + o);
+      mk::cp_async4(s + plane + r, w.wup + o);
+      mk::cp_async4(s + 2 * plane + r, w.wleft + o);
+    }
+  }
+  const int kb = threadIdx.x / LPB;
+  if (kb < n && b < B) {
+    const size_t o = (size_t)(d0 + kb) * B + b;
+    mk::cp_async4(S.s1 + l * KT + kb, w.s1 + o);
+    mk::cp_async4(S.s2 + l * KT + kb, w.s2 + o);
+  }
+  mk::stage_bytes<LPB>(S.v, w.valid, (size_t)d0 * Wp, n * Wp, b0, B, vec);
+}
+
+// The decode of one lane (rows as mk::WarpRows): both score generations in
+// registers, a row shift one shuffle of the edge row.  A full tile runs
+// unrolled, each diagonal's inputs read from the stage buffer one diagonal
+// ahead, with no branch on the warp's chain of diagonals; the first and a
+// partial last tile run a rolled loop.
+template <int RPT, int LPB, bool TMA>
+struct MeaWarp {
+  static constexpr int SB = mk::byte_stride(LPB);
+  static constexpr int KT = mea_kt_rpt(RPT);
+  // One diagonal's inputs (rows past the band read row Wp - 1: their
+  // results are never read).
+  struct In {
+    float wd[RPT], wu[RPT], wl[RPT];
+    bool v[RPT];
+    int t1, t2;
+  };
+  mk::WarpRows<RPT> rows;
+  int Wp, fd, fk, stride;
+  size_t plane;
+  float a1[RPT], a2[RPT];  // scores of d - 1, d - 2
+  float tscore = NEG;      // the score at the terminal
+  bool hit = false;        // whether this thread holds it
+
+  __device__ MeaWarp(int Wp_, int fd_, int fk_)
+      : rows(Wp_), Wp(Wp_), fd(fd_), fk(fk_), stride(mea_stride(Wp_, KT)),
+        plane(mea_wplane(Wp_, KT, LPB, TMA)) {}
+
+  __device__ int row(int r) const { return rows.row(r); }
+
+  __device__ __forceinline__ In load(const MeaIn& S, int w, int kb) const {
+    In a;
+    const uint8_t* v = S.v + kb * Wp * SB + w;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const int k = min(row(r), Wp - 1);
+      const int o = TMA ? mea_swizzled<LPB>(kb * Wp + k, w)
+                        : w * stride + kb * Wp + k;
+      a.wd[r] = S.w[o];
+      a.wu[r] = S.w[plane + o];
+      a.wl[r] = S.w[2 * plane + o];
+      a.v[r] = v[k * SB] != 0;
+    }
+    a.t1 = S.s1[w * KT + kb];
+    a.t2 = S.s2[w * KT + kb];
+    return a;
+  }
+
+  // Diagonals d0 .. d0 + n - 1 of lane w from stage buffer S into the
+  // pointer tile out.
+  __device__ __forceinline__ void tile(const MeaIn& S, uint8_t* out, int w,
+                                       int d0, int n) {
+    int kb = 0;
+    if (d0 == 0) {
+      // d = 0 is pure initialisation: 0 at row 0; d - 1 holds NEG.
+      float na[RPT];
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        na[r] = row(r) == 0 ? 0.f : NEG;
+        a2[r] = NEG;
+        if (row(r) < Wp) out[row(r) * SB + w] = 0;
+      }
+      publish(0, na);
+      kb = 1;
+    }
+    if (kb == 0 && n == KT) {
+      In cur = load(S, w, 0);
+#pragma unroll
+      for (int q = 0; q < KT; ++q) {
+        const In next = load(S, w, q + 1 < KT ? q + 1 : q);
+        step(d0 + q, cur, out + q * Wp * SB + w);
+        cur = next;
+      }
+    } else {
+      for (; kb < n; ++kb)
+        step(d0 + kb, load(S, w, kb), out + kb * Wp * SB + w);
+    }
+  }
+
+  // Generation d >= 1 from its inputs a; pointers at row k go to
+  // ptr[k * SB].  Diag from d - 2 at row shift s2 - 1, left (ref skip) from
+  // d - 1 at shift s1, up (read skip) at shift s1 - 1: at most one of the
+  // two moves, so d - 1 rolls once.
+  __device__ __forceinline__ void step(int d, const In& a, uint8_t* ptr) {
+    const mk::GapMove g(a.t1);
+    float ar[RPT], dg[RPT], na[RPT];
+    rows.roll(a1, ar, g.by);
+    rows.roll(a2, dg, mk::diag_move(a.t2));
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const float diag = dg[r] + a.wd[r];
+      const float left = (g.left ? ar[r] : a1[r]) + a.wl[r];
+      const float up = (g.up ? ar[r] : a1[r]) + a.wu[r];
+      int am;
+      const float val = mk::max_argmax3(diag, left, up, am);
+      na[r] = a.v[r] ? val : NEG;
+      if (row(r) < Wp) ptr[row(r) * SB] = (uint8_t)am;
+      a2[r] = a1[r];
+    }
+    publish(d, na);
+  }
+
+  // Generation d becomes d - 1; the score at the lane's terminal is kept.
+  __device__ __forceinline__ void publish(int d, const float (&na)[RPT]) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      a1[r] = na[r];
+      const bool at = (d == fd) & (row(r) == fk) & (fk < Wp);
+      tscore = at ? na[r] : tscore;
+      hit = hit | at;
+    }
+  }
+
+  // The lane's score, from the thread that kept it; NEG where the lane's
+  // terminal lies on no diagonal of the band (the plain version's default).
+  __device__ void finish(float* score) const {
+    const unsigned any = __ballot_sync(mk::FULL, hit);
+    if (hit) *score = fmaxf(tscore, NEG);
+    else if (any == 0 && rows.kk == 0) *score = NEG;
+  }
+};
+
+template <int RPT, int LPB, bool TMA>
+__global__ void __launch_bounds__(32 * LPB)
+    mea_warp_kernel(BandWeights wts, const __grid_constant__ MeaMaps maps,
+                    const int32_t* __restrict__ final_d,
+                    const int32_t* __restrict__ final_k, int D1, int vec,
+                    uint8_t* __restrict__ ptr, float* __restrict__ score) {
+  constexpr int KT = mea_kt_rpt(RPT);
+  extern __shared__ __align__(16) uint8_t mea_raw[];
+  const int Wp = wts.Wp, B = wts.B;
+  // TMA: the stages start 1024-aligned in the shared window, their
+  // barriers after the pointer tiles.
+  uint8_t* raw =
+      TMA ? mea_raw + ((1024 - smem_addr(mea_raw) % 1024) % 1024) : mea_raw;
+  const size_t nin = mea_in_bytes(Wp, KT, LPB, TMA),
+               nout = mea_bplane(Wp, KT, LPB);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      raw + MEA_STAGES * nin + (2 * nout + 7) / 8 * 8);
+  const int w = threadIdx.x >> 5;
+  const int b0 = blockIdx.x * LPB, b = b0 + w;
+  const bool live = b < B;  // warp-uniform
+  const int tiles = (D1 + KT - 1) / KT;
+  // Stage buffer of tile t (t mod MEA_STAGES), pointer tile (by parity).
+  auto in = [&](int t) {
+    return mea_in(raw + (t % MEA_STAGES) * nin, Wp, KT, LPB, TMA);
+  };
+  auto out = [&](int t) { return raw + MEA_STAGES * nin + (t & 1) * nout; };
+  // One cp.async group a tile, empty past the last, so that wait_but counts
+  // tiles.
+  auto stage = [&](int t) {
+    if (t < tiles)
+      mea_stage<LPB, KT, TMA>(in(t), wts, maps, bars + t % MEA_STAGES,
+                              t * KT, min(KT, D1 - t * KT), b0, vec);
+    mk::cp_async_commit();
+  };
+  auto flush = [&](int t) {
+    const int d0 = t * KT;
+    mk::flush_bytes<LPB>(ptr, out(t), (size_t)d0 * Wp, min(KT, D1 - d0) * Wp,
+                         b0, B, vec);
+  };
+  if (TMA && threadIdx.x == 0) {
+    for (int s = 0; s < MEA_STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                       smem_addr(bars + s)), "r"(1)
+                   : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (TMA) __syncthreads();
+  MeaWarp<RPT, LPB, TMA> lane(Wp, live ? final_d[b] : -1,
+                              live ? final_k[b] : -1);
+  for (int t = 0; t < MEA_STAGES - 1; ++t) stage(t);
+  for (int t = 0; t < tiles; ++t) {
+    // Tile t has landed (this thread's copies and, with TMA, the barrier's
+    // phase t / MEA_STAGES, then everyone's), every warp is past tile
+    // t - 1, whose pointers leave now and whose stage buffer takes tile
+    // t + MEA_STAGES - 1.
+    mk::cp_async_wait_but<MEA_STAGES - 2>();
+    if (TMA)
+      asm volatile(
+          "{\n .reg .pred p;\n WAIT_%=:\n"
+          " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+          " @!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bars + t % MEA_STAGES)),
+          "r"((t / MEA_STAGES) & 1)
+          : "memory");
+    __syncthreads();
+    if (t > 0) flush(t - 1);
+    stage(t + MEA_STAGES - 1);
+    if (live) lane.tile(in(t), out(t), w, t * KT, min(KT, D1 - t * KT));
+  }
+  __syncthreads();
+  flush(tiles - 1);
+  if (live) lane.finish(score + b);
+}
+
+// (TMA only at one and two rows a thread: `mea_tma`.)
+template <int LPB, bool TMA>
+const void* mea_kernel_rpt(int Wp) {
+  switch (mk::rows_per_thread(Wp)) {
+    case 1: return (const void*)mea_warp_kernel<1, LPB, TMA>;
+    case 2: return (const void*)mea_warp_kernel<2, LPB, TMA>;
+    case 3: return TMA ? nullptr : (const void*)mea_warp_kernel<3, LPB, false>;
+    case 4: return TMA ? nullptr : (const void*)mea_warp_kernel<4, LPB, false>;
+  }
+  return nullptr;
+}
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime (libcuda
+// is not linked); null where the installed CUDA lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return (EncodeTiled)f;
+  }();
+  return fn;
+}
+
+// Whether K4's launch at (Wp, B) takes TMA: B a multiple of 4 (the maps'
+// row strides are multiples of 16 bytes), at most two rows a thread, and
+// the maps can be encoded.  At three and four rows a thread the swizzled
+// planes' 4-way bank conflicts cost more than TMA saves: on an H100 at Wp
+// 96 / 128 over 1024 lanes TMA took 3.93 / 5.02 ms, cp.async 3.67 / 4.51
+// (kernel_ab.py).
+bool mea_tma(int Wp, int B) {
+  return B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&
+         tensor_map_encoder() != nullptr;
+}
+
+// The tensor map of one weight band [D1, Wp, B] for boxes [KT][Wp][LPB].
+bool mea_map(CUtensorMap* m, const float* band, int D1, int Wp, int B,
+             int lpb) {
+  if (reinterpret_cast<uintptr_t>(band) % 16) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)B, (cuuint64_t)Wp, (cuuint64_t)D1};
+  const cuuint64_t strides[2] = {(cuuint64_t)B * 4, (cuuint64_t)Wp * B * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)lpb, (cuuint32_t)Wp,
+                             (cuuint32_t)mea_kt_rpt(mk::rows_per_thread(Wp))};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      lpb == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : (lpb == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B);
+  return tensor_map_encoder()(
+             m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(band),
+             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// K4's lanes a block on the current device: the most of 32, 16 and 8 whose
+// block fits shared memory and whose blocks still reach 15/16 of the SMs;
+// 32 (1024 threads, 64 registers) only at one row a thread.  Wider blocks
+// copy wider weight rows, and the copies bound K4 where the SMs are full,
+// so wider wins as long as no SM idles: on an H100 (kernel_ab.py
+// probe_mea) [3072, 24, 4096] took 1.71 ms at 32 lanes, 2.02 at 16, 5.79 at
+// 8; [512, 24, 2048] 0.173 at 16, 0.184 at 8; [3072, 24, 1024] 0.76 at 8,
+// 1.02 at 16 (64 blocks).  mk::warp_lanes (16 from 16 x SMs lanes on)
+// would leave 2048 lanes at 8 and 4096 at 16.
+cudaError_t mea_lanes(int Wp, int B, bool tma, int* lanes) {
+  int dev = 0, sms = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  for (int l = 32; l >= 8; l /= 2) {
+    if (l == 32 && mk::rows_per_thread(Wp) > 1) continue;
+    if (mea_smem(Wp, l, tma) > (size_t)cap) continue;
+    if (l > 8 && (B + l - 1) / l < sms - sms / 16) continue;
+    *lanes = l;
+    return cudaSuccess;
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The kernel, lanes a block (mea_lanes) and shared memory of K4's launch
+// at (Wp, B) with or without TMA, its shared memory opted in.
+cudaError_t mea_setup(int Wp, int B, bool tma, const void** kernel,
+                      int* lanes, size_t* smem) {
+  if (Wp < 1 || mk::rows_per_thread(Wp) > mk::MAX_RPT)
+    return cudaErrorInvalidValue;
+  cudaError_t err = mea_lanes(Wp, B, tma, lanes);
+  if (err != cudaSuccess) return err;
+  switch (*lanes) {
+    case 8:
+      *kernel =
+          tma ? mea_kernel_rpt<8, true>(Wp) : mea_kernel_rpt<8, false>(Wp);
+      break;
+    case 16:
+      *kernel =
+          tma ? mea_kernel_rpt<16, true>(Wp) : mea_kernel_rpt<16, false>(Wp);
+      break;
+    case 32:
+      if (mk::rows_per_thread(Wp) != 1) return cudaErrorInvalidValue;
+      *kernel = tma ? (const void*)mea_warp_kernel<1, 32, true>
+                    : (const void*)mea_warp_kernel<1, 32, false>;
+      break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (*kernel == nullptr) return cudaErrorInvalidValue;
+  *smem = mea_smem(Wp, *lanes, tma);
+  return mk::allow_smem(*kernel, *smem);
 }
 
 // ------------------------------------------------------ D: warp per lane
@@ -617,10 +1087,42 @@ extern "C" int banded_mea_launch(const float* wdiag, const float* wup,
                                  const int32_t* final_k, int D1, int Wp,
                                  int B, uint8_t* ptr, float* score,
                                  void* stream) {
-  const BandWeights w{wdiag, wup, wleft, valid, s1, s2, Wp, B};
-  const MultiSteps none{nullptr, nullptr, nullptr, nullptr};
-  return dispatch<false>(w, final_d, final_k, none, D1, Wp, B, ptr, score,
-                         stream);
+  if (D1 < 1 || B < 1) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  BandWeights w{wdiag, wup, wleft, valid, s1, s2, Wp, B};
+  MeaMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  bool tma = mea_tma(Wp, B);
+  cudaError_t err = mea_setup(Wp, B, tma, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  if (tma && !(mea_map(&maps.wd, wdiag, D1, Wp, B, lanes) &&
+               mea_map(&maps.wu, wup, D1, Wp, B, lanes) &&
+               mea_map(&maps.wl, wleft, D1, Wp, B, lanes))) {
+    tma = false;
+    err = mea_setup(Wp, B, tma, &kernel, &lanes, &smem);
+    if (err != cudaSuccess) return err;
+  }
+  int vec = mk::words_aligned(B, {valid, ptr});
+  void* args[] = {&w, &maps, &final_d, &final_k, &D1, &vec, &ptr, &score};
+  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes),
+                          dim3(32 * lanes), args, smem,
+                          (cudaStream_t)stream);
+}
+
+// What K4's launch at band width Wp over B lanes gets on this device
+// (mk::kernel_info's out[5]; its lanes a block are out[3] / 32), with TMA
+// where B allows it.
+extern "C" int banded_mea_info(int Wp, int B, int* out) {
+  if (B < 1) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err =
+      mea_setup(Wp, B, mea_tma(Wp, B), &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }
 
 extern "C" int mea_dl_launch(const float* post, const int32_t* lo,

@@ -8,17 +8,38 @@
 // Replaces the TPU kernel marginalign_trna_tpu/ops/bucket_scatter.py
 // `bucket_scatter_lanesum` (`_make_bucket_scatter_lanesum_kernel`).  There
 // per-lane scatters scalarise, so values go through residue masks in
-// aligned groups of 128 rows into a VMEM-resident [rg, C] output.  Here one
-// thread per (row, lane) adds its C values into the output with atomics;
-// rg has no cap.  The order of the float32 sums depends on the schedule, so
-// the result agrees with the plain version to rounding only.
+// aligned groups of 128 rows into a VMEM-resident [rg, C] output.
 //
-// What bounds it on an H100: bytes (C * 4 + 4 per input cell read once, the
-// [rg, C] output written) while the atomics of one position stay few; a
-// position is covered by every lane whose segment spans it, so at deep
-// coverage the same-address atomics in L2 serialise first.  Threads with
-// nothing to add (jm == -1, or a zero value) skip the atomic.
-//
+// What bounds it on an H100: bytes (every target read once, the C values of
+// each targeted cell, the [rg, C] output written).  A position is covered
+// by every lane whose segment spans it (~300 on the caller's batch of 65536
+// lanes over 7168 positions), so one add a cell into global memory, as the
+// first design did, serialises same-address atomics in L2 (0.184 ms against
+// a 0.023 ms bound there).  The design:
+//   - a block owns a group of lanes (a power of two, at most one group an
+//     SM) and a window of output rows [0, rows) in shared memory (X_WIN
+//     floats, 128 KB: 8192 rows at C = 4, the caller's whole output below
+//     8192 positions); its threads walk the group's cells, lanes fastest
+//     (coalesced), four at a time with the targets' loads first, and add
+//     each targeted value into the window (a float add to shared memory is
+//     a compare-and-swap loop on this card, ATOMS.CAST.SPIN);
+//   - a target past the window goes straight into the output (one 16-byte
+//     atomic at C = 4): each block covers every row once, so any rg is
+//     served, and past 8192 positions a position is covered by fewer
+//     lanes, so fewer adds meet at one address;
+//   - a block writes its window out whole: into the output where there is
+//     one lane group, else as the group's partial [groups, rows, C], which
+//     a second pass sums in group order, one thread an output element.
+// On an H100 at [4, 152, 65536] (kernel_ab.py) that took 0.15 ms at rg
+// 7168, about half of it in the window's compare-and-swap loops (plain
+// adds: 0.08; gathering a warp's adds 32 at a time through a queue, or two
+// channels a 64-bit loop, no faster), and 0.10 ms at rg 65536 (the 16-byte
+// atomics past the window: 0.22 as four scalar ones), against 0.26 and
+// 0.20 for one global atomic a value.  The adds inside a block and those
+// past the window arrive in the order the threads reach them, so the sums
+// agree with the plain version to float32 rounding, not bit for bit; the
+// partials are summed in a fixed order.
+
 // scatter_lanes (L), the MEA's per-lane row and column posterior sums:
 //   out[v, b] = sum over d with jm[d, b] == v of vals[d, b].
 // Replaces marginalign_trna_tpu/ops/bucket_scatter.py `bucket_scatter`
@@ -60,20 +81,144 @@
 
 namespace {
 
-__global__ void scatter_lanesum_kernel(const float* __restrict__ vals,
-                                       const int32_t* __restrict__ jm,
-                                       int C, int D, int B, int rg,
-                                       float* __restrict__ out) {
+// ------------------------------------------------- X: windows of lanes
+
+constexpr int X_THREADS = 1024;  // threads a block (one block an SM)
+constexpr int X_WIN = 32768;     // floats of a block's output window
+constexpr int X_UNROLL = 4;      // cells a thread takes per step
+
+// X's launch at (C, B, rg): output rows of the window, lanes a group
+// (1 << shift) and lane groups (one block each).
+struct LanesumPlan {
+  int rows, shift, groups;
+};
+
+inline cudaError_t lanesum_plan(int C, int B, int rg, LanesumPlan* p) {
+  if (C < 1 || C > X_WIN || B < 1 || rg < 1) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  p->rows = rg < X_WIN / C ? rg : X_WIN / C;
+  // The fewest lanes a group (at least a warp's) that leave no more groups
+  // than SMs.
+  p->shift = 5;
+  while (p->shift < 30 && ((B - 1) >> p->shift) + 1 > sms) ++p->shift;
+  p->groups = ((B - 1) >> p->shift) + 1;
+  return cudaSuccess;
+}
+
+// Dynamic shared memory of a block: the window.
+inline size_t lanesum_smem(int C, int rows) {
+  return (size_t)rows * C * sizeof(float);
+}
+
+// Adds the four values to out[0..3] (global memory, 16-byte aligned).
+__device__ __forceinline__ void global_add4(float* out, const float4& v) {
+#if __CUDACC_VER_MAJOR__ > 12 || \
+    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
+  atomicAdd(reinterpret_cast<float4*>(out), v);
+#else
+  atomicAdd(out, v.x);
+  atomicAdd(out + 1, v.y);
+  atomicAdd(out + 2, v.z);
+  atomicAdd(out + 3, v.w);
+#endif
+}
+
+// Adds the four values to the window's row (a float add to shared memory is
+// a compare-and-swap loop on this card, one a channel).
+__device__ __forceinline__ void window_add4(float* row, const float4& v) {
+  if (v.x != 0.f) atomicAdd(row, v.x);
+  if (v.y != 0.f) atomicAdd(row + 1, v.y);
+  if (v.z != 0.f) atomicAdd(row + 2, v.z);
+  if (v.w != 0.f) atomicAdd(row + 3, v.w);
+}
+
+// One block per lane group: adds the group's values whose targets fall in
+// the window (output rows [0, rows)) into shared memory, the others (rows
+// [rows, rg)) straight into out, and writes the window to the group's
+// partial [rows, C] in part, or into out itself where there is one group.
+// CT is C where it is known at compile time (the caller's 4), else 0.
+template <int CT>
+__global__ void __launch_bounds__(X_THREADS, 1)
+    lanesum_window_kernel(const float* __restrict__ vals,
+                          const int32_t* __restrict__ jm, int C, int D, int B,
+                          int rg, LanesumPlan p, float* __restrict__ part,
+                          float* __restrict__ out) {
+  extern __shared__ __align__(16) float x_win[];
+  const int nc = CT > 0 ? CT : C;
+  const int n = p.rows, g = blockIdx.x;
+  const int b0 = g << p.shift;
+  const int mask = (1 << p.shift) - 1;
+  for (int i = threadIdx.x; i < n * nc; i += X_THREADS) x_win[i] = 0.f;
+  __syncthreads();
   const size_t cells = (size_t)D * B;
-  for (size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < cells; idx += (size_t)gridDim.x * blockDim.x) {
-    const int v = jm[idx];
-    if (v < 0 || v >= rg) continue;
-    for (int c = 0; c < C; ++c) {
-      const float x = vals[(size_t)c * cells + idx];
-      if (x != 0.f) atomicAdd(&out[(size_t)v * C + c], x);
+  const long long total = (long long)D << p.shift;
+  for (long long i0 = threadIdx.x; i0 < total;
+       i0 += (long long)X_UNROLL * X_THREADS) {
+    int t[X_UNROLL];
+    size_t at[X_UNROLL];
+#pragma unroll
+    for (int u = 0; u < X_UNROLL; ++u) {
+      const long long i = i0 + (long long)u * X_THREADS;
+      const int b = b0 + (int)(i & mask);
+      const bool in = (i < total) & (b < B);
+      at[u] = (size_t)(i >> p.shift) * B + b;
+      t[u] = in ? jm[at[u]] : -1;
+    }
+    if (CT == 4) {
+      float4 x[X_UNROLL];
+#pragma unroll
+      for (int u = 0; u < X_UNROLL; ++u) {
+        const bool hit = (unsigned)t[u] < (unsigned)rg;
+        const float* v = vals + at[u];
+        x[u] = hit ? make_float4(v[0], v[cells], v[2 * cells], v[3 * cells])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < X_UNROLL; ++u) {
+        if ((unsigned)t[u] < (unsigned)n)
+          window_add4(x_win + t[u] * 4, x[u]);
+        else if ((unsigned)t[u] < (unsigned)rg)
+          global_add4(out + (size_t)t[u] * 4, x[u]);
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < X_UNROLL; ++u) {
+        if ((t[u] < 0) | (t[u] >= rg)) continue;
+        for (int c = 0; c < nc; ++c) {
+          const float x = vals[(size_t)c * cells + at[u]];
+          if (x == 0.f) continue;
+          if (t[u] < n)
+            atomicAdd(&x_win[t[u] * nc + c], x);
+          else
+            atomicAdd(out + (size_t)t[u] * nc + c, x);
+        }
+      }
     }
   }
+  __syncthreads();
+  float* win = p.groups > 1 ? part + (size_t)g * n * nc : out;
+  for (int i = threadIdx.x; i < n * nc; i += X_THREADS) win[i] = x_win[i];
+}
+
+// out[e] = the lane groups' partials part[g][e] summed in group order.
+__global__ void __launch_bounds__(256)
+    lanesum_reduce_kernel(const float* __restrict__ part, int groups,
+                          size_t n, float* __restrict__ out) {
+  const size_t e = (size_t)blockIdx.x * 256 + threadIdx.x;
+  if (e >= n) return;
+  float s = part[e];
+#pragma unroll 8
+  for (int g = 1; g < groups; ++g) s += part[(size_t)g * n + e];
+  out[e] = s;
+}
+
+const void* lanesum_kernel(int C) {
+  return C == 4 ? (const void*)lanesum_window_kernel<4>
+                : (const void*)lanesum_window_kernel<0>;
 }
 
 constexpr int L_LANES = 4;    // lanes per block
@@ -348,18 +493,56 @@ __global__ void __launch_bounds__(L_LANES * L_CHUNKS, 8)
 
 }  // namespace
 
-// Plain C entry points (loaded with ctypes); device pointers.  `out` must be
-// zeroed by the caller.  Each returns a cudaError_t code.
+// Plain C entry points (loaded with ctypes); device pointers.  Each returns
+// a cudaError_t code.
+
+// X's plan at (C, B, rg) on this device: out[0] its lane groups, out[1]
+// the rows of its output window; where there is more than one group the
+// launch takes a scratch of groups * rows * C floats.
+extern "C" int scatter_lanesum_plan(int C, int B, int rg, int* out) {
+  LanesumPlan p;
+  const cudaError_t err = lanesum_plan(C, B, rg, &p);
+  if (err == cudaSuccess) {
+    out[0] = p.groups;
+    out[1] = p.rows;
+  }
+  return err;
+}
+
+// What the window kernel of X's launch at (C, B, rg) gets on this device
+// (mk::kernel_info's out[5]).
+extern "C" int scatter_lanesum_info(int C, int B, int rg, int* out) {
+  LanesumPlan p;
+  const cudaError_t err = lanesum_plan(C, B, rg, &p);
+  if (err != cudaSuccess) return err;
+  return mk::kernel_info(lanesum_kernel(C), lanesum_smem(C, p.rows),
+                         X_THREADS, out);
+}
+
+// out [rg, C], zeroed by the caller; part: the scratch of the plan's
+// `groups` lane groups' windows (scatter_lanesum_plan), unused at one.
 extern "C" int scatter_lanesum_launch(const float* vals, const int32_t* jm,
-                                      int C, int D, int B, int rg, float* out,
+                                      int C, int D, int B, int rg,
+                                      float* part, int groups, float* out,
                                       void* stream) {
-  if (C < 1 || D < 1 || B < 1 || rg < 1) return cudaErrorInvalidValue;
-  const size_t cells = (size_t)D * B;
-  const int threads = 256;
-  const size_t want = (cells + threads - 1) / threads;
-  const int blocks = (int)(want < 65535 * 16 ? want : 65535 * 16);
-  scatter_lanesum_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      vals, jm, C, D, B, rg, out);
+  if (D < 1) return cudaErrorInvalidValue;
+  LanesumPlan p;
+  cudaError_t err = lanesum_plan(C, B, rg, &p);
+  if (err != cudaSuccess) return err;
+  if (groups != p.groups || (groups > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
+  const void* kernel = lanesum_kernel(C);
+  const size_t smem = lanesum_smem(C, p.rows);
+  err = mk::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  void* args[] = {&vals, &jm, &C, &D, &B, &rg, &p, &part, &out};
+  const cudaStream_t s = (cudaStream_t)stream;
+  err = cudaLaunchKernel(kernel, dim3(p.groups), dim3(X_THREADS), args, smem,
+                         s);
+  if (err != cudaSuccess || groups == 1) return err;
+  const size_t n = (size_t)p.rows * C;
+  lanesum_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
+      part, groups, n, out);
   return cudaGetLastError();
 }
 

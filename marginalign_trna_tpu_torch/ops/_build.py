@@ -64,8 +64,8 @@ _SIGNATURES: Dict[str, List] = {
     # es, yb, fr, bm, bls, logZ, coef(host), chain, d1k, Wp, B, fl, tails,
     # stream
     "cx_forward": [_P] * 7 + [_I] * 4 + [_P] * 3,
-    # vals, jm, C, D, B, rg, out, stream
-    "scatter_lanesum": [_P] * 2 + [_I] * 4 + [_P] * 2,
+    # vals, jm, C, D, B, rg, part (scratch or null), groups, out, stream
+    "scatter_lanesum": [_P] * 2 + [_I] * 4 + [_P, _I] + [_P] * 2,
     # reads, refs, lo, m, n, Mp, Np, D1, d1k, Wp, B, xb, yb, stream
     "expand_rel": [_P] * 5 + [_I] * 6 + [_P] * 3,
     # es, fr, frr, lom, bm, bls, logZ, coef(host), chain, d1k, Wp, B,
@@ -152,6 +152,10 @@ _QUERIES: Dict[str, List] = {
     "sv_backward_info": [_I, _I, _P],
     "banded_nw_info": [_I, _I, _P],
     "mea_dl_info": [_I, _I, _P],
+    "banded_mea_info": [_I, _I, _P],
+    # C, B, rg, out[5] or out[2]: groups, window rows (csrc/scatter.cu: X)
+    "scatter_lanesum_info": [_I, _I, _I, _P],
+    "scatter_lanesum_plan": [_I, _I, _I, _P],
     "expand_streams_info": [_I, _P],
     "expand_rel_info": [_I, _P],
 }

@@ -7,11 +7,15 @@ out[v, c] = sum over (d, b) with jm[d, b] == v of vals[c, d, b].  The TPU
 kernel places values by residue masks in aligned groups of 128 rows,
 because per-lane gathers and scatters scalarise there, and keeps its
 [rg, C] output resident in VMEM (the JAX package drops to a chunked kernel
-above 65536 positions for that reason).  On the card one thread per
-(row, lane) adds its C values into out[jm, :] with atomics: no group
-structure and no cap on rg.  Atomics add in no fixed order, so the kernel
-agrees with the plain version to float32 rounding of the sums, not bit for
-bit.
+above 65536 positions for that reason).  On the card a block owns a group
+of lanes and a window of output rows [0, 8192) in shared memory (at C = 4:
+the caller's whole output below 8192 positions), adds its lanes' values
+that target the window there and the others straight into the output, and
+writes the window out; where there is more than one lane group a second
+pass sums the groups' windows in group order (`scatter_lanesum_plan` gives
+the groups and rows, for the scratch).  The adds inside a block and those
+past the window come in no fixed order, so the kernel agrees with the
+plain version to float32 rounding of the sums, not bit for bit.
 
 L is the port of that module's `bucket_scatter` (called through
 `bucket_scatter_chunked`), the per-lane scatter of the MEA's row and column
@@ -33,6 +37,9 @@ which the port performs as direct loads inside the expand_streams kernel
 """
 from __future__ import annotations
 
+import ctypes
+from typing import Dict, Tuple
+
 import torch
 
 from . import _build
@@ -51,6 +58,28 @@ def scatter_lanesum_plain(vals: torch.Tensor, jm: torch.Tensor,
     return out[:rg]
 
 
+def scatter_lanesum_plan(device: torch.device, C: int, B: int,
+                         rg: int) -> Tuple[int, int]:
+    """(lane groups, window rows) of the scatter_lanesum kernel's launch at
+    (C, B, rg) on `device` (csrc/scatter.cu `lanesum_plan`): one block per
+    group, its window the output rows [0, rows); above one group, the
+    launch sums the groups' windows from a scratch."""
+    out = (ctypes.c_int * 2)()
+    _build.query("scatter_lanesum_plan", device, C, B, rg,
+                 ctypes.addressof(out))
+    return out[0], out[1]
+
+
+def scatter_lanesum_resources(device: torch.device, C: int, B: int,
+                              rg: int) -> Dict[str, int]:
+    """What the window kernel of a scatter_lanesum launch at (C, B, rg)
+    gets on `device` (registers, shared memory a block, blocks an SM,
+    threads a block, spills), with its lane groups and window rows."""
+    res = _build.resources("scatter_lanesum_info", device, C, B, rg)
+    groups, rows = scatter_lanesum_plan(device, C, B, rg)
+    return {**res, "groups": groups, "window_rows": rows}
+
+
 def scatter_lanesum_cuda(vals: torch.Tensor, jm: torch.Tensor,
                          rg: int) -> torch.Tensor:
     """The scatter_lanesum kernel (csrc/scatter.cu); the plain version's
@@ -59,9 +88,13 @@ def scatter_lanesum_cuda(vals: torch.Tensor, jm: torch.Tensor,
     dev = vals.device
     check_tensor(vals, torch.float32, (C, D, B), dev)
     check_tensor(jm, torch.int32, (D, B), dev)
+    groups, rows = scatter_lanesum_plan(dev, C, B, rg)
     out = torch.zeros((rg, C), dtype=torch.float32, device=dev)
+    part = (torch.empty((groups, rows, C), dtype=torch.float32, device=dev)
+            if groups > 1 else None)
     _build.launch("scatter_lanesum", dev, vals.data_ptr(), jm.data_ptr(),
-                  C, D, B, rg, out.data_ptr())
+                  C, D, B, rg, None if part is None else part.data_ptr(),
+                  groups, out.data_ptr())
     return out
 
 

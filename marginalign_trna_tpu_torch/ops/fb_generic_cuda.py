@@ -22,8 +22,11 @@ in two variants that compute the same floats: the model as run-time tables
 
 The arithmetic is the E-step counts kernels' with one trial and no counts
 (ops/fb_counts_cuda.py): the plain versions are its `_forward` and
-`_Backward`, the kernels two more instances of its kernel templates, so the
-kernels and the plain versions round identically.
+`_Backward`; the forward kernel is another instance of the checkpoint
+forward's template (`counts_fwd_ckpt_kernel` in its match-plane mode), the
+backward a kernel of its own (`generic_bwd_kernel`) on the checkpoint
+backward's recursion, so the kernels and the plain versions round
+identically.
 """
 from __future__ import annotations
 

@@ -119,12 +119,13 @@ def banded_nw_cuda(params, xb, yb, valid, s1, s2, final_d, final_k):
 
 def warp_lane_resources(name: str, device: torch.device, wp: int,
                         B: int) -> Dict[str, int]:
-    """What a launch of the warp-per-lane kernel `name` (banded_nw or
-    mea_dl) over B lanes at band width `wp` gets on `device`: registers per
-    thread, shared memory per block, blocks per SM, threads per block,
-    local memory per thread (spills) and the lanes a block, which
-    csrc/common.cuh `warp_lanes` chooses from B, the SM count and the
-    shared memory a block may take."""
+    """What a launch of the warp-per-lane kernel `name` (banded_nw,
+    banded_mea or mea_dl) over B lanes at band width `wp` gets on `device`:
+    registers per thread, shared memory per block, blocks per SM, threads
+    per block, local memory per thread (spills) and the lanes a block,
+    which csrc/common.cuh `warp_lanes` (K4: csrc/mea.cu `mea_lanes`)
+    chooses from B, the SM count and the shared memory a block may
+    take."""
     res = _build.resources(name + "_info", device, wp, B)
     return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 

@@ -1521,3 +1521,226 @@ def test_stored_pair_resources(cuda, wp, multi, backward):
         assert res["lanes_per_block"] == lanes, res
         assert res["local_bytes"] == 0, res
         assert res["registers"] > 0 and res["blocks_per_sm"] >= 1, res
+
+
+# ------------------------------------------ K4: one warp per lane
+
+
+def _random_mea(cuda, D1, wp, B, seed, invalid_lanes=(), final_d=None):
+    """K4's inputs at random: wdiag in [0, 1) with 20% NEG (no match
+    weight), wup / wleft in [0, 0.5), 80% valid cells (no valid cell in
+    `invalid_lanes`), shifts s1 in {-1, 0, 1, 2} and s2 in {-1, ..., 3}
+    (every move of the plain version's rows and the rows left in place),
+    terminals on any diagonal (every fifth at d = 0, every eleventh past
+    the band: the plain version's NEG) and any band row; or every terminal
+    at `final_d`."""
+    rng = np.random.default_rng(seed)
+    wdiag = rng.random((D1, wp, B)).astype(np.float32)
+    wdiag[rng.random(wdiag.shape) < 0.2] = NEG
+    valid = rng.random((D1, wp, B)) < 0.8
+    valid[..., list(invalid_lanes)] = False
+    if final_d is None:
+        fd = rng.integers(0, D1, B).astype(np.int32)
+        fd[::5] = 0
+        fd[3::11] = D1 + 3
+    else:
+        fd = np.full(B, final_d, np.int32)
+    return (_t(cuda, wdiag),
+            _t(cuda, (rng.random((D1, wp, B)) * 0.5).astype(np.float32)),
+            _t(cuda, (rng.random((D1, wp, B)) * 0.5).astype(np.float32)),
+            _t(cuda, valid),
+            _t(cuda, rng.choice([-1, 0, 1, 2], p=[.05, .45, .45, .05],
+                                size=(D1, B)).astype(np.int32)),
+            _t(cuda, rng.integers(-1, 4, (D1, B)).astype(np.int32)),
+            _t(cuda, fd),
+            _t(cuda, rng.integers(0, wp, B).astype(np.int32)))
+
+
+def _mea_equal(cuda, args):
+    """K4 against its plain version: pointers on every cell and scores bit
+    for bit, one launch counted."""
+    before = _build.launch_counts["banded_mea"]
+    ptr, score = wavefront_cuda.banded_mea_cuda(*args)
+    rptr, rscore = wavefront_cuda.banded_mea_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["banded_mea"] == before + 1
+    assert torch.equal(ptr, rptr)
+    assert torch.equal(score, rscore), (score - rscore).abs().max().item()
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1000])
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_banded_mea_random_inputs(cuda, wp, B):
+    """K4 bit-equal to its plain version at every rows-a-thread count (and
+    tile length: 8 diagonals up to Wp 64, 4 above), over lane counts that
+    are no multiple of the lanes a block, 67 diagonals (a partial last
+    tile)."""
+    _mea_equal(cuda, _random_mea(cuda, 67, wp, B, seed=wp + B))
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96])
+def test_banded_mea_terminal_at_start(cuda, wp):
+    """K4 with every terminal at d = 0 (the score of the initialisation),
+    and with a third of the lanes holding no valid cell."""
+    _mea_equal(cuda, _random_mea(cuda, 40, wp, 45, seed=wp, final_d=0))
+    _mea_equal(cuda, _random_mea(cuda, 40, wp, 45, seed=wp + 1,
+                                 invalid_lanes=range(0, 45, 3)))
+
+
+@pytest.mark.parametrize("D1", [1, 2, 9])
+def test_banded_mea_short_bands(cuda, D1):
+    """K4 over one, two and nine diagonals (a tile and one more)."""
+    for wp in (24, 96):
+        _mea_equal(cuda, _random_mea(cuda, D1, wp, 33, seed=D1))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [8, 16, 32])
+def test_banded_mea_lanes_a_block(cuda, lanes, aligned):
+    """K4 at each block size it takes (csrc/mea.cu `mea_lanes`: the widest
+    whose blocks reach 15/16 of the SMs, 32 at one row a thread only), its
+    valid and pointer rows copied as words (lanes a multiple of 4) and
+    byte by byte, bit-equal to plain."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B = lanes * sms + (4 if aligned else 5) if lanes > 8 else 44 + (
+        0 if aligned else 1)
+    wp = 24 if lanes == 32 else 48
+    res = wavefront_cuda.warp_lane_resources("banded_mea", cuda, wp, B)
+    assert res["lanes_per_block"] == lanes, res
+    _mea_equal(cuda, _random_mea(cuda, 40, wp, B, seed=lanes))
+
+
+@pytest.mark.parametrize("wp", [24, 96])
+def test_banded_mea_unaligned_weights(cuda, wp):
+    """K4 on weight bands that start 4 bytes past a 16-byte boundary (no
+    tensor map takes them: the tiles come by cp.async) over a lane count
+    that is a multiple of 4, bit-equal to plain."""
+    args = list(_random_mea(cuda, 40, wp, 1024, seed=wp))
+    for i in range(3):
+        buf = torch.empty(args[i].numel() + 1, dtype=torch.float32,
+                          device=cuda)
+        view = buf[1:].view(args[i].shape)
+        view.copy_(args[i])
+        assert view.data_ptr() % 16 == 4
+        args[i] = view
+    _mea_equal(cuda, tuple(args))
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_banded_mea_resources(cuda, wp):
+    """K4 serves every Wp <= 128 at 8 lanes a block and, where its tiles
+    fit, at 16 (and 32 at one row a thread), with at least one block an SM
+    and no spills; no stack up to two rows a thread (at three and four,
+    Wp > 64, mk::WarpRows's edge row takes one, as in K1 and D).  The
+    REL path's 1024 lanes take 8 lanes a block (128 blocks), em_band's 2048
+    16, the bucket's 4096 32."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for lanes in (8, 16, 32):
+        res = wavefront_cuda.warp_lane_resources(
+            "banded_mea", cuda, wp, lanes * sms)
+        if res["lanes_per_block"] < lanes:
+            continue    # wider blocks do not fit at this Wp
+        assert res["lanes_per_block"] == lanes, res
+        assert res["threads_per_block"] == 32 * lanes
+        assert res["blocks_per_sm"] >= 1, res
+        if wp <= 64:
+            assert res["local_bytes"] == 0, res
+    for B, lanes in ((1024, 8), (2048, 16), (4096, 32)):
+        res = wavefront_cuda.warp_lane_resources("banded_mea", cuda, 24, B)
+        assert res["lanes_per_block"] == lanes, (B, res)
+
+
+# ------------------------------------------ X: lane groups and windows
+
+
+def _lanesum_inputs(cuda, C, D, B, rg, seed):
+    """X's inputs at random: values in [0, 1) with 10% zeros, targets over
+    [0, rg) with 30% -1 and 3% at or past rg."""
+    rng = np.random.default_rng(seed)
+    vals = rng.random((C, D, B)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.1] = 0
+    jm = rng.integers(0, rg, (D, B))
+    u = rng.random((D, B))
+    jm[u < 0.3] = -1
+    jm[u > 0.97] = rg + rng.integers(0, 9, int((u > 0.97).sum()))
+    return _t(cuda, vals), _t(cuda, jm.astype(np.int32))
+
+
+def _lanesum_close(cuda, vals, jm, rg):
+    """X against its plain version (rtol 1e-5, atol 1e-4), and two launches
+    against each other (the adds inside a block come in no fixed order:
+    within the same tolerance), two launches counted."""
+    before = _build.launch_counts["scatter_lanesum"]
+    out = bucket_scatter.scatter_lanesum_cuda(vals, jm, rg)
+    again = bucket_scatter.scatter_lanesum_cuda(vals, jm, rg)
+    ref = bucket_scatter.scatter_lanesum_plain(vals, jm, rg)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["scatter_lanesum"] == before + 2
+    assert out.shape == ref.shape
+    assert torch.allclose(out, ref, rtol=1e-5, atol=1e-4), \
+        (out - ref).abs().max().item()
+    assert torch.allclose(out, again, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("rg", [1, 700, 8192, 8193, 3 * 8192 + 5])
+def test_scatter_lanesum_windows(cuda, rg):
+    """X over outputs of one row, within its 8192-row window (C = 4), at
+    its edge and many times past it (those rows added straight into the
+    output), with targets -1 and at or past rg adding nowhere; one lane
+    group and many."""
+    for B in (37, 9000):
+        _lanesum_close(cuda, *_lanesum_inputs(cuda, 4, 41, B, rg,
+                                              seed=rg + B), rg)
+
+
+@pytest.mark.parametrize("C", [1, 3, 5])
+def test_scatter_lanesum_channels(cuda, C):
+    """X at channel counts other than the caller's 4 (the kernel's generic
+    instance), its window then 32768 / C rows, the rest of the output
+    past it."""
+    rg = 40000 // C
+    _lanesum_close(cuda, *_lanesum_inputs(cuda, C, 30, 3000, rg, seed=C),
+                   rg)
+
+
+def test_scatter_lanesum_plan(cuda):
+    """X's lane groups (one block each) and window rows: one group where
+    the lanes are few, more where they fill the SMs (at most one a block of
+    every SM: the caller batch's [4, 152, 65536]); the window the whole
+    output up to 32768 / C rows."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert bucket_scatter.scatter_lanesum_plan(cuda, 4, 20, 700) == (1, 700)
+    g, rows = bucket_scatter.scatter_lanesum_plan(cuda, 4, 65536, 7168)
+    assert 1 < g <= sms and rows == 7168, (g, rows)
+    assert bucket_scatter.scatter_lanesum_plan(cuda, 4, 65536, 65536) == (
+        g, 8192)
+    assert bucket_scatter.scatter_lanesum_plan(cuda, 3, 9, 40000) == (
+        1, 32768 // 3)
+
+
+def test_scatter_lanesum_caller_shape(cuda):
+    """X on flush streams shaped like the caller's: lanes of 40-60
+    positions, each targeting its positions once over 128 flush and 24
+    tail rows, offsets over rg 7168, 16 lanes repeated to 8192; values
+    where -1 targets sit (they must add nothing)."""
+    rng = np.random.default_rng(13)
+    D, B, rg = 152, 8192, 7168
+    jm = np.full((D, B), -1, np.int32)
+    for b in range(0, B, 16):
+        n = int(rng.integers(40, 61))
+        off = int(rng.integers(0, rg - n))
+        rows = np.sort(rng.choice(D, n, replace=False))
+        jm[rows, b:b + 16] = (off + np.arange(n))[:, None]
+    vals = _t(cuda, rng.random((4, D, B)).astype(np.float32))
+    _lanesum_close(cuda, vals, _t(cuda, jm), rg)
+
+
+def test_scatter_lanesum_resources(cuda):
+    """X's window kernel: 1024 threads, one block an SM with its 112 KB
+    window at the caller's rg 7168, no spills and no stack."""
+    res = bucket_scatter.scatter_lanesum_resources(cuda, 4, 65536, 7168)
+    assert res["threads_per_block"] == 1024, res
+    assert res["blocks_per_sm"] >= 1, res
+    assert res["local_bytes"] == 0, res
+    assert res["smem_per_block"] >= 7168 * 4 * 4, res
+    assert res["groups"] > 1 and res["window_rows"] == 7168, res
