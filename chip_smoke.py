@@ -485,6 +485,21 @@ def time_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps
 
 
+def timed_once(fn):
+    """(fn(), the milliseconds of that one call on the card, CUDA events):
+    a plain version's comparison run, timed, so that it runs once."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 # ------------------------------------------------------------------ corpora
 
 
@@ -591,43 +606,57 @@ def compare_nw(args, reps):
 
 def compare_fb(bargs, fargs, reps):
     """bargs: inputs of fb_backward; fargs: inputs of fb_forward, or None
-    to take them from the plain backward on bargs."""
+    to take them from the plain backward on bargs.  K2's bm, bls and logZ
+    and K3's post, on fargs and chained on K2's outputs, must equal their
+    plain versions bit for bit (and stay within the FB tolerances: logZ
+    1e-4, posteriors 2e-4).  Each plain version runs once on each input,
+    that run timed; K3's chained run reuses the plain forward's output
+    where fargs hold the plain backward's."""
     import torch
 
     from marginalign_trna_tpu_torch.ops import fb_cuda
 
     bm, bls, logZ = fb_cuda.fb_backward_cuda(*bargs)
-    rbm, rbls, rlogZ = fb_cuda.fb_backward_plain(*bargs)
-    torch.cuda.synchronize()
+    (rbm, rbls, rlogZ), bplain_ms = timed_once(
+        lambda: fb_cuda.fb_backward_plain(*bargs))
     check(torch.isfinite(logZ).all().item(), "FB logZ not finite")
     check(torch.allclose(logZ, rlogZ, rtol=1e-4, atol=1e-4),
           "FB logZ differs (rtol/atol 1e-4)")
+    for name, got, want in (("bm", bm, rbm), ("bls", bls, rbls),
+                            ("logZ", logZ, rlogZ)):
+        check(torch.equal(got, want), "fb_backward: %s differs from the "
+              "plain version by %g" % (name, (got - want).abs().max().item()))
     lerr = (logZ - rlogZ).abs().max().item()
     if fargs is None:
         fargs = bargs[:4] + (rbm, rbls, rlogZ)
     post = fb_cuda.fb_forward_cuda(*fargs)
-    rpost = fb_cuda.fb_forward_plain(*fargs)
-    torch.cuda.synchronize()
+    rpost, fplain_ms = timed_once(lambda: fb_cuda.fb_forward_plain(*fargs))
     perr = (post - rpost).abs().max().item()
     check(perr <= 2e-4, "FB posterior differs by %g (atol 2e-4)" % perr)
+    check(torch.equal(post, rpost), "fb_forward: post differs from the "
+          "plain version by %g" % perr)
     # Both kernels chained against both plain versions chained.
     full = fb_cuda.fb_forward_cuda(*bargs[:4], bm, bls, logZ)
-    rfull = fb_cuda.fb_forward_plain(*bargs[:4], rbm, rbls, rlogZ)
+    plain_inputs = all(torch.equal(a, b)
+                       for a, b in zip(fargs[4:], (rbm, rbls, rlogZ)))
+    rfull = rpost if plain_inputs else fb_cuda.fb_forward_plain(
+        *bargs[:4], rbm, rbls, rlogZ)
     ferr = (full - rfull).abs().max().item()
     check(ferr <= 2e-4, "FB chained posterior differs by %g" % ferr)
+    check(torch.equal(full, rfull), "FB chained posterior differs from the "
+          "plain chain by %g" % ferr)
+    D1, wp, B = bm.shape
     return (
         {"max_abs_err": lerr,
          "ms": time_ms(lambda: fb_cuda.fb_backward_cuda(*bargs), reps),
-         "plain_ms": time_ms(lambda: fb_cuda.fb_backward_plain(*bargs), 1,
-                             warm=False),
-         "library_ms": None,
-         **bound("fb_backward", bm.numel(), nbytes(*bargs, bm, bls, logZ))},
+         "plain_ms": bplain_ms, "library_ms": None,
+         **bound("fb_backward", bm.numel(), nbytes(*bargs, bm, bls, logZ)),
+         "resources": fb_cuda.fb_rel_resources(bm.device, wp, B, True)},
         {"max_abs_err": perr, "chained_max_abs_err": ferr,
          "ms": time_ms(lambda: fb_cuda.fb_forward_cuda(*fargs), reps),
-         "plain_ms": time_ms(lambda: fb_cuda.fb_forward_plain(*fargs), 1,
-                             warm=False),
-         "library_ms": None,
-         **bound("fb_forward", post.numel(), nbytes(*fargs, post))},
+         "plain_ms": fplain_ms, "library_ms": None,
+         **bound("fb_forward", post.numel(), nbytes(*fargs, post)),
+         "resources": fb_cuda.fb_rel_resources(bm.device, wp, B, False)},
     )
 
 
@@ -1099,7 +1128,7 @@ def compare_generic(base, reps):
     cells = streams[0].numel()
     _, wp, lanes = streams[0].shape
     fargs = (*tabs, *streams)
-    ref = G.fb_generic_fwd_plain(*fargs)
+    ref, fplain_ms = timed_once(lambda: G.fb_generic_fwd_plain(*fargs))
     for what, g, r in zip(("F_match", "lsf", "term"),
                           G.fb_generic_fwd_cuda(*fargs), ref):
         check(torch.equal(g, r), "fb_generic_fwd: %s differs from the plain "
@@ -1110,8 +1139,7 @@ def compare_generic(base, reps):
     report = {"fb_generic_fwd": {
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: G.fb_generic_fwd_cuda(*fargs), reps),
-        "plain_ms": time_ms(lambda: G.fb_generic_fwd_plain(*fargs), 1,
-                            warm=False),
+        "plain_ms": fplain_ms,
         "library_ms": None,
         "resources": fb_counts_cuda.generic_resources(streams[0].device, wp,
                                                       lanes),
@@ -1119,14 +1147,13 @@ def compare_generic(base, reps):
     del ref
     bargs = (*tabs, fm, lsf, *streams, find, logZ)
     post = G.fb_generic_bwd_cuda(*bargs)
-    rpost = G.fb_generic_bwd_plain(*bargs)
+    rpost, bplain_ms = timed_once(lambda: G.fb_generic_bwd_plain(*bargs))
     check(torch.equal(post, rpost), "fb_generic_bwd: posterior band differs "
           "from the plain version")
     report["fb_generic_bwd"] = {
         "max_abs_err": 0.0,
         "ms": time_ms(lambda: G.fb_generic_bwd_cuda(*bargs), reps),
-        "plain_ms": time_ms(lambda: G.fb_generic_bwd_plain(*bargs), 1,
-                            warm=False),
+        "plain_ms": bplain_ms,
         "library_ms": None,
         "resources": fb_counts_cuda.generic_resources(streams[0].device, wp,
                                                       lanes, backward=True),
@@ -1136,8 +1163,8 @@ def compare_generic(base, reps):
 
 def compare_exact(name, args, reps):
     """A serving or multi-lane kernel against its plain version on `args`:
-    every output bit-equal; both timed as time_ms times them, the
-    comparison call being the plain version's warm-up."""
+    every output bit-equal; the kernel timed as time_ms times it, the plain
+    version on its comparison call (timed_once)."""
     import torch
 
     module = importlib.import_module(
@@ -1145,8 +1172,7 @@ def compare_exact(name, args, reps):
     kernel = getattr(module, name + "_cuda")
     plain = getattr(module, name + "_plain")
     got = kernel(*args)
-    want = plain(*args)
-    plain_ms = time_ms(lambda: plain(*args), 1, warm=False)
+    want, plain_ms = timed_once(lambda: plain(*args))
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     err = max((g - w).abs().max().item() for g, w in zip(got, want))
@@ -3466,13 +3492,16 @@ def ptxas_spills(build_log):
 
 
 # The kernels redesigned last, by the start of their mangled names: K4's
-# mea_warp_kernel at one and two rows a thread (Wp <= 64) and X's window and
-# reduce kernels must compile with no stack frame and no spill; K4 at three
-# and four rows a thread (Wp > 64, on no path) with no spill (mk::WarpRows
+# mea_warp_kernel and K2 / K3's rel_backward_kernel / rel_forward_kernel at
+# one and two rows a thread (Wp <= 64) and X's window and reduce kernels
+# must compile with no stack frame and no spill; K4, K2 and K3 at three and
+# four rows a thread (Wp > 64, on no path) with no spill (mk::WarpRows
 # keeps its edge row on a stack there, as in K1 and D).
 FRAMELESS = ("mea_warp_kernelILi1", "mea_warp_kernelILi2",
+             "rel_backward_kernelILi1", "rel_backward_kernelILi2",
+             "rel_forward_kernelILi1", "rel_forward_kernelILi2",
              "lanesum_window_kernel", "lanesum_reduce_kernel")
-SPILL_FREE = ("mea_warp_kernel",)
+SPILL_FREE = ("mea_warp_kernel", "rel_backward_kernel", "rel_forward_kernel")
 
 
 def ptxas_frames(build_log):

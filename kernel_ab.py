@@ -4,7 +4,18 @@ the port, on the same inputs, in one process on one CUDA card.
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 kernel_ab.py build/parent [group ...]
 
-Groups (fused, wavefront, counts and scatter when none is named):
+Groups (fused, wavefront, counts, scatter and rel when none is named):
+  rel    K2 (fb_backward) and K3 (fb_forward), the REL pair, on the REL
+         path's batch [3072, 24, 1024] (the generic batch's kilobase pairs,
+         the shipped model), on tRNA-length segments [256, 24, 16384] and
+         on the generic batch's pairs packed at widths 45, 93 and 126 (Wp
+         48, 96, 128; 1024 lanes): K2 on the batch, K3 on the plain K2's
+         (bm, bls, logZ) and chained on each checkout's own; bm, bls, logZ
+         and post bit for bit against the plain versions and the other
+         checkout, times, bounds and resources.  Must not move (bit-equal
+         to the other checkout, both timed): fb_multi_forward and
+         fb_multi_backward (row 10) on the multi batch [1024, 24, 4096],
+         K4 on the REL batch's weights.
   wavefront
          K1 (banded_nw) on the guide batch [7168, 48, 1024] and at Wp 24,
          96 and 128 (the guide's pairs packed at widths 21, 93, 126), D
@@ -117,6 +128,11 @@ Groups (fused, wavefront, counts and scatter when none is named):
          flush after the first tiles; the backward without its count
          partials), on the EM batch, the EM batch at width 29 (Wp 32) and
          the em_multi batch.
+  probe_rel (named on the command line only): K2 and K3 with one part
+         removed (no device memory after the first tiles, no recursion
+         after the first two), with tiles of 8 diagonals at one row a
+         thread, with three stage buffers, with at most 64 registers,
+         without TMA, on the rel group's REL and tRNA cells.
   probe_mea, probe_scatter (named on the command line only): K4 with 8,
          16 or 32 lanes a block whatever B, its weight tiles by cp.async
          (no TMA), with three or four stage buffers,
@@ -169,6 +185,8 @@ CALLER_STEPS, CALLER_LANES, CALLER_UNIQUE = 128, 65536, 4096
 # repeated to the lanes of the smoke's caller_generic launch.
 CALL_GENERIC_LANES = 32768
 GUIDE_STEPS, GUIDE_LANES = 7168, 1024
+# The rel group's tRNA-length segments: diagonals, lanes.
+TRNA_STEPS, TRNA_LANES = 256, 16384
 # M's wider bands: band width -> Wp.
 M_WIDE = {45: 48, 93: 96, 126: 128}
 
@@ -301,6 +319,17 @@ def generic_batch(band, seed=4, width=21):
             refs.append(ref)
     return band.pack_banded_batch(reads, refs, width=width,
                                   pad_steps_to=GENERIC_STEPS)
+
+
+def trna_batch(band, seed=5, width=21):
+    """TRNA_LANES single tRNA-length pairs (references of 70-90 bases, 12%
+    substitutions) as REL segments [TRNA_STEPS, Wp, TRNA_LANES]."""
+    rng = np.random.default_rng(seed)
+    refs = [rng.integers(0, 4, int(rng.integers(70, 91))).astype(np.int8)
+            for _ in range(TRNA_LANES)]
+    reads = [noisy_fast(rng, r, sub=0.12) for r in refs]
+    return band.pack_banded_batch(reads, refs, width=width,
+                                  pad_steps_to=TRNA_STEPS)
 
 
 def noisy_fast(rng, ref, sub=0.1, indel=0.03):
@@ -709,6 +738,121 @@ def mea_cells(port, cuda, names=("banded_mea", "banded_mea_em_band")):
     return cells
 
 
+def rel_cells(port, cuda, names=("rel", "trna", "wp48", "wp96", "wp128")):
+    """(cell, K2's arguments) one cell at a time (`names` of them): "rel"
+    the generic batch [3072, 24, 1024] (the REL path's shape), "trna"
+    tRNA-length segments [256, 24, 16384], "wp48" / "wp96" / "wp128" the
+    generic batch at band widths 45, 93, 126; the shipped model's
+    coefficients and premasked match emissions (ops/fb_cuda.py
+    `fb_inputs`)."""
+    import torch
+
+    band, fb = sub(port, "ops.band"), sub(port, "ops.fb")
+    fbc = sub(port, "ops.fb_cuda")
+    tables = fb.tables_from_file(
+        os.path.join(ROOT, PKG, "models", "last_hmm_20.txt"), cuda)
+    widths = {"rel": (generic_batch, 21), "trna": (trna_batch, 21),
+              **{"wp%d" % wp: (generic_batch, w) for w, wp in M_WIDE.items()}}
+    for name in names:
+        make, width = widths[name]
+        dev = fb.device_batch(make(band, width=width), cuda)
+        coef, em = fbc.fb_inputs(tables, dev)
+        yield name, (coef, em, dev.valid, dev.s1, dev.final_d, dev.final_k)
+        del dev, em
+        torch.cuda.empty_cache()
+
+
+def same_bits(got, want):
+    """Whether every output is equal bit for bit (NaN included)."""
+    import torch
+
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               for g, w in zip(got, want))
+
+
+def ab_rel(fc, ofc, bargs, cuda):
+    """K2 and K3 of both checkouts against the plain versions, K3 on the
+    plain K2's outputs and chained on each checkout's own: bit-equality to
+    plain and other, largest differences, times, bounds, resources."""
+    got = fc.fb_backward_cuda(*bargs)
+    plain = fc.fb_backward_plain(*bargs)
+    ref = ofc.fb_backward_cuda(*bargs)
+    D1, wp, B = got[0].shape
+    fargs = tuple(bargs[:4]) + tuple(plain)
+    post = (fc.fb_forward_cuda(*fargs),)
+    rpost = (fc.fb_forward_plain(*fargs),)
+    opost = (ofc.fb_forward_cuda(*fargs),)
+    chained = (fc.fb_forward_cuda(*bargs[:4], *got),)
+    ochained = (ofc.fb_forward_cuda(*bargs[:4], *ref),)
+    return {
+        "fb_backward": {
+            "shape": [D1, wp, B],
+            "max_abs_err_plain": max_diff(got, plain),
+            "max_abs_err_other": max_diff(got, ref),
+            "bit_equal_plain": same_bits(got, plain),
+            "bit_equal_other": same_bits(got, ref),
+            **ab(lambda: fc.fb_backward_cuda(*bargs),
+                 lambda: ofc.fb_backward_cuda(*bargs)),
+            **bound("fb_backward", got[0].numel(), nbytes(*bargs, *got)),
+            "resources": fc.fb_rel_resources(cuda, wp, B, True)},
+        "fb_forward": {
+            "shape": [D1, wp, B],
+            "max_abs_err_plain": max_diff(post, rpost),
+            "max_abs_err_other": max_diff(post, opost),
+            "bit_equal_plain": same_bits(post, rpost),
+            "bit_equal_other": same_bits(post, opost),
+            "chained_bit_equal_plain": same_bits(chained, rpost),
+            "chained_bit_equal_other": same_bits(chained, ochained),
+            **ab(lambda: fc.fb_forward_cuda(*fargs),
+                 lambda: ofc.fb_forward_cuda(*fargs)),
+            **bound("fb_forward", post[0].numel(), nbytes(*fargs, *post)),
+            "resources": fc.fb_rel_resources(cuda, wp, B, False)}}
+
+
+def run_rel(this, other, cuda, report):
+    """Fills `report` with the rel group's rows."""
+    import torch
+
+    fc, ofc = (sub(p, "ops.fb_cuda") for p in (this, other))
+
+    def show(name):
+        print(json.dumps({name: report[name]}), flush=True)
+
+    for name, bargs in rel_cells(this, cuda):
+        report["rel_" + name] = ab_rel(fc, ofc, bargs, cuda)
+        show("rel_" + name)
+        del bargs
+        torch.cuda.empty_cache()
+
+    # Must not move: row 10 on the multi batch, K4 on the REL batch's
+    # weights.
+    fb, band = sub(this, "ops.fb"), sub(this, "ops.band")
+    fm, ofm = (sub(p, "ops.fb_multi_cuda") for p in (this, other))
+    tables = fb.tables_from_file(
+        os.path.join(ROOT, PKG, "models", "last_hmm_20.txt"), cuda)
+    coef, chain = sub(this, "ops.fb_circ").circ_coefficients(tables)
+    mdev = fb.multi_device_batch(multi_batch(band), cuda)
+    em = tables.Ematch[mdev.xb.long(), mdev.yb.long()] * mdev.valid
+    fargs = (coef, chain, em, mdev.valid, mdev.s1, mdev.start, mdev.fink)
+    report["fb_multi_forward"] = unmoved(
+        fm.fb_multi_forward_cuda, ofm.fb_multi_forward_cuda, fargs)
+    show("fb_multi_forward")
+    fmv, lsf, term = fm.fb_multi_forward_cuda(*fargs)
+    L, _ = fb.multi_logz(lsf, term, mdev)
+    report["fb_multi_backward"] = unmoved(
+        fm.fb_multi_backward_cuda, ofm.fb_multi_backward_cuda,
+        (coef, chain, fmv, lsf, L, em, mdev.valid, mdev.s1, mdev.fink,
+         mdev.find))
+    show("fb_multi_backward")
+    del mdev, em, fmv, lsf, term, L
+    torch.cuda.empty_cache()
+    wf, owf = (sub(p, "ops.wavefront_cuda") for p in (this, other))
+    args = mea_cells(this, cuda, ("banded_mea",))["banded_mea"]
+    report["rel_banded_mea"] = unmoved(wf.banded_mea_cuda,
+                                       owf.banded_mea_cuda, args)
+    show("rel_banded_mea")
+
+
 def lanesum_cells(port, cuda):
     """{cell: X's arguments (vals, jm, rg)}: the caller batch's flush
     streams [128 + 24, 65536] (the fused group's CALLER_UNIQUE pairs
@@ -1003,6 +1147,13 @@ def probe_cases(this, cuda, kernels):
         cases["counts_multi_bwd"] = {"em_multi_bwd": (
             *tabs, f_all, lsf, *mstreams, mfd,
             fb.multi_logz(lsf, term, mdev)[0])}
+    if {"fb_backward", "fb_forward"} & set(kernels):
+        fbc = sub(this, "ops.fb_cuda")
+        cases["fb_backward"], cases["fb_forward"] = {}, {}
+        for name, bargs in rel_cells(this, cuda, ("rel", "trna")):
+            cases["fb_backward"][name + "_bwd"] = bargs
+            cases["fb_forward"][name + "_fwd"] = (
+                *bargs[:4], *fbc.fb_backward_cuda(*bargs))
     if "banded_mea" in kernels:
         cases["banded_mea"] = mea_cells(this, cuda)
         # The generic cell's lanes repeated to the bucket's 4096.
@@ -1222,10 +1373,13 @@ def card():
 
 GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
           "probe_counts", "probe_cx", "probe_generic", "probe_stored",
-          "probe_mea", "probe_scatter", "counts", "scatter")
-DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter")
+          "probe_mea", "probe_scatter", "probe_rel", "counts", "scatter",
+          "rel")
+DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter", "rel")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
+                  "fb_backward": "ops.fb_cuda",
+                  "fb_forward": "ops.fb_cuda",
                   "cx_forward": "ops.fb_circ_cuda",
                   "counts_fwd_ckpt": "ops.fb_counts_cuda",
                   "fb_generic_fwd": "ops.fb_generic_cuda",
@@ -1428,9 +1582,9 @@ PROBES = {
         ("    if (t > 0) flush(t - 1);\n    stage(t + MEA_STAGES - 1);",
          "    if (t > 0 && t < 3) flush(t - 1);\n    stage(t + MEA_STAGES - 1);"),
         # (and no wait for TMA boxes that are never asked for)
-        ("    mk::cp_async_wait_but<MEA_STAGES - 2>();\n    if (TMA)\n",
+        ("    mk::cp_async_wait_but<MEA_STAGES - 2>();\n    if (TMA) mk::",
          "    mk::cp_async_wait_but<MEA_STAGES - 2>();\n"
-         "    if (TMA && t < MEA_STAGES)\n")]),
+         "    if (TMA && t < MEA_STAGES) mk::")]),
     "mea_no_compute": ("banded_mea", "mea.cu", [
         ("    if (live) lane.tile(in(t), out(t), w, t * KT, min(KT, D1 - t * KT));",
          "    if (live && t < 2)\n      lane.tile(in(t), out(t), w, t * KT, "
@@ -1695,6 +1849,41 @@ PROBES.update({
 # kernel's.
 _ST = ("counts_fwd_all", "counts_bwd", "counts_multi_fwd_all",
        "counts_multi_bwd")
+# K2 and K3 (both kernels in each variant): with one part removed (outputs
+# wrong by design): no device memory after the first tiles (no copies in,
+# no rows out), no recursion after the first two tiles; with tiles of 8
+# diagonals at one row a thread; with three stage buffers (tiles two
+# ahead); with at most 64 registers (4 blocks of 8 lanes, 2 of 16 an SM);
+# with every band by cp.async (no TMA).
+_REL = ("fb_backward", "fb_forward")
+_REL_BOUNDS = "__global__ void __launch_bounds__(32 * LPB)\n    rel_%s_kernel"
+PROBES.update({
+    "fb_rel_no_global": (_REL, "fb.cu", [
+        ("    if (u < tiles)\n      rel_stage<1,",
+         "    if (u < min(tiles, REL_STAGES))\n      rel_stage<1,"),
+        ("    if (t < tiles)\n      rel_stage<2,",
+         "    if (t < min(tiles, REL_STAGES))\n      rel_stage<2,"),
+        ("    if (TMA) mk::mbar_wait(",
+         "    if (TMA && u < REL_STAGES) mk::mbar_wait("),
+        ("    if (u > 0)\n      rel_flush", "    if (u > 0 && u < 3)\n      rel_flush"),
+        ("    if (t > 0)\n      rel_flush", "    if (t > 0 && t < 3)\n      rel_flush")]),
+    "fb_rel_no_compute": (_REL, "fb.cu", [
+        ("    if (live) {\n      float* o = blk.out(u);",
+         "    if (live && u < 2) {\n      float* o = blk.out(u);"),
+        ("    if (live)\n      lane.tile(blk.in(t),",
+         "    if (live && t < 2)\n      lane.tile(blk.in(t),")]),
+    "fb_rel_no_tma": (_REL, "fb.cu", [
+        ("  return B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&",
+         "  return false && B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&")]),
+    "fb_rel_kt8": (_REL, "fb.cu", [
+        ("constexpr int rel_kt(int rpt) { return rpt == 1 ? 16 : 8; }",
+         "constexpr int rel_kt(int rpt) { return 8; }")]),
+    "fb_rel_stages_3": (_REL, "fb.cu", [("constexpr int REL_STAGES = 2;",
+                                      "constexpr int REL_STAGES = 3;")]),
+    "fb_rel_cap64": (_REL, "fb.cu", [
+        (_REL_BOUNDS % k, _REL_BOUNDS.replace("LPB)", "LPB, 32 / LPB)") % k)
+        for k in ("backward", "forward")]),
+})
 _ST_BWD = ("counts_bwd", "counts_multi_bwd")
 _ST_FWD = ("counts_fwd_all", "counts_multi_fwd_all")
 _SB_LANES_AT = ("  cudaError_t err = mk::warp_lanes(\n"
@@ -1973,10 +2162,11 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_generic": lambda *a: run_probe(
             *a, kernels=("fb_generic_fwd", "fb_generic_bwd")),
         "probe_stored": lambda *a: run_probe(*a, kernels=_ST),
+        "probe_rel": lambda *a: run_probe(*a, kernels=_REL),
         "probe_mea": lambda *a: run_probe(*a, kernels=("banded_mea",)),
         "probe_scatter": lambda *a: run_probe(
             *a, kernels=("scatter_lanesum",)),
-        "counts": run_counts, "scatter": run_scatter}
+        "counts": run_counts, "scatter": run_scatter, "rel": run_rel}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

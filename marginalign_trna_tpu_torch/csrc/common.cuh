@@ -17,6 +17,7 @@
 // four (R) and a tile of diagonals (csrc/expand.cu).
 #pragma once
 
+#include <cuda.h>  // CUtensorMap (libcuda is not linked)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -129,6 +130,115 @@ __device__ __forceinline__ void cp_async_wait() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait_but() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ------------------------------------------- tensor memory accelerator
+//
+// A float band [D1, Wp, B] copied by the tensor memory accelerator (TMA):
+// boxes [KT][Wp][LPB] as they lie in device memory, lanes fastest, into a
+// plane of shared memory (1024-byte aligned), the 16-byte pieces swizzled
+// by the map (32, 64 or 128 bytes at LPB 8, 16, 32) so that the rows of
+// one lane a warp reads fall on 8 banks (4-way conflicts, not LPB-way).
+// One thread asks; an mbarrier counts the bytes in (K4, K2, K3).
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Where row q, lane w of a TMA plane lies (floats from its start): the
+// map's swizzle XORs the 16-byte piece with bits 7.. of the offset.
+template <int LPB>
+__device__ __forceinline__ int swizzled(int q, int w) {
+  constexpr int M = LPB == 32 ? 7 : (LPB == 16 ? 3 : 1);
+  const int o = (q * LPB + w) * 4;
+  return (o ^ (((o >> 7) & M) << 4)) >> 2;
+}
+
+// Sets barrier bar up for one arrival a phase (one thread; then
+// mbar_init_fence and a block barrier).
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)), "r"(1)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Arrives on bar, expecting `bytes` from the TMA copies that follow; the
+// proxy fence orders the block's earlier reads of the buffer before them.
+__device__ __forceinline__ void tma_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "{\n .reg .b64 st;\n"
+      " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::
+          "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// Copies the box at (x, y, z) of `map` into dst; its bytes land on bar.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int x, int y, int z,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(smem_addr(dst)), "l"((uint64_t)map), "r"(x), "r"(y), "r"(z),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits until the phase of bar with this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bar)), "r"(parity)
+      : "memory");
+}
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime (libcuda
+// is not linked); null where the installed CUDA lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return (EncodeTiled)f;
+  }();
+  return fn;
+}
+
+// The tensor map of a float band [D1, Wp, B] for boxes [kt][Wp][lpb]
+// (lpb 8, 16 or 32); false where the band is not 16-byte aligned.  The
+// caller sees to B % 4 == 0 (row strides of whole 16-byte pieces) and to
+// the encoder being there.  Boxes past the band's ends read zeros.
+inline bool band_map(CUtensorMap* m, const float* band, int D1, int Wp,
+                     int B, int lpb, int kt) {
+  if (reinterpret_cast<uintptr_t>(band) % 16) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)B, (cuuint64_t)Wp, (cuuint64_t)D1};
+  const cuuint64_t strides[2] = {(cuuint64_t)B * 4, (cuuint64_t)Wp * B * 4};
+  const cuuint32_t box[3] = {(cuuint32_t)lpb, (cuuint32_t)Wp,
+                             (cuuint32_t)kt};
+  const cuuint32_t one[3] = {1, 1, 1};
+  const CUtensorMapSwizzle sw =
+      lpb == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
+                : (lpb == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
+                             : CU_TENSOR_MAP_SWIZZLE_32B);
+  return tensor_map_encoder()(
+             m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(band),
+             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 constexpr unsigned FULL = 0xffffffffu;  // every thread of a warp

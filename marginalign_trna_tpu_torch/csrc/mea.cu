@@ -76,7 +76,6 @@
 //     instructions a diagonal (without the row shuffles 33% faster,
 //     without device memory 17%); loading every gap weight from the sums
 //     instead of the delay line took 1.8x as long.
-#include <cuda.h>  // CUtensorMap (libcuda is not linked)
 #include <string.h>
 
 #include "common.cuh"
@@ -323,19 +322,6 @@ __device__ inline MeaIn mea_in(uint8_t* p, int Wp, int kt, int lpb,
                reinterpret_cast<uint8_t*>(s + 2 * lpb * kt)};
 }
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// Where row q, lane w of a TMA weight plane lies (floats from its start):
-// the map's swizzle XORs the 16-byte piece with bits 7.. of the offset.
-template <int LPB>
-__device__ __forceinline__ int mea_swizzled(int q, int w) {
-  constexpr int M = LPB == 32 ? 7 : (LPB == 16 ? 3 : 1);
-  const int o = (q * LPB + w) * 4;
-  return (o ^ (((o >> 7) & M) << 4)) >> 2;
-}
-
 // The three weight bands' tensor maps for TMA (unused by cp.async).
 struct MeaMaps {
   CUtensorMap wd, wu, wl;
@@ -356,21 +342,11 @@ __device__ __forceinline__ void mea_stage(const MeaIn& S, const BandWeights& w,
   const size_t plane = mea_wplane(Wp, KT, LPB, TMA);
   if (TMA) {
     if (threadIdx.x == 0) {
-      const unsigned bytes = 3u * KT * Wp * LPB * 4;
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      asm volatile(
-          "{\n .reg .b64 st;\n"
-          " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n" ::
-              "r"(smem_addr(bar)), "r"(bytes) : "memory");
+      mk::tma_expect(bar, 3u * KT * Wp * LPB * 4);
       const CUtensorMap* m[3] = {&maps.wd, &maps.wu, &maps.wl};
 #pragma unroll
       for (int q = 0; q < 3; ++q)
-        asm volatile(
-            "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
-            ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n"
-            :: "r"(smem_addr(S.w + q * plane)), "l"((uint64_t)m[q]),
-               "r"(b0), "r"(0), "r"(d0), "r"(smem_addr(bar))
-            : "memory");
+        mk::tma_load(S.w + q * plane, m[q], b0, 0, d0, bar);
     }
   } else if (b < B) {
     const size_t g = (size_t)d0 * Wp * B + b;
@@ -426,7 +402,7 @@ struct MeaWarp {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const int k = min(row(r), Wp - 1);
-      const int o = TMA ? mea_swizzled<LPB>(kb * Wp + k, w)
+      const int o = TMA ? mk::swizzled<LPB>(kb * Wp + k, w)
                         : w * stride + kb * Wp + k;
       a.wd[r] = S.w[o];
       a.wu[r] = S.w[plane + o];
@@ -524,7 +500,8 @@ __global__ void __launch_bounds__(32 * LPB)
   // TMA: the stages start 1024-aligned in the shared window, their
   // barriers after the pointer tiles.
   uint8_t* raw =
-      TMA ? mea_raw + ((1024 - smem_addr(mea_raw) % 1024) % 1024) : mea_raw;
+      TMA ? mea_raw + ((1024 - mk::smem_addr(mea_raw) % 1024) % 1024)
+          : mea_raw;
   const size_t nin = mea_in_bytes(Wp, KT, LPB, TMA),
                nout = mea_bplane(Wp, KT, LPB);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
@@ -552,11 +529,8 @@ __global__ void __launch_bounds__(32 * LPB)
                          b0, B, vec);
   };
   if (TMA && threadIdx.x == 0) {
-    for (int s = 0; s < MEA_STAGES; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                       smem_addr(bars + s)), "r"(1)
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < MEA_STAGES; ++s) mk::mbar_init(bars + s);
+    mk::mbar_init_fence();
   }
   if (TMA) __syncthreads();
   MeaWarp<RPT, LPB, TMA> lane(Wp, live ? final_d[b] : -1,
@@ -568,13 +542,7 @@ __global__ void __launch_bounds__(32 * LPB)
     // t - 1, whose pointers leave now and whose stage buffer takes tile
     // t + MEA_STAGES - 1.
     mk::cp_async_wait_but<MEA_STAGES - 2>();
-    if (TMA)
-      asm volatile(
-          "{\n .reg .pred p;\n WAIT_%=:\n"
-          " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-          " @!p bra WAIT_%=;\n}\n" ::"r"(smem_addr(bars + t % MEA_STAGES)),
-          "r"((t / MEA_STAGES) & 1)
-          : "memory");
+    if (TMA) mk::mbar_wait(bars + t % MEA_STAGES, (t / MEA_STAGES) & 1);
     __syncthreads();
     if (t > 0) flush(t - 1);
     stage(t + MEA_STAGES - 1);
@@ -597,28 +565,6 @@ const void* mea_kernel_rpt(int Wp) {
   return nullptr;
 }
 
-// libcuda's cuTensorMapEncodeTiled, found once through the runtime (libcuda
-// is not linked); null where the installed CUDA lacks it.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) != cudaSuccess ||
-        q != cudaDriverEntryPointSuccess)
-      return (EncodeTiled) nullptr;
-    return (EncodeTiled)f;
-  }();
-  return fn;
-}
-
 // Whether K4's launch at (Wp, B) takes TMA: B a multiple of 4 (the maps'
 // row strides are multiples of 16 bytes), at most two rows a thread, and
 // the maps can be encoded.  At three and four rows a thread the swizzled
@@ -627,27 +573,14 @@ EncodeTiled tensor_map_encoder() {
 // (kernel_ab.py).
 bool mea_tma(int Wp, int B) {
   return B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&
-         tensor_map_encoder() != nullptr;
+         mk::tensor_map_encoder() != nullptr;
 }
 
-// The tensor map of one weight band [D1, Wp, B] for boxes [KT][Wp][LPB].
+// The tensor map of one weight band [D1, Wp, B] for K4's boxes.
 bool mea_map(CUtensorMap* m, const float* band, int D1, int Wp, int B,
              int lpb) {
-  if (reinterpret_cast<uintptr_t>(band) % 16) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)B, (cuuint64_t)Wp, (cuuint64_t)D1};
-  const cuuint64_t strides[2] = {(cuuint64_t)B * 4, (cuuint64_t)Wp * B * 4};
-  const cuuint32_t box[3] = {(cuuint32_t)lpb, (cuuint32_t)Wp,
-                             (cuuint32_t)mea_kt_rpt(mk::rows_per_thread(Wp))};
-  const cuuint32_t one[3] = {1, 1, 1};
-  const CUtensorMapSwizzle sw =
-      lpb == 32 ? CU_TENSOR_MAP_SWIZZLE_128B
-                : (lpb == 16 ? CU_TENSOR_MAP_SWIZZLE_64B
-                             : CU_TENSOR_MAP_SWIZZLE_32B);
-  return tensor_map_encoder()(
-             m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(band),
-             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return mk::band_map(m, band, D1, Wp, B, lpb,
+                      mea_kt_rpt(mk::rows_per_thread(Wp)));
 }
 
 // K4's lanes a block on the current device: the most of 32, 16 and 8 whose

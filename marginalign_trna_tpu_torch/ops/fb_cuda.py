@@ -25,7 +25,7 @@ as the JAX package's `posteriors_pallas_specialised` does.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -255,6 +255,18 @@ def fb_forward_cuda(coef: np.ndarray, ematch, valid, s1, bm, bls, logZ):
         c.ctypes.data, D1, Wp, B, post.data_ptr(),
     )
     return post
+
+
+def fb_rel_resources(device: torch.device, wp: int, B: int,
+                     backward: bool) -> Dict[str, int]:
+    """What a launch of fb_backward (`backward`) or fb_forward over B lanes
+    at band width `wp` gets on `device`: registers per thread, shared
+    memory per block, blocks per SM, threads per block, local memory per
+    thread (spills) and the lanes a block, which csrc/common.cuh
+    `warp_lanes` chooses from B, the SM count and the shared memory a
+    block may take."""
+    res = _build.resources("fb_rel_info", device, int(backward), wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
 # ------------------------------------------------------------------ entries

@@ -1650,6 +1650,144 @@ def test_banded_mea_resources(cuda, wp):
         assert res["lanes_per_block"] == lanes, (B, res)
 
 
+# ------------------------------------------ K2, K3: one warp per lane
+
+
+def _fb_coef():
+    """The shipped model's coefficients A[s][u] = T[s][u] g_u."""
+    st = fb_cuda.static_tables(tables_from_hmm(PairHmm.load(MODEL)))
+    return fb_cuda._coefficients(st, fb_cuda.require_flat_gaps(st))
+
+
+def _random_fb(cuda, D1, wp, B, seed, final_d=None, invalid_lanes=()):
+    """K2's inputs at random: 80% valid cells and the origin (none in
+    `invalid_lanes`), match emissions in [0, 1) premasked by valid, shifts
+    s1 in {-1, 0, 1, 2} (every move of the plain versions' `shift` and the
+    rows left in place), terminals on any diagonal (every fifth at d = 0, every
+    eleventh past the band) and any row (every seventh past the band: no
+    injection), or every terminal at `final_d`."""
+    rng = np.random.default_rng(seed)
+    valid = rng.random((D1, wp, B)) < 0.8
+    valid[0, 0] = True
+    valid[..., list(invalid_lanes)] = False
+    em = (rng.random((D1, wp, B)) * valid).astype(np.float32)
+    if final_d is None:
+        fd = rng.integers(0, D1, B)
+        fd[::5] = 0
+        fd[3::11] = D1 + 3
+    else:
+        fd = np.full(B, final_d)
+    fk = rng.integers(0, wp, B)
+    fk[2::7] = wp + 1
+    return (_fb_coef(), _t(cuda, em), _t(cuda, valid),
+            _t(cuda, rng.choice([-1, 0, 1, 2], p=[.05, .45, .45, .05],
+                                size=(D1, B)).astype(np.int32)),
+            _t(cuda, fd.astype(np.int32)), _t(cuda, fk.astype(np.int32)))
+
+
+def _same_bits(got, want):
+    """Bit for bit, NaN included: random bands with no mass near the origin
+    give the plain versions logZ below log(1e-30) + bls and non-finite
+    posteriors, which the kernels must reproduce."""
+    same = got.view(torch.int32) == want.view(torch.int32)
+    assert bool(same.all()), "%d of %d differ" % (int((~same).sum()),
+                                                  same.numel())
+
+
+def _fb_rel_equal(cuda, args):
+    """K2 against its plain version (bm, bls, logZ), K3 against its plain
+    version on the plain backward's outputs and chained on the kernel's
+    own: every output bit for bit, one launch each counted."""
+    names = ("fb_backward", "fb_forward")
+    before = [_build.launch_counts[k] for k in names]
+    got = fb_cuda.fb_backward_cuda(*args)
+    want = fb_cuda.fb_backward_plain(*args)
+    fargs = args[:4] + tuple(want)
+    post = fb_cuda.fb_forward_cuda(*fargs)
+    torch.cuda.synchronize()
+    assert [_build.launch_counts[k] for k in names] == [n + 1 for n in before]
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+    rpost = fb_cuda.fb_forward_plain(*fargs)
+    _same_bits(post, rpost)
+    _same_bits(fb_cuda.fb_forward_cuda(*args[:4], *got), rpost)
+
+
+@pytest.mark.parametrize("B", [31, 1000])
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_fb_rel_random_inputs(cuda, wp, B):
+    """K2 and K3 bit-equal to their plain versions at one to four rows a
+    thread (TMA up to Wp 64 where B is a multiple of 4, cp.async
+    otherwise), over lane counts that are no multiple of the lanes a
+    block, 67 diagonals (a partial tile)."""
+    _fb_rel_equal(cuda, _random_fb(cuda, 67, wp, B, seed=wp + B))
+
+
+@pytest.mark.parametrize("D1", [1, 2, 9])
+def test_fb_rel_short_bands(cuda, D1):
+    """K2 and K3 over one, two and nine diagonals (a tile and one more)."""
+    for wp in (24, 96):
+        _fb_rel_equal(cuda, _random_fb(cuda, D1, wp, 36, seed=D1))
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96])
+def test_fb_rel_terminal_at_start(cuda, wp):
+    """K2 and K3 with every terminal at d = 0, and with a third of the
+    lanes holding no valid cell (no mass: every rescale factor 1)."""
+    _fb_rel_equal(cuda, _random_fb(cuda, 40, wp, 45, seed=wp, final_d=0))
+    _fb_rel_equal(cuda, _random_fb(cuda, 40, wp, 44, seed=wp + 1,
+                                   invalid_lanes=range(0, 44, 3)))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [8, 16])
+def test_fb_rel_lanes_a_block(cuda, lanes, aligned):
+    """K2 and K3 at each block size mk::warp_lanes gives them, their bands
+    by TMA and valid as words (B a multiple of 4) or by cp.async and byte
+    by byte, bit-equal to plain."""
+    B = _lanes_at(cuda, lanes, aligned)
+    for backward in (True, False):
+        res = fb_cuda.fb_rel_resources(cuda, 24, B, backward)
+        assert res["lanes_per_block"] == lanes, res
+    _fb_rel_equal(cuda, _random_fb(cuda, 20, 24, B, seed=lanes))
+
+
+@pytest.mark.parametrize("wp", [24, 48])
+def test_fb_rel_unaligned_bands(cuda, wp):
+    """K2 and K3 on float bands that start 4 bytes past a 16-byte boundary
+    (no tensor map takes them: the tiles come by cp.async) over a lane
+    count that is a multiple of 4, bit-equal to plain."""
+    args = list(_random_fb(cuda, 30, wp, 1024, seed=wp))
+    buf = torch.empty(args[1].numel() + 1, dtype=torch.float32, device=cuda)
+    view = buf[1:].view(args[1].shape)
+    view.copy_(args[1])
+    assert view.data_ptr() % 16 == 4
+    args[1] = view
+    _fb_rel_equal(cuda, tuple(args))
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_fb_rel_resources(cuda, wp):
+    """K2 and K3 serve every Wp <= 128 at 8 lanes a block and, where their
+    tiles fit, at 16, with at least one block an SM and no spills; no
+    stack up to two rows a thread.  The REL path's 1024 lanes take 8 lanes
+    a block (128 blocks), 16384 lanes 16."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for backward in (True, False):
+        for lanes in (8, 16):
+            res = fb_cuda.fb_rel_resources(cuda, wp, lanes * sms, backward)
+            if res["lanes_per_block"] < lanes:
+                continue    # 16 lanes do not fit at this Wp
+            assert res["lanes_per_block"] == lanes, res
+            assert res["threads_per_block"] == 32 * lanes
+            assert res["blocks_per_sm"] >= 1, res
+            if wp <= 64:
+                assert res["local_bytes"] == 0, res
+        for B, lanes in ((1024, 8), (16384, 16)):
+            res = fb_cuda.fb_rel_resources(cuda, 24, B, backward)
+            assert res["lanes_per_block"] == lanes, (B, res)
+
+
 # ------------------------------------------ X: lane groups and windows
 
 

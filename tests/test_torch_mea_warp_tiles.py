@@ -50,7 +50,7 @@ def tile_diagonals(rpt):
 
 
 def swizzled(q, w, lpb):
-    """csrc/mea.cu `mea_swizzled`: the float offset of row q, lane w in a
+    """csrc/common.cuh `mk::swizzled`: the float offset of row q, lane w in a
     TMA weight plane (the map's 32, 64 or 128-byte swizzle at LPB 8, 16,
     32)."""
     m = {8: 1, 16: 3, 32: 7}[lpb]
