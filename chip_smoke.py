@@ -6,8 +6,10 @@ CUDA card.  Run from the repository root:
 
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a;
-              ptxas must report no spill in a counts or generic kernel
-              and no stack frame or spill in K4's and X's kernels.
+              ptxas must report no spill in a counts or generic kernel,
+              none in K2, K3, K4 or the warp-per-lane serving kernels, and
+              no stack frame in K4, K2, K3 and the serving kernels up to
+              two rows a thread nor in X.
   2. tiny     each of the thirty-four kernels against its plain PyTorch
               version on the card at a tiny shape, so a broken kernel fails
               before the long runs; the eight serving kernels
@@ -54,7 +56,8 @@ Phases (any failure exits non-zero without the final result line):
               expectations within 1e-3).  Then each serving kernel
               bit-equal to its plain version on the inputs of its largest
               launch over the modes' realign runs and again over their
-              caller runs, with times and bounds, and CPU/card parity on
+              caller runs, with times and bounds (the six warp-per-lane
+              ones with their resources), and CPU/card parity on
               PARITY_READS reads for SERVE_PARITY_MODES (cigars >= 90%
               identical, every other one an MEA near-tie; identical call
               sets, expectations within 1e-3).
@@ -266,23 +269,23 @@ KERNELS = {
                        ("generic", "call_generic", "em_band")),
     # The unfused circular serving route (realign and caller with
     # serve=<mode>); S (sv_backward) serves mode "sv" too.
-    "circ_backward_emv": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+    "circ_backward_emv": ("marginalign_trna_tpu_torch/csrc/fb_serve.cu",
                           "marginalign_trna_tpu/ops/fb_pallas.py:1625",
                           "fb_circ_cuda.circ_backward_emv_cuda", ("serve",)),
-    "circ_post_emv": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+    "circ_post_emv": ("marginalign_trna_tpu_torch/csrc/fb_serve.cu",
                       "marginalign_trna_tpu/ops/fb_pallas.py:1749",
                       "fb_circ_cuda.circ_post_emv_cuda", ("serve",)),
-    "circ_backward_codes": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+    "circ_backward_codes": ("marginalign_trna_tpu_torch/csrc/fb_serve.cu",
                             "marginalign_trna_tpu/ops/fb_pallas.py:1868",
                             "fb_circ_cuda.circ_backward_codes_cuda",
                             ("serve",)),
-    "circ_post_codes": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+    "circ_post_codes": ("marginalign_trna_tpu_torch/csrc/fb_serve.cu",
                         "marginalign_trna_tpu/ops/fb_pallas.py:1999",
                         "fb_circ_cuda.circ_post_codes_cuda", ("serve",)),
-    "circ_post_es": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+    "circ_post_es": ("marginalign_trna_tpu_torch/csrc/fb_serve.cu",
                      "marginalign_trna_tpu/ops/fb_pallas.py:2390",
                      "fb_circ_cuda.circ_post_es_cuda", ("serve",)),
-    "circ_backward_codes_es": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+    "circ_backward_codes_es": ("marginalign_trna_tpu_torch/csrc/fb_serve.cu",
                                "marginalign_trna_tpu/ops/fb_pallas.py:2503",
                                "fb_circ_cuda.circ_backward_codes_es_cuda",
                                ("serve",)),
@@ -346,6 +349,11 @@ SERVE_KERNELS = {
     "emw": ["circ_backward_codes_es", "circ_post_es"],
     "ckpt": ["circ_ckpt_backward", "circ_ckpt_post"],
 }
+# The serving kernels of one warp per lane (csrc/fb_serve.cu
+# serve_backward_kernel, serve_post_kernel), their resources logged.
+SERVE_WARP = ("circ_backward_emv", "circ_backward_codes",
+              "circ_backward_codes_es", "circ_post_es", "circ_post_emv",
+              "circ_post_codes")
 # The serving modes held to CPU/card parity.
 SERVE_PARITY_MODES = ("sv", "ckpt")
 # Band widths beyond the shipped 21 at which the tiny check runs the
@@ -1164,7 +1172,8 @@ def compare_generic(base, reps):
 def compare_exact(name, args, reps):
     """A serving or multi-lane kernel against its plain version on `args`:
     every output bit-equal; the kernel timed as time_ms times it, the plain
-    version on its comparison call (timed_once)."""
+    version on its comparison call (timed_once); the six warp-per-lane
+    serving kernels with their resources."""
     import torch
 
     module = importlib.import_module(
@@ -1182,9 +1191,12 @@ def compare_exact(name, args, reps):
     check(all(torch.isfinite(g).all().item() for g in got),
           "%s: output not finite" % name)
     d1k, Wp, B = launch_shape(name, args)
-    return {"max_abs_err": err, "ms": time_ms(lambda: kernel(*args), reps),
-            "plain_ms": plain_ms, "library_ms": None,
-            **bound(name, d1k * Wp * B, nbytes(*args, *got))}
+    out = {"max_abs_err": err, "ms": time_ms(lambda: kernel(*args), reps),
+           "plain_ms": plain_ms, "library_ms": None,
+           **bound(name, d1k * Wp * B, nbytes(*args, *got))}
+    if name in SERVE_WARP:
+        out["resources"] = module.serve_resources(got[0].device, name, Wp, B)
+    return out
 
 
 COMPARE = {
@@ -3492,16 +3504,20 @@ def ptxas_spills(build_log):
 
 
 # The kernels redesigned last, by the start of their mangled names: K4's
-# mea_warp_kernel and K2 / K3's rel_backward_kernel / rel_forward_kernel at
-# one and two rows a thread (Wp <= 64) and X's window and reduce kernels
-# must compile with no stack frame and no spill; K4, K2 and K3 at three and
-# four rows a thread (Wp > 64, on no path) with no spill (mk::WarpRows
-# keeps its edge row on a stack there, as in K1 and D).
+# mea_warp_kernel, K2 / K3's rel_backward_kernel / rel_forward_kernel and
+# the serving kernels' serve_backward_kernel / serve_post_kernel at one and
+# two rows a thread (Wp <= 64) and X's window and reduce kernels must
+# compile with no stack frame and no spill; K4, K2, K3 and the serving
+# kernels at three and four rows a thread (Wp > 64, on no path) with no
+# spill (mk::WarpRows keeps its edge row on a stack there, as in K1 and D).
 FRAMELESS = ("mea_warp_kernelILi1", "mea_warp_kernelILi2",
              "rel_backward_kernelILi1", "rel_backward_kernelILi2",
              "rel_forward_kernelILi1", "rel_forward_kernelILi2",
+             "serve_backward_kernelILi1", "serve_backward_kernelILi2",
+             "serve_post_kernelILi1", "serve_post_kernelILi2",
              "lanesum_window_kernel", "lanesum_reduce_kernel")
-SPILL_FREE = ("mea_warp_kernel", "rel_backward_kernel", "rel_forward_kernel")
+SPILL_FREE = ("mea_warp_kernel", "rel_backward_kernel", "rel_forward_kernel",
+              "serve_backward_kernel", "serve_post_kernel")
 
 
 def ptxas_frames(build_log):

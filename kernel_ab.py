@@ -4,7 +4,25 @@ the port, on the same inputs, in one process on one CUDA card.
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 kernel_ab.py build/parent [group ...]
 
-Groups (fused, wavefront, counts, scatter and rel when none is named):
+Groups (fused, wavefront, counts, scatter, rel and serve when none is
+named):
+  serve  the six serving kernels of the circular serving route
+         (serve=<mode>): the backwards circ_backward_emv, _codes and
+         _codes_es and the posterior forwards circ_post_es, _emv and
+         _codes, on the serve phase's realign shape [3072, 24, 1024] (the
+         generic batch's kilobase pairs in the circular layout, the
+         shipped model), on its caller shape [128, 24, 32768] (the fused
+         group's caller pairs repeated) and on the generic batch at widths
+         45, 93 and 126 (Wp 48, 96, 128; 1024 lanes): each forward on S's
+         (bm, bls, logZ) of the signed stream, which every backward
+         equals; every output bit for bit against the plain version and
+         the other checkout, times, bounds and resources
+         (`serve_resources`).  Must not move (bit-equal to the other
+         checkout, both timed): S (sv_backward) and the checkpoint pair
+         (circ_ckpt_backward, circ_ckpt_post) on the realign and caller
+         shapes; S and M (mw_forward) on the fused group's realign bucket
+         [3072, 24, 4096], S with the generic branch on its first 1024
+         lanes, S and C (cx_forward) on its caller batch [128, 24, 65536].
   rel    K2 (fb_backward) and K3 (fb_forward), the REL pair, on the REL
          path's batch [3072, 24, 1024] (the generic batch's kilobase pairs,
          the shipped model), on tRNA-length segments [256, 24, 16384] and
@@ -57,10 +75,7 @@ Groups (fused, wavefront, counts, scatter and rel when none is named):
          without yb and on the caller batch with yb; their resources
          (`*_resources`), bounds and the largest difference from the plain
          version and from the other checkout on every cell (0 expected).
-         Must not move (bit-equal to the other checkout, both timed):
-         circ_post_es, circ_backward_emv,
-         circ_backward_codes, circ_backward_codes_es and
-         circ_ckpt_backward on the bucket's first 1024 lanes; K1
+         Must not move (bit-equal to the other checkout, both timed): K1
          banded_nw on R's code bands of the guide batch.  Then the fused
          realign posteriors of the bucket (ops/fb_circ.py
          `posteriors_weights_compact`: E + S + M and the flush streams, a
@@ -133,6 +148,11 @@ Groups (fused, wavefront, counts, scatter and rel when none is named):
          after the first two), with tiles of 8 diagonals at one row a
          thread, with three stage buffers, with at most 64 registers,
          without TMA, on the rel group's REL and tRNA cells.
+  probe_serve (named on the command line only): the serving backwards
+         in S's ring of three buffers or without their register caps;
+         the serving forwards by cp.async only (no TMA), with 16-diagonal
+         tiles at 16 lanes a block too, or with 8-diagonal tiles
+         everywhere; on the serve group's realign and caller cells.
   probe_mea, probe_scatter (named on the command line only): K4 with 8,
          16 or 32 lanes a block whatever B, its weight tiles by cp.async
          (no TMA), with three or four stage buffers,
@@ -502,27 +522,6 @@ def wall_ab(this_fn, other_fn):
             "ms_runs": [t1, t2], "other_ms_runs": [o1, o2]}
 
 
-def serve_backward_args(this, pairs, table, coef, chain, cuda):
-    """The serve backwards' arguments on the circular code streams of
-    `pairs` (host band packer, `circ_device_batch`): emv, codes (also
-    codes_es) and ckpt."""
-    import torch
-
-    band, fb = sub(this, "ops.band"), sub(this, "ops.fb")
-    fc, fcirc = sub(this, "ops.fb_circ_cuda"), sub(this, "ops.fb_circ")
-    batch = band.pack_banded_batch(*pairs, width=21, pad_steps_to=BUCKET_STEPS)
-    cdev = fb.circ_device_batch(batch, fb.device_batch(batch, cuda))
-    valid = cdev.valid.view(torch.int8)
-    em = fcirc.emission_stream(table, cdev.xb, cdev.yb, cdev.valid, False)
-    codes = (coef, chain, table, cdev.xb, cdev.yb, valid, cdev.fink,
-             cdev.final_d)
-    return {"circ_backward_emv": (coef, chain, em, valid, cdev.fink,
-                                  cdev.final_d),
-            "circ_backward_codes": codes, "circ_backward_codes_es": codes,
-            "circ_ckpt_backward": codes + (fc.ckpt_block(
-                cdev.xb.shape[1]),)}
-
-
 def run_fused(this, other, cuda, report):
     """Fills `report` with the fused group's rows."""
     import torch
@@ -542,8 +541,8 @@ def run_fused(this, other, cuda, report):
     def show(*names):
         print(json.dumps({n: report[n] for n in names}), flush=True)
 
-    # The realign bucket: E, S, M; circ_post_es and S's and M's generic
-    # branch on its first lanes; the fused posteriors on the host clock.
+    # The realign bucket: E, S, M; S's and M's generic branch on its first
+    # lanes; the fused posteriors on the host clock.
     dev = compact(this, *bucket, 21, BUCKET_STEPS, cuda)
     eargs = (ematch, dev.reads, dev.refs, dev.lo, dev.m, dev.n, 21, wp,
              BUCKET_STEPS, False)
@@ -562,10 +561,6 @@ def run_fused(this, other, cuda, report):
     def cut(t):
         return t[..., :M_GENERIC_LANES].contiguous()
 
-    report["circ_post_es"] = unmoved(
-        fc.circ_post_es_cuda, ofc.circ_post_es_cuda,
-        tuple(cut(t) if torch.is_tensor(t) else t
-              for t in (coef, chain, es, bm, bls, logZ)))
     del bm, bls, logZ
     gcoef, gchain = fcirc.circ_coefficients(generic_tables(fb, model))
     gargs = (gcoef, gchain, cut(es), cut(dev.fink), cut(dev.final_d))
@@ -576,7 +571,7 @@ def run_fused(this, other, cuda, report):
         fc, ofc, "mw_forward", (gcoef, gchain, cut(es), cut(fr), cut(frr),
                                 cut(lom), *gback), cuda)
     del es, fr, frr, lom, gback
-    show("circ_post_es", "sv_backward_generic", "mw_forward_generic")
+    show("sv_backward_generic", "mw_forward_generic")
     report["realign_bucket"] = {
         "shape": [BUCKET_STEPS, wp, BUCKET_LANES],
         **wall_ab(lambda: fcirc.posteriors_weights_compact(tables, dev, 21),
@@ -584,16 +579,6 @@ def run_fused(this, other, cuda, report):
                                                             21))}
     show("realign_bucket")
     del dev
-    torch.cuda.empty_cache()
-
-    # The serve and checkpoint backwards on the bucket's first lanes.
-    for name, args in serve_backward_args(
-            this, [p[:M_GENERIC_LANES] for p in bucket], ematch, coef,
-            chain, cuda).items():
-        report[name] = unmoved(getattr(fc, name + "_cuda"),
-                               getattr(ofc, name + "_cuda"), args)
-        show(name)
-        del args
     torch.cuda.empty_cache()
 
     # The caller batch: E with yb, S, then C.
@@ -851,6 +836,161 @@ def run_rel(this, other, cuda, report):
     report["rel_banded_mea"] = unmoved(wf.banded_mea_cuda,
                                        owf.banded_mea_cuda, args)
     show("rel_banded_mea")
+
+
+SERVE_KERNELS = ("circ_backward_emv", "circ_backward_codes",
+                 "circ_backward_codes_es", "circ_post_es", "circ_post_emv",
+                 "circ_post_codes")
+
+
+def serve_cells(port, cuda, names=None):
+    """(cell, circular device batch, lane repeats) one cell at a time (those
+    of `names`, every one when None):
+    "serve_realign" the generic batch [3072, 24, 1024], "serve_call" the
+    fused group's caller pairs at CALLER_STEPS diagonals, to be repeated to
+    CALL_GENERIC_LANES lanes [128, 24, 32768], "serve_wp48" / "_wp96" /
+    "_wp128" the generic batch at widths 45, 93, 126."""
+    import torch
+
+    band, fb = sub(port, "ops.band"), sub(port, "ops.fb")
+    cells = [("serve_realign", 21), ("serve_call", 21)] + [
+        ("serve_wp%d" % wp, w) for w, wp in M_WIDE.items()]
+    for name, width in cells:
+        if names and name not in names:
+            continue
+        if name == "serve_call":
+            _, caller, _ = fused_pairs()
+            batch = band.pack_banded_batch(*caller, width=width,
+                                           pad_steps_to=CALLER_STEPS)
+            repeat = CALL_GENERIC_LANES // CALLER_UNIQUE
+        else:
+            batch = generic_batch(band, width=width)
+            repeat = 1
+        yield name, fb.circ_device_batch(batch, fb.device_batch(batch, cuda)), \
+            repeat
+        del batch
+        torch.cuda.empty_cache()
+
+
+def serve_args(port, cdev, repeat, coef, chain, table):
+    """{kernel: arguments} of the serving kernels, S and the checkpoint
+    pair on circular batch cdev, its lanes repeated `repeat` times: es and
+    em from the codes (ops/fb_circ.py `emission_stream`), the forwards on
+    S's outputs, the checkpoint posterior pass on the checkpoint
+    backward's."""
+    fc, fcirc = sub(port, "ops.fb_circ_cuda"), sub(port, "ops.fb_circ")
+
+    def rep(t):
+        return (t.repeat(*([1] * (t.dim() - 1)), repeat).contiguous()
+                if repeat > 1 else t)
+
+    xb, yb, fink, find = (rep(t) for t in (cdev.xb, cdev.yb, cdev.fink,
+                                           cdev.final_d))
+    valid = rep(cdev.valid).view(xb.dtype)
+    es = fcirc.emission_stream(table, xb, yb, valid, True)
+    em = fcirc.emission_stream(table, xb, yb, valid, False)
+    back = fc.sv_backward_cuda(coef, chain, es, fink, find)
+    codes = (coef, chain, table, xb, yb, valid)
+    kb = fc.ckpt_block(xb.shape[1])
+    ck = fc.circ_ckpt_backward_cuda(*codes, fink, find, kb)
+    return {"sv_backward": (coef, chain, es, fink, find),
+            "circ_backward_emv": (coef, chain, em, valid, fink, find),
+            "circ_backward_codes": codes + (fink, find),
+            "circ_backward_codes_es": codes + (fink, find),
+            "circ_post_es": (coef, chain, es, *back),
+            "circ_post_emv": (coef, chain, em, valid, *back),
+            "circ_post_codes": codes + tuple(back),
+            "circ_ckpt_backward": codes + (fink, find, kb),
+            "circ_ckpt_post": codes + (fink, find, *ck, kb)}
+
+
+def ab_serve(fc, ofc, name, args, cuda):
+    """Serving kernel `name` of both checkouts against the plain version
+    on `args`: bit-equality to plain and other, largest differences,
+    times, bound, resources."""
+    kernel, other = (getattr(m, name + "_cuda") for m in (fc, ofc))
+    got = outputs(kernel(*args))
+    want = outputs(getattr(fc, name + "_plain")(*args))
+    ref = outputs(other(*args))
+    d1k, wp, B = got[0].shape
+    return {"shape": [d1k, wp, B],
+            "max_abs_err_plain": max_diff(got, want),
+            "max_abs_err_other": max_diff(got, ref),
+            "bit_equal_plain": same_bits(got, want),
+            "bit_equal_other": same_bits(got, ref),
+            **ab(lambda: kernel(*args), lambda: other(*args)),
+            **bound(name, got[0].numel(), nbytes(*args, *got)),
+            "resources": fc.serve_resources(cuda, name, wp, B)}
+
+
+def run_serve(this, other, cuda, report):
+    """Fills `report` with the serve group's rows."""
+    import torch
+
+    fc, ofc = (sub(p, "ops.fb_circ_cuda") for p in (this, other))
+    fb, band = sub(this, "ops.fb"), sub(this, "ops.band")
+    model = os.path.join(ROOT, PKG, "models", "last_hmm_20.txt")
+    tables = fb.tables_from_file(model, cuda)
+    coef, chain = sub(this, "ops.fb_circ").circ_coefficients(tables)
+    table = tables.Ematch.cpu().numpy().reshape(-1)
+
+    def show(*names):
+        print(json.dumps({n: report[n] for n in names}), flush=True)
+
+    for cell, cdev, repeat in serve_cells(this, cuda):
+        args = serve_args(this, cdev, repeat, coef, chain, table)
+        for name in SERVE_KERNELS:
+            report[cell + "_" + name] = ab_serve(fc, ofc, name, args[name],
+                                                 cuda)
+            show(cell + "_" + name)
+        if cell in ("serve_realign", "serve_call"):
+            for name in ("sv_backward", "circ_ckpt_backward",
+                         "circ_ckpt_post"):
+                report[cell + "_" + name] = unmoved(
+                    getattr(fc, name + "_cuda"), getattr(ofc, name + "_cuda"),
+                    args[name])
+                show(cell + "_" + name)
+        del args, cdev
+        torch.cuda.empty_cache()
+
+    # Must not move: S and M on the realign bucket, S's generic branch on
+    # its first lanes, S and C on the caller batch.
+    ematch = table
+    wp = band.padded_band_width(21)
+    bucket, caller, _ = fused_pairs()
+    dev = compact(this, *bucket, 21, BUCKET_STEPS, cuda)
+    es = fc.expand_streams_cuda(ematch, dev.reads, dev.refs, dev.lo, dev.m,
+                                dev.n, 21, wp, BUCKET_STEPS, False)[0]
+    sargs = (coef, chain, es, dev.fink, dev.final_d)
+    report["serve_sv_backward_bucket"] = unmoved(
+        fc.sv_backward_cuda, ofc.sv_backward_cuda, sargs)
+    report["serve_mw_forward_bucket"] = unmoved(
+        fc.mw_forward_cuda, ofc.mw_forward_cuda,
+        (coef, chain, es, *band.circ_mw_streams(dev.lo, 21, wp,
+                                                 BUCKET_STEPS),
+         *fc.sv_backward_cuda(*sargs)))
+    gcoef, gchain = sub(this, "ops.fb_circ").circ_coefficients(
+        generic_tables(fb, model))
+    report["serve_sv_backward_generic"] = unmoved(
+        fc.sv_backward_cuda, ofc.sv_backward_cuda,
+        (gcoef, gchain) + tuple(t[..., :M_GENERIC_LANES].contiguous()
+                                for t in (es, dev.fink, dev.final_d)))
+    show("serve_sv_backward_bucket", "serve_mw_forward_bucket",
+         "serve_sv_backward_generic")
+    del dev, es, sargs
+    torch.cuda.empty_cache()
+    cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
+                   repeat=CALLER_LANES // CALLER_UNIQUE)
+    es, yb, fl = fc.expand_streams_cuda(ematch, cdev.reads, cdev.refs,
+                                        cdev.lo, cdev.m, cdev.n, 21, wp,
+                                        CALLER_STEPS, True)
+    csargs = (coef, chain, es, cdev.fink, cdev.final_d)
+    report["serve_sv_backward_caller"] = unmoved(
+        fc.sv_backward_cuda, ofc.sv_backward_cuda, csargs)
+    report["serve_cx_forward_caller"] = unmoved(
+        fc.cx_forward_cuda, ofc.cx_forward_cuda,
+        (coef, chain, es, yb, fl, *fc.sv_backward_cuda(*csargs)))
+    show("serve_sv_backward_caller", "serve_cx_forward_caller")
 
 
 def lanesum_cells(port, cuda):
@@ -1162,6 +1302,15 @@ def probe_cases(this, cuda, kernels):
             for t in cases["banded_mea"]["banded_mea"])
     if "scatter_lanesum" in kernels:
         cases["scatter_lanesum"] = lanesum_cells(this, cuda)
+    if set(SERVE_KERNELS) & set(kernels):
+        table = ematch
+        for name in SERVE_KERNELS:
+            cases[name] = {}
+        for cell, cdev, repeat in serve_cells(this, cuda, ("serve_realign",
+                                                           "serve_call")):
+            args = serve_args(this, cdev, repeat, coef, chain, table)
+            for name in SERVE_KERNELS:
+                cases[name][cell + "_" + name] = args[name]
     if "cx_forward" in kernels:
         cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
                        repeat=CALLER_LANES // CALLER_UNIQUE)
@@ -1374,8 +1523,8 @@ def card():
 GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
           "probe_counts", "probe_cx", "probe_generic", "probe_stored",
           "probe_mea", "probe_scatter", "probe_rel", "counts", "scatter",
-          "rel")
-DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter", "rel")
+          "rel", "serve", "probe_serve")
+DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter", "rel", "serve")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "fb_backward": "ops.fb_cuda",
@@ -1395,6 +1544,7 @@ KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "banded_nw": "ops.wavefront_cuda",
                   "banded_mea": "ops.wavefront_cuda",
                   "scatter_lanesum": "ops.bucket_scatter",
+                  **{name: "ops.fb_circ_cuda" for name in SERVE_KERNELS},
                   "mea_dl": "ops.wavefront_cuda"}
 # The probe group's variants: name -> (the kernel it varies, or a tuple of
 # the kernels it varies, its source under csrc/, edits (old, new) of that
@@ -1426,7 +1576,8 @@ _M_PARTS = {
                     "\n")],
 
     # No shuffles for the rolls (one row a thread).
-    "no_roll": [("    out[0] = __shfl_sync(mk::FULL, v[0], kk == 0 ? Wp - 1 : "
+    "no_roll": [("fb_circ.cuh",
+                 "    out[0] = __shfl_sync(mk::FULL, v[0], kk == 0 ? Wp - 1 : "
                  "kk - 1);", "    out[0] = v[0];")],
     # No expf for the posterior's scale.
     "no_expf": [("    const float a = expf(fw.ls + rec[kk & 7].bls - fw.lz);",
@@ -1512,25 +1663,25 @@ PROBES = {
         ("      mk::warp_lanes(B, [Wp](int l) { return sv_smem(Wp, l); }, "
          "lanes);", "      (*lanes = %d, cudaSuccess);" % n)])
        for n in (8, 16)},
-    **{"sv_kt%d" % n: ("sv_backward", "fb_circ.cu", [
+    **{"sv_kt%d" % n: ("sv_backward", "fb_circ.cuh", [
         ("{ return rpt == 1 ? 16 : 8; }", "{ return %d; }" % n)])
        for n in (8, 16)},
-    "sv_sync_stage": ("sv_backward", "fb_circ.cu", [
+    "sv_sync_stage": ("sv_backward", "fb_circ.cuh", [
         ("      mk::cp_async4(s + r, es + g + (size_t)r * B);",
          "      s[r] = es[g + (size_t)r * B];")]),
     # S with one part removed (outputs wrong by design): no device memory
     # after the first tiles (later tiles compute on the stage buffers as
     # they are, no output leaves), no block barrier after the first two
     # tiles, no shuffles for the rolls.
-    "sv_no_global": ("sv_backward", "fb_circ.cu", [
-        ("    if (u > 0)\n      sv_flush<LPB, KT>(",
-         "    if (u > 0 && u < 3)\n      sv_flush<LPB, KT>("),
-        ("    if (u + 1 < tiles)\n      sv_stage<LPB, KT>(",
-         "    if (u + 1 < tiles && u < 2)\n      sv_stage<LPB, KT>(")]),
-    "sv_no_barrier": ("sv_backward", "fb_circ.cu", [
+    "sv_no_global": ("sv_backward", "fb_circ.cuh", [
+        ("    if (u > 0)\n      sv_flush<LPB, KT, SRC>(",
+         "    if (u > 0 && u < 3)\n      sv_flush<LPB, KT, SRC>("),
+        ("    if (u + 1 < tiles) stage(u + 1);",
+         "    if (u + 1 < tiles && u < 2) stage(u + 1);")]),
+    "sv_no_barrier": ("sv_backward", "fb_circ.cuh", [
         ("    __syncthreads();      // then everyone's: tile u has landed",
          "    if (u < 2) __syncthreads();")]),
-    "sv_no_roll": ("sv_backward", "fb_circ.cu", [
+    "sv_no_roll": ("sv_backward", "fb_circ.cuh", [
         ("    rows.roll(p, p1, 1);\n    rows.roll(ga, g2, 1);\n"
          "    rows.roll(gb, g4, 1);",
          "    for (int r = 0; r < RPT; ++r) {\n      p1[r] = p[r];\n"
@@ -1952,6 +2103,30 @@ PROBES.update({
 })
 
 
+# probe_serve's variants of the serving kernels (csrc/fb_serve.cu,
+# csrc/fb_circ.cuh): the backwards in S's ring of three buffers or without
+# their register caps; the forwards by cp.async only (no TMA), with
+# 16-diagonal tiles at 16 lanes a block too, or with 8-diagonal tiles
+# everywhere.
+_SERVE_BWD = SERVE_KERNELS[:3]
+_SERVE_FWD = SERVE_KERNELS[3:]
+PROBES.update({
+    "serve_bwd_ring3": (_SERVE_BWD, "fb_circ.cuh", [
+        ("  return src == SRC_ES ? SV_RING : 2;", "  return SV_RING;")]),
+    "serve_bwd_no_cap": (_SERVE_BWD, "fb_serve.cu", [
+        ("  return rpt > 1 ? 1 : (src == SRC_EMV ? 4 : 3);",
+         "  return 1;")]),
+    "serve_post_cp_async": (_SERVE_FWD, "fb_serve.cu", [
+        ("bool sp_tma(int Wp, int B) {\n  return B % 4 == 0",
+         "bool sp_tma(int Wp, int B) {\n  return false && B % 4 == 0")]),
+    "serve_post_kt16": (_SERVE_FWD, "fb_serve.cu", [
+        ("  return rpt == 1 && lpb == 8 ? 16 : 8;",
+         "  return rpt == 1 ? 16 : 8;")]),
+    "serve_post_kt8": (_SERVE_FWD, "fb_serve.cu", [
+        ("  return rpt == 1 && lpb == 8 ? 16 : 8;", "  return 8;")]),
+})
+
+
 def main(argv):
     import torch
 
@@ -2163,10 +2338,12 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
             *a, kernels=("fb_generic_fwd", "fb_generic_bwd")),
         "probe_stored": lambda *a: run_probe(*a, kernels=_ST),
         "probe_rel": lambda *a: run_probe(*a, kernels=_REL),
+        "probe_serve": lambda *a: run_probe(*a, kernels=SERVE_KERNELS),
         "probe_mea": lambda *a: run_probe(*a, kernels=("banded_mea",)),
         "probe_scatter": lambda *a: run_probe(
             *a, kernels=("scatter_lanesum",)),
-        "counts": run_counts, "scatter": run_scatter, "rel": run_rel}
+        "counts": run_counts, "scatter": run_scatter, "rel": run_rel,
+        "serve": run_serve}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

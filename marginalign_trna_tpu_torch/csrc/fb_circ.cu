@@ -9,16 +9,6 @@
 //                   emission = max(es, 0)) the match-state backward band bm,
 //                   the cumulative log-scale bls per diagonal and
 //                   logZ = log(max(0.2 * zrow, 1e-30)) + bls[0].
-//   circ_backward_emv      <- `_make_bwd_kernel_circ_first` ("em" mode):
-//                   the same backward from a premasked f32 emission stream
-//                   em and the int8 valid stream.
-//   circ_backward_codes    <- `_make_bwd_kernel_circ_lean` ("lean", and
-//                   the lean part of "ckpt"): from the int8 code streams xb,
-//                   yb and valid, the match emission looked up in the 5x5
-//                   table Ematch[x][y] in-kernel.
-//   circ_backward_codes_es <- `_make_bwd_kernel_circ_emw` ("emw"): as
-//                   codes, and it also writes the signed stream
-//                   es = e * valid - (1 - valid) for the forward.
 //   cx_forward   <- `_cx_from_es` (`_make_fwd_kernel_circ_cx`): the scaled
 //                   forward; post = f_M * b_M * exp(ls + bls - logZ) (the
 //                   origin cell excluded) adds into one of four per-position
@@ -36,13 +26,10 @@
 //                   a row accumulator that stays put (a read position keeps
 //                   its circular row) and flushes at frr (flc, flr, tails
 //                   tc, tr).
-//   circ_post_es / _emv / _codes <- `_make_fwd_kernel_circ_post_sv`
-//                   ("sv", "emw"), `_make_fwd_kernel_circ_post` ("em"),
-//                   `_make_fwd_kernel_circ_post_lean` ("lean"): the same
-//                   forward; post leaves as the circular band (the origin
-//                   cell kept, as the TPU kernels keep it).
-//   circ_ckpt_backward <- `_make_bwd_kernel_circ_ckpt` ("ckpt"): the codes
-//                   backward that stores no band: once per block of KB
+//   circ_ckpt_backward <- `_make_bwd_kernel_circ_ckpt` ("ckpt"): the
+//                   backward from the int8 code streams xb, yb and valid
+//                   (the match emission looked up in the 5x5 table
+//                   Ematch[x][y] in-kernel) that stores no band: once per block of KB
 //                   diagonals it writes the state entering the block (the
 //                   e_M * b_M rows of the two diagonals above it, the gap
 //                   states of the one above, bls and the last factor), and
@@ -54,11 +41,15 @@
 //                   writes the circular posterior band.  The replay runs
 //                   the backward's code on the backward's state, so it is
 //                   bit-identical to a stored band.
-// The serving and checkpoint forwards run one recursion (`CircForward`)
-// and the backwards but sv_backward another (`CircBackward`); mw and cx
-// run the forward's arithmetic in the warp-per-lane layout (`WarpForward`,
-// each with a sink of its own: "M: mw_forward" and "C: cx_forward" below)
-// and sv_backward the backward's ("S: sv_backward").
+// The serving kernels circ_backward_emv / _codes / _codes_es and
+// circ_post_es / _emv / _codes are in csrc/fb_serve.cu.  The checkpoint
+// pair runs one recursion for each direction in the block layout
+// (`CircForward`, `CircBackward`); every other kernel runs them in the
+// warp-per-lane layout (csrc/fb_circ.cuh): mw, cx and the serving forwards
+// the forward's arithmetic (`WarpForward`, each with a sink of its own:
+// "M: mw_forward" and "C: cx_forward" below), sv_backward and the serving
+// backwards the backward's (`SvWarp`, `sv_walk`, over an emission source
+// each).
 // In the circular layout row r holds read prefix index i = r (mod Wp), so
 // every band motion is an unconditional roll by one row: the match move
 // reads row k - 1 of generation d - 2 (forward) or k + 1 of d + 2
@@ -74,29 +65,21 @@
 // zero-padded steps.  Built with -fmad=false and with the plain versions'
 // order of operations, so they round as the plain versions do.
 //
-// What bounds the two templates' kernels (circ_post_*, the serving and
-// checkpoint backwards) on an H100: per cell a backward reads 1-5 B and
-// writes 4 B, a forward reads 9-13 B and writes 0-4 B, against ~25 flops;
-// a full card would be memory bound, but at the paths' shapes the chain of
-// d1k dependent diagonals (a block barrier each, two on rescale steps)
-// bounds them first.  One block owns 32 lanes x all Wp rows and keeps both
-// frontier generations in shared memory.  The checkpoint pair moves 24 / KB B
-// per cell between its kernels instead of the 8 B of a stored band and its
-// re-read; its replay doubles the posterior pass's recursion and needs
-// (24 + KB) planes of shared memory (KB = 32 at Wp 24: 176 KB; KB = 8 up
-// to Wp 56), or, for wider bands, the forward's 12 planes and the replay
-// in device memory.  S, M and C: their sections below.
-#include "common.cuh"
+// What bounds the checkpoint pair (the block-layout templates) on an H100:
+// per cell its backward reads 3 B, its posterior pass 3 B and writes 4 B,
+// against ~25 flops a pass; a full card would be memory bound, but at the
+// paths' shapes the chain of d1k dependent diagonals (a block barrier
+// each, two on rescale steps) bounds them first.  One block owns 32 lanes x
+// all Wp rows and keeps both frontier generations in shared memory.  The
+// pair moves 24 / KB B per cell between its kernels instead of the 8 B of a
+// stored band and its re-read; its replay doubles the posterior pass's
+// recursion and needs (24 + KB) planes of shared memory (KB = 32 at Wp 24:
+// 176 KB; KB = 8 up to Wp 56), or, for wider bands, the forward's 12
+// planes and the replay in device memory.  S, M and C: their sections
+// below and in csrc/fb_circ.cuh.
+#include "fb_circ.cuh"
 
 namespace {
-
-// The model's coefficients (common.cuh).
-using CircCoef = mk::FlatGapCoef;
-
-// The 25 match emissions Ematch[ref code][read code], by value.
-struct EmitTable {
-  float e[25];
-};
 
 // Thread coordinates every recursion and sink needs.
 struct Lanes {
@@ -121,49 +104,13 @@ __host__ __device__ __forceinline__ size_t replay_floats(int Wp, int KB) {
   return ((size_t)(12 + KB) * Wp + KB) * mk::LANES;
 }
 
-// -------------------------------------------------------- emission sources
-// load(): the match emission e (0 on an invalid cell) and the validity v
-// (1 or 0) of cell (d, k) of lane t.b; dead lanes read as invalid.
-
-// The signed stream: v = es >= 0, e = max(es, 0).
-struct EsSrc {
-  const float* __restrict__ es;
-  __device__ void bind(const float*) {}
-  __device__ void load(const Lanes& t, int d, int k, float& e,
-                       float& v) const {
-    const float x = t.live ? es[mk::cell(d, k, t.b, t.Wp, t.B)] : -1.f;
-    v = x >= 0.f ? 1.f : 0.f;
-    e = fmaxf(x, 0.f);
-  }
-};
-
-// A premasked emission stream and the int8 valid stream.
-struct EmvSrc {
-  const float* __restrict__ em;
-  const int8_t* __restrict__ valid;
-  __device__ void bind(const float*) {}
-  __device__ void load(const Lanes& t, int d, int k, float& e,
-                       float& v) const {
-    if (!t.live) {
-      e = 0.f;
-      v = 0.f;
-      return;
-    }
-    const size_t c = mk::cell(d, k, t.b, t.Wp, t.B);
-    v = valid[c] ? 1.f : 0.f;
-    e = em[c];
-  }
-};
-
-// The int8 code streams: e = Ematch[x][y] * v from the table in shared
-// memory (0 for a code outside 0..4); with WRITE_ES the signed stream
-// es = e - (1 - v) leaves for the forward.
-template <bool WRITE_ES>
+// The block-layout source of the checkpoint pair: load() gives e and v of
+// cell (d, k) of lane t.b straight from device memory (dead lanes read as
+// invalid), the table in shared memory.
 struct CodesSrc {
   const int8_t* __restrict__ xb;
   const int8_t* __restrict__ yb;
   const int8_t* __restrict__ valid;
-  float* __restrict__ es_out;
   const float* table;
   __device__ void bind(const float* shE) { table = shE; }
   __device__ void load(const Lanes& t, int d, int k, float& e,
@@ -174,23 +121,9 @@ struct CodesSrc {
       return;
     }
     const size_t c = mk::cell(d, k, t.b, t.Wp, t.B);
-    v = valid[c] ? 1.f : 0.f;
-    const int x = xb[c], y = yb[c];
-    const float em = (unsigned)x < 5u && (unsigned)y < 5u ? table[x * 5 + y]
-                                                         : 0.f;
-    e = em * v;
-    if (WRITE_ES) es_out[c] = e - (1.f - v);
+    codes_cell(table, xb[c], yb[c], valid[c], e, v);
   }
 };
-
-// Copies the emission table into shared memory (thread 0; the caller's
-// next barrier publishes it).
-__device__ __forceinline__ void load_table(const EmitTable& tab, float* shE) {
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
-#pragma unroll
-    for (int i = 0; i < 25; ++i) shE[i] = tab.e[i];
-  }
-}
 
 // ---------------------------------------------------------------- backward
 
@@ -350,18 +283,6 @@ struct CircBackward {
 };
 
 // ----------------------------------------------------------------- forward
-
-// b_M and bls of the backward from device memory.
-struct GlobalBack {
-  const float* __restrict__ bm;
-  const float* __restrict__ bls;
-  __device__ float bm_at(const Lanes& t, int d, int k) const {
-    return bm[mk::cell(d, k, t.b, t.Wp, t.B)];
-  }
-  __device__ float bls_at(const Lanes& t, int d) const {
-    return bls[(size_t)d * t.B + t.b];
-  }
-};
 
 // b_M and bls of diagonals d0 .. d0 + KB - 1 replayed into shared memory:
 // bm [KB][Wp][L], bls [KB][L].
@@ -531,62 +452,11 @@ struct PostSink {
 
 // ----------------------------------------------------------------- kernels
 
-// The serving backwards (emission sources emv, codes, codes_es): bm, bls,
-// logZ.
-template <int RPT, class Src>
-__global__ void __launch_bounds__(1024)
-    circ_backward_kernel(Src src, EmitTable tab,
-                         const int32_t* __restrict__ fink,
-                         const int32_t* __restrict__ find, CircCoef K,
-                         int chain, int d1k, int Wp, int B,
-                         float* __restrict__ bm, float* __restrict__ bls_out,
-                         float* __restrict__ logZ) {
-  extern __shared__ float smem[];
-  __shared__ float shE[25];
-  const Lanes t(Wp, B);
-  load_table(tab, shE);
-  Src s = src;
-  s.bind(shE);
-  zero_smem(smem, 12 * t.plane);
-  CircBackward<RPT, Src> bw(t, s, K, chain, fink, find, smem);
-  __syncthreads();
-  for (int d = d1k - 1; d >= 0; --d) {
-    bw.step(d);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k < Wp && t.live) bm[mk::cell(d, k, t.b, Wp, B)] = bw.nb[r][0];
-    }
-    if (t.live && t.ty == 0) bls_out[(size_t)d * B + t.b] = bw.bls;
-    __syncthreads();
-  }
-  bw.write_logz(logZ);
-}
-
-template <int RPT, class Src>
-__global__ void __launch_bounds__(1024)
-    circ_post_kernel(Src src, EmitTable tab, const float* __restrict__ bm,
-                     const float* __restrict__ bls,
-                     const float* __restrict__ logZ, CircCoef K, int chain,
-                     int d1k, int Wp, int B, float* __restrict__ post) {
-  extern __shared__ float smem[];
-  __shared__ float shE[25];
-  const Lanes t(Wp, B);
-  load_table(tab, shE);
-  Src s = src;
-  s.bind(shE);
-  PostSink<RPT> sink{t, post};
-  zero_smem(smem, 12 * t.plane);
-  CircForward<RPT, Src> fw(t, s, K, chain, logZ, smem);
-  __syncthreads();
-  fw.run(0, d1k, GlobalBack{bm, bls}, sink);
-}
-
 // The checkpoint backward: blocks of KB diagonals from the top; the state
 // entering each block leaves as its checkpoint, then logZ.
 template <int RPT>
 __global__ void __launch_bounds__(1024)
-    circ_ckpt_backward_kernel(CodesSrc<false> src, EmitTable tab,
+    circ_ckpt_backward_kernel(CodesSrc src, EmitTable tab,
                               const int32_t* __restrict__ fink,
                               const int32_t* __restrict__ find, CircCoef K,
                               int chain, int d1k, int Wp, int B, int KB,
@@ -596,10 +466,10 @@ __global__ void __launch_bounds__(1024)
   __shared__ float shE[25];
   const Lanes t(Wp, B);
   load_table(tab, shE);
-  CodesSrc<false> s = src;
+  CodesSrc s = src;
   s.bind(shE);
   zero_smem(smem, 12 * t.plane);
-  CircBackward<RPT, CodesSrc<false>> bw(t, s, K, chain, fink, find, smem);
+  CircBackward<RPT, CodesSrc> bw(t, s, K, chain, fink, find, smem);
   __syncthreads();
   for (int g = (d1k - 1) / KB; g >= 0; --g) {
     const int top = min(g * KB + KB, d1k) - 1;
@@ -621,7 +491,7 @@ __global__ void __launch_bounds__(1024)
 // shared memory); else scratch is null.
 template <int RPT>
 __global__ void __launch_bounds__(1024)
-    circ_ckpt_post_kernel(CodesSrc<false> src, EmitTable tab,
+    circ_ckpt_post_kernel(CodesSrc src, EmitTable tab,
                           const int32_t* __restrict__ fink,
                           const int32_t* __restrict__ find,
                           const float* __restrict__ ck,
@@ -633,7 +503,7 @@ __global__ void __launch_bounds__(1024)
   __shared__ float shE[25];
   const Lanes t(Wp, B);
   load_table(tab, shE);
-  CodesSrc<false> s = src;
+  CodesSrc s = src;
   s.bind(shE);
   float* fsm = smem;
   float* bsm = scratch ? scratch + blockIdx.x * replay_floats(Wp, KB)
@@ -642,8 +512,8 @@ __global__ void __launch_bounds__(1024)
   float* blsS = bmS + KB * t.plane;
   zero_smem(fsm, 12 * t.plane);
   zero_smem(bsm, 12 * t.plane);
-  CircBackward<RPT, CodesSrc<false>> bw(t, s, K, chain, fink, find, bsm);
-  CircForward<RPT, CodesSrc<false>> fw(t, s, K, chain, logZ, fsm);
+  CircBackward<RPT, CodesSrc> bw(t, s, K, chain, fink, find, bsm);
+  CircForward<RPT, CodesSrc> fw(t, s, K, chain, logZ, fsm);
   PostSink<RPT> sink{t, post};
   __syncthreads();
   for (int g = 0; g * KB < d1k; ++g) {
@@ -795,136 +665,6 @@ __device__ __forceinline__ void mw_flush(const MwOut& O, int d0, int d1k,
     flr[(size_t)(d0 + kb) * B + b] = O.flr[w * MW_KT + kb];
   }
 }
-
-// out[r] = v at row k - 1 (row Wp - 1 for row 0) of the thread's rows
-// k = kk + 32 r: the band's roll down by one row.
-template <int RPT>
-__device__ __forceinline__ void roll_down(const float (&v)[RPT],
-                                          float (&out)[RPT], int kk,
-                                          int Wp) {
-  if constexpr (RPT == 1) {
-    out[0] = __shfl_sync(mk::FULL, v[0], kk == 0 ? Wp - 1 : kk - 1);
-  } else {
-    float up[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      up[r] = __shfl_sync(mk::FULL, v[r], (kk + 31) & 31);
-    const float wrap = __shfl_sync(mk::FULL, v[RPT - 1], (Wp - 1) & 31);
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      out[r] = kk > 0 ? up[r] : (r > 0 ? up[r - 1] : wrap);
-  }
-}
-
-// The scaled forward of one lane in the warp-per-lane layout, its rows
-// k = kk + 32 r (M and C): the frontier and the mixes it published (the
-// match mix of d-1 and d-2, the gap mixes of d-1, those read one row down
-// already rolled) in registers.  Arithmetic in CircForward's order.
-template <int RPT>
-struct WarpForward {
-  const CircCoef& K;
-  int chain, Wp, kk;
-  float lz, ls = 0.f, cprev = 1.f;
-  float f[RPT][5];
-  float mm1[RPT], mm2[RPT];  // match mixes of d-1, d-2, rolled down
-  float g1[RPT], g2[RPT], g3[RPT], g4[RPT];  // gap mixes of d-1 (2, 4 rolled)
-
-  __device__ WarpForward(const CircCoef& K_, int chain_, int Wp_, float lz_)
-      : K(K_), chain(chain_), Wp(Wp_), kk(threadIdx.x & 31), lz(lz_) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      mm1[r] = mm2[r] = g1[r] = g2[r] = g3[r] = g4[r] = 0.f;
-  }
-
-  __device__ int row(int r) const { return kk + 32 * r; }
-
-  // Generation d at row kb of its rescale period (kb % 8 == d % 8): the
-  // start distribution at d = 0, else the cells from es at the thread's
-  // first row, the d-2 mix divided by cprev where kb % 8 == 0 and the
-  // rescale where kb % 8 == 7.  Returns whether it rescaled (ls moved).
-  __device__ bool cells(int d, int kb, const float* es) {
-    if (d == 0) {
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const bool origin = row(r) == 0;
-        f[r][0] = origin ? 0.2f : 0.f;
-#pragma unroll
-        for (int s = 1; s < 5; ++s)
-          f[r][s] = origin ? (chain ? K.pi[s - 1] : 0.2f) : 0.f;
-      }
-      return false;
-    }
-    const bool divide = (kb & 7) == 0;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const float x = row(r) < Wp ? es[32 * r] : -1.f;
-      const float v = x >= 0.f ? 1.f : 0.f;
-      const float e = fmaxf(x, 0.f);
-      float mm = mm2[r];
-      if (divide) mm = mm / cprev;
-      f[r][0] = e * mm;
-      f[r][1] = g1[r] * v;
-      f[r][2] = g2[r] * v;
-      f[r][3] = g3[r] * v;
-      f[r][4] = g4[r] * v;
-    }
-    if ((kb & 7) != 7) return false;
-    float m = 0.f;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      if (row(r) < Wp)
-        m = fmaxf(m, fmaxf(fmaxf(fmaxf(f[r][0], f[r][1]),
-                                 fmaxf(f[r][2], f[r][3])), f[r][4]));
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1)
-      m = fmaxf(m, __shfl_xor_sync(mk::FULL, m, o));
-    const float c = m > 0.f ? m : 1.f;
-    const float inv = 1.f / c;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-#pragma unroll
-      for (int s = 0; s < 5; ++s) f[r][s] = f[r][s] * inv;
-    ls += logf(c);
-    cprev = c;
-    return true;
-  }
-
-  // The mixes generation d contributes: the match target at d+2 and the
-  // gap targets at d+1, those read one row down rolled now.
-  __device__ void publish() {
-    float mm[RPT], ga[RPT], gb[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      float g[4];
-      if (chain) {
-        mm[r] = K.t00 * f[r][0];
-#pragma unroll
-        for (int s = 1; s < 5; ++s) mm[r] = mm[r] + K.mc[s - 1] * f[r][s];
-#pragma unroll
-        for (int u = 1; u < 5; ++u) g[u - 1] = f[r][0] + K.c[u - 1] * f[r][u];
-      } else {
-        mm[r] = f[r][0] * K.a[0];
-#pragma unroll
-        for (int s = 1; s < 5; ++s) mm[r] = mm[r] + f[r][s] * K.a[s * 5];
-#pragma unroll
-        for (int u = 1; u < 5; ++u) {
-          g[u - 1] = f[r][0] * K.a[u];
-#pragma unroll
-          for (int s = 1; s < 5; ++s)
-            g[u - 1] = g[u - 1] + f[r][s] * K.a[s * 5 + u];
-        }
-      }
-      g1[r] = g[0];
-      ga[r] = g[1];
-      g3[r] = g[2];
-      gb[r] = g[3];
-      mm2[r] = mm1[r];
-    }
-    roll_down<RPT>(mm, mm1, kk, Wp);
-    roll_down<RPT>(ga, g2, kk, Wp);
-    roll_down<RPT>(gb, g4, kk, Wp);
-  }
-};
 
 // M's lane: the forward and M's sink (the band-relative posterior row, the
 // rolling column and the fixed row accumulator).
@@ -1306,234 +1046,9 @@ __global__ void __launch_bounds__(32 * LPB)
 
 // ----------------------------------------------------------- S: sv_backward
 //
-// S runs the backward of CircBackward from the signed stream in a layout of
-// its own, as M runs the forward: one warp per lane, RPT consecutive band
-// rows a thread (mk::WarpRows, row k = RPT kk + r), LPB lanes a block
-// (mk::warp_lanes).  The match term reads row k + 1 of generation d + 2
-// and gap states 2 and 4 row k + 1 of d + 1, so generation d's e_M * b_M
-// and its gap states 2 and 4 roll up one row when they are published (one
-// shuffle each) and a diagonal needs no block barrier; the rescale's band
-// max at d % 8 == 0 is a warp reduction.  The block stages tiles of KT
-// descending diagonals of es with cp.async, one tile ahead, into a ring of
-// SV_RING buffers; a thread overwrites each es value it has read with its
-// b_M, so the tile leaves from the same buffer, as lane-contiguous
-// segments, once the next tile's barrier has passed: one barrier per KT
-// diagonals.  Tiles start at multiples of KT, so d % 8 is fixed by the
-// tile row (a whole tile runs unrolled, its rescale and division steps
-// known at compile time), and the top tile is partial when d1k is no
-// multiple of KT.  Arithmetic in CircBackward's order (-fmad=false), so it
-// equals the plain version bit for bit.
-//
-// What bounds it on an H100 (kernel_ab.py's probe group, [3072, 24, 4096]:
-// 1.51 ms against a 0.74 ms byte bound): instruction issue along each
-// warp's chain of dependent diagonals.  A gap-chain step is ~56
-// instructions (3 of them shuffles), with 8 of the warp's 32 threads past
-// the band at Wp 24; without device memory after the first tiles it takes
-// 1.24 ms, without the row shuffles 1.47, without the block barrier 1.45.
-// Copying the tiles without cp.async costs 11%, 8 lanes a block instead of
-// 16 7%, and 8-diagonal tiles 7% at Wp 24.
-constexpr int SV_RING = 3;  // tile buffers: computed, leaving, arriving
-
-// KT, the diagonals a tile at rpt band rows a thread: 16 at one row (every
-// path's Wp 24), 8 for wider bands, where a ring of 16-diagonal tiles
-// leaves room for one block an SM (kernel_ab.py's probe group).
-__host__ __device__ constexpr int sv_kt(int rpt) { return rpt == 1 ? 16 : 8; }
-static_assert(sv_kt(1) % 8 == 0 && sv_kt(2) % 8 == 0,
-              "tiles hold whole rescale periods");
-
-// A buffer holds a tile's es rows, then its bm rows, [LPB][sv_stride]
-// (lane w's row k of tile row kb at w * stride + kb * Wp + k; the last
-// float of a lane's rows is read by the threads past the band), then bls
-// [LPB][KT].
-__host__ __device__ inline int sv_stride(int Wp, int kt) {
-  return kt * Wp + 1;
-}
-__host__ __device__ inline int sv_buf_floats(int Wp, int lpb, int kt) {
-  return lpb * (sv_stride(Wp, kt) + kt);
-}
-// The ring: 12 lpb (KT (Wp + 1) + 1) bytes.
-inline size_t sv_smem(int Wp, int lpb) {
-  const int kt = sv_kt(mk::rows_per_thread(Wp));
-  return (size_t)SV_RING * sv_buf_floats(Wp, lpb, kt) * sizeof(float);
-}
-
-// Starts the copy of the es rows of diagonals d0 .. d0 + n - 1 of the
-// block's lanes into buffer S (one group), as mw_stage copies.
-template <int LPB, int KT>
-__device__ __forceinline__ void sv_stage(float* S, int d0, int n, int b0,
-                                         int Wp, int B,
-                                         const float* __restrict__ es) {
-  const int w = threadIdx.x % LPB;
-  if (b0 + w < B) {
-    const size_t g = (size_t)d0 * Wp * B + b0 + w;
-    float* s = S + w * sv_stride(Wp, KT);
-    for (int r = threadIdx.x / LPB; r < n * Wp; r += 32)
-      mk::cp_async4(s + r, es + g + (size_t)r * B);
-  }
-  mk::cp_async_commit();
-}
-
-// Writes the bm rows and bls of buffer O (diagonals d0 .. d0 + n - 1) in
-// sv_stage's order.
-template <int LPB, int KT>
-__device__ __forceinline__ void sv_flush(const float* O, int d0, int n,
-                                         int b0, int Wp, int B,
-                                         float* __restrict__ bm,
-                                         float* __restrict__ bls) {
-  const int w = threadIdx.x % LPB;
-  if (b0 + w >= B) return;
-  const size_t g = (size_t)d0 * Wp * B + b0 + w;
-  const float* s = O + w * sv_stride(Wp, KT);
-  for (int r = threadIdx.x / LPB; r < n * Wp; r += 32)
-    bm[g + (size_t)r * B] = s[r];
-  const int kb = threadIdx.x / LPB;
-  if (kb < n)
-    bls[(size_t)(d0 + kb) * B + b0 + w] =
-        O[LPB * sv_stride(Wp, KT) + w * KT + kb];
-}
-
-// The backward of one lane, its rows as mk::WarpRows.
-template <int RPT>
-struct SvWarp {
-  static constexpr int KT = sv_kt(RPT);
-  const CircCoef& K;
-  mk::WarpRows<RPT> rows;
-  int chain, Wp, fd;
-  bool at_fk[RPT];  // row k is the terminal row
-  float bls = 0.f, cprev = 1.f;
-  float nb[RPT][5];
-  float p1[RPT], p2[RPT];  // e_M * b_M of d+1, d+2, rolled up
-  float g1[RPT], g2[RPT], g3[RPT], g4[RPT];  // gap states of d+1 (2, 4
-                                             // rolled up)
-
-  __device__ SvWarp(const CircCoef& K_, int chain_, int Wp_, int fd_,
-                    int fk)
-      : K(K_), rows(Wp_), chain(chain_), Wp(Wp_), fd(fd_) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      at_fk[r] = row(r) == fk;
-      p1[r] = p2[r] = g1[r] = g2[r] = g3[r] = g4[r] = 0.f;
-    }
-  }
-
-  __device__ int row(int r) const { return rows.row(r); }
-
-  // Diagonals d0 + n - 1 down to d0 (a tile) of one lane: its rows at
-  // lane (es in, bm out), bls to bls_out.
-  __device__ void tile(float* lane, float* bls_out, int d0, int n) {
-    if (n == KT) {
-#pragma unroll
-      for (int kb = KT - 1; kb >= 0; --kb)
-        step(d0 + kb, kb, lane, bls_out);
-    } else {
-      for (int kb = n - 1; kb >= 0; --kb) step(d0 + kb, kb, lane, bls_out);
-    }
-  }
-
-  // Generation d (tile row kb, d % 8 == kb % 8), as CircBackward::step.
-  __device__ void step(int d, int kb, float* lane, float* bls_out) {
-    const bool divide = (kb & 7) == 7;
-    const bool at_fd = d == fd;
-    float e[RPT];
-    int off[RPT];  // the row's es value, then its b_M
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = row(r);
-      const bool in = k < Wp;
-      off[r] = in ? kb * Wp + k : KT * Wp;
-      const float x = in ? lane[off[r]] : -1.f;
-      const float v = x >= 0.f ? 1.f : 0.f;
-      e[r] = fmaxf(x, 0.f);
-      float q[5];
-      q[0] = p2[r];
-      if (divide) q[0] = q[0] / cprev;
-      q[1] = g1[r];
-      q[2] = g2[r];
-      q[3] = g3[r];
-      q[4] = g4[r];
-      const bool inj = at_fd & at_fk[r];
-      if (chain) {
-        float acc0 = K.t00 * q[0];
-#pragma unroll
-        for (int s = 1; s < 5; ++s) acc0 = acc0 + K.m0[s - 1] * q[s];
-        nb[r][0] = (inj ? 1.f : acc0) * v;
-#pragma unroll
-        for (int s = 1; s < 5; ++s) {
-          const float accs = q[0] + K.cb[s - 1] * q[s];
-          nb[r][s] = (inj ? K.r[s - 1] : accs) * v;
-        }
-      } else {
-        const float injv = inj ? 1.f : 0.f;
-#pragma unroll
-        for (int s = 0; s < 5; ++s) {
-          float acc = q[0] * K.a[s * 5];
-#pragma unroll
-          for (int u = 1; u < 5; ++u) acc = acc + q[u] * K.a[s * 5 + u];
-          nb[r][s] = (acc + injv) * v;
-        }
-      }
-    }
-    if ((kb & 7) == 0) {
-      float m = 0.f;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        if (row(r) < Wp)
-          m = fmaxf(m, fmaxf(fmaxf(fmaxf(nb[r][0], nb[r][1]),
-                                   fmaxf(nb[r][2], nb[r][3])), nb[r][4]));
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(mk::FULL, m, o));
-      const float c = m > 0.f ? m : 1.f;
-      const float inv = 1.f / c;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-#pragma unroll
-        for (int s = 0; s < 5; ++s) nb[r][s] = nb[r][s] * inv;
-      bls += logf(c);
-      cprev = c;
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      if (row(r) < Wp) lane[off[r]] = nb[r][0];
-    if (rows.kk == 0) bls_out[kb] = bls;
-    publish(e);
-  }
-
-  // Generation d becomes d + 1 for the next step: e_M * b_M and gap
-  // states 2 and 4 rolled up one row.
-  __device__ void publish(const float (&e)[RPT]) {
-    float p[RPT], ga[RPT], gb[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      p[r] = e[r] * nb[r][0];
-      g1[r] = nb[r][1];
-      ga[r] = nb[r][2];
-      g3[r] = nb[r][3];
-      gb[r] = nb[r][4];
-      p2[r] = p1[r];
-    }
-    rows.roll(p, p1, 1);
-    rows.roll(ga, g2, 1);
-    rows.roll(gb, g4, 1);
-  }
-
-  // logZ from generation 0 (row 0 is r = 0 of thread 0).
-  __device__ void write_logz(float* __restrict__ logZ) const {
-    if (rows.kk != 0) return;
-    float zr;
-    if (chain) {
-      zr = nb[0][0];
-#pragma unroll
-      for (int s = 1; s < 5; ++s) zr = zr + K.tz[s - 1] * nb[0][s];
-    } else {
-      zr = (((nb[0][0] + nb[0][1]) + nb[0][2]) + nb[0][3]) + nb[0][4];
-    }
-    *logZ = logf(fmaxf(0.2f * zr, 1e-30f)) + bls;
-  }
-};
-
-// At most 64 registers a thread, so that two blocks of 16 lanes (four of
-// 8) fit an SM's registers.
+// S: the walk of csrc/fb_circ.cuh (`sv_walk`, `SvWarp`) over the signed
+// stream es.  At most 64 registers a thread, so that two blocks of 16
+// lanes (four of 8) fit an SM's registers.
 template <int RPT, int LPB>
 __global__ void __launch_bounds__(32 * LPB, 32 / LPB)
     sv_backward_kernel(const float* __restrict__ es,
@@ -1543,46 +1058,14 @@ __global__ void __launch_bounds__(32 * LPB, 32 / LPB)
                        float* __restrict__ bm, float* __restrict__ bls,
                        float* __restrict__ logZ) {
   extern __shared__ __align__(16) float sv_raw[];
-  constexpr int KT = sv_kt(RPT);
-  const int nbuf = sv_buf_floats(Wp, LPB, KT);
-  // The buffer of the u-th tile from the top, its first diagonal and its
-  // count.
-  auto buf = [&](int u) { return sv_raw + (u % SV_RING) * nbuf; };
-  const int tiles = (d1k + KT - 1) / KT;
-  auto first = [&](int u) { return (tiles - 1 - u) * KT; };
-  auto count = [&](int u) { return min(KT, d1k - first(u)); };
-  const int w = threadIdx.x >> 5;
-  const int b0 = blockIdx.x * LPB, b = b0 + w;
-  const bool live = b < B;  // warp-uniform
-  SvWarp<RPT> lane(K, chain, Wp, live ? find[b] : -1, live ? fink[b] : -1);
-  sv_stage<LPB, KT>(buf(0), first(0), count(0), b0, Wp, B, es);
-  for (int u = 0; u < tiles; ++u) {
-    // Every warp is past tile u - 1, which leaves now; tile u + 1 arrives
-    // in the buffer tile u - 2 left from.
-    mk::cp_async_wait();  // this thread's copies of tile u,
-    __syncthreads();      // then everyone's: tile u has landed
-    if (u > 0)
-      sv_flush<LPB, KT>(buf(u - 1), first(u - 1), count(u - 1), b0, Wp, B,
-                        bm, bls);
-    if (u + 1 < tiles)
-      sv_stage<LPB, KT>(buf(u + 1), first(u + 1), count(u + 1), b0, Wp, B,
-                        es);
-    if (live)
-      lane.tile(buf(u) + w * sv_stride(Wp, KT),
-                buf(u) + LPB * sv_stride(Wp, KT) + w * KT, first(u),
-                count(u));
-  }
-  __syncthreads();
-  sv_flush<LPB, KT>(buf(tiles - 1), 0, count(tiles - 1), b0, Wp, B, bm,
-                    bls);
-  if (live) lane.write_logz(logZ + b);
+  sv_walk<RPT, LPB, SRC_ES>(sv_raw, es, SrcBytes{}, nullptr, fink, find, K,
+                            chain, d1k, Wp, B, false, bm, bls, logZ,
+                            nullptr);
 }
 
 // ---------------------------------------------------------------- launches
 
 size_t bwd_smem(int Wp) { return (size_t)12 * Wp * mk::LANES * sizeof(float); }
-// The posterior forwards' sink keeps nothing: the forward's 12 planes.
-size_t post_smem(int Wp) { return bwd_smem(Wp); }
 size_t ckpt_post_smem(int Wp, int KB, bool spilled) {
   return bwd_smem(Wp) + (spilled ? 0 : replay_floats(Wp, KB) * sizeof(float));
 }
@@ -1611,19 +1094,6 @@ cudaError_t run(void (*kernel)(P...), size_t smem, int Wp, int B,
     case 4: { constexpr int R = 4; return __VA_ARGS__; } \
     default: return cudaErrorInvalidValue;      \
   }
-
-CircCoef load_coef(const float* coef) { return mk::load_flat_coef(coef); }
-
-EmitTable load_table_host(const float* table) {
-  EmitTable T{};
-  if (table)
-    for (int i = 0; i < 25; ++i) T.e[i] = table[i];
-  return T;
-}
-
-bool bad_shape(int d1k, int Wp, int B) {
-  return d1k < 1 || B < 1 || Wp < 1 || mk::rows_per_thread(Wp) > mk::MAX_RPT;
-}
 
 // The lanes a block M takes for B lanes at band width Wp on the current
 // device: 16 where that block fits shared memory and every SM still gets
@@ -1729,32 +1199,6 @@ cudaError_t sv_setup(int Wp, int B, const void** kernel, int* lanes,
   return *kernel ? mk::allow_smem(*kernel, *smem) : cudaErrorInvalidValue;
 }
 
-template <class Src>
-cudaError_t run_backward(const Src& src, const float* table,
-                         const int32_t* fink, const int32_t* find,
-                         const float* coef, int chain, int d1k, int Wp, int B,
-                         float* bm, float* bls, float* logZ, void* stream) {
-  if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
-  const CircCoef K = load_coef(coef);
-  const EmitTable T = load_table_host(table);
-  const cudaStream_t s = (cudaStream_t)stream;
-  BY_RPT(Wp, run(circ_backward_kernel<R, Src>, bwd_smem(Wp), Wp, B, s, src,
-                 T, fink, find, K, chain, d1k, Wp, B, bm, bls, logZ))
-}
-
-template <class Src>
-cudaError_t run_post(const Src& src, const float* table, const float* bm,
-                     const float* bls, const float* logZ, const float* coef,
-                     int chain, int d1k, int Wp, int B, float* post,
-                     void* stream) {
-  if (bad_shape(d1k, Wp, B)) return cudaErrorInvalidValue;
-  const CircCoef K = load_coef(coef);
-  const EmitTable T = load_table_host(table);
-  const cudaStream_t s = (cudaStream_t)stream;
-  BY_RPT(Wp, run(circ_post_kernel<R, Src>, post_smem(Wp), Wp, B, s, src, T,
-                 bm, bls, logZ, K, chain, d1k, Wp, B, post))
-}
-
 }  // namespace
 
 // Plain C entry points (loaded with ctypes).  `coef` is a HOST pointer to
@@ -1790,35 +1234,6 @@ extern "C" int sv_backward_info(int Wp, int B, int* out) {
   cudaError_t err = sv_setup(Wp, B, &kernel, &lanes, &smem);
   if (err != cudaSuccess) return err;
   return mk::kernel_info(kernel, smem, 32 * lanes, out);
-}
-
-extern "C" int circ_backward_emv_launch(const float* em, const int8_t* valid,
-                                        const int32_t* fink,
-                                        const int32_t* find,
-                                        const float* coef, int chain, int d1k,
-                                        int Wp, int B, float* bm, float* bls,
-                                        float* logZ, void* stream) {
-  return run_backward(EmvSrc{em, valid}, nullptr, fink, find, coef, chain,
-                      d1k, Wp, B, bm, bls, logZ, stream);
-}
-
-extern "C" int circ_backward_codes_launch(
-    const int8_t* xb, const int8_t* yb, const int8_t* valid,
-    const float* table, const int32_t* fink, const int32_t* find,
-    const float* coef, int chain, int d1k, int Wp, int B, float* bm,
-    float* bls, float* logZ, void* stream) {
-  return run_backward(CodesSrc<false>{xb, yb, valid, nullptr, nullptr}, table,
-                      fink, find, coef, chain, d1k, Wp, B, bm, bls, logZ,
-                      stream);
-}
-
-extern "C" int circ_backward_codes_es_launch(
-    const int8_t* xb, const int8_t* yb, const int8_t* valid,
-    const float* table, const int32_t* fink, const int32_t* find,
-    const float* coef, int chain, int d1k, int Wp, int B, float* bm,
-    float* bls, float* logZ, float* es, void* stream) {
-  return run_backward(CodesSrc<true>{xb, yb, valid, es, nullptr}, table, fink,
-                      find, coef, chain, d1k, Wp, B, bm, bls, logZ, stream);
 }
 
 extern "C" int cx_forward_launch(const float* es, const int8_t* yb,
@@ -1886,33 +1301,6 @@ extern "C" int mw_forward_info(int Wp, int B, int* out) {
   return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }
 
-extern "C" int circ_post_es_launch(const float* es, const float* bm,
-                                   const float* bls, const float* logZ,
-                                   const float* coef, int chain, int d1k,
-                                   int Wp, int B, float* post, void* stream) {
-  return run_post(EsSrc{es}, nullptr, bm, bls, logZ, coef, chain, d1k, Wp, B,
-                  post, stream);
-}
-
-extern "C" int circ_post_emv_launch(const float* em, const int8_t* valid,
-                                    const float* bm, const float* bls,
-                                    const float* logZ, const float* coef,
-                                    int chain, int d1k, int Wp, int B,
-                                    float* post, void* stream) {
-  return run_post(EmvSrc{em, valid}, nullptr, bm, bls, logZ, coef, chain,
-                  d1k, Wp, B, post, stream);
-}
-
-extern "C" int circ_post_codes_launch(const int8_t* xb, const int8_t* yb,
-                                      const int8_t* valid, const float* table,
-                                      const float* bm, const float* bls,
-                                      const float* logZ, const float* coef,
-                                      int chain, int d1k, int Wp, int B,
-                                      float* post, void* stream) {
-  return run_post(CodesSrc<false>{xb, yb, valid, nullptr, nullptr}, table, bm,
-                  bls, logZ, coef, chain, d1k, Wp, B, post, stream);
-}
-
 extern "C" int circ_ckpt_backward_launch(
     const int8_t* xb, const int8_t* yb, const int8_t* valid,
     const float* table, const int32_t* fink, const int32_t* find,
@@ -1921,7 +1309,7 @@ extern "C" int circ_ckpt_backward_launch(
   if (bad_shape(d1k, Wp, B) || KB < 1) return cudaErrorInvalidValue;
   const CircCoef K = load_coef(coef);
   const EmitTable T = load_table_host(table);
-  const CodesSrc<false> src{xb, yb, valid, nullptr, nullptr};
+  const CodesSrc src{xb, yb, valid, nullptr};
   const cudaStream_t s = (cudaStream_t)stream;
   BY_RPT(Wp, run(circ_ckpt_backward_kernel<R>, bwd_smem(Wp), Wp, B, s, src,
                  T, fink, find, K, chain, d1k, Wp, B, KB, ck, cs, logZ))
@@ -1938,7 +1326,7 @@ extern "C" int circ_ckpt_post_launch(
   if (bad_shape(d1k, Wp, B) || KB < 1) return cudaErrorInvalidValue;
   const CircCoef K = load_coef(coef);
   const EmitTable T = load_table_host(table);
-  const CodesSrc<false> src{xb, yb, valid, nullptr, nullptr};
+  const CodesSrc src{xb, yb, valid, nullptr};
   const cudaStream_t s = (cudaStream_t)stream;
   BY_RPT(Wp, run(circ_ckpt_post_kernel<R>,
                  ckpt_post_smem(Wp, KB, scratch != nullptr), Wp, B, s, src, T,

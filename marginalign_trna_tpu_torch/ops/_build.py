@@ -150,6 +150,10 @@ _QUERIES: Dict[str, List] = {
     "mw_forward_info": [_I, _I, _P],
     "cx_forward_info": [_I, _I, _P],
     "sv_backward_info": [_I, _I, _P],
+    # source, Wp, B, out[5] (csrc/fb_serve.cu: the serving backwards and
+    # forwards)
+    "serve_backward_info": [_I, _I, _I, _P],
+    "serve_post_info": [_I, _I, _I, _P],
     "banded_nw_info": [_I, _I, _P],
     "mea_dl_info": [_I, _I, _P],
     "banded_mea_info": [_I, _I, _P],

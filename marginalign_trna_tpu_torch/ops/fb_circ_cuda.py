@@ -39,9 +39,11 @@ C and M share the forward recursion (`_forward_generations` here); on the
 card both run it as csrc/fb_circ.cu's `WarpForward` (one warp per lane,
 8 or 16 lanes a block), each in a kernel of its own with its own sink.
 S runs the backward of `_CircBackward` as a kernel of its own in the same
-layout; the serving modes' backwards and posterior forwards keep
-csrc/fb_circ.cu's `CircBackward` and `CircForward` templates (block per
-32 lanes).  R and E take a thread per lane (E) or
+layout, and the serving modes' backwards run S's walk over their emission
+sources (`serve_backward_kernel`), their posterior forwards M's recursion
+with a sink that writes the circular band (`serve_post_kernel`); the
+checkpoint pair keeps csrc/fb_circ.cu's `CircBackward` and `CircForward`
+templates (block per 32 lanes).  R and E take a thread per lane (E) or
 per four lanes (R) and a tile of diagonals.
 
 The model comes in at run time as one coefficient vector (`COEF_*` offsets,
@@ -673,7 +675,7 @@ def circ_backward_emv_plain(coef: np.ndarray, chain: bool, em, valid, fink,
 
 def circ_backward_emv_cuda(coef: np.ndarray, chain: bool, em, valid, fink,
                            find):
-    """The circ_backward_emv kernel (csrc/fb_circ.cu)."""
+    """The circ_backward_emv kernel (csrc/fb_serve.cu)."""
     d1k, Wp, B = em.shape
     dev = em.device
     check_tensor(em, torch.float32, (d1k, Wp, B), dev)
@@ -699,7 +701,7 @@ def circ_backward_codes_plain(coef: np.ndarray, chain: bool, table, xb, yb,
 
 def circ_backward_codes_cuda(coef: np.ndarray, chain: bool, table, xb, yb,
                              valid, fink, find):
-    """The circ_backward_codes kernel (csrc/fb_circ.cu)."""
+    """The circ_backward_codes kernel (csrc/fb_serve.cu)."""
     d1k, Wp, B, dev = _check_codes(xb, yb, valid)
     _check_ends(fink, find, B, dev)
     bm, bls, logZ = _backward_outputs(d1k, Wp, B, dev)
@@ -730,7 +732,7 @@ def circ_backward_codes_es_plain(coef: np.ndarray, chain: bool, table, xb,
 
 def circ_backward_codes_es_cuda(coef: np.ndarray, chain: bool, table, xb,
                                 yb, valid, fink, find):
-    """The circ_backward_codes_es kernel (csrc/fb_circ.cu)."""
+    """The circ_backward_codes_es kernel (csrc/fb_serve.cu)."""
     d1k, Wp, B, dev = _check_codes(xb, yb, valid)
     _check_ends(fink, find, B, dev)
     bm, bls, logZ = _backward_outputs(d1k, Wp, B, dev)
@@ -761,7 +763,7 @@ def circ_post_es_plain(coef: np.ndarray, chain: bool, es, bm, bls, logZ):
 
 
 def circ_post_es_cuda(coef: np.ndarray, chain: bool, es, bm, bls, logZ):
-    """The circ_post_es kernel (csrc/fb_circ.cu)."""
+    """The circ_post_es kernel (csrc/fb_serve.cu)."""
     d1k, Wp, B = es.shape
     dev = es.device
     check_tensor(es, torch.float32, (d1k, Wp, B), dev)
@@ -783,7 +785,7 @@ def circ_post_emv_plain(coef: np.ndarray, chain: bool, em, valid, bm, bls,
 
 def circ_post_emv_cuda(coef: np.ndarray, chain: bool, em, valid, bm, bls,
                        logZ):
-    """The circ_post_emv kernel (csrc/fb_circ.cu)."""
+    """The circ_post_emv kernel (csrc/fb_serve.cu)."""
     d1k, Wp, B = em.shape
     dev = em.device
     check_tensor(em, torch.float32, (d1k, Wp, B), dev)
@@ -807,7 +809,7 @@ def circ_post_codes_plain(coef: np.ndarray, chain: bool, table, xb, yb,
 
 def circ_post_codes_cuda(coef: np.ndarray, chain: bool, table, xb, yb,
                          valid, bm, bls, logZ):
-    """The circ_post_codes kernel (csrc/fb_circ.cu)."""
+    """The circ_post_codes kernel (csrc/fb_serve.cu)."""
     d1k, Wp, B, dev = _check_codes(xb, yb, valid)
     _check_back(bm, bls, logZ, d1k, Wp, B, dev)
     post = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
@@ -818,6 +820,30 @@ def circ_post_codes_cuda(coef: np.ndarray, chain: bool, table, xb, yb,
         int(chain), d1k, Wp, B, post.data_ptr(),
     )
     return post
+
+
+# The serving kernels' templates and emission sources (csrc/fb_serve.cu
+# `serve_backward_kernel` / `serve_post_kernel`, SRC_*).
+_SERVE_SOURCES = {
+    "circ_backward_emv": ("serve_backward_info", 1),
+    "circ_backward_codes": ("serve_backward_info", 2),
+    "circ_backward_codes_es": ("serve_backward_info", 3),
+    "circ_post_es": ("serve_post_info", 0),
+    "circ_post_emv": ("serve_post_info", 1),
+    "circ_post_codes": ("serve_post_info", 2),
+}
+
+
+def serve_resources(device: torch.device, name: str, wp: int,
+                    B: int) -> Dict[str, int]:
+    """What a launch of serving kernel `name` (one of the six circ_backward_*
+    and circ_post_* entry points) over B lanes at band width `wp` gets on
+    `device`: the keys of mw_forward_resources and the lanes a block (the
+    backwards take S's, the forwards K3's rule; the forwards copy by TMA
+    where B % 4 == 0 and wp <= 64)."""
+    query, src = _SERVE_SOURCES[name]
+    res = _build.resources(query, device, src, wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
 # Shared memory a block may use on an H100, and the floats of the

@@ -1882,3 +1882,162 @@ def test_scatter_lanesum_resources(cuda):
     assert res["local_bytes"] == 0, res
     assert res["smem_per_block"] >= 7168 * 4 * 4, res
     assert res["groups"] > 1 and res["window_rows"] == 7168, res
+
+
+# ----------------------- the serving kernels: one warp per lane, sources
+
+
+SERVE_BACKWARDS = ("circ_backward_emv", "circ_backward_codes",
+                   "circ_backward_codes_es")
+SERVE_FORWARDS = ("circ_post_es", "circ_post_emv", "circ_post_codes")
+
+
+def _random_serve(cuda, d1k, wp, B, chain_model, seed, final_d=None):
+    """The six serving kernels' inputs at random: codes in -1..5 (some
+    outside 0..4, which emit 0), 75% valid cells, the signed stream es and
+    the premasked em of those codes under the model's table (as
+    ops/fb_circ.py `emission_stream` makes them), terminals on any row and
+    at d = 0, d1k - 1, a rescale edge (8), a tile edge (16) or anywhere
+    (or all at final_d); the forwards on the plain backward's outputs
+    (S's, which every source's backward equals).  {name: arguments}."""
+    rng = np.random.default_rng(seed)
+    tables = _flat_gap_tables(chain_model)
+    coef, chain = circ_coefficients(tables)
+    table = tables.Ematch.numpy().reshape(-1)
+    xb = rng.integers(-1, 6, (d1k, wp, B)).astype(np.int8)
+    yb = rng.integers(-1, 6, (d1k, wp, B)).astype(np.int8)
+    valid = (rng.random((d1k, wp, B)) < 0.75).astype(np.int8)
+    ok = (xb >= 0) & (xb < 5) & (yb >= 0) & (yb < 5)
+    e = np.where(ok, table[np.clip(xb * 5 + yb, 0, 24)], 0.0) * valid
+    em = e.astype(np.float32)
+    es = (em - (1.0 - valid)).astype(np.float32)
+    if final_d is None:
+        find = rng.integers(0, d1k, B)
+        find[::5] = 0
+        find[1::5] = d1k - 1
+        find[2::5] = min(8, d1k - 1)
+        find[3::5] = min(16, d1k - 1)
+    else:
+        find = np.full(B, final_d)
+    fink = rng.integers(0, wp, B)
+    t = {name: _t(cuda, a) for name, a in (
+        ("xb", xb), ("yb", yb), ("valid", valid), ("em", em), ("es", es),
+        ("fink", fink.astype(np.int32)), ("find", find.astype(np.int32)))}
+    back = fb_circ_cuda.sv_backward_plain(coef, chain, t["es"], t["fink"],
+                                          t["find"])
+    codes = (coef, chain, table, t["xb"], t["yb"], t["valid"])
+    return {
+        "circ_backward_emv": (coef, chain, t["em"], t["valid"], t["fink"],
+                              t["find"]),
+        "circ_backward_codes": (*codes, t["fink"], t["find"]),
+        "circ_backward_codes_es": (*codes, t["fink"], t["find"]),
+        "circ_post_es": (coef, chain, t["es"], *back),
+        "circ_post_emv": (coef, chain, t["em"], t["valid"], *back),
+        "circ_post_codes": (*codes, *back),
+    }
+
+
+def _serve_equal(cuda, cases, names=SERVE_BACKWARDS + SERVE_FORWARDS):
+    """Each serving kernel of `names` against its plain version on its
+    arguments in `cases`: every output bit for bit (NaN included), one
+    launch counted; each forward also chained on its source's own kernel
+    backward."""
+    for name in names:
+        args = cases[name]
+        before = _build.launch_counts[name]
+        got = getattr(fb_circ_cuda, name + "_cuda")(*args)
+        want = getattr(fb_circ_cuda, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        assert _build.launch_counts[name] == before + 1, name
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            _same_bits(g, w)
+    chained = {"circ_post_emv": "circ_backward_emv",
+               "circ_post_codes": "circ_backward_codes"}
+    for name, bname in chained.items():
+        if name not in names:
+            continue
+        bargs = cases[bname]
+        back = getattr(fb_circ_cuda, bname + "_cuda")(*bargs)
+        fargs = cases[name][:-3] + tuple(back)
+        _same_bits(getattr(fb_circ_cuda, name + "_cuda")(*fargs),
+                   getattr(fb_circ_cuda, name + "_plain")(*fargs))
+
+
+@pytest.mark.parametrize("B", [1, 7, 9, 33, 1027])
+@pytest.mark.parametrize("wp", [8, 24, 32, 64, 128])
+def test_serve_kernels_random_inputs(cuda, wp, B):
+    """The six serving kernels bit-equal to their plain versions at one to
+    four rows a thread (the forwards by TMA up to Wp 64 where B is a
+    multiple of 4, else cp.async), over lane counts that are no multiple of
+    a block's, 67 diagonals (a partial tile), both model branches."""
+    for chain_model in (True, False):
+        _serve_equal(cuda, _random_serve(cuda, 67, wp, B, chain_model,
+                                         seed=wp + B + chain_model))
+
+
+@pytest.mark.parametrize("d1k", [1, 2, 9, 17])
+def test_serve_kernels_short_bands(cuda, d1k):
+    """The serving kernels over one, two, nine (part of a tile) and 17
+    diagonals (a tile and one), every terminal at d = 0 too."""
+    for wp in (24, 48):
+        _serve_equal(cuda, _random_serve(cuda, d1k, wp, 36, True, seed=d1k))
+        _serve_equal(cuda, _random_serve(cuda, d1k, wp, 36, False,
+                                         seed=d1k + 1, final_d=0))
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("lanes", [8, 16])
+def test_serve_kernels_lanes_a_block(cuda, lanes, aligned):
+    """The serving forwards at each block size they take (the backwards
+    take 8 lanes whatever B), their byte tiles as words (B a multiple of
+    4, the forwards' bands by TMA) or byte by byte (cp.async), bit-equal to
+    plain."""
+    B = _lanes_at(cuda, lanes, aligned)
+    for name in SERVE_BACKWARDS + SERVE_FORWARDS:
+        res = fb_circ_cuda.serve_resources(cuda, name, 24, B)
+        want = lanes if name in SERVE_FORWARDS else 8
+        assert res["lanes_per_block"] == want, (name, res)
+    _serve_equal(cuda, _random_serve(cuda, 20, 24, B, True, seed=lanes))
+
+
+def test_serve_kernels_path_shapes(cuda):
+    """The serve phase's realign shape [3072, 24, 1024] (8 lanes a block)
+    and the caller's [128, 24, 32768] (the forwards 16 lanes a block):
+    each kernel at its lanes a block, bit-equal to plain on a slice of the
+    diagonals."""
+    for B, lanes, d1k in ((1024, 8, 40), (32768, 16, 20)):
+        for name in SERVE_BACKWARDS + SERVE_FORWARDS:
+            res = fb_circ_cuda.serve_resources(cuda, name, 24, B)
+            want = lanes if name in SERVE_FORWARDS else 8
+            assert res["lanes_per_block"] == want, (name, B, res)
+        _serve_equal(cuda, _random_serve(cuda, d1k, 24, B, True, seed=B))
+
+
+@pytest.mark.parametrize("wp", [8, 24, 32, 64, 96, 128])
+def test_serve_kernels_resources(cuda, wp):
+    """The serving kernels serve every Wp <= 128 at 8 and 16 lanes a
+    block where they fit, one block an SM at least, no stack or spill up
+    to two rows a thread; ptxas reports no spill in any variant."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name in SERVE_BACKWARDS + SERVE_FORWARDS:
+        for lanes in (8, 16):
+            res = fb_circ_cuda.serve_resources(cuda, name, wp,
+                                               lanes * sms + 4)
+            if res["lanes_per_block"] < lanes:
+                continue    # 16 lanes do not fit at this Wp
+            assert res["lanes_per_block"] == lanes, (name, res)
+            assert res["blocks_per_sm"] >= 1, (name, res)
+            if wp <= 64:
+                assert res["local_bytes"] == 0, (name, res)
+    fn, spills = None, {}
+    for line in _build.build_log().splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+        elif "spill stores" in line and fn and "serve_" in fn:
+            spills[fn] = line.strip()
+    assert spills, "no ptxas report for the serving kernels"
+    bad = {f: s for f, s in spills.items()
+           if not s.split("bytes stack frame, ")[1].startswith("0 bytes")}
+    assert not bad, bad
