@@ -16,7 +16,8 @@ Phases (any failure exits non-zero without the final result line):
               bit-equal, with a gap-chain model and again with a flat-gap
               model whose gap states 1 and 2 exchange mass (their generic
               5x5 branch), and at WIDE_BANDS (Wp 64 and 128, where the
-              checkpoint posterior pass replays in device memory); the four
+              checkpoint posterior pass takes blocks of 4 lanes, at Wp 128
+              with its tiles in device memory); the four
               multi-lane kernels bit-equal on packed lanes, the FB pair on
               both model branches, nw_multi at Wp 24 and 48; the four
               multi-lane counts kernels at Wp 24 on lanes of three or more
@@ -289,11 +290,11 @@ KERNELS = {
                                "marginalign_trna_tpu/ops/fb_pallas.py:2503",
                                "fb_circ_cuda.circ_backward_codes_es_cuda",
                                ("serve",)),
-    "circ_ckpt_backward": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+    "circ_ckpt_backward": ("marginalign_trna_tpu_torch/csrc/fb_ckpt.cu",
                            "marginalign_trna_tpu/ops/fb_pallas.py:3721",
                            "fb_circ_cuda.circ_ckpt_backward_cuda",
                            ("serve",)),
-    "circ_ckpt_post": ("marginalign_trna_tpu_torch/csrc/fb_circ.cu",
+    "circ_ckpt_post": ("marginalign_trna_tpu_torch/csrc/fb_ckpt.cu",
                        "marginalign_trna_tpu/ops/fb_pallas.py:3856",
                        "fb_circ_cuda.circ_ckpt_post_cuda", ("serve",)),
     # Multi-problem lanes: "multi" = marginAlign with multi=True,
@@ -358,7 +359,8 @@ SERVE_WARP = ("circ_backward_emv", "circ_backward_codes",
 SERVE_PARITY_MODES = ("sv", "ckpt")
 # Band widths beyond the shipped 21 at which the tiny check runs the
 # serving kernels: Wp 64 and 128 (two and four rows per thread), where the
-# checkpoint posterior pass replays in device memory.
+# checkpoint posterior pass takes blocks of 4 lanes (at Wp 128 its tiles
+# in device memory).
 WIDE_BANDS = (61, 126)
 COUNTS_PAIRS = {"stored": ("counts_fwd_all", "counts_bwd"),
                 "ckpt": ("counts_fwd_ckpt", "counts_bwd_ckpt")}
@@ -1172,8 +1174,8 @@ def compare_generic(base, reps):
 def compare_exact(name, args, reps):
     """A serving or multi-lane kernel against its plain version on `args`:
     every output bit-equal; the kernel timed as time_ms times it, the plain
-    version on its comparison call (timed_once); the six warp-per-lane
-    serving kernels with their resources."""
+    version on its comparison call (timed_once); the eight serving kernels
+    with their resources."""
     import torch
 
     module = importlib.import_module(
@@ -1196,6 +1198,9 @@ def compare_exact(name, args, reps):
            **bound(name, d1k * Wp * B, nbytes(*args, *got))}
     if name in SERVE_WARP:
         out["resources"] = module.serve_resources(got[0].device, name, Wp, B)
+    elif name in SERVE_KERNELS["ckpt"]:
+        out["resources"] = module.ckpt_resources(got[0].device, name, Wp, B,
+                                                 args[-1])
     return out
 
 

@@ -6,20 +6,22 @@ the port, on the same inputs, in one process on one CUDA card.
 
 Groups (fused, wavefront, counts, scatter, rel and serve when none is
 named):
-  serve  the six serving kernels of the circular serving route
+  serve  the eight serving kernels of the circular serving route
          (serve=<mode>): the backwards circ_backward_emv, _codes and
-         _codes_es and the posterior forwards circ_post_es, _emv and
-         _codes, on the serve phase's realign shape [3072, 24, 1024] (the
-         generic batch's kilobase pairs in the circular layout, the
-         shipped model), on its caller shape [128, 24, 32768] (the fused
-         group's caller pairs repeated) and on the generic batch at widths
-         45, 93 and 126 (Wp 48, 96, 128; 1024 lanes): each forward on S's
-         (bm, bls, logZ) of the signed stream, which every backward
-         equals; every output bit for bit against the plain version and
-         the other checkout, times, bounds and resources
-         (`serve_resources`).  Must not move (bit-equal to the other
-         checkout, both timed): S (sv_backward) and the checkpoint pair
-         (circ_ckpt_backward, circ_ckpt_post) on the realign and caller
+         _codes_es, the posterior forwards circ_post_es, _emv and _codes
+         and the checkpoint pair circ_ckpt_backward and circ_ckpt_post, on
+         the serve phase's realign shape [3072, 24, 1024] (the generic
+         batch's kilobase pairs in the circular layout, the shipped model),
+         on its caller shape [128, 24, 32768] (the fused group's caller
+         pairs repeated) and on the generic batch at widths 45, 93 and 126
+         (Wp 48, 96, 128; 1024 lanes): each forward on S's (bm, bls, logZ)
+         of the signed stream, which every backward equals, the
+         checkpoint posterior pass on this checkout's checkpoints at
+         `ckpt_block`'s KB; every output bit for bit against the plain
+         version and the other checkout, times, bounds (over the band's
+         d1k Wp B cells) and resources (`serve_resources`,
+         `ckpt_resources`).  Must not move (bit-equal to the other
+         checkout, both timed): S (sv_backward) on the realign and caller
          shapes; S and M (mw_forward) on the fused group's realign bucket
          [3072, 24, 4096], S with the generic branch on its first 1024
          lanes, S and C (cx_forward) on its caller batch [128, 24, 65536].
@@ -153,6 +155,15 @@ named):
          the serving forwards by cp.async only (no TMA), with 16-diagonal
          tiles at 16 lanes a block too, or with 8-diagonal tiles
          everywhere; on the serve group's realign and caller cells.
+  probe_ckpt (named on the command line only): the checkpoint posterior
+         pass always pipelined (a replay and a forward warp a lane, 8
+         lanes a block) or always sequential (one warp a lane replays each
+         block, then runs its forward; 16 lanes a block), and with one
+         part removed (outputs wrong by design: no replay after the first
+         block, no forward, no flush or staging after the first blocks,
+         no block barrier after the first two phases); the checkpoint
+         backward without its checkpoints; on the serve group's realign
+         and caller cells.
   probe_mea, probe_scatter (named on the command line only): K4 with 8,
          16 or 32 lanes a block whatever B, its weight tiles by cp.async
          (no TMA), with three or four stage buffers,
@@ -841,6 +852,7 @@ def run_rel(this, other, cuda, report):
 SERVE_KERNELS = ("circ_backward_emv", "circ_backward_codes",
                  "circ_backward_codes_es", "circ_post_es", "circ_post_emv",
                  "circ_post_codes")
+CKPT_KERNELS = ("circ_ckpt_backward", "circ_ckpt_post")
 
 
 def serve_cells(port, cuda, names=None):
@@ -907,20 +919,26 @@ def serve_args(port, cdev, repeat, coef, chain, table):
 def ab_serve(fc, ofc, name, args, cuda):
     """Serving kernel `name` of both checkouts against the plain version
     on `args`: bit-equality to plain and other, largest differences,
-    times, bound, resources."""
+    times, bound over the band's cells, resources."""
+    import torch
+
     kernel, other = (getattr(m, name + "_cuda") for m in (fc, ofc))
     got = outputs(kernel(*args))
     want = outputs(getattr(fc, name + "_plain")(*args))
     ref = outputs(other(*args))
-    d1k, wp, B = got[0].shape
+    d1k, wp, B = next(a for a in args
+                      if torch.is_tensor(a) and a.dim() == 3).shape
+    res = (fc.ckpt_resources(cuda, name, wp, B, args[-1])
+           if name in CKPT_KERNELS else
+           fc.serve_resources(cuda, name, wp, B))
     return {"shape": [d1k, wp, B],
             "max_abs_err_plain": max_diff(got, want),
             "max_abs_err_other": max_diff(got, ref),
             "bit_equal_plain": same_bits(got, want),
             "bit_equal_other": same_bits(got, ref),
             **ab(lambda: kernel(*args), lambda: other(*args)),
-            **bound(name, got[0].numel(), nbytes(*args, *got)),
-            "resources": fc.serve_resources(cuda, name, wp, B)}
+            **bound(name, d1k * wp * B, nbytes(*args, *got)),
+            "resources": res}
 
 
 def run_serve(this, other, cuda, report):
@@ -939,17 +957,15 @@ def run_serve(this, other, cuda, report):
 
     for cell, cdev, repeat in serve_cells(this, cuda):
         args = serve_args(this, cdev, repeat, coef, chain, table)
-        for name in SERVE_KERNELS:
+        for name in SERVE_KERNELS + CKPT_KERNELS:
             report[cell + "_" + name] = ab_serve(fc, ofc, name, args[name],
                                                  cuda)
             show(cell + "_" + name)
         if cell in ("serve_realign", "serve_call"):
-            for name in ("sv_backward", "circ_ckpt_backward",
-                         "circ_ckpt_post"):
-                report[cell + "_" + name] = unmoved(
-                    getattr(fc, name + "_cuda"), getattr(ofc, name + "_cuda"),
-                    args[name])
-                show(cell + "_" + name)
+            report[cell + "_sv_backward"] = unmoved(
+                fc.sv_backward_cuda, ofc.sv_backward_cuda,
+                args["sv_backward"])
+            show(cell + "_sv_backward")
         del args, cdev
         torch.cuda.empty_cache()
 
@@ -1302,14 +1318,14 @@ def probe_cases(this, cuda, kernels):
             for t in cases["banded_mea"]["banded_mea"])
     if "scatter_lanesum" in kernels:
         cases["scatter_lanesum"] = lanesum_cells(this, cuda)
-    if set(SERVE_KERNELS) & set(kernels):
+    if set(SERVE_KERNELS + CKPT_KERNELS) & set(kernels):
         table = ematch
-        for name in SERVE_KERNELS:
+        for name in SERVE_KERNELS + CKPT_KERNELS:
             cases[name] = {}
         for cell, cdev, repeat in serve_cells(this, cuda, ("serve_realign",
                                                            "serve_call")):
             args = serve_args(this, cdev, repeat, coef, chain, table)
-            for name in SERVE_KERNELS:
+            for name in SERVE_KERNELS + CKPT_KERNELS:
                 cases[name][cell + "_" + name] = args[name]
     if "cx_forward" in kernels:
         cdev = compact(this, *caller, 21, CALLER_STEPS, cuda,
@@ -1523,7 +1539,7 @@ def card():
 GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
           "probe_counts", "probe_cx", "probe_generic", "probe_stored",
           "probe_mea", "probe_scatter", "probe_rel", "counts", "scatter",
-          "rel", "serve", "probe_serve")
+          "rel", "serve", "probe_serve", "probe_ckpt")
 DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter", "rel", "serve")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
@@ -1544,7 +1560,8 @@ KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "banded_nw": "ops.wavefront_cuda",
                   "banded_mea": "ops.wavefront_cuda",
                   "scatter_lanesum": "ops.bucket_scatter",
-                  **{name: "ops.fb_circ_cuda" for name in SERVE_KERNELS},
+                  **{name: "ops.fb_circ_cuda"
+                     for name in SERVE_KERNELS + CKPT_KERNELS},
                   "mea_dl": "ops.wavefront_cuda"}
 # The probe group's variants: name -> (the kernel it varies, or a tuple of
 # the kernels it varies, its source under csrc/, edits (old, new) of that
@@ -2127,6 +2144,43 @@ PROBES.update({
 })
 
 
+# probe_ckpt's variants of the checkpoint pair (csrc/fb_ckpt.cu): the
+# posterior pass always pipelined (8 lanes a block of 16 warps) or always
+# sequential (16 lanes, one warp each), and with one part removed (outputs
+# wrong by design): no replay after the first block, no forward, no flush
+# or no staging after the first blocks, no block barrier after the first
+# two phases; the backward without its checkpoints.
+_CKPT_PARTS = {
+    "ckpt_post_pipelined": [("    if (!c.pipe && B < 16 * sms) continue;",
+                             "    if (!c.pipe) continue;")],
+    "ckpt_post_sequential": [("    if (!c.pipe && B < 16 * sms) continue;",
+                              "    if (!c.pipe && B < 0) continue;")],
+    "ckpt_post_forward_only": [("    if (replays && p < G) {",
+                                "    if (replays && p < G && p < 1) {")],
+    "ckpt_post_replay_only": [("    if (forwards && p >= LAG) {",
+                               "    if (forwards && p >= LAG && p < 0) {")],
+    "ckpt_post_no_flush": [
+        ("    if (p - LAG - 1 >= 0) flush(p - LAG - 1);",
+         "    if (p - LAG - 1 >= 0 && p < 3) flush(p - LAG - 1);")],
+    "ckpt_post_no_stage": [("    if (p + 1 < G) stage(p + 1);",
+                            "    if (p + 1 < G && p < 2) stage(p + 1);")],
+    "ckpt_post_no_barrier": [
+        ("    mk::cp_async_wait();\n    __syncthreads();\n    if (p - LAG",
+         "    mk::cp_async_wait();\n    if (p < 2) __syncthreads();\n"
+         "    if (p - LAG")],
+}
+PROBES.update({
+    **{name: ("circ_ckpt_post", "fb_ckpt.cu", edits)
+       for name, edits in _CKPT_PARTS.items()},
+    "ckpt_bwd_no_save": ("circ_ckpt_backward", "fb_ckpt.cu", [
+        ("    if (saves(u)) save_ckpt(lane, ckbuf(d0 / KB) + w * crows);",
+         "    (void)0;"),
+        ("    if (u > 0 && saves(u - 1)) flush(first(u - 1) / KB);",
+         "    (void)0;"),
+        ("  if (saves(tiles - 1)) flush(0);", "  (void)0;")]),
+})
+
+
 def main(argv):
     import torch
 
@@ -2339,6 +2393,7 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_stored": lambda *a: run_probe(*a, kernels=_ST),
         "probe_rel": lambda *a: run_probe(*a, kernels=_REL),
         "probe_serve": lambda *a: run_probe(*a, kernels=SERVE_KERNELS),
+        "probe_ckpt": lambda *a: run_probe(*a, kernels=CKPT_KERNELS),
         "probe_mea": lambda *a: run_probe(*a, kernels=("banded_mea",)),
         "probe_scatter": lambda *a: run_probe(
             *a, kernels=("scatter_lanesum",)),

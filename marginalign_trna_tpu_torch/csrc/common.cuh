@@ -325,20 +325,21 @@ __host__ __device__ constexpr int byte_stride(int lpb) {
 }
 
 // Starts copying rows r0 .. r0 + nrows - 1 of the [rows, B] byte array src,
-// lanes b0 .. b0 + LPB - 1, into the tile at dst (the caller commits).
-template <int LPB>
+// lanes b0 .. b0 + LPB - 1, into the tile at dst (the caller commits), with
+// the NT threads of the block.
+template <int LPB, int NT = 32 * LPB>
 __device__ __forceinline__ void stage_bytes(uint8_t* dst, const void* src,
                                             size_t r0, int nrows, int b0,
                                             int B, bool vec) {
   constexpr int S = byte_stride(LPB), W = LPB / 4;
   const uint8_t* s = static_cast<const uint8_t*>(src) + r0 * B + b0;
   if (vec) {
-    for (int q = threadIdx.x; q < nrows * W; q += 32 * LPB) {
+    for (int q = threadIdx.x; q < nrows * W; q += NT) {
       const int row = q / W, c = 4 * (q - row * W);
       if (b0 + c < B) cp_async4(dst + row * S + c, s + (size_t)row * B + c);
     }
   } else {
-    for (int q = threadIdx.x; q < nrows * LPB; q += 32 * LPB) {
+    for (int q = threadIdx.x; q < nrows * LPB; q += NT) {
       const int row = q / LPB, w = q - row * LPB;
       if (b0 + w < B) dst[row * S + w] = s[(size_t)row * B + w];
     }

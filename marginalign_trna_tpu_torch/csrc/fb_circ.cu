@@ -26,30 +26,17 @@
 //                   a row accumulator that stays put (a read position keeps
 //                   its circular row) and flushes at frr (flc, flr, tails
 //                   tc, tr).
-//   circ_ckpt_backward <- `_make_bwd_kernel_circ_ckpt` ("ckpt"): the
-//                   backward from the int8 code streams xb, yb and valid
-//                   (the match emission looked up in the 5x5 table
-//                   Ematch[x][y] in-kernel) that stores no band: once per block of KB
-//                   diagonals it writes the state entering the block (the
-//                   e_M * b_M rows of the two diagonals above it, the gap
-//                   states of the one above, bls and the last factor), and
-//                   logZ.
-//   circ_ckpt_post <- `_make_fwd_kernel_circ_ckpt`: per block, ascending,
-//                   it restores the block's checkpoint, replays the block's
-//                   backward into shared memory (bm and bls of KB
-//                   diagonals), then runs the forward over the block and
-//                   writes the circular posterior band.  The replay runs
-//                   the backward's code on the backward's state, so it is
-//                   bit-identical to a stored band.
 // The serving kernels circ_backward_emv / _codes / _codes_es and
-// circ_post_es / _emv / _codes are in csrc/fb_serve.cu.  The checkpoint
-// pair runs one recursion for each direction in the block layout
-// (`CircForward`, `CircBackward`); every other kernel runs them in the
-// warp-per-lane layout (csrc/fb_circ.cuh): mw, cx and the serving forwards
-// the forward's arithmetic (`WarpForward`, each with a sink of its own:
-// "M: mw_forward" and "C: cx_forward" below), sv_backward and the serving
-// backwards the backward's (`SvWarp`, `sv_walk`, over an emission source
-// each).
+// circ_post_es / _emv / _codes are in csrc/fb_serve.cu, the checkpoint
+// pair circ_ckpt_backward / circ_ckpt_post in csrc/fb_ckpt.cu.  Every
+// kernel runs the recursions in the warp-per-lane layout
+// (csrc/fb_circ.cuh): mw, cx, the serving forwards and the checkpoint
+// posterior pass the forward's arithmetic (`WarpForward`, each with a sink
+// of its own: "M: mw_forward" and "C: cx_forward" below), sv_backward, the
+// serving backwards and the checkpoint backward and replay the backward's
+// (`SvWarp`, `sv_walk`, over an emission source each).  The plain versions
+// that fix the order of the arithmetic are ops/fb_circ_cuda.py's
+// `_CircBackward` and `_CircForward`.
 // In the circular layout row r holds read prefix index i = r (mod Wp), so
 // every band motion is an unconditional roll by one row: the match move
 // reads row k - 1 of generation d - 2 (forward) or k + 1 of d + 2
@@ -65,480 +52,16 @@
 // zero-padded steps.  Built with -fmad=false and with the plain versions'
 // order of operations, so they round as the plain versions do.
 //
-// What bounds the checkpoint pair (the block-layout templates) on an H100:
-// per cell its backward reads 3 B, its posterior pass 3 B and writes 4 B,
-// against ~25 flops a pass; a full card would be memory bound, but at the
-// paths' shapes the chain of d1k dependent diagonals (a block barrier
-// each, two on rescale steps) bounds them first.  One block owns 32 lanes x
-// all Wp rows and keeps both frontier generations in shared memory.  The
-// pair moves 24 / KB B per cell between its kernels instead of the 8 B of a
-// stored band and its re-read; its replay doubles the posterior pass's
-// recursion and needs (24 + KB) planes of shared memory (KB = 32 at Wp 24:
-// 176 KB; KB = 8 up to Wp 56), or, for wider bands, the forward's 12
-// planes and the replay in device memory.  S, M and C: their sections
-// below and in csrc/fb_circ.cuh.
+// S, M and C: their sections below and in csrc/fb_circ.cuh.
 #include "fb_circ.cuh"
 
 namespace {
 
-// Thread coordinates every recursion and sink needs.
-struct Lanes {
-  int L, TY, lane, ty, b, plane, Wp, B;
-  bool live;
-  __device__ Lanes(int Wp_, int B_)
-      : L(blockDim.x), TY(blockDim.y), lane(threadIdx.x), ty(threadIdx.y),
-        b(blockIdx.x * blockDim.x + threadIdx.x), plane(Wp_ * blockDim.x),
-        Wp(Wp_), B(B_), live(b < B_) {}
-};
-
-// Zeroes n floats of shared memory with every thread of the block.
-__device__ __forceinline__ void zero_smem(float* p, int n) {
-  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < n;
-       i += blockDim.x * blockDim.y)
-    p[i] = 0.f;
-}
-
-// Floats of the checkpoint posterior pass's replay per block of LANES
-// lanes: the backward's 12 planes, bm [KB][Wp][LANES], bls [KB][LANES].
-__host__ __device__ __forceinline__ size_t replay_floats(int Wp, int KB) {
-  return ((size_t)(12 + KB) * Wp + KB) * mk::LANES;
-}
-
-// The block-layout source of the checkpoint pair: load() gives e and v of
-// cell (d, k) of lane t.b straight from device memory (dead lanes read as
-// invalid), the table in shared memory.
-struct CodesSrc {
-  const int8_t* __restrict__ xb;
-  const int8_t* __restrict__ yb;
-  const int8_t* __restrict__ valid;
-  const float* table;
-  __device__ void bind(const float* shE) { table = shE; }
-  __device__ void load(const Lanes& t, int d, int k, float& e,
-                       float& v) const {
-    if (!t.live) {
-      e = 0.f;
-      v = 0.f;
-      return;
-    }
-    const size_t c = mk::cell(d, k, t.b, t.Wp, t.B);
-    codes_cell(table, xb[c], yb[c], valid[c], e, v);
-  }
-};
-
-// ---------------------------------------------------------------- backward
-
-// The scaled backward for rows k = ty + r * TY of 32 lanes.  step(d)
-// computes generation d of the five states from the e_M * b_M rows of d+2
-// and the gap states of d+1 in shared memory, rescales at d % 8 == 0 and
-// publishes generation d; nb[r][0] is then b_M of (d, k) and bls the
-// cumulative log-scale.  The caller ends every step with a barrier.
-// Shared memory: 12 planes of [Wp][L], zeroed by the caller.
-template <int RPT, class Src>
-struct CircBackward {
-  const Lanes& t;
-  const Src& src;
-  const CircCoef& K;
-  int chain, fd, fk;
-  float* shG;  // [2][4][Wp][L] gap states of d+1 (by parity)
-  float* shP;  // [3][Wp][L] e_M * b_M of d+2 (by d mod 3)
-  float* shR;  // [Wp][L] row maxima for the rescale
-  float bls = 0.f, cprev = 1.f;
-  float nb[RPT][5];
-
-  __device__ CircBackward(const Lanes& t_, const Src& src_,
-                          const CircCoef& K_, int chain_,
-                          const int32_t* __restrict__ fink,
-                          const int32_t* __restrict__ find, float* smem)
-      : t(t_), src(src_), K(K_), chain(chain_),
-        fd(t_.live ? find[t_.b] : -1), fk(t_.live ? fink[t_.b] : -1),
-        shG(smem), shP(smem + 8 * t_.plane), shR(smem + 11 * t_.plane) {}
-
-  __device__ void step(int d) {
-    const int plane = t.plane, L = t.L, lane = t.lane;
-    const int gin = ((d + 1) & 1) * 4 * plane, gout = (d & 1) * 4 * plane;
-    const int pin = ((d + 2) % 3) * plane, pout = (d % 3) * plane;
-    const bool divide = d % 8 == 7;
-    float e[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      float v;
-      src.load(t, d, k, e[r], v);
-      const int here = k * L + lane;
-      const int up = mk::wrap(k + 1, t.Wp) * L + lane;
-      float q[5];
-      q[0] = shP[pin + up];
-      if (divide) q[0] = q[0] / cprev;
-      q[1] = shG[gin + here];
-      q[2] = shG[gin + plane + up];
-      q[3] = shG[gin + 2 * plane + here];
-      q[4] = shG[gin + 3 * plane + up];
-      const bool inj = d == fd && k == fk;
-      if (chain) {
-        float acc0 = K.t00 * q[0];
-#pragma unroll
-        for (int s = 1; s < 5; ++s) acc0 = acc0 + K.m0[s - 1] * q[s];
-        nb[r][0] = (inj ? 1.f : acc0) * v;
-#pragma unroll
-        for (int s = 1; s < 5; ++s) {
-          const float accs = q[0] + K.cb[s - 1] * q[s];
-          nb[r][s] = (inj ? K.r[s - 1] : accs) * v;
-        }
-      } else {
-        const float injv = inj ? 1.f : 0.f;
-#pragma unroll
-        for (int s = 0; s < 5; ++s) {
-          float acc = q[0] * K.a[s * 5];
-#pragma unroll
-          for (int u = 1; u < 5; ++u) acc = acc + q[u] * K.a[s * 5 + u];
-          nb[r][s] = (acc + injv) * v;
-        }
-      }
-    }
-    if (d % 8 == 0) {
-      const float m =
-          mk::band_max<RPT>(nb, shR, t.Wp, L, lane, t.ty, t.TY);
-      const float c = m > 0.f ? m : 1.f;
-      const float inv = 1.f / c;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-#pragma unroll
-        for (int s = 0; s < 5; ++s) nb[r][s] = nb[r][s] * inv;
-      bls += logf(c);
-      cprev = c;
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      const int i = k * L + lane;
-      shP[pout + i] = e[r] * nb[r][0];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) shG[gout + g * plane + i] = nb[r][g + 1];
-    }
-  }
-
-  // logZ from generation 0 (row 0 is r = 0 of the ty = 0 threads).
-  __device__ void write_logz(float* __restrict__ logZ) const {
-    if (!t.live || t.ty != 0) return;
-    float zr;
-    if (chain) {
-      zr = nb[0][0];
-#pragma unroll
-      for (int s = 1; s < 5; ++s) zr = zr + K.tz[s - 1] * nb[0][s];
-    } else {
-      zr = (((nb[0][0] + nb[0][1]) + nb[0][2]) + nb[0][3]) + nb[0][4];
-    }
-    logZ[t.b] = logf(fmaxf(0.2f * zr, 1e-30f)) + bls;
-  }
-
-  // Checkpoint g: the state entering diagonal d (the e_M * b_M rows of d+1
-  // and d+2, the gap states of d+1) as ck[g] [6][Wp][B] and (bls, cprev)
-  // as cs[g] [2][B].  Each thread moves its own rows.
-  __device__ void save(float* __restrict__ ck, float* __restrict__ cs, int g,
-                       int d) const {
-    if (!t.live) return;
-    const float* p1 = shP + ((d + 1) % 3) * t.plane;
-    const float* p2 = shP + ((d + 2) % 3) * t.plane;
-    const float* g1 = shG + ((d + 1) & 1) * 4 * t.plane;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      const int i = k * t.L + t.lane;
-      ck[mk::cell(g * 6 + 0, k, t.b, t.Wp, t.B)] = p1[i];
-      ck[mk::cell(g * 6 + 1, k, t.b, t.Wp, t.B)] = p2[i];
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        ck[mk::cell(g * 6 + 2 + s, k, t.b, t.Wp, t.B)] = g1[s * t.plane + i];
-    }
-    if (t.ty == 0) {
-      cs[(size_t)(g * 2) * t.B + t.b] = bls;
-      cs[(size_t)(g * 2 + 1) * t.B + t.b] = cprev;
-    }
-  }
-
-  // The inverse of save; the caller's barrier publishes the rows.
-  __device__ void restore(const float* __restrict__ ck,
-                          const float* __restrict__ cs, int g, int d) {
-    if (!t.live) return;
-    float* p1 = shP + ((d + 1) % 3) * t.plane;
-    float* p2 = shP + ((d + 2) % 3) * t.plane;
-    float* g1 = shG + ((d + 1) & 1) * 4 * t.plane;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      const int i = k * t.L + t.lane;
-      p1[i] = ck[mk::cell(g * 6 + 0, k, t.b, t.Wp, t.B)];
-      p2[i] = ck[mk::cell(g * 6 + 1, k, t.b, t.Wp, t.B)];
-#pragma unroll
-      for (int s = 0; s < 4; ++s)
-        g1[s * t.plane + i] = ck[mk::cell(g * 6 + 2 + s, k, t.b, t.Wp, t.B)];
-    }
-    bls = cs[(size_t)(g * 2) * t.B + t.b];
-    cprev = cs[(size_t)(g * 2 + 1) * t.B + t.b];
-  }
-};
-
-// ----------------------------------------------------------------- forward
-
-// b_M and bls of diagonals d0 .. d0 + KB - 1 replayed into shared memory:
-// bm [KB][Wp][L], bls [KB][L].
-struct SharedBack {
-  const float* bm;
-  const float* bls;
-  int d0;
-  __device__ float bm_at(const Lanes& t, int d, int k) const {
-    return bm[(d - d0) * t.plane + k * t.L + t.lane];
-  }
-  __device__ float bls_at(const Lanes& t, int d) const {
-    return bls[(d - d0) * t.L + t.lane];
-  }
-};
-
-// The scaled forward for rows k = ty + r * TY of 32 lanes: run(d0, d1)
-// computes generations d0 .. d1 - 1 (generation 0 is the start
-// distribution at row 0) from the mixes generations d - 1 and d - 2
-// published to shared memory, rescaled at d % 8 == 7, and
-// post = f_M * b_M * exp(ls + bls - logZ) per row (the origin cell NOT
-// excluded), handed to sink.step(d, post).  The state carries over between
-// calls.  Shared memory: 12 planes of [Wp][L], zeroed (and published by a
-// barrier) by the caller.
-template <int RPT, class Src>
-struct CircForward {
-  const Lanes& t;
-  const Src& src;
-  const CircCoef& K;
-  int chain;
-  float* shG;  // [2][4][Wp][L] gap-target mixes of d-1
-  float* shM;  // [3][Wp][L] match mix of d-2 (d mod 3)
-  float* shR;  // [Wp][L] row maxima for the rescale
-  float lz, ls = 0.f, cprev = 1.f;
-  float f[RPT][5];
-
-  __device__ CircForward(const Lanes& t_, const Src& src_, const CircCoef& K_,
-                         int chain_, const float* __restrict__ logZ,
-                         float* smem)
-      : t(t_), src(src_), K(K_), chain(chain_), shG(smem),
-        shM(smem + 8 * t_.plane), shR(smem + 11 * t_.plane),
-        lz(t_.live ? logZ[t_.b] : 0.f) {}
-
-  // Writes the mixes generation d contributes: gap targets at d+1 and the
-  // match target at d+2.
-  __device__ void publish(int d) {
-    const int plane = t.plane;
-    const int gout = ((d + 1) & 1) * 4 * plane;
-    const int mout = ((d + 2) % 3) * plane;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      const int i = k * t.L + t.lane;
-      float mm;
-      if (chain) {
-        mm = K.t00 * f[r][0];
-#pragma unroll
-        for (int s = 1; s < 5; ++s) mm = mm + K.mc[s - 1] * f[r][s];
-      } else {
-        mm = f[r][0] * K.a[0];
-#pragma unroll
-        for (int s = 1; s < 5; ++s) mm = mm + f[r][s] * K.a[s * 5];
-      }
-      shM[mout + i] = mm;
-#pragma unroll
-      for (int u = 1; u < 5; ++u) {
-        float g;
-        if (chain) {
-          g = f[r][0] + K.c[u - 1] * f[r][u];
-        } else {
-          g = f[r][0] * K.a[u];
-#pragma unroll
-          for (int s = 1; s < 5; ++s) g = g + f[r][s] * K.a[s * 5 + u];
-        }
-        shG[gout + (u - 1) * plane + i] = g;
-      }
-    }
-  }
-
-  // Generation 0: the start distribution at row 0.
-  __device__ void start() {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      f[r][0] = k == 0 ? 0.2f : 0.f;
-#pragma unroll
-      for (int s = 1; s < 5; ++s)
-        f[r][s] = k == 0 ? (chain ? K.pi[s - 1] : 0.2f) : 0.f;
-    }
-  }
-
-  // Generation d >= 1.
-  __device__ void advance(int d) {
-    const int plane = t.plane;
-    const int gin = (d & 1) * 4 * plane, min_ = (d % 3) * plane;
-    const bool divide = d % 8 == 0;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k >= t.Wp) continue;
-      float e, v;
-      src.load(t, d, k, e, v);
-      const int here = k * t.L + t.lane;
-      const int down = mk::wrap(k - 1, t.Wp) * t.L + t.lane;
-      float mm = shM[min_ + down];
-      if (divide) mm = mm / cprev;
-      f[r][0] = e * mm;
-      f[r][1] = shG[gin + here] * v;
-      f[r][2] = shG[gin + plane + down] * v;
-      f[r][3] = shG[gin + 2 * plane + here] * v;
-      f[r][4] = shG[gin + 3 * plane + down] * v;
-    }
-    if (d % 8 == 7) {
-      const float m =
-          mk::band_max<RPT>(f, shR, t.Wp, t.L, t.lane, t.ty, t.TY);
-      const float c = m > 0.f ? m : 1.f;
-      const float inv = 1.f / c;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-#pragma unroll
-        for (int s = 0; s < 5; ++s) f[r][s] = f[r][s] * inv;
-      ls += logf(c);
-      cprev = c;
-    }
-  }
-
-  template <class Back, class Sink>
-  __device__ void run(int d0, int d1, const Back& back, Sink& sink) {
-    for (int d = d0; d < d1; ++d) {
-      if (d == 0)
-        start();
-      else
-        advance(d);
-      const float alpha = t.live ? expf(ls + back.bls_at(t, d) - lz) : 0.f;
-      float post[RPT];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int k = t.ty + r * t.TY;
-        post[r] = 0.f;
-        if (k >= t.Wp || !t.live) continue;
-        post[r] = f[r][0] * back.bm_at(t, d, k) * alpha;
-      }
-      sink.step(d, post);
-      publish(d);
-      __syncthreads();
-    }
-  }
-};
-
-// -------------------------------------------------------------------- sink
-
-// The circular posterior band.
-template <int RPT>
-struct PostSink {
-  const Lanes& t;
-  float* __restrict__ post;
-
-  __device__ void step(int d, const float (&p)[RPT]) {
-    if (!t.live) return;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = t.ty + r * t.TY;
-      if (k < t.Wp) post[mk::cell(d, k, t.b, t.Wp, t.B)] = p[r];
-    }
-  }
-};
-
-// ----------------------------------------------------------------- kernels
-
-// The checkpoint backward: blocks of KB diagonals from the top; the state
-// entering each block leaves as its checkpoint, then logZ.
-template <int RPT>
-__global__ void __launch_bounds__(1024)
-    circ_ckpt_backward_kernel(CodesSrc src, EmitTable tab,
-                              const int32_t* __restrict__ fink,
-                              const int32_t* __restrict__ find, CircCoef K,
-                              int chain, int d1k, int Wp, int B, int KB,
-                              float* __restrict__ ck, float* __restrict__ cs,
-                              float* __restrict__ logZ) {
-  extern __shared__ float smem[];
-  __shared__ float shE[25];
-  const Lanes t(Wp, B);
-  load_table(tab, shE);
-  CodesSrc s = src;
-  s.bind(shE);
-  zero_smem(smem, 12 * t.plane);
-  CircBackward<RPT, CodesSrc> bw(t, s, K, chain, fink, find, smem);
-  __syncthreads();
-  for (int g = (d1k - 1) / KB; g >= 0; --g) {
-    const int top = min(g * KB + KB, d1k) - 1;
-    bw.save(ck, cs, g, top);
-    for (int d = top; d >= g * KB; --d) {
-      bw.step(d);
-      __syncthreads();
-    }
-  }
-  bw.write_logz(logZ);
-}
-
-// The checkpoint posterior pass: per block, ascending, the backward
-// replayed from its checkpoint, then the forward.  Shared memory: the
-// forward's 12 planes, then the replay's: the backward's 12 planes, bm
-// [KB][Wp][L] and bls [KB][L].  Where the replay does not fit (Wp > 56 at
-// KB = 8), `scratch` holds it instead, a slice of `replay_floats(Wp, KB)`
-// per block in device memory (the block's barriers order it as they order
-// shared memory); else scratch is null.
-template <int RPT>
-__global__ void __launch_bounds__(1024)
-    circ_ckpt_post_kernel(CodesSrc src, EmitTable tab,
-                          const int32_t* __restrict__ fink,
-                          const int32_t* __restrict__ find,
-                          const float* __restrict__ ck,
-                          const float* __restrict__ cs,
-                          const float* __restrict__ logZ, CircCoef K,
-                          int chain, int d1k, int Wp, int B, int KB,
-                          float* scratch, float* __restrict__ post) {
-  extern __shared__ float smem[];
-  __shared__ float shE[25];
-  const Lanes t(Wp, B);
-  load_table(tab, shE);
-  CodesSrc s = src;
-  s.bind(shE);
-  float* fsm = smem;
-  float* bsm = scratch ? scratch + blockIdx.x * replay_floats(Wp, KB)
-                       : smem + 12 * t.plane;
-  float* bmS = bsm + 12 * t.plane;
-  float* blsS = bmS + KB * t.plane;
-  zero_smem(fsm, 12 * t.plane);
-  zero_smem(bsm, 12 * t.plane);
-  CircBackward<RPT, CodesSrc> bw(t, s, K, chain, fink, find, bsm);
-  CircForward<RPT, CodesSrc> fw(t, s, K, chain, logZ, fsm);
-  PostSink<RPT> sink{t, post};
-  __syncthreads();
-  for (int g = 0; g * KB < d1k; ++g) {
-    const int lo = g * KB, top = min(lo + KB, d1k) - 1;
-    bw.restore(ck, cs, g, top);
-    __syncthreads();
-    for (int d = top; d >= lo; --d) {
-      bw.step(d);
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const int k = t.ty + r * t.TY;
-        if (k < Wp) bmS[(d - lo) * t.plane + k * t.L + t.lane] = bw.nb[r][0];
-      }
-      if (t.ty == 0) blsS[(d - lo) * t.L + t.lane] = bw.bls;
-      __syncthreads();
-    }
-    fw.run(lo, top + 1, SharedBack{bmS, blsS, lo}, sink);
-  }
-}
-
 // ------------------------------------------------------------ M: mw_forward
 //
-// M runs the forward of CircForward in a layout of its own: one warp per
-// lane, band row k = kk + 32 r on thread kk (RPT rows a thread, Wp <= 128),
-// LPB lanes a block.  Every roll between rows is a warp shuffle and the
+// M runs the forward of the plain `_CircForward` in a layout of its own:
+// one warp per lane, band row k = kk + 32 r on thread kk (RPT rows a
+// thread, Wp <= 128), LPB lanes a block.  Every roll between rows is a warp shuffle and the
 // rescale's band max a warp reduction, so a diagonal needs no block
 // barrier; the frontier, the published mixes (the match mix of d-1 and
 // d-2 and the gap mixes of d-1, those read one row down already rolled)
@@ -549,7 +72,7 @@ __global__ void __launch_bounds__(1024)
 // the current ones, and collects each tile's band-relative posterior rows,
 // flc and flr in shared memory, written out as lane-contiguous segments
 // once the next tile's barrier has passed: one barrier per MW_KT
-// diagonals.  Arithmetic in CircForward's order (-fmad=false), so it
+// diagonals.  Arithmetic in `_CircForward`'s order (-fmad=false), so it
 // equals the plain version bit for bit.
 //
 // What bounds it on an H100 (kernel_ab.py's probe: variants with one part
@@ -811,7 +334,7 @@ __global__ void __launch_bounds__(32 * LPB)
 // with cp.async one tile ahead, and collects each tile's fl in shared
 // memory, written out as lane-contiguous segments once the next tile's
 // barrier has passed: one barrier per tile.  No posterior band is stored.
-// Arithmetic in CircForward's order (-fmad=false), so it equals the plain
+// Arithmetic in `_CircForward`'s order (-fmad=false), so it equals the plain
 // version bit for bit.
 //
 // What bounds it on an H100 80GB HBM3 at a 700 W power limit
@@ -1065,36 +588,6 @@ __global__ void __launch_bounds__(32 * LPB, 32 / LPB)
 
 // ---------------------------------------------------------------- launches
 
-size_t bwd_smem(int Wp) { return (size_t)12 * Wp * mk::LANES * sizeof(float); }
-size_t ckpt_post_smem(int Wp, int KB, bool spilled) {
-  return bwd_smem(Wp) + (spilled ? 0 : replay_floats(Wp, KB) * sizeof(float));
-}
-
-// Launches kernel with `smem` bytes of dynamic shared memory, opted in
-// whatever the size: the kernels that look emissions up keep the table in
-// 100 B of static shared memory, which with 48 KB of dynamic memory already
-// passes the default limit.
-template <class... P, class... A>
-cudaError_t run(void (*kernel)(P...), size_t smem, int Wp, int B,
-                cudaStream_t stream, A... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<mk::grid_shape(B), mk::block_shape(Wp), smem, stream>>>(args...);
-  return cudaGetLastError();
-}
-
-// Instantiates KERNEL_EXPR (which names R) for the rows per thread Wp needs.
-#define BY_RPT(Wp, ...)                         \
-  switch (mk::rows_per_thread(Wp)) {            \
-    case 1: { constexpr int R = 1; return __VA_ARGS__; } \
-    case 2: { constexpr int R = 2; return __VA_ARGS__; } \
-    case 3: { constexpr int R = 3; return __VA_ARGS__; } \
-    case 4: { constexpr int R = 4; return __VA_ARGS__; } \
-    default: return cudaErrorInvalidValue;      \
-  }
-
 // The lanes a block M takes for B lanes at band width Wp on the current
 // device: 16 where that block fits shared memory and every SM still gets
 // a block (B >= 16 x SMs), else 8.  Fewer than 8 lanes move half sectors
@@ -1299,37 +792,4 @@ extern "C" int mw_forward_info(int Wp, int B, int* out) {
   cudaError_t err = mw_setup(Wp, B, &kernel, &lanes, &smem);
   if (err != cudaSuccess) return err;
   return mk::kernel_info(kernel, smem, 32 * lanes, out);
-}
-
-extern "C" int circ_ckpt_backward_launch(
-    const int8_t* xb, const int8_t* yb, const int8_t* valid,
-    const float* table, const int32_t* fink, const int32_t* find,
-    const float* coef, int chain, int d1k, int Wp, int B, int KB, float* ck,
-    float* cs, float* logZ, void* stream) {
-  if (bad_shape(d1k, Wp, B) || KB < 1) return cudaErrorInvalidValue;
-  const CircCoef K = load_coef(coef);
-  const EmitTable T = load_table_host(table);
-  const CodesSrc src{xb, yb, valid, nullptr};
-  const cudaStream_t s = (cudaStream_t)stream;
-  BY_RPT(Wp, run(circ_ckpt_backward_kernel<R>, bwd_smem(Wp), Wp, B, s, src,
-                 T, fink, find, K, chain, d1k, Wp, B, KB, ck, cs, logZ))
-}
-
-// scratch: null, or replay_floats(Wp, KB) floats of device memory per block
-// of 32 lanes for a replay that does not fit shared memory.
-extern "C" int circ_ckpt_post_launch(
-    const int8_t* xb, const int8_t* yb, const int8_t* valid,
-    const float* table, const int32_t* fink, const int32_t* find,
-    const float* ck, const float* cs, const float* logZ, const float* coef,
-    int chain, int d1k, int Wp, int B, int KB, float* scratch, float* post,
-    void* stream) {
-  if (bad_shape(d1k, Wp, B) || KB < 1) return cudaErrorInvalidValue;
-  const CircCoef K = load_coef(coef);
-  const EmitTable T = load_table_host(table);
-  const CodesSrc src{xb, yb, valid, nullptr};
-  const cudaStream_t s = (cudaStream_t)stream;
-  BY_RPT(Wp, run(circ_ckpt_post_kernel<R>,
-                 ckpt_post_smem(Wp, KB, scratch != nullptr), Wp, B, s, src, T,
-                 fink, find, ck, cs, logZ, K, chain, d1k, Wp, B, KB, scratch,
-                 post))
 }

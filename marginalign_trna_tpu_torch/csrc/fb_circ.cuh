@@ -1,10 +1,12 @@
-// Code shared by csrc/fb_circ.cu (S, M, C and the checkpoint pair) and
-// csrc/fb_serve.cu (the serving kernels): the model's coefficients and the
-// emission table, the emission sources, the forward recursion in the
-// warp-per-lane layout (`WarpForward`: M, C and the serving forwards), S's
-// walk over an emission source (`SvWarp`, `sv_walk`: S and the serving
-// backwards), and the host helpers of both files' entry points.  The
-// layout and the scaling: csrc/fb_circ.cu's header.
+// Code shared by csrc/fb_circ.cu (S, M and C), csrc/fb_serve.cu (the
+// serving kernels) and csrc/fb_ckpt.cu (the checkpoint pair): the model's
+// coefficients and the emission table, the emission sources, the forward
+// recursion in the warp-per-lane layout (`WarpForward`: M, C, the serving
+// forwards and the checkpoint posterior pass), S's walk over an emission
+// source (`SvWarp`, `sv_walk`: S and the serving backwards; `SvWarp` also
+// the checkpoint pair's backward and replay), and the host helpers of the
+// files' entry points.  The layout and the scaling: csrc/fb_circ.cu's
+// header.
 #pragma once
 
 #include "common.cuh"
@@ -79,7 +81,8 @@ __device__ __forceinline__ void roll_down(const float (&v)[RPT],
 // The scaled forward of one lane in the warp-per-lane layout, its rows
 // k = kk + 32 r (M and C): the frontier and the mixes it published (the
 // match mix of d-1 and d-2, the gap mixes of d-1, those read one row down
-// already rolled) in registers.  Arithmetic in CircForward's order.
+// already rolled) in registers.  Arithmetic in the order of the plain
+// `_CircForward` (ops/fb_circ_cuda.py).
 template <int RPT>
 struct WarpForward {
   const CircCoef& K;
@@ -198,14 +201,14 @@ struct WarpForward {
 
 // ------------------------------------- S's walk: S and the serving backwards
 //
-// S runs the backward of CircBackward from the signed stream in a layout of
-// its own, as M runs the forward: one warp per lane, RPT consecutive band
-// rows a thread (mk::WarpRows, row k = RPT kk + r), LPB lanes a block
-// (mk::warp_lanes).  The match term reads row k + 1 of generation d + 2
-// and gap states 2 and 4 row k + 1 of d + 1, so generation d's e_M * b_M
-// and its gap states 2 and 4 roll up one row when they are published (one
-// shuffle each) and a diagonal needs no block barrier; the rescale's band
-// max at d % 8 == 0 is a warp reduction.  The block stages tiles of KT
+// S runs the backward of the plain `_CircBackward` (ops/fb_circ_cuda.py)
+// from the signed stream, as M runs the forward: one warp per lane, RPT
+// consecutive band rows a thread (mk::WarpRows, row k = RPT kk + r), LPB
+// lanes a block (mk::warp_lanes).  The match term reads row k + 1 of
+// generation d + 2 and gap states 2 and 4 row k + 1 of d + 1, so
+// generation d's e_M * b_M and its gap states 2 and 4 roll up one row when
+// they are published (one shuffle each) and a diagonal needs no block
+// barrier; the rescale's band max at d % 8 == 0 is a warp reduction.  The block stages tiles of KT
 // descending diagonals of es with cp.async, one tile ahead, into a ring of
 // SV_RING buffers; a thread overwrites each es value it has read with its
 // b_M, so the tile leaves from the same buffer, as lane-contiguous
@@ -213,8 +216,8 @@ struct WarpForward {
 // diagonals.  Tiles start at multiples of KT, so d % 8 is fixed by the
 // tile row (a whole tile runs unrolled, its rescale and division steps
 // known at compile time), and the top tile is partial when d1k is no
-// multiple of KT.  Arithmetic in CircBackward's order (-fmad=false), so it
-// equals the plain version bit for bit.
+// multiple of KT.  Arithmetic in `_CircBackward`'s order (-fmad=false), so
+// it equals the plain version bit for bit.
 //
 // The serving backwards (circ_backward_emv / _codes / _codes_es:
 // `serve_backward_kernel`, csrc/fb_serve.cu) are S's walk over their own
@@ -341,8 +344,9 @@ __device__ __forceinline__ void sv_flush(const float* O, int d0, int n,
 }
 
 // The backward of one lane, its rows as mk::WarpRows, its cells from
-// source SRC.
-template <int RPT, int LPB, int SRC>
+// source SRC.  In checkpoint mode (CKPT: csrc/fb_ckpt.cu's
+// circ_ckpt_backward) nothing leaves a step: no b_M, no bls.
+template <int RPT, int LPB, int SRC, bool CKPT = false>
 struct SvWarp {
   static constexpr int KT = sv_kt(RPT), SB = mk::byte_stride(LPB);
   const CircCoef& K;
@@ -406,7 +410,8 @@ struct SvWarp {
     }
   }
 
-  // Generation d (tile row kb, d % 8 == kb % 8), as CircBackward::step.
+  // Generation d (tile row kb, d % 8 == kb % 8), as the plain
+  // `_CircBackward.step` (ops/fb_circ_cuda.py).
   __device__ void step(int d, int kb, float* lane, float* bls_out,
                        const uint8_t* bytes) {
     const bool divide = (kb & 7) == 7;
@@ -467,10 +472,12 @@ struct SvWarp {
       bls += logf(c);
       cprev = c;
     }
+    if constexpr (!CKPT) {
 #pragma unroll
-    for (int r = 0; r < RPT; ++r)
-      if (row(r) < Wp) lane[off[r]] = nb[r][0];
-    if (rows.kk == 0) bls_out[kb] = bls;
+      for (int r = 0; r < RPT; ++r)
+        if (row(r) < Wp) lane[off[r]] = nb[r][0];
+      if (rows.kk == 0) bls_out[kb] = bls;
+    }
     publish(e);
   }
 

@@ -93,8 +93,9 @@ __global__ void __launch_bounds__(32 * SB_LANES, sb_min_blocks(RPT, SRC))
 // byte tiles (mk::stage_bytes), the 25 match emissions in shared memory.
 // The posterior's scale exp(ls + bls - logZ) of a rescale period's
 // diagonals is computed when the period starts, thread j for its diagonal
-// j, and again after the period's rescale.  Arithmetic in CircForward's
-// order (-fmad=false), so it equals the plain versions bit for bit.
+// j, and again after the period's rescale.  Arithmetic in the order of the
+// plain `_CircForward` (ops/fb_circ_cuda.py; -fmad=false), so it equals the
+// plain versions bit for bit.
 //
 // On an H100 (kernel_ab.py's probe_serve group): at the serve phase's
 // realign shape [3072, 24, 1024] (8 lanes) es / emv / codes take 0.66 /

@@ -108,7 +108,8 @@ _SIGNATURES: Dict[str, List] = {
     # B, KB, ck, cs, logZ, stream
     "circ_ckpt_backward": [_P] * 7 + [_I] * 5 + [_P] * 4,
     # xb, yb, valid, table(host), fink, find, ck, cs, logZ, coef(host),
-    # chain, d1k, Wp, B, KB, scratch (or null), post, stream
+    # chain, d1k, Wp, B, KB, scratch (or null: circ_ckpt_post_scratch),
+    # post, stream
     "circ_ckpt_post": [_P] * 10 + [_I] * 5 + [_P] * 3,
     # Multi-problem lanes.  xb, yb, valid, s1, s2, start, fink, find, D1,
     # Wp, B, match, mismatch, gap_open, gap_extend, ptr, term, stream
@@ -154,6 +155,11 @@ _QUERIES: Dict[str, List] = {
     # forwards)
     "serve_backward_info": [_I, _I, _I, _P],
     "serve_post_info": [_I, _I, _I, _P],
+    # backward, Wp, B, KB, out[8]: out[5] and lanes a block, warps a lane,
+    # scratch floats a block (csrc/fb_ckpt.cu: the checkpoint pair)
+    "circ_ckpt_info": [_I, _I, _I, _I, _P],
+    # Wp, B, KB, out[2]: scratch floats a block (0: none), blocks
+    "circ_ckpt_post_scratch": [_I, _I, _I, _P],
     "banded_nw_info": [_I, _I, _P],
     "mea_dl_info": [_I, _I, _P],
     "banded_mea_info": [_I, _I, _P],

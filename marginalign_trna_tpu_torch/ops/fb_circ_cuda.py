@@ -1,6 +1,7 @@
 """The pair-HMM passes over compact batches in the circular band layout:
-the CUDA kernels E, R, S, C and M (csrc/expand.cu, csrc/fb_circ.cu) and
-their plain PyTorch versions.
+the CUDA kernels E, R, S, C and M (csrc/expand.cu, csrc/fb_circ.cu), the
+serving kernels (csrc/fb_serve.cu) and the checkpoint pair
+(csrc/fb_ckpt.cu), and their plain PyTorch versions.
 
 Circular layout: row r of a [d1k, Wp, B] band holds the cell whose read
 prefix index is i = r (mod Wp), so the band's motion between diagonals is
@@ -42,9 +43,13 @@ S runs the backward of `_CircBackward` as a kernel of its own in the same
 layout, and the serving modes' backwards run S's walk over their emission
 sources (`serve_backward_kernel`), their posterior forwards M's recursion
 with a sink that writes the circular band (`serve_post_kernel`); the
-checkpoint pair keeps csrc/fb_circ.cu's `CircBackward` and `CircForward`
-templates (block per 32 lanes).  R and E take a thread per lane (E) or
-per four lanes (R) and a tile of diagonals.
+checkpoint backward is S's walk over the codes writing a checkpoint per
+block of KB diagonals, its posterior pass per block S's recursion
+replayed from the checkpoint, then M's over the replayed band, in a
+replay warp and a forward warp per lane one block apart, or in one warp
+where the lanes outnumber what the card holds (`ckpt_backward_kernel`,
+`ckpt_post_kernel`).  R and E take a thread per lane (E) or per four
+lanes (R) and a tile of diagonals.
 
 The model comes in at run time as one coefficient vector (`COEF_*` offsets,
 built by ops/fb_circ.py `circ_coefficients`) with two branches: the
@@ -57,6 +62,7 @@ with -fmad=false).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -846,10 +852,13 @@ def serve_resources(device: torch.device, name: str, wp: int,
     return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
-# Shared memory a block may use on an H100, and the floats of the
-# checkpoint posterior pass's replay per block of 32 lanes
-# (csrc/fb_circ.cu `replay_floats`: the backward's 12 planes of [Wp][32],
-# bm [KB][Wp][32], bls [KB][32]) beside the forward's 12 planes.
+# KB, the diagonals per checkpoint, sets the shape of ck, which the plain
+# versions share, so its rule stays that of the pair's first kernels: the
+# largest of 32, 16 and 8 whose replay fitted shared memory in a block of
+# 32 lanes (the backward's 12 planes of [Wp][32], bm [KB][Wp][32], bls
+# [KB][32], beside the forward's 12 planes; 227 KB on an H100).  The
+# kernels of csrc/fb_ckpt.cu take any KB that is a multiple of their tile
+# (16 diagonals at Wp <= 32, else 8).
 _SMEM_BYTES = 232448
 _LANES = 32
 
@@ -864,10 +873,10 @@ def _replay_fits(Wp: int, kb: int) -> bool:
 
 def ckpt_block(Wp: int) -> int:
     """KB, the diagonals per checkpoint: 32 (the TPU kernels'
-    `_CKPT_BLOCK`) where the checkpoint posterior pass's replay fits the
-    card's shared memory, else 16 or 8 (the rescale period divides each,
-    so the schedule is unchanged); 32 again where not even 8 fit (Wp > 56),
-    and the replay then runs in device memory."""
+    `_CKPT_BLOCK`) where a 32-lane block's replay fits the card's shared
+    memory (`_replay_fits`), else 16 or 8 (the rescale period divides each,
+    so the schedule is unchanged); 32 again where not even 8 fit
+    (Wp > 56)."""
     for kb in (32, 16, 8):
         if _replay_fits(Wp, kb):
             return kb
@@ -897,7 +906,8 @@ def circ_ckpt_backward_plain(coef: np.ndarray, chain: bool, table, xb, yb,
 
 def circ_ckpt_backward_cuda(coef: np.ndarray, chain: bool, table, xb, yb,
                             valid, fink, find, kb: int):
-    """The circ_ckpt_backward kernel (csrc/fb_circ.cu)."""
+    """The circ_ckpt_backward kernel (csrc/fb_ckpt.cu); kb a multiple of
+    its tile (16 diagonals at Wp <= 32, else 8)."""
     d1k, Wp, B, dev = _check_codes(xb, yb, valid)
     _check_ends(fink, find, B, dev)
     G = -(-d1k // kb)
@@ -937,8 +947,9 @@ def circ_ckpt_post_plain(coef: np.ndarray, chain: bool, table, xb, yb, valid,
 
 def circ_ckpt_post_cuda(coef: np.ndarray, chain: bool, table, xb, yb, valid,
                         fink, find, ck, cs, logZ, kb: int):
-    """The circ_ckpt_post kernel (csrc/fb_circ.cu); its replay runs in a
-    scratch tensor on the device where it does not fit shared memory."""
+    """The circ_ckpt_post kernel (csrc/fb_ckpt.cu); its replay and forward
+    tiles live in a scratch tensor on the device where they do not fit
+    shared memory (Wp > 72 at kb 32)."""
     d1k, Wp, B, dev = _check_codes(xb, yb, valid)
     _check_ends(fink, find, B, dev)
     G = -(-d1k // kb)
@@ -946,10 +957,9 @@ def circ_ckpt_post_cuda(coef: np.ndarray, chain: bool, table, xb, yb, valid,
     check_tensor(cs, torch.float32, (G, 2, B), dev)
     check_tensor(logZ, torch.float32, (B,), dev)
     post = torch.empty((d1k, Wp, B), dtype=torch.float32, device=dev)
-    scratch = None
-    if not _replay_fits(Wp, kb):
-        scratch = torch.empty(-(-B // _LANES) * _replay_floats(Wp, kb),
-                              dtype=torch.float32, device=dev)
+    per_block, blocks = _ckpt_post_scratch(dev, Wp, B, kb)
+    scratch = (torch.empty(per_block * blocks, dtype=torch.float32,
+                           device=dev) if per_block else None)
     _build.launch(
         "circ_ckpt_post", dev, xb.data_ptr(), yb.data_ptr(),
         valid.data_ptr(), _table_arg(table).ctypes.data, fink.data_ptr(),
@@ -958,3 +968,30 @@ def circ_ckpt_post_cuda(coef: np.ndarray, chain: bool, table, xb, yb, valid,
         None if scratch is None else scratch.data_ptr(), post.data_ptr(),
     )
     return post
+
+
+def _ckpt_post_scratch(device: torch.device, wp: int, B: int,
+                       kb: int) -> Tuple[int, int]:
+    """(floats a block, blocks) of the device memory circ_ckpt_post's
+    launch at (wp, B, kb) needs for its tiles ((0, blocks): none)."""
+    out = (ctypes.c_int * 2)()
+    _build.query("circ_ckpt_post_scratch", device, wp, B, kb,
+                 ctypes.addressof(out))
+    return out[0], out[1]
+
+
+def ckpt_resources(device: torch.device, name: str, wp: int, B: int,
+                   kb: int) -> Dict[str, int]:
+    """What a launch of `name` (circ_ckpt_backward or circ_ckpt_post) over B
+    lanes at band width `wp` and kb diagonals per checkpoint gets on
+    `device`: the keys of mw_forward_resources, the warps a lane (2 where
+    the posterior pass pipelines its replay and forward) and the scratch
+    floats a block (the posterior pass's tiles in device memory; 0: in
+    shared memory)."""
+    out = (ctypes.c_int * 8)()
+    _build.query("circ_ckpt_info", device, int(name == "circ_ckpt_backward"),
+                 wp, B, kb, ctypes.addressof(out))
+    keys = ("registers", "smem_per_block", "blocks_per_sm",
+            "threads_per_block", "local_bytes", "lanes_per_block",
+            "warps_per_lane", "scratch_floats_per_block")
+    return dict(zip(keys, out))

@@ -664,11 +664,12 @@ def _serve_kernels_match_plain(cuda, tables, batch):
 
 @pytest.mark.parametrize("chain_model", [True, False])
 def test_serve_kernels_match_plain(cuda, chain_model):
-    """The serving kernels (csrc/fb_circ.cu: circ_backward_emv / _codes /
-    _codes_es, circ_post_es / _emv / _codes, circ_ckpt_backward,
-    circ_ckpt_post) on the shipped model and on its flat-gap variant whose
-    gap states 1 and 2 exchange mass (the generic branch) at width 21 (Wp
-    24, the checkpoint pass's replay in shared memory)."""
+    """The serving kernels (csrc/fb_serve.cu: circ_backward_emv / _codes /
+    _codes_es, circ_post_es / _emv / _codes; csrc/fb_ckpt.cu:
+    circ_ckpt_backward, circ_ckpt_post) on the shipped model and on its
+    flat-gap variant whose gap states 1 and 2 exchange mass (the generic
+    branch) at width 21 (Wp 24, the checkpoint pass's tiles in shared
+    memory)."""
     _serve_kernels_match_plain(cuda, _flat_gap_tables(chain_model),
                                _batch(21, seed=8))
 
@@ -676,8 +677,9 @@ def test_serve_kernels_match_plain(cuda, chain_model):
 @pytest.mark.parametrize("width", [61, 126])
 def test_serve_kernels_wide_bands(cuda, width):
     """The serving kernels at Wp 64 and 128 (two and four rows per
-    thread), where the checkpoint posterior pass replays in device
-    memory."""
+    thread), 32 diagonals a checkpoint; the checkpoint posterior pass
+    keeps its tiles in shared memory at Wp 64 (4 lanes a block) and in
+    device memory at Wp 128."""
     Wp = padded_band_width(width)
     assert fb_circ_cuda.ckpt_block(Wp) == 32
     assert not fb_circ_cuda._replay_fits(Wp, 32)
@@ -2041,3 +2043,101 @@ def test_serve_kernels_resources(cuda, wp):
     bad = {f: s for f, s in spills.items()
            if not s.split("bytes stack frame, ")[1].startswith("0 bytes")}
     assert not bad, bad
+
+
+# ----------------- the checkpoint pair: a replay warp and a forward warp
+
+
+def _ckpt_equal(cuda, codes, kb):
+    """circ_ckpt_backward and circ_ckpt_post (csrc/fb_ckpt.cu) on the codes
+    arguments `codes` (coef, chain, table, xb, yb, valid, fink, find) at kb
+    diagonals a checkpoint: ck, cs, logZ and post bit for bit against the
+    plain versions (the posterior pass on the plain checkpoints and on the
+    card's own), one launch each."""
+    names = ("circ_ckpt_backward", "circ_ckpt_post")
+    before = {n: _build.launch_counts[n] for n in names}
+    got = fb_circ_cuda.circ_ckpt_backward_cuda(*codes, kb)
+    want = fb_circ_cuda.circ_ckpt_backward_plain(*codes, kb)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+    post = fb_circ_cuda.circ_ckpt_post_cuda(*codes, *want, kb)
+    wpost = fb_circ_cuda.circ_ckpt_post_plain(*codes, *want, kb)
+    torch.cuda.synchronize()
+    assert all(_build.launch_counts[n] == before[n] + 1 for n in names)
+    _same_bits(post, wpost)
+    _same_bits(fb_circ_cuda.circ_ckpt_post_cuda(*codes, *got, kb), wpost)
+
+
+@pytest.mark.parametrize("wp", [24, 32, 48, 64, 128])
+def test_ckpt_pair_random_inputs(cuda, wp):
+    """The checkpoint pair at its KB (ops/fb_circ_cuda.py `ckpt_block`: 32,
+    16, 8, 32, 32) over one block (G = 1: the pipeline only fills), two
+    with a partial top block and four with a partial top tile, lane counts
+    that are no multiple of a block (byte by byte) and a multiple of 4
+    (words), below and above 16 lanes an SM (the posterior pass
+    pipelined, then sequential up to Wp 56), both model branches, codes
+    outside 0..4, terminals at d = 0, a rescale edge, a tile edge and
+    anywhere."""
+    kb = fb_circ_cuda.ckpt_block(wp)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for d1k, B, chain_model in ((kb, 9, True), (kb + 5, 36, False),
+                                (3 * kb + 11, 1027, True),
+                                (2 * kb + 3, 16 * sms + 5, False)):
+        cases = _random_serve(cuda, d1k, wp, B, chain_model,
+                              seed=wp + d1k + B)
+        _ckpt_equal(cuda, cases["circ_backward_codes"], kb)
+
+
+@pytest.mark.parametrize("d1k", [1, 2, 9, 17])
+def test_ckpt_pair_short_bands(cuda, d1k):
+    """One, two, nine (part of a tile) and 17 diagonals (a tile and one) at
+    Wp 24 and 48, every terminal at d = 0 too."""
+    for wp in (24, 48):
+        kb = fb_circ_cuda.ckpt_block(wp)
+        _ckpt_equal(cuda, _random_serve(cuda, d1k, wp, 36, True, seed=d1k)[
+            "circ_backward_codes"], kb)
+        _ckpt_equal(cuda, _random_serve(cuda, d1k, wp, 36, False,
+                                        seed=d1k + 1, final_d=0)[
+            "circ_backward_codes"], kb)
+
+
+def test_ckpt_pair_refuses_partial_tiles(cuda):
+    """A KB that is no multiple of the kernels' tile (16 diagonals at one
+    row a thread) raises; nothing falls back to the plain versions."""
+    codes = _random_serve(cuda, 40, 24, 16, True, seed=5)[
+        "circ_backward_codes"]
+    with pytest.raises(RuntimeError, match="circ_ckpt_backward"):
+        fb_circ_cuda.circ_ckpt_backward_cuda(*codes, 8)
+    ck = fb_circ_cuda.circ_ckpt_backward_plain(*codes, 8)
+    with pytest.raises(RuntimeError, match="circ_ckpt_post"):
+        fb_circ_cuda.circ_ckpt_post_cuda(*codes, *ck, 8)
+
+
+@pytest.mark.parametrize("wp", [24, 32, 48, 64, 96, 128])
+def test_ckpt_pair_resources(cuda, wp):
+    """At the serve phase's lane counts (1024 and 32768) and KB: the
+    backward 8 lanes a block; the posterior pass up to Wp 56 pipelined at
+    8 lanes of two warps at 1024 lanes and sequential at 16 lanes of one
+    warp at 32768, above Wp 56 pipelined at 4 lanes, its tiles in shared
+    memory up to Wp 64 and in device memory at Wp 96 and 128; one block
+    an SM at least; no spill and no stack (local memory) at Wp <= 64."""
+    kb = fb_circ_cuda.ckpt_block(wp)
+    for B in (1024, 32768):
+        bwd = fb_circ_cuda.ckpt_resources(cuda, "circ_ckpt_backward", wp, B,
+                                          kb)
+        post = fb_circ_cuda.ckpt_resources(cuda, "circ_ckpt_post", wp, B,
+                                           kb)
+        assert bwd["lanes_per_block"] == 8, bwd
+        sequential = wp <= 56 and B == 32768
+        assert post["lanes_per_block"] == (
+            16 if sequential else 8 if wp <= 56 else 4), post
+        assert post["warps_per_lane"] == (1 if sequential else 2), post
+        assert post["threads_per_block"] == 32 * post["lanes_per_block"] * \
+            post["warps_per_lane"], post
+        assert (post["scratch_floats_per_block"] > 0) == (wp > 64), post
+        for res in (bwd, post):
+            assert res["blocks_per_sm"] >= 1, res
+            if wp <= 64:
+                assert res["local_bytes"] == 0, res
+
