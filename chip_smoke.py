@@ -7,9 +7,9 @@ CUDA card.  Run from the repository root:
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a;
               ptxas must report no spill in a counts or generic kernel,
-              none in K2, K3, K4 or the warp-per-lane serving kernels, and
-              no stack frame in K4, K2, K3 and the serving kernels up to
-              two rows a thread nor in X.
+              none in K2, K3, K4, the multi-lane FB pair or the
+              warp-per-lane serving kernels, and no stack frame in these
+              up to two rows a thread nor in X.
   2. tiny     each of the thirty-four kernels against its plain PyTorch
               version on the card at a tiny shape, so a broken kernel fails
               before the long runs; the eight serving kernels
@@ -19,7 +19,8 @@ Phases (any failure exits non-zero without the final result line):
               checkpoint posterior pass takes blocks of 4 lanes, at Wp 128
               with its tiles in device memory); the four
               multi-lane kernels bit-equal on packed lanes, the FB pair on
-              both model branches, nw_multi at Wp 24 and 48; the four
+              both model branches and at WIDE_BANDS (two and four rows a
+              thread), nw_multi at Wp 24 and 48; the four
               multi-lane counts kernels at Wp 24 on lanes of three or more
               problems, with three trials and with one.
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
@@ -302,11 +303,11 @@ KERNELS = {
     "nw_multi": ("marginalign_trna_tpu_torch/csrc/nw.cu",
                  "marginalign_trna_tpu/ops/wavefront_pallas.py:225",
                  "wavefront_cuda.nw_multi_cuda", ("multi",)),
-    "fb_multi_forward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
+    "fb_multi_forward": ("marginalign_trna_tpu_torch/csrc/fb_multi.cu",
                          "marginalign_trna_tpu/ops/fb_pallas.py:1243",
                          "fb_multi_cuda.fb_multi_forward_cuda",
                          ("multi", "call_multi")),
-    "fb_multi_backward": ("marginalign_trna_tpu_torch/csrc/fb.cu",
+    "fb_multi_backward": ("marginalign_trna_tpu_torch/csrc/fb_multi.cu",
                           "marginalign_trna_tpu/ops/fb_pallas.py:1389",
                           "fb_multi_cuda.fb_multi_backward_cuda",
                           ("multi", "call_multi")),
@@ -355,6 +356,9 @@ SERVE_KERNELS = {
 SERVE_WARP = ("circ_backward_emv", "circ_backward_codes",
               "circ_backward_codes_es", "circ_post_es", "circ_post_emv",
               "circ_post_codes")
+# The multi-lane FB pair (csrc/fb_multi.cu, one warp per lane), its
+# resources logged.
+FB_MULTI = ("fb_multi_forward", "fb_multi_backward")
 # The serving modes held to CPU/card parity.
 SERVE_PARITY_MODES = ("sv", "ckpt")
 # Band widths beyond the shipped 21 at which the tiny check runs the
@@ -1201,6 +1205,9 @@ def compare_exact(name, args, reps):
     elif name in SERVE_KERNELS["ckpt"]:
         out["resources"] = module.ckpt_resources(got[0].device, name, Wp, B,
                                                  args[-1])
+    elif name in FB_MULTI:
+        out["resources"] = module.fb_multi_resources(
+            got[0].device, Wp, B, name == "fb_multi_backward")
     return out
 
 
@@ -3509,19 +3516,24 @@ def ptxas_spills(build_log):
 
 
 # The kernels redesigned last, by the start of their mangled names: K4's
-# mea_warp_kernel, K2 / K3's rel_backward_kernel / rel_forward_kernel and
+# mea_warp_kernel, K2 / K3's rel_backward_kernel / rel_forward_kernel, the
+# multi-lane FB pair's multi_forward_kernel / multi_backward_kernel and
 # the serving kernels' serve_backward_kernel / serve_post_kernel at one and
 # two rows a thread (Wp <= 64) and X's window and reduce kernels must
-# compile with no stack frame and no spill; K4, K2, K3 and the serving
-# kernels at three and four rows a thread (Wp > 64, on no path) with no
-# spill (mk::WarpRows keeps its edge row on a stack there, as in K1 and D).
+# compile with no stack frame and no spill; K4, K2, K3, the multi-lane
+# pair and the serving kernels at three and four rows a thread (Wp > 64,
+# on no path) with no spill (mk::WarpRows keeps its edge row on a stack
+# there, as in K1 and D).
 FRAMELESS = ("mea_warp_kernelILi1", "mea_warp_kernelILi2",
              "rel_backward_kernelILi1", "rel_backward_kernelILi2",
              "rel_forward_kernelILi1", "rel_forward_kernelILi2",
+             "multi_forward_kernelILi1", "multi_forward_kernelILi2",
+             "multi_backward_kernelILi1", "multi_backward_kernelILi2",
              "serve_backward_kernelILi1", "serve_backward_kernelILi2",
              "serve_post_kernelILi1", "serve_post_kernelILi2",
              "lanesum_window_kernel", "lanesum_reduce_kernel")
 SPILL_FREE = ("mea_warp_kernel", "rel_backward_kernel", "rel_forward_kernel",
+              "multi_forward_kernel", "multi_backward_kernel",
               "serve_backward_kernel", "serve_post_kernel")
 
 
@@ -3629,11 +3641,13 @@ def main() -> int:
         for width in WIDE_BANDS:
             compare_kernels("tiny_width_%d" % width, SERVE_NEW,
                             tiny_serve_inputs(cuda, width=width), 3)
-        compare_kernels("tiny_multi_non_chain",
-                        ["fb_multi_forward", "fb_multi_backward"],
+        compare_kernels("tiny_multi_non_chain", FB_MULTI,
                         tiny_multi_inputs(cuda, chain_model=False), 3)
         compare_kernels("tiny_multi_width_40", ["nw_multi"],
                         tiny_multi_inputs(cuda, width=40), 3)
+        for width in WIDE_BANDS:
+            compare_kernels("tiny_multi_width_%d" % width, FB_MULTI,
+                            tiny_multi_inputs(cuda, width=width), 3)
         elapsed("tiny")
         with tempfile.TemporaryDirectory() as tmpdir:
             fq, fa, truth, sam, launches, largest, main_res = phase_main(

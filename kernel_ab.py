@@ -4,8 +4,22 @@ the port, on the same inputs, in one process on one CUDA card.
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 kernel_ab.py build/parent [group ...]
 
-Groups (fused, wavefront, counts, scatter, rel and serve when none is
-named):
+Groups (fused, wavefront, counts, scatter, rel, serve and multi when none
+is named):
+  multi  the multi-lane FB pair fb_multi_forward and fb_multi_backward
+         (row 10) on the multi batch [1024, 24, 4096] (tRNA-scale
+         problems several to a 1024-diagonal lane, the shipped model: the
+         gap-chain branch), on its lanes twice [1024, 24, 8192] (the
+         call_multi launch's size), on the multi batch with the flat-gap
+         model whose gap states 1 and 2 exchange mass (the generic
+         branch) and on the multi batch packed at widths 45, 93 and 126
+         (Wp 48, 96, 128; its first 1024 lanes): the backward on the plain
+         forward's outputs and chained on each checkout's own; fm, lsf,
+         term and post bit for bit against the plain versions and the
+         other checkout, times, bounds and resources (`fb_multi_resources`).
+         Must not move (bit-equal to the other checkout, both timed): K2
+         and K3 on the REL batch [3072, 24, 1024], nw_multi and mea_multi
+         as the wavefront group takes them.
   serve  the eight serving kernels of the circular serving route
          (serve=<mode>): the backwards circ_backward_emv, _codes and
          _codes_es, the posterior forwards circ_post_es, _emv and _codes
@@ -33,9 +47,8 @@ named):
          (bm, bls, logZ) and chained on each checkout's own; bm, bls, logZ
          and post bit for bit against the plain versions and the other
          checkout, times, bounds and resources.  Must not move (bit-equal
-         to the other checkout, both timed): fb_multi_forward and
-         fb_multi_backward (row 10) on the multi batch [1024, 24, 4096],
-         K4 on the REL batch's weights.
+         to the other checkout, both timed): K4 on the REL batch's
+         weights.
   wavefront
          K1 (banded_nw) on the guide batch [7168, 48, 1024] and at Wp 24,
          96 and 128 (the guide's pairs packed at widths 21, 93, 126), D
@@ -150,6 +163,13 @@ named):
          after the first two), with tiles of 8 diagonals at one row a
          thread, with three stage buffers, with at most 64 registers,
          without TMA, on the rel group's REL and tRNA cells.
+  probe_multi (named on the command line only): the multi-lane FB pair
+         at 8 lanes a block whatever B or at 16 wherever `rel_lanes`
+         allows them, without TMA, and with one part removed (outputs
+         wrong by design: the backward's posterior scale without its exp,
+         no device memory after the first tiles, no recursion after the
+         first two); on the multi group's multi, call_multi and wp48
+         cells and the multi batch's first 1024 lanes.
   probe_serve (named on the command line only): the serving backwards
          in S's ring of three buffers or without their register caps;
          the serving forwards by cp.async only (no TMA), with 16-diagonal
@@ -820,33 +840,143 @@ def run_rel(this, other, cuda, report):
         del bargs
         torch.cuda.empty_cache()
 
-    # Must not move: row 10 on the multi batch, K4 on the REL batch's
-    # weights.
-    fb, band = sub(this, "ops.fb"), sub(this, "ops.band")
-    fm, ofm = (sub(p, "ops.fb_multi_cuda") for p in (this, other))
-    tables = fb.tables_from_file(
-        os.path.join(ROOT, PKG, "models", "last_hmm_20.txt"), cuda)
-    coef, chain = sub(this, "ops.fb_circ").circ_coefficients(tables)
-    mdev = fb.multi_device_batch(multi_batch(band), cuda)
-    em = tables.Ematch[mdev.xb.long(), mdev.yb.long()] * mdev.valid
-    fargs = (coef, chain, em, mdev.valid, mdev.s1, mdev.start, mdev.fink)
-    report["fb_multi_forward"] = unmoved(
-        fm.fb_multi_forward_cuda, ofm.fb_multi_forward_cuda, fargs)
-    show("fb_multi_forward")
-    fmv, lsf, term = fm.fb_multi_forward_cuda(*fargs)
-    L, _ = fb.multi_logz(lsf, term, mdev)
-    report["fb_multi_backward"] = unmoved(
-        fm.fb_multi_backward_cuda, ofm.fb_multi_backward_cuda,
-        (coef, chain, fmv, lsf, L, em, mdev.valid, mdev.s1, mdev.fink,
-         mdev.find))
-    show("fb_multi_backward")
-    del mdev, em, fmv, lsf, term, L
-    torch.cuda.empty_cache()
+    # Must not move: K4 on the REL batch's weights.
     wf, owf = (sub(p, "ops.wavefront_cuda") for p in (this, other))
     args = mea_cells(this, cuda, ("banded_mea",))["banded_mea"]
     report["rel_banded_mea"] = unmoved(wf.banded_mea_cuda,
                                        owf.banded_mea_cuda, args)
     show("rel_banded_mea")
+
+
+def multi_cells(port, cuda, names=("multi", "call_multi", "multi_generic",
+                                   "wp48", "wp96", "wp128")):
+    """(cell, the forward's arguments, (fink, find, step_final)) one cell
+    at a time (`names` of them): "multi" the multi batch [1024, 24, 4096]
+    with the shipped model (the gap-chain branch), "call_multi" its lanes
+    twice [1024, 24, 8192] (the smoke's call_multi launch), "multi_generic"
+    the multi batch with the flat-gap model whose gap states 1 and 2
+    exchange mass (the generic branch), "wp48" / "wp96" / "wp128" the
+    multi batch packed at band widths 45, 93, 126, its first 1024 lanes;
+    the premasked match emissions of the shipped model."""
+    import torch
+
+    band, fb = sub(port, "ops.band"), sub(port, "ops.fb")
+    fcirc = sub(port, "ops.fb_circ")
+    path = os.path.join(ROOT, PKG, "models", "last_hmm_20.txt")
+    tables = fb.tables_from_file(path, cuda)
+    wide = {"wp%d" % wp: w for w, wp in M_WIDE.items()}
+    for name in names:
+        mdev = fb.multi_device_batch(
+            multi_batch(band, width=wide.get(name, 21)), cuda)
+        B = {"call_multi": 2 * MULTI_LANES}.get(
+            name, 1024 if name in wide else MULTI_LANES)
+
+        def lanes(t):
+            reps = -(-B // t.shape[-1])
+            return t.repeat(*([1] * (t.dim() - 1)), reps)[..., :B] \
+                .contiguous()
+
+        xb, yb, valid, s1, start, fink, find, sf = (lanes(t) for t in (
+            mdev.xb, mdev.yb, mdev.valid, mdev.s1, mdev.start, mdev.fink,
+            mdev.find, mdev.step_final))
+        coef, chain = fcirc.circ_coefficients(
+            generic_tables(fb, path) if name == "multi_generic" else tables)
+        em = tables.Ematch[xb.long(), yb.long()] * valid
+        yield name, (coef, chain, em, valid, s1, start, fink), (fink, find,
+                                                                 sf)
+        del mdev, xb, yb, valid, s1, start, fink, find, sf, em
+        torch.cuda.empty_cache()
+
+
+def multi_bargs(fargs, fwd, streams):
+    """The backward's arguments on the forward's outputs fwd (fm, lsf,
+    term): L is log(term) + lsf at each diagonal's problem's terminal
+    diagonal (ops/fb.py `multi_logz`)."""
+    import torch
+
+    fink, find, sf = streams
+    fm, lsf, term = fwd
+    L = (torch.log(term.clamp(min=1e-30)) + lsf).gather(0, sf.long())
+    return (*fargs[:2], fm, lsf, L, fargs[2], fargs[3], fargs[4], fink, find)
+
+
+def ab_multi(fm, ofm, fargs, streams, cuda):
+    """The multi-lane FB pair of both checkouts against the plain versions,
+    the backward on the plain forward's outputs and chained on each
+    checkout's own: bit-equality to plain and other, largest differences,
+    times, bounds, resources."""
+    got = fm.fb_multi_forward_cuda(*fargs)
+    plain = fm.fb_multi_forward_plain(*fargs)
+    ref = ofm.fb_multi_forward_cuda(*fargs)
+    D1, wp, B = got[0].shape
+    bargs = multi_bargs(fargs, plain, streams)
+    post = (fm.fb_multi_backward_cuda(*bargs),)
+    rpost = (fm.fb_multi_backward_plain(*bargs),)
+    opost = (ofm.fb_multi_backward_cuda(*bargs),)
+    chained = (fm.fb_multi_backward_cuda(*multi_bargs(fargs, got, streams)),)
+    ochained = (ofm.fb_multi_backward_cuda(
+        *multi_bargs(fargs, ref, streams)),)
+    return {
+        "fb_multi_forward": {
+            "shape": [D1, wp, B], "chain": bool(fargs[1]),
+            "max_abs_err_plain": max_diff(got, plain),
+            "max_abs_err_other": max_diff(got, ref),
+            "bit_equal_plain": same_bits(got, plain),
+            "bit_equal_other": same_bits(got, ref),
+            **ab(lambda: fm.fb_multi_forward_cuda(*fargs),
+                 lambda: ofm.fb_multi_forward_cuda(*fargs)),
+            **bound("fb_multi_forward", got[0].numel(),
+                    nbytes(*fargs, *got)),
+            "resources": fm.fb_multi_resources(cuda, wp, B, False)},
+        "fb_multi_backward": {
+            "shape": [D1, wp, B], "chain": bool(fargs[1]),
+            "max_abs_err_plain": max_diff(post, rpost),
+            "max_abs_err_other": max_diff(post, opost),
+            "bit_equal_plain": same_bits(post, rpost),
+            "bit_equal_other": same_bits(post, opost),
+            "chained_bit_equal_plain": same_bits(chained, rpost),
+            "chained_bit_equal_other": same_bits(chained, ochained),
+            "post_finite": bool(post[0].isfinite().all()),
+            **ab(lambda: fm.fb_multi_backward_cuda(*bargs),
+                 lambda: ofm.fb_multi_backward_cuda(*bargs)),
+            **bound("fb_multi_backward", post[0].numel(),
+                    nbytes(*bargs, *post)),
+            "resources": fm.fb_multi_resources(cuda, wp, B, True)}}
+
+
+def run_multi(this, other, cuda, report):
+    """Fills `report` with the multi group's rows."""
+    import torch
+
+    fm, ofm = (sub(p, "ops.fb_multi_cuda") for p in (this, other))
+
+    def show(name):
+        print(json.dumps({name: report[name]}), flush=True)
+
+    for name, fargs, streams in multi_cells(this, cuda):
+        report["multi_" + name] = ab_multi(fm, ofm, fargs, streams, cuda)
+        show("multi_" + name)
+        del fargs, streams
+        torch.cuda.empty_cache()
+
+    # Must not move: K2 and K3 on the REL batch (K3 on the plain K2's
+    # outputs), nw_multi and mea_multi on the multi batch.
+    fc, ofc = (sub(p, "ops.fb_cuda") for p in (this, other))
+    for name, bargs in rel_cells(this, cuda, ("rel",)):
+        report["multi_unmoved_fb_backward"] = unmoved(
+            fc.fb_backward_cuda, ofc.fb_backward_cuda, bargs)
+        show("multi_unmoved_fb_backward")
+        fargs = tuple(bargs[:4]) + tuple(fc.fb_backward_plain(*bargs))
+        report["multi_unmoved_fb_forward"] = unmoved(
+            fc.fb_forward_cuda, ofc.fb_forward_cuda, fargs)
+        show("multi_unmoved_fb_forward")
+        del bargs, fargs
+        torch.cuda.empty_cache()
+    wf, owf = (sub(p, "ops.wavefront_cuda") for p in (this, other))
+    for name, args in multi_wave_args(this, cuda).items():
+        report["multi_unmoved_" + name] = unmoved(
+            getattr(wf, name + "_cuda"), getattr(owf, name + "_cuda"), args)
+        show("multi_unmoved_" + name)
 
 
 SERVE_KERNELS = ("circ_backward_emv", "circ_backward_codes",
@@ -1178,25 +1308,32 @@ def run_wavefront(this, other, cuda, report):
         del kargs
         torch.cuda.empty_cache()
 
-    # The multi-problem lanes' kernels: nw_multi at the guide's width,
-    # mea_multi on random weights at the realign width.
-    params = tuple(sub(this, "ops.nw").NwParams())
+    # The multi-problem lanes' kernels.
+    for name, args in multi_wave_args(this, cuda).items():
+        report[name] = unmoved(getattr(wf, name + "_cuda"),
+                               getattr(owf, name + "_cuda"), args)
+        show(name)
+
+
+def multi_wave_args(port, cuda):
+    """{kernel: arguments} of nw_multi on the multi batch at the guide's
+    width 40 [1024, 48, 4096] and of mea_multi on random weights over the
+    width-21 multi batch."""
+    import torch
+
+    fb, band = sub(port, "ops.fb"), sub(port, "ops.band")
+    params = tuple(sub(port, "ops.nw").NwParams())
     mdev = fb.multi_device_batch(multi_batch(band, width=40), cuda)
-    report["nw_multi"] = unmoved(
-        wf.nw_multi_cuda, owf.nw_multi_cuda,
-        (params, mdev.xb, mdev.yb, mdev.valid, mdev.s1, mdev.s2, mdev.start,
-         mdev.fink, mdev.find))
-    show("nw_multi")
+    out = {"nw_multi": (params, mdev.xb, mdev.yb, mdev.valid, mdev.s1,
+                        mdev.s2, mdev.start, mdev.fink, mdev.find)}
     mdev = fb.multi_device_batch(multi_batch(band), cuda)
     gen = torch.Generator(device=cuda).manual_seed(6)
     shape = tuple(mdev.xb.shape)
     weights = [torch.rand(shape, device=cuda, generator=gen) * scale
                for scale in (1.0, 0.5, 0.5)]
-    report["mea_multi"] = unmoved(
-        wf.mea_multi_cuda, owf.mea_multi_cuda,
-        (*weights, mdev.valid, mdev.s1, mdev.s2, mdev.start, mdev.fink,
-         mdev.find))
-    show("mea_multi")
+    out["mea_multi"] = (*weights, mdev.valid, mdev.s1, mdev.s2, mdev.start,
+                        mdev.fink, mdev.find)
+    return out
 
 
 def probe_port(name, source, edits):
@@ -1310,6 +1447,20 @@ def probe_cases(this, cuda, kernels):
             cases["fb_backward"][name + "_bwd"] = bargs
             cases["fb_forward"][name + "_fwd"] = (
                 *bargs[:4], *fbc.fb_backward_cuda(*bargs))
+    if set(_MULTI) & set(kernels):
+        fm = sub(this, "ops.fb_multi_cuda")
+        cases["fb_multi_forward"], cases["fb_multi_backward"] = {}, {}
+        for name, fargs, streams in multi_cells(
+                this, cuda, ("multi", "call_multi", "wp48")):
+            cases["fb_multi_forward"][name + "_fwd"] = fargs
+            cases["fb_multi_backward"][name + "_bwd"] = multi_bargs(
+                fargs, fm.fb_multi_forward_cuda(*fargs), streams)
+        # The multi batch's first 1024 lanes (8 lanes a block: 128 blocks).
+        for k, case in (("fb_multi_forward", "multi_fwd"),
+                        ("fb_multi_backward", "multi_bwd")):
+            cases[k][case[:-4] + "_1024" + case[-4:]] = tuple(
+                t[..., :1024].contiguous() if hasattr(t, "dim")
+                and t.dim() >= 2 else t for t in cases[k][case])
     if "banded_mea" in kernels:
         cases["banded_mea"] = mea_cells(this, cuda)
         # The generic cell's lanes repeated to the bucket's 4096.
@@ -1539,12 +1690,16 @@ def card():
 GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
           "probe_counts", "probe_cx", "probe_generic", "probe_stored",
           "probe_mea", "probe_scatter", "probe_rel", "counts", "scatter",
-          "rel", "serve", "probe_serve", "probe_ckpt")
-DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter", "rel", "serve")
+          "rel", "serve", "probe_serve", "probe_ckpt", "multi",
+          "probe_multi")
+DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter", "rel", "serve",
+                  "multi")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "fb_backward": "ops.fb_cuda",
                   "fb_forward": "ops.fb_cuda",
+                  "fb_multi_forward": "ops.fb_multi_cuda",
+                  "fb_multi_backward": "ops.fb_multi_cuda",
                   "cx_forward": "ops.fb_circ_cuda",
                   "counts_fwd_ckpt": "ops.fb_counts_cuda",
                   "fb_generic_fwd": "ops.fb_generic_cuda",
@@ -2025,32 +2180,86 @@ _ST = ("counts_fwd_all", "counts_bwd", "counts_multi_fwd_all",
 # with every band by cp.async (no TMA).
 _REL = ("fb_backward", "fb_forward")
 _REL_BOUNDS = "__global__ void __launch_bounds__(32 * LPB)\n    rel_%s_kernel"
+_STAGE = "    if (%s < tiles)\n      rel_stage<%s,"
+_FLUSH = ("    if (%s > 0)\n      rel_flush<LPB, KT>(blk.out(%s - 1), %s, "
+          "count(%s - 1), b0, Wp,\n                         B, %s,")
+_FIRST = {"u": "first(u - 1)", "t": "(t - 1) * KT"}
+
+
+def _no_global(walks):
+    """Edits of the kernels' source that stop the kernels of `walks` ((the
+    tile index, rel_stage's template counts, the first output) of each)
+    from staging or flushing tiles past the first few; the TMA waits of the
+    tiles never asked for go too (csrc/fb_rel.cuh)."""
+    return [("fb_rel.cuh", "    if (TMA) mk::mbar_wait(",
+             "    if (TMA && u < REL_STAGES) mk::mbar_wait(")] + [
+        edit for i, counts, dst in walks for edit in (
+            (_STAGE % (i, counts),
+             _STAGE.replace("< tiles", "< min(tiles, REL_STAGES)")
+             % (i, counts)),
+            (_FLUSH % (i, i, _FIRST[i], i, dst),
+             _FLUSH.replace("> 0)", "> 0 && %s < 3)" % i)
+             % (i, i, _FIRST[i], i, dst)))]
+
+
 PROBES.update({
-    "fb_rel_no_global": (_REL, "fb.cu", [
-        ("    if (u < tiles)\n      rel_stage<1,",
-         "    if (u < min(tiles, REL_STAGES))\n      rel_stage<1,"),
-        ("    if (t < tiles)\n      rel_stage<2,",
-         "    if (t < min(tiles, REL_STAGES))\n      rel_stage<2,"),
-        ("    if (TMA) mk::mbar_wait(",
-         "    if (TMA && u < REL_STAGES) mk::mbar_wait("),
-        ("    if (u > 0)\n      rel_flush", "    if (u > 0 && u < 3)\n      rel_flush"),
-        ("    if (t > 0)\n      rel_flush", "    if (t > 0 && t < 3)\n      rel_flush")]),
+    "fb_rel_no_global": (_REL, "fb.cu", _no_global(
+        [("u", "1, 1", "bm"), ("t", "2, 2", "post")])),
     "fb_rel_no_compute": (_REL, "fb.cu", [
-        ("    if (live) {\n      float* o = blk.out(u);",
-         "    if (live && u < 2) {\n      float* o = blk.out(u);"),
-        ("    if (live)\n      lane.tile(blk.in(t),",
-         "    if (live && t < 2)\n      lane.tile(blk.in(t),")]),
-    "fb_rel_no_tma": (_REL, "fb.cu", [
+        ("    if (live)\n      lane.tile(blk.in(u), blk.rows(u, w), "
+         "blk.rec(u, 0, w), first(u),",
+         "    if (live && u < 2)\n      lane.tile(blk.in(u), "
+         "blk.rows(u, w), blk.rec(u, 0, w), first(u),"),
+        ("    if (live) lane.tile(blk.in(t), blk.rows(t, w), t * KT, "
+         "count(t));",
+         "    if (live && t < 2) lane.tile(blk.in(t), blk.rows(t, w), "
+         "t * KT, count(t));")]),
+    "fb_rel_no_tma": (_REL, "fb_rel.cuh", [
         ("  return B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&",
          "  return false && B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&")]),
-    "fb_rel_kt8": (_REL, "fb.cu", [
+    "fb_rel_kt8": (_REL, "fb_rel.cuh", [
         ("constexpr int rel_kt(int rpt) { return rpt == 1 ? 16 : 8; }",
          "constexpr int rel_kt(int rpt) { return 8; }")]),
-    "fb_rel_stages_3": (_REL, "fb.cu", [("constexpr int REL_STAGES = 2;",
+    "fb_rel_stages_3": (_REL, "fb_rel.cuh", [("constexpr int REL_STAGES = 2;",
                                       "constexpr int REL_STAGES = 3;")]),
     "fb_rel_cap64": (_REL, "fb.cu", [
         (_REL_BOUNDS % k, _REL_BOUNDS.replace("LPB)", "LPB, 32 / LPB)") % k)
         for k in ("backward", "forward")]),
+})
+# The multi-lane FB pair (both kernels in each variant): at 8 lanes a
+# block whatever B, or at 16 wherever `rel_lanes` allows them; with every
+# band by cp.async (no TMA); and with one part removed (outputs wrong by
+# design):
+# the backward's posterior scale without its exp, no device memory after
+# the first tiles, no recursion after the first two tiles.
+_MULTI = ("fb_multi_forward", "fb_multi_backward")
+PROBES.update({
+    "fb_multi_lanes_8": (_MULTI, "fb_rel.cuh", [
+        ("  const bool narrow = mk::rows_per_thread(Wp) > (kind == REL_MB "
+         "? 1 : 2);",
+         "  const bool narrow = mk::rows_per_thread(Wp) > (kind == REL_MB "
+         "? 1 : 2) || kind >= REL_MF;")]),
+    "fb_multi_lanes_16": (_MULTI, "fb_rel.cuh", [
+        ("  return mk::warp_lanes(\n      B,",
+         "  if (kind >= REL_MF && !narrow) return (*lanes = 16, "
+         "cudaSuccess);\n  return mk::warp_lanes(\n      B,")]),
+    "fb_multi_no_tma": (_MULTI, "fb_rel.cuh", [
+        ("  return B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&",
+         "  return false && B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&")]),
+    "fb_multi_no_expf": (_MULTI, "fb_multi.cu", [
+        ("    const float alpha = expf(a.lsf + bls - a.L);",
+         "    const float alpha = a.lsf + bls - a.L;")]),
+    "fb_multi_no_global": (_MULTI, "fb_multi.cu", _no_global(
+        [("t", "1, 2", "fm"), ("u", "2, 5", "post")])),
+    "fb_multi_no_compute": (_MULTI, "fb_multi.cu", [
+        ("    if (live)\n      lane.tile(blk.in(t), blk.rows(t, w), "
+         "blk.rec(t, 0, w),",
+         "    if (live && t < 2)\n      lane.tile(blk.in(t), "
+         "blk.rows(t, w), blk.rec(t, 0, w),"),
+        ("    if (live) lane.tile(blk.in(u), blk.rows(u, w), first(u), "
+         "count(u));",
+         "    if (live && u < 2) lane.tile(blk.in(u), blk.rows(u, w), "
+         "first(u), count(u));")]),
 })
 _ST_BWD = ("counts_bwd", "counts_multi_bwd")
 _ST_FWD = ("counts_fwd_all", "counts_multi_fwd_all")
@@ -2397,8 +2606,9 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_mea": lambda *a: run_probe(*a, kernels=("banded_mea",)),
         "probe_scatter": lambda *a: run_probe(
             *a, kernels=("scatter_lanesum",)),
+        "probe_multi": lambda *a: run_probe(*a, kernels=_MULTI),
         "counts": run_counts, "scatter": run_scatter, "rel": run_rel,
-        "serve": run_serve}
+        "serve": run_serve, "multi": run_multi}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

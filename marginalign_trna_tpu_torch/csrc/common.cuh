@@ -2,17 +2,17 @@
 //
 // Every band array is C-contiguous [D1, Wp, B]: anti-diagonal d, band row k,
 // lane (read) b, exactly the JAX package's layout.  Two layouts of a block:
-//   block per 32 lanes: a block owns LANES consecutive lanes (threadIdx.x,
-//     so loads of [d, k, b:b+LANES] coalesce) and all Wp band rows of them
-//     (threadIdx.y, RPT rows per thread when Wp exceeds 32); the band's
-//     0/+-1 row shifts between diagonals go through shared memory with one
-//     barrier per diagonal;
-//   warp per lane (S, M, K1, K4, D): the lane's band rows on the threads of
-//     its warp, RPT rows a thread (row k = kk + 32 r on thread kk in M,
-//     k = RPT kk + r in S, K1 and D, `WarpRows`), so a row shift is a warp
-//     shuffle and a diagonal needs no block barrier; the block stages a
-//     tile of diagonals of its lanes in shared memory (cp.async) and
-//     writes its outputs from there, one barrier per tile.
+//   block per 32 lanes (nw_multi and mea_multi only): a block owns LANES
+//     consecutive lanes (threadIdx.x) and all Wp band rows of them
+//     (threadIdx.y), the row shifts through shared memory, one barrier a
+//     diagonal;
+//   warp per lane (every other wavefront kernel): the lane's band rows on
+//     the threads of its warp, RPT rows a thread (row k = kk + 32 r on
+//     thread kk in M, k = RPT kk + r in S, K1, D, K4 and fb_rel.cuh's
+//     kernels, `WarpRows`), so a row shift is a warp shuffle and a
+//     diagonal needs no block barrier; the block stages a tile of
+//     diagonals of its lanes in shared memory (cp.async or TMA) and writes
+//     its outputs from there, one barrier per tile.
 // The code expansions E and R take neither: a thread owns one lane (E) or
 // four (R) and a tile of diagonals (csrc/expand.cu).
 #pragma once
@@ -47,27 +47,6 @@ __device__ __forceinline__ float max_argmax3(float v0, float v1, float v2,
   const int p01 = v1 > v0 ? 1 : 0;
   arg = v2 > m01 ? 2 : p01;
   return fmaxf(m01, v2);
-}
-
-// Per-lane maximum over the five states and all Wp rows of a frontier held
-// as v[r][state] for rows k = ty + r * TY (the forward-backward rescale).
-// shR is a [Wp][L] scratch plane; one barrier.
-template <int RPT>
-__device__ __forceinline__ float band_max(float (&v)[RPT][5], float* shR,
-                                          int Wp, int L, int lane, int ty,
-                                          int TY) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int k = ty + r * TY;
-    if (k >= Wp) continue;
-    const float m = fmaxf(fmaxf(fmaxf(v[r][0], v[r][1]),
-                                fmaxf(v[r][2], v[r][3])), v[r][4]);
-    shR[k * L + lane] = m;
-  }
-  __syncthreads();
-  float m = shR[lane];
-  for (int j = 1; j < Wp; ++j) m = fmaxf(m, shR[j * L + lane]);
-  return m;
 }
 
 inline int rows_per_thread(int Wp) { return (Wp + 31) / 32; }

@@ -163,8 +163,10 @@ _QUERIES: Dict[str, List] = {
     "banded_nw_info": [_I, _I, _P],
     "mea_dl_info": [_I, _I, _P],
     "banded_mea_info": [_I, _I, _P],
-    # backward, Wp, B, out[5] (csrc/fb.cu: K2, K3)
+    # backward, Wp, B, out[5] (csrc/fb.cu: K2, K3; csrc/fb_multi.cu: the
+    # multi-lane pair)
     "fb_rel_info": [_I, _I, _I, _P],
+    "fb_multi_info": [_I, _I, _I, _P],
     # C, B, rg, out[5] or out[2]: groups, window rows (csrc/scatter.cu: X)
     "scatter_lanesum_info": [_I, _I, _I, _P],
     "scatter_lanesum_plan": [_I, _I, _I, _P],

@@ -1,5 +1,5 @@
 """Flat-gap pair-HMM posteriors over multi-problem lanes: the CUDA kernel
-pair fb_multi_forward / fb_multi_backward (csrc/fb.cu) and their plain
+pair fb_multi_forward / fb_multi_backward (csrc/fb_multi.cu) and their plain
 PyTorch versions.
 
 Port of marginalign_trna_tpu/ops/fb_pallas.py `_posteriors_pre_multi`
@@ -36,7 +36,7 @@ arithmetic step for step (the kernels build with -fmad=false).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -138,8 +138,8 @@ def fb_multi_forward_plain(coef: np.ndarray, chain: bool, ematch, valid, s1,
 
 def fb_multi_forward_cuda(coef: np.ndarray, chain: bool, ematch, valid, s1,
                           start, fink):
-    """The fb_multi_forward kernel (csrc/fb.cu); same outputs as the plain
-    version."""
+    """The fb_multi_forward kernel (csrc/fb_multi.cu); same outputs as the
+    plain version."""
     D1, Wp, B = ematch.shape
     dev = ematch.device
     check_tensor(ematch, torch.float32, (D1, Wp, B), dev)
@@ -223,8 +223,8 @@ def fb_multi_backward_plain(coef: np.ndarray, chain: bool, fm, lsf, L,
 
 def fb_multi_backward_cuda(coef: np.ndarray, chain: bool, fm, lsf, L,
                            ematch, valid, s1, fink, find):
-    """The fb_multi_backward kernel (csrc/fb.cu); same output as the plain
-    version."""
+    """The fb_multi_backward kernel (csrc/fb_multi.cu); same output as the
+    plain version."""
     D1, Wp, B = fm.shape
     dev = fm.device
     for t in (fm, ematch):
@@ -243,6 +243,17 @@ def fb_multi_backward_cuda(coef: np.ndarray, chain: bool, fm, lsf, L,
         post.data_ptr(),
     )
     return post
+
+
+def fb_multi_resources(device: torch.device, wp: int, B: int,
+                       backward: bool) -> Dict[str, int]:
+    """What a launch of fb_multi_backward (`backward`) or fb_multi_forward
+    over B lanes at band width `wp` with a gap-chain model gets on `device`
+    (as ops/fb_cuda.py `fb_rel_resources`): registers per thread, shared
+    memory per block, blocks per SM, threads per block, local memory per
+    thread (spills) and the lanes a block."""
+    res = _build.resources("fb_multi_info", device, int(backward), wp, B)
+    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
 
 
 # -------------------------------------------------------------------- entry

@@ -687,9 +687,9 @@ def test_serve_kernels_wide_bands(cuda, width):
                                _batch(width, seed=8))
 
 
-def _multi(cuda, width, seed=7, n=30):
+def _multi(cuda, width, seed=7, n=30, steps=256):
     """A multi-problem batch of n noisy pairs of 20-90 bases (lanes
-    shared), on the card."""
+    shared) in lanes of `steps` diagonals, on the card."""
     rng = np.random.default_rng(seed)
     refs = [rng.integers(0, 4, int(rng.integers(20, 90))).astype(np.int8)
             for _ in range(n)]
@@ -698,7 +698,8 @@ def _multi(cuda, width, seed=7, n=30):
         read = np.delete(r, [len(r) // 2]).copy()
         read[rng.random(len(read)) < 0.1] = int(rng.integers(0, 4))
         reads.append(read)
-    mb = pack_multi_banded_batch(reads, refs, width=width, pad_steps_to=256)
+    mb = pack_multi_banded_batch(reads, refs, width=width,
+                                 pad_steps_to=steps)
     assert len({p.lane for p in mb.problems}) < n
     return mb, multi_device_batch(mb, cuda)
 
@@ -744,6 +745,113 @@ def test_fb_multi_kernels_match_plain(cuda, chain_model):
     post = fb_multi_cuda.fb_multi_backward_cuda(*bargs)
     assert torch.equal(post, fb_multi_cuda.fb_multi_backward_plain(*bargs))
     assert torch.isfinite(post).all()
+
+
+def _multi_tables(cuda, chain_model):
+    """The shipped model, or (chain_model False) its flat-gap variant whose
+    gap states 1 and 2 exchange mass (the generic 5x5 branch)."""
+    hmm = PairHmm.load(MODEL)
+    if not chain_model:
+        T = np.asarray(hmm.transitions, np.float64).copy()
+        T[1, 2] = T[2, 1] = 0.05
+        hmm.transitions = T / T.sum(axis=1, keepdims=True)
+    return tables_from_hmm(hmm, cuda)
+
+
+def _fb_multi_equal(cuda, chain_model, width, B, steps=256, seed=7):
+    """The multi-lane FB pair on `_multi`'s packed lanes of `steps`
+    diagonals at `width`, repeated to B lanes: the forward against its
+    plain version (fm, lsf, term), the backward on the plain forward's
+    outputs and chained on the kernel's own, every output bit for bit, one
+    launch each counted."""
+    tables = _multi_tables(cuda, chain_model)
+    coef, chain = circ_coefficients(tables)
+    assert chain == chain_model
+    _, mdev = _multi(cuda, width, seed=seed, steps=steps)
+
+    def lanes(t):
+        reps = -(-B // t.shape[-1])
+        return t.repeat(*([1] * (t.dim() - 1)), reps)[..., :B].contiguous()
+
+    xb, yb, valid, s1, start, fink, find, sf = (lanes(t) for t in (
+        mdev.xb, mdev.yb, mdev.valid, mdev.s1, mdev.start, mdev.fink,
+        mdev.find, mdev.step_final))
+    em = tables.Ematch[xb.long(), yb.long()] * valid
+    fargs = (coef, chain, em, valid, s1, start, fink)
+    names = ("fb_multi_forward", "fb_multi_backward")
+    before = [_build.launch_counts[k] for k in names]
+    got = fb_multi_cuda.fb_multi_forward_cuda(*fargs)
+    want = fb_multi_cuda.fb_multi_forward_plain(*fargs)
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+    fm, lsf, term = want
+    L = (torch.log(term.clamp(min=1e-30)) + lsf).gather(0, sf.long())
+    bargs = (coef, chain, fm, lsf, L, em, valid, s1, fink, find)
+    post = fb_multi_cuda.fb_multi_backward_cuda(*bargs)
+    torch.cuda.synchronize()
+    assert [_build.launch_counts[k] for k in names] == [n + 1 for n in before]
+    rpost = fb_multi_cuda.fb_multi_backward_plain(*bargs)
+    _same_bits(post, rpost)
+    _same_bits(fb_multi_cuda.fb_multi_backward_cuda(
+        *bargs[:2], got[0], got[1], L, *bargs[5:]), rpost)
+    assert torch.isfinite(post).all() and float(post.max()) > 0.5
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+@pytest.mark.parametrize("B", [61, 62, 63])
+def test_fb_multi_unaligned_lanes(cuda, chain_model, B):
+    """The multi-lane FB pair at lane counts of 1, 2 and 3 modulo 4 (em by
+    cp.async, valid and start byte by byte), over 250 diagonals (a partial
+    tile), on both model branches."""
+    _fb_multi_equal(cuda, chain_model, 21, B, steps=250)
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+@pytest.mark.parametrize("extra", [5, 8])
+def test_fb_multi_full_card(cuda, chain_model, extra):
+    """The multi-lane FB pair past 16 x the SM count lanes (16 lanes a
+    block), by cp.async and by TMA, on both model branches."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B = 16 * sms + extra
+    for backward in (True, False):
+        res = fb_multi_cuda.fb_multi_resources(cuda, 24, B, backward)
+        assert res["lanes_per_block"] == 16, res
+    _fb_multi_equal(cuda, chain_model, 21, B)
+
+
+@pytest.mark.parametrize("chain_model", [True, False])
+@pytest.mark.parametrize("width", [45, 93, 126])
+def test_fb_multi_wide_bands(cuda, chain_model, width):
+    """The multi-lane FB pair at Wp 48, 96 and 128 (two to four rows a
+    thread; TMA at Wp 48, cp.async above), on both model branches."""
+    _fb_multi_equal(cuda, chain_model, width, 64)
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_fb_multi_resources(cuda, wp):
+    """fb_multi_forward and fb_multi_backward serve every Wp <= 128 at 8
+    lanes a block and at 16 where csrc/fb_rel.cuh `rel_lanes` takes them (the
+    forward up to two rows a thread, the backward at one), at least one
+    block an SM, no spill and no stack up to two rows a thread.  The multi
+    paths' 1024-diagonal lanes take 8 lanes a block at 1024 lanes, 16 at
+    4096 and 8192."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for backward in (True, False):
+        for lanes in (8, 16):
+            res = fb_multi_cuda.fb_multi_resources(cuda, wp, lanes * sms,
+                                                   backward)
+            if res["lanes_per_block"] < lanes:
+                continue    # 16 lanes do not fit at this Wp
+            assert res["lanes_per_block"] == lanes, res
+            assert res["threads_per_block"] == 32 * lanes
+            assert res["blocks_per_sm"] >= 1, res
+            assert res["registers"] <= 65536 // (32 * lanes), res
+            assert 0 < res["smem_per_block"] <= 232448, res
+            if wp <= 64:
+                assert res["local_bytes"] == 0, res
+        for B, lanes in ((1024, 8), (4096, 16), (8192, 16)):
+            res = fb_multi_cuda.fb_multi_resources(cuda, 24, B, backward)
+            assert res["lanes_per_block"] == lanes, (B, res)
 
 
 def test_mea_multi_kernel_matches_plain(cuda):

@@ -58,7 +58,7 @@ MODEL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
 
 
 def rel_kt(rpt):
-    """csrc/fb.cu `rel_kt`: diagonals a tile."""
+    """csrc/fb_rel.cuh `rel_kt`: diagonals a tile."""
     return 16 if rpt == 1 else 8
 
 
@@ -315,7 +315,7 @@ def assert_plain(args, lpb, tma):
          "8-48-tma", "16-48-cp_async", "8-96-cp_async", "8-128-cp_async"])
 def test_rel_tiles_match_plain_random(lpb, wp, tma):
     """One to four rows a thread (tiles of 16, 8, 8 and 8 diagonals; TMA
-    at up to two rows a thread, 16 lanes a block too, as csrc/fb.cu
+    at up to two rows a thread, 16 lanes a block too, as csrc/fb_rel.cuh
     `rel_tma` and `rel_lanes` take them), 19 lanes (a partial block), 37
     diagonals (a partial tile at either end)."""
     assert_plain(random_inputs(37, wp, 19, seed=wp + lpb), lpb, tma)
