@@ -7,9 +7,10 @@ CUDA card.  Run from the repository root:
 Phases (any failure exits non-zero without the final result line):
   1. build    nvcc compiles the port's kernels (csrc/*.cu) for sm_90a;
               ptxas must report no spill in a counts or generic kernel,
-              none in K2, K3, K4, the multi-lane FB pair or the
-              warp-per-lane serving kernels, and no stack frame in these
-              up to two rows a thread nor in X.
+              none in K1, K2, K3, K4, nw_multi, mea_multi, the multi-lane
+              FB pair or the warp-per-lane serving kernels, and no stack
+              frame in these up to two rows a thread (nw_multi up to Wp
+              48) nor in X.
   2. tiny     each of the thirty-four kernels against its plain PyTorch
               version on the card at a tiny shape, so a broken kernel fails
               before the long runs; the eight serving kernels
@@ -1179,7 +1180,7 @@ def compare_exact(name, args, reps):
     """A serving or multi-lane kernel against its plain version on `args`:
     every output bit-equal; the kernel timed as time_ms times it, the plain
     version on its comparison call (timed_once); the eight serving kernels
-    with their resources."""
+    and the multi-lane ones with their resources."""
     import torch
 
     module = importlib.import_module(
@@ -1208,6 +1209,9 @@ def compare_exact(name, args, reps):
     elif name in FB_MULTI:
         out["resources"] = module.fb_multi_resources(
             got[0].device, Wp, B, name == "fb_multi_backward")
+    elif name in ("nw_multi", "mea_multi"):
+        out["resources"] = module.warp_lane_resources(name, got[0].device,
+                                                      Wp, B)
     return out
 
 
@@ -3515,16 +3519,22 @@ def ptxas_spills(build_log):
     return out
 
 
-# The kernels redesigned last, by the start of their mangled names: K4's
-# mea_warp_kernel, K2 / K3's rel_backward_kernel / rel_forward_kernel, the
-# multi-lane FB pair's multi_forward_kernel / multi_backward_kernel and
-# the serving kernels' serve_backward_kernel / serve_post_kernel at one and
-# two rows a thread (Wp <= 64) and X's window and reduce kernels must
-# compile with no stack frame and no spill; K4, K2, K3, the multi-lane
-# pair and the serving kernels at three and four rows a thread (Wp > 64,
-# on no path) with no spill (mk::WarpRows keeps its edge row on a stack
-# there, as in K1 and D).
+# The kernels redesigned last, by the start of their mangled names: K1's
+# and K4's nw_kernel and mea_warp_kernel (nw_multi's and mea_multi's
+# instances too; nw_multi's at three rows of a half or a quarter of a
+# warp, Wp 48 and 24, by `Lb1ELi16E` / `Lb1ELi8E`: MULTI, 16 or 8 threads
+# a lane), K2 / K3's rel_backward_kernel /
+# rel_forward_kernel, the multi-lane FB pair's multi_forward_kernel /
+# multi_backward_kernel and the serving kernels' serve_backward_kernel /
+# serve_post_kernel at one and two rows a thread (Wp <= 64) and X's window
+# and reduce kernels must compile with no stack frame and no spill; those
+# kernels at three and four rows a thread (Wp > 64, on no path but the tiny
+# checks) with no spill (mk::WarpRows keeps its edge row on a stack there
+# but in the multi instances, which select it by PTX).
 FRAMELESS = ("mea_warp_kernelILi1", "mea_warp_kernelILi2",
+             "nw_kernelILi1", "nw_kernelILi2",
+             "nw_kernelILi3ELi16ELb1ELi16E", "nw_kernelILi3ELi32ELb1ELi16E",
+             "nw_kernelILi3ELi32ELb1ELi8E", "nw_kernelILi3ELi64ELb1ELi8E",
              "rel_backward_kernelILi1", "rel_backward_kernelILi2",
              "rel_forward_kernelILi1", "rel_forward_kernelILi2",
              "multi_forward_kernelILi1", "multi_forward_kernelILi2",
@@ -3532,7 +3542,8 @@ FRAMELESS = ("mea_warp_kernelILi1", "mea_warp_kernelILi2",
              "serve_backward_kernelILi1", "serve_backward_kernelILi2",
              "serve_post_kernelILi1", "serve_post_kernelILi2",
              "lanesum_window_kernel", "lanesum_reduce_kernel")
-SPILL_FREE = ("mea_warp_kernel", "rel_backward_kernel", "rel_forward_kernel",
+SPILL_FREE = ("mea_warp_kernel", "nw_kernel", "rel_backward_kernel",
+              "rel_forward_kernel",
               "multi_forward_kernel", "multi_backward_kernel",
               "serve_backward_kernel", "serve_post_kernel")
 

@@ -4,12 +4,26 @@ the port, on the same inputs, in one process on one CUDA card.
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 kernel_ab.py build/parent [group ...]
 
-Groups (fused, wavefront, counts, scatter, rel, serve and multi when none
-is named):
-  multi  the multi-lane FB pair fb_multi_forward and fb_multi_backward
-         (row 10) on the multi batch [1024, 24, 4096] (tRNA-scale
-         problems several to a 1024-diagonal lane, the shipped model: the
-         gap-chain branch), on its lanes twice [1024, 24, 8192] (the
+Groups (fused, wavefront, counts, scatter, rel, serve, multi and fb_multi
+when none is named):
+  multi  nw_multi and mea_multi (rows 5 and 7), the multi instances of K1's
+         and K4's one-warp-per-lane kernels, on the multi batch (tRNA-scale
+         problems several to a 1024-diagonal lane, 4096 lanes): nw_multi at
+         the guide's width 40 [1024, 48, 4096] and at widths 21, 93, 126
+         (Wp 24, 96, 128), mea_multi with random weights at width 21
+         [1024, 24, 4096] and at widths 40, 93, 126 (Wp 48, 96, 128), and
+         both on the batch's lanes repeated to 4101 ("_odd": no multiple of
+         8, 16 or 4, so mea_multi copies its weights by cp.async): pointers
+         and term bit for bit against the plain versions and the other
+         checkout, times, bounds and resources (`warp_lane_resources`).
+         Must not move (bit-equal to the other checkout, both timed): K1 on
+         the guide batch [7168, 48, 1024], K4 on the generic batch [3072,
+         24, 1024] and on its lanes repeated to 4096, the multi-lane FB
+         pair (row 10) on the multi batch [1024, 24, 4096].
+  fb_multi
+         the multi-lane FB pair fb_multi_forward and fb_multi_backward
+         (row 10) on the multi batch [1024, 24, 4096] (the shipped model:
+         the gap-chain branch), on its lanes twice [1024, 24, 8192] (the
          call_multi launch's size), on the multi batch with the flat-gap
          model whose gap states 1 and 2 exchange mass (the generic
          branch) and on the multi batch packed at widths 45, 93 and 126
@@ -18,8 +32,7 @@ is named):
          term and post bit for bit against the plain versions and the
          other checkout, times, bounds and resources (`fb_multi_resources`).
          Must not move (bit-equal to the other checkout, both timed): K2
-         and K3 on the REL batch [3072, 24, 1024], nw_multi and mea_multi
-         as the wavefront group takes them.
+         and K3 on the REL batch [3072, 24, 1024].
   serve  the eight serving kernels of the circular serving route
          (serve=<mode>): the backwards circ_backward_emv, _codes and
          _codes_es, the posterior forwards circ_post_es, _emv and _codes
@@ -65,16 +78,17 @@ is named):
          with weights from the REL FB pair's posteriors (ops/mea.py
          `mea_weights`), on the bucket's closed-form weight bands
          [3072, 24, 4096] and on their first 1024 lanes at Wp 48, 96 and
-         128.  Must not move (bit-equal to the other checkout, both
-         timed): nw_multi on a multi batch at width 40 [1024, 48, 4096],
-         mea_multi on random weights over the width-21 multi batch.
+         128.
   scatter
          X (scatter_lanesum) on the caller batch's flush streams
          [4, 152, 65536] with random values and the lanes' reference
-         offsets drawn over rg 7168 and over rg 65536: the largest
-         difference from the plain version and from the other checkout
-         (absolute and relative), whether two launches are bit-identical,
-         times, bound, resources and index_add_'s time.  Must not move: L
+         offsets drawn over rg 7168 and over rg 65536, and at the card
+         test's one-row case (rg 1, [4, 41, 9000]: ~2.5e5 values in one
+         row): the largest difference from the plain version and from the
+         other checkout (absolute and relative) and of each (and of the
+         other checkout's plain version) from a float64 sum, whether two
+         launches are bit-identical, times, bound, resources and
+         index_add_'s time.  Must not move: L
          (scatter_lanes) on the counts group's flush stream.
   fused  S (sv_backward), R (expand_rel), M (mw_forward), E
          (expand_streams) and C (cx_forward), and the kernels beside them
@@ -163,6 +177,12 @@ is named):
          after the first two), with tiles of 8 diagonals at one row a
          thread, with three stage buffers, with at most 64 registers,
          without TMA, on the rel group's REL and tRNA cells.
+  probe_wavefront_multi (named on the command line only): nw_multi with
+         8 warps' worth of lanes a block whatever B and with three stage
+         buffers; mea_multi at 16 lanes a block whatever B and without
+         TMA; both with one part removed (outputs wrong by design: no
+         device memory after the first tiles); on the multi group's
+         nw_multi and mea_multi cells.
   probe_multi (named on the command line only): the multi-lane FB pair
          at 8 lanes a block whatever B or at 16 wherever `rel_lanes`
          allows them, without TMA, and with one part removed (outputs
@@ -191,8 +211,8 @@ is named):
          no decode after the first two), on the wavefront group's generic
          and em_band cells and the generic cell's lanes repeated to 4096;
          X with 1 or 8 cells a thread a step, with twice the lane groups,
-         with scalar atomics past its window, with one part removed (plain adds for its
-         window's atomics, no value loads), on the scatter group's cells.
+         with one part removed (plain adds for its window's atomics, no
+         value loads), on the scatter group's cells.
 
 The other checkout's package is imported under another name and builds its
 own kernels beside its sources.  A time is the CUDA-event mean over REPS
@@ -240,6 +260,9 @@ GUIDE_STEPS, GUIDE_LANES = 7168, 1024
 TRNA_STEPS, TRNA_LANES = 256, 16384
 # M's wider bands: band width -> Wp.
 M_WIDE = {45: 48, 93: 96, 126: 128}
+# X's launches a cell compared with the plain version (the card test's
+# repeat count).
+LANESUM_RUNS = 20
 
 
 def load_port(root, alias):
@@ -944,8 +967,8 @@ def ab_multi(fm, ofm, fargs, streams, cuda):
             "resources": fm.fb_multi_resources(cuda, wp, B, True)}}
 
 
-def run_multi(this, other, cuda, report):
-    """Fills `report` with the multi group's rows."""
+def run_fb_multi(this, other, cuda, report):
+    """Fills `report` with the fb_multi group's rows."""
     import torch
 
     fm, ofm = (sub(p, "ops.fb_multi_cuda") for p in (this, other))
@@ -960,7 +983,7 @@ def run_multi(this, other, cuda, report):
         torch.cuda.empty_cache()
 
     # Must not move: K2 and K3 on the REL batch (K3 on the plain K2's
-    # outputs), nw_multi and mea_multi on the multi batch.
+    # outputs).
     fc, ofc = (sub(p, "ops.fb_cuda") for p in (this, other))
     for name, bargs in rel_cells(this, cuda, ("rel",)):
         report["multi_unmoved_fb_backward"] = unmoved(
@@ -972,11 +995,109 @@ def run_multi(this, other, cuda, report):
         show("multi_unmoved_fb_forward")
         del bargs, fargs
         torch.cuda.empty_cache()
+
+
+def wave_multi_cells(port, cuda):
+    """(cell, kernel, arguments) one cell at a time: nw_multi on the multi
+    batch at the guide's width 40 [1024, 48, 4096] ("nw_multi") and at
+    widths 21, 93, 126 ("nw_multi_wp24" ...), mea_multi with random
+    weights (wdiag in [0, 1), wup and wleft in [0, 0.5)) at width 21
+    [1024, 24, 4096] ("mea_multi") and at widths 40, 93, 126; both on the
+    batch's lanes repeated to 4101 ("nw_multi_odd" at width 40,
+    "mea_multi_odd" at width 21)."""
+    import torch
+
+    fb, band = sub(port, "ops.fb"), sub(port, "ops.band")
+    params = tuple(sub(port, "ops.nw").NwParams())
+    gen = torch.Generator(device=cuda).manual_seed(6)
+
+    def odd(t):
+        return torch.cat([t, t[..., :5]], dim=-1).contiguous()
+
+    for width in (40, 21, 93, 126):
+        wp = band.padded_band_width(width)
+        mdev = fb.multi_device_batch(multi_batch(band, width=width), cuda)
+        streams = (mdev.valid, mdev.s1, mdev.s2, mdev.start, mdev.fink,
+                   mdev.find)
+        nw = (params, mdev.xb, mdev.yb, *streams)
+        weights = tuple(
+            torch.rand(tuple(mdev.xb.shape), device=cuda, generator=gen) * c
+            for c in (1.0, 0.5, 0.5))
+        mea = (*weights, *streams)
+        yield ("nw_multi" if width == 40 else "nw_multi_wp%d" % wp,
+               "nw_multi", nw)
+        if width == 40:
+            yield "nw_multi_odd", "nw_multi", (params, *map(odd, nw[1:]))
+        yield ("mea_multi" if width == 21 else "mea_multi_wp%d" % wp,
+               "mea_multi", mea)
+        if width == 21:
+            yield "mea_multi_odd", "mea_multi", tuple(map(odd, mea))
+        del mdev, streams, nw, weights, mea
+        torch.cuda.empty_cache()
+
+
+def ab_wave_multi(wf, owf, name, args, cuda):
+    """nw_multi or mea_multi (`name`) of both checkouts against the plain
+    version: pointers and term bit for bit, largest differences, timed,
+    with bound and resources."""
+    kernel, other = getattr(wf, name + "_cuda"), getattr(owf, name + "_cuda")
+    got = kernel(*args)
+    plain = getattr(wf, name + "_plain")(*args)
+    ref = other(*args)
+    D1, wp, B = got[0].shape
+    return {
+        "shape": [D1, wp, B],
+        "max_abs_err_plain": max_diff(got, plain),
+        "max_abs_err_other": max_diff(got, ref),
+        "bit_equal_plain": all_equal(got, plain),
+        "bit_equal_other": all_equal(got, ref),
+        **ab(lambda: kernel(*args), lambda: other(*args)),
+        **bound(name, got[0].numel(), nbytes(*args, *got)),
+        "resources": wf.warp_lane_resources(name, cuda, wp, B)}
+
+
+def run_multi(this, other, cuda, report):
+    """Fills `report` with the multi group's rows."""
+    import torch
+
     wf, owf = (sub(p, "ops.wavefront_cuda") for p in (this, other))
-    for name, args in multi_wave_args(this, cuda).items():
-        report["multi_unmoved_" + name] = unmoved(
-            getattr(wf, name + "_cuda"), getattr(owf, name + "_cuda"), args)
-        show("multi_unmoved_" + name)
+
+    def show(name):
+        print(json.dumps({name: report[name]}), flush=True)
+
+    for cell, name, args in wave_multi_cells(this, cuda):
+        report["multi_" + cell] = ab_wave_multi(wf, owf, name, args, cuda)
+        show("multi_" + cell)
+        del args
+        torch.cuda.empty_cache()
+
+    # Must not move: K1 on the guide batch, K4 on the generic batch and on
+    # its lanes repeated to 4096, the multi-lane FB pair on the multi batch
+    # (the backward on this checkout's forward outputs).
+    _, _, guide = fused_pairs()
+    report["multi_unmoved_banded_nw"] = unmoved(
+        wf.banded_nw_cuda, owf.banded_nw_cuda,
+        guide_nw_args(this, guide, 40, cuda))
+    show("multi_unmoved_banded_nw")
+    k4 = mea_cells(this, cuda, ("banded_mea",))["banded_mea"]
+    for cell, args in (("banded_mea", k4), ("banded_mea_x4", tuple(
+            t.repeat(*([1] * (t.dim() - 1)), 4).contiguous() for t in k4))):
+        report["multi_unmoved_" + cell] = unmoved(
+            wf.banded_mea_cuda, owf.banded_mea_cuda, args)
+        show("multi_unmoved_" + cell)
+    del k4
+    torch.cuda.empty_cache()
+    fm, ofm = (sub(p, "ops.fb_multi_cuda") for p in (this, other))
+    for _, fargs, streams in multi_cells(this, cuda, ("multi",)):
+        report["multi_unmoved_fb_multi_forward"] = unmoved(
+            fm.fb_multi_forward_cuda, ofm.fb_multi_forward_cuda, fargs)
+        show("multi_unmoved_fb_multi_forward")
+        bargs = multi_bargs(fargs, fm.fb_multi_forward_cuda(*fargs), streams)
+        report["multi_unmoved_fb_multi_backward"] = unmoved(
+            fm.fb_multi_backward_cuda, ofm.fb_multi_backward_cuda, bargs)
+        show("multi_unmoved_fb_multi_backward")
+        del fargs, streams, bargs
+        torch.cuda.empty_cache()
 
 
 SERVE_KERNELS = ("circ_backward_emv", "circ_backward_codes",
@@ -1169,6 +1290,18 @@ def lanesum_cells(port, cuda):
                                            CALLER_STEPS)
         vals, jm = ex.concat_flush_tails(fl, tails, jmap, jtail)
         cells[name] = (vals.contiguous(), jm.contiguous(), rg)
+    # tests/test_torch_cuda.py's one-row case (test_scatter_lanesum_windows
+    # at rg 1, 9000 lanes): ~2.5e5 values of [0, 1) in one output row.
+    rng = np.random.default_rng(1 + 9000)
+    vals = rng.random((4, 41, 9000)).astype(np.float32)
+    vals[rng.random(vals.shape) < 0.1] = 0
+    jm = rng.integers(0, 1, (41, 9000))
+    u = rng.random((41, 9000))
+    jm[u < 0.3] = -1
+    jm[u > 0.97] = 1 + rng.integers(0, 9, int((u > 0.97).sum()))
+    cells["scatter_lanesum_rg1"] = (torch.from_numpy(vals).to(cuda),
+                                    torch.from_numpy(jm.astype(np.int32))
+                                    .to(cuda), 1)
     return cells
 
 
@@ -1192,8 +1325,37 @@ def ab_lanesum(tb, ob, vals, jm, rg, cuda):
     def rel(a, b):
         return ((a - b).abs() / b.abs().clamp(min=1e-6)).max().item()
 
+    # A float64 sum, and how far each side's sums and the other checkout's
+    # lie from it; whether X is within the card test's bound of its plain
+    # version over RUNS launches (both checkouts, each with its own plain
+    # version), and whether this X's RUNS launches are identical.
+    exact = torch.zeros((rg + 1, C), dtype=torch.float64, device=cuda)
+    exact.index_add_(0, tgt, src.double())
+    exact = exact[:rg]
+    oplain = ob.scatter_lanesum_plain(vals, jm, rg)
+
+    def f64(a):
+        """The largest difference from the float64 sum, absolute and as a
+        share of the card test's bound (atol 1e-4, rtol 1e-5) there."""
+        d = (a.double() - exact).abs()
+        return [d.max().item(),
+                (d / (1e-4 + 1e-5 * exact.abs())).max().item()]
+
+    runs, oruns, same = 0, 0, True
+    for _ in range(LANESUM_RUNS):
+        x, ox = tb.scatter_lanesum_cuda(vals, jm, rg), \
+            ob.scatter_lanesum_cuda(vals, jm, rg)
+        runs += bool(torch.allclose(x, plain, rtol=1e-5, atol=1e-4))
+        oruns += bool(torch.allclose(ox, oplain, rtol=1e-5, atol=1e-4))
+        same = same and bool(torch.equal(x, got))
     return {
         "shape": list(vals.shape), "rg": rg, "target_cells": n_hit,
+        "f64_max_abs_err": f64(got), "other_f64_max_abs_err": f64(ref),
+        "plain_f64_max_abs_err": f64(plain),
+        "other_plain_f64_max_abs_err": f64(oplain),
+        "within_plain_runs": [runs, LANESUM_RUNS],
+        "other_within_plain_runs": [oruns, LANESUM_RUNS],
+        "runs_identical": same,
         "max_abs_err_plain": (got - plain).abs().max().item(),
         "max_rel_err_plain": rel(got, plain),
         "within_plain": bool(torch.allclose(got, plain, rtol=1e-5,
@@ -1308,32 +1470,6 @@ def run_wavefront(this, other, cuda, report):
         del kargs
         torch.cuda.empty_cache()
 
-    # The multi-problem lanes' kernels.
-    for name, args in multi_wave_args(this, cuda).items():
-        report[name] = unmoved(getattr(wf, name + "_cuda"),
-                               getattr(owf, name + "_cuda"), args)
-        show(name)
-
-
-def multi_wave_args(port, cuda):
-    """{kernel: arguments} of nw_multi on the multi batch at the guide's
-    width 40 [1024, 48, 4096] and of mea_multi on random weights over the
-    width-21 multi batch."""
-    import torch
-
-    fb, band = sub(port, "ops.fb"), sub(port, "ops.band")
-    params = tuple(sub(port, "ops.nw").NwParams())
-    mdev = fb.multi_device_batch(multi_batch(band, width=40), cuda)
-    out = {"nw_multi": (params, mdev.xb, mdev.yb, mdev.valid, mdev.s1,
-                        mdev.s2, mdev.start, mdev.fink, mdev.find)}
-    mdev = fb.multi_device_batch(multi_batch(band), cuda)
-    gen = torch.Generator(device=cuda).manual_seed(6)
-    shape = tuple(mdev.xb.shape)
-    weights = [torch.rand(shape, device=cuda, generator=gen) * scale
-               for scale in (1.0, 0.5, 0.5)]
-    out["mea_multi"] = (*weights, mdev.valid, mdev.s1, mdev.s2, mdev.start,
-                        mdev.fink, mdev.find)
-    return out
 
 
 def probe_port(name, source, edits):
@@ -1469,6 +1605,11 @@ def probe_cases(this, cuda, kernels):
             for t in cases["banded_mea"]["banded_mea"])
     if "scatter_lanesum" in kernels:
         cases["scatter_lanesum"] = lanesum_cells(this, cuda)
+    if {"nw_multi", "mea_multi"} & set(kernels):
+        cases["nw_multi"], cases["mea_multi"] = {}, {}
+        for cell, name, args in wave_multi_cells(this, cuda):
+            if cell in ("nw_multi", "mea_multi", "mea_multi_odd"):
+                cases[name][cell] = args
     if set(SERVE_KERNELS + CKPT_KERNELS) & set(kernels):
         table = ematch
         for name in SERVE_KERNELS + CKPT_KERNELS:
@@ -1691,9 +1832,9 @@ GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
           "probe_counts", "probe_cx", "probe_generic", "probe_stored",
           "probe_mea", "probe_scatter", "probe_rel", "counts", "scatter",
           "rel", "serve", "probe_serve", "probe_ckpt", "multi",
-          "probe_multi")
+          "probe_multi", "fb_multi", "probe_wavefront_multi")
 DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter", "rel", "serve",
-                  "multi")
+                  "multi", "fb_multi")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "fb_backward": "ops.fb_cuda",
@@ -1714,6 +1855,8 @@ KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "expand_rel": "ops.fb_circ_cuda",
                   "banded_nw": "ops.wavefront_cuda",
                   "banded_mea": "ops.wavefront_cuda",
+                  "nw_multi": "ops.wavefront_cuda",
+                  "mea_multi": "ops.wavefront_cuda",
                   "scatter_lanesum": "ops.bucket_scatter",
                   **{name: "ops.fb_circ_cuda"
                      for name in SERVE_KERNELS + CKPT_KERNELS},
@@ -1760,7 +1903,7 @@ _M_PARTS = {
 # K1 and D: probe tag -> (kernel, source, its pipeline depth constant and
 # the depth it ships with).
 _WAVE = {"nw": ("banded_nw", "nw.cu", "NW_STAGES", 2,
-                "    if (t < tiles)\n      nw_stage<LPB>", None),
+                "    if (t < tiles)\n      nw_stage<LPB, MULTI, NT>", None),
          "dl": ("mea_dl", "mea.cu", "DL_STAGES", 2,
                 "    if (t < tiles) {\n      dl_stage_post<LPB>",
                 "    if (regular) {")}
@@ -1794,17 +1937,18 @@ def _wave_parts(source, stages, default, staging, unrolled):
              "    mk::cp_async_wait_but<%s - 2>();\n    if (t < 2) "
              "__syncthreads();" % stages)]),
         "no_shift": ("common.cuh", [
-            ("  __device__ void roll(const T (&v)[RPT], T (&out)[RPT], int t) "
+            ("  __device__ void roll(const V (&v)[RPT], V (&out)[RPT], int t) "
              "const {\n",
-             "  __device__ void roll(const T (&v)[RPT], T (&out)[RPT], int t) "
+             "  __device__ void roll(const V (&v)[RPT], V (&out)[RPT], int t) "
              "const {\n    for (int r = 0; r < RPT; ++r) out[r] = v[r];\n"
              "    if (RPT > 0) return;\n")]),
     }
 
 
-_NW_LANES_CASE = "    case 8: *kernel = nw_kernel_rpt<8>(Wp); break;"
-_NW_LANES_AT = ("      mk::warp_lanes(B, [Wp](int l) { return nw_smem(Wp, l); "
-                "}, lanes);")
+_MEA_LANES_AT = "  cudaError_t err = mea_lanes(Wp, B, tma, multi, lanes);"
+_NW_LANES_CASE = "    case 8: return nw_kernel_rpt<8 * L, MULTI, T>(rpt);"
+_NW_LANES_AT = ("mk::warp_lanes(\n        B, [Wp, multi](int l) { return "
+                "nw_smem(Wp, l, multi); }, lanes);")
 PROBES = {
     **{name: ("mw_forward", "fb_circ.cu", edits)
        for name, edits in _M_PARTS.items()},
@@ -1815,9 +1959,9 @@ PROBES = {
                  "  const int wmax = 0;")]),
     # K1 with n lanes a block whatever B (4 with an instance of its own).
     **{"nw_lanes_%d" % n: ("banded_nw", "nw.cu", [
-        (_NW_LANES_AT, "      (*lanes = %d, cudaSuccess);" % n)] + ([
-        (_NW_LANES_CASE, "    case 4: *kernel = nw_kernel_rpt<4>(Wp); "
-         "break;\n" + _NW_LANES_CASE)] if n == 4 else []))
+        (_NW_LANES_AT, "(*lanes = %d, cudaSuccess);" % n)] + ([
+        (_NW_LANES_CASE, "    case 4: return nw_kernel_rpt<4 * L, MULTI, T>"
+         "(rpt);\n" + _NW_LANES_CASE)] if n == 4 else []))
        for n in (4, 8, 16)},
     # D with both gap-weight windows loaded from the sums at every
     # diagonal (2 Wp scattered loads a lane-diagonal), no delay line.
@@ -1884,9 +2028,10 @@ PROBES = {
          "                  const uint32_t (&X)[4]) {\n"
          "    if ((Y[0] ^ X[1]) != 0x5a5a5a5au) return;\n")]),
     # K4 with n lanes a block whatever B (32: one row a thread only), with
-    # three or four stage buffers.
+    # three or four stage buffers.  (Each also varies mea_multi, K4's
+    # kernel with the MULTI flag.)
     **{"mea_lanes_%d" % n: ("banded_mea", "mea.cu", [
-        ("  cudaError_t err = mea_lanes(Wp, B, tma, lanes);",
+        (_MEA_LANES_AT,
          "  cudaError_t err = (*lanes = %d, cudaSuccess);" % n)])
        for n in (8, 16, 32)},
     # K4 staging its weight tiles by cp.async whatever B (no TMA).
@@ -1900,8 +2045,9 @@ PROBES = {
     # after the first tiles (later tiles compute on the stage buffers as
     # they are, no pointers leave), no decode after the first two tiles.
     "mea_no_global": ("banded_mea", "mea.cu", [
-        ("    if (t < tiles)\n      mea_stage<LPB, KT, TMA>",
-         "    if (t < min(tiles, MEA_STAGES))\n      mea_stage<LPB, KT, TMA>"),
+        ("    if (t < tiles)\n      mea_stage<LPB, KT, TMA, MULTI, NT>",
+         "    if (t < min(tiles, MEA_STAGES))\n"
+         "      mea_stage<LPB, KT, TMA, MULTI, NT>"),
         ("    if (t > 0) flush(t - 1);\n    stage(t + MEA_STAGES - 1);",
          "    if (t > 0 && t < 3) flush(t - 1);\n    stage(t + MEA_STAGES - 1);"),
         # (and no wait for TMA boxes that are never asked for)
@@ -1909,9 +2055,9 @@ PROBES = {
          "    mk::cp_async_wait_but<MEA_STAGES - 2>();\n"
          "    if (TMA && t < MEA_STAGES) mk::")]),
     "mea_no_compute": ("banded_mea", "mea.cu", [
-        ("    if (live) lane.tile(in(t), out(t), w, t * KT, min(KT, D1 - t * KT));",
-         "    if (live && t < 2)\n      lane.tile(in(t), out(t), w, t * KT, "
-         "min(KT, D1 - t * KT));")]),
+        ("    if (live)\n      lane.tile(in(t), out(t), rec(t), w, t * KT,",
+         "    if (live && t < 2)\n      lane.tile(in(t), out(t), rec(t), w, "
+         "t * KT,")]),
     # X taking 1 or 8 cells a thread a step, with twice the lane groups
     # (two blocks an SM's worth), with scalar atomics past the window in
     # place of 16-byte ones.
@@ -1921,17 +2067,12 @@ PROBES = {
     "x_groups_2": ("scatter_lanesum", "scatter.cu", [
         ("((B - 1) >> p->shift) + 1 > sms)",
          "((B - 1) >> p->shift) + 1 > 2 * sms)")]),
-    "x_scalar_past": ("scatter_lanesum", "scatter.cu", [
-        ("#if __CUDACC_VER_MAJOR__ > 12 || \\", "#if 0 && \\")]),
     # X with one part removed (outputs wrong by design): plain adds in
-    # place of the window's compare-and-swap loops; no value loads (1
-    # added).
+    # place of the window's integer atomics; no value loads (1 added).
     "x_no_atomic": ("scatter_lanesum", "scatter.cu", [
-        ("  if (v.x != 0.f) atomicAdd(row, v.x);\n"
-         "  if (v.y != 0.f) atomicAdd(row + 1, v.y);\n"
-         "  if (v.z != 0.f) atomicAdd(row + 2, v.z);\n"
-         "  if (v.w != 0.f) atomicAdd(row + 3, v.w);",
-         "  row[0] += v.x, row[1] += v.y, row[2] += v.z, row[3] += v.w;")]),
+        ("  const uint32_t old = atomicAdd(lo + i, ql);",
+         "  const uint32_t old = lo[i];\n  lo[i] = old + ql;"),
+        ("  if (h != 0) atomicAdd(hi + i, h);", "  if (h != 0) hi[i] += h;")]),
     "x_no_vals": ("scatter_lanesum", "scatter.cu", [
         ("        x[u] = hit ? make_float4(v[0], v[cells], v[2 * cells], "
          "v[3 * cells])",
@@ -2390,6 +2531,26 @@ PROBES.update({
 })
 
 
+# probe_wavefront_multi's variants of nw_multi and mea_multi (K1's and K4's
+# kernels with the MULTI flag): nw_multi with 8 warps' worth of lanes a
+# block whatever B, with three stage buffers; mea_multi at 16 lanes a
+# block whatever B, without TMA; both with one part removed (outputs wrong
+# by design: no device memory after the first tiles).
+_NW_NO_GLOBAL = _wave_parts(*_WAVE["nw"][1:])["no_global"][1]
+PROBES.update({
+    "wm_nw_narrow": ("nw_multi", "nw.cu", [
+        ("                     mk::fills(B, 16 * per, sms)",
+         "                     false")]),
+    "wm_nw_stages_3": ("nw_multi", "nw.cu", [
+        ("constexpr int NW_STAGES = 2;", "constexpr int NW_STAGES = 3;")]),
+    "wm_mea_lanes_16": ("mea_multi", "mea.cu", [
+        (_MEA_LANES_AT, "  cudaError_t err = (*lanes = 16, cudaSuccess);")]),
+    "wm_mea_no_tma": ("mea_multi", "mea.cu", PROBES["mea_no_tma"][2]),
+    "wm_nw_no_global": ("nw_multi", "nw.cu", _NW_NO_GLOBAL),
+    "wm_mea_no_global": ("mea_multi", "mea.cu", PROBES["mea_no_global"][2]),
+})
+
+
 def main(argv):
     import torch
 
@@ -2607,8 +2768,10 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_scatter": lambda *a: run_probe(
             *a, kernels=("scatter_lanesum",)),
         "probe_multi": lambda *a: run_probe(*a, kernels=_MULTI),
+        "probe_wavefront_multi": lambda *a: run_probe(
+            *a, kernels=("nw_multi", "mea_multi")),
         "counts": run_counts, "scatter": run_scatter, "rel": run_rel,
-        "serve": run_serve, "multi": run_multi}
+        "serve": run_serve, "multi": run_multi, "fb_multi": run_fb_multi}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

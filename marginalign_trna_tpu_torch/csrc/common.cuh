@@ -1,18 +1,18 @@
 // Shared layout helpers for the banded anti-diagonal wavefront kernels.
 //
 // Every band array is C-contiguous [D1, Wp, B]: anti-diagonal d, band row k,
-// lane (read) b, exactly the JAX package's layout.  Two layouts of a block:
-//   block per 32 lanes (nw_multi and mea_multi only): a block owns LANES
-//     consecutive lanes (threadIdx.x) and all Wp band rows of them
-//     (threadIdx.y), the row shifts through shared memory, one barrier a
-//     diagonal;
-//   warp per lane (every other wavefront kernel): the lane's band rows on
-//     the threads of its warp, RPT rows a thread (row k = kk + 32 r on
-//     thread kk in M, k = RPT kk + r in S, K1, D, K4 and fb_rel.cuh's
-//     kernels, `WarpRows`), so a row shift is a warp shuffle and a
-//     diagonal needs no block barrier; the block stages a tile of
-//     diagonals of its lanes in shared memory (cp.async or TMA) and writes
-//     its outputs from there, one barrier per tile.
+// lane (read) b, exactly the JAX package's layout.  Every wavefront kernel
+// runs one warp per lane: the lane's band rows on the threads of its warp,
+// RPT rows a thread (row k = kk + 32 r on thread kk in M, k = RPT kk + r in
+// S, K1, D, K4 and fb_rel.cuh's kernels, `WarpRows`), so a row shift is a
+// warp shuffle and a diagonal needs no block barrier; the block stages a
+// tile of diagonals of its lanes in shared memory (cp.async or TMA) and
+// writes its outputs from there, one barrier per tile.  Over lanes that
+// hold several problems a tile also stages the problems' start flags as a
+// byte tile and their terminal rows as per-lane records, and the terminal
+// values leave through per-lane records (nw_multi and mea_multi by
+// `MultiSteps` and `flush_records`; the multi-lane FB and counts pairs by
+// their own).
 // The code expansions E and R take neither: a thread owns one lane (E) or
 // four (R) and a tile of diagonals (csrc/expand.cu).
 #pragma once
@@ -26,13 +26,7 @@
 namespace mk {
 
 constexpr float NEG = -1e30f;  // max-plus "impossible" (wavefront_pallas.NEG)
-constexpr int LANES = 32;      // lanes per block
 constexpr int MAX_RPT = 4;     // band rows per thread: Wp <= 128
-
-// Flat index of cell (d, k, b).
-__device__ __forceinline__ size_t cell(int d, int k, int b, int Wp, int B) {
-  return ((size_t)d * Wp + k) * B + b;
-}
 
 // Row k + t for t in {-1, 0, 1}, wrapping circularly like the TPU kernels'
 // rolls (wrapped rows are guard rows, which `valid` masks).
@@ -51,12 +45,17 @@ __device__ __forceinline__ float max_argmax3(float v0, float v1, float v2,
 
 inline int rows_per_thread(int Wp) { return (Wp + 31) / 32; }
 
-inline dim3 block_shape(int Wp) {
-  const int rpt = rows_per_thread(Wp);
-  return dim3(LANES, (Wp + rpt - 1) / rpt);
-}
-
-inline dim3 grid_shape(int B) { return dim3((B + LANES - 1) / LANES); }
+// The per-diagonal streams of multi-problem lanes (ops/band.py
+// `pack_multi_banded_batch`; nw_multi, mea_multi): start [D1, B] int8 (a
+// problem's local d = 0), fink / find [D1, B] int32 (the terminal row, and
+// >= 0 on a problem's terminal diagonal), and the terminal values term
+// [NP, D1, B] the kernel writes.  Null in the single-problem instances.
+struct MultiSteps {
+  const int8_t* __restrict__ start;
+  const int32_t* __restrict__ fink;
+  const int32_t* __restrict__ find;
+  float* __restrict__ term;
+};
 
 // A flat-gap model's coefficients in both of its forms, as the host builds
 // them (ops/fb_circ.py `circ_coefficients`; offsets COEF_* in
@@ -224,24 +223,46 @@ constexpr unsigned FULL = 0xffffffffu;  // every thread of a warp
 
 // ------------------------------------------------ warp per lane: rows
 
+// A select kept as one by PTX: a chain of ?: over an array's elements by
+// index (`top == r ? v[r] : down`) became a run-time index that put the
+// rows of K1, D and K4 on a stack at three and four rows a thread.
+__device__ __forceinline__ float psel(bool p, float a, float b) {
+  float o;
+  asm("{\n .reg .pred q;\n setp.ne.s32 q, %3, 0;\n"
+      " selp.f32 %0, %1, %2, q;\n}"
+      : "=f"(o) : "f"(a), "f"(b), "r"((int)p));
+  return o;
+}
+__device__ __forceinline__ int psel(bool p, int a, int b) {
+  int o;
+  asm("{\n .reg .pred q;\n setp.ne.s32 q, %3, 0;\n"
+      " selp.b32 %0, %1, %2, q;\n}"
+      : "=r"(o) : "r"(a), "r"(b), "r"((int)p));
+  return o;
+}
+
 // The band rows of a warp-per-lane kernel with RPT consecutive rows a
 // thread (K1, D): row k = RPT kk + r on thread kk, so a one-row move of
 // the band stays in the thread's registers but for one edge row, which a
 // single shuffle brings from the neighbouring thread.  The band wraps
 // circularly at Wp: row Wp - 1 moves up to row 0 and row 0 down to row
-// Wp - 1, through the same shuffle (source lanes chosen once).
-template <int RPT>
+// Wp - 1, through the same shuffle (source lanes chosen once).  A lane
+// takes T threads: the whole warp (T = 32), or a half or a quarter of it
+// (T = 16 or 8: two or four lanes a warp, nw_multi and mea_multi at their
+// narrow bands), whose shuffles stay among the lane's threads.  PSEL: the
+// edge row's select chain by PTX selects (psel).
+template <int RPT, int T = 32, bool PSEL = false>
 struct WarpRows {
-  int kk;      // this thread's lane in the warp
-  int up_src;  // the lane whose first row follows this thread's last
-  int dn_src;  // the lane whose row precedes this thread's first
+  int kk;      // this thread's place among its lane's T threads
+  int up_src;  // the thread whose first row follows this thread's last
+  int dn_src;  // the thread whose row precedes this thread's first
   int top;     // this thread's last band row r (row Wp - 1's on the
                // thread holding it): the next lane's first row (row 0)
                // follows it, and it is the row this thread sends down
 
-  __device__ explicit WarpRows(int Wp) : kk(threadIdx.x & 31) {
+  __device__ explicit WarpRows(int Wp) : kk(threadIdx.x & (T - 1)) {
     const int last = (Wp - 1) / RPT, rlast = (Wp - 1) % RPT;
-    up_src = kk == last ? 0 : (kk + 1) & 31;
+    up_src = kk == last ? 0 : (kk + 1) & (T - 1);
     dn_src = kk == 0 ? last : kk - 1;
     top = kk == last ? rlast : RPT - 1;
   }
@@ -249,20 +270,23 @@ struct WarpRows {
   __device__ int row(int r) const { return RPT * kk + r; }
 
   // out[r] = v at row k + t for t in {-1, 0, 1}, the same on every thread
-  // of the warp; branch-free (a branch on a stream's value would cost the
+  // of the lane; branch-free (a branch on a stream's value would cost the
   // warp a convergence barrier per move).
-  template <class T>
-  __device__ void roll(const T (&v)[RPT], T (&out)[RPT], int t) const {
-    T down = v[RPT - 1];
+  template <class V>
+  __device__ void roll(const V (&v)[RPT], V (&out)[RPT], int t) const {
+    V down = v[RPT - 1];
 #pragma unroll
-    for (int r = 0; r < RPT - 1; ++r) down = top == r ? v[r] : down;
-    const T edge = __shfl_sync(FULL, t > 0 ? v[0] : down,
-                               t > 0 ? up_src : (t < 0 ? dn_src : kk));
+    for (int r = 0; r < RPT - 1; ++r) {
+      if constexpr (PSEL) down = psel(top == r, v[r], down);
+      else down = top == r ? v[r] : down;
+    }
+    const V edge = __shfl_sync(FULL, t > 0 ? v[0] : down,
+                               t > 0 ? up_src : (t < 0 ? dn_src : kk), T);
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
-      const T up = (r == top) | (r == RPT - 1) ? edge
+      const V up = (r == top) | (r == RPT - 1) ? edge
                                                : v[r + 1 < RPT ? r + 1 : r];
-      const T dn = r == 0 ? edge : v[r > 0 ? r - 1 : r];
+      const V dn = r == 0 ? edge : v[r > 0 ? r - 1 : r];
       out[r] = t > 0 ? up : (t < 0 ? dn : v[r]);
     }
   }
@@ -327,24 +351,51 @@ __device__ __forceinline__ void stage_bytes(uint8_t* dst, const void* src,
 
 // Writes the tile at src to rows r0 .. r0 + nrows - 1 of dst, as
 // stage_bytes reads them.
-template <int LPB>
+template <int LPB, int NT = 32 * LPB>
 __device__ __forceinline__ void flush_bytes(uint8_t* dst, const uint8_t* src,
                                             size_t r0, int nrows, int b0,
                                             int B, bool vec) {
   constexpr int S = byte_stride(LPB), W = LPB / 4;
   uint8_t* d = dst + r0 * B + b0;
   if (vec) {
-    for (int q = threadIdx.x; q < nrows * W; q += 32 * LPB) {
+    for (int q = threadIdx.x; q < nrows * W; q += NT) {
       const int row = q / W, c = 4 * (q - row * W);
       if (b0 + c < B)
         *reinterpret_cast<uint32_t*>(d + (size_t)row * B + c) =
             *reinterpret_cast<const uint32_t*>(src + row * S + c);
     }
   } else {
-    for (int q = threadIdx.x; q < nrows * LPB; q += 32 * LPB) {
+    for (int q = threadIdx.x; q < nrows * LPB; q += NT) {
       const int row = q / LPB, w = q - row * LPB;
       if (b0 + w < B) d[(size_t)row * B + w] = src[row * S + w];
     }
+  }
+}
+
+// One diagonal's start flag and terminal row (fink where find >= 0) as one
+// int: the row in the low 16 bits (0xffff, no row, off terminal diagonals
+// and for rows outside [0, 0xffff)), the flag at bit 16.
+__device__ __forceinline__ int pack_steps(uint8_t start, int fink,
+                                          int find) {
+  const bool row = (find >= 0) & (fink >= 0) & (fink < 0xffff);
+  return (row ? fink : 0xffff) | (start != 0 ? 0x10000 : 0);
+}
+__device__ __forceinline__ bool seeds(int steps) { return steps >> 16; }
+__device__ __forceinline__ bool ends_at(int steps, int k) {
+  return (steps & 0xffff) == k;
+}
+
+// Writes the per-lane records rec [NP][KT][LPB] (float, lanes fastest) of
+// diagonals d0 .. d0 + n - 1 to their lane rows of dst [NP, D1, B], with
+// the NT threads of the block.
+template <int LPB, int NP, int KT, int NT>
+__device__ __forceinline__ void flush_records(float* __restrict__ dst,
+                                              const float* rec, int d0, int n,
+                                              int D1, int b0, int B) {
+  for (int q = threadIdx.x; q < NP * KT * LPB; q += NT) {
+    const int w = q % LPB, kb = (q / LPB) % KT, p = q / (KT * LPB);
+    if ((kb < n) & (b0 + w < B))
+      dst[((size_t)p * D1 + d0 + kb) * B + b0 + w] = rec[q];
   }
 }
 
@@ -388,6 +439,24 @@ inline cudaError_t kernel_info(const void* kernel, size_t smem, int threads,
   return cudaSuccess;
 }
 
+// The current device's SM count and the shared memory a block may opt in
+// to.
+inline cudaError_t device_shape(int* sms, int* cap) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
+// Whether blocks of `lanes` lanes over B lanes reach 15/16 of the SMs.
+inline bool fills(int B, int lanes, int sms) {
+  return (B + lanes - 1) / lanes >= sms - sms / 16;
+}
+
 // The lanes a block (16 or 8) of S's, K1's and D's warp-per-lane kernels
 // over B lanes on the current device: 16 where that block fits shared
 // memory (smem(lanes) bytes) and every SM still gets one (B >= 16 x SMs),
@@ -397,13 +466,8 @@ inline cudaError_t kernel_info(const void* kernel, size_t smem, int threads,
 // group).
 template <class Smem>
 inline cudaError_t warp_lanes(int B, Smem smem, int* lanes) {
-  int dev = 0, sms = 0, cap = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int sms = 0, cap = 0;
+  cudaError_t err = device_shape(&sms, &cap);
   if (err != cudaSuccess) return err;
   const bool wide = smem(16) <= (size_t)cap && B >= 16 * sms;
   if (!wide && smem(8) > (size_t)cap) return cudaErrorInvalidValue;

@@ -2,7 +2,7 @@
 // diagonal (posterior match weight), left (ref-skip) and up (read-skip)
 // moves, with pointers 0 = diag, 1 = left, 2 = up.
 //
-// One recursion, two weight sources and two lane layouts:
+// One recursion, two weight sources, one warp per lane:
 //   banded_mea (K4) <- marginalign_trna_tpu/ops/wavefront_pallas.py
 //                      `_mea_kernel` (`banded_mea_pallas`): the weights come
 //                      materialised as three [D1, Wp, B] bands, with the
@@ -29,7 +29,8 @@
 //                      width.
 // Same arithmetic as the TPU kernels: no normalisation, circular row
 // shifts, first-max-wins ties in the order diag, left, up, and the terminal
-// score read at (final_d, final_k) as max(value, NEG).
+// score read at (final_d, final_k) as max(value, NEG) (mea_multi: at each
+// problem's terminal cell).
 //
 // What bounds them on an H100: K4 streams 13 B per cell (three f32 weight
 // bands and the valid byte in, one pointer byte out), D 5 B (the posterior
@@ -53,10 +54,12 @@
 //     4096] (2.40 by cp.async), against 1.75 and 2.26 for the first design
 //     (a block per 32 lanes, a barrier a diagonal, 32 blocks on 132 SMs at
 //     1024 lanes).
-//   mea_multi runs a block per 32 lanes (common.cuh): the score frontier
-//     (three generations, d mod 3) in shared memory, one barrier a
-//     diagonal, the next diagonal's weights fetched while the current one
-//     computes.
+//   mea_multi is K4's kernel with the MULTI flag: a tile also stages the
+//     start flags as a byte tile and fink / find as per-lane records, every
+//     diagonal is a step (the frontier starts at NEG; row 0 seeded where a
+//     problem starts), and the terminal scores leave through a per-lane
+//     record filled with NEG each tile and written by the thread holding
+//     row fink.
 //   D runs one warp per lane (common.cuh), as the TPU kernel's delay line
 //     asks: both score generations and the two band windows of gap weights
 //     stay in registers.  Where the band's lower edge steps (s1 = 1) the up
@@ -84,8 +87,6 @@ namespace {
 
 using mk::NEG;
 
-// ------------------------------------------- mea_multi: block per lanes
-
 // The weights as materialised bands (K4 and mea_multi).
 struct BandWeights {
   const float* __restrict__ wdiag;
@@ -95,179 +96,23 @@ struct BandWeights {
   const int32_t* __restrict__ s1;
   const int32_t* __restrict__ s2;
   int Wp, B;
-
-  __device__ void steps(int d, int b, int& t1, int& t2) const {
-    t1 = s1[(size_t)d * B + b];
-    t2 = s2[(size_t)d * B + b];
-  }
-  __device__ void cell(int d, int k, int b, float& wd, float& wu, float& wl,
-                       uint8_t& v) const {
-    const size_t c = mk::cell(d, k, b, Wp, B);
-    wd = wdiag[c];
-    wu = wup[c];
-    wl = wleft[c];
-    v = valid[c];
-  }
 };
 
-// The per-diagonal streams of multi-problem lanes (mea_multi): start
-// [D1, B] int8, fink / find [D1, B] int32 (-1 off terminal diagonals), and
-// the terminal scores term [D1, B] it writes.
-struct MultiSteps {
-  const int8_t* __restrict__ start;
-  const int32_t* __restrict__ fink;
-  const int32_t* __restrict__ find;
-  float* __restrict__ term;
-};
+// ----------------------------------------- K4, mea_multi: warp per lane
 
-template <int RPT, bool MULTI>
-__global__ void __launch_bounds__(1024)
-    mea_kernel(BandWeights w, const int32_t* __restrict__ final_d,
-               const int32_t* __restrict__ final_k, MultiSteps ms, int D1,
-               int Wp, int B, uint8_t* __restrict__ ptr,
-               float* __restrict__ score) {
-  extern __shared__ float shA[];  // [3][Wp][L] score generations by d mod 3
-  const int L = blockDim.x, TY = blockDim.y;
-  const int lane = threadIdx.x, ty = threadIdx.y;
-  const int b = blockIdx.x * L + lane;
-  const bool live = b < B;
-  const int plane = Wp * L;
-  const int fd = live && !MULTI ? final_d[b] : -1;
-  const int fk = live && !MULTI ? final_k[b] : -1;
-
-  // Single problem: d = 0 is pure initialisation (0 at row 0), slot 2
-  // holds d = -1.  Multi: every slot holds NEG and the loop starts at 0.
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int k = ty + r * TY;
-    if (k >= Wp) continue;
-    const int i = k * L + lane;
-    if (MULTI) {
-      for (int g = 0; g < 3; ++g) shA[g * plane + i] = NEG;
-      continue;
-    }
-    const float a0 = k == 0 ? 0.f : NEG;
-    shA[i] = a0;               // d = 0
-    shA[2 * plane + i] = NEG;  // d = -1
-    if (live) {
-      ptr[mk::cell(0, k, b, Wp, B)] = 0;
-      if (fd == 0 && k == fk) score[b] = fmaxf(a0, NEG);
-    }
-  }
-
-  float fd_w[RPT], fu_w[RPT], fl_w[RPT];
-  uint8_t fv[RPT];
-  int f1 = 0, f2 = 0, fst = 0, ffk = -1, ffd = -1;
-  auto fetch = [&](int d) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
-      fd_w[r] = 0.f; fu_w[r] = 0.f; fl_w[r] = 0.f; fv[r] = 0;
-      if (live && k < Wp) w.cell(d, k, b, fd_w[r], fu_w[r], fl_w[r], fv[r]);
-    }
-    f1 = 0;
-    f2 = 0;
-    if (live) w.steps(d, b, f1, f2);
-    if (MULTI && live) {
-      fst = ms.start[(size_t)d * B + b];
-      ffk = ms.fink[(size_t)d * B + b];
-      ffd = ms.find[(size_t)d * B + b];
-    }
-  };
-  const int dfirst = MULTI ? 0 : 1;
-  if (D1 > dfirst) fetch(dfirst);
-  __syncthreads();
-
-  for (int d = dfirst; d < D1; ++d) {
-    float cd[RPT], cu[RPT], cl[RPT];
-    uint8_t cv[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      cd[r] = fd_w[r]; cu[r] = fu_w[r]; cl[r] = fl_w[r]; cv[r] = fv[r];
-    }
-    const int t1 = f1, t2 = f2;
-    const bool seeds = MULTI && fst != 0;
-    const int tk = MULTI && ffd >= 0 ? ffk : -1;  // terminal row, or -1
-    if (d + 1 < D1) fetch(d + 1);
-
-    const int old = ((d + 1) % 3) * plane;  // d - 2
-    const int prv = ((d + 2) % 3) * plane;  // d - 1
-    const int now = (d % 3) * plane;
-    float na[RPT];
-    uint8_t np[RPT];
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
-      if (k >= Wp) continue;
-      const float diag = shA[old + mk::wrap(k + t2 - 1, Wp) * L + lane] + cd[r];
-      const float left = shA[prv + mk::wrap(k + t1, Wp) * L + lane] + cl[r];
-      const float up = shA[prv + mk::wrap(k + t1 - 1, Wp) * L + lane] + cu[r];
-      int a;
-      const float v = mk::max_argmax3(diag, left, up, a);
-      na[r] = cv[r] ? v : NEG;
-      np[r] = (uint8_t)a;
-      if (seeds && k == 0) {
-        na[r] = 0.f;
-        np[r] = 0;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const int k = ty + r * TY;
-      if (k >= Wp) continue;
-      shA[now + k * L + lane] = na[r];
-      if (live) {
-        ptr[mk::cell(d, k, b, Wp, B)] = np[r];
-        if (d == fd && k == fk) score[b] = fmaxf(na[r], NEG);
-        if (MULTI && k == tk) ms.term[(size_t)d * B + b] = fmaxf(na[r], NEG);
-      }
-    }
-    if (MULTI && live && ty == 0 && (tk < 0 || tk >= Wp))
-      ms.term[(size_t)d * B + b] = NEG;
-    __syncthreads();
-  }
-}
-
-template <int RPT, bool MULTI>
-cudaError_t run(const BandWeights& w, const int32_t* final_d,
-                const int32_t* final_k, const MultiSteps& ms, int D1, int Wp,
-                int B, uint8_t* ptr, float* score, cudaStream_t stream) {
-  const size_t smem = (size_t)3 * Wp * mk::LANES * sizeof(float);
-  cudaError_t err = mk::allow_smem((const void*)mea_kernel<RPT, MULTI>, smem);
-  if (err != cudaSuccess) return err;
-  mea_kernel<RPT, MULTI><<<mk::grid_shape(B), mk::block_shape(Wp), smem,
-                           stream>>>(w, final_d, final_k, ms, D1, Wp, B, ptr,
-                                     score);
-  return cudaGetLastError();
-}
-
-template <bool MULTI>
-int dispatch(const BandWeights& w, const int32_t* final_d,
-             const int32_t* final_k, const MultiSteps& ms, int D1, int Wp,
-             int B, uint8_t* ptr, float* score, void* stream) {
-  if (D1 < 1 || B < 1) return cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  switch (mk::rows_per_thread(Wp)) {
-    case 1: return run<1, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
-    case 2: return run<2, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
-    case 3: return run<3, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
-    case 4: return run<4, MULTI>(w, final_d, final_k, ms, D1, Wp, B, ptr, score, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-// ----------------------------------------------------- K4: warp per lane
-
-// Diagonals a tile: 8 at up to two rows a thread (Wp <= 64), 4 above, so
-// that the ring of weight tiles of 8 lanes still fits a block at Wp 128.
-__host__ __device__ constexpr int mea_kt_rpt(int rpt) {
-  return rpt <= 2 ? 8 : 4;
+// Diagonals a tile: 8 up to Wp 64 (rpt rows a thread of t threads a lane
+// cover the band), 4 above, so that the ring of weight tiles of 8 lanes
+// still fits a block at Wp 128.
+__host__ __device__ constexpr int mea_kt_rpt(int rpt, int t = 32) {
+  return rpt * t <= 64 ? 8 : 4;
 }
 constexpr int MEA_STAGES = 2;  // input tiles: the one computed, 1 in flight
 
 // A tile's inputs in shared memory: the three weight planes (wdiag, wup,
 // wleft), the shifts s1, s2 [LPB][KT], and the valid band as a byte tile
-// (mk::byte_stride's layout).  A weight plane comes in one of two layouts:
+// (mk::byte_stride's layout); multi lanes add fink and find [LPB][KT] and
+// the start flags as a byte tile st [KT] rows.  A weight plane comes in one
+// of two layouts:
 //   TMA (B a multiple of 4, Wp <= 64): the tensor memory accelerator copies
 //     the box [KT][Wp][LPB] of each band as it lies in device memory, lanes
 //     fastest, its 16-byte pieces swizzled by the row's low bits (the
@@ -282,6 +127,9 @@ struct MeaIn {
   int32_t* s1;
   int32_t* s2;
   uint8_t* v;
+  int32_t* fk;
+  int32_t* fd;
+  uint8_t* st;
 };
 
 __host__ __device__ inline int mea_stride(int Wp, int kt) {
@@ -298,19 +146,27 @@ __host__ __device__ inline size_t mea_bplane(int Wp, int kt, int lpb) {
 }
 // One stage buffer, rounded up to 1024 bytes with TMA, else to 16.
 __host__ __device__ inline size_t mea_in_bytes(int Wp, int kt, int lpb,
-                                               bool tma) {
+                                               bool tma, bool multi) {
   const size_t a = tma ? 1024 : 16;
   const size_t b = (3 * mea_wplane(Wp, kt, lpb, tma) + 2 * (size_t)lpb * kt) *
-                       4 + mea_bplane(Wp, kt, lpb);
+                       4 + mea_bplane(Wp, kt, lpb) +
+                   (multi ? 8 * (size_t)lpb * kt + kt * mk::byte_stride(lpb)
+                          : 0);
   return (b + a - 1) / a * a;
 }
-// MEA_STAGES stage buffers and two pointer tiles; with TMA 1024 bytes to
+// An output tile: the pointer plane and, for multi lanes, the terminal
+// record [KT][LPB].
+__host__ __device__ inline size_t mea_out_bytes(int Wp, int kt, int lpb,
+                                                bool multi) {
+  return mea_bplane(Wp, kt, lpb) + (multi ? 4 * (size_t)kt * lpb : 0);
+}
+// MEA_STAGES stage buffers and two output tiles; with TMA 1024 bytes to
 // align the stages and the stages' barriers.
-inline size_t mea_smem(int Wp, int lpb, bool tma) {
+inline size_t mea_smem(int Wp, int lpb, bool tma, bool multi) {
   const int kt = mea_kt_rpt(mk::rows_per_thread(Wp));
   return (tma ? 1024 + 8 * MEA_STAGES : 0) +
-         MEA_STAGES * mea_in_bytes(Wp, kt, lpb, tma) +
-         2 * mea_bplane(Wp, kt, lpb);
+         MEA_STAGES * mea_in_bytes(Wp, kt, lpb, tma, multi) +
+         2 * mea_out_bytes(Wp, kt, lpb, multi);
 }
 
 __device__ inline MeaIn mea_in(uint8_t* p, int Wp, int kt, int lpb,
@@ -318,8 +174,10 @@ __device__ inline MeaIn mea_in(uint8_t* p, int Wp, int kt, int lpb,
   float* w = reinterpret_cast<float*>(p);
   int32_t* s =
       reinterpret_cast<int32_t*>(w + 3 * mea_wplane(Wp, kt, lpb, tma));
-  return MeaIn{w, s, s + lpb * kt,
-               reinterpret_cast<uint8_t*>(s + 2 * lpb * kt)};
+  uint8_t* v = reinterpret_cast<uint8_t*>(s + 2 * lpb * kt);
+  int32_t* f = reinterpret_cast<int32_t*>(v + mea_bplane(Wp, kt, lpb));
+  return MeaIn{w, s, s + lpb * kt, v, f, f + lpb * kt,
+               reinterpret_cast<uint8_t*>(f + 2 * lpb * kt)};
 }
 
 // The three weight bands' tensor maps for TMA (unused by cp.async).
@@ -330,11 +188,13 @@ struct MeaMaps {
 // Starts the copy of diagonals d0 .. d0 + n - 1 of the block's lanes
 // b0 .. b0 + LPB - 1 into S (the caller commits the cp.async group).  TMA:
 // thread 0 asks for the three weight boxes, to arrive on barrier bar;
-// cp.async: thread tid copies lane tid % LPB of rows tid / LPB + 32 i of
-// each weight band, so a warp moves 32 / LPB rows of LPB lanes a step.  The
-// shifts and the valid bytes take cp.async either way.
-template <int LPB, int KT, bool TMA>
+// cp.async: thread tid of the NT copies lane tid % LPB of rows tid / LPB +
+// NT / LPB i of each weight band, so a warp moves 32 / LPB rows of LPB
+// lanes a step.  The shifts, the valid bytes and multi lanes' records and
+// start flags take cp.async either way.
+template <int LPB, int KT, bool TMA, bool MULTI, int NT>
 __device__ __forceinline__ void mea_stage(const MeaIn& S, const BandWeights& w,
+                                          const mk::MultiSteps& ms,
                                           const MeaMaps& maps, uint64_t* bar,
                                           int d0, int n, int b0, bool vec) {
   const int Wp = w.Wp, B = w.B;
@@ -351,7 +211,7 @@ __device__ __forceinline__ void mea_stage(const MeaIn& S, const BandWeights& w,
   } else if (b < B) {
     const size_t g = (size_t)d0 * Wp * B + b;
     float* s = S.w + l * mea_stride(Wp, KT);
-    for (int r = threadIdx.x / LPB; r < n * Wp; r += 32) {
+    for (int r = threadIdx.x / LPB; r < n * Wp; r += NT / LPB) {
       const size_t o = g + (size_t)r * B;
       mk::cp_async4(s + r, w.wdiag + o);
       mk::cp_async4(s + plane + r, w.wup + o);
@@ -363,27 +223,38 @@ __device__ __forceinline__ void mea_stage(const MeaIn& S, const BandWeights& w,
     const size_t o = (size_t)(d0 + kb) * B + b;
     mk::cp_async4(S.s1 + l * KT + kb, w.s1 + o);
     mk::cp_async4(S.s2 + l * KT + kb, w.s2 + o);
+    if (MULTI) {
+      mk::cp_async4(S.fk + l * KT + kb, ms.fink + o);
+      mk::cp_async4(S.fd + l * KT + kb, ms.find + o);
+    }
   }
-  mk::stage_bytes<LPB>(S.v, w.valid, (size_t)d0 * Wp, n * Wp, b0, B, vec);
+  mk::stage_bytes<LPB, NT>(S.v, w.valid, (size_t)d0 * Wp, n * Wp, b0, B,
+                           vec);
+  if (MULTI) mk::stage_bytes<LPB, NT>(S.st, ms.start, d0, n, b0, B, vec);
 }
 
 // The decode of one lane (rows as mk::WarpRows): both score generations in
 // registers, a row shift one shuffle of the edge row.  A full tile runs
 // unrolled, each diagonal's inputs read from the stage buffer one diagonal
-// ahead, with no branch on the warp's chain of diagonals; the first and a
-// partial last tile run a rolled loop.
-template <int RPT, int LPB, bool TMA>
+// ahead, with no branch on the warp's chain of diagonals; the first (K4)
+// and a partial last tile run a rolled loop.  MULTI: the frontier starts at
+// NEG and every diagonal is a step; row 0 is seeded where a problem
+// starts, and the score at a terminal row goes to the tile's record.  A
+// lane takes T threads (mk::WarpRows).
+template <int RPT, int LPB, bool TMA, bool MULTI, int T>
 struct MeaWarp {
   static constexpr int SB = mk::byte_stride(LPB);
-  static constexpr int KT = mea_kt_rpt(RPT);
+  static constexpr int KT = mea_kt_rpt(RPT, T);
   // One diagonal's inputs (rows past the band read row Wp - 1: their
-  // results are never read).
+  // results are never read); multi lanes: `mk::pack_steps` of the start
+  // flag and the terminal row.
   struct In {
     float wd[RPT], wu[RPT], wl[RPT];
     bool v[RPT];
     int t1, t2;
+    int steps;
   };
-  mk::WarpRows<RPT> rows;
+  mk::WarpRows<RPT, T, MULTI> rows;
   int Wp, fd, fk, stride;
   size_t plane;
   float a1[RPT], a2[RPT];  // scores of d - 1, d - 2
@@ -392,7 +263,12 @@ struct MeaWarp {
 
   __device__ MeaWarp(int Wp_, int fd_, int fk_)
       : rows(Wp_), Wp(Wp_), fd(fd_), fk(fk_), stride(mea_stride(Wp_, KT)),
-        plane(mea_wplane(Wp_, KT, LPB, TMA)) {}
+        plane(mea_wplane(Wp_, KT, LPB, TMA)) {
+    if (MULTI) {
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) a1[r] = a2[r] = NEG;
+    }
+  }
 
   __device__ int row(int r) const { return rows.row(r); }
 
@@ -411,15 +287,26 @@ struct MeaWarp {
     }
     a.t1 = S.s1[w * KT + kb];
     a.t2 = S.s2[w * KT + kb];
+    if (MULTI) a.steps = S.fk[w * KT + kb];
     return a;
   }
 
   // Diagonals d0 .. d0 + n - 1 of lane w from stage buffer S into the
-  // pointer tile out.
-  __device__ __forceinline__ void tile(const MeaIn& S, uint8_t* out, int w,
-                                       int d0, int n) {
+  // pointer tile out (multi lanes: the terminal record rec).
+  __device__ __forceinline__ void tile(const MeaIn& S, uint8_t* out,
+                                       float* rec, int w, int d0, int n) {
     int kb = 0;
-    if (d0 == 0) {
+    if (MULTI) {
+      // Each diagonal's start flag and terminal row packed in place of its
+      // fink; the lane's record holds NEG but on terminal diagonals.
+      if (rows.kk < n) {
+        S.fk[w * KT + rows.kk] =
+            mk::pack_steps(S.st[rows.kk * SB + w], S.fk[w * KT + rows.kk],
+                           S.fd[w * KT + rows.kk]);
+        rec[rows.kk * LPB + w] = NEG;
+      }
+      __syncwarp();
+    } else if (d0 == 0) {
       // d = 0 is pure initialisation: 0 at row 0; d - 1 holds NEG.
       float na[RPT];
 #pragma unroll
@@ -436,20 +323,22 @@ struct MeaWarp {
 #pragma unroll
       for (int q = 0; q < KT; ++q) {
         const In next = load(S, w, q + 1 < KT ? q + 1 : q);
-        step(d0 + q, cur, out + q * Wp * SB + w);
+        step(d0 + q, cur, out + q * Wp * SB + w, rec + q * LPB + w);
         cur = next;
       }
     } else {
       for (; kb < n; ++kb)
-        step(d0 + kb, load(S, w, kb), out + kb * Wp * SB + w);
+        step(d0 + kb, load(S, w, kb), out + kb * Wp * SB + w,
+             rec + kb * LPB + w);
     }
   }
 
-  // Generation d >= 1 from its inputs a; pointers at row k go to
-  // ptr[k * SB].  Diag from d - 2 at row shift s2 - 1, left (ref skip) from
-  // d - 1 at shift s1, up (read skip) at shift s1 - 1: at most one of the
-  // two moves, so d - 1 rolls once.
-  __device__ __forceinline__ void step(int d, const In& a, uint8_t* ptr) {
+  // Generation d from its inputs a; pointers at row k go to ptr[k * SB], a
+  // multi lane's terminal score to *term.  Diag from d - 2 at row shift
+  // s2 - 1, left (ref skip) from d - 1 at shift s1, up (read skip) at shift
+  // s1 - 1: at most one of the two moves, so d - 1 rolls once.
+  __device__ __forceinline__ void step(int d, const In& a, uint8_t* ptr,
+                                       float* term) {
     const mk::GapMove g(a.t1);
     float ar[RPT], dg[RPT], na[RPT];
     rows.roll(a1, ar, g.by);
@@ -462,20 +351,30 @@ struct MeaWarp {
       int am;
       const float val = mk::max_argmax3(diag, left, up, am);
       na[r] = a.v[r] ? val : NEG;
+      if (MULTI) {
+        const bool seed = mk::seeds(a.steps) & (row(r) == 0);
+        na[r] = seed ? 0.f : na[r];
+        am = seed ? 0 : am;
+      }
       if (row(r) < Wp) ptr[row(r) * SB] = (uint8_t)am;
       a2[r] = a1[r];
+      if (MULTI && mk::ends_at(a.steps, row(r)) & (row(r) < Wp))
+        *term = fmaxf(na[r], NEG);
     }
     publish(d, na);
   }
 
-  // Generation d becomes d - 1; the score at the lane's terminal is kept.
+  // Generation d becomes d - 1; the score at the lane's terminal is kept
+  // (one problem a lane).
   __device__ __forceinline__ void publish(int d, const float (&na)[RPT]) {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       a1[r] = na[r];
-      const bool at = (d == fd) & (row(r) == fk) & (fk < Wp);
-      tscore = at ? na[r] : tscore;
-      hit = hit | at;
+      if (!MULTI) {
+        const bool at = (d == fd) & (row(r) == fk) & (fk < Wp);
+        tscore = at ? na[r] : tscore;
+        hit = hit | at;
+      }
     }
   }
 
@@ -488,95 +387,147 @@ struct MeaWarp {
   }
 };
 
-template <int RPT, int LPB, bool TMA>
-__global__ void __launch_bounds__(32 * LPB)
+// K4 (final_d, final_k, score; ms null) or, MULTI, mea_multi (ms; the
+// single-problem arguments null); T threads a lane, LPB lanes a block.
+template <int RPT, int LPB, bool TMA, bool MULTI, int T>
+__global__ void __launch_bounds__(T * LPB)
     mea_warp_kernel(BandWeights wts, const __grid_constant__ MeaMaps maps,
                     const int32_t* __restrict__ final_d,
-                    const int32_t* __restrict__ final_k, int D1, int vec,
-                    uint8_t* __restrict__ ptr, float* __restrict__ score) {
-  constexpr int KT = mea_kt_rpt(RPT);
+                    const int32_t* __restrict__ final_k, mk::MultiSteps ms,
+                    int D1, int vec, uint8_t* __restrict__ ptr,
+                    float* __restrict__ score) {
+  constexpr int KT = mea_kt_rpt(RPT, T), NT = T * LPB;
   extern __shared__ __align__(16) uint8_t mea_raw[];
   const int Wp = wts.Wp, B = wts.B;
   // TMA: the stages start 1024-aligned in the shared window, their
-  // barriers after the pointer tiles.
+  // barriers after the output tiles.
   uint8_t* raw =
       TMA ? mea_raw + ((1024 - mk::smem_addr(mea_raw) % 1024) % 1024)
           : mea_raw;
-  const size_t nin = mea_in_bytes(Wp, KT, LPB, TMA),
-               nout = mea_bplane(Wp, KT, LPB);
+  const size_t nin = mea_in_bytes(Wp, KT, LPB, TMA, MULTI),
+               nout = mea_out_bytes(Wp, KT, LPB, MULTI);
   uint64_t* bars = reinterpret_cast<uint64_t*>(
       raw + MEA_STAGES * nin + (2 * nout + 7) / 8 * 8);
-  const int w = threadIdx.x >> 5;
+  const int w = threadIdx.x / T;  // the thread's lane in the block
   const int b0 = blockIdx.x * LPB, b = b0 + w;
-  const bool live = b < B;  // warp-uniform
+  // Whether the warp's first lane is in the batch: warp-uniform (a lane
+  // past B beside a live one computes on stale tiles and writes nothing).
+  const bool live = b0 + (int)(threadIdx.x >> 5) * (32 / T) < B;
   const int tiles = (D1 + KT - 1) / KT;
-  // Stage buffer of tile t (t mod MEA_STAGES), pointer tile (by parity).
+  // Stage buffer of tile t (t mod MEA_STAGES), output tile (by parity): the
+  // pointer plane, then the terminal record.
   auto in = [&](int t) {
     return mea_in(raw + (t % MEA_STAGES) * nin, Wp, KT, LPB, TMA);
   };
   auto out = [&](int t) { return raw + MEA_STAGES * nin + (t & 1) * nout; };
+  auto rec = [&](int t) {
+    return reinterpret_cast<float*>(out(t) + mea_bplane(Wp, KT, LPB));
+  };
   // One cp.async group a tile, empty past the last, so that wait_but counts
   // tiles.
   auto stage = [&](int t) {
     if (t < tiles)
-      mea_stage<LPB, KT, TMA>(in(t), wts, maps, bars + t % MEA_STAGES,
-                              t * KT, min(KT, D1 - t * KT), b0, vec);
+      mea_stage<LPB, KT, TMA, MULTI, NT>(in(t), wts, ms, maps,
+                                         bars + t % MEA_STAGES, t * KT,
+                                         min(KT, D1 - t * KT), b0, vec);
     mk::cp_async_commit();
   };
   auto flush = [&](int t) {
-    const int d0 = t * KT;
-    mk::flush_bytes<LPB>(ptr, out(t), (size_t)d0 * Wp, min(KT, D1 - d0) * Wp,
-                         b0, B, vec);
+    const int d0 = t * KT, n = min(KT, D1 - d0);
+    mk::flush_bytes<LPB, NT>(ptr, out(t), (size_t)d0 * Wp, n * Wp, b0, B,
+                             vec);
+    if (MULTI)
+      mk::flush_records<LPB, 1, KT, NT>(ms.term, rec(t), d0, n, D1, b0, B);
   };
   if (TMA && threadIdx.x == 0) {
     for (int s = 0; s < MEA_STAGES; ++s) mk::mbar_init(bars + s);
     mk::mbar_init_fence();
   }
   if (TMA) __syncthreads();
-  MeaWarp<RPT, LPB, TMA> lane(Wp, live ? final_d[b] : -1,
-                              live ? final_k[b] : -1);
+  MeaWarp<RPT, LPB, TMA, MULTI, T> lane(
+      Wp, live && !MULTI ? final_d[b] : -1, live && !MULTI ? final_k[b] : -1);
   for (int t = 0; t < MEA_STAGES - 1; ++t) stage(t);
   for (int t = 0; t < tiles; ++t) {
     // Tile t has landed (this thread's copies and, with TMA, the barrier's
     // phase t / MEA_STAGES, then everyone's), every warp is past tile
-    // t - 1, whose pointers leave now and whose stage buffer takes tile
+    // t - 1, whose outputs leave now and whose stage buffer takes tile
     // t + MEA_STAGES - 1.
     mk::cp_async_wait_but<MEA_STAGES - 2>();
     if (TMA) mk::mbar_wait(bars + t % MEA_STAGES, (t / MEA_STAGES) & 1);
     __syncthreads();
     if (t > 0) flush(t - 1);
     stage(t + MEA_STAGES - 1);
-    if (live) lane.tile(in(t), out(t), w, t * KT, min(KT, D1 - t * KT));
+    if (live)
+      lane.tile(in(t), out(t), rec(t), w, t * KT, min(KT, D1 - t * KT));
   }
   __syncthreads();
   flush(tiles - 1);
-  if (live) lane.finish(score + b);
+  if (live && !MULTI) lane.finish(score + b);
 }
 
-// (TMA only at one and two rows a thread: `mea_tma`.)
-template <int LPB, bool TMA>
-const void* mea_kernel_rpt(int Wp) {
-  switch (mk::rows_per_thread(Wp)) {
-    case 1: return (const void*)mea_warp_kernel<1, LPB, TMA>;
-    case 2: return (const void*)mea_warp_kernel<2, LPB, TMA>;
-    case 3: return TMA ? nullptr : (const void*)mea_warp_kernel<3, LPB, false>;
-    case 4: return TMA ? nullptr : (const void*)mea_warp_kernel<4, LPB, false>;
+// The instance at RPT = rpt rows a thread (TMA only up to Wp 64:
+// `mea_tma`; half a warp a lane only up to two rows a thread; mea_multi
+// at a warp a lane only above Wp 32: at one row a thread its unrolled TMA
+// tiles spilled).
+template <int LPB, bool TMA, bool MULTI, int T>
+const void* mea_kernel_rpt(int rpt) {
+  if constexpr (!MULTI || T < 32)
+    if (rpt == 1) return (const void*)mea_warp_kernel<1, LPB, TMA, MULTI, T>;
+  if (rpt == 2) return (const void*)mea_warp_kernel<2, LPB, TMA, MULTI, T>;
+  if constexpr (T == 32 && !TMA) {
+    if (rpt == 3) return (const void*)mea_warp_kernel<3, LPB, false, MULTI, 32>;
+    if (rpt == 4) return (const void*)mea_warp_kernel<4, LPB, false, MULTI, 32>;
   }
   return nullptr;
 }
 
-// Whether K4's launch at (Wp, B) takes TMA: B a multiple of 4 (the maps'
-// row strides are multiples of 16 bytes), at most two rows a thread, and
-// the maps can be encoded.  At three and four rows a thread the swizzled
-// planes' 4-way bank conflicts cost more than TMA saves: on an H100 at Wp
-// 96 / 128 over 1024 lanes TMA took 3.93 / 5.02 ms, cp.async 3.67 / 4.51
-// (kernel_ab.py).
+// Threads a lane: mea_multi gives a lane half a warp up to Wp 32 (two lanes
+// a warp, ceil(Wp / 16) rows a thread); a warp a lane above, as K4 always.
+// On an H100 at [1024, 24, 4096] half a warp took 0.559 ms, a warp 0.725
+// (kernel_ab.py); at Wp 48 half a warp's weight tiles leave one block of 8
+// warps an SM.
+inline int mea_threads(int Wp, bool multi) {
+  return multi && Wp <= 32 ? 16 : 32;
+}
+
+template <int LPB, bool MULTI, int T>
+const void* mea_kernel_tma(int rpt, bool tma) {
+  return tma ? mea_kernel_rpt<LPB, true, MULTI, T>(rpt)
+             : mea_kernel_rpt<LPB, false, MULTI, T>(rpt);
+}
+
+// The kernel of K4 (mea_multi) with LPB lanes a block at (Wp, tma).
+template <int LPB>
+const void* mea_kernel_of(int Wp, bool tma, bool multi) {
+  const int rpt = mk::rows_per_thread(Wp);
+  if (mea_threads(Wp, multi) == 16) {
+    if constexpr (LPB >= 16)
+      return mea_kernel_tma<LPB, true, 16>((Wp + 15) / 16, tma);
+    return nullptr;
+  }
+  if constexpr (LPB == 32)  // 1024 threads: K4 at one row a thread only
+    return rpt != 1 || multi
+               ? nullptr
+               : (tma ? (const void*)mea_warp_kernel<1, 32, true, false, 32>
+                      : (const void*)mea_warp_kernel<1, 32, false, false, 32>);
+  else
+    return multi ? mea_kernel_tma<LPB, true, 32>(rpt, tma)
+                 : mea_kernel_tma<LPB, false, 32>(rpt, tma);
+}
+
+// Whether K4's (mea_multi's) launch at (Wp, B) takes TMA: B a multiple of
+// 4 (the maps' row strides are multiples of 16 bytes), at most two rows a
+// thread, and the maps can be encoded.  At three and four rows a thread the
+// swizzled planes' 4-way bank conflicts cost more than TMA saves: on an
+// H100 at Wp 96 / 128 over 1024 lanes TMA took 3.93 / 5.02 ms, cp.async
+// 3.67 / 4.51 (kernel_ab.py).
 bool mea_tma(int Wp, int B) {
   return B % 4 == 0 && mk::rows_per_thread(Wp) <= 2 &&
          mk::tensor_map_encoder() != nullptr;
 }
 
-// The tensor map of one weight band [D1, Wp, B] for K4's boxes.
+// The tensor map of one weight band [D1, Wp, B] for K4's (mea_multi's)
+// boxes.
 bool mea_map(CUtensorMap* m, const float* band, int D1, int Wp, int B,
              int lpb) {
   return mk::band_map(m, band, D1, Wp, B, lpb,
@@ -591,53 +542,89 @@ bool mea_map(CUtensorMap* m, const float* band, int D1, int Wp, int B,
 // probe_mea) [3072, 24, 4096] took 1.71 ms at 32 lanes, 2.02 at 16, 5.79 at
 // 8; [512, 24, 2048] 0.173 at 16, 0.184 at 8; [3072, 24, 1024] 0.76 at 8,
 // 1.02 at 16 (64 blocks).  mk::warp_lanes (16 from 16 x SMs lanes on)
-// would leave 2048 lanes at 8 and 4096 at 16.
-cudaError_t mea_lanes(int Wp, int B, bool tma, int* lanes) {
-  int dev = 0, sms = 0, cap = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(
-        &cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+// would leave 2048 lanes at 8 and 4096 at 16.  mea_multi takes the same
+// rule; at half a warp a lane its blocks of 32 lanes take 512 threads at
+// any rows a thread, and it takes no fewer than 16.
+cudaError_t mea_lanes(int Wp, int B, bool tma, bool multi, int* lanes) {
+  int sms = 0, cap = 0;
+  cudaError_t err = mk::device_shape(&sms, &cap);
   if (err != cudaSuccess) return err;
-  for (int l = 32; l >= 8; l /= 2) {
-    if (l == 32 && mk::rows_per_thread(Wp) > 1) continue;
-    if (mea_smem(Wp, l, tma) > (size_t)cap) continue;
-    if (l > 8 && (B + l - 1) / l < sms - sms / 16) continue;
+  const bool half = mea_threads(Wp, multi) == 16;
+  for (int l = 32; l >= (half ? 16 : 8); l /= 2) {
+    if (l == 32 && !half && mk::rows_per_thread(Wp) > 1) continue;
+    if (mea_smem(Wp, l, tma, multi) > (size_t)cap) continue;
+    if (l > (half ? 16 : 8) && !mk::fills(B, l, sms)) continue;
     *lanes = l;
     return cudaSuccess;
   }
   return cudaErrorInvalidValue;
 }
 
-// The kernel, lanes a block (mea_lanes) and shared memory of K4's launch
-// at (Wp, B) with or without TMA, its shared memory opted in.
-cudaError_t mea_setup(int Wp, int B, bool tma, const void** kernel,
-                      int* lanes, size_t* smem) {
+// The kernel, lanes a block (mea_lanes) and shared memory of K4's
+// (mea_multi's) launch at (Wp, B) with or without TMA, its shared memory
+// opted in.
+cudaError_t mea_setup(int Wp, int B, bool tma, bool multi,
+                      const void** kernel, int* lanes, size_t* smem) {
   if (Wp < 1 || mk::rows_per_thread(Wp) > mk::MAX_RPT)
     return cudaErrorInvalidValue;
-  cudaError_t err = mea_lanes(Wp, B, tma, lanes);
+  cudaError_t err = mea_lanes(Wp, B, tma, multi, lanes);
   if (err != cudaSuccess) return err;
   switch (*lanes) {
-    case 8:
-      *kernel =
-          tma ? mea_kernel_rpt<8, true>(Wp) : mea_kernel_rpt<8, false>(Wp);
-      break;
-    case 16:
-      *kernel =
-          tma ? mea_kernel_rpt<16, true>(Wp) : mea_kernel_rpt<16, false>(Wp);
-      break;
-    case 32:
-      if (mk::rows_per_thread(Wp) != 1) return cudaErrorInvalidValue;
-      *kernel = tma ? (const void*)mea_warp_kernel<1, 32, true>
-                    : (const void*)mea_warp_kernel<1, 32, false>;
-      break;
+    case 8: *kernel = mea_kernel_of<8>(Wp, tma, multi); break;
+    case 16: *kernel = mea_kernel_of<16>(Wp, tma, multi); break;
+    case 32: *kernel = mea_kernel_of<32>(Wp, tma, multi); break;
     default: return cudaErrorInvalidValue;
   }
   if (*kernel == nullptr) return cudaErrorInvalidValue;
-  *smem = mea_smem(Wp, *lanes, tma);
+  *smem = mea_smem(Wp, *lanes, tma, multi);
   return mk::allow_smem(*kernel, *smem);
+}
+
+// Launches K4 or mea_multi (ms.term non-null): TMA where mea_tma allows it
+// and the bands' maps encode, else cp.async.
+cudaError_t mea_launch(const BandWeights& w, const int32_t* final_d,
+                       const int32_t* final_k, mk::MultiSteps ms, int D1,
+                       uint8_t* ptr, float* score, cudaStream_t stream) {
+  const int Wp = w.Wp, B = w.B;
+  if (D1 < 1 || B < 1) return cudaErrorInvalidValue;
+  const bool multi = ms.term != nullptr;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  MeaMaps maps;
+  memset(&maps, 0, sizeof(maps));
+  bool tma = mea_tma(Wp, B);
+  cudaError_t err = mea_setup(Wp, B, tma, multi, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  if (tma && !(mea_map(&maps.wd, w.wdiag, D1, Wp, B, lanes) &&
+               mea_map(&maps.wu, w.wup, D1, Wp, B, lanes) &&
+               mea_map(&maps.wl, w.wleft, D1, Wp, B, lanes))) {
+    tma = false;
+    err = mea_setup(Wp, B, tma, multi, &kernel, &lanes, &smem);
+    if (err != cudaSuccess) return err;
+  }
+  BandWeights wts = w;
+  int vec = mk::words_aligned(B, {w.valid, ptr, ms.start});
+  void* args[] = {&wts, &maps, &final_d, &final_k, &ms,
+                  &D1,  &vec,  &ptr,     &score};
+  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes),
+                          dim3(mea_threads(Wp, multi) * lanes), args, smem,
+                          stream);
+}
+
+// What K4's (mea_multi's) launch at band width Wp over B lanes gets on this
+// device (mk::kernel_info's out[5] and out[5], its lanes a block), with
+// TMA where B allows it.
+cudaError_t mea_info(int Wp, int B, bool multi, int* out) {
+  if (B < 1) return cudaErrorInvalidValue;
+  const void* kernel;
+  int lanes;
+  size_t smem;
+  cudaError_t err =
+      mea_setup(Wp, B, mea_tma(Wp, B), multi, &kernel, &lanes, &smem);
+  if (err != cudaSuccess) return err;
+  out[5] = lanes;
+  return mk::kernel_info(kernel, smem, mea_threads(Wp, multi) * lanes, out);
 }
 
 // ------------------------------------------------------ D: warp per lane
@@ -1020,42 +1007,14 @@ extern "C" int banded_mea_launch(const float* wdiag, const float* wup,
                                  const int32_t* final_k, int D1, int Wp,
                                  int B, uint8_t* ptr, float* score,
                                  void* stream) {
-  if (D1 < 1 || B < 1) return cudaErrorInvalidValue;
-  const void* kernel;
-  int lanes;
-  size_t smem;
-  BandWeights w{wdiag, wup, wleft, valid, s1, s2, Wp, B};
-  MeaMaps maps;
-  memset(&maps, 0, sizeof(maps));
-  bool tma = mea_tma(Wp, B);
-  cudaError_t err = mea_setup(Wp, B, tma, &kernel, &lanes, &smem);
-  if (err != cudaSuccess) return err;
-  if (tma && !(mea_map(&maps.wd, wdiag, D1, Wp, B, lanes) &&
-               mea_map(&maps.wu, wup, D1, Wp, B, lanes) &&
-               mea_map(&maps.wl, wleft, D1, Wp, B, lanes))) {
-    tma = false;
-    err = mea_setup(Wp, B, tma, &kernel, &lanes, &smem);
-    if (err != cudaSuccess) return err;
-  }
-  int vec = mk::words_aligned(B, {valid, ptr});
-  void* args[] = {&w, &maps, &final_d, &final_k, &D1, &vec, &ptr, &score};
-  return cudaLaunchKernel(kernel, dim3((B + lanes - 1) / lanes),
-                          dim3(32 * lanes), args, smem,
-                          (cudaStream_t)stream);
+  return mea_launch(BandWeights{wdiag, wup, wleft, valid, s1, s2, Wp, B},
+                    final_d, final_k,
+                    mk::MultiSteps{nullptr, nullptr, nullptr, nullptr}, D1,
+                    ptr, score, (cudaStream_t)stream);
 }
 
-// What K4's launch at band width Wp over B lanes gets on this device
-// (mk::kernel_info's out[5]; its lanes a block are out[3] / 32), with TMA
-// where B allows it.
 extern "C" int banded_mea_info(int Wp, int B, int* out) {
-  if (B < 1) return cudaErrorInvalidValue;
-  const void* kernel;
-  int lanes;
-  size_t smem;
-  cudaError_t err =
-      mea_setup(Wp, B, mea_tma(Wp, B), &kernel, &lanes, &smem);
-  if (err != cudaSuccess) return err;
-  return mk::kernel_info(kernel, smem, 32 * lanes, out);
+  return mea_info(Wp, B, false, out);
 }
 
 extern "C" int mea_dl_launch(const float* post, const int32_t* lo,
@@ -1082,7 +1041,7 @@ extern "C" int mea_dl_launch(const float* post, const int32_t* lo,
 }
 
 // What D's launch at band width Wp over B lanes gets on this device
-// (mk::kernel_info's out[5]; its lanes a block are out[3] / 32).
+// (mk::kernel_info's out[5] and out[5], its lanes a block).
 extern "C" int mea_dl_info(int Wp, int B, int* out) {
   if (B < 1) return cudaErrorInvalidValue;
   const void* kernel;
@@ -1090,6 +1049,7 @@ extern "C" int mea_dl_info(int Wp, int B, int* out) {
   size_t smem;
   cudaError_t err = dl_setup(Wp, B, &kernel, &lanes, &smem);
   if (err != cudaSuccess) return err;
+  out[5] = lanes;
   return mk::kernel_info(kernel, smem, 32 * lanes, out);
 }
 
@@ -1099,8 +1059,12 @@ extern "C" int mea_multi_launch(const float* wdiag, const float* wup,
                                 const int8_t* start, const int32_t* fink,
                                 const int32_t* find, int D1, int Wp, int B,
                                 uint8_t* ptr, float* term, void* stream) {
-  const BandWeights w{wdiag, wup, wleft, valid, s1, s2, Wp, B};
-  const MultiSteps ms{start, fink, find, term};
-  return dispatch<true>(w, nullptr, nullptr, ms, D1, Wp, B, ptr, nullptr,
-                        stream);
+  if (term == nullptr) return cudaErrorInvalidValue;
+  return mea_launch(BandWeights{wdiag, wup, wleft, valid, s1, s2, Wp, B},
+                    nullptr, nullptr, mk::MultiSteps{start, fink, find, term},
+                    D1, ptr, nullptr, (cudaStream_t)stream);
+}
+
+extern "C" int mea_multi_info(int Wp, int B, int* out) {
+  return mea_info(Wp, B, true, out);
 }

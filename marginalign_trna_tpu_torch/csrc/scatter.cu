@@ -16,29 +16,35 @@
 // lanes over 7168 positions), so one add a cell into global memory, as the
 // first design did, serialises same-address atomics in L2 (0.184 ms against
 // a 0.023 ms bound there).  The design:
+//   - the sums are kept in 64-bit fixed point, X_ONE units a 1: each value
+//     is rounded once to a multiple of 2^-32 (exact for |v| >= 2^-9) and
+//     integer adds commute, so the sums do not depend on the order in which
+//     the threads reach them: two launches are bit-identical, whatever the
+//     lane groups, and each output is its exact fixed-point sum rounded once
+//     to float32.  Values and sums must stay below 2^31 in magnitude (the
+//     caller's values are expected base counts in [0, 1]);
 //   - a block owns a group of lanes (a power of two, at most one group an
 //     SM) and a window of output rows [0, rows) in shared memory (X_WIN
-//     floats, 128 KB: 8192 rows at C = 4, the caller's whole output below
-//     8192 positions); its threads walk the group's cells, lanes fastest
+//     64-bit sums, 224 KB: 7168 rows at C = 4, the caller's whole output up
+//     to 7168 positions); its threads walk the group's cells, lanes fastest
 //     (coalesced), four at a time with the targets' loads first, and add
-//     each targeted value into the window (a float add to shared memory is
-//     a compare-and-swap loop on this card, ATOMS.CAST.SPIN);
-//   - a target past the window goes straight into the output (one 16-byte
-//     atomic at C = 4): each block covers every row once, so any rg is
-//     served, and past 8192 positions a position is covered by fewer
-//     lanes, so fewer adds meet at one address;
-//   - a block writes its window out whole: into the output where there is
-//     one lane group, else as the group's partial [groups, rows, C], which
-//     a second pass sums in group order, one thread an output element.
-// On an H100 at [4, 152, 65536] (kernel_ab.py) that took 0.15 ms at rg
-// 7168, about half of it in the window's compare-and-swap loops (plain
-// adds: 0.08; gathering a warp's adds 32 at a time through a queue, or two
-// channels a 64-bit loop, no faster), and 0.10 ms at rg 65536 (the 16-byte
-// atomics past the window: 0.22 as four scalar ones), against 0.26 and
-// 0.20 for one global atomic a value.  The adds inside a block and those
-// past the window arrive in the order the threads reach them, so the sums
-// agree with the plain version to float32 rounding, not bit for bit; the
-// partials are summed in a fixed order.
+//     each targeted value into the window as two 32-bit integer atomics
+//     (the low word's add returns its carry to the high word; values in
+//     [0, 1) need the second add only on a carry);
+//   - a target past the window goes into a zeroed 64-bit accumulator of
+//     rows [rows, rg) in device memory (a 64-bit integer atomic a channel):
+//     each block covers every row once, so any rg is served, and past the
+//     window a position is covered by fewer lanes, so fewer adds meet at
+//     one address;
+//   - a block writes its window out whole as the group's partial
+//     [groups, rows, C]; a second pass sums the partials (exactly) and
+//     converts every output, the accumulator's rows too, one thread an
+//     output element.
+// A float add to shared memory is a compare-and-swap loop on this card
+// (ATOMS.CAST.SPIN); the float design before this one took 0.15 ms at rg
+// 7168 on an H100 (kernel_ab.py), about half of it in those loops, and its
+// sums came in the order the threads reached them (launches agreed to
+// float32 rounding, not bit for bit).
 
 // scatter_lanes (L), the MEA's per-lane row and column posterior sums:
 //   out[v, b] = sum over d with jm[d, b] == v of vals[d, b].
@@ -84,8 +90,9 @@ namespace {
 // ------------------------------------------------- X: windows of lanes
 
 constexpr int X_THREADS = 1024;  // threads a block (one block an SM)
-constexpr int X_WIN = 32768;     // floats of a block's output window
+constexpr int X_WIN = 28672;     // 64-bit sums of a block's output window
 constexpr int X_UNROLL = 4;      // cells a thread takes per step
+constexpr float X_ONE = 4294967296.f;  // fixed-point units a 1 (2^32)
 
 // X's launch at (C, B, rg): output rows of the window, lanes a group
 // (1 << shift) and lane groups (one block each).
@@ -109,50 +116,54 @@ inline cudaError_t lanesum_plan(int C, int B, int rg, LanesumPlan* p) {
   return cudaSuccess;
 }
 
-// Dynamic shared memory of a block: the window.
+// Dynamic shared memory of a block: the window's low and high words.
 inline size_t lanesum_smem(int C, int rows) {
-  return (size_t)rows * C * sizeof(float);
+  return (size_t)rows * C * 2 * sizeof(uint32_t);
 }
 
-// Adds the four values to out[0..3] (global memory, 16-byte aligned).
-__device__ __forceinline__ void global_add4(float* out, const float4& v) {
-#if __CUDACC_VER_MAJOR__ > 12 || \
-    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
-  atomicAdd(reinterpret_cast<float4*>(out), v);
-#else
-  atomicAdd(out, v.x);
-  atomicAdd(out + 1, v.y);
-  atomicAdd(out + 2, v.z);
-  atomicAdd(out + 3, v.w);
-#endif
+// A value in fixed point (round to nearest).
+__device__ __forceinline__ long long fixed(float v) {
+  return __float2ll_rn(v * X_ONE);
 }
 
-// Adds the four values to the window's row (a float add to shared memory is
-// a compare-and-swap loop on this card, one a channel).
-__device__ __forceinline__ void window_add4(float* row, const float4& v) {
-  if (v.x != 0.f) atomicAdd(row, v.x);
-  if (v.y != 0.f) atomicAdd(row + 1, v.y);
-  if (v.z != 0.f) atomicAdd(row + 2, v.z);
-  if (v.w != 0.f) atomicAdd(row + 3, v.w);
+// Adds q to the window's sum at word i: its low word (lo, unsigned) by one
+// atomic whose old value gives the carry, the high word (hi) by a second
+// atomic where q's high word and the carry do not cancel.  Exact whatever
+// the order of the adds.
+__device__ __forceinline__ void window_add(uint32_t* lo, int32_t* hi, int i,
+                                           long long q) {
+  if (q == 0) return;
+  const uint32_t ql = (uint32_t)q;
+  const uint32_t old = atomicAdd(lo + i, ql);
+  const int32_t h = (int32_t)(q >> 32) + (old + ql < old ? 1 : 0);
+  if (h != 0) atomicAdd(hi + i, h);
+}
+
+// Adds q to a sum of the device-memory accumulator.
+__device__ __forceinline__ void global_add(long long* at, long long q) {
+  if (q != 0)
+    atomicAdd(reinterpret_cast<unsigned long long*>(at),
+              (unsigned long long)q);
 }
 
 // One block per lane group: adds the group's values whose targets fall in
 // the window (output rows [0, rows)) into shared memory, the others (rows
-// [rows, rg)) straight into out, and writes the window to the group's
-// partial [rows, C] in part, or into out itself where there is one group.
-// CT is C where it is known at compile time (the caller's 4), else 0.
+// [rows, rg)) into acc [rg - rows, C], and writes the window to the group's
+// partial [rows, C] in part.  CT is C where it is known at compile time
+// (the caller's 4), else 0.
 template <int CT>
 __global__ void __launch_bounds__(X_THREADS, 1)
     lanesum_window_kernel(const float* __restrict__ vals,
                           const int32_t* __restrict__ jm, int C, int D, int B,
-                          int rg, LanesumPlan p, float* __restrict__ part,
-                          float* __restrict__ out) {
-  extern __shared__ __align__(16) float x_win[];
+                          int rg, LanesumPlan p, long long* __restrict__ part,
+                          long long* __restrict__ acc) {
+  extern __shared__ __align__(16) uint32_t x_lo[];
   const int nc = CT > 0 ? CT : C;
   const int n = p.rows, g = blockIdx.x;
+  int32_t* x_hi = reinterpret_cast<int32_t*>(x_lo + n * nc);
   const int b0 = g << p.shift;
   const int mask = (1 << p.shift) - 1;
-  for (int i = threadIdx.x; i < n * nc; i += X_THREADS) x_win[i] = 0.f;
+  for (int i = threadIdx.x; i < 2 * n * nc; i += X_THREADS) x_lo[i] = 0;
   __syncthreads();
   const size_t cells = (size_t)D * B;
   const long long total = (long long)D << p.shift;
@@ -179,41 +190,56 @@ __global__ void __launch_bounds__(X_THREADS, 1)
       }
 #pragma unroll
       for (int u = 0; u < X_UNROLL; ++u) {
-        if ((unsigned)t[u] < (unsigned)n)
-          window_add4(x_win + t[u] * 4, x[u]);
-        else if ((unsigned)t[u] < (unsigned)rg)
-          global_add4(out + (size_t)t[u] * 4, x[u]);
+        const long long q[4] = {fixed(x[u].x), fixed(x[u].y), fixed(x[u].z),
+                                fixed(x[u].w)};
+        if ((unsigned)t[u] < (unsigned)n) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            window_add(x_lo, x_hi, t[u] * 4 + c, q[c]);
+        } else if ((unsigned)t[u] < (unsigned)rg) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            global_add(acc + (size_t)(t[u] - n) * 4 + c, q[c]);
+        }
       }
     } else {
 #pragma unroll
       for (int u = 0; u < X_UNROLL; ++u) {
         if ((t[u] < 0) | (t[u] >= rg)) continue;
         for (int c = 0; c < nc; ++c) {
-          const float x = vals[(size_t)c * cells + at[u]];
-          if (x == 0.f) continue;
+          const long long q = fixed(vals[(size_t)c * cells + at[u]]);
           if (t[u] < n)
-            atomicAdd(&x_win[t[u] * nc + c], x);
+            window_add(x_lo, x_hi, t[u] * nc + c, q);
           else
-            atomicAdd(out + (size_t)t[u] * nc + c, x);
+            global_add(acc + (size_t)(t[u] - n) * nc + c, q);
         }
       }
     }
   }
   __syncthreads();
-  float* win = p.groups > 1 ? part + (size_t)g * n * nc : out;
-  for (int i = threadIdx.x; i < n * nc; i += X_THREADS) win[i] = x_win[i];
+  long long* win = part + (size_t)g * n * nc;
+  for (int i = threadIdx.x; i < n * nc; i += X_THREADS)
+    win[i] = (long long)(((uint64_t)(uint32_t)x_hi[i] << 32) | x_lo[i]);
 }
 
-// out[e] = the lane groups' partials part[g][e] summed in group order.
+// out[e] for e < n (the window's rows): the lane groups' partials
+// part[g][e] summed (exactly, in group order); past them acc[e - n]; each
+// sum converted once to float32.
 __global__ void __launch_bounds__(256)
-    lanesum_reduce_kernel(const float* __restrict__ part, int groups,
-                          size_t n, float* __restrict__ out) {
+    lanesum_reduce_kernel(const long long* __restrict__ part, int groups,
+                          size_t n, const long long* __restrict__ acc,
+                          size_t total, float* __restrict__ out) {
   const size_t e = (size_t)blockIdx.x * 256 + threadIdx.x;
-  if (e >= n) return;
-  float s = part[e];
+  if (e >= total) return;
+  long long s;
+  if (e < n) {
+    s = part[e];
 #pragma unroll 8
-  for (int g = 1; g < groups; ++g) s += part[(size_t)g * n + e];
-  out[e] = s;
+    for (int g = 1; g < groups; ++g) s += part[(size_t)g * n + e];
+  } else {
+    s = acc[e - n];
+  }
+  out[e] = __ll2float_rn(s) * (1.f / X_ONE);
 }
 
 const void* lanesum_kernel(int C) {
@@ -497,8 +523,8 @@ __global__ void __launch_bounds__(L_LANES * L_CHUNKS, 8)
 // a cudaError_t code.
 
 // X's plan at (C, B, rg) on this device: out[0] its lane groups, out[1]
-// the rows of its output window; where there is more than one group the
-// launch takes a scratch of groups * rows * C floats.
+// the rows of its output window; the launch takes a scratch of
+// (groups * rows + rg - rows) * C 64-bit sums (scatter_lanesum_launch).
 extern "C" int scatter_lanesum_plan(int C, int B, int rg, int* out) {
   LanesumPlan p;
   const cudaError_t err = lanesum_plan(C, B, rg, &p);
@@ -519,30 +545,31 @@ extern "C" int scatter_lanesum_info(int C, int B, int rg, int* out) {
                          X_THREADS, out);
 }
 
-// out [rg, C], zeroed by the caller; part: the scratch of the plan's
-// `groups` lane groups' windows (scatter_lanesum_plan), unused at one.
+// out [rg, C]; scratch: (groups * rows + rg - rows) * C 64-bit sums of the
+// plan (scatter_lanesum_plan), the groups' partials [groups, rows, C] and
+// the accumulator of rows [rows, rg), which the caller zeroes.
 extern "C" int scatter_lanesum_launch(const float* vals, const int32_t* jm,
                                       int C, int D, int B, int rg,
-                                      float* part, int groups, float* out,
-                                      void* stream) {
+                                      long long* scratch, int groups,
+                                      float* out, void* stream) {
   if (D < 1) return cudaErrorInvalidValue;
   LanesumPlan p;
   cudaError_t err = lanesum_plan(C, B, rg, &p);
   if (err != cudaSuccess) return err;
-  if (groups != p.groups || (groups > 1 && part == nullptr))
-    return cudaErrorInvalidValue;
+  if (groups != p.groups || scratch == nullptr) return cudaErrorInvalidValue;
   const void* kernel = lanesum_kernel(C);
   const size_t smem = lanesum_smem(C, p.rows);
   err = mk::allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  void* args[] = {&vals, &jm, &C, &D, &B, &rg, &p, &part, &out};
+  const size_t n = (size_t)p.rows * C, total = (size_t)rg * C;
+  long long* acc = scratch + (size_t)groups * n;
+  void* args[] = {&vals, &jm, &C, &D, &B, &rg, &p, &scratch, &acc};
   const cudaStream_t s = (cudaStream_t)stream;
   err = cudaLaunchKernel(kernel, dim3(p.groups), dim3(X_THREADS), args, smem,
                          s);
-  if (err != cudaSuccess || groups == 1) return err;
-  const size_t n = (size_t)p.rows * C;
-  lanesum_reduce_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(
-      part, groups, n, out);
+  if (err != cudaSuccess) return err;
+  lanesum_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
+      scratch, groups, n, acc, total, out);
   return cudaGetLastError();
 }
 

@@ -64,7 +64,7 @@ _SIGNATURES: Dict[str, List] = {
     # es, yb, fr, bm, bls, logZ, coef(host), chain, d1k, Wp, B, fl, tails,
     # stream
     "cx_forward": [_P] * 7 + [_I] * 4 + [_P] * 3,
-    # vals, jm, C, D, B, rg, part (scratch or null), groups, out, stream
+    # vals, jm, C, D, B, rg, scratch (int64), groups, out, stream
     "scatter_lanesum": [_P] * 2 + [_I] * 4 + [_P, _I] + [_P] * 2,
     # reads, refs, lo, m, n, Mp, Np, D1, d1k, Wp, B, xb, yb, stream
     "expand_rel": [_P] * 5 + [_I] * 6 + [_P] * 3,
@@ -146,8 +146,7 @@ _QUERIES: Dict[str, List] = {
     # backward, multi, ntr, Wp, B, out[5] (csrc/fb_counts.cu: the stored
     # pair)
     "counts_stored_info": [_I, _I, _I, _I, _I, _P],
-    # Wp, B, out[5] (csrc/fb_circ.cu, csrc/nw.cu, csrc/mea.cu); Wp, out[5]
-    # (csrc/expand.cu)
+    # Wp, B, out[5] (csrc/fb_circ.cu); Wp, out[5] (csrc/expand.cu)
     "mw_forward_info": [_I, _I, _P],
     "cx_forward_info": [_I, _I, _P],
     "sv_backward_info": [_I, _I, _P],
@@ -160,9 +159,13 @@ _QUERIES: Dict[str, List] = {
     "circ_ckpt_info": [_I, _I, _I, _I, _P],
     # Wp, B, KB, out[2]: scratch floats a block (0: none), blocks
     "circ_ckpt_post_scratch": [_I, _I, _I, _P],
+    # Wp, B, out[6]: out[5] and the lanes a block (csrc/nw.cu,
+    # csrc/mea.cu; ops/wavefront_cuda.py `warp_lane_resources`)
     "banded_nw_info": [_I, _I, _P],
     "mea_dl_info": [_I, _I, _P],
     "banded_mea_info": [_I, _I, _P],
+    "nw_multi_info": [_I, _I, _P],
+    "mea_multi_info": [_I, _I, _P],
     # backward, Wp, B, out[5] (csrc/fb.cu: K2, K3; csrc/fb_multi.cu: the
     # multi-lane pair)
     "fb_rel_info": [_I, _I, _I, _P],

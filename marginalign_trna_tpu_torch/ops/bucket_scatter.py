@@ -8,14 +8,19 @@ kernel places values by residue masks in aligned groups of 128 rows,
 because per-lane gathers and scatters scalarise there, and keeps its
 [rg, C] output resident in VMEM (the JAX package drops to a chunked kernel
 above 65536 positions for that reason).  On the card a block owns a group
-of lanes and a window of output rows [0, 8192) in shared memory (at C = 4:
-the caller's whole output below 8192 positions), adds its lanes' values
-that target the window there and the others straight into the output, and
-writes the window out; where there is more than one lane group a second
-pass sums the groups' windows in group order (`scatter_lanesum_plan` gives
-the groups and rows, for the scratch).  The adds inside a block and those
-past the window come in no fixed order, so the kernel agrees with the
-plain version to float32 rounding of the sums, not bit for bit.
+of lanes and a window of output rows [0, 7168) in shared memory (at C = 4:
+the caller's whole output up to 7168 positions), adds its lanes' values
+that target the window there and the others into an accumulator in device
+memory, and writes the window out as its group's partial; a second pass
+sums the partials and converts every output (`scatter_lanesum_plan` gives
+the groups and rows, for the scratch).  The sums are kept in 64-bit fixed
+point (2^-32 units, integer adds), so they do not depend on the order of
+the adds: two launches are bit-identical, and each output is its exact
+fixed-point sum rounded once to float32 (values and sums below 2^31 in
+magnitude; the caller's are expected base counts in [0, 1]).  The plain
+version sums in float64 and rounds once to float32, so the order of
+`scatter_add_`'s adds moves it by float64 rounding only (a float32 sum of
+2.5e5 values in one row drifted past rtol 1e-5).
 
 L is the port of that module's `bucket_scatter` (called through
 `bucket_scatter_chunked`), the per-lane scatter of the MEA's row and column
@@ -50,20 +55,21 @@ def scatter_lanesum_plain(vals: torch.Tensor, jm: torch.Tensor,
                           rg: int) -> torch.Tensor:
     """Plain version of the scatter_lanesum kernel: [rg, C] float32 from
     vals [C, D, B] float32 and targets jm [D, B] int32 (-1, and anything
-    outside [0, rg), adds nowhere)."""
+    outside [0, rg), adds nowhere); summed in float64, rounded once."""
     C = vals.shape[0]
     tgt = torch.where((jm >= 0) & (jm < rg), jm, rg).long().reshape(-1)
-    out = vals.new_zeros((rg + 1, C))
-    out.scatter_add_(0, tgt[:, None].expand(-1, C), vals.reshape(C, -1).t())
-    return out[:rg]
+    out = vals.new_zeros((rg + 1, C), dtype=torch.float64)
+    out.scatter_add_(0, tgt[:, None].expand(-1, C),
+                     vals.reshape(C, -1).t().double())
+    return out[:rg].float()
 
 
 def scatter_lanesum_plan(device: torch.device, C: int, B: int,
                          rg: int) -> Tuple[int, int]:
     """(lane groups, window rows) of the scatter_lanesum kernel's launch at
     (C, B, rg) on `device` (csrc/scatter.cu `lanesum_plan`): one block per
-    group, its window the output rows [0, rows); above one group, the
-    launch sums the groups' windows from a scratch."""
+    group, its window the output rows [0, rows); the launch sums the
+    groups' windows from a scratch."""
     out = (ctypes.c_int * 2)()
     _build.query("scatter_lanesum_plan", device, C, B, rg,
                  ctypes.addressof(out))
@@ -83,18 +89,19 @@ def scatter_lanesum_resources(device: torch.device, C: int, B: int,
 def scatter_lanesum_cuda(vals: torch.Tensor, jm: torch.Tensor,
                          rg: int) -> torch.Tensor:
     """The scatter_lanesum kernel (csrc/scatter.cu); the plain version's
-    function, summed in another order."""
+    function, each value first rounded to a multiple of 2^-32."""
     C, D, B = vals.shape
     dev = vals.device
     check_tensor(vals, torch.float32, (C, D, B), dev)
     check_tensor(jm, torch.int32, (D, B), dev)
     groups, rows = scatter_lanesum_plan(dev, C, B, rg)
-    out = torch.zeros((rg, C), dtype=torch.float32, device=dev)
-    part = (torch.empty((groups, rows, C), dtype=torch.float32, device=dev)
-            if groups > 1 else None)
+    out = torch.empty((rg, C), dtype=torch.float32, device=dev)
+    # The groups' partials, then the zeroed accumulator of rows [rows, rg).
+    scratch = torch.empty(((groups * rows + rg - rows) * C,),
+                          dtype=torch.int64, device=dev)
+    scratch[groups * rows * C:].zero_()
     _build.launch("scatter_lanesum", dev, vals.data_ptr(), jm.data_ptr(),
-                  C, D, B, rg, None if part is None else part.data_ptr(),
-                  groups, out.data_ptr())
+                  C, D, B, rg, scratch.data_ptr(), groups, out.data_ptr())
     return out
 
 

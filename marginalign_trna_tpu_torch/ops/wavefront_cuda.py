@@ -9,9 +9,11 @@ column posterior sums), and over lanes that hold several problems
 (nw_multi) and `banded_mea_pallas_multi` (mea_multi): their frontiers start
 at NEG, each problem's first diagonal seeds row 0, and the score at each
 problem's terminal cell leaves on its terminal diagonal (term, NEG
-elsewhere).  Max-plus scores need no rescaling, so both
-versions only shift, add and compare; with the same order of operations
-(circular row shifts, first-max-wins ties) they agree bit for bit.
+elsewhere).  On the card nw_multi and mea_multi are the multi instances of
+K1's and K4's kernels (a lane on a warp, or on a half or a quarter of one
+at narrow bands).  Max-plus scores need no rescaling, so both versions
+only shift, add and compare; with the same order of operations (circular
+row shifts, first-max-wins ties) they agree bit for bit.
 
 Pointer encodings (read by the native host tracebacks):
   NW:  uint8  ptrM (2 bits) | ptrIx << 2 | ptrIy << 3
@@ -19,6 +21,7 @@ Pointer encodings (read by the native host tracebacks):
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Dict, Tuple
 
 import torch
@@ -120,14 +123,20 @@ def banded_nw_cuda(params, xb, yb, valid, s1, s2, final_d, final_k):
 def warp_lane_resources(name: str, device: torch.device, wp: int,
                         B: int) -> Dict[str, int]:
     """What a launch of the warp-per-lane kernel `name` (banded_nw,
-    banded_mea or mea_dl) over B lanes at band width `wp` gets on `device`:
-    registers per thread, shared memory per block, blocks per SM, threads
-    per block, local memory per thread (spills) and the lanes a block,
-    which csrc/common.cuh `warp_lanes` (K4: csrc/mea.cu `mea_lanes`)
-    chooses from B, the SM count and the shared memory a block may
-    take."""
-    res = _build.resources(name + "_info", device, wp, B)
-    return {**res, "lanes_per_block": res["threads_per_block"] // 32}
+    nw_multi, banded_mea, mea_multi or mea_dl) over B lanes at band width
+    `wp` gets on `device`: registers per thread, shared memory per block,
+    blocks per SM, threads per block, local memory per thread (spills), the
+    lanes a block, which csrc/common.cuh `warp_lanes` (K4 and mea_multi:
+    csrc/mea.cu `mea_lanes`) chooses from B, the SM count and the shared
+    memory a block may take, and the threads a lane (32, or 16 and 8
+    where nw_multi and mea_multi put two or four lanes in a warp)."""
+    out = (ctypes.c_int * 6)()
+    _build.query(name + "_info", device, wp, B, ctypes.addressof(out))
+    res = dict(zip(("registers", "smem_per_block", "blocks_per_sm",
+                    "threads_per_block", "local_bytes", "lanes_per_block"),
+                   out))
+    return {**res, "threads_per_lane":
+            res["threads_per_block"] // res["lanes_per_block"]}
 
 
 def _multi_terminal(vals, fink, find):

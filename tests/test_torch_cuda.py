@@ -868,6 +868,147 @@ def test_mea_multi_kernel_matches_plain(cuda):
         assert torch.equal(g, r)
 
 
+def _repeat_lanes(t, B):
+    """t [..., lanes] repeated along its lanes to B lanes."""
+    reps = -(-B // t.shape[-1])
+    return t.repeat(*([1] * (t.dim() - 1)), reps)[..., :B].contiguous()
+
+
+def _multi_mixed(cuda, width, B, seed):
+    """A multi-problem batch of 24 noisy pairs of 20-90 bases and one of
+    ~120 (alone in its lane of 256 diagonals, beside lanes of several),
+    its lanes repeated to B, on the card; nw_multi's and mea_multi's
+    arguments on it (mea_multi's weights random: wdiag in [0, 1) with 20%
+    NEG, wup and wleft in [0, 0.5))."""
+    rng = np.random.default_rng(seed)
+    sizes = [int(rng.integers(20, 90)) for _ in range(24)] + [120]
+    refs = [rng.integers(0, 4, n).astype(np.int8) for n in sizes]
+    reads = []
+    for r in refs:
+        read = np.delete(r, [len(r) // 2]).copy()
+        read[rng.random(len(read)) < 0.1] = int(rng.integers(0, 4))
+        reads.append(read)
+    mb = pack_multi_banded_batch(reads, refs, width=width, pad_steps_to=256)
+    per_lane = np.bincount([p.lane for p in mb.problems])
+    assert per_lane.min() == 1 and per_lane.max() > 1, per_lane
+    mdev = multi_device_batch(mb, cuda)
+    streams = [_repeat_lanes(t, B) for t in (
+        mdev.xb, mdev.yb, mdev.valid, mdev.s1, mdev.s2, mdev.start,
+        mdev.fink, mdev.find)]
+    xb, yb, valid, s1, s2, start, fink, find = streams
+    shape = tuple(xb.shape)
+    wdiag = torch.from_numpy(rng.random(shape).astype(np.float32))
+    wdiag[torch.from_numpy(rng.random(shape) < 0.2)] = NEG
+    wup, wleft = (torch.from_numpy(
+        (rng.random(shape) * 0.5).astype(np.float32)) for _ in range(2))
+    nw = ((1.0, -2.0, -3.0, -1.0), xb, yb, valid, s1, s2, start, fink, find)
+    mea = (wdiag.to(cuda), wup.to(cuda), wleft.to(cuda), valid, s1, s2,
+           start, fink, find)
+    return nw, mea
+
+
+def _multi_wave_equal(cuda, name, args):
+    """nw_multi or mea_multi against its plain version: pointers and term
+    bit for bit, one launch."""
+    before = _build.launch_counts[name]
+    got = getattr(wavefront_cuda, name + "_cuda")(*args)
+    ref = getattr(wavefront_cuda, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[name] == before + 1
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert torch.equal(g, r), (name, i)
+
+
+_MULTI_WIDTHS = {"Wp24": 21, "Wp48": 40, "Wp96": 93, "Wp128": 126}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("wide", [False, True], ids=["narrow", "wide"])
+@pytest.mark.parametrize("wp", list(_MULTI_WIDTHS))
+def test_nw_multi_warp_cases(cuda, wp, wide, aligned):
+    """nw_multi, K1's kernel with the MULTI flag, at Wp 24 / 48 / 96 / 128
+    (a quarter of a warp a lane up to Wp 24, half up to 48, a warp above)
+    and at both block sizes it takes there (8 or 16 warps' worth of
+    lanes), over lane counts that are no multiple of either (a multiple of
+    4 or not: rows copied as words or byte by byte), with a lane of one
+    problem beside lanes of several: pointers and term bit-equal to
+    plain."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B = (64 * sms if wide else 45) + (4 if aligned else 5)
+    width = _MULTI_WIDTHS[wp]
+    nw, _ = _multi_mixed(cuda, width, B, seed=width + B)
+    Wp = nw[1].shape[1]
+    T = 8 if Wp <= 24 else (16 if Wp <= 48 else 32)
+    res = wavefront_cuda.warp_lane_resources("nw_multi", cuda, Wp, B)
+    assert res["threads_per_lane"] == T, res
+    assert res["lanes_per_block"] == (32 // T) * (16 if wide else 8), res
+    _multi_wave_equal(cuda, "nw_multi", nw)
+
+
+@pytest.mark.parametrize("case", ["narrow_tma", "narrow_cp_async",
+                                  "mid_tma", "wide_cp_async"])
+@pytest.mark.parametrize("wp", list(_MULTI_WIDTHS))
+def test_mea_multi_warp_cases(cuda, wp, case):
+    """mea_multi, K4's kernel with the MULTI flag, at Wp 24 / 48 / 96 / 128
+    over lane counts that give each block size `mea_lanes` takes (half a
+    warp a lane up to Wp 32: 16 or 32 lanes a block; a warp a lane above:
+    8, 16, or 32 at one row a thread), no multiple of them, B a multiple of
+    4 (TMA up to Wp 64) or not (cp.async), with a lane of one problem
+    beside lanes of several: pointers and term bit-equal to plain."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    B = {"narrow_tma": 44, "narrow_cp_async": 45, "mid_tma": 16 * sms + 4,
+         "wide_cp_async": 32 * sms + 5}[case]
+    width = _MULTI_WIDTHS[wp]
+    _, mea = _multi_mixed(cuda, width, B, seed=width + B)
+    Wp = mea[0].shape[1]
+    res = wavefront_cuda.warp_lane_resources("mea_multi", cuda, Wp, B)
+    assert res["threads_per_lane"] == (16 if Wp <= 32 else 32), res
+    if case.startswith("narrow"):
+        assert res["lanes_per_block"] == (16 if Wp <= 32 else 8), res
+    _multi_wave_equal(cuda, "mea_multi", mea)
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+def test_wavefront_multi_resources(cuda, wp):
+    """nw_multi and mea_multi: one block an SM at least over 1024, 4096
+    and 32 x SMs + 5 lanes, no local memory up to Wp 64; at the multi
+    batch's 4096 lanes and Wp 24 mea_multi takes half a warp a lane and 32
+    lanes a block, nw_multi a quarter and 32 lanes; ptxas reports no spill
+    in any multi instance and no stack frame in those serving Wp <= 64 (a
+    half or a quarter of a warp a lane, or one or two rows of a warp)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for name in ("nw_multi", "mea_multi"):
+        for B in (1024, 4096, 32 * sms + 5):
+            res = wavefront_cuda.warp_lane_resources(name, cuda, wp, B)
+            assert res["blocks_per_sm"] >= 1, (name, B, res)
+            if wp <= 64:
+                assert res["local_bytes"] == 0, (name, B, res)
+    if wp == 24:
+        for name, lanes, T in (("mea_multi", 32, 16), ("nw_multi", 32, 8)):
+            res = wavefront_cuda.warp_lane_resources(name, cuda, 24, 4096)
+            assert res["lanes_per_block"] == lanes, (name, res)
+            assert res["threads_per_lane"] == T, (name, res)
+    fn, frames = None, {}
+    for line in _build.build_log().splitlines():
+        if "Function properties for" in line:
+            fn = line.split()[-1]
+        elif "spill stores" in line and fn:
+            if ("nw_kernelI" in fn or "mea_warp_kernelI" in fn) \
+                    and "Lb1ELi" in fn:
+                frames[fn] = [int(x) for x in line.split()
+                              if x.isdigit()][:3]
+            fn = None
+    # Both kernels at a half (and nw_multi a quarter) of a warp and a warp a
+    # lane, each at two block sizes or more, one to four rows a thread.
+    assert len(frames) >= 16, frames
+    for f, (stack, stores, loads) in frames.items():
+        assert stores == 0 and loads == 0, (f, stack, stores, loads)
+        if "Li16EEEv" in f or "Li8EEEv" in f or (
+                ("kernelILi1E" in f or "kernelILi2E" in f)
+                and "Li32EEEv" in f):
+            assert stack == 0, (f, stack)
+
+
 @pytest.mark.parametrize("ntr", [1, 3])
 def test_counts_multi_kernels_match_plain(cuda, ntr):
     """The four multi-lane counts kernels on the plain versions' inputs, on
@@ -1916,8 +2057,8 @@ def _lanesum_inputs(cuda, C, D, B, rg, seed):
 
 def _lanesum_close(cuda, vals, jm, rg):
     """X against its plain version (rtol 1e-5, atol 1e-4), and two launches
-    against each other (the adds inside a block come in no fixed order:
-    within the same tolerance), two launches counted."""
+    against each other (fixed-point sums: identical), two launches
+    counted."""
     before = _build.launch_counts["scatter_lanesum"]
     out = bucket_scatter.scatter_lanesum_cuda(vals, jm, rg)
     again = bucket_scatter.scatter_lanesum_cuda(vals, jm, rg)
@@ -1927,18 +2068,33 @@ def _lanesum_close(cuda, vals, jm, rg):
     assert out.shape == ref.shape
     assert torch.allclose(out, ref, rtol=1e-5, atol=1e-4), \
         (out - ref).abs().max().item()
-    assert torch.allclose(out, again, rtol=1e-5, atol=1e-4)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.parametrize("rg", [1, 700, 8192, 8193, 3 * 8192 + 5])
 def test_scatter_lanesum_windows(cuda, rg):
-    """X over outputs of one row, within its 8192-row window (C = 4), at
-    its edge and many times past it (those rows added straight into the
-    output), with targets -1 and at or past rg adding nowhere; one lane
-    group and many."""
+    """X over outputs of one row, within its 7168-row window (C = 4), past
+    it and many times past it (those rows added into the device-memory
+    accumulator), with targets -1 and at or past rg adding nowhere; one
+    lane group and many."""
     for B in (37, 9000):
         _lanesum_close(cuda, *_lanesum_inputs(cuda, 4, 41, B, rg,
                                               seed=rg + B), rg)
+
+
+@pytest.mark.parametrize("rg", [1, 700, 8192, 8193, 3 * 8192 + 5])
+def test_scatter_lanesum_launches_identical(cuda, rg):
+    """Two X launches on test_scatter_lanesum_windows' inputs are bit for
+    bit equal (integer sums: no order of the adds shows), and a third
+    after a launch on other inputs too."""
+    for B in (37, 9000):
+        vals, jm = _lanesum_inputs(cuda, 4, 41, B, rg, seed=rg + B)
+        out = bucket_scatter.scatter_lanesum_cuda(vals, jm, rg)
+        again = bucket_scatter.scatter_lanesum_cuda(vals, jm, rg)
+        bucket_scatter.scatter_lanesum_cuda(vals.flip(2).contiguous(), jm,
+                                            rg)
+        third = bucket_scatter.scatter_lanesum_cuda(vals, jm, rg)
+        assert torch.equal(out, again) and torch.equal(out, third), rg
 
 
 @pytest.mark.parametrize("C", [1, 3, 5])
@@ -1955,15 +2111,15 @@ def test_scatter_lanesum_plan(cuda):
     """X's lane groups (one block each) and window rows: one group where
     the lanes are few, more where they fill the SMs (at most one a block of
     every SM: the caller batch's [4, 152, 65536]); the window the whole
-    output up to 32768 / C rows."""
+    output up to 28672 / C rows (64-bit sums)."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     assert bucket_scatter.scatter_lanesum_plan(cuda, 4, 20, 700) == (1, 700)
     g, rows = bucket_scatter.scatter_lanesum_plan(cuda, 4, 65536, 7168)
     assert 1 < g <= sms and rows == 7168, (g, rows)
     assert bucket_scatter.scatter_lanesum_plan(cuda, 4, 65536, 65536) == (
-        g, 8192)
+        g, 7168)
     assert bucket_scatter.scatter_lanesum_plan(cuda, 3, 9, 40000) == (
-        1, 32768 // 3)
+        1, 28672 // 3)
 
 
 def test_scatter_lanesum_caller_shape(cuda):
@@ -1984,7 +2140,7 @@ def test_scatter_lanesum_caller_shape(cuda):
 
 
 def test_scatter_lanesum_resources(cuda):
-    """X's window kernel: 1024 threads, one block an SM with its 112 KB
+    """X's window kernel: 1024 threads, one block an SM with its 224 KB
     window at the caller's rg 7168, no spills and no stack."""
     res = bucket_scatter.scatter_lanesum_resources(cuda, 4, 65536, 7168)
     assert res["threads_per_block"] == 1024, res
