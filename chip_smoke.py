@@ -11,9 +11,12 @@ Phases (any failure exits non-zero without the final result line):
               FB pair or the warp-per-lane serving kernels, and no stack
               frame in these up to two rows a thread (nw_multi up to Wp
               48) nor in X.
-  2. tiny     each of the thirty-four kernels against its plain PyTorch
+  2. tiny     each of the thirty-six kernels against its plain PyTorch
               version on the card at a tiny shape, so a broken kernel fails
-              before the long runs; the eight serving kernels
+              before the long runs; the two traceback kernels byte-equal
+              on 37 lanes (m = 0, n = 0 and length-1 lanes, padding lanes,
+              D1 - 1 not a multiple of 4, NW walks started in M, Ix and
+              Iy); the eight serving kernels
               bit-equal, with a gap-chain model and again with a flat-gap
               model whose gap states 1 and 2 exchange mass (their generic
               5x5 branch), and at WIDE_BANDS (Wp 64 and 128, where the
@@ -27,20 +30,28 @@ Phases (any failure exits non-zero without the final result line):
   3. main     marginAlign (guide -> chain -> realign -> SAM) through
               pipeline.align on a synthetic 1024-read x 3.5 kb corpus with
               two references and both strands, on its default path: the
-              guide through R and K1, realignment through E, S, M, L and D.
-              Every one of those kernels must launch, no other kernel and
-              no host band packer (pack_banded_batch) may run, and the reads
-              must land where they were simulated from.  The shape of every
+              guide through R, K1 and nw_moves, realignment through E, S,
+              M, L, D and mea_moves.  Every one of those kernels must
+              launch, no other kernel, no host band packer
+              (pack_banded_batch) and no native host traceback may run, no
+              pointer band may be copied to the host, and the reads must
+              land where they were simulated from.  The shape of every
               launch is logged and the inputs of each kernel's largest
               launch are kept (one device copy each).
   4. kernels  each of those kernels against its plain version on the inputs
               of its largest main-path launch, with times and bounds (R,
               E, S, M, K1 and D bit-equal, with their resources:
               registers, shared memory a block, blocks an SM, spills, lanes
-              a block of the warp-per-lane kernels S, M, K1 and D).
+              a block of the warp-per-lane kernels S, M, K1 and D; the
+              traceback kernels byte-equal, every lane's ops equal to the
+              native traceback's, beside the time of what they replace:
+              the pageable copy of the pointer band to the host and the
+              native traceback of its lanes).
   5. rel      the REL realign path (fused=False: host band arrays, K2, K3,
-              K4) on the chained records of the corpus's first 256 reads;
-              only K2, K3 and K4 may launch; >= 90% of its cigars must equal
+              K4, mea_moves) on the chained records of the corpus's first
+              256 reads; only K2, K3, K4 and mea_moves may launch, no
+              native traceback run and no pointer band leave the card;
+              >= 90% of its cigars must equal
               the main phase's and every other one must be an MEA near-tie
               of it (objective within 1e-5 under the fused weights).  Then
               K2, K3 and K4 against their plain versions on their largest
@@ -48,8 +59,9 @@ Phases (any failure exits non-zero without the final result line):
   6. serve    the unfused circular serving route in each of its five
               modes (sv, em, lean, emw, ckpt), after the REL phase:
               realign.realign_sam_file(..., serve=mode) on the REL phase's
-              chained records (only the mode's serving kernels and K4
-              launch; every record placed as in the REL phase; >= 90% of
+              chained records (only the mode's serving kernels, K4 and
+              mea_moves launch, no native traceback; every record placed
+              as in the REL phase; >= 90% of
               cigars equal to the REL phase's and every other one an MEA
               near-tie of it, within 1e-5 under the fused weights), then
               call.caller.margin_caller(..., serve=mode) on the main SAM's
@@ -102,9 +114,10 @@ Phases (any failure exits non-zero without the final result line):
               cigar that differs an MEA near-tie (1e-5).
  12. generic  marginAlign --inputModel <trial 0 of the card's EM parity
               run, un-normalised: gap emissions not flat> on the REL phase's
-              reads: the guide through R and K1, realignment on the REL
-              path through the generic pair (fb_generic_fwd,
-              fb_generic_bwd) and K4, and only those; every record placed
+              reads: the guide through R, K1 and nw_moves, realignment on
+              the REL path through the generic pair (fb_generic_fwd,
+              fb_generic_bwd), K4 and mea_moves, and only those, with no
+              native traceback; every record placed
               as in the main phase.  Then the generic pair against its
               plain versions on its largest launch (bit-equal), and
               marginCaller --alignmentModel <trial 0> on that SAM (only the
@@ -117,7 +130,8 @@ Phases (any failure exits non-zero without the final result line):
  14. band     marginAlign --em --updateTheBand on BAND_READS reads
               (BAND_ITERATIONS iterations, 3 lockstep trials): the policy's
               counts pair, the generic pair once per band update, K4 and
-              the main path's kernels; reads placed; the generic pair
+              the main path's kernels, no native traceback; reads placed;
+              the generic pair
               against its plain versions on its largest launch there
               (bit-equal).  Then EM with band
               updates on BAND_PARITY_READS reads on "cpu" and "cuda":
@@ -179,6 +193,7 @@ is the kernel report (JSON); the last line is the result (JSON).  Corpus and wei
 from outside the repository.
 """
 import contextlib
+import functools
 import importlib
 import json
 import os
@@ -334,6 +349,18 @@ KERNELS = {
                               "marginalign_trna_tpu/ops/fb_pallas_counts.py:1996",
                               "fb_counts_cuda.counts_multi_bwd_ckpt_cuda",
                               ("em_multi",)),
+    # The device tracebacks (in the JAX package XLA scans, not Pallas, on
+    # its default device path): nw_moves after K1 on the guide's
+    # one-read-a-lane buckets, mea_moves after D on the fused realign and
+    # after K4 wherever K4 decodes (the REL, generic, serve and em_band
+    # paths: MOVES_AFTER_K4).  The multi-lane decodes walk their bands on
+    # the host, as in the JAX package.
+    "nw_moves": ("marginalign_trna_tpu_torch/csrc/traceback.cu",
+                 "marginalign_trna_tpu/ops/traceback_device.py:36",
+                 "traceback_device.nw_moves_cuda", ("align",)),
+    "mea_moves": ("marginalign_trna_tpu_torch/csrc/traceback.cu",
+                  "marginalign_trna_tpu/ops/traceback_device.py:90",
+                  "traceback_device.mea_moves_cuda", ("align",)),
 }
 ALIGN_KERNELS = [k for k, v in KERNELS.items() if "align" in v[3]]
 REL_KERNELS = [k for k, v in KERNELS.items() if "rel" in v[3]]
@@ -344,6 +371,9 @@ SERVE_NEW = [k for k, v in KERNELS.items() if "serve" in v[3]]
 MULTI_KERNELS = [k for k, v in KERNELS.items() if "multi" in v[3]]
 CALL_MULTI_KERNELS = [k for k, v in KERNELS.items() if "call_multi" in v[3]]
 EM_MULTI_KERNELS = [k for k, v in KERNELS.items() if "em_multi" in v[3]]
+MOVES = ("nw_moves", "mea_moves")
+# What every K4 decode launches besides K4.
+MOVES_AFTER_K4 = ["banded_mea", "mea_moves"]
 # The kernels of each serving mode (ops/fb_circ.py posteriors_circ).
 SERVE_KERNELS = {
     "sv": ["sv_backward", "circ_post_es"],
@@ -432,7 +462,11 @@ MULTI_MIN_EQUAL = 0.80
 # select and five adds: 79 = 73 + 6), which the checkpoint backward's
 # recomputed forward does too (231 = 225 + 6); the backwards' terminal
 # injection, scale restart and start mask are per lane and diagonal, not
-# per cell (151).
+# per cell (151).  The tracebacks count per move made, not per band cell:
+# the activity test, the row index, the state or pointer decode and the
+# two position updates (nw_moves 14, mea_moves 10); their bytes are one
+# pointer byte and one 4-byte offset a move, the move stream and the lane
+# arrays, so the bytes bound them.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 OPS_PER_CELL = {
@@ -448,7 +482,7 @@ OPS_PER_CELL = {
     "nw_multi": 16, "mea_multi": 11, "fb_multi_forward": 28,
     "fb_multi_backward": 31, "counts_multi_fwd_all": 79,
     "counts_multi_bwd": 151, "counts_multi_fwd_ckpt": 79,
-    "counts_multi_bwd_ckpt": 231,
+    "counts_multi_bwd_ckpt": 231, "nw_moves": 14, "mea_moves": 10,
 }
 
 
@@ -935,6 +969,69 @@ def compare_mea_dl(args, reps):
     }
 
 
+def compare_moves(name, args, reps):
+    """A traceback kernel (nw_moves, mea_moves) against its plain version:
+    the packed move streams byte-equal; the kernel timed as time_ms times
+    it, the plain version on its comparison call; the bound from the moves
+    this input makes (a pointer byte and an offset a move, the stream, the
+    lane arrays)."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import traceback_device as tb
+
+    kernel = getattr(tb, name + "_cuda")
+    plain = getattr(tb, name + "_plain")
+    got = kernel(*args)
+    want, plain_ms = timed_once(lambda: plain(*args))
+    check(got.shape == want.shape and torch.equal(got, want),
+          "%s: the move stream differs from the plain version's" % name)
+    D1, _, B = args[0].shape
+    moves = tb.unpack_moves(got.cpu().numpy(), D1 - 1)
+    made = int((moves != tb.NO_MOVE).sum())
+    return {"max_abs_err": 0.0, "ms": time_ms(lambda: kernel(*args), reps),
+            "plain_ms": plain_ms, "library_ms": None, "moves": made,
+            **bound(name, made, 5 * made + nbytes(got, *args[2:]))}
+
+
+def host_traceback(name, args, packed):
+    """What a traceback kernel replaces, on its path's inputs `args`: the
+    pageable copy of the pointer band to the host and the native traceback
+    of every lane, timed on the host clock (pull_ms, walk_ms, replaced_ms).
+    Every lane's ops from the kernel's move stream `packed` must equal the
+    native traceback's."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch import native
+    from marginalign_trna_tpu_torch.ops import traceback_device as tb
+
+    ptrs, lo, m, n = args[:4]
+    extra = [a.cpu().numpy() for a in args[4:]]
+    lo, m, n = (t.cpu().numpy() for t in (lo, m, n))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    host = np.ascontiguousarray(ptrs.cpu().numpy())
+    t1 = time.perf_counter()
+    if name == "nw_moves":
+        ops = [native.nw_traceback(host, lo[:, b], b, int(m[b]), int(n[b]),
+                                   int(extra[0][b]))
+               for b in range(host.shape[2])]
+    else:
+        ops = [native.mea_traceback(host, lo[:, b], b, int(m[b]), int(n[b]))
+               for b in range(host.shape[2])]
+    t2 = time.perf_counter()
+    moves = tb.unpack_moves(packed.cpu().numpy(), host.shape[0] - 1)
+    for b, want in enumerate(ops):
+        check(want is not None, "%s: no native traceback of lane %d"
+              % (name, b))
+        check(tb.ops_from_moves(moves, b) == want, "%s: lane %d's ops differ "
+              "from the native traceback's" % (name, b))
+    return {"pull_ms": 1e3 * (t1 - t0), "walk_ms": 1e3 * (t2 - t1),
+            "replaced_ms": 1e3 * (t2 - t0), "lanes": len(ops),
+            "pointer_bytes": host.nbytes}
+
+
 def counts_rel_err(pairs):
     """Largest relative difference of lane-summed count partials (kernel
     vs plain), each against max(|plain|, 1e-6)."""
@@ -1216,6 +1313,8 @@ def compare_exact(name, args, reps):
 
 
 COMPARE = {
+    "nw_moves": functools.partial(compare_moves, "nw_moves"),
+    "mea_moves": functools.partial(compare_moves, "mea_moves"),
     "banded_nw": compare_nw, "banded_mea": compare_mea,
     "expand_streams": compare_expand, "sv_backward": compare_sv,
     "cx_forward": compare_cx, "scatter_lanesum": compare_scatter,
@@ -1337,6 +1436,58 @@ def tiny_inputs(device):
         "banded_mea": (torch.where(post > 0, post, NEG), wup, wleft,
                        dev.valid, dev.s1, dev.s2, dev.final_d, dev.final_k),
     }
+
+
+def tiny_moves_inputs(device):
+    """Inputs of the traceback kernels at a tiny shape: 37 lanes (a lane
+    with m = 0, one with n = 0, one of a single base each, noisy pairs of
+    up to 45 bases, padding lanes), D1 - 1 = 123; NW over
+    the plain K1's pointers with the final states forced to M, Ix and Iy in
+    turn, MEA over the plain K4's pointers from a random posterior band."""
+    import numpy as np
+    import torch
+
+    from marginalign_trna_tpu_torch.ops import wavefront_cuda as wf
+    from marginalign_trna_tpu_torch.ops.band import pack_banded_batch
+    from marginalign_trna_tpu_torch.ops.fb import device_batch
+    from marginalign_trna_tpu_torch.ops.mea import NEG, mea_weights
+
+    rng = np.random.default_rng(12)
+    refs = [rng.integers(0, 4, size=int(rng.integers(2, 44)))
+            .astype(np.int8) for _ in range(30)]
+    reads = [noisy(rng, r) for r in refs]
+    # The longest lane (m + n = 123) sets D1 - 1 = 123.
+    long_ref = rng.integers(0, 4, size=60).astype(np.int8)
+    reads += [np.zeros(0, np.int8), np.array([1, 2, 3, 0, 1], np.int8),
+              np.array([2], np.int8),
+              np.concatenate([long_ref[:30], [0, 1, 2], long_ref[30:]])
+              .astype(np.int8)]
+    refs += [np.array([3, 3, 1], np.int8), np.zeros(0, np.int8),
+             np.array([2], np.int8), long_ref]
+    out = {}
+    for width, name in ((40, "nw_moves"), (21, "mea_moves")):
+        batch = pack_banded_batch(reads, refs, width=width, pad_batch_to=37)
+        check((batch.lo.shape[0] - 1) % 4 != 0, "tiny traceback: D1 - 1 is "
+              "a multiple of 4")
+        dev = device_batch(batch, device)
+        lanes = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                      .to(device) for a in (batch.lo, batch.m, batch.n))
+        if name == "nw_moves":
+            ptr, _, _ = wf.banded_nw_plain(NW_PARAMS, dev.xb, dev.yb,
+                                           dev.valid, dev.s1, dev.s2,
+                                           dev.final_d, dev.final_k)
+            state = torch.arange(37, dtype=torch.int32, device=device) % 3
+            out[name] = (ptr,) + lanes + (state,)
+            continue
+        post = torch.from_numpy(rng.random(batch.valid.shape).astype(
+            np.float32)).to(device) * dev.valid
+        wup, wleft = mea_weights(post, dev.valid, lanes[0], 0.5,
+                                 int(batch.m.max()), int(batch.n.max()))
+        ptr, _ = wf.banded_mea_plain(torch.where(post > 0, post, NEG), wup,
+                                     wleft, dev.valid, dev.s1, dev.s2,
+                                     dev.final_d, dev.final_k)
+        out[name] = (ptr,) + lanes
+    return out
 
 
 def tiny_default_inputs(device):
@@ -1703,6 +1854,65 @@ def recording_launches(names):
         yield shapes, largest, host
 
 
+@contextlib.contextmanager
+def counting_host_tracebacks():
+    """Inside the block the native host tracebacks (native.nw_traceback,
+    native.mea_traceback) and every copy of a pointer band (a uint8
+    [D1, Wp, B] tensor on the card) to the host are counted.  Yields the
+    counts {"nw_traceback", "mea_traceback", "pointer_band_pulls"}."""
+    import torch
+
+    from marginalign_trna_tpu_torch import native
+
+    seen = {"nw_traceback": 0, "mea_traceback": 0, "pointer_band_pulls": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            seen[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    def band(t):
+        return t.is_cuda and t.dtype == torch.uint8 and t.dim() == 3
+
+    cpu, to, copy_ = torch.Tensor.cpu, torch.Tensor.to, torch.Tensor.copy_
+
+    def cpu_counted(self, *args, **kwargs):
+        seen["pointer_band_pulls"] += band(self)
+        return cpu(self, *args, **kwargs)
+
+    def to_counted(self, *args, **kwargs):
+        out = to(self, *args, **kwargs)
+        seen["pointer_band_pulls"] += band(self) and not out.is_cuda
+        return out
+
+    def copy_counted(self, src, *args, **kwargs):
+        seen["pointer_band_pulls"] += (not self.is_cuda and torch.is_tensor(src)
+                                       and band(src))
+        return copy_(self, src, *args, **kwargs)
+
+    torch.Tensor.cpu, torch.Tensor.to, torch.Tensor.copy_ = (
+        cpu_counted, to_counted, copy_counted)
+    try:
+        with replaced_everywhere({
+                native.nw_traceback: counted("nw_traceback",
+                                             native.nw_traceback),
+                native.mea_traceback: counted("mea_traceback",
+                                              native.mea_traceback)}):
+            yield seen
+    finally:
+        torch.Tensor.cpu, torch.Tensor.to, torch.Tensor.copy_ = cpu, to, copy_
+
+
+def check_no_host_tracebacks(path, seen):
+    """No native host traceback ran and no pointer band left the card on
+    `path` (counting_host_tracebacks)."""
+    log("%s: host tracebacks and pointer band pulls %s"
+        % (path, json.dumps(seen)))
+    for what, count in seen.items():
+        check(count == 0, "%s: %d calls of %s" % (path, count, what))
+
+
 def check_launches(path, names, launches, shapes):
     """Every kernel of `names` launched on `path`, once per wrapper call;
     no other kernel launched."""
@@ -1727,7 +1937,8 @@ def phase_main(tmpdir):
 
     fq, fa, truth = write_corpus(tmpdir, N_READS, READ_LEN)
     out = os.path.join(tmpdir, "out.sam")
-    with recording_launches(ALIGN_KERNELS) as (shapes, largest, host):
+    with recording_launches(ALIGN_KERNELS) as (shapes, largest, host), \
+            counting_host_tracebacks() as seen:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         stages = pipeline.align(fq, fa, out, device="cuda")
@@ -1743,6 +1954,7 @@ def phase_main(tmpdir):
     check_launches("main", ALIGN_KERNELS, launches, shapes)
     check(host["pack_banded_batch"] == 0,
           "the host band packer ran on the main path")
+    check_no_host_tracebacks("main", seen)
     check(len(recs) >= 0.95 * N_READS, "only %d of %d reads aligned"
           % (len(recs), N_READS))
     placed = 0
@@ -1763,10 +1975,20 @@ def phase_main(tmpdir):
 def phase_kernels(tag, names, largest):
     """Kernel vs plain on the inputs of each kernel's largest launch on a
     path."""
+    from marginalign_trna_tpu_torch.ops import traceback_device as tb
+
     shapes = {name: launch_shape(name, largest[name]) for name in names}
     log("kernels[%s] inputs of the largest launch %s"
         % (tag, json.dumps(shapes)))
-    return compare_kernels(tag, names, largest, 5)
+    report = compare_kernels(tag, names, largest, 5)
+    for name in MOVES:
+        if name in names:
+            args = largest[name]
+            report[name]["replaced"] = host_traceback(
+                name, args, getattr(tb, name + "_cuda")(*args))
+            log("kernels[%s] %s replaces %s" % (
+                tag, name, json.dumps(report[name]["replaced"])))
+    return report
 
 
 def mea_objective(ops, post, lo, g_read, g_ref, b):
@@ -1901,7 +2123,9 @@ def phase_rel(tmpdir, fq, fa, main_sam):
         jobs, realign.DEFAULT_SPLIT_SIZE)
     hmm = PairHmm.load(pipeline.DEFAULT_MODEL)
     args = (segs, hmm, 0.5, 0.0, "cuda")
-    with recording_launches(REL_KERNELS) as (shapes, largest, host):
+    names = REL_KERNELS + ["mea_moves"]
+    with recording_launches(names) as (shapes, largest, host), \
+            counting_host_tracebacks() as seen:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         rel_ops = realign.realigned_ops_for_jobs(*args, fused=False)
@@ -1911,7 +2135,8 @@ def phase_rel(tmpdir, fq, fa, main_sam):
         " launches %s; launch shapes %s; host band packer calls %d"
         % (len(jobs), len(segs), total, json.dumps(launches),
            json.dumps(shapes), host["pack_banded_batch"]))
-    check_launches("REL", REL_KERNELS, launches, shapes)
+    check_launches("REL", names, launches, shapes)
+    check_no_host_tracebacks("rel", seen)
 
     # The fused path on the same segments, its MEA inputs kept per lane.
     fused_ops, lane_of = ops_with_weights(segs, hmm, "cuda")
@@ -2421,8 +2646,10 @@ def phase_generic(tmpdir, fq, fa, main_sam, trial_model):
     sub = os.path.join(tmpdir, "generic_subset.fq")
     subset_fastq(fq, sub, REL_RECORDS)
     out = os.path.join(tmpdir, "generic.sam")
-    names = ["banded_nw", "expand_rel", "banded_mea"] + GENERIC_KERNELS
-    with recording_launches(names) as (shapes, largest, host):
+    names = (["banded_nw", "expand_rel", "nw_moves"] + MOVES_AFTER_K4
+             + GENERIC_KERNELS)
+    with recording_launches(names) as (shapes, largest, host), \
+            counting_host_tracebacks() as seen:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         stages = pipeline.align(sub, fa, out,
@@ -2439,6 +2666,7 @@ def phase_generic(tmpdir, fq, fa, main_sam, trial_model):
     log("generic: launches %s" % json.dumps(launches))
     log("generic: launch shapes %s" % json.dumps(shapes))
     check_launches("generic", names, launches, shapes)
+    check_no_host_tracebacks("generic", seen)
     check(len(recs) == REL_RECORDS, "generic: %d of %d reads aligned"
           % (len(recs), REL_RECORDS))
     main = placement(sam_records(main_sam))
@@ -2583,7 +2811,7 @@ def phase_band(tmpdir, fq, fa, truth):
         iterations=BAND_ITERATIONS, update_band_every=1))
     names = ALIGN_KERNELS + COUNTS_KERNELS + GENERIC_KERNELS + ["banded_mea"]
     with recording_launches(names) as (shapes, largest, host), \
-            em_recording() as rec:
+            em_recording() as rec, counting_host_tracebacks() as seen:
         _build.reset_launch_counts()
         t0 = time.perf_counter()
         stages = pipeline.align(sub, fa, out, opts, device="cuda")
@@ -2604,6 +2832,7 @@ def phase_band(tmpdir, fq, fa, truth):
     pair = check_em_counts_policy("em_band", shapes, launches)
     check_launches("em_band", ALIGN_KERNELS + pair + GENERIC_KERNELS
                    + ["banded_mea"], launches, shapes)
+    check_no_host_tracebacks("em_band", seen)
     check(updates and all(n >= 1 for n in updates),
           "em band: a band update without the generic pair")
     check(sum(updates) == launches["fb_generic_fwd"],
@@ -2750,14 +2979,16 @@ def phase_serve(tmpdir, fa, main_sam, rel):
                     serve=mode))):
             with recording_launches(list(KERNELS)) as (shapes, rec, host), \
                     replaced_everywhere({ops_fn: keep_ops,
-                                         exp_fn: keep_exp}):
+                                         exp_fn: keep_exp}), \
+                    counting_host_tracebacks() as seen:
                 _build.reset_launch_counts()
                 t0 = time.perf_counter()
                 value = run()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 by_path[path] = dict(_build.launch_counts)
-            allowed = kernels + (["banded_mea"] if "realign" in path else [])
+            allowed = kernels + (MOVES_AFTER_K4 if "realign" in path else [])
+            check_no_host_tracebacks(path, seen)
             log("%s: %.3f s; launches %s; launch shapes %s; host band "
                 "packer %d calls, %.3f s"
                 % (path, wall, json.dumps({k: n for k, n in
@@ -3644,7 +3875,8 @@ def main() -> int:
             **tiny_serve_inputs(cuda), **tiny_inputs(cuda),
             **tiny_caller_inputs(cuda), **tiny_default_inputs(cuda),
             **tiny_counts_inputs(cuda), **tiny_generic_inputs(cuda),
-            **tiny_multi_inputs(cuda), **tiny_counts_multi_inputs(cuda)}, 3)
+            **tiny_multi_inputs(cuda), **tiny_counts_multi_inputs(cuda),
+            **tiny_moves_inputs(cuda)}, 3)
         compare_kernels("tiny_em_multi_one_trial", EM_MULTI_KERNELS,
                         tiny_counts_multi_inputs(cuda, ntr=1), 3)
         compare_kernels("tiny_non_chain", ["sv_backward"] + SERVE_NEW,
@@ -3821,7 +4053,7 @@ def main() -> int:
             if name in r and r[name] is not res:
                 line[tag] = {k: r[name][k] for k in keys + ("resources",)
                              if k in r[name]}
-        for extra in ("one_trial", "resources"):
+        for extra in ("one_trial", "resources", "moves", "replaced"):
             if extra in res:
                 line[extra] = res[extra]
         lines.append(line)

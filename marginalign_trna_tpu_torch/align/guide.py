@@ -17,7 +17,11 @@ src/margin/mappers/{last,bwa,minimap2}.py):
      align/guide.py:404-470) every candidate goes into one batch of
      multi-problem lanes instead (ops/band.py `pack_multi_banded_batch`,
      ops/nw.py `banded_nw_multi`);
-  4. host: traceback -> SAM records (primary alignment per read).
+  4. traceback -> SAM records (primary alignment per read): on the
+     device for the bucketed path (ops/traceback_device.py `nw_lane_ops`:
+     only the 2-bit move stream comes to the host), on the host from the
+     pulled pointer band for multi-problem lanes (ops/nw.py
+     `traceback_multi`), as the JAX package does.
 
 Mapper presets (GuideConfig.preset) are host configuration only:
 
@@ -50,9 +54,8 @@ from ..ops.band import (
 )
 from ..ops.fb import DeviceBatch, multi_device_batch
 from ..ops.fb_circ import compact_device_batch, expand_rel_codes
-from ..ops.nw import (
-    NwParams, banded_nw, banded_nw_multi, traceback, traceback_multi,
-)
+from ..ops.nw import NwParams, banded_nw, banded_nw_multi, traceback_multi
+from ..ops.traceback_device import nw_lane_ops
 
 # Band cells (steps x Wp x lanes, before the step and lane ladders pad
 # them) per guide bucket: the int8 code, mask and pointer bands take 4 B
@@ -487,11 +490,13 @@ def align_candidates(
         res = banded_nw(cfg.nw, DeviceBatch(
             xb=xb, yb=yb, valid=valid, s1=s1, s2=s2, final_d=cdev.final_d,
             final_k=cdev.final_k))
-        pointers = np.ascontiguousarray(res.pointers.cpu().numpy())
-        final_states = res.final_state.cpu().numpy()
+        # The traceback walks the pointers where they lie; only the 2-bit
+        # move stream comes to the host (marginalign_trna_tpu/align/
+        # guide.py:538-548, :590-597).
+        lane_ops = nw_lane_ops(res.pointers, cdev.lo, cdev.m, cdev.n,
+                               res.final_state)
         for local_b, i in enumerate(bidx):
-            ops_by_cand[i] = traceback(pointers, comp, local_b,
-                                       int(final_states[local_b]))
+            ops_by_cand[i] = lane_ops[local_b]
     return _records(candidates, ops_by_cand, index)
 
 

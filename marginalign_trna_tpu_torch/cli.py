@@ -4,12 +4,19 @@
         [--em [--outputModel m.hmm] [EM options]] [--device cuda|cpu]
     python -m marginalign_trna_tpu_torch marginCaller in.sam ref.fa out.vcf \
         [--device cuda|cpu]
+    python -m marginalign_trna_tpu_torch marginStats in.sam reads.fq ref.fa \
+        [--readIdentity ...]
+    python -m marginalign_trna_tpu_torch modifyHmm in.hmm out.hmm [...]
+    python -m marginalign_trna_tpu_torch uniquifyFastq | mutateReference |
+        substitutions | kmerAnalysis | createAssemblyHub ...
 
-Both commands keep the JAX package's flag surface (marginalign_trna_tpu/
-cli.py, itself mirroring the reference's src/margin/marginAlign.py:16-54
-and marginCaller.py) and add --device.  The default device is cuda; without a CUDA device the
-command fails, and the CPU (the plain PyTorch versions of the kernels) runs
-only with --device cpu.  jobTree options are accepted and ignored.
+Every command keeps the JAX package's flag surface (marginalign_trna_tpu/
+cli.py and tools/cli.py, mirroring the reference's
+src/margin/marginAlign.py:16-54, marginCaller.py, marginStats.py:13-55 and
+scripts/).  marginAlign and marginCaller add --device: the default device
+is cuda; without a CUDA device the command fails, and the CPU (the plain
+PyTorch versions of the kernels) runs only with --device cpu.  The other
+commands run on the host.  jobTree options are accepted and ignored.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ import argparse
 import sys
 
 from .pipeline import DEFAULT_MODEL
+from .tools import cli as tools_cli
 
 
 def _add_ignored_jobtree_options(parser: argparse.ArgumentParser) -> None:
@@ -181,8 +189,102 @@ def margin_caller_main(argv=None) -> int:
     return 0
 
 
+def margin_stats_main(argv=None) -> int:
+    import numpy as np
+
+    from .stats.stats import ReadAlignmentStats
+
+    p = argparse.ArgumentParser(
+        prog="marginStats",
+        description="Alignment statistics from a SAM file.",
+    )
+    p.add_argument("samFile")
+    p.add_argument("readFastqFile")
+    p.add_argument("referenceFastaFile")
+    p.add_argument("--readIdentity", action="store_true")
+    p.add_argument("--alignmentIdentity", action="store_true")
+    p.add_argument("--readCoverage", action="store_true")
+    p.add_argument("--mismatchesPerAlignedBase", action="store_true")
+    p.add_argument("--deletionsPerReadBase", action="store_true")
+    p.add_argument("--insertionsPerReadBase", action="store_true")
+    p.add_argument("--readLength", action="store_true")
+    p.add_argument("--localAlignment", action="store_true",
+                   help="Ignore unaligned read prefix/suffix")
+    p.add_argument("--printValuePerReadAlignment", action="store_true")
+    p.add_argument("--noStats", action="store_true")
+    _add_ignored_jobtree_options(p)
+    args = p.parse_args(argv)
+
+    stats = ReadAlignmentStats.get_read_alignment_stats(
+        args.samFile, args.readFastqFile, args.referenceFastaFile,
+        global_alignment=not args.localAlignment,
+    )
+
+    def report(values, name):
+        if not args.noStats:
+            print("Average" + name, np.average(values))
+            print("Median" + name, np.median(values))
+            print("Min" + name, min(values))
+            print("Max" + name, max(values))
+        if args.printValuePerReadAlignment:
+            print("Values" + name, "\t".join(map(str, values)))
+
+    if args.readIdentity:
+        report([s.read_identity() for s in stats], "ReadIdentity")
+    if args.alignmentIdentity:
+        report([s.alignment_identity() for s in stats], "AlignmentIdentity")
+    if args.readCoverage:
+        report([s.read_coverage() for s in stats], "ReadCoverage")
+    if args.mismatchesPerAlignedBase:
+        report([s.mismatches_per_aligned_base() for s in stats],
+               "MismatchesPerAlignedBase")
+    if args.deletionsPerReadBase:
+        report([s.deletions_per_read_base() for s in stats],
+               "DeletionsPerReadBase")
+    if args.insertionsPerReadBase:
+        report([s.insertions_per_read_base() for s in stats],
+               "InsertionsPerReadBase")
+    if args.readLength:
+        report([s.read_length() for s in stats], "ReadLength")
+    return 0
+
+
+def modify_hmm_main(argv=None) -> int:
+    from .models.hmm import PairHmm
+
+    p = argparse.ArgumentParser(
+        prog="modifyHmm",
+        description="HMM surgery: substitution-rate relaxation, GC "
+        "renormalisation, flat indel emissions (reference: scripts/modifyHmm "
+        "-> cPecanModifyHmm; math at marginAlignLib.py:238-263).",
+    )
+    p.add_argument("inputHmm")
+    p.add_argument("outputHmm")
+    p.add_argument("--substitutionRate", type=float, default=None)
+    p.add_argument("--gcContent", type=float, default=None)
+    p.add_argument("--setFlatIndelEmissions", action="store_true")
+    args = p.parse_args(argv)
+
+    hmm = PairHmm.load(args.inputHmm)
+    if args.setFlatIndelEmissions:
+        hmm.set_flat_indel_emissions()
+    if args.gcContent is not None:
+        hmm.normalise_by_gc_content(args.gcContent)
+    if args.substitutionRate is not None:
+        hmm.modify_by_substitution_rate(args.substitutionRate)
+    hmm.write(args.outputHmm)
+    return 0
+
+
 COMMANDS = {"marginAlign": margin_align_main,
-            "marginCaller": margin_caller_main}
+            "marginCaller": margin_caller_main,
+            "marginStats": margin_stats_main,
+            "modifyHmm": modify_hmm_main,
+            "uniquifyFastq": tools_cli.uniquify_fastq_main,
+            "mutateReference": tools_cli.mutate_reference_main,
+            "substitutions": tools_cli.substitutions_main,
+            "kmerAnalysis": tools_cli.kmer_analysis_main,
+            "createAssemblyHub": tools_cli.create_assembly_hub_main}
 
 
 def main(argv=None) -> int:

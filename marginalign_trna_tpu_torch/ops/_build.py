@@ -131,6 +131,10 @@ _SIGNATURES: Dict[str, List] = {
     # ntr, d1k, Wp, B, post, tcp, egp, mcp, stream
     "counts_multi_bwd": [_P] * 13 + [_I] * 4 + [_P] * 5,
     "counts_multi_bwd_ckpt": [_P] * 13 + [_I] * 4 + [_P] * 5,
+    # Device tracebacks (csrc/traceback.cu).  ptrs, lo, m, n, final_state,
+    # D1, Wp, B, out, stream (mea_moves: no final_state)
+    "nw_moves": [_P] * 5 + [_I] * 3 + [_P] * 2,
+    "mea_moves": [_P] * 4 + [_I] * 3 + [_P] * 2,
 }
 
 # Entry points that launch nothing: name -> argument types; each returns

@@ -17,8 +17,11 @@ column sums.  Pairs with p < matchGamma are disallowed.  Two paths:
     torch bands over each lane's virtual position spaces
     (`mea_weights_multi`) and the DP is the mea_multi kernel.
 
-The plain versions run for CPU tensors.  The cigar comes from the native
-host traceback of the uint8 pointer band.
+The plain versions run for CPU tensors.  On the fused and REL paths the
+traceback walks the uint8 pointer band where it lies and only the 2-bit
+move stream comes to the host (ops/traceback_device.py); over
+multi-problem lanes the band comes to the host and the native host
+traceback walks each problem, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from .expectations import (
 )
 from .fb import DeviceBatch, MultiDeviceBatch
 from .fb_circ import CompactCircBatch
+from .traceback_device import mea_lane_ops
 from .wavefront_cuda import (
     NEG, banded_mea_cuda, banded_mea_plain, mea_dl_cuda, mea_dl_plain,
     mea_multi_cuda, mea_multi_plain,
@@ -104,16 +108,22 @@ def mea_decode(
 ) -> List[List[Tuple[int, int]]]:
     """Realigned ops [(op, len)] (0=M, 1=I, 2=D spanning the full (m, n)
     region) for every lane of the batch.  post is the [D1, Wp, B] posterior
-    match band on dev's device; batch is the host packing of dev."""
-    B = post.shape[2]
+    match band on dev's device; batch is the host packing of dev.  The
+    weights, the DP and the traceback stay on that device; only the move
+    stream comes to the host (marginalign_trna_tpu/ops/mea.py:372-390)."""
     lo = torch.from_numpy(np.ascontiguousarray(batch.lo)).to(post.device)
     wup, wleft = mea_weights(post, dev.valid, lo, gap_gamma,
                              int(batch.m.max()), int(batch.n.max()))
     wdiag = torch.where((post >= match_gamma) & (post > 0), post, NEG)
     res = banded_mea(wdiag, wup, wleft, dev.valid, dev.s1, dev.s2,
                      dev.final_d, dev.final_k)
-    pointers = np.ascontiguousarray(res.pointers.cpu().numpy())
-    return [_traceback_one(pointers, batch, b) for b in range(B)]
+    return mea_lane_ops(res.pointers, lo, _lanes(batch.m, post.device),
+                        _lanes(batch.n, post.device))
+
+
+def _lanes(a: np.ndarray, device) -> torch.Tensor:
+    """A host [B] array as an int32 tensor on `device`."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
 
 
 def rowcol_sums_from_flushed(
@@ -148,12 +158,13 @@ def mea_decode_fused(
 ) -> List[List[Tuple[int, int]]]:
     """Realigned ops of every lane from the band-relative posterior band
     [D1, Wp, B] and the per-position sums (`rowcol_sums_from_flushed`),
-    through the mea_dl kernel (its plain version for CPU tensors)."""
+    through the mea_dl kernel (its plain version for CPU tensors) and the
+    mea_moves traceback on the same device (marginalign_trna_tpu/ops/
+    mea.py:296-318)."""
     fn = mea_dl_cuda if use_kernel(post) else mea_dl_plain
     ptr, _ = fn(post, dev.lo, dev.m, dev.n, comp.width, dev.final_d,
                 dev.final_k, accr, accc, gap_gamma, match_gamma)
-    pointers = np.ascontiguousarray(ptr.cpu().numpy())
-    return [_traceback_one(pointers, comp, b) for b in range(post.shape[2])]
+    return mea_lane_ops(ptr, dev.lo, dev.m, dev.n)
 
 
 def _traceback_one(

@@ -4,9 +4,12 @@ Port of marginalign_trna_tpu/ops/nw.py: after host-side k-mer seeding and
 chaining picks a corridor, a banded 3-state (match / ref-gap / read-gap)
 max-plus wavefront aligns every read against its reference window in one
 batch, one read per lane (`banded_nw`) or several short ones per lane
-(`banded_nw_multi`, ops/band.py `pack_multi_banded_batch`).  Pointers
-come back to the host as a [D1, Wp, B] uint8 band and the cigar is
-recovered by the native host traceback (native/margin_native.cpp).
+(`banded_nw_multi`, ops/band.py `pack_multi_banded_batch`).  The guide
+walks the [D1, Wp, B] uint8 pointer band of a one-read-a-lane batch on its
+device (ops/traceback_device.py `nw_lane_ops`); over multi-problem lanes
+the band comes to the host and the native host traceback
+(native/margin_native.cpp) recovers each problem's cigar (`traceback_multi`;
+`traceback` is the same walk for one lane of a host band).
 """
 from __future__ import annotations
 

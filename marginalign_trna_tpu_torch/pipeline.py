@@ -1,12 +1,15 @@
-"""One-call API for marginAlign on one torch device.
+"""One-call API for marginAlign and marginCaller on one torch device.
 
-Port of marginalign_trna_tpu/pipeline.py `align`:
+Port of marginalign_trna_tpu/pipeline.py:
 
     from marginalign_trna_tpu_torch import pipeline
     pipeline.align("reads.fq", "ref.fa", "out.sam", device="cuda")
     pipeline.align("reads.fq", "ref.fa", "out.sam",
                    pipeline.AlignOptions(em=True, output_model_path="m.hmm"),
                    device="cuda")
+    pipeline.call("out.sam", "ref.fa", "out.vcf", device="cuda")
+    pipeline.align_and_call("reads.fq", "ref.fa", "out.sam", "out.vcf",
+                            device="cuda")
 
 With em=True the model is first trained by Baum-Welch EM on the chained
 guide alignments (align/em.py), normalised, and the realignment runs with
@@ -26,7 +29,7 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional
+from typing import TYPE_CHECKING, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -38,6 +41,9 @@ from .io.fasta import get_fasta_dictionary
 from .io.sam import SamFile
 from .models.hmm import PairHmm
 from .utils.seq import encode
+
+if TYPE_CHECKING:
+    from .call.caller import CallerOptions
 
 DEFAULT_MODEL = os.path.join(
     os.path.dirname(os.path.abspath(__file__)), "models", "last_hmm_20.txt"
@@ -93,6 +99,59 @@ def align(
     SAM.  Returns the wall seconds of each stage (guide_s, chain_s, em_s,
     realign_s).  multi=True: the guide, the EM E-step and the
     realignment in multi-problem lanes (module docstring)."""
+    return _align(read_fastq_path, reference_fasta_path, output_sam_path,
+                  options, device, multi)[0]
+
+
+def call(
+    sam_path: str,
+    reference_fasta_path: str,
+    output_vcf_path: str,
+    alignment_model: Optional[PairHmm] = None,
+    error_model: Optional[PairHmm] = None,
+    options: Optional[CallerOptions] = None,
+    device="cuda",
+) -> List[Tuple[str, int, str, float]]:
+    """marginCaller on `device`; returns the variant calls.  A model not
+    given is the shipped default (marginalign_trna_tpu/pipeline.py
+    `call`)."""
+    # call/caller.py imports this module (resolve_device).
+    from .call.caller import margin_caller
+
+    default = PairHmm.load(DEFAULT_MODEL)
+    return margin_caller(
+        sam_path, reference_fasta_path, output_vcf_path,
+        alignment_model=alignment_model or default,
+        error_model=error_model or default,
+        options=options, device=device,
+    )
+
+
+def align_and_call(
+    read_fastq_path: str,
+    reference_fasta_path: str,
+    output_sam_path: str,
+    output_vcf_path: str,
+    align_options: Optional[AlignOptions] = None,
+    caller_options: Optional[CallerOptions] = None,
+    device="cuda",
+) -> List[Tuple[str, int, str, float]]:
+    """FASTQ -> SAM -> VCF on `device`.  With align_options.em the trained
+    model is both of the caller's models, else the shipped default is (the
+    reference's integrative flow, tests/tests.py:189-209;
+    marginalign_trna_tpu/pipeline.py `align_and_call`)."""
+    _, trained = _align(read_fastq_path, reference_fasta_path,
+                        output_sam_path, align_options, device, False)
+    return call(output_sam_path, reference_fasta_path, output_vcf_path,
+                alignment_model=trained, error_model=trained,
+                options=caller_options, device=device)
+
+
+def _align(read_fastq_path: str, reference_fasta_path: str,
+           output_sam_path: str, options: Optional[AlignOptions], device,
+           multi: bool) -> Tuple[Dict[str, float], Optional[PairHmm]]:
+    """`align`'s stage seconds and the trained, normalised model (None
+    without EM)."""
     options = options or AlignOptions()
     dev = resolve_device(device)
     cfg = GuideConfig.preset(options.mapper_preset)
@@ -118,18 +177,20 @@ def align(
                   output_sam_path if options.no_realign else chained_sam,
                   read_fastq_path, reference_fasta_path)
         if options.no_realign:
-            return stages
+            return stages, None
         work_sam = guide_sam if options.no_chain else chained_sam
         hmm = options.input_model or PairHmm.load(DEFAULT_MODEL)
+        trained = None
         if options.em:
-            hmm = timed("em_s", _train, work_sam, reference_fasta_path, hmm,
-                        options, dev, multi)
+            hmm = trained = timed("em_s", _train, work_sam,
+                                  reference_fasta_path, hmm, options, dev,
+                                  multi)
         timed("realign_s", realign_sam_file, work_sam,
               output_sam_path, read_fastq_path, reference_fasta_path, hmm,
               dev, gap_gamma=options.gap_gamma,
               match_gamma=options.match_gamma, no_chain=True,
               split_size=options.split_size, multi=multi)
-    return stages
+    return stages, trained
 
 
 def _train(sam_path: str, reference_fasta_path: str, hmm: PairHmm,

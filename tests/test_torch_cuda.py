@@ -2405,3 +2405,91 @@ def test_ckpt_pair_resources(cuda, wp):
             if wp <= 64:
                 assert res["local_bytes"] == 0, res
 
+
+
+# ------------------------------------------------------ device tracebacks
+
+
+def _moves_lanes(B, width, seed):
+    """Band offsets and lengths of B lanes (random pairs of 0-90 bases, a
+    lane with m = 0, one with n = 0, one of a single base each, then
+    padding lanes) and a random final state a lane."""
+    rng = np.random.default_rng(seed)
+    sizes = [(int(rng.integers(0, 90)), int(rng.integers(0, 90)))
+             for _ in range(max(B - 4, 0))]
+    sizes = ([(0, 5), (6, 0), (1, 1)] + sizes)[:max(B - 1, 1)]
+    reads = [rng.integers(0, 4, m).astype(np.int8) for m, _ in sizes]
+    refs = [rng.integers(0, 4, n).astype(np.int8) for _, n in sizes]
+    batch = pack_banded_batch(reads, refs, width=width, pad_batch_to=B)
+    fs = rng.integers(0, 3, B).astype(np.int32)
+    return batch, fs
+
+
+def _moves_args(cuda, batch, ptr, fs=None):
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
+    args = (ptr, t(batch.lo), t(batch.m), t(batch.n))
+    return args if fs is None else args + (t(fs),)
+
+
+def _check_moves(name, args):
+    from marginalign_trna_tpu_torch.ops import traceback_device as tb
+
+    before = _build.launch_counts[name]
+    got = getattr(tb, name + "_cuda")(*args)
+    want = getattr(tb, name + "_plain")(*args)
+    torch.cuda.synchronize()
+    D1, _, B = args[0].shape
+    assert got.shape == want.shape == (-(-(D1 - 1) // 4), B)
+    assert torch.equal(got, want)
+    assert _build.launch_counts[name] == before + (1 if got.numel() else 0)
+    return got
+
+
+@pytest.mark.parametrize("width", [9, 40])
+def test_nw_moves_kernel_on_k1_pointers(cuda, width):
+    """nw_moves on K1's pointers and final states (the guide's inputs),
+    byte-equal to its plain version."""
+    batch = _batch(width)
+    dev = device_batch(batch, cuda)
+    ptr, _, state = wavefront_cuda.banded_nw_cuda(
+        (1.0, -2.0, -3.0, -1.0), dev.xb, dev.yb, dev.valid, dev.s1, dev.s2,
+        dev.final_d, dev.final_k)
+    _check_moves("nw_moves", _moves_args(cuda, batch, ptr) + (state,))
+
+
+@pytest.mark.parametrize("B", [1, 13, 33, 1027])
+@pytest.mark.parametrize("name", ["nw_moves", "mea_moves"])
+def test_moves_kernels_random_pointers(cuda, name, B):
+    """Random pointer values (every NW bit pattern; MEA 0-3), so that walks
+    leave the band and read pointer 0 there, random final states, lanes
+    with m = 0, n = 0 and length 1, B not a multiple of 32: byte-equal to
+    the plain versions."""
+    batch, fs = _moves_lanes(B, 21, B)
+    D1, Wp, _ = batch.valid.shape
+    rng = np.random.default_rng(B + 1)
+    hi = 16 if name == "nw_moves" else 4
+    ptr = torch.from_numpy(rng.integers(0, hi, (D1, Wp, B)).astype(
+        np.uint8)).to(cuda)
+    args = _moves_args(cuda, batch, ptr, fs if name == "nw_moves" else None)
+    _check_moves(name, args)
+
+
+@pytest.mark.parametrize("D1", [1, 2, 5, 6, 9])
+def test_moves_kernels_short_bands(cuda, D1):
+    """D1 - 1 below, at and past a multiple of 4 (D1 = 1: no move, no
+    launch): byte-equal to the plain versions."""
+    B = 7
+    rng = np.random.default_rng(D1)
+    lo = np.zeros((D1, B), np.int32)
+    m = rng.integers(0, D1, B).astype(np.int32)
+    n = np.array([max(0, D1 - 1 - x - int(rng.integers(0, 2))) for x in m],
+                 np.int32)
+    ptr = torch.from_numpy(rng.integers(0, 16, (D1, 8, B)).astype(
+        np.uint8)).to(cuda)
+
+    def t(a):
+        return torch.from_numpy(a).to(cuda)
+    fs = t(rng.integers(0, 3, B).astype(np.int32))
+    _check_moves("nw_moves", (ptr, t(lo), t(m), t(n), fs))
+    _check_moves("mea_moves", ((ptr % 3).contiguous(), t(lo), t(m), t(n)))

@@ -25,8 +25,11 @@ PORT_MODULES = [
     "marginalign_trna_tpu_torch.cli",
     "marginalign_trna_tpu_torch.io",
     "marginalign_trna_tpu_torch.io.fasta",
+    "marginalign_trna_tpu_torch.io.bam",
+    "marginalign_trna_tpu_torch.io.cigar",
     "marginalign_trna_tpu_torch.io.fastq",
     "marginalign_trna_tpu_torch.io.sam",
+    "marginalign_trna_tpu_torch.io.twobit",
     "marginalign_trna_tpu_torch.io.vcf",
     "marginalign_trna_tpu_torch.models",
     "marginalign_trna_tpu_torch.models.hmm",
@@ -47,10 +50,20 @@ PORT_MODULES = [
     "marginalign_trna_tpu_torch.ops.fb_multi_cuda",
     "marginalign_trna_tpu_torch.ops.mea",
     "marginalign_trna_tpu_torch.ops.nw",
+    "marginalign_trna_tpu_torch.ops.traceback_device",
     "marginalign_trna_tpu_torch.ops.wavefront_cuda",
     "marginalign_trna_tpu_torch.pipeline",
+    "marginalign_trna_tpu_torch.stats",
+    "marginalign_trna_tpu_torch.stats.stats",
+    "marginalign_trna_tpu_torch.tools",
+    "marginalign_trna_tpu_torch.tools.assembly_hub",
+    "marginalign_trna_tpu_torch.tools.cli",
+    "marginalign_trna_tpu_torch.tools.kmer",
+    "marginalign_trna_tpu_torch.tools.plots",
+    "marginalign_trna_tpu_torch.tools.substitutions",
     "marginalign_trna_tpu_torch.utils",
     "marginalign_trna_tpu_torch.utils.coords",
+    "marginalign_trna_tpu_torch.utils.mutate",
     "marginalign_trna_tpu_torch.utils.seq",
 ]
 
@@ -73,7 +86,7 @@ import importlib, os, sys
 import numpy as np
 for m in %r:
     importlib.import_module(m)
-from marginalign_trna_tpu_torch import cli
+from marginalign_trna_tpu_torch import cli, pipeline
 tmp = sys.argv[1]
 rng = np.random.default_rng(2)
 bases = np.array(list("ACGT"))
@@ -92,12 +105,16 @@ sam, vcf = os.path.join(tmp, "out.sam"), os.path.join(tmp, "out.vcf")
 assert cli.main(["marginAlign", fq, fa, sam, "--device", "cpu"]) == 0
 assert cli.main(["marginCaller", sam, fa, vcf, "--device", "cpu"]) == 0
 assert os.path.getsize(vcf) > 0
+assert cli.main(["marginStats", sam, fq, fa, "--readIdentity"]) == 0
+assert cli.main(["modifyHmm", pipeline.DEFAULT_MODEL, os.path.join(tmp,
+                 "mod.hmm"), "--setFlatIndelEmissions"]) == 0
+pipeline.align_and_call(fq, fa, os.path.join(tmp, "ac.sam"),
+                        os.path.join(tmp, "ac.vcf"), device="cpu")
 model = os.path.join(tmp, "em.hmm")
 assert cli.main(["marginAlign", fq, fa, os.path.join(tmp, "em.sam"), "--em",
                  "--iterations", "2", "--trials", "2", "--outputModel",
                  model, "--device", "cpu"]) == 0
 assert all(os.path.exists(model + s) for s in ("", ".trial0", ".trial1"))
-from marginalign_trna_tpu_torch import pipeline
 from marginalign_trna_tpu_torch.align.em import EmOptions
 pipeline.align(fq, fa, os.path.join(tmp, "em_multi.sam"),
                pipeline.AlignOptions(em=True, em_options=EmOptions(
@@ -111,9 +128,10 @@ assert not bad, bad
 
 def test_importing_the_port_loads_no_jax(tmp_path):
     """Import every port module, run marginAlign, marginCaller,
-    marginAlign --em and --em over multi-problem lanes (pipeline.align with
-    multi=True) on the CPU on a tiny corpus, in a fresh interpreter: no
-    jax*, no marginalign_trna_tpu module may be loaded."""
+    marginStats, modifyHmm, pipeline.align_and_call, marginAlign --em and
+    --em over multi-problem lanes (pipeline.align with multi=True) on the
+    CPU on a tiny corpus, in a fresh interpreter: no jax*, no
+    marginalign_trna_tpu module may be loaded."""
     code = _RUN_BOTH_COMMANDS % (PORT_MODULES,)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
@@ -206,8 +224,10 @@ def test_cli_refuses_em_and_unknown_commands(tmp_path):
     records = [ln for ln in out.read_text().splitlines()
                if not ln.startswith("@")]
     assert len(records) == 4
-    # marginCaller is a command now: without its arguments argparse exits 2.
-    with pytest.raises(SystemExit) as exc:
-        cli.main(["marginCaller"])
-    assert exc.value.code == 2
-    assert cli.main(["marginStats"]) == 2
+    # marginCaller and marginStats are commands now: without their
+    # arguments argparse exits 2.
+    for command in ("marginCaller", "marginStats"):
+        with pytest.raises(SystemExit) as exc:
+            cli.main([command])
+        assert exc.value.code == 2
+    assert cli.main(["marginNoSuchCommand"]) == 2
