@@ -974,7 +974,8 @@ def compare_moves(name, args, reps):
     the packed move streams byte-equal; the kernel timed as time_ms times
     it, the plain version on its comparison call; the bound from the moves
     this input makes (a pointer byte and an offset a move, the stream, the
-    lane arrays)."""
+    lane arrays); its launch's resources (lanes a block, tile, stages and
+    copy route among them)."""
     import numpy as np
     import torch
 
@@ -986,12 +987,13 @@ def compare_moves(name, args, reps):
     want, plain_ms = timed_once(lambda: plain(*args))
     check(got.shape == want.shape and torch.equal(got, want),
           "%s: the move stream differs from the plain version's" % name)
-    D1, _, B = args[0].shape
+    D1, wp, B = args[0].shape
     moves = tb.unpack_moves(got.cpu().numpy(), D1 - 1)
     made = int((moves != tb.NO_MOVE).sum())
     return {"max_abs_err": 0.0, "ms": time_ms(lambda: kernel(*args), reps),
             "plain_ms": plain_ms, "library_ms": None, "moves": made,
-            **bound(name, made, 5 * made + nbytes(got, *args[2:]))}
+            **bound(name, made, 5 * made + nbytes(got, *args[2:])),
+            "resources": tb.moves_resources(name, args[0].device, wp, B)}
 
 
 def host_traceback(name, args, packed):
@@ -3757,8 +3759,9 @@ def ptxas_spills(build_log):
 # a lane), K2 / K3's rel_backward_kernel /
 # rel_forward_kernel, the multi-lane FB pair's multi_forward_kernel /
 # multi_backward_kernel and the serving kernels' serve_backward_kernel /
-# serve_post_kernel at one and two rows a thread (Wp <= 64) and X's window
-# and reduce kernels must compile with no stack frame and no spill; those
+# serve_post_kernel at one and two rows a thread (Wp <= 64), X's window
+# and reduce kernels and the tracebacks' moves_kernel (every route and
+# tile) must compile with no stack frame and no spill; those
 # kernels at three and four rows a thread (Wp > 64, on no path but the tiny
 # checks) with no spill (mk::WarpRows keeps its edge row on a stack there
 # but in the multi instances, which select it by PTX).
@@ -3772,7 +3775,8 @@ FRAMELESS = ("mea_warp_kernelILi1", "mea_warp_kernelILi2",
              "multi_backward_kernelILi1", "multi_backward_kernelILi2",
              "serve_backward_kernelILi1", "serve_backward_kernelILi2",
              "serve_post_kernelILi1", "serve_post_kernelILi2",
-             "lanesum_window_kernel", "lanesum_reduce_kernel")
+             "lanesum_window_kernel", "lanesum_reduce_kernel",
+             "moves_kernel")
 SPILL_FREE = ("mea_warp_kernel", "nw_kernel", "rel_backward_kernel",
               "rel_forward_kernel",
               "multi_forward_kernel", "multi_backward_kernel",

@@ -4,8 +4,34 @@ the port, on the same inputs, in one process on one CUDA card.
     mkdir -p build/parent && git archive <commit> | tar -x -C build/parent
     python3 kernel_ab.py build/parent [group ...]
 
-Groups (fused, wavefront, counts, scatter, rel, serve, multi and fb_multi
-when none is named):
+Groups (fused, wavefront, counts, scatter, rel, serve, multi, fb_multi
+and traceback when none is named):
+  traceback
+         the device tracebacks nw_moves and mea_moves (csrc/traceback.cu):
+         nw_moves on K1's pointers of the guide batch [7168, 48, 1024] (its
+         pairs sorted by m + n, as the guide's buckets sort them), at
+         widths 93 and 126 (Wp 96, 128) and on its lanes repeated to 4101
+         ("_odd": no multiple of 4, so the slabs come by cp.async at a
+         byte shift); mea_moves on D's pointers of the realign bucket
+         [3072, 24, 4096] (sorted), at widths 93 and 126 and on 4101 lanes,
+         and on K4's pointers of the REL batch [3072, 24, 1024] (the
+         generic batch, weights from the REL FB pair's posteriors): the
+         move stream byte for byte against the plain version and the other
+         checkout, times, the bound (a pointer byte and an offset a move
+         made, the stream, the lane arrays), resources (registers, shared
+         memory a block, blocks an SM, spills, lanes a block, diagonals a
+         tile, stages, route), the bytes the kernel streams from its
+         blocks' tops and their time at 3.35 TB/s (the slab floor), the
+         longest block's diagonals; where this checkout's kernel takes
+         TMA, also on the band copied 4 and 1 bytes into a buffer (the
+         cp.async route at byte shift 0, then 1), timed and byte-equal.
+         Must not move (bit-equal to the other checkout, both timed): K1
+         on the guide batch, D on the bucket.
+  probe_traceback (named on the command line only): nw_moves and
+         mea_moves with one part removed (outputs wrong by design): the
+         walk alone (the producers stop after the ring's first stages: the
+         serial floor) and the stream alone (no walk), on the traceback
+         group's nw_moves, mea_moves and mea_moves_rel cells.
   multi  nw_multi and mea_multi (rows 5 and 7), the multi instances of K1's
          and K4's one-warp-per-lane kernels, on the multi batch (tRNA-scale
          problems several to a 1024-diagonal lane, 4096 lanes): nw_multi at
@@ -233,7 +259,7 @@ import time
 
 import numpy as np
 
-from chip_smoke import bound
+from chip_smoke import HBM_BYTES_PER_S, bound
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PKG = "marginalign_trna_tpu_torch"
@@ -716,14 +742,7 @@ def guide_nw_args(port, guide, width, cuda):
     """K1's inputs for the guide pairs at band width `width`, built as
     align/guide.py builds them: R's code bands, band_masks' valid band and
     shifts, the shipped scores."""
-    fc, band = sub(port, "ops.fb_circ_cuda"), sub(port, "ops.band")
-    wp = band.padded_band_width(width)
-    gdev = compact(port, *guide, width, GUIDE_STEPS, cuda)
-    xb, yb = fc.expand_rel_cuda(gdev.reads, gdev.refs, gdev.lo, gdev.m,
-                                gdev.n, wp, GUIDE_STEPS)
-    valid, s1, s2 = band.band_masks(gdev.lo, gdev.m, gdev.n, width, wp)
-    return (tuple(sub(port, "ops.nw").NwParams()), xb, yb, valid, s1, s2,
-            gdev.final_d, gdev.final_k)
+    return guide_moves_args(port, guide, width, cuda)[0]
 
 
 def bucket_dl_args(port, bucket, width, cuda):
@@ -1605,6 +1624,11 @@ def probe_cases(this, cuda, kernels):
             for t in cases["banded_mea"]["banded_mea"])
     if "scatter_lanesum" in kernels:
         cases["scatter_lanesum"] = lanesum_cells(this, cuda)
+    if {"nw_moves", "mea_moves"} & set(kernels):
+        cases["nw_moves"], cases["mea_moves"] = {}, {}
+        for cell, name, args, _ in traceback_cells(
+                this, cuda, ("nw_moves", "mea_moves", "mea_moves_rel")):
+            cases[name][cell] = args
     if {"nw_multi", "mea_multi"} & set(kernels):
         cases["nw_multi"], cases["mea_multi"] = {}, {}
         for cell, name, args in wave_multi_cells(this, cuda):
@@ -1815,6 +1839,183 @@ def generic_cells(port, cuda, names=None):
     return cells
 
 
+def sorted_pairs(reads, refs):
+    """The pairs in order of m + n, as the guide and realign buckets sort
+    their lanes (align/guide.py, align/realign.py)."""
+    order = sorted(range(len(reads)), key=lambda i: len(reads[i]) +
+                   len(refs[i]))
+    return [reads[i] for i in order], [refs[i] for i in order]
+
+
+def guide_moves_args(port, guide, width, cuda):
+    """(K1's inputs, lo, m, n) of the guide pairs at band width `width`:
+    R's code bands, band_masks' valid band and shifts, the shipped scores,
+    as align/guide.py builds them, and the lanes' offsets and lengths."""
+    fc, band = sub(port, "ops.fb_circ_cuda"), sub(port, "ops.band")
+    wp = band.padded_band_width(width)
+    gdev = compact(port, *guide, width, GUIDE_STEPS, cuda)
+    xb, yb = fc.expand_rel_cuda(gdev.reads, gdev.refs, gdev.lo, gdev.m,
+                                gdev.n, wp, GUIDE_STEPS)
+    valid, s1, s2 = band.band_masks(gdev.lo, gdev.m, gdev.n, width, wp)
+    return ((tuple(sub(port, "ops.nw").NwParams()), xb, yb, valid, s1, s2,
+             gdev.final_d, gdev.final_k), gdev.lo, gdev.m, gdev.n)
+
+
+def odd_lanes(args, B=4101):
+    """Every tensor of `args` with its lanes (last axis) repeated to B."""
+    import torch
+
+    def wide(t):
+        reps = -(-B // t.shape[-1])
+        return t.repeat(*([1] * (t.dim() - 1)), reps)[..., :B].contiguous()
+    return tuple(wide(t) if torch.is_tensor(t) else t for t in args)
+
+
+def traceback_cells(port, cuda, names=None):
+    """(cell, kernel, its arguments, (the kernel whose pointers it walks,
+    that kernel's arguments) or None) one cell at a time: nw_moves on K1's
+    pointers of the guide batch [7168, 48, 1024] (its pairs sorted by
+    m + n), at widths 93 and 126 (Wp 96, 128) and on its lanes repeated to
+    4101 ("_odd": no multiple of 4, cp.async at a byte shift); mea_moves on
+    D's pointers of the realign bucket [3072, 24, 4096] (sorted), at widths
+    93 and 126 and on 4101 lanes; mea_moves on K4's pointers of the REL
+    batch [3072, 24, 1024] (the generic batch, weights from the REL FB
+    pair's posteriors).  `names`: those cells only."""
+    import torch
+
+    def want(*cells):
+        return names is None or set(cells) & set(names)
+
+    wf = sub(port, "ops.wavefront_cuda")
+    band = sub(port, "ops.band")
+    bucket, _, guide = fused_pairs()
+    guide, bucket = sorted_pairs(*guide), sorted_pairs(*bucket)
+    for width in (40, 93, 126):
+        wp = band.padded_band_width(width)
+        if not want(*(("nw_moves", "nw_moves_odd") if width == 40
+                      else ("nw_moves_wp%d" % wp,))):
+            continue
+        k1, lo, m, n = guide_moves_args(port, guide, width, cuda)
+        ptr, _, state = wf.banded_nw_cuda(*k1)
+        args = (ptr, lo, m, n, state)
+        if width == 40:
+            if want("nw_moves"):
+                yield "nw_moves", "nw_moves", args, ("banded_nw", k1)
+            del k1
+            torch.cuda.empty_cache()
+            if want("nw_moves_odd"):
+                yield "nw_moves_odd", "nw_moves", odd_lanes(args), None
+        else:
+            yield "nw_moves_wp%d" % wp, "nw_moves", args, None
+        del args, ptr, lo, m, n, state
+        torch.cuda.empty_cache()
+    for width in (21, 93, 126):
+        wp = band.padded_band_width(width)
+        if not want(*(("mea_moves", "mea_moves_odd") if width == 21
+                      else ("mea_moves_wp%d" % wp,))):
+            continue
+        dl = bucket_dl_args(port, bucket, width, cuda)
+        ptr, _ = wf.mea_dl_cuda(*dl)
+        args = (ptr, *dl[1:4])
+        if width == 21:
+            if want("mea_moves"):
+                yield "mea_moves", "mea_moves", args, ("mea_dl", dl)
+            del dl
+            torch.cuda.empty_cache()
+            if want("mea_moves_odd"):
+                yield "mea_moves_odd", "mea_moves", odd_lanes(args), None
+        else:
+            del dl
+            yield "mea_moves_wp%d" % wp, "mea_moves", args, None
+        del args, ptr
+        torch.cuda.empty_cache()
+    if not want("mea_moves_rel"):
+        return
+    k4 = mea_cells(port, cuda, ("banded_mea",))["banded_mea"]
+    batch = generic_batch(band)
+    lanes = tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32))
+                  .to(cuda) for a in (batch.lo, batch.m, batch.n))
+    yield ("mea_moves_rel", "mea_moves",
+           (wf.banded_mea_cuda(*k4)[0], *lanes), None)
+
+
+def moves_slab(args, res):
+    """The bytes the traceback kernel streams at its lanes a block and
+    tile (`res`: moves_resources): each block's tiles from its top,
+    min(D1 - 1, its largest m + n), down, the box's Wp pointer rows and lo
+    row of LPB lanes a diagonal; their time at the card's memory rate (the
+    slab floor); the longest block's diagonals."""
+    import torch
+
+    ptr, lo, m, n = args[:4]
+    D1, wp, B = ptr.shape
+    lpb, kt = res["lanes_per_block"], res["diagonals_per_tile"]
+    s = (m.long() + n.long()).cpu()
+    s = torch.cat([s, s.new_zeros((-B) % lpb)]).view(-1, lpb)
+    tops = s.max(1).values.clamp(0, D1 - 1)
+    streamed = int(((tops + kt - 1) // kt).sum()) * kt * lpb * (wp + 4)
+    return {"streamed_bytes": streamed,
+            "slab_ms": 1e3 * streamed / HBM_BYTES_PER_S,
+            "top_diagonals": int(tops.max()), "blocks": len(tops)}
+
+
+def ab_moves(tb, otb, name, args):
+    """nw_moves or mea_moves (`name`) of both checkouts against the plain
+    version, byte for byte, timed, with the bound (the pointer byte and
+    offset of each move made, the stream and the lane arrays), resources
+    and slab; where this checkout's kernel takes TMA, also on copies of
+    the band 4 and 1 bytes into a buffer (so by cp.async at byte shift 0,
+    then 1), timed and byte-equal."""
+    import torch
+
+    kernel, other = getattr(tb, name + "_cuda"), getattr(otb, name + "_cuda")
+    got = kernel(*args)
+    plain = getattr(tb, name + "_plain")(*args)
+    ref = other(*args)
+    D1, wp, B = args[0].shape
+    made = int((tb.unpack_moves(got.cpu().numpy(), D1 - 1)
+                != tb.NO_MOVE).sum())
+    res = tb.moves_resources(name, args[0].device, wp, B)
+    row = {"shape": [D1, wp, B], "moves": made,
+           "bit_equal_plain": bool(torch.equal(got, plain)),
+           "bit_equal_other": bool(torch.equal(got, ref)),
+           **ab(lambda: kernel(*args), lambda: other(*args)),
+           **bound(name, made, 5 * made + nbytes(got, *args[2:])),
+           "resources": res, **moves_slab(args, res)}
+    del plain, ref
+    for at in ((4, 1) if res["route"] == "tma" else ()):
+        buf = torch.empty(args[0].numel() + at, dtype=torch.uint8,
+                          device=args[0].device)
+        band = buf[at:].view(args[0].shape).copy_(args[0])
+        sargs = (band, *args[1:])
+        row["shifted_at%d" % at] = {
+            "ms": time_ms(lambda: kernel(*sargs)),
+            "bit_equal": bool(torch.equal(kernel(*sargs), got))}
+        del buf, band, sargs
+    return row
+
+
+def run_traceback(this, other, cuda, report):
+    """Fills `report` with the traceback group's rows."""
+    import torch
+
+    tb, otb = (sub(p, "ops.traceback_device") for p in (this, other))
+    wf, owf = (sub(p, "ops.wavefront_cuda") for p in (this, other))
+    for cell, name, args, upstream in traceback_cells(this, cuda):
+        report["traceback_" + cell] = ab_moves(tb, otb, name, args)
+        print(json.dumps({"traceback_" + cell:
+                          report["traceback_" + cell]}), flush=True)
+        if upstream is not None:
+            # Must not move: the kernel whose pointers the cell walks.
+            kname, kargs = upstream
+            key = "traceback_unmoved_" + kname
+            report[key] = unmoved(getattr(wf, kname + "_cuda"),
+                                  getattr(owf, kname + "_cuda"), kargs)
+            print(json.dumps({key: report[key]}), flush=True)
+        del args, upstream
+        torch.cuda.empty_cache()
+
+
 def counts_rel(got, want):
     return max(((g.sum(-1) - w.sum(-1)).abs()
                 / w.sum(-1).abs().clamp(min=1e-6)).max().item()
@@ -1832,9 +2033,10 @@ GROUPS = ("fused", "wavefront", "probe", "probe_wavefront", "probe_fused",
           "probe_counts", "probe_cx", "probe_generic", "probe_stored",
           "probe_mea", "probe_scatter", "probe_rel", "counts", "scatter",
           "rel", "serve", "probe_serve", "probe_ckpt", "multi",
-          "probe_multi", "fb_multi", "probe_wavefront_multi")
+          "probe_multi", "fb_multi", "probe_wavefront_multi", "traceback",
+          "probe_traceback")
 DEFAULT_GROUPS = ("fused", "wavefront", "counts", "scatter", "rel", "serve",
-                  "multi", "fb_multi")
+                  "multi", "fb_multi", "traceback")
 # The module of the port that holds each probed kernel's wrapper.
 KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "fb_backward": "ops.fb_cuda",
@@ -1860,7 +2062,9 @@ KERNEL_MODULES = {"mw_forward": "ops.fb_circ_cuda",
                   "scatter_lanesum": "ops.bucket_scatter",
                   **{name: "ops.fb_circ_cuda"
                      for name in SERVE_KERNELS + CKPT_KERNELS},
-                  "mea_dl": "ops.wavefront_cuda"}
+                  "mea_dl": "ops.wavefront_cuda",
+                  "nw_moves": "ops.traceback_device",
+                  "mea_moves": "ops.traceback_device"}
 # The probe group's variants: name -> (the kernel it varies, or a tuple of
 # the kernels it varies, its source under csrc/, edits (old, new) of that
 # source).
@@ -2077,6 +2281,21 @@ PROBES = {
         ("        x[u] = hit ? make_float4(v[0], v[cells], v[2 * cells], "
          "v[3 * cells])",
          "        x[u] = hit ? make_float4(1.f, 1.f, 1.f, 1.f)")]),
+    # The traceback kernels with one part removed (outputs wrong by
+    # design): the producers stop after the ring's first stages and the
+    # walker waits only for those (the walk alone: the serial floor), or
+    # the walker waits on and releases every tile without walking it (the
+    # stream alone).
+    "tb_no_stream": (("nw_moves", "mea_moves"), "traceback.cu", [
+        ("    for (int it = 0; it < tiles; ++it) {\n"
+         "      const int s = it % S, d0",
+         "    for (int it = 0; it < min(tiles, S); ++it) {\n"
+         "      const int s = it % S, d0"),
+        ("    mk::mbar_wait(full + s, (it / S) & 1);",
+         "    if (it < S) mk::mbar_wait(full + s, (it / S) & 1);")]),
+    "tb_no_walk": (("nw_moves", "mea_moves"), "traceback.cu", [
+        ("    for (int qb = KT / 4 - 1; qb >= 0; --qb) {",
+         "    for (int qb = KT / 4 - 1; qb >= 0 && tiles < 0; --qb) {")]),
 }
 
 
@@ -2771,7 +2990,10 @@ RUNS = {"fused": run_fused, "wavefront": run_wavefront, "probe": run_probe,
         "probe_wavefront_multi": lambda *a: run_probe(
             *a, kernels=("nw_multi", "mea_multi")),
         "counts": run_counts, "scatter": run_scatter, "rel": run_rel,
-        "serve": run_serve, "multi": run_multi, "fb_multi": run_fb_multi}
+        "serve": run_serve, "multi": run_multi, "fb_multi": run_fb_multi,
+        "traceback": run_traceback,
+        "probe_traceback": lambda *a: run_probe(
+            *a, kernels=("nw_moves", "mea_moves"))}
 
 if __name__ == "__main__":
     sys.exit(main(sys.argv))

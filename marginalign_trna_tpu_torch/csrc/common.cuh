@@ -132,11 +132,11 @@ __device__ __forceinline__ int swizzled(int q, int w) {
   return (o ^ (((o >> 7) & M) << 4)) >> 2;
 }
 
-// Sets barrier bar up for one arrival a phase (one thread; then
+// Sets barrier bar up for `count` arrivals a phase (one thread; then
 // mbar_init_fence and a block barrier).
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count = 1) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)), "r"(1)
+                   smem_addr(bar)), "r"(count)
                : "memory");
 }
 __device__ __forceinline__ void mbar_init_fence() {
@@ -163,6 +163,32 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       :: "r"(smem_addr(dst)), "l"((uint64_t)map), "r"(x), "r"(y), "r"(z),
          "r"(smem_addr(bar))
       : "memory");
+}
+
+// Copies the box at (x, y) of the two-dimensional `map` into dst; its
+// bytes land on bar.
+__device__ __forceinline__ void tma_load2(void* dst, const CUtensorMap* map,
+                                          int x, int y, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"((uint64_t)map), "r"(x), "r"(y),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Arrives on bar, this thread's earlier writes released to its waiters.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n .reg .b64 st;\n mbarrier.arrive.shared::cta.b64 st, [%0];\n}\n" ::
+          "r"(smem_addr(bar)) : "memory");
+}
+
+// Arrives on bar once every earlier cp.async copy of this thread has
+// landed; the arrival counts towards the barrier's init count.
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(smem_addr(bar)) : "memory");
 }
 
 // Waits until the phase of bar with this parity has completed.
@@ -216,6 +242,42 @@ inline bool band_map(CUtensorMap* m, const float* band, int D1, int Wp,
              m, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<float*>(band),
              dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of a byte band [D1, Wp, B] for boxes [kt][Wp][lpb] (lpb
+// a multiple of 16), unswizzled: the box's rows of lpb bytes lie one after the
+// other in shared memory.  False where the band is not 16-byte aligned or
+// B % 16 (row strides of whole 16-byte pieces); the caller sees to the
+// encoder being there.  Boxes past the band's ends read zeros.
+inline bool byte_band_map(CUtensorMap* m, const uint8_t* band, int D1,
+                          int Wp, int B, int lpb, int kt) {
+  if (reinterpret_cast<uintptr_t>(band) % 16 || B % 16) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)B, (cuuint64_t)Wp, (cuuint64_t)D1};
+  const cuuint64_t strides[2] = {(cuuint64_t)B, (cuuint64_t)Wp * B};
+  const cuuint32_t box[3] = {(cuuint32_t)lpb, (cuuint32_t)Wp,
+                             (cuuint32_t)kt};
+  const cuuint32_t one[3] = {1, 1, 1};
+  return tensor_map_encoder()(
+             m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<uint8_t*>(band),
+             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor map of an int32 array [D1, B] for boxes [kt][lpb]; false
+// where it is not 16-byte aligned or B % 4.
+inline bool lane_rows_map(CUtensorMap* m, const int32_t* a, int D1, int B,
+                          int lpb, int kt) {
+  if (reinterpret_cast<uintptr_t>(a) % 16 || B % 4) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)B, (cuuint64_t)D1};
+  const cuuint64_t strides[1] = {(cuuint64_t)B * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)lpb, (cuuint32_t)kt};
+  const cuuint32_t one[2] = {1, 1};
+  return tensor_map_encoder()(
+             m, CU_TENSOR_MAP_DATA_TYPE_INT32, 2, const_cast<int32_t*>(a),
+             dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

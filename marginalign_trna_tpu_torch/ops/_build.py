@@ -178,6 +178,9 @@ _QUERIES: Dict[str, List] = {
     "scatter_lanesum_info": [_I, _I, _I, _P],
     "scatter_lanesum_plan": [_I, _I, _I, _P],
     "expand_streams_info": [_I, _P],
+    # nw, Wp, B, out[8]: out[5], diagonals a tile, stages, route
+    # (csrc/traceback.cu; ops/traceback_device.py `moves_resources`)
+    "moves_info": [_I] * 3 + [_P],
     "expand_rel_info": [_I, _P],
 }
 

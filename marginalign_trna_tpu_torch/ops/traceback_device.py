@@ -7,7 +7,10 @@ d = D1 - 1 .. 1 and makes at most one move a diagonal (an M move skips
 d - 1 entirely); only the 2-bit move stream [ceil((D1 - 1) / 4), B] comes
 to the host, into a pinned buffer, where the pointer band it replaces is
 Wp x 4 times larger.  Each kernel writes the packed stream directly
-(`nw_moves_device` / `mea_moves_device` fused with `pack_moves`); each
+(`nw_moves_device` / `mea_moves_device` fused with `pack_moves`): a block
+of 32 lanes streams its slabs of the band and of lo into shared memory, a
+tile of diagonals at a time from its longest lane's m + n down, ahead of
+the warp that walks them (csrc/traceback.cu).  Each
 plain version is the scan step for step, vectorised over lanes (one torch
 step a diagonal), followed by `pack_moves`.
 
@@ -25,7 +28,8 @@ A band row outside [0, Wp) reads pointer 0, as the scans' one-hot does.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+import ctypes
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -139,6 +143,29 @@ def mea_moves_cuda(ptrs, lo, m, n) -> torch.Tensor:
     """The mea_moves kernel (csrc/traceback.cu); same output as the plain
     version."""
     return _moves_cuda("mea_moves", ptrs, lo, m, n)
+
+
+# The kernels' copy routes (csrc/traceback.cu), by the band's alignment:
+# TMA boxes (B % 16 == 0, band and lo 16-byte aligned) or cp.async of the
+# aligned words that hold each row, read at its byte shift.
+ROUTES = ("tma", "shifted")
+
+
+def moves_resources(name: str, device: torch.device, wp: int,
+                    B: int) -> Dict[str, object]:
+    """What a launch of nw_moves or mea_moves (`name`) over B lanes at band
+    width `wp` gets on `device`, its band and lo 16-byte aligned (a band at
+    another offset takes the "shifted" route whatever B): registers per
+    thread, shared memory per block, blocks per SM, threads per block,
+    local memory per thread (spills), and the kernel's diagonals a tile,
+    stages of its ring, copy route and lanes a block."""
+    out = (ctypes.c_int * 9)()
+    _build.query("moves_info", device, int(name == "nw_moves"), wp, B,
+                 ctypes.addressof(out))
+    res = dict(zip(("registers", "smem_per_block", "blocks_per_sm",
+                    "threads_per_block", "local_bytes",
+                    "diagonals_per_tile", "stages"), out))
+    return {**res, "route": ROUTES[out[7]], "lanes_per_block": out[8]}
 
 
 def nw_moves(ptrs, lo, m, n, final_state) -> torch.Tensor:

@@ -2493,3 +2493,95 @@ def test_moves_kernels_short_bands(cuda, D1):
     fs = t(rng.integers(0, 3, B).astype(np.int32))
     _check_moves("nw_moves", (ptr, t(lo), t(m), t(n), fs))
     _check_moves("mea_moves", ((ptr % 3).contiguous(), t(lo), t(m), t(n)))
+
+
+def _moves_band(cuda, name, D1, wp, B, seed, band=None):
+    """Random pointers [D1, Wp, B] (every NW bit pattern; MEA 0-2) over B
+    lanes sorted by m + n as the guide and realign buckets sort them, but
+    with every eleventh lane of 0-3 bases, so that lanes of very different
+    m + n share a block and early blocks top out far below D1 - 1; from 8
+    lanes on, lanes with m = 0, n = 0, m = n = 0 and one past D1; offsets
+    that follow each lane's diagonal (walks still leave the band).  `band`:
+    a uint8 tensor of at least D1 Wp B bytes to hold the pointers."""
+    rng = np.random.default_rng(seed)
+    sums = np.sort(rng.integers(0, D1, B))
+    sums[5::11] = rng.integers(0, 4, len(sums[5::11]))
+    m = np.array([int(rng.integers(0, s + 1)) for s in sums], np.int64)
+    n = sums - m
+    if B >= 8:
+        for b, (mb, nb) in enumerate(((0, 0), (0, 7), (9, 0), (D1, 5))):
+            m[b], n[b] = mb, nb
+    d = np.arange(D1)[:, None]
+    lo = np.maximum(0, d * m[None, :] // np.maximum(1, m + n)[None, :]
+                    - wp // 2)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    hi = 16 if name == "nw_moves" else 3
+    ptr = torch.randint(0, hi, (D1, wp, B), generator=gen, device=cuda,
+                        dtype=torch.uint8)
+    if band is not None:
+        ptr = band[:ptr.numel()].view(D1, wp, B).copy_(ptr)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(cuda)
+    args = (ptr, t(lo), t(m), t(n))
+    if name == "nw_moves":
+        args += (t(rng.integers(0, 3, B)),)
+    return args
+
+
+@pytest.mark.parametrize("B", [1, 31, 33, 1024, 4101])
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+@pytest.mark.parametrize("name", ["nw_moves", "mea_moves"])
+def test_moves_kernels_widths_and_lanes(cuda, name, wp, B):
+    """Band widths 24 and 48 (the paths') and 96 and 128 (tiles of 8
+    diagonals), over 1, 31, 33, 1024 and 4101 lanes (1024: the TMA route;
+    the others no multiple of 4: cp.async at a byte shift), D1 - 1 = 299
+    (no multiple of 4 or a tile): byte-equal to the plain versions."""
+    _check_moves(name, _moves_band(cuda, name, 300, wp, B, wp + B))
+
+
+@pytest.mark.parametrize("B,route", [(1040, "tma"), (1036, "shifted"),
+                                     (1037, "shifted")])
+@pytest.mark.parametrize("name", ["nw_moves", "mea_moves"])
+def test_moves_kernels_every_route(cuda, name, B, route):
+    """Each copy route, by the lane count (a multiple of 16: TMA; of 4 or
+    of neither: cp.async of aligned words at a byte shift of 0, or of 0 to
+    3), on aligned bands: byte-equal to the plain versions."""
+    from marginalign_trna_tpu_torch.ops import traceback_device as tb
+
+    wp = 48 if name == "nw_moves" else 24
+    assert tb.moves_resources(name, cuda, wp, B)["route"] == route
+    _check_moves(name, _moves_band(cuda, name, 257, wp, B, B))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4, 16])
+@pytest.mark.parametrize("name", ["nw_moves", "mea_moves"])
+def test_moves_kernels_unaligned_band(cuda, name, offset):
+    """A band that starts 1, 2, 4 or 16 bytes into its buffer over 1024
+    lanes (the route by alignment: cp.async at a byte shift below 16
+    bytes, TMA at 16): byte-equal to the plain versions."""
+    D1, wp, B = 205, 48, 1024
+    buf = torch.empty(offset + D1 * wp * B, dtype=torch.uint8, device=cuda)
+    args = _moves_band(cuda, name, D1, wp, B, offset, band=buf[offset:])
+    assert args[0].data_ptr() % 16 == offset % 16
+    _check_moves(name, args)
+
+
+@pytest.mark.parametrize("wp", [24, 48, 96, 128])
+@pytest.mark.parametrize("name", ["nw_moves", "mea_moves"])
+def test_moves_resources(cuda, name, wp):
+    """The traceback kernels' launches over 1024, 1036 and 4101 lanes (the
+    TMA route, then cp.async at a byte shift): no spills, 32 lanes a
+    block, a ring of 2 to 8 stages of 16-diagonal tiles (8 above Wp 64),
+    a producer warp for TMA and four for cp.async beside the walker."""
+    from marginalign_trna_tpu_torch.ops import traceback_device as tb
+
+    for B, route in ((1024, "tma"), (1036, "shifted"), (4101, "shifted")):
+        res = tb.moves_resources(name, cuda, wp, B)
+        assert res["route"] == route, res
+        assert res["local_bytes"] == 0, res
+        assert 2 <= res["stages"] <= 8, res
+        assert res["diagonals_per_tile"] == (16 if wp <= 64 else 8), res
+        assert res["blocks_per_sm"] >= 1, res
+        assert res["threads_per_block"] == (64 if route == "tma" else 160)
+        assert res["lanes_per_block"] == 32, res
